@@ -5,5 +5,7 @@ counterpart there. The hot ops are hand-written CUDA kernels (``csrc/``,
 built and loaded by :mod:`neuralsim_torch.kernels`); each sits beside a plain
 PyTorch version of the same function, which runs for tensors on the CPU.
 
-Entry point: :func:`neuralsim_torch.tools.build.build_renderer`.
+Entry points: :func:`neuralsim_torch.tools.build.build_renderer` (render),
+:func:`neuralsim_torch.tools.build.build_trainer` and
+:func:`neuralsim_torch.tools.train.train` (train).
 """

@@ -49,3 +49,11 @@ def load_jax_params(module_or_params: Union[nn.Module, Dict[str, torch.Tensor]],
             raise ValueError(f"{name}: JAX shape {tuple(arr.shape)} vs port "
                              f"{tuple(dst.shape)}")
         dst.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+
+
+def named_jax_leaves(tree: Any, model_ids: Mapping[str, str]) -> Dict[str, np.ndarray]:
+    """Name the leaves of a JAX tree keyed by role (parameters, or gradients of
+    the same structure) as ``nn.ModuleDict.named_parameters()`` names the
+    port's: ``model_ids`` maps each JAX top-level key to the port's model id
+    (``{"cr": "Main", "sky": "Sky"}``), so a test compares leaf by leaf."""
+    return flatten_tree({model_ids[k]: v for k, v in tree.items()})

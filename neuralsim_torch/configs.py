@@ -1,11 +1,15 @@
 """Config dicts for the port, so it runs where PyYAML is missing.
 
 ``SYNTHETIC_OBJECT`` mirrors configs/synthetic_object.yaml (dataset, asset
-bank and renderer keys): NeuS object reconstruction on the procedural
-synthetic scene, an LoTD of 6 stacked-CP and 2 hash levels and a sky MLP.
+bank, renderer and training keys): NeuS object reconstruction on the
+procedural synthetic scene, an LoTD of 6 stacked-CP and 2 hash levels and a
+sky MLP. ``${a.b}`` references stay as written, as in the YAML;
+:func:`resolve_refs` replaces them.
 """
 from __future__ import annotations
 
+import copy
+import re
 from typing import Any, Dict
 
 SYNTHETIC_OBJECT: Dict[str, Any] = {
@@ -43,10 +47,49 @@ SYNTHETIC_OBJECT: Dict[str, Any] = {
         },
     },
     "renderer": {"cr_class": "Main", "sky_class": "Sky"},
+    "training": {
+        "num_iters": 1500,
+        "n_rays": 2048,
+        "uniform_sample_n": 512,
+        "i_log": 100,
+        "i_val": 500,
+        "val_downscale": 2,
+        "with_mask": True,
+        "losses": {
+            "rgb": {"fn_type": "huber", "fn_param": {"delta": 0.1}, "w": 10.0},
+            "occupancy_mask": {"w": 0.3},
+            "eikonal": {"w": 0.01, "on_render_ratio": 0.3},
+            "sparsity": {"w": 0.002},
+        },
+    },
 }
 
 # the top-level keys of the YAML file that SYNTHETIC_OBJECT mirrors
-MIRRORED_KEYS = ("seed", "dataset_cfg", "assetbank_cfg", "renderer")
+MIRRORED_KEYS = ("seed", "dataset_cfg", "assetbank_cfg", "renderer", "training")
+
+_REF = re.compile(r"^\$\{([\w.]+)\}$")
+
+
+def resolve_refs(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """A deep copy of ``cfg`` in which every string value ``${a.b.c}`` is
+    replaced by the value at that dotted path of ``cfg``."""
+    root = copy.deepcopy(cfg)
+
+    def lookup(path: str) -> Any:
+        node: Any = root
+        for key in path.split("."):
+            node = node[key]
+        return node
+
+    def walk(node: Any) -> Any:
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        m = _REF.match(node) if isinstance(node, str) else None
+        return walk(lookup(m.group(1))) if m else node
+
+    return walk(root)
 
 
 def load_config(path: str) -> Dict[str, Any]:

@@ -25,6 +25,20 @@
 // threads of a warp (neighbouring points) store to neighbouring addresses. A
 // grid-stride loop over a capped grid keeps the per-block line load small
 // against the output traffic.
+//
+// Backward (lotd_cp_stacked_bwd), the gradient of both outputs into the lines
+// (JAX differentiates the same function; the on-render eikonal loss trains
+// through the jacobian). Per point, feature and axis, with o1, o2 the other
+// two axes:
+//   d f_ax = d_out * f_o1 * f_o2 + d_jac[o1] * g_o1 * f_o2 + d_jac[o2] * g_o2 * f_o1
+//   d g_ax = d_jac[ax] * f_o1 * f_o2
+//   d line[ax, f, lo + k] += d f_ax * w_k + d g_ax * s_k * (R-1),   k = 0, 1
+// The gradient is taken at the bf16-rounded line values and accumulated in
+// f32. No gradient goes to the positions. What bounds it: bytes (it reads
+// 16 * C cotangent bytes per point); what threatens it is the target, only
+// 3*F*R floats for up to 196,608 points, where global atomics would
+// serialise. So every block sums into a copy in shared memory (f32 shared
+// atomics) and adds its copy to the global gradient once at the end.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -97,6 +111,69 @@ __global__ void cp_stacked_kernel(const __nv_bfloat16* __restrict__ lines,  // [
   }
 }
 
+__global__ void cp_stacked_bwd_kernel(const __nv_bfloat16* __restrict__ lines,  // [3, F, R]
+                                      const float* __restrict__ pos01,          // [N, 3]
+                                      const int* __restrict__ rows,             // [F]
+                                      const float* __restrict__ d_out,          // [C, N] or null
+                                      const float* __restrict__ d_jac,          // [3, C, N] or null
+                                      float* __restrict__ d_lines,              // [3, F, R], zeroed
+                                      int N, int F, int R, int C) {
+  extern __shared__ float sl[];  // [3, F, R] line values, then [3, F, R] gradient sums
+  float* sg = sl + D * F * R;
+  for (int i = threadIdx.x; i < D * F * R; i += blockDim.x) {
+    sl[i] = __bfloat162float(lines[i]);
+    sg[i] = 0.f;
+  }
+  __syncthreads();
+  const float rm1 = (float)(R - 1);
+  const size_t plane = (size_t)C * N;
+  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N;
+       n += gridDim.x * blockDim.x) {
+    int lo[D];
+    float w0[D], w1[D], s0[D], s1[D];
+#pragma unroll
+    for (int ax = 0; ax < D; ++ax) {
+      float x = fminf(fmaxf(pos01[(size_t)n * D + ax], 0.f), 1.f);
+      float pos = __fmul_rn(x, rm1);
+      int l = min((int)floorf(pos), R - 2);
+      l = max(l, 0);
+      float d0 = __fsub_rn(pos, (float)l);
+      float d1 = __fsub_rn(pos, (float)(l + 1));
+      lo[ax] = l;
+      w0[ax] = tent(d0);
+      w1[ax] = tent(d1);
+      s0[ax] = tent_slope(d0) * rm1;
+      s1[ax] = tent_slope(d1) * rm1;
+    }
+    for (int f = 0; f < F; ++f) {
+      float fa[D], ga[D], gj[D];
+      const size_t o = (size_t)__ldg(rows + f) * N + n;
+      const float go = d_out != nullptr ? d_out[o] : 0.f;
+#pragma unroll
+      for (int ax = 0; ax < D; ++ax) {
+        const float* line = sl + (ax * F + f) * R + lo[ax];
+        float a = line[0], b = line[1];
+        fa[ax] = a * w0[ax] + b * w1[ax];
+        ga[ax] = a * s0[ax] + b * s1[ax];
+        gj[ax] = d_jac != nullptr ? d_jac[ax * plane + o] : 0.f;
+      }
+#pragma unroll
+      for (int ax = 0; ax < D; ++ax) {
+        const int o1 = (ax + 1) % D, o2 = (ax + 2) % D;
+        const float dfa = go * fa[o1] * fa[o2] + gj[o1] * ga[o1] * fa[o2]
+                          + gj[o2] * ga[o2] * fa[o1];
+        const float dga = gj[ax] * fa[o1] * fa[o2];
+        float* g = sg + (ax * F + f) * R + lo[ax];
+        atomicAdd(g, dfa * w0[ax] + dga * s0[ax]);
+        atomicAdd(g + 1, dfa * w1[ax] + dga * s1[ax]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < D * F * R; i += blockDim.x)
+    if (sg[i] != 0.f) atomicAdd(d_lines + i, sg[i]);
+}
+
 }  // namespace
 
 extern "C" int lotd_cp_stacked_fwd(const void* lines, const void* pos01, const void* rows,
@@ -114,5 +191,23 @@ extern "C" int lotd_cp_stacked_fwd(const void* lines, const void* pos01, const v
   cp_stacked_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)lines, (const float*)pos01, (const int*)rows, (float*)out,
       (float*)jac, N, F, R, C);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lotd_cp_stacked_bwd(const void* lines, const void* pos01, const void* rows,
+                                   const void* d_out, const void* d_jac, void* d_lines, int N,
+                                   int F, int R, int C, void* stream) {
+  const int threads = 256;
+  int blocks = (N + threads - 1) / threads;
+  blocks = blocks < 1 ? 1 : (blocks > 132 * 2 ? 132 * 2 : blocks);
+  size_t smem = (size_t)2 * D * F * R * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        cp_stacked_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cp_stacked_bwd_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)lines, (const float*)pos01, (const int*)rows,
+      (const float*)d_out, (const float*)d_jac, (float*)d_lines, N, F, R, C);
   return (int)cudaGetLastError();
 }

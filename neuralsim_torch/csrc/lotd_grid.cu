@@ -25,6 +25,15 @@
 // One thread per point walks the levels; the per-level metadata is a tiny
 // int32 table read through the read-only cache.
 // Sums use explicit _rn operations so no FMA changes the JAX rounding.
+//
+// Backward (lotd_grid_bwd), the gradient of both outputs into the table: the
+// same corners, weights, hash and clamp as the forward, and per point, level,
+// corner and feature
+//   d table[offset + f*size + row] += w * d_out[f] + res * sum_i dw_i * d_jac[i][f]
+// as an f32 atomicAdd in device memory (hash collisions and neighbouring
+// points share rows, so the sum order, and with it the last bits, change from
+// run to run). What bounds it: the atomics' throughput in L2 (the levels'
+// gradients, 256 KB each, stay there); by bytes it reads 16 * C per point.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -120,6 +129,87 @@ __global__ void grid_kernel(const float* __restrict__ table,
   }
 }
 
+__global__ void grid_bwd_kernel(const float* __restrict__ pos01,  // [N, 3]
+                                const int* __restrict__ meta,     // [L, 6]
+                                const float* __restrict__ d_out,  // [C, N] or null
+                                const float* __restrict__ d_jac,  // [3, C, N] or null
+                                float* __restrict__ d_table,      // flat, zeroed
+                                int N, int C, int L) {
+  const size_t plane = (size_t)C * N;
+  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N;
+       n += gridDim.x * blockDim.x) {
+    float x[D];
+#pragma unroll
+    for (int ax = 0; ax < D; ++ax)
+      x[ax] = fminf(fmaxf(pos01[(size_t)n * D + ax], 0.f), 1.f);
+    for (int l = 0; l < L; ++l) {
+      const int res = meta[l * META + 0];
+      const int size = meta[l * META + 1];
+      const int offset = meta[l * META + 2];
+      const int nf = meta[l * META + 3];
+      const int is_hash = meta[l * META + 4];
+      const int col = meta[l * META + 5];
+      const float fres = (float)res;
+      int cell[D];
+      float frac[D];
+#pragma unroll
+      for (int ax = 0; ax < D; ++ax) {
+        float pos = __fmul_rn(x[ax], fres);
+        float c = fminf(floorf(pos), (float)(res - 1));
+        cell[ax] = (int)c;
+        frac[ax] = __fsub_rn(pos, c);
+      }
+      int rows[8];
+      float w[8], dw[8][D];
+#pragma unroll
+      for (int corner = 0; corner < 8; ++corner) {
+        float aw[D];
+        int ci[D];
+#pragma unroll
+        for (int ax = 0; ax < D; ++ax) {
+          int b = (corner >> ax) & 1;
+          aw[ax] = b ? frac[ax] : 1.f - frac[ax];
+          ci[ax] = cell[ax] + b;
+        }
+        w[corner] = aw[0] * aw[1] * aw[2];
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          float v = ((corner >> i) & 1) ? fres : -fres;
+#pragma unroll
+          for (int j = 0; j < D; ++j)
+            if (j != i) v *= aw[j];
+          dw[corner][i] = v;
+        }
+        int row;
+        if (is_hash) {
+          uint32_t h = (uint32_t)ci[0] * kPrimes[0];
+          h ^= (uint32_t)ci[1] * kPrimes[1];
+          h ^= (uint32_t)ci[2] * kPrimes[2];
+          row = (int)(h % (uint32_t)size);
+        } else {
+          row = ci[0] + ci[1] * (res + 1) + ci[2] * (res + 1) * (res + 1);
+        }
+        rows[corner] = min(max(row, 0), size - 1);
+      }
+      for (int f = 0; f < nf; ++f) {
+        const size_t o = (size_t)(col + f) * N + n;
+        const float go = d_out != nullptr ? d_out[o] : 0.f;
+        float g0 = 0.f, g1 = 0.f, g2 = 0.f;
+        if (d_jac != nullptr) {
+          g0 = d_jac[o];
+          g1 = d_jac[plane + o];
+          g2 = d_jac[2 * plane + o];
+        }
+        float* tf = d_table + offset + (size_t)f * size;
+#pragma unroll
+        for (int corner = 0; corner < 8; ++corner)
+          atomicAdd(tf + rows[corner], w[corner] * go + dw[corner][0] * g0
+                                           + dw[corner][1] * g1 + dw[corner][2] * g2);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int lotd_grid_fwd(const void* table, const void* pos01, const void* meta,
@@ -130,5 +220,17 @@ extern "C" int lotd_grid_fwd(const void* table, const void* pos01, const void* m
   grid_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const float*)pos01, (const int*)meta, (float*)out,
       (float*)jac, N, C, L);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lotd_grid_bwd(const void* pos01, const void* meta, const void* d_out,
+                             const void* d_jac, void* d_table, int N, int C, int L,
+                             void* stream) {
+  const int threads = 256;
+  int blocks = (N + threads - 1) / threads;
+  blocks = blocks < 1 ? 1 : (blocks > 132 * 16 ? 132 * 16 : blocks);
+  grid_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)pos01, (const int*)meta, (const float*)d_out, (const float*)d_jac,
+      (float*)d_table, N, C, L);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// K6 volume_composite: alpha -> transmittance -> volume integration, forward.
+// K6 volume_composite: alpha -> transmittance -> volume integration, forward
+// and backward.
 //
 // Replaces: neuralsim_tpu/ops/segment.py alpha_to_vw (lines 43-54) with
 //   exclusive_cumprod (lines 30-40), and neuralsim_tpu/renderers/buffers.py
@@ -18,6 +19,21 @@
 // every running sum in registers; the per-ray rows are read by one thread
 // each, which relies on L1 to merge the strided reads (a warp-per-ray layout
 // with a shuffle scan is the faster form, left for later).
+//
+// Backward (volume_composite_bwd): cotangents of vw [N, S], mask_volume,
+// depth_volume [N], rgb_volume, normals_volume [N, 3] -> d alpha [N, S],
+// d rgb, d nablas [N, S, 3]. With q_i = 1 - a_i + 1e-10, T_i = prod_{j<i} q_j,
+// v_i = a_i T_i, and g_i the whole cotangent reaching v_i
+//   g_i = g_vw_i + mask_i * (g_mask + g_depth * (t_i - [vsum >= 1e-8] * depth) / den
+//                            + g_rgb . rgb_i + g_nrm . nablas_i),  den = max(vsum, 1e-8)
+// the product rule gives d a_i = T_i * (g_i - B_i), where
+//   B_i = sum_{k>i} g_k a_k prod_{i<j<k} q_j,  so  B_{i-1} = g_i a_i + q_i B_i.
+// That form divides by nothing, so a lane with alpha == 1 (q = 1e-10) stays
+// exact where "suffix sum over q_i" would divide by 1e-10. One thread per ray
+// sweeps forward once, leaving T_i in the d_alpha row (its own scratch) and
+// summing vsum and dsum as the forward does, then walks backward. Masked lanes
+// get zero. No gradient goes to t. What bounds it: bytes (37 read and 28
+// written per sample).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,6 +95,73 @@ __global__ void composite_kernel(const float* __restrict__ t,        // [N, S]
   }
 }
 
+__global__ void composite_bwd_kernel(const float* __restrict__ t,        // [N, S]
+                                     const uint8_t* __restrict__ mask,   // [N, S]
+                                     const float* __restrict__ alpha,    // [N, S]
+                                     const float* __restrict__ rgb,      // [N, S, 3] or null
+                                     const float* __restrict__ nablas,   // [N, S, 3] or null
+                                     const float* __restrict__ g_vw,     // [N, S]
+                                     const float* __restrict__ g_mask,   // [N]
+                                     const float* __restrict__ g_depth,  // [N]
+                                     const float* __restrict__ g_rgb,    // [N, 3] or null
+                                     const float* __restrict__ g_nrm,    // [N, 3] or null
+                                     float* __restrict__ d_alpha,        // [N, S]
+                                     float* __restrict__ d_rgb,          // [N, S, 3] or null
+                                     float* __restrict__ d_nablas,       // [N, S, 3] or null
+                                     int N, int S) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= N) return;
+  const size_t o = (size_t)r * S;
+  float trans = 1.f, vsum = 0.f, dsum = 0.f;
+  for (int i = 0; i < S; ++i) {
+    const bool m = mask[o + i] != 0;
+    const float a = m ? alpha[o + i] : 0.f;
+    const float v = __fmul_rn(a, trans);
+    d_alpha[o + i] = trans;
+    trans = __fmul_rn(trans, __fadd_rn(__fsub_rn(1.f, a), 1e-10f));
+    if (!m) continue;
+    vsum = __fadd_rn(vsum, v);
+    dsum = __fadd_rn(dsum, __fmul_rn(v, t[o + i]));
+  }
+  const float den = fmaxf(vsum, 1e-8f);
+  const float gm = g_mask[r];
+  const float gd = g_depth[r] / den;
+  const float depth = vsum >= 1e-8f ? dsum / den : 0.f;
+  float gc[3] = {0.f, 0.f, 0.f}, gn[3] = {0.f, 0.f, 0.f};
+  if (rgb != nullptr)
+    for (int k = 0; k < 3; ++k) gc[k] = g_rgb[r * 3 + k];
+  if (nablas != nullptr)
+    for (int k = 0; k < 3; ++k) gn[k] = g_nrm[r * 3 + k];
+  float B = 0.f;
+  for (int i = S - 1; i >= 0; --i) {
+    const bool m = mask[o + i] != 0;
+    const float T = d_alpha[o + i];
+    if (!m) {  // a = 0 and q = 1 + 1e-10, which is 1 in f32: B passes through
+      d_alpha[o + i] = 0.f;
+      if (rgb != nullptr)
+        for (int k = 0; k < 3; ++k) d_rgb[(o + i) * 3 + k] = 0.f;
+      if (nablas != nullptr)
+        for (int k = 0; k < 3; ++k) d_nablas[(o + i) * 3 + k] = 0.f;
+      continue;
+    }
+    const float a = alpha[o + i];
+    const float v = a * T;
+    float g = g_vw[o + i] + gm + gd * (t[o + i] - depth);
+    if (rgb != nullptr) {
+      const float* c = rgb + (o + i) * 3;
+      g += gc[0] * c[0] + gc[1] * c[1] + gc[2] * c[2];
+      for (int k = 0; k < 3; ++k) d_rgb[(o + i) * 3 + k] = v * gc[k];
+    }
+    if (nablas != nullptr) {
+      const float* c = nablas + (o + i) * 3;
+      g += gn[0] * c[0] + gn[1] * c[1] + gn[2] * c[2];
+      for (int k = 0; k < 3; ++k) d_nablas[(o + i) * 3 + k] = v * gn[k];
+    }
+    d_alpha[o + i] = T * (g - B);
+    B = g * a + __fadd_rn(__fsub_rn(1.f, a), 1e-10f) * B;
+  }
+}
+
 }  // namespace
 
 extern "C" int volume_composite_fwd(const void* t, const void* mask, const void* alpha,
@@ -92,5 +175,20 @@ extern "C" int volume_composite_fwd(const void* t, const void* mask, const void*
       (const float*)t, (const uint8_t*)mask, (const float*)alpha, (const float*)rgb,
       (const float*)nablas, (float*)vw, (float*)mask_volume, (float*)depth_volume,
       (float*)rgb_volume, (float*)normals_volume, (int*)samples_cnt, N, S);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int volume_composite_bwd(const void* t, const void* mask, const void* alpha,
+                                    const void* rgb, const void* nablas, const void* g_vw,
+                                    const void* g_mask, const void* g_depth, const void* g_rgb,
+                                    const void* g_nrm, void* d_alpha, void* d_rgb,
+                                    void* d_nablas, int N, int S, void* stream) {
+  const int threads = 32;
+  const int blocks = N > 0 ? (N + threads - 1) / threads : 1;
+  composite_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)t, (const uint8_t*)mask, (const float*)alpha, (const float*)rgb,
+      (const float*)nablas, (const float*)g_vw, (const float*)g_mask, (const float*)g_depth,
+      (const float*)g_rgb, (const float*)g_nrm, (float*)d_alpha, (float*)d_rgb,
+      (float*)d_nablas, N, S);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,13 @@ Both kernels also give the analytic jacobian d(features)/d(x01) that the NeuS
 field turns into normals. Each kernel's wrapper below takes its plain PyTorch
 version for tensors on the CPU and launches the kernel for CUDA tensors.
 
+Training: both outputs carry gradients into ``table`` (the on-render eikonal
+loss trains through the jacobian). On the CPU autograd differentiates the
+plain versions; on the card one ``torch.autograd.Function`` runs the two
+forward kernels and, in its backward, the ``lotd_cp_stacked.bwd`` and
+``lotd_grid.bwd`` kernels. No gradient goes to the positions: rays are data
+and sample depths are detached in this slice (pose refinement will add it).
+
 Not ported yet: per-level CP (a single CP level, or ``NEURALSIM_CP_STACKED=0``),
 the batched ``bidx`` tables, 4-D inputs, the level anneal window, and the
 ``NEURALSIM_CP_*`` environment knobs.
@@ -40,6 +47,10 @@ K1 = kernels.register("lotd_cp_stacked", "neuralsim_torch/csrc/lotd_cp_stacked.c
                       "neuralsim_tpu/fields/encodings/lotd.py:346")
 K3 = kernels.register("lotd_grid", "neuralsim_torch/csrc/lotd_grid.cu",
                       "neuralsim_tpu/fields/encodings/lotd.py:410")
+K1_BWD = kernels.register("lotd_cp_stacked.bwd", "neuralsim_torch/csrc/lotd_cp_stacked.cu",
+                          "neuralsim_tpu/fields/encodings/lotd.py:346")
+K3_BWD = kernels.register("lotd_grid.bwd", "neuralsim_torch/csrc/lotd_grid.cu",
+                          "neuralsim_tpu/fields/encodings/lotd.py:410")
 
 
 class LevelSpec:
@@ -102,9 +113,23 @@ def _tent_slope(delta: torch.Tensor) -> torch.Tensor:
     return torch.where(delta.abs() < 1.0, -torch.sign(delta), torch.zeros_like(delta))
 
 
+class _RoundBf16(torch.autograd.Function):
+    """x rounded to bf16, as float32; the gradient passes unrounded (a cast's
+    own backward would round the gradient to bf16 as well)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
 def lotd_cp_stacked_plain(lines: torch.Tensor, pos01: torch.Tensor, rows: torch.Tensor,
                           out: torch.Tensor, jac: Optional[torch.Tensor] = None) -> None:
-    """Plain version of K1. lines: [3, F, R] bf16; pos01: [N, 3] float32.
+    """Plain version of K1. lines: [3, F, R] bf16 (or float32 values already
+    rounded to bf16, when autograd is to reach them); pos01: [N, 3] float32.
 
     Writes stacked feature f to row ``rows[f]`` of ``out`` [C, N] and, given
     ``jac`` [3, C, N], its derivative along each axis of pos01. Only the two
@@ -161,6 +186,64 @@ def lotd_cp_stacked(lines: torch.Tensor, pos01: torch.Tensor, rows: torch.Tensor
     K1.launch("lotd_cp_stacked_fwd", kernels.ptr(lines), kernels.ptr(pos01),
               kernels.ptr(rows), kernels.ptr(out), kernels.ptr(jac), pos01.shape[0],
               lines.shape[1], lines.shape[2], out.shape[0], kernels.stream())
+
+
+def _cotangent_loss(out, jac, d_out, d_jac):
+    loss = out.new_zeros(())
+    if d_out is not None:
+        loss = loss + (out * d_out).sum()
+    if d_jac is not None:
+        loss = loss + (jac * d_jac).sum()
+    return loss
+
+
+def _check_cotangents(name: str, pos01: torch.Tensor, d_out: Optional[torch.Tensor],
+                      d_jac: Optional[torch.Tensor]) -> None:
+    """d_out [C, N] and/or d_jac [3, C, N], float32, at least one of them."""
+    if d_out is not None:
+        _check_outputs(name, pos01, d_out, d_jac)
+    elif d_jac is None or d_jac.dim() != 3 or d_jac.shape[0] != 3:
+        raise ValueError(f"{name}: needs d_out [C, N] or d_jac [3, C, N]")
+    else:
+        _check_outputs(name, pos01, d_jac[0], None)
+
+
+def lotd_cp_stacked_bwd_plain(lines: torch.Tensor, pos01: torch.Tensor, rows: torch.Tensor,
+                              d_out: Optional[torch.Tensor],
+                              d_jac: Optional[torch.Tensor]) -> torch.Tensor:
+    """Plain version of K1's backward: autograd of the plain forward. Returns
+    d lines [3, F, R] float32 for cotangents d_out [C, N], d_jac [3, C, N]."""
+    given = d_out if d_out is not None else d_jac
+    with torch.enable_grad():
+        L = lines.detach().float().requires_grad_(True)
+        out = given.new_zeros(given.shape[-2:])
+        jac = None if d_jac is None else torch.zeros_like(d_jac)
+        lotd_cp_stacked_plain(L, pos01, rows, out, jac)
+        return torch.autograd.grad(_cotangent_loss(out, jac, d_out, d_jac), L)[0]
+
+
+def lotd_cp_stacked_bwd(lines: torch.Tensor, pos01: torch.Tensor, rows: torch.Tensor,
+                        d_out: Optional[torch.Tensor], d_jac: Optional[torch.Tensor]
+                        ) -> torch.Tensor:
+    """K1 backward wrapper: gradient of both outputs into the (bf16) lines,
+    summed in float32. Autograd of the plain version on the CPU, the CUDA
+    kernel on the card."""
+    if lines.device.type == "cpu":
+        return lotd_cp_stacked_bwd_plain(lines, pos01, rows, d_out, d_jac)
+    given = [x for x in (d_out, d_jac) if x is not None]
+    kernels.check_cuda("lotd_cp_stacked_bwd", lines, pos01, rows, *given)
+    if lines.dtype != torch.bfloat16 or lines.dim() != 3 or lines.shape[0] != 3 \
+            or lines.shape[2] < 2:
+        raise ValueError("lotd_cp_stacked_bwd: lines must be [3, F, R >= 2] bf16")
+    if rows.dtype != torch.int32 or rows.shape != (lines.shape[1],):
+        raise ValueError("lotd_cp_stacked_bwd: rows must be int32 [F]")
+    _check_cotangents("lotd_cp_stacked_bwd", pos01, d_out, d_jac)
+    d_lines = torch.zeros(lines.shape, dtype=torch.float32, device=lines.device)
+    K1_BWD.launch("lotd_cp_stacked_bwd", kernels.ptr(lines), kernels.ptr(pos01),
+                  kernels.ptr(rows), kernels.ptr(d_out), kernels.ptr(d_jac),
+                  kernels.ptr(d_lines), pos01.shape[0], lines.shape[1], lines.shape[2],
+                  given[0].shape[-2], kernels.stream())
+    return d_lines
 
 
 # ---------------------------------------------------------------------------
@@ -238,9 +321,81 @@ def lotd_grid(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor,
               meta.shape[0], kernels.stream())
 
 
+def lotd_grid_bwd_plain(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
+                        d_out: Optional[torch.Tensor], d_jac: Optional[torch.Tensor]
+                        ) -> torch.Tensor:
+    """Plain version of K3's backward: autograd of the plain forward (which is
+    linear in the table). Returns d table [n_table] float32."""
+    given = d_out if d_out is not None else d_jac
+    with torch.enable_grad():
+        table = given.new_zeros(n_table).requires_grad_(True)
+        out = given.new_zeros(given.shape[-2:])
+        jac = None if d_jac is None else torch.zeros_like(d_jac)
+        lotd_grid_plain(table, pos01, meta, out, jac)
+        return torch.autograd.grad(_cotangent_loss(out, jac, d_out, d_jac), table)[0]
+
+
+def lotd_grid_bwd(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
+                  d_out: Optional[torch.Tensor], d_jac: Optional[torch.Tensor]
+                  ) -> torch.Tensor:
+    """K3 backward wrapper: scatter-add of both cotangents into a zeroed table
+    of ``n_table`` floats (float32 atomics on the card, so the last bits vary
+    from run to run). ``meta`` must describe levels inside the table."""
+    if pos01.device.type == "cpu":
+        return lotd_grid_bwd_plain(n_table, pos01, meta, d_out, d_jac)
+    given = [x for x in (d_out, d_jac) if x is not None]
+    kernels.check_cuda("lotd_grid_bwd", pos01, meta, *given)
+    if meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[1] != 6:
+        raise ValueError("lotd_grid_bwd: meta must be int32 [L, 6]")
+    _check_cotangents("lotd_grid_bwd", pos01, d_out, d_jac)
+    d_table = torch.zeros(n_table, dtype=torch.float32, device=pos01.device)
+    K3_BWD.launch("lotd_grid_bwd", kernels.ptr(pos01), kernels.ptr(meta), kernels.ptr(d_out),
+                  kernels.ptr(d_jac), kernels.ptr(d_table), pos01.shape[0],
+                  given[0].shape[-2], meta.shape[0], kernels.stream())
+    return d_table
+
+
 # ---------------------------------------------------------------------------
 # The encoding
 # ---------------------------------------------------------------------------
+
+class _EncodeOnCard(torch.autograd.Function):
+    """K1 + K3 forward into one feature-major buffer; K1 + K3 backward into
+    the float32 stacked lines and the table. The lines are rounded to bf16
+    here, inside, so their gradient comes back unrounded."""
+
+    @staticmethod
+    def forward(ctx, lines, table, xf, cp_rows, grid_meta, out_dim, with_jac):
+        N = xf.shape[0]
+        out = torch.empty((out_dim, N), dtype=torch.float32, device=xf.device)
+        jac = torch.empty((3, out_dim, N), dtype=torch.float32, device=xf.device) \
+            if with_jac else None
+        lines_bf16 = None
+        if lines is not None:
+            lines_bf16 = lines.to(torch.bfloat16)
+            lotd_cp_stacked(lines_bf16, xf, cp_rows, out, jac)
+        if grid_meta.shape[0]:
+            lotd_grid(table, xf, grid_meta, out, jac)
+        ctx.save_for_backward(lines_bf16, xf, cp_rows, grid_meta)
+        ctx.n_table = table.numel()
+        ctx.set_materialize_grads(False)
+        return out, jac
+
+    @staticmethod
+    def backward(ctx, d_out, d_jac):
+        lines_bf16, xf, cp_rows, grid_meta = ctx.saved_tensors
+        d_out = None if d_out is None else d_out.contiguous()
+        d_jac = None if d_jac is None else d_jac.contiguous()
+        d_lines = d_table = None
+        if d_out is None and d_jac is None:
+            return (None,) * 7
+        if lines_bf16 is not None and ctx.needs_input_grad[0]:
+            d_lines = lotd_cp_stacked_bwd(lines_bf16, xf, cp_rows, d_out, d_jac)
+        if grid_meta.shape[0] and ctx.needs_input_grad[1]:
+            d_table = lotd_grid_bwd(ctx.n_table, xf, grid_meta, d_out, d_jac)
+        return d_lines, d_table, None, None, None, None, None
+
+
 
 class LoTDEncoding(nn.Module):
     """Multi-level grid encoding over inputs in [0, 1]^3.
@@ -335,25 +490,29 @@ class LoTDEncoding(nn.Module):
         return torch.cat(cols, dim=-1).transpose(1, 2).contiguous()
 
     def kernel_lines(self) -> Optional[torch.Tensor]:
-        """The bf16 stacked lines that K1 reads, or None without CP levels.
-        They depend on the parameters only, so a caller that encodes several
-        batches with the same parameters computes them once and passes them
-        in (XLA hoists the same work out of the JAX package's chunked eval)."""
-        return self.cp_stacked_lines().to(torch.bfloat16) if self.cp_spec_ids else None
+        """The float32 stacked lines behind K1 (which rounds them to bf16),
+        or None without CP levels. They depend on the parameters only, so a
+        caller that encodes several batches with the same parameters computes
+        them once and passes them in (XLA hoists the same work out of the JAX
+        package's chunked eval); gradients reach ``table`` through them."""
+        return self.cp_stacked_lines() if self.cp_spec_ids else None
 
     def _encode(self, x: torch.Tensor, with_jac: bool, cp_lines: Optional[torch.Tensor]):
         lead = x.shape[:-1]
         xf = x.reshape(-1, 3).to(torch.float32).contiguous()
         N = xf.shape[0]
-        out = torch.empty((self.out_dim, N), dtype=torch.float32, device=xf.device)
-        jac = torch.empty((3, self.out_dim, N), dtype=torch.float32, device=xf.device) \
-            if with_jac else None
-        if self.cp_spec_ids:
-            if cp_lines is None:
-                cp_lines = self.kernel_lines()
-            lotd_cp_stacked(cp_lines, xf, self._cp_rows, out, jac)
-        if self.grid_spec_ids:
-            lotd_grid(self.table.detach(), xf, self._grid_meta, out, jac)
+        if self.cp_spec_ids and cp_lines is None:
+            cp_lines = self.kernel_lines()
+        if xf.device.type == "cpu":      # the plain versions, under autograd
+            out = torch.empty((self.out_dim, N), dtype=torch.float32)
+            jac = torch.empty((3, self.out_dim, N), dtype=torch.float32) if with_jac else None
+            if self.cp_spec_ids:
+                lotd_cp_stacked(_RoundBf16.apply(cp_lines), xf, self._cp_rows, out, jac)
+            if self.grid_spec_ids:
+                lotd_grid(self.table, xf, self._grid_meta, out, jac)
+        else:
+            out, jac = _EncodeOnCard.apply(cp_lines, self.table, xf, self._cp_rows,
+                                           self._grid_meta, self.out_dim, with_jac)
         h = out.T.reshape(lead + (self.out_dim,))
         if not with_jac:
             return h

@@ -4,10 +4,13 @@ neuralsim_tpu/fields/neus.py:63-100, 107-234, 237-329, 350-557).
 
 The upsample stage (neighbour cos, NeuS alpha at a fixed inv_s, weights and
 the inverse-CDF draws) is the first launch of the ``neus_upsample`` kernel
-(K5a); its wrapper and plain version live here. The ray query is
-deterministic: the JAX package's eval path (``key=None``, ``perturb=False``).
-Stochastic draws enter only through the optional ``noise`` of
-:func:`upsample_weights_pdf`.
+(K5a); its wrapper and plain version live here. Without ``noise`` the ray
+query is deterministic: the JAX package's eval path (``key=None``,
+``perturb=False``). With it, it is the training query: the caller draws the
+coarse jitter and each stage's stratified noise from its own
+``torch.Generator`` and hands them in. The proposal ladder only places
+samples and always runs under ``torch.no_grad()`` (JAX's
+``proposal_no_grad``); the final evaluation carries the gradients.
 
 Only the LoTD geometry is ported, with analytic nablas; the decoder's
 ``vjp`` is the explicit backward :meth:`MLP.forward_and_input_grad`.
@@ -238,32 +241,41 @@ class NeuSField(nn.Module):
                   upsample_inv_s: float = 64.0,
                   upsample_inv_s_factors: Sequence[float] = (1.0, 4.0),
                   with_rgb: bool = True,
-                  forward_inv_s: Optional[float] = None) -> Dict[str, Any]:
+                  forward_inv_s: Optional[float] = None,
+                  noise: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """Hierarchical NeuS ray query with fixed shapes: uniform coarse
         samples, one upsample stage per ``num_fine`` entry at inv_s
         ``upsample_inv_s * factor``, each merged into the sorted buffer, then
         the full evaluation with the learned inv_s.
 
-        rays_o/rays_d: [N, 3] object coords. Returns the dense volume buffer
+        rays_o/rays_d: [N, 3] object coords. ``noise``: uniform draws in
+        [0, 1) for the training query, ``{"coarse": [N, num_coarse],
+        "fine": [[N, nf] per stage]}``; None gives the deterministic query.
+        Returns the dense volume buffer
         {t, mask, alpha, sdf, nablas, rgb [N, S(, 3)], details}.
         """
         n_, f_, hit = self.space.ray_test(rays_o, rays_d, near=near, far=far)
         lines = self.encoding.kernel_lines()     # shared by the four encodings
-        u = torch.linspace(0.0, 1.0, num_coarse, dtype=torch.float32, device=rays_o.device)
-        t = n_[:, None] + (f_ - n_)[:, None] * u
-        mask = hit[:, None].expand(t.shape).contiguous()
+        with torch.no_grad():                    # the ladder only places samples
+            u = torch.linspace(0.0, 1.0, num_coarse, dtype=torch.float32,
+                               device=rays_o.device)
+            if noise is not None:
+                u = torch.clamp(u + (noise["coarse"] - 0.5) / num_coarse, 0.0, 1.0)
+            t = n_[:, None] + (f_ - n_)[:, None] * u
+            mask = hit[:, None].expand(t.shape).contiguous()
 
-        x = rays_o[:, None, :] + t[..., None] * rays_d[:, None, :]
-        sdf = self.query_sdf(x.reshape(-1, 3), lines).reshape(t.shape)
+            x = rays_o[:, None, :] + t[..., None] * rays_d[:, None, :]
+            sdf = self.query_sdf(x.reshape(-1, 3), lines).reshape(t.shape)
 
-        for nf, fac in zip(num_fine, upsample_inv_s_factors):
-            _, t_new = upsample_weights_pdf(t.contiguous(), sdf.contiguous(), mask,
-                                            n_, f_, upsample_inv_s * fac, nf)
-            x_new = rays_o[:, None, :] + t_new[..., None] * rays_d[:, None, :]
-            sdf_new = self.query_sdf(x_new.reshape(-1, 3), lines).reshape(t_new.shape)
-            m_new = hit[:, None].expand(t_new.shape).contiguous()
-            t, mask, sdf = merge_sorted_samples(t.contiguous(), t_new, mask, m_new,
-                                                sdf.contiguous(), sdf_new.contiguous())
+            for stage, (nf, fac) in enumerate(zip(num_fine, upsample_inv_s_factors)):
+                _, t_new = upsample_weights_pdf(
+                    t.contiguous(), sdf.contiguous(), mask, n_, f_, upsample_inv_s * fac, nf,
+                    None if noise is None else noise["fine"][stage])
+                x_new = rays_o[:, None, :] + t_new[..., None] * rays_d[:, None, :]
+                sdf_new = self.query_sdf(x_new.reshape(-1, 3), lines).reshape(t_new.shape)
+                m_new = hit[:, None].expand(t_new.shape).contiguous()
+                t, mask, sdf = merge_sorted_samples(t.contiguous(), t_new, mask, m_new,
+                                                    sdf.contiguous(), sdf_new.contiguous())
 
         x = rays_o[:, None, :] + t[..., None] * rays_d[:, None, :]
         shp = t.shape
@@ -290,3 +302,12 @@ class NeuSField(nn.Module):
         buf["details"] = {"near_sdf": torch.where(hit, near_sdf, torch.full_like(near_sdf, 1e10)),
                           "inv_s": inv_s, "hit": hit, "near": n_, "far": f_}
         return buf
+
+    # -- training helpers ------------------------------------------------------
+    def sample_pts_uniform(self, noise: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(x, sdf, nablas) at points spread over the space by the uniform
+        draws ``noise`` [n, 3]; feeds the eikonal and sparsity losses."""
+        x = self.space.uniform_points(noise)
+        sdf, nablas, _ = self.sdf_nablas_feat(x)
+        return x, sdf, nablas

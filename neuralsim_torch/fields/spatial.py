@@ -1,4 +1,4 @@
-"""Axis-aligned box space (port of neuralsim_tpu/fields/spatial.py:18-61)."""
+"""Axis-aligned box space (port of neuralsim_tpu/fields/spatial.py:18-67)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -32,6 +32,14 @@ class AABBSpace(nn.Module):
 
     def normalize_coords(self, x: torch.Tensor) -> torch.Tensor:
         return (x - self.aabb_min) / (self.aabb_max - self.aabb_min)
+
+    def unnormalize_coords(self, u: torch.Tensor) -> torch.Tensor:
+        return u * (self.aabb_max - self.aabb_min) + self.aabb_min
+
+    def uniform_points(self, noise: torch.Tensor) -> torch.Tensor:
+        """Points inside the box from uniform draws ``noise`` [n, 3] in [0, 1)
+        (for the eikonal and sparsity losses); the caller draws the noise."""
+        return self.unnormalize_coords(noise)
 
     def ray_test(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
                  near: Optional[torch.Tensor] = None, far: Optional[torch.Tensor] = None

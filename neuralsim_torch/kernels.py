@@ -34,10 +34,13 @@ LIB_NAME = "libneuralsim_torch_kernels.so"
 # 'f' float). Every entry returns an int (a cudaError_t).
 SIGNATURES: Dict[str, str] = {
     "lotd_cp_stacked_fwd": "pppppiiiip",
+    "lotd_cp_stacked_bwd": "ppppppiiiip",
     "lotd_grid_fwd": "pppppiiip",
+    "lotd_grid_bwd": "pppppiiip",
     "neus_upsample_weights_pdf": "ppppppppiiiifp",
     "merge_sorted_samples": "pppppppppiiip",
     "volume_composite_fwd": "pppppppppppiip",
+    "volume_composite_bwd": "pppppppppppppiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -2,7 +2,11 @@
 neuralsim_tpu/renderers/buffers.py:21-52, 55-106).
 
 The composite (masked alpha -> transmittance -> weighted sums) is the
-``volume_composite`` kernel (K6); its wrapper and plain version live here.
+``volume_composite`` kernel (K6), and its gradient into alpha, rgb and nablas
+the ``volume_composite.bwd`` kernel; wrappers and plain versions live here.
+On the CPU autograd differentiates the plain version; on the card
+``volume_integrate`` goes through one ``torch.autograd.Function`` over the two
+kernels. No gradient goes to the depths ``t`` (sample depths are detached).
 Only the single-buffer branch of ``merge_and_integrate`` is ported.
 """
 from __future__ import annotations
@@ -16,6 +20,9 @@ from ..ops.segment import alpha_to_vw, masked_sum
 
 K6 = kernels.register("volume_composite", "neuralsim_torch/csrc/volume_composite.cu",
                       "neuralsim_tpu/renderers/buffers.py:21")
+
+K6_BWD = kernels.register("volume_composite.bwd", "neuralsim_torch/csrc/volume_composite.cu",
+                          "neuralsim_tpu/renderers/buffers.py:21")
 
 Composite = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                   Optional[torch.Tensor], torch.Tensor]
@@ -65,11 +72,91 @@ def volume_composite(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor,
     return vw, vw_sum, depth, rgb_v, nrm_v, cnt
 
 
+Grads = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
+
+
+def volume_composite_bwd_plain(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor,
+                               rgb: Optional[torch.Tensor], nablas: Optional[torch.Tensor],
+                               g_vw: torch.Tensor, g_mask: torch.Tensor,
+                               g_depth: torch.Tensor, g_rgb: Optional[torch.Tensor],
+                               g_nrm: Optional[torch.Tensor]) -> Grads:
+    """Plain version of K6's backward: autograd of the plain forward. Returns
+    (d alpha [N, S], d rgb, d nablas [N, S, 3]) for the cotangents of (vw,
+    mask_volume, depth_volume, rgb_volume, normals_volume)."""
+    with torch.enable_grad():
+        ins = [None if x is None else x.detach().requires_grad_(True)
+               for x in (alpha, rgb, nablas)]
+        vw, vw_sum, depth, rgb_v, nrm_v, _ = volume_composite_plain(t, mask, *ins)
+        loss = (vw * g_vw).sum() + (vw_sum * g_mask).sum() + (depth * g_depth).sum()
+        if rgb is not None:
+            loss = loss + (rgb_v * g_rgb).sum()
+        if nablas is not None:
+            loss = loss + (nrm_v * g_nrm).sum()
+        grads = iter(torch.autograd.grad(loss, [x for x in ins if x is not None]))
+    return tuple(None if x is None else next(grads) for x in ins)
+
+
+def volume_composite_bwd(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor,
+                         rgb: Optional[torch.Tensor], nablas: Optional[torch.Tensor],
+                         g_vw: torch.Tensor, g_mask: torch.Tensor, g_depth: torch.Tensor,
+                         g_rgb: Optional[torch.Tensor], g_nrm: Optional[torch.Tensor]
+                         ) -> Grads:
+    """K6 backward wrapper: autograd of the plain version on the CPU, the CUDA
+    kernel on the card."""
+    if t.device.type == "cpu":
+        return volume_composite_bwd_plain(t, mask, alpha, rgb, nablas, g_vw, g_mask,
+                                          g_depth, g_rgb, g_nrm)
+    N, S = t.shape
+    f32 = torch.float32
+    want = [(t, (N, S), f32), (mask, (N, S), torch.bool), (alpha, (N, S), f32),
+            (g_vw, (N, S), f32), (g_mask, (N,), f32), (g_depth, (N,), f32)]
+    for x, g in ((rgb, g_rgb), (nablas, g_nrm)):
+        if (x is None) != (g is None):
+            raise ValueError("volume_composite_bwd: a payload and its cotangent go together")
+        if x is not None:
+            want += [(x, (N, S, 3), f32), (g, (N, 3), f32)]
+    kernels.check_cuda("volume_composite_bwd", *[x for x, _, _ in want])
+    for x, shape, dt in want:
+        if tuple(x.shape) != shape or x.dtype != dt:
+            raise ValueError(f"volume_composite_bwd: expected {shape} {dt}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    d_alpha = torch.empty_like(alpha)
+    d_rgb = None if rgb is None else torch.empty_like(rgb)
+    d_nablas = None if nablas is None else torch.empty_like(nablas)
+    K6_BWD.launch("volume_composite_bwd", kernels.ptr(t), kernels.ptr(mask),
+                  kernels.ptr(alpha), kernels.ptr(rgb), kernels.ptr(nablas), kernels.ptr(g_vw),
+                  kernels.ptr(g_mask), kernels.ptr(g_depth), kernels.ptr(g_rgb),
+                  kernels.ptr(g_nrm), kernels.ptr(d_alpha), kernels.ptr(d_rgb),
+                  kernels.ptr(d_nablas), N, S, kernels.stream())
+    return d_alpha, d_rgb, d_nablas
+
+
+class _CompositeOnCard(torch.autograd.Function):
+    """K6 forward and backward under autograd."""
+
+    @staticmethod
+    def forward(ctx, t, mask, alpha, rgb, nablas):
+        out = volume_composite(t, mask, alpha, rgb, nablas)
+        ctx.save_for_backward(t, mask, alpha, rgb, nablas)
+        ctx.mark_non_differentiable(out[5])
+        return out
+
+    @staticmethod
+    def backward(ctx, g_vw, g_mask, g_depth, g_rgb, g_nrm, _g_cnt):
+        t, mask, alpha, rgb, nablas = ctx.saved_tensors
+        cont = lambda g: None if g is None else g.contiguous()
+        d_alpha, d_rgb, d_nablas = volume_composite_bwd(
+            t, mask, alpha, rgb, nablas, cont(g_vw), cont(g_mask), cont(g_depth),
+            cont(g_rgb), cont(g_nrm))
+        return None, None, d_alpha, d_rgb, d_nablas
+
+
 def volume_integrate(buf: Dict[str, Any]) -> Dict[str, Any]:
     """Integrate one dense, depth-sorted buffer {t, mask, alpha, rgb?, nablas?}
     into the rendered dict (depth normalised by the weight sum)."""
-    vw, vw_sum, depth, rgb_v, nrm_v, cnt = volume_composite(
-        buf["t"], buf["mask"], buf["alpha"], buf.get("rgb"), buf.get("nablas"))
+    args = (buf["t"], buf["mask"], buf["alpha"], buf.get("rgb"), buf.get("nablas"))
+    vw, vw_sum, depth, rgb_v, nrm_v, cnt = volume_composite_plain(*args) \
+        if args[0].device.type == "cpu" else _CompositeOnCard.apply(*args)
     out: Dict[str, Any] = {"mask_volume": vw_sum, "depth_volume": depth}
     if rgb_v is not None:
         out["rgb_volume"] = rgb_v
@@ -81,7 +168,13 @@ def volume_integrate(buf: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def merge_and_integrate(buffers: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
-    """The single-buffer branch of the JAX ``merge_and_integrate``."""
+    """The single-buffer branch of the JAX ``merge_and_integrate``: the
+    rendered dict, with the buffer itself (plus its all-zero source index)
+    under ``merged_buffer``."""
     if len(buffers) != 1:
         raise NotImplementedError("merging several buffers is not ported")
-    return volume_integrate(buffers[0])
+    merged = dict(buffers[0])
+    merged["src"] = torch.zeros_like(merged["t"], dtype=torch.int32)
+    out = volume_integrate(merged)
+    out["merged_buffer"] = merged
+    return out

@@ -1,6 +1,7 @@
 """Single-volume renderer: close-range field + sky (port of
-neuralsim_tpu/renderers/single_volume.py:24-131, 175-200, without the
-distant field and the occupancy grid).
+neuralsim_tpu/renderers/single_volume.py:24-133, 162-200, without the
+distant field and the occupancy grid). ``ray_query`` runs under autograd (the
+training step differentiates it); ``render_chunked`` switches autograd off.
 
 Parameters live in the field modules, held by one ``nn.ModuleDict`` keyed by
 model id (the port's analog of the JAX ``{model_id: params}`` tree); the
@@ -28,16 +29,20 @@ class SingleVolumeRenderer:
     def pkey(self, role: str) -> str:
         return self.param_keys.get(role, role)
 
-    @torch.no_grad()
     def ray_query(self, params: nn.ModuleDict, rays_o: torch.Tensor, rays_d: torch.Tensor,
                   *, it=None, near: Optional[torch.Tensor] = None,
                   far: Optional[torch.Tensor] = None, with_rgb: bool = True,
-                  query_overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-        """Render a flat batch of rays [N, 3] -> the ``rendered`` dict."""
+                  query_overrides: Optional[Dict[str, Any]] = None,
+                  noise: Optional[Dict[str, Any]] = None,
+                  return_buffer: bool = False) -> Dict[str, Any]:
+        """Render a flat batch of rays [N, 3] -> the ``rendered`` dict, under
+        autograd. ``noise``: the close-range field's draws (see
+        ``NeuSField.ray_query``), None for the deterministic query.
+        ``return_buffer`` keeps the per-sample buffer as ``merged_buffer``."""
         cfg = dict(self.query_cfg)
         cfg.update(query_overrides or {})
         buf_cr = params[self.pkey("cr")].ray_query(rays_o, rays_d, it=it, near=near, far=far,
-                                                   with_rgb=with_rgb, **cfg)
+                                                   with_rgb=with_rgb, noise=noise, **cfg)
         rendered = merge_and_integrate([buf_cr])
         sky_key = self.pkey("sky")
         if with_rgb and sky_key in params:
@@ -48,6 +53,8 @@ class SingleVolumeRenderer:
             rendered["rgb_volume_non_occupied"] = (1.0 - mask) * sky_rgb
             rendered["rgb_volume"] = rendered["rgb_volume"] + (1.0 - mask) * sky_rgb
         rendered["details_cr"] = buf_cr["details"]
+        if not return_buffer:
+            rendered.pop("merged_buffer")
         return rendered
 
     @torch.no_grad()

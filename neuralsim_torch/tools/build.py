@@ -1,12 +1,15 @@
-"""Build the renderer and seeded parameters from a config dict (port of the
-role binding in neuralsim_tpu/tools/train.py:49-85, for the render path).
+"""Build the renderer, the trainer and seeded parameters from a config dict
+(port of the role binding and trainer set-up in
+neuralsim_tpu/tools/train.py:49-115, without the scene graph and asset bank).
 
 Usage::
 
     from neuralsim_torch.configs import SYNTHETIC_OBJECT
-    from neuralsim_torch.tools.build import build_renderer
+    from neuralsim_torch.tools.build import build_renderer, build_trainer
     renderer, params = build_renderer(SYNTHETIC_OBJECT)          # on the card
     out = renderer.render_chunked(params, rays_o, rays_d, rayschunk=4096)
+    trainer, state = build_trainer(SYNTHETIC_OBJECT)             # on the card
+    state, metrics = trainer.train_step(state, batch, noise)
 """
 from __future__ import annotations
 
@@ -15,8 +18,10 @@ from typing import Any, Dict, Tuple
 import torch
 from torch import nn
 
+from ..configs import resolve_refs
 from ..models.assets import asset_class
 from ..renderers.single_volume import SingleVolumeRenderer
+from ..training.trainer import Trainer, TrainState
 
 
 def resolve_device(device) -> torch.device:
@@ -59,3 +64,19 @@ def build_renderer(cfg: Dict[str, Any], device="cuda"
         query_cfg={**assets[param_keys["cr"]].query_cfg, **dict(rcfg.get("query_cfg", {}))},
         param_keys=param_keys)
     return renderer, params
+
+
+def build_trainer(cfg: Dict[str, Any], device="cuda") -> Tuple[Trainer, TrainState]:
+    """-> (trainer, state): the renderer of :func:`build_renderer` under the
+    config's ``training`` block, with one Adam per asset from its
+    ``asset_params.training_cfg`` (``${training.num_iters}`` resolved)."""
+    cfg = resolve_refs(cfg)
+    renderer, params = build_renderer(cfg, device)
+    tcfg = cfg.get("training", {})
+    training_cfgs = {name: dict(acfg.get("asset_params", {}).get("training_cfg", {}))
+                     for name, acfg in cfg["assetbank_cfg"].items()}
+    trainer = Trainer(renderer, loss_cfgs=dict(tcfg.get("losses", {})),
+                      training_cfgs=training_cfgs,
+                      uniform_sample_n=tcfg.get("uniform_sample_n", 1024),
+                      default_optim_cfg=dict(tcfg.get("optim", {"lr": 1e-2})))
+    return trainer, trainer.init_state(params)

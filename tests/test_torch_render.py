@@ -80,7 +80,8 @@ def slice_pair():
 
 def test_ray_query_matches_jax(slice_pair):
     renderer, params, o, d, want = slice_pair
-    got = renderer.ray_query(params, torch.from_numpy(o), torch.from_numpy(d))
+    with torch.no_grad():
+        got = renderer.ray_query(params, torch.from_numpy(o), torch.from_numpy(d))
     hit = got["details_cr"]["hit"].numpy()
     assert 0 < hit.sum() < len(hit)                      # hits and misses
     assert got["mask_volume"].numpy()[hit].max() > 0.5   # a surface in view
@@ -90,7 +91,8 @@ def test_ray_query_matches_jax(slice_pair):
 
 def test_render_chunked_equals_ray_query(slice_pair):
     renderer, params, o, d, _ = slice_pair
-    whole = renderer.ray_query(params, torch.from_numpy(o), torch.from_numpy(d))
+    with torch.no_grad():
+        whole = renderer.ray_query(params, torch.from_numpy(o), torch.from_numpy(d))
     chunked = renderer.render_chunked(params, torch.from_numpy(o), torch.from_numpy(d),
                                       rayschunk=24)
     assert "vw" not in chunked and "details_cr" not in chunked
