@@ -1,0 +1,301 @@
+"""EMA occupancy grid and the fixed-shape grid-skipping ray proposal (port of
+neuralsim_tpu/accel/occ_grid.py:27-203; the batched and dynamic grids are not
+ported yet).
+
+The grid state is explicit: an :class:`OccGridState` (float32 values and the
+boolean mask ``val > occ_thre``, device tensors) that the trainer carries and
+hands to the renderer. Two kernels live here, each beside its plain version:
+
+* ``occ_ray_proposal`` (K4): probe ``march_steps`` equal segments of
+  [near, far] against the mask and draw all ``n_samples`` depths from the
+  per-segment occupancy CDF. No gradient: it only places samples.
+* ``occ_ema_update`` (K7): raw field values of the jittered voxel samples ->
+  occupancy, max over a voxel's samples, ``max(decay * old, new)``, the
+  warm-up floor and the threshold.
+
+Random draws come in as tensors (``noise`` for the proposal, ``u`` for the
+update), so a caller can replay another package's draws.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..maths.common import normalized_logistic_density
+from ..ops.segment import det_u, sample_pdf
+
+K4 = kernels.register("occ_ray_proposal", "neuralsim_torch/csrc/occ_grid.cu",
+                      "neuralsim_tpu/accel/occ_grid.py:158")
+K7 = kernels.register("occ_ema_update", "neuralsim_torch/csrc/occ_grid.cu",
+                      "neuralsim_tpu/accel/occ_grid.py:99")
+
+_MODES = {"sdf": 0, "density": 1}
+
+
+class OccGridState(NamedTuple):
+    """val: [R, R, R] float32 EMA occupancy in [0, 1]; mask: bool, val > occ_thre."""
+    val: torch.Tensor
+    mask: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# K4: the ray proposal
+# ---------------------------------------------------------------------------
+
+def occ_ray_proposal_plain(rays_o: torch.Tensor, rays_d: torch.Tensor, near: torch.Tensor,
+                           far: torch.Tensor, mask: torch.Tensor, aabb_min: torch.Tensor,
+                           aabb_max: torch.Tensor, edges01: torch.Tensor, n_samples: int,
+                           noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K4 -> depths [N, n_samples], ascending.
+
+    rays_o/rays_d: [N, 3]; near/far: [N]; mask: [R, R, R] bool; edges01:
+    [M + 1] segment edges in [0, 1]; noise: [N, n_samples] uniform draws, or
+    None for the stratum midpoints. A ray with no occupied probe gets uniform
+    weights (so an empty grid still renders).
+    """
+    R = mask.shape[0]
+    t_edges = near[:, None] + (far - near)[:, None] * edges01               # [N, M+1]
+    t_mid = 0.5 * (t_edges[:, 1:] + t_edges[:, :-1])
+    x = rays_o[:, None, :] + t_mid[..., None] * rays_d[:, None, :]
+    x01 = (x - aabb_min) / (aabb_max - aabb_min)
+    inside = torch.all((x01 >= 0) & (x01 <= 1), dim=-1)
+    cell = (x01 * R).to(torch.int32).clamp(0, R - 1).long()
+    lin = (cell[..., 0] * R + cell[..., 1]) * R + cell[..., 2]
+    occ = (mask.reshape(-1)[lin] & inside).to(torch.float32)                # [N, M]
+    hit_any = occ.amax(dim=-1, keepdim=True) > 0.0
+    w = occ + (~hit_any).to(torch.float32)
+    return sample_pdf(t_edges, w, n_samples, noise=noise, eps=1e-6)
+
+
+def occ_ray_proposal(rays_o: torch.Tensor, rays_d: torch.Tensor, near: torch.Tensor,
+                     far: torch.Tensor, mask: torch.Tensor, aabb_min: torch.Tensor,
+                     aabb_max: torch.Tensor, edges01: torch.Tensor, n_samples: int,
+                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4 wrapper: the plain version on the CPU, the CUDA kernel on the card."""
+    if rays_o.device.type == "cpu":
+        return occ_ray_proposal_plain(rays_o, rays_d, near, far, mask, aabb_min, aabb_max,
+                                      edges01, n_samples, noise)
+    N = rays_o.shape[0]
+    if noise is None:
+        u, u_stride = det_u(n_samples, rays_o.device), 0
+    else:
+        u = ((torch.arange(n_samples, dtype=torch.float32, device=rays_o.device) + noise)
+             / n_samples).contiguous()
+        u_stride = n_samples
+    kernels.check_cuda("occ_ray_proposal", rays_o, rays_d, near, far, mask, aabb_min,
+                       aabb_max, edges01, u)
+    f32 = torch.float32
+    R, M = mask.shape[0], edges01.shape[0] - 1
+    for x, shape, dt in ((rays_o, (N, 3), f32), (rays_d, (N, 3), f32), (near, (N,), f32),
+                         (far, (N,), f32), (mask, (R, R, R), torch.bool),
+                         (aabb_min, (3,), f32), (aabb_max, (3,), f32),
+                         (edges01, (M + 1,), f32)):
+        if tuple(x.shape) != shape or x.dtype != dt:
+            raise ValueError(f"occ_ray_proposal: expected {shape} {dt}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    if not 1 <= M <= 64 or n_samples < 1 or u.dtype != f32 \
+            or u.shape not in ((n_samples,), (N, n_samples)):
+        raise ValueError("occ_ray_proposal: needs 1..64 segments and [N, n_samples] noise")
+    t = torch.empty((N, n_samples), dtype=f32, device=rays_o.device)
+    K4.launch("occ_ray_proposal", kernels.ptr(rays_o), kernels.ptr(rays_d), kernels.ptr(near),
+              kernels.ptr(far), kernels.ptr(mask), kernels.ptr(aabb_min),
+              kernels.ptr(aabb_max), kernels.ptr(edges01), kernels.ptr(u), kernels.ptr(t),
+              N, R, M, n_samples, u_stride, kernels.stream())
+    return t
+
+
+# ---------------------------------------------------------------------------
+# K7: the EMA update
+# ---------------------------------------------------------------------------
+
+def occ_from_raw(raw: torch.Tensor, mode: str, p: float, inv_s: float) -> torch.Tensor:
+    """Raw field values -> occupancy in [0, 1]. ``sdf``: the logistic density
+    of the sdf eroded by ``p``, half a voxel's diagonal (a sample within that
+    distance of the surface registers the peak value); ``density``:
+    ``1 - exp(-raw * p)`` with ``p`` the voxel size."""
+    if mode == "sdf":
+        return normalized_logistic_density(torch.clamp(raw.abs() - p, min=0.0), inv_s)
+    if mode == "density":
+        return 1.0 - torch.exp(-raw * p)
+    raise ValueError(mode)
+
+
+def occ_ema_update_plain(raw: torch.Tensor, val: torch.Tensor, mode: str, p: float,
+                         inv_s: float, decay: float, thre: float,
+                         warm_floor: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7. raw: [S, V] field values of S samples per voxel;
+    val: [V] old values. -> (new val [V] float32, mask [V] bool)."""
+    new = torch.maximum(val * decay, occ_from_raw(raw, mode, p, inv_s).amax(dim=0))
+    if warm_floor is not None:
+        new = torch.clamp(new, min=warm_floor)
+    return new, new > thre
+
+
+def occ_ema_update(raw: torch.Tensor, val: torch.Tensor, mode: str, p: float, inv_s: float,
+                   decay: float, thre: float, warm_floor: Optional[float]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7 wrapper: the plain version on the CPU, the CUDA kernel on the card.
+    ``warm_floor``: the least value during the warm-up, None after it."""
+    if raw.device.type == "cpu":
+        return occ_ema_update_plain(raw, val, mode, p, inv_s, decay, thre, warm_floor)
+    kernels.check_cuda("occ_ema_update", raw, val)
+    if mode not in _MODES:
+        raise ValueError(mode)
+    if raw.dim() != 2 or raw.shape[0] < 1 or val.shape != raw.shape[1:] \
+            or raw.dtype != torch.float32 or val.dtype != torch.float32:
+        raise ValueError("occ_ema_update: raw must be [S >= 1, V] and val [V], float32")
+    new = torch.empty_like(val)
+    mask = torch.empty(val.shape, dtype=torch.bool, device=val.device)
+    K7.launch("occ_ema_update", kernels.ptr(raw), kernels.ptr(val), kernels.ptr(new),
+              kernels.ptr(mask), val.shape[0], raw.shape[0], _MODES[mode], float(p),
+              float(inv_s), float(decay), float(thre),
+              float("-inf") if warm_floor is None else float(warm_floor), kernels.stream())
+    return new, mask
+
+
+# ---------------------------------------------------------------------------
+# The grid
+# ---------------------------------------------------------------------------
+
+class OccGridEma:
+    """Single-instance EMA occupancy grid over an AABB space.
+
+    ``space`` is the field's :class:`AABBSpace`; its box is read once, here,
+    and kept on every device the grid is asked on, so the same grid serves
+    the field on the card and a copy of it on the CPU.
+    """
+
+    def __init__(self, space, resolution: int = 64, *, occ_thre: float = 0.3,
+                 ema_decay: float = 0.95, occ_val_fn: str = "sdf",
+                 occ_inv_s: float = 256.0, n_steps_between_update: int = 16,
+                 n_warmup_steps: int = 256, init_occupied: bool = True,
+                 march_steps: int = 64, samples_per_voxel: int = 1):
+        if occ_val_fn not in _MODES:
+            raise ValueError(occ_val_fn)
+        self.space = space
+        self.res = resolution
+        self.occ_thre = occ_thre
+        self.ema_decay = ema_decay
+        self.occ_val_fn = occ_val_fn
+        self.occ_inv_s = occ_inv_s
+        self.n_steps_between_update = n_steps_between_update
+        self.n_warmup_steps = n_warmup_steps
+        self.init_occupied = init_occupied
+        self.march_steps = march_steps
+        self.samples_per_voxel = max(int(samples_per_voxel), 1)
+        self._aabb = (space.aabb_min.detach().cpu(), space.aabb_max.detach().cpu())
+        self._boxes: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+        extent = self._aabb[1] - self._aabb[0]
+        self._voxel_half_diag = float(torch.linalg.norm(extent / (2.0 * resolution)))
+        self._voxel_size = float(extent.max() / resolution)
+        self._edges01: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+    def box(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(aabb_min, aabb_max) on ``device``."""
+        device = torch.device(device)
+        if device not in self._boxes:
+            self._boxes[device] = tuple(a.to(device) for a in self._aabb)
+        return self._boxes[device]
+
+    # -- state ---------------------------------------------------------------
+    def init_state(self) -> OccGridState:
+        """All occupied (or all empty), on the space's device."""
+        fill = torch.ones if self.init_occupied else torch.zeros
+        v = fill((self.res,) * 3, dtype=torch.float32, device=self.space.aabb_min.device)
+        return OccGridState(v, v > self.occ_thre)
+
+    @property
+    def voxel_half_diag(self) -> float:
+        """Half the diagonal of one voxel, in the space's units."""
+        return self._voxel_half_diag
+
+    @property
+    def voxel_size(self) -> float:
+        """The longest edge of one voxel."""
+        return self._voxel_size
+
+    @property
+    def raw_scale(self) -> float:
+        """What :func:`occ_from_raw` scales the raw value by in this grid's
+        mode: the voxel's half diagonal (sdf) or its size (density)."""
+        return self._voxel_half_diag if self.occ_val_fn == "sdf" else self._voxel_size
+
+    def _occ_from_raw(self, out: torch.Tensor) -> torch.Tensor:
+        return occ_from_raw(out, self.occ_val_fn, self.raw_scale, self.occ_inv_s)
+
+    # -- EMA update -----------------------------------------------------------
+    @torch.no_grad()
+    def update(self, state: OccGridState, query_fn: Callable[[torch.Tensor], torch.Tensor],
+               u: torch.Tensor, it: int) -> OccGridState:
+        """One EMA update. ``query_fn``: points [P, 3] -> raw field values [P]
+        (the sdf or the density); ``u``: [samples_per_voxel, R, R, R, 3]
+        uniform draws that jitter the samples inside their voxels; ``it``: the
+        iteration, for the warm-up."""
+        R, S = self.res, self.samples_per_voxel
+        if u is None or tuple(u.shape) != (S, R, R, R, 3):
+            raise ValueError(f"update: the voxel jitter u must be {(S, R, R, R, 3)}, got "
+                             f"{None if u is None else tuple(u.shape)}")
+        ar = torch.arange(R, device=u.device)
+        idx = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"), dim=-1)
+        mn, mx = self.box(u.device)
+        x = ((idx[None] + u) / R).reshape(-1, 3) * (mx - mn) + mn
+        raw = query_fn(x).reshape(S, R * R * R).to(torch.float32).contiguous()
+        warm_floor = self.occ_thre + 1e-3 if it < self.n_warmup_steps else None
+        val, mask = occ_ema_update(raw, state.val.reshape(-1).contiguous(), self.occ_val_fn,
+                                   self.raw_scale, self.occ_inv_s, self.ema_decay,
+                                   self.occ_thre, warm_floor)
+        return OccGridState(val.reshape(R, R, R), mask.reshape(R, R, R))
+
+    def maybe_update(self, state: OccGridState, query_fn: Callable,
+                     u: Optional[torch.Tensor], it: int) -> OccGridState:
+        """:meth:`update` on the cadence ``it % n_steps_between_update == 0``
+        (``it`` is a host integer, so this is a host branch); ``u`` is read
+        only then."""
+        if it % self.n_steps_between_update != 0:
+            return state
+        return self.update(state, query_fn, u, it)
+
+    # -- queries ---------------------------------------------------------------
+    def occupancy_at(self, state: OccGridState, x: torch.Tensor) -> torch.Tensor:
+        """bool occupancy at points [..., 3] (False outside the box)."""
+        mn, mx = self.box(x.device)
+        x01 = (x - mn) / (mx - mn)
+        inside = torch.all((x01 >= 0) & (x01 <= 1), dim=-1)
+        cell = (x01 * self.res).to(torch.int32).clamp(0, self.res - 1).long()
+        return state.mask[cell[..., 0], cell[..., 1], cell[..., 2]] & inside
+
+    def occupied_fraction(self, state: OccGridState) -> torch.Tensor:
+        return state.mask.to(torch.float32).mean()
+
+    def edges01(self, march_steps: int, device) -> torch.Tensor:
+        """The march's segment edges in [0, 1]: ``i * (1 / M)`` in float32 and
+        a last edge of 1, bit for bit what ``jnp.linspace(0, 1, M + 1)`` gives
+        (``torch.linspace`` rounds a fifth of the 49 edges the other way, and
+        the probes are discrete in the cell index). Computed once on the CPU
+        and kept per device, so the card and the CPU march the same edges."""
+        key = (march_steps, torch.device(device))
+        if key not in self._edges01:
+            step = np.float32(1.0) / np.float32(march_steps)
+            e = np.append(np.arange(march_steps, dtype=np.float32) * step, np.float32(1.0))
+            self._edges01[key] = torch.from_numpy(e).to(device)
+        return self._edges01[key]
+
+    # -- ray proposal ----------------------------------------------------------
+    @torch.no_grad()
+    def ray_proposal(self, state: OccGridState, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                     near: torch.Tensor, far: torch.Tensor, n_samples: int,
+                     noise: Optional[torch.Tensor] = None,
+                     march_steps: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Occupancy-concentrated depth proposal: ``n_samples`` ascending
+        depths per ray, all inside occupied segments of the fixed-step march
+        (uniform over [near, far] for a ray that touches nothing occupied).
+        ``noise``: [N, n_samples] uniform draws; None gives the deterministic
+        stratum midpoints. -> (t [N, n_samples], valid: all True)."""
+        M = march_steps or self.march_steps
+        t = occ_ray_proposal(rays_o.contiguous(), rays_d.contiguous(), near.contiguous(),
+                             far.contiguous(), state.mask, *self.box(rays_o.device),
+                             self.edges01(M, rays_o.device), n_samples, noise)
+        return t, torch.ones_like(t, dtype=torch.bool)

@@ -1,9 +1,12 @@
-"""Carry JAX parameters over into the port.
+"""Carry JAX parameters and occupancy-grid state over into the port.
 
 The JAX package keeps parameters as nested dicts and lists; the port keeps
 them in modules whose parameter names follow the same paths (``layers.0.W``
 for ``{"layers": [{"W": ...}]}``), with the JAX layouts, so every leaf copies
-over untransposed.
+over untransposed. That holds for every field of the port: the NeuS field
+(table, decoder, radiance, ``ln_inv_s``), the distant field (decoder,
+radiance) and the sky. An occupancy grid's state is two arrays, ``val`` and
+``mask``.
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ from typing import Any, Dict, Mapping, Union
 import numpy as np
 import torch
 from torch import nn
+
+from .accel import OccGridState
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -57,3 +62,12 @@ def named_jax_leaves(tree: Any, model_ids: Mapping[str, str]) -> Dict[str, np.nd
     port's: ``model_ids`` maps each JAX top-level key to the port's model id
     (``{"cr": "Main", "sky": "Sky"}``), so a test compares leaf by leaf."""
     return flatten_tree({model_ids[k]: v for k, v in tree.items()})
+
+
+def occ_state_from_numpy(val: np.ndarray, mask: np.ndarray, device="cpu") -> OccGridState:
+    """An occupancy grid's state from the JAX package's ``OccGridState``
+    fields as numpy arrays (``val`` float [R, R, R], ``mask`` bool)."""
+    if val.shape != mask.shape or val.ndim != 3:
+        raise ValueError(f"val {val.shape} and mask {mask.shape} must be equal [R, R, R]")
+    return OccGridState(torch.from_numpy(np.array(val, dtype=np.float32)).to(device),
+                        torch.from_numpy(np.array(mask, dtype=bool)).to(device))

@@ -5,10 +5,21 @@ bank, renderer and training keys): NeuS object reconstruction on the
 procedural synthetic scene, an LoTD of 6 stacked-CP and 2 hash levels and a
 sky MLP. ``${a.b}`` references stay as written, as in the YAML;
 :func:`resolve_refs` replaces them.
+
+``BENCH_OBJECT`` mirrors, value by value, the model that the JAX package's
+``bench.py`` (lines 56-125) builds by hand, with that script's environment
+knobs at their defaults: a NeuS field on 12 stacked-CP levels of 8 features
+(16 .. 1,024), an EMA occupancy grid of 128^3, the NeRF++ distant MLP and a
+sky, trained on 8,192 rays a step. It names fields, not asset classes (the
+assets cannot express its grid and distant settings), so it has its own
+layout: ``models`` {role: {field, params}}, ``accel_cfg`` {role: grid
+settings}, ``occ_converge`` (the grid's warm-up against the scene's analytic
+SDF), ``renderer`` and ``training``.
 """
 from __future__ import annotations
 
 import copy
+import math
 import re
 from typing import Any, Dict
 
@@ -61,6 +72,55 @@ SYNTHETIC_OBJECT: Dict[str, Any] = {
             "eikonal": {"w": 0.01, "on_render_ratio": 0.3},
             "sparsity": {"w": 0.002},
         },
+    },
+}
+
+BENCH_OBJECT: Dict[str, Any] = {
+    "seed": 0,
+    "dataset_cfg": {"params": {"n_frames": 4, "H": 128, "W": 128}},
+    "models": {
+        "cr": {
+            "field": "NeuSField",
+            "aabb": [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]],
+            "params": {
+                "encoding_cfg": {"type": "tpu_mixed", "n_levels": 12, "base_res": 16,
+                                 "max_res": 1024, "n_feats": 8, "n_hash_levels": 0,
+                                 "log2_hashmap_size": 17, "cp_max_res": 2048},
+                "geo_feat_dim": 15, "decoder_hidden": 64, "radiance_hidden": 64,
+                "ln_inv_s_init": math.log(30.0), "cos_anneal_stop_it": 500,
+                "eval_chunk": 2_000_000,
+            },
+        },
+        "distant": {
+            "field": "NeRFDistantField",
+            "params": {"inner_radius": 1.0, "geometry": "mlp", "geo_feat_dim": 8,
+                       "radiance_hidden": 32},
+        },
+        "sky": {"field": "SimpleSky", "params": {"hidden": 32}},
+    },
+    "renderer": {
+        "query_cfg": {"num_coarse": 16, "num_fine": [8, 8], "upsample_inv_s": 64.0,
+                      "upsample_inv_s_factors": [1.0, 4.0]},
+        "distant_query_cfg": {"num_samples": 32},
+    },
+    "accel_cfg": {"cr": {"resolution": 128, "n_warmup_steps": 0, "occ_inv_s": 64.0,
+                         "march_steps": 48}},
+    "occ_converge": {"n": 40, "it": 1000},
+    "training": {
+        "num_iters": 30,            # the steps that bench.py times
+        "n_rays": 8192,
+        "uniform_sample_n": 1024,
+        "i_log": 100,
+        "with_mask": True,
+        "losses": {
+            "rgb": {"fn_type": "huber", "w": 10.0},
+            "occupancy_mask": {"w": 0.3},
+            "eikonal": {"w": 0.01, "on_render_ratio": 0.3},
+            "sparsity": {"w": 0.002},
+        },
+        # each model's Adam; no schedule type is named, so each follows the
+        # optimizer's default one (exponential to a tenth over 10,000 steps)
+        "optim": {"cr": {"lr": 1e-2}, "distant": {"lr": 5e-3}, "sky": {"lr": 3e-3}},
     },
 }
 

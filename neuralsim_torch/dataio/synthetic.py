@@ -1,5 +1,7 @@
 """The procedural synthetic object scene: cameras, rays and analytic ground
-truth (port of neuralsim_tpu/dataio/synthetic.py:1-170; numpy only).
+truth (port of neuralsim_tpu/dataio/synthetic.py:1-170; numpy, but for the
+tensor form of the scene's SDF that the occupancy grid's warm-up evaluates on
+the grid's own device).
 
 The scene is an analytic SDF (two spheres and a torus), Lambertian-shaded with
 a smooth albedo over a sky gradient, so training needs no data files. Cameras
@@ -13,6 +15,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def _sdf_scene(p: np.ndarray) -> np.ndarray:
@@ -23,6 +26,18 @@ def _sdf_scene(p: np.ndarray) -> np.ndarray:
     q = np.stack([np.linalg.norm(p[..., [0, 2]], axis=-1) - 0.55, p[..., 1] + 0.35], -1)
     d3 = np.linalg.norm(q, axis=-1) - 0.08
     return np.minimum(np.minimum(d1, d2), d3)
+
+
+def sdf_scene_tensor(p: torch.Tensor) -> torch.Tensor:
+    """:func:`_sdf_scene` for a tensor [..., 3], on the tensor's device:
+    evaluated in float64, returned as float32."""
+    p = p.double()
+    d1 = torch.linalg.norm(p, dim=-1) - 0.45
+    c2 = torch.tensor([0.42, 0.3, 0.0], dtype=p.dtype, device=p.device)
+    d2 = torch.linalg.norm(p - c2, dim=-1) - 0.22
+    q = torch.stack([torch.linalg.norm(p[..., [0, 2]], dim=-1) - 0.55, p[..., 1] + 0.35], -1)
+    d3 = torch.linalg.norm(q, dim=-1) - 0.08
+    return torch.minimum(torch.minimum(d1, d2), d3).float()
 
 
 def _sdf_grad(p: np.ndarray, eps: float = 1e-4) -> np.ndarray:

@@ -1,10 +1,30 @@
-"""Real spherical harmonics up to degree 4 (port of
-neuralsim_tpu/fields/embedders.py:56-101; same basis as Instant-NGP)."""
+"""Coordinate embedders: the sinusoidal positional encoding and real spherical
+harmonics up to degree 4 (port of neuralsim_tpu/fields/embedders.py:15-43,
+56-101; the SH basis is Instant-NGP's)."""
 from __future__ import annotations
 
 from typing import Callable, Tuple
 
 import torch
+
+def sinusoidal_embedder(n_freqs: int, input_dim: int = 3, include_input: bool = True
+                        ) -> Tuple[Callable[[torch.Tensor], torch.Tensor], int]:
+    """NeRF positional encoding [x, sin(2^k x), cos(2^k x), ...] with
+    frequencies 2^0 .. 2^(n_freqs-1), in the JAX package's channel order
+    (frequency, then sin/cos, then input dimension). -> (embed, out_dim)."""
+    if n_freqs == 0:
+        return (lambda x: x), input_dim
+    out_dim = 2 * n_freqs * input_dim + (input_dim if include_input else 0)
+
+    def embed(x: torch.Tensor) -> torch.Tensor:
+        freqs = 2.0 ** torch.arange(n_freqs, dtype=x.dtype, device=x.device)
+        xb = x[..., None, :] * freqs[:, None]                       # [..., F, D]
+        enc = torch.stack([torch.sin(xb), torch.cos(xb)], dim=-2)   # [..., F, 2, D]
+        enc = enc.reshape(x.shape[:-1] + (2 * n_freqs * x.shape[-1],))
+        return torch.cat([x, enc], dim=-1) if include_input else enc
+
+    return embed, out_dim
+
 
 _C0 = 0.28209479177387814
 _C1 = 0.4886025119029199

@@ -1,0 +1,102 @@
+"""The NeRF++ inverted-sphere background field (port of
+neuralsim_tpu/fields/nerf.py:131-267 with ``geometry="mlp"``).
+
+The field takes the 4-D contraction (unit direction, inner_radius / r) of a
+point through a sinusoidal embedding and an MLP, and samples a ladder that is
+linear in inverse depth from the close-range model's far plane outwards. It
+holds no kernel of its own: its samples join the close-range buffer and go
+through the ``volume_composite`` kernel together.
+
+Not ported yet: ``geometry="lotd"`` (the 4-D LoTD), ``NeRFField``, the
+``fixed_cuboid_shells`` contraction and appearance embeddings.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from ..ops.segment import tau_to_alpha
+from .blocks import MLP
+from .embedders import sh_embedder, sinusoidal_embedder
+from .spatial import contract_inverted_sphere
+
+
+class NeRFDistantField(nn.Module):
+    """Parameters (JAX names): the ``decoder`` and ``radiance`` MLP layers."""
+
+    def __init__(self, *, inner_radius: float = 1.0, geometry: str = "mlp",
+                 geo_feat_dim: int = 15, decoder_hidden: int = 64, decoder_depth: int = 1,
+                 radiance_hidden: int = 64, radiance_depth: int = 2,
+                 use_view_dirs: bool = True, sh_degree: int = 4):
+        super().__init__()
+        if geometry == "lotd":
+            raise NotImplementedError("the 4-D LoTD distant field is not ported")
+        if geometry != "mlp":
+            raise ValueError(geometry)
+        self.inner_radius = inner_radius
+        self.use_view_dirs = use_view_dirs
+        self.pe, dec_in = sinusoidal_embedder(8, 4)
+        self.decoder = MLP(dec_in, 1 + geo_feat_dim, hidden=decoder_hidden,
+                           depth=decoder_depth)
+        rad_in = geo_feat_dim
+        if use_view_dirs:
+            self.dir_embed, dir_dim = sh_embedder(sh_degree)
+            rad_in += dir_dim
+        self.radiance = MLP(rad_in, 3, hidden=radiance_hidden, depth=radiance_depth,
+                            output_activation="sigmoid")
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.decoder.reset_parameters(generator)
+        self.radiance.reset_parameters(generator)
+
+    def query_density_feat(self, x: torch.Tensor):
+        """x: [..., 3] -> (density [...], feature [..., geo_feat_dim])."""
+        out = self.decoder(self.pe(contract_inverted_sphere(x, self.inner_radius)))
+        # -1 bias: at init (raw ~ 0) the optical depth over the whole ladder is
+        # ~0.4, so the background does not start opaque
+        return torch.exp(torch.clamp(out[..., 0] - 1.0, -15.0, 15.0)), out[..., 1:]
+
+    def ray_query(self, rays_o: torch.Tensor, rays_d: torch.Tensor, *, it=None,
+                  near: Optional[torch.Tensor] = None, num_samples: int = 64,
+                  with_rgb: bool = True, far_factor: float = 1e4,
+                  noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+        """Samples linear in inverse depth on [near, near * far_factor]; ``near``
+        per ray is the close-range model's far. ``noise``: [N, num_samples]
+        uniform draws that jitter the ladder, None for the deterministic one.
+        Returns the dense buffer {t, mask, alpha, nablas (zeros), rgb, details}.
+        """
+        N = rays_o.shape[0]
+        if near is None:
+            near = torch.full((N,), self.inner_radius, dtype=torch.float32,
+                              device=rays_o.device)
+        near = torch.clamp(near, min=1e-3)
+        u = torch.linspace(0.0, 1.0, num_samples, dtype=torch.float32,
+                           device=rays_o.device).expand(N, num_samples)
+        if noise is not None:
+            u = torch.clamp(u + (noise - 0.5) / num_samples, 0.0, 1.0)
+        inv_t = (1.0 / near)[:, None] * (1.0 - u) + (1.0 / (near * far_factor))[:, None] * u
+        t = 1.0 / inv_t
+        mask = torch.ones_like(t, dtype=torch.bool)
+
+        x = rays_o[:, None, :] + t[..., None] * rays_d[:, None, :]
+        sigma, feat = self.query_density_feat(x)
+        # integrate in the contracted coordinate s = near / t, uniform in
+        # [1 / far_factor, 1]: the metric dt explodes toward the far shells.
+        # The ladder does not close the integral at infinity; the sky owns the
+        # residual transmittance.
+        s = near[:, None] * inv_t
+        ds = s[..., :-1] - s[..., 1:]
+        ds = torch.cat([ds, ds[..., -1:]], dim=-1)
+        alpha = tau_to_alpha(sigma * ds)
+        buf: Dict[str, Any] = {"t": t, "mask": mask, "alpha": alpha,
+                               "nablas": torch.zeros_like(x)}
+        if with_rgb:
+            inputs = [feat]
+            if self.use_view_dirs:
+                inputs.append(self.dir_embed(rays_d[:, None, :].expand(x.shape)))
+            buf["rgb"] = self.radiance(torch.cat(inputs, dim=-1))
+        buf["details"] = {"hit": torch.ones((N,), dtype=torch.bool, device=rays_o.device),
+                          "near": near, "far": t[..., -1]}
+        return buf

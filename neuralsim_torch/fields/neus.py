@@ -1,6 +1,6 @@
 """NeuS SDF field: LoTD encoding + SDF decoder + radiance net + learned inv_s,
 with the fixed-shape hierarchical ray query (port of
-neuralsim_tpu/fields/neus.py:63-100, 107-234, 237-329, 350-557).
+neuralsim_tpu/fields/neus.py:35-56, 63-100, 107-234, 237-329, 350-557).
 
 The upsample stage (neighbour cos, NeuS alpha at a fixed inv_s, weights and
 the inverse-CDF draws) is the first launch of the ``neus_upsample`` kernel
@@ -8,7 +8,9 @@ the inverse-CDF draws) is the first launch of the ``neus_upsample`` kernel
 query is deterministic: the JAX package's eval path (``key=None``,
 ``perturb=False``). With it, it is the training query: the caller draws the
 coarse jitter and each stage's stratified noise from its own
-``torch.Generator`` and hands them in. The proposal ladder only places
+``torch.Generator`` and hands them in. With ``occ_t_fn`` the coarse samples
+come from the occupancy grid's march instead of the uniform ladder. The
+proposal ladder only places
 samples and always runs under ``torch.no_grad()`` (JAX's
 ``proposal_no_grad``); the final evaluation carries the gradients.
 
@@ -18,7 +20,7 @@ Only the LoTD geometry is ported, with analytic nablas; the decoder's
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -33,6 +35,16 @@ from .spatial import AABBSpace
 
 K5A = kernels.register("neus_upsample.weights_pdf", "neuralsim_torch/csrc/neus_upsample.cu",
                        "neuralsim_tpu/fields/neus.py:93")
+
+
+def map_chunked(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+                chunk: Optional[int]) -> torch.Tensor:
+    """``fn`` over the leading axis of ``x`` in pieces of at most ``chunk``
+    rows, which bounds the memory of a huge field evaluation (the occupancy
+    grid's 128^3 points); the values do not depend on the chunking."""
+    if not chunk or x.shape[0] <= chunk:
+        return fn(x)
+    return torch.cat([fn(x[s:s + chunk]) for s in range(0, x.shape[0], chunk)], dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -134,7 +146,8 @@ class NeuSField(nn.Module):
                  inv_s_anneal_stop_it: int = 0,
                  cos_anneal_stop_it: int = 0,
                  radius_init: float = 0.5,
-                 sdf_scale: float = 1.0):
+                 sdf_scale: float = 1.0,
+                 eval_chunk: int = 2_000_000):
         super().__init__()
         self.space = space or AABBSpace()
         self.geo_feat_dim = geo_feat_dim
@@ -144,6 +157,7 @@ class NeuSField(nn.Module):
         self.inv_s_anneal_stop_it = inv_s_anneal_stop_it
         self.cos_anneal_stop_it = cos_anneal_stop_it
         self.sdf_scale = sdf_scale
+        self.eval_chunk = eval_chunk
         self._geo_init_bias = radius_init
 
         self.encoding = make_lotd(encoding_cfg or {}, input_dim=3)
@@ -242,27 +256,36 @@ class NeuSField(nn.Module):
                   upsample_inv_s_factors: Sequence[float] = (1.0, 4.0),
                   with_rgb: bool = True,
                   forward_inv_s: Optional[float] = None,
-                  noise: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+                  noise: Optional[Dict[str, Any]] = None,
+                  occ_t_fn: Optional[Callable] = None) -> Dict[str, Any]:
         """Hierarchical NeuS ray query with fixed shapes: uniform coarse
-        samples, one upsample stage per ``num_fine`` entry at inv_s
+        samples (or the occupancy march's), one upsample stage per ``num_fine`` entry at inv_s
         ``upsample_inv_s * factor``, each merged into the sorted buffer, then
         the full evaluation with the learned inv_s.
 
         rays_o/rays_d: [N, 3] object coords. ``noise``: uniform draws in
         [0, 1) for the training query, ``{"coarse": [N, num_coarse],
         "fine": [[N, nf] per stage]}``; None gives the deterministic query.
+        ``occ_t_fn(rays_o, rays_d, near, far, num_coarse, noise) -> (t, mask)``
+        replaces the uniform coarse ladder; it gets ``noise["occ_proposal"]``
+        ([N, num_coarse], or None) and ``"coarse"`` is then not read.
         Returns the dense volume buffer
         {t, mask, alpha, sdf, nablas, rgb [N, S(, 3)], details}.
         """
         n_, f_, hit = self.space.ray_test(rays_o, rays_d, near=near, far=far)
         lines = self.encoding.kernel_lines()     # shared by the four encodings
         with torch.no_grad():                    # the ladder only places samples
-            u = torch.linspace(0.0, 1.0, num_coarse, dtype=torch.float32,
-                               device=rays_o.device)
-            if noise is not None:
-                u = torch.clamp(u + (noise["coarse"] - 0.5) / num_coarse, 0.0, 1.0)
-            t = n_[:, None] + (f_ - n_)[:, None] * u
-            mask = hit[:, None].expand(t.shape).contiguous()
+            if occ_t_fn is not None:
+                t, mask = occ_t_fn(rays_o, rays_d, n_, f_, num_coarse,
+                                   None if noise is None else noise.get("occ_proposal"))
+                mask = mask & hit[:, None]
+            else:
+                u = torch.linspace(0.0, 1.0, num_coarse, dtype=torch.float32,
+                                   device=rays_o.device)
+                if noise is not None:
+                    u = torch.clamp(u + (noise["coarse"] - 0.5) / num_coarse, 0.0, 1.0)
+                t = n_[:, None] + (f_ - n_)[:, None] * u
+                mask = hit[:, None].expand(t.shape).contiguous()
 
             x = rays_o[:, None, :] + t[..., None] * rays_d[:, None, :]
             sdf = self.query_sdf(x.reshape(-1, 3), lines).reshape(t.shape)

@@ -1,4 +1,5 @@
-"""Axis-aligned box space (port of neuralsim_tpu/fields/spatial.py:18-67)."""
+"""Axis-aligned box space and the inverted-sphere contraction of the distant
+field (port of neuralsim_tpu/fields/spatial.py:18-67, 117-131)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -30,6 +31,10 @@ class AABBSpace(nn.Module):
     def half_extent(self) -> torch.Tensor:
         return 0.5 * (self.aabb_max - self.aabb_min)
 
+    @property
+    def radius3d(self) -> torch.Tensor:
+        return torch.linalg.norm(self.half_extent)
+
     def normalize_coords(self, x: torch.Tensor) -> torch.Tensor:
         return (x - self.aabb_min) / (self.aabb_max - self.aabb_min)
 
@@ -52,3 +57,11 @@ class AABBSpace(nn.Module):
         if far is not None:
             f = torch.minimum(f, far)
         return n, f, hit & (f > n)
+
+
+def contract_inverted_sphere(x: torch.Tensor, inner_radius: float = 1.0) -> torch.Tensor:
+    """NeRF++ inverted-sphere parameterisation of background points: [..., 3]
+    -> [..., 4] = (unit direction, inner_radius / r), with r clipped from
+    below at the inner radius, so every channel is bounded."""
+    r = torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=inner_radius)
+    return torch.cat([x / r, inner_radius / r], dim=-1)

@@ -41,6 +41,8 @@ SIGNATURES: Dict[str, str] = {
     "merge_sorted_samples": "pppppppppiiip",
     "volume_composite_fwd": "pppppppppppiip",
     "volume_composite_bwd": "pppppppppppppiip",
+    "occ_ray_proposal": "ppppppppppiiiiip",
+    "occ_ema_update": "ppppiiifffffp",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -49,6 +49,11 @@ def alpha_to_vw(alpha: torch.Tensor, mask: Optional[torch.Tensor] = None) -> tor
     return alpha * exclusive_cumprod(1.0 - alpha + 1e-10)
 
 
+def tau_to_alpha(tau: torch.Tensor) -> torch.Tensor:
+    """Optical thickness (sigma * dt) -> alpha."""
+    return 1.0 - torch.exp(-torch.clamp(tau, min=0.0))
+
+
 def masked_sum(x: torch.Tensor, mask: Optional[torch.Tensor], dim: int = -1) -> torch.Tensor:
     if mask is not None:
         x = torch.where(mask, x, torch.zeros_like(x))

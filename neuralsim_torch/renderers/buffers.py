@@ -1,5 +1,5 @@
 """Volume-buffer integration: dense masked buffers -> per-ray outputs (port of
-neuralsim_tpu/renderers/buffers.py:21-52, 55-106).
+neuralsim_tpu/renderers/buffers.py:21-52, 55-130).
 
 The composite (masked alpha -> transmittance -> weighted sums) is the
 ``volume_composite`` kernel (K6), and its gradient into alpha, rgb and nablas
@@ -7,7 +7,10 @@ the ``volume_composite.bwd`` kernel; wrappers and plain versions live here.
 On the CPU autograd differentiates the plain version; on the card
 ``volume_integrate`` goes through one ``torch.autograd.Function`` over the two
 kernels. No gradient goes to the depths ``t`` (sample depths are detached).
-Only the single-buffer branch of ``merge_and_integrate`` is ported.
+``merge_and_integrate`` takes one buffer, or several that are disjoint in
+depth and in order (close range, then distant): those are concatenated along
+the sample axis and composited once. The sort-based merge and the order-free
+cross-source composite are not ported yet.
 """
 from __future__ import annotations
 
@@ -167,14 +170,46 @@ def volume_integrate(buf: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def merge_and_integrate(buffers: Sequence[Dict[str, Any]]) -> Dict[str, Any]:
-    """The single-buffer branch of the JAX ``merge_and_integrate``: the
-    rendered dict, with the buffer itself (plus its all-zero source index)
-    under ``merged_buffer``."""
-    if len(buffers) != 1:
-        raise NotImplementedError("merging several buffers is not ported")
-    merged = dict(buffers[0])
-    merged["src"] = torch.zeros_like(merged["t"], dtype=torch.int32)
+def merge_and_integrate(buffers: Sequence[Dict[str, Any]], *, with_per_src: bool = False,
+                        assume_sorted: bool = False) -> Dict[str, Any]:
+    """Merge the buffers of several models, composite once and, with
+    ``with_per_src``, give each source's share of the total as
+    ``per_src[i] = {mask_volume, depth_volume, rgb_volume}``.
+
+    ``assume_sorted``: every valid sample of buffer k lies before buffer
+    k+1's (close range, then distant, whose near is the close range's far), so
+    the concatenation along the sample axis is already in depth order over
+    the valid lanes, and masked lanes have alpha 0. Several buffers need it.
+    The rendered dict carries the merged buffer, with each lane's source
+    index ``src``, under ``merged_buffer``.
+    """
+    if len(buffers) == 1:
+        merged = dict(buffers[0])
+        merged["src"] = torch.zeros_like(merged["t"], dtype=torch.int32)
+    elif assume_sorted:
+        merged = {"t": torch.cat([b["t"] for b in buffers], dim=-1),
+                  "mask": torch.cat([b["mask"] for b in buffers], dim=-1)}
+        for k in ("alpha", "rgb", "nablas"):
+            if all(k in b for b in buffers):
+                merged[k] = torch.cat([b[k] for b in buffers],
+                                      dim=-1 if k == "alpha" else -2).contiguous()
+        merged["src"] = torch.cat([torch.full_like(b["t"], i, dtype=torch.int32)
+                                   for i, b in enumerate(buffers)], dim=-1)
+    else:
+        raise NotImplementedError("merging buffers that overlap in depth is not ported")
     out = volume_integrate(merged)
     out["merged_buffer"] = merged
+    if with_per_src:
+        vw = out["vw"]
+        out["per_src"] = []
+        for i in range(len(buffers)):
+            sel = (merged["src"] == i) & merged["mask"]
+            share = masked_sum(vw, sel)
+            d = {"mask_volume": share,
+                 "depth_volume": masked_sum(vw * merged["t"], sel)
+                 / torch.clamp(share, min=1e-8)}
+            if "rgb" in merged:
+                d["rgb_volume"] = masked_sum(vw[..., None] * merged["rgb"], sel[..., None],
+                                             dim=-2)
+            out["per_src"].append(d)
     return out

@@ -1,6 +1,7 @@
 """Build the renderer, the trainer and seeded parameters from a config dict
 (port of the role binding and trainer set-up in
-neuralsim_tpu/tools/train.py:49-115, without the scene graph and asset bank).
+neuralsim_tpu/tools/train.py:49-115, without the scene graph and asset bank,
+and of the model that the JAX package's bench.py:56-129 builds by hand).
 
 Usage::
 
@@ -10,6 +11,10 @@ Usage::
     out = renderer.render_chunked(params, rays_o, rays_d, rayschunk=4096)
     trainer, state = build_trainer(SYNTHETIC_OBJECT)             # on the card
     state, metrics = trainer.train_step(state, batch, noise)
+
+``BENCH_OBJECT`` (occupancy grid, distant field, 12 stacked-CP levels) builds
+the same way; its trainer's state carries the converged grid, and a render
+takes it as ``occ_states=state.occ``.
 """
 from __future__ import annotations
 
@@ -18,10 +23,19 @@ from typing import Any, Dict, Tuple
 import torch
 from torch import nn
 
+from ..accel import OccGridEma, OccGridState
 from ..configs import resolve_refs
+from ..dataio.synthetic import sdf_scene_tensor
+from ..fields.nerf import NeRFDistantField
+from ..fields.neus import NeuSField
+from ..fields.sky import SimpleSky
+from ..fields.spatial import AABBSpace
 from ..models.assets import asset_class
 from ..renderers.single_volume import SingleVolumeRenderer
 from ..training.trainer import Trainer, TrainState
+
+FIELDS = {"NeuSField": NeuSField, "NeRFDistantField": NeRFDistantField,
+          "SimpleSky": SimpleSky}
 
 
 def resolve_device(device) -> torch.device:
@@ -33,12 +47,9 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_renderer(cfg: Dict[str, Any], device="cuda"
-                   ) -> Tuple[SingleVolumeRenderer, nn.ModuleDict]:
-    """-> (renderer, params). ``params`` is an ``nn.ModuleDict`` of the field
-    modules keyed by asset class name, initialised from the config's ``seed``
-    with the JAX init formulas, in distribution."""
-    dev = resolve_device(device)
+def _from_assets(cfg: Dict[str, Any]):
+    """Fields, role binding, query configs and grids of an ``assetbank_cfg``
+    config (the YAML route)."""
     assets = {}
     for name, acfg in cfg["assetbank_cfg"].items():
         asset = asset_class(acfg["model_class"])(acfg.get("model_params"))
@@ -48,35 +59,95 @@ def build_renderer(cfg: Dict[str, Any], device="cuda"
     param_keys = {"cr": rcfg.get("cr_class", "Main")}
     if param_keys["cr"] not in assets:
         raise ValueError(f"no close-range asset of class {param_keys['cr']}")
-    sky = rcfg.get("sky_class", "Sky")
-    if sky in assets:
-        param_keys["sky"] = sky
-    if rcfg.get("distant_class", "Distant") in assets:
-        raise NotImplementedError("the distant field is not ported")
+    for role, default in (("sky", "Sky"), ("distant", "Distant")):
+        if rcfg.get(f"{role}_class", default) in assets:
+            param_keys[role] = rcfg.get(f"{role}_class", default)
+    cr = assets[param_keys["cr"]]
+    query_cfg = {**cr.query_cfg, **dict(rcfg.get("query_cfg", {}))}
+    distant_query_cfg = {**(assets[param_keys["distant"]].query_cfg
+                            if "distant" in param_keys else {}),
+                         **dict(rcfg.get("distant_query_cfg", {}))}
+    accels = {"cr": cr.accel} if cr.accel is not None else {}
+    return ({n: a.field for n, a in assets.items()}, param_keys, query_cfg,
+            distant_query_cfg, accels)
 
+
+def _from_models(cfg: Dict[str, Any]):
+    """The same for a ``models`` config, which names the fields directly
+    (``BENCH_OBJECT``); model ids are the roles."""
+    fields = {}
+    for role, mcfg in cfg["models"].items():
+        params = dict(mcfg.get("params", {}))
+        if "aabb" in mcfg:
+            params["space"] = AABBSpace(*mcfg["aabb"])
+        fields[role] = FIELDS[mcfg["field"]](**params)
+    if "cr" not in fields:
+        raise ValueError("no close-range model 'cr'")
+    rcfg = cfg.get("renderer", {})
+    accels = {role: OccGridEma(fields[role].space, **acfg)
+              for role, acfg in cfg.get("accel_cfg", {}).items()}
+    return (fields, {role: role for role in fields}, dict(rcfg.get("query_cfg", {})),
+            dict(rcfg.get("distant_query_cfg", {})), accels)
+
+
+def build_renderer(cfg: Dict[str, Any], device="cuda"
+                   ) -> Tuple[SingleVolumeRenderer, nn.ModuleDict]:
+    """-> (renderer, params). ``params`` is an ``nn.ModuleDict`` of the field
+    modules keyed by model id, initialised from the config's ``seed`` with the
+    JAX init formulas, in distribution. The renderer's occupancy grids
+    (``renderer.accels``) come without a state: take the trainer's, or
+    ``accel.init_state()`` and :func:`converge_occ`."""
+    dev = resolve_device(device)
+    fields, param_keys, query_cfg, distant_query_cfg, accels = \
+        (_from_models if "models" in cfg else _from_assets)(cfg)
     gen = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     params = nn.ModuleDict()
-    for name in sorted(assets):
-        assets[name].field.reset_parameters(gen)
-        params[name] = assets[name].field
+    for name in sorted(fields):
+        fields[name].reset_parameters(gen)
+        params[name] = fields[name]
     params.to(dev)
-    renderer = SingleVolumeRenderer(
-        query_cfg={**assets[param_keys["cr"]].query_cfg, **dict(rcfg.get("query_cfg", {}))},
-        param_keys=param_keys)
+    renderer = SingleVolumeRenderer(query_cfg=query_cfg, distant_query_cfg=distant_query_cfg,
+                                    param_keys=param_keys, accels=accels)
     return renderer, params
+
+
+def converge_occ(accel: OccGridEma, state: OccGridState, n: int = 40, it: int = 1000,
+                 seed: int = 0) -> OccGridState:
+    """``n`` EMA updates of the grid against the synthetic scene's analytic
+    SDF, so that rendering and training start from the grid's steady state
+    (the warm-up of the JAX package's ``bench.py``). ``it`` is the iteration
+    the updates see (past any warm-up); the voxel jitter comes from ``seed``."""
+    dev = state.val.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (accel.samples_per_voxel,) + (accel.res,) * 3 + (3,)
+    for _ in range(n):
+        state = accel.update(state, sdf_scene_tensor,
+                             torch.rand(shape, generator=gen, device=dev), it)
+    return state
 
 
 def build_trainer(cfg: Dict[str, Any], device="cuda") -> Tuple[Trainer, TrainState]:
     """-> (trainer, state): the renderer of :func:`build_renderer` under the
-    config's ``training`` block, with one Adam per asset from its
-    ``asset_params.training_cfg`` (``${training.num_iters}`` resolved)."""
+    config's ``training`` block, with one Adam per model (from the asset's
+    ``asset_params.training_cfg``, ``${training.num_iters}`` resolved, or from
+    ``training.optim`` of a ``models`` config). With ``occ_converge`` in the
+    config the occupancy grid starts converged (:func:`converge_occ`)."""
     cfg = resolve_refs(cfg)
     renderer, params = build_renderer(cfg, device)
     tcfg = cfg.get("training", {})
-    training_cfgs = {name: dict(acfg.get("asset_params", {}).get("training_cfg", {}))
-                     for name, acfg in cfg["assetbank_cfg"].items()}
+    if "models" in cfg:
+        training_cfgs, default = dict(tcfg.get("optim", {})), None
+    else:
+        training_cfgs = {name: dict(acfg.get("asset_params", {}).get("training_cfg", {}))
+                         for name, acfg in cfg["assetbank_cfg"].items()}
+        default = dict(tcfg.get("optim", {"lr": 1e-2}))
     trainer = Trainer(renderer, loss_cfgs=dict(tcfg.get("losses", {})),
                       training_cfgs=training_cfgs,
                       uniform_sample_n=tcfg.get("uniform_sample_n", 1024),
-                      default_optim_cfg=dict(tcfg.get("optim", {"lr": 1e-2})))
-    return trainer, trainer.init_state(params)
+                      default_optim_cfg=default)
+    state = trainer.init_state(params)
+    if "occ_converge" in cfg and state.occ:
+        for role, accel in renderer.accels.items():
+            state.occ[role] = converge_occ(accel, state.occ[role], seed=int(cfg.get("seed", 0)),
+                                           **cfg["occ_converge"])
+    return trainer, state

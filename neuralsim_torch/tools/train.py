@@ -55,7 +55,7 @@ def train(cfg: Dict[str, Any], num_iters: Optional[int] = None, device="cuda"
     for it in range(num_iters):
         batch = to_device_batch(dataset.sample_pixels(rng, n_rays), dev,
                                 tcfg.get("with_mask", True))
-        state, m = trainer.train_step(state, batch, trainer.draw_noise(n_rays, gen))
+        state, m = trainer.train_step(state, batch, trainer.draw_noise(n_rays, gen, state.it))
         if it % i_log == 0:     # the only place the loop waits for the device
             mm = {k: float(v) for k, v in m.items() if v.dim() == 0}
             rate = (it + 1) * n_rays / max(time.time() - t0, 1e-9)

@@ -1,6 +1,6 @@
 """Trainer: loss assembly and the training step over a renderer (port of
 neuralsim_tpu/training/trainer.py:31-71, 134-157, 213-231, 286-311, 353-418
-for the ``pixel`` step of the single-scene NeuS model).
+for the ``pixel`` step of the single-scene models).
 
 PyTorch runs eagerly, so the step is plain Python around autograd: render with
 ``return_buffer=True``, assemble the losses, differentiate, and step each
@@ -13,10 +13,16 @@ The finite guard never syncs with the host: one device flag ``ok`` (the total
 loss and every gradient are finite) selects, inside each optimizer, between
 the new and the old value of every parameter, moment and step count
 (``torch.where``), and ``skips`` counts on the device. A skipped step changes
-nothing but ``skips`` and ``it``.
+nothing but ``skips``, ``it`` and, on its cadence, the occupancy grid.
+
+Where the renderer has occupancy grids, their states ride in
+``TrainState.occ``: the render reads them, and after the optimizer step each
+grid is refreshed on its cadence from the parameters as the guard left them
+(``it`` is a host integer, so the cadence is a host branch; the refresh runs
+under ``torch.no_grad()``).
 
 Not ported yet: the lidar, image-patch and view steps, pose refinement,
-appearance embeddings, the occupancy-grid refresh, ``debug_grads``.
+appearance embeddings, ``debug_grads``.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from torch import nn
 
 from ..losses.core import (eikonal_loss, mask_entropy_loss, mask_occupancy_loss,
                            photometric_loss, sparsity_loss)
+from ..fields.neus import map_chunked
 from .optimizers import ModelAdam, make_optimizer
 
 
@@ -37,6 +44,7 @@ class TrainState:
     opt: Dict[str, ModelAdam]        # per-model Adam moments and step counts
     it: int                          # loop iteration (host): drives the annealers
     skips: torch.Tensor              # steps skipped by the finite guard (device int32)
+    occ: Optional[Dict[str, Any]] = None   # {role: OccGridState} of the renderer's grids
 
 
 class Trainer:
@@ -62,34 +70,54 @@ class Trainer:
     def init_state(self, params: nn.ModuleDict) -> TrainState:
         opt = make_optimizer(self.training_cfgs, params, self.default_optim_cfg)
         dev = next(params.parameters()).device
-        return TrainState(params, opt, 0, torch.zeros((), dtype=torch.int32, device=dev))
+        occ = {role: accel.init_state() for role, accel in self.renderer.accels.items()}
+        return TrainState(params, opt, 0, torch.zeros((), dtype=torch.int32, device=dev),
+                          occ or None)
 
-    def draw_noise(self, n_rays: int, generator: torch.Generator) -> Dict[str, Any]:
-        """One step's random draws: the coarse jitter and each upsample
-        stage's stratified noise (uniform), the uniform points of the geometry
-        regularisers and, where the eikonal config asks for it, normal noise
-        on the norms, all on the generator's device."""
+    def draw_noise(self, n_rays: int, generator: torch.Generator,
+                   it: Optional[int] = None) -> Dict[str, Any]:
+        """One step's random draws, all on the generator's device: the coarse
+        jitter (``"occ_proposal"`` instead of ``"coarse"`` where the occupancy
+        grid places the coarse samples), each upsample stage's stratified
+        noise, the distant ladder's jitter where the renderer has a distant
+        model, the uniform points of the geometry regularisers, where the
+        eikonal config asks for it normal noise on the norms and, where step
+        ``it`` refreshes an occupancy grid, ``"occ_update"``: {role: the
+        voxel jitter}."""
         cfg = self.renderer.query_cfg
         dev = generator.device
         rand = lambda *shape: torch.rand(shape, generator=generator, device=dev)
+        accels = self.renderer.accels
         noise: Dict[str, Any] = {
-            "coarse": rand(n_rays, cfg.get("num_coarse", 128)),
+            "occ_proposal" if "cr" in accels else "coarse":
+                rand(n_rays, cfg.get("num_coarse", 128)),
             "fine": [rand(n_rays, nf) for nf in cfg.get("num_fine", (32, 32))],
             "uniform": rand(self.uniform_sample_n, 3)}
+        if "distant" in self.renderer.param_keys:
+            noise["distant"] = rand(
+                n_rays, self.renderer.distant_query_cfg.get("num_samples", 64))
+        refresh = {role: rand(a.samples_per_voxel, a.res, a.res, a.res, 3)
+                   for role, a in accels.items()
+                   if it is not None and it % a.n_steps_between_update == 0}
+        if refresh:
+            noise["occ_update"] = refresh
         if self.loss_cfgs.get("eikonal", {}).get("noise_std", 0.0) > 0:
             noise["eikonal"] = torch.randn((self.uniform_sample_n,), generator=generator,
                                            device=dev)
         return noise
 
     def compute_losses(self, params: nn.ModuleDict, batch: Dict[str, torch.Tensor], it: int,
-                       noise: Dict[str, Any]) -> Tuple[torch.Tensor, Dict]:
+                       noise: Dict[str, Any], occ: Optional[Dict[str, Any]] = None
+                       ) -> Tuple[torch.Tensor, Dict]:
         """The loss dict of one pixel batch {rays_o, rays_d, image_rgb,
-        image_occupancy_mask?} -> (total, {"losses", "aux"})."""
+        image_occupancy_mask?} -> (total, {"losses", "aux"}). ``occ``: the
+        occupancy grids' states, handed to the renderer."""
         cr = params[self.renderer.pkey("cr")]
         losses: Dict[str, torch.Tensor] = {}
         aux: Dict[str, Any] = {}
         rendered = self.renderer.ray_query(params, batch["rays_o"], batch["rays_d"], it=it,
-                                           noise=noise, with_rgb=True, return_buffer=True)
+                                           noise=noise, with_rgb=True, return_buffer=True,
+                                           occ_states=occ)
         buf = rendered["merged_buffer"]
 
         if "rgb" in self.loss_cfgs:
@@ -127,7 +155,7 @@ class Trainer:
         """One optimizer step behind the finite guard. Returns the state
         (parameters and optimizers updated in place, ``it`` advanced) and the
         step's metrics, all device tensors: nothing here waits for the card."""
-        total, extras = self.compute_losses(state.params, batch, state.it, noise)
+        total, extras = self.compute_losses(state.params, batch, state.it, noise, state.occ)
         plist = [p for opt in state.opt.values() for p in opt.params]
         grads = torch.autograd.grad(total, plist, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(plist, grads)]
@@ -140,11 +168,31 @@ class Trainer:
             at += len(opt.params)
         skipped = (~ok).to(torch.int32)
         state.skips = state.skips + skipped
-        state.it += 1
         metrics = {"loss_total": total.detach(),
                    **{k: v.detach() for k, v in extras["losses"].items()}, **extras["aux"],
                    "step_skipped": skipped, "skips_total": state.skips}
+        if state.occ is not None:
+            self.refresh_occ(state, noise.get("occ_update", {}))
+            if "cr" in state.occ:
+                metrics["occ_frac"] = self.renderer.accels["cr"].occupied_fraction(
+                    state.occ["cr"])
+        state.it += 1
         return state, metrics
+
+    @torch.no_grad()
+    def refresh_occ(self, state: TrainState, jitter: Dict[str, torch.Tensor]) -> None:
+        """Refresh each occupancy grid on its cadence at ``state.it``, from the
+        parameters as they stand after the guard (a skipped step refreshes
+        too, from the unchanged parameters). ``jitter``: {role: the voxel
+        jitter of :meth:`draw_noise`}. The 128^3 field evaluation runs in
+        pieces of the field's ``eval_chunk``."""
+        for role, accel in self.renderer.accels.items():
+            field = state.params[self.renderer.pkey(role)]
+            lines = field.encoding.kernel_lines()
+            query = lambda x: map_chunked(lambda c: field.query_sdf(c, lines), x,
+                                          field.eval_chunk)
+            state.occ[role] = accel.maybe_update(state.occ[role], query, jitter.get(role),
+                                                 state.it)
 
 
 def psnr(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,11 @@ backward kernels are held to autograd of their plain versions at
 chip_smoke.GRAD_REL times the largest gradient entry (both sides sum
 thousands of float32 terms per entry in another order, the kernels with
 atomics), and one training step on the card to the same step on the CPU at
-chip_smoke.STEP_LOSS_RTOL and STEP_GRAD_REL (see there).
+chip_smoke.STEP_LOSS_RTOL and STEP_GRAD_REL (see there). K4's depths are held
+to chip_smoke.K4_TOL, K7's values to chip_smoke.K7_ATOL with its mask exact
+away from the threshold, the wide K1 (F = 96, R = 1,024) to the tolerances of
+the narrow one, and a render of a small bench model (occupancy grid, distant
+field) on the card to the CPU at chip_smoke.BENCH_CROP_TOL.
 """
 import copy
 
@@ -24,7 +28,11 @@ import torch
 
 import chip_smoke as cs
 from neuralsim_torch import kernels
-from neuralsim_torch.configs import SYNTHETIC_OBJECT
+from neuralsim_torch.accel import OccGridEma
+from neuralsim_torch.accel.occ_grid import (occ_ema_update, occ_ema_update_plain,
+                                            occ_ray_proposal, occ_ray_proposal_plain)
+from neuralsim_torch.configs import BENCH_OBJECT, SYNTHETIC_OBJECT
+from neuralsim_torch.fields.spatial import AABBSpace
 from neuralsim_torch.dataio.synthetic import SyntheticObjectDataset
 from neuralsim_torch.fields.encodings import lotd
 from neuralsim_torch.fields.neus import upsample_weights_pdf, upsample_weights_pdf_plain
@@ -32,7 +40,7 @@ from neuralsim_torch.ops.segment import merge_sorted_samples, merge_sorted_sampl
 from neuralsim_torch.renderers.buffers import (volume_composite, volume_composite_bwd,
                                                volume_composite_bwd_plain,
                                                volume_composite_plain)
-from neuralsim_torch.tools.build import build_renderer, build_trainer
+from neuralsim_torch.tools.build import build_renderer, build_trainer, converge_occ
 
 pytestmark = pytest.mark.cuda
 
@@ -114,7 +122,8 @@ def test_render_on_card_matches_cpu(dev):
     kernels.reset_counts()
     got = renderer.render_chunked(params, o.to(dev), d.to(dev), rayschunk=100)
     torch.cuda.synchronize()
-    assert all(k.launches > 0 for k in kernels.KERNELS.values() if not k.name.endswith(".bwd"))
+    assert all(k.launches > 0 for k in kernels.KERNELS.values()
+               if not k.name.endswith(".bwd") and k.name not in cs.BENCH_ONLY)
     want = renderer.render_chunked(copy.deepcopy(params).to("cpu"), o, d, rayschunk=100)
     for k, v in want.items():
         torch.testing.assert_close(got[k].cpu(), v, rtol=0, atol=cs.CROP_TOL,
@@ -189,5 +198,142 @@ def test_train_step_on_card_matches_cpu(dev):
     rig = SyntheticObjectDataset(**SYNTHETIC_OBJECT["dataset_cfg"]["params"])
     kernels.reset_counts()
     loss_err, grad_err = cs.check_first_step(trainer, state, rig, dev, n_rays=512)
-    assert all(k.launches > 0 for k in kernels.KERNELS.values())
+    assert all(k.launches > 0 for k in kernels.KERNELS.values() if k.name not in cs.BENCH_ONLY)
     assert loss_err <= cs.STEP_LOSS_RTOL and grad_err <= cs.STEP_GRAD_REL
+
+
+# ---------------------------------------------------------------------------
+# The bench model's kernels: K4, K7 and K1 at F = 96, R = 1,024
+# ---------------------------------------------------------------------------
+
+def _grid(dev, res=64):
+    accel = OccGridEma(AABBSpace().to(dev), res, n_warmup_steps=0, occ_inv_s=64.0,
+                       march_steps=48, ema_decay=0.5)
+    return accel, converge_occ(accel, accel.init_state(), n=4)
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("grid", ["converged", "empty", "full", "outside"])
+def test_k4_occ_ray_proposal(dev, grid, noisy):
+    accel, st = _grid(dev)
+    rig = SyntheticObjectDataset(n_frames=4, H=64, W=64)
+    o, d = (_t(a.reshape(-1, 3).copy(), dev) for a in rig.frame_rays(1))
+    near, far, _ = AABBSpace().to(dev).ray_test(o, d)
+    mask = {"empty": torch.zeros_like(st.mask), "full": torch.ones_like(st.mask)}.get(grid, st.mask)
+    if grid == "outside":       # probes that leave the box
+        near, far = torch.full_like(near, 0.1), torch.full_like(far, 6.0)
+    noise = torch.rand((o.shape[0], 16), generator=torch.Generator().manual_seed(0)).to(dev) \
+        if noisy else None
+    args = (o, d, near, far, mask, *accel.box(dev), accel.edges01(48, dev), 16, noise)
+    n0 = kernels.KERNELS["occ_ray_proposal"].launches
+    got = occ_ray_proposal(*args)
+    assert kernels.KERNELS["occ_ray_proposal"].launches == n0 + 1
+    _close([got], [occ_ray_proposal_plain(*args)], **cs.K4_TOL)
+
+
+@pytest.mark.parametrize("floor", [None, 0.301])
+@pytest.mark.parametrize("mode", ["sdf", "density"])
+@pytest.mark.parametrize("s", [1, 4])
+def test_k7_occ_ema_update(dev, s, mode, floor):
+    rng = np.random.default_rng(1)
+    v = 64 ** 3
+    raw = _t(rng.normal(0, 0.2, (s, v)).astype(np.float32), dev)
+    raw = raw if mode == "sdf" else raw.abs() * 40.0
+    val = _t(rng.random(v).astype(np.float32), dev)
+    args = (raw, val, mode, 0.027, 64.0, 0.95, 0.3, floor)
+    got, want = occ_ema_update(*args), occ_ema_update_plain(*args)
+    _close(got[:1], want[:1], 0, cs.K7_ATOL)
+    assert got[1].dtype == torch.bool
+    assert not ((got[1] != want[1]) & ((want[0] - 0.3).abs() > cs.K7_ATOL)).any()
+
+
+def _wide_encoding(dev):
+    _, params = build_renderer(BENCH_OBJECT, device=dev)
+    enc = params["cr"].encoding
+    assert enc.cp_out_dim == 96 and enc.cp_rmax == 1024
+    return enc, enc.cp_stacked_lines().detach().to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("with_jac", [False, True])
+def test_k1_cp_stacked_wide(dev, with_jac):
+    enc, lines = _wide_encoding(dev)
+    x = _t(cs.ray_points(1024, 32, enc.cp_rmax, 0), dev)
+    args = (lines, x, enc._cp_rows)
+    _close(cs.encode_into(lotd.lotd_cp_stacked, args, enc.out_dim, x.shape[0], dev, with_jac),
+           cs.encode_into(lotd.lotd_cp_stacked_plain, args, enc.out_dim, x.shape[0], dev,
+                          with_jac), 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("which", ["feats", "jac", "both"])
+@pytest.mark.parametrize("n", [1024, 32_768])
+def test_k1_cp_stacked_wide_backward(dev, which, n):
+    enc, lines = _wide_encoding(dev)
+    x = _t(cs.ray_points(n // 32, 32, enc.cp_rmax, 0), dev)
+    d_out = None if which == "jac" else cs.cotangents((enc.out_dim, n), 1, dev)
+    d_jac = None if which == "feats" else cs.cotangents((3, enc.out_dim, n), 2, dev)
+    args = (lines, x, enc._cp_rows, d_out, d_jac)
+    _rel_close([lotd.lotd_cp_stacked_bwd(*args)], [lotd.lotd_cp_stacked_bwd_plain(*args)],
+               cs.GRAD_REL)
+
+
+@pytest.mark.parametrize("n_rays", [4096, 8192])
+def test_sample_kernels_at_the_bench_shapes(dev, n_rays):
+    """K5a, K5b and K6 at 16 -> 24 -> 32 samples with 8 draws a stage and the
+    two-buffer composite over 64 lanes; K6's backward with all five cotangents."""
+    res, _ = cs.check_sample_kernels(dev, n_rays, ((16, 64.0), (24, 256.0)), 8, 64, noisy=True,
+                                     two_buffers=True)
+    assert set(res) == {"neus_upsample.weights_pdf", "neus_upsample.merge", "volume_composite"}
+    (err, tol), _ = cs.check_composite_bwd(dev, n_rays, 64, two_buffers=True)
+    assert tol == cs.GRAD_REL and np.isfinite(err)
+
+
+def _small_bench():
+    cfg = copy.deepcopy(BENCH_OBJECT)
+    cfg["accel_cfg"]["cr"].update(resolution=32, ema_decay=0.5)
+    cfg["occ_converge"] = {"n": 4, "it": 1000}
+    cfg["training"].update(n_rays=512, uniform_sample_n=128)
+    return cfg
+
+
+def test_bench_render_on_card_matches_cpu(dev):
+    trainer, state = build_trainer(_small_bench(), device=dev)
+    rig = SyntheticObjectDataset(n_frames=4, H=16, W=16)
+    o, d = (torch.from_numpy(a.reshape(-1, 3).copy()) for a in rig.frame_rays(0))
+    kernels.reset_counts()
+    got = trainer.renderer.render_chunked(state.params, o.to(dev), d.to(dev), rayschunk=100,
+                                          occ_states=state.occ)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["occ_ray_proposal"].launches == 3
+    want = trainer.renderer.render_chunked(copy.deepcopy(state.params).to("cpu"), o, d,
+                                           rayschunk=100, occ_states=cs.occ_on(state, "cpu"))
+    # the normals apart: the untrained 1,024-wide grid's gradient is noise of
+    # slope ~100 that steps at every cell face, so chip_smoke.check_crop_by_ray
+    # holds them at equal sample depths and on every ray that both sides sample
+    # at bit-equal depths (see there)
+    for k, v in want.items():
+        if k == "normals_volume":
+            continue
+        scale = 1.0 + v.abs() if k == "depth_volume" else 1.0
+        assert float(((got[k].cpu() - v).abs() / scale).max()) <= cs.BENCH_CROP_TOL, k
+    res = cs.check_crop_by_ray(trainer.renderer, state.params, o, d, dev, state.occ,
+                               cs.occ_on(state, "cpu"))
+    assert res["same_depths_err"] <= 1.0 and res["equal_rays_err"] <= 1.0
+    assert res["other_mean_err"] <= cs.OTHER_MEAN_TOL
+
+
+def test_bench_train_step_on_card_matches_cpu(dev):
+    trainer, state = build_trainer(_small_bench(), device=dev)
+    rig = SyntheticObjectDataset(n_frames=4, H=32, W=32)
+    kernels.reset_counts()
+    loss_err, grad_err = cs.check_first_step(trainer, state, rig, dev, 512,
+                                             cs.BENCH_STEP_LOSS_RTOL, cs.BENCH_STEP_GRAD_REL,
+                                             cs.BENCH_SAME_SAMPLES)
+    assert loss_err <= cs.BENCH_STEP_LOSS_RTOL and grad_err <= cs.BENCH_STEP_GRAD_REL
+    # once to find the rays that both sides sample alike, once in the step
+    assert kernels.KERNELS["occ_ray_proposal"].launches == 2
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = cs.device_batch(rig, np.random.default_rng(0), 512, dev)
+    state, m = trainer.train_step(state, batch, trainer.draw_noise(512, gen, state.it))
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["occ_ema_update"].launches == 1 and 0 < float(m["occ_frac"]) < 1
+    assert kernels.KERNELS["lotd_cp_stacked.bwd"].launches >= 2 and int(m["step_skipped"]) == 0

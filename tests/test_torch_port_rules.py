@@ -12,7 +12,7 @@ import torch
 
 from neuralsim_torch import kernels
 from neuralsim_torch.bridge import load_jax_params
-from neuralsim_torch.configs import SYNTHETIC_OBJECT
+from neuralsim_torch.configs import BENCH_OBJECT, SYNTHETIC_OBJECT
 from neuralsim_torch.fields.blocks import MLP
 from neuralsim_torch.tools.build import build_renderer, build_trainer
 from neuralsim_torch.tools.train import train
@@ -35,7 +35,8 @@ def test_importing_every_module_loads_no_jax():
     """In a fresh interpreter (this one has JAX loaded by conftest)."""
     mods = _modules()
     for m in ("fields.encodings.lotd", "training.trainer", "training.optimizers",
-              "training.annealers", "losses.core", "losses.recon", "tools.train"):
+              "training.annealers", "losses.core", "losses.recon", "tools.train",
+              "accel", "accel.occ_grid", "fields.nerf"):
         assert f"neuralsim_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -64,6 +65,14 @@ def test_entry_point_defaults_to_the_card(monkeypatch, entry):
         entry(SYNTHETIC_OBJECT)
 
 
+@pytest.mark.parametrize("entry", [build_renderer, build_trainer, train],
+                         ids=lambda f: f.__name__)
+def test_entry_point_defaults_to_the_card_for_the_bench_model(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry(BENCH_OBJECT)
+
+
 def test_ctypes_signatures_match_the_cuda_sources():
     """The argtypes declared in kernels.py against each extern "C" entry in
     csrc/ (nvcc is not available here to catch a mismatch)."""
@@ -74,17 +83,19 @@ def test_ctypes_signatures_match_the_cuda_sources():
             types = [" ".join(p.split()[:-1]) for p in params.split(",")]
             found[name] = "".join(codes[t] for t in types)
     assert found == kernels.SIGNATURES
-    for entry in ("lotd_cp_stacked_bwd", "lotd_grid_bwd", "volume_composite_bwd"):
+    for entry in ("lotd_cp_stacked_bwd", "lotd_grid_bwd", "volume_composite_bwd",
+                  "occ_ray_proposal", "occ_ema_update"):
         assert entry in found
 
 
 def test_every_kernel_is_registered_once_with_its_source():
     import neuralsim_torch.fields.neus  # noqa: F401  (registers K5a, K5b and the rest)
     import neuralsim_torch.renderers.buffers  # noqa: F401
+    import neuralsim_torch.accel.occ_grid  # noqa: F401
     names = set(kernels.KERNELS)
     assert names == {"lotd_cp_stacked", "lotd_cp_stacked.bwd", "lotd_grid", "lotd_grid.bwd",
                      "neus_upsample.weights_pdf", "neus_upsample.merge", "volume_composite",
-                     "volume_composite.bwd"}
+                     "volume_composite.bwd", "occ_ray_proposal", "occ_ema_update"}
     for k in kernels.KERNELS.values():
         assert (ROOT / k.source).exists() and re.match(r"neuralsim_tpu/.+\.py:\d+$", k.replaces)
         assert (ROOT / k.replaces.split(":")[0]).exists()
