@@ -42,18 +42,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      CPU path ray by ray: tightly at the CPU path's own sample depths and on
      the rays that both sample at equal depths, the others in the mean (see
      check_crop_by_ray);
-  7. timing: frame latency and rays/s; training step time and rays/s; each
+  7. multi-object compose render (WAYMO_DEMO_MULTI at full width: 3 vehicles
+     on one conditional LoTD model, the street's LoTD NeuS with its 128^3
+     grid converged on the drive's ground, the distant field on the street's
+     cuboid shells, the sky): K8 cross_source_vw against its plain version on
+     a chunk's merged buffer [4,096, 168] and on ragged, tied, masked buffers;
+     K1 at the street's width (F_cp 40, R 1,024) and the vehicles' (F_cp 24,
+     R 256), K3 on the vehicles' dense levels, K4 at 64 march segments, K5a
+     and K5b at the stage widths; 4 frames of 80x120 through
+     build_compose_renderer and render_multi_frame, with K8 and K4 launched
+     once a chunk; the frames finite, the mask in [0, 1 + 1.1e-3] and the
+     sources' shares summing to it; a crop held to the CPU path (the merge
+     on identical buffers, then ray by ray, see check_compose_crop);
+  8. timing: frame latency and rays/s; training step time and rays/s; each
      kernel's time at the training path's shapes (beside that path's launch
      count) and, for the forward kernels, at the render path's too, each
      beside its plain version, a library call where one exists, and its bound
      (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s); the same for
      the bench model's step (refresh steps apart, and the mean over a whole
-     cadence of the grid), frame and kernels;
-  8. one JSON line of results, one of per-kernel results, then the device
+     cadence of the grid), frame and kernels, and for the compose frame and
+     K8, K1, K3 and K4 at its shapes;
+  9. one JSON line of results, one of per-kernel results, then the device
      line, last.
 
 --profile adds torch.profiler tables of device time by kernel for one frame
-and for one training step of each model.
+and for one training step of each model, and for one compose frame.
 """
 from __future__ import annotations
 
@@ -135,6 +148,38 @@ BENCH_DEPTH_TOL = 1e-6
 # lies within that tolerance of the threshold
 K4_TOL = dict(rtol=1e-5, atol=1e-6)
 K7_ATOL = 1e-6
+# the multi-object compose render (WAYMO_DEMO_MULTI): 4 frames of 80x120 of
+# camera_FRONT, each 9,600 rays in three chunks of 4,096 (the last padded)
+COMPOSE_ONLY = ("cross_source_vw",)
+COMPOSE_FRAME_IDS = (0, 2, 4, 6)
+COMPOSE_CAM = "camera_FRONT"
+# K8 against its plain version: sums of up to L float32 logs in another order
+K8_TOL = dict(rtol=1e-5, atol=1e-6)
+# a frame's per-source mask volumes against its total (sums of the same
+# weights over disjoint lanes), and the total's upper end: cross_source_vw
+# lets 1e-3 of the light through an opaque lane (its occlusion cap), so the
+# weights of a ray may sum to 1 + 1e-3
+SHARE_SUM_TOL = 1e-5
+MASK_CAP = 1.0 + 1.1e-3
+# a field's sdf at the same positions on the card and on the CPU (the
+# decoder's products sum in another order)
+FIELD_SDF_TOL = 1e-5
+# the compose crop (see check_compose_crop). The street's grid proposal
+# differs from the CPU's in its last bits on every ray that crosses the
+# ground (K4 sums its segments in another order than the plain version's
+# torch.sum), and the upsample stages move a street sample by more than
+# BENCH_SAME_SAMPLES on about half of them (measured 517 of 1,024 rays, H100;
+# 313 at the card test's size), so the share moved is limited only against a
+# failure of the proposal, and the share of rays beyond BENCH_CROP_TOL in
+# colour or mask is the bench's share of moved rays scaled up (measured 38 of
+# 1,024). At the CPU path's street depths, a vehicle depth differs in its
+# last bits on ~5% of the rays (the vehicle decoder's products sum in
+# another order on the card, 2.4e-7 in the sdf, and the upsample stage
+# passes that on; measured 969 of 1,024 rays equal): at least
+# COMPOSE_EQUAL_MIN of the rays must have every depth equal bit for bit
+COMPOSE_MOVED_MAX = 0.75
+COMPOSE_OFF_MAX = 0.10
+COMPOSE_EQUAL_MIN = 0.5
 
 
 def log(*a):
@@ -1359,6 +1404,557 @@ def bench_phase(dev, profile_it):
                 n_frames=len(BENCH_FRAME_IDS), summary=summary)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the multi-object compose render (WAYMO_DEMO_MULTI)
+# ---------------------------------------------------------------------------
+
+def unsorted_inputs(n, L, seed):
+    """An unsorted merged buffer [n, L]: depths with ties within and across
+    sources, masked lanes anywhere and fully masked rays, alphas of 0, 1,
+    near 1 and above 1 (clipped)."""
+    rng = np.random.default_rng(seed)
+    t = (rng.integers(0, 80, (n, L)) / 8.0).astype(np.float32)
+    alpha = (rng.random((n, L)) ** 3).astype(np.float32)
+    alpha[:, ::7] = 1.0
+    alpha[:, 3::11] = 0.9995
+    alpha[:, 5::13] = 0.0
+    alpha[1::17] = 1.2
+    mask = rng.random((n, L)) > 0.25
+    mask[2::19] = False
+    return t, mask, alpha
+
+
+def check_cross_source_vw(dev, path_buffer):
+    """K8 against its plain version: on the merged buffer of one chunk of the
+    compose path (t, mask, alpha [4,096, 168]) and on unsorted buffers of
+    ragged widths (1 to 1,100 lanes) with ties, masked lanes, fully masked
+    rays and alphas at and near 1."""
+    import torch
+    from neuralsim_torch.ops.segment import cross_source_vw, cross_source_vw_plain
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    sets = [("path chunk", path_buffer)] + [
+        ("ties, masked lanes, alpha near 1", [T(a) for a in unsorted_inputs(n, L, L)])
+        for n, L in ((4096, 168), (333, 1), (257, 5), (1000, 33), (512, 257), (64, 1100))]
+    errs = []
+    for label, args in sets:
+        N, L = args[0].shape
+        errs.append(compare(f"K8 cross_source_vw {label} rays={N} L={L}",
+                            [cross_source_vw(*args)], [cross_source_vw_plain(*args)], **K8_TOL))
+    torch.cuda.synchronize()
+    return max(errs)
+
+
+def check_compose_encodings(dev, params, models):
+    """K1 at the street's width (F_cp 40, R 1,024) and the vehicles' (F_cp
+    24, R 256), and K3 on the vehicles' two dense levels (8 and 13, F 4), at
+    the point sets of one chunk: the street's 4,096 rays x 32 coarse, 8 new a
+    stage and 48 final samples; the vehicles' 3 x 2,048 rows x 24, 8 and 32
+    (the final ones with and without the jacobian).
+    ``models``: ((label, model id, (coarse, stage, final) widths), ...).
+    -> ({kernel: (max_abs_err, atol)}, the final sets kept for timing)."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    errs1, errs3, shapes = [], [], {}
+    for label, mid, n_rows, widths in models:
+        enc = params[mid].encoding
+        C, rmax = enc.out_dim, enc.cp_rmax
+        lines = enc.cp_stacked_lines().detach().to(torch.bfloat16)
+        for seed, (stage, s) in enumerate(zip(("coarse", "upsample stage", "final"), widths), 40):
+            x = T(ray_points(n_rows, s, rmax, seed))
+            N = x.shape[0]
+            a1, a3 = (lines, x, enc._cp_rows), (enc.table.detach(), x, enc._grid_meta)
+            for jac in ((False, True) if stage == "final" else (False,)):
+                errs1.append(compare(f"K1 {label} F={lines.shape[1]} R={lines.shape[2]} {stage} "
+                                     f"N={N} jac={jac}",
+                                     encode_into(lotd.lotd_cp_stacked, a1, C, N, dev, jac),
+                                     encode_into(lotd.lotd_cp_stacked_plain, a1, C, N, dev, jac),
+                                     1e-5, 1e-5))
+                if enc.grid_spec_ids:
+                    errs3.append(compare(f"K3 {label} dense levels {stage} N={N} jac={jac}",
+                                         encode_into(lotd.lotd_grid, a3, C, N, dev, jac),
+                                         encode_into(lotd.lotd_grid_plain, a3, C, N, dev, jac),
+                                         1e-5, 1e-5))
+        what = f"final evaluation of {n_rows} rows x {widths[-1]} samples"
+        shapes[f"lotd_cp_stacked/{label}"] = dict(args=a1, C=C, what=what)
+        if enc.grid_spec_ids:
+            shapes[f"lotd_grid/{label}"] = dict(args=a3, C=C, what=what)
+    torch.cuda.synchronize()
+    return {"lotd_cp_stacked": (max(errs1), 1e-5), "lotd_grid": (max(errs3), 1e-5)}, shapes
+
+
+def check_compose_occ(dev, accel, st, space, o, d, n):
+    """K4 at the street's shapes: one chunk's 4,096 rays, 64 march segments
+    (one 64-bit word of occupancy bits, the top of the kernel's range), n =
+    32 draws, the converged 128^3 grid, without noise (the render) and with;
+    probes that leave the box. -> (max_abs_err, the inputs kept for timing)."""
+    import torch
+    from neuralsim_torch.accel.occ_grid import occ_ray_proposal, occ_ray_proposal_plain
+    M = accel.march_steps
+    box, edges = accel.box(dev), accel.edges01(M, dev)
+    near, far, hit = space.ray_test(o, d)
+    noise = torch.rand((o.shape[0], n), generator=torch.Generator().manual_seed(8)).to(dev)
+    errs = []
+    for label, nz, nf in (("converged grid", None, (near, far)),
+                          ("converged grid, noise", noise, (near, far)),
+                          ("probes outside the box", noise,
+                           (torch.full_like(near, 0.1), torch.full_like(far, 120.0)))):
+        a = (o, d, *nf, st.mask, *box, edges, n, nz)
+        errs.append(compare(f"K4 occ_ray_proposal rays={o.shape[0]} M={M} n={n} {label}",
+                            [occ_ray_proposal(*a)], [occ_ray_proposal_plain(*a)], **K4_TOL))
+    torch.cuda.synchronize()
+    return max(errs), dict(args=(o, d, near, far, st.mask, *box, edges, n, None))
+
+
+def check_compose_frames(frames, H, W, vehicles):
+    """Every output finite and of the frame's shape, the mask in [0,
+    MASK_CAP], the sources' shares summing to the whole; the street shows in
+    every frame and a vehicle in some frame."""
+    import torch
+    shown = 0
+    for fi, out in zip(COMPOSE_FRAME_IDS, frames):
+        subs = [("", {k: v for k, v in out.items() if k != "per_obj"})] + \
+            [(f"{n}.", sub) for n, sub in out["per_obj"].items()]
+        for prefix, d in subs:
+            for k, v in d.items():
+                if not torch.isfinite(v).all():
+                    raise AssertionError(f"frame {fi}: non-finite {prefix}{k}")
+                if v.shape[0] != H * W:
+                    raise AssertionError(f"frame {fi}: {prefix}{k} of shape {tuple(v.shape)}")
+        m = out["mask_volume"]
+        share = sum(sub["mask_volume"] for sub in out["per_obj"].values())
+        share_err = float((share - m).abs().max())
+        veh = sum(int((out["per_obj"][v]["mask_volume"] > 0.5).sum()) for v in vehicles)
+        street = float(out["per_obj"]["street"]["mask_volume"].mean())
+        log(f"compose frame {fi}: mask_volume in [{float(m.min()):.4f}, {float(m.max()):.6f}], "
+            f"sources sum to it within {share_err:.3g} (tol {SHARE_SUM_TOL:g}); street mean "
+            f"share {street:.4f}, distant {float(out['per_obj']['distant']['mask_volume'].mean()):.4f}"
+            f", {veh} pixels with a vehicle share above 0.5")
+        if float(m.min()) < 0.0 or float(m.max()) > MASK_CAP:
+            raise AssertionError(f"frame {fi}: mask_volume leaves [0, {MASK_CAP}]")
+        if share_err > SHARE_SUM_TOL:
+            raise AssertionError(f"frame {fi}: the sources' mask volumes do not sum to the total")
+        if not street > 0.05:
+            raise AssertionError(f"frame {fi}: the street does not show")
+        shown += veh
+    if shown == 0:
+        raise AssertionError("no vehicle shows in any frame")
+
+
+def compose_crop(H, W):
+    """16 rows below the horizon x the centre 64 columns, 1,024 rays: the road
+    ahead and, at frame 0, the oncoming vehicle in the middle lane."""
+    return slice(H // 2, H // 2 + 16), slice(W // 2 - 32, W // 2 + 32)
+
+
+def at_street_depths(renderer, t, mask):
+    """A copy of the compose ``renderer`` whose street samples at the depths
+    ``t`` and masks ``mask`` [N, S] (moved to the rays' device) in place of
+    its grid's proposal and upsample stages; everything else as it was."""
+    mid, qcfg = renderer.scene_models["cr"]
+    fixed = copy.copy(renderer)
+    fixed.scene_models = {**renderer.scene_models, "cr": (mid, {
+        **qcfg, "num_coarse": t.shape[1], "num_fine": (), "upsample_inv_s_factors": (),
+        "occ_t_fn": lambda ro, *a: (t.to(ro.device), mask.to(ro.device))})}
+    return fixed
+
+
+def check_compose_crop(renderer, params, frozen, frozen_cpu, o, d, dev, occ, occ_cpu):
+    """The rays ``o``, ``d`` (CPU tensors, one chunk) of the compose render on
+    the card against the CPU path, ray by ray, as check_crop_by_ray holds the
+    bench model, and for the same reason: the inverse CDFs of the street's
+    grid proposal and of every upsample stage move a sample on a last-bit
+    difference, and the bf16 tent weights make the field step between
+    positions a few ulps apart. Held:
+      1. the merge on identical buffers: the CPU path's per-source buffers
+         merged on the card (K8 and the masked sums) against the same merge
+         on the CPU: the weights within K8_TOL, every output and every
+         source's share within EQUAL_DEPTH_TOL (the depth relative to 1 + the
+         ray's largest sample depth, at BENCH_DEPTH_TOL);
+      2. the fields at the CPU path's own sample positions (the street's, and
+         each vehicle's in its canonical frame with its instance index),
+         evaluated on both devices: sdf within FIELD_SDF_TOL, nablas within
+         NABLA_TOL of their largest entry;
+      3. the whole render AT THE CPU PATH'S STREET DEPTHS (at_street_depths,
+         on both devices; on the CPU it must reproduce its path's buffer bit
+         for bit): on the rays whose every depth and mask are then equal bit
+         for bit (at least COMPOSE_EQUAL_MIN of them), every output and every
+         source's share within the limits of 1; the other rays (a vehicle
+         depth a few ulps apart) by the mean error of colour and mask
+         (OTHER_MEAN_TOL) and the share beyond BENCH_CROP_TOL (OTHER_OFF_MAX);
+      4. the card's own render (K4 and the K5 stages place the street's
+         samples) by the share of rays with a depth more than
+         BENCH_SAME_SAMPLES apart (COMPOSE_MOVED_MAX) and, over all rays,
+         the mean error of colour and mask (OTHER_MEAN_TOL) and the share
+         beyond BENCH_CROP_TOL (COMPOSE_OFF_MAX).
+    ``render_chunked`` over the one chunk must equal ``ray_query`` bit for
+    bit. Everything is logged before anything is held.
+    -> the worst errors and the numbers of rays."""
+    import torch
+    from neuralsim_torch.maths.transforms import apply_transform, inverse_transform
+    from neuralsim_torch.renderers.buffers import merge_and_integrate
+    cpu_params = copy.deepcopy(params).to("cpu")
+    N = o.shape[0]
+    with torch.no_grad():
+        ref = renderer.ray_query(cpu_params, frozen_cpu, o, d, occ_states=occ_cpu,
+                                 return_buffer=True)
+        got = renderer.ray_query(params, frozen, o.to(dev), d.to(dev), occ_states=occ,
+                                 return_buffer=True)
+        chunked = renderer.render_chunked(params, frozen, o.to(dev), d.to(dev), rayschunk=N,
+                                          occ_states=occ)
+        chunk_same = all(torch.equal(chunked[k], got[k]) for k in CROP_KEYS)
+        buf, gbuf = ref["merged_buffer"], {k: v.cpu() for k, v in got["merged_buffer"].items()}
+        names = ref["src_names"]
+        src = buf["src"][0]
+        counts = [int((src == i).sum()) for i in range(len(names))]
+        keys = ("t", "mask", "alpha", "rgb", "nablas")
+        parts = [dict(zip(keys, vals))
+                 for vals in zip(*(torch.split(buf[k], counts, dim=1) for k in keys))]
+        merged = [merge_and_integrate(bufs, with_per_src=True, sort_free=True)
+                  for bufs in (parts, [{k: v.to(dev) for k, v in p.items()} for p in parts])]
+        # the fields at the CPU path's sample positions: (label, model id, points, bidx)
+        x_w = o[:, None] + buf["t"][..., None] * d[:, None]
+        probes = [("street", renderer.scene_models["cr"][0], x_w[:, src == names.index("street")]
+                   .reshape(-1, 3), None)]
+        for ob in renderer.objects:
+            lane = (src == names.index(ob.obj_id)) & buf["mask"].any(0)
+            w2n = inverse_transform(frozen_cpu.world_transform(ob.obj_id))
+            x_l = apply_transform(w2n, x_w[:, lane].reshape(-1, 3)) / frozen_cpu.data(ob.obj_id)["scale"]
+            keep = buf["mask"][:, lane].reshape(-1)
+            probes.append((ob.obj_id, ob.model_id, x_l[keep],
+                           torch.full((int(keep.sum()),), ob.bidx, dtype=torch.long)))
+        field_errs = {}
+        for label, mid, x, bidx in probes:
+            if x.shape[0] == 0:
+                continue
+            sc, nc, _ = cpu_params[mid].sdf_nablas_feat(x, bidx=bidx)
+            sg, ng, _ = params[mid].sdf_nablas_feat(
+                x.to(dev), bidx=None if bidx is None else bidx.to(dev))
+            field_errs[label] = (float((sg.cpu() - sc).abs().max()),
+                                 float((ng.cpu() - nc).abs().max()) / float(nc.abs().max()),
+                                 x.shape[0])
+        # 3. the render at the CPU path's street depths, on both devices
+        street = src == names.index("street")
+        fixed = at_street_depths(renderer, buf["t"][:, street].contiguous(),
+                                 buf["mask"][:, street].contiguous())
+        ref_at = fixed.ray_query(cpu_params, frozen_cpu, o, d, occ_states=occ_cpu,
+                                 return_buffer=True)
+        got_at = fixed.ray_query(params, frozen, o.to(dev), d.to(dev), occ_states=occ,
+                                 return_buffer=True)
+        abuf = ref_at["merged_buffer"]
+        agbuf = {k: v.cpu() for k, v in got_at["merged_buffer"].items()}
+    reproduced = torch.equal(abuf["t"], buf["t"]) and torch.equal(abuf["mask"], buf["mask"])
+    t_max = (buf["t"] * buf["mask"]).amax(-1)
+    scale = max(1.0, float(ref["normals_volume"].abs().max()))
+
+    def ray_errs(out, want):
+        """{output: ([N] error of each ray, its limit)} over the frame's
+        outputs and every source's share."""
+        errs = {}
+        for k in CROP_KEYS:
+            e = (out[k].cpu() - want[k]).abs().reshape(N, -1).amax(-1)
+            errs[k] = (e / (1.0 + t_max), BENCH_DEPTH_TOL) if k == "depth_volume" else \
+                (e / scale if k == "normals_volume" else e, EQUAL_DEPTH_TOL)
+        for i, name in enumerate(names):
+            for k in ("mask_volume", "rgb_volume"):
+                e = (out["per_src"][i][k].cpu() - want["per_src"][i][k]).abs().reshape(N, -1)
+                errs[f"{name}.{k}"] = (e.amax(-1), EQUAL_DEPTH_TOL)
+        return errs
+
+    def depth_gaps(a, b):
+        """-> ([N, L] relative depth gap over valid lanes, [N, L] lane equal
+        bit for bit, [N] ray with every depth and mask equal)"""
+        valid = a["mask"] | b["mask"]
+        rel = (a["t"] - b["t"]).abs() / (1.0 + a["t"].abs()) * valid
+        lane_equal = (a["t"] == b["t"]) | ~valid
+        return rel, lane_equal, (lane_equal & (a["mask"] == b["mask"])).all(-1)
+
+    def by_output(errs):
+        """[(name, [N] error)] of the frame's outputs, and each ray's largest
+        error over the sources' shares (absolute, as the colour's)"""
+        shares = torch.stack([e for k, (e, _) in errs.items() if k not in CROP_KEYS]).amax(0)
+        return [(k, errs[k][0]) for k in CROP_KEYS] + [("every source's share", shares)]
+
+    def spread(errs, rays, label):
+        """Log every output's error over ``rays``; -> (the largest mean error
+        of colour and mask, [N] rays beyond BENCH_CROP_TOL in either)."""
+        mean, off = 0.0, torch.zeros(N, dtype=torch.bool)
+        for k, e in by_output(errs):
+            eo = e[rays] if bool(rays.any()) else torch.zeros(1)
+            log(f"compose crop {label} {k}: mean {float(eo.mean()):.3g}, max {float(eo.max()):.3g}"
+                f", rays beyond 1e-3 / {BENCH_CROP_TOL:g} / 5e-2: {int((eo > 1e-3).sum())} / "
+                f"{int((eo > BENCH_CROP_TOL).sum())} / {int((eo > 5e-2).sum())}")
+            if k in ("rgb_volume", "mask_volume"):
+                mean = max(mean, float(eo.mean()))
+                off |= rays & (e > BENCH_CROP_TOL)
+        return mean, off
+
+    vw_err = float((merged[1]["vw"].cpu() - merged[0]["vw"]).abs().max())
+    vw_close = bool(torch.allclose(merged[1]["vw"].cpu(), merged[0]["vw"], **K8_TOL))
+    merge_err = max(float(e.max()) / tol for e, tol in ray_errs(merged[1], merged[0]).values())
+    rel, lane_equal, _ = depth_gaps(buf, gbuf)
+    moved = int((rel.amax(-1) > BENCH_SAME_SAMPLES).sum())
+    _, _, equal = depth_gaps(abuf, agbuf)
+    log(f"compose crop: {N} rays; render_chunked equals ray_query {chunk_same}; merge on "
+        f"identical buffers: weights {vw_err:.3g} (tol {K8_TOL['atol']:g}), outputs and shares "
+        f"{merge_err:.3g} of their limits; the card's own render: {moved} rays with a depth more "
+        f"than {BENCH_SAME_SAMPLES:g} apart (limit {COMPOSE_MOVED_MAX:g} of them); at the CPU "
+        f"path's street depths (reproduced on the CPU: {reproduced}): {int(equal.sum())} rays "
+        f"with every depth and mask equal bit for bit (at least {COMPOSE_EQUAL_MIN:g} of them)")
+    for label, (e_sdf, e_nab, n) in field_errs.items():
+        log(f"compose crop: {label} field at the CPU's {n} sample positions: sdf {e_sdf:.3g} "
+            f"(tol {FIELD_SDF_TOL:g}), nablas {e_nab:.3g} of the largest (tol {NABLA_TOL:g})")
+    for i, name in enumerate(names):
+        lanes = src == i
+        log(f"compose crop: source {name} in the card's own render: "
+            f"{int((buf['mask'] | gbuf['mask'])[:, lanes].any(-1).sum())} rays with a valid lane, "
+            f"{int((~lane_equal[:, lanes]).any(-1).sum())} with a depth not bit-equal, "
+            f"{int((rel[:, lanes].amax(-1) > BENCH_SAME_SAMPLES).sum())} more than "
+            f"{BENCH_SAME_SAMPLES:g} apart (largest {float(rel[:, lanes].max()):.3g})")
+    errs_at = ray_errs(got_at, ref_at)
+    at_equal = {k: float(e[equal].max()) / tol if bool(equal.any()) else 0.0
+                for k, (e, tol) in errs_at.items()}
+    equal_err = max(at_equal.values())
+    log("compose crop at the CPU's street depths, rays of equal depths, errors in units of "
+        "their limits: " + ", ".join(f"{k} {at_equal[k]:.3g}" for k in CROP_KEYS)
+        + f", every source's share {max(v for k, v in at_equal.items() if k not in CROP_KEYS):.3g}")
+    at_mean, at_off = spread(errs_at, ~equal, "at the CPU's street depths, other rays,")
+    own_mean, own_off = spread(ray_errs(got, ref), torch.ones(N, dtype=torch.bool),
+                               "the card's own render, all rays,")
+    if not chunk_same:
+        raise AssertionError("render_chunked and ray_query disagree on one chunk")
+    if not vw_close or merge_err > 1.0:
+        raise AssertionError("the card's merge differs from the CPU's on identical buffers")
+    if any(e_sdf > FIELD_SDF_TOL or e_nab > NABLA_TOL for e_sdf, e_nab, _ in field_errs.values()):
+        raise AssertionError("a field differs on the card from the CPU at equal positions")
+    if not reproduced:
+        raise AssertionError("the CPU did not render at its own path's street depths")
+    if int(equal.sum()) < COMPOSE_EQUAL_MIN * N:
+        raise AssertionError("too few rays have equal depths at the CPU path's street depths")
+    if equal_err > 1.0:
+        raise AssertionError("the card differs from the CPU on a ray of equal depths")
+    if moved > COMPOSE_MOVED_MAX * N:
+        raise AssertionError("too many rays are sampled differently on the card")
+    for mean, off, off_max in ((at_mean, at_off, OTHER_OFF_MAX),
+                               (own_mean, own_off, COMPOSE_OFF_MAX)):
+        if mean > OTHER_MEAN_TOL or int(off.sum()) > off_max * N:
+            raise AssertionError("the card's colour or mask differs from the CPU's on the rays "
+                                 "that it samples elsewhere")
+    return dict(merge_vw_err=vw_err, merge_err=merge_err,
+                field_errs={k: v[:2] for k, v in field_errs.items()},
+                equal_rays_err=equal_err, equal_rays=int(equal.sum()),
+                other_mean_err=at_mean, other_off_rays=int(at_off.sum()),
+                own_mean_err=own_mean, own_off_rays=int(own_off.sum()), moved_rays=moved,
+                rays=N)
+
+
+def time_compose_frames(renderer, params, scene, occ, reps=20):
+    """Host-clock latency of one whole frame through render_multi_frame
+    (frame slice, rays, three chunks) in ms over ``reps`` frames after a
+    warm-up: (median, min, max)."""
+    import torch
+    from neuralsim_torch.tools.build import render_multi_frame
+    fi = COMPOSE_FRAME_IDS[0]
+    render_multi_frame(renderer, params, scene, fi, COMPOSE_CAM, occ, RAYSCHUNK)
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        render_multi_frame(renderer, params, scene, fi, COMPOSE_CAM, occ, RAYSCHUNK)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    ts.sort()
+    return ts[reps // 2], ts[0], ts[-1]
+
+
+def profile_compose_frame(renderer, params, scene, occ):
+    """Device kernels and busy time of one compose frame under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neuralsim_torch.tools.build import render_multi_frame
+    fi = COMPOSE_FRAME_IDS[0]
+    render_multi_frame(renderer, params, scene, fi, COMPOSE_CAM, occ, RAYSCHUNK)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render_multi_frame(renderer, params, scene, fi, COMPOSE_CAM, occ, RAYSCHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+    kernels_us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(kernels_us) / 1e3
+    log(f"profile compose frame: {len(kernels_us)} device kernels, busy {busy:.3f} ms of "
+        f"{wall * 1e3:.3f} ms wall under the profiler")
+    return len(kernels_us), busy
+
+
+def time_compose_kernels(shapes):
+    """K8, and K1, K3 and K4 at the compose path's shapes, beside their plain
+    versions and bounds -> {kernel: [timing, ...]}."""
+    import torch
+    from neuralsim_torch.accel.occ_grid import occ_ray_proposal, occ_ray_proposal_plain
+    from neuralsim_torch.fields.encodings import lotd
+    from neuralsim_torch.ops.segment import cross_source_vw, cross_source_vw_plain
+    out = {}
+    t, mask, alpha = shapes["cross_source_vw"]["args"]
+    N, L = t.shape
+    out["cross_source_vw"] = [dict(
+        shape=f"rays={N} L={L} (one chunk's merged buffer: 3 vehicles x 32, street 48, "
+              f"distant 24 lanes)",
+        ms=cuda_ms(lambda: cross_source_vw(t, mask, alpha)),
+        plain_ms=cuda_ms(lambda: cross_source_vw_plain(t, mask, alpha), reps=5),
+        library_ms=None,
+        # t, alpha and mask read, vw written; a compare and an add per pair
+        bound=bound(N * L * 13, 2.0 * N * L * L))]
+    for key in sorted(k for k in shapes if k.startswith("lotd_cp_stacked/")):
+        a, C = shapes[key]["args"], shapes[key]["C"]
+        lines, x = a[0], a[1]
+        N, F, R = x.shape[0], lines.shape[1], lines.shape[2]
+        buf = (torch.empty((C, N), device=x.device), torch.empty((3, C, N), device=x.device))
+        out.setdefault("lotd_cp_stacked", []).append(dict(
+            shape=f"{key.split('/')[1]}: N={N} F={F} R={R} with jacobian "
+                  f"({shapes[key]['what']})",
+            ms=cuda_ms(lambda: lotd.lotd_cp_stacked(*a, *buf)),
+            plain_ms=cuda_ms(lambda: lotd.lotd_cp_stacked_plain(*a, *buf), reps=5),
+            library_ms=None,
+            bound=bound(N * 12 + lines.numel() * 2 + N * F * 16, N * (30 + 29 * F))))
+    for key in sorted(k for k in shapes if k.startswith("lotd_grid/")):
+        a, C = shapes[key]["args"], shapes[key]["C"]
+        meta, x = a[2], a[1]
+        N = x.shape[0]
+        rows = meta.tolist()
+        cols = sum(r[3] for r in rows)
+        seg = sum(r[1] * r[3] for r in rows) * 4
+        buf = (torch.empty((C, N), device=x.device), torch.empty((3, C, N), device=x.device))
+        out.setdefault("lotd_grid", []).append(dict(
+            shape=f"{key.split('/')[1]}: N={N} dense levels "
+                  f"{', '.join(str(r[0]) for r in rows)} (F={rows[0][3]}) with jacobian "
+                  f"({shapes[key]['what']})",
+            ms=cuda_ms(lambda: lotd.lotd_grid(*a, *buf)),
+            plain_ms=cuda_ms(lambda: lotd.lotd_grid_plain(*a, *buf), reps=5),
+            library_ms=None,
+            bound=bound(N * 12 + seg + N * cols * 16, N * sum(135 + 67 * r[3] for r in rows))))
+    a = shapes["occ_ray_proposal"]["args"]
+    N, n, M = a[0].shape[0], a[8], a[7].shape[0] - 1
+    out["occ_ray_proposal"] = [dict(
+        shape=f"street: rays={N} march segments={M} samples={n} grid={a[4].shape[0]}^3 "
+              f"(no noise, as the render)",
+        ms=cuda_ms(lambda: occ_ray_proposal(*a)),
+        plain_ms=cuda_ms(lambda: occ_ray_proposal_plain(*a)),
+        library_ms=None,
+        bound=bound(N * 32 + N * M + (M + 1) * 4 + N * n * 4, N * (M * 30 + n * M * 6)))]
+    return out
+
+
+def compose_phase(dev, profile_it):
+    """Phase 7 and the compose path's share of the timing -> its results."""
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.configs import WAYMO_DEMO_MULTI as C
+    from neuralsim_torch.dataio.waymo_demo import demo_scenario, ground_sdf_tensor
+    from neuralsim_torch.scene import Scene
+    from neuralsim_torch.scene.observers import camera_get_all_rays
+    from neuralsim_torch.tools.build import (build_compose_renderer, converge_occ,
+                                             render_multi_frame)
+
+    t0 = time.perf_counter()
+    scene, bank, renderer, params = build_compose_renderer(C)
+    accel = renderer.accels["cr"]
+    occ = {"cr": converge_occ(accel, accel.init_state(), ground_sdf_tensor, seed=int(C["seed"]),
+                              **C["occ_converge"])}
+    torch.cuda.synchronize()
+    occ_frac = float(accel.occupied_fraction(occ["cr"]))
+    street_id, veh_id = renderer.scene_models["cr"][0], renderer.objects[0].model_id
+    vehicles = [ob.obj_id for ob in renderer.objects]
+    veh_enc, street_enc = params[veh_id].encoding, params[street_id].encoding
+    qs, qv = bank.assets[street_id].query_cfg, renderer.objects[0].query_cfg
+    widths = {"street": np.cumsum([qs["num_coarse"], *qs["num_fine"]]).tolist(),
+              "vehicles": np.cumsum([qv["num_coarse"], *qv["num_fine"]]).tolist()}
+    log(f"compose model: built in {time.perf_counter() - t0:.2f} s with the street grid "
+        f"{accel.res}^3 converged on the ground, occupied fraction {occ_frac:.4f}; vehicles "
+        f"{vehicles} on one model (F_cp {veh_enc.cp_out_dim}, R {veh_enc.cp_rmax}, dense "
+        f"{[s.res for s in veh_enc.specs if s.typ == 'dense']}), street F_cp "
+        f"{street_enc.cp_out_dim} R {street_enc.cp_rmax}; samples {widths}")
+    if (veh_enc.cp_out_dim, veh_enc.cp_rmax, street_enc.cp_out_dim, street_enc.cp_rmax,
+            accel.march_steps, len(vehicles), widths["street"], widths["vehicles"]) != \
+            (24, 256, 40, 1024, 64, 3, [32, 40, 48], [24, 32]):
+        raise AssertionError("the compose model's widths are not the ones checked here")
+    if not 0.0 < occ_frac < 0.5:
+        raise AssertionError("the converged street grid should hold a small occupied share")
+
+    H, W = (int(v) for v in scene.nodes[COMPOSE_CAM].frame_data["hw"][0].tolist())
+    frozen = scene.slice_at(COMPOSE_FRAME_IDS[0])
+    o, d = camera_get_all_rays(frozen, COMPOSE_CAM, H, W)
+    oc, dc = o[:RAYSCHUNK].contiguous(), d[:RAYSCHUNK].contiguous()
+    rows = len(vehicles) * RAYSCHUNK // 2      # the vehicles' rows in one chunk
+    errs, shapes = check_compose_encodings(
+        dev, params, (("street", street_id, RAYSCHUNK, widths["street"]),
+                      ("vehicles", veh_id, rows, widths["vehicles"])))
+    e4, shapes["occ_ray_proposal"] = check_compose_occ(dev, accel, occ["cr"],
+                                                       params[street_id].space, oc, dc,
+                                                       qs["num_coarse"])
+    errs["occ_ray_proposal"] = (e4, K4_TOL["atol"])
+    # K5a, K5b at the stage widths: the street 32 -> 40 -> 48 at inv_s 64 and
+    # 256, the vehicles 24 -> 32 at 64, 8 draws a stage, no noise
+    for n_rays, q, w in ((RAYSCHUNK, qs, widths["street"]), (rows, qv, widths["vehicles"])):
+        stages = tuple((s, q.get("upsample_inv_s", 64.0) * f)
+                       for s, f in zip(w, q["upsample_inv_s_factors"]))
+        es, _ = check_sample_kernels(dev, n_rays, stages, q["num_fine"][0], w[-1], noisy=False)
+        for name in ("neus_upsample.weights_pdf", "neus_upsample.merge"):
+            errs[name] = (max(es[name][0], errs.get(name, (0.0,))[0]), es[name][1])
+    with torch.no_grad():
+        chunk = renderer.ray_query(params, frozen, oc, dc, occ_states=occ, return_buffer=True)
+    mb = chunk["merged_buffer"]
+    path_buffer = (mb["t"], mb["mask"], mb["alpha"])
+    if mb["t"].shape != (RAYSCHUNK, 168):
+        raise AssertionError(f"the merged buffer is {tuple(mb['t'].shape)}, not [4096, 168]")
+    errs["cross_source_vw"] = (check_cross_source_vw(dev, path_buffer), K8_TOL["atol"])
+    shapes["cross_source_vw"] = dict(args=path_buffer)
+
+    kernels.reset_counts()
+    frames = [render_multi_frame(renderer, params, scene, fi, COMPOSE_CAM, occ, RAYSCHUNK)
+              for fi in COMPOSE_FRAME_IDS]
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+    chunks = len(COMPOSE_FRAME_IDS) * -(-H * W // RAYSCHUNK)
+    log(f"compose render slice: {len(COMPOSE_FRAME_IDS)} frames of {H}x{W} ({chunks} chunks), "
+        f"launches {launches}")
+    if launches["cross_source_vw"] != chunks or launches["occ_ray_proposal"] != chunks:
+        raise AssertionError("a compose chunk launches K8 and K4 once each")
+    for name in ("lotd_cp_stacked", "lotd_grid", "neus_upsample.weights_pdf",
+                 "neus_upsample.merge"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the compose path")
+    if launches["volume_composite"] or launches["occ_ema_update"] or \
+            any(n for k, n in launches.items() if k.endswith(".bwd")):
+        raise AssertionError("the compose render composites order-free and trains nothing")
+    check_compose_frames(frames, H, W, vehicles)
+
+    scene_cpu = Scene.load_from_scenario(demo_scenario(**C["dataset_cfg"]["params"]))
+    crop = compose_crop(H, W)
+    cut = lambda a: a.reshape(H, W, 3)[crop].reshape(-1, 3).cpu().contiguous()
+    by_ray = check_compose_crop(renderer, params, frozen, scene_cpu.slice_at(COMPOSE_FRAME_IDS[0]),
+                                cut(o), cut(d), dev, occ,
+                                {"cr": type(occ["cr"])(occ["cr"].val.cpu(), occ["cr"].mask.cpu())})
+
+    frame_ms, frame_min, frame_max = time_compose_frames(renderer, params, scene, occ)
+    log(f"timing: compose frame median {frame_ms:.3f} ms (min {frame_min:.3f}, max "
+        f"{frame_max:.3f}) for {H * W} rays, {H * W / frame_ms * 1e3:.1f} rays/s; hand-kernel "
+        f"launches per frame {sum(launches.values()) / len(COMPOSE_FRAME_IDS):.1f}")
+    times = time_compose_kernels(shapes)
+    summary = {"compose_occ_frac": occ_frac, "compose_frame_ms": frame_ms,
+               "compose_frame_ms_min": frame_min, "compose_frame_ms_max": frame_max,
+               "compose_rays_per_s": H * W / frame_ms * 1e3,
+               "compose_hand_launches_per_frame": sum(launches.values()) / len(COMPOSE_FRAME_IDS),
+               "compose_crop_by_ray": by_ray}
+    if profile_it:
+        n_kernels, busy = profile_compose_frame(renderer, params, scene, occ)
+        summary.update(compose_frame_device_kernels=n_kernels, compose_frame_busy_ms=busy)
+    return dict(errs=errs, times=times, launches=launches, n_frames=len(COMPOSE_FRAME_IDS),
+                summary=summary)
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1408,7 +2004,7 @@ def main(argv) -> int:
     launches_render = {k.name: k.launches for k in kernels.KERNELS.values()}
     log(f"render slice: {N_FRAMES} frames of {rig.H}x{rig.W}, launches {launches_render}")
     for name, n in launches_render.items():
-        if n <= 0 and not name.endswith(".bwd") and name not in BENCH_ONLY:
+        if n <= 0 and not name.endswith(".bwd") and name not in BENCH_ONLY + COMPOSE_ONLY:
             raise AssertionError(f"kernel {name} never launched on the render path")
     check_frames(frames, rig.H, rig.W)
     crop_err = check_crop(frames, renderer, params, rig, rig.H, rig.W)
@@ -1422,7 +2018,7 @@ def main(argv) -> int:
     launches = {k.name: k.launches for k in kernels.KERNELS.values()}
     log(f"training slice: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays, launches {launches}")
     for name, n in launches.items():
-        if n <= 0 and name not in BENCH_ONLY:
+        if n <= 0 and name not in BENCH_ONLY + COMPOSE_ONLY:
             raise AssertionError(f"kernel {name} never launched on the training path")
     trainer, state = out["trainer"], out["state"]
     check_poisoned_step(trainer, state, rig, dev)
@@ -1430,7 +2026,10 @@ def main(argv) -> int:
     # 6. the bench model, with its own timing
     bench = bench_phase(dev, "--profile" in argv)
 
-    # 7. timing
+    # 7. the multi-object compose render, with its own timing
+    compose = compose_phase(dev, "--profile" in argv)
+
+    # 8. timing
     (frame_ms, frame_min, frame_max), n_rays = time_frames(renderer, params, rig, dev)
     log(f"timing: frame median {frame_ms:.3f} ms (min {frame_min:.3f}, max "
         f"{frame_max:.3f}) for {n_rays} rays, {n_rays / frame_ms * 1e3:.1f} rays/s")
@@ -1444,25 +2043,32 @@ def main(argv) -> int:
     for name, k in kernels.KERNELS.items():
         # a kernel of the earlier slices reports its synthetic_object training
         # path at the top level and the bench path beside it; K4 and K7 run on
-        # the bench path only
-        on_bench = name not in times
-        t = bench["times"][name] if on_bench else times[name]
-        n_launch = bench["launches"][name] if on_bench else launches[name]
-        steps = BENCH_STEPS if on_bench else TRAIN_STEPS
-        err = max(errs.get(name, (0.0, 0.0))[0], bench["errs"].get(name, (0.0, 0.0))[0])
-        tol = (errs.get(name) or bench["errs"][name])[1]
+        # the bench path only, K8 on the compose render only (per frame)
+        on_compose = name in COMPOSE_ONLY
+        on_bench = name not in times and not on_compose
+        if on_compose:
+            t, n_launch, steps, path = (compose["times"][name][0], compose["launches"][name],
+                                        compose["n_frames"], "waymo_demo_multi render")
+        elif on_bench:
+            t, n_launch, steps, path = (bench["times"][name], bench["launches"][name],
+                                        BENCH_STEPS, "bench model training")
+        else:
+            t, n_launch, steps, path = (times[name], launches[name], TRAIN_STEPS,
+                                        "synthetic_object training")
+        found = [e[name] for e in (errs, bench["errs"], compose["errs"]) if name in e]
+        err, tol = max(e for e, _ in found), found[0][1]
         bound_ms, bound_by = t["bound"]
+        # K8 runs on no training step: its per-frame count is under "compose"
         row = {"name": name, "route": "cuda", "source": k.source,
                "replaces": k.replaces, "launches": n_launch,
-               "launches_per_step": n_launch / steps,
+               "launches_per_step": None if on_compose else n_launch / steps,
                "max_abs_err": err, "max_err": err,
                "tol": tol, "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": t["library_ms"], "shape": t["shape"],
-               "path": "bench model" if on_bench else "synthetic_object"}
-        log(f"kernel {name} ({row['path']} training path, {n_launch / steps:g} launches per "
-            f"step): {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound "
-            f"{bound_ms:.4f} by {bound_by}) at {t['shape']}")
+               "library_ms": t["library_ms"], "shape": t["shape"], "path": path}
+        log(f"kernel {name} ({path} path, {n_launch / steps:g} launches per "
+            f"{'frame' if on_compose else 'step'}): {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+            f"bound {bound_ms:.4f} by {bound_by}) at {t['shape']}")
         if name in times_render:
             r = times_render[name]
             row["render"] = {"launches": launches_render[name],
@@ -1489,12 +2095,21 @@ def main(argv) -> int:
         else:
             log(f"kernel {name} (bench model): {bench['launches'][name] / BENCH_STEPS:g} launches "
                 f"per step, {bench['launches_render'][name] / bench['n_frames']:g} per frame")
+        row["compose"] = {"launches": compose["launches"][name],
+                          "launches_per_frame": compose["launches"][name] / compose["n_frames"]}
+        for c in compose["times"].get(name, []):
+            row["compose"].setdefault("times", []).append(
+                {"ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+                 "bound_by": c["bound"][1], "library_ms": c["library_ms"], "shape": c["shape"]})
+            log(f"kernel {name} (compose render path, {row['compose']['launches_per_frame']:g} "
+                f"launches per frame): {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound "
+                f"{c['bound'][0]:.4f} by {c['bound'][1]}) at {c['shape']}")
         rows.append(row)
     if "--profile" in argv:
         profile_frame(renderer, params, rig, dev)
         profile_step(trainer, state, rig, dev)
 
-    # 8. results
+    # 9. results
     log(json.dumps({"frame_ms": frame_ms, "frame_ms_min": frame_min,
                     "frame_ms_max": frame_max, "rays_per_s": n_rays / frame_ms * 1e3,
                     "crop_max_abs_err": crop_err,
@@ -1504,7 +2119,7 @@ def main(argv) -> int:
                     "train_steps": TRAIN_STEPS, "loss_rgb_first10": rgb_first,
                     "loss_rgb_last10": rgb_last, "first_step_loss_rel_err": step_loss_err,
                     "first_step_grad_rel_err": step_grad_err, **bench["summary"],
-                    "card": smi}))
+                    **compose["summary"], "card": smi}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,15 @@ assets cannot express its grid and distant settings), so it has its own
 layout: ``models`` {role: {field, params}}, ``accel_cfg`` {role: grid
 settings}, ``occ_converge`` (the grid's warm-up against the scene's analytic
 SDF), ``renderer`` and ``training``.
+
+``WAYMO_DEMO_MULTI`` mirrors configs/waymo_demo_multi.yaml value by value: the
+multi-object driving scene (3 vehicles on one shared conditional LoTD model,
+the street's LoTD NeuS with its occupancy grid, the NeRF++ distant field, the
+sky) under the compose renderer. Its ``${eval:...}`` schedule entries stand
+resolved, at ``num_iters`` 6,000. Its dataset is the in-memory demo scenario
+(``dataio/waymo_demo.demo_scenario``, the generator's defaults) in place of
+the files that ``neuralsim_tpu.dataio.waymo_demo`` writes; ``occ_converge``
+is the street grid's warm-up against the drive's static ground.
 """
 from __future__ import annotations
 
@@ -122,6 +131,93 @@ BENCH_OBJECT: Dict[str, Any] = {
         # optimizer's default one (exponential to a tenth over 10,000 steps)
         "optim": {"cr": {"lr": 1e-2}, "distant": {"lr": 5e-3}, "sky": {"lr": 3e-3}},
     },
+}
+
+WAYMO_DEMO_MULTI: Dict[str, Any] = {
+    "exp_dir": "logs/waymo_demo_multi",
+    "seed": 42,
+    "dataset_cfg": {
+        "target": "neuralsim_torch.dataio.waymo_demo.demo_scenario",
+        "params": {"n_frames": 8, "H": 80, "W": 120, "n_vehicles": 3, "seed": 0},
+    },
+    "assetbank_cfg": {
+        "Vehicle": {
+            "model_class": "neuralsim_tpu.models.assets.ADGenerativeLoTDConcatNeuSObj",
+            "model_params": {
+                "z_dim": 8,
+                "encoding_cfg": {"n_levels": 8, "base_res": 8, "max_res": 256, "n_feats": 4,
+                                 "cp_max_res": 256},
+                "geo_feat_dim": 15,
+                "radiance_hidden": 32,
+                "inv_s_init": 30.0,
+                "query_cfg": {"num_coarse": 24, "num_fine": [8],
+                              "upsample_inv_s_factors": [1.0]},
+            },
+            "asset_params": {"training_cfg": {"lr": 0.008}},
+        },
+        "Street": {
+            "model_class": "neuralsim_tpu.models.assets.LoTDNeuSStreet",
+            "model_params": {
+                "aabb": [[-8.0, -35.0, -0.8], [75.0, 35.0, 7.0]],
+                "encoding_cfg": {"type": "tpu_mixed", "n_levels": 10, "base_res": 16,
+                                 "max_res": 1024, "n_feats": 4, "n_hash_levels": 0,
+                                 "log2_hashmap_size": 17, "cp_max_res": 1024},
+                "geo_feat_dim": 15,
+                "radiance_hidden": 64,
+                "inv_s_init": 10.0,
+                "inv_s_final": 30.0,
+                "inv_s_anneal_start_it": 1200,        # num_iters // 5
+                "inv_s_anneal_stop_it": 6000,         # num_iters
+                "pretrain": {"type": "road_surface", "z_road": 0.0, "up_axis": 2,
+                             "n_iters": 800},
+                "accel_cfg": {"resolution": 128, "occ_thre": 0.3, "ema_decay": 0.95,
+                              "inv_s": 10.0, "n_steps_between_update": 16,
+                              "samples_per_voxel": 4},
+                "query_cfg": {"num_coarse": 32, "num_fine": [8, 8], "upsample_inv_s": 64.0,
+                              "upsample_inv_s_factors": [1.0, 4.0]},
+            },
+            "asset_params": {"training_cfg": {"lr": 0.01}},
+        },
+        "Distant": {
+            "model_class": "neuralsim_tpu.models.assets.NeRFDistant",
+            "model_params": {"geometry": "mlp", "geo_feat_dim": 8,
+                             "query_cfg": {"num_samples": 24}},
+            "asset_params": {"training_cfg": {"lr": 0.005}},
+        },
+        "Sky": {
+            "model_class": "neuralsim_tpu.models.assets.SimpleSkyAsset",
+            "model_params": {"hidden": 32},
+            "asset_params": {"training_cfg": {"lr": 0.003}},
+        },
+    },
+    "renderer": {"cr_class": "Street", "distant_class": "Distant", "sky_class": "Sky",
+                 "group_budget_frac": "auto", "max_hits_per_ray": 4},
+    "training": {
+        "num_iters": 6000,
+        "n_rays": 4096,
+        "n_rays_lidar": 2048,
+        "with_mask": True,
+        "with_lidar": True,
+        "uniform_sample_n": 512,
+        "i_log": 100,
+        "error_map": {"hw": [16, 24], "frac_uniform": 0.5, "enable_after": 200},
+        "losses": {
+            "rgb": {"fn_type": "huber", "fn_param": {"delta": 0.1}, "w": 10.0},
+            "occupancy_mask": {"w": 0.3},
+            "eikonal": {"w": 0.01, "on_render_ratio": 0.3},
+            "sparsity": {"w": 0.002, "enable_after": 600,
+                         "anneal": {"type": "linear", "start_it": 600, "start_val": 0.0,
+                                    "stop_it": 3000, "stop_val": 1.0}},
+            "clearance": {"w": 0.1, "beta": 10.0, "thresh": 0.02},
+            "latent": {"w": 0.001},
+            "lidar": {"w": 1.0, "depth": {"fn_type": "l1", "w": 0.5},
+                      "line_of_sight": {"fn_type": "neus_unisim", "w": 0.02,
+                                        "epsilon": {"type": "milestones",
+                                                    "milestones": [2000, 4000],
+                                                    "vals": [1.5, 0.75, 0.5]}}},
+        },
+    },
+    "occ_converge": {"n": 40, "it": 1000},
 }
 
 # the top-level keys of the YAML file that SYNTHETIC_OBJECT mirrors

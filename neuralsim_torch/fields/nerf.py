@@ -1,14 +1,16 @@
 """The NeRF++ inverted-sphere background field (port of
 neuralsim_tpu/fields/nerf.py:131-267 with ``geometry="mlp"``).
 
-The field takes the 4-D contraction (unit direction, inner_radius / r) of a
-point through a sinusoidal embedding and an MLP, and samples a ladder that is
-linear in inverse depth from the close-range model's far plane outwards. It
-holds no kernel of its own: its samples join the close-range buffer and go
-through the ``volume_composite`` kernel together.
+The field takes the 4-D contraction of a point through a sinusoidal
+embedding and an MLP, and samples a ladder that is linear in inverse depth
+from the close-range model's far plane outwards. The contraction is the
+inverted sphere (unit direction, inner_radius / r) or, once
+:meth:`NeRFDistantField.set_cr_aabb` has named the close-range box, the
+``fixed_cuboid_shells`` one around that box. The field holds no kernel of its
+own: its samples join the other models' buffers and are composited with them.
 
-Not ported yet: ``geometry="lotd"`` (the 4-D LoTD), ``NeRFField``, the
-``fixed_cuboid_shells`` contraction and appearance embeddings.
+Not ported yet: ``geometry="lotd"`` (the 4-D LoTD), ``NeRFField`` and
+appearance embeddings.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from torch import nn
 from ..ops.segment import tau_to_alpha
 from .blocks import MLP
 from .embedders import sh_embedder, sinusoidal_embedder
-from .spatial import contract_inverted_sphere
+from .spatial import contract_inverted_cuboid, contract_inverted_sphere
 
 
 class NeRFDistantField(nn.Module):
@@ -29,7 +31,8 @@ class NeRFDistantField(nn.Module):
     def __init__(self, *, inner_radius: float = 1.0, geometry: str = "mlp",
                  geo_feat_dim: int = 15, decoder_hidden: int = 64, decoder_depth: int = 1,
                  radiance_hidden: int = 64, radiance_depth: int = 2,
-                 use_view_dirs: bool = True, sh_degree: int = 4):
+                 use_view_dirs: bool = True, sh_degree: int = 4,
+                 cr_aabb: Optional[Any] = None):
         super().__init__()
         if geometry == "lotd":
             raise NotImplementedError("the 4-D LoTD distant field is not ported")
@@ -37,6 +40,9 @@ class NeRFDistantField(nn.Module):
             raise ValueError(geometry)
         self.inner_radius = inner_radius
         self.use_view_dirs = use_view_dirs
+        # the fixed_cuboid_shells box: buffers, so they move with the field
+        self.register_buffer("cub_center", None, persistent=False)
+        self.register_buffer("cub_half", None, persistent=False)
         self.pe, dec_in = sinusoidal_embedder(8, 4)
         self.decoder = MLP(dec_in, 1 + geo_feat_dim, hidden=decoder_hidden,
                            depth=decoder_depth)
@@ -46,14 +52,30 @@ class NeRFDistantField(nn.Module):
             rad_in += dir_dim
         self.radiance = MLP(rad_in, 3, hidden=radiance_hidden, depth=radiance_depth,
                             output_activation="sigmoid")
+        if cr_aabb is not None:
+            self.set_cr_aabb(cr_aabb)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.decoder.reset_parameters(generator)
         self.radiance.reset_parameters(generator)
 
+    def set_cr_aabb(self, aabb) -> None:
+        """Switch to the ``fixed_cuboid_shells`` contraction around the
+        close-range box: an ``AABBSpace`` or an (aabb_min, aabb_max) pair."""
+        if hasattr(aabb, "aabb_min"):
+            mn, mx = aabb.aabb_min, aabb.aabb_max
+        else:
+            mn, mx = torch.as_tensor(aabb, dtype=torch.float32).reshape(2, 3)
+        dev = next(self.parameters()).device
+        mn, mx = (torch.as_tensor(v, dtype=torch.float32).to(dev) for v in (mn, mx))
+        self.cub_center = 0.5 * (mn + mx)
+        self.cub_half = torch.clamp(0.5 * (mx - mn), min=1e-6)
+
     def query_density_feat(self, x: torch.Tensor):
         """x: [..., 3] -> (density [...], feature [..., geo_feat_dim])."""
-        out = self.decoder(self.pe(contract_inverted_sphere(x, self.inner_radius)))
+        c = contract_inverted_sphere(x, self.inner_radius) if self.cub_center is None \
+            else contract_inverted_cuboid(x, self.cub_center, self.cub_half)
+        out = self.decoder(self.pe(c))
         # -1 bias: at init (raw ~ 0) the optical depth over the whole ladder is
         # ~0.4, so the background does not start opaque
         return torch.exp(torch.clamp(out[..., 0] - 1.0, -15.0, 15.0)), out[..., 1:]

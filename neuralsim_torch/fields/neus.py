@@ -15,7 +15,10 @@ samples and always runs under ``torch.no_grad()`` (JAX's
 ``proposal_no_grad``); the final evaluation carries the gradients.
 
 Only the LoTD geometry is ported, with analytic nablas; the decoder's
-``vjp`` is the explicit backward :meth:`MLP.forward_and_input_grad`.
+``vjp`` is the explicit backward :meth:`MLP.forward_and_input_grad`. The
+query passes a per-ray instance index ``bidx`` on to every sample, for the
+conditional fields of shared models (``fields/conditional.py``); this field
+itself takes none.
 """
 from __future__ import annotations
 
@@ -180,12 +183,22 @@ class NeuSField(nn.Module):
     def _sphere_bias(self) -> float:
         return self._geo_init_bias * float(self.space.half_extent.mean())
 
-    def query_sdf_feat(self, x: torch.Tensor, cp_lines: Optional[torch.Tensor] = None
+    def _decoder_input(self, h: torch.Tensor, bidx: Optional[torch.Tensor]) -> torch.Tensor:
+        """The SDF decoder's input at encoding features ``h`` [..., C]: ``h``
+        itself (this field takes no instance index; the conditional fields
+        append to it)."""
+        if bidx is not None:
+            raise NotImplementedError("a NeuSField takes no instance index "
+                                      "(the batched LoTD tables are not ported)")
+        return h
+
+    def query_sdf_feat(self, x: torch.Tensor, cp_lines: Optional[torch.Tensor] = None,
+                       bidx: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [..., 3] object coords -> (sdf [...], geometry feature [..., F]).
         ``cp_lines``: the encoding's ``kernel_lines()``, if already computed."""
         h = self.encoding(self.space.normalize_coords(x), cp_lines)
-        out = self.decoder(h)
+        out = self.decoder(self._decoder_input(h, bidx))
         sdf = out[..., 0] * self.sdf_scale
         if self._geo_init_bias:
             # sphere-init bias: the field starts from an approximate sphere SDF
@@ -193,11 +206,12 @@ class NeuSField(nn.Module):
                          - self._sphere_bias())
         return sdf, out[..., 1:]
 
-    def query_sdf(self, x: torch.Tensor, cp_lines: Optional[torch.Tensor] = None
-                  ) -> torch.Tensor:
-        return self.query_sdf_feat(x, cp_lines)[0]
+    def query_sdf(self, x: torch.Tensor, cp_lines: Optional[torch.Tensor] = None,
+                  bidx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.query_sdf_feat(x, cp_lines, bidx)[0]
 
-    def sdf_nablas_feat(self, x: torch.Tensor, cp_lines: Optional[torch.Tensor] = None
+    def sdf_nablas_feat(self, x: torch.Tensor, cp_lines: Optional[torch.Tensor] = None,
+                        bidx: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(sdf, nablas, feat) with analytic nablas: the encoding's jacobian
         chained with the decoder's input gradient of the sdf output."""
@@ -205,7 +219,8 @@ class NeuSField(nn.Module):
         cot = torch.zeros(h.shape[:-1] + (self.decoder.out_dim,), dtype=h.dtype,
                           device=h.device)
         cot[..., 0] = 1.0
-        out, g_h = self.decoder.forward_and_input_grad(h, cot)
+        out, g_in = self.decoder.forward_and_input_grad(self._decoder_input(h, bidx), cot)
+        g_h = g_in[..., :h.shape[-1]]            # d sdf / d features of the encoding
         sdf = out[..., 0] * self.sdf_scale
         feat = out[..., 1:]
         du_dx = 1.0 / (self.space.aabb_max - self.space.aabb_min)
@@ -257,7 +272,8 @@ class NeuSField(nn.Module):
                   with_rgb: bool = True,
                   forward_inv_s: Optional[float] = None,
                   noise: Optional[Dict[str, Any]] = None,
-                  occ_t_fn: Optional[Callable] = None) -> Dict[str, Any]:
+                  occ_t_fn: Optional[Callable] = None,
+                  bidx: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """Hierarchical NeuS ray query with fixed shapes: uniform coarse
         samples (or the occupancy march's), one upsample stage per ``num_fine`` entry at inv_s
         ``upsample_inv_s * factor``, each merged into the sorted buffer, then
@@ -269,11 +285,18 @@ class NeuSField(nn.Module):
         ``occ_t_fn(rays_o, rays_d, near, far, num_coarse, noise) -> (t, mask)``
         replaces the uniform coarse ladder; it gets ``noise["occ_proposal"]``
         ([N, num_coarse], or None) and ``"coarse"`` is then not read.
+        ``bidx`` [N] int: a per-ray instance index, handed to the field at
+        every sample of the ray.
         Returns the dense volume buffer
         {t, mask, alpha, sdf, nablas, rgb [N, S(, 3)], details}.
         """
         n_, f_, hit = self.space.ray_test(rays_o, rays_d, near=near, far=far)
         lines = self.encoding.kernel_lines()     # shared by the four encodings
+
+        def per_sample(shape):
+            """bidx repeated over ``shape``'s samples, flat."""
+            return None if bidx is None else bidx[:, None].expand(shape).reshape(-1)
+
         with torch.no_grad():                    # the ladder only places samples
             if occ_t_fn is not None:
                 t, mask = occ_t_fn(rays_o, rays_d, n_, f_, num_coarse,
@@ -288,21 +311,22 @@ class NeuSField(nn.Module):
                 mask = hit[:, None].expand(t.shape).contiguous()
 
             x = rays_o[:, None, :] + t[..., None] * rays_d[:, None, :]
-            sdf = self.query_sdf(x.reshape(-1, 3), lines).reshape(t.shape)
+            sdf = self.query_sdf(x.reshape(-1, 3), lines, per_sample(t.shape)).reshape(t.shape)
 
             for stage, (nf, fac) in enumerate(zip(num_fine, upsample_inv_s_factors)):
                 _, t_new = upsample_weights_pdf(
                     t.contiguous(), sdf.contiguous(), mask, n_, f_, upsample_inv_s * fac, nf,
                     None if noise is None else noise["fine"][stage])
                 x_new = rays_o[:, None, :] + t_new[..., None] * rays_d[:, None, :]
-                sdf_new = self.query_sdf(x_new.reshape(-1, 3), lines).reshape(t_new.shape)
+                sdf_new = self.query_sdf(x_new.reshape(-1, 3), lines,
+                                         per_sample(t_new.shape)).reshape(t_new.shape)
                 m_new = hit[:, None].expand(t_new.shape).contiguous()
                 t, mask, sdf = merge_sorted_samples(t.contiguous(), t_new, mask, m_new,
                                                     sdf.contiguous(), sdf_new.contiguous())
 
         x = rays_o[:, None, :] + t[..., None] * rays_d[:, None, :]
         shp = t.shape
-        sdf, nablas, feat = self.sdf_nablas_feat(x.reshape(-1, 3), lines)
+        sdf, nablas, feat = self.sdf_nablas_feat(x.reshape(-1, 3), lines, per_sample(shp))
         sdf = sdf.reshape(shp)
         nablas = nablas.reshape(shp + (3,))
         feat = feat.reshape(shp + (feat.shape[-1],))

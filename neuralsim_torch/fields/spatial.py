@@ -1,5 +1,6 @@
-"""Axis-aligned box space and the inverted-sphere contraction of the distant
-field (port of neuralsim_tpu/fields/spatial.py:18-67, 117-131)."""
+"""Axis-aligned box space and the two contractions of the distant field, the
+inverted sphere and the inverted cuboid (port of
+neuralsim_tpu/fields/spatial.py:18-67, 97-131)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -65,3 +66,16 @@ def contract_inverted_sphere(x: torch.Tensor, inner_radius: float = 1.0) -> torc
     below at the inner radius, so every channel is bounded."""
     r = torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=inner_radius)
     return torch.cat([x / r, inner_radius / r], dim=-1)
+
+
+def contract_inverted_cuboid(x: torch.Tensor, center: torch.Tensor,
+                             half: torch.Tensor) -> torch.Tensor:
+    """NeRF++ ``fixed_cuboid_shells``: shells are scaled copies of the
+    close-range box (``center``, ``half`` extent). [..., 3] -> [..., 4] =
+    (the point on the unit shell, 1 / rho), rho the box's own radius of the
+    point, max |(x - center) / half|. A point inside the box (rho < 1) lands
+    on the rho = 1 shell: the distant field cannot hold close-range content."""
+    xc = (x - center) / half
+    rho = torch.amax(xc.abs(), dim=-1, keepdim=True)
+    shell = xc / torch.clamp(rho, min=1e-9)
+    return torch.cat([shell, 1.0 / torch.clamp(rho, min=1.0)], dim=-1)

@@ -43,6 +43,7 @@ SIGNATURES: Dict[str, str] = {
     "volume_composite_bwd": "pppppppppppppiip",
     "occ_ray_proposal": "ppppppppppiiiiip",
     "occ_ema_update": "ppppiiifffffp",
+    "cross_source_vw": "ppppiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -1,9 +1,11 @@
 """Fixed-depth masked sample-buffer ops (port of the main-path part of
-neuralsim_tpu/ops/segment.py:30-76, 150-190, 229-276).
+neuralsim_tpu/ops/segment.py:30-76, 105-190, 229-276).
 
 Buffers are dense [N_rays, S] with a boolean validity mask, as in the JAX
-package. The rank merge of two sorted sample lists is the second launch of
-the ``neus_upsample`` kernel (K5b); its wrapper and plain version live here.
+package. Two kernels have their wrappers and plain versions here: the rank
+merge of two sorted sample lists, the second launch of the ``neus_upsample``
+kernel (K5b), and the order-free composite of an unsorted buffer,
+``cross_source_vw`` (K8).
 """
 from __future__ import annotations
 
@@ -15,6 +17,11 @@ from .. import kernels
 
 K5B = kernels.register("neus_upsample.merge", "neuralsim_torch/csrc/neus_upsample.cu",
                        "neuralsim_tpu/ops/segment.py:150")
+K8 = kernels.register("cross_source_vw", "neuralsim_torch/csrc/cross_source_vw.cu",
+                      "neuralsim_tpu/ops/segment.py:105")
+
+_BIG = 1e10                   # the depth key of a masked lane
+OCC_CAP_EPS = 1e-3            # an occluder's alpha is capped at 1 - this
 
 
 # The two scans below run one float32 step at a time from the left, the order
@@ -136,3 +143,43 @@ def merge_sorted_samples(t_a: torch.Tensor, t_b: torch.Tensor,
                kernels.ptr(sdf_b), kernels.ptr(t), kernels.ptr(m), kernels.ptr(s),
                N, A, B, kernels.stream())
     return t, m, s
+
+
+def cross_source_vw_plain(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor
+                          ) -> torch.Tensor:
+    """Plain version of K8: visibility weights of an UNSORTED buffer [N, L].
+
+    vw_i = a_i * exp(sum_j [(key_j, j) < (key_i, i)] * log(1 - min(a_j, 1 - 1e-3)))
+    with a = mask ? clip(alpha, 0, 1) : 0 and key = mask ? t : 1e10: the
+    composite of a stable depth sort, without sorting. The cap keeps an
+    occluder's log finite (and its gradient bounded, 1 / 1e-3); it lets at
+    most 1e-3 of the light through, while a lane's own emission stays exact.
+    Autograd differentiates it through alpha (not through the order)."""
+    a = torch.where(mask, torch.clamp(alpha, 0.0, 1.0), torch.zeros_like(alpha))
+    log1ma = torch.log1p(-torch.clamp(a, max=1.0 - OCC_CAP_EPS))
+    key = torch.where(mask, t, torch.full_like(t, _BIG))
+    ki, kj = key[..., :, None], key[..., None, :]
+    idx = torch.arange(t.shape[-1], device=t.device)
+    before = (kj < ki) | ((kj == ki) & (idx[None, :] < idx[:, None]))
+    log_t = torch.sum(torch.where(before, log1ma[..., None, :], 0.0), dim=-1)
+    return a * torch.exp(log_t)
+
+
+def cross_source_vw(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """K8 wrapper: the plain version on the CPU, the CUDA kernel on the card.
+    The kernel is the forward only: on the card it refuses inputs that ask
+    for a gradient."""
+    if t.device.type == "cpu":
+        return cross_source_vw_plain(t, mask, alpha)
+    if torch.is_grad_enabled() and (alpha.requires_grad or t.requires_grad):
+        raise NotImplementedError("cross_source_vw: the backward kernel is not ported; "
+                                  "call it under torch.no_grad() on the card")
+    kernels.check_cuda("cross_source_vw", t, mask, alpha)
+    N, L = t.shape
+    if mask.shape != (N, L) or mask.dtype != torch.bool or alpha.shape != (N, L) \
+            or t.dtype != torch.float32 or alpha.dtype != torch.float32:
+        raise ValueError("cross_source_vw: t, alpha [N, L] float32 and mask [N, L] bool")
+    vw = torch.empty((N, L), dtype=torch.float32, device=t.device)
+    K8.launch("cross_source_vw", kernels.ptr(t), kernels.ptr(mask), kernels.ptr(alpha),
+              kernels.ptr(vw), N, L, kernels.stream())
+    return vw

@@ -1,0 +1,294 @@
+"""Multi-object compose renderer: objects, street, distant field and sky
+(port of neuralsim_tpu/renderers/buffer_compose.py:37-47, 77-179, 203-290,
+321-492, on the exact per-instance path).
+
+Per ray chunk: the rays go into every drawable's canonical frame (its world
+transform inverted, divided by its scale); the rays that hit an object's box
+are compacted, hits first in ray order, to a fixed budget of
+``round(N * hit_budget_frac)`` rows per instance; one query of a shared
+model evaluates all its instances' rows (each row with its instance index
+``bidx``); the object depths go back to world depths (``t / |d_local|``),
+the normals to the world frame, and the rows are scattered back to [N, S]
+per instance. The street (its coarse samples from its occupancy grid where a
+state is handed in) and the distant field (from the street's far plane
+outwards) query every ray. All buffers are concatenated unsorted and
+composited once, order-free, by ``merge_and_integrate(sort_free=True)`` (the
+K8 kernel on the card); each source's share is its masked sums (``per_obj``).
+The sky fills what is left.
+
+Parameters live in the field modules, one ``nn.ModuleDict`` keyed by model
+id (``AssetBank.init_params``); the bindings name the model ids only, so a
+copy of the parameters on another device renders with the same renderer.
+Not ported yet: the pair-budget path of a shared model's group
+(``group_budget_frac`` with more than 4 instances, kernel K11), per-ray
+object poses (frames batched per ray, the training path), batched occupancy
+grids (K10), the time condition, appearance embeddings and the image
+post-processor.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..maths.transforms import apply_rotation
+from .buffers import merge_and_integrate
+
+_FRAME_KEYS = ("rgb_volume", "depth_volume", "mask_volume", "normals_volume", "rgb_sky")
+_SOURCE_KEYS = ("rgb_volume", "depth_volume", "mask_volume")
+
+
+class ObjectBinding:
+    """One drawable bound to a model; ``bidx`` is its instance index in a
+    shared model (None for a model of its own)."""
+
+    def __init__(self, obj_id: str, model_id: str, query_cfg: Dict, bidx: Optional[int] = None):
+        self.obj_id = obj_id
+        self.model_id = model_id
+        self.query_cfg = dict(query_cfg)
+        self.bidx = bidx
+
+
+class BufferComposeRenderer:
+    """Composes K object models with the street ('cr'), distant and sky.
+
+    ``scene_models``: role -> (model_id, query_cfg). ``accels``: role 'cr'
+    (or an object's model id) -> its ``OccGridEma``; the grid's state comes
+    in with each call as ``occ_states``."""
+
+    def __init__(self, scene, objects: Sequence[ObjectBinding],
+                 scene_models: Dict[str, Tuple[str, Dict]], *,
+                 hit_budget_frac: Optional[float] = 0.5,
+                 group_budget_frac: Any = None,
+                 accels: Optional[Dict[str, Any]] = None):
+        self.scene = scene
+        self.objects = list(objects)
+        self.scene_models = dict(scene_models)
+        self.hit_budget_frac = hit_budget_frac
+        self.group_budget_frac = group_budget_frac
+        self.accels = dict(accels or {})
+
+    def _grouped(self) -> Dict[str, List[ObjectBinding]]:
+        groups: Dict[str, List[ObjectBinding]] = {}
+        for ob in self.objects:
+            groups.setdefault(ob.model_id, []).append(ob)
+        return groups
+
+    def _proposal(self, key: str, occ_states: Optional[Dict[str, Any]]):
+        """The coarse proposal from the grid of ``key``, where a state is given."""
+        if not occ_states or key not in occ_states or key not in self.accels:
+            return None
+        accel, st = self.accels[key], occ_states[key]
+        return lambda ro, rd, n_, f_, nc, u: accel.ray_proposal(st, ro, rd, n_, f_, nc, noise=u)
+
+    def _query_group(self, params: nn.ModuleDict, frozen, model_id: str,
+                     obs: List[ObjectBinding], rays_o: torch.Tensor, rays_d: torch.Tensor,
+                     B: int, it, with_rgb: bool, qo: Dict[str, Any],
+                     occ_states: Optional[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        """The K instances of one model: one buffer [N, S] per instance."""
+        N, K = rays_o.shape[0], len(obs)
+        field = params[model_id]
+        w = torch.stack([frozen.world_transform(ob.obj_id) for ob in obs])      # [K, 4, 4]
+        if w.dim() != 3:
+            raise NotImplementedError("per-ray object poses are not ported")
+        # [K, N, 3] canonical rays and [K, N] direction lengths
+        o_l, d_l, dn = (torch.stack(v) for v in zip(
+            *(frozen.rays_to_node(ob.obj_id, rays_o, rays_d) for ob in obs)))
+        _, _, hit = field.space.ray_test(o_l, d_l)
+        valid = torch.stack([frozen.valid(ob.obj_id).expand(N) for ob in obs])
+        hit = hit & valid
+        gf = self.group_budget_frac
+        if gf == "auto":
+            gf = None if K <= 4 else 1.0
+        shared = obs[0].bidx is not None
+        if gf is not None and shared and K > 1:
+            raise NotImplementedError(
+                "the pair-budget compaction of a shared model's group (kernel K11: "
+                "group_budget_frac with more than 4 instances) is not ported; see ROADMAP.md")
+
+        # hit-first compaction to a budget of B rows per instance: a stable
+        # sort of the miss flags keeps the hits in ray order
+        sel = torch.argsort((~hit).to(torch.uint8), dim=1, stable=True)[:, :B]  # [K, B]
+
+        def take(a):
+            idx = sel.reshape(sel.shape + (1,) * (a.dim() - 2)).expand((K, B) + a.shape[2:])
+            return torch.gather(a, 1, idx)
+
+        o_c, d_c, dn_c, hit_c = take(o_l), take(d_l), take(dn), take(hit)
+        qkw = dict(obs[0].query_cfg)
+        if shared:
+            qkw["bidx"] = torch.tensor([ob.bidx for ob in obs], dtype=torch.long,
+                                       device=rays_o.device).repeat_interleave(B)
+        if model_id in self.accels and occ_states and model_id in occ_states:
+            if shared:
+                raise NotImplementedError("batched occupancy grids (K10) are not ported")
+            qkw.setdefault("occ_t_fn", self._proposal(model_id, occ_states))
+        buf_all = field.ray_query(o_c.reshape(K * B, 3), d_c.reshape(K * B, 3), it=it,
+                                  with_rgb=with_rgb, **{**qkw, **qo})
+
+        def rows(v):
+            if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == K * B:
+                return v.reshape((K, B) + v.shape[1:])
+            return v
+
+        buf = {k: rows(v) for k, v in buf_all.items() if k != "details"}
+        det = {k: rows(v) for k, v in buf_all["details"].items()}
+        # object-frame depth -> world depth: o_w + t_w d_w maps to o_l + (t_w |d_s|) d_l
+        buf["t"] = buf["t"] / torch.clamp(dn_c[..., None], min=1e-9)
+        buf["mask"] = buf["mask"] & hit_c[..., None]
+        buf["alpha"] = torch.where(buf["mask"], buf["alpha"], 0.0)
+        if "nablas" in buf:
+            buf["nablas"] = apply_rotation(w[:, None, None], buf["nablas"])
+
+        def scatter(v):
+            """[K, B, ...] rows -> [K, N, ...], zeros where no row went."""
+            if not (torch.is_tensor(v) and v.dim() >= 2 and v.shape[:2] == (K, B)):
+                return v
+            idx = sel.reshape(sel.shape + (1,) * (v.dim() - 2)).expand(v.shape)
+            out = torch.zeros((K, N) + v.shape[2:], dtype=v.dtype, device=v.device)
+            return out.scatter(1, idx, v)
+
+        buf = {k: scatter(v) for k, v in buf.items()}
+        det = {k: scatter(v) for k, v in det.items()}
+        pick = lambda v, ki: v[ki] if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == K \
+            else v
+        out = []
+        for ki in range(K):
+            b = {k: pick(v, ki) for k, v in buf.items()}
+            b["details"] = {k: pick(v, ki) for k, v in det.items()}
+            out.append(b)
+        return out
+
+    def ray_query(self, params: nn.ModuleDict, frozen, rays_o: torch.Tensor,
+                  rays_d: torch.Tensor, *, it=None, with_rgb: bool = True,
+                  occ_states: Optional[Dict[str, Any]] = None,
+                  return_buffer: bool = False,
+                  query_overrides: Optional[Dict[str, Any]] = None,
+                  with_per_obj: bool = True) -> Dict[str, Any]:
+        """Render a flat batch of world rays [N, 3] of the frozen scene ->
+        the rendered dict, with each source's share under
+        ``rendered_per_obj_in_scene`` (objects by id, "street", "distant";
+        only the street's and the distant's without ``with_per_obj``).
+        ``query_overrides`` go to every NeuS query (the distant field takes
+        its own keys of them). The composite is the forward only on the card:
+        call it under ``torch.no_grad()`` there."""
+        N = rays_o.shape[0]
+        qo = dict(query_overrides or {})
+        buffers: List[Dict[str, Any]] = []
+        names: List[str] = []
+        B = N if self.hit_budget_frac is None else \
+            max(min(N, int(round(N * self.hit_budget_frac))), 1)
+        for model_id, obs in self._grouped().items():
+            buffers += self._query_group(params, frozen, model_id, obs, rays_o, rays_d, B,
+                                         it, with_rgb, qo, occ_states)
+            names += [ob.obj_id for ob in obs]
+
+        cr_far = cr_hit = None
+        if "cr" in self.scene_models:
+            mid, qcfg = self.scene_models["cr"]
+            qcfg = dict(qcfg)
+            proposal = self._proposal("cr", occ_states)
+            if proposal is not None:
+                qcfg.setdefault("occ_t_fn", proposal)
+            buf = params[mid].ray_query(rays_o, rays_d, it=it, with_rgb=with_rgb,
+                                        **{**qcfg, **qo})
+            cr_far, cr_hit = buf["details"]["far"], buf["details"]["hit"]
+            buffers.append(buf)
+            names.append("street")
+
+        if "distant" in self.scene_models:
+            mid, qcfg = self.scene_models["distant"]
+            dv_near = torch.ones(N, dtype=torch.float32, device=rays_o.device) if cr_far is None \
+                else torch.where(cr_hit, torch.clamp(cr_far, min=1e-3), 1.0)
+            # of the overrides, the distant ladder takes its own keys
+            dv_qo = {k: v for k, v in qo.items() if k in ("num_samples", "far_factor")}
+            buffers.append(params[mid].ray_query(rays_o, rays_d, it=it, near=dv_near,
+                                                 with_rgb=with_rgb, **{**qcfg, **dv_qo}))
+            names.append("distant")
+
+        per_idx = None if with_per_obj else \
+            [i for i, n in enumerate(names) if n in ("street", "distant")]
+        rendered = merge_and_integrate(buffers, with_per_src=True, per_src_indices=per_idx,
+                                       sort_free=True)
+        rendered["src_names"] = names
+        rendered["rendered_per_obj_in_scene"] = {
+            n: r for n, r in zip(names, rendered["per_src"]) if r is not None}
+        if "street" in names:
+            rendered["rendered_cr"] = rendered["per_src"][names.index("street")]
+            rendered["details_cr"] = buffers[names.index("street")]["details"]
+        if "distant" in names:
+            rendered["rendered_dv"] = rendered["per_src"][names.index("distant")]
+
+        if with_rgb and "sky" in self.scene_models:
+            sky_rgb = params[self.scene_models["sky"][0]](rays_d)
+            rendered["rgb_sky"] = sky_rgb
+            rendered["rgb_volume"] = rendered["rgb_volume"] \
+                + (1.0 - rendered["mask_volume"][..., None]) * sky_rgb
+        if not return_buffer:
+            rendered.pop("merged_buffer")
+        return rendered
+
+    @torch.no_grad()
+    def render_chunked(self, params: nn.ModuleDict, frozen, rays_o: torch.Tensor,
+                       rays_d: torch.Tensor, *, rayschunk: int = 4096, **kw) -> Dict[str, Any]:
+        """A whole frame in chunks of ``rayschunk`` rays, the last one padded
+        to full size (rays of ones, dropped after), as the JAX package's
+        ``lax.map`` does, so every chunk has the same hit budget. Returns the
+        frame's volumes and ``per_obj`` {source: {rgb, depth, mask volumes}}."""
+        n = rays_o.shape[0]
+        pad = (-n) % rayschunk
+        if pad:
+            rays_o = torch.cat([rays_o, rays_o.new_ones((pad, 3))])
+            rays_d = torch.cat([rays_d, rays_d.new_ones((pad, 3))])
+        parts = []
+        for s in range(0, n + pad, rayschunk):
+            r = self.ray_query(params, frozen, rays_o[s:s + rayschunk],
+                               rays_d[s:s + rayschunk], **kw)
+            out = {k: r[k] for k in _FRAME_KEYS if k in r}
+            out["per_obj"] = {name: {k: v for k, v in sub.items() if k in _SOURCE_KEYS}
+                              for name, sub in r["rendered_per_obj_in_scene"].items()}
+            parts.append(out)
+        frame = {k: torch.cat([p[k] for p in parts])[:n] for k in parts[0] if k != "per_obj"}
+        frame["per_obj"] = {name: {k: torch.cat([p["per_obj"][name][k] for p in parts])[:n]
+                                   for k in sub}
+                            for name, sub in parts[0]["per_obj"].items()}
+        return frame
+
+    @classmethod
+    def from_asset_bank(cls, scene, bank, *, obj_query_cfg: Optional[Dict] = None,
+                        cr_class: str = "Street", distant_class: str = "Distant",
+                        sky_class: str = "Sky", **kw) -> "BufferComposeRenderer":
+        """Bind every drawable of the scene, and the street, distant and sky
+        models, from an :class:`AssetBank`. The distant field's contraction
+        is set to the street's box (``fixed_cuboid_shells``) unless the
+        config gave it one."""
+        objects, accels = [], {}
+        for oid in scene.drawable_ids():
+            mid = bank.model_for(scene.id, oid)
+            if mid is None or bank.assets[mid].field is None:
+                continue
+            asset = bank.assets[mid]
+            objects.append(ObjectBinding(oid, mid, {**(obj_query_cfg or {}), **asset.query_cfg},
+                                         bidx=getattr(asset, "instance_index", {}).get(oid)))
+            if asset.accel is not None:
+                accels[mid] = asset.accel
+        scene_models = {}
+        for role, cname in (("cr", cr_class), ("distant", distant_class), ("sky", sky_class)):
+            for mid, asset in bank.assets.items():
+                if bank.class_of[mid] == cname and asset.field is not None:
+                    scene_models[role] = (mid, asset.query_cfg)
+                    if role == "cr" and asset.accel is not None:
+                        accels["cr"] = asset.accel
+                    break
+        if "cr" in scene_models and "distant" in scene_models:
+            dv = bank.assets[scene_models["distant"][0]].field
+            if dv.cub_center is None:
+                dv.set_cr_aabb(bank.assets[scene_models["cr"][0]].field.space)
+        return cls(scene, objects, scene_models, accels=accels, **kw)
+
+
+def render_instance_segmentation(rendered: Dict[str, Any]) -> torch.Tensor:
+    """Per ray, the index of the source with the largest visibility mass."""
+    masses = torch.stack([r["mask_volume"] for r in rendered["per_src"]], dim=-1)
+    return torch.argmax(masses, dim=-1)

@@ -1,16 +1,21 @@
 """Volume-buffer integration: dense masked buffers -> per-ray outputs (port of
 neuralsim_tpu/renderers/buffers.py:21-52, 55-130).
 
-The composite (masked alpha -> transmittance -> weighted sums) is the
-``volume_composite`` kernel (K6), and its gradient into alpha, rgb and nablas
-the ``volume_composite.bwd`` kernel; wrappers and plain versions live here.
-On the CPU autograd differentiates the plain version; on the card
-``volume_integrate`` goes through one ``torch.autograd.Function`` over the two
-kernels. No gradient goes to the depths ``t`` (sample depths are detached).
-``merge_and_integrate`` takes one buffer, or several that are disjoint in
-depth and in order (close range, then distant): those are concatenated along
-the sample axis and composited once. The sort-based merge and the order-free
-cross-source composite are not ported yet.
+The composite (masked alpha -> transmittance -> weighted sums) of a sorted
+buffer is the ``volume_composite`` kernel (K6), and its gradient into alpha,
+rgb and nablas the ``volume_composite.bwd`` kernel; wrappers and plain
+versions live here. On the CPU autograd differentiates the plain version; on
+the card ``volume_integrate`` goes through one ``torch.autograd.Function``
+over the two kernels. No gradient goes to the depths ``t`` (sample depths are
+detached).
+
+``merge_and_integrate`` takes one buffer; or several that are disjoint in
+depth and in order (close range, then distant; ``assume_sorted``), which are
+concatenated along the sample axis and composited once by K6; or, with
+``sort_free``, several that overlap in depth (objects, street, distant): the
+concatenation stays unsorted, the ``cross_source_vw`` kernel (K8) gives each
+lane's visibility weight, and the sums are masked sums, which need no order.
+The sort-based merge is not ported.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from .. import kernels
-from ..ops.segment import alpha_to_vw, masked_sum
+from ..ops.segment import alpha_to_vw, cross_source_vw, masked_sum
 
 K6 = kernels.register("volume_composite", "neuralsim_torch/csrc/volume_composite.cu",
                       "neuralsim_tpu/renderers/buffers.py:21")
@@ -154,9 +159,29 @@ class _CompositeOnCard(torch.autograd.Function):
         return None, None, d_alpha, d_rgb, d_nablas
 
 
+def _integrate_vw(buf: Dict[str, Any]) -> Dict[str, Any]:
+    """The sums of :func:`volume_integrate` at given weights ``vw``: masked
+    sums over the lanes, in no order."""
+    vw, mask = buf["vw"], buf["mask"]
+    vw_sum = masked_sum(vw, mask)
+    out: Dict[str, Any] = {"mask_volume": vw_sum,
+                           "depth_volume": masked_sum(vw * buf["t"], mask)
+                           / torch.clamp(vw_sum, min=1e-8)}
+    for k, name in (("rgb", "rgb_volume"), ("nablas", "normals_volume")):
+        if k in buf:
+            out[name] = masked_sum(vw[..., None] * buf[k], mask[..., None], dim=-2)
+    out["vw"] = vw
+    out["samples_cnt"] = mask.sum(-1, dtype=torch.int32)
+    return out
+
+
 def volume_integrate(buf: Dict[str, Any]) -> Dict[str, Any]:
-    """Integrate one dense, depth-sorted buffer {t, mask, alpha, rgb?, nablas?}
-    into the rendered dict (depth normalised by the weight sum)."""
+    """Integrate one dense buffer {t, mask, alpha, rgb?, nablas?} into the
+    rendered dict (depth normalised by the weight sum). The buffer is sorted
+    in depth, or carries its lanes' visibility weights as ``vw`` (the
+    order-free composite of an unsorted merge)."""
+    if "vw" in buf:
+        return _integrate_vw(buf)
     args = (buf["t"], buf["mask"], buf["alpha"], buf.get("rgb"), buf.get("nablas"))
     vw, vw_sum, depth, rgb_v, nrm_v, cnt = volume_composite_plain(*args) \
         if args[0].device.type == "cpu" else _CompositeOnCard.apply(*args)
@@ -171,22 +196,27 @@ def volume_integrate(buf: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def merge_and_integrate(buffers: Sequence[Dict[str, Any]], *, with_per_src: bool = False,
-                        assume_sorted: bool = False) -> Dict[str, Any]:
+                        per_src_indices: Optional[Sequence[int]] = None,
+                        assume_sorted: bool = False, sort_free: bool = False) -> Dict[str, Any]:
     """Merge the buffers of several models, composite once and, with
     ``with_per_src``, give each source's share of the total as
-    ``per_src[i] = {mask_volume, depth_volume, rgb_volume}``.
+    ``per_src[i] = {mask_volume, depth_volume, rgb_volume}`` (None for a
+    source outside ``per_src_indices``, when that is given).
 
     ``assume_sorted``: every valid sample of buffer k lies before buffer
     k+1's (close range, then distant, whose near is the close range's far), so
     the concatenation along the sample axis is already in depth order over
-    the valid lanes, and masked lanes have alpha 0. Several buffers need it.
-    The rendered dict carries the merged buffer, with each lane's source
-    index ``src``, under ``merged_buffer``.
+    the valid lanes, and masked lanes have alpha 0. ``sort_free``: buffers
+    that overlap in depth, composited in no order by ``cross_source_vw``
+    (K8), which is the forward only on the card. Several buffers need one of
+    the two. The rendered dict carries the merged buffer, with each lane's
+    source index ``src`` (and, sort-free, its weight ``vw``), under
+    ``merged_buffer``.
     """
     if len(buffers) == 1:
         merged = dict(buffers[0])
         merged["src"] = torch.zeros_like(merged["t"], dtype=torch.int32)
-    elif assume_sorted:
+    elif assume_sorted or sort_free:
         merged = {"t": torch.cat([b["t"] for b in buffers], dim=-1),
                   "mask": torch.cat([b["mask"] for b in buffers], dim=-1)}
         for k in ("alpha", "rgb", "nablas"):
@@ -195,14 +225,21 @@ def merge_and_integrate(buffers: Sequence[Dict[str, Any]], *, with_per_src: bool
                                       dim=-1 if k == "alpha" else -2).contiguous()
         merged["src"] = torch.cat([torch.full_like(b["t"], i, dtype=torch.int32)
                                    for i, b in enumerate(buffers)], dim=-1)
+        if not assume_sorted:
+            merged["vw"] = cross_source_vw(merged["t"], merged["mask"], merged["alpha"])
     else:
-        raise NotImplementedError("merging buffers that overlap in depth is not ported")
+        raise NotImplementedError("merging buffers that overlap in depth needs sort_free=True "
+                                  "(the sort-based merge is not ported)")
     out = volume_integrate(merged)
     out["merged_buffer"] = merged
     if with_per_src:
+        wanted = range(len(buffers)) if per_src_indices is None else per_src_indices
         vw = out["vw"]
         out["per_src"] = []
         for i in range(len(buffers)):
+            if i not in wanted:
+                out["per_src"].append(None)
+                continue
             sel = (merged["src"] == i) & merged["mask"]
             share = masked_sum(vw, sel)
             d = {"mask_volume": share,

@@ -1,7 +1,9 @@
-"""Build the renderer, the trainer and seeded parameters from a config dict
+"""Build the renderers, the trainer and seeded parameters from a config dict
 (port of the role binding and trainer set-up in
-neuralsim_tpu/tools/train.py:49-115, without the scene graph and asset bank,
-and of the model that the JAX package's bench.py:56-129 builds by hand).
+neuralsim_tpu/tools/train.py:49-115, of the model that the JAX package's
+bench.py:56-129 builds by hand, and of the multi-object set-up in
+neuralsim_tpu/tools/train_multi.py:18-49 and the frame loop of
+neuralsim_tpu/tools/eval_multi.py:51-60).
 
 Usage::
 
@@ -15,10 +17,21 @@ Usage::
 ``BENCH_OBJECT`` (occupancy grid, distant field, 12 stacked-CP levels) builds
 the same way; its trainer's state carries the converged grid, and a render
 takes it as ``occ_states=state.occ``.
+
+The multi-object scene (``WAYMO_DEMO_MULTI``) goes through the scene graph,
+the asset bank and the compose renderer::
+
+    from neuralsim_torch.configs import WAYMO_DEMO_MULTI as C
+    from neuralsim_torch.dataio.waymo_demo import ground_sdf_tensor
+    scene, bank, renderer, params = build_compose_renderer(C)    # on the card
+    accel = renderer.accels["cr"]
+    occ = {"cr": converge_occ(accel, accel.init_state(), ground_sdf_tensor,
+                              **C["occ_converge"])}
+    out = render_multi_frame(renderer, params, scene, 0, "camera_FRONT", occ)
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,12 +39,16 @@ from torch import nn
 from ..accel import OccGridEma, OccGridState
 from ..configs import resolve_refs
 from ..dataio.synthetic import sdf_scene_tensor
+from ..dataio.waymo_demo import demo_scenario
 from ..fields.nerf import NeRFDistantField
 from ..fields.neus import NeuSField
 from ..fields.sky import SimpleSky
 from ..fields.spatial import AABBSpace
 from ..models.assets import asset_class
+from ..renderers.buffer_compose import BufferComposeRenderer
 from ..renderers.single_volume import SingleVolumeRenderer
+from ..scene import AssetBank, Scene
+from ..scene.observers import camera_get_all_rays
 from ..training.trainer import Trainer, TrainState
 
 FIELDS = {"NeuSField": NeuSField, "NeRFDistantField": NeRFDistantField,
@@ -111,18 +128,20 @@ def build_renderer(cfg: Dict[str, Any], device="cuda"
     return renderer, params
 
 
-def converge_occ(accel: OccGridEma, state: OccGridState, n: int = 40, it: int = 1000,
+def converge_occ(accel: OccGridEma, state: OccGridState,
+                 sdf_fn: Callable[[torch.Tensor], torch.Tensor], n: int = 40, it: int = 1000,
                  seed: int = 0) -> OccGridState:
-    """``n`` EMA updates of the grid against the synthetic scene's analytic
-    SDF, so that rendering and training start from the grid's steady state
-    (the warm-up of the JAX package's ``bench.py``). ``it`` is the iteration
-    the updates see (past any warm-up); the voxel jitter comes from ``seed``."""
+    """``n`` EMA updates of the grid against an analytic SDF (points [P, 3]
+    -> sdf [P], on the grid's device: the synthetic scene's
+    ``sdf_scene_tensor``, the demo drive's ``ground_sdf_tensor``), so that
+    rendering and training start from the grid's steady state (the warm-up
+    of the JAX package's ``bench.py``). ``it`` is the iteration the updates
+    see (past any warm-up); the voxel jitter comes from ``seed``."""
     dev = state.val.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     shape = (accel.samples_per_voxel,) + (accel.res,) * 3 + (3,)
     for _ in range(n):
-        state = accel.update(state, sdf_scene_tensor,
-                             torch.rand(shape, generator=gen, device=dev), it)
+        state = accel.update(state, sdf_fn, torch.rand(shape, generator=gen, device=dev), it)
     return state
 
 
@@ -148,6 +167,47 @@ def build_trainer(cfg: Dict[str, Any], device="cuda") -> Tuple[Trainer, TrainSta
     state = trainer.init_state(params)
     if "occ_converge" in cfg and state.occ:
         for role, accel in renderer.accels.items():
-            state.occ[role] = converge_occ(accel, state.occ[role], seed=int(cfg.get("seed", 0)),
-                                           **cfg["occ_converge"])
+            state.occ[role] = converge_occ(accel, state.occ[role], sdf_scene_tensor,
+                                           seed=int(cfg.get("seed", 0)), **cfg["occ_converge"])
     return trainer, state
+
+
+def build_compose_renderer(cfg: Dict[str, Any], device="cuda"
+                           ) -> Tuple[Scene, AssetBank, BufferComposeRenderer, nn.ModuleDict]:
+    """-> (scene, bank, renderer, params) of a multi-object config: the
+    scenario -> ``Scene.load_from_scenario`` -> ``AssetBank.create`` ->
+    ``BufferComposeRenderer.from_asset_bank``, with the ``renderer`` block's
+    settings, and the bank's parameters seeded from the config's ``seed``.
+    The dataset is the in-memory demo scenario. The street's occupancy grid
+    (``renderer.accels["cr"]``) comes without a state: converge one with
+    :func:`converge_occ`."""
+    dev = resolve_device(device)
+    ds = cfg["dataset_cfg"]
+    if ds["target"].rsplit(".", 1)[-1] != "demo_scenario":
+        raise NotImplementedError(f"dataset {ds['target']} is not ported; the compose path "
+                                  "renders the in-memory demo_scenario")
+    scene = Scene.load_from_scenario(demo_scenario(**ds.get("params", {})), device=dev)
+    bank = AssetBank.create(cfg["assetbank_cfg"], [scene])
+    # ``max_hits_per_ray`` is read only by the pair-budget path (K11), not ported
+    rcfg = cfg.get("renderer", {})
+    renderer = BufferComposeRenderer.from_asset_bank(
+        scene, bank, obj_query_cfg=dict(rcfg.get("obj_query_cfg", {})),
+        cr_class=rcfg.get("cr_class", "Street"), distant_class=rcfg.get("distant_class", "Distant"),
+        sky_class=rcfg.get("sky_class", "Sky"),
+        hit_budget_frac=rcfg.get("hit_budget_frac", 0.5),
+        group_budget_frac=rcfg.get("group_budget_frac", 1.0))
+    params = bank.init_params(torch.Generator().manual_seed(int(cfg.get("seed", 0))), dev)
+    return scene, bank, renderer, params
+
+
+def render_multi_frame(renderer: BufferComposeRenderer, params: nn.ModuleDict, scene: Scene,
+                       fi: int, cam_id: str, occ_states: Optional[Dict[str, Any]] = None,
+                       rayschunk: int = 4096) -> Dict[str, Any]:
+    """One camera frame of the scene at frame ``fi``: freeze the scene, the
+    camera's full ray grid, the chunked deterministic compose render (the
+    volumes and ``per_obj``, [H * W] rows in row order)."""
+    frozen = scene.slice_at(fi)
+    H, W = (int(v) for v in scene.nodes[cam_id].frame_data["hw"][fi].tolist())
+    rays_o, rays_d = camera_get_all_rays(frozen, cam_id, H, W)
+    return renderer.render_chunked(params, frozen, rays_o, rays_d, rayschunk=rayschunk,
+                                   occ_states=occ_states)

@@ -417,10 +417,10 @@ def test_draw_noise_for_the_bench_model(pair):
 def test_converge_occ_carves_the_scene():
     renderer, _ = build_renderer(SMALL, device="cpu")
     accel = renderer.accels["cr"]
-    st = converge_occ(accel, accel.init_state(), n=3, it=1000, seed=0)
+    st = converge_occ(accel, accel.init_state(), sdf_scene_tensor, n=3, it=1000, seed=0)
     frac = float(accel.occupied_fraction(st))
     assert 0.02 < frac < 0.6
-    again = converge_occ(accel, accel.init_state(), n=3, it=1000, seed=0)
+    again = converge_occ(accel, accel.init_state(), sdf_scene_tensor, n=3, it=1000, seed=0)
     assert torch.equal(st.val, again.val)                    # from the seed
     x = torch.tensor([[0.45, 0.0, 0.0], [0.95, 0.95, 0.95]])     # on the sphere; a far corner
     assert accel.occupancy_at(st, x).tolist() == [True, False]
@@ -462,7 +462,7 @@ def test_asset_route_builds_a_grid_and_a_distant_field():
     assert set(state.occ) == {"cr"} and state.occ["cr"].mask.shape == (16, 16, 16)
     assert set(state.opt) == {"Main", "Sky", "Distant"}
     np.testing.assert_allclose(float(state.opt["Distant"].lr()), 5e-3, rtol=1e-6)
-    state.occ["cr"] = converge_occ(accel, state.occ["cr"], n=3)
+    state.occ["cr"] = converge_occ(accel, state.occ["cr"], sdf_scene_tensor, n=3)
     o, d = _rays()
     with torch.no_grad():
         out = renderer.ray_query(state.params, _t(o), _t(d), occ_states=state.occ,

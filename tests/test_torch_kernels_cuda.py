@@ -18,7 +18,10 @@ chip_smoke.STEP_LOSS_RTOL and STEP_GRAD_REL (see there). K4's depths are held
 to chip_smoke.K4_TOL, K7's values to chip_smoke.K7_ATOL with its mask exact
 away from the threshold, the wide K1 (F = 96, R = 1,024) to the tolerances of
 the narrow one, and a render of a small bench model (occupancy grid, distant
-field) on the card to the CPU at chip_smoke.BENCH_CROP_TOL.
+field) on the card to the CPU at chip_smoke.BENCH_CROP_TOL. K8 is held to its
+plain version at chip_smoke.K8_TOL, and a small compose render (shared
+vehicle model, street with its grid, distant field, sky) to the CPU ray by
+ray as chip_smoke.check_compose_crop does.
 """
 import copy
 
@@ -31,16 +34,21 @@ from neuralsim_torch import kernels
 from neuralsim_torch.accel import OccGridEma
 from neuralsim_torch.accel.occ_grid import (occ_ema_update, occ_ema_update_plain,
                                             occ_ray_proposal, occ_ray_proposal_plain)
-from neuralsim_torch.configs import BENCH_OBJECT, SYNTHETIC_OBJECT
+from neuralsim_torch.configs import BENCH_OBJECT, SYNTHETIC_OBJECT, WAYMO_DEMO_MULTI
 from neuralsim_torch.fields.spatial import AABBSpace
-from neuralsim_torch.dataio.synthetic import SyntheticObjectDataset
+from neuralsim_torch.dataio.synthetic import SyntheticObjectDataset, sdf_scene_tensor
+from neuralsim_torch.dataio.waymo_demo import demo_scenario, ground_sdf_tensor
 from neuralsim_torch.fields.encodings import lotd
 from neuralsim_torch.fields.neus import upsample_weights_pdf, upsample_weights_pdf_plain
-from neuralsim_torch.ops.segment import merge_sorted_samples, merge_sorted_samples_plain
+from neuralsim_torch.ops.segment import (cross_source_vw, cross_source_vw_plain,
+                                         merge_sorted_samples, merge_sorted_samples_plain)
 from neuralsim_torch.renderers.buffers import (volume_composite, volume_composite_bwd,
                                                volume_composite_bwd_plain,
                                                volume_composite_plain)
-from neuralsim_torch.tools.build import build_renderer, build_trainer, converge_occ
+from neuralsim_torch.scene import Scene
+from neuralsim_torch.scene.observers import camera_get_all_rays
+from neuralsim_torch.tools.build import (build_compose_renderer, build_renderer, build_trainer,
+                                         converge_occ, render_multi_frame)
 
 pytestmark = pytest.mark.cuda
 
@@ -123,7 +131,7 @@ def test_render_on_card_matches_cpu(dev):
     got = renderer.render_chunked(params, o.to(dev), d.to(dev), rayschunk=100)
     torch.cuda.synchronize()
     assert all(k.launches > 0 for k in kernels.KERNELS.values()
-               if not k.name.endswith(".bwd") and k.name not in cs.BENCH_ONLY)
+               if not k.name.endswith(".bwd") and k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY)
     want = renderer.render_chunked(copy.deepcopy(params).to("cpu"), o, d, rayschunk=100)
     for k, v in want.items():
         torch.testing.assert_close(got[k].cpu(), v, rtol=0, atol=cs.CROP_TOL,
@@ -198,7 +206,8 @@ def test_train_step_on_card_matches_cpu(dev):
     rig = SyntheticObjectDataset(**SYNTHETIC_OBJECT["dataset_cfg"]["params"])
     kernels.reset_counts()
     loss_err, grad_err = cs.check_first_step(trainer, state, rig, dev, n_rays=512)
-    assert all(k.launches > 0 for k in kernels.KERNELS.values() if k.name not in cs.BENCH_ONLY)
+    assert all(k.launches > 0 for k in kernels.KERNELS.values()
+               if k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY)
     assert loss_err <= cs.STEP_LOSS_RTOL and grad_err <= cs.STEP_GRAD_REL
 
 
@@ -209,7 +218,7 @@ def test_train_step_on_card_matches_cpu(dev):
 def _grid(dev, res=64):
     accel = OccGridEma(AABBSpace().to(dev), res, n_warmup_steps=0, occ_inv_s=64.0,
                        march_steps=48, ema_decay=0.5)
-    return accel, converge_occ(accel, accel.init_state(), n=4)
+    return accel, converge_occ(accel, accel.init_state(), sdf_scene_tensor, n=4)
 
 
 @pytest.mark.parametrize("noisy", [False, True])
@@ -337,3 +346,74 @@ def test_bench_train_step_on_card_matches_cpu(dev):
     torch.cuda.synchronize()
     assert kernels.KERNELS["occ_ema_update"].launches == 1 and 0 < float(m["occ_frac"]) < 1
     assert kernels.KERNELS["lotd_cp_stacked.bwd"].launches >= 2 and int(m["step_skipped"]) == 0
+
+
+# ---------------------------------------------------------------------------
+# The compose path: K8, K4 at 64 march segments, a small compose render
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,L", [(4096, 168), (333, 1), (257, 5), (512, 257), (64, 1100)])
+def test_k8_cross_source_vw(dev, n, L):
+    args = [_t(a, dev) for a in cs.unsorted_inputs(n, L, L)]
+    n0 = kernels.KERNELS["cross_source_vw"].launches
+    got = cross_source_vw(*args)
+    assert kernels.KERNELS["cross_source_vw"].launches == n0 + 1
+    _close([got], [cross_source_vw_plain(*args)], **cs.K8_TOL)
+
+
+def test_k8_refuses_a_gradient_on_the_card(dev):
+    t, mask, alpha = (_t(a, dev) for a in cs.unsorted_inputs(16, 12, 0))
+    with pytest.raises(NotImplementedError, match="backward"):
+        cross_source_vw(t, mask, alpha.requires_grad_(True))
+    with torch.no_grad():
+        assert torch.isfinite(cross_source_vw(t, mask, alpha)).all()
+
+
+def test_k4_occ_ray_proposal_at_64_segments(dev):
+    accel = OccGridEma(AABBSpace().to(dev), 64, n_warmup_steps=0, occ_inv_s=64.0,
+                       march_steps=64, ema_decay=0.5)
+    st = converge_occ(accel, accel.init_state(), sdf_scene_tensor, n=4)
+    rig = SyntheticObjectDataset(n_frames=4, H=64, W=64)
+    o, d = (_t(a.reshape(-1, 3).copy(), dev) for a in rig.frame_rays(2))
+    near, far, _ = AABBSpace().to(dev).ray_test(o, d)
+    noise = torch.rand((o.shape[0], 32), generator=torch.Generator().manual_seed(0)).to(dev)
+    for nz in (None, noise):
+        args = (o, d, near, far, st.mask, *accel.box(dev), accel.edges01(64, dev), 32, nz)
+        _close([occ_ray_proposal(*args)], [occ_ray_proposal_plain(*args)], **cs.K4_TOL)
+
+
+def _small_compose():
+    cfg = copy.deepcopy(WAYMO_DEMO_MULTI)
+    cfg["dataset_cfg"]["params"].update(H=40, W=64)
+    b = cfg["assetbank_cfg"]
+    b["Street"]["model_params"]["accel_cfg"].update(resolution=32)
+    b["Vehicle"]["model_params"]["query_cfg"].update(num_coarse=12)
+    return cfg
+
+
+def test_compose_render_on_card_matches_cpu(dev):
+    cfg = _small_compose()
+    scene, _, renderer, params = build_compose_renderer(cfg, device=dev)
+    accel = renderer.accels["cr"]
+    occ = {"cr": converge_occ(accel, accel.init_state(), ground_sdf_tensor, n=30)}
+    kernels.reset_counts()
+    out = render_multi_frame(renderer, params, scene, 0, "camera_FRONT", occ, rayschunk=1024)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["cross_source_vw"].launches == 3
+    assert kernels.KERNELS["occ_ray_proposal"].launches == 3
+    assert kernels.KERNELS["volume_composite"].launches == 0
+    m = out["mask_volume"]
+    assert float(m.min()) >= 0.0 and float(m.max()) <= cs.MASK_CAP
+    share = sum(sub["mask_volume"] for sub in out["per_obj"].values())
+    assert float((share - m).abs().max()) <= cs.SHARE_SUM_TOL
+    frozen = scene.slice_at(0)
+    o, d = camera_get_all_rays(frozen, "camera_FRONT", 40, 64)
+    crop = cs.compose_crop(40, 64)
+    cut = lambda a: a.reshape(40, 64, 3)[crop].reshape(-1, 3).cpu().contiguous()
+    scene_cpu = Scene.load_from_scenario(demo_scenario(**cfg["dataset_cfg"]["params"]))
+    res = cs.check_compose_crop(renderer, params, frozen, scene_cpu.slice_at(0), cut(o), cut(d),
+                                dev, occ, {"cr": type(occ["cr"])(occ["cr"].val.cpu(),
+                                                                occ["cr"].mask.cpu())})
+    assert res["merge_err"] <= 1.0 and res["equal_rays_err"] <= 1.0
+    assert res["equal_rays"] >= cs.COMPOSE_EQUAL_MIN * res["rays"]
+    assert max(res["other_mean_err"], res["own_mean_err"]) <= cs.OTHER_MEAN_TOL

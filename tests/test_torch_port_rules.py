@@ -12,9 +12,9 @@ import torch
 
 from neuralsim_torch import kernels
 from neuralsim_torch.bridge import load_jax_params
-from neuralsim_torch.configs import BENCH_OBJECT, SYNTHETIC_OBJECT
+from neuralsim_torch.configs import BENCH_OBJECT, SYNTHETIC_OBJECT, WAYMO_DEMO_MULTI
 from neuralsim_torch.fields.blocks import MLP
-from neuralsim_torch.tools.build import build_renderer, build_trainer
+from neuralsim_torch.tools.build import build_compose_renderer, build_renderer, build_trainer
 from neuralsim_torch.tools.train import train
 
 torch.set_num_threads(1)
@@ -36,7 +36,10 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     for m in ("fields.encodings.lotd", "training.trainer", "training.optimizers",
               "training.annealers", "losses.core", "losses.recon", "tools.train",
-              "accel", "accel.occ_grid", "fields.nerf"):
+              "accel", "accel.occ_grid", "fields.nerf", "fields.conditional",
+              "maths.transforms", "scene", "scene.nodes", "scene.scene", "scene.asset_bank",
+              "scene.observers.cameras", "scene.observers.cameras_math", "dataio.waymo_demo",
+              "models.asset_base", "renderers.buffer_compose"):
         assert f"neuralsim_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -73,6 +76,12 @@ def test_entry_point_defaults_to_the_card_for_the_bench_model(monkeypatch, entry
         entry(BENCH_OBJECT)
 
 
+def test_compose_entry_point_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_compose_renderer(WAYMO_DEMO_MULTI)
+
+
 def test_ctypes_signatures_match_the_cuda_sources():
     """The argtypes declared in kernels.py against each extern "C" entry in
     csrc/ (nvcc is not available here to catch a mismatch)."""
@@ -84,7 +93,7 @@ def test_ctypes_signatures_match_the_cuda_sources():
             found[name] = "".join(codes[t] for t in types)
     assert found == kernels.SIGNATURES
     for entry in ("lotd_cp_stacked_bwd", "lotd_grid_bwd", "volume_composite_bwd",
-                  "occ_ray_proposal", "occ_ema_update"):
+                  "occ_ray_proposal", "occ_ema_update", "cross_source_vw"):
         assert entry in found
 
 
@@ -95,7 +104,8 @@ def test_every_kernel_is_registered_once_with_its_source():
     names = set(kernels.KERNELS)
     assert names == {"lotd_cp_stacked", "lotd_cp_stacked.bwd", "lotd_grid", "lotd_grid.bwd",
                      "neus_upsample.weights_pdf", "neus_upsample.merge", "volume_composite",
-                     "volume_composite.bwd", "occ_ray_proposal", "occ_ema_update"}
+                     "volume_composite.bwd", "occ_ray_proposal", "occ_ema_update",
+                     "cross_source_vw"}
     for k in kernels.KERNELS.values():
         assert (ROOT / k.source).exists() and re.match(r"neuralsim_tpu/.+\.py:\d+$", k.replaces)
         assert (ROOT / k.replaces.split(":")[0]).exists()
