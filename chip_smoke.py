@@ -54,22 +54,42 @@ Phases, in order; any failure raises and the script exits non-zero:
      once a chunk; the frames finite, the mask in [0, 1 + 1.1e-3] and the
      sources' shares summing to it; a crop held to the CPU path (the merge
      on identical buffers, then ray by ray, see check_compose_crop);
-  8. timing: frame latency and rays/s; training step time and rays/s; each
+  8. multi-object training (WAYMO_DEMO_MULTI at full width, through
+     build_multi_trainer and train_loop): build (the demo drive's sequence in
+     memory, the bank, the street's 800-iteration road-surface pretrain, the
+     grid at its initial state), each part timed; K8's backward against
+     autograd of its plain version at the pixel step's merged buffer
+     [4,096, 168] and on ragged, tied, masked buffers with edge alphas, K1's
+     and K3's backwards at the path's point sets and widths, K6 forward and
+     backward at the LiDAR step's street buffer (2,048 x 48, no rgb); the
+     first iteration (a LiDAR step, then a pixel step; cut to 512 beams and
+     1,024 rays) on the card against the CPU path at the CPU path's sample
+     depths (sample_placements), the card's own step logged beside it; 48
+     iterations (error-map sampling from the 16th): finite losses, no skip,
+     falling loss_rgb and LiDAR depth loss, three grid refreshes, K8 and its
+     backward and K6 and its backward once an iteration, K4 twice, K7 once a
+     refresh; a poisoned pixel step skipped with every parameter unchanged;
+     one 80x120 frame of the trained state rendered;
+  9. timing: frame latency and rays/s; training step time and rays/s; each
      kernel's time at the training path's shapes (beside that path's launch
      count) and, for the forward kernels, at the render path's too, each
      beside its plain version, a library call where one exists, and its bound
      (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s); the same for
      the bench model's step (refresh steps apart, and the mean over a whole
-     cadence of the grid), frame and kernels, and for the compose frame and
-     K8, K1, K3 and K4 at its shapes;
-  9. one JSON line of results, one of per-kernel results, then the device
+     cadence of the grid), frame and kernels, for the compose frame and K8,
+     K1, K3 and K4 at its shapes, and for the multi-object iteration (each
+     step type apart; rays/s = 6,144 / iteration) with K8 forward and
+     backward and K6 forward and backward at its shapes;
+ 10. one JSON line of results, one of per-kernel results, then the device
      line, last.
 
 --profile adds torch.profiler tables of device time by kernel for one frame
-and for one training step of each model, and for one compose frame.
+and for one training step of each model, for one compose frame, and for one
+LiDAR and one pixel step of the multi-object training.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -180,6 +200,22 @@ FIELD_SDF_TOL = 1e-5
 COMPOSE_MOVED_MAX = 0.75
 COMPOSE_OFF_MAX = 0.10
 COMPOSE_EQUAL_MIN = 0.5
+# multi-object training of WAYMO_DEMO_MULTI: each loop iteration a LiDAR
+# step of 2,048 beams (the street alone) and a pixel step of 4,096 rays
+MULTI_RAYS, MULTI_BEAMS = 4096, 2048
+MULTI_ONLY = ("cross_source_vw.bwd",)
+# 48 iterations (three grid refreshes); the error map's importance sampling
+# from the 16th pixel step on (the config's 200 cut so that it runs)
+MULTI_ITERS = 48
+MULTI_ERROR_MAP_AFTER = 16
+# its first iteration card vs CPU, cut to 1,024 rays and 512 beams (the plain
+# K8 is O(N L^2) in memory on the CPU), at the CPU path's sample depths
+# (replayed on the card, see sample_placements: the street's grid proposal,
+# which K4 sums in another order, and the upsample stages' draws); the losses
+# and every gradient leaf, relative to its largest entry
+MULTI_CHECK_RAYS, MULTI_CHECK_BEAMS = 1024, 512
+MULTI_STEP_LOSS_RTOL = 2e-4
+MULTI_STEP_GRAD_REL = 2e-3
 
 
 def log(*a):
@@ -1424,6 +1460,18 @@ def unsorted_inputs(n, L, seed):
     return t, mask, alpha
 
 
+def edge_alpha_inputs(n, L, seed):
+    """:func:`unsorted_inputs` with alphas also at the clip's and the
+    occlusion cap's edges, where JAX splits a gradient in halves: exactly 0
+    and 1 inside the mask, float32(0.999), and below 0."""
+    t, mask, alpha = unsorted_inputs(n, L, seed)
+    alpha[:, 2::9] = np.float32(0.999)
+    alpha[:, 4::17] = -0.1
+    alpha[::3, 6::19] = 0.0
+    alpha[::5, 8::21] = 1.0
+    return t, mask, alpha
+
+
 def check_cross_source_vw(dev, path_buffer):
     """K8 against its plain version: on the merged buffer of one chunk of the
     compose path (t, mask, alpha [4,096, 168]) and on unsorted buffers of
@@ -1955,6 +2003,499 @@ def compose_phase(dev, profile_it):
                 summary=summary)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: multi-object training (WAYMO_DEMO_MULTI)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def sample_placements(trainer, record=None, replay=None):
+    """Record (into the list ``record``) or replay (from ``replay``, in the
+    same order, moved to the rays' device) the sample depths of the compose
+    path: the street grid's proposal and every upsample stage's draws. A step
+    replayed at another device's depths differs from it only where the
+    fields, composites and sums round differently, not by moved samples."""
+    import torch
+    import neuralsim_torch.fields.neus as neus
+    accel = trainer.renderer.accels["cr"]
+    stage_fn, queue = neus.upsample_weights_pdf, list(replay or [])
+
+    def proposal(st, ro, *a, **kw):
+        if replay is not None:
+            t = queue.pop(0).to(ro.device)
+            return t, torch.ones_like(t, dtype=torch.bool)
+        t, m = type(accel).ray_proposal(accel, st, ro, *a, **kw)
+        record.append(t.detach().cpu())
+        return t, m
+
+    def stage(t, *a, **kw):
+        if replay is not None:
+            return None, queue.pop(0).to(t.device)
+        w, t_new = stage_fn(t, *a, **kw)
+        record.append(t_new.detach().cpu())
+        return w, t_new
+
+    accel.ray_proposal, neus.upsample_weights_pdf = proposal, stage
+    try:
+        yield
+    finally:
+        del accel.ray_proposal
+        neus.upsample_weights_pdf = stage_fn
+    if queue:
+        raise AssertionError("the replayed step used fewer sample placements than recorded")
+
+
+def multi_batches(scene, samplers, dev, n_rays, n_beams, poison=False):
+    """One LiDAR batch (lifted to world rays) and one pixel batch of the
+    samplers, on ``dev``, and the pixel batch's camera."""
+    from neuralsim_torch.tools.train_multi import _LIDAR_KEYS, _PIXEL_KEYS, to_device
+    from neuralsim_torch.training.multi_trainer import lift_lidar_batch
+    lb = samplers["lidar"].sample(n_beams)
+    raw = samplers["pixel"].sample(n_rays)
+    if poison:
+        raw["image_rgb"] = raw["image_rgb"].copy()
+        raw["image_rgb"][7, 1] = float("nan")
+    on = scene.nodes[lb["lidar_id"]].frame_data["transform"].device
+    lbatch = lift_lidar_batch(scene, {**to_device(lb, _LIDAR_KEYS, on),
+                                      "lidar_id": lb["lidar_id"]})
+    return ({k: v.to(dev) for k, v in lbatch.items()}, to_device(raw, _PIXEL_KEYS, dev),
+            raw["cam_id"])
+
+
+def check_multi_first_iteration(scene, trainer, state, samplers, dev):
+    """The first loop iteration (a LiDAR step of MULTI_CHECK_BEAMS beams, a
+    pixel step of MULTI_CHECK_RAYS rays) on the card against the CPU path,
+    from the same parameters, grid, batches and noise; steps nothing. The
+    CPU path's sample depths are replayed on the card (sample_placements),
+    and the losses and every gradient leaf are held to MULTI_STEP_LOSS_RTOL
+    and MULTI_STEP_GRAD_REL there; the card's own step (its own K4 and K5a
+    placements) is logged beside it.
+    -> (worst loss rel err, worst gradient rel err) at equal placements."""
+    import torch
+    to = lambda tree, d: {k: to(v, d) for k, v in tree.items()} if isinstance(tree, dict) \
+        else [to(v, d) for v in tree] if isinstance(tree, list) else tree.to(d)
+    lbatch, pbatch, cam = multi_batches(scene, samplers, "cpu", MULTI_CHECK_RAYS,
+                                        MULTI_CHECK_BEAMS)
+    cpu_params = copy.deepcopy(state.params).to("cpu")
+    occ_cpu = occ_on(state, "cpu")
+    gen = torch.Generator().manual_seed(7)
+    worst_loss = worst_grad = 0.0
+    for step_type, batch in (("lidar", lbatch), ("pixel", pbatch)):
+        noise = trainer.draw_noise(step_type, batch["rays_fidx"].shape[0], gen, state.it)
+        placements, results = [], {}
+        for label, params, d, occ, ctx in (
+                ("cpu", cpu_params, "cpu", occ_cpu, dict(record=placements)),
+                ("card at the CPU's depths", state.params, dev, state.occ,
+                 dict(replay=placements)),
+                ("card", state.params, dev, state.occ, None)):
+            saved = trainer.scene
+            trainer.scene = scene_on(scene, d)
+            try:
+                with (sample_placements(trainer, **ctx) if ctx else contextlib.nullcontext()):
+                    total, extras = trainer.compute_losses(params, to(batch, d), state.it,
+                                                           to(noise, d), step_type, occ, cam)
+            finally:
+                trainer.scene = saved
+            named = dict(params.named_parameters())
+            grads = torch.autograd.grad(total, list(named.values()), allow_unused=True)
+            results[label] = ({"loss_total": float(total.detach()),
+                               **{k: float(v.detach()) for k, v in extras["losses"].items()}},
+                              {k: torch.zeros(p.shape) if g is None else g.cpu()
+                               for (k, p), g in zip(named.items(), grads)})
+        l_cpu, g_cpu = results["cpu"]
+        for label in ("card at the CPU's depths", "card"):
+            l_gpu, g_gpu = results[label]
+            le = max(abs(l_gpu[k] - v) / max(abs(v), 1e-12) for k, v in l_cpu.items())
+            ge = max(float((g_gpu[k] - g).abs().max()) / float(g.abs().max())
+                     for k, g in g_cpu.items() if float(g.abs().max()) > 0)
+            log(f"multi first iteration, {step_type} step, {label} vs cpu: worst loss rel err "
+                f"{le:.3g}, worst gradient rel err {ge:.3g}; losses "
+                f"{ {k: round(v, 6) for k, v in l_gpu.items()} }")
+            if label != "card":
+                for k, g in g_cpu.items():
+                    if float(g.abs().max()) > 0:
+                        e = float((g_gpu[k] - g).abs().max()) / float(g.abs().max())
+                        if e > MULTI_STEP_GRAD_REL:
+                            log(f"  gradient {k}: rel err {e:.3g}")
+                worst_loss, worst_grad = max(worst_loss, le), max(worst_grad, ge)
+        if not all(np.isfinite(v) for v in results["card"][0].values()):
+            raise AssertionError("the card's own first step gives a non-finite loss")
+    log(f"multi first iteration at equal sample depths: worst loss rel err {worst_loss:.3g} "
+        f"(tol {MULTI_STEP_LOSS_RTOL:g}), worst gradient rel err {worst_grad:.3g} "
+        f"(tol {MULTI_STEP_GRAD_REL:g})")
+    if not (worst_loss <= MULTI_STEP_LOSS_RTOL and worst_grad <= MULTI_STEP_GRAD_REL):
+        raise AssertionError("the card's first multi-object iteration differs from the CPU's")
+    return worst_loss, worst_grad
+
+
+def scene_on(scene, d):
+    """The scene graph with its frame data on device ``d`` (a shallow copy
+    whose nodes carry moved tensors)."""
+    out = copy.copy(scene)
+    out.nodes, out.nodes_topo = {}, []
+    for n in scene.nodes_topo:
+        m = copy.copy(n)
+        m.frame_data = {k: v.to(d) for k, v in n.frame_data.items()}
+        out.nodes[m.id] = m
+        out.nodes_topo.append(m)
+    return out
+
+
+def check_multi_kernels(dev, trainer, state, scene, samplers):
+    """K8's backward at the pixel step's merged buffer [4,096, 168] with
+    non-zero cotangents and on ragged, tied and masked buffers with edge
+    alphas; K1's and K3's backwards at the path's point sets (the street's
+    F_cp 40 / R 1,024, the vehicles' F_cp 24 / R 256 and their dense levels);
+    K6 forward and backward at the LiDAR step's street buffer (2,048 x 48, no
+    rgb). -> ({kernel: (max_abs_err, tol)}, the inputs kept for timing)."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    from neuralsim_torch.ops.segment import (cross_source_vw, cross_source_vw_bwd_plain,
+                                             cross_source_vw_fwd)
+    from neuralsim_torch.renderers.buffers import (volume_composite, volume_composite_bwd,
+                                                   volume_composite_bwd_plain,
+                                                   volume_composite_plain)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    lbatch, pbatch, cam = multi_batches(scene, samplers, dev, MULTI_RAYS, MULTI_BEAMS)
+    bufs = {}
+    with torch.no_grad():
+        for step_type, batch in (("lidar", lbatch), ("pixel", pbatch)):
+            frozen = scene.slice_at(batch["rays_fidx"].long())
+            if step_type == "pixel":
+                from neuralsim_torch.scene.observers import camera_get_selected_rays
+                ro, rd = camera_get_selected_rays(frozen, cam, batch["rays_xy"])
+            else:
+                ro, rd = batch["rays_o"], batch["rays_d"]
+            noise = trainer.draw_noise(step_type, ro.shape[0], gen, state.it)
+            bufs[step_type] = trainer.renderer.ray_query(
+                state.params, frozen, ro.contiguous(), rd.contiguous(), it=state.it,
+                with_rgb=step_type == "pixel", only_cr=step_type == "lidar",
+                occ_states=state.occ, return_buffer=True, with_per_obj=False,
+                noise=noise["render"])["merged_buffer"]
+    mb, lbuf = bufs["pixel"], bufs["lidar"]
+    if mb["t"].shape != (MULTI_RAYS, 168) or lbuf["t"].shape != (MULTI_BEAMS, 48):
+        raise AssertionError(f"the step buffers are {tuple(mb['t'].shape)} and "
+                             f"{tuple(lbuf['t'].shape)}, not [4096, 168] and [2048, 48]")
+    errs, shapes = {}, {}
+    # K8 backward
+    path = (mb["t"].contiguous(), mb["mask"].contiguous(), mb["alpha"].contiguous())
+    g = cotangents(path[0].shape, 21, dev)
+    sets = [("pixel step's merged buffer", path, g)] + [
+        ("ragged, ties, masked lanes, edge alphas", [T(a) for a in edge_alpha_inputs(n, L, L)],
+         cotangents((n, L), 22 + L, dev))
+        for n, L in ((4096, 168), (333, 1), (257, 5), (1000, 33), (512, 257), (64, 1100))]
+    e8 = []
+    for label, (t, mask, alpha), gg in sets:
+        a = alpha.clone().requires_grad_(True)
+        got = torch.autograd.grad(cross_source_vw(t, mask, a), a, gg)[0]
+        e8.append(compare_rel(f"K8 bwd {label} rays={t.shape[0]} L={t.shape[1]}", [got],
+                              [cross_source_vw_bwd_plain(t, mask, alpha, gg)], GRAD_REL))
+    errs["cross_source_vw.bwd"] = (max(e8), GRAD_REL)
+    logt = cross_source_vw_fwd(*path, with_logt=True)[1]
+    shapes["cross_source_vw.bwd"] = dict(args=(*path, logt, g))
+    shapes["cross_source_vw"] = dict(args=path)
+    # K1 and K3 backward at the final evaluations of the step
+    e1, e3 = [], []
+    veh_id = trainer.renderer.objects[0].model_id
+    street_id = trainer.renderer.scene_models["cr"][0]
+    for label, mid, n_rows, s in (("street, pixel step", street_id, MULTI_RAYS, 48),
+                                  ("street, LiDAR step", street_id, MULTI_BEAMS, 48),
+                                  ("vehicles", veh_id, 3 * MULTI_RAYS // 2, 32)):
+        enc = state.params[mid].encoding
+        C = enc.out_dim
+        x = T(ray_points(n_rows, s, enc.cp_rmax, 30))
+        N = x.shape[0]
+        lines = enc.cp_stacked_lines().detach().to(torch.bfloat16)
+        d_out, d_jac = cotangents((C, N), 31, dev), cotangents((3, C, N), 32, dev)
+        a1 = (lines, x, enc._cp_rows, d_out, d_jac)
+        e1.append(compare_rel(f"K1 bwd {label} F={lines.shape[1]} R={lines.shape[2]} N={N}",
+                              [lotd.lotd_cp_stacked_bwd(*a1)], [lotd.lotd_cp_stacked_bwd_plain(*a1)],
+                              GRAD_REL))
+        if enc.grid_spec_ids:
+            a3 = (enc.table.numel(), x, enc._grid_meta, d_out, d_jac)
+            e3.append(compare_rel(f"K3 bwd {label} dense levels N={N}",
+                                  [lotd.lotd_grid_bwd(*a3)], [lotd.lotd_grid_bwd_plain(*a3)],
+                                  GRAD_REL))
+    errs["lotd_cp_stacked.bwd"] = (max(e1), GRAD_REL)
+    errs["lotd_grid.bwd"] = (max(e3), GRAD_REL)
+    # K6 at the LiDAR step's street buffer: no rgb, nablas for the on-render eikonal
+    args = (lbuf["t"].contiguous(), lbuf["mask"].contiguous(), lbuf["alpha"].contiguous(), None,
+            lbuf["nablas"].contiguous())
+    n, S = args[0].shape
+    errs["volume_composite"] = (compare(f"K6 LiDAR step rays={n} S={S} (no rgb)",
+                                        volume_composite(*args), volume_composite_plain(*args),
+                                        rtol=1e-5, atol=1e-6), 1e-6)
+    grads = [cotangents(sh, 40 + i, dev) for i, sh in enumerate(((n, S), (n,), (n,), (n, 3)))]
+    bargs = (*args, grads[0], grads[1], grads[2], None, grads[3])
+    errs["volume_composite.bwd"] = (compare_rel(
+        f"K6 bwd LiDAR step rays={n} S={S} (no rgb)", volume_composite_bwd(*bargs),
+        volume_composite_bwd_plain(*bargs), GRAD_REL), GRAD_REL)
+    shapes["volume_composite"] = dict(args=args)
+    shapes["volume_composite.bwd"] = dict(args=bargs)
+    torch.cuda.synchronize()
+    return errs, shapes
+
+
+def check_multi_training(scene, trainer, state, samplers, dev):
+    """MULTI_ITERS loop iterations through train_loop with every metric logged:
+    finite losses, no skip, falling loss_rgb and LiDAR depth loss, the grid
+    refreshed on its cadence, the error map's importance sampling in use, and
+    every kernel of the path launched as counted. -> (log, launches)."""
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.tools.train_multi import train_loop
+    gen = torch.Generator(device=dev).manual_seed(11)
+    log_ = []
+    it0 = state.it
+    kernels.reset_counts()
+    train_loop(scene, trainer, state, samplers, it0 + MULTI_ITERS, gen, 1, log_)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+    accel = trainer.renderer.accels["cr"]
+    refreshes = sum(1 for r in log_ if r["it"] % accel.n_steps_between_update == 0)
+    log(f"multi-object training: {MULTI_ITERS} iterations of {MULTI_BEAMS} beams + "
+        f"{MULTI_RAYS} rays, {refreshes} grid refreshes, launches {launches}")
+    for rec in log_:
+        for k, v in rec.items():
+            if k.startswith(("loss", "lidar/loss")) and not np.isfinite(v):
+                raise AssertionError(f"non-finite {k} at iteration {rec['it']}")
+    if log_[-1]["skips_total"] != 0:
+        raise AssertionError(f"{log_[-1]['skips_total']} steps were skipped")
+    mean = lambda k, rs: float(np.mean([r[k] for r in rs]))
+    falls = {}
+    for k in ("loss_rgb", "lidar/lidar_loss_depth"):
+        falls[k] = (mean(k, log_[:10]), mean(k, log_[-10:]))
+        log(f"multi-object training: {k} first 10 iterations {falls[k][0]:.5f}, last 10 "
+            f"{falls[k][1]:.5f}")
+        if not falls[k][1] < falls[k][0]:
+            raise AssertionError(f"{k} did not fall")
+    log(f"multi-object training: occ_frac {log_[0]['occ_frac']:.4f} -> {log_[-1]['occ_frac']:.4f}"
+        f", error-map updates {samplers['imp'].it} (importance sampling from "
+        f"{samplers['imp'].enable_after})")
+    want = {"cross_source_vw": MULTI_ITERS, "cross_source_vw.bwd": MULTI_ITERS,
+            "volume_composite": MULTI_ITERS, "volume_composite.bwd": MULTI_ITERS,
+            "occ_ray_proposal": 2 * MULTI_ITERS, "occ_ema_update": refreshes}
+    if refreshes != 3 or any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"the multi-object path's launches are not as counted: want {want}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the multi-object training path")
+    if samplers["imp"].it != MULTI_ITERS or samplers["imp"].enable_after >= MULTI_ITERS:
+        raise AssertionError("the error map's importance sampling did not run")
+    return log_, launches, falls
+
+
+def check_multi_poisoned_step(scene, trainer, state, samplers, dev):
+    """A NaN in a pixel batch: the step is skipped and leaves every parameter
+    and moment bit-identical."""
+    import torch
+    _, pbatch, cam = multi_batches(scene, samplers, dev, MULTI_RAYS, MULTI_BEAMS, poison=True)
+    before = [p.detach().clone() for p in state.params.parameters()]
+    moments = [t.clone() for o in state.opt.values() for t in (*o.mu, *o.nu, o.count)]
+    it = state.it
+    gen = torch.Generator(device=dev).manual_seed(12)
+    state, m = trainer.train_step(state, pbatch, trainer.draw_noise("pixel", MULTI_RAYS, gen, it),
+                                  "pixel", cam)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(before, state.params.parameters())) and \
+        all(torch.equal(a, b) for a, b in
+            zip(moments, [t for o in state.opt.values() for t in (*o.mu, *o.nu, o.count)]))
+    log(f"multi poisoned step: skipped {int(m['step_skipped'])}, skips_total "
+        f"{int(m['skips_total'])}, parameters and moments unchanged {same}, it {it} -> {state.it}")
+    if not (int(m["step_skipped"]) == 1 and int(m["skips_total"]) == 1 and same
+            and state.it == it + 1):
+        raise AssertionError("the poisoned multi-object step was not skipped cleanly")
+
+
+def time_multi_iterations(scene, trainer, state, samplers, dev, reps=20):
+    """Host-clock time of each step type of a loop iteration, batch sampling,
+    lifting and noise included (the pixel step's error-map update too), in
+    ms over ``reps`` iterations after 3 warm-ups -> {lidar, pixel, iteration:
+    (median, min, max)}."""
+    import torch
+    from neuralsim_torch.tools.train_multi import _LIDAR_KEYS, _PIXEL_KEYS, to_device
+    from neuralsim_torch.training.multi_trainer import lift_lidar_batch
+    gen = torch.Generator(device=dev).manual_seed(13)
+    pix, lid, imp = samplers["pixel"], samplers["lidar"], samplers["imp"]
+    ts = {"lidar": [], "pixel": [], "iteration": []}
+    for i in range(reps + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lb = lid.sample()
+        lbatch = lift_lidar_batch(scene, {**to_device(lb, _LIDAR_KEYS, dev),
+                                          "lidar_id": lb["lidar_id"]})
+        trainer.train_step(state, lbatch, trainer.draw_noise("lidar", MULTI_BEAMS, gen, state.it),
+                           "lidar", None, False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        raw = pix.sample()
+        batch = to_device(raw, _PIXEL_KEYS, dev)
+        _, m = trainer.train_step(state, batch,
+                                  trainer.draw_noise("pixel", MULTI_RAYS, gen, state.it), "pixel",
+                                  raw["cam_id"])
+        W, H = pix.loader.image_wh(raw["cam_id"])
+        imp.update(raw["rays_fidx"], raw["rays_sel"][:, 1], raw["rays_sel"][:, 0],
+                   m["err_map"].cpu().numpy(), H, W, cam_id=raw["cam_id"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if i >= 3:
+            ts["lidar"].append((t1 - t0) * 1e3)
+            ts["pixel"].append((t2 - t1) * 1e3)
+            ts["iteration"].append((t2 - t0) * 1e3)
+    return {k: (sorted(v)[reps // 2], min(v), max(v)) for k, v in ts.items()}
+
+
+def profile_multi_steps(scene, trainer, state, samplers, dev):
+    """Device kernels and busy time of one LiDAR and one pixel step (off the
+    grid's cadence) under the profiler -> {step type: (kernels, busy ms)}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(14)
+    out = {}
+    for step_type in ("lidar", "pixel"):
+        for warm in (True, False):
+            lbatch, pbatch, cam = multi_batches(scene, samplers, dev, MULTI_RAYS, MULTI_BEAMS)
+            batch = lbatch if step_type == "lidar" else pbatch
+            n = batch["rays_fidx"].shape[0]
+            noise = trainer.draw_noise(step_type, n, gen, state.it)
+            torch.cuda.synchronize()
+            ctx = contextlib.nullcontext() if warm else \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                        record_shapes=True)
+            with ctx as prof:
+                t0 = time.perf_counter()
+                trainer.train_step(state, batch, noise, step_type,
+                                   cam if step_type == "pixel" else None, False)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25))
+        # the same by operator and input shapes: which gather's backward it is
+        log(prof.key_averages(group_by_input_shape=True).table(
+            sort_by="self_cuda_time_total", row_limit=12, max_name_column_width=40,
+            max_shapes_column_width=80))
+        kernels_us = [e.time_range.elapsed_us() for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(kernels_us) / 1e3
+        log(f"profile multi {step_type} step: {len(kernels_us)} device kernels, busy {busy:.3f} ms "
+            f"of {wall * 1e3:.3f} ms wall under the profiler")
+        out[step_type] = (len(kernels_us), busy)
+    return out
+
+
+def time_multi_kernels(shapes):
+    """K8 forward (writing S, as the training step does) and backward at the
+    pixel step's merged buffer, K6 forward and backward at the LiDAR step's
+    street buffer, beside their plain versions and bounds."""
+    from neuralsim_torch.ops.segment import (cross_source_vw_bwd, cross_source_vw_bwd_plain,
+                                             cross_source_vw_fwd, cross_source_vw_plain)
+    from neuralsim_torch.renderers.buffers import (volume_composite, volume_composite_bwd,
+                                                   volume_composite_bwd_plain,
+                                                   volume_composite_plain)
+    out = {}
+    t, mask, alpha, logt, g = shapes["cross_source_vw.bwd"]["args"]
+    N, L = t.shape
+    what = f"rays={N} L={L} (the pixel step's merged buffer: 3 vehicles x 32, street 48, " \
+           f"distant 24 lanes)"
+    out["cross_source_vw"] = dict(
+        shape=what + ", writing S", ms=cuda_ms(lambda: cross_source_vw_fwd(t, mask, alpha, True)),
+        plain_ms=cuda_ms(lambda: cross_source_vw_plain(t, mask, alpha), reps=5), library_ms=None,
+        # t, alpha and mask read, vw and S written; a compare and an add per pair
+        bound=bound(N * L * 17, 2.0 * N * L * L))
+    out["cross_source_vw.bwd"] = dict(
+        shape=what, ms=cuda_ms(lambda: cross_source_vw_bwd(t, mask, alpha, logt, g)),
+        plain_ms=cuda_ms(lambda: cross_source_vw_bwd_plain(t, mask, alpha, g), reps=5),
+        library_ms=None,
+        # t, mask, alpha, S and the cotangent read, d alpha written; a compare
+        # and an add per pair
+        bound=bound(N * L * 21, 2.0 * N * L * L))
+    a = shapes["volume_composite"]["args"]
+    n, S = a[0].shape
+    out["volume_composite"] = dict(
+        shape=f"LiDAR step: rays={n} S={S}, nablas, no rgb",
+        ms=cuda_ms(lambda: volume_composite(*a)),
+        plain_ms=cuda_ms(lambda: volume_composite_plain(*a), reps=5), library_ms=None,
+        # t, alpha, mask, nablas read; vw, mask, depth, normals, count written
+        bound=bound(n * S * (9 + 12 + 4) + n * 24, n * S * 20))
+    b = shapes["volume_composite.bwd"]["args"]
+    out["volume_composite.bwd"] = dict(
+        shape=f"LiDAR step: rays={n} S={S}, nablas, no rgb",
+        ms=cuda_ms(lambda: volume_composite_bwd(*b)),
+        plain_ms=cuda_ms(lambda: volume_composite_bwd_plain(*b), reps=5), library_ms=None,
+        # t, alpha, mask, nablas, the vw cotangent read; d alpha, d nablas written
+        bound=bound(n * S * (9 + 12 + 4 + 4 + 12) + n * 20, n * S * 40))
+    return out
+
+
+def multi_phase(dev, profile_it):
+    """Phase 8 and the multi-object training's share of the timing."""
+    import torch
+    from neuralsim_torch.configs import WAYMO_DEMO_MULTI
+    from neuralsim_torch.tools.build import build_multi_trainer, render_multi_frame
+
+    cfg = copy.deepcopy(WAYMO_DEMO_MULTI)
+    cfg["training"]["error_map"] = {**cfg["training"]["error_map"],
+                                    "enable_after": MULTI_ERROR_MAP_AFTER}
+    timings = {}
+    t0 = time.perf_counter()
+    scene, bank, trainer, state, samplers = build_multi_trainer(cfg, timings=timings)
+    torch.cuda.synchronize()
+    accel = trainer.renderer.accels["cr"]
+    log(f"multi-object training: built in {time.perf_counter() - t0:.2f} s ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in timings.items()) + f"); pretrain "
+        f"{bank.pretrain_shapes()}, street grid {accel.res}^3 at its initial state, occupied "
+        f"fraction {float(accel.occupied_fraction(state.occ['cr'])):.4f}")
+    t = cfg["training"]
+    if (t["n_rays"], t["n_rays_lidar"], t["uniform_sample_n"]) != (MULTI_RAYS, MULTI_BEAMS, 512):
+        raise AssertionError("the multi-object batch sizes are not the ones checked here")
+
+    errs, shapes = check_multi_kernels(dev, trainer, state, scene, samplers)
+    loss_err, grad_err = check_multi_first_iteration(scene, trainer, state, samplers, dev)
+    log_, launches, falls = check_multi_training(scene, trainer, state, samplers, dev)
+    check_multi_poisoned_step(scene, trainer, state, samplers, dev)
+
+    H, W = (int(v) for v in scene.nodes[COMPOSE_CAM].frame_data["hw"][0].tolist())
+    frame = render_multi_frame(trainer.renderer, state.params, scene, 0, COMPOSE_CAM, state.occ,
+                               RAYSCHUNK)
+    torch.cuda.synchronize()
+    m = frame["mask_volume"]
+    log(f"multi-object training: rendered frame 0 ({H}x{W}) of the trained state, mask in "
+        f"[{float(m.min()):.4f}, {float(m.max()):.6f}], mean {float(m.mean()):.4f}")
+    for k in ("rgb_volume", "depth_volume", "mask_volume"):
+        if not torch.isfinite(frame[k]).all() or frame[k].shape[0] != H * W:
+            raise AssertionError(f"the trained frame's {k} is not finite of {H * W} rays")
+    if float(m.min()) < 0.0 or float(m.max()) > MASK_CAP:
+        raise AssertionError("the trained frame's mask leaves [0, 1 + 1.1e-3]")
+
+    it_ms = time_multi_iterations(scene, trainer, state, samplers, dev)
+    rays = MULTI_RAYS + MULTI_BEAMS
+    for k, (med, lo, hi) in it_ms.items():
+        log(f"timing: multi-object {k} median {med:.3f} ms (min {lo:.3f}, max {hi:.3f})")
+    log(f"timing: multi-object iteration {rays} rays ({MULTI_BEAMS} beams + {MULTI_RAYS} "
+        f"pixels), {rays / it_ms['iteration'][0] * 1e3:.1f} rays/s; hand-kernel launches per "
+        f"iteration {sum(launches.values()) / MULTI_ITERS:.1f}")
+    times = time_multi_kernels(shapes)
+    summary = {"multi_build_s": timings, "multi_first_iteration_loss_rel_err": loss_err,
+               "multi_first_iteration_grad_rel_err": grad_err,
+               "multi_iterations": MULTI_ITERS,
+               "multi_loss_rgb_first10": falls["loss_rgb"][0],
+               "multi_loss_rgb_last10": falls["loss_rgb"][1],
+               "multi_lidar_depth_first10": falls["lidar/lidar_loss_depth"][0],
+               "multi_lidar_depth_last10": falls["lidar/lidar_loss_depth"][1],
+               "multi_occ_frac_last": log_[-1]["occ_frac"],
+               "multi_lidar_step_ms": it_ms["lidar"][0], "multi_pixel_step_ms": it_ms["pixel"][0],
+               "multi_iteration_ms": it_ms["iteration"][0],
+               "multi_iteration_ms_min": it_ms["iteration"][1],
+               "multi_iteration_ms_max": it_ms["iteration"][2],
+               "multi_rays_per_s": rays / it_ms["iteration"][0] * 1e3,
+               "multi_hand_launches_per_iteration": sum(launches.values()) / MULTI_ITERS}
+    if profile_it:
+        prof = profile_multi_steps(scene, trainer, state, samplers, dev)
+        for k, (n, busy) in prof.items():
+            summary[f"multi_{k}_step_device_kernels"] = n
+            summary[f"multi_{k}_step_busy_ms"] = busy
+    return dict(errs=errs, times=times, launches=launches, iters=MULTI_ITERS, summary=summary)
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2018,7 +2559,7 @@ def main(argv) -> int:
     launches = {k.name: k.launches for k in kernels.KERNELS.values()}
     log(f"training slice: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays, launches {launches}")
     for name, n in launches.items():
-        if n <= 0 and name not in BENCH_ONLY + COMPOSE_ONLY:
+        if n <= 0 and name not in BENCH_ONLY + COMPOSE_ONLY + MULTI_ONLY:
             raise AssertionError(f"kernel {name} never launched on the training path")
     trainer, state = out["trainer"], out["state"]
     check_poisoned_step(trainer, state, rig, dev)
@@ -2029,7 +2570,10 @@ def main(argv) -> int:
     # 7. the multi-object compose render, with its own timing
     compose = compose_phase(dev, "--profile" in argv)
 
-    # 8. timing
+    # 8. multi-object training, with its own timing
+    multi = multi_phase(dev, "--profile" in argv)
+
+    # 9. timing
     (frame_ms, frame_min, frame_max), n_rays = time_frames(renderer, params, rig, dev)
     log(f"timing: frame median {frame_ms:.3f} ms (min {frame_min:.3f}, max "
         f"{frame_max:.3f}) for {n_rays} rays, {n_rays / frame_ms * 1e3:.1f} rays/s")
@@ -2043,10 +2587,15 @@ def main(argv) -> int:
     for name, k in kernels.KERNELS.items():
         # a kernel of the earlier slices reports its synthetic_object training
         # path at the top level and the bench path beside it; K4 and K7 run on
-        # the bench path only, K8 on the compose render only (per frame)
+        # the bench path only, K8 on the compose render only (per frame), K8's
+        # backward on the multi-object training only (per iteration)
         on_compose = name in COMPOSE_ONLY
-        on_bench = name not in times and not on_compose
-        if on_compose:
+        on_multi = name in MULTI_ONLY
+        on_bench = name not in times and not on_compose and not on_multi
+        if on_multi:
+            t, n_launch, steps, path = (multi["times"][name], multi["launches"][name],
+                                        multi["iters"], "waymo_demo_multi training")
+        elif on_compose:
             t, n_launch, steps, path = (compose["times"][name][0], compose["launches"][name],
                                         compose["n_frames"], "waymo_demo_multi render")
         elif on_bench:
@@ -2055,20 +2604,22 @@ def main(argv) -> int:
         else:
             t, n_launch, steps, path = (times[name], launches[name], TRAIN_STEPS,
                                         "synthetic_object training")
-        found = [e[name] for e in (errs, bench["errs"], compose["errs"]) if name in e]
+        found = [e[name] for e in (errs, bench["errs"], compose["errs"], multi["errs"])
+                 if name in e]
         err, tol = max(e for e, _ in found), found[0][1]
         bound_ms, bound_by = t["bound"]
         # K8 runs on no training step: its per-frame count is under "compose"
         row = {"name": name, "route": "cuda", "source": k.source,
                "replaces": k.replaces, "launches": n_launch,
-               "launches_per_step": None if on_compose else n_launch / steps,
+               "launches_per_step": None if on_compose or on_multi else n_launch / steps,
                "max_abs_err": err, "max_err": err,
                "tol": tol, "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": t["library_ms"], "shape": t["shape"], "path": path}
-        log(f"kernel {name} ({path} path, {n_launch / steps:g} launches per "
-            f"{'frame' if on_compose else 'step'}): {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
-            f"bound {bound_ms:.4f} by {bound_by}) at {t['shape']}")
+        unit = "frame" if on_compose else "iteration" if on_multi else "step"
+        log(f"kernel {name} ({path} path, {n_launch / steps:g} launches per {unit}): "
+            f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound {bound_ms:.4f} by {bound_by}) "
+            f"at {t['shape']}")
         if name in times_render:
             r = times_render[name]
             row["render"] = {"launches": launches_render[name],
@@ -2095,6 +2646,18 @@ def main(argv) -> int:
         else:
             log(f"kernel {name} (bench model): {bench['launches'][name] / BENCH_STEPS:g} launches "
                 f"per step, {bench['launches_render'][name] / bench['n_frames']:g} per frame")
+        row["multi"] = {"launches": multi["launches"][name],
+                        "launches_per_iteration": multi["launches"][name] / multi["iters"]}
+        if name in multi["times"] and not on_multi:
+            c = multi["times"][name]
+            row["multi"].update(ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound"][0],
+                                bound_by=c["bound"][1], library_ms=c["library_ms"],
+                                shape=c["shape"])
+        if "ms" in row["multi"]:
+            c = row["multi"]
+            log(f"kernel {name} (multi-object training path, {c['launches_per_iteration']:g} "
+                f"launches per iteration): {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound "
+                f"{c['bound_ms']:.4f} by {c['bound_by']}) at {c['shape']}")
         row["compose"] = {"launches": compose["launches"][name],
                           "launches_per_frame": compose["launches"][name] / compose["n_frames"]}
         for c in compose["times"].get(name, []):
@@ -2109,7 +2672,7 @@ def main(argv) -> int:
         profile_frame(renderer, params, rig, dev)
         profile_step(trainer, state, rig, dev)
 
-    # 9. results
+    # 10. results
     log(json.dumps({"frame_ms": frame_ms, "frame_ms_min": frame_min,
                     "frame_ms_max": frame_max, "rays_per_s": n_rays / frame_ms * 1e3,
                     "crop_max_abs_err": crop_err,
@@ -2119,7 +2682,7 @@ def main(argv) -> int:
                     "train_steps": TRAIN_STEPS, "loss_rgb_first10": rgb_first,
                     "loss_rgb_last10": rgb_last, "first_step_loss_rel_err": step_loss_err,
                     "first_step_grad_rel_err": step_grad_err, **bench["summary"],
-                    **compose["summary"], "card": smi}))
+                    **compose["summary"], **multi["summary"], "card": smi}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

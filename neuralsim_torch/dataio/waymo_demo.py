@@ -1,20 +1,25 @@
 """The fabricated Waymo-layout driving sequence, in memory (port of
-neuralsim_tpu/dataio/waymo_demo.py:26-142, 150-238; numpy).
+neuralsim_tpu/dataio/waymo_demo.py:26-240 and of the reader's occupancy mask,
+neuralsim_tpu/dataio/waymo.py:137-141; numpy).
 
 An ego car drives +x over a ground plane; K vehicles (spheres in a unit-cube
 canonical frame, like preprocessed box tracks) are parked, lead or come the
-other way. ``DemoDrive`` is the analytic scene, unchanged. ``demo_scenario``
-returns the scenario dict that the JAX package's ``build_demo_sequence``
-saves as ``scenario.pt`` (the universal scenario format: an ego car with the
-children ``camera_FRONT`` and ``lidar_TOP``, and one ``Vehicle`` object per
-track), without tracing or writing images, masks or LiDAR: a render needs only
-the poses, the intrinsics and the tracks. :func:`ground_sdf_tensor` is the
-drive's static ground, on which the street's occupancy grid converges.
+other way. ``DemoDrive`` is the analytic scene, unchanged, sphere-traced for
+the images, masks and LiDAR ranges. ``demo_scenario`` returns the scenario
+dict that the JAX package's ``build_demo_sequence`` saves as ``scenario.pt``
+(the universal scenario format: an ego car with the children ``camera_FRONT``
+and ``lidar_TOP``, and one ``Vehicle`` object per track); a render needs only
+that. ``demo_sequence`` adds the data of training, in memory: the camera
+frames (the writer's uint8 values over 255, as its reader returns them, but
+without the JPEG compression), the occupancy masks (semantic id != sky) and
+the LiDAR beams with their ranges (0 where a beam hits nothing).
+:func:`ground_sdf_tensor` is the drive's static ground, on which the street's
+occupancy grid converges.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +29,11 @@ import torch
 R_CAM2EGO = np.array([[0.0, 0.0, 1.0],
                       [-1.0, 0.0, 0.0],
                       [0.0, -1.0, 0.0]], np.float32)
+
+VEH_COLORS = np.array([[0.85, 0.25, 0.2], [0.2, 0.4, 0.85],
+                       [0.9, 0.75, 0.2], [0.3, 0.75, 0.4],
+                       [0.7, 0.3, 0.8]], np.float32)
+SKY_ID = 10               # the Waymo semantic id of the sky
 
 
 class DemoDrive:
@@ -63,11 +73,85 @@ class DemoDrive:
             d = np.minimum(d, np.linalg.norm(p - c, axis=-1) - self.veh[k]["r"])
         return d
 
+    def albedo(self, p: np.ndarray, fi: int) -> np.ndarray:
+        out = np.empty(p.shape, np.float32)
+        # road: gray with dashed center-line stripes
+        stripe = ((np.abs(p[..., 1]) < 0.15)
+                  & ((p[..., 0] % 3.0) < 1.5))
+        road = np.where(stripe[..., None],
+                        np.array([0.85, 0.8, 0.3], np.float32),
+                        np.array([0.35, 0.35, 0.37], np.float32)
+                        + 0.05 * np.cos(p[..., :1] * 2.0))
+        out[:] = road
+        best = p[..., 2].copy()                             # ground distance
+        for k in range(self.K):
+            c = self.veh_center(k, fi)
+            dk = np.linalg.norm(p - c, axis=-1) - self.veh[k]["r"]
+            sel = dk < best
+            out[sel] = VEH_COLORS[k % len(VEH_COLORS)]
+            best = np.minimum(best, dk)
+        return out
+
+    def semantic(self, p: np.ndarray, hit: np.ndarray, fi: int) -> np.ndarray:
+        sem = np.zeros(hit.shape, np.uint8)                 # road/other = 0
+        sem[~hit] = 10                                      # sky
+        best = np.where(hit, p[..., 2], np.inf)
+        for k in range(self.K):
+            c = self.veh_center(k, fi)
+            dk = np.linalg.norm(p - c, axis=-1) - self.veh[k]["r"]
+            sem[hit & (dk < best)] = 13                     # vehicle
+            best = np.minimum(best, dk)
+        return sem
+
+    def trace(self, o: np.ndarray, d: np.ndarray, fi: int, max_t=60.0):
+        t = np.full(d.shape[:-1], 0.05, np.float64)
+        for _ in range(96):
+            p = o + t[..., None] * d
+            t = t + np.clip(self.sdf(p, fi), -0.1, 1.0)
+            t = np.minimum(t, max_t)
+        p = o + t[..., None] * d
+        hit = (np.abs(self.sdf(p, fi)) < 5e-3) & (t < max_t * 0.99)
+        return p, t, hit
+
+    def shade(self, p, d, hit, fi) -> np.ndarray:
+        eps = 1e-3
+        g = np.stack([self.sdf(p + np.array([eps, 0, 0]), fi)
+                      - self.sdf(p - np.array([eps, 0, 0]), fi),
+                      self.sdf(p + np.array([0, eps, 0]), fi)
+                      - self.sdf(p - np.array([0, eps, 0]), fi),
+                      self.sdf(p + np.array([0, 0, eps]), fi)
+                      - self.sdf(p - np.array([0, 0, eps]), fi)], -1)
+        n = g / np.clip(np.linalg.norm(g, axis=-1, keepdims=True), 1e-9, None)
+        light = np.array([0.3, 0.25, -0.91])
+        light /= np.linalg.norm(light)
+        lam = np.clip(-(n * light).sum(-1), 0, 1) * 0.7 + 0.3
+        rgb_fg = self.albedo(p, fi) * lam[..., None]
+        # sky: horizon band (the "distant" content) + zenith gradient
+        z01 = np.clip(0.5 * (d[..., 2] + 1.0), 0, 1)
+        horizon = np.exp(-np.abs(d[..., 2]) * 14.0)
+        sky = ((1 - z01[..., None]) * np.array([0.9, 0.85, 0.75])
+               + z01[..., None] * np.array([0.35, 0.55, 0.9]))
+        sky = sky * (1 - horizon[..., None]) \
+            + horizon[..., None] * np.array([0.75, 0.6, 0.5])
+        return np.where(hit[..., None], rgb_fg, sky).astype(np.float32)
+
 
 def ground_sdf_tensor(p: torch.Tensor) -> torch.Tensor:
     """The drive's static ground plane z = 0 as an SDF of points [..., 3], on
     their device (the vehicles move, so the street's grid holds the ground)."""
     return p[..., 2].float()
+
+
+def _rig(W: int, H: int, fov_deg: float) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(intrinsics, camera-to-ego, LiDAR-to-ego) of the demo car."""
+    f = 0.5 * W / math.tan(math.radians(fov_deg) / 2)
+    intr = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    cam2ego = np.eye(4, dtype=np.float32)
+    cam2ego[:3, :3] = R_CAM2EGO
+    cam2ego[:3, 3] = [1.2, 0.0, 0.2]          # hood-mounted, slightly up
+    lidar2ego = np.eye(4, dtype=np.float32)
+    lidar2ego[:3, 3] = [0.0, 0.0, 0.6]
+    return intr, cam2ego, lidar2ego
 
 
 def demo_scenario(n_frames: int = 8, H: int = 80, W: int = 120, n_vehicles: int = 3,
@@ -76,13 +160,7 @@ def demo_scenario(n_frames: int = 8, H: int = 80, W: int = 120, n_vehicles: int 
     """The scenario dict of ``build_demo_sequence``'s sequence, built in
     memory from the same arguments (numpy arrays for its tensors)."""
     drive = DemoDrive(n_frames, speed, n_vehicles, seed)
-    f = 0.5 * W / math.tan(math.radians(fov_deg) / 2)
-    intr = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
-    cam2ego = np.eye(4, dtype=np.float32)
-    cam2ego[:3, :3] = R_CAM2EGO
-    cam2ego[:3, 3] = [1.2, 0.0, 0.2]          # hood-mounted, slightly up
-    lidar2ego = np.eye(4, dtype=np.float32)
-    lidar2ego[:3, 3] = [0.0, 0.0, 0.6]
+    intr, cam2ego, lidar2ego = _rig(W, H, fov_deg)
     ego = np.stack([drive.ego_pose(fi) for fi in range(n_frames)])
     ts = np.arange(n_frames, dtype=np.float64) * 0.1
 
@@ -121,3 +199,91 @@ def demo_scenario(n_frames: int = 8, H: int = 80, W: int = 120, n_vehicles: int 
         },
         "objects": objects,
     }
+
+
+def beams_local(lidar_hw: Tuple[int, int] = (12, 64)) -> np.ndarray:
+    """The demo LiDAR's unit beams in its own frame [lH * lW, 3], row by row."""
+    lH, lW = lidar_hw
+    az = np.linspace(-math.pi * 0.4, math.pi * 0.4, lW)
+    el = np.linspace(-0.35, 0.05, lH)
+    azg, elg = np.meshgrid(az, el)
+    return np.stack([np.cos(elg) * np.cos(azg), np.cos(elg) * np.sin(azg),
+                     np.sin(elg)], -1).reshape(-1, 3).astype(np.float32)
+
+
+def camera_frame(drive: DemoDrive, fi: int, H: int = 80, W: int = 120,
+                 fov_deg: float = 62.0) -> Tuple[np.ndarray, np.ndarray]:
+    """Frame ``fi`` of the front camera, traced: (rgb [H, W, 3] float32 before
+    quantising, semantic ids [H, W] uint8)."""
+    intr, cam2ego, _ = _rig(W, H, fov_deg)
+    u, v = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5)
+    dirs_cam = np.stack([(u - intr[0, 2]) / intr[0, 0], (v - intr[1, 2]) / intr[1, 1],
+                         np.ones_like(u)], -1)
+    c2w = drive.ego_pose(fi) @ cam2ego
+    d = dirs_cam @ c2w[:3, :3].T
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = np.broadcast_to(c2w[:3, 3], d.shape).astype(np.float64)
+    p, _, hit = drive.trace(o, d, fi)
+    return drive.shade(p, d, hit, fi), drive.semantic(p, hit, fi)
+
+
+def lidar_ranges(drive: DemoDrive, fi: int, beams: np.ndarray) -> np.ndarray:
+    """Each beam's range at frame ``fi`` [n], 0 where it hits nothing."""
+    _, _, lidar2ego = _rig(1, 1, 62.0)
+    l2w = drive.ego_pose(fi) @ lidar2ego
+    dw = beams @ l2w[:3, :3].T
+    ow = np.broadcast_to(l2w[:3, 3], dw.shape).astype(np.float64)
+    _, t_l, hit_l = drive.trace(ow, dw, fi)
+    return np.where(hit_l, t_l, 0.0).astype(np.float32)
+
+
+class DemoSequence:
+    """The demo drive's sequence in memory, with the reader's interface that
+    the data loader uses: the scenario, and per camera and frame the image
+    and occupancy mask, per LiDAR and frame its beams."""
+
+    def __init__(self, scenario: Dict[str, Any], images: Dict[Tuple[str, int], np.ndarray],
+                 semantics: Dict[Tuple[str, int], np.ndarray],
+                 lidars: Dict[Tuple[str, int], Dict[str, np.ndarray]]):
+        self.scenario = scenario
+        self.images = images
+        self.semantics = semantics
+        self.lidars = lidars
+
+    def get_scenario(self) -> Dict[str, Any]:
+        return self.scenario
+
+    def get_image(self, scene_id: str, cam_id: str, frame_index: int) -> np.ndarray:
+        return self.images[(cam_id, frame_index)]
+
+    def get_occupancy_mask(self, scene_id: str, cam_id: str, frame_index: int
+                           ) -> Optional[np.ndarray]:
+        sem = self.semantics.get((cam_id, frame_index))
+        return None if sem is None else (sem != SKY_ID).astype(np.float32)
+
+    def get_lidar(self, scene_id: str, lidar_id: str, frame_index: int
+                  ) -> Optional[Dict[str, np.ndarray]]:
+        return self.lidars.get((lidar_id, frame_index))
+
+
+def demo_sequence(n_frames: int = 8, H: int = 80, W: int = 120, n_vehicles: int = 3,
+                  speed: float = 1.5, seed: int = 0, seq_name: str = "demo_drive",
+                  fov_deg: float = 62.0, lidar_hw: Tuple[int, int] = (12, 64)
+                  ) -> DemoSequence:
+    """The sequence that ``build_demo_sequence`` writes, built in memory from
+    the same arguments: its scenario, and for every frame the front camera's
+    image as the writer quantises it (``uint8(clip(rgb, 0, 1) * 255) / 255``;
+    no JPEG compression), its semantic ids, and the LiDAR's beams with their
+    ranges."""
+    drive = DemoDrive(n_frames, speed, n_vehicles, seed)
+    beams = beams_local(lidar_hw)
+    images, semantics, lidars = {}, {}, {}
+    for fi in range(n_frames):
+        rgb, sem = camera_frame(drive, fi, H, W, fov_deg)
+        images[("camera_FRONT", fi)] = \
+            (np.clip(rgb, 0, 1) * 255).astype(np.uint8).astype(np.float32) / 255.0
+        semantics[("camera_FRONT", fi)] = sem
+        lidars[("lidar_TOP", fi)] = {"rays_o": np.zeros_like(beams), "rays_d": beams,
+                                     "ranges": lidar_ranges(drive, fi, beams)}
+    scenario = demo_scenario(n_frames, H, W, n_vehicles, speed, seed, seq_name, fov_deg)
+    return DemoSequence(scenario, images, semantics, lidars)

@@ -10,8 +10,10 @@ depend on the position, so the analytic nablas chain the encoding's jacobian
 with the decoder's input gradient of the encoding slice only
 (:meth:`NeuSField.sdf_nablas_feat`).
 
-Not ported yet: the time condition (``use_time``) and the latent norm
-regulariser of training.
+Training: gradients reach the latents through the decoder, also through the
+analytic nablas (the uniform eikonal queries instance 0), and
+:meth:`latent_norm` feeds the latent regulariser. Not ported yet: the time
+condition (``use_time``).
 """
 from __future__ import annotations
 
@@ -66,3 +68,9 @@ class ConditionalLoTDNeuSField(NeuSField):
         idx = torch.zeros(lead, dtype=torch.long, device=h.device) if bidx is None \
             else torch.clamp(bidx.expand(lead).long(), 0, self.n_instances - 1)
         return torch.cat([h, self.latents[idx]], dim=-1)
+
+    def latent_norm(self) -> torch.Tensor:
+        """The mean over instances of each latent's squared norm."""
+        if self.n_instances == 0:
+            return torch.zeros((), device=self.ln_inv_s.device)
+        return torch.mean(torch.sum(self.latents ** 2, dim=-1))

@@ -43,7 +43,8 @@ SIGNATURES: Dict[str, str] = {
     "volume_composite_bwd": "pppppppppppppiip",
     "occ_ray_proposal": "ppppppppppiiiiip",
     "occ_ema_update": "ppppiiifffffp",
-    "cross_source_vw": "ppppiip",
+    "cross_source_vw": "pppppiip",
+    "cross_source_vw_bwd": "ppppppiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

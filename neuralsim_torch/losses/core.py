@@ -1,10 +1,10 @@
-"""The training losses of the single-scene NeuS step, on the ``rendered`` dict
-(port of neuralsim_tpu/losses/core.py:23-131).
+"""The training losses of the single-scene and multi-object NeuS steps, on the
+``rendered`` dict (port of neuralsim_tpu/losses/core.py:23-145, 191-253).
 
 Every loss is a function ``(rendered / ground truth / samples, it, cfg) ->
 scalar``; per-loss weights, with their anneal and ``enable_after`` gate, come
-from :func:`_w`. The lidar, mono-cue, curvature and clearance losses are not
-ported yet.
+from :func:`_w`. The mono-cue, curvature, colour-Lipschitz, weight and
+ray-entropy regularisers are not ported yet.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..maths.common import normalized_logistic_density, safe_norm
+from ..ops.segment import alpha_to_vw
 from ..training.annealers import get_anneal_val
 from .recon import get_recon_fn, reduce, safe_binary_cross_entropy, safe_mse_loss
 
@@ -101,3 +102,69 @@ def sparsity_loss(sdf: torch.Tensor, it, cfg: Dict) -> torch.Tensor:
     else:
         raise ValueError(typ)
     return val * _w(cfg, it)
+
+
+def clearance_loss(near_sdf: torch.Tensor, it, cfg: Dict) -> torch.Tensor:
+    """Penalises an SDF below ``thresh`` at each ray's first sample, keeping
+    the space in front of the sensor free: the mean of
+    ``exp(min(-beta (sdf - thresh), 30)) - 1`` over those rays (the exponent
+    is capped so that an untrained, deeply negative SDF gives a large but
+    finite penalty)."""
+    thresh = cfg.get("thresh", 0.001)
+    beta = cfg.get("beta", 10.0)
+    viol = near_sdf < thresh
+    pen = torch.exp(torch.minimum(-beta * (near_sdf - thresh), near_sdf.new_tensor(30.0))) - 1.0
+    return reduce(pen, viol.float(), "mean") * _w(cfg, it)
+
+
+def lidar_loss(rendered: Dict, gt_ranges: torch.Tensor, it, cfg: Dict,
+               buf: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Depth and line-of-sight supervision along LiDAR beams. A beam counts
+    where the rendered mask exceeds 1e-7 and 0 < range <= ``discard_toofar``
+    (80). ``buf``: the merged buffer, for the line of sight (its ``vw`` where
+    the composite gave it). The median outlier filter is not ported."""
+    if cfg.get("discard_outliers_median", 0.0):
+        raise NotImplementedError("the lidar loss's discard_outliers_median is not ported")
+    depth_pred = rendered["depth_volume"]
+    valid = (rendered["mask_volume"] > 1e-7) & (gt_ranges > 0.0) \
+        & (gt_ranges <= cfg.get("discard_toofar", 80.0))
+    validf = valid.float()
+    dcfg = cfg.get("depth", {})
+    fn = get_recon_fn(dcfg.get("fn_type", "l1"), **dcfg.get("fn_param", {}))
+    loss_depth = reduce(fn(depth_pred, gt_ranges), validf, "mean") * _w(dcfg, it)
+    loss_los = torch.zeros((), device=depth_pred.device)
+    lcfg = cfg.get("line_of_sight", {})
+    if lcfg and buf is not None:
+        loss_los = line_of_sight_loss(buf, gt_ranges, validf, it, lcfg)
+    total = (loss_depth + loss_los) * _w(cfg, it)
+    return total, {"loss_depth": loss_depth.detach(), "loss_los": loss_los.detach(),
+                   "valid_frac": validf.mean()}
+
+
+def line_of_sight_loss(buf: Dict, gt_ranges: torch.Tensor, valid: torch.Tensor, it,
+                       cfg: Dict) -> torch.Tensor:
+    """Shapes the visibility weights along each beam. ``neus_unisim``: the
+    squared weights outside the band ``|t - range| <= eps``; ``neus_urban``
+    (and ``nerf``): a gaussian of sigma eps / 3 inside the band, scaled to the
+    band's largest weight, plus the squared weights before ``range - eps``.
+    ``eps`` may follow an annealer. The weights are the buffer's ``vw`` where
+    it carries them (the K6 composite's, the same as ``alpha_to_vw``)."""
+    vw = buf["vw"] if "vw" in buf else alpha_to_vw(buf["alpha"], buf["mask"])
+    t, mask = buf["t"], buf["mask"]
+    fn_type = cfg.get("fn_type", "neus_unisim")
+    eps_cfg = cfg.get("epsilon", 0.5)
+    eps = get_anneal_val(it, **eps_cfg) if isinstance(eps_cfg, dict) else float(eps_cfg)
+    g = gt_ranges[:, None]
+    if fn_type == "neus_unisim":
+        outside = ((t - g).abs() > eps) & mask
+        pen = torch.sum(torch.where(outside, vw ** 2, 0.0), dim=-1)
+        return reduce(pen, valid, "mean") * _w(cfg, it)
+    if fn_type in ("nerf", "neus_urban"):
+        target = torch.exp(-0.5 * ((t - g) / (eps / 3.0)) ** 2)
+        near_band = ((t - g).abs() <= eps) & mask
+        peak = torch.amax(torch.where(near_band, vw, 0.0), dim=-1, keepdim=True)
+        band = torch.sum(torch.where(near_band, (vw - target * peak) ** 2, 0.0), dim=-1)
+        before = (t < g - eps) & mask
+        empty = torch.sum(torch.where(before, vw ** 2, 0.0), dim=-1)
+        return reduce(band + empty, valid, "mean") * _w(cfg, it)
+    raise ValueError(fn_type)

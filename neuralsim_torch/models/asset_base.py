@@ -49,3 +49,17 @@ class AssetModel:
 
     def populate(self, scene=None, obj_ids=None) -> None:
         raise NotImplementedError
+
+    @property
+    def training_cfg(self) -> Dict:
+        """The model's optimizer settings (``asset_params.training_cfg``)."""
+        return dict(self.asset_params.get("training_cfg", {}))
+
+    def pretrain_shape(self) -> Optional[tuple]:
+        """The shape of the uniform draws of :meth:`training_initialize`, or
+        None where the asset has no geometry pretraining."""
+        return None
+
+    def training_initialize(self, noise: Any = None) -> None:
+        """Geometry pretraining of the asset's field in place, from uniform
+        draws of :meth:`pretrain_shape` (none by default)."""

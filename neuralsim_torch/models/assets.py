@@ -1,17 +1,20 @@
 """Field construction of the assets on the port's paths (port of
-neuralsim_tpu/models/assets.py:70-171, 263-302, 576-613).
+neuralsim_tpu/models/assets.py:31-66, 70-171, 194-215, 263-302, 576-613).
 
 An asset turns its ``model_params`` from the config into a field module (and
 an occupancy grid where it has one); the same keys are read, with the same
 defaults, as in the JAX package. Object assets are built per object, scene
 assets per scene, and a shared categorical asset once for every object of
-its class in a scene, with each object's ``instance_index``.
+its class in a scene, with each object's ``instance_index``. The street's
+``training_initialize`` fits its SDF to the road plane before training
+(:func:`pretrain_sdf`, the uniform points handed in as draws).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
+import torch
 
 from ..accel import OccGridEma
 from ..fields.conditional import ConditionalLoTDNeuSField
@@ -19,7 +22,30 @@ from ..fields.nerf import NeRFDistantField
 from ..fields.neus import NeuSField
 from ..fields.sky import SimpleSky
 from ..fields.spatial import AABBSpace
+from ..training.optimizers import ModelAdam
 from .asset_base import AssetAssignment, AssetModel
+
+
+def pretrain_sdf(field: NeuSField, target_sdf_fn: Callable[[torch.Tensor], torch.Tensor],
+                 noise: torch.Tensor, lr: float = 5e-3) -> None:
+    """Fit the field's SDF to an analytic target over its space, in place:
+    one Adam step (optax's ``adam(lr)``: betas 0.9, 0.999, eps 1e-8) of the
+    mean squared error per entry of ``noise`` [n_iters, n_pts, 3], uniform
+    draws that place each step's points in the box."""
+    params = list(field.parameters())
+    opt = ModelAdam(params, {"type": "constant", "lr": lr, "betas": (0.9, 0.999),
+                             "eps": 1e-8})
+    for u in noise:
+        x = field.space.uniform_points(u)
+        loss = torch.mean((field.query_sdf(x) - target_sdf_fn(x)) ** 2)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        opt.step([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
+
+
+def road_surface_sdf(x: torch.Tensor, z_road: float, up_axis: int = 2,
+                     sign: float = 1.0) -> torch.Tensor:
+    """Half-space SDF: the signed height above the road plane."""
+    return sign * (x[..., up_axis] - z_road)
 
 
 def _no_appearance(mp: Dict[str, Any]) -> None:
@@ -63,9 +89,9 @@ class LoTDNeuSObj(AssetModel):
 
 class LoTDNeuSStreet(AssetModel):
     """The StreetSurf close-range SDF in the config's ``aabb``, with its
-    occupancy grid and no sphere-init bias. Not ported yet: the box from the
-    camera tracks (a config without ``aabb``) and the road-surface pretrain
-    of ``training_initialize``."""
+    occupancy grid and no sphere-init bias; ``training_initialize`` pretrains
+    it to the road surface. Not ported yet: the box from the camera tracks (a
+    config without ``aabb``) and the capsule pretrain."""
 
     assignment = AssetAssignment.SCENE
 
@@ -95,6 +121,29 @@ class LoTDNeuSStreet(AssetModel):
         accel_cfg = mp.get("accel_cfg", {"resolution": 128})
         if accel_cfg:
             self.accel = _occ_grid(space, accel_cfg, 128)
+
+    def _pretrain_cfg(self) -> Dict[str, Any]:
+        pre = self.model_params.get("pretrain", {"type": "road_surface"})
+        if pre and pre.get("type") not in ("road_surface", None):
+            raise NotImplementedError(f"the {pre.get('type')} pretrain is not ported")
+        return pre or {}
+
+    def pretrain_shape(self) -> Optional[tuple]:
+        pre = self._pretrain_cfg()
+        return (pre.get("n_iters", 300), pre.get("n_pts", 4096), 3) if pre else None
+
+    def training_initialize(self, noise: Any = None) -> None:
+        """The road-surface pretrain: ``n_iters`` Adam steps toward the plane
+        ``z_road`` (default: the box's centre) on ``n_pts`` uniform points."""
+        pre = self._pretrain_cfg()
+        if not pre:
+            return
+        up = pre.get("up_axis", 2)
+        z_road = pre.get("z_road")
+        if z_road is None:
+            z_road = float(self.field.space.center[up])
+        pretrain_sdf(self.field, lambda x: road_surface_sdf(x, z_road, up, pre.get("sign", 1.0)),
+                     noise, lr=pre.get("lr", 5e-3))
 
 
 class ADGenerativeLoTDConcatNeuSObj(AssetModel):

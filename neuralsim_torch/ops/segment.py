@@ -5,7 +5,7 @@ Buffers are dense [N_rays, S] with a boolean validity mask, as in the JAX
 package. Two kernels have their wrappers and plain versions here: the rank
 merge of two sorted sample lists, the second launch of the ``neus_upsample``
 kernel (K5b), and the order-free composite of an unsorted buffer,
-``cross_source_vw`` (K8).
+``cross_source_vw`` (K8), forward and backward.
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ K5B = kernels.register("neus_upsample.merge", "neuralsim_torch/csrc/neus_upsampl
                        "neuralsim_tpu/ops/segment.py:150")
 K8 = kernels.register("cross_source_vw", "neuralsim_torch/csrc/cross_source_vw.cu",
                       "neuralsim_tpu/ops/segment.py:105")
+K8_BWD = kernels.register("cross_source_vw.bwd", "neuralsim_torch/csrc/cross_source_vw.cu",
+                          "neuralsim_tpu/ops/segment.py:105")
 
 _BIG = 1e10                   # the depth key of a masked lane
 OCC_CAP_EPS = 1e-3            # an occluder's alpha is capped at 1 - this
@@ -154,9 +156,13 @@ def cross_source_vw_plain(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tens
     composite of a stable depth sort, without sorting. The cap keeps an
     occluder's log finite (and its gradient bounded, 1 / 1e-3); it lets at
     most 1e-3 of the light through, while a lane's own emission stays exact.
-    Autograd differentiates it through alpha (not through the order)."""
-    a = torch.where(mask, torch.clamp(alpha, 0.0, 1.0), torch.zeros_like(alpha))
-    log1ma = torch.log1p(-torch.clamp(a, max=1.0 - OCC_CAP_EPS))
+    Autograd differentiates it through alpha (not through the order). The
+    clip and the cap are ``torch.maximum`` / ``torch.minimum``, which split a
+    tie's gradient in halves as ``jnp.clip`` and ``jnp.minimum`` do (at alpha
+    exactly 0, 1 or float32(0.999)); ``torch.clamp`` would pass all of it."""
+    zero, one = alpha.new_zeros(()), alpha.new_ones(())
+    a = torch.where(mask, torch.minimum(torch.maximum(alpha, zero), one), zero)
+    log1ma = torch.log1p(-torch.minimum(a, alpha.new_tensor(1.0 - OCC_CAP_EPS)))
     key = torch.where(mask, t, torch.full_like(t, _BIG))
     ki, kj = key[..., :, None], key[..., None, :]
     idx = torch.arange(t.shape[-1], device=t.device)
@@ -165,21 +171,72 @@ def cross_source_vw_plain(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tens
     return a * torch.exp(log_t)
 
 
+def _check_k8(name: str, *tensors: torch.Tensor) -> Tuple[int, int]:
+    kernels.check_cuda(name, *tensors)
+    N, L = tensors[0].shape
+    for i, x in enumerate(tensors):           # the mask comes second
+        want = torch.bool if i == 1 else torch.float32
+        if tuple(x.shape) != (N, L) or x.dtype != want:
+            raise ValueError(f"{name}: t, alpha [N, L] float32 and mask [N, L] bool, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+    return N, L
+
+
+def cross_source_vw_fwd(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor,
+                        with_logt: bool = False
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The K8 forward kernel -> (vw, the log transmittance S [N, L] when
+    ``with_logt``, which the backward kernel reads)."""
+    N, L = _check_k8("cross_source_vw", t, mask, alpha)
+    vw = torch.empty((N, L), dtype=torch.float32, device=t.device)
+    logt = torch.empty_like(vw) if with_logt else None
+    K8.launch("cross_source_vw", kernels.ptr(t), kernels.ptr(mask), kernels.ptr(alpha),
+              kernels.ptr(vw), kernels.ptr(logt), N, L, kernels.stream())
+    return vw, logt
+
+
+def cross_source_vw_bwd(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor,
+                        logt: torch.Tensor, g_vw: torch.Tensor) -> torch.Tensor:
+    """The K8 backward kernel: d alpha [N, L] for the cotangent ``g_vw`` of
+    the weights, from the forward's log transmittance ``logt``."""
+    N, L = _check_k8("cross_source_vw_bwd", t, mask, alpha, logt, g_vw)
+    d_alpha = torch.empty_like(alpha)
+    K8_BWD.launch("cross_source_vw_bwd", kernels.ptr(t), kernels.ptr(mask),
+                  kernels.ptr(alpha), kernels.ptr(logt), kernels.ptr(g_vw),
+                  kernels.ptr(d_alpha), N, L, kernels.stream())
+    return d_alpha
+
+
+def cross_source_vw_bwd_plain(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor,
+                              g_vw: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8's backward: autograd of the plain forward."""
+    with torch.enable_grad():
+        a = alpha.detach().requires_grad_(True)
+        vw = cross_source_vw_plain(t, mask, a)
+        return torch.autograd.grad(vw, a, g_vw)[0]
+
+
+class _CrossSourceVwOnCard(torch.autograd.Function):
+    """K8 forward and backward under autograd (no gradient to t or mask)."""
+
+    @staticmethod
+    def forward(ctx, t, mask, alpha):
+        vw, logt = cross_source_vw_fwd(t, mask, alpha, with_logt=True)
+        ctx.save_for_backward(t, mask, alpha, logt)
+        return vw
+
+    @staticmethod
+    def backward(ctx, g_vw):
+        t, mask, alpha, logt = ctx.saved_tensors
+        return None, None, cross_source_vw_bwd(t, mask, alpha, logt, g_vw.contiguous())
+
+
 def cross_source_vw(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """K8 wrapper: the plain version on the CPU, the CUDA kernel on the card.
-    The kernel is the forward only: on the card it refuses inputs that ask
-    for a gradient."""
+    """K8 wrapper: the plain version on the CPU; on the card the forward
+    kernel, under autograd (where alpha asks for a gradient) with the
+    backward kernel beside it."""
     if t.device.type == "cpu":
         return cross_source_vw_plain(t, mask, alpha)
-    if torch.is_grad_enabled() and (alpha.requires_grad or t.requires_grad):
-        raise NotImplementedError("cross_source_vw: the backward kernel is not ported; "
-                                  "call it under torch.no_grad() on the card")
-    kernels.check_cuda("cross_source_vw", t, mask, alpha)
-    N, L = t.shape
-    if mask.shape != (N, L) or mask.dtype != torch.bool or alpha.shape != (N, L) \
-            or t.dtype != torch.float32 or alpha.dtype != torch.float32:
-        raise ValueError("cross_source_vw: t, alpha [N, L] float32 and mask [N, L] bool")
-    vw = torch.empty((N, L), dtype=torch.float32, device=t.device)
-    K8.launch("cross_source_vw", kernels.ptr(t), kernels.ptr(mask), kernels.ptr(alpha),
-              kernels.ptr(vw), N, L, kernels.stream())
-    return vw
+    if torch.is_grad_enabled() and alpha.requires_grad:
+        return _CrossSourceVwOnCard.apply(t, mask, alpha)
+    return cross_source_vw_fwd(t, mask, alpha)[0]

@@ -1,9 +1,11 @@
 """Multi-object compose renderer: objects, street, distant field and sky
-(port of neuralsim_tpu/renderers/buffer_compose.py:37-47, 77-179, 203-290,
-321-492, on the exact per-instance path).
+(port of neuralsim_tpu/renderers/buffer_compose.py:37-47, 77-404, 406-492,
+on the exact per-instance path), for rendering and for training.
 
 Per ray chunk: the rays go into every drawable's canonical frame (its world
-transform inverted, divided by its scale); the rays that hit an object's box
+transform inverted, divided by its scale; a scene frozen at one frame per ray,
+as a training batch mixes frames, gives each ray its own object poses); the
+rays that hit an object's box
 are compacted, hits first in ray order, to a fixed budget of
 ``round(N * hit_budget_frac)`` rows per instance; one query of a shared
 model evaluates all its instances' rows (each row with its instance index
@@ -14,16 +16,18 @@ state is handed in) and the distant field (from the street's far plane
 outwards) query every ray. All buffers are concatenated unsorted and
 composited once, order-free, by ``merge_and_integrate(sort_free=True)`` (the
 K8 kernel on the card); each source's share is its masked sums (``per_obj``).
-The sky fills what is left.
+The sky fills what is left. Under autograd the gradients flow through the
+compaction and the scatter-back into every field (K8's backward on the card).
+Training draws come in as ``noise``, one entry per model id (the field's own
+``noise`` argument); ``only_cr`` renders the street alone (the LiDAR step).
 
 Parameters live in the field modules, one ``nn.ModuleDict`` keyed by model
 id (``AssetBank.init_params``); the bindings name the model ids only, so a
 copy of the parameters on another device renders with the same renderer.
 Not ported yet: the pair-budget path of a shared model's group
-(``group_budget_frac`` with more than 4 instances, kernel K11), per-ray
-object poses (frames batched per ray, the training path), batched occupancy
-grids (K10), the time condition, appearance embeddings and the image
-post-processor.
+(``group_budget_frac`` with more than 4 instances, kernel K11), batched
+occupancy grids (K10), the time condition, appearance embeddings and the
+image post-processor.
 """
 from __future__ import annotations
 
@@ -85,13 +89,14 @@ class BufferComposeRenderer:
     def _query_group(self, params: nn.ModuleDict, frozen, model_id: str,
                      obs: List[ObjectBinding], rays_o: torch.Tensor, rays_d: torch.Tensor,
                      B: int, it, with_rgb: bool, qo: Dict[str, Any],
-                     occ_states: Optional[Dict[str, Any]]) -> List[Dict[str, Any]]:
-        """The K instances of one model: one buffer [N, S] per instance."""
+                     occ_states: Optional[Dict[str, Any]],
+                     noise: Optional[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        """The K instances of one model: one buffer [N, S] per instance.
+        ``noise``: the field's draws for the K * B compacted rows."""
         N, K = rays_o.shape[0], len(obs)
         field = params[model_id]
-        w = torch.stack([frozen.world_transform(ob.obj_id) for ob in obs])      # [K, 4, 4]
-        if w.dim() != 3:
-            raise NotImplementedError("per-ray object poses are not ported")
+        w = torch.stack([frozen.world_transform(ob.obj_id) for ob in obs])  # [K, (N,) 4, 4]
+        per_ray_tf = w.dim() == 4
         # [K, N, 3] canonical rays and [K, N] direction lengths
         o_l, d_l, dn = (torch.stack(v) for v in zip(
             *(frozen.rays_to_node(ob.obj_id, rays_o, rays_d) for ob in obs)))
@@ -125,7 +130,7 @@ class BufferComposeRenderer:
                 raise NotImplementedError("batched occupancy grids (K10) are not ported")
             qkw.setdefault("occ_t_fn", self._proposal(model_id, occ_states))
         buf_all = field.ray_query(o_c.reshape(K * B, 3), d_c.reshape(K * B, 3), it=it,
-                                  with_rgb=with_rgb, **{**qkw, **qo})
+                                  with_rgb=with_rgb, noise=noise, **{**qkw, **qo})
 
         def rows(v):
             if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] == K * B:
@@ -138,8 +143,9 @@ class BufferComposeRenderer:
         buf["t"] = buf["t"] / torch.clamp(dn_c[..., None], min=1e-9)
         buf["mask"] = buf["mask"] & hit_c[..., None]
         buf["alpha"] = torch.where(buf["mask"], buf["alpha"], 0.0)
-        if "nablas" in buf:
-            buf["nablas"] = apply_rotation(w[:, None, None], buf["nablas"])
+        if "nablas" in buf:         # to the world frame, with each row's own pose
+            n2w = take(w) if per_ray_tf else w[:, None]                     # [K, B|1, 4, 4]
+            buf["nablas"] = apply_rotation(n2w[:, :, None], buf["nablas"])
 
         def scatter(v):
             """[K, B, ...] rows -> [K, N, ...], zeros where no row went."""
@@ -162,26 +168,29 @@ class BufferComposeRenderer:
 
     def ray_query(self, params: nn.ModuleDict, frozen, rays_o: torch.Tensor,
                   rays_d: torch.Tensor, *, it=None, with_rgb: bool = True,
+                  only_cr: bool = False,
                   occ_states: Optional[Dict[str, Any]] = None,
                   return_buffer: bool = False,
                   query_overrides: Optional[Dict[str, Any]] = None,
-                  with_per_obj: bool = True) -> Dict[str, Any]:
-        """Render a flat batch of world rays [N, 3] of the frozen scene ->
-        the rendered dict, with each source's share under
-        ``rendered_per_obj_in_scene`` (objects by id, "street", "distant";
-        only the street's and the distant's without ``with_per_obj``).
-        ``query_overrides`` go to every NeuS query (the distant field takes
-        its own keys of them). The composite is the forward only on the card:
-        call it under ``torch.no_grad()`` there."""
+                  with_per_obj: bool = True,
+                  noise: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """Render a flat batch of world rays [N, 3] of the frozen scene (at
+        one frame, or one frame per ray) -> the rendered dict, with each
+        source's share under ``rendered_per_obj_in_scene`` (objects by id,
+        "street", "distant"; only the street's and the distant's without
+        ``with_per_obj``). ``only_cr``: the street alone. ``query_overrides``
+        go to every NeuS query (the distant field takes its own keys of
+        them). ``noise``: {model id: that field's draws} for a training
+        query (:meth:`noise_shapes`), None for the deterministic one."""
         N = rays_o.shape[0]
         qo = dict(query_overrides or {})
+        noise = noise or {}
         buffers: List[Dict[str, Any]] = []
         names: List[str] = []
-        B = N if self.hit_budget_frac is None else \
-            max(min(N, int(round(N * self.hit_budget_frac))), 1)
-        for model_id, obs in self._grouped().items():
+        B = self.budget(N)
+        for model_id, obs in ({} if only_cr else self._grouped()).items():
             buffers += self._query_group(params, frozen, model_id, obs, rays_o, rays_d, B,
-                                         it, with_rgb, qo, occ_states)
+                                         it, with_rgb, qo, occ_states, noise.get(model_id))
             names += [ob.obj_id for ob in obs]
 
         cr_far = cr_hit = None
@@ -192,19 +201,20 @@ class BufferComposeRenderer:
             if proposal is not None:
                 qcfg.setdefault("occ_t_fn", proposal)
             buf = params[mid].ray_query(rays_o, rays_d, it=it, with_rgb=with_rgb,
-                                        **{**qcfg, **qo})
+                                        noise=noise.get(mid), **{**qcfg, **qo})
             cr_far, cr_hit = buf["details"]["far"], buf["details"]["hit"]
             buffers.append(buf)
             names.append("street")
 
-        if "distant" in self.scene_models:
+        if "distant" in self.scene_models and not only_cr:
             mid, qcfg = self.scene_models["distant"]
             dv_near = torch.ones(N, dtype=torch.float32, device=rays_o.device) if cr_far is None \
                 else torch.where(cr_hit, torch.clamp(cr_far, min=1e-3), 1.0)
             # of the overrides, the distant ladder takes its own keys
             dv_qo = {k: v for k, v in qo.items() if k in ("num_samples", "far_factor")}
             buffers.append(params[mid].ray_query(rays_o, rays_d, it=it, near=dv_near,
-                                                 with_rgb=with_rgb, **{**qcfg, **dv_qo}))
+                                                 with_rgb=with_rgb, noise=noise.get(mid),
+                                                 **{**qcfg, **dv_qo}))
             names.append("distant")
 
         per_idx = None if with_per_obj else \
@@ -228,6 +238,36 @@ class BufferComposeRenderer:
         if not return_buffer:
             rendered.pop("merged_buffer")
         return rendered
+
+    def budget(self, n_rays: int) -> int:
+        """The compacted rows of each object instance for ``n_rays`` rays."""
+        return n_rays if self.hit_budget_frac is None else \
+            max(min(n_rays, int(round(n_rays * self.hit_budget_frac))), 1)
+
+    def noise_shapes(self, n_rays: int, only_cr: bool = False) -> Dict[str, Dict[str, Any]]:
+        """The draws of a training query of ``n_rays`` rays, by model id: a
+        NeuS model's ``{"coarse" | "occ_proposal": (rows, num_coarse),
+        "fine": [(rows, nf) per stage]}`` (its grid's proposal in place of the
+        coarse jitter where it has one; a shared model's rows are its
+        instances' compacted rows, K * budget), the distant field's
+        ``(n_rays, num_samples)``."""
+        out: Dict[str, Any] = {}
+
+        def neus(rows: int, qcfg: Dict[str, Any], grid: bool) -> Dict[str, Any]:
+            return {"occ_proposal" if grid else "coarse": (rows, qcfg.get("num_coarse", 128)),
+                    "fine": [(rows, nf) for nf in qcfg.get("num_fine", (32, 32))]}
+
+        if not only_cr:
+            for model_id, obs in self._grouped().items():
+                out[model_id] = neus(len(obs) * self.budget(n_rays), obs[0].query_cfg,
+                                     model_id in self.accels)
+        if "cr" in self.scene_models:
+            mid, qcfg = self.scene_models["cr"]
+            out[mid] = neus(n_rays, qcfg, "cr" in self.accels)
+        if "distant" in self.scene_models and not only_cr:
+            mid, qcfg = self.scene_models["distant"]
+            out[mid] = (n_rays, qcfg.get("num_samples", 64))
+        return out
 
     @torch.no_grad()
     def render_chunked(self, params: nn.ModuleDict, frozen, rays_o: torch.Tensor,

@@ -13,8 +13,9 @@ detached).
 depth and in order (close range, then distant; ``assume_sorted``), which are
 concatenated along the sample axis and composited once by K6; or, with
 ``sort_free``, several that overlap in depth (objects, street, distant): the
-concatenation stays unsorted, the ``cross_source_vw`` kernel (K8) gives each
-lane's visibility weight, and the sums are masked sums, which need no order.
+concatenation stays unsorted, the ``cross_source_vw`` kernel (K8, with its
+backward kernel under autograd) gives each lane's visibility weight, and the
+sums are masked sums, which need no order.
 The sort-based merge is not ported.
 """
 from __future__ import annotations
@@ -208,7 +209,7 @@ def merge_and_integrate(buffers: Sequence[Dict[str, Any]], *, with_per_src: bool
     the concatenation along the sample axis is already in depth order over
     the valid lanes, and masked lanes have alpha 0. ``sort_free``: buffers
     that overlap in depth, composited in no order by ``cross_source_vw``
-    (K8), which is the forward only on the card. Several buffers need one of
+    (K8). Several buffers need one of
     the two. The rendered dict carries the merged buffer, with each lane's
     source index ``src`` (and, sort-free, its weight ``vw``), under
     ``merged_buffer``.

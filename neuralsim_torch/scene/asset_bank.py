@@ -1,5 +1,5 @@
 """AssetBank: builds every asset of a config for the scenes it applies to
-(port of neuralsim_tpu/scene/asset_bank.py:26-96, 112-120).
+(port of neuralsim_tpu/scene/asset_bank.py:26-120).
 
 Config schema (the JAX package's ``assetbank_cfg``)::
 
@@ -12,7 +12,7 @@ id, the port's counterpart of the JAX ``{model_id: pytree}``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -77,6 +77,23 @@ class AssetBank:
             asset.field.reset_parameters(generator)
             params[mid] = asset.field
         return params.to(device)
+
+    def pretrain_shapes(self) -> Dict[str, tuple]:
+        """{model id: the shape of its pretrain's uniform draws}, in the
+        bank's order, for the assets that pretrain their geometry."""
+        return {mid: shp for mid, a in self.assets.items()
+                if (shp := a.pretrain_shape()) is not None}
+
+    def training_initialize(self, noise: Dict[str, Any]) -> None:
+        """Each asset's geometry pretraining, in place, from its draws
+        ``noise[model id]`` (:meth:`pretrain_shapes`)."""
+        for mid, a in self.assets.items():
+            if mid in noise:
+                a.training_initialize(noise[mid])
+
+    def training_cfgs(self) -> Dict[str, Dict]:
+        """{model id: optimizer settings} of the assets that set them."""
+        return {mid: a.training_cfg for mid, a in self.assets.items() if a.training_cfg}
 
     def model_for(self, scene_id: str, obj_or_class: str) -> Optional[str]:
         return self.binding.get((scene_id, obj_or_class))

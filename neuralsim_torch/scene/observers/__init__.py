@@ -1,4 +1,5 @@
-"""Scene observers: cameras."""
+"""Scene observers: cameras and LiDARs."""
 from .cameras import camera_get_all_rays, camera_get_selected_rays
+from .lidars import lidar_rays_to_world
 
-__all__ = ["camera_get_all_rays", "camera_get_selected_rays"]
+__all__ = ["camera_get_all_rays", "camera_get_selected_rays", "lidar_rays_to_world"]

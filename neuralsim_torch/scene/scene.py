@@ -2,10 +2,12 @@
 world transforms (port of neuralsim_tpu/scene/scene.py:26-151, 154-171,
 240-244).
 
-``Scene.slice_at(fi)`` freezes the graph at one frame: a :class:`FrozenScene`
-holds every node's attributes at that frame and its world transform, composed
-root to leaf in one loop over the nodes. A camera that is a child of the ego
-car gets its pose from the car's.
+``Scene.slice_at(fi)`` freezes the graph at one frame, or at one frame per ray
+(``fi`` a tensor [N] of frame indices, as a training batch mixes frames): a
+:class:`FrozenScene` holds every node's attributes at that frame ([N, ...] per
+ray) and its world transform ([N, 4, 4]), composed root to leaf in one loop
+over the nodes with broadcasting products. A camera that is a child of the
+ego car gets its pose from the car's.
 
 Not ported yet: pose deltas (pose refinement) and ``interp_at``.
 """
@@ -122,7 +124,8 @@ class Scene:
         return sc.finalize()
 
     def slice_at(self, fi) -> FrozenScene:
-        """Freeze at integer frame index ``fi``."""
+        """Freeze at integer frame index ``fi``, or at a tensor [N] of frame
+        indices (one per ray, on the scene's device)."""
         return FrozenScene(self, [n.slice_at(fi) for n in self.nodes_topo])
 
     def drawable_ids(self) -> List[str]:

@@ -2,7 +2,7 @@
 (port of the role binding and trainer set-up in
 neuralsim_tpu/tools/train.py:49-115, of the model that the JAX package's
 bench.py:56-129 builds by hand, and of the multi-object set-up in
-neuralsim_tpu/tools/train_multi.py:18-49 and the frame loop of
+neuralsim_tpu/tools/train_multi.py:18-72, 105-163 and the frame loop of
 neuralsim_tpu/tools/eval_multi.py:51-60).
 
 Usage::
@@ -28,6 +28,10 @@ the asset bank and the compose renderer::
     occ = {"cr": converge_occ(accel, accel.init_state(), ground_sdf_tensor,
                               **C["occ_converge"])}
     out = render_multi_frame(renderer, params, scene, 0, "camera_FRONT", occ)
+
+Training it (``tools/train_multi.py`` runs the loop)::
+
+    scene, bank, trainer, state, samplers = build_multi_trainer(C)   # on the card
 """
 from __future__ import annotations
 
@@ -39,7 +43,8 @@ from torch import nn
 from ..accel import OccGridEma, OccGridState
 from ..configs import resolve_refs
 from ..dataio.synthetic import sdf_scene_tensor
-from ..dataio.waymo_demo import demo_scenario
+from ..dataio.dataloader import LidarSampler, PixelSampler, SceneDataLoader
+from ..dataio.waymo_demo import demo_scenario, demo_sequence
 from ..fields.nerf import NeRFDistantField
 from ..fields.neus import NeuSField
 from ..fields.sky import SimpleSky
@@ -49,6 +54,8 @@ from ..renderers.buffer_compose import BufferComposeRenderer
 from ..renderers.single_volume import SingleVolumeRenderer
 from ..scene import AssetBank, Scene
 from ..scene.observers import camera_get_all_rays
+from ..training.error_map import ErrorMap, ImpSampler
+from ..training.multi_trainer import MultiObjectTrainer
 from ..training.trainer import Trainer, TrainState
 
 FIELDS = {"NeuSField": NeuSField, "NeRFDistantField": NeRFDistantField,
@@ -172,21 +179,27 @@ def build_trainer(cfg: Dict[str, Any], device="cuda") -> Tuple[Trainer, TrainSta
     return trainer, state
 
 
-def build_compose_renderer(cfg: Dict[str, Any], device="cuda"
+def _demo_params(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    ds = cfg["dataset_cfg"]
+    if ds["target"].rsplit(".", 1)[-1] not in ("demo_scenario", "demo_sequence"):
+        raise NotImplementedError(f"dataset {ds['target']} is not ported; the compose path "
+                                  "runs the in-memory demo drive")
+    return dict(ds.get("params", {}))
+
+
+def build_compose_renderer(cfg: Dict[str, Any], device="cuda", scenario=None
                            ) -> Tuple[Scene, AssetBank, BufferComposeRenderer, nn.ModuleDict]:
     """-> (scene, bank, renderer, params) of a multi-object config: the
     scenario -> ``Scene.load_from_scenario`` -> ``AssetBank.create`` ->
     ``BufferComposeRenderer.from_asset_bank``, with the ``renderer`` block's
     settings, and the bank's parameters seeded from the config's ``seed``.
-    The dataset is the in-memory demo scenario. The street's occupancy grid
-    (``renderer.accels["cr"]``) comes without a state: converge one with
-    :func:`converge_occ`."""
+    The dataset is the in-memory demo scenario (or ``scenario``, where the
+    caller built it). The street's occupancy grid (``renderer.accels["cr"]``)
+    comes without a state: converge one with :func:`converge_occ`."""
     dev = resolve_device(device)
-    ds = cfg["dataset_cfg"]
-    if ds["target"].rsplit(".", 1)[-1] != "demo_scenario":
-        raise NotImplementedError(f"dataset {ds['target']} is not ported; the compose path "
-                                  "renders the in-memory demo_scenario")
-    scene = Scene.load_from_scenario(demo_scenario(**ds.get("params", {})), device=dev)
+    if scenario is None:
+        scenario = demo_scenario(**_demo_params(cfg))
+    scene = Scene.load_from_scenario(scenario, device=dev)
     bank = AssetBank.create(cfg["assetbank_cfg"], [scene])
     # ``max_hits_per_ray`` is read only by the pair-budget path (K11), not ported
     rcfg = cfg.get("renderer", {})
@@ -211,3 +224,65 @@ def render_multi_frame(renderer: BufferComposeRenderer, params: nn.ModuleDict, s
     rays_o, rays_d = camera_get_all_rays(frozen, cam_id, H, W)
     return renderer.render_chunked(params, frozen, rays_o, rays_d, rayschunk=rayschunk,
                                    occ_states=occ_states)
+
+
+def build_multi_trainer(cfg: Dict[str, Any], device="cuda",
+                        timings: Optional[Dict[str, float]] = None):
+    """-> (scene, bank, trainer, state, samplers) of a multi-object config:
+    the demo drive's sequence in memory (scenario, images, masks, LiDAR), the
+    compose renderer and the bank's seeded parameters
+    (:func:`build_compose_renderer`), each asset's geometry pretraining (the
+    street's road surface; its uniform draws from a generator seeded with
+    ``seed + 1`` on the device), a :class:`MultiObjectTrainer` with one Adam
+    per model (``asset_params.training_cfg``), its state with the street's
+    grid at ``init_state`` (not converged, as in the JAX package's training),
+    and ``samplers`` {"pixel": PixelSampler (with the ``training.error_map``
+    importance sampler), "lidar": LidarSampler or None, "imp": ImpSampler or
+    None}. ``timings``, where given, receives the seconds of each part."""
+    import time
+    timings = {} if timings is None else timings
+    cfg = resolve_refs(cfg)
+    dev = resolve_device(device)
+    tcfg = cfg.get("training", {})
+    seed = int(cfg.get("seed", 0))
+
+    t0 = time.perf_counter()
+    seq = demo_sequence(**_demo_params(cfg))
+    timings["sequence_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene, bank, renderer, params = build_compose_renderer(cfg, dev, scenario=seq.scenario)
+    timings["bank_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    bank.training_initialize({mid: torch.rand(shape, generator=gen, device=dev)
+                              for mid, shape in bank.pretrain_shapes().items()})
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    timings["pretrain_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    trainer = MultiObjectTrainer(scene, renderer, loss_cfgs=dict(tcfg.get("losses", {})),
+                                 training_cfgs=bank.training_cfgs(),
+                                 uniform_sample_n=tcfg.get("uniform_sample_n", 256),
+                                 debug_grads=bool(tcfg.get("debug_grads", False)),
+                                 use_ts_interp=bool(tcfg.get("use_ts_interp", False)))
+    state = trainer.init_state(params)
+    for name in ("image_patch", "data_parallel"):
+        if tcfg.get(name):
+            raise NotImplementedError(f"training.{name} is not ported")
+    loader = SceneDataLoader(scene, seq, with_mask=tcfg.get("with_mask", True),
+                             with_lidar=tcfg.get("with_lidar", False),
+                             filter_lidar_in_cams=tcfg.get("filter_lidar_in_cams", False),
+                             filter_lidar_max_range=tcfg.get("filter_lidar_max_range", 0.0))
+    em = tcfg.get("error_map", {})
+    imp = ImpSampler(ErrorMap(scene.n_frames, tuple(em.get("hw", (32, 64)))),
+                     frac_uniform=em.get("frac_uniform", 0.5),
+                     enable_after=em.get("enable_after", 0)) if em else None
+    samplers = {"pixel": PixelSampler(loader, n_rays=tcfg.get("n_rays", 2048), seed=seed,
+                                      imp_sampler=imp),
+                "lidar": LidarSampler(loader, n_rays=tcfg.get("n_rays_lidar", 2048))
+                if tcfg.get("with_lidar") else None,
+                "imp": imp}
+    timings["trainer_s"] = time.perf_counter() - t0
+    return scene, bank, trainer, state, samplers

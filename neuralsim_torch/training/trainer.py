@@ -156,21 +156,7 @@ class Trainer:
         (parameters and optimizers updated in place, ``it`` advanced) and the
         step's metrics, all device tensors: nothing here waits for the card."""
         total, extras = self.compute_losses(state.params, batch, state.it, noise, state.occ)
-        plist = [p for opt in state.opt.values() for p in opt.params]
-        grads = torch.autograd.grad(total, plist, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(plist, grads)]
-        ok = torch.isfinite(total.detach())
-        for g in grads:
-            ok = ok & torch.isfinite(g).all()
-        at = 0
-        for opt in state.opt.values():
-            opt.step(grads[at:at + len(opt.params)], ok)
-            at += len(opt.params)
-        skipped = (~ok).to(torch.int32)
-        state.skips = state.skips + skipped
-        metrics = {"loss_total": total.detach(),
-                   **{k: v.detach() for k, v in extras["losses"].items()}, **extras["aux"],
-                   "step_skipped": skipped, "skips_total": state.skips}
+        metrics = guarded_step(state, total, extras)
         if state.occ is not None:
             self.refresh_occ(state, noise.get("occ_update", {}))
             if "cr" in state.occ:
@@ -193,6 +179,30 @@ class Trainer:
                                           field.eval_chunk)
             state.occ[role] = accel.maybe_update(state.occ[role], query, jitter.get(role),
                                                  state.it)
+
+
+def guarded_step(state: TrainState, total: torch.Tensor, extras: Dict) -> Dict[str, Any]:
+    """Differentiate ``total`` with respect to every optimized parameter (a
+    parameter that ``total`` does not reach gets a zero gradient, and its Adam
+    still steps), and step each model's Adam behind the finite guard: one
+    device flag, the loss and every gradient finite, selects the new or the
+    old values; ``state.skips`` counts the skipped steps. Returns the step's
+    metrics (device tensors) from ``extras`` {"losses", "aux"}."""
+    plist = [p for opt in state.opt.values() for p in opt.params]
+    grads = torch.autograd.grad(total, plist, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(plist, grads)]
+    ok = torch.isfinite(total.detach())
+    for g in grads:
+        ok = ok & torch.isfinite(g).all()
+    at = 0
+    for opt in state.opt.values():
+        opt.step(grads[at:at + len(opt.params)], ok)
+        at += len(opt.params)
+    skipped = (~ok).to(torch.int32)
+    state.skips = state.skips + skipped
+    return {"loss_total": total.detach(),
+            **{k: v.detach() for k, v in extras["losses"].items()}, **extras["aux"],
+            "step_skipped": skipped, "skips_total": state.skips}
 
 
 def psnr(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

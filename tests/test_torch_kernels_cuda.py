@@ -21,7 +21,11 @@ the narrow one, and a render of a small bench model (occupancy grid, distant
 field) on the card to the CPU at chip_smoke.BENCH_CROP_TOL. K8 is held to its
 plain version at chip_smoke.K8_TOL, and a small compose render (shared
 vehicle model, street with its grid, distant field, sky) to the CPU ray by
-ray as chip_smoke.check_compose_crop does.
+ray as chip_smoke.check_compose_crop does. K8's backward is held to autograd
+of its plain version at chip_smoke.GRAD_REL on buffers with alphas at the
+clip's and the cap's edges, and the first multi-object training iteration
+on the card to the CPU at the CPU's sample depths at
+chip_smoke.MULTI_STEP_LOSS_RTOL and MULTI_STEP_GRAD_REL.
 """
 import copy
 
@@ -40,15 +44,19 @@ from neuralsim_torch.dataio.synthetic import SyntheticObjectDataset, sdf_scene_t
 from neuralsim_torch.dataio.waymo_demo import demo_scenario, ground_sdf_tensor
 from neuralsim_torch.fields.encodings import lotd
 from neuralsim_torch.fields.neus import upsample_weights_pdf, upsample_weights_pdf_plain
-from neuralsim_torch.ops.segment import (cross_source_vw, cross_source_vw_plain,
-                                         merge_sorted_samples, merge_sorted_samples_plain)
+from neuralsim_torch.ops.segment import (cross_source_vw, cross_source_vw_bwd,
+                                         cross_source_vw_bwd_plain, cross_source_vw_fwd,
+                                         cross_source_vw_plain, merge_sorted_samples,
+                                         merge_sorted_samples_plain)
 from neuralsim_torch.renderers.buffers import (volume_composite, volume_composite_bwd,
                                                volume_composite_bwd_plain,
                                                volume_composite_plain)
 from neuralsim_torch.scene import Scene
 from neuralsim_torch.scene.observers import camera_get_all_rays
-from neuralsim_torch.tools.build import (build_compose_renderer, build_renderer, build_trainer,
-                                         converge_occ, render_multi_frame)
+from neuralsim_torch.tools.build import (build_compose_renderer, build_multi_trainer,
+                                         build_renderer, build_trainer, converge_occ,
+                                         render_multi_frame)
+from neuralsim_torch.tools.train_multi import train_loop
 
 pytestmark = pytest.mark.cuda
 
@@ -207,7 +215,7 @@ def test_train_step_on_card_matches_cpu(dev):
     kernels.reset_counts()
     loss_err, grad_err = cs.check_first_step(trainer, state, rig, dev, n_rays=512)
     assert all(k.launches > 0 for k in kernels.KERNELS.values()
-               if k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY)
+               if k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY + cs.MULTI_ONLY)
     assert loss_err <= cs.STEP_LOSS_RTOL and grad_err <= cs.STEP_GRAD_REL
 
 
@@ -362,11 +370,34 @@ def test_k8_cross_source_vw(dev, n, L):
 
 
 def test_k8_refuses_a_gradient_on_the_card(dev):
-    t, mask, alpha = (_t(a, dev) for a in cs.unsorted_inputs(16, 12, 0))
-    with pytest.raises(NotImplementedError, match="backward"):
-        cross_source_vw(t, mask, alpha.requires_grad_(True))
+    """A gradient on the card is no longer refused: under autograd the forward
+    kernel (which also writes the log transmittance) and the backward kernel
+    run, and nothing falls back to the plain version."""
+    t, mask, alpha = (_t(a, dev) for a in cs.edge_alpha_inputs(16, 12, 0))
+    counts = lambda: [kernels.KERNELS[k].launches for k in ("cross_source_vw",
+                                                           "cross_source_vw.bwd")]
+    n0 = counts()
+    a = alpha.clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(cross_source_vw(t, mask, a).sum(), a)
+    assert counts() == [n0[0] + 1, n0[1] + 1]
+    assert torch.isfinite(g).all()
     with torch.no_grad():
-        assert torch.isfinite(cross_source_vw(t, mask, alpha)).all()
+        assert torch.isfinite(cross_source_vw(t, mask, a)).all()
+    assert counts() == [n0[0] + 2, n0[1] + 1]
+
+
+@pytest.mark.parametrize("n,L", [(4096, 168), (333, 1), (257, 5), (512, 257), (64, 1100)])
+def test_k8_cross_source_vw_backward(dev, n, L):
+    """K8's backward kernel against autograd of the plain version on ragged,
+    tied and masked buffers with alphas at 0, 1, float32(0.999) and outside
+    [0, 1], within cs.GRAD_REL of the largest entry."""
+    t, mask, alpha = (_t(a, dev) for a in cs.edge_alpha_inputs(n, L, L))
+    g = cs.cotangents((n, L), 11, dev)
+    a = alpha.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(cross_source_vw(t, mask, a), a, g)
+    _rel_close([got], [cross_source_vw_bwd_plain(t, mask, alpha, g)], cs.GRAD_REL)
+    logt = cross_source_vw_fwd(t, mask, alpha, with_logt=True)[1]
+    _rel_close([cross_source_vw_bwd(t, mask, alpha, logt, g)], [got], 0.0)
 
 
 def test_k4_occ_ray_proposal_at_64_segments(dev):
@@ -417,3 +448,57 @@ def test_compose_render_on_card_matches_cpu(dev):
     assert res["merge_err"] <= 1.0 and res["equal_rays_err"] <= 1.0
     assert res["equal_rays"] >= cs.COMPOSE_EQUAL_MIN * res["rays"]
     assert max(res["other_mean_err"], res["own_mean_err"]) <= cs.OTHER_MEAN_TOL
+
+
+# ---------------------------------------------------------------------------
+# Multi-object training: K1 and K3 backwards at its shapes, its first
+# iteration card vs CPU, a few iterations with their launches
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("model,n_rows,s", [("Street", 4096, 48), ("Street", 2048, 48),
+                                            ("Vehicle", 3 * 2048, 32)])
+def test_k1_k3_backward_at_the_multi_object_training_shapes(dev, model, n_rows, s):
+    """The street's K1 (F_cp 40, R 1,024) at a pixel and a LiDAR step's final
+    samples, the vehicles' K1 (F_cp 24, R 256) and K3 (two dense levels) at
+    their compacted rows' final samples, both cotangents."""
+    _, _, _, params = build_compose_renderer(WAYMO_DEMO_MULTI, device=dev)
+    enc = params[f"{model}#demo_drive"].encoding
+    x = _t(cs.ray_points(n_rows, s, enc.cp_rmax, 5), dev)
+    n = x.shape[0]
+    d_out = cs.cotangents((enc.out_dim, n), 6, dev)
+    d_jac = cs.cotangents((3, enc.out_dim, n), 7, dev)
+    lines = enc.cp_stacked_lines().detach().to(torch.bfloat16)
+    args = (lines, x, enc._cp_rows, d_out, d_jac)
+    _rel_close([lotd.lotd_cp_stacked_bwd(*args)], [lotd.lotd_cp_stacked_bwd_plain(*args)],
+               cs.GRAD_REL)
+    if enc.grid_spec_ids:
+        args = (enc.table.numel(), x, enc._grid_meta, d_out, d_jac)
+        _rel_close([lotd.lotd_grid_bwd(*args)], [lotd.lotd_grid_bwd_plain(*args)], cs.GRAD_REL)
+
+
+@pytest.fixture
+def multi_built(dev):
+    return build_multi_trainer(WAYMO_DEMO_MULTI, device=dev)
+
+
+def test_multi_object_first_iteration_on_card_matches_cpu(dev, multi_built):
+    scene, _, trainer, state, samplers = multi_built
+    loss_err, grad_err = cs.check_multi_first_iteration(scene, trainer, state, samplers, dev)
+    assert loss_err <= cs.MULTI_STEP_LOSS_RTOL and grad_err <= cs.MULTI_STEP_GRAD_REL
+
+
+def test_multi_object_iterations_launch_their_kernels(dev, multi_built):
+    """Three loop iterations: K8 and its backward, K6 and its backward once an
+    iteration, K4 twice, K7 on the first (the grid's cadence), no skip."""
+    scene, _, trainer, state, samplers = multi_built
+    kernels.reset_counts()
+    log = []
+    train_loop(scene, trainer, state, samplers, 3, torch.Generator(device=dev).manual_seed(0), 1,
+               log)
+    torch.cuda.synchronize()
+    n = {k.name: k.launches for k in kernels.KERNELS.values()}
+    assert [n[k] for k in ("cross_source_vw", "cross_source_vw.bwd", "volume_composite",
+                           "volume_composite.bwd", "occ_ray_proposal", "occ_ema_update")] == \
+        [3, 3, 3, 3, 6, 1]
+    assert all(v > 0 for v in n.values())
+    assert log[-1]["skips_total"] == 0 and all(np.isfinite(r["loss_total"]) for r in log)

@@ -14,8 +14,10 @@ from neuralsim_torch import kernels
 from neuralsim_torch.bridge import load_jax_params
 from neuralsim_torch.configs import BENCH_OBJECT, SYNTHETIC_OBJECT, WAYMO_DEMO_MULTI
 from neuralsim_torch.fields.blocks import MLP
-from neuralsim_torch.tools.build import build_compose_renderer, build_renderer, build_trainer
+from neuralsim_torch.tools.build import (build_compose_renderer, build_multi_trainer,
+                                         build_renderer, build_trainer)
 from neuralsim_torch.tools.train import train
+from neuralsim_torch.tools.train_multi import train_multi
 
 torch.set_num_threads(1)
 
@@ -39,7 +41,9 @@ def test_importing_every_module_loads_no_jax():
               "accel", "accel.occ_grid", "fields.nerf", "fields.conditional",
               "maths.transforms", "scene", "scene.nodes", "scene.scene", "scene.asset_bank",
               "scene.observers.cameras", "scene.observers.cameras_math", "dataio.waymo_demo",
-              "models.asset_base", "renderers.buffer_compose"):
+              "models.asset_base", "renderers.buffer_compose", "training.multi_trainer",
+              "training.error_map", "dataio.dataloader", "scene.observers.lidars",
+              "tools.train_multi", "models.assets"):
         assert f"neuralsim_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -82,6 +86,13 @@ def test_compose_entry_point_defaults_to_the_card(monkeypatch):
         build_compose_renderer(WAYMO_DEMO_MULTI)
 
 
+@pytest.mark.parametrize("entry", [build_multi_trainer, train_multi], ids=lambda f: f.__name__)
+def test_multi_object_training_entry_points_default_to_the_card(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry(WAYMO_DEMO_MULTI)
+
+
 def test_ctypes_signatures_match_the_cuda_sources():
     """The argtypes declared in kernels.py against each extern "C" entry in
     csrc/ (nvcc is not available here to catch a mismatch)."""
@@ -93,7 +104,8 @@ def test_ctypes_signatures_match_the_cuda_sources():
             found[name] = "".join(codes[t] for t in types)
     assert found == kernels.SIGNATURES
     for entry in ("lotd_cp_stacked_bwd", "lotd_grid_bwd", "volume_composite_bwd",
-                  "occ_ray_proposal", "occ_ema_update", "cross_source_vw"):
+                  "occ_ray_proposal", "occ_ema_update", "cross_source_vw",
+                  "cross_source_vw_bwd"):
         assert entry in found
 
 
@@ -105,7 +117,7 @@ def test_every_kernel_is_registered_once_with_its_source():
     assert names == {"lotd_cp_stacked", "lotd_cp_stacked.bwd", "lotd_grid", "lotd_grid.bwd",
                      "neus_upsample.weights_pdf", "neus_upsample.merge", "volume_composite",
                      "volume_composite.bwd", "occ_ray_proposal", "occ_ema_update",
-                     "cross_source_vw"}
+                     "cross_source_vw", "cross_source_vw.bwd"}
     for k in kernels.KERNELS.values():
         assert (ROOT / k.source).exists() and re.match(r"neuralsim_tpu/.+\.py:\d+$", k.replaces)
         assert (ROOT / k.replaces.split(":")[0]).exists()
