@@ -70,7 +70,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      backward and K6 and its backward once an iteration, K4 twice, K7 once a
      refresh; a poisoned pixel step skipped with every parameter unchanged;
      one 80x120 frame of the trained state rendered;
-  9. timing: frame latency and rays/s; training step time and rays/s; each
+  9. crowded multi-object scenes (WAYMO_DEMO_CROWD at full width: 8
+     vehicles on one shared model with per-instance 32^3 occupancy grids, so
+     the group takes the pair-budget path): the render from converged grids
+     (the street's on the ground, the vehicles' on the model's own SDF): K8
+     at the render chunk's merged buffer [4,096, 328], K10
+     occ_ray_proposal_batched against its plain version at the group's rows
+     (converged and random per-instance grids, noise, probes outside the
+     box, grid indices outside [0, G), keyframes of times), K7 at the
+     batched update's 262,144 voxels; 4 frames of 80x120 with K11, K10, K8
+     and K4 launched once a chunk, the frames checked as in phase 7 and a
+     crop held to the CPU path ray by ray at the CPU path's sample depths
+     (the street's and the vehicle grids' proposals); the refresh of the
+     vehicle grids timed. Then training (build_multi_trainer): K8 at the
+     pixel step's merged buffer [4,096, 200] (4 slot lanes of 32 for the
+     group), K11 integer-equal to its plain version on the path's render and
+     training calls and on ragged, tied and crossing masks; the first
+     iteration card vs CPU at the CPU path's sample depths; 48 iterations
+     (finite, no skip, falling loss_rgb and LiDAR depth, both grids refreshed
+     three times, K11, K10 and K8 with its backward once a pixel step); a
+     poisoned pixel step; a frame of the trained state;
+ 10. configs/synthetic_multi.yaml (SYNTHETIC_MULTI at full width): build, 48
+     pixel steps of 2,048 rays (finite, falling loss_rgb, no skip, K11 and K8
+     with its backward once a step, K3 on the street's hash levels), a frame
+     of the trained state, K11 equal to its plain version at its calls;
+ 11. timing: frame latency and rays/s; training step time and rays/s; each
      kernel's time at the training path's shapes (beside that path's launch
      count) and, for the forward kernels, at the render path's too, each
      beside its plain version, a library call where one exists, and its bound
@@ -79,13 +103,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      cadence of the grid), frame and kernels, for the compose frame and K8,
      K1, K3 and K4 at its shapes, and for the multi-object iteration (each
      step type apart; rays/s = 6,144 / iteration) with K8 forward and
-     backward and K6 forward and backward at its shapes;
- 10. one JSON line of results, one of per-kernel results, then the device
+     backward and K6 forward and backward at its shapes; the same for the
+     crowd (frame, iteration), and the synthetic_multi step; K11 at its three
+     calls beside a stable torch.argsort of its keys, K10 at the group's
+     rows, K7 at the batched update;
+ 12. one JSON line of results, one of per-kernel results, then the device
      line, last.
 
 --profile adds torch.profiler tables of device time by kernel for one frame
 and for one training step of each model, for one compose frame, and for one
-LiDAR and one pixel step of the multi-object training.
+LiDAR and one pixel step of the multi-object and the crowd training.
 """
 from __future__ import annotations
 
@@ -216,6 +243,15 @@ MULTI_ERROR_MAP_AFTER = 16
 MULTI_CHECK_RAYS, MULTI_CHECK_BEAMS = 1024, 512
 MULTI_STEP_LOSS_RTOL = 2e-4
 MULTI_STEP_GRAD_REL = 2e-3
+# the crowded scene (WAYMO_DEMO_CROWD): 8 vehicles on one shared model, on
+# the pair-budget path (K11) with per-instance 32^3 grids (K10); rendered from
+# converged grids and trained as the multi-object scene, under the same limits
+CROWD_ONLY = ("pair_compact", "occ_ray_proposal_batched")
+CROWD_VEHICLES = 8
+CROWD_ITERS = 48
+# synthetic_multi (configs/synthetic_multi.yaml): 48 pixel steps of 2,048 rays
+SYNTH_STEPS = 48
+SYNTH_CAM = "camera_0"
 
 
 def log(*a):
@@ -1595,16 +1631,49 @@ def compose_crop(H, W):
     return slice(H // 2, H // 2 + 16), slice(W // 2 - 32, W // 2 + 32)
 
 
-def at_street_depths(renderer, t, mask):
+def at_street_depths(renderer, t, mask, groups=None):
     """A copy of the compose ``renderer`` whose street samples at the depths
     ``t`` and masks ``mask`` [N, S] (moved to the rays' device) in place of
-    its grid's proposal and upsample stages; everything else as it was."""
+    its grid's proposal and upsample stages, and whose groups of a shared
+    model with per-instance grids take the coarse depths ``groups`` {model
+    id: [rows, n]} in place of their grids' proposal (K10); everything else
+    as it was."""
+    import torch
+    from neuralsim_torch.renderers.buffer_compose import ObjectBinding
     mid, qcfg = renderer.scene_models["cr"]
     fixed = copy.copy(renderer)
     fixed.scene_models = {**renderer.scene_models, "cr": (mid, {
         **qcfg, "num_coarse": t.shape[1], "num_fine": (), "upsample_inv_s_factors": (),
         "occ_t_fn": lambda ro, *a: (t.to(ro.device), mask.to(ro.device))})}
+    fixed_t = lambda tg: lambda ro, *a: (tg.to(ro.device),
+                                         torch.ones(tg.shape, dtype=torch.bool, device=ro.device))
+    fixed.objects = [ObjectBinding(ob.obj_id, ob.model_id,
+                                   {**ob.query_cfg, "occ_t_fn": fixed_t(groups[ob.model_id])},
+                                   ob.bidx)
+                     if groups and ob.model_id in groups else ob for ob in renderer.objects]
     return fixed
+
+
+@contextlib.contextmanager
+def group_proposals(renderer, record):
+    """Record into ``record`` {model id: depths} the coarse depths that each
+    shared model's per-instance grids propose (K10) while the block runs."""
+    grids = {mid: a for mid, a in renderer.accels.items() if mid != "cr" and a.n_grids}
+
+    def wrap(mid, accel):
+        def proposal(*a, **kw):
+            t, m = type(accel).ray_proposal_batched(accel, *a, **kw)
+            record[mid] = t.detach().clone()
+            return t, m
+        return proposal
+
+    for mid, accel in grids.items():
+        accel.ray_proposal_batched = wrap(mid, accel)
+    try:
+        yield
+    finally:
+        for accel in grids.values():
+            del accel.ray_proposal_batched
 
 
 def check_compose_crop(renderer, params, frozen, frozen_cpu, o, d, dev, occ, occ_cpu):
@@ -1624,8 +1693,9 @@ def check_compose_crop(renderer, params, frozen, frozen_cpu, o, d, dev, occ, occ
          evaluated on both devices: sdf within FIELD_SDF_TOL, nablas within
          NABLA_TOL of their largest entry;
       3. the whole render AT THE CPU PATH'S STREET DEPTHS (at_street_depths,
-         on both devices; on the CPU it must reproduce its path's buffer bit
-         for bit): on the rays whose every depth and mask are then equal bit
+         on both devices, with a shared model's per-instance grid proposals
+         at the CPU path's depths too; on the CPU it must reproduce its path's
+         buffer bit for bit): on the rays whose every depth and mask are then equal bit
          for bit (at least COMPOSE_EQUAL_MIN of them), every output and every
          source's share within the limits of 1; the other rays (a vehicle
          depth a few ulps apart) by the mean error of colour and mask
@@ -1643,9 +1713,11 @@ def check_compose_crop(renderer, params, frozen, frozen_cpu, o, d, dev, occ, occ
     from neuralsim_torch.renderers.buffers import merge_and_integrate
     cpu_params = copy.deepcopy(params).to("cpu")
     N = o.shape[0]
+    groups = {}
     with torch.no_grad():
-        ref = renderer.ray_query(cpu_params, frozen_cpu, o, d, occ_states=occ_cpu,
-                                 return_buffer=True)
+        with group_proposals(renderer, groups):
+            ref = renderer.ray_query(cpu_params, frozen_cpu, o, d, occ_states=occ_cpu,
+                                     return_buffer=True)
         got = renderer.ray_query(params, frozen, o.to(dev), d.to(dev), occ_states=occ,
                                  return_buffer=True)
         chunked = renderer.render_chunked(params, frozen, o.to(dev), d.to(dev), rayschunk=N,
@@ -1684,7 +1756,7 @@ def check_compose_crop(renderer, params, frozen, frozen_cpu, o, d, dev, occ, occ
         # 3. the render at the CPU path's street depths, on both devices
         street = src == names.index("street")
         fixed = at_street_depths(renderer, buf["t"][:, street].contiguous(),
-                                 buf["mask"][:, street].contiguous())
+                                 buf["mask"][:, street].contiguous(), groups)
         ref_at = fixed.ray_query(cpu_params, frozen_cpu, o, d, occ_states=occ_cpu,
                                  return_buffer=True)
         got_at = fixed.ray_query(params, frozen, o.to(dev), d.to(dev), occ_states=occ,
@@ -2011,21 +2083,25 @@ def compose_phase(dev, profile_it):
 def sample_placements(trainer, record=None, replay=None):
     """Record (into the list ``record``) or replay (from ``replay``, in the
     same order, moved to the rays' device) the sample depths of the compose
-    path: the street grid's proposal and every upsample stage's draws. A step
+    path: every grid's proposal (the street's, and a shared model's
+    per-instance grids', K10) and every upsample stage's draws. A step
     replayed at another device's depths differs from it only where the
     fields, composites and sums round differently, not by moved samples."""
     import torch
     import neuralsim_torch.fields.neus as neus
-    accel = trainer.renderer.accels["cr"]
+    accels = list(trainer.renderer.accels.values())
+    method = lambda a: "ray_proposal_batched" if a.n_grids else "ray_proposal"
     stage_fn, queue = neus.upsample_weights_pdf, list(replay or [])
 
-    def proposal(st, ro, *a, **kw):
-        if replay is not None:
-            t = queue.pop(0).to(ro.device)
-            return t, torch.ones_like(t, dtype=torch.bool)
-        t, m = type(accel).ray_proposal(accel, st, ro, *a, **kw)
-        record.append(t.detach().cpu())
-        return t, m
+    def wrap(accel):
+        def proposal(st, ro, *a, **kw):
+            if replay is not None:
+                t = queue.pop(0).to(ro.device)
+                return t, torch.ones_like(t, dtype=torch.bool)
+            t, m = getattr(type(accel), method(accel))(accel, st, ro, *a, **kw)
+            record.append(t.detach().cpu())
+            return t, m
+        return proposal
 
     def stage(t, *a, **kw):
         if replay is not None:
@@ -2034,11 +2110,14 @@ def sample_placements(trainer, record=None, replay=None):
         record.append(t_new.detach().cpu())
         return w, t_new
 
-    accel.ray_proposal, neus.upsample_weights_pdf = proposal, stage
+    for accel in accels:
+        setattr(accel, method(accel), wrap(accel))
+    neus.upsample_weights_pdf = stage
     try:
         yield
     finally:
-        del accel.ray_proposal
+        for accel in accels:
+            delattr(accel, method(accel))
         neus.upsample_weights_pdf = stage_fn
     if queue:
         raise AssertionError("the replayed step used fewer sample placements than recorded")
@@ -2236,11 +2315,14 @@ def check_multi_kernels(dev, trainer, state, scene, samplers):
     return errs, shapes
 
 
-def check_multi_training(scene, trainer, state, samplers, dev):
-    """MULTI_ITERS loop iterations through train_loop with every metric logged:
-    finite losses, no skip, falling loss_rgb and LiDAR depth loss, the grid
-    refreshed on its cadence, the error map's importance sampling in use, and
-    every kernel of the path launched as counted. -> (log, launches)."""
+def check_multi_training(scene, trainer, state, samplers, dev, iters=MULTI_ITERS,
+                         label="multi-object"):
+    """``iters`` loop iterations through train_loop with every metric logged:
+    finite losses, no skip, falling loss_rgb and LiDAR depth loss, every grid
+    refreshed on its cadence (three times), the error map's importance
+    sampling in use, and every kernel of the path launched as counted (with a
+    pair-budget group K11 once a pixel step, with per-instance grids K10 once
+    a pixel step; neither otherwise). -> (log, launches, falls)."""
     import torch
     from neuralsim_torch import kernels
     from neuralsim_torch.tools.train_multi import train_loop
@@ -2248,39 +2330,47 @@ def check_multi_training(scene, trainer, state, samplers, dev):
     log_ = []
     it0 = state.it
     kernels.reset_counts()
-    train_loop(scene, trainer, state, samplers, it0 + MULTI_ITERS, gen, 1, log_)
+    train_loop(scene, trainer, state, samplers, it0 + iters, gen, 1, log_)
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS.values()}
-    accel = trainer.renderer.accels["cr"]
-    refreshes = sum(1 for r in log_ if r["it"] % accel.n_steps_between_update == 0)
-    log(f"multi-object training: {MULTI_ITERS} iterations of {MULTI_BEAMS} beams + "
-        f"{MULTI_RAYS} rays, {refreshes} grid refreshes, launches {launches}")
+    r = trainer.renderer
+    cadence = {a.n_steps_between_update for a in r.accels.values()}
+    if len(cadence) != 1:
+        raise AssertionError("the grids of this path should share one cadence")
+    every = cadence.pop()
+    refreshes = sum(1 for rec in log_ if rec["it"] % every == 0)
+    log(f"{label} training: {iters} iterations of {MULTI_BEAMS} beams + {MULTI_RAYS} rays, "
+        f"{refreshes} refreshes of each of {len(r.accels)} grids, launches {launches}")
     for rec in log_:
         for k, v in rec.items():
             if k.startswith(("loss", "lidar/loss")) and not np.isfinite(v):
                 raise AssertionError(f"non-finite {k} at iteration {rec['it']}")
     if log_[-1]["skips_total"] != 0:
         raise AssertionError(f"{log_[-1]['skips_total']} steps were skipped")
-    mean = lambda k, rs: float(np.mean([r[k] for r in rs]))
+    mean = lambda k, rs: float(np.mean([rec[k] for rec in rs]))
     falls = {}
     for k in ("loss_rgb", "lidar/lidar_loss_depth"):
         falls[k] = (mean(k, log_[:10]), mean(k, log_[-10:]))
-        log(f"multi-object training: {k} first 10 iterations {falls[k][0]:.5f}, last 10 "
+        log(f"{label} training: {k} first 10 iterations {falls[k][0]:.5f}, last 10 "
             f"{falls[k][1]:.5f}")
         if not falls[k][1] < falls[k][0]:
             raise AssertionError(f"{k} did not fall")
-    log(f"multi-object training: occ_frac {log_[0]['occ_frac']:.4f} -> {log_[-1]['occ_frac']:.4f}"
+    log(f"{label} training: occ_frac {log_[0]['occ_frac']:.4f} -> {log_[-1]['occ_frac']:.4f}"
         f", error-map updates {samplers['imp'].it} (importance sampling from "
         f"{samplers['imp'].enable_after})")
-    want = {"cross_source_vw": MULTI_ITERS, "cross_source_vw.bwd": MULTI_ITERS,
-            "volume_composite": MULTI_ITERS, "volume_composite.bwd": MULTI_ITERS,
-            "occ_ray_proposal": 2 * MULTI_ITERS, "occ_ema_update": refreshes}
+    pair = any(r._pair_rows(obs, MULTI_RAYS) for obs in r._grouped().values())
+    batched = any(a.n_grids for a in r.accels.values())
+    want = {"cross_source_vw": iters, "cross_source_vw.bwd": iters,
+            "volume_composite": iters, "volume_composite.bwd": iters,
+            "occ_ray_proposal": 2 * iters, "occ_ema_update": refreshes * len(r.accels),
+            "pair_compact": iters if pair else 0,
+            "occ_ray_proposal_batched": iters if batched else 0}
     if refreshes != 3 or any(launches[k] != n for k, n in want.items()):
-        raise AssertionError(f"the multi-object path's launches are not as counted: want {want}")
+        raise AssertionError(f"the {label} path's launches are not as counted: want {want}")
     for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the multi-object training path")
-    if samplers["imp"].it != MULTI_ITERS or samplers["imp"].enable_after >= MULTI_ITERS:
+        if n <= 0 and want.get(name, 1):
+            raise AssertionError(f"kernel {name} never launched on the {label} training path")
+    if samplers["imp"].it != iters or samplers["imp"].enable_after >= iters:
         raise AssertionError("the error map's importance sampling did not run")
     return log_, launches, falls
 
@@ -2496,6 +2586,495 @@ def multi_phase(dev, profile_it):
     return dict(errs=errs, times=times, launches=launches, iters=MULTI_ITERS, summary=summary)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: crowded multi-object scenes (WAYMO_DEMO_CROWD): K11 and K10
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def pair_calls(record):
+    """Record into ``record`` the inputs (hit, Bg, M) of every K11 call that
+    the compose renderer makes while the block runs."""
+    import neuralsim_torch.renderers.buffer_compose as bc
+    fn = bc.pair_compact
+
+    def wrapped(hit, Bg, M=None):
+        record.append((hit.clone(), Bg, M))
+        return fn(hit, Bg, M)
+
+    bc.pair_compact = wrapped
+    try:
+        yield
+    finally:
+        bc.pair_compact = fn
+
+
+def pair_edge_masks(dev):
+    """Hit masks beyond the path's: ragged (hit rates 5-95%, instances that
+    hit nothing), tied (every pair a hit, so T = K N; none a hit, so the
+    budget is all misses), rays that cross more than M = 4 boxes, odd N with
+    a budget of half the rays, and one long row (the scan's runs) ->
+    [(label, hit [K, N], Bg, M)]."""
+    import torch
+    from neuralsim_torch.ops.pair_compact import pair_budget
+    gen = torch.Generator().manual_seed(17)
+    out = []
+    for K, N in ((2, 2048), (5, 2047), (8, 4096), (8, 333)):
+        for p in (0.05, 0.5, 0.95):
+            rate = torch.full((K, 1), p)
+            rate[0] = 0.0                                   # an instance that hits nothing
+            hit = torch.rand((K, N), generator=gen) < rate
+            for gf in (1.0, 0.5):
+                out.append((f"ragged K={K} N={N} p={p} gf={gf}", hit, pair_budget(K, N, gf), 4))
+    for K, N in ((8, 4096), (3, 1001)):
+        for label, hit in (("every pair a hit", torch.ones((K, N), dtype=torch.bool)),
+                           ("no hit", torch.zeros((K, N), dtype=torch.bool))):
+            for gf in (1.0, 0.5, float(K)):
+                out.append((f"{label} K={K} N={N} gf={gf}", hit, pair_budget(K, N, gf), 4))
+    hit = torch.rand((8, 4096), generator=gen) < 0.2
+    hit[:, ::7] = True                                      # 8 boxes on every 7th ray
+    out.append(("rays through 8 boxes, M=4", hit, 4096, 4))
+    out.append(("rays through 8 boxes, M=1", hit, 2048, 1))
+    hit = torch.rand((2, 200_003), generator=gen) < 0.3
+    out.append(("long rows K=2 N=200003", hit, 200_003, 4))
+    return [(label, h.to(dev), Bg, M) for label, h, Bg, M in out]
+
+
+def check_pair_compact(dev, path_calls):
+    """K11 against its plain version (the JAX package's argsort lines): the
+    selected pairs, their hit flags and, with M, the slot indices equal,
+    integer for integer, on the path's calls (with and without the slots) and
+    on pair_edge_masks. -> the number of sets held."""
+    import torch
+    from neuralsim_torch.ops.pair_compact import pair_compact, pair_compact_plain
+    sets = [(f"path call K={h.shape[0]} N={h.shape[1]} Bg={Bg} M={M}", h, Bg, M)
+            for h, Bg, M in path_calls] + pair_edge_masks(dev)
+    for label, hit, Bg, M in sets:
+        for m in ((M,) if M is None else (M, None)):
+            got, want = pair_compact(hit, Bg, m), pair_compact_plain(hit, Bg, m)
+            torch.cuda.synchronize()
+            same = all((g is None and w is None) or (g.dtype == w.dtype and torch.equal(g, w))
+                       for g, w in zip(got, want))
+            if not same:
+                raise AssertionError(f"K11 differs from its plain version: {label} M={m}")
+    log(f"K11 pair_compact: {len(sets)} hit masks (path calls {len(path_calls)}), every "
+        f"output equal to the plain version's, with and without the slots")
+    return len(sets)
+
+
+def check_batched_occ(dev, accel, st, rows):
+    """K10 against its plain version at the path's rows (the recorded inputs
+    of one vehicle group's proposal: rays, near, far, instance index), on the
+    converged per-instance grids and on random grids whose occupied share
+    differs from instance to instance (so a wrong grid index shows), without
+    noise (the render) and with; on probes that leave the box; on grid
+    indices outside [0, G) (clipped, as the JAX take's mode="clip"); and on
+    the dynamic grid's keyframe index of times in [-0.2, 1.2].
+    -> (max_abs_err, the inputs kept for timing)."""
+    import torch
+    from neuralsim_torch.accel.occ_grid import occ_ray_proposal, occ_ray_proposal_plain
+    o, d, near, far, n, bidx = rows
+    G, R = st.mask.shape[0], st.mask.shape[-1]
+    M = accel.march_steps
+    box, edges = accel.box(dev), accel.edges01(M, dev)
+    gen = torch.Generator().manual_seed(19)
+    noise = torch.rand((o.shape[0], n), generator=gen).to(dev)
+    share = torch.linspace(0.05, 0.6, G)[:, None, None, None]
+    rand_mask = (torch.rand((G, R, R, R), generator=gen) < share).to(dev)
+    lead = bidx.to(torch.int32).contiguous()
+    wild = torch.randint(-2, G + 2, lead.shape, generator=gen, dtype=torch.int32).to(dev)
+    t01 = torch.rand(lead.shape, generator=gen).to(dev) * 1.4 - 0.2
+    kf = (t01 * G).to(torch.int32).clamp(0, G - 1)
+    far_out = far * 3.0 + 1.0
+    errs = []
+    for label, mask, ld, nf in (("converged grids", st.mask, lead, (near, far)),
+                                ("random grids", rand_mask, lead, (near, far)),
+                                ("random grids, probes outside the box", rand_mask, lead,
+                                 (torch.full_like(near, 0.01), far_out)),
+                                ("random grids, indices outside [0, G)", rand_mask, wild,
+                                 (near, far)),
+                                ("random grids, keyframes of times", rand_mask, kf, (near, far))):
+        for nz in (None, noise):
+            a = (o, d, *nf, mask, *box, edges, n, nz, ld)
+            errs.append(compare(f"K10 occ_ray_proposal_batched rows={o.shape[0]} G={G} R={R} "
+                                f"M={M} n={n} {label} noise={nz is not None}",
+                                [occ_ray_proposal(*a)], [occ_ray_proposal_plain(*a)], **K4_TOL))
+    torch.cuda.synchronize()
+    return max(errs), dict(args=(o, d, near, far, st.mask, *box, edges, n, noise, lead))
+
+
+def check_batched_ema(dev, accel, st, field):
+    """K7 at the batched update's shape: the per-instance grids' V = G R^3
+    voxels, one jittered sample each, raw values from the shared model's own
+    SDF of each instance, warm-up on and off. -> (max_abs_err, inputs)."""
+    import torch
+    from neuralsim_torch.accel.occ_grid import occ_ema_update, occ_ema_update_plain
+    gen = torch.Generator(device=dev).manual_seed(23)
+    x = accel._voxel_points(torch.rand(accel.jitter_shape, generator=gen, device=dev))
+    bidx = torch.arange(accel.n_grids, device=dev).repeat_interleave(accel.res ** 3)
+    with torch.no_grad():
+        raw = field.query_sdf(x, bidx=bidx).reshape(1, -1).contiguous()
+    val = st.val.reshape(-1).contiguous()
+    errs = []
+    for floor in (None, accel.occ_thre + 1e-3):
+        a = (raw, val, accel.occ_val_fn, accel.raw_scale, accel.occ_inv_s, accel.ema_decay,
+             accel.occ_thre, floor)
+        got, want = occ_ema_update(*a), occ_ema_update_plain(*a)
+        errs.append(compare(f"K7 occ_ema_update batched V={raw.shape[1]} S=1 "
+                            f"warm-up={floor is not None}", got[:1], want[:1], 0, K7_ATOL))
+        off = (got[1] != want[1]) & ((want[0] - accel.occ_thre).abs() > K7_ATOL)
+        if bool(off.any()):
+            raise AssertionError("K7 batched: the mask differs away from the threshold")
+    return max(errs), dict(args=(raw, val, accel.occ_val_fn, accel.raw_scale, accel.occ_inv_s,
+                                 accel.ema_decay, accel.occ_thre, None))
+
+
+def time_refresh(accel, st, field, dev, reps=5):
+    """Host-clock ms of one refresh of the per-instance grids (the jitter
+    drawn, G R^3 points through the shared model in chunks of its
+    eval_chunk, K7), median of ``reps``, and the peak memory it allocates
+    above what was held before (MiB)."""
+    import torch
+    from neuralsim_torch.fields.neus import map_chunked
+    gen = torch.Generator(device=dev).manual_seed(29)
+    lines = field.encoding.kernel_lines()
+    query = lambda x, b: map_chunked(lambda c, cb: field.query_sdf(c, lines, cb), x,
+                                     field.eval_chunk, b)
+    ts = []
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        accel.update(st, query, torch.rand(accel.jitter_shape, generator=gen, device=dev), 1000)
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    ts = sorted(ts[1:])
+    return ts[reps // 2], peak
+
+
+def time_crowd_kernels(pair_shapes, occ_shapes, ema_shapes, synth_hit):
+    """K11 at the crowd's render and training calls and at synthetic_multi's,
+    beside its plain version and a stable torch.argsort of the same keys
+    (the library call that selects the same pairs); K10 at the path's rows;
+    K7 at the batched update's shape -> {kernel: [timing, ...]}."""
+    import torch
+    from neuralsim_torch.accel.occ_grid import (occ_ema_update, occ_ema_update_plain,
+                                                occ_ray_proposal, occ_ray_proposal_plain)
+    from neuralsim_torch.ops.pair_compact import pair_compact, pair_compact_plain
+    out = {"pair_compact": []}
+    for label, (hit, Bg, M) in pair_shapes + [("synthetic_multi training call", synth_hit)]:
+        K, N = hit.shape
+        rank = torch.cumsum(hit.to(torch.int64), dim=1) - 1
+        keyv = torch.where(hit, rank * K + torch.arange(K, device=hit.device)[:, None],
+                           torch.full_like(rank, K * N)).reshape(-1)
+        out["pair_compact"].append(dict(
+            shape=f"{label}: hit [{K}, {N}], Bg={Bg}, {'slots M=' + str(M) if M else 'no slots'}"
+                  f", {int(hit.sum())} hits",
+            ms=cuda_ms(lambda: pair_compact(hit, Bg, M)),
+            plain_ms=cuda_ms(lambda: pair_compact_plain(hit, Bg, M)),
+            library_ms=cuda_ms(lambda: torch.argsort(keyv, stable=True)[:Bg]),
+            # the hit mask read, order, hit flags (and slots) written; the
+            # rank formula's K compare-adds per pair, the slots' K per hit
+            bound=bound(K * N + Bg * (9 + (8 if M else 0)), 2.0 * K * K * N * (2 if M else 1))))
+    a = occ_shapes["args"]
+    N, n, M, G, R = a[0].shape[0], a[8], a[7].shape[0] - 1, a[4].shape[0], a[4].shape[-1]
+    out["occ_ray_proposal_batched"] = [dict(
+        shape=f"vehicle rows={N} march segments={M} samples={n} grids [{G}, {R}, {R}, {R}] "
+              f"(drawn noise)",
+        ms=cuda_ms(lambda: occ_ray_proposal(*a)),
+        plain_ms=cuda_ms(lambda: occ_ray_proposal_plain(*a)),
+        library_ms=None,
+        bound=bound(N * 36 + N * M + (M + 1) * 4 + 2 * N * n * 4, N * (M * 30 + n * M * 6)))]
+    a = ema_shapes["args"]
+    S, V = a[0].shape
+    out["occ_ema_update"] = [dict(
+        shape=f"batched: voxels={V} ({G} grids of {R}^3) samples per voxel={S} (sdf)",
+        ms=cuda_ms(lambda: occ_ema_update(*a)),
+        plain_ms=cuda_ms(lambda: occ_ema_update_plain(*a)),
+        library_ms=None,
+        bound=bound(V * (4 * S + 4 + 4 + 1), V * (S * 12 + 4)))]
+    return out
+
+
+def crowd_phase(dev, profile_it):
+    """Phase 9 (WAYMO_DEMO_CROWD) and its share of the timing."""
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.configs import WAYMO_DEMO_CROWD as C
+    from neuralsim_torch.dataio.waymo_demo import demo_scenario, ground_sdf_tensor
+    from neuralsim_torch.scene import Scene
+    from neuralsim_torch.scene.observers import camera_get_all_rays, camera_get_selected_rays
+    from neuralsim_torch.tools.build import (build_compose_renderer, build_multi_trainer,
+                                             converge_occ, render_multi_frame)
+
+    # -- the render, from converged grids ----------------------------------
+    t0 = time.perf_counter()
+    scene, bank, renderer, params = build_compose_renderer(C)
+    veh_id = renderer.objects[0].model_id
+    vehicles = [ob.obj_id for ob in renderer.objects]
+    va, sa = renderer.accels[veh_id], renderer.accels["cr"]
+    seed = int(C["seed"])
+    occ = {"cr": converge_occ(sa, sa.init_state(), ground_sdf_tensor, seed=seed,
+                              **C["occ_converge"]),
+           veh_id: converge_occ(va, va.init_state(),
+                                lambda x, b: params[veh_id].query_sdf(x, bidx=b), seed=seed,
+                                **C["occ_converge"])}
+    torch.cuda.synchronize()
+    veh_frac = [float(m.float().mean()) for m in occ[veh_id].mask]
+    log(f"crowd model: built in {time.perf_counter() - t0:.2f} s; {len(vehicles)} vehicles on "
+        f"one model, group_budget_frac {renderer.group_budget_frac}, max_hits_per_ray "
+        f"{renderer.max_hits_per_ray}; vehicle grids {tuple(occ[veh_id].mask.shape)} converged "
+        f"on the model's own SDF, occupied shares {[round(f, 4) for f in veh_frac]}; street "
+        f"grid occupied {float(sa.occupied_fraction(occ['cr'])):.4f}")
+    if (len(vehicles), va.res, va.n_grids, va.march_steps, renderer.max_hits_per_ray,
+            renderer._pair_rows(renderer.objects, RAYSCHUNK)) != (CROWD_VEHICLES, 32, 8, 64, 4,
+                                                                   RAYSCHUNK):
+        raise AssertionError("the crowd model's sizes are not the ones checked here")
+    if not all(0.0 < f < 0.5 for f in veh_frac):
+        raise AssertionError("the converged vehicle grids should hold a small occupied share")
+
+    H, W = (int(v) for v in scene.nodes[COMPOSE_CAM].frame_data["hw"][0].tolist())
+    frozen = scene.slice_at(COMPOSE_FRAME_IDS[0])
+    o, d = camera_get_all_rays(frozen, COMPOSE_CAM, H, W)
+    s0 = max(H * W // 2 - RAYSCHUNK // 2, 0)         # a chunk around the horizon
+    oc, dc = o[s0:s0 + RAYSCHUNK].contiguous(), d[s0:s0 + RAYSCHUNK].contiguous()
+    calls, rows = [], {}
+    with torch.no_grad(), pair_calls(calls):
+        orig = type(va).ray_proposal_batched
+
+        def keep_rows(st, ro, rd, n_, f_, nc, bidx, **kw):
+            rows["inputs"] = (ro, rd, n_, f_, nc, bidx)
+            return orig(va, st, ro, rd, n_, f_, nc, bidx, **kw)
+
+        va.ray_proposal_batched = keep_rows
+        try:
+            chunk = renderer.ray_query(params, frozen, oc, dc, occ_states=occ,
+                                       return_buffer=True)
+        finally:
+            del va.ray_proposal_batched
+    mb = chunk["merged_buffer"]
+    lanes = CROWD_VEHICLES * 32 + 72
+    if mb["t"].shape != (RAYSCHUNK, lanes):
+        raise AssertionError(f"the render's merged buffer is {tuple(mb['t'].shape)}, not "
+                             f"[4096, {lanes}]")
+    errs = {"cross_source_vw": (check_cross_source_vw(dev, (mb["t"], mb["mask"], mb["alpha"])),
+                                K8_TOL["atol"])}
+    e10, occ_shapes = check_batched_occ(dev, va, occ[veh_id], rows["inputs"])
+    errs["occ_ray_proposal_batched"] = (e10, K4_TOL["atol"])
+    e7, ema_shapes = check_batched_ema(dev, va, occ[veh_id], params[veh_id])
+    errs["occ_ema_update"] = (e7, K7_ATOL)
+
+    kernels.reset_counts()
+    frames = [render_multi_frame(renderer, params, scene, fi, COMPOSE_CAM, occ, RAYSCHUNK)
+              for fi in COMPOSE_FRAME_IDS]
+    torch.cuda.synchronize()
+    launches_render = {k.name: k.launches for k in kernels.KERNELS.values()}
+    chunks = len(COMPOSE_FRAME_IDS) * -(-H * W // RAYSCHUNK)
+    log(f"crowd render: {len(COMPOSE_FRAME_IDS)} frames of {H}x{W} ({chunks} chunks), "
+        f"launches {launches_render}")
+    for name in ("cross_source_vw", "occ_ray_proposal", "pair_compact",
+                 "occ_ray_proposal_batched"):
+        if launches_render[name] != chunks:
+            raise AssertionError(f"a crowd chunk launches {name} once")
+    check_compose_frames(frames, H, W, vehicles)
+    scene_cpu = Scene.load_from_scenario(demo_scenario(**C["dataset_cfg"]["params"]))
+    crop = compose_crop(H, W)
+    cut = lambda a: a.reshape(H, W, 3)[crop].reshape(-1, 3).cpu().contiguous()
+    by_ray = check_compose_crop(renderer, params, frozen, scene_cpu.slice_at(COMPOSE_FRAME_IDS[0]),
+                                cut(o), cut(d), dev, occ,
+                                {k: type(v)(v.val.cpu(), v.mask.cpu()) for k, v in occ.items()})
+    frame_ms, frame_min, frame_max = time_compose_frames(renderer, params, scene, occ)
+    log(f"timing: crowd frame median {frame_ms:.3f} ms (min {frame_min:.3f}, max "
+        f"{frame_max:.3f}) for {H * W} rays, {H * W / frame_ms * 1e3:.1f} rays/s")
+    refresh_ms, refresh_mib = time_refresh(va, occ[veh_id], params[veh_id], dev)
+    log(f"timing: refresh of the {va.n_grids} vehicle grids ({va.n_grids * va.res ** 3} points "
+        f"through the shared model, eval_chunk {params[veh_id].eval_chunk}) median "
+        f"{refresh_ms:.3f} ms, peak {refresh_mib:.1f} MiB above what was held")
+    del scene, bank, renderer, params, occ, frames
+
+    # -- training ----------------------------------------------------------
+    cfg = copy.deepcopy(C)
+    cfg["training"]["error_map"] = {**cfg["training"]["error_map"],
+                                    "enable_after": MULTI_ERROR_MAP_AFTER}
+    timings = {}
+    t0 = time.perf_counter()
+    scene, bank, trainer, state, samplers = build_multi_trainer(cfg, timings=timings)
+    torch.cuda.synchronize()
+    log(f"crowd training: built in {time.perf_counter() - t0:.2f} s ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in timings.items()) + "); grids "
+        f"{ {k: tuple(v.mask.shape) for k, v in state.occ.items()} } at their initial state")
+    r = trainer.renderer
+    gen = torch.Generator(device=dev).manual_seed(31)
+    lbatch, pbatch, cam = multi_batches(scene, samplers, dev, MULTI_RAYS, MULTI_BEAMS)
+    train_calls = []
+    with torch.no_grad(), pair_calls(train_calls):
+        fr = scene.slice_at(pbatch["rays_fidx"].long())
+        ro, rd = camera_get_selected_rays(fr, cam, pbatch["rays_xy"])
+        noise = trainer.draw_noise("pixel", MULTI_RAYS, gen, state.it)
+        tb = r.ray_query(state.params, fr, ro.contiguous(), rd.contiguous(), it=state.it,
+                         occ_states=state.occ, return_buffer=True, with_per_obj=False,
+                         noise=noise["render"])["merged_buffer"]
+    t_lanes = r.max_hits_per_ray * 32 + 72
+    if tb["t"].shape != (MULTI_RAYS, t_lanes):
+        raise AssertionError(f"the crowd pixel step's merged buffer is {tuple(tb['t'].shape)}, "
+                             f"not [4096, {t_lanes}]")
+    path = (tb["t"].contiguous(), tb["mask"].contiguous(), tb["alpha"].contiguous())
+    errs["cross_source_vw"] = (max(errs["cross_source_vw"][0], check_cross_source_vw(dev, path)),
+                               K8_TOL["atol"])
+    n_sets = check_pair_compact(dev, calls[:1] + train_calls)
+    errs["pair_compact"] = (0.0, 0.0)
+    loss_err, grad_err = check_multi_first_iteration(scene, trainer, state, samplers, dev)
+    log_, launches, falls = check_multi_training(scene, trainer, state, samplers, dev,
+                                                 CROWD_ITERS, "crowd")
+    check_multi_poisoned_step(scene, trainer, state, samplers, dev)
+    frame = render_multi_frame(r, state.params, scene, 0, COMPOSE_CAM, state.occ, RAYSCHUNK)
+    torch.cuda.synchronize()
+    m = frame["mask_volume"]
+    log(f"crowd training: rendered frame 0 ({H}x{W}) of the trained state, mask in "
+        f"[{float(m.min()):.4f}, {float(m.max()):.6f}], mean {float(m.mean()):.4f}")
+    for k in ("rgb_volume", "depth_volume", "mask_volume"):
+        if not torch.isfinite(frame[k]).all() or frame[k].shape[0] != H * W:
+            raise AssertionError(f"the trained crowd frame's {k} is not finite of {H * W} rays")
+    if float(m.min()) < 0.0 or float(m.max()) > MASK_CAP:
+        raise AssertionError("the trained crowd frame's mask leaves [0, 1 + 1.1e-3]")
+    it_ms = time_multi_iterations(scene, trainer, state, samplers, dev)
+    rays = MULTI_RAYS + MULTI_BEAMS
+    for k, (med, lo, hi) in it_ms.items():
+        log(f"timing: crowd {k} median {med:.3f} ms (min {lo:.3f}, max {hi:.3f})")
+    log(f"timing: crowd iteration {rays} rays, {rays / it_ms['iteration'][0] * 1e3:.1f} rays/s; "
+        f"hand-kernel launches per iteration {sum(launches.values()) / CROWD_ITERS:.1f}")
+    pair_shapes = [("render call", calls[0]), ("training call", train_calls[0])]
+    summary = {"crowd_frame_ms": frame_ms, "crowd_frame_ms_min": frame_min,
+               "crowd_frame_ms_max": frame_max, "crowd_rays_per_s": H * W / frame_ms * 1e3,
+               "crowd_vehicle_occ_frac": veh_frac, "crowd_crop_by_ray": by_ray,
+               "crowd_refresh_ms": refresh_ms, "crowd_refresh_peak_mib": refresh_mib,
+               "crowd_k11_sets_equal": n_sets, "crowd_build_s": timings,
+               "crowd_first_iteration_loss_rel_err": loss_err,
+               "crowd_first_iteration_grad_rel_err": grad_err,
+               "crowd_iterations": CROWD_ITERS,
+               "crowd_loss_rgb_first10": falls["loss_rgb"][0],
+               "crowd_loss_rgb_last10": falls["loss_rgb"][1],
+               "crowd_lidar_depth_first10": falls["lidar/lidar_loss_depth"][0],
+               "crowd_lidar_depth_last10": falls["lidar/lidar_loss_depth"][1],
+               "crowd_lidar_step_ms": it_ms["lidar"][0], "crowd_pixel_step_ms": it_ms["pixel"][0],
+               "crowd_iteration_ms": it_ms["iteration"][0],
+               "crowd_iteration_ms_min": it_ms["iteration"][1],
+               "crowd_iteration_ms_max": it_ms["iteration"][2],
+               "crowd_rays_per_s_training": rays / it_ms["iteration"][0] * 1e3,
+               "crowd_hand_launches_per_iteration": sum(launches.values()) / CROWD_ITERS}
+    if profile_it:
+        prof = profile_multi_steps(scene, trainer, state, samplers, dev)
+        for k, (n, busy) in prof.items():
+            summary[f"crowd_{k}_step_device_kernels"] = n
+            summary[f"crowd_{k}_step_busy_ms"] = busy
+    return dict(errs=errs, launches=launches, launches_render=launches_render,
+                iters=CROWD_ITERS, n_frames=len(COMPOSE_FRAME_IDS), summary=summary,
+                shapes=(pair_shapes, occ_shapes, ema_shapes))
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: configs/synthetic_multi.yaml end to end (SYNTHETIC_MULTI)
+# ---------------------------------------------------------------------------
+
+def synthetic_multi_phase(dev):
+    """Build SYNTHETIC_MULTI at full width, 48 pixel steps of 2,048 rays
+    through train_loop (finite losses, falling loss_rgb, no skip, K11 and K8
+    with its backward once a step, K3 on the street's hash levels), one frame
+    of the trained state, and the step time."""
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.configs import SYNTHETIC_MULTI as C
+    from neuralsim_torch.tools.build import build_multi_trainer, render_multi_frame
+    from neuralsim_torch.tools.train_multi import _PIXEL_KEYS, to_device, train_loop
+    timings = {}
+    t0 = time.perf_counter()
+    scene, bank, trainer, state, samplers = build_multi_trainer(C, timings=timings)
+    torch.cuda.synchronize()
+    r = trainer.renderer
+    n_rays = C["training"]["n_rays"]
+    street = bank.assets[r.scene_models["cr"][0]].field.encoding
+    log(f"synthetic_multi: built in {time.perf_counter() - t0:.2f} s ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in timings.items()) + f"); vehicles "
+        f"{[ob.obj_id for ob in r.objects]} on one model, pair budget "
+        f"{r._pair_rows(r.objects, n_rays)} rows, street levels "
+        f"{[(sp.res, sp.typ) for sp in street.specs]}, grids {list(r.accels)}, "
+        f"LiDAR sampler {samplers['lidar']}")
+    if (len(r.objects), r._pair_rows(r.objects, n_rays), samplers["lidar"], r.accels) \
+            != (2, n_rays, None, {}):
+        raise AssertionError("the synthetic_multi model is not the one checked here")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    log_ = []
+    kernels.reset_counts()
+    train_loop(scene, trainer, state, samplers, SYNTH_STEPS, gen, 1, log_)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+    log(f"synthetic_multi: {SYNTH_STEPS} pixel steps of {n_rays} rays, launches {launches}")
+    for rec in log_:
+        for k, v in rec.items():
+            if k.startswith("loss") and not np.isfinite(v):
+                raise AssertionError(f"synthetic_multi: non-finite {k} at step {rec['it']}")
+    first = float(np.mean([rec["loss_rgb"] for rec in log_[:10]]))
+    last = float(np.mean([rec["loss_rgb"] for rec in log_[-10:]]))
+    log(f"synthetic_multi: loss_rgb first 10 steps {first:.5f}, last 10 {last:.5f}; skips "
+        f"{log_[-1]['skips_total']}")
+    if log_[-1]["skips_total"] != 0 or not last < first:
+        raise AssertionError("synthetic_multi: a step was skipped or loss_rgb did not fall")
+    want = {"pair_compact": SYNTH_STEPS, "cross_source_vw": SYNTH_STEPS,
+            "cross_source_vw.bwd": SYNTH_STEPS, "volume_composite": 0,
+            "occ_ray_proposal": 0, "occ_ray_proposal_batched": 0, "occ_ema_update": 0}
+    if any(launches[k] != n for k, n in want.items()) or not launches["lotd_grid"] \
+            or not launches["lotd_grid.bwd"]:
+        raise AssertionError(f"synthetic_multi's launches are not as counted: want {want} and "
+                             f"K3 (the street's hash levels)")
+    hit_calls = []
+    with torch.no_grad(), pair_calls(hit_calls):
+        H, W = (int(v) for v in scene.nodes[SYNTH_CAM].frame_data["hw"][0].tolist())
+        frame = render_multi_frame(r, state.params, scene, 0, SYNTH_CAM, None, RAYSCHUNK)
+    torch.cuda.synchronize()
+    m = frame["mask_volume"]
+    log(f"synthetic_multi: frame 0 ({H}x{W}) of the trained state, mask in "
+        f"[{float(m.min()):.4f}, {float(m.max()):.6f}], mean {float(m.mean()):.4f}, per source "
+        f"{ {k: round(float(v['mask_volume'].mean()), 4) for k, v in frame['per_obj'].items()} }")
+    for k in ("rgb_volume", "depth_volume", "mask_volume"):
+        if not torch.isfinite(frame[k]).all() or frame[k].shape[0] != H * W:
+            raise AssertionError(f"synthetic_multi: the frame's {k} is not finite of {H * W} rays")
+    if float(m.min()) < 0.0 or float(m.max()) > MASK_CAP:
+        raise AssertionError("synthetic_multi: the frame's mask leaves [0, 1 + 1.1e-3]")
+    pix = samplers["pixel"]
+    ts = []
+    for i in range(23):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        raw = pix.sample()
+        trainer.train_step(state, to_device(raw, _PIXEL_KEYS, dev),
+                           trainer.draw_noise("pixel", n_rays, gen, state.it), "pixel",
+                           raw["cam_id"])
+        torch.cuda.synchronize()
+        if i >= 3:
+            ts.append((time.perf_counter() - t0) * 1e3)
+    ts.sort()
+    log(f"timing: synthetic_multi step median {ts[10]:.3f} ms (min {ts[0]:.3f}, max "
+        f"{ts[-1]:.3f}) for {n_rays} rays, {n_rays / ts[10] * 1e3:.1f} rays/s; hand-kernel "
+        f"launches per step {sum(launches.values()) / SYNTH_STEPS:.1f}")
+    # K11 at this path's training call: the same hit mask with the slots
+    train_calls = []
+    with torch.no_grad(), pair_calls(train_calls):
+        raw = pix.sample()
+        b = to_device(raw, _PIXEL_KEYS, dev)
+        trainer.compute_losses(state.params, b, state.it,
+                               trainer.draw_noise("pixel", n_rays, gen, state.it), "pixel",
+                               state.occ, raw["cam_id"])
+    check_pair_compact(dev, train_calls + hit_calls)
+    summary = {"synthetic_multi_build_s": timings, "synthetic_multi_steps": SYNTH_STEPS,
+               "synthetic_multi_loss_rgb_first10": first, "synthetic_multi_loss_rgb_last10": last,
+               "synthetic_multi_step_ms": ts[10], "synthetic_multi_step_ms_min": ts[0],
+               "synthetic_multi_step_ms_max": ts[-1],
+               "synthetic_multi_rays_per_s": n_rays / ts[10] * 1e3,
+               "synthetic_multi_hand_launches_per_step": sum(launches.values()) / SYNTH_STEPS}
+    return dict(launches=launches, steps=SYNTH_STEPS, summary=summary, hit=train_calls[0])
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2545,7 +3124,8 @@ def main(argv) -> int:
     launches_render = {k.name: k.launches for k in kernels.KERNELS.values()}
     log(f"render slice: {N_FRAMES} frames of {rig.H}x{rig.W}, launches {launches_render}")
     for name, n in launches_render.items():
-        if n <= 0 and not name.endswith(".bwd") and name not in BENCH_ONLY + COMPOSE_ONLY:
+        if n <= 0 and not name.endswith(".bwd") and \
+                name not in BENCH_ONLY + COMPOSE_ONLY + CROWD_ONLY:
             raise AssertionError(f"kernel {name} never launched on the render path")
     check_frames(frames, rig.H, rig.W)
     crop_err = check_crop(frames, renderer, params, rig, rig.H, rig.W)
@@ -2559,7 +3139,7 @@ def main(argv) -> int:
     launches = {k.name: k.launches for k in kernels.KERNELS.values()}
     log(f"training slice: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays, launches {launches}")
     for name, n in launches.items():
-        if n <= 0 and name not in BENCH_ONLY + COMPOSE_ONLY + MULTI_ONLY:
+        if n <= 0 and name not in BENCH_ONLY + COMPOSE_ONLY + MULTI_ONLY + CROWD_ONLY:
             raise AssertionError(f"kernel {name} never launched on the training path")
     trainer, state = out["trainer"], out["state"]
     check_poisoned_step(trainer, state, rig, dev)
@@ -2573,7 +3153,12 @@ def main(argv) -> int:
     # 8. multi-object training, with its own timing
     multi = multi_phase(dev, "--profile" in argv)
 
-    # 9. timing
+    # 9. the crowded scene (K11, K10), and 10. synthetic_multi, with their timing
+    crowd = crowd_phase(dev, "--profile" in argv)
+    synth = synthetic_multi_phase(dev)
+    crowd["times"] = time_crowd_kernels(*crowd["shapes"], synth["hit"])
+
+    # 11. timing
     (frame_ms, frame_min, frame_max), n_rays = time_frames(renderer, params, rig, dev)
     log(f"timing: frame median {frame_ms:.3f} ms (min {frame_min:.3f}, max "
         f"{frame_max:.3f}) for {n_rays} rays, {n_rays / frame_ms * 1e3:.1f} rays/s")
@@ -2591,8 +3176,15 @@ def main(argv) -> int:
         # backward on the multi-object training only (per iteration)
         on_compose = name in COMPOSE_ONLY
         on_multi = name in MULTI_ONLY
-        on_bench = name not in times and not on_compose and not on_multi
-        if on_multi:
+        on_crowd = name in CROWD_ONLY
+        on_bench = name not in times and not on_compose and not on_multi and not on_crowd
+        if on_crowd:
+            # K11's training call (its render call and synthetic_multi's
+            # stand under "crowd"), K10's one shape
+            t = crowd["times"][name][1 if name == "pair_compact" else 0]
+            n_launch, steps, path = (crowd["launches"][name], crowd["iters"],
+                                     "waymo_demo_crowd training")
+        elif on_multi:
             t, n_launch, steps, path = (multi["times"][name], multi["launches"][name],
                                         multi["iters"], "waymo_demo_multi training")
         elif on_compose:
@@ -2604,19 +3196,20 @@ def main(argv) -> int:
         else:
             t, n_launch, steps, path = (times[name], launches[name], TRAIN_STEPS,
                                         "synthetic_object training")
-        found = [e[name] for e in (errs, bench["errs"], compose["errs"], multi["errs"])
-                 if name in e]
+        found = [e[name] for e in (errs, bench["errs"], compose["errs"], multi["errs"],
+                                   crowd["errs"]) if name in e]
         err, tol = max(e for e, _ in found), found[0][1]
         bound_ms, bound_by = t["bound"]
         # K8 runs on no training step: its per-frame count is under "compose"
         row = {"name": name, "route": "cuda", "source": k.source,
                "replaces": k.replaces, "launches": n_launch,
-               "launches_per_step": None if on_compose or on_multi else n_launch / steps,
+               "launches_per_step": None if on_compose or on_multi or on_crowd
+               else n_launch / steps,
                "max_abs_err": err, "max_err": err,
                "tol": tol, "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": t["library_ms"], "shape": t["shape"], "path": path}
-        unit = "frame" if on_compose else "iteration" if on_multi else "step"
+        unit = "frame" if on_compose else "iteration" if on_multi or on_crowd else "step"
         log(f"kernel {name} ({path} path, {n_launch / steps:g} launches per {unit}): "
             f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound {bound_ms:.4f} by {bound_by}) "
             f"at {t['shape']}")
@@ -2667,12 +3260,28 @@ def main(argv) -> int:
             log(f"kernel {name} (compose render path, {row['compose']['launches_per_frame']:g} "
                 f"launches per frame): {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound "
                 f"{c['bound'][0]:.4f} by {c['bound'][1]}) at {c['shape']}")
+        row["crowd"] = {"launches": crowd["launches"][name],
+                        "launches_per_iteration": crowd["launches"][name] / crowd["iters"],
+                        "render_launches_per_frame":
+                            crowd["launches_render"][name] / crowd["n_frames"]}
+        for c in crowd["times"].get(name, []):
+            row["crowd"].setdefault("times", []).append(
+                {"ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+                 "bound_by": c["bound"][1], "library_ms": c["library_ms"], "shape": c["shape"]})
+            log(f"kernel {name} (crowd path, {row['crowd']['launches_per_iteration']:g} launches "
+                f"per iteration, {row['crowd']['render_launches_per_frame']:g} per frame): "
+                f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound {c['bound'][0]:.3g} by "
+                f"{c['bound'][1]}, library "
+                f"{'none' if c['library_ms'] is None else format(c['library_ms'], '.4f')}) at "
+                f"{c['shape']}")
+        row["synthetic_multi"] = {"launches": synth["launches"][name],
+                                  "launches_per_step": synth["launches"][name] / synth["steps"]}
         rows.append(row)
     if "--profile" in argv:
         profile_frame(renderer, params, rig, dev)
         profile_step(trainer, state, rig, dev)
 
-    # 10. results
+    # 12. results
     log(json.dumps({"frame_ms": frame_ms, "frame_ms_min": frame_min,
                     "frame_ms_max": frame_max, "rays_per_s": n_rays / frame_ms * 1e3,
                     "crop_max_abs_err": crop_err,
@@ -2682,7 +3291,8 @@ def main(argv) -> int:
                     "train_steps": TRAIN_STEPS, "loss_rgb_first10": rgb_first,
                     "loss_rgb_last10": rgb_last, "first_step_loss_rel_err": step_loss_err,
                     "first_step_grad_rel_err": step_grad_err, **bench["summary"],
-                    **compose["summary"], **multi["summary"], "card": smi}))
+                    **compose["summary"], **multi["summary"], **crowd["summary"],
+                    **synth["summary"], "card": smi}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Occupancy acceleration: the EMA occupancy grid and its ray proposal."""
-from .occ_grid import OccGridEma, OccGridState
+"""Occupancy acceleration: the EMA occupancy grids and their ray proposal."""
+from .occ_grid import OccGridEma, OccGridEmaBatched, OccGridEmaDynamic, OccGridState
 
-__all__ = ["OccGridEma", "OccGridState"]
+__all__ = ["OccGridEma", "OccGridEmaBatched", "OccGridEmaDynamic", "OccGridState"]

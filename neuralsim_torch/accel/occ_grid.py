@@ -1,17 +1,23 @@
-"""EMA occupancy grid and the fixed-shape grid-skipping ray proposal (port of
-neuralsim_tpu/accel/occ_grid.py:27-203; the batched and dynamic grids are not
-ported yet).
+"""EMA occupancy grids and the fixed-shape grid-skipping ray proposal (port of
+neuralsim_tpu/accel/occ_grid.py:27-337): one grid (:class:`OccGridEma`), one
+per instance of a shared model (:class:`OccGridEmaBatched`) and one per time
+keyframe (:class:`OccGridEmaDynamic`).
 
 The grid state is explicit: an :class:`OccGridState` (float32 values and the
 boolean mask ``val > occ_thre``, device tensors) that the trainer carries and
-hands to the renderer. Two kernels live here, each beside its plain version:
+hands to the renderer. Three kernels live here, each beside its plain version:
 
 * ``occ_ray_proposal`` (K4): probe ``march_steps`` equal segments of
   [near, far] against the mask and draw all ``n_samples`` depths from the
   per-segment occupancy CDF. No gradient: it only places samples.
+* K10 (``occ_ray_proposal`` with ``lead``; counted as
+  ``occ_ray_proposal_batched``): the same march over one of G grids
+  [G, R, R, R] per ray, picked by an int32 index ``lead`` (the row's
+  instance, or its time's keyframe); the same device code as K4.
 * ``occ_ema_update`` (K7): raw field values of the jittered voxel samples ->
   occupancy, max over a voxel's samples, ``max(decay * old, new)``, the
-  warm-up floor and the threshold.
+  warm-up floor and the threshold. The batched and dynamic grids update all
+  their G R^3 voxels in one call, one sample a voxel.
 
 Random draws come in as tensors (``noise`` for the proposal, ``u`` for the
 update), so a caller can replay another package's draws.
@@ -29,6 +35,8 @@ from ..ops.segment import det_u, sample_pdf
 
 K4 = kernels.register("occ_ray_proposal", "neuralsim_torch/csrc/occ_grid.cu",
                       "neuralsim_tpu/accel/occ_grid.py:158")
+K10 = kernels.register("occ_ray_proposal_batched", "neuralsim_torch/csrc/occ_grid.cu",
+                       "neuralsim_tpu/accel/occ_grid.py:247")
 K7 = kernels.register("occ_ema_update", "neuralsim_torch/csrc/occ_grid.cu",
                       "neuralsim_tpu/accel/occ_grid.py:99")
 
@@ -36,7 +44,8 @@ _MODES = {"sdf": 0, "density": 1}
 
 
 class OccGridState(NamedTuple):
-    """val: [R, R, R] float32 EMA occupancy in [0, 1]; mask: bool, val > occ_thre."""
+    """val: [R, R, R] (or [G, R, R, R]: batched, dynamic) float32 EMA
+    occupancy in [0, 1]; mask: bool, val > occ_thre."""
     val: torch.Tensor
     mask: torch.Tensor
 
@@ -48,15 +57,19 @@ class OccGridState(NamedTuple):
 def occ_ray_proposal_plain(rays_o: torch.Tensor, rays_d: torch.Tensor, near: torch.Tensor,
                            far: torch.Tensor, mask: torch.Tensor, aabb_min: torch.Tensor,
                            aabb_max: torch.Tensor, edges01: torch.Tensor, n_samples: int,
-                           noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version of K4 -> depths [N, n_samples], ascending.
+                           noise: Optional[torch.Tensor] = None,
+                           lead: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K4 and K10 -> depths [N, n_samples], ascending.
 
-    rays_o/rays_d: [N, 3]; near/far: [N]; mask: [R, R, R] bool; edges01:
-    [M + 1] segment edges in [0, 1]; noise: [N, n_samples] uniform draws, or
-    None for the stratum midpoints. A ray with no occupied probe gets uniform
-    weights (so an empty grid still renders).
+    rays_o/rays_d: [N, 3]; near/far: [N]; mask: [R, R, R] bool, or
+    [G, R, R, R] with ``lead`` [N] int32, each ray's grid (the flat probe
+    index ``lead * R^3 + cell`` clipped into the G grids, as the JAX take's
+    ``mode="clip"``); edges01: [M + 1] segment edges in [0, 1]; noise:
+    [N, n_samples] uniform draws, or None for the stratum midpoints. A ray
+    with no occupied probe gets uniform weights (so an empty grid still
+    renders).
     """
-    R = mask.shape[0]
+    R = mask.shape[-1]
     t_edges = near[:, None] + (far - near)[:, None] * edges01               # [N, M+1]
     t_mid = 0.5 * (t_edges[:, 1:] + t_edges[:, :-1])
     x = rays_o[:, None, :] + t_mid[..., None] * rays_d[:, None, :]
@@ -64,6 +77,8 @@ def occ_ray_proposal_plain(rays_o: torch.Tensor, rays_d: torch.Tensor, near: tor
     inside = torch.all((x01 >= 0) & (x01 <= 1), dim=-1)
     cell = (x01 * R).to(torch.int32).clamp(0, R - 1).long()
     lin = (cell[..., 0] * R + cell[..., 1]) * R + cell[..., 2]
+    if lead is not None:
+        lin = (lead.long()[:, None] * R ** 3 + lin).clamp(0, mask.numel() - 1)
     occ = (mask.reshape(-1)[lin] & inside).to(torch.float32)                # [N, M]
     hit_any = occ.amax(dim=-1, keepdim=True) > 0.0
     w = occ + (~hit_any).to(torch.float32)
@@ -73,11 +88,13 @@ def occ_ray_proposal_plain(rays_o: torch.Tensor, rays_d: torch.Tensor, near: tor
 def occ_ray_proposal(rays_o: torch.Tensor, rays_d: torch.Tensor, near: torch.Tensor,
                      far: torch.Tensor, mask: torch.Tensor, aabb_min: torch.Tensor,
                      aabb_max: torch.Tensor, edges01: torch.Tensor, n_samples: int,
-                     noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K4 wrapper: the plain version on the CPU, the CUDA kernel on the card."""
+                     noise: Optional[torch.Tensor] = None,
+                     lead: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4 wrapper (K10 with ``lead``, each ray's grid in a [G, R, R, R]
+    mask): the plain version on the CPU, the CUDA kernel on the card."""
     if rays_o.device.type == "cpu":
         return occ_ray_proposal_plain(rays_o, rays_d, near, far, mask, aabb_min, aabb_max,
-                                      edges01, n_samples, noise)
+                                      edges01, n_samples, noise, lead)
     N = rays_o.shape[0]
     if noise is None:
         u, u_stride = det_u(n_samples, rays_o.device), 0
@@ -85,14 +102,16 @@ def occ_ray_proposal(rays_o: torch.Tensor, rays_d: torch.Tensor, near: torch.Ten
         u = ((torch.arange(n_samples, dtype=torch.float32, device=rays_o.device) + noise)
              / n_samples).contiguous()
         u_stride = n_samples
-    kernels.check_cuda("occ_ray_proposal", rays_o, rays_d, near, far, mask, aabb_min,
-                       aabb_max, edges01, u)
     f32 = torch.float32
-    R, M = mask.shape[0], edges01.shape[0] - 1
-    for x, shape, dt in ((rays_o, (N, 3), f32), (rays_d, (N, 3), f32), (near, (N,), f32),
-                         (far, (N,), f32), (mask, (R, R, R), torch.bool),
-                         (aabb_min, (3,), f32), (aabb_max, (3,), f32),
-                         (edges01, (M + 1,), f32)):
+    R, M = mask.shape[-1], edges01.shape[0] - 1
+    G = 1 if lead is None else mask.shape[0]
+    checks = [(rays_o, (N, 3), f32), (rays_d, (N, 3), f32), (near, (N,), f32),
+              (far, (N,), f32), (mask, (R, R, R) if lead is None else (G, R, R, R), torch.bool),
+              (aabb_min, (3,), f32), (aabb_max, (3,), f32), (edges01, (M + 1,), f32)]
+    if lead is not None:
+        checks.append((lead, (N,), torch.int32))
+    kernels.check_cuda("occ_ray_proposal", *(x for x, _, _ in checks), u)
+    for x, shape, dt in checks:
         if tuple(x.shape) != shape or x.dtype != dt:
             raise ValueError(f"occ_ray_proposal: expected {shape} {dt}, got "
                              f"{tuple(x.shape)} {x.dtype}")
@@ -100,10 +119,11 @@ def occ_ray_proposal(rays_o: torch.Tensor, rays_d: torch.Tensor, near: torch.Ten
             or u.shape not in ((n_samples,), (N, n_samples)):
         raise ValueError("occ_ray_proposal: needs 1..64 segments and [N, n_samples] noise")
     t = torch.empty((N, n_samples), dtype=f32, device=rays_o.device)
-    K4.launch("occ_ray_proposal", kernels.ptr(rays_o), kernels.ptr(rays_d), kernels.ptr(near),
-              kernels.ptr(far), kernels.ptr(mask), kernels.ptr(aabb_min),
-              kernels.ptr(aabb_max), kernels.ptr(edges01), kernels.ptr(u), kernels.ptr(t),
-              N, R, M, n_samples, u_stride, kernels.stream())
+    (K4 if lead is None else K10).launch(
+        "occ_ray_proposal", kernels.ptr(rays_o), kernels.ptr(rays_d), kernels.ptr(near),
+        kernels.ptr(far), kernels.ptr(mask), kernels.ptr(lead), kernels.ptr(aabb_min),
+        kernels.ptr(aabb_max), kernels.ptr(edges01), kernels.ptr(u), kernels.ptr(t),
+        N, G, R, M, n_samples, u_stride, kernels.stream())
     return t
 
 
@@ -168,6 +188,9 @@ class OccGridEma:
     the field on the card and a copy of it on the CPU.
     """
 
+    # the number of grids of a [G, R, R, R] state (None: one grid [R, R, R])
+    n_grids: Optional[int] = None
+
     def __init__(self, space, resolution: int = 64, *, occ_thre: float = 0.3,
                  ema_decay: float = 0.95, occ_val_fn: str = "sdf",
                  occ_inv_s: float = 256.0, n_steps_between_update: int = 16,
@@ -204,7 +227,8 @@ class OccGridEma:
     def init_state(self) -> OccGridState:
         """All occupied (or all empty), on the space's device."""
         fill = torch.ones if self.init_occupied else torch.zeros
-        v = fill((self.res,) * 3, dtype=torch.float32, device=self.space.aabb_min.device)
+        lead = () if self.n_grids is None else (self.n_grids,)
+        v = fill(lead + (self.res,) * 3, dtype=torch.float32, device=self.space.aabb_min.device)
         return OccGridState(v, v > self.occ_thre)
 
     @property
@@ -227,6 +251,36 @@ class OccGridEma:
         return occ_from_raw(out, self.occ_val_fn, self.raw_scale, self.occ_inv_s)
 
     # -- EMA update -----------------------------------------------------------
+    @property
+    def jitter_shape(self) -> Tuple[int, ...]:
+        """The shape of :meth:`update`'s voxel jitter ``u``: samples_per_voxel
+        draws a voxel, or one a voxel of each of G grids (the JAX package's
+        batched and dynamic updates ignore ``samples_per_voxel``)."""
+        lead = self.samples_per_voxel if self.n_grids is None else self.n_grids
+        return (lead,) + (self.res,) * 3 + (3,)
+
+    def _voxel_points(self, u: torch.Tensor) -> torch.Tensor:
+        """Jitter u [L, R, R, R, 3] -> the points [L * R^3, 3] of every voxel
+        of each of the L leading entries (samples, instances or keyframes)."""
+        R = self.res
+        if u is None or tuple(u.shape) != self.jitter_shape:
+            raise ValueError(f"update: the voxel jitter u must be {self.jitter_shape}, got "
+                             f"{None if u is None else tuple(u.shape)}")
+        ar = torch.arange(R, device=u.device)
+        idx = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"), dim=-1)
+        mn, mx = self.box(u.device)
+        return ((idx[None] + u) / R).reshape(-1, 3) * (mx - mn) + mn
+
+    def _ema(self, state: OccGridState, raw: torch.Tensor, it: int) -> OccGridState:
+        """K7 over the whole state: ``raw`` [S, V] field values of the V voxels
+        of ``state`` (flattened in order), S samples each."""
+        warm_floor = self.occ_thre + 1e-3 if it < self.n_warmup_steps else None
+        val, mask = occ_ema_update(raw.to(torch.float32).contiguous(),
+                                   state.val.reshape(-1).contiguous(), self.occ_val_fn,
+                                   self.raw_scale, self.occ_inv_s, self.ema_decay,
+                                   self.occ_thre, warm_floor)
+        return OccGridState(val.reshape(state.val.shape), mask.reshape(state.val.shape))
+
     @torch.no_grad()
     def update(self, state: OccGridState, query_fn: Callable[[torch.Tensor], torch.Tensor],
                u: torch.Tensor, it: int) -> OccGridState:
@@ -234,20 +288,8 @@ class OccGridEma:
         (the sdf or the density); ``u``: [samples_per_voxel, R, R, R, 3]
         uniform draws that jitter the samples inside their voxels; ``it``: the
         iteration, for the warm-up."""
-        R, S = self.res, self.samples_per_voxel
-        if u is None or tuple(u.shape) != (S, R, R, R, 3):
-            raise ValueError(f"update: the voxel jitter u must be {(S, R, R, R, 3)}, got "
-                             f"{None if u is None else tuple(u.shape)}")
-        ar = torch.arange(R, device=u.device)
-        idx = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"), dim=-1)
-        mn, mx = self.box(u.device)
-        x = ((idx[None] + u) / R).reshape(-1, 3) * (mx - mn) + mn
-        raw = query_fn(x).reshape(S, R * R * R).to(torch.float32).contiguous()
-        warm_floor = self.occ_thre + 1e-3 if it < self.n_warmup_steps else None
-        val, mask = occ_ema_update(raw, state.val.reshape(-1).contiguous(), self.occ_val_fn,
-                                   self.raw_scale, self.occ_inv_s, self.ema_decay,
-                                   self.occ_thre, warm_floor)
-        return OccGridState(val.reshape(R, R, R), mask.reshape(R, R, R))
+        raw = query_fn(self._voxel_points(u))
+        return self._ema(state, raw.reshape(self.samples_per_voxel, -1), it)
 
     def maybe_update(self, state: OccGridState, query_fn: Callable,
                      u: Optional[torch.Tensor], it: int) -> OccGridState:
@@ -261,11 +303,23 @@ class OccGridEma:
     # -- queries ---------------------------------------------------------------
     def occupancy_at(self, state: OccGridState, x: torch.Tensor) -> torch.Tensor:
         """bool occupancy at points [..., 3] (False outside the box)."""
+        return self._occupancy_in(state, x)
+
+    def _occupancy_in(self, state: OccGridState, x: torch.Tensor,
+                      lead: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The mask at points [..., 3], of grid ``lead`` [...] of a [G, R, R, R]
+        state (a negative index counts from the end, then the index is clamped
+        into the G grids, as JAX's indexing gather does)."""
         mn, mx = self.box(x.device)
         x01 = (x - mn) / (mx - mn)
         inside = torch.all((x01 >= 0) & (x01 <= 1), dim=-1)
         cell = (x01 * self.res).to(torch.int32).clamp(0, self.res - 1).long()
-        return state.mask[cell[..., 0], cell[..., 1], cell[..., 2]] & inside
+        at = (cell[..., 0], cell[..., 1], cell[..., 2])
+        if lead is not None:
+            G = state.mask.shape[0]
+            lead = lead.long()
+            at = (torch.where(lead < 0, lead + G, lead).clamp(0, G - 1),) + at
+        return state.mask[at] & inside
 
     def occupied_fraction(self, state: OccGridState) -> torch.Tensor:
         return state.mask.to(torch.float32).mean()
@@ -288,14 +342,96 @@ class OccGridEma:
     def ray_proposal(self, state: OccGridState, rays_o: torch.Tensor, rays_d: torch.Tensor,
                      near: torch.Tensor, far: torch.Tensor, n_samples: int,
                      noise: Optional[torch.Tensor] = None,
-                     march_steps: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     march_steps: Optional[int] = None,
+                     lead: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Occupancy-concentrated depth proposal: ``n_samples`` ascending
         depths per ray, all inside occupied segments of the fixed-step march
         (uniform over [near, far] for a ray that touches nothing occupied).
         ``noise``: [N, n_samples] uniform draws; None gives the deterministic
-        stratum midpoints. -> (t [N, n_samples], valid: all True)."""
+        stratum midpoints. ``lead`` [N]: each ray's grid of a [G, R, R, R]
+        state (K10). -> (t [N, n_samples], valid: all True)."""
         M = march_steps or self.march_steps
         t = occ_ray_proposal(rays_o.contiguous(), rays_d.contiguous(), near.contiguous(),
-                             far.contiguous(), state.mask, *self.box(rays_o.device),
-                             self.edges01(M, rays_o.device), n_samples, noise)
+                             far.contiguous(), state.mask.contiguous(), *self.box(rays_o.device),
+                             self.edges01(M, rays_o.device), n_samples, noise,
+                             None if lead is None else lead.to(torch.int32).contiguous())
         return t, torch.ones_like(t, dtype=torch.bool)
+
+
+class OccGridEmaBatched(OccGridEma):
+    """One EMA grid per instance of a shared categorical model ([B, R, R, R]
+    over the model's canonical box; port of occ_grid.py:206-268)."""
+
+    def __init__(self, space, n_instances: int, resolution: int = 32, **kw):
+        super().__init__(space, resolution, **kw)
+        self.n_instances = self.n_grids = n_instances
+
+    @torch.no_grad()
+    def update(self, state: OccGridState,
+               query_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+               u: torch.Tensor, it: int) -> OccGridState:
+        """``query_fn(x [P, 3], bidx [P])`` -> each instance's raw field
+        values; ``u``: [B, R, R, R, 3]. All B R^3 voxels go through K7 at once."""
+        x = self._voxel_points(u)
+        bidx = torch.arange(self.n_instances, device=u.device).repeat_interleave(self.res ** 3)
+        return self._ema(state, query_fn(x, bidx).reshape(1, -1), it)
+
+    def occupancy_at(self, state: OccGridState, x: torch.Tensor,
+                     bidx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """bool occupancy of instance ``bidx`` [...] (default 0) at points [..., 3]."""
+        return self._occupancy_in(state, x, torch.zeros(x.shape[:-1], dtype=torch.long,
+                                                        device=x.device) if bidx is None
+                                  else bidx)
+
+    def ray_proposal_batched(self, state: OccGridState, rays_o: torch.Tensor,
+                             rays_d: torch.Tensor, near: torch.Tensor, far: torch.Tensor,
+                             n_samples: int, bidx: torch.Tensor,
+                             noise: Optional[torch.Tensor] = None,
+                             march_steps: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`ray_proposal` over each ray's own instance grid ``bidx`` [N] (K10)."""
+        return self.ray_proposal(state, rays_o, rays_d, near, far, n_samples, noise,
+                                 march_steps, lead=bidx)
+
+
+class OccGridEmaDynamic(OccGridEma):
+    """One EMA grid per time keyframe ([K, R, R, R]) of a time-conditioned
+    field; a query picks the keyframe of its normalized time in [0, 1]
+    (port of occ_grid.py:271-337)."""
+
+    def __init__(self, space, resolution: int = 32, *, n_keyframes: int = 8, **kw):
+        super().__init__(space, resolution, **kw)
+        self.n_keyframes = self.n_grids = n_keyframes
+
+    def _kf(self, t01: torch.Tensor) -> torch.Tensor:
+        return (t01 * self.n_keyframes).to(torch.int32).clamp(0, self.n_keyframes - 1)
+
+    @torch.no_grad()
+    def update(self, state: OccGridState,
+               query_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+               u: torch.Tensor, it: int) -> OccGridState:
+        """``query_fn(x [P, 3], t01 [P])`` -> raw field values at keyframe k's
+        time ``(k + 0.5) / K``; ``u``: [K, R, R, R, 3]."""
+        x = self._voxel_points(u)
+        K = self.n_keyframes
+        t01 = ((torch.arange(K, dtype=torch.float32, device=u.device) + 0.5) / K
+               ).repeat_interleave(self.res ** 3)
+        return self._ema(state, query_fn(x, t01).reshape(1, -1), it)
+
+    def occupancy_at(self, state: OccGridState, x: torch.Tensor,
+                     t01: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """bool occupancy at points [..., 3] in the keyframe of ``t01`` (default 0)."""
+        return self._occupancy_in(state, x, torch.zeros(x.shape[:-1], dtype=torch.long,
+                                                        device=x.device) if t01 is None
+                                  else self._kf(t01.expand(x.shape[:-1])))
+
+    def ray_proposal_dynamic(self, state: OccGridState, rays_o: torch.Tensor,
+                             rays_d: torch.Tensor, near: torch.Tensor, far: torch.Tensor,
+                             n_samples: int, t01: torch.Tensor,
+                             noise: Optional[torch.Tensor] = None,
+                             march_steps: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`ray_proposal` over the keyframe grid of each ray's time
+        ``t01`` [N] (K10)."""
+        return self.ray_proposal(state, rays_o, rays_d, near, far, n_samples, noise,
+                                 march_steps, lead=self._kf(t01))

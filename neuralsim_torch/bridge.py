@@ -6,7 +6,7 @@ for ``{"layers": [{"W": ...}]}``), with the JAX layouts, so every leaf copies
 over untransposed. That holds for every field of the port: the NeuS field
 (table, decoder, radiance, ``ln_inv_s``), the distant field (decoder,
 radiance) and the sky. An occupancy grid's state is two arrays, ``val`` and
-``mask``.
+``mask`` ([R, R, R], or [G, R, R, R] for per-instance and per-keyframe grids).
 """
 from __future__ import annotations
 
@@ -69,5 +69,15 @@ def occ_state_from_numpy(val: np.ndarray, mask: np.ndarray, device="cpu") -> Occ
     fields as numpy arrays (``val`` float [R, R, R], ``mask`` bool)."""
     if val.shape != mask.shape or val.ndim != 3:
         raise ValueError(f"val {val.shape} and mask {mask.shape} must be equal [R, R, R]")
+    return OccGridState(torch.from_numpy(np.array(val, dtype=np.float32)).to(device),
+                        torch.from_numpy(np.array(mask, dtype=bool)).to(device))
+
+
+def grid_state_from_numpy(val: np.ndarray, mask: np.ndarray, device="cpu") -> OccGridState:
+    """The state of per-instance or per-keyframe grids (``OccGridEmaBatched``,
+    ``OccGridEmaDynamic``) from the JAX package's ``OccGridState`` fields as
+    numpy arrays (``val`` float [G, R, R, R], ``mask`` bool)."""
+    if val.shape != mask.shape or val.ndim != 4:
+        raise ValueError(f"val {val.shape} and mask {mask.shape} must be equal [G, R, R, R]")
     return OccGridState(torch.from_numpy(np.array(val, dtype=np.float32)).to(device),
                         torch.from_numpy(np.array(mask, dtype=bool)).to(device))

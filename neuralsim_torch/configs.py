@@ -24,6 +24,21 @@ resolved, at ``num_iters`` 6,000. Its dataset is the in-memory demo scenario
 (``dataio/waymo_demo.demo_scenario``, the generator's defaults) in place of
 the files that ``neuralsim_tpu.dataio.waymo_demo`` writes; ``occ_converge``
 is the street grid's warm-up against the drive's static ground.
+
+``WAYMO_DEMO_CROWD`` is a port-side variant of ``WAYMO_DEMO_MULTI`` with
+exactly two changes: the demo drive has 8 vehicles, so the shared vehicle
+model's group (K = 8 > 4) takes the pair-budget path under
+``group_budget_frac: auto`` (kernel K11), and the vehicles get per-instance
+occupancy grids (``accel_cfg``, the values ``OccGridEmaBatched`` takes by
+default in the JAX package; kernel K10). No YAML of the repo sets a vehicle
+``accel_cfg``, so the tests build the JAX package from this dict too.
+
+``SYNTHETIC_MULTI`` mirrors configs/synthetic_multi.yaml value by value: two
+spheres on one shared conditional LoTD model over a ground plane (the street's
+LoTD NeuS with 2 hash levels, no grid, no distant field) and a sky, on the
+procedural ``SyntheticMultiObjectDataset``. Its renderer block sets no
+``group_budget_frac``, so the training default of 1.0 puts the two spheres on
+the pair-budget path.
 """
 from __future__ import annotations
 
@@ -218,6 +233,72 @@ WAYMO_DEMO_MULTI: Dict[str, Any] = {
         },
     },
     "occ_converge": {"n": 40, "it": 1000},
+}
+
+WAYMO_DEMO_CROWD: Dict[str, Any] = copy.deepcopy(WAYMO_DEMO_MULTI)
+WAYMO_DEMO_CROWD["dataset_cfg"]["params"]["n_vehicles"] = 8
+WAYMO_DEMO_CROWD["assetbank_cfg"]["Vehicle"]["model_params"]["accel_cfg"] = {
+    "resolution": 32, "occ_thre": 0.3, "ema_decay": 0.95, "inv_s": 256.0}
+
+SYNTHETIC_MULTI: Dict[str, Any] = {
+    "exp_dir": "logs/synthetic_multi",
+    "seed": 42,
+    "dataset_cfg": {
+        "target": "neuralsim_tpu.dataio.synthetic_multi.SyntheticMultiObjectDataset",
+        "params": {"n_frames": 8, "H": 64, "W": 64},
+    },
+    "assetbank_cfg": {
+        "Vehicle": {
+            "model_class": "neuralsim_tpu.models.assets.ADGenerativeLoTDConcatNeuSObj",
+            "model_params": {
+                "z_dim": 8,
+                "encoding_cfg": {"n_levels": 8, "base_res": 8, "max_res": 128, "n_feats": 4,
+                                 "cp_max_res": 128},
+                "geo_feat_dim": 15,
+                "radiance_hidden": 32,
+                "inv_s_init": 30.0,
+                "query_cfg": {"num_coarse": 24, "num_fine": [8],
+                              "upsample_inv_s_factors": [1.0]},
+            },
+            "asset_params": {"training_cfg": {"lr": 0.008}},
+        },
+        "Street": {
+            "model_class": "neuralsim_tpu.models.assets.LoTDNeuSStreet",
+            "model_params": {
+                "aabb": [[-4.0, -4.0, -1.2], [4.0, 4.0, 1.6]],
+                "encoding_cfg": {"type": "tpu_mixed", "n_levels": 8, "base_res": 8,
+                                 "max_res": 256, "n_feats": 2, "n_hash_levels": 2,
+                                 "log2_hashmap_size": 15},
+                "geo_feat_dim": 15,
+                "radiance_hidden": 32,
+                "inv_s_init": 20.0,
+                "accel_cfg": None,
+                "pretrain": {"type": "road_surface", "z_road": -0.6, "up_axis": 2},
+                "query_cfg": {"num_coarse": 48, "num_fine": [8, 8],
+                              "upsample_inv_s_factors": [1.0, 4.0]},
+            },
+            "asset_params": {"training_cfg": {"lr": 0.008}},
+        },
+        "Sky": {
+            "model_class": "neuralsim_tpu.models.assets.SimpleSkyAsset",
+            "model_params": {"hidden": 32},
+            "asset_params": {"training_cfg": {"lr": 0.003}},
+        },
+    },
+    "renderer": {"cr_class": "Street", "sky_class": "Sky"},
+    "training": {
+        "num_iters": 3000,
+        "n_rays": 2048,
+        "uniform_sample_n": 256,
+        "i_log": 100,
+        "with_mask": True,
+        "losses": {
+            "rgb": {"fn_type": "huber", "fn_param": {"delta": 0.1}, "w": 10.0},
+            "occupancy_mask": {"w": 0.2},
+            "eikonal": {"w": 0.01},
+            "latent": {"w": 0.001},
+        },
+    },
 }
 
 # the top-level keys of the YAML file that SYNTHETIC_OBJECT mirrors

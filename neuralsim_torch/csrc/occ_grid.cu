@@ -1,9 +1,16 @@
-// K4 occ_ray_proposal and K7 occ_ema_update: the EMA occupancy grid.
+// K4 and K10 occ_ray_proposal, K7 occ_ema_update: the EMA occupancy grids.
 //
 // Replaces:
 //   K4  neuralsim_tpu/accel/occ_grid.py OccGridEma.ray_proposal (lines
 //       158-203) with _occ_probe_f (lines 136-152) and ops/segment.py
 //       sample_pdf (lines 229-276);
+//   K10 OccGridEmaBatched.ray_proposal_batched (lines 247-268) and
+//       OccGridEmaDynamic.ray_proposal_dynamic (lines 320-337): the same
+//       march over one of G grids [G, R, R, R] per ray, chosen by an index
+//       ``lead`` (the row's instance, or its time's keyframe); the probe reads
+//       the flat cell lead * R^3 + cell, clipped to [0, G R^3 - 1] as
+//       _occ_probe_f's take(mode="clip") does. K4 is the same device code with
+//       no index (G = 1);
 //   K7  neuralsim_tpu/accel/occ_grid.py OccGridEma.update (lines 99-118)
 //       after the field evaluation, with _occ_from_raw (lines 75-93).
 //
@@ -24,8 +31,8 @@
 // the weights goes from the left in f32, as the plain version's does: an
 // empty segment weighs 1e-6 against 1, so nearly every bin is near-empty and
 // the inverse CDF turns a last-bit cdf difference there into a depth shift.
-// What bounds it on an H100: neither bytes (32 B of ray data, M mask bytes,
-// 4*n noise and 4*n output bytes per ray) nor operations; it is bound by
+// What bounds it on an H100: neither bytes (32 B of ray data, 4 B of lead, M
+// mask bytes, 4*n noise and 4*n output bytes per ray) nor operations; it is bound by
 // launch latency and the two sequential passes over the M segments, hence one
 // thread per draw instead of one per ray (16 times the threads in flight).
 //
@@ -55,13 +62,14 @@ __global__ void occ_ray_proposal_kernel(const float* __restrict__ rays_o,   // [
                                         const float* __restrict__ rays_d,   // [N, 3]
                                         const float* __restrict__ near,     // [N]
                                         const float* __restrict__ far,      // [N]
-                                        const uint8_t* __restrict__ grid,   // [R, R, R] bool
+                                        const uint8_t* __restrict__ grid,   // [G, R, R, R] bool
+                                        const int32_t* __restrict__ lead,   // [N] or null (G = 1)
                                         const float* __restrict__ aabb_min, // [3]
                                         const float* __restrict__ aabb_max, // [3]
                                         const float* __restrict__ lin,      // [M + 1] in [0, 1]
                                         const float* __restrict__ u,        // [n] or [N, n]
                                         float* __restrict__ t_out,          // [N, n]
-                                        int N, int R, int M, int n, int u_stride) {
+                                        int N, int G, int R, int M, int n, int u_stride) {
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int r = (int)(g / n), k = (int)(g - (long long)r * n);
   if (r >= N) return;
@@ -78,6 +86,9 @@ __global__ void occ_ray_proposal_kernel(const float* __restrict__ rays_o,   // [
     ext[a] = __fsub_rn(__ldg(aabb_max + a), mn[a]);
   }
   const float Rf = (float)R;
+  const long long R3 = (long long)R * R * R;
+  const long long base = lead ? (long long)lead[r] * R3 : 0ll;
+  const long long last = (long long)G * R3 - 1;
 
   // probes: bit i of occ says that segment i's midpoint lies in an occupied cell
   unsigned long long occ = 0ull;
@@ -95,7 +106,8 @@ __global__ void occ_ray_proposal_kernel(const float* __restrict__ rays_o,   // [
       const int c = (int)__fmul_rn(x01, Rf);
       cell[a] = min(max(c, 0), R - 1);
     }
-    const size_t at = ((size_t)cell[0] * R + cell[1]) * R + cell[2];
+    long long at = base + ((long long)cell[0] * R + cell[1]) * R + cell[2];
+    at = at < 0 ? 0 : (at > last ? last : at);
     if (inside && grid[at]) occ |= 1ull << i;
     e0 = e1;
   }
@@ -155,19 +167,21 @@ __global__ void occ_ema_update_kernel(const float* __restrict__ raw,   // [S, V]
 
 }  // namespace
 
+// lead: null for one grid (K4), else an int32 grid index per ray (K10).
 extern "C" int occ_ray_proposal(const void* rays_o, const void* rays_d, const void* near,
-                                const void* far, const void* grid, const void* aabb_min,
-                                const void* aabb_max, const void* lin, const void* u,
-                                void* t_out, int N, int R, int M, int n, int u_stride,
-                                void* stream) {
-  if (M < 1 || M > 64 || n < 1 || R < 1) return (int)cudaErrorInvalidValue;
+                                const void* far, const void* grid, const void* lead,
+                                const void* aabb_min, const void* aabb_max, const void* lin,
+                                const void* u, void* t_out, int N, int G, int R, int M, int n,
+                                int u_stride, void* stream) {
+  if (M < 1 || M > 64 || n < 1 || R < 1 || G < 1) return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const long long work = (long long)N * n;
   const int blocks = work > 0 ? (int)((work + threads - 1) / threads) : 1;
   occ_ray_proposal_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)rays_o, (const float*)rays_d, (const float*)near, (const float*)far,
-      (const uint8_t*)grid, (const float*)aabb_min, (const float*)aabb_max,
-      (const float*)lin, (const float*)u, (float*)t_out, N, R, M, n, u_stride);
+      (const uint8_t*)grid, (const int32_t*)lead, (const float*)aabb_min,
+      (const float*)aabb_max, (const float*)lin, (const float*)u, (float*)t_out, N, G, R, M, n,
+      u_stride);
   return (int)cudaGetLastError();
 }
 

@@ -40,14 +40,16 @@ K5A = kernels.register("neus_upsample.weights_pdf", "neuralsim_torch/csrc/neus_u
                        "neuralsim_tpu/fields/neus.py:93")
 
 
-def map_chunked(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
-                chunk: Optional[int]) -> torch.Tensor:
-    """``fn`` over the leading axis of ``x`` in pieces of at most ``chunk``
-    rows, which bounds the memory of a huge field evaluation (the occupancy
-    grid's 128^3 points); the values do not depend on the chunking."""
+def map_chunked(fn: Callable[..., torch.Tensor], x: torch.Tensor, chunk: Optional[int],
+                *more: torch.Tensor) -> torch.Tensor:
+    """``fn(x, *more)`` over the leading axis of ``x`` (and of ``more``, the
+    same length) in pieces of at most ``chunk`` rows, which bounds the memory
+    of a huge field evaluation (the occupancy grid's 128^3 points); the values
+    do not depend on the chunking."""
     if not chunk or x.shape[0] <= chunk:
-        return fn(x)
-    return torch.cat([fn(x[s:s + chunk]) for s in range(0, x.shape[0], chunk)], dim=0)
+        return fn(x, *more)
+    return torch.cat([fn(x[s:s + chunk], *(m[s:s + chunk] for m in more))
+                      for s in range(0, x.shape[0], chunk)], dim=0)
 
 
 # ---------------------------------------------------------------------------

@@ -41,10 +41,11 @@ SIGNATURES: Dict[str, str] = {
     "merge_sorted_samples": "pppppppppiiip",
     "volume_composite_fwd": "pppppppppppiip",
     "volume_composite_bwd": "pppppppppppppiip",
-    "occ_ray_proposal": "ppppppppppiiiiip",
+    "occ_ray_proposal": "pppppppppppiiiiiip",
     "occ_ema_update": "ppppiiifffffp",
     "cross_source_vw": "pppppiip",
     "cross_source_vw_bwd": "ppppppiip",
+    "pair_compact": "ppppppiiiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -16,7 +16,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..accel import OccGridEma
+from ..accel import OccGridEma, OccGridEmaBatched
 from ..fields.conditional import ConditionalLoTDNeuSField
 from ..fields.nerf import NeRFDistantField
 from ..fields.neus import NeuSField
@@ -150,15 +150,15 @@ class ADGenerativeLoTDConcatNeuSObj(AssetModel):
     """One conditional LoTD NeuS for every object of a class in a scene, with
     per-instance latents (``ConditionalLoTDNeuSField``). The canonical box has
     the class's mean aspect: the mean over the objects of each one's mean
-    scale over its valid frames, over its largest entry. Not ported yet: the
-    batched per-instance occupancy grids (``accel_cfg``)."""
+    scale over its valid frames, over its largest entry. With an
+    ``accel_cfg``, one occupancy grid per instance over that box
+    (``OccGridEmaBatched``; of the config it reads the resolution, the
+    threshold, the EMA decay and ``inv_s``, as the JAX package does)."""
 
     assignment = AssetAssignment.MULTI_OBJ_ONE_SCENE
 
     def populate(self, scene=None, obj_ids=None) -> None:
         mp = self.model_params
-        if mp.get("accel_cfg"):
-            raise NotImplementedError("batched occupancy grids (K10) are not ported")
         obj_ids = list(obj_ids or [])
         self.instance_index = {oid: i for i, oid in enumerate(obj_ids)}
         aspect = np.ones(3, np.float32)
@@ -172,8 +172,9 @@ class ADGenerativeLoTDConcatNeuSObj(AssetModel):
             if scales:
                 aspect = np.mean(scales, 0)
                 aspect = aspect / max(aspect.max(), 1e-6)
+        space = AABBSpace(-aspect, aspect)
         self.field = ConditionalLoTDNeuSField(
-            AABBSpace(-aspect, aspect),
+            space,
             n_instances=max(len(obj_ids), 1),
             z_dim=mp.get("z_dim", 8),
             encoding_cfg=mp.get("encoding_cfg"),
@@ -182,6 +183,13 @@ class ADGenerativeLoTDConcatNeuSObj(AssetModel):
             ln_inv_s_init=float(np.log(mp.get("inv_s_init", 20.0))),
             cos_anneal_stop_it=mp.get("cos_anneal_stop_it", 0))
         self.query_cfg = dict(mp.get("query_cfg", {}))
+        accel_cfg = mp.get("accel_cfg")
+        if accel_cfg:
+            self.accel = OccGridEmaBatched(space, max(len(obj_ids), 1),
+                                           accel_cfg.get("resolution", 32),
+                                           occ_thre=accel_cfg.get("occ_thre", 0.3),
+                                           ema_decay=accel_cfg.get("ema_decay", 0.95),
+                                           occ_inv_s=accel_cfg.get("inv_s", 256.0))
 
 
 class NeRFDistant(AssetModel):

@@ -32,6 +32,15 @@ the asset bank and the compose renderer::
 Training it (``tools/train_multi.py`` runs the loop)::
 
     scene, bank, trainer, state, samplers = build_multi_trainer(C)   # on the card
+
+``WAYMO_DEMO_CROWD`` (8 vehicles with per-instance occupancy grids, the
+pair-budget path) and ``SYNTHETIC_MULTI`` (configs/synthetic_multi.yaml: the
+procedural two-sphere scene, ``SyntheticMultiObjectDataset``) build the same
+way; a render of the crowd starts from converged vehicle grids::
+
+    veh = renderer.objects[0].model_id
+    occ[veh] = converge_occ(renderer.accels[veh], renderer.accels[veh].init_state(),
+                            lambda x, b: params[veh].query_sdf(x, bidx=b))
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from ..accel import OccGridEma, OccGridState
 from ..configs import resolve_refs
 from ..dataio.synthetic import sdf_scene_tensor
 from ..dataio.dataloader import LidarSampler, PixelSampler, SceneDataLoader
+from ..dataio.synthetic_multi import SyntheticMultiObjectDataset
 from ..dataio.waymo_demo import demo_scenario, demo_sequence
 from ..fields.nerf import NeRFDistantField
 from ..fields.neus import NeuSField
@@ -135,20 +145,21 @@ def build_renderer(cfg: Dict[str, Any], device="cuda"
     return renderer, params
 
 
-def converge_occ(accel: OccGridEma, state: OccGridState,
-                 sdf_fn: Callable[[torch.Tensor], torch.Tensor], n: int = 40, it: int = 1000,
-                 seed: int = 0) -> OccGridState:
-    """``n`` EMA updates of the grid against an analytic SDF (points [P, 3]
-    -> sdf [P], on the grid's device: the synthetic scene's
-    ``sdf_scene_tensor``, the demo drive's ``ground_sdf_tensor``), so that
-    rendering and training start from the grid's steady state (the warm-up
-    of the JAX package's ``bench.py``). ``it`` is the iteration the updates
-    see (past any warm-up); the voxel jitter comes from ``seed``."""
+def converge_occ(accel: OccGridEma, state: OccGridState, sdf_fn: Callable[..., torch.Tensor],
+                 n: int = 40, it: int = 1000, seed: int = 0) -> OccGridState:
+    """``n`` EMA updates of the grid against an SDF (points [P, 3] -> sdf
+    [P], on the grid's device: the synthetic scene's ``sdf_scene_tensor``,
+    the demo drive's ``ground_sdf_tensor``; for per-instance grids,
+    ``OccGridEmaBatched``, points and instance indices [P] -> sdf [P], such
+    as a shared model's own ``query_sdf(x, bidx=b)``), so that rendering and
+    training start from the grid's steady state (the warm-up of the JAX
+    package's ``bench.py``). ``it`` is the iteration the updates see (past
+    any warm-up); the voxel jitter comes from ``seed``."""
     dev = state.val.device
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shape = (accel.samples_per_voxel,) + (accel.res,) * 3 + (3,)
     for _ in range(n):
-        state = accel.update(state, sdf_fn, torch.rand(shape, generator=gen, device=dev), it)
+        state = accel.update(state, sdf_fn,
+                             torch.rand(accel.jitter_shape, generator=gen, device=dev), it)
     return state
 
 
@@ -179,12 +190,33 @@ def build_trainer(cfg: Dict[str, Any], device="cuda") -> Tuple[Trainer, TrainSta
     return trainer, state
 
 
-def _demo_params(cfg: Dict[str, Any]) -> Dict[str, Any]:
+def _dataset_target(cfg: Dict[str, Any]) -> Tuple[str, Dict[str, Any]]:
     ds = cfg["dataset_cfg"]
-    if ds["target"].rsplit(".", 1)[-1] not in ("demo_scenario", "demo_sequence"):
+    name = ds["target"].rsplit(".", 1)[-1]
+    if name not in ("demo_scenario", "demo_sequence", "SyntheticMultiObjectDataset"):
         raise NotImplementedError(f"dataset {ds['target']} is not ported; the compose path "
-                                  "runs the in-memory demo drive")
-    return dict(ds.get("params", {}))
+                                  "runs the in-memory demo drive and the synthetic "
+                                  "multi-object scene")
+    return name, dict(ds.get("params", {}))
+
+
+def multi_scenario(cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The scenario of a multi-object config's dataset (all a render needs)."""
+    name, params = _dataset_target(cfg)
+    if name == "SyntheticMultiObjectDataset":
+        return SyntheticMultiObjectDataset(**params).get_scenario()
+    return demo_scenario(**params)
+
+
+def multi_dataset(cfg: Dict[str, Any]):
+    """The dataset of a multi-object config with its data, for the data
+    loader: the demo drive's sequence in memory (``demo_sequence``: images,
+    masks, LiDAR) or ``SyntheticMultiObjectDataset``; both answer
+    ``get_scenario()``."""
+    name, params = _dataset_target(cfg)
+    if name == "SyntheticMultiObjectDataset":
+        return SyntheticMultiObjectDataset(**params)
+    return demo_sequence(**params)
 
 
 def build_compose_renderer(cfg: Dict[str, Any], device="cuda", scenario=None
@@ -193,22 +225,24 @@ def build_compose_renderer(cfg: Dict[str, Any], device="cuda", scenario=None
     scenario -> ``Scene.load_from_scenario`` -> ``AssetBank.create`` ->
     ``BufferComposeRenderer.from_asset_bank``, with the ``renderer`` block's
     settings, and the bank's parameters seeded from the config's ``seed``.
-    The dataset is the in-memory demo scenario (or ``scenario``, where the
-    caller built it). The street's occupancy grid (``renderer.accels["cr"]``)
-    comes without a state: converge one with :func:`converge_occ`."""
+    The scenario is the config's dataset's (:func:`multi_scenario`), or
+    ``scenario`` where the caller built it. The occupancy grids
+    (``renderer.accels``: the street's under "cr", a shared model's
+    per-instance grids under its model id) come without a state: converge
+    them with :func:`converge_occ`."""
     dev = resolve_device(device)
     if scenario is None:
-        scenario = demo_scenario(**_demo_params(cfg))
+        scenario = multi_scenario(cfg)
     scene = Scene.load_from_scenario(scenario, device=dev)
     bank = AssetBank.create(cfg["assetbank_cfg"], [scene])
-    # ``max_hits_per_ray`` is read only by the pair-budget path (K11), not ported
     rcfg = cfg.get("renderer", {})
     renderer = BufferComposeRenderer.from_asset_bank(
         scene, bank, obj_query_cfg=dict(rcfg.get("obj_query_cfg", {})),
         cr_class=rcfg.get("cr_class", "Street"), distant_class=rcfg.get("distant_class", "Distant"),
         sky_class=rcfg.get("sky_class", "Sky"),
         hit_budget_frac=rcfg.get("hit_budget_frac", 0.5),
-        group_budget_frac=rcfg.get("group_budget_frac", 1.0))
+        group_budget_frac=rcfg.get("group_budget_frac", 1.0),
+        max_hits_per_ray=rcfg.get("max_hits_per_ray", 4))
     params = bank.init_params(torch.Generator().manual_seed(int(cfg.get("seed", 0))), dev)
     return scene, bank, renderer, params
 
@@ -229,13 +263,14 @@ def render_multi_frame(renderer: BufferComposeRenderer, params: nn.ModuleDict, s
 def build_multi_trainer(cfg: Dict[str, Any], device="cuda",
                         timings: Optional[Dict[str, float]] = None):
     """-> (scene, bank, trainer, state, samplers) of a multi-object config:
-    the demo drive's sequence in memory (scenario, images, masks, LiDAR), the
+    its dataset in memory (:func:`multi_dataset`: the demo drive's scenario,
+    images, masks and LiDAR, or the synthetic multi-object scene), the
     compose renderer and the bank's seeded parameters
     (:func:`build_compose_renderer`), each asset's geometry pretraining (the
     street's road surface; its uniform draws from a generator seeded with
     ``seed + 1`` on the device), a :class:`MultiObjectTrainer` with one Adam
     per model (``asset_params.training_cfg``), its state with the street's
-    grid at ``init_state`` (not converged, as in the JAX package's training),
+    grids at ``init_state`` (not converged, as in the JAX package's training),
     and ``samplers`` {"pixel": PixelSampler (with the ``training.error_map``
     importance sampler), "lidar": LidarSampler or None, "imp": ImpSampler or
     None}. ``timings``, where given, receives the seconds of each part."""
@@ -247,10 +282,11 @@ def build_multi_trainer(cfg: Dict[str, Any], device="cuda",
     seed = int(cfg.get("seed", 0))
 
     t0 = time.perf_counter()
-    seq = demo_sequence(**_demo_params(cfg))
+    seq = multi_dataset(cfg)
+    scenario = seq.get_scenario()
     timings["sequence_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    scene, bank, renderer, params = build_compose_renderer(cfg, dev, scenario=seq.scenario)
+    scene, bank, renderer, params = build_compose_renderer(cfg, dev, scenario=scenario)
     timings["bank_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()

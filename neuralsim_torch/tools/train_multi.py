@@ -7,10 +7,13 @@ neuralsim_tpu/tools/train_multi.py:223-320).
     out = train_multi(SMALL_CFG, 3, device="cpu")           # plain versions on the CPU
 
 Each loop iteration takes a LiDAR step (``training.n_rays_lidar`` beams, the
-street alone; ``it`` stays) and then a pixel step (``training.n_rays`` rays of
-one camera over mixed frames; ``it`` advances and the street's grid refreshes
-on its cadence); with an error map, the pixel step's per-ray errors go back to
-the importance sampler (the one host copy of the loop besides the log).
+street alone; ``it`` stays; none without LiDAR data) and then a pixel step
+(``training.n_rays`` rays of one camera over mixed frames; ``it`` advances and
+the occupancy grids refresh on their cadence); with an error map, the pixel
+step's per-ray errors go back to the importance sampler (the one host copy of
+the loop besides the log). At each log the finite guard's watchdog
+(``tools.train.FiniteWatch``) reports the skipped steps and stops a run whose
+every step of the window was skipped.
 Checkpoints, the logger, ``nan_debug``, ``profile_iters`` and data-parallel
 training are not ported.
 """
@@ -25,6 +28,7 @@ import torch
 from ..configs import resolve_refs
 from ..training.multi_trainer import lift_lidar_batch
 from .build import build_multi_trainer
+from .train import FiniteWatch
 
 _PIXEL_KEYS = ("rays_fidx", "rays_xy", "image_rgb", "image_occupancy_mask")
 _LIDAR_KEYS = ("rays_fidx", "rays_o_local", "rays_d_local", "ranges")
@@ -40,12 +44,14 @@ def train_loop(scene, trainer, state, samplers: Dict[str, Any], num_iters: int,
                log: Optional[list] = None):
     """Run loop iterations from ``state.it`` up to ``num_iters``; every
     ``i_log`` iterations (the only other place the loop waits for the card)
-    the scalar metrics of both steps go to ``log`` and are printed.
-    Returns the state."""
+    the scalar metrics of both steps go to ``log``, are printed and go through
+    the finite guard's watchdog (``FloatingPointError`` when every step of
+    the window was skipped). Returns the state."""
     dev = state.skips.device
     pix, lid, imp = samplers["pixel"], samplers.get("lidar"), samplers.get("imp")
     log = [] if log is None else log
     t0 = time.time()
+    watch = FiniteWatch(i_log, int(state.skips))
     sticky: Dict[str, torch.Tensor] = {}
     for it in range(state.it, num_iters):
         if lid is not None:
@@ -70,6 +76,7 @@ def train_loop(scene, trainer, state, samplers: Dict[str, Any], num_iters: int,
             rate = (it + 1) * pix.n_rays / max(time.time() - t0, 1e-9)
             print(f"it={it} loss={mm['loss_total']:.4f} rays/s={rate:.0f}", flush=True)
             log.append({"it": it, **mm})
+            watch.check(mm, it)
     return state
 
 

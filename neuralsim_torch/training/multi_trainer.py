@@ -5,7 +5,7 @@ neuralsim_tpu/training/multi_trainer.py:28-385, for the ``pixel`` and
 One loop iteration of the JAX package's ``train_multi`` takes a LiDAR step
 (the street alone, ``only_cr``; depth and line-of-sight losses; ``it`` does
 not advance) and then a pixel step (every source; rgb and occupancy-mask
-losses; ``it`` advances and the street's grid refreshes on its cadence). Both
+losses; ``it`` advances and the grids refresh on their cadence). Both
 step types add the uniform eikonal and sparsity of every NeuS model (objects,
 then the street), the on-render eikonal on the NeuS lanes of the merged
 buffer, the clearance of the street's first samples and the latent
@@ -130,8 +130,7 @@ class MultiObjectTrainer:
             noise["eikonal"] = torch.randn((self.uniform_sample_n,), generator=generator,
                                            device=dev)
         if step_type == "pixel" and it is not None:
-            refresh = {role: rand((a.samples_per_voxel, a.res, a.res, a.res, 3))
-                       for role, a in self.renderer.accels.items()
+            refresh = {role: rand(a.jitter_shape) for role, a in self.renderer.accels.items()
                        if it % a.n_steps_between_update == 0}
             if refresh:
                 noise["occ_update"] = refresh
@@ -239,14 +238,14 @@ class MultiObjectTrainer:
     @torch.no_grad()
     def refresh_occ(self, state: TrainState, jitter: Dict[str, torch.Tensor]) -> None:
         """Refresh each grid on its cadence at ``state.it`` from the SDF of its
-        model as the guard left it (the street's for role 'cr')."""
+        model as the guard left it (the street's for role 'cr'; a shared
+        model's batched grids from each instance's SDF, ``query_sdf(x, bidx)``
+        over all B R^3 voxels), in chunks of the field's ``eval_chunk``."""
         for role, accel in self.renderer.accels.items():
             mid = self.renderer.scene_models["cr"][0] if role == "cr" else role
             field: NeuSField = state.params[mid]
-            if getattr(field, "n_instances", 0):
-                raise NotImplementedError("batched occupancy grids (K10) are not ported")
             lines = field.encoding.kernel_lines()
-            query = lambda x, f=field, ln=lines: map_chunked(lambda c: f.query_sdf(c, ln), x,
-                                                             f.eval_chunk)
+            sdf = lambda x, b=None, f=field, ln=lines: f.query_sdf(x, ln, b)
+            query = lambda x, *b, f=field, q=sdf: map_chunked(q, x, f.eval_chunk, *b)
             state.occ[role] = accel.maybe_update(state.occ[role], query, jitter.get(role),
                                                  state.it)

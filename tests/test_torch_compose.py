@@ -279,6 +279,17 @@ def test_multi_object_assets_match_jax():
     assert (f.inv_s_final, f.inv_s_anneal_start_it, f.inv_s_anneal_stop_it) == \
         (jf.inv_s_final, jf.inv_s_anneal_start_it, jf.inv_s_anneal_stop_it) == (30.0, 1200, 6000)
     assert street.query_cfg == jstreet.query_cfg
-    with pytest.raises(NotImplementedError, match="K10"):
-        asset_class(bank["Vehicle"]["model_class"])(
-            {**bank["Vehicle"]["model_params"], "accel_cfg": {"resolution": 16}}).populate(scene)
+    # with an accel_cfg: one grid per instance over the class's box, read as JAX reads it
+    mp = {**bank["Vehicle"]["model_params"], "accel_cfg": {"resolution": 16, "inv_s": 64.0}}
+    veh_g = asset_class(bank["Vehicle"]["model_class"])(mp)
+    jveh_g = jax_assets.ADGenerativeLoTDConcatNeuSObj(mp)
+    veh_g.populate(scene, ["veh_0", "veh_1"])
+    jveh_g.populate(jscene, ["veh_0", "veh_1"])
+    a, ja = veh_g.accel, jveh_g.accel
+    assert (a.n_instances, a.res, a.occ_thre, a.ema_decay, a.occ_inv_s,
+            a.n_steps_between_update, a.march_steps) == \
+        (ja.n_instances, ja.res, ja.occ_thre, ja.ema_decay, ja.occ_inv_s,
+         ja.n_steps_between_update, ja.march_steps) == (2, 16, 0.3, 0.95, 64.0, 16, 64)
+    np.testing.assert_allclose(a.box("cpu")[1].numpy(), np.asarray(ja.space.aabb_max),
+                               rtol=1e-6)
+    assert a.init_state().val.shape == (2, 16, 16, 16)

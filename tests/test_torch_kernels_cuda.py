@@ -25,7 +25,11 @@ ray as chip_smoke.check_compose_crop does. K8's backward is held to autograd
 of its plain version at chip_smoke.GRAD_REL on buffers with alphas at the
 clip's and the cap's edges, and the first multi-object training iteration
 on the card to the CPU at the CPU's sample depths at
-chip_smoke.MULTI_STEP_LOSS_RTOL and MULTI_STEP_GRAD_REL.
+chip_smoke.MULTI_STEP_LOSS_RTOL and MULTI_STEP_GRAD_REL. K11's integer
+outputs are held equal to its plain version's, K10's depths to
+chip_smoke.K4_TOL, and a small crowd (6 vehicles on the pair-budget path with
+per-instance grids) to the CPU as the compose render and the multi-object
+iteration are.
 """
 import copy
 
@@ -35,15 +39,17 @@ import torch
 
 import chip_smoke as cs
 from neuralsim_torch import kernels
-from neuralsim_torch.accel import OccGridEma
+from neuralsim_torch.accel import OccGridEma, OccGridEmaBatched
 from neuralsim_torch.accel.occ_grid import (occ_ema_update, occ_ema_update_plain,
                                             occ_ray_proposal, occ_ray_proposal_plain)
-from neuralsim_torch.configs import BENCH_OBJECT, SYNTHETIC_OBJECT, WAYMO_DEMO_MULTI
+from neuralsim_torch.configs import (BENCH_OBJECT, SYNTHETIC_OBJECT, WAYMO_DEMO_CROWD,
+                                    WAYMO_DEMO_MULTI)
 from neuralsim_torch.fields.spatial import AABBSpace
 from neuralsim_torch.dataio.synthetic import SyntheticObjectDataset, sdf_scene_tensor
 from neuralsim_torch.dataio.waymo_demo import demo_scenario, ground_sdf_tensor
 from neuralsim_torch.fields.encodings import lotd
 from neuralsim_torch.fields.neus import upsample_weights_pdf, upsample_weights_pdf_plain
+from neuralsim_torch.ops.pair_compact import pair_compact, pair_compact_plain
 from neuralsim_torch.ops.segment import (cross_source_vw, cross_source_vw_bwd,
                                          cross_source_vw_bwd_plain, cross_source_vw_fwd,
                                          cross_source_vw_plain, merge_sorted_samples,
@@ -139,7 +145,8 @@ def test_render_on_card_matches_cpu(dev):
     got = renderer.render_chunked(params, o.to(dev), d.to(dev), rayschunk=100)
     torch.cuda.synchronize()
     assert all(k.launches > 0 for k in kernels.KERNELS.values()
-               if not k.name.endswith(".bwd") and k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY)
+               if not k.name.endswith(".bwd")
+               and k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY + cs.CROWD_ONLY)
     want = renderer.render_chunked(copy.deepcopy(params).to("cpu"), o, d, rayschunk=100)
     for k, v in want.items():
         torch.testing.assert_close(got[k].cpu(), v, rtol=0, atol=cs.CROP_TOL,
@@ -215,7 +222,7 @@ def test_train_step_on_card_matches_cpu(dev):
     kernels.reset_counts()
     loss_err, grad_err = cs.check_first_step(trainer, state, rig, dev, n_rays=512)
     assert all(k.launches > 0 for k in kernels.KERNELS.values()
-               if k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY + cs.MULTI_ONLY)
+               if k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY + cs.MULTI_ONLY + cs.CROWD_ONLY)
     assert loss_err <= cs.STEP_LOSS_RTOL and grad_err <= cs.STEP_GRAD_REL
 
 
@@ -369,7 +376,7 @@ def test_k8_cross_source_vw(dev, n, L):
     _close([got], [cross_source_vw_plain(*args)], **cs.K8_TOL)
 
 
-def test_k8_refuses_a_gradient_on_the_card(dev):
+def test_k8_gradient_on_the_card_runs_both_kernels(dev):
     """A gradient on the card is no longer refused: under autograd the forward
     kernel (which also writes the log transmittance) and the backward kernel
     run, and nothing falls back to the plain version."""
@@ -500,5 +507,144 @@ def test_multi_object_iterations_launch_their_kernels(dev, multi_built):
     assert [n[k] for k in ("cross_source_vw", "cross_source_vw.bwd", "volume_composite",
                            "volume_composite.bwd", "occ_ray_proposal", "occ_ema_update")] == \
         [3, 3, 3, 3, 6, 1]
-    assert all(v > 0 for v in n.values())
+    assert all(v > 0 for k, v in n.items() if k not in cs.CROWD_ONLY)
+    assert not any(n[k] for k in cs.CROWD_ONLY)      # 3 vehicles: no pair budget, no K10
+    assert log[-1]["skips_total"] == 0 and all(np.isfinite(r["loss_total"]) for r in log)
+
+
+# ---------------------------------------------------------------------------
+# Crowded scenes: K11 (pair-budget compaction), K10 (per-instance grids)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("group", ["ragged", "every pair", "no hit", "rays through", "long"])
+def test_k11_pair_compact(dev, group):
+    """Selected pairs, hit flags and slot indices equal to the plain version
+    (the JAX package's argsort lines), integer for integer, with and without
+    the slots: T below and above the budget, odd N at half a budget, rays
+    through more boxes than slots."""
+    sets = [c for c in cs.pair_edge_masks(dev) if c[0].startswith(group)]
+    assert sets
+    for label, hit, Bg, M in sets:
+        for m in (M, None):
+            n0 = kernels.KERNELS["pair_compact"].launches
+            got = pair_compact(hit, Bg, m)
+            assert kernels.KERNELS["pair_compact"].launches == n0 + 1
+            want = pair_compact_plain(hit, Bg, m)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert (g is None and w is None) or (g.dtype == w.dtype and torch.equal(g, w)), \
+                    (label, m)
+
+
+def _batched_grid(dev, G=8, R=32):
+    accel = OccGridEmaBatched(AABBSpace().to(dev), G, R, n_warmup_steps=0, occ_inv_s=64.0)
+    shift = torch.linspace(-0.3, 0.3, G, device=dev)
+    st = converge_occ(accel, accel.init_state(),
+                      lambda x, b: sdf_scene_tensor(x + shift[b][:, None]), n=4)
+    return accel, st
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("case", ["converged", "random", "outside", "wild lead", "keyframes"])
+def test_k10_occ_ray_proposal_batched(dev, case, noisy):
+    """K10 against its plain version: per-instance grids that differ (a wrong
+    grid index shows), probes outside the box, grid indices outside [0, G)
+    (clipped), the dynamic grid's keyframes of times in [-0.2, 1.2]."""
+    accel, st = _batched_grid(dev)
+    G, R = st.mask.shape[0], st.mask.shape[-1]
+    rig = SyntheticObjectDataset(n_frames=4, H=64, W=64)
+    o, d = (_t(a.reshape(-1, 3).copy(), dev) for a in rig.frame_rays(1))
+    n = o.shape[0]
+    near, far, _ = AABBSpace().to(dev).ray_test(o, d)
+    gen = torch.Generator().manual_seed(3)
+    lead = torch.randint(0, G, (n,), generator=gen, dtype=torch.int32).to(dev)
+    mask = st.mask
+    if case != "converged":
+        share = torch.linspace(0.05, 0.6, G)[:, None, None, None]
+        mask = (torch.rand((G, R, R, R), generator=gen) < share).to(dev)
+    if case == "outside":
+        near, far = torch.full_like(near, 0.1), torch.full_like(far, 6.0)
+    if case == "wild lead":
+        lead = torch.randint(-3, G + 3, (n,), generator=gen, dtype=torch.int32).to(dev)
+    if case == "keyframes":
+        t01 = torch.rand((n,), generator=gen).to(dev) * 1.4 - 0.2
+        lead = (t01 * G).to(torch.int32).clamp(0, G - 1)
+    noise = torch.rand((n, 24), generator=gen).to(dev) if noisy else None
+    args = (o, d, near, far, mask, *accel.box(dev), accel.edges01(64, dev), 24, noise, lead)
+    n4, n10 = (kernels.KERNELS[k].launches for k in ("occ_ray_proposal",
+                                                     "occ_ray_proposal_batched"))
+    got = occ_ray_proposal(*args)
+    assert kernels.KERNELS["occ_ray_proposal_batched"].launches == n10 + 1
+    assert kernels.KERNELS["occ_ray_proposal"].launches == n4
+    _close([got], [occ_ray_proposal_plain(*args)], **cs.K4_TOL)
+
+
+def _small_crowd():
+    cfg = copy.deepcopy(WAYMO_DEMO_CROWD)
+    cfg["dataset_cfg"]["params"].update(H=40, W=64, n_vehicles=6)
+    b = cfg["assetbank_cfg"]
+    b["Street"]["model_params"]["accel_cfg"].update(resolution=32)
+    b["Vehicle"]["model_params"]["accel_cfg"].update(resolution=16)
+    return cfg
+
+
+def test_crowd_render_on_card_matches_cpu(dev):
+    """6 vehicles (pair budget, per-instance grids converged on the model's
+    own SDF): K11, K10, K8 and K4 once a chunk; the frame within the mask
+    limits; a crop held to the CPU path as chip_smoke.check_compose_crop
+    holds it (at the CPU path's street and vehicle-grid depths)."""
+    cfg = _small_crowd()
+    scene, _, renderer, params = build_compose_renderer(cfg, device=dev)
+    veh = renderer.objects[0].model_id
+    sa, va = renderer.accels["cr"], renderer.accels[veh]
+    occ = {"cr": converge_occ(sa, sa.init_state(), ground_sdf_tensor, n=30),
+           veh: converge_occ(va, va.init_state(),
+                             lambda x, b: params[veh].query_sdf(x, bidx=b), n=40)}
+    kernels.reset_counts()
+    out = render_multi_frame(renderer, params, scene, 0, "camera_FRONT", occ, rayschunk=1024)
+    torch.cuda.synchronize()
+    for k in ("cross_source_vw", "occ_ray_proposal", "pair_compact", "occ_ray_proposal_batched"):
+        assert kernels.KERNELS[k].launches == 3, k
+    m = out["mask_volume"]
+    assert float(m.min()) >= 0.0 and float(m.max()) <= cs.MASK_CAP
+    share = sum(sub["mask_volume"] for sub in out["per_obj"].values())
+    assert float((share - m).abs().max()) <= cs.SHARE_SUM_TOL
+    frozen = scene.slice_at(0)
+    o, d = camera_get_all_rays(frozen, "camera_FRONT", 40, 64)
+    crop = cs.compose_crop(40, 64)
+    cut = lambda a: a.reshape(40, 64, 3)[crop].reshape(-1, 3).cpu().contiguous()
+    scene_cpu = Scene.load_from_scenario(demo_scenario(**cfg["dataset_cfg"]["params"]))
+    res = cs.check_compose_crop(renderer, params, frozen, scene_cpu.slice_at(0), cut(o), cut(d),
+                                dev, occ, {k: type(v)(v.val.cpu(), v.mask.cpu())
+                                           for k, v in occ.items()})
+    assert res["merge_err"] <= 1.0 and res["equal_rays_err"] <= 1.0
+    assert res["equal_rays"] >= cs.COMPOSE_EQUAL_MIN * res["rays"]
+
+
+@pytest.fixture
+def crowd_built(dev):
+    cfg = _small_crowd()
+    cfg["training"].update(n_rays=1024, n_rays_lidar=512)
+    return build_multi_trainer(cfg, device=dev)
+
+
+def test_crowd_first_iteration_on_card_matches_cpu(dev, crowd_built):
+    scene, _, trainer, state, samplers = crowd_built
+    loss_err, grad_err = cs.check_multi_first_iteration(scene, trainer, state, samplers, dev)
+    assert loss_err <= cs.MULTI_STEP_LOSS_RTOL and grad_err <= cs.MULTI_STEP_GRAD_REL
+
+
+def test_crowd_iterations_launch_their_kernels(dev, crowd_built):
+    """Three loop iterations: K11 and K10 once a pixel step, K8 and its
+    backward once, K4 twice, K7 on the first for both grids, no skip."""
+    scene, _, trainer, state, samplers = crowd_built
+    kernels.reset_counts()
+    log = []
+    train_loop(scene, trainer, state, samplers, 3, torch.Generator(device=dev).manual_seed(0), 1,
+               log)
+    torch.cuda.synchronize()
+    n = {k.name: k.launches for k in kernels.KERNELS.values()}
+    assert [n[k] for k in ("pair_compact", "occ_ray_proposal_batched", "cross_source_vw",
+                           "cross_source_vw.bwd", "occ_ray_proposal", "occ_ema_update")] == \
+        [3, 3, 3, 3, 6, 2]
     assert log[-1]["skips_total"] == 0 and all(np.isfinite(r["loss_total"]) for r in log)
