@@ -15,12 +15,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   4. render slice: build the full-width synthetic_object renderer with seeded
      weights, render 4 frames of the 96x96 synthetic rig with
      render_chunked(rayschunk=4096), check the images, check that every
-     forward kernel launched, and compare a 32x32 crop with the CPU (plain)
-     path;
+     forward kernel launched (the close range is composited alone: K12, the
+     NeuS alpha inside the composite, in place of K6), and compare a 32x32
+     crop with the CPU (plain) path;
   5. training slice: build_trainer at full width from seed 42; the first
      step's loss terms and per-parameter gradients on the card against the
      same step (same parameters, batch and noise) through the plain versions
-     on the CPU; then train() for 60 steps of 2,048 rays: every loss finite,
+     on the CPU; K12 forward and backward at that step's own buffer
+     (2,048 x 96 with rgb, its inv_s and cos anneal) against their plain
+     versions; then train() for 60 steps of 2,048 rays: every loss finite,
      no step skipped, loss_rgb over the last 10 steps below the first 10,
      all eight kernels launched; one poisoned step (a NaN in the batch) is
      skipped and leaves every parameter bit-identical;
@@ -61,13 +64,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      autograd of its plain version at the pixel step's merged buffer
      [4,096, 168] and on ragged, tied, masked buffers with edge alphas, K1's
      and K3's backwards at the path's point sets and widths, K6 forward and
-     backward at the LiDAR step's street buffer (2,048 x 48, no rgb); the
+     backward at the LiDAR step's street buffer (2,048 x 48, no rgb; now
+     K12, the NeuS alpha inside the composite, in place of K6); the
      first iteration (a LiDAR step, then a pixel step; cut to 512 beams and
      1,024 rays) on the card against the CPU path at the CPU path's sample
      depths (sample_placements), the card's own step logged beside it; 48
      iterations (error-map sampling from the 16th): finite losses, no skip,
      falling loss_rgb and LiDAR depth loss, three grid refreshes, K8 and its
-     backward and K6 and its backward once an iteration, K4 twice, K7 once a
+     backward and K12 and its backward once an iteration, K4 twice, K7 once a
      refresh; a poisoned pixel step skipped with every parameter unchanged;
      one 80x120 frame of the trained state rendered;
   9. crowded multi-object scenes (WAYMO_DEMO_CROWD at full width: 8
@@ -94,7 +98,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      pixel steps of 2,048 rays (finite, falling loss_rgb, no skip, K11 and K8
      with its backward once a step, K3 on the street's hash levels), a frame
      of the trained state, K11 equal to its plain version at its calls;
- 11. timing: frame latency and rays/s; training step time and rays/s; each
+ 11. per-level CP (WAYMO_DEMO_MULTI built under NEURALSIM_CP_STACKED=0, the
+     setting of the JAX flagship runs: every CP level of the street (10, F 4,
+     R 16..1,024) and of the vehicles (6, F 4, to 256) per-level, K2): K2
+     forward (with and without the jacobian) and backward (each cotangent)
+     against their plain versions at the street's pixel and LiDAR step
+     shapes, the vehicles' rows and the bench model's ladder (12 levels of F
+     8 to 1,024); K12 forward and backward at the LiDAR step's street buffer
+     and at synthetic_object's [4,096, 96] with rgb, at cos anneals 0, 0.5
+     and 1; 4 frames of 80x120 (K2, never K1) with a crop held to the CPU
+     path at its street depths; the first iteration card vs CPU at the CPU
+     path's sample depths; one LiDAR step (K12 and K2; no K6, no K1, no plain
+     alpha chain) and one pixel step counted apart; 48 iterations (finite,
+     no skip, falling loss_rgb and LiDAR depth) and a poisoned step; the
+     per-level iteration and frame medians beside the stacked ones of phases
+     7 and 8;
+ 12. timing: frame latency and rays/s; training step time and rays/s; each
      kernel's time at the training path's shapes (beside that path's launch
      count) and, for the forward kernels, at the render path's too, each
      beside its plain version, a library call where one exists, and its bound
@@ -106,13 +125,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      backward and K6 forward and backward at its shapes; the same for the
      crowd (frame, iteration), and the synthetic_multi step; K11 at its three
      calls beside a stable torch.argsort of its keys, K10 at the group's
-     rows, K7 at the batched update;
- 12. one JSON line of results, one of per-kernel results, then the device
+     rows, K7 at the batched update; K2 at each of its shapes, K12 at the
+     LiDAR step's street buffer;
+ 13. one JSON line of results, one of per-kernel results, then the device
      line, last.
 
 --profile adds torch.profiler tables of device time by kernel for one frame
 and for one training step of each model, for one compose frame, and for one
-LiDAR and one pixel step of the multi-object and the crowd training.
+LiDAR and one pixel step of the multi-object, the crowd and the per-level
+training.
 """
 from __future__ import annotations
 
@@ -149,8 +170,11 @@ STEP_GRAD_REL = 5e-3
 BENCH_RAYS = 8192
 BENCH_STEPS = 48
 BENCH_FRAME_IDS = (0, 1, 2, 3)
-# kernels that only the bench model's path runs (synthetic_object has no grid)
-BENCH_ONLY = ("occ_ray_proposal", "occ_ema_update")
+# kernels that only the bench model's path runs (synthetic_object has no grid;
+# its close range, composited alone, takes K12, and only the bench model's
+# close range and distant buffers go through K6 together)
+BENCH_ONLY = ("occ_ray_proposal", "occ_ema_update", "volume_composite",
+              "volume_composite.bwd")
 # its first step on the card vs the CPU, at the step's own 8,192 rays: the
 # occupancy proposal's cdf bins are nearly all near-empty, so its inverse CDF
 # moves a sample on a last-bit difference more often than the upsample
@@ -252,6 +276,19 @@ CROWD_ITERS = 48
 # synthetic_multi (configs/synthetic_multi.yaml): 48 pixel steps of 2,048 rays
 SYNTH_STEPS = 48
 SYNTH_CAM = "camera_0"
+# WAYMO_DEMO_MULTI on the per-level CP path (NEURALSIM_CP_STACKED=0 while its
+# models are built): K2 in place of K1 on every encoding. Its kernels' rows
+# report this path: K2 runs on no other, K12 on its LiDAR step as on the
+# stacked one. Rendered and trained under the multi-object limits.
+PERLEVEL_ONLY = ("lotd_cp_level", "lotd_cp_level.bwd")
+PERLEVEL_ROWS = PERLEVEL_ONLY + ("neus_composite", "neus_composite.bwd")
+PERLEVEL_ITERS = 48
+# K12 (the NeuS alpha inside the composite) against its plain version: each
+# alpha is a difference of two sigmoids over the first, so a last-bit
+# difference of the cos sum moves it by up to ~1e-7, and the depth by that
+# over the ray's weight sum; its backward under GRAD_REL
+K12_TOL = dict(rtol=1e-4, atol=1e-5)
+K12_ANNEALS = (0.0, 0.5, 1.0)
 
 
 def log(*a):
@@ -886,6 +923,19 @@ def check_first_step(trainer, state, rig, dev, n_rays=TRAIN_RAYS, loss_rtol=STEP
     if not (loss_err <= loss_rtol and grad_err <= grad_rel):
         raise AssertionError("the card's first training step differs from the CPU's")
     return loss_err, grad_err
+
+
+def training_buffer(trainer, state, rig, dev):
+    """The merged buffer of one synthetic_object training step (the close
+    range composited alone, its alpha from K12), without gradients."""
+    import torch
+    batch = device_batch(rig, np.random.default_rng(2), TRAIN_RAYS, dev)
+    noise = trainer.draw_noise(TRAIN_RAYS, torch.Generator(device=dev).manual_seed(2), state.it)
+    with torch.no_grad():
+        return trainer.renderer.ray_query(state.params, batch["rays_o"], batch["rays_d"],
+                                          it=state.it, noise=noise, with_rgb=True,
+                                          return_buffer=True,
+                                          occ_states=occ_on(state, dev))["merged_buffer"]
 
 
 def train_slice(cfg):
@@ -2219,29 +2269,19 @@ def scene_on(scene, d):
     return out
 
 
-def check_multi_kernels(dev, trainer, state, scene, samplers):
-    """K8's backward at the pixel step's merged buffer [4,096, 168] with
-    non-zero cotangents and on ragged, tied and masked buffers with edge
-    alphas; K1's and K3's backwards at the path's point sets (the street's
-    F_cp 40 / R 1,024, the vehicles' F_cp 24 / R 256 and their dense levels);
-    K6 forward and backward at the LiDAR step's street buffer (2,048 x 48, no
-    rgb). -> ({kernel: (max_abs_err, tol)}, the inputs kept for timing)."""
+def step_buffers(trainer, state, scene, samplers, dev, seed):
+    """The merged buffers of one LiDAR step (the street alone, its alpha
+    from K12) and one pixel step (every source) of the training path, without
+    gradients -> {"lidar": buffer, "pixel": buffer}."""
     import torch
-    from neuralsim_torch.fields.encodings import lotd
-    from neuralsim_torch.ops.segment import (cross_source_vw, cross_source_vw_bwd_plain,
-                                             cross_source_vw_fwd)
-    from neuralsim_torch.renderers.buffers import (volume_composite, volume_composite_bwd,
-                                                   volume_composite_bwd_plain,
-                                                   volume_composite_plain)
-    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(9)
+    from neuralsim_torch.scene.observers import camera_get_selected_rays
+    gen = torch.Generator(device=dev).manual_seed(seed)
     lbatch, pbatch, cam = multi_batches(scene, samplers, dev, MULTI_RAYS, MULTI_BEAMS)
     bufs = {}
     with torch.no_grad():
         for step_type, batch in (("lidar", lbatch), ("pixel", pbatch)):
             frozen = scene.slice_at(batch["rays_fidx"].long())
             if step_type == "pixel":
-                from neuralsim_torch.scene.observers import camera_get_selected_rays
                 ro, rd = camera_get_selected_rays(frozen, cam, batch["rays_xy"])
             else:
                 ro, rd = batch["rays_o"], batch["rays_d"]
@@ -2251,6 +2291,22 @@ def check_multi_kernels(dev, trainer, state, scene, samplers):
                 with_rgb=step_type == "pixel", only_cr=step_type == "lidar",
                 occ_states=state.occ, return_buffer=True, with_per_obj=False,
                 noise=noise["render"])["merged_buffer"]
+    return bufs
+
+
+def check_multi_kernels(dev, trainer, state, scene, samplers):
+    """K8's backward at the pixel step's merged buffer [4,096, 168] with
+    non-zero cotangents and on ragged, tied and masked buffers with edge
+    alphas; K1's and K3's backwards at the path's point sets (the street's
+    F_cp 40 / R 1,024, the vehicles' F_cp 24 / R 256 and their dense levels);
+    K12 forward and backward at the LiDAR step's street buffer (2,048 x 48,
+    no rgb). -> ({kernel: (max_abs_err, tol)}, the inputs kept for timing)."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    from neuralsim_torch.ops.segment import (cross_source_vw, cross_source_vw_bwd_plain,
+                                             cross_source_vw_fwd)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    bufs = step_buffers(trainer, state, scene, samplers, dev, 9)
     mb, lbuf = bufs["pixel"], bufs["lidar"]
     if mb["t"].shape != (MULTI_RAYS, 168) or lbuf["t"].shape != (MULTI_BEAMS, 48):
         raise AssertionError(f"the step buffers are {tuple(mb['t'].shape)} and "
@@ -2297,32 +2353,23 @@ def check_multi_kernels(dev, trainer, state, scene, samplers):
                                   GRAD_REL))
     errs["lotd_cp_stacked.bwd"] = (max(e1), GRAD_REL)
     errs["lotd_grid.bwd"] = (max(e3), GRAD_REL)
-    # K6 at the LiDAR step's street buffer: no rgb, nablas for the on-render eikonal
-    args = (lbuf["t"].contiguous(), lbuf["mask"].contiguous(), lbuf["alpha"].contiguous(), None,
-            lbuf["nablas"].contiguous())
-    n, S = args[0].shape
-    errs["volume_composite"] = (compare(f"K6 LiDAR step rays={n} S={S} (no rgb)",
-                                        volume_composite(*args), volume_composite_plain(*args),
-                                        rtol=1e-5, atol=1e-6), 1e-6)
-    grads = [cotangents(sh, 40 + i, dev) for i, sh in enumerate(((n, S), (n,), (n,), (n, 3)))]
-    bargs = (*args, grads[0], grads[1], grads[2], None, grads[3])
-    errs["volume_composite.bwd"] = (compare_rel(
-        f"K6 bwd LiDAR step rays={n} S={S} (no rgb)", volume_composite_bwd(*bargs),
-        volume_composite_bwd_plain(*bargs), GRAD_REL), GRAD_REL)
-    shapes["volume_composite"] = dict(args=args)
-    shapes["volume_composite.bwd"] = dict(args=bargs)
+    # K12 at the LiDAR step's street buffer: no rgb, nablas for the on-render eikonal
+    e12, s12 = check_neus_composite(dev, [("LiDAR step's street buffer", neus_args(lbuf))])
+    errs.update(e12)
+    shapes.update(s12)
     torch.cuda.synchronize()
     return errs, shapes
 
 
 def check_multi_training(scene, trainer, state, samplers, dev, iters=MULTI_ITERS,
-                         label="multi-object"):
+                         label="multi-object", per_level=False):
     """``iters`` loop iterations through train_loop with every metric logged:
     finite losses, no skip, falling loss_rgb and LiDAR depth loss, every grid
     refreshed on its cadence (three times), the error map's importance
     sampling in use, and every kernel of the path launched as counted (with a
     pair-budget group K11 once a pixel step, with per-instance grids K10 once
-    a pixel step; neither otherwise). -> (log, launches, falls)."""
+    a pixel step; neither otherwise; K12 once a LiDAR step and K6 never; K2
+    on the ``per_level`` path and K1 otherwise). -> (log, launches, falls)."""
     import torch
     from neuralsim_torch import kernels
     from neuralsim_torch.tools.train_multi import train_loop
@@ -2360,11 +2407,16 @@ def check_multi_training(scene, trainer, state, samplers, dev, iters=MULTI_ITERS
         f"{samplers['imp'].enable_after})")
     pair = any(r._pair_rows(obs, MULTI_RAYS) for obs in r._grouped().values())
     batched = any(a.n_grids for a in r.accels.values())
+    # the LiDAR step composites the street alone: K12, never K6; the
+    # encodings take K1 (stacked) or K2 (per-level), never both
     want = {"cross_source_vw": iters, "cross_source_vw.bwd": iters,
-            "volume_composite": iters, "volume_composite.bwd": iters,
+            "neus_composite": iters, "neus_composite.bwd": iters,
+            "volume_composite": 0, "volume_composite.bwd": 0,
             "occ_ray_proposal": 2 * iters, "occ_ema_update": refreshes * len(r.accels),
             "pair_compact": iters if pair else 0,
-            "occ_ray_proposal_batched": iters if batched else 0}
+            "occ_ray_proposal_batched": iters if batched else 0,
+            **dict.fromkeys(("lotd_cp_stacked", "lotd_cp_stacked.bwd") if per_level
+                            else PERLEVEL_ONLY, 0)}
     if refreshes != 3 or any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"the {label} path's launches are not as counted: want {want}")
     for name, n in launches.items():
@@ -2474,13 +2526,10 @@ def profile_multi_steps(scene, trainer, state, samplers, dev):
 
 def time_multi_kernels(shapes):
     """K8 forward (writing S, as the training step does) and backward at the
-    pixel step's merged buffer, K6 forward and backward at the LiDAR step's
+    pixel step's merged buffer, K12 forward and backward at the LiDAR step's
     street buffer, beside their plain versions and bounds."""
     from neuralsim_torch.ops.segment import (cross_source_vw_bwd, cross_source_vw_bwd_plain,
                                              cross_source_vw_fwd, cross_source_vw_plain)
-    from neuralsim_torch.renderers.buffers import (volume_composite, volume_composite_bwd,
-                                                   volume_composite_bwd_plain,
-                                                   volume_composite_plain)
     out = {}
     t, mask, alpha, logt, g = shapes["cross_source_vw.bwd"]["args"]
     N, L = t.shape
@@ -2498,21 +2547,7 @@ def time_multi_kernels(shapes):
         # t, mask, alpha, S and the cotangent read, d alpha written; a compare
         # and an add per pair
         bound=bound(N * L * 21, 2.0 * N * L * L))
-    a = shapes["volume_composite"]["args"]
-    n, S = a[0].shape
-    out["volume_composite"] = dict(
-        shape=f"LiDAR step: rays={n} S={S}, nablas, no rgb",
-        ms=cuda_ms(lambda: volume_composite(*a)),
-        plain_ms=cuda_ms(lambda: volume_composite_plain(*a), reps=5), library_ms=None,
-        # t, alpha, mask, nablas read; vw, mask, depth, normals, count written
-        bound=bound(n * S * (9 + 12 + 4) + n * 24, n * S * 20))
-    b = shapes["volume_composite.bwd"]["args"]
-    out["volume_composite.bwd"] = dict(
-        shape=f"LiDAR step: rays={n} S={S}, nablas, no rgb",
-        ms=cuda_ms(lambda: volume_composite_bwd(*b)),
-        plain_ms=cuda_ms(lambda: volume_composite_bwd_plain(*b), reps=5), library_ms=None,
-        # t, alpha, mask, nablas, the vw cotangent read; d alpha, d nablas written
-        bound=bound(n * S * (9 + 12 + 4 + 4 + 12) + n * 20, n * S * 40))
+    out.update(time_neus_composite(shapes))
     return out
 
 
@@ -3075,6 +3110,375 @@ def synthetic_multi_phase(dev):
     return dict(launches=launches, steps=SYNTH_STEPS, summary=summary, hit=train_calls[0])
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: WAYMO_DEMO_MULTI on the per-level CP path (K2) with the NeuS
+# alpha inside the composite (K12)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def cp_per_level():
+    """NEURALSIM_CP_STACKED=0 while the block builds its models (an
+    encoding reads it when it is built), as it was before afterwards."""
+    import os
+    old = os.environ.get("NEURALSIM_CP_STACKED")
+    os.environ["NEURALSIM_CP_STACKED"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["NEURALSIM_CP_STACKED"]
+        else:
+            os.environ["NEURALSIM_CP_STACKED"] = old
+
+
+def neus_inputs(n, s, seed):
+    """A NeuS buffer as a final evaluation gives it: rays through a surface
+    (sdf falling through 0, nablas against the ray with noise), masked lanes,
+    a fully masked ray, and lanes whose alpha is exactly 1 (a 0.2 gap in
+    depth behind a lane at the surface) -> (t, mask, sdf, nablas, rays_d,
+    rgb) as numpy."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.random((n, s)) * 2.0 + 0.5, -1).astype(np.float32)
+    sdf = (0.7 + rng.random((n, 1)) * 1.5 - t + rng.normal(0, 0.01, (n, s))).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    nablas = (-d[:, None, :] * (0.8 + 0.4 * rng.random((n, s, 1)))
+              + rng.normal(0, 0.3, (n, s, 3))).astype(np.float32)
+    mask = rng.random((n, s)) > 0.1
+    mask[7] = False
+    tie = np.arange(3, n, 6)
+    t[tie, 11:] += 0.2
+    t[tie, 10] = t[tie, 9] + 0.01
+    t[tie] = np.sort(t[tie], -1)
+    sdf[tie, 10], mask[tie, 10] = 0.03, True
+    nablas[tie, 10] = -d[tie] * 1.2
+    return t, mask, sdf, nablas, d, rng.random((n, s, 3)).astype(np.float32)
+
+
+def neus_args(buf):
+    """K12's arguments (t, mask, sdf, nablas, rays_d, anneal, inv_s, rgb) of a
+    NeuS buffer that was composited alone."""
+    c = lambda x: None if x is None else x.detach().contiguous()
+    return (c(buf["t"]), c(buf["mask"]), c(buf["sdf"]), c(buf["nablas"]), c(buf["rays_d"]),
+            float(buf["cos_anneal"]), c(buf["details"]["inv_s"]).reshape(()), c(buf.get("rgb")))
+
+
+def check_neus_composite(dev, sets):
+    """K12 forward and backward against their plain versions on each of
+    ``sets`` ((label, args), args as neus_args gives them) at the cos anneals
+    0, 0.5 and 1, the backward with non-zero cotangents of every output (the
+    alpha's too) -> ({kernel: (max_abs_err, tol)}, the first set's inputs at
+    its own anneal, kept for timing)."""
+    import torch
+    from neuralsim_torch.renderers.neus_composite import (neus_composite, neus_composite_bwd,
+                                                          neus_composite_bwd_plain,
+                                                          neus_composite_plain)
+    ef, eb, shapes = [], [], {}
+    for k, (label, args) in enumerate(sets):
+        t, rgb = args[0], args[7]
+        n, S = t.shape
+        cots = [cotangents(sh, 60 + 7 * k + i, dev) for i, sh in enumerate(
+            ((n, S), (n,), (n,), (n, 3), (n, 3), (n, S)))]
+        if rgb is None:
+            cots[3] = None
+        what = f"{label} rays={n} S={S}{'' if rgb is None else ' with rgb'}"
+        for anneal in K12_ANNEALS:
+            a = (*args[:5], anneal, *args[6:])
+            ef.append(compare(f"K12 neus_composite {what} anneal={anneal:g}",
+                              neus_composite(*a), neus_composite_plain(*a), **K12_TOL))
+            eb.append(compare_rel(f"K12 bwd {what} anneal={anneal:g}",
+                                  neus_composite_bwd(*a, *cots),
+                                  neus_composite_bwd_plain(*a, *cots), GRAD_REL))
+        if k == 0:
+            shapes["neus_composite"] = dict(args=args, what=what)
+            shapes["neus_composite.bwd"] = dict(args=(*args, *cots), what=what)
+    torch.cuda.synchronize()
+    return ({"neus_composite": (max(ef), K12_TOL["atol"]),
+             "neus_composite.bwd": (max(eb), GRAD_REL)}, shapes)
+
+
+def time_neus_composite(shapes):
+    """K12 forward and backward, their plain versions and bounds at the kept
+    inputs."""
+    from neuralsim_torch.renderers.neus_composite import (neus_composite, neus_composite_bwd,
+                                                          neus_composite_bwd_plain,
+                                                          neus_composite_plain)
+    a, what = shapes["neus_composite"]["args"], shapes["neus_composite"]["what"]
+    b = shapes["neus_composite.bwd"]["args"]
+    n, S = a[0].shape
+    c = 0 if a[7] is None else 12          # rgb bytes a lane
+    return {
+        "neus_composite": dict(
+            shape=what, ms=cuda_ms(lambda: neus_composite(*a)),
+            plain_ms=cuda_ms(lambda: neus_composite_plain(*a), reps=5), library_ms=None,
+            # t, mask, sdf, nablas (rgb) read and vw, alpha written a lane; the
+            # direction read and five sums written a ray; ~50 flops a lane
+            bound=bound(n * S * (21 + c + 8) + n * (12 + 12 + 12 + c), n * S * 50)),
+        "neus_composite.bwd": dict(
+            shape=what, ms=cuda_ms(lambda: neus_composite_bwd(*b)),
+            plain_ms=cuda_ms(lambda: neus_composite_bwd_plain(*b), reps=5), library_ms=None,
+            # t, mask, sdf, nablas (rgb) and the vw and alpha cotangents read,
+            # d sdf, d nablas (d rgb) written a lane; ~140 flops a lane
+            bound=bound(n * S * (21 + c + 8 + 16 + c) + n * (12 + 20 + c + 4), n * S * 140))}
+
+
+def check_cp_level(dev, sets):
+    """K2 forward (with and without the jacobian) and backward (cotangents of
+    the features, of the jacobian, of both) against their plain versions on
+    each of ``sets`` ((label, encoding, points)) -> ({kernel: (max_abs_err,
+    tol)}, each set's inputs kept for timing)."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    ef, eb, shapes = [], [], {}
+    for k, (label, enc, x) in enumerate(sets):
+        C, N = enc.out_dim, x.shape[0]
+        table = enc.table.detach()
+        a = (table, x, enc._cp_meta)
+        what = (f"{label}: N={N}, {enc._cp_meta.shape[0]} levels of F "
+                f"{enc._cp_meta[0, 2].item()}, R {enc._cp_meta[0, 0].item()}.."
+                f"{enc._cp_meta[-1, 0].item()}")
+        for jac in (False, True):
+            ef.append(compare(f"K2 lotd_cp_level {what} jac={jac}",
+                              encode_into(lotd.lotd_cp_level, a, C, N, dev, jac),
+                              encode_into(lotd.lotd_cp_level_plain, a, C, N, dev, jac),
+                              1e-5, 1e-5))
+        d_out, d_jac = cotangents((C, N), 70 + k, dev), cotangents((3, C, N), 80 + k, dev)
+        for name, do, dj in (("both", d_out, d_jac), ("feats", d_out, None),
+                             ("jac", None, d_jac)):
+            eb.append(compare_rel(f"K2 bwd {what} cotangents={name}",
+                                  [lotd.lotd_cp_level_bwd(*a, do, dj)],
+                                  [lotd.lotd_cp_level_bwd_plain(*a, do, dj)], GRAD_REL))
+        shapes[label] = dict(args=a, C=C, grads=(d_out, d_jac), what=what)
+    torch.cuda.synchronize()
+    return {"lotd_cp_level": (max(ef), 1e-5), "lotd_cp_level.bwd": (max(eb), GRAD_REL)}, shapes
+
+
+def time_cp_level(shapes):
+    """K2 forward (with the jacobian) and backward at each kept set, beside
+    their plain versions and bounds -> {kernel: [timing, ...]}."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    out = {"lotd_cp_level": [], "lotd_cp_level.bwd": []}
+    for label, sh in shapes.items():
+        a, C, (d_out, d_jac) = sh["args"], sh["C"], sh["grads"]
+        x, meta = a[1], a[2].tolist()
+        N, L, F = x.shape[0], len(meta), sum(r[2] for r in meta)
+        lines = sum(3 * r[0] * r[2] for r in meta) * 4     # the f32 CP segments
+        buf = (torch.empty((C, N), device=x.device), torch.empty((3, C, N), device=x.device))
+        out["lotd_cp_level"].append(dict(
+            shape=sh["what"] + " with jacobian",
+            ms=cuda_ms(lambda: lotd.lotd_cp_level(*a, *buf)),
+            plain_ms=cuda_ms(lambda: lotd.lotd_cp_level_plain(*a, *buf), reps=5),
+            library_ms=None,
+            # points and lines read, features and jacobian written; the taps of
+            # every level, then ~29 flops a feature
+            bound=bound(N * 12 + lines + N * F * 16, N * (30 * L + 29 * F))))
+        out["lotd_cp_level.bwd"].append(dict(
+            shape=sh["what"] + ", cotangents of features and jacobian",
+            ms=cuda_ms(lambda: lotd.lotd_cp_level_bwd(*a, d_out, d_jac)),
+            plain_ms=cuda_ms(lambda: lotd.lotd_cp_level_bwd_plain(*a, d_out, d_jac), reps=3),
+            library_ms=None,
+            # points, lines and both cotangents read, the lines' gradient written
+            bound=bound(N * 12 + lines + N * F * 16 + lines, N * (30 * L + 75 * F))))
+    return out
+
+
+@contextlib.contextmanager
+def count_alpha_chain(counter):
+    """Count (into ``counter["calls"]``) the calls of the plain NeuS alpha
+    chain (``neus_alpha_from_sdf``) while the block runs."""
+    import neuralsim_torch.fields.neus as neus
+    fn = neus.neus_alpha_from_sdf
+
+    def counted(*a, **kw):
+        counter["calls"] += 1
+        return fn(*a, **kw)
+
+    neus.neus_alpha_from_sdf = counted
+    try:
+        yield
+    finally:
+        neus.neus_alpha_from_sdf = fn
+
+
+def step_launches(scene, trainer, state, samplers, dev):
+    """The kernels one LiDAR step and one pixel step launch (off the grids'
+    cadence, no parameter moved), and the plain alpha chain's calls in each
+    -> {step type: ({kernel: launches}, alpha-chain calls)}."""
+    import torch
+    from neuralsim_torch import kernels
+    gen = torch.Generator(device=dev).manual_seed(15)
+    lbatch, pbatch, cam = multi_batches(scene, samplers, dev, MULTI_RAYS, MULTI_BEAMS)
+    it = state.it if state.it % 16 else state.it + 1
+    out = {}
+    for step_type, batch in (("lidar", lbatch), ("pixel", pbatch)):
+        noise = trainer.draw_noise(step_type, batch["rays_fidx"].shape[0], gen, it)
+        counter = {"calls": 0}
+        kernels.reset_counts()
+        with count_alpha_chain(counter):
+            total, _ = trainer.compute_losses(state.params, batch, it, noise, step_type,
+                                              state.occ, cam if step_type == "pixel" else None)
+            total.backward()
+        torch.cuda.synchronize()
+        state.params.zero_grad(set_to_none=True)
+        out[step_type] = ({k.name: k.launches for k in kernels.KERNELS.values()},
+                          counter["calls"])
+    return out
+
+
+def perlevel_phase(dev, profile_it, stacked):
+    """Phase 11: WAYMO_DEMO_MULTI built with NEURALSIM_CP_STACKED=0 (every CP
+    level of the street and the vehicles per-level, K2), rendered and trained
+    through the entry points, with the per-level iteration and frame medians
+    beside ``stacked``'s (the multi-object and compose summaries of the same
+    run) -> its results."""
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.configs import BENCH_OBJECT, WAYMO_DEMO_MULTI as C
+    from neuralsim_torch.dataio.waymo_demo import demo_scenario, ground_sdf_tensor
+    from neuralsim_torch.fields.encodings.lotd import make_lotd
+    from neuralsim_torch.scene import Scene
+    from neuralsim_torch.scene.observers import camera_get_all_rays
+    from neuralsim_torch.tools.build import (build_compose_renderer, build_multi_trainer,
+                                             converge_occ, render_multi_frame)
+
+    cfg = copy.deepcopy(C)
+    cfg["training"]["error_map"] = {**cfg["training"]["error_map"],
+                                    "enable_after": MULTI_ERROR_MAP_AFTER}
+    timings = {}
+    t0 = time.perf_counter()
+    with cp_per_level():
+        scene_r, _, renderer, params_r = build_compose_renderer(C)
+        scene, bank, trainer, state, samplers = build_multi_trainer(cfg, timings=timings)
+        bench_enc = make_lotd(BENCH_OBJECT["models"]["cr"]["params"]["encoding_cfg"])
+    bench_enc.reset_parameters(torch.Generator().manual_seed(3))
+    bench_enc = bench_enc.to(dev)
+    accel = renderer.accels["cr"]
+    occ = {"cr": converge_occ(accel, accel.init_state(), ground_sdf_tensor, seed=int(C["seed"]),
+                              **C["occ_converge"])}
+    torch.cuda.synchronize()
+    street_id, veh_id = renderer.scene_models["cr"][0], renderer.objects[0].model_id
+    plan = lambda e: [(s.res, s.n_feats) for s in e.specs if s.typ == "cp"]
+    encs = {"street": state.params[street_id].encoding, "vehicles": state.params[veh_id].encoding,
+            "bench": bench_enc}
+    log(f"per-level CP: built in {time.perf_counter() - t0:.2f} s ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in timings.items()) + "); CP levels (R, F): "
+        + "; ".join(f"{k} {plan(e)}" for k, e in encs.items()))
+    for e in (*encs.values(), params_r[street_id].encoding, params_r[veh_id].encoding):
+        if e.cp_stacked or e.kernel_lines() is not None or e._cp_meta.shape[0] != len(plan(e)):
+            raise AssertionError("an encoding of the per-level phase took the stacked path")
+    if ([r for r, _ in plan(encs["street"])][::9], {f for _, f in plan(encs["street"])},
+            len(plan(encs["vehicles"])), {f for _, f in plan(encs["vehicles"])},
+            len(plan(bench_enc)), {f for _, f in plan(bench_enc)}, plan(bench_enc)[-1][0]) != \
+            ([16, 1024], {4}, 6, {4}, 12, {8}, 1024):
+        raise AssertionError("the per-level ladders are not the ones checked here")
+
+    # K2 at the path's point sets and the bench model's ladder; K12 at the
+    # LiDAR step's street buffer and synthetic_object's buffer with rgb
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rows = 3 * MULTI_RAYS // 2                      # the vehicles' compacted rows
+    errs, shapes2 = check_cp_level(dev, (
+        ("street, pixel step", encs["street"], T(ray_points(MULTI_RAYS, 48, 1024, 90))),
+        ("street, LiDAR step", encs["street"], T(ray_points(MULTI_BEAMS, 48, 1024, 91))),
+        ("vehicles", encs["vehicles"], T(ray_points(rows, 32, 256, 92))),
+        ("bench ladder", bench_enc, T(ray_points(BENCH_RAYS, 32, 1024, 93)))))
+    lbuf = step_buffers(trainer, state, scene, samplers, dev, 16)["lidar"]
+    if lbuf["t"].shape != (MULTI_BEAMS, 48) or "rays_d" not in lbuf:
+        raise AssertionError("the LiDAR step's street buffer should be [2048, 48], fused")
+    e12, shapes12 = check_neus_composite(dev, (
+        ("LiDAR step's street buffer", neus_args(lbuf)),
+        ("synthetic_object's buffer", (*[T(a) for a in neus_inputs(RAYSCHUNK, 96, 17)[:5]],
+                                       1.0, torch.tensor(300.0, device=dev),
+                                       T(neus_inputs(RAYSCHUNK, 96, 17)[5])))))
+    errs.update(e12)
+
+    # the render: 4 frames, a crop against the CPU path at its street depths
+    H, W = (int(v) for v in scene_r.nodes[COMPOSE_CAM].frame_data["hw"][0].tolist())
+    vehicles = [ob.obj_id for ob in renderer.objects]
+    kernels.reset_counts()
+    frames = [render_multi_frame(renderer, params_r, scene_r, fi, COMPOSE_CAM, occ, RAYSCHUNK)
+              for fi in COMPOSE_FRAME_IDS]
+    torch.cuda.synchronize()
+    launches_render = {k.name: k.launches for k in kernels.KERNELS.values()}
+    chunks = len(COMPOSE_FRAME_IDS) * -(-H * W // RAYSCHUNK)
+    log(f"per-level render: {len(COMPOSE_FRAME_IDS)} frames of {H}x{W}, launches "
+        f"{launches_render}")
+    if launches_render["lotd_cp_level"] <= 0 or launches_render["lotd_cp_stacked"] or \
+            launches_render["cross_source_vw"] != chunks:
+        raise AssertionError("a per-level chunk launches K2 (never K1) and K8 once")
+    check_compose_frames(frames, H, W, vehicles)
+    frozen = scene_r.slice_at(COMPOSE_FRAME_IDS[0])
+    o, d = camera_get_all_rays(frozen, COMPOSE_CAM, H, W)
+    scene_cpu = Scene.load_from_scenario(demo_scenario(**C["dataset_cfg"]["params"]))
+    crop = compose_crop(H, W)
+    cut = lambda a: a.reshape(H, W, 3)[crop].reshape(-1, 3).cpu().contiguous()
+    by_ray = check_compose_crop(renderer, params_r, frozen,
+                                scene_cpu.slice_at(COMPOSE_FRAME_IDS[0]), cut(o), cut(d), dev,
+                                occ, {"cr": type(occ["cr"])(occ["cr"].val.cpu(),
+                                                            occ["cr"].mask.cpu())})
+
+    # training: the first iteration against the CPU, the launches of each step
+    # type, 48 iterations, a poisoned step
+    loss_err, grad_err = check_multi_first_iteration(scene, trainer, state, samplers, dev)
+    per_step = step_launches(scene, trainer, state, samplers, dev)
+    for step_type, (n, calls) in per_step.items():
+        log(f"per-level {step_type} step: launches {n}, plain alpha-chain calls {calls}")
+    lid, pix = per_step["lidar"][0], per_step["pixel"][0]
+    if per_step["lidar"][1] or not (lid["neus_composite"] == lid["neus_composite.bwd"] == 1) \
+            or lid["lotd_cp_level"] <= 0 or lid["lotd_cp_level.bwd"] <= 0 \
+            or any(lid[k] for k in ("volume_composite", "volume_composite.bwd",
+                                    "lotd_cp_stacked", "lotd_cp_stacked.bwd")):
+        raise AssertionError("the per-level LiDAR step should take K12 and K2, no plain alpha "
+                             "chain, no K6 and no K1")
+    if pix["neus_composite"] or pix["lotd_cp_stacked"] or pix["cross_source_vw.bwd"] != 1:
+        raise AssertionError("the per-level pixel step composites through K8, on K2")
+    log_, launches, falls = check_multi_training(scene, trainer, state, samplers, dev,
+                                                 PERLEVEL_ITERS, "per-level", per_level=True)
+    check_multi_poisoned_step(scene, trainer, state, samplers, dev)
+
+    it_ms = time_multi_iterations(scene, trainer, state, samplers, dev)
+    frame_ms = time_compose_frames(renderer, params_r, scene_r, occ)
+    rays = MULTI_RAYS + MULTI_BEAMS
+    for k, (med, lo, hi) in it_ms.items():
+        key = "multi_iteration_ms" if k == "iteration" else f"multi_{k}_step_ms"
+        log(f"timing: per-level {k} median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}); stacked "
+            f"{stacked[key]:.3f} ms in this run")
+    log(f"timing: per-level iteration {rays / it_ms['iteration'][0] * 1e3:.1f} rays/s (stacked "
+        f"{stacked['multi_rays_per_s']:.1f}); hand-kernel launches per iteration "
+        f"{sum(launches.values()) / PERLEVEL_ITERS:.1f}")
+    log(f"timing: per-level frame median {frame_ms[0]:.3f} ms (min {frame_ms[1]:.3f}, max "
+        f"{frame_ms[2]:.3f}); stacked {stacked['compose_frame_ms']:.3f} ms in this run")
+    times = {**time_cp_level(shapes2), **time_neus_composite(shapes12)}
+    summary = {"perlevel_build_s": timings, "perlevel_crop_by_ray": by_ray,
+               "perlevel_first_iteration_loss_rel_err": loss_err,
+               "perlevel_first_iteration_grad_rel_err": grad_err,
+               "perlevel_iterations": PERLEVEL_ITERS,
+               "perlevel_loss_rgb_first10": falls["loss_rgb"][0],
+               "perlevel_loss_rgb_last10": falls["loss_rgb"][1],
+               "perlevel_lidar_depth_first10": falls["lidar/lidar_loss_depth"][0],
+               "perlevel_lidar_depth_last10": falls["lidar/lidar_loss_depth"][1],
+               "perlevel_lidar_step_ms": it_ms["lidar"][0],
+               "perlevel_pixel_step_ms": it_ms["pixel"][0],
+               "perlevel_iteration_ms": it_ms["iteration"][0],
+               "perlevel_iteration_ms_min": it_ms["iteration"][1],
+               "perlevel_iteration_ms_max": it_ms["iteration"][2],
+               "perlevel_rays_per_s": rays / it_ms["iteration"][0] * 1e3,
+               "perlevel_frame_ms": frame_ms[0], "perlevel_frame_ms_min": frame_ms[1],
+               "perlevel_frame_ms_max": frame_ms[2],
+               "perlevel_stacked_iteration_ms": stacked["multi_iteration_ms"],
+               "perlevel_stacked_frame_ms": stacked["compose_frame_ms"],
+               "perlevel_hand_launches_per_iteration": sum(launches.values()) / PERLEVEL_ITERS,
+               "perlevel_step_launches": {k: v[0] for k, v in per_step.items()}}
+    if profile_it:
+        prof = profile_multi_steps(scene, trainer, state, samplers, dev)
+        for k, (n, busy) in prof.items():
+            summary[f"perlevel_{k}_step_device_kernels"] = n
+            summary[f"perlevel_{k}_step_busy_ms"] = busy
+    return dict(errs=errs, times=times, launches=launches, launches_render=launches_render,
+                step_launches={k: v[0] for k, v in per_step.items()}, iters=PERLEVEL_ITERS,
+                n_frames=len(COMPOSE_FRAME_IDS), summary=summary)
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3125,7 +3529,7 @@ def main(argv) -> int:
     log(f"render slice: {N_FRAMES} frames of {rig.H}x{rig.W}, launches {launches_render}")
     for name, n in launches_render.items():
         if n <= 0 and not name.endswith(".bwd") and \
-                name not in BENCH_ONLY + COMPOSE_ONLY + CROWD_ONLY:
+                name not in BENCH_ONLY + COMPOSE_ONLY + CROWD_ONLY + PERLEVEL_ONLY:
             raise AssertionError(f"kernel {name} never launched on the render path")
     check_frames(frames, rig.H, rig.W)
     crop_err = check_crop(frames, renderer, params, rig, rig.H, rig.W)
@@ -3133,32 +3537,51 @@ def main(argv) -> int:
     # 5. the training slice
     trainer, state = build_trainer(SYNTHETIC_OBJECT)
     step_loss_err, step_grad_err = check_first_step(trainer, state, rig, dev)
-    del trainer, state
+    tbuf = training_buffer(trainer, state, rig, dev)
+    if tbuf["t"].shape != (TRAIN_RAYS, 96) or "rays_d" not in tbuf or "rgb" not in tbuf:
+        raise AssertionError("synthetic_object's training buffer should be [2048, 96] with "
+                             "rgb, its alpha from K12")
+    errs.update(check_neus_composite(dev, [("synthetic_object's training step",
+                                            neus_args(tbuf))])[0])
+    del trainer, state, tbuf
     kernels.reset_counts()
     out, rgb_first, rgb_last = train_slice(SYNTHETIC_OBJECT)
     launches = {k.name: k.launches for k in kernels.KERNELS.values()}
     log(f"training slice: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays, launches {launches}")
     for name, n in launches.items():
-        if n <= 0 and name not in BENCH_ONLY + COMPOSE_ONLY + MULTI_ONLY + CROWD_ONLY:
+        if n <= 0 and name not in BENCH_ONLY + COMPOSE_ONLY + MULTI_ONLY + CROWD_ONLY \
+                + PERLEVEL_ONLY:
             raise AssertionError(f"kernel {name} never launched on the training path")
     trainer, state = out["trainer"], out["state"]
     check_poisoned_step(trainer, state, rig, dev)
 
     # 6. the bench model, with its own timing
+    phase_s = {"build, kernels, synthetic_object": time.perf_counter() - t0}
+    t1 = time.perf_counter()
     bench = bench_phase(dev, "--profile" in argv)
+    phase_s["bench"], t1 = time.perf_counter() - t1, time.perf_counter()
 
     # 7. the multi-object compose render, with its own timing
     compose = compose_phase(dev, "--profile" in argv)
+    phase_s["compose"], t1 = time.perf_counter() - t1, time.perf_counter()
 
     # 8. multi-object training, with its own timing
     multi = multi_phase(dev, "--profile" in argv)
+    phase_s["multi"], t1 = time.perf_counter() - t1, time.perf_counter()
 
     # 9. the crowded scene (K11, K10), and 10. synthetic_multi, with their timing
     crowd = crowd_phase(dev, "--profile" in argv)
     synth = synthetic_multi_phase(dev)
     crowd["times"] = time_crowd_kernels(*crowd["shapes"], synth["hit"])
+    phase_s["crowd and synthetic_multi"], t1 = time.perf_counter() - t1, time.perf_counter()
 
-    # 11. timing
+    # 11. WAYMO_DEMO_MULTI on the per-level CP path (K2, K12), with its timing
+    perlevel = perlevel_phase(dev, "--profile" in argv,
+                              {**multi["summary"], **compose["summary"]})
+    phase_s["per-level"], t1 = time.perf_counter() - t1, time.perf_counter()
+    log("phases (s, host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
+
+    # 12. timing
     (frame_ms, frame_min, frame_max), n_rays = time_frames(renderer, params, rig, dev)
     log(f"timing: frame median {frame_ms:.3f} ms (min {frame_min:.3f}, max "
         f"{frame_max:.3f}) for {n_rays} rays, {n_rays / frame_ms * 1e3:.1f} rays/s")
@@ -3166,8 +3589,12 @@ def main(argv) -> int:
     log(f"timing: training step median {step_ms:.3f} ms (min {step_min:.3f}, max "
         f"{step_max:.3f}) for {TRAIN_RAYS} rays, {TRAIN_RAYS / step_ms * 1e3:.1f} rays/s; "
         f"hand-kernel launches per step {sum(launches.values()) / TRAIN_STEPS:.1f}")
-    times = {**time_forward_kernels(shapes), **time_backward_kernels(shapes_bwd)}
-    times_render = time_forward_kernels(shapes_render)
+    # K6 is checked at synthetic_object's shapes but runs on the bench path only
+    times = {k: v for k, v in {**time_forward_kernels(shapes),
+                               **time_backward_kernels(shapes_bwd)}.items()
+             if k not in BENCH_ONLY}
+    times_render = {k: v for k, v in time_forward_kernels(shapes_render).items()
+                    if k not in BENCH_ONLY}
     rows = []
     for name, k in kernels.KERNELS.items():
         # a kernel of the earlier slices reports its synthetic_object training
@@ -3177,8 +3604,16 @@ def main(argv) -> int:
         on_compose = name in COMPOSE_ONLY
         on_multi = name in MULTI_ONLY
         on_crowd = name in CROWD_ONLY
-        on_bench = name not in times and not on_compose and not on_multi and not on_crowd
-        if on_crowd:
+        on_perlevel = name in PERLEVEL_ROWS
+        on_bench = name not in times and not (on_compose or on_multi or on_crowd or on_perlevel)
+        if on_perlevel:
+            # K2 at the street's pixel-step shape (its other shapes under
+            # "perlevel"), K12 at the LiDAR step's street buffer
+            t = perlevel["times"][name]
+            t = t[0] if isinstance(t, list) else t
+            n_launch, steps, path = (perlevel["launches"][name], perlevel["iters"],
+                                     "waymo_demo_multi per-level training")
+        elif on_crowd:
             # K11's training call (its render call and synthetic_multi's
             # stand under "crowd"), K10's one shape
             t = crowd["times"][name][1 if name == "pair_compact" else 0]
@@ -3197,19 +3632,20 @@ def main(argv) -> int:
             t, n_launch, steps, path = (times[name], launches[name], TRAIN_STEPS,
                                         "synthetic_object training")
         found = [e[name] for e in (errs, bench["errs"], compose["errs"], multi["errs"],
-                                   crowd["errs"]) if name in e]
+                                   crowd["errs"], perlevel["errs"]) if name in e]
         err, tol = max(e for e, _ in found), found[0][1]
         bound_ms, bound_by = t["bound"]
         # K8 runs on no training step: its per-frame count is under "compose"
         row = {"name": name, "route": "cuda", "source": k.source,
                "replaces": k.replaces, "launches": n_launch,
-               "launches_per_step": None if on_compose or on_multi or on_crowd
+               "launches_per_step": None if on_compose or on_multi or on_crowd or on_perlevel
                else n_launch / steps,
                "max_abs_err": err, "max_err": err,
                "tol": tol, "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": t["library_ms"], "shape": t["shape"], "path": path}
-        unit = "frame" if on_compose else "iteration" if on_multi or on_crowd else "step"
+        unit = "frame" if on_compose else "iteration" if on_multi or on_crowd or on_perlevel \
+            else "step"
         log(f"kernel {name} ({path} path, {n_launch / steps:g} launches per {unit}): "
             f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound {bound_ms:.4f} by {bound_by}) "
             f"at {t['shape']}")
@@ -3276,12 +3712,30 @@ def main(argv) -> int:
                 f"{c['shape']}")
         row["synthetic_multi"] = {"launches": synth["launches"][name],
                                   "launches_per_step": synth["launches"][name] / synth["steps"]}
+        row["perlevel"] = {
+            "launches": perlevel["launches"][name],
+            "launches_per_iteration": perlevel["launches"][name] / perlevel["iters"],
+            "launches_per_lidar_step": perlevel["step_launches"]["lidar"][name],
+            "launches_per_pixel_step": perlevel["step_launches"]["pixel"][name],
+            "render_launches_per_frame":
+                perlevel["launches_render"][name] / perlevel["n_frames"]}
+        for c in perlevel["times"].get(name, []) if name in PERLEVEL_ONLY else []:
+            row["perlevel"].setdefault("times", []).append(
+                {"ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+                 "bound_by": c["bound"][1], "library_ms": c["library_ms"], "shape": c["shape"]})
+        p = row["perlevel"]
+        log(f"kernel {name} (per-level path: {p['launches_per_lidar_step']} launches per "
+            f"LiDAR step, {p['launches_per_pixel_step']} per pixel step, "
+            f"{p['render_launches_per_frame']:g} per frame)")
+        for c in p.get("times", []):
+            log(f"kernel {name} (per-level path): {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, "
+                f"bound {c['bound_ms']:.4f} by {c['bound_by']}) at {c['shape']}")
         rows.append(row)
     if "--profile" in argv:
         profile_frame(renderer, params, rig, dev)
         profile_step(trainer, state, rig, dev)
 
-    # 12. results
+    # 13. results
     log(json.dumps({"frame_ms": frame_ms, "frame_ms_min": frame_min,
                     "frame_ms_max": frame_max, "rays_per_s": n_rays / frame_ms * 1e3,
                     "crop_max_abs_err": crop_err,
@@ -3292,7 +3746,7 @@ def main(argv) -> int:
                     "loss_rgb_last10": rgb_last, "first_step_loss_rel_err": step_loss_err,
                     "first_step_grad_rel_err": step_grad_err, **bench["summary"],
                     **compose["summary"], **multi["summary"], **crowd["summary"],
-                    **synth["summary"], "card": smi}))
+                    **synth["summary"], **perlevel["summary"], "card": smi}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -8,28 +8,34 @@ table copies over as is. Level types:
   per-axis linear interpolations. With two or more CP levels (the JAX default,
   "stacked CP") every level's lines are first resampled onto one grid of the
   largest CP resolution; the lookup is the ``lotd_cp_stacked`` kernel (K1).
+  A single CP level, or any number under ``NEURALSIM_CP_STACKED=0`` (read
+  when the encoding is built, as JAX does), takes the per-level path: each
+  level's own lines straight from the table, all levels in one launch of the
+  ``lotd_cp_level`` kernel (K2).
 * ``dense`` / ``hash``: 8-corner trilinear gather from a [F, size] table
   segment, hashed with the Instant-NGP primes beyond the dense budget; the
   lookup is the ``lotd_grid`` kernel (K3).
 
-Both kernels also give the analytic jacobian d(features)/d(x01) that the NeuS
+The kernels also give the analytic jacobian d(features)/d(x01) that the NeuS
 field turns into normals. Each kernel's wrapper below takes its plain PyTorch
 version for tensors on the CPU and launches the kernel for CUDA tensors.
 
-Training: both outputs carry gradients into ``table`` (the on-render eikonal
+Training: the outputs carry gradients into ``table`` (the on-render eikonal
 loss trains through the jacobian). On the CPU autograd differentiates the
-plain versions; on the card one ``torch.autograd.Function`` runs the two
-forward kernels and, in its backward, the ``lotd_cp_stacked.bwd`` and
-``lotd_grid.bwd`` kernels. No gradient goes to the positions: rays are data
-and sample depths are detached in this slice (pose refinement will add it).
+plain versions; on the card one ``torch.autograd.Function`` runs the forward
+kernels and, in its backward, the ``lotd_cp_stacked.bwd``,
+``lotd_cp_level.bwd`` and ``lotd_grid.bwd`` kernels. No gradient goes to the
+positions: rays are data and sample depths are detached in this slice (pose
+refinement will add it).
 
-Not ported yet: per-level CP (a single CP level, or ``NEURALSIM_CP_STACKED=0``),
-the batched ``bidx`` tables, 4-D inputs, the level anneal window, and the
-``NEURALSIM_CP_*`` environment knobs.
+Not ported yet: the batched ``bidx`` tables, 4-D inputs, the level anneal
+window and ``NEURALSIM_CP_JAC_F32=1`` (float32 lines for the stacked
+jacobian), which raises.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,7 +57,10 @@ K1_BWD = kernels.register("lotd_cp_stacked.bwd", "neuralsim_torch/csrc/lotd_cp_s
                           "neuralsim_tpu/fields/encodings/lotd.py:346")
 K3_BWD = kernels.register("lotd_grid.bwd", "neuralsim_torch/csrc/lotd_grid.cu",
                           "neuralsim_tpu/fields/encodings/lotd.py:410")
-
+K2 = kernels.register("lotd_cp_level", "neuralsim_torch/csrc/lotd_cp_level.cu",
+                      "neuralsim_tpu/fields/encodings/lotd.py:250")
+K2_BWD = kernels.register("lotd_cp_level.bwd", "neuralsim_torch/csrc/lotd_cp_level.cu",
+                          "neuralsim_tpu/fields/encodings/lotd.py:250")
 
 class LevelSpec:
     """Static per-level layout: resolution, feature width, type, rows, offset."""
@@ -247,6 +256,93 @@ def lotd_cp_stacked_bwd(lines: torch.Tensor, pos01: torch.Tensor, rows: torch.Te
 
 
 # ---------------------------------------------------------------------------
+# K2: per-level CP levels
+# ---------------------------------------------------------------------------
+
+def lotd_cp_level_plain(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor,
+                        out: torch.Tensor, jac: Optional[torch.Tensor] = None) -> None:
+    """Plain version of K2.
+
+    table: the flat float32 LoTD table; pos01: [N, 3]; meta: int32 [L, 4]
+    rows of (R, offset, F, out row). Each level's lines, the segment
+    ``table[offset : offset + 3 R F]`` viewed as [3, R, F], are rounded to
+    bf16 (the gradient passes unrounded), and the level's F features go to
+    rows [out row, out row + F) of ``out`` [C, N] and, given ``jac``
+    [3, C, N], their derivatives: K1's two-tap lerp at the level's own R,
+    JAX's ``_cp_level_features``.
+    """
+    for R, offset, nf, row in meta.tolist():
+        seg = table[offset:offset + 3 * R * nf].view(3, R, nf).transpose(1, 2)
+        rows = torch.arange(row, row + nf, device=out.device)
+        lotd_cp_stacked_plain(_RoundBf16.apply(seg), pos01, rows, out, jac)
+
+
+def _check_k2(name: str, table: torch.Tensor, meta: torch.Tensor) -> None:
+    if table.dtype != torch.float32 or table.dim() != 1:
+        raise ValueError(f"{name}: table must be a flat float32 tensor")
+    if meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[1] != 4 \
+            or meta.shape[0] < 1:
+        raise ValueError(f"{name}: meta must be int32 [L >= 1, 4]")
+
+
+def lotd_cp_level(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor,
+                  out: torch.Tensor, jac: Optional[torch.Tensor] = None) -> None:
+    """K2 wrapper: the plain version on the CPU, the CUDA kernel on the card.
+    ``meta`` must describe levels (R >= 2) inside ``table`` and rows inside
+    ``out``."""
+    if table.device.type == "cpu":
+        return lotd_cp_level_plain(table, pos01, meta, out, jac)
+    kernels.check_cuda("lotd_cp_level", table, pos01, meta, out,
+                       *([] if jac is None else [jac]))
+    _check_k2("lotd_cp_level", table, meta)
+    _check_outputs("lotd_cp_level", pos01, out, jac)
+    K2.launch("lotd_cp_level_fwd", kernels.ptr(table), kernels.ptr(pos01), kernels.ptr(meta),
+              kernels.ptr(out), kernels.ptr(jac), pos01.shape[0], meta.shape[0],
+              out.shape[0], kernels.stream())
+
+
+def lotd_cp_level_bwd_plain(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor,
+                            d_out: Optional[torch.Tensor], d_jac: Optional[torch.Tensor],
+                            d_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K2's backward: autograd of the plain forward. Returns
+    the gradient [n_table] float32 (added to ``d_table`` when given), zero
+    outside the levels' segments."""
+    given = d_out if d_out is not None else d_jac
+    with torch.enable_grad():
+        src = table.detach().requires_grad_(True)
+        out = given.new_zeros(given.shape[-2:])
+        jac = None if d_jac is None else torch.zeros_like(d_jac)
+        lotd_cp_level_plain(src, pos01, meta, out, jac)
+        g = torch.autograd.grad(_cotangent_loss(out, jac, d_out, d_jac), src)[0]
+    return g if d_table is None else d_table.add_(g)
+
+
+def lotd_cp_level_bwd(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor,
+                      d_out: Optional[torch.Tensor], d_jac: Optional[torch.Tensor],
+                      d_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2 backward wrapper: the gradient of both outputs into the levels'
+    (bf16-read) lines, summed in float32 and added to ``d_table`` (a zeroed
+    float32 buffer of the table's size when not given), which it returns.
+    Autograd of the plain version on the CPU, the CUDA kernel on the card
+    (float32 atomics, so the last bits vary from run to run)."""
+    if table.device.type == "cpu":
+        return lotd_cp_level_bwd_plain(table, pos01, meta, d_out, d_jac, d_table)
+    given = [x for x in (d_out, d_jac) if x is not None]
+    if d_table is None:
+        d_table = torch.zeros_like(table)
+    kernels.check_cuda("lotd_cp_level_bwd", table, pos01, meta, d_table, *given)
+    _check_k2("lotd_cp_level_bwd", table, meta)
+    if d_table.shape != table.shape or d_table.dtype != torch.float32:
+        raise ValueError("lotd_cp_level_bwd: d_table must be float32 of the table's shape")
+    _check_cotangents("lotd_cp_level_bwd", pos01, d_out, d_jac)
+    K2_BWD.launch("lotd_cp_level_bwd", kernels.ptr(table), kernels.ptr(pos01),
+                  kernels.ptr(meta), kernels.ptr(d_out), kernels.ptr(d_jac),
+                  kernels.ptr(d_table), pos01.shape[0], meta.shape[0], given[0].shape[-2],
+                  kernels.stream())
+    return d_table
+
+
+# ---------------------------------------------------------------------------
 # K3: dense / hash levels
 # ---------------------------------------------------------------------------
 
@@ -360,12 +456,14 @@ def lotd_grid_bwd(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class _EncodeOnCard(torch.autograd.Function):
-    """K1 + K3 forward into one feature-major buffer; K1 + K3 backward into
-    the float32 stacked lines and the table. The lines are rounded to bf16
-    here, inside, so their gradient comes back unrounded."""
+    """K1 (stacked CP), K2 (per-level CP) and K3 forward into one
+    feature-major buffer; their backwards into the float32 stacked lines and
+    the table. The stacked lines are rounded to bf16 here, inside, and K2
+    rounds the table's CP segments as it reads them, so their gradients come
+    back unrounded."""
 
     @staticmethod
-    def forward(ctx, lines, table, xf, cp_rows, grid_meta, out_dim, with_jac):
+    def forward(ctx, lines, table, xf, cp_rows, cp_meta, grid_meta, out_dim, with_jac):
         N = xf.shape[0]
         out = torch.empty((out_dim, N), dtype=torch.float32, device=xf.device)
         jac = torch.empty((3, out_dim, N), dtype=torch.float32, device=xf.device) \
@@ -374,27 +472,30 @@ class _EncodeOnCard(torch.autograd.Function):
         if lines is not None:
             lines_bf16 = lines.to(torch.bfloat16)
             lotd_cp_stacked(lines_bf16, xf, cp_rows, out, jac)
+        if cp_meta.shape[0]:
+            lotd_cp_level(table, xf, cp_meta, out, jac)
         if grid_meta.shape[0]:
             lotd_grid(table, xf, grid_meta, out, jac)
-        ctx.save_for_backward(lines_bf16, xf, cp_rows, grid_meta)
-        ctx.n_table = table.numel()
+        ctx.save_for_backward(lines_bf16, table, xf, cp_rows, cp_meta, grid_meta)
         ctx.set_materialize_grads(False)
         return out, jac
 
     @staticmethod
     def backward(ctx, d_out, d_jac):
-        lines_bf16, xf, cp_rows, grid_meta = ctx.saved_tensors
+        lines_bf16, table, xf, cp_rows, cp_meta, grid_meta = ctx.saved_tensors
         d_out = None if d_out is None else d_out.contiguous()
         d_jac = None if d_jac is None else d_jac.contiguous()
         d_lines = d_table = None
         if d_out is None and d_jac is None:
-            return (None,) * 7
+            return (None,) * 8
         if lines_bf16 is not None and ctx.needs_input_grad[0]:
             d_lines = lotd_cp_stacked_bwd(lines_bf16, xf, cp_rows, d_out, d_jac)
-        if grid_meta.shape[0] and ctx.needs_input_grad[1]:
-            d_table = lotd_grid_bwd(ctx.n_table, xf, grid_meta, d_out, d_jac)
-        return d_lines, d_table, None, None, None, None, None
-
+        if ctx.needs_input_grad[1]:
+            if grid_meta.shape[0]:
+                d_table = lotd_grid_bwd(table.numel(), xf, grid_meta, d_out, d_jac)
+            if cp_meta.shape[0]:
+                d_table = lotd_cp_level_bwd(table, xf, cp_meta, d_out, d_jac, d_table)
+        return d_lines, d_table, None, None, None, None, None, None
 
 
 class LoTDEncoding(nn.Module):
@@ -402,10 +503,14 @@ class LoTDEncoding(nn.Module):
 
     levels: sequence of (resolution, n_feats, 'dense'|'hash'|'cp').
     Parameter: ``table``, the flat float32 table of every level.
+    ``cp_stacked``: two or more CP levels take the stacked path (K1);
+    ``NEURALSIM_CP_STACKED``, where set, decides instead ("1" stacked, any
+    other value per-level, K2), as in the JAX constructor (lotd.py:169-173).
     """
 
     def __init__(self, levels: Sequence[Tuple[int, int, str]], input_dim: int = 3,
-                 log2_hashmap_size: int = 19, param_init_scale: float = 1e-4):
+                 log2_hashmap_size: int = 19, param_init_scale: float = 1e-4,
+                 cp_stacked: bool = True):
         super().__init__()
         if input_dim != 3:
             raise NotImplementedError("the port's LoTD takes 3-D inputs only")
@@ -432,29 +537,39 @@ class LoTDEncoding(nn.Module):
 
         self.cp_spec_ids = [li for li, s in enumerate(self.specs) if s.typ == "cp"]
         self.grid_spec_ids = [li for li, s in enumerate(self.specs) if s.typ != "cp"]
-        if len(self.cp_spec_ids) == 1:
-            raise NotImplementedError("per-level CP (a single CP level) is not ported")
+        env = os.environ.get("NEURALSIM_CP_STACKED")
+        if env is not None:
+            cp_stacked = env == "1"
+        self.cp_stacked = bool(cp_stacked) and len(self.cp_spec_ids) >= 2
+        self.cp_rmax = max((self.specs[li].res for li in self.cp_spec_ids), default=0)
+        self.cp_out_dim = sum(self.specs[li].n_feats for li in self.cp_spec_ids)
+        if any(self.specs[li].res < 2 for li in self.cp_spec_ids) and not self.cp_stacked:
+            raise ValueError("a per-level CP level needs R >= 2")
         # stacked-CP plan: each CP level's lines resampled onto the largest
         # CP resolution by a static two-tap lerp (same float64 plan as JAX)
-        self.cp_rmax = max((self.specs[li].res for li in self.cp_spec_ids), default=0)
-        for k, li in enumerate(self.cp_spec_ids):
+        for k, li in enumerate(self.cp_spec_ids if self.cp_stacked else ()):
             R = self.specs[li].res
             posc = np.linspace(0.0, 1.0, self.cp_rmax) * (R - 1)
             lo = np.minimum(np.floor(posc).astype(np.int64), max(R - 2, 0))
             w = (posc - lo).astype(np.float32)
             self.register_buffer(f"_cp_lo{k}", torch.from_numpy(lo), persistent=False)
             self.register_buffer(f"_cp_w{k}", torch.from_numpy(w), persistent=False)
-        self.cp_out_dim = sum(self.specs[li].n_feats for li in self.cp_spec_ids)
 
-        # both kernels write straight into the feature-major output [out_dim, N]
+        # the kernels write straight into the feature-major output [out_dim, N]
         # in level order: the first row of each level, the rows of every
-        # stacked-CP feature, and the K3 metadata (res, size, offset, F,
+        # stacked-CP feature, the K2 metadata (R, offset, F, first row) of
+        # each per-level CP level, and the K3 metadata (res, size, offset, F,
         # is_hash, first row) of each gather level
         first_row = np.cumsum([0] + [s.n_feats for s in self.specs])[:-1].tolist()
         cp_rows = [first_row[li] + f for li in self.cp_spec_ids
                    for f in range(self.specs[li].n_feats)]
         self.register_buffer("_cp_rows", torch.tensor(cp_rows, dtype=torch.int32),
                              persistent=False)
+        cp_meta = [] if self.cp_stacked else [
+            (self.specs[li].res, self.specs[li].offset, self.specs[li].n_feats, first_row[li])
+            for li in self.cp_spec_ids]
+        self.register_buffer("_cp_meta", torch.tensor(cp_meta, dtype=torch.int32)
+                             .reshape(-1, 4), persistent=False)
         meta = []
         for li in self.grid_spec_ids:
             s = self.specs[li]
@@ -491,28 +606,35 @@ class LoTDEncoding(nn.Module):
 
     def kernel_lines(self) -> Optional[torch.Tensor]:
         """The float32 stacked lines behind K1 (which rounds them to bf16),
-        or None without CP levels. They depend on the parameters only, so a
-        caller that encodes several batches with the same parameters computes
-        them once and passes them in (XLA hoists the same work out of the JAX
-        package's chunked eval); gradients reach ``table`` through them."""
-        return self.cp_stacked_lines() if self.cp_spec_ids else None
+        or None without stacked CP levels (K2 reads the table itself). They
+        depend on the parameters only, so a caller that encodes several
+        batches with the same parameters computes them once and passes them
+        in (XLA hoists the same work out of the JAX package's chunked eval);
+        gradients reach ``table`` through them."""
+        return self.cp_stacked_lines() if self.cp_stacked else None
 
     def _encode(self, x: torch.Tensor, with_jac: bool, cp_lines: Optional[torch.Tensor]):
         lead = x.shape[:-1]
         xf = x.reshape(-1, 3).to(torch.float32).contiguous()
         N = xf.shape[0]
-        if self.cp_spec_ids and cp_lines is None:
+        if self.cp_stacked and cp_lines is None:
             cp_lines = self.kernel_lines()
+        if with_jac and self.cp_stacked and os.environ.get("NEURALSIM_CP_JAC_F32") == "1":
+            raise NotImplementedError("NEURALSIM_CP_JAC_F32=1 (float32 lines for the stacked "
+                                      "jacobian) is not ported")
         if xf.device.type == "cpu":      # the plain versions, under autograd
             out = torch.empty((self.out_dim, N), dtype=torch.float32)
             jac = torch.empty((3, self.out_dim, N), dtype=torch.float32) if with_jac else None
-            if self.cp_spec_ids:
+            if self.cp_stacked:
                 lotd_cp_stacked(_RoundBf16.apply(cp_lines), xf, self._cp_rows, out, jac)
+            elif self.cp_spec_ids:
+                lotd_cp_level(self.table, xf, self._cp_meta, out, jac)
             if self.grid_spec_ids:
                 lotd_grid(self.table, xf, self._grid_meta, out, jac)
         else:
-            out, jac = _EncodeOnCard.apply(cp_lines, self.table, xf, self._cp_rows,
-                                           self._grid_meta, self.out_dim, with_jac)
+            out, jac = _EncodeOnCard.apply(cp_lines if self.cp_stacked else None, self.table,
+                                           xf, self._cp_rows, self._cp_meta, self._grid_meta,
+                                           self.out_dim, with_jac)
         h = out.T.reshape(lead + (self.out_dim,))
         if not with_jac:
             return h

@@ -56,6 +56,12 @@ def map_chunked(fn: Callable[..., torch.Tensor], x: torch.Tensor, chunk: Optiona
 # NeuS SDF -> alpha math
 # ---------------------------------------------------------------------------
 
+def clip01(x: torch.Tensor) -> torch.Tensor:
+    """clip(x, 0, 1) with ``jnp.clip``'s gradient: half of it at a tie
+    (x == 0 or x == 1), where ``torch.clamp`` passes all of it."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
 def neus_alpha_from_sdf(sdf: torch.Tensor, cos: torch.Tensor, dist: torch.Tensor,
                         inv_s, eps: float = 1e-5) -> torch.Tensor:
     """NeuS CDF-ratio section alpha from the sample SDF and a cos estimate."""
@@ -63,7 +69,21 @@ def neus_alpha_from_sdf(sdf: torch.Tensor, cos: torch.Tensor, dist: torch.Tensor
     est_next = sdf + cos * dist * 0.5
     cdf_prev = torch.sigmoid(est_prev * inv_s)
     cdf_next = torch.sigmoid(est_next * inv_s)
-    return torch.clamp((cdf_prev - cdf_next + eps) / (cdf_prev + eps), 0.0, 1.0)
+    return clip01((cdf_prev - cdf_next + eps) / (cdf_prev + eps))
+
+
+def neus_final_alpha(t: torch.Tensor, mask: torch.Tensor, sdf: torch.Tensor,
+                     nablas: torch.Tensor, rays_d: torch.Tensor, anneal: float,
+                     inv_s) -> torch.Tensor:
+    """The alpha of the final evaluation (JAX neus.py:529-543): the cos
+    annealed from the half-shifted to the true cos ``rays_d . nablas``, the
+    last lane's dt 1e-3, masked lanes 0. t/mask/sdf: [N, S]; nablas
+    [N, S, 3]; rays_d [N, 3]."""
+    true_cos = torch.sum(rays_d[:, None, :] * nablas, dim=-1)
+    cos = -(torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - anneal)
+            + torch.relu(-true_cos) * anneal)
+    alpha = neus_alpha_from_sdf(sdf, cos, _dt_last_1e3(t), inv_s)
+    return torch.where(mask, alpha, torch.zeros_like(alpha))
 
 
 def neighbor_cos_estimate(t: torch.Tensor, sdf: torch.Tensor,
@@ -275,7 +295,8 @@ class NeuSField(nn.Module):
                   forward_inv_s: Optional[float] = None,
                   noise: Optional[Dict[str, Any]] = None,
                   occ_t_fn: Optional[Callable] = None,
-                  bidx: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                  bidx: Optional[torch.Tensor] = None,
+                  fuse_alpha: bool = False) -> Dict[str, Any]:
         """Hierarchical NeuS ray query with fixed shapes: uniform coarse
         samples (or the occupancy march's), one upsample stage per ``num_fine`` entry at inv_s
         ``upsample_inv_s * factor``, each merged into the sorted buffer, then
@@ -290,7 +311,12 @@ class NeuSField(nn.Module):
         ``bidx`` [N] int: a per-ray instance index, handed to the field at
         every sample of the ray.
         Returns the dense volume buffer
-        {t, mask, alpha, sdf, nablas, rgb [N, S(, 3)], details}.
+        {t, mask, alpha, sdf, nablas, rgb [N, S(, 3)], details}. With
+        ``fuse_alpha`` (a buffer that is composited alone) the buffer has no
+        ``alpha`` yet but the ray directions ``rays_d`` and the ``cos_anneal``:
+        the renderer composites it with ``renderers.neus_composite.neus_integrate``,
+        which computes the alpha inside the composite (kernel K12 on the card)
+        and adds it to the buffer.
         """
         n_, f_, hit = self.space.ray_test(rays_o, rays_d, near=near, far=far)
         lines = self.encoding.kernel_lines()     # shared by the four encodings
@@ -334,16 +360,13 @@ class NeuSField(nn.Module):
         feat = feat.reshape(shp + (feat.shape[-1],))
 
         dirs = rays_d[:, None, :].expand(x.shape)
-        true_cos = torch.sum(dirs * nablas, dim=-1)
         anneal = self.cos_anneal(it)
-        iter_cos = -(torch.relu(-true_cos * 0.5 + 0.5) * (1.0 - anneal)
-                     + torch.relu(-true_cos) * anneal)
         inv_s = self.forward_inv_s(it, override=forward_inv_s)
-        alpha = neus_alpha_from_sdf(sdf, iter_cos, _dt_last_1e3(t), inv_s)
-        alpha = torch.where(mask, alpha, torch.zeros_like(alpha))
-
-        buf: Dict[str, Any] = {"t": t, "mask": mask, "alpha": alpha, "sdf": sdf,
-                               "nablas": nablas}
+        buf: Dict[str, Any] = {"t": t, "mask": mask, "sdf": sdf, "nablas": nablas}
+        if fuse_alpha:
+            buf.update(rays_d=rays_d, cos_anneal=anneal)
+        else:
+            buf["alpha"] = neus_final_alpha(t, mask, sdf, nablas, rays_d, anneal, inv_s)
         if with_rgb:
             buf["rgb"] = self.query_radiance(x, dirs, nablas, feat)
         first_valid = torch.argmax(mask.to(torch.uint8), dim=-1)

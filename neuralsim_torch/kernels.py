@@ -35,12 +35,16 @@ LIB_NAME = "libneuralsim_torch_kernels.so"
 SIGNATURES: Dict[str, str] = {
     "lotd_cp_stacked_fwd": "pppppiiiip",
     "lotd_cp_stacked_bwd": "ppppppiiiip",
+    "lotd_cp_level_fwd": "pppppiiip",
+    "lotd_cp_level_bwd": "ppppppiiip",
     "lotd_grid_fwd": "pppppiiip",
     "lotd_grid_bwd": "pppppiiip",
     "neus_upsample_weights_pdf": "ppppppppiiiifp",
     "merge_sorted_samples": "pppppppppiiip",
     "volume_composite_fwd": "pppppppppppiip",
     "volume_composite_bwd": "pppppppppppppiip",
+    "neus_composite_fwd": "ppppppppppppppiifp",
+    "neus_composite_bwd": "pppppppppppppppppiifp",
     "occ_ray_proposal": "pppppppppppiiiiiip",
     "occ_ema_update": "ppppiiifffffp",
     "cross_source_vw": "pppppiip",

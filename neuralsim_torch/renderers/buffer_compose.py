@@ -32,7 +32,8 @@ K8 kernel on the card); each source's share is its masked sums (``per_obj``).
 The sky fills what is left. Under autograd the gradients flow through the
 compaction and the scatter-back into every field (K8's backward on the card).
 Training draws come in as ``noise``, one entry per model id (the field's own
-``noise`` argument); ``only_cr`` renders the street alone (the LiDAR step).
+``noise`` argument); ``only_cr`` renders the street alone (the LiDAR step),
+its NeuS alpha computed inside the composite (kernel K12).
 
 Parameters live in the field modules, one ``nn.ModuleDict`` keyed by model
 id (``AssetBank.init_params``); the bindings name the model ids only, so a
@@ -49,7 +50,8 @@ from torch import nn
 
 from ..maths.transforms import apply_rotation
 from ..ops.pair_compact import pair_budget, pair_compact
-from .buffers import merge_and_integrate
+from .buffers import merge_and_integrate, volume_integrate
+from .neus_composite import neus_integrate
 
 _FRAME_KEYS = ("rgb_volume", "depth_volume", "mask_volume", "normals_volume", "rgb_sky")
 _SOURCE_KEYS = ("rgb_volume", "depth_volume", "mask_volume")
@@ -253,7 +255,11 @@ class BufferComposeRenderer:
         buffers: List[Dict[str, Any]] = []
         names: List[str] = []
         B = self.budget(N)
-        for model_id, obs in ({} if only_cr else self._grouped()).items():
+        groups = {} if only_cr else self._grouped()
+        with_distant = "distant" in self.scene_models and not only_cr
+        # a street composited alone takes its alpha inside the composite (K12)
+        fused = "cr" in self.scene_models and not groups and not with_distant
+        for model_id, obs in groups.items():
             for name, buf in self._query_group(params, frozen, model_id, obs, rays_o, rays_d,
                                                B, it, with_rgb, qo, occ_states,
                                                noise.get(model_id), with_per_obj):
@@ -268,12 +274,13 @@ class BufferComposeRenderer:
             if proposal is not None:
                 qcfg.setdefault("occ_t_fn", proposal)
             buf = params[mid].ray_query(rays_o, rays_d, it=it, with_rgb=with_rgb,
-                                        noise=noise.get(mid), **{**qcfg, **qo})
+                                        noise=noise.get(mid), fuse_alpha=fused,
+                                        **{**qcfg, **qo})
             cr_far, cr_hit = buf["details"]["far"], buf["details"]["hit"]
             buffers.append(buf)
             names.append("street")
 
-        if "distant" in self.scene_models and not only_cr:
+        if with_distant:
             mid, qcfg = self.scene_models["distant"]
             dv_near = torch.ones(N, dtype=torch.float32, device=rays_o.device) if cr_far is None \
                 else torch.where(cr_hit, torch.clamp(cr_far, min=1e-3), 1.0)
@@ -287,7 +294,8 @@ class BufferComposeRenderer:
         per_idx = None if with_per_obj else \
             [i for i, n in enumerate(names) if n in ("street", "distant")]
         rendered = merge_and_integrate(buffers, with_per_src=True, per_src_indices=per_idx,
-                                       sort_free=True)
+                                       sort_free=True,
+                                       integrate=neus_integrate if fused else volume_integrate)
         rendered["src_names"] = names
         rendered["rendered_per_obj_in_scene"] = {
             n: r for n, r in zip(names, rendered["per_src"]) if r is not None}

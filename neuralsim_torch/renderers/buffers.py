@@ -20,7 +20,7 @@ The sort-based merge is not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -176,16 +176,10 @@ def _integrate_vw(buf: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def volume_integrate(buf: Dict[str, Any]) -> Dict[str, Any]:
-    """Integrate one dense buffer {t, mask, alpha, rgb?, nablas?} into the
-    rendered dict (depth normalised by the weight sum). The buffer is sorted
-    in depth, or carries its lanes' visibility weights as ``vw`` (the
-    order-free composite of an unsorted merge)."""
-    if "vw" in buf:
-        return _integrate_vw(buf)
-    args = (buf["t"], buf["mask"], buf["alpha"], buf.get("rgb"), buf.get("nablas"))
-    vw, vw_sum, depth, rgb_v, nrm_v, cnt = volume_composite_plain(*args) \
-        if args[0].device.type == "cpu" else _CompositeOnCard.apply(*args)
+def rendered_from_composite(vw: torch.Tensor, vw_sum: torch.Tensor, depth: torch.Tensor,
+                            rgb_v: Optional[torch.Tensor], nrm_v: Optional[torch.Tensor],
+                            cnt: torch.Tensor) -> Dict[str, Any]:
+    """The rendered dict of a composite's outputs (K6's, or K12's)."""
     out: Dict[str, Any] = {"mask_volume": vw_sum, "depth_volume": depth}
     if rgb_v is not None:
         out["rgb_volume"] = rgb_v
@@ -196,9 +190,24 @@ def volume_integrate(buf: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def volume_integrate(buf: Dict[str, Any]) -> Dict[str, Any]:
+    """Integrate one dense buffer {t, mask, alpha, rgb?, nablas?} into the
+    rendered dict (depth normalised by the weight sum). The buffer is sorted
+    in depth, or carries its lanes' visibility weights as ``vw`` (the
+    order-free composite of an unsorted merge)."""
+    if "vw" in buf:
+        return _integrate_vw(buf)
+    args = (buf["t"], buf["mask"], buf["alpha"], buf.get("rgb"), buf.get("nablas"))
+    return rendered_from_composite(*(volume_composite_plain(*args)
+                                     if args[0].device.type == "cpu"
+                                     else _CompositeOnCard.apply(*args)))
+
+
 def merge_and_integrate(buffers: Sequence[Dict[str, Any]], *, with_per_src: bool = False,
                         per_src_indices: Optional[Sequence[int]] = None,
-                        assume_sorted: bool = False, sort_free: bool = False) -> Dict[str, Any]:
+                        assume_sorted: bool = False, sort_free: bool = False,
+                        integrate: Callable[[Dict[str, Any]], Dict[str, Any]] = volume_integrate
+                        ) -> Dict[str, Any]:
     """Merge the buffers of several models, composite once and, with
     ``with_per_src``, give each source's share of the total as
     ``per_src[i] = {mask_volume, depth_volume, rgb_volume}`` (None for a
@@ -212,7 +221,9 @@ def merge_and_integrate(buffers: Sequence[Dict[str, Any]], *, with_per_src: bool
     (K8). Several buffers need one of
     the two. The rendered dict carries the merged buffer, with each lane's
     source index ``src`` (and, sort-free, its weight ``vw``), under
-    ``merged_buffer``.
+    ``merged_buffer``. ``integrate`` composites the merged buffer into the
+    rendered dict: :func:`volume_integrate`, or, for one NeuS buffer that
+    carries no alpha yet, ``renderers.neus_composite.neus_integrate``.
     """
     if len(buffers) == 1:
         merged = dict(buffers[0])
@@ -231,7 +242,7 @@ def merge_and_integrate(buffers: Sequence[Dict[str, Any]], *, with_per_src: bool
     else:
         raise NotImplementedError("merging buffers that overlap in depth needs sort_free=True "
                                   "(the sort-based merge is not ported)")
-    out = volume_integrate(merged)
+    out = integrate(merged)
     out["merged_buffer"] = merged
     if with_per_src:
         wanted = range(len(buffers)) if per_src_indices is None else per_src_indices

@@ -3,8 +3,10 @@
 close-range field is queried first (its coarse samples from the occupancy
 grid where the caller hands in the grid's state), the distant field from the
 close range's far plane outwards, the two buffers are composited together and
-the sky fills what is left. ``ray_query`` runs under autograd (the training
-step differentiates it); ``render_chunked`` switches autograd off.
+the sky fills what is left. A close range without a distant field is
+composited alone, its NeuS alpha inside the composite (kernel K12).
+``ray_query`` runs under autograd (the training step differentiates it);
+``render_chunked`` switches autograd off.
 
 Parameters live in the field modules, held by one ``nn.ModuleDict`` keyed by
 model id (the port's analog of the JAX ``{model_id: params}`` tree); the
@@ -17,7 +19,8 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from .buffers import merge_and_integrate
+from .buffers import merge_and_integrate, volume_integrate
+from .neus_composite import neus_integrate
 
 # per-ray extras that render_chunked drops, as the JAX version does
 _DROPPED = ("vw", "details_cr", "per_src", "rendered_cr", "rendered_dv")
@@ -59,12 +62,14 @@ class SingleVolumeRenderer:
             accel, st = self.accels["cr"], occ_states["cr"]
             cfg.setdefault("occ_t_fn", lambda ro, rd, n_, f_, nc, u:
                            accel.ray_proposal(st, ro, rd, n_, f_, nc, noise=u))
-        buf_cr = cr.ray_query(rays_o, rays_d, it=it, near=near, far=far,
-                              with_rgb=with_rgb, noise=noise, **cfg)
-        buffers = [buf_cr]
-
         dv_key = self.pkey("distant")
         use_distant = dv_key in params and not only_cr
+        # a close range composited alone takes its alpha inside the composite (K12)
+        fused = not use_distant
+        buf_cr = cr.ray_query(rays_o, rays_d, it=it, near=near, far=far,
+                              with_rgb=with_rgb, noise=noise, fuse_alpha=fused, **cfg)
+        buffers = [buf_cr]
+
         if use_distant:
             # the distant ladder starts at the close range's far plane; rays
             # that miss the close-range box start at a tenth of its radius
@@ -78,7 +83,8 @@ class SingleVolumeRenderer:
 
         # close-range samples end where the distant ones begin, so the
         # concatenation is already in depth order
-        rendered = merge_and_integrate(buffers, with_per_src=use_distant, assume_sorted=True)
+        rendered = merge_and_integrate(buffers, with_per_src=use_distant, assume_sorted=True,
+                                       integrate=neus_integrate if fused else volume_integrate)
         if use_distant:
             rendered["rendered_cr"], rendered["rendered_dv"] = rendered["per_src"]
         sky_key = self.pkey("sky")

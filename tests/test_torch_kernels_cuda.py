@@ -29,7 +29,10 @@ chip_smoke.MULTI_STEP_LOSS_RTOL and MULTI_STEP_GRAD_REL. K11's integer
 outputs are held equal to its plain version's, K10's depths to
 chip_smoke.K4_TOL, and a small crowd (6 vehicles on the pair-budget path with
 per-instance grids) to the CPU as the compose render and the multi-object
-iteration are.
+iteration are. K2 (per-level CP) is held to its plain version at K1's
+tolerances, its backward at chip_smoke.GRAD_REL (also for a level past the
+backward's shared memory); K12 (the NeuS alpha inside the composite) at
+chip_smoke.K12_TOL, its backward at chip_smoke.GRAD_REL.
 """
 import copy
 
@@ -57,6 +60,9 @@ from neuralsim_torch.ops.segment import (cross_source_vw, cross_source_vw_bwd,
 from neuralsim_torch.renderers.buffers import (volume_composite, volume_composite_bwd,
                                                volume_composite_bwd_plain,
                                                volume_composite_plain)
+from neuralsim_torch.renderers.neus_composite import (neus_composite, neus_composite_bwd,
+                                                      neus_composite_bwd_plain,
+                                                      neus_composite_plain)
 from neuralsim_torch.scene import Scene
 from neuralsim_torch.scene.observers import camera_get_all_rays
 from neuralsim_torch.tools.build import (build_compose_renderer, build_multi_trainer,
@@ -146,7 +152,9 @@ def test_render_on_card_matches_cpu(dev):
     torch.cuda.synchronize()
     assert all(k.launches > 0 for k in kernels.KERNELS.values()
                if not k.name.endswith(".bwd")
-               and k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY + cs.CROWD_ONLY)
+               and k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY + cs.CROWD_ONLY
+               + cs.PERLEVEL_ONLY)
+    assert kernels.KERNELS["volume_composite"].launches == 0    # K12 composites it
     want = renderer.render_chunked(copy.deepcopy(params).to("cpu"), o, d, rayschunk=100)
     for k, v in want.items():
         torch.testing.assert_close(got[k].cpu(), v, rtol=0, atol=cs.CROP_TOL,
@@ -222,7 +230,8 @@ def test_train_step_on_card_matches_cpu(dev):
     kernels.reset_counts()
     loss_err, grad_err = cs.check_first_step(trainer, state, rig, dev, n_rays=512)
     assert all(k.launches > 0 for k in kernels.KERNELS.values()
-               if k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY + cs.MULTI_ONLY + cs.CROWD_ONLY)
+               if k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY + cs.MULTI_ONLY + cs.CROWD_ONLY
+               + cs.PERLEVEL_ONLY)
     assert loss_err <= cs.STEP_LOSS_RTOL and grad_err <= cs.STEP_GRAD_REL
 
 
@@ -495,8 +504,9 @@ def test_multi_object_first_iteration_on_card_matches_cpu(dev, multi_built):
 
 
 def test_multi_object_iterations_launch_their_kernels(dev, multi_built):
-    """Three loop iterations: K8 and its backward, K6 and its backward once an
-    iteration, K4 twice, K7 on the first (the grid's cadence), no skip."""
+    """Three loop iterations: K8 and its backward, K12 and its backward (the
+    LiDAR step's street, composited alone) once an iteration, K6 never, K4
+    twice, K7 on the first (the grid's cadence), no skip."""
     scene, _, trainer, state, samplers = multi_built
     kernels.reset_counts()
     log = []
@@ -504,10 +514,11 @@ def test_multi_object_iterations_launch_their_kernels(dev, multi_built):
                log)
     torch.cuda.synchronize()
     n = {k.name: k.launches for k in kernels.KERNELS.values()}
-    assert [n[k] for k in ("cross_source_vw", "cross_source_vw.bwd", "volume_composite",
-                           "volume_composite.bwd", "occ_ray_proposal", "occ_ema_update")] == \
-        [3, 3, 3, 3, 6, 1]
-    assert all(v > 0 for k, v in n.items() if k not in cs.CROWD_ONLY)
+    assert [n[k] for k in ("cross_source_vw", "cross_source_vw.bwd", "neus_composite",
+                           "neus_composite.bwd", "volume_composite", "volume_composite.bwd",
+                           "occ_ray_proposal", "occ_ema_update")] == [3, 3, 3, 3, 0, 0, 6, 1]
+    assert all(v > 0 for k, v in n.items() if k not in cs.CROWD_ONLY + cs.PERLEVEL_ONLY
+               + ("volume_composite", "volume_composite.bwd"))
     assert not any(n[k] for k in cs.CROWD_ONLY)      # 3 vehicles: no pair budget, no K10
     assert log[-1]["skips_total"] == 0 and all(np.isfinite(r["loss_total"]) for r in log)
 
@@ -647,4 +658,155 @@ def test_crowd_iterations_launch_their_kernels(dev, crowd_built):
     assert [n[k] for k in ("pair_compact", "occ_ray_proposal_batched", "cross_source_vw",
                            "cross_source_vw.bwd", "occ_ray_proposal", "occ_ema_update")] == \
         [3, 3, 3, 3, 6, 2]
+    assert log[-1]["skips_total"] == 0 and all(np.isfinite(r["loss_total"]) for r in log)
+
+
+# ---------------------------------------------------------------------------
+# Per-level CP (K2), the NeuS alpha inside the composite (K12)
+# ---------------------------------------------------------------------------
+
+_LADDERS = {"street": {"type": "tpu_mixed", "n_levels": 10, "base_res": 16, "max_res": 1024,
+                       "n_feats": 4, "n_hash_levels": 0, "cp_max_res": 1024},
+            "bench": {"type": "tpu_mixed", "n_levels": 12, "base_res": 16, "max_res": 1024,
+                      "n_feats": 8, "n_hash_levels": 0, "cp_max_res": 2048}}
+
+
+def _per_level(dev, monkeypatch, ladder):
+    monkeypatch.setenv("NEURALSIM_CP_STACKED", "0")
+    enc = lotd.make_lotd(_LADDERS[ladder])
+    assert not enc.cp_stacked and enc._cp_meta.shape[0] == enc.n_levels
+    enc.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():      # spread the lines off their init, so the features vary
+        enc.table.add_(torch.randn(enc.total_params, generator=torch.Generator().manual_seed(1))
+                       * 0.3)
+    return enc.to(dev)
+
+
+@pytest.mark.parametrize("ladder", ["street", "bench"])
+@pytest.mark.parametrize("with_jac", [False, True])
+def test_k2_cp_level(dev, monkeypatch, ladder, with_jac):
+    enc = _per_level(dev, monkeypatch, ladder)
+    x = _t(cs.ray_points(4096, 48, 1024, 0), dev)
+    args = (enc.table.detach(), x, enc._cp_meta)
+    n0 = kernels.KERNELS["lotd_cp_level"].launches
+    got = cs.encode_into(lotd.lotd_cp_level, args, enc.out_dim, x.shape[0], dev, with_jac)
+    assert kernels.KERNELS["lotd_cp_level"].launches == n0 + 1
+    _close(got, cs.encode_into(lotd.lotd_cp_level_plain, args, enc.out_dim, x.shape[0], dev,
+                               with_jac), 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("ladder", ["street", "bench"])
+@pytest.mark.parametrize("which", ["feats", "jac", "both"])
+def test_k2_cp_level_backward(dev, monkeypatch, ladder, which):
+    enc = _per_level(dev, monkeypatch, ladder)
+    x = _t(cs.ray_points(2048, 48, 1024, 1), dev)
+    n = x.shape[0]
+    d_out = None if which == "jac" else cs.cotangents((enc.out_dim, n), 2, dev)
+    d_jac = None if which == "feats" else cs.cotangents((3, enc.out_dim, n), 3, dev)
+    args = (enc.table.detach(), x, enc._cp_meta, d_out, d_jac)
+    _rel_close([lotd.lotd_cp_level_bwd(*args)], [lotd.lotd_cp_level_bwd_plain(*args)],
+               cs.GRAD_REL)
+
+
+def test_k2_encoding_autograd_on_card_matches_cpu(dev, monkeypatch):
+    """The per-level encoding under autograd (K2 and K3 forward and backward
+    in one autograd Function) against the CPU path."""
+    monkeypatch.setenv("NEURALSIM_CP_STACKED", "0")
+    enc = lotd.make_lotd({"type": "tpu_mixed", "n_levels": 6, "base_res": 8, "max_res": 64,
+                          "n_feats": 2, "n_hash_levels": 1, "log2_hashmap_size": 10,
+                          "cp_max_res": 64})
+    assert not enc.cp_stacked and enc._cp_meta.shape[0] >= 2 and enc.grid_spec_ids
+    enc.reset_parameters(torch.Generator().manual_seed(2))
+    x = _t(cs.enc_points(4096, 64, 2), dev)
+    c1, c2 = cs.cotangents((4096, enc.out_dim), 6, dev), cs.cotangents((4096, enc.out_dim, 3),
+                                                                         7, dev)
+    grads = []
+    for e, to in ((copy.deepcopy(enc).to(dev), lambda a: a), (enc, lambda a: a.cpu())):
+        h, j = e.with_jacobian(to(x))
+        ((to(c1) * h).sum() + (to(c2) * j).sum()).backward()
+        grads.append(e.table.grad.cpu())
+    _rel_close(grads[:1], grads[1:], cs.GRAD_REL)
+
+
+def _neus_args(dev, n, s, anneal, with_rgb):
+    t, mask, sdf, nablas, d, rgb = (_t(a, dev) for a in cs.neus_inputs(n, s, 4))
+    return (t, mask, sdf, nablas, d, anneal, torch.tensor(300.0, device=dev),
+            rgb if with_rgb else None)
+
+
+@pytest.mark.parametrize("anneal", cs.K12_ANNEALS)
+@pytest.mark.parametrize("shape", [(2048, 48, False), (4096, 96, True)],
+                         ids=["lidar step", "synthetic_object with rgb"])
+def test_k12_neus_composite(dev, anneal, shape):
+    args = _neus_args(dev, *shape[:2], anneal, shape[2])
+    n0 = kernels.KERNELS["neus_composite"].launches
+    got = neus_composite(*args)
+    assert kernels.KERNELS["neus_composite"].launches == n0 + 1
+    want = neus_composite_plain(*args)
+    assert int((want[6] == 1.0).sum()) > 0          # alpha == 1 ties in the buffer
+    _close(got, want, **cs.K12_TOL)
+
+
+@pytest.mark.parametrize("anneal", cs.K12_ANNEALS)
+@pytest.mark.parametrize("shape", [(2048, 48, False), (4096, 96, True)],
+                         ids=["lidar step", "synthetic_object with rgb"])
+def test_k12_neus_composite_backward(dev, anneal, shape):
+    n, s, with_rgb = shape
+    args = _neus_args(dev, n, s, anneal, with_rgb)
+    cots = [cs.cotangents(sh, 8 + i, dev)
+            for i, sh in enumerate(((n, s), (n,), (n,), (n, 3), (n, 3), (n, s)))]
+    if not with_rgb:
+        cots[3] = None
+    got = neus_composite_bwd(*args, *cots)
+    _rel_close([g for g in got if g is not None],
+               [w for w in neus_composite_bwd_plain(*args, *cots) if w is not None], cs.GRAD_REL)
+    # cotangents that are None count as zero
+    only_vw = [cots[0]] + [None] * 5
+    got = neus_composite_bwd(*args, *only_vw)
+    _rel_close([g for g in got if g is not None],
+               [w for w in neus_composite_bwd_plain(*args, *only_vw) if w is not None],
+               cs.GRAD_REL)
+
+
+def test_k2_level_past_the_backward_shared_memory(dev):
+    """A level of R 9,000 (3 R floats of one feature do not fit the
+    backward's 96 KB of shared memory) beside a coarse one: the backward adds
+    that level's shares to the table's gradient directly, and both levels
+    still match the plain version."""
+    enc = lotd.LoTDEncoding([(16, 4, "cp"), (9000, 2, "cp")], cp_stacked=False)
+    enc.reset_parameters(torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        enc.table.add_(torch.randn(enc.total_params, generator=torch.Generator().manual_seed(4))
+                       * 0.3)
+    enc = enc.to(dev)
+    x = _t(cs.enc_points(20_000, 9000, 5), dev)
+    n = x.shape[0]
+    args = (enc.table.detach(), x, enc._cp_meta)
+    _close(cs.encode_into(lotd.lotd_cp_level, args, enc.out_dim, n, dev, True),
+           cs.encode_into(lotd.lotd_cp_level_plain, args, enc.out_dim, n, dev, True), 1e-5, 1e-5)
+    cots = (cs.cotangents((enc.out_dim, n), 6, dev), cs.cotangents((3, enc.out_dim, n), 7, dev))
+    got = lotd.lotd_cp_level_bwd(*args, *cots)
+    want = lotd.lotd_cp_level_bwd_plain(*args, *cots)
+    cut = int(enc._cp_meta[1, 1])                   # each level to its own largest entry
+    _rel_close([got[:cut], got[cut:]], [want[:cut], want[cut:]], cs.GRAD_REL)
+    assert float(want[cut:].abs().max()) > 0
+
+
+def test_per_level_iterations_launch_k2_and_k12(dev, monkeypatch):
+    """WAYMO_DEMO_MULTI built under NEURALSIM_CP_STACKED=0: three loop
+    iterations launch K2 and its backward, K12 and its backward once an
+    iteration, and never K1 or K6; no skip."""
+    monkeypatch.setenv("NEURALSIM_CP_STACKED", "0")
+    scene, _, trainer, state, samplers = build_multi_trainer(WAYMO_DEMO_MULTI, device=dev)
+    monkeypatch.delenv("NEURALSIM_CP_STACKED")
+    kernels.reset_counts()
+    log = []
+    train_loop(scene, trainer, state, samplers, 3, torch.Generator(device=dev).manual_seed(0), 1,
+               log)
+    torch.cuda.synchronize()
+    n = {k.name: k.launches for k in kernels.KERNELS.values()}
+    assert n["lotd_cp_level"] > 0 and n["lotd_cp_level.bwd"] > 0
+    assert [n[k] for k in ("neus_composite", "neus_composite.bwd", "lotd_cp_stacked",
+                           "lotd_cp_stacked.bwd", "volume_composite", "volume_composite.bwd")] \
+        == [3, 3, 0, 0, 0, 0]
     assert log[-1]["skips_total"] == 0 and all(np.isfinite(r["loss_total"]) for r in log)

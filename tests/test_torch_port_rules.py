@@ -113,13 +113,15 @@ def test_ctypes_signatures_match_the_cuda_sources():
     assert found == kernels.SIGNATURES
     for entry in ("lotd_cp_stacked_bwd", "lotd_grid_bwd", "volume_composite_bwd",
                   "occ_ray_proposal", "occ_ema_update", "cross_source_vw",
-                  "cross_source_vw_bwd", "pair_compact"):
+                  "cross_source_vw_bwd", "pair_compact", "lotd_cp_level_fwd",
+                  "lotd_cp_level_bwd", "neus_composite_fwd", "neus_composite_bwd"):
         assert entry in found
 
 
 def test_every_kernel_is_registered_once_with_its_source():
     import neuralsim_torch.fields.neus  # noqa: F401  (registers K5a, K5b and the rest)
     import neuralsim_torch.renderers.buffers  # noqa: F401
+    import neuralsim_torch.renderers.neus_composite  # noqa: F401
     import neuralsim_torch.accel.occ_grid  # noqa: F401
     import neuralsim_torch.ops.pair_compact  # noqa: F401
     names = set(kernels.KERNELS)
@@ -127,7 +129,8 @@ def test_every_kernel_is_registered_once_with_its_source():
                      "neus_upsample.weights_pdf", "neus_upsample.merge", "volume_composite",
                      "volume_composite.bwd", "occ_ray_proposal", "occ_ema_update",
                      "cross_source_vw", "cross_source_vw.bwd", "occ_ray_proposal_batched",
-                     "pair_compact"}
+                     "pair_compact", "lotd_cp_level", "lotd_cp_level.bwd", "neus_composite",
+                     "neus_composite.bwd"}
     for k in kernels.KERNELS.values():
         assert (ROOT / k.source).exists() and re.match(r"neuralsim_tpu/.+\.py:\d+$", k.replaces)
         assert (ROOT / k.replaces.split(":")[0]).exists()
