@@ -113,7 +113,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      no skip, falling loss_rgb and LiDAR depth) and a poisoned step; the
      per-level iteration and frame medians beside the stacked ones of phases
      7 and 8;
- 12. timing: frame latency and rays/s; training step time and rays/s; each
+ 12. permuto vehicles (WAYMO_DEMO_PERMUTO: the 3 vehicles on one
+     ADGenerativePermutoConcatNeuSObj, a permutohedral NeuS over
+     concat(xyz01, sigmoid(z)), d 11, 12 levels of F 2 to 256, 2^17 rows a
+     level): K9 forward (with and without the jacobian) and backward (each
+     cotangent; the table's and the inputs' gradients) against their plain
+     versions at the pixel step's final query [196,608, 11], at
+     PermutoNeuSObj's ladder (d 3, to 512) and at d 4; 4 frames of 80x120
+     (K9 forward, never K3) with a crop held to the CPU path at its street
+     depths; the first iteration card vs CPU at the CPU path's sample depths
+     (the permuto table and the latents among the leaves); one LiDAR and one
+     pixel step counted apart, with K9's shapes; 48 iterations (finite, no
+     skip, falling loss_rgb and LiDAR depth) and a poisoned step; no call of
+     the plain permuto functions on the card path; the permuto iteration and
+     frame medians beside those of the LoTD vehicles (phases 7 and 8);
+ 13. timing: frame latency and rays/s; training step time and rays/s; each
      kernel's time at the training path's shapes (beside that path's launch
      count) and, for the forward kernels, at the render path's too, each
      beside its plain version, a library call where one exists, and its bound
@@ -126,14 +140,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      crowd (frame, iteration), and the synthetic_multi step; K11 at its three
      calls beside a stable torch.argsort of its keys, K10 at the group's
      rows, K7 at the batched update; K2 at each of its shapes, K12 at the
-     LiDAR step's street buffer;
- 13. one JSON line of results, one of per-kernel results, then the device
+     LiDAR step's street buffer; K9 forward and backward at each of its
+     shapes;
+ 14. one JSON line of results, one of per-kernel results, then the device
      line, last.
 
 --profile adds torch.profiler tables of device time by kernel for one frame
 and for one training step of each model, for one compose frame, and for one
-LiDAR and one pixel step of the multi-object, the crowd and the per-level
-training.
+LiDAR and one pixel step of the multi-object, the crowd, the per-level and
+the permuto training (with K9's and the latents' index_put device time).
 """
 from __future__ import annotations
 
@@ -289,6 +304,20 @@ PERLEVEL_ITERS = 48
 # over the ray's weight sum; its backward under GRAD_REL
 K12_TOL = dict(rtol=1e-4, atol=1e-5)
 K12_ANNEALS = (0.0, 0.5, 1.0)
+# WAYMO_DEMO_PERMUTO: the vehicles on one permutohedral NeuS (d = 11: xyz and
+# a latent of 8 in the lattice; 12 levels of F 2, 2^17 rows a level). K9 runs
+# on this path only. Rendered and trained under the multi-object limits.
+PERMUTO_ONLY = ("permuto", "permuto.bwd")
+PERMUTO_ITERS = 48
+# K9 against its plain version: the lattice rounds like the plain version
+# operation by operation (explicit _rn), so both pick the same simplex, rows
+# and weights, and sum the interpolation in the same order
+K9_TOL = dict(rtol=1e-5, atol=1e-6)
+# K9's backward: the table's gradient within GRAD_REL of its largest entry
+# (float32 atomics in another order than autograd's scatter); the inputs'
+# gradient, one thread a point summing its levels, within K9_DX_REL of its
+# largest entry (autograd sums the same terms through the elevation chain)
+K9_DX_REL = 1e-5
 
 
 def log(*a):
@@ -1726,6 +1755,16 @@ def group_proposals(renderer, record):
             del accel.ray_proposal_batched
 
 
+def at_lattice_inputs(field, u, x, bidx):
+    """A permutohedral ``field``'s sdf_nablas_feat at ``x`` with the lattice
+    inputs ``u`` in place of its own."""
+    field._encoding_input = lambda *a: u
+    try:
+        return field.sdf_nablas_feat(x, bidx=bidx)
+    finally:
+        del field._encoding_input
+
+
 def check_compose_crop(renderer, params, frozen, frozen_cpu, o, d, dev, occ, occ_cpu):
     """The rays ``o``, ``d`` (CPU tensors, one chunk) of the compose render on
     the card against the CPU path, ray by ray, as check_crop_by_ray holds the
@@ -1741,7 +1780,13 @@ def check_compose_crop(renderer, params, frozen, frozen_cpu, o, d, dev, occ, occ
       2. the fields at the CPU path's own sample positions (the street's, and
          each vehicle's in its canonical frame with its instance index),
          evaluated on both devices: sdf within FIELD_SDF_TOL, nablas within
-         NABLA_TOL of their largest entry;
+         NABLA_TOL of their largest entry. A permutohedral field's lattice
+         input holds sigmoid(latent), which the card and the CPU may round
+         apart in the last bit, and a position that close to a simplex face
+         takes the other simplex, whose jacobian differs: so each device's
+         field is also evaluated at the other's lattice inputs, and the nablas
+         are held at equal inputs, at every position, both ways (the sdf
+         at every input);
       3. the whole render AT THE CPU PATH'S STREET DEPTHS (at_street_depths,
          on both devices, with a shared model's per-instance grid proposals
          at the CPU path's depths too; on the CPU it must reproduce its path's
@@ -1759,6 +1804,7 @@ def check_compose_crop(renderer, params, frozen, frozen_cpu, o, d, dev, occ, occ
     bit. Everything is logged before anything is held.
     -> the worst errors and the numbers of rays."""
     import torch
+    from neuralsim_torch.fields.encodings.permuto import PermutoEncoding
     from neuralsim_torch.maths.transforms import apply_transform, inverse_transform
     from neuralsim_torch.renderers.buffers import merge_and_integrate
     cpu_params = copy.deepcopy(params).to("cpu")
@@ -1793,16 +1839,33 @@ def check_compose_crop(renderer, params, frozen, frozen_cpu, o, d, dev, occ, occ
             keep = buf["mask"][:, lane].reshape(-1)
             probes.append((ob.obj_id, ob.model_id, x_l[keep],
                            torch.full((int(keep.sum()),), ob.bidx, dtype=torch.long)))
-        field_errs = {}
+        field_errs, lattice_errs = {}, {}
         for label, mid, x, bidx in probes:
             if x.shape[0] == 0:
                 continue
+            bidx_dev = None if bidx is None else bidx.to(dev)
             sc, nc, _ = cpu_params[mid].sdf_nablas_feat(x, bidx=bidx)
-            sg, ng, _ = params[mid].sdf_nablas_feat(
-                x.to(dev), bidx=None if bidx is None else bidx.to(dev))
-            field_errs[label] = (float((sg.cpu() - sc).abs().max()),
-                                 float((ng.cpu() - nc).abs().max()) / float(nc.abs().max()),
-                                 x.shape[0])
+            sg, ng, _ = params[mid].sdf_nablas_feat(x.to(dev), bidx=bidx_dev)
+            e_nab = (ng.cpu() - nc).abs().amax(-1) / float(nc.abs().max())
+            e_sdf = float((sg.cpu() - sc).abs().max())
+            if not isinstance(params[mid].encoding, PermutoEncoding):
+                field_errs[label] = (e_sdf, float(e_nab.max()), x.shape[0])
+                continue
+            # the field of each device at the other's lattice inputs
+            u_cpu = cpu_params[mid]._encoding_input(x, bidx)
+            u_card = params[mid]._encoding_input(x.to(dev), bidx_dev)
+            differ = (u_card.cpu().view(torch.int32) != u_cpu.view(torch.int32))
+            sa, na, _ = at_lattice_inputs(params[mid], u_cpu.to(dev), x.to(dev), bidx_dev)
+            sb, nb, _ = at_lattice_inputs(cpu_params[mid], u_card.cpu(), x, bidx)
+            e_cpu_in = (na.cpu() - nc).abs().amax(-1) / float(nc.abs().max())
+            e_card_in = (ng.cpu() - nb).abs().amax(-1) / float(nb.abs().max())
+            beyond = e_nab > NABLA_TOL
+            field_errs[label] = (max(e_sdf, float((sa.cpu() - sc).abs().max()),
+                                     float((sg.cpu() - sb).abs().max())),
+                                 max(float(e_cpu_in.max()), float(e_card_in.max())), x.shape[0])
+            lattice_errs[label] = (int(differ.any(-1).sum()), int(differ[:, :3].any(-1).sum()),
+                                   int(beyond.sum()), int((beyond & differ.any(-1)).sum()),
+                                   float(e_cpu_in.max()), float(e_card_in.max()))
         # 3. the render at the CPU path's street depths, on both devices
         street = src == names.index("street")
         fixed = at_street_depths(renderer, buf["t"][:, street].contiguous(),
@@ -1874,6 +1937,13 @@ def check_compose_crop(renderer, params, frozen, frozen_cpu, o, d, dev, occ, occ
     for label, (e_sdf, e_nab, n) in field_errs.items():
         log(f"compose crop: {label} field at the CPU's {n} sample positions: sdf {e_sdf:.3g} "
             f"(tol {FIELD_SDF_TOL:g}), nablas {e_nab:.3g} of the largest (tol {NABLA_TOL:g})")
+        if label in lattice_errs:
+            differ, differ_xyz, beyond, excused, e_cpu_in, e_card_in = lattice_errs[label]
+            log(f"compose crop: {label} lattice inputs: {differ} of {n} positions differ card "
+                f"vs CPU ({differ_xyz} in xyz01, the others in sigmoid(latent) only); nablas "
+                f"at each device's own inputs: {beyond} positions beyond the tol, {excused} of "
+                f"them excused (their inputs differ); at equal inputs, every position: "
+                f"{e_cpu_in:.3g} at the CPU's, {e_card_in:.3g} at the card's")
     for i, name in enumerate(names):
         lanes = src == i
         log(f"compose crop: source {name} in the card's own render: "
@@ -1895,7 +1965,8 @@ def check_compose_crop(renderer, params, frozen, frozen_cpu, o, d, dev, occ, occ
         raise AssertionError("render_chunked and ray_query disagree on one chunk")
     if not vw_close or merge_err > 1.0:
         raise AssertionError("the card's merge differs from the CPU's on identical buffers")
-    if any(e_sdf > FIELD_SDF_TOL or e_nab > NABLA_TOL for e_sdf, e_nab, _ in field_errs.values()):
+    if any(e_sdf > FIELD_SDF_TOL or e_nab > NABLA_TOL
+           for e_sdf, e_nab, _ in field_errs.values()):
         raise AssertionError("a field differs on the card from the CPU at equal positions")
     if not reproduced:
         raise AssertionError("the CPU did not render at its own path's street depths")
@@ -1912,6 +1983,8 @@ def check_compose_crop(renderer, params, frozen, frozen_cpu, o, d, dev, occ, occ
                                  "that it samples elsewhere")
     return dict(merge_vw_err=vw_err, merge_err=merge_err,
                 field_errs={k: v[:2] for k, v in field_errs.items()},
+                lattice_inputs_differ={k: v[0] for k, v in lattice_errs.items()},
+                lattice_excused={k: v[3] for k, v in lattice_errs.items()},
                 equal_rays_err=equal_err, equal_rays=int(equal.sum()),
                 other_mean_err=at_mean, other_off_rays=int(at_off.sum()),
                 own_mean_err=own_mean, own_off_rays=int(own_off.sum()), moved_rays=moved,
@@ -2362,14 +2435,15 @@ def check_multi_kernels(dev, trainer, state, scene, samplers):
 
 
 def check_multi_training(scene, trainer, state, samplers, dev, iters=MULTI_ITERS,
-                         label="multi-object", per_level=False):
+                         label="multi-object", per_level=False, permuto=False):
     """``iters`` loop iterations through train_loop with every metric logged:
     finite losses, no skip, falling loss_rgb and LiDAR depth loss, every grid
     refreshed on its cadence (three times), the error map's importance
     sampling in use, and every kernel of the path launched as counted (with a
     pair-budget group K11 once a pixel step, with per-instance grids K10 once
     a pixel step; neither otherwise; K12 once a LiDAR step and K6 never; K2
-    on the ``per_level`` path and K1 otherwise). -> (log, launches, falls)."""
+    on the ``per_level`` path and K1 otherwise; K9 and no K3 with ``permuto``
+    vehicles, no K9 otherwise). -> (log, launches, falls)."""
     import torch
     from neuralsim_torch import kernels
     from neuralsim_torch.tools.train_multi import train_loop
@@ -2416,7 +2490,8 @@ def check_multi_training(scene, trainer, state, samplers, dev, iters=MULTI_ITERS
             "pair_compact": iters if pair else 0,
             "occ_ray_proposal_batched": iters if batched else 0,
             **dict.fromkeys(("lotd_cp_stacked", "lotd_cp_stacked.bwd") if per_level
-                            else PERLEVEL_ONLY, 0)}
+                            else PERLEVEL_ONLY, 0),
+            **dict.fromkeys(("lotd_grid", "lotd_grid.bwd") if permuto else PERMUTO_ONLY, 0)}
     if refreshes != 3 or any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"the {label} path's launches are not as counted: want {want}")
     for name, n in launches.items():
@@ -2487,9 +2562,11 @@ def time_multi_iterations(scene, trainer, state, samplers, dev, reps=20):
     return {k: (sorted(v)[reps // 2], min(v), max(v)) for k, v in ts.items()}
 
 
-def profile_multi_steps(scene, trainer, state, samplers, dev):
+def profile_multi_steps(scene, trainer, state, samplers, dev, named=None):
     """Device kernels and busy time of one LiDAR and one pixel step (off the
-    grid's cadence) under the profiler -> {step type: (kernels, busy ms)}."""
+    grid's cadence) under the profiler, and the device time of the kernels
+    whose names hold any of ``named`` {label: substrings} -> {step type:
+    (kernels, busy ms, {label: ms})}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device=dev).manual_seed(14)
@@ -2515,12 +2592,16 @@ def profile_multi_steps(scene, trainer, state, samplers, dev):
         log(prof.key_averages(group_by_input_shape=True).table(
             sort_by="self_cuda_time_total", row_limit=12, max_name_column_width=40,
             max_shapes_column_width=80))
-        kernels_us = [e.time_range.elapsed_us() for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels_us = [e.time_range.elapsed_us() for e in events]
         busy = sum(kernels_us) / 1e3
+        by_name = {label: sum(e.time_range.elapsed_us() for e in events
+                              if any(p in e.name for p in subs)) / 1e3
+                   for label, subs in (named or {}).items()}
         log(f"profile multi {step_type} step: {len(kernels_us)} device kernels, busy {busy:.3f} ms "
-            f"of {wall * 1e3:.3f} ms wall under the profiler")
-        out[step_type] = (len(kernels_us), busy)
+            f"of {wall * 1e3:.3f} ms wall under the profiler"
+            + "".join(f"; {k} {v:.3f} ms" for k, v in by_name.items()))
+        out[step_type] = (len(kernels_us), busy, by_name)
     return out
 
 
@@ -2615,7 +2696,7 @@ def multi_phase(dev, profile_it):
                "multi_hand_launches_per_iteration": sum(launches.values()) / MULTI_ITERS}
     if profile_it:
         prof = profile_multi_steps(scene, trainer, state, samplers, dev)
-        for k, (n, busy) in prof.items():
+        for k, (n, busy, _) in prof.items():
             summary[f"multi_{k}_step_device_kernels"] = n
             summary[f"multi_{k}_step_busy_ms"] = busy
     return dict(errs=errs, times=times, launches=launches, iters=MULTI_ITERS, summary=summary)
@@ -3000,7 +3081,7 @@ def crowd_phase(dev, profile_it):
                "crowd_hand_launches_per_iteration": sum(launches.values()) / CROWD_ITERS}
     if profile_it:
         prof = profile_multi_steps(scene, trainer, state, samplers, dev)
-        for k, (n, busy) in prof.items():
+        for k, (n, busy, _) in prof.items():
             summary[f"crowd_{k}_step_device_kernels"] = n
             summary[f"crowd_{k}_step_busy_ms"] = busy
     return dict(errs=errs, launches=launches, launches_render=launches_render,
@@ -3471,11 +3552,313 @@ def perlevel_phase(dev, profile_it, stacked):
                "perlevel_step_launches": {k: v[0] for k, v in per_step.items()}}
     if profile_it:
         prof = profile_multi_steps(scene, trainer, state, samplers, dev)
-        for k, (n, busy) in prof.items():
+        for k, (n, busy, _) in prof.items():
             summary[f"perlevel_{k}_step_device_kernels"] = n
             summary[f"perlevel_{k}_step_busy_ms"] = busy
     return dict(errs=errs, times=times, launches=launches, launches_render=launches_render,
                 step_launches={k: v[0] for k, v in per_step.items()}, iters=PERLEVEL_ITERS,
+                n_frames=len(COMPOSE_FRAME_IDS), summary=summary)
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the permuto vehicles (WAYMO_DEMO_PERMUTO): K9
+# ---------------------------------------------------------------------------
+
+def permuto_points(n, d, seed, n_instances=3):
+    """[n, d] lattice inputs as a permuto field's query gives them: xyz01
+    uniform in the box (some on its faces), then, for d > 3, each point's
+    sigmoid(z) of one of ``n_instances`` latents drawn N(0, 0.5)."""
+    rng = np.random.default_rng(seed)
+    x = np.empty((n, d), np.float32)
+    x[:, :3] = rng.random((n, 3))
+    x[::97, 0], x[1::97, 1] = 0.0, 1.0
+    if d > 3:
+        z = rng.normal(0.0, 0.5, (n_instances, d - 3))
+        x[:, 3:] = 1.0 / (1.0 + np.exp(-z[rng.integers(0, n_instances, n)]))
+    return x
+
+
+def permuto_set(label, enc, n, seed, dev):
+    """(label, encoding, a seeded table of trained magnitude (N(0, 0.1)) on
+    the card, inputs [n, d] on the card) for check_permuto."""
+    import torch
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.normal(0.0, 0.1, enc.total_params).astype(np.float32)).to(dev)
+    x = torch.from_numpy(permuto_points(n, enc.input_dim, seed)).to(dev)
+    return label, enc.to(dev), table, x
+
+
+def check_permuto(dev, sets):
+    """K9 forward (with and without the jacobian) and backward (cotangents of
+    the features, of the jacobian, of both) against their plain versions on
+    each of ``sets`` ((label, encoding, table, x01)) -> ({kernel: (max_abs_err,
+    tol)}, each set's inputs kept for timing)."""
+    import torch
+    from neuralsim_torch.fields.encodings import permuto as pm
+    ef, eb, shapes = [], [], {}
+    for k, (label, enc, table, x) in enumerate(sets):
+        (N, d), C = x.shape, enc.out_dim
+        a = (table, x, enc._res, enc._meta, enc._lat, enc.table_size)
+        what = (f"{label}: N={N} d={d}, {enc.n_levels} levels of F {enc.levels[0][1]}, res "
+                f"{enc.levels[0][0]:g}..{enc.levels[-1][0]:g}, T {enc.table_size}")
+        for jac in (False, True):
+            ef.append(compare(f"K9 permuto {what} jac={jac}", pm.permuto(*a, C, jac),
+                              pm.permuto_plain(*a, jac), **K9_TOL))
+        d_out, d_jac = cotangents((C, N), 90 + k, dev), cotangents((3, C, N), 95 + k, dev)
+        for name, do, dj in (("both", d_out, d_jac), ("feats", d_out, None),
+                             ("jac", None, d_jac)):
+            gt, gx = pm.permuto_bwd(*a, do, dj)
+            wt, wx = pm.permuto_bwd_plain(*a, do, dj)
+            eb.append(compare_rel(f"K9 bwd {what} cotangents={name}, d table", [gt], [wt],
+                                  GRAD_REL))
+            if dj is None or do is not None:
+                eb.append(compare_rel(f"K9 bwd {what} cotangents={name}, d x01", [gx], [wx],
+                                      K9_DX_REL))
+            elif gx.abs().max() != 0:
+                raise AssertionError("K9 bwd: the jacobian's cotangent reached x01")
+        shapes[label] = dict(args=a, C=C, grads=(d_out, d_jac), what=what)
+    torch.cuda.synchronize()
+    return {"permuto": (max(ef), K9_TOL["atol"]), "permuto.bwd": (max(eb), GRAD_REL)}, shapes
+
+
+@contextlib.contextmanager
+def permuto_watch(record):
+    """While the block runs, append to ``record["calls"]`` (N, d, kind) of
+    every K9 wrapper call on the card (kind "fwd", "fwd+jac" or "bwd"), and
+    count in ``record["plain_on_card"]`` the calls of the plain permuto
+    functions with tensors on the card: the card path must take none."""
+    from neuralsim_torch.fields.encodings import permuto as pm
+    names = ("permuto", "permuto_bwd", "permuto_plain", "permuto_bwd_plain")
+    saved = {k: getattr(pm, k) for k in names}
+    record.setdefault("calls", [])
+    record.setdefault("plain_on_card", 0)
+
+    def fwd(table, x01, *a):
+        if x01.is_cuda:                                       # a[-1]: with_jac
+            record["calls"].append((x01.shape[0], x01.shape[1], "fwd+jac" if a[-1] else "fwd"))
+        return saved["permuto"](table, x01, *a)
+
+    def bwd(table, x01, *a, **kw):
+        if x01.is_cuda:
+            record["calls"].append((x01.shape[0], x01.shape[1], "bwd"))
+        return saved["permuto_bwd"](table, x01, *a, **kw)
+
+    def plain(name):
+        def counted(table, x01, *a, **kw):
+            record["plain_on_card"] += int(x01.is_cuda)
+            return saved[name](table, x01, *a, **kw)
+        return counted
+
+    pm.permuto, pm.permuto_bwd = fwd, bwd
+    pm.permuto_plain, pm.permuto_bwd_plain = plain("permuto_plain"), plain("permuto_bwd_plain")
+    try:
+        yield record
+    finally:
+        for k, v in saved.items():
+            setattr(pm, k, v)
+
+
+def time_permuto(shapes, ladder_n):
+    """K9 forward (with the jacobian, and without it at the upsample ladder's
+    ``ladder_n`` points of the first set) and backward (both cotangents) at
+    each kept set, beside their plain versions and bounds -> {kernel:
+    [timing, ...]}."""
+    from neuralsim_torch.fields.encodings import permuto as pm
+    out = {"permuto": [], "permuto.bwd": []}
+    for i, (label, sh) in enumerate(shapes.items()):
+        table, x, res, meta, lat, size = sh["args"]
+        C, (d_out, d_jac) = sh["C"], sh["grads"]
+        (N, d), L, F = x.shape, res.shape[0], int(meta[0, 1])
+        tb = table.numel() * 4
+        # float32 work a point and level: elevation 4d, rounding and
+        # differentials 11 (d+1), interpolation 2 (d+1) F; the jacobian's
+        # weights 12 (d+1) and sums 6 (d+1) F. The ranks, keys and hashes are
+        # integer work and not counted.
+        walk, interp = 4 * d + 11 * (d + 1), 2 * (d + 1) * F
+        jac_ops = 12 * (d + 1) + 6 * (d + 1) * F
+        runs = [(sh["what"] + " with jacobian", N, True)]
+        if i == 0:
+            runs.append((f"{label}: N={ladder_n} d={d} (the upsample ladder), no jacobian",
+                         ladder_n, False))
+        for what, n, jac in runs:
+            a = (table, x[:n], res, meta, lat, size)
+            out["permuto"].append(dict(
+                shape=what, ms=cuda_ms(lambda: pm.permuto(*a, C, jac)),
+                plain_ms=cuda_ms(lambda: pm.permuto_plain(*a, jac), reps=3), library_ms=None,
+                # x01 and the table read, features (and jacobian) written
+                bound=bound(n * d * 4 + tb + n * C * 4 * (4 if jac else 1),
+                            n * L * (walk + interp + (jac_ops if jac else 0)))))
+        a = sh["args"]
+        out["permuto.bwd"].append(dict(
+            shape=sh["what"] + ", cotangents of features and jacobian, d x01",
+            ms=cuda_ms(lambda: pm.permuto_bwd(*a, d_out, d_jac)),
+            plain_ms=cuda_ms(lambda: pm.permuto_bwd_plain(*a, d_out, d_jac), reps=3),
+            library_ms=None,
+            # x01, the table and both cotangents read; the table's and the
+            # inputs' gradients written; the lattice walk and the jacobian's
+            # weights (12 (d+1)), no jacobian sums; per vertex and feature the
+            # table gradient's value (8 flops), G (2), then d x01 (4 d a vertex)
+            bound=bound(N * d * 4 * 2 + tb * 2 + N * C * 16,
+                        N * L * (walk + 12 * (d + 1) + 10 * (d + 1) * F
+                                 + 4 * d * (d + 1)))))
+    return out
+
+
+def permuto_phase(dev, profile_it, stacked):
+    """Phase 12: WAYMO_DEMO_PERMUTO (the vehicles on one permutohedral NeuS,
+    K9), rendered and trained through the entry points, with its iteration
+    and frame medians beside ``stacked``'s (the LoTD vehicles' multi-object
+    and compose summaries of the same run) -> its results."""
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.configs import WAYMO_DEMO_PERMUTO as C
+    from neuralsim_torch.dataio.waymo_demo import demo_scenario, ground_sdf_tensor
+    from neuralsim_torch.fields.conditional import ConditionalPermutoNeuSField
+    from neuralsim_torch.fields.encodings.permuto import PermutoEncoding
+    from neuralsim_torch.scene import Scene
+    from neuralsim_torch.scene.observers import camera_get_all_rays
+    from neuralsim_torch.tools.build import (build_compose_renderer, build_multi_trainer,
+                                             converge_occ, render_multi_frame)
+
+    cfg = copy.deepcopy(C)
+    cfg["training"]["error_map"] = {**cfg["training"]["error_map"],
+                                    "enable_after": MULTI_ERROR_MAP_AFTER}
+    timings = {}
+    t0 = time.perf_counter()
+    scene_r, _, renderer, params_r = build_compose_renderer(C)
+    scene, bank, trainer, state, samplers = build_multi_trainer(cfg, timings=timings)
+    accel = renderer.accels["cr"]
+    occ = {"cr": converge_occ(accel, accel.init_state(), ground_sdf_tensor, seed=int(C["seed"]),
+                              **C["occ_converge"])}
+    torch.cuda.synchronize()
+    veh_id = renderer.objects[0].model_id
+    enc = state.params[veh_id].encoding
+    log(f"permuto: built in {time.perf_counter() - t0:.2f} s ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in timings.items()) + f"); vehicles "
+        f"{type(state.params[veh_id]).__name__}, d {enc.input_dim}, {enc.n_levels} levels "
+        f"of F {enc.levels[0][1]} ({enc.levels[0][0]:g}..{enc.levels[-1][0]:g}), T "
+        f"{enc.table_size}, {enc.total_params} table floats")
+    for f in (state.params[veh_id], params_r[veh_id]):
+        e = f.encoding
+        if not isinstance(f, ConditionalPermutoNeuSField) or (
+                e.input_dim, e.n_levels, {nf for _, nf in e.levels}, e.table_size,
+                e.out_dim) != (11, 12, {2}, 2 ** 17, 24):
+            raise AssertionError("the vehicles are not one permuto field of d 11, 12 levels "
+                                 "of F 2 and 2^17 rows")
+
+    # K9 at the pixel step's final query (3 vehicles x 2,048 rows x 32
+    # samples, d 11), at PermutoNeuSObj's ladder (d 3, 12 levels to 512) and
+    # at d 4
+    n_final, n_ladder = 3 * MULTI_RAYS // 2 * 32, 3 * MULTI_RAYS // 2 * 24
+    errs, shapes = check_permuto(dev, (
+        permuto_set("vehicles, pixel step", enc, n_final, 100, dev),
+        permuto_set("PermutoNeuSObj ladder", PermutoEncoding(
+            3, n_levels=12, base_res=4.0, max_res=512.0, log2_hashmap_size=17), n_final, 101,
+            dev),
+        permuto_set("d 4", PermutoEncoding(4, n_levels=12, base_res=4.0, max_res=256.0,
+                                           log2_hashmap_size=17), n_final, 102, dev)))
+
+    # the render: 4 frames, a crop against the CPU path at its street depths
+    H, W = (int(v) for v in scene_r.nodes[COMPOSE_CAM].frame_data["hw"][0].tolist())
+    vehicles = [ob.obj_id for ob in renderer.objects]
+    watch = {}
+    kernels.reset_counts()
+    with permuto_watch(watch):
+        frames = [render_multi_frame(renderer, params_r, scene_r, fi, COMPOSE_CAM, occ,
+                                     RAYSCHUNK) for fi in COMPOSE_FRAME_IDS]
+        torch.cuda.synchronize()
+    launches_render = {k.name: k.launches for k in kernels.KERNELS.values()}
+    chunks = len(COMPOSE_FRAME_IDS) * -(-H * W // RAYSCHUNK)
+    log(f"permuto render: {len(COMPOSE_FRAME_IDS)} frames of {H}x{W}, launches "
+        f"{launches_render}")
+    if launches_render["permuto"] <= 0 or launches_render["permuto.bwd"] or \
+            launches_render["lotd_grid"] or launches_render["cross_source_vw"] != chunks:
+        raise AssertionError("a permuto chunk launches K9 (never K3, no backward) and K8 once")
+    check_compose_frames(frames, H, W, vehicles)
+    frozen = scene_r.slice_at(COMPOSE_FRAME_IDS[0])
+    o, d = camera_get_all_rays(frozen, COMPOSE_CAM, H, W)
+    scene_cpu = Scene.load_from_scenario(demo_scenario(**C["dataset_cfg"]["params"]))
+    crop = compose_crop(H, W)
+    cut = lambda a: a.reshape(H, W, 3)[crop].reshape(-1, 3).cpu().contiguous()
+    by_ray = check_compose_crop(renderer, params_r, frozen,
+                                scene_cpu.slice_at(COMPOSE_FRAME_IDS[0]), cut(o), cut(d), dev,
+                                occ, {"cr": type(occ["cr"])(occ["cr"].val.cpu(),
+                                                            occ["cr"].mask.cpu())})
+
+    # training: the first iteration against the CPU, the launches and K9's
+    # shapes of each step type, 48 iterations, a poisoned step
+    with permuto_watch(watch):
+        loss_err, grad_err = check_multi_first_iteration(scene, trainer, state, samplers, dev)
+    step_watch = {}
+    with permuto_watch(step_watch):
+        per_step = step_launches(scene, trainer, state, samplers, dev)
+    for step_type, (n, _) in per_step.items():
+        log(f"permuto {step_type} step: launches {n}")
+    calls = sorted(set(step_watch["calls"]))
+    log(f"permuto: K9 calls of one LiDAR and one pixel step (N, d, kind): {calls}")
+    pix = per_step["pixel"][0]
+    if pix["permuto"] <= 0 or pix["permuto.bwd"] <= 0 or pix["lotd_grid"] or \
+            (n_final, 11, "fwd+jac") not in calls or (n_ladder, 11, "fwd") not in calls:
+        raise AssertionError(f"the permuto pixel step should launch K9 forward at "
+                             f"[{n_ladder}, 11] and [{n_final}, 11] with the jacobian, and K9's "
+                             f"backward, and never K3")
+    with permuto_watch(watch):
+        log_, launches, falls = check_multi_training(scene, trainer, state, samplers, dev,
+                                                     PERMUTO_ITERS, "permuto", permuto=True)
+        check_multi_poisoned_step(scene, trainer, state, samplers, dev)
+    if watch["plain_on_card"] or step_watch["plain_on_card"]:
+        raise AssertionError(f"the plain permuto functions ran on the card path "
+                             f"{watch['plain_on_card'] + step_watch['plain_on_card']} times")
+
+    it_ms = time_multi_iterations(scene, trainer, state, samplers, dev)
+    frame_ms = time_compose_frames(renderer, params_r, scene_r, occ)
+    rays = MULTI_RAYS + MULTI_BEAMS
+    for k, (med, lo, hi) in it_ms.items():
+        key = "multi_iteration_ms" if k == "iteration" else f"multi_{k}_step_ms"
+        log(f"timing: permuto {k} median {med:.3f} ms (min {lo:.3f}, max {hi:.3f}); LoTD "
+            f"vehicles {stacked[key]:.3f} ms in this run")
+    log(f"timing: permuto iteration {rays / it_ms['iteration'][0] * 1e3:.1f} rays/s (LoTD "
+        f"vehicles {stacked['multi_rays_per_s']:.1f}); hand-kernel launches per iteration "
+        f"{sum(launches.values()) / PERMUTO_ITERS:.1f}; K9 {launches['permuto']} and its "
+        f"backward {launches['permuto.bwd']} in {PERMUTO_ITERS} iterations")
+    log(f"timing: permuto frame median {frame_ms[0]:.3f} ms (min {frame_ms[1]:.3f}, max "
+        f"{frame_ms[2]:.3f}); LoTD vehicles {stacked['compose_frame_ms']:.3f} ms in this run")
+    times = time_permuto(shapes, n_ladder)
+    for name, ts in times.items():
+        for t in ts:
+            log(f"kernel {name} (permuto path): {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+                f"bound {t['bound'][0]:.4f} by {t['bound'][1]}) at {t['shape']}")
+    summary = {"permuto_build_s": timings, "permuto_crop_by_ray": by_ray,
+               "permuto_first_iteration_loss_rel_err": loss_err,
+               "permuto_first_iteration_grad_rel_err": grad_err,
+               "permuto_iterations": PERMUTO_ITERS,
+               "permuto_loss_rgb_first10": falls["loss_rgb"][0],
+               "permuto_loss_rgb_last10": falls["loss_rgb"][1],
+               "permuto_lidar_depth_first10": falls["lidar/lidar_loss_depth"][0],
+               "permuto_lidar_depth_last10": falls["lidar/lidar_loss_depth"][1],
+               "permuto_lidar_step_ms": it_ms["lidar"][0],
+               "permuto_pixel_step_ms": it_ms["pixel"][0],
+               "permuto_iteration_ms": it_ms["iteration"][0],
+               "permuto_iteration_ms_min": it_ms["iteration"][1],
+               "permuto_iteration_ms_max": it_ms["iteration"][2],
+               "permuto_rays_per_s": rays / it_ms["iteration"][0] * 1e3,
+               "permuto_frame_ms": frame_ms[0], "permuto_frame_ms_min": frame_ms[1],
+               "permuto_frame_ms_max": frame_ms[2],
+               "permuto_lotd_iteration_ms": stacked["multi_iteration_ms"],
+               "permuto_lotd_frame_ms": stacked["compose_frame_ms"],
+               "permuto_hand_launches_per_iteration": sum(launches.values()) / PERMUTO_ITERS,
+               "permuto_step_launches": {k: v[0] for k, v in per_step.items()},
+               "permuto_k9_calls_per_steps": calls}
+    if profile_it:
+        prof = profile_multi_steps(scene, trainer, state, samplers, dev,
+                                   named={"K9": ("permuto_",),
+                                          "index_put": ("index_put", "indexing_backward")})
+        for k, (n, busy, named) in prof.items():
+            summary[f"permuto_{k}_step_device_kernels"] = n
+            summary[f"permuto_{k}_step_busy_ms"] = busy
+            summary.update({f"permuto_{k}_step_{label}_ms": v for label, v in named.items()})
+    return dict(errs=errs, times=times, launches=launches, launches_render=launches_render,
+                step_launches={k: v[0] for k, v in per_step.items()}, iters=PERMUTO_ITERS,
                 n_frames=len(COMPOSE_FRAME_IDS), summary=summary)
 
 
@@ -3503,7 +3886,8 @@ def main(argv) -> int:
     kernels.library()
     log(f"build: {so.name} in {time.perf_counter() - t0:.1f} s")
     for line in kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "registers" in line or "spill" in line or "entry function" in line \
+                or line.startswith("=="):
             log("  " + line.strip())
 
     dev = torch.device("cuda")
@@ -3529,7 +3913,8 @@ def main(argv) -> int:
     log(f"render slice: {N_FRAMES} frames of {rig.H}x{rig.W}, launches {launches_render}")
     for name, n in launches_render.items():
         if n <= 0 and not name.endswith(".bwd") and \
-                name not in BENCH_ONLY + COMPOSE_ONLY + CROWD_ONLY + PERLEVEL_ONLY:
+                name not in BENCH_ONLY + COMPOSE_ONLY + CROWD_ONLY + PERLEVEL_ONLY \
+                + PERMUTO_ONLY:
             raise AssertionError(f"kernel {name} never launched on the render path")
     check_frames(frames, rig.H, rig.W)
     crop_err = check_crop(frames, renderer, params, rig, rig.H, rig.W)
@@ -3550,7 +3935,7 @@ def main(argv) -> int:
     log(f"training slice: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays, launches {launches}")
     for name, n in launches.items():
         if n <= 0 and name not in BENCH_ONLY + COMPOSE_ONLY + MULTI_ONLY + CROWD_ONLY \
-                + PERLEVEL_ONLY:
+                + PERLEVEL_ONLY + PERMUTO_ONLY:
             raise AssertionError(f"kernel {name} never launched on the training path")
     trainer, state = out["trainer"], out["state"]
     check_poisoned_step(trainer, state, rig, dev)
@@ -3579,9 +3964,13 @@ def main(argv) -> int:
     perlevel = perlevel_phase(dev, "--profile" in argv,
                               {**multi["summary"], **compose["summary"]})
     phase_s["per-level"], t1 = time.perf_counter() - t1, time.perf_counter()
+
+    # 12. WAYMO_DEMO_PERMUTO, the vehicles on one permuto field (K9), with its timing
+    permuto = permuto_phase(dev, "--profile" in argv, {**multi["summary"], **compose["summary"]})
+    phase_s["permuto"], t1 = time.perf_counter() - t1, time.perf_counter()
     log("phases (s, host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
-    # 12. timing
+    # 13. timing
     (frame_ms, frame_min, frame_max), n_rays = time_frames(renderer, params, rig, dev)
     log(f"timing: frame median {frame_ms:.3f} ms (min {frame_min:.3f}, max "
         f"{frame_max:.3f}) for {n_rays} rays, {n_rays / frame_ms * 1e3:.1f} rays/s")
@@ -3605,8 +3994,14 @@ def main(argv) -> int:
         on_multi = name in MULTI_ONLY
         on_crowd = name in CROWD_ONLY
         on_perlevel = name in PERLEVEL_ROWS
-        on_bench = name not in times and not (on_compose or on_multi or on_crowd or on_perlevel)
-        if on_perlevel:
+        on_permuto = name in PERMUTO_ONLY
+        on_bench = name not in times and not (on_compose or on_multi or on_crowd or on_perlevel
+                                              or on_permuto)
+        if on_permuto:
+            # K9 at the pixel step's final query (its other shapes under "permuto")
+            t, n_launch, steps, path = (permuto["times"][name][0], permuto["launches"][name],
+                                        permuto["iters"], "waymo_demo_permuto training")
+        elif on_perlevel:
             # K2 at the street's pixel-step shape (its other shapes under
             # "perlevel"), K12 at the LiDAR step's street buffer
             t = perlevel["times"][name]
@@ -3632,20 +4027,20 @@ def main(argv) -> int:
             t, n_launch, steps, path = (times[name], launches[name], TRAIN_STEPS,
                                         "synthetic_object training")
         found = [e[name] for e in (errs, bench["errs"], compose["errs"], multi["errs"],
-                                   crowd["errs"], perlevel["errs"]) if name in e]
+                                   crowd["errs"], perlevel["errs"], permuto["errs"]) if name in e]
         err, tol = max(e for e, _ in found), found[0][1]
         bound_ms, bound_by = t["bound"]
         # K8 runs on no training step: its per-frame count is under "compose"
         row = {"name": name, "route": "cuda", "source": k.source,
                "replaces": k.replaces, "launches": n_launch,
                "launches_per_step": None if on_compose or on_multi or on_crowd or on_perlevel
-               else n_launch / steps,
+               or on_permuto else n_launch / steps,
                "max_abs_err": err, "max_err": err,
                "tol": tol, "ms": t["ms"], "plain_ms": t["plain_ms"],
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": t["library_ms"], "shape": t["shape"], "path": path}
         unit = "frame" if on_compose else "iteration" if on_multi or on_crowd or on_perlevel \
-            else "step"
+            or on_permuto else "step"
         log(f"kernel {name} ({path} path, {n_launch / steps:g} launches per {unit}): "
             f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound {bound_ms:.4f} by {bound_by}) "
             f"at {t['shape']}")
@@ -3730,12 +4125,27 @@ def main(argv) -> int:
         for c in p.get("times", []):
             log(f"kernel {name} (per-level path): {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, "
                 f"bound {c['bound_ms']:.4f} by {c['bound_by']}) at {c['shape']}")
+        row["permuto"] = {
+            "launches": permuto["launches"][name],
+            "launches_per_iteration": permuto["launches"][name] / permuto["iters"],
+            "launches_per_lidar_step": permuto["step_launches"]["lidar"][name],
+            "launches_per_pixel_step": permuto["step_launches"]["pixel"][name],
+            "render_launches_per_frame":
+                permuto["launches_render"][name] / permuto["n_frames"]}
+        for c in permuto["times"].get(name, []):
+            row["permuto"].setdefault("times", []).append(
+                {"ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+                 "bound_by": c["bound"][1], "library_ms": c["library_ms"], "shape": c["shape"]})
+        q = row["permuto"]
+        log(f"kernel {name} (permuto path: {q['launches_per_lidar_step']} launches per LiDAR "
+            f"step, {q['launches_per_pixel_step']} per pixel step, "
+            f"{q['render_launches_per_frame']:g} per frame)")
         rows.append(row)
     if "--profile" in argv:
         profile_frame(renderer, params, rig, dev)
         profile_step(trainer, state, rig, dev)
 
-    # 13. results
+    # 14. results
     log(json.dumps({"frame_ms": frame_ms, "frame_ms_min": frame_min,
                     "frame_ms_max": frame_max, "rays_per_s": n_rays / frame_ms * 1e3,
                     "crop_max_abs_err": crop_err,
@@ -3746,7 +4156,8 @@ def main(argv) -> int:
                     "loss_rgb_last10": rgb_last, "first_step_loss_rel_err": step_loss_err,
                     "first_step_grad_rel_err": step_grad_err, **bench["summary"],
                     **compose["summary"], **multi["summary"], **crowd["summary"],
-                    **synth["summary"], **perlevel["summary"], "card": smi}))
+                    **synth["summary"], **perlevel["summary"], **permuto["summary"],
+                    "card": smi}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

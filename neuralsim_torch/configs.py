@@ -33,6 +33,17 @@ occupancy grids (``accel_cfg``, the values ``OccGridEmaBatched`` takes by
 default in the JAX package; kernel K10). No YAML of the repo sets a vehicle
 ``accel_cfg``, so the tests build the JAX package from this dict too.
 
+``WAYMO_DEMO_PERMUTO`` is a port-side variant of ``WAYMO_DEMO_MULTI`` with
+exactly one change: the vehicles' ``model_class`` is
+``ADGenerativePermutoConcatNeuSObj``, the reference's model of categorical
+classes (the permuto vehicles of the configuration that
+configs/waymo_demo_multi.yaml mirrors). Every other ``model_params`` value
+stays; the permuto asset reads no ``encoding_cfg`` and builds its default
+lattice: 12 levels of 2 features from resolution 4 to 256, a 2^17-row table a
+level, over concat(xyz01, sigmoid(z)) with z_dim 8, so d = 11 (kernel K9).
+No YAML of the repo sets this class, so the tests build the JAX package from
+this dict too.
+
 ``SYNTHETIC_MULTI`` mirrors configs/synthetic_multi.yaml value by value: two
 spheres on one shared conditional LoTD model over a ground plane (the street's
 LoTD NeuS with 2 hash levels, no grid, no distant field) and a sky, on the
@@ -239,6 +250,10 @@ WAYMO_DEMO_CROWD: Dict[str, Any] = copy.deepcopy(WAYMO_DEMO_MULTI)
 WAYMO_DEMO_CROWD["dataset_cfg"]["params"]["n_vehicles"] = 8
 WAYMO_DEMO_CROWD["assetbank_cfg"]["Vehicle"]["model_params"]["accel_cfg"] = {
     "resolution": 32, "occ_thre": 0.3, "ema_decay": 0.95, "inv_s": 256.0}
+
+WAYMO_DEMO_PERMUTO: Dict[str, Any] = copy.deepcopy(WAYMO_DEMO_MULTI)
+WAYMO_DEMO_PERMUTO["assetbank_cfg"]["Vehicle"]["model_class"] = \
+    "neuralsim_tpu.models.assets.ADGenerativePermutoConcatNeuSObj"
 
 SYNTHETIC_MULTI: Dict[str, Any] = {
     "exp_dir": "logs/synthetic_multi",

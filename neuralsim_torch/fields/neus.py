@@ -14,11 +14,11 @@ proposal ladder only places
 samples and always runs under ``torch.no_grad()`` (JAX's
 ``proposal_no_grad``); the final evaluation carries the gradients.
 
-Only the LoTD geometry is ported, with analytic nablas; the decoder's
-``vjp`` is the explicit backward :meth:`MLP.forward_and_input_grad`. The
-query passes a per-ray instance index ``bidx`` on to every sample, for the
-conditional fields of shared models (``fields/conditional.py``); this field
-itself takes none.
+The LoTD geometry and, through ``fields/conditional.py``, the permutohedral
+one are ported, with analytic nablas; the decoder's ``vjp`` is the explicit
+backward :meth:`MLP.forward_and_input_grad`. The query passes a per-ray
+instance index ``bidx`` on to every sample, for the conditional fields of
+shared models (``fields/conditional.py``); this field itself takes none.
 """
 from __future__ import annotations
 
@@ -152,7 +152,8 @@ def upsample_weights_pdf(t: torch.Tensor, sdf: torch.Tensor, mask: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class NeuSField(nn.Module):
-    """NeuS implicit surface on an LoTD encoding.
+    """NeuS implicit surface on an LoTD encoding (or on the ``encoding``
+    module given, as the permuto fields do).
 
     Parameters (JAX names): ``encoding.table``, ``decoder`` and ``radiance``
     MLP layers, and the scalar ``ln_inv_s``. The radiance net conditions on
@@ -172,7 +173,8 @@ class NeuSField(nn.Module):
                  cos_anneal_stop_it: int = 0,
                  radius_init: float = 0.5,
                  sdf_scale: float = 1.0,
-                 eval_chunk: int = 2_000_000):
+                 eval_chunk: int = 2_000_000,
+                 encoding: Optional[nn.Module] = None):
         super().__init__()
         self.space = space or AABBSpace()
         self.geo_feat_dim = geo_feat_dim
@@ -185,7 +187,8 @@ class NeuSField(nn.Module):
         self.eval_chunk = eval_chunk
         self._geo_init_bias = radius_init
 
-        self.encoding = make_lotd(encoding_cfg or {}, input_dim=3)
+        self.encoding = make_lotd(encoding_cfg or {}, input_dim=3) if encoding is None \
+            else encoding
         self.decoder = MLP(self.encoding.out_dim, 1 + geo_feat_dim, hidden=decoder_hidden,
                            depth=decoder_depth, activation="relu")
         self.dir_embed, dir_dim = sh_embedder(sh_degree)
@@ -205,6 +208,12 @@ class NeuSField(nn.Module):
     def _sphere_bias(self) -> float:
         return self._geo_init_bias * float(self.space.half_extent.mean())
 
+    def _encoding_input(self, x: torch.Tensor, bidx: Optional[torch.Tensor]) -> torch.Tensor:
+        """The encoding's input at object coordinates ``x`` [..., 3]: the
+        coordinates normalised into [0, 1] (the permuto conditional field
+        appends the instance latent)."""
+        return self.space.normalize_coords(x)
+
     def _decoder_input(self, h: torch.Tensor, bidx: Optional[torch.Tensor]) -> torch.Tensor:
         """The SDF decoder's input at encoding features ``h`` [..., C]: ``h``
         itself (this field takes no instance index; the conditional fields
@@ -219,7 +228,7 @@ class NeuSField(nn.Module):
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [..., 3] object coords -> (sdf [...], geometry feature [..., F]).
         ``cp_lines``: the encoding's ``kernel_lines()``, if already computed."""
-        h = self.encoding(self.space.normalize_coords(x), cp_lines)
+        h = self.encoding(self._encoding_input(x, bidx), cp_lines)
         out = self.decoder(self._decoder_input(h, bidx))
         sdf = out[..., 0] * self.sdf_scale
         if self._geo_init_bias:
@@ -237,7 +246,7 @@ class NeuSField(nn.Module):
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(sdf, nablas, feat) with analytic nablas: the encoding's jacobian
         chained with the decoder's input gradient of the sdf output."""
-        h, jh = self.encoding.with_jacobian(self.space.normalize_coords(x), cp_lines)
+        h, jh = self.encoding.with_jacobian(self._encoding_input(x, bidx), cp_lines)
         cot = torch.zeros(h.shape[:-1] + (self.decoder.out_dim,), dtype=h.dtype,
                           device=h.device)
         cot[..., 0] = 1.0

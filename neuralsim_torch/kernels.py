@@ -50,6 +50,8 @@ SIGNATURES: Dict[str, str] = {
     "cross_source_vw": "pppppiip",
     "cross_source_vw_bwd": "ppppppiip",
     "pair_compact": "ppppppiiiip",
+    "permuto_fwd": "pppppppiiiiip",
+    "permuto_bwd": "pppppppppiiiiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -1,5 +1,6 @@
 """Field construction of the assets on the port's paths (port of
-neuralsim_tpu/models/assets.py:31-66, 70-171, 194-215, 263-302, 576-613).
+neuralsim_tpu/models/assets.py:31-66, 70-171, 194-215, 263-302, 449-556,
+576-613).
 
 An asset turns its ``model_params`` from the config into a field module (and
 an occupancy grid where it has one); the same keys are read, with the same
@@ -17,7 +18,8 @@ import numpy as np
 import torch
 
 from ..accel import OccGridEma, OccGridEmaBatched
-from ..fields.conditional import ConditionalLoTDNeuSField
+from ..fields.conditional import (ConditionalLoTDNeuSField, GenerativePermutoConcatNeuSField,
+                                  PermutoNeuSField)
 from ..fields.nerf import NeRFDistantField
 from ..fields.neus import NeuSField
 from ..fields.sky import SimpleSky
@@ -146,16 +148,19 @@ class LoTDNeuSStreet(AssetModel):
                      noise, lr=pre.get("lr", 5e-3))
 
 
-class ADGenerativeLoTDConcatNeuSObj(AssetModel):
-    """One conditional LoTD NeuS for every object of a class in a scene, with
-    per-instance latents (``ConditionalLoTDNeuSField``). The canonical box has
-    the class's mean aspect: the mean over the objects of each one's mean
-    scale over its valid frames, over its largest entry. With an
-    ``accel_cfg``, one occupancy grid per instance over that box
+class _SharedCategorical(AssetModel):
+    """One conditional NeuS for every object of a class in a scene, with
+    per-instance latents; each object's ``instance_index`` picks its latent.
+    The canonical box has the class's mean aspect: the mean over the objects
+    of each one's mean scale over its valid frames, over its largest entry.
+    With an ``accel_cfg``, one occupancy grid per instance over that box
     (``OccGridEmaBatched``; of the config it reads the resolution, the
     threshold, the EMA decay and ``inv_s``, as the JAX package does)."""
 
     assignment = AssetAssignment.MULTI_OBJ_ONE_SCENE
+
+    def _make_field(self, space: AABBSpace, n_instances: int, mp: Dict[str, Any]):
+        raise NotImplementedError
 
     def populate(self, scene=None, obj_ids=None) -> None:
         mp = self.model_params
@@ -173,15 +178,7 @@ class ADGenerativeLoTDConcatNeuSObj(AssetModel):
                 aspect = np.mean(scales, 0)
                 aspect = aspect / max(aspect.max(), 1e-6)
         space = AABBSpace(-aspect, aspect)
-        self.field = ConditionalLoTDNeuSField(
-            space,
-            n_instances=max(len(obj_ids), 1),
-            z_dim=mp.get("z_dim", 8),
-            encoding_cfg=mp.get("encoding_cfg"),
-            geo_feat_dim=mp.get("geo_feat_dim", 15),
-            radiance_hidden=mp.get("radiance_hidden", 64),
-            ln_inv_s_init=float(np.log(mp.get("inv_s_init", 20.0))),
-            cos_anneal_stop_it=mp.get("cos_anneal_stop_it", 0))
+        self.field = self._make_field(space, max(len(obj_ids), 1), mp)
         self.query_cfg = dict(mp.get("query_cfg", {}))
         accel_cfg = mp.get("accel_cfg")
         if accel_cfg:
@@ -190,6 +187,62 @@ class ADGenerativeLoTDConcatNeuSObj(AssetModel):
                                            occ_thre=accel_cfg.get("occ_thre", 0.3),
                                            ema_decay=accel_cfg.get("ema_decay", 0.95),
                                            occ_inv_s=accel_cfg.get("inv_s", 256.0))
+
+
+class ADGenerativeLoTDConcatNeuSObj(_SharedCategorical):
+    """The shared class model on a conditional LoTD NeuS
+    (``ConditionalLoTDNeuSField``: the latent at the decoder's input)."""
+
+    def _make_field(self, space, n_instances, mp):
+        return ConditionalLoTDNeuSField(
+            space,
+            n_instances=n_instances,
+            z_dim=mp.get("z_dim", 8),
+            encoding_cfg=mp.get("encoding_cfg"),
+            geo_feat_dim=mp.get("geo_feat_dim", 15),
+            radiance_hidden=mp.get("radiance_hidden", 64),
+            ln_inv_s_init=float(np.log(mp.get("inv_s_init", 20.0))),
+            cos_anneal_stop_it=mp.get("cos_anneal_stop_it", 0))
+
+
+# the permuto assets' default lattice (``permuto_cfg``; they read no
+# ``encoding_cfg``)
+_PERMUTO_CFG = {"n_levels": 12, "base_res": 4.0, "max_res": 256.0, "log2_hashmap_size": 17}
+
+
+class ADGenerativePermutoConcatNeuSObj(_SharedCategorical):
+    """The shared class model on a permutohedral NeuS over concat(xyz01,
+    sigmoid(z)) (``ConditionalPermutoNeuSField``: the latent in the
+    lattice, d = 3 + z_dim)."""
+
+    def _make_field(self, space, n_instances, mp):
+        return GenerativePermutoConcatNeuSField(
+            space,
+            n_instances=n_instances,
+            z_dim=mp.get("z_dim", 4),
+            permuto_cfg=mp.get("permuto_cfg", _PERMUTO_CFG),
+            geo_feat_dim=mp.get("geo_feat_dim", 15),
+            radiance_hidden=mp.get("radiance_hidden", 64),
+            ln_inv_s_init=float(np.log(mp.get("inv_s_init", 20.0))),
+            cos_anneal_stop_it=mp.get("cos_anneal_stop_it", 0))
+
+
+class PermutoNeuSObj(AssetModel):
+    """Object-centric permutohedral NeuS (d = 3) in a cube of half-size
+    ``extent``."""
+
+    assignment = AssetAssignment.OBJECT
+
+    def populate(self, scene=None, obj_ids=None) -> None:
+        mp = self.model_params
+        extent = mp.get("extent", 1.0)
+        self.field = PermutoNeuSField(
+            AABBSpace([-extent] * 3, [extent] * 3),
+            permuto_cfg=mp.get("permuto_cfg", {**_PERMUTO_CFG, "max_res": 512.0}),
+            geo_feat_dim=mp.get("geo_feat_dim", 15),
+            radiance_hidden=mp.get("radiance_hidden", 64),
+            ln_inv_s_init=float(np.log(mp.get("inv_s_init", 20.0))))
+        self.query_cfg = dict(mp.get("query_cfg", {}))
 
 
 class NeRFDistant(AssetModel):
@@ -220,8 +273,9 @@ class SimpleSkyAsset(AssetModel):
 
 
 ASSET_CLASSES = {c.__name__: c for c in (LoTDNeuSObj, LoTDNeuSStreet,
-                                         ADGenerativeLoTDConcatNeuSObj, NeRFDistant,
-                                         SimpleSkyAsset)}
+                                         ADGenerativeLoTDConcatNeuSObj,
+                                         ADGenerativePermutoConcatNeuSObj, PermutoNeuSObj,
+                                         NeRFDistant, SimpleSkyAsset)}
 
 
 def asset_class(model_class: str):

@@ -32,7 +32,11 @@ per-instance grids) to the CPU as the compose render and the multi-object
 iteration are. K2 (per-level CP) is held to its plain version at K1's
 tolerances, its backward at chip_smoke.GRAD_REL (also for a level past the
 backward's shared memory); K12 (the NeuS alpha inside the composite) at
-chip_smoke.K12_TOL, its backward at chip_smoke.GRAD_REL.
+chip_smoke.K12_TOL, its backward at chip_smoke.GRAD_REL. K9 (the permuto
+lattice) at chip_smoke.K9_TOL, its table gradient at chip_smoke.GRAD_REL and
+its inputs' gradient at chip_smoke.K9_DX_REL, the permuto field under
+autograd against the CPU at GRAD_REL, and the permuto vehicles' first
+iteration as the multi-object one.
 """
 import copy
 
@@ -46,7 +50,9 @@ from neuralsim_torch.accel import OccGridEma, OccGridEmaBatched
 from neuralsim_torch.accel.occ_grid import (occ_ema_update, occ_ema_update_plain,
                                             occ_ray_proposal, occ_ray_proposal_plain)
 from neuralsim_torch.configs import (BENCH_OBJECT, SYNTHETIC_OBJECT, WAYMO_DEMO_CROWD,
-                                    WAYMO_DEMO_MULTI)
+                                    WAYMO_DEMO_MULTI, WAYMO_DEMO_PERMUTO)
+from neuralsim_torch.fields.conditional import ConditionalPermutoNeuSField
+from neuralsim_torch.fields.encodings import permuto as pm
 from neuralsim_torch.fields.spatial import AABBSpace
 from neuralsim_torch.dataio.synthetic import SyntheticObjectDataset, sdf_scene_tensor
 from neuralsim_torch.dataio.waymo_demo import demo_scenario, ground_sdf_tensor
@@ -153,7 +159,7 @@ def test_render_on_card_matches_cpu(dev):
     assert all(k.launches > 0 for k in kernels.KERNELS.values()
                if not k.name.endswith(".bwd")
                and k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY + cs.CROWD_ONLY
-               + cs.PERLEVEL_ONLY)
+               + cs.PERLEVEL_ONLY + cs.PERMUTO_ONLY)
     assert kernels.KERNELS["volume_composite"].launches == 0    # K12 composites it
     want = renderer.render_chunked(copy.deepcopy(params).to("cpu"), o, d, rayschunk=100)
     for k, v in want.items():
@@ -231,7 +237,7 @@ def test_train_step_on_card_matches_cpu(dev):
     loss_err, grad_err = cs.check_first_step(trainer, state, rig, dev, n_rays=512)
     assert all(k.launches > 0 for k in kernels.KERNELS.values()
                if k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY + cs.MULTI_ONLY + cs.CROWD_ONLY
-               + cs.PERLEVEL_ONLY)
+               + cs.PERLEVEL_ONLY + cs.PERMUTO_ONLY)
     assert loss_err <= cs.STEP_LOSS_RTOL and grad_err <= cs.STEP_GRAD_REL
 
 
@@ -518,8 +524,9 @@ def test_multi_object_iterations_launch_their_kernels(dev, multi_built):
                            "neus_composite.bwd", "volume_composite", "volume_composite.bwd",
                            "occ_ray_proposal", "occ_ema_update")] == [3, 3, 3, 3, 0, 0, 6, 1]
     assert all(v > 0 for k, v in n.items() if k not in cs.CROWD_ONLY + cs.PERLEVEL_ONLY
-               + ("volume_composite", "volume_composite.bwd"))
+               + cs.PERMUTO_ONLY + ("volume_composite", "volume_composite.bwd"))
     assert not any(n[k] for k in cs.CROWD_ONLY)      # 3 vehicles: no pair budget, no K10
+    assert not any(n[k] for k in cs.PERMUTO_ONLY)    # LoTD vehicles
     assert log[-1]["skips_total"] == 0 and all(np.isfinite(r["loss_total"]) for r in log)
 
 
@@ -809,4 +816,93 @@ def test_per_level_iterations_launch_k2_and_k12(dev, monkeypatch):
     assert [n[k] for k in ("neus_composite", "neus_composite.bwd", "lotd_cp_stacked",
                            "lotd_cp_stacked.bwd", "volume_composite", "volume_composite.bwd")] \
         == [3, 3, 0, 0, 0, 0]
+    assert log[-1]["skips_total"] == 0 and all(np.isfinite(r["loss_total"]) for r in log)
+
+
+# ---------------------------------------------------------------------------
+# The permutohedral lattice (K9) and the permuto vehicles
+# ---------------------------------------------------------------------------
+
+def _permuto_encoding(d):
+    """12 levels of F 2 on 2^17 rows: PermutoNeuSObj's ladder (to 512) at
+    d 3, the vehicles' (to 256) otherwise."""
+    return pm.PermutoEncoding(d, n_levels=12, base_res=4.0, max_res=512.0 if d == 3 else 256.0,
+                              log2_hashmap_size=17)
+
+
+@pytest.mark.parametrize("d", pm.CARD_DIMS)
+def test_k9_permuto_forward_and_backward(dev, d):
+    """Features (with and without the jacobian), the table's gradient from
+    each cotangent and the inputs' gradient, against the plain versions."""
+    n0 = kernels.KERNELS["permuto.bwd"].launches
+    cs.check_permuto(dev, [cs.permuto_set(f"d {d}", _permuto_encoding(d), 50_000, 200 + d, dev)])
+    assert kernels.KERNELS["permuto.bwd"].launches == n0 + 3
+
+
+def test_k9_refuses_other_widths(dev):
+    enc = pm.PermutoEncoding(5, n_levels=2, log2_hashmap_size=10).to(dev)
+    x = torch.rand(64, 5, device=dev)
+    with pytest.raises(ValueError, match="d in"):
+        pm.permuto(enc.table.detach(), x, enc._res, enc._meta, enc._lat, enc.table_size,
+                   enc.out_dim, False)
+
+
+def test_permuto_field_autograd_on_card_matches_cpu(dev):
+    """The conditional permuto field (d 11) under autograd: sdf, nablas and
+    feature cotangents into the table, the latents (through K9's inputs'
+    gradient) and the decoder, on the card against the CPU path."""
+    f = ConditionalPermutoNeuSField(n_instances=3, z_dim=8, geo_feat_dim=7,
+                                    permuto_cfg={"n_levels": 4, "max_res": 64.0,
+                                                 "log2_hashmap_size": 12})
+    f.reset_parameters(torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        f.encoding.table.add_(torch.randn(f.encoding.total_params,
+                                          generator=torch.Generator().manual_seed(2)) * 0.1)
+        f.latents.mul_(30.0)
+    x = _t(np.random.default_rng(3).random((8192, 3)).astype(np.float32) * 1.8 - 0.9, dev)
+    b = _t(np.random.default_rng(4).integers(0, 3, 8192).astype(np.int64), dev)
+    cots = [cs.cotangents(sh, 5 + i, dev) for i, sh in enumerate(((8192,), (8192, 3), (8192, 7)))]
+    grads, outs = [], []
+    for field, to in ((copy.deepcopy(f).to(dev), lambda a: a), (f, lambda a: a.cpu())):
+        s, n, feat = field.sdf_nablas_feat(to(x), bidx=to(b))
+        loss = sum((to(c) * o).sum() for c, o in zip(cots, (s, n, feat)))
+        keys = ("encoding.table", "latents", "decoder.layers.0.W")
+        named = dict(field.named_parameters())
+        grads.append(dict(zip(keys, (g.cpu() for g in torch.autograd.grad(
+            loss, [named[k] for k in keys])))))
+        outs.append([o.detach().cpu() for o in (s, n, feat)])
+    _close(outs[0], outs[1], 1e-4, 1e-5)
+    for k in grads[1]:
+        _rel_close([grads[0][k]], [grads[1][k]], cs.GRAD_REL)
+    assert float(grads[1]["latents"].abs().max()) > 0
+
+
+@pytest.fixture
+def permuto_built(dev):
+    return build_multi_trainer(WAYMO_DEMO_PERMUTO, device=dev)
+
+
+def test_permuto_first_iteration_on_card_matches_cpu(dev, permuto_built):
+    scene, _, trainer, state, samplers = permuto_built
+    watch = {}
+    with cs.permuto_watch(watch):
+        loss_err, grad_err = cs.check_multi_first_iteration(scene, trainer, state, samplers, dev)
+    assert loss_err <= cs.MULTI_STEP_LOSS_RTOL and grad_err <= cs.MULTI_STEP_GRAD_REL
+    assert watch["plain_on_card"] == 0 and watch["calls"]
+
+
+def test_permuto_iterations_launch_k9(dev, permuto_built):
+    """Three loop iterations: K9 and its backward every iteration, K8 and K12
+    as on the LoTD path, never K3 (the street has no dense level), no skip."""
+    scene, _, trainer, state, samplers = permuto_built
+    kernels.reset_counts()
+    log = []
+    train_loop(scene, trainer, state, samplers, 3, torch.Generator(device=dev).manual_seed(0), 1,
+               log)
+    torch.cuda.synchronize()
+    n = {k.name: k.launches for k in kernels.KERNELS.values()}
+    assert n["permuto"] >= 3 and n["permuto.bwd"] >= 3
+    assert [n[k] for k in ("cross_source_vw", "cross_source_vw.bwd", "neus_composite",
+                           "neus_composite.bwd", "lotd_grid", "lotd_grid.bwd")] == \
+        [3, 3, 3, 3, 0, 0]
     assert log[-1]["skips_total"] == 0 and all(np.isfinite(r["loss_total"]) for r in log)

@@ -13,7 +13,7 @@ import torch
 from neuralsim_torch import kernels
 from neuralsim_torch.bridge import load_jax_params
 from neuralsim_torch.configs import (BENCH_OBJECT, SYNTHETIC_MULTI, SYNTHETIC_OBJECT,
-                                    WAYMO_DEMO_CROWD, WAYMO_DEMO_MULTI)
+                                    WAYMO_DEMO_CROWD, WAYMO_DEMO_MULTI, WAYMO_DEMO_PERMUTO)
 from neuralsim_torch.fields.blocks import MLP
 from neuralsim_torch.tools.build import (build_compose_renderer, build_multi_trainer,
                                          build_renderer, build_trainer)
@@ -45,7 +45,7 @@ def test_importing_every_module_loads_no_jax():
               "models.asset_base", "renderers.buffer_compose", "training.multi_trainer",
               "training.error_map", "dataio.dataloader", "scene.observers.lidars",
               "tools.train_multi", "models.assets", "ops.pair_compact",
-              "dataio.synthetic_multi"):
+              "dataio.synthetic_multi", "fields.encodings.permuto"):
         assert f"neuralsim_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -62,7 +62,8 @@ def test_importing_every_module_loads_no_jax():
 def test_sources_do_not_import_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|neuralsim_tpu)\b", re.M)
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    for new in ("ops/pair_compact.py", "dataio/synthetic_multi.py", "accel/occ_grid.py"):
+    for new in ("ops/pair_compact.py", "dataio/synthetic_multi.py", "accel/occ_grid.py",
+                "fields/encodings/permuto.py", "fields/conditional.py"):
         assert PKG / new in files
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -84,16 +85,20 @@ def test_entry_point_defaults_to_the_card_for_the_bench_model(monkeypatch, entry
         entry(BENCH_OBJECT)
 
 
-@pytest.mark.parametrize("cfg", [WAYMO_DEMO_MULTI, WAYMO_DEMO_CROWD, SYNTHETIC_MULTI],
-                         ids=["waymo_demo_multi", "waymo_demo_crowd", "synthetic_multi"])
+@pytest.mark.parametrize("cfg", [WAYMO_DEMO_MULTI, WAYMO_DEMO_CROWD, SYNTHETIC_MULTI,
+                                 WAYMO_DEMO_PERMUTO],
+                         ids=["waymo_demo_multi", "waymo_demo_crowd", "synthetic_multi",
+                              "waymo_demo_permuto"])
 def test_compose_entry_point_defaults_to_the_card(monkeypatch, cfg):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_compose_renderer(cfg)
 
 
-@pytest.mark.parametrize("cfg", [WAYMO_DEMO_MULTI, WAYMO_DEMO_CROWD, SYNTHETIC_MULTI],
-                         ids=["waymo_demo_multi", "waymo_demo_crowd", "synthetic_multi"])
+@pytest.mark.parametrize("cfg", [WAYMO_DEMO_MULTI, WAYMO_DEMO_CROWD, SYNTHETIC_MULTI,
+                                 WAYMO_DEMO_PERMUTO],
+                         ids=["waymo_demo_multi", "waymo_demo_crowd", "synthetic_multi",
+                              "waymo_demo_permuto"])
 @pytest.mark.parametrize("entry", [build_multi_trainer, train_multi], ids=lambda f: f.__name__)
 def test_multi_object_training_entry_points_default_to_the_card(monkeypatch, entry, cfg):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -114,7 +119,8 @@ def test_ctypes_signatures_match_the_cuda_sources():
     for entry in ("lotd_cp_stacked_bwd", "lotd_grid_bwd", "volume_composite_bwd",
                   "occ_ray_proposal", "occ_ema_update", "cross_source_vw",
                   "cross_source_vw_bwd", "pair_compact", "lotd_cp_level_fwd",
-                  "lotd_cp_level_bwd", "neus_composite_fwd", "neus_composite_bwd"):
+                  "lotd_cp_level_bwd", "neus_composite_fwd", "neus_composite_bwd",
+                  "permuto_fwd", "permuto_bwd"):
         assert entry in found
 
 
@@ -124,13 +130,14 @@ def test_every_kernel_is_registered_once_with_its_source():
     import neuralsim_torch.renderers.neus_composite  # noqa: F401
     import neuralsim_torch.accel.occ_grid  # noqa: F401
     import neuralsim_torch.ops.pair_compact  # noqa: F401
+    import neuralsim_torch.fields.encodings.permuto  # noqa: F401
     names = set(kernels.KERNELS)
     assert names == {"lotd_cp_stacked", "lotd_cp_stacked.bwd", "lotd_grid", "lotd_grid.bwd",
                      "neus_upsample.weights_pdf", "neus_upsample.merge", "volume_composite",
                      "volume_composite.bwd", "occ_ray_proposal", "occ_ema_update",
                      "cross_source_vw", "cross_source_vw.bwd", "occ_ray_proposal_batched",
                      "pair_compact", "lotd_cp_level", "lotd_cp_level.bwd", "neus_composite",
-                     "neus_composite.bwd"}
+                     "neus_composite.bwd", "permuto", "permuto.bwd"}
     for k in kernels.KERNELS.values():
         assert (ROOT / k.source).exists() and re.match(r"neuralsim_tpu/.+\.py:\d+$", k.replaces)
         assert (ROOT / k.replaces.split(":")[0]).exists()
