@@ -73,7 +73,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      falling loss_rgb and LiDAR depth loss, three grid refreshes, K8 and its
      backward and K12 and its backward once an iteration, K4 twice, K7 once a
      refresh; a poisoned pixel step skipped with every parameter unchanged;
-     one 80x120 frame of the trained state rendered;
+     one 80x120 frame of the trained state rendered. K5b held exactly at the
+     iteration's stage widths (street 32 + 8 and 40 + 8 at 4,096 and 2,048
+     rays, vehicles 24 + 8 at 6,144 rows), at 1 and 4,097 rays and on lists
+     full of ties; K3's backward (private dense levels in shared memory,
+     global ones with atomics) at the vehicles' final query, their uniform
+     eikonal, every point in one cell and small_encoding's mixed levels, with
+     each cotangent alone too; the shapes of K1 bwd, K3 bwd, K5a and K5b
+     launches in one LiDAR and one pixel step;
   9. crowded multi-object scenes (WAYMO_DEMO_CROWD at full width: 8
      vehicles on one shared model with per-instance 32^3 occupancy grids, so
      the group takes the pair-budget path): the render from converged grids
@@ -136,8 +143,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      cadence of the grid), frame and kernels, for the compose frame and K8,
      K1, K3 and K4 at its shapes, and for the multi-object iteration (each
      step type apart; rays/s = 6,144 / iteration) with K8 forward and
-     backward and K6 forward and backward at its shapes; the same for the
-     crowd (frame, iteration), and the synthetic_multi step; K11 at its three
+     backward and K6 forward and backward at its shapes, and K1 bwd, K3 bwd,
+     K5a and K5b (beside a stable torch.sort) at the iteration's shapes, each
+     also queued (the card held busy while the host enqueues the calls); the
+     same for the crowd (frame, iteration), and the synthetic_multi step; K11 at its three
      calls beside a stable torch.argsort of its keys, K10 at the group's
      rows, K7 at the batched update; K2 at each of its shapes, K12 at the
      LiDAR step's street buffer; K9 forward and backward at each of its
@@ -147,8 +156,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 --profile adds torch.profiler tables of device time by kernel for one frame
 and for one training step of each model, for one compose frame, and for one
-LiDAR and one pixel step of the multi-object, the crowd, the per-level and
-the permuto training (with K9's and the latents' index_put device time).
+LiDAR and one pixel step of the multi-object (with K1 bwd's, K3 bwd's, K5a's
+and K5b's device time), the crowd, the per-level and the permuto training
+(with K9's and the latents' index_put device time).
 """
 from __future__ import annotations
 
@@ -162,6 +172,7 @@ import time
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+SLEEP_CYCLES_PER_S = 1.98e9  # H100 SXM boost clock: torch.cuda._sleep's cycles a second
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 N_FRAMES = 4
 FRAME_IDS = (0, 6, 12, 18)
@@ -273,6 +284,12 @@ MULTI_ONLY = ("cross_source_vw.bwd",)
 # 48 iterations (three grid refreshes); the error map's importance sampling
 # from the 16th pixel step on (the config's 200 cut so that it runs)
 MULTI_ITERS = 48
+# kernels whose launches a multi-object step records by shape, and the
+# profiler's device-time split of a step by kernel name
+MULTI_WATCHED = ("lotd_grid.bwd", "lotd_cp_stacked.bwd", "neus_upsample.weights_pdf",
+                 "neus_upsample.merge")
+MULTI_PROFILED = {"K3 bwd": ("grid_bwd",), "K5b": ("merge_kernel",),
+                  "K1 bwd": ("cp_stacked_bwd",), "K5a": ("weights_pdf",)}
 MULTI_ERROR_MAP_AFTER = 16
 # its first iteration card vs CPU, cut to 1,024 rays and 512 beams (the plain
 # K8 is O(N L^2) in memory on the CPU), at the CPU path's sample depths
@@ -324,19 +341,50 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Mean device time of fn() over reps launches, after one warm-up."""
+def hold_card(fn, reps):
+    """Keep the card busy (torch.cuda._sleep) for 1.5x the host time of
+    ``reps`` calls of fn (capped at a second), so that the host enqueues them
+    all before the first one runs."""
+    import torch
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(1.5 * reps * host_s, 1.0) * SLEEP_CYCLES_PER_S))
+
+
+def cuda_ms(fn, reps: int = 20, queued: bool = False) -> float:
+    """Mean device time of fn() over reps launches, after one warm-up, back
+    to back: a kernel shorter than its wrapper's host time reads the host's
+    pace. ``queued``: the card is held busy while the host enqueues them
+    (hold_card), so the events time the card's work alone."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        hold_card(fn, reps)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Mean host time of one call of fn while the card is held busy: what a
+    wrapper costs the host, which bounds every training path (host-bound)."""
+    import torch
+    fn()
+    hold_card(fn, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    out = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return out
 
 
 def bound(bytes_moved: float, ops: float):
@@ -418,10 +466,13 @@ def stage_inputs(n, s, seed):
     return t, sdf, mask, near, far
 
 
-def merge_inputs(n, a, b, seed):
+def merge_inputs(n, a, b, seed, levels=400):
+    """Two ascending lists of depths on a grid of ``levels`` values (a few
+    levels: ties inside each list and across them), a tie across in every
+    ray, random masks and sdf."""
     rng = np.random.default_rng(seed)
-    ta = np.sort(rng.integers(0, 400, (n, a)) / 64.0, -1).astype(np.float32)
-    tb = (rng.integers(0, 400, (n, b)) / 64.0).astype(np.float32)
+    ta = np.sort(rng.integers(0, levels, (n, a)) / 64.0, -1).astype(np.float32)
+    tb = (rng.integers(0, levels, (n, b)) / 64.0).astype(np.float32)
     tb[:, 0] = ta[:, 3]
     tb = np.sort(tb, -1)
     return (ta, tb, rng.random((n, a)) > 0.2, rng.random((n, b)) > 0.2,
@@ -1200,10 +1251,11 @@ def time_backward_kernels(shapes):
     L = meta.shape[0]
     cols = int(meta[:, 3].sum())
     seg = int(sum(r[1] * r[3] for r in meta.tolist())) * 4
+    plan = lotd.grid_bwd_plan(meta.tolist()).at(args[1].shape[0])
     out["lotd_grid.bwd"] = dict(
         shape=f"N={N} levels={L} (hash 172, 256; F=2), cotangents of features and jacobian, "
               f"the same ray samples",
-        ms=cuda_ms(lambda: lotd.lotd_grid_bwd(*args)),
+        ms=cuda_ms(lambda: lotd.lotd_grid_bwd(*args, plan=plan)),
         plain_ms=cuda_ms(lambda: lotd.lotd_grid_bwd_plain(*args), reps=3),
         library_ms=None,
         bound=bound(N * 12 + N * cols * 16 + seg, N * L * (135 + 8 * 8 * 2)))
@@ -2371,9 +2423,11 @@ def check_multi_kernels(dev, trainer, state, scene, samplers):
     """K8's backward at the pixel step's merged buffer [4,096, 168] with
     non-zero cotangents and on ragged, tied and masked buffers with edge
     alphas; K1's and K3's backwards at the path's point sets (the street's
-    F_cp 40 / R 1,024, the vehicles' F_cp 24 / R 256 and their dense levels);
-    K12 forward and backward at the LiDAR step's street buffer (2,048 x 48,
-    no rgb). -> ({kernel: (max_abs_err, tol)}, the inputs kept for timing)."""
+    F_cp 40 / R 1,024, the vehicles' F_cp 24 / R 256 and their dense levels),
+    K3's also as check_grid_bwd lists; K5a and K5b at the stage shapes
+    (check_stages); K12 forward and backward at the LiDAR step's street
+    buffer (2,048 x 48, no rgb). -> ({kernel: (max_abs_err, tol)}, the inputs
+    kept for timing)."""
     import torch
     from neuralsim_torch.fields.encodings import lotd
     from neuralsim_torch.ops.segment import (cross_source_vw, cross_source_vw_bwd_plain,
@@ -2419,19 +2473,108 @@ def check_multi_kernels(dev, trainer, state, scene, samplers):
         e1.append(compare_rel(f"K1 bwd {label} F={lines.shape[1]} R={lines.shape[2]} N={N}",
                               [lotd.lotd_cp_stacked_bwd(*a1)], [lotd.lotd_cp_stacked_bwd_plain(*a1)],
                               GRAD_REL))
+        shapes[f"lotd_cp_stacked.bwd/{label}"] = dict(args=a1, what=f"{n_rows} x {s} samples")
         if enc.grid_spec_ids:
             a3 = (enc.table.numel(), x, enc._grid_meta, d_out, d_jac)
             e3.append(compare_rel(f"K3 bwd {label} dense levels N={N}",
                                   [lotd.lotd_grid_bwd(*a3)], [lotd.lotd_grid_bwd_plain(*a3)],
                                   GRAD_REL))
+            shapes["lotd_grid.bwd/1 vehicles' final query"] = dict(
+                args=a3, plan=enc.grid_bwd_plan, what=f"{n_rows} rows x {s} samples")
+    e3 += check_grid_bwd(dev, state.params[veh_id].encoding, shapes)
     errs["lotd_cp_stacked.bwd"] = (max(e1), GRAD_REL)
     errs["lotd_grid.bwd"] = (max(e3), GRAD_REL)
+    for name, (e, tol) in check_stages(dev, shapes).items():
+        errs[name] = (max(e, errs.get(name, (0.0,))[0]), tol)
     # K12 at the LiDAR step's street buffer: no rgb, nablas for the on-render eikonal
     e12, s12 = check_neus_composite(dev, [("LiDAR step's street buffer", neus_args(lbuf))])
     errs.update(e12)
     shapes.update(s12)
     torch.cuda.synchronize()
     return errs, shapes
+
+
+# K5's calls in a multi-object iteration (rays, samples, draws, inv_s): the
+# street's two stages (32 and 40 samples, 8 draws each, inv_s 64 and 256) at
+# the pixel step's rays and the LiDAR step's beams, the vehicles' one stage
+# (24 + 8, inv_s 64) at their 3 x 2,048 compacted rows
+STAGE_SHAPES = ((MULTI_RAYS, 32, 8, 64.0), (MULTI_RAYS, 40, 8, 256.0),
+                (MULTI_BEAMS, 32, 8, 64.0), (MULTI_BEAMS, 40, 8, 256.0),
+                (3 * MULTI_RAYS // 2, 24, 8, 64.0))
+
+
+def check_stages(dev, shapes):
+    """K5a (with drawn noise, as in training) and K5b at the multi-object
+    stage shapes (STAGE_SHAPES); K5b also at N = 1 and 4,097, on lists on a
+    grid of 4 depths (ties inside each list and across, in every ray) and on
+    lists too wide for four rays' depths in 48 KB of shared memory; K5b held
+    exactly. The stage inputs are kept in ``shapes`` for timing
+    -> {kernel: (max_abs_err, tol)}."""
+    import torch
+    from neuralsim_torch.fields.neus import upsample_weights_pdf, upsample_weights_pdf_plain
+    from neuralsim_torch.ops.segment import merge_sorted_samples, merge_sorted_samples_plain
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    err_w, err_m = 0.0, 0.0
+    for seed, (n, s, nf, inv_s) in enumerate(STAGE_SHAPES, 40):
+        args = [T(a) for a in stage_inputs(n, s, seed)]
+        noise = torch.rand((n, nf), generator=torch.Generator().manual_seed(seed)).to(dev)
+        err_w = max(err_w, compare(f"K5a weights_pdf rays={n} S={s} draws={nf} inv_s={inv_s:g} "
+                                   f"noise=True", upsample_weights_pdf(*args, inv_s, nf, noise),
+                                   upsample_weights_pdf_plain(*args, inv_s, nf, noise),
+                                   1e-5, 1e-6))
+        shapes[f"neus_upsample.weights_pdf/{n} {s}+{nf}"] = dict(args=args, noise=noise,
+                                                                 inv_s=inv_s, nf=nf)
+    sets = [("stage", n, a, b, 400) for n, a, b, _ in STAGE_SHAPES] + [
+        ("one ray", 1, 32, 8, 400), ("ragged", 4097, 40, 8, 400), ("ties", 4096, 32, 8, 4),
+        ("ties, ragged", 4097, 24, 8, 4), ("ties, wide", 4097, 80, 16, 4),
+        ("past 48 KB for four rays", 64, 3000, 200, 400),
+        ("past 48 KB for one ray", 8, 16000, 100, 400)]
+    for seed, (label, n, a, b, levels) in enumerate(sets, 50):
+        ins = [T(v) for v in merge_inputs(n, a, b, seed, levels)]
+        err_m = max(err_m, compare(f"K5b merge {label} rays={n} A={a} B={b}",
+                                   merge_sorted_samples(*ins), merge_sorted_samples_plain(*ins),
+                                   0, 0, exact=True))
+        if label == "stage":
+            shapes[f"neus_upsample.merge/{n} {a}+{b}"] = dict(ins=ins)
+    return {"neus_upsample.weights_pdf": (err_w, 1e-6), "neus_upsample.merge": (err_m, 0.0)}
+
+
+def check_grid_bwd(dev, enc, shapes):
+    """K3's backward beside the vehicles' final query: at their uniform
+    eikonal's 512 points; with every one of 196,608 points in one cell of
+    each dense level (every lane of every warp on the same 8 rows); on
+    small_encoding, whose dense levels are private and hash levels global;
+    each with both cotangents and with each alone, and with the plan the
+    path takes at its size and the private levels forced -> [max_abs_err, ...]."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    rng = np.random.default_rng(33)
+    mixed = small_encoding(dev)
+    plan = mixed.grid_bwd_plan
+    if not plan.private_mask or plan.private_mask == (1 << mixed._grid_meta.shape[0]) - 1:
+        raise AssertionError(f"small_encoding's K3 plan {plan} is not part private, part global")
+    sets = [("vehicles' uniform eikonal", enc, enc_points(512, enc.cp_rmax, 34)),
+            ("vehicles, one cell", enc,
+             (0.3 + 1e-3 * rng.random((3 * MULTI_RAYS // 2 * 32, 3))).astype(np.float32)),
+            ("small_encoding, private dense and global hash levels", mixed,
+             ray_points(2048, 32, 64, 35))]
+    errs = []
+    for k, (label, e, pts) in enumerate(sets, 2):
+        x = torch.from_numpy(pts).to(dev)
+        N, C = x.shape[0], e.out_dim
+        d_out, d_jac = cotangents((C, N), 36 + k, dev), cotangents((3, C, N), 46 + k, dev)
+        for which, do, dj in (("both", d_out, d_jac), ("feats", d_out, None),
+                              ("jac", None, d_jac)):
+            a3 = (e.table.numel(), x, e._grid_meta, do, dj)
+            want = lotd.lotd_grid_bwd_plain(*a3)
+            for plan in dict.fromkeys((e.grid_bwd_plan.at(N), e.grid_bwd_plan)):
+                errs.append(compare_rel(f"K3 bwd {label} N={N} cotangents={which} plan "
+                                        f"{plan.private_mask:#x}/{plan.n_private}",
+                                        [lotd.lotd_grid_bwd(*a3, plan=plan)], [want], GRAD_REL))
+        shapes[f"lotd_grid.bwd/{k} {label}"] = dict(args=(e.table.numel(), x, e._grid_meta,
+                                                          d_out, d_jac),
+                                                    plan=e.grid_bwd_plan, what=label)
+    return errs
 
 
 def check_multi_training(scene, trainer, state, samplers, dev, iters=MULTI_ITERS,
@@ -2632,6 +2775,93 @@ def time_multi_kernels(shapes):
     return out
 
 
+def time_iteration_kernels(shapes):
+    """K3's and K1's backwards, K5a and K5b at the multi-object shapes that
+    check_multi_kernels kept, beside their plain versions and bounds (K5b
+    beside a stable torch.sort of its keys); ``queued_ms`` beside ``ms``, the
+    card held busy while the calls are enqueued (cuda_ms) -> {kernel:
+    [timing, ...]}."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    from neuralsim_torch.fields.neus import upsample_weights_pdf, upsample_weights_pdf_plain
+    from neuralsim_torch.ops.segment import merge_sorted_samples, merge_sorted_samples_plain
+    out = {}
+
+    def timed(fn, plain, plain_reps=20, library=None, **kw):
+        return dict(ms=cuda_ms(fn), queued_ms=cuda_ms(fn, queued=True),
+                    plain_ms=cuda_ms(plain, reps=plain_reps),
+                    library_ms=None if library is None else cuda_ms(library),
+                    library_queued_ms=None if library is None else cuda_ms(library, queued=True),
+                    **kw)
+
+    for key in sorted(k for k in shapes if k.startswith("lotd_grid.bwd/")):
+        a = shapes[key]["args"]
+        N, rows = a[1].shape[0], a[2].tolist()
+        plan = shapes[key]["plan"].at(N)    # the plan the path takes at this size
+        cols = sum(r[3] for r in rows)
+        seg = sum(r[1] * r[3] for r in rows) * 4
+        out.setdefault("lotd_grid.bwd", []).append(timed(
+            lambda: lotd.lotd_grid_bwd(*a, plan=plan), lambda: lotd.lotd_grid_bwd_plain(*a), 3,
+            shape=f"{key.split(' ', 1)[1]}: N={N} levels {[r[0] for r in rows]} "
+                  f"({'hash' if any(r[4] for r in rows) else 'dense'}; F={rows[0][3]}; private "
+                  f"mask {plan.private_mask:#x}, {plan.n_private} floats), both cotangents",
+            # positions and cotangents read, the levels' gradients written once
+            bound=bound(N * 12 + N * cols * 16 + seg, N * sum(135 + 64 * r[3] for r in rows))))
+    for key in sorted(k for k in shapes if k.startswith("lotd_cp_stacked.bwd/")):
+        a = shapes[key]["args"]
+        lines, x = a[0], a[1]
+        N, F, R = x.shape[0], lines.shape[1], lines.shape[2]
+        out.setdefault("lotd_cp_stacked.bwd", []).append(timed(
+            lambda: lotd.lotd_cp_stacked_bwd(*a), lambda: lotd.lotd_cp_stacked_bwd_plain(*a), 3,
+            shape=f"{key.split('/')[1]}: N={N} F={F} R={R} ({shapes[key]['what']}), both "
+                  f"cotangents",
+            bound=bound(N * 12 + lines.numel() * 2 + N * F * 16 + lines.numel() * 4,
+                        N * (30 + 75 * F))))
+    for key in sorted(k for k in shapes if k.startswith("neus_upsample.weights_pdf/")):
+        k5a = shapes[key]
+        args, noise, inv_s, nf = k5a["args"], k5a["noise"], k5a["inv_s"], k5a["nf"]
+        n, S = args[0].shape
+        out.setdefault("neus_upsample.weights_pdf", []).append(timed(
+            lambda: upsample_weights_pdf(*args, inv_s, nf, noise),
+            lambda: upsample_weights_pdf_plain(*args, inv_s, nf, noise),
+            shape=f"rays={n} S={S} nf={nf} inv_s={inv_s:g} (drawn noise)",
+            bound=bound(n * S * 9 + n * 8 + n * nf * 4 + n * S * 4 + n * nf * 4,
+                        n * S * (32 + 6 * nf))))
+    for key in sorted(k for k in shapes if k.startswith("neus_upsample.merge/")):
+        ins = shapes[key]["ins"]
+        n, A = ins[0].shape
+        B = ins[1].shape[1]
+        keys = torch.cat([ins[0], ins[1]], -1)
+        out.setdefault("neus_upsample.merge", []).append(timed(
+            lambda: merge_sorted_samples(*ins), lambda: merge_sorted_samples_plain(*ins),
+            library=lambda: torch.sort(keys, dim=-1, stable=True),
+            shape=f"rays={n} A={A} B={B}",
+            bound=bound(2 * n * (A + B) * 9, n * (A + B))))
+    return out
+
+
+@contextlib.contextmanager
+def launch_shapes(record):
+    """While the block runs, append to ``record[kernel]`` the integer
+    arguments (the shapes) of each of its launches; None records nothing."""
+    from neuralsim_torch import kernels
+    if record is None:
+        yield None
+        return
+    orig = kernels.Kernel.launch
+
+    def launch(self, entry, *args):
+        record.setdefault(self.name, []).append(
+            tuple(a for a, c in zip(args, kernels.SIGNATURES[entry]) if c == "i"))
+        orig(self, entry, *args)
+
+    kernels.Kernel.launch = launch
+    try:
+        yield record
+    finally:
+        kernels.Kernel.launch = orig
+
+
 def multi_phase(dev, profile_it):
     """Phase 8 and the multi-object training's share of the timing."""
     import torch
@@ -2658,6 +2888,17 @@ def multi_phase(dev, profile_it):
     loss_err, grad_err = check_multi_first_iteration(scene, trainer, state, samplers, dev)
     log_, launches, falls = check_multi_training(scene, trainer, state, samplers, dev)
     check_multi_poisoned_step(scene, trainer, state, samplers, dev)
+    # the shapes of the redesigned kernels' launches (and K1 bwd's, K5a's) in
+    # one LiDAR and one pixel step
+    step_shapes = {}
+    step_launches(scene, trainer, state, samplers, dev, shapes=step_shapes)
+    by_shape = {st: {k: {str(sh): calls.count(sh) for sh in sorted(set(calls))}
+                     for k, calls in rec.items() if k in MULTI_WATCHED}
+                for st, rec in step_shapes.items()}
+    for st, rec in by_shape.items():
+        log(f"multi-object {st} step: launches by integer arguments {rec}")
+    if not all(by_shape["pixel"].get(k) for k in MULTI_WATCHED):
+        raise AssertionError(f"a pixel step should launch each of {MULTI_WATCHED}")
 
     H, W = (int(v) for v in scene.nodes[COMPOSE_CAM].frame_data["hw"][0].tolist())
     frame = render_multi_frame(trainer.renderer, state.params, scene, 0, COMPOSE_CAM, state.occ,
@@ -2680,7 +2921,8 @@ def multi_phase(dev, profile_it):
         f"pixels), {rays / it_ms['iteration'][0] * 1e3:.1f} rays/s; hand-kernel launches per "
         f"iteration {sum(launches.values()) / MULTI_ITERS:.1f}")
     times = time_multi_kernels(shapes)
-    summary = {"multi_build_s": timings, "multi_first_iteration_loss_rel_err": loss_err,
+    kernel_times = time_iteration_kernels(shapes)
+    summary = {"multi_build_s": timings, "multi_step_launch_shapes": by_shape, "multi_first_iteration_loss_rel_err": loss_err,
                "multi_first_iteration_grad_rel_err": grad_err,
                "multi_iterations": MULTI_ITERS,
                "multi_loss_rgb_first10": falls["loss_rgb"][0],
@@ -2695,11 +2937,13 @@ def multi_phase(dev, profile_it):
                "multi_rays_per_s": rays / it_ms["iteration"][0] * 1e3,
                "multi_hand_launches_per_iteration": sum(launches.values()) / MULTI_ITERS}
     if profile_it:
-        prof = profile_multi_steps(scene, trainer, state, samplers, dev)
-        for k, (n, busy, _) in prof.items():
+        prof = profile_multi_steps(scene, trainer, state, samplers, dev, named=MULTI_PROFILED)
+        for k, (n, busy, named) in prof.items():
             summary[f"multi_{k}_step_device_kernels"] = n
             summary[f"multi_{k}_step_busy_ms"] = busy
-    return dict(errs=errs, times=times, launches=launches, iters=MULTI_ITERS, summary=summary)
+            summary[f"multi_{k}_step_kernel_ms"] = named
+    return dict(errs=errs, times=times, kernel_times=kernel_times, launches=launches,
+                iters=MULTI_ITERS, summary=summary)
 
 
 # ---------------------------------------------------------------------------
@@ -3382,10 +3626,12 @@ def count_alpha_chain(counter):
         neus.neus_alpha_from_sdf = fn
 
 
-def step_launches(scene, trainer, state, samplers, dev):
+def step_launches(scene, trainer, state, samplers, dev, shapes=None):
     """The kernels one LiDAR step and one pixel step launch (off the grids'
     cadence, no parameter moved), and the plain alpha chain's calls in each
-    -> {step type: ({kernel: launches}, alpha-chain calls)}."""
+    -> {step type: ({kernel: launches}, alpha-chain calls)}; given a dict
+    ``shapes``, also each launch's integer arguments into
+    ``shapes[step type][kernel]``."""
     import torch
     from neuralsim_torch import kernels
     gen = torch.Generator(device=dev).manual_seed(15)
@@ -3396,7 +3642,8 @@ def step_launches(scene, trainer, state, samplers, dev):
         noise = trainer.draw_noise(step_type, batch["rays_fidx"].shape[0], gen, it)
         counter = {"calls": 0}
         kernels.reset_counts()
-        with count_alpha_chain(counter):
+        with count_alpha_chain(counter), launch_shapes(
+                None if shapes is None else shapes.setdefault(step_type, {})):
             total, _ = trainer.compute_losses(state.params, batch, it, noise, step_type,
                                               state.occ, cam if step_type == "pixel" else None)
             total.backward()
@@ -4082,6 +4329,18 @@ def main(argv) -> int:
             log(f"kernel {name} (multi-object training path, {c['launches_per_iteration']:g} "
                 f"launches per iteration): {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound "
                 f"{c['bound_ms']:.4f} by {c['bound_by']}) at {c['shape']}")
+        for c in multi["kernel_times"].get(name, []):
+            row["multi"].setdefault("times", []).append(
+                {"ms": c["ms"], "queued_ms": c["queued_ms"], "plain_ms": c["plain_ms"],
+                 "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
+                 "library_ms": c["library_ms"], "library_queued_ms": c["library_queued_ms"],
+                 "shape": c["shape"]})
+            log(f"kernel {name} (multi-object training path, "
+                f"{row['multi']['launches_per_iteration']:g} launches per iteration): "
+                f"{c['ms']:.4f} ms (queued {c['queued_ms']:.4f}, plain {c['plain_ms']:.4f}, "
+                f"bound {c['bound'][0]:.4f} by {c['bound'][1]}, library "
+                f"{'none' if c['library_ms'] is None else format(c['library_ms'], '.4f')}) at "
+                f"{c['shape']}")
         row["compose"] = {"launches": compose["launches"][name],
                           "launches_per_frame": compose["launches"][name] / compose["n_frames"]}
         for c in compose["times"].get(name, []):

@@ -16,9 +16,10 @@
 //   t(u)   = bins_0 + sum_i len_i * clip((u-cdf_i)/max(cdf_{i+1}-cdf_i,1e-12),0,1)
 //   with cdf from w + 1e-5 (not the searchsorted form), u the caller's
 //   [nf] det midpoints (u_stride 0) or [N, nf] stratified draws.
-// (b) Per ray, a stable merge of two ascending lists carrying mask and sdf;
-//   on a tie the element of the first list goes first, which is exactly the
-//   rank placement of merge_sorted_samples for sorted inputs.
+// (b) Per ray, a stable merge of two ascending lists carrying mask and sdf:
+//   element i of a goes to i + #{j: tb[j] < ta[i]}, element j of b to
+//   j + #{i: ta[i] <= tb[j]} (on a tie the element of the first list goes
+//   first), the rank placement of merge_sorted_samples.
 //
 // What bounds them on an H100: neither moves much (one 4096-ray stage reads
 // ~1.5 MB and writes ~1.6 MB), so at the slice's shapes both are bound by
@@ -26,8 +27,13 @@
 // cdf are sequential recurrences; (a) gives each of a ray's nf draws its own
 // thread, which recomputes the ray's weights in registers (the sigmoids are
 // cheap next to the latency they hide), so a 4096-ray stage runs 65,536
-// threads instead of 4,096. (b) keeps one thread per ray, in one-warp blocks
-// so that a chunk's rays spread over the SMs.
+// threads instead of 4,096. (b) has no recurrence: one warp a ray (four rays
+// a block where they fit 48 KB of shared memory) loads both lists' depths with coalesced loads into shared memory,
+// and each lane places ceil((A + B) / 32) elements by the two counts above,
+// over the other list in shared memory (A x B compares a ray, split over the
+// lanes). An element's position is exactly the plain version's, ties
+// included, and a warp's stores land in its ray's one output row. So 4,096
+// rays run 4,096 warps, with no chain of dependent loads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -99,28 +105,39 @@ __global__ void weights_pdf_kernel(const float* __restrict__ t,      // [N, S]
   t_new[(size_t)r * nf + k] = __fadd_rn(tr[0], acc);
 }
 
+constexpr int kMergeRays = 4;  // rays (warps) a block, fewer for lists past 48 KB a block
+
 __global__ void merge_kernel(const float* __restrict__ ta, const float* __restrict__ tb,
                              const uint8_t* __restrict__ ma, const uint8_t* __restrict__ mb,
                              const float* __restrict__ sa, const float* __restrict__ sb,
                              float* __restrict__ t, uint8_t* __restrict__ m,
                              float* __restrict__ s, int N, int A, int B) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= N) return;
+  extern __shared__ float keys[];  // [rays a block][A + B]: the ray's ta, then tb
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (r >= N) return;  // the whole warp
   const size_t oa = (size_t)r * A, ob = (size_t)r * B, o = (size_t)r * (A + B);
-  int i = 0, j = 0;
-  for (int k = 0; k < A + B; ++k) {
-    const bool take_a = j >= B || (i < A && ta[oa + i] <= tb[ob + j]);
-    if (take_a) {
-      t[o + k] = ta[oa + i];
-      m[o + k] = ma[oa + i];
-      s[o + k] = sa[oa + i];
-      ++i;
-    } else {
-      t[o + k] = tb[ob + j];
-      m[o + k] = mb[ob + j];
-      s[o + k] = sb[ob + j];
-      ++j;
-    }
+  float* ka = keys + warp * (A + B);
+  float* kb = ka + A;
+  for (int i = lane; i < A; i += 32) ka[i] = ta[oa + i];
+  for (int j = lane; j < B; j += 32) kb[j] = tb[ob + j];
+  __syncwarp();
+  for (int i = lane; i < A; i += 32) {
+    const float v = ka[i];
+    int p = i;
+    for (int j = 0; j < B; ++j) p += kb[j] < v;
+    t[o + p] = v;
+    m[o + p] = ma[oa + i];
+    s[o + p] = sa[oa + i];
+  }
+  for (int j = lane; j < B; j += 32) {
+    const float v = kb[j];
+    int p = j;
+#pragma unroll 8
+    for (int i = 0; i < A; ++i) p += ka[i] <= v;
+    t[o + p] = v;
+    m[o + p] = mb[ob + j];
+    s[o + p] = sb[ob + j];
   }
 }
 
@@ -144,9 +161,27 @@ extern "C" int neus_upsample_weights_pdf(const void* t, const void* sdf, const v
 extern "C" int merge_sorted_samples(const void* ta, const void* tb, const void* ma,
                                     const void* mb, const void* sa, const void* sb, void* t,
                                     void* m, void* s, int N, int A, int B, void* stream) {
-  const int threads = 32;  // one warp a block: 4096 rays spread over 128 SMs
-  const int blocks = N > 0 ? (N + threads - 1) / threads : 1;
-  merge_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  if (A < 0 || B < 0) return (int)cudaErrorInvalidValue;
+  // a ray's depths in shared memory: past the default 48 KB a block, fewer
+  // rays a block, then one ray with the card's opt-in limit (227 KB on an H100)
+  const size_t row = (size_t)(A + B) * sizeof(float);
+  int rays = kMergeRays;
+  while (rays > 1 && rays * row > 48 * 1024) --rays;
+  const size_t smem = rays * row;
+  if (smem > 48 * 1024) {
+    cudaError_t e;
+    int dev = 0, optin = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+        cudaSuccess)
+      return (int)e;
+    if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+    if ((e = cudaFuncSetAttribute(merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+      return (int)e;
+  }
+  const int blocks = N > 0 ? (N + rays - 1) / rays : 1;
+  merge_kernel<<<blocks, 32 * rays, smem, (cudaStream_t)stream>>>(
       (const float*)ta, (const float*)tb, (const uint8_t*)ma, (const uint8_t*)mb,
       (const float*)sa, (const float*)sb, (float*)t, (uint8_t*)m, (float*)s, N, A, B);
   return (int)cudaGetLastError();

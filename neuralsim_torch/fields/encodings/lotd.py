@@ -34,9 +34,10 @@ jacobian), which raises.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -431,12 +432,66 @@ def lotd_grid_bwd_plain(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
         return torch.autograd.grad(_cotangent_loss(out, jac, d_out, d_jac), table)[0]
 
 
+# K3's backward sums the dense levels that fit this budget together in each
+# block's shared memory, and the rest with device atomics (csrc/lotd_grid.cu).
+GRID_BWD_SMEM_BUDGET = 96 * 1024
+# ... in a launch of at least this many points a private float. Below it the
+# private copies cost more than they save: they are zeroed, stored and summed
+# by block, and a shared float add is slower than a device one where rows are
+# seldom shared. scripts/torch_kernel_ab.py times both ways on the vehicles'
+# 13,892 private floats: atomics were faster at 512 and 32,768 points (2.4 a
+# float), the private copies at 196,608 (14 a float). The crossover between is
+# not timed; any value from 2.4 to 14 sends the main path's launches (512 and
+# 196,608 points) the same ways.
+GRID_BWD_PRIVATE_MIN_POINTS = 8
+
+
+class GridBwdPlan(NamedTuple):
+    """The levels that K3's backward sums in shared memory: bit l of
+    ``private_mask`` for row l of the meta; ``n_private``, their floats (one
+    block's copy, a row of the scratch)."""
+    private_mask: int
+    n_private: int
+
+    def at(self, n_points: int) -> "GridBwdPlan":
+        """The plan of a launch of ``n_points``: private levels only where the
+        launch has GRID_BWD_PRIVATE_MIN_POINTS points a private float."""
+        if n_points >= GRID_BWD_PRIVATE_MIN_POINTS * self.n_private:
+            return self
+        return GridBwdPlan(0, 0)
+
+
+def grid_bwd_plan(meta_rows: Sequence[Sequence[int]]) -> GridBwdPlan:
+    """Split K3's levels, rows of (res, size, offset, F, is_hash, out row),
+    into private ones, the dense levels taken in level order while their F x
+    size floats fit GRID_BWD_SMEM_BUDGET together, and global ones: the hash
+    levels (fine cells whose rows the hash scatters, so that neighbouring
+    samples rarely share one) and the dense levels past the budget."""
+    mask, used = 0, 0
+    for l, (_, size, _, nf, is_hash, _) in enumerate(meta_rows):
+        if not is_hash and l < 31 and (used + nf * size) * 4 <= GRID_BWD_SMEM_BUDGET:
+            mask |= 1 << l
+            used += nf * size
+    return GridBwdPlan(mask, used)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    """The scratch's rows, read once a device: the wrapper's host time counts
+    in every training step, and every training path is host-bound."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def lotd_grid_bwd(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
-                  d_out: Optional[torch.Tensor], d_jac: Optional[torch.Tensor]
-                  ) -> torch.Tensor:
+                  d_out: Optional[torch.Tensor], d_jac: Optional[torch.Tensor],
+                  plan: Optional[GridBwdPlan] = None) -> torch.Tensor:
     """K3 backward wrapper: scatter-add of both cotangents into a zeroed table
     of ``n_table`` floats (float32 atomics on the card, so the last bits vary
-    from run to run). ``meta`` must describe levels inside the table."""
+    from run to run). ``meta`` must describe levels inside the table.
+    ``plan``: the levels to sum in shared memory, used as given; without it,
+    ``grid_bwd_plan(meta).at(N)`` (the meta read back to the host). A plan
+    made from another meta costs speed, not correctness: the kernel sums a
+    named level in shared memory only where it fits ``n_private``."""
     if pos01.device.type == "cpu":
         return lotd_grid_bwd_plain(n_table, pos01, meta, d_out, d_jac)
     given = [x for x in (d_out, d_jac) if x is not None]
@@ -444,10 +499,19 @@ def lotd_grid_bwd(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
     if meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[1] != 6:
         raise ValueError("lotd_grid_bwd: meta must be int32 [L, 6]")
     _check_cotangents("lotd_grid_bwd", pos01, d_out, d_jac)
+    N = pos01.shape[0]
+    if plan is None:
+        plan = grid_bwd_plan(meta.tolist()).at(N)
+    if plan.private_mask >> meta.shape[0]:
+        raise ValueError("lotd_grid_bwd: the plan names a level past the meta")
+    # a row of the scratch for each block of the persistent grid, one a SM
+    scratch = torch.empty((_sm_count(pos01.device.index), plan.n_private), dtype=torch.float32,
+                          device=pos01.device) if plan.n_private else None
     d_table = torch.zeros(n_table, dtype=torch.float32, device=pos01.device)
     K3_BWD.launch("lotd_grid_bwd", kernels.ptr(pos01), kernels.ptr(meta), kernels.ptr(d_out),
-                  kernels.ptr(d_jac), kernels.ptr(d_table), pos01.shape[0],
-                  given[0].shape[-2], meta.shape[0], kernels.stream())
+                  kernels.ptr(d_jac), kernels.ptr(d_table), kernels.ptr(scratch), N,
+                  given[0].shape[-2], meta.shape[0], plan.private_mask, plan.n_private,
+                  kernels.stream())
     return d_table
 
 
@@ -463,7 +527,8 @@ class _EncodeOnCard(torch.autograd.Function):
     back unrounded."""
 
     @staticmethod
-    def forward(ctx, lines, table, xf, cp_rows, cp_meta, grid_meta, out_dim, with_jac):
+    def forward(ctx, lines, table, xf, cp_rows, cp_meta, grid_meta, grid_plan, out_dim,
+                with_jac):
         N = xf.shape[0]
         out = torch.empty((out_dim, N), dtype=torch.float32, device=xf.device)
         jac = torch.empty((3, out_dim, N), dtype=torch.float32, device=xf.device) \
@@ -477,6 +542,7 @@ class _EncodeOnCard(torch.autograd.Function):
         if grid_meta.shape[0]:
             lotd_grid(table, xf, grid_meta, out, jac)
         ctx.save_for_backward(lines_bf16, table, xf, cp_rows, cp_meta, grid_meta)
+        ctx.grid_plan = grid_plan
         ctx.set_materialize_grads(False)
         return out, jac
 
@@ -487,15 +553,16 @@ class _EncodeOnCard(torch.autograd.Function):
         d_jac = None if d_jac is None else d_jac.contiguous()
         d_lines = d_table = None
         if d_out is None and d_jac is None:
-            return (None,) * 8
+            return (None,) * 9
         if lines_bf16 is not None and ctx.needs_input_grad[0]:
             d_lines = lotd_cp_stacked_bwd(lines_bf16, xf, cp_rows, d_out, d_jac)
         if ctx.needs_input_grad[1]:
             if grid_meta.shape[0]:
-                d_table = lotd_grid_bwd(table.numel(), xf, grid_meta, d_out, d_jac)
+                d_table = lotd_grid_bwd(table.numel(), xf, grid_meta, d_out, d_jac,
+                                        ctx.grid_plan.at(xf.shape[0]))
             if cp_meta.shape[0]:
                 d_table = lotd_cp_level_bwd(table, xf, cp_meta, d_out, d_jac, d_table)
-        return d_lines, d_table, None, None, None, None, None, None
+        return d_lines, d_table, None, None, None, None, None, None, None
 
 
 class LoTDEncoding(nn.Module):
@@ -577,6 +644,7 @@ class LoTDEncoding(nn.Module):
                          first_row[li]))
         self.register_buffer("_grid_meta", torch.tensor(meta, dtype=torch.int32)
                              .reshape(-1, 6), persistent=False)
+        self.grid_bwd_plan = grid_bwd_plan(meta)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -634,7 +702,7 @@ class LoTDEncoding(nn.Module):
         else:
             out, jac = _EncodeOnCard.apply(cp_lines if self.cp_stacked else None, self.table,
                                            xf, self._cp_rows, self._cp_meta, self._grid_meta,
-                                           self.out_dim, with_jac)
+                                           self.grid_bwd_plan, self.out_dim, with_jac)
         h = out.T.reshape(lead + (self.out_dim,))
         if not with_jac:
             return h

@@ -38,7 +38,7 @@ SIGNATURES: Dict[str, str] = {
     "lotd_cp_level_fwd": "pppppiiip",
     "lotd_cp_level_bwd": "ppppppiiip",
     "lotd_grid_fwd": "pppppiiip",
-    "lotd_grid_bwd": "pppppiiip",
+    "lotd_grid_bwd": "ppppppiiiiip",
     "neus_upsample_weights_pdf": "ppppppppiiiifp",
     "merge_sorted_samples": "pppppppppiiip",
     "volume_composite_fwd": "pppppppppppiip",

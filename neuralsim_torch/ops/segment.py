@@ -121,11 +121,18 @@ def merge_sorted_samples_plain(t_a: torch.Tensor, t_b: torch.Tensor,
     return place(t_a, t_b), place(mask_a, mask_b), place(sdf_a, sdf_b)
 
 
+# K5b holds one ray's A + B depths in a block's shared memory, at most the
+# H100's 227 KB a block
+MERGE_MAX_WIDTH = 227 * 1024 // 4
+
+
 def merge_sorted_samples(t_a: torch.Tensor, t_b: torch.Tensor,
                          mask_a: torch.Tensor, mask_b: torch.Tensor,
                          sdf_a: torch.Tensor, sdf_b: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K5b wrapper: the plain version on the CPU, the CUDA kernel on the card."""
+    """K5b wrapper: the plain version on the CPU, the CUDA kernel on the card,
+    for lists of up to MERGE_MAX_WIDTH (58,112) elements together; wider ones
+    raise on the card."""
     if t_a.device.type == "cpu":
         return merge_sorted_samples_plain(t_a, t_b, mask_a, mask_b, sdf_a, sdf_b)
     kernels.check_cuda("merge_sorted_samples", t_a, t_b, mask_a, mask_b, sdf_a, sdf_b)
@@ -137,6 +144,9 @@ def merge_sorted_samples(t_a: torch.Tensor, t_b: torch.Tensor,
         if tuple(x.shape) != shape or x.dtype != dt:
             raise ValueError(f"merge_sorted_samples: expected {shape} {dt}, got "
                              f"{tuple(x.shape)} {x.dtype}")
+    if A + B > MERGE_MAX_WIDTH:
+        raise ValueError(f"merge_sorted_samples: {A} + {B} elements a ray, more than the "
+                         f"{MERGE_MAX_WIDTH} that fit a block's shared memory")
     t = torch.empty((N, A + B), dtype=torch.float32, device=t_a.device)
     m = torch.empty((N, A + B), dtype=torch.bool, device=t_a.device)
     s = torch.empty((N, A + B), dtype=torch.float32, device=t_a.device)

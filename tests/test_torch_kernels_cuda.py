@@ -51,7 +51,8 @@ from neuralsim_torch.accel.occ_grid import (occ_ema_update, occ_ema_update_plain
                                             occ_ray_proposal, occ_ray_proposal_plain)
 from neuralsim_torch.configs import (BENCH_OBJECT, SYNTHETIC_OBJECT, WAYMO_DEMO_CROWD,
                                     WAYMO_DEMO_MULTI, WAYMO_DEMO_PERMUTO)
-from neuralsim_torch.fields.conditional import ConditionalPermutoNeuSField
+from neuralsim_torch.fields.conditional import (ConditionalLoTDNeuSField,
+                                                ConditionalPermutoNeuSField)
 from neuralsim_torch.fields.encodings import permuto as pm
 from neuralsim_torch.fields.spatial import AABBSpace
 from neuralsim_torch.dataio.synthetic import SyntheticObjectDataset, sdf_scene_tensor
@@ -144,6 +145,38 @@ def test_k5b_merge(dev):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("n,a,b,levels", [*((n, a, b, 400) for n, a, b, _ in cs.STAGE_SHAPES),
+                                           (1, 32, 8, 400), (4097, 40, 8, 400),
+                                           (4097, 24, 8, 4), (4096, 32, 8, 4), (1, 80, 16, 4)])
+def test_k5b_merge_at_the_multi_object_stage_widths(dev, n, a, b, levels):
+    """The multi-object stages (cs.STAGE_SHAPES), one ray, a ragged count,
+    and depths on a grid of 4 values (ties inside each list and across)."""
+    ins = [_t(v, dev) for v in cs.merge_inputs(n, a, b, 7, levels)]
+    got, want = merge_sorted_samples(*ins), merge_sorted_samples_plain(*ins)
+    torch.cuda.synchronize()
+    assert got[0].shape == (n, a + b)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,a,b", [(64, 3000, 200), (8, 16000, 100)])
+def test_k5b_merge_of_wide_lists(dev, n, a, b):
+    """Lists past 48 KB of shared memory for four rays: three rays a block
+    (3,200 depths a ray), then one with the opt-in limit (16,100)."""
+    ins = [_t(v, dev) for v in cs.merge_inputs(n, a, b, 8)]
+    got, want = merge_sorted_samples(*ins), merge_sorted_samples_plain(*ins)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k5b_merge_refuses_lists_past_shared_memory(dev):
+    from neuralsim_torch.ops.segment import MERGE_MAX_WIDTH
+    ins = [_t(v, dev) for v in cs.merge_inputs(1, MERGE_MAX_WIDTH - 7, 8, 8)]
+    with pytest.raises(ValueError, match="shared memory"):
+        merge_sorted_samples(*ins)
+
+
 def test_k6_composite(dev):
     args = [_t(a, dev) for a in cs.composite_inputs(4096, 96, 4)]
     _close(volume_composite(*args), volume_composite_plain(*args), 1e-5, 1e-6)
@@ -202,6 +235,83 @@ def test_k3_grid_backward(dev, cfg, which):
     d_jac = None if which == "feats" else cs.cotangents((3, enc.out_dim, n), 4, dev)
     args = (enc.table.numel(), x, enc._grid_meta, d_out, d_jac)
     _rel_close([lotd.lotd_grid_bwd(*args)], [lotd.lotd_grid_bwd_plain(*args)], cs.GRAD_REL)
+
+
+def _vehicle_encoding(dev):
+    """The vehicles' LoTD (2 dense levels, F 4, and 6 CP levels) as their
+    conditional field builds it, on the card."""
+    cfg = WAYMO_DEMO_MULTI["assetbank_cfg"]["Vehicle"]["model_params"]["encoding_cfg"]
+    enc = ConditionalLoTDNeuSField(n_instances=3, encoding_cfg=cfg).encoding
+    enc.reset_parameters(torch.Generator().manual_seed(0))
+    return enc.to(dev)
+
+
+def _k3_case(dev, case):
+    """(encoding, points) for K3's backward: the vehicles' final query (3 x
+    2,048 compacted rows x 32 samples), the same count of points all in one
+    cell of each dense level, small_encoding's private dense and global hash
+    levels at 2,048 rays x 32 samples."""
+    if case == "mixed":
+        return cs.small_encoding(dev), cs.ray_points(2048, 32, 64, 9)
+    enc = _vehicle_encoding(dev)
+    if case == "vehicles":
+        return enc, cs.ray_points(3 * 2048, 32, enc.cp_rmax, 8)
+    rng = np.random.default_rng(8)
+    return enc, (0.3 + 1e-3 * rng.random((3 * 2048 * 32, 3))).astype(np.float32)
+
+
+@pytest.mark.parametrize("which", ["feats", "jac", "both"])
+@pytest.mark.parametrize("case", ["vehicles", "one cell", "mixed"])
+def test_k3_backward_with_private_levels(dev, case, which):
+    """The private levels summed in shared memory and flushed by block, the
+    global ones with atomics, against autograd of the plain version."""
+    enc, pts = _k3_case(dev, case)
+    plan = enc.grid_bwd_plan
+    assert plan.private_mask and plan == lotd.grid_bwd_plan(enc._grid_meta.tolist())
+    x = _t(pts, dev)
+    n = x.shape[0]
+    d_out = None if which == "jac" else cs.cotangents((enc.out_dim, n), 3, dev)
+    d_jac = None if which == "feats" else cs.cotangents((3, enc.out_dim, n), 4, dev)
+    args = (enc.table.numel(), x, enc._grid_meta, d_out, d_jac)
+    n0 = kernels.KERNELS["lotd_grid.bwd"].launches
+    got = lotd.lotd_grid_bwd(*args, plan=plan)
+    assert kernels.KERNELS["lotd_grid.bwd"].launches == n0 + 1
+    _rel_close([got], [lotd.lotd_grid_bwd_plain(*args)], cs.GRAD_REL)
+
+
+@pytest.mark.parametrize("plan", [(0b11, 2 * (729 + 2197)), (0b11, 2 * 13_892), (0b10, 100)],
+                         ids=["first level fits", "more floats", "no level fits"])
+def test_k3_backward_with_a_plan_of_another_meta(dev, plan):
+    """A plan that does not match the meta (small_encoding's at the
+    vehicles' levels, one with floats to spare, one too small for any level)
+    costs speed, not correctness: a named level that does not fit the copy
+    takes device atomics."""
+    enc, pts = _k3_case(dev, "vehicles")
+    x = _t(pts, dev)
+    n = x.shape[0]
+    args = (enc.table.numel(), x, enc._grid_meta, cs.cotangents((enc.out_dim, n), 13, dev),
+            cs.cotangents((3, enc.out_dim, n), 14, dev))
+    _rel_close([lotd.lotd_grid_bwd(*args, plan=lotd.GridBwdPlan(*plan))],
+               [lotd.lotd_grid_bwd_plain(*args)], cs.GRAD_REL)
+
+
+def test_k3_backward_then_k2_backward_into_one_buffer(dev, monkeypatch):
+    """On the per-level path K2's backward adds the CP levels into the buffer
+    that K3's backward filled with the dense levels."""
+    monkeypatch.setenv("NEURALSIM_CP_STACKED", "0")
+    enc = _vehicle_encoding(dev)
+    assert not enc.cp_stacked and enc._cp_meta.shape[0] == 6
+    x = _t(cs.ray_points(3 * 2048, 32, enc.cp_rmax, 10), dev)
+    n = x.shape[0]
+    d_out = cs.cotangents((enc.out_dim, n), 11, dev)
+    d_jac = cs.cotangents((3, enc.out_dim, n), 12, dev)
+    table, grid = enc.table.detach(), (enc.table.numel(), x, enc._grid_meta, d_out, d_jac)
+    got = lotd.lotd_cp_level_bwd(table, x, enc._cp_meta, d_out, d_jac,
+                                 lotd.lotd_grid_bwd(*grid, plan=enc.grid_bwd_plan))
+    want = lotd.lotd_cp_level_bwd_plain(table, x, enc._cp_meta, d_out, d_jac,
+                                        lotd.lotd_grid_bwd_plain(*grid))
+    dense = sum(r[1] * r[3] for r in enc._grid_meta.tolist())    # the dense levels come first
+    _rel_close([got, got[:dense]], [want, want[:dense]], cs.GRAD_REL)
 
 
 def test_k6_composite_backward(dev):

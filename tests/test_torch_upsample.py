@@ -90,10 +90,12 @@ def test_sample_pdf_at_matches_jax_key_branch():
                                   np.asarray(jax_sample_pdf(bins, w, 8, key=key)))
 
 
-def _merge_inputs(n=64, a=24, b=8, seed=5):
+def _merge_inputs(n=64, a=24, b=8, seed=5, levels=40):
+    """Sorted depths on a grid of ``levels`` values (few levels: ties inside
+    each list and across), a tie across in every ray, masked lanes."""
     rng = np.random.default_rng(seed)
-    ta = np.sort(rng.integers(0, 40, (n, a)) / 8.0, -1).astype(np.float32)
-    tb = (rng.integers(0, 40, (n, b)) / 8.0).astype(np.float32)
+    ta = np.sort(rng.integers(0, levels, (n, a)) / 8.0, -1).astype(np.float32)
+    tb = (rng.integers(0, levels, (n, b)) / 8.0).astype(np.float32)
     tb[:, 0] = ta[:, 3]                                   # a tie in every ray
     tb = np.sort(tb, -1)
     ma = rng.random((n, a)) > 0.2
@@ -119,3 +121,18 @@ def test_k5b_merge_matches_jax_exactly():
         a_first = np.flatnonzero(ta[r] == ta[r, 3])[0]
         assert s[r, first] == sa[r, a_first]
 
+
+
+@pytest.mark.parametrize("levels", [40, 3], ids=["ties across", "ties everywhere"])
+@pytest.mark.parametrize("a,b", [(32, 8), (40, 8), (24, 8)])
+def test_k5b_merge_at_the_multi_object_stage_widths(a, b, levels):
+    """The multi-object upsample stages: the street's 32 -> 40 -> 48 and the
+    vehicles' 24 -> 32, 8 draws each; the merged depths, masks and sdf equal
+    JAX's exactly, ties and masked lanes included."""
+    ta, tb, ma, mb, sa, sb = _merge_inputs(n=37, a=a, b=b, seed=a + levels, levels=levels)
+    want = jax_merge(jnp.asarray(ta), jnp.asarray(tb), (jnp.asarray(ma), jnp.asarray(mb)),
+                     (jnp.asarray(sa), jnp.asarray(sb)))
+    got = merge_sorted_samples(*(torch.from_numpy(v) for v in (ta, tb, ma, mb, sa, sb)))
+    assert got[0].shape == (37, a + b)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
