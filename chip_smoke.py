@@ -79,8 +79,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      full of ties; K3's backward (private dense levels in shared memory,
      global ones with atomics) at the vehicles' final query, their uniform
      eikonal, every point in one cell and small_encoding's mixed levels, with
-     each cotangent alone too; the shapes of K1 bwd, K3 bwd, K5a and K5b
-     launches in one LiDAR and one pixel step;
+     each cotangent alone too; K1's backward for the street's and the
+     vehicles' lines at their pixel step's sorted samples, 512 uniform
+     points, every point in one cell, 1 and 33 points, and lines of F 13 (a
+     partial group of four), each cotangent alone and both;
+     the shapes of K1 bwd, K3 bwd, K5a and K5b launches in one LiDAR and one
+     pixel step;
   9. crowded multi-object scenes (WAYMO_DEMO_CROWD at full width: 8
      vehicles on one shared model with per-instance 32^3 occupancy grids, so
      the group takes the pair-budget path): the render from converged grids
@@ -110,12 +114,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      R 16..1,024) and of the vehicles (6, F 4, to 256) per-level, K2): K2
      forward (with and without the jacobian) and backward (each cotangent)
      against their plain versions at the street's pixel and LiDAR step
-     shapes, the vehicles' rows and the bench model's ladder (12 levels of F
-     8 to 1,024); K12 forward and backward at the LiDAR step's street buffer
-     and at synthetic_object's [4,096, 96] with rgb, at cos anneals 0, 0.5
-     and 1; 4 frames of 80x120 (K2, never K1) with a crop held to the CPU
-     path at its street depths; the first iteration card vs CPU at the CPU
-     path's sample depths; one LiDAR step (K12 and K2; no K6, no K1, no plain
+     shapes, the vehicles' rows, the bench model's ladder (12 levels of F 8
+     to 1,024) and each model's 512 uniform points; K2's backward on K1's
+     edge cases of phase 8, and on a level of R 9,000 beside R 16; the shapes
+     of K2 bwd's launches in one LiDAR and one pixel step; K12 forward and
+     backward at the LiDAR step's street buffer and at synthetic_object's
+     [4,096, 96] with rgb, at cos anneals 0, 0.5 and 1; 4 frames of 80x120
+     (K2, never K1) with a crop held to the CPU path at its street depths;
+     the first iteration card vs CPU at the CPU path's sample depths; one
+     LiDAR step (K12 and K2; no K6, no K1, no plain
      alpha chain) and one pixel step counted apart; 48 iterations (finite,
      no skip, falling loss_rgb and LiDAR depth) and a poisoned step; the
      per-level iteration and frame medians beside the stacked ones of phases
@@ -143,9 +150,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      cadence of the grid), frame and kernels, for the compose frame and K8,
      K1, K3 and K4 at its shapes, and for the multi-object iteration (each
      step type apart; rays/s = 6,144 / iteration) with K8 forward and
-     backward and K6 forward and backward at its shapes, and K1 bwd, K3 bwd,
-     K5a and K5b (beside a stable torch.sort) at the iteration's shapes, each
-     also queued (the card held busy while the host enqueues the calls); the
+     backward and K6 forward and backward at its shapes, and K1 bwd (its
+     512-point launches too), K3 bwd, K5a and K5b (beside a stable
+     torch.sort) at the iteration's shapes; K1 bwd, K2 bwd, K3 bwd, K4, K5a,
+     K5b, K6, K10, K11 and K12 also queued (the card held busy while the
+     host enqueues the calls) and by the profiler (card_ms); the
      same for the crowd (frame, iteration), and the synthetic_multi step; K11 at its three
      calls beside a stable torch.argsort of its keys, K10 at the group's
      rows, K7 at the batched update; K2 at each of its shapes, K12 at the
@@ -157,8 +166,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 --profile adds torch.profiler tables of device time by kernel for one frame
 and for one training step of each model, for one compose frame, and for one
 LiDAR and one pixel step of the multi-object (with K1 bwd's, K3 bwd's, K5a's
-and K5b's device time), the crowd, the per-level and the permuto training
-(with K9's and the latents' index_put device time).
+and K5b's device time), the crowd, the per-level (with K2's, K2 bwd's and K3
+bwd's) and the permuto training (with K9's and the latents' index_put device
+time).
 """
 from __future__ import annotations
 
@@ -290,6 +300,9 @@ MULTI_WATCHED = ("lotd_grid.bwd", "lotd_cp_stacked.bwd", "neus_upsample.weights_
                  "neus_upsample.merge")
 MULTI_PROFILED = {"K3 bwd": ("grid_bwd",), "K5b": ("merge_kernel",),
                   "K1 bwd": ("cp_stacked_bwd",), "K5a": ("weights_pdf",)}
+# the per-level steps' device-time split by kernel name
+PERLEVEL_PROFILED = {"K2 bwd": ("cp_level_bwd",), "K2": ("cp_level_kernel",),
+                     "K3 bwd": ("grid_bwd",)}
 MULTI_ERROR_MAP_AFTER = 16
 # its first iteration card vs CPU, cut to 1,024 rays and 512 beams (the plain
 # K8 is O(N L^2) in memory on the CPU), at the CPU path's sample depths
@@ -371,6 +384,41 @@ def cuda_ms(fn, reps: int = 20, queued: bool = False) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def prof_ms(fn, reps: int = 20) -> float:
+    """The device time of fn()'s kernels (memsets included) a call, under
+    torch.profiler, after one warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+
+
+def card_ms(fn, reps: int = 20) -> dict:
+    """A kernel's time three ways: ``ms`` back to back (cuda_ms: the host's
+    pace where that is the slower), ``queued_ms`` with the card held busy
+    while the host enqueues the calls, ``prof_ms`` by the profiler."""
+    return dict(ms=cuda_ms(fn, reps), queued_ms=cuda_ms(fn, reps, queued=True),
+                prof_ms=prof_ms(fn, reps))
+
+
+def card_keys(t) -> dict:
+    """The queued and profiler times of a timing (and of its library call),
+    where it has them, for the kernels line."""
+    return {k: t[k] for k in ("queued_ms", "prof_ms", "library_queued_ms", "library_prof_ms")
+            if k in t}
+
+
+def card_extra(t) -> str:
+    """``queued_ms`` and ``prof_ms`` of a timing, where it has them, for a log line."""
+    return "".join(f", {k.split('_')[0]} {t[k]:.4f}" for k in ("queued_ms", "prof_ms") if k in t)
 
 
 def host_ms(fn, reps: int = 20) -> float:
@@ -646,6 +694,50 @@ def cotangents(shape, seed, dev):
     import torch
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+
+def one_cell_points(n, resolutions, seed):
+    """``n`` points inside one cell of every CP resolution in ``resolutions``,
+    along every axis: a box of 1e-5 around a centre that no cell face of
+    those resolutions comes within 2e-5 of, so that every lane of every warp
+    adds to the same two entries of each line."""
+    rng = np.random.default_rng(seed)
+    for c in np.linspace(0.3, 0.7, 40_001):
+        if all(np.floor((c - 2e-5) * (r - 1)) == np.floor((c + 2e-5) * (r - 1))
+               for r in resolutions):
+            return (c + 1e-5 * (rng.random((n, 3)) - 0.5)).astype(np.float32)
+    raise ValueError(f"no point lies in one cell of every resolution of {resolutions}")
+
+
+def cp_bwd_point_sets(n_rows, s, rmax, resolutions, seed):
+    """The point sets that the CP backwards are held on: depth-sorted samples
+    along rays at a path's shape (runs of equal cells in a warp), the 512
+    uniform points of the eikonal (a small grid), as many points as the first
+    all in one cell (one run a warp), and 1 and 33 points (partial warps)."""
+    rng = np.random.default_rng(seed)
+    return [(f"{n_rows} rays x {s} sorted samples", ray_points(n_rows, s, rmax, seed)),
+            ("512 uniform points", enc_points(512, rmax, seed + 1)),
+            ("every point in one cell", one_cell_points(n_rows * s, resolutions, seed + 2)),
+            ("N=1", rng.random((1, 3)).astype(np.float32)),
+            ("N=33", rng.random((33, 3)).astype(np.float32))]
+
+
+def check_cp_bwd(dev, label, bwd, plain, args_of, C, sets):
+    """Hold a CP backward (``bwd``, K1's or K2's wrapper) to autograd of its
+    plain version on each of ``sets`` ((name, points)), with both cotangents
+    and with each alone -> [max_abs_err, ...]."""
+    import torch
+    errs = []
+    for k, (name, pts) in enumerate(sets):
+        x = torch.from_numpy(pts).to(dev)
+        N = x.shape[0]
+        d_out, d_jac = cotangents((C, N), 60 + k, dev), cotangents((3, C, N), 70 + k, dev)
+        for which, do, dj in (("both", d_out, d_jac), ("feats", d_out, None),
+                              ("jac", None, d_jac)):
+            a = (*args_of(x), do, dj)
+            errs.append(compare_rel(f"{label} {name} N={N} cotangents={which}", [bwd(*a)],
+                                    [plain(*a)], GRAD_REL))
+    return errs
 
 
 def check_backward_kernels(dev, params):
@@ -1210,7 +1302,7 @@ def time_sample_kernels(shapes):
     n, S = cargs[0].shape
     out["volume_composite"] = dict(
         shape=f"rays={n} S={S}",
-        ms=cuda_ms(lambda: volume_composite(*cargs)),
+        **card_ms(lambda: volume_composite(*cargs)),
         plain_ms=cuda_ms(lambda: volume_composite_plain(*cargs)),
         library_ms=None,
         bound=bound(n * S * 37 + n * 36, n * S * 18))
@@ -1225,7 +1317,7 @@ def time_composite_bwd(shape):
     n, S = args[0].shape
     return dict(
         shape=f"rays={n} S={S}, cotangents of all five outputs",
-        ms=cuda_ms(lambda: volume_composite_bwd(*args)),
+        **card_ms(lambda: volume_composite_bwd(*args)),
         plain_ms=cuda_ms(lambda: volume_composite_bwd_plain(*args), reps=3),
         library_ms=None,
         bound=bound(n * S * 37 + n * 32 + n * S * 28, n * S * 40))
@@ -1453,7 +1545,7 @@ def time_bench_kernels(shapes):
     N, n, M = a[0].shape[0], a[8], a[7].shape[0] - 1
     out["occ_ray_proposal"] = dict(
         shape=f"rays={N} march segments={M} samples={n} grid={a[4].shape[0]}^3 (drawn noise)",
-        ms=cuda_ms(lambda: occ_ray_proposal(*a)),
+        **card_ms(lambda: occ_ray_proposal(*a)),
         plain_ms=cuda_ms(lambda: occ_ray_proposal_plain(*a)),
         library_ms=None,
         bound=bound(N * 32 + N * M + (M + 1) * 4 + 2 * N * n * 4, N * (M * 30 + n * M * 6)))
@@ -2135,7 +2227,7 @@ def time_compose_kernels(shapes):
     out["occ_ray_proposal"] = [dict(
         shape=f"street: rays={N} march segments={M} samples={n} grid={a[4].shape[0]}^3 "
               f"(no noise, as the render)",
-        ms=cuda_ms(lambda: occ_ray_proposal(*a)),
+        **card_ms(lambda: occ_ray_proposal(*a)),
         plain_ms=cuda_ms(lambda: occ_ray_proposal_plain(*a)),
         library_ms=None,
         bound=bound(N * 32 + N * M + (M + 1) * 4 + N * n * 4, N * (M * 30 + n * M * 6)))]
@@ -2482,6 +2574,21 @@ def check_multi_kernels(dev, trainer, state, scene, samplers):
             shapes["lotd_grid.bwd/1 vehicles' final query"] = dict(
                 args=a3, plan=enc.grid_bwd_plan, what=f"{n_rows} rows x {s} samples")
     e3 += check_grid_bwd(dev, state.params[veh_id].encoding, shapes)
+    # K1 bwd's 512-point launches (each model's uniform eikonal), kept for
+    # timing, and the edge cases
+    k1_encs = []
+    for label, mid, n_rows, s in (("street", street_id, MULTI_RAYS, 48),
+                                  ("vehicles", veh_id, 3 * MULTI_RAYS // 2, 32)):
+        enc = state.params[mid].encoding
+        C = enc.out_dim
+        x = T(enc_points(512, enc.cp_rmax, 35))
+        lines = enc.cp_stacked_lines().detach().to(torch.bfloat16)
+        shapes[f"lotd_cp_stacked.bwd/{label}, uniform eikonal"] = dict(
+            args=(lines, x, enc._cp_rows, cotangents((C, 512), 36, dev),
+                  cotangents((3, C, 512), 37, dev)), what="512 uniform points")
+        k1_encs.append((label, lines, enc._cp_rows, C,
+                        cp_bwd_point_sets(n_rows, s, enc.cp_rmax, [enc.cp_rmax], 38)))
+    e1 += check_k1_bwd_sets(dev, k1_encs)
     errs["lotd_cp_stacked.bwd"] = (max(e1), GRAD_REL)
     errs["lotd_grid.bwd"] = (max(e3), GRAD_REL)
     for name, (e, tol) in check_stages(dev, shapes).items():
@@ -2492,6 +2599,26 @@ def check_multi_kernels(dev, trainer, state, scene, samplers):
     shapes.update(s12)
     torch.cuda.synchronize()
     return errs, shapes
+
+
+def check_k1_bwd_sets(dev, sets):
+    """K1's backward (check_cp_bwd) on ``sets`` ((label, bf16 lines, rows, C,
+    point sets)) and on lines of F 13 at R 1,024 (F not a multiple of four:
+    a partial group, one add a value) -> [max_abs_err, ...]."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    rng = np.random.default_rng(57)
+    lines13 = torch.from_numpy(rng.normal(1.0, 0.3, (3, 13, 1024)).astype(np.float32)).to(dev)
+    sets = list(sets) + [("F 13, R 1,024", lines13.to(torch.bfloat16),
+                          torch.arange(13, dtype=torch.int32, device=dev), 13,
+                          [("2048 rays x 48 sorted samples", ray_points(2048, 48, 1024, 58)),
+                           ("512 uniform points", enc_points(512, 1024, 59))])]
+    errs = []
+    for label, lines, rows, C, pts in sets:
+        errs += check_cp_bwd(dev, f"K1 bwd {label} F={lines.shape[1]} R={lines.shape[2]}",
+                             lotd.lotd_cp_stacked_bwd, lotd.lotd_cp_stacked_bwd_plain,
+                             lambda x: (lines, x, rows), C, pts)
+    return errs
 
 
 # K5's calls in a multi-object iteration (rays, samples, draws, inv_s): the
@@ -2788,8 +2915,7 @@ def time_iteration_kernels(shapes):
     out = {}
 
     def timed(fn, plain, plain_reps=20, library=None, **kw):
-        return dict(ms=cuda_ms(fn), queued_ms=cuda_ms(fn, queued=True),
-                    plain_ms=cuda_ms(plain, reps=plain_reps),
+        return dict(**card_ms(fn), plain_ms=cuda_ms(plain, reps=plain_reps),
                     library_ms=None if library is None else cuda_ms(library),
                     library_queued_ms=None if library is None else cuda_ms(library, queued=True),
                     **kw)
@@ -3131,9 +3257,12 @@ def time_crowd_kernels(pair_shapes, occ_shapes, ema_shapes, synth_hit):
         out["pair_compact"].append(dict(
             shape=f"{label}: hit [{K}, {N}], Bg={Bg}, {'slots M=' + str(M) if M else 'no slots'}"
                   f", {int(hit.sum())} hits",
-            ms=cuda_ms(lambda: pair_compact(hit, Bg, M)),
+            **card_ms(lambda: pair_compact(hit, Bg, M)),
             plain_ms=cuda_ms(lambda: pair_compact_plain(hit, Bg, M)),
             library_ms=cuda_ms(lambda: torch.argsort(keyv, stable=True)[:Bg]),
+            library_queued_ms=cuda_ms(lambda: torch.argsort(keyv, stable=True)[:Bg],
+                                      queued=True),
+            library_prof_ms=prof_ms(lambda: torch.argsort(keyv, stable=True)[:Bg]),
             # the hit mask read, order, hit flags (and slots) written; the
             # rank formula's K compare-adds per pair, the slots' K per hit
             bound=bound(K * N + Bg * (9 + (8 if M else 0)), 2.0 * K * K * N * (2 if M else 1))))
@@ -3142,7 +3271,7 @@ def time_crowd_kernels(pair_shapes, occ_shapes, ema_shapes, synth_hit):
     out["occ_ray_proposal_batched"] = [dict(
         shape=f"vehicle rows={N} march segments={M} samples={n} grids [{G}, {R}, {R}, {R}] "
               f"(drawn noise)",
-        ms=cuda_ms(lambda: occ_ray_proposal(*a)),
+        **card_ms(lambda: occ_ray_proposal(*a)),
         plain_ms=cuda_ms(lambda: occ_ray_proposal_plain(*a)),
         library_ms=None,
         bound=bound(N * 36 + N * M + (M + 1) * 4 + 2 * N * n * 4, N * (M * 30 + n * M * 6)))]
@@ -3534,13 +3663,13 @@ def time_neus_composite(shapes):
     c = 0 if a[7] is None else 12          # rgb bytes a lane
     return {
         "neus_composite": dict(
-            shape=what, ms=cuda_ms(lambda: neus_composite(*a)),
+            shape=what, **card_ms(lambda: neus_composite(*a)),
             plain_ms=cuda_ms(lambda: neus_composite_plain(*a), reps=5), library_ms=None,
             # t, mask, sdf, nablas (rgb) read and vw, alpha written a lane; the
             # direction read and five sums written a ray; ~50 flops a lane
             bound=bound(n * S * (21 + c + 8) + n * (12 + 12 + 12 + c), n * S * 50)),
         "neus_composite.bwd": dict(
-            shape=what, ms=cuda_ms(lambda: neus_composite_bwd(*b)),
+            shape=what, **card_ms(lambda: neus_composite_bwd(*b)),
             plain_ms=cuda_ms(lambda: neus_composite_bwd_plain(*b), reps=5), library_ms=None,
             # t, mask, sdf, nablas (rgb) and the vw and alpha cotangents read,
             # d sdf, d nablas (d rgb) written a lane; ~140 flops a lane
@@ -3578,6 +3707,37 @@ def check_cp_level(dev, sets):
     return {"lotd_cp_level": (max(ef), 1e-5), "lotd_cp_level.bwd": (max(eb), GRAD_REL)}, shapes
 
 
+def check_k2_bwd_sets(dev, encs):
+    """K2's backward (check_cp_bwd) for the street's and the vehicles'
+    per-level ladders on cp_bwd_point_sets at a pixel step's shape, and for a
+    level of R 9,000 beside one of R 16 (3 R floats of one feature past what
+    the parent's kernel kept in shared memory) -> [max_abs_err, ...]."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    with cp_per_level():
+        past = lotd.LoTDEncoding([(16, 4, "cp"), (9000, 2, "cp")], cp_stacked=False)
+    past.reset_parameters(torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        past.table.add_(torch.randn(past.total_params, generator=torch.Generator().manual_seed(4))
+                        * 0.3)
+    past = past.to(dev)
+    sets = [(label, enc, cp_bwd_point_sets(n_rows, s, enc.cp_rmax,
+                                           [sp.res for sp in enc.specs if sp.typ == "cp"], seed))
+            for label, enc, n_rows, s, seed in (
+                ("street", encs["street"], MULTI_RAYS, 48, 96),
+                ("vehicles", encs["vehicles"], 3 * MULTI_RAYS // 2, 32, 97))]
+    sets.append(("R 16 and R 9,000", past,
+                 [("20000 points", enc_points(20_000, 9000, 5)),
+                  ("512 rays x 32 sorted samples", ray_points(512, 32, 9000, 98))]))
+    errs = []
+    for label, enc, pts in sets:
+        table = enc.table.detach()
+        errs += check_cp_bwd(dev, f"K2 bwd {label}", lotd.lotd_cp_level_bwd,
+                             lotd.lotd_cp_level_bwd_plain, lambda x: (table, x, enc._cp_meta),
+                             enc.out_dim, pts)
+    return errs
+
+
 def time_cp_level(shapes):
     """K2 forward (with the jacobian) and backward at each kept set, beside
     their plain versions and bounds -> {kernel: [timing, ...]}."""
@@ -3600,7 +3760,7 @@ def time_cp_level(shapes):
             bound=bound(N * 12 + lines + N * F * 16, N * (30 * L + 29 * F))))
         out["lotd_cp_level.bwd"].append(dict(
             shape=sh["what"] + ", cotangents of features and jacobian",
-            ms=cuda_ms(lambda: lotd.lotd_cp_level_bwd(*a, d_out, d_jac)),
+            **card_ms(lambda: lotd.lotd_cp_level_bwd(*a, d_out, d_jac)),
             plain_ms=cuda_ms(lambda: lotd.lotd_cp_level_bwd_plain(*a, d_out, d_jac), reps=3),
             library_ms=None,
             # points, lines and both cotangents read, the lines' gradient written
@@ -3709,7 +3869,11 @@ def perlevel_phase(dev, profile_it, stacked):
         ("street, pixel step", encs["street"], T(ray_points(MULTI_RAYS, 48, 1024, 90))),
         ("street, LiDAR step", encs["street"], T(ray_points(MULTI_BEAMS, 48, 1024, 91))),
         ("vehicles", encs["vehicles"], T(ray_points(rows, 32, 256, 92))),
-        ("bench ladder", bench_enc, T(ray_points(BENCH_RAYS, 32, 1024, 93)))))
+        ("bench ladder", bench_enc, T(ray_points(BENCH_RAYS, 32, 1024, 93))),
+        ("street, uniform eikonal", encs["street"], T(enc_points(512, 1024, 94))),
+        ("vehicles, uniform eikonal", encs["vehicles"], T(enc_points(512, 256, 95)))))
+    errs["lotd_cp_level.bwd"] = (max(errs["lotd_cp_level.bwd"][0],
+                                     *check_k2_bwd_sets(dev, encs)), GRAD_REL)
     lbuf = step_buffers(trainer, state, scene, samplers, dev, 16)["lidar"]
     if lbuf["t"].shape != (MULTI_BEAMS, 48) or "rays_d" not in lbuf:
         raise AssertionError("the LiDAR step's street buffer should be [2048, 48], fused")
@@ -3748,9 +3912,14 @@ def perlevel_phase(dev, profile_it, stacked):
     # training: the first iteration against the CPU, the launches of each step
     # type, 48 iterations, a poisoned step
     loss_err, grad_err = check_multi_first_iteration(scene, trainer, state, samplers, dev)
-    per_step = step_launches(scene, trainer, state, samplers, dev)
+    step_shapes = {}
+    per_step = step_launches(scene, trainer, state, samplers, dev, shapes=step_shapes)
     for step_type, (n, calls) in per_step.items():
         log(f"per-level {step_type} step: launches {n}, plain alpha-chain calls {calls}")
+    k2_shapes = {st: {str(sh): calls.count(sh) for sh in sorted(set(calls))}
+                 for st, rec in step_shapes.items()
+                 for calls in [rec.get("lotd_cp_level.bwd", [])]}
+    log(f"per-level K2 bwd launches by integer arguments (N, L, C): {k2_shapes}")
     lid, pix = per_step["lidar"][0], per_step["pixel"][0]
     if per_step["lidar"][1] or not (lid["neus_composite"] == lid["neus_composite.bwd"] == 1) \
             or lid["lotd_cp_level"] <= 0 or lid["lotd_cp_level.bwd"] <= 0 \
@@ -3796,12 +3965,14 @@ def perlevel_phase(dev, profile_it, stacked):
                "perlevel_stacked_iteration_ms": stacked["multi_iteration_ms"],
                "perlevel_stacked_frame_ms": stacked["compose_frame_ms"],
                "perlevel_hand_launches_per_iteration": sum(launches.values()) / PERLEVEL_ITERS,
-               "perlevel_step_launches": {k: v[0] for k, v in per_step.items()}}
+               "perlevel_step_launches": {k: v[0] for k, v in per_step.items()},
+               "perlevel_k2_bwd_launch_shapes": k2_shapes}
     if profile_it:
-        prof = profile_multi_steps(scene, trainer, state, samplers, dev)
-        for k, (n, busy, _) in prof.items():
+        prof = profile_multi_steps(scene, trainer, state, samplers, dev, named=PERLEVEL_PROFILED)
+        for k, (n, busy, named) in prof.items():
             summary[f"perlevel_{k}_step_device_kernels"] = n
             summary[f"perlevel_{k}_step_busy_ms"] = busy
+            summary[f"perlevel_{k}_step_kernel_ms"] = named
     return dict(errs=errs, times=times, launches=launches, launches_render=launches_render,
                 step_launches={k: v[0] for k, v in per_step.items()}, iters=PERLEVEL_ITERS,
                 n_frames=len(COMPOSE_FRAME_IDS), summary=summary)
@@ -4283,19 +4454,19 @@ def main(argv) -> int:
                "launches_per_step": None if on_compose or on_multi or on_crowd or on_perlevel
                or on_permuto else n_launch / steps,
                "max_abs_err": err, "max_err": err,
-               "tol": tol, "ms": t["ms"], "plain_ms": t["plain_ms"],
+               "tol": tol, "ms": t["ms"], **card_keys(t), "plain_ms": t["plain_ms"],
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": t["library_ms"], "shape": t["shape"], "path": path}
         unit = "frame" if on_compose else "iteration" if on_multi or on_crowd or on_perlevel \
             or on_permuto else "step"
         log(f"kernel {name} ({path} path, {n_launch / steps:g} launches per {unit}): "
-            f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, bound {bound_ms:.4f} by {bound_by}) "
-            f"at {t['shape']}")
+            f"{t['ms']:.4f} ms ({card_extra(t)[2:]}{', ' if card_keys(t) else ''}plain "
+            f"{t['plain_ms']:.4f}, bound {bound_ms:.4f} by {bound_by}) at {t['shape']}")
         if name in times_render:
             r = times_render[name]
             row["render"] = {"launches": launches_render[name],
                              "launches_per_frame": launches_render[name] / N_FRAMES,
-                             "ms": r["ms"], "plain_ms": r["plain_ms"],
+                             "ms": r["ms"], **card_keys(r), "plain_ms": r["plain_ms"],
                              "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                              "library_ms": r["library_ms"], "shape": r["shape"]}
             log(f"kernel {name} (render path, {launches_render[name] / N_FRAMES:g} launches "
@@ -4307,12 +4478,14 @@ def main(argv) -> int:
                             bench["launches_render"][name] / bench["n_frames"]}
         if name in bench["times"] and not on_bench:
             b = bench["times"][name]
-            row["bench"].update(ms=b["ms"], plain_ms=b["plain_ms"], bound_ms=b["bound"][0],
+            row["bench"].update(ms=b["ms"], **card_keys(b), plain_ms=b["plain_ms"],
+                                bound_ms=b["bound"][0],
                                 bound_by=b["bound"][1], library_ms=b["library_ms"],
                                 shape=b["shape"])
             log(f"kernel {name} (bench model training path, "
                 f"{bench['launches'][name] / BENCH_STEPS:g} launches per step): {b['ms']:.4f} ms "
-                f"(plain {b['plain_ms']:.4f}, bound {b['bound'][0]:.4f} by {b['bound'][1]}) at "
+                f"({card_extra(b)[2:]}{', ' if card_keys(b) else ''}plain {b['plain_ms']:.4f}, "
+                f"bound {b['bound'][0]:.4f} by {b['bound'][1]}) at "
                 f"{b['shape']}")
         else:
             log(f"kernel {name} (bench model): {bench['launches'][name] / BENCH_STEPS:g} launches "
@@ -4321,23 +4494,24 @@ def main(argv) -> int:
                         "launches_per_iteration": multi["launches"][name] / multi["iters"]}
         if name in multi["times"] and not on_multi:
             c = multi["times"][name]
-            row["multi"].update(ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound"][0],
+            row["multi"].update(ms=c["ms"], **card_keys(c), plain_ms=c["plain_ms"],
+                                bound_ms=c["bound"][0],
                                 bound_by=c["bound"][1], library_ms=c["library_ms"],
                                 shape=c["shape"])
         if "ms" in row["multi"]:
             c = row["multi"]
             log(f"kernel {name} (multi-object training path, {c['launches_per_iteration']:g} "
-                f"launches per iteration): {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound "
+                f"launches per iteration): {c['ms']:.4f} ms ({card_extra(c)[2:]}"
+                f"{', ' if card_keys(c) else ''}plain {c['plain_ms']:.4f}, bound "
                 f"{c['bound_ms']:.4f} by {c['bound_by']}) at {c['shape']}")
         for c in multi["kernel_times"].get(name, []):
             row["multi"].setdefault("times", []).append(
-                {"ms": c["ms"], "queued_ms": c["queued_ms"], "plain_ms": c["plain_ms"],
+                {"ms": c["ms"], **card_keys(c), "plain_ms": c["plain_ms"],
                  "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
-                 "library_ms": c["library_ms"], "library_queued_ms": c["library_queued_ms"],
-                 "shape": c["shape"]})
+                 "library_ms": c["library_ms"], "shape": c["shape"]})
             log(f"kernel {name} (multi-object training path, "
                 f"{row['multi']['launches_per_iteration']:g} launches per iteration): "
-                f"{c['ms']:.4f} ms (queued {c['queued_ms']:.4f}, plain {c['plain_ms']:.4f}, "
+                f"{c['ms']:.4f} ms ({card_extra(c)[2:]}, plain {c['plain_ms']:.4f}, "
                 f"bound {c['bound'][0]:.4f} by {c['bound'][1]}, library "
                 f"{'none' if c['library_ms'] is None else format(c['library_ms'], '.4f')}) at "
                 f"{c['shape']}")
@@ -4345,10 +4519,12 @@ def main(argv) -> int:
                           "launches_per_frame": compose["launches"][name] / compose["n_frames"]}
         for c in compose["times"].get(name, []):
             row["compose"].setdefault("times", []).append(
-                {"ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+                {"ms": c["ms"], **card_keys(c), "plain_ms": c["plain_ms"],
+                 "bound_ms": c["bound"][0],
                  "bound_by": c["bound"][1], "library_ms": c["library_ms"], "shape": c["shape"]})
             log(f"kernel {name} (compose render path, {row['compose']['launches_per_frame']:g} "
-                f"launches per frame): {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound "
+                f"launches per frame): {c['ms']:.4f} ms ({card_extra(c)[2:]}"
+                f"{', ' if card_keys(c) else ''}plain {c['plain_ms']:.4f}, bound "
                 f"{c['bound'][0]:.4f} by {c['bound'][1]}) at {c['shape']}")
         row["crowd"] = {"launches": crowd["launches"][name],
                         "launches_per_iteration": crowd["launches"][name] / crowd["iters"],
@@ -4356,11 +4532,13 @@ def main(argv) -> int:
                             crowd["launches_render"][name] / crowd["n_frames"]}
         for c in crowd["times"].get(name, []):
             row["crowd"].setdefault("times", []).append(
-                {"ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+                {"ms": c["ms"], **card_keys(c), "plain_ms": c["plain_ms"],
+                 "bound_ms": c["bound"][0],
                  "bound_by": c["bound"][1], "library_ms": c["library_ms"], "shape": c["shape"]})
             log(f"kernel {name} (crowd path, {row['crowd']['launches_per_iteration']:g} launches "
                 f"per iteration, {row['crowd']['render_launches_per_frame']:g} per frame): "
-                f"{c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, bound {c['bound'][0]:.3g} by "
+                f"{c['ms']:.4f} ms ({card_extra(c)[2:]}{', ' if card_keys(c) else ''}plain "
+                f"{c['plain_ms']:.4f}, bound {c['bound'][0]:.3g} by "
                 f"{c['bound'][1]}, library "
                 f"{'none' if c['library_ms'] is None else format(c['library_ms'], '.4f')}) at "
                 f"{c['shape']}")
@@ -4375,14 +4553,16 @@ def main(argv) -> int:
                 perlevel["launches_render"][name] / perlevel["n_frames"]}
         for c in perlevel["times"].get(name, []) if name in PERLEVEL_ONLY else []:
             row["perlevel"].setdefault("times", []).append(
-                {"ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+                {"ms": c["ms"], **card_keys(c), "plain_ms": c["plain_ms"],
+                 "bound_ms": c["bound"][0],
                  "bound_by": c["bound"][1], "library_ms": c["library_ms"], "shape": c["shape"]})
         p = row["perlevel"]
         log(f"kernel {name} (per-level path: {p['launches_per_lidar_step']} launches per "
             f"LiDAR step, {p['launches_per_pixel_step']} per pixel step, "
             f"{p['render_launches_per_frame']:g} per frame)")
         for c in p.get("times", []):
-            log(f"kernel {name} (per-level path): {c['ms']:.4f} ms (plain {c['plain_ms']:.4f}, "
+            log(f"kernel {name} (per-level path): {c['ms']:.4f} ms ({card_extra(c)[2:]}"
+                f"{', ' if card_keys(c) else ''}plain {c['plain_ms']:.4f}, "
                 f"bound {c['bound_ms']:.4f} by {c['bound_by']}) at {c['shape']}")
         row["permuto"] = {
             "launches": permuto["launches"][name],

@@ -34,16 +34,36 @@
 //   d f_ax = d_out * f_o1 * f_o2 + d_jac[o1] * g_o1 * f_o2 + d_jac[o2] * g_o2 * f_o1
 //   d g_ax = d_jac[ax] * f_o1 * f_o2
 //   d line[ax, lo + k, f] += d f_ax * w_k + d g_ax * s_k * (R-1),   k = 0, 1
-// No gradient goes to the positions. What threatens it is contention: a
-// coarse level's whole gradient is 3 x 16 x 4 floats under 10^5 points. So
-// each block sums a slab of its level's features for its points in shared
-// memory (f32 shared atomics, at most 96 KB so that two blocks share an SM)
-// and adds its sums to the table's gradient once per entry at the end (K1's
-// scheme); the caller's buffer may already hold the dense/hash gradient. A
-// level whose 3*R floats of one feature do not fit (R > 8,192) adds each
-// point's share to the table's gradient straight away, all F at once.
+// No gradient goes to the positions; the caller's buffer may already hold the
+// dense/hash gradient.
+//
+// What bounds it on an H100: bytes, 16 * F cotangent bytes a point and level
+// (0.0383 ms for the street's ten levels at 196,608 points). What held it
+// back (0.64 ms there) was contention: a coarse level's whole gradient is
+// 3 x 16 x 4 floats under 10^5 points, a warp's lanes are neighbouring
+// samples of one ray (their cells repeat), a shared float atomic is a
+// compare-and-swap loop on sm_90a, and every level got the same blocks, run
+// one level after the other, whatever its size. The design:
+//  * the lanes of a warp that hold a run of equal cells along an axis (found
+//    once a point, level and axis, warp_runs.cuh) sum each feature's two tap
+//    values by shuffles, and only the run's first lane adds; where the next
+//    run starts at the next cell, the shared entry takes one add;
+//  * each run's sums go to the table's gradient with float4 device atomics
+//    (one a value where F % 4 != 0 or the segment is not 16-byte aligned),
+//    no copy in shared memory: with the runs combined, copies of the coarse
+//    levels summed with shared compare-and-swap loops lost to the device
+//    atomics on every ladder timed on the card (PERF.md);
+//  * the grid is persistent: each block walks (level, chunk of S points)
+//    items, levels interleaved (item i is level i % L), so that at any moment
+//    the blocks add to every level and a coarse level's few entries never
+//    take the whole card's adds at once; the C entry sizes S and the grid
+//    from N, L and the SM count, about four items a block, so a launch of
+//    512 points spreads over L x 16 blocks. What bounds it now is the rate of
+//    the device atomics (PERF.md).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "warp_runs.cuh"
 
 namespace {
 
@@ -123,83 +143,89 @@ __global__ void cp_level_kernel(const float* __restrict__ table,  // flat, f32
   }
 }
 
-// What the backward asks for: 96 KB of shared memory a block, so that two of
-// its blocks share an SM. A slab holds FT features of one level: [3, R, FT].
-constexpr int SMEM_FLOATS = 96 * 1024 / 4;
+constexpr int G = 4;  // features a thread takes at once: a float4
+constexpr int kBwdThreads = 256;
 
-// Backward: block (x, y) sums level y's gradient for points x, one slab of
-// features at a time, in shared memory, then adds it to d_table (or, past
-// the shared memory, adds to d_table directly).
-__global__ void cp_level_bwd_kernel(const float* __restrict__ table,
-                                    const float* __restrict__ pos01,  // [N, 3]
-                                    const int* __restrict__ meta,     // [L, 4]
-                                    const float* __restrict__ d_out,  // [C, N] or null
-                                    const float* __restrict__ d_jac,  // [3, C, N] or null
-                                    float* __restrict__ d_table,      // flat, f32
-                                    int N, int C) {
-  extern __shared__ float sg[];  // [3, R, FT] gradient sums of this slab
-  const int* m = meta + blockIdx.y * META;
-  const int R = __ldg(m), off = __ldg(m + 1), F = __ldg(m + 2), row = __ldg(m + 3);
-  const float* lines = table + off;
-  const bool in_smem = D * R <= SMEM_FLOATS;
-  const int FT = in_smem ? min(F, SMEM_FLOATS / (D * R)) : F;  // F past the smem
-  const float rm1 = (float)(R - 1);
-  const size_t plane = (size_t)C * N;
-  for (int f0 = 0; f0 < F; f0 += FT) {
-    const int nf = min(F, f0 + FT) - f0;
-    if (in_smem)
-      for (int i = threadIdx.x; i < D * R * FT; i += blockDim.x) sg[i] = 0.f;
-    __syncthreads();
-    for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N;
-         n += gridDim.x * blockDim.x) {
-      int lo[D];
-      float w0[D], w1[D], s0[D], s1[D];
-      point_taps(pos01, n, R, lo, w0, w1, s0, s1);
+// Point n's two tap values along each axis for the level's features f0 ..
+// f0+G-1 below F: v[ax][k] at entry lo, v[ax][G + k] at lo + 1 (0 for a
+// feature past F or a lane past the item).
+__device__ __forceinline__ void tap_grads(const float* __restrict__ lines,  // [3, R, F]
+                                          const float* __restrict__ d_out,
+                                          const float* __restrict__ d_jac, int n, bool valid,
+                                          int f0, int F, int R, int row, int N, size_t plane,
+                                          const WarpPoints& p, float (&v)[D][2 * G]) {
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const int f = f0 + k;
+    float fa[D] = {0.f, 0.f, 0.f}, ga[D] = {0.f, 0.f, 0.f}, gj[D] = {0.f, 0.f, 0.f};
+    float go = 0.f;
+    if (valid && f < F) {
+      const size_t o = (size_t)(row + f) * N + n;
+      go = d_out != nullptr ? d_out[o] : 0.f;
 #pragma unroll
       for (int ax = 0; ax < D; ++ax) {
-        s0[ax] *= rm1;
-        s1[ax] *= rm1;
+        const float* q = lines + ((size_t)ax * R + p.lo[ax]) * F + f;
+        const float a = bf16_round(__ldg(q)), b = bf16_round(__ldg(q + F));
+        fa[ax] = a * p.w0[ax] + b * p.w1[ax];
+        ga[ax] = a * p.s0[ax] + b * p.s1[ax];
+        gj[ax] = d_jac != nullptr ? d_jac[ax * plane + o] : 0.f;
       }
-      for (int k = 0; k < nf; ++k) {
-        const int f = f0 + k;
-        const size_t o = (size_t)(row + f) * N + n;
-        const float go = d_out != nullptr ? d_out[o] : 0.f;
-        float fa[D], ga[D], gj[D];
+    }
+#pragma unroll
+    for (int ax = 0; ax < D; ++ax) {
+      const int o1 = (ax + 1) % D, o2 = (ax + 2) % D;
+      const float dfa = go * fa[o1] * fa[o2] + gj[o1] * ga[o1] * fa[o2]
+                        + gj[o2] * ga[o2] * fa[o1];
+      const float dga = gj[ax] * fa[o1] * fa[o2];
+      v[ax][k] = dfa * p.w0[ax] + dga * p.s0[ax];
+      v[ax][G + k] = dfa * p.w1[ax] + dga * p.s1[ax];
+    }
+  }
+}
+
+// Backward: each block walks items (level l, points [c S, (c+1) S)), item i
+// being level i % L, chunk i / L.
+__global__ void __launch_bounds__(kBwdThreads)
+cp_level_bwd_kernel(const float* __restrict__ table,
+                    const float* __restrict__ pos01,  // [N, 3]
+                    const int* __restrict__ meta,     // [L, 4]
+                    const float* __restrict__ d_out,  // [C, N] or null
+                    const float* __restrict__ d_jac,  // [3, C, N] or null
+                    float* __restrict__ d_table,      // flat, f32
+                    int N, int C, int L, int S) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int items = L * ((N + S - 1) / S);
+  const size_t plane = (size_t)C * N;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int l = item % L, p0 = (item / L) * S, p1 = min(N, p0 + S);
+    const int* m = meta + l * META;
+    const int R = __ldg(m), off = __ldg(m + 1), F = __ldg(m + 2), row = __ldg(m + 3);
+    const float* lines = table + off;  // [3, R, F]
+    float* dst = d_table + off;
+    const bool vec = F % 4 == 0 && (reinterpret_cast<size_t>(dst) & 15) == 0;
+    const float rm1 = (float)(R - 1);
+    // whole warps walk the points, so every lane reaches the warp intrinsics
+    for (int base = p0 + warp * 32; base < p1; base += nwarps * 32) {
+      const int n = base + lane;
+      const bool valid = n < p1;
+      WarpPoints p;
+      point_taps(pos01, valid ? n : p0, R, p.lo, p.w0, p.w1, p.s0, p.s1);
+      find_tap_runs<1>(p, valid, rm1, lane);
+      for (int f0 = 0; f0 < F; f0 += G) {
+        float v[D][2 * G];
+        tap_grads(lines, d_out, d_jac, n, valid, f0, F, R, row, N, plane, p, v);
+        const int mf = min(G, F - f0);
 #pragma unroll
         for (int ax = 0; ax < D; ++ax) {
-          const float* p = lines + ((size_t)ax * R + lo[ax]) * F + f;
-          float a = bf16_round(__ldg(p)), b = bf16_round(__ldg(p + F));
-          fa[ax] = a * w0[ax] + b * w1[ax];
-          ga[ax] = a * s0[ax] + b * s1[ax];
-          gj[ax] = d_jac != nullptr ? d_jac[ax * plane + o] : 0.f;
-        }
-#pragma unroll
-        for (int ax = 0; ax < D; ++ax) {
-          const int o1 = (ax + 1) % D, o2 = (ax + 2) % D;
-          const float dfa = go * fa[o1] * fa[o2] + gj[o1] * ga[o1] * fa[o2]
-                            + gj[o2] * ga[o2] * fa[o1];
-          const float dga = gj[ax] * fa[o1] * fa[o2];
-          const size_t at = ((size_t)ax * R + lo[ax]) * FT + k;
-          const float v0 = dfa * w0[ax] + dga * s0[ax], v1 = dfa * w1[ax] + dga * s1[ax];
-          // two branches, so that the shared ones compile as shared atomics
-          // (through one generic pointer they become slower generic ones)
-          if (in_smem) {
-            atomicAdd(sg + at, v0);
-            atomicAdd(sg + at + FT, v1);
-          } else {
-            atomicAdd(d_table + off + at, v0);
-            atomicAdd(d_table + off + at + FT, v1);
+          tap_sum<1, G>(p.t[ax], v[ax]);
+          if (p.t[ax].r.head && valid) {
+            float* e = dst + (ax * R + p.lo[ax]) * F + f0;
+            add4_global<0>(e, v[ax], mf, vec);
+            if (!p.t[ax].give_next) add4_global<G>(e + F, v[ax], mf, vec);
           }
         }
       }
     }
-    __syncthreads();
-    if (in_smem)
-      for (int i = threadIdx.x; i < D * R * FT; i += blockDim.x) {
-        const int k = i % FT, ar = i / FT;   // ar = ax * R + r
-        if (k < nf && sg[i] != 0.f) atomicAdd(d_table + off + (size_t)ar * F + f0 + k, sg[i]);
-      }
-    __syncthreads();
   }
 }
 
@@ -220,22 +246,20 @@ extern "C" int lotd_cp_level_fwd(const void* table, const void* pos01, const voi
 extern "C" int lotd_cp_level_bwd(const void* table, const void* pos01, const void* meta,
                                  const void* d_out, const void* d_jac, void* d_table, int N,
                                  int L, int C, void* stream) {
-  if (L < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)SMEM_FLOATS * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      cp_level_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  if (L < 1 || N < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
   int dev = 0, sms = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)e;
-  const int threads = 512;
-  int bx = (N + threads - 1) / threads;              // two blocks an SM over all levels
-  const int cap = (sms * 2 + L - 1) / L;
-  bx = bx < 1 ? 1 : (bx > cap ? cap : bx);
-  dim3 grid(bx, L);
-  cp_level_bwd_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+  // two blocks an SM; items of S points (whole warps), about four a block
+  const long long blocks_max = 2LL * sms;
+  const long long per = ((long long)N * L + 4 * blocks_max - 1) / (4 * blocks_max);
+  const int S = per < 32 ? 32 : (int)((per + 31) / 32 * 32);
+  const long long items = (long long)L * ((N + S - 1) / S);
+  const int blocks = (int)(items < 1 ? 1 : (items < blocks_max ? items : blocks_max));
+  cp_level_bwd_kernel<<<blocks, kBwdThreads, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const float*)pos01, (const int*)meta, (const float*)d_out,
-      (const float*)d_jac, (float*)d_table, N, C);
+      (const float*)d_jac, (float*)d_table, N, C, L, S);
   return (int)cudaGetLastError();
 }

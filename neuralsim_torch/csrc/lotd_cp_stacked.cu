@@ -36,22 +36,47 @@
 //   d g_ax = d_jac[ax] * f_o1 * f_o2
 //   d line[ax, f, lo + k] += d f_ax * w_k + d g_ax * s_k * (R-1),   k = 0, 1
 // The gradient is taken at the bf16-rounded line values and accumulated in
-// f32. No gradient goes to the positions. What bounds it: bytes (it reads
-// 16 * C cotangent bytes per point); what threatens it is the target, only
-// 3*F*R floats for hundreds of thousands of points, where global atomics
-// would serialise. So every block sums ONE feature slab into a copy in shared
-// memory (f32 shared atomics; [3, FT, R] f32, at most 96 KB so that two
-// blocks share an SM: FT=8 at R=1024, all 12 features at R=116), reads the
-// line values from device memory as the forward does, and adds its copy to
-// the global gradient once at the end.
+// f32, in a buffer laid out [3, R, F] (feature fastest; the wrapper returns it
+// transposed to [3, F, R]). No gradient goes to the positions.
 //
-// Why narrow lines get no copy in shared memory although [3, F, R] f32 is only
-// 16.7 KB at F=12, R=116: a pair of kernels that held it there was no faster
-// than these (NVIDIA H100 80GB HBM3, one call, 196,608 points: forward
-// 0.031-0.034 against 0.023-0.030 ms, backward 0.245 against 0.177-0.182 ms),
-// and one pair serves every width.
+// What bounds it on an H100: bytes, 16 * F cotangent bytes a point (0.0385 ms
+// at 196,608 points, F 40). What held it back (0.15-0.30 ms there) was the
+// target, 3*F*R floats that hundreds of thousands of points add to: a warp's
+// lanes are neighbouring samples of one ray, so their cells along an axis
+// repeat, and a shared float atomic is a compare-and-swap loop on sm_90a; and
+// a launch of 512 points (the uniform eikonal) ran as one block a feature
+// slab, one feature after the other. The design:
+//  * the lanes of a warp that hold a run of equal cells along an axis (found
+//    once a point and axis, warp_runs.cuh) sum each feature's two tap values
+//    by shuffles, and only the run's first lane adds; where the next run
+//    starts at the next cell, the shared entry takes one add;
+//  * each run's sums go to the gradient with float4 device atomics (one a
+//    value where F % 4 != 0), no copy in shared memory: with the runs
+//    combined, a per-block copy summed with shared compare-and-swap loops
+//    lost to the device atomics at every launch tried on the card (512 to
+//    262,144 points, F 12-96, R 116-1,024);
+//  * kLanes lanes take a point, each four of its features, so that an atomic
+//    instruction of a warp adds neighbouring float4s of a gradient row: on
+//    the card a device atomic cost about the same for a float or a float4,
+//    and lanes that shared a line in one instruction raised the rate;
+//  * block (x, y) takes feature groups kLanes y .., and the C entry sizes the
+//    grid from N, F and the SM count, so a launch of 512 points spreads over
+//    the card as one of 196,608 does.
+// What holds it back now: without its atomics it still took most of its
+// time (at 196,608 points, F 40): the scattered bf16 reads of the lines
+// (two taps a feature and axis) and the cotangents, and the run structure.
+//
+// Why the lines' values get no copy in shared memory although [3, F, R] f32
+// is only 16.7 KB at F=12, R=116: a pair of kernels that held it there was no
+// faster than the forward and the slab backward of that time (NVIDIA H100
+// 80GB HBM3, one call, 196,608 points: forward 0.031-0.034 against
+// 0.023-0.030 ms, backward 0.245 against 0.177-0.182 ms), and one pair serves
+// every width.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "warp_runs.cuh"
+
 
 namespace {
 
@@ -133,69 +158,90 @@ __global__ void cp_stacked_kernel(const __nv_bfloat16* __restrict__ lines,  // [
   }
 }
 
-// Backward: the sums of one feature slab in shared memory, the line values
-// from device memory.
-__global__ void cp_stacked_bwd_kernel(const __nv_bfloat16* __restrict__ lines,  // [3, F, R]
-                                           const float* __restrict__ pos01,          // [N, 3]
-                                           const int* __restrict__ rows,             // [F]
-                                           const float* __restrict__ d_out,          // [C, N] or null
-                                           const float* __restrict__ d_jac,          // [3, C, N] or null
-                                           float* __restrict__ d_lines,              // [3, F, R], zeroed
-                                           int N, int F, int R, int C, int FT) {
-  extern __shared__ float sg[];  // [3, FT, R] gradient sums of this slab
-  const int f0 = blockIdx.y * FT, nf = min(F, f0 + FT) - f0;
-  for (int i = threadIdx.x; i < D * FT * R; i += blockDim.x) sg[i] = 0.f;
-  __syncthreads();
-  const float rm1 = (float)(R - 1);
-  const size_t plane = (size_t)C * N;
-  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N;
-       n += gridDim.x * blockDim.x) {
-    int lo[D];
-    float w0[D], w1[D], s0[D], s1[D];
-    point_taps(pos01, n, R, rm1, lo, w0, w1, s0, s1);
+constexpr int G = 4;  // features a lane takes: a float4 of the gradient
+// lanes a point: they take neighbouring float4s of its gradient rows, so that
+// one atomic instruction of a warp adds 32 contiguous bytes a point (of 1, 2,
+// 4 and 8 lanes, 2 was the fastest at the multi-object launches)
+constexpr int kLanes = 2;
+constexpr int kBwdThreads = 128;
+
+// Point n's two tap values along each axis for the features f0 .. f0+G-1:
+// v[ax][k] at entry lo, v[ax][G + k] at lo + 1 (0 for a feature past F or a
+// lane past N).
+__device__ __forceinline__ void tap_grads(const __nv_bfloat16* __restrict__ lines,
+                                          const int* __restrict__ rows,
+                                          const float* __restrict__ d_out,
+                                          const float* __restrict__ d_jac, int n, bool valid,
+                                          int f0, int F, int R, int N, size_t plane,
+                                          const WarpPoints& p, float (&v)[D][2 * G]) {
 #pragma unroll
-    for (int ax = 0; ax < D; ++ax) {
-      s0[ax] *= rm1;
-      s1[ax] *= rm1;
-    }
-    for (int k = 0; k < nf; ++k) {
-      const int f = f0 + k;
-      float fa[D], ga[D], gj[D];
+  for (int k = 0; k < G; ++k) {
+    const int f = f0 + k;
+    float fa[D] = {0.f, 0.f, 0.f}, ga[D] = {0.f, 0.f, 0.f}, gj[D] = {0.f, 0.f, 0.f};
+    float go = 0.f;
+    if (valid && f < F) {
       const size_t o = (size_t)__ldg(rows + f) * N + n;
-      const float go = d_out != nullptr ? d_out[o] : 0.f;
+      go = d_out != nullptr ? d_out[o] : 0.f;
 #pragma unroll
       for (int ax = 0; ax < D; ++ax) {
-        const __nv_bfloat16* line = lines + ((size_t)(ax * F + f)) * R + lo[ax];
-        float a = line_at(line), b = line_at(line + 1);
-        fa[ax] = a * w0[ax] + b * w1[ax];
-        ga[ax] = a * s0[ax] + b * s1[ax];
+        const __nv_bfloat16* line = lines + ((size_t)(ax * F + f)) * R + p.lo[ax];
+        const float a = line_at(line), b = line_at(line + 1);
+        fa[ax] = a * p.w0[ax] + b * p.w1[ax];
+        ga[ax] = a * p.s0[ax] + b * p.s1[ax];
         gj[ax] = d_jac != nullptr ? d_jac[ax * plane + o] : 0.f;
       }
-#pragma unroll
-      for (int ax = 0; ax < D; ++ax) {
-        const int o1 = (ax + 1) % D, o2 = (ax + 2) % D;
-        const float dfa = go * fa[o1] * fa[o2] + gj[o1] * ga[o1] * fa[o2]
-                          + gj[o2] * ga[o2] * fa[o1];
-        const float dga = gj[ax] * fa[o1] * fa[o2];
-        float* g = sg + (ax * FT + k) * R + lo[ax];
-        atomicAdd(g, dfa * w0[ax] + dga * s0[ax]);
-        atomicAdd(g + 1, dfa * w1[ax] + dga * s1[ax]);
-      }
     }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < D * FT * R; i += blockDim.x) {
-    const int ax = i / (FT * R), rem = i - ax * FT * R;
-    const int k = rem / R, r = rem - k * R;
-    if (k < nf && sg[i] != 0.f)
-      atomicAdd(d_lines + ((size_t)(ax * F + f0 + k)) * R + r, sg[i]);
+#pragma unroll
+    for (int ax = 0; ax < D; ++ax) {
+      const int o1 = (ax + 1) % D, o2 = (ax + 2) % D;
+      const float dfa = go * fa[o1] * fa[o2] + gj[o1] * ga[o1] * fa[o2]
+                        + gj[o2] * ga[o2] * fa[o1];
+      const float dga = gj[ax] * fa[o1] * fa[o2];
+      v[ax][k] = dfa * p.w0[ax] + dga * p.s0[ax];
+      v[ax][G + k] = dfa * p.w1[ax] + dga * p.s1[ax];
+    }
   }
 }
 
-// What the backward asks for at most, so that two of its blocks share an SM,
-// and what a block may ask for at all (227 KB).
-constexpr size_t SMEM_SLAB = 96 * 1024;
-constexpr size_t SMEM_BLOCK_MAX = 232448;
+// Block (x, y) adds features G (kLanes y + slot) .. + G-1 of its points to
+// the gradient with device atomics, one add a run and tap: a warp takes 32 /
+// kLanes points, kLanes lanes a point (lane = kLanes point + slot).
+__global__ void __launch_bounds__(kBwdThreads)
+cp_stacked_bwd_kernel(const __nv_bfloat16* __restrict__ lines,  // [3, F, R]
+                      const float* __restrict__ pos01,          // [N, 3]
+                      const int* __restrict__ rows,             // [F]
+                      const float* __restrict__ d_out,          // [C, N] or null
+                      const float* __restrict__ d_jac,          // [3, C, N] or null
+                      float* __restrict__ d_lines,              // [3, R, F], zeroed
+                      int N, int F, int R, int C) {
+  constexpr int P = 32 / kLanes;  // points a warp
+  const int lane = threadIdx.x & 31;
+  const int f0 = (blockIdx.y * kLanes + lane % kLanes) * G, m = min(G, F - f0);
+  const bool vec = F % 4 == 0;  // every group of four is whole and 16-byte aligned
+  const float rm1 = (float)(R - 1);
+  const size_t plane = (size_t)C * N;
+  const int warps = gridDim.x * (blockDim.x >> 5);
+  // whole warps walk the points, so every lane reaches the warp intrinsics
+  for (int base = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * P; base < N;
+       base += warps * P) {
+    const int n = base + lane / kLanes;
+    const bool valid = n < N;
+    WarpPoints p;
+    point_taps(pos01, valid ? n : 0, R, rm1, p.lo, p.w0, p.w1, p.s0, p.s1);
+    find_tap_runs<kLanes>(p, valid, rm1, lane);
+    float v[D][2 * G];
+    tap_grads(lines, rows, d_out, d_jac, n, valid, f0, F, R, N, plane, p, v);
+#pragma unroll
+    for (int ax = 0; ax < D; ++ax) {
+      tap_sum<kLanes, G>(p.t[ax], v[ax]);
+      if (p.t[ax].r.head && valid && m > 0) {
+        float* e = d_lines + ((size_t)ax * R + p.lo[ax]) * F + f0;
+        add4_global<0>(e, v[ax], m, vec);
+        if (!p.t[ax].give_next) add4_global<G>(e + F, v[ax], m, vec);
+      }
+    }
+  }
+}
 
 }  // namespace
 
@@ -212,27 +258,23 @@ extern "C" int lotd_cp_stacked_fwd(const void* lines, const void* pos01, const v
   return (int)cudaGetLastError();
 }
 
+// d_lines: [3, R, F] float32, zeroed.
 extern "C" int lotd_cp_stacked_bwd(const void* lines, const void* pos01, const void* rows,
                                    const void* d_out, const void* d_jac, void* d_lines, int N,
                                    int F, int R, int C, void* stream) {
-  if (F < 1 || R < 2) return (int)cudaErrorInvalidValue;
-  const size_t per_feat = (size_t)D * R * sizeof(float);
-  if (per_feat > SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
-  int FT = (int)(SMEM_SLAB / per_feat);
-  FT = FT < 1 ? 1 : (FT > F ? F : FT);
-  const int slabs = (F + FT - 1) / FT, threads = 512;
-  const size_t smem = per_feat * FT;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        cp_stacked_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int bx = (N + threads - 1) / threads;               // two blocks an SM over all slabs
-  const int cap = (132 * 2 + slabs - 1) / slabs;
+  if (F < 1 || R < 2 || N < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const int gy = (F + G * kLanes - 1) / (G * kLanes);
+  const int per_block = kBwdThreads / kLanes;  // points a block-wide step
+  int bx = (N + per_block - 1) / per_block;    // up to 16 blocks an SM
+  const int cap = (sms * 16 + gy - 1) / gy;
   bx = bx < 1 ? 1 : (bx > cap ? cap : bx);
-  dim3 grid(bx, slabs);
-  cp_stacked_bwd_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+  cp_stacked_bwd_kernel<<<dim3(bx, gy), kBwdThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)lines, (const float*)pos01, (const int*)rows,
-      (const float*)d_out, (const float*)d_jac, (float*)d_lines, N, F, R, C, FT);
+      (const float*)d_out, (const float*)d_jac, (float*)d_lines, N, F, R, C);
   return (int)cudaGetLastError();
 }

@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_runs.cuh"
+
 namespace {
 
 constexpr int D = 3;
@@ -144,26 +146,6 @@ __global__ void grid_kernel(const float* __restrict__ table,
       }
     }
   }
-}
-
-// Sum v over each run of equal keys in neighbouring lanes (a segmented
-// scan by shuffles, as long as some run is longer than the step); the run's
-// first lane gets the sum and returns true. Every lane of the warp takes part.
-__device__ __forceinline__ bool sum_over_run(int key, int lane, float (&v)[4]) {
-  const int prev = __shfl_up_sync(0xffffffffu, key, 1);
-  const bool head = lane == 0 || prev != key;
-  const unsigned heads = __ballot_sync(0xffffffffu, head);
-  for (int off = 1; off < 32; off <<= 1) {
-    // lane + off is in this lane's run iff no run starts in (lane, lane + off]
-    const bool same = lane + off < 32 && ((heads >> (lane + 1)) & ((1u << off) - 1u)) == 0u;
-    if (!__any_sync(0xffffffffu, same)) break;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float t = __shfl_down_sync(0xffffffffu, v[k], off);
-      if (same) v[k] += t;
-    }
-  }
-  return head;
 }
 
 constexpr int kBwdThreads = 256;         // a block of the atomics-only grid

@@ -236,8 +236,11 @@ def lotd_cp_stacked_bwd(lines: torch.Tensor, pos01: torch.Tensor, rows: torch.Te
                         d_out: Optional[torch.Tensor], d_jac: Optional[torch.Tensor]
                         ) -> torch.Tensor:
     """K1 backward wrapper: gradient of both outputs into the (bf16) lines,
-    summed in float32. Autograd of the plain version on the CPU, the CUDA
-    kernel on the card."""
+    summed in float32 (float32 atomics on the card, so the last bits vary
+    from run to run). Autograd of the plain version on the CPU, the CUDA
+    kernel on the card, which sums into a [3, R, F] buffer (a point's
+    features side by side, for float4 adds): the [3, F, R] result is its
+    transposed view."""
     if lines.device.type == "cpu":
         return lotd_cp_stacked_bwd_plain(lines, pos01, rows, d_out, d_jac)
     given = [x for x in (d_out, d_jac) if x is not None]
@@ -248,12 +251,13 @@ def lotd_cp_stacked_bwd(lines: torch.Tensor, pos01: torch.Tensor, rows: torch.Te
     if rows.dtype != torch.int32 or rows.shape != (lines.shape[1],):
         raise ValueError("lotd_cp_stacked_bwd: rows must be int32 [F]")
     _check_cotangents("lotd_cp_stacked_bwd", pos01, d_out, d_jac)
-    d_lines = torch.zeros(lines.shape, dtype=torch.float32, device=lines.device)
+    _, F, R = lines.shape
+    d_lines = torch.zeros((3, R, F), dtype=torch.float32, device=lines.device)
     K1_BWD.launch("lotd_cp_stacked_bwd", kernels.ptr(lines), kernels.ptr(pos01),
                   kernels.ptr(rows), kernels.ptr(d_out), kernels.ptr(d_jac),
-                  kernels.ptr(d_lines), pos01.shape[0], lines.shape[1], lines.shape[2],
-                  given[0].shape[-2], kernels.stream())
-    return d_lines
+                  kernels.ptr(d_lines), pos01.shape[0], F, R, given[0].shape[-2],
+                  kernels.stream())
+    return d_lines.transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time K5b (the rank merge) and K3's and K1's backwards at the multi-object
-shapes in one or more checkouts of the port, in turns, on one card.
+"""Time the redesigned kernels at the multi-object shapes in one or more
+checkouts of the port, in turns, on one card.
 
     python3 scripts/torch_kernel_ab.py [ROOT ...]
 
@@ -15,9 +15,12 @@ vehicles' (24 + 8 at 6,144 compacted rows), synthetic_object's render stage
 stable torch.sort of the keys; K3's backward at the vehicles' final query (3 x 2,048 rows x 32
 samples, two dense levels of F 4), at their uniform eikonal (512 points), with
 every point in one cell, and at synthetic_object's two hash levels (2,048
-rays x 96 samples); K1's backward at the street's pixel and LiDAR steps and
-the vehicles' final query; where K3's backward takes a plan, its private and
-atomics paths each forced at 512, 32,768 and 196,608 of the vehicles' points.
+rays x 96 samples); K1's backward at the street's pixel and LiDAR steps, the
+vehicles' final query and each model's uniform eikonal (512 points); K2's
+backward (NEURALSIM_CP_STACKED=0) at the same five launches and the bench
+ladder's (8,192 rays x 32 samples); where K3's backward takes a plan, its
+private and atomics paths each forced at 512, 32,768 and 196,608 of the
+vehicles' points.
 Every root is timed by this checkout's chip_smoke.py: "ms", CUDA events over
 20 calls back to back (``cuda_ms``: the host's pace where it is the slower);
 "queued_ms", the same while the card was held busy as the host queued them;
@@ -46,6 +49,17 @@ def timer():
     return mod
 
 
+def cp_launches(cs, street, veh):
+    """K1's and K2's launches in a multi-object iteration: each model's final
+    query (the street's at a pixel and a LiDAR step) and uniform eikonal ->
+    [(label, encoding, points)]."""
+    return [("street, pixel step", street, cs.ray_points(4096, 48, street.cp_rmax, 30)),
+            ("street, LiDAR step", street, cs.ray_points(2048, 48, street.cp_rmax, 30)),
+            ("vehicles", veh, cs.ray_points(6144, 32, veh.cp_rmax, 30)),
+            ("street, uniform eikonal", street, cs.enc_points(512, street.cp_rmax, 34)),
+            ("vehicles, uniform eikonal", veh, cs.enc_points(512, veh.cp_rmax, 34))]
+
+
 def time_root(root: str) -> dict:
     tm = timer()
     sys.path.insert(0, root)
@@ -54,7 +68,7 @@ def time_root(root: str) -> dict:
 
     import chip_smoke as cs
     from neuralsim_torch import kernels
-    from neuralsim_torch.configs import SYNTHETIC_OBJECT, WAYMO_DEMO_MULTI
+    from neuralsim_torch.configs import BENCH_OBJECT, SYNTHETIC_OBJECT, WAYMO_DEMO_MULTI
     from neuralsim_torch.fields.conditional import ConditionalLoTDNeuSField
     from neuralsim_torch.fields.encodings import lotd
     from neuralsim_torch.ops.segment import merge_sorted_samples
@@ -69,20 +83,9 @@ def time_root(root: str) -> dict:
     planned = "plan" in inspect.signature(lotd.lotd_grid_bwd).parameters
     out = {"root": root, "k3_bwd_takes_a_plan": planned}
 
-    def prof_ms(fn, reps=20):
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
-
     def timed(fn, prefix=""):
         return {prefix + "ms": tm.cuda_ms(fn), prefix + "queued_ms": tm.cuda_ms(fn, queued=True),
-                prefix + "prof_ms": prof_ms(fn), prefix + "host_ms": tm.host_ms(fn)}
+                prefix + "prof_ms": tm.prof_ms(fn), prefix + "host_ms": tm.host_ms(fn)}
 
     for n, a, b in ((4096, 32, 8), (4096, 40, 8), (2048, 32, 8), (2048, 40, 8), (6144, 24, 8),
                     (4096, 80, 16), (8192, 24, 8)):
@@ -122,16 +125,30 @@ def time_root(root: str) -> dict:
             for path, plan in (("private", veh.grid_bwd_plan), ("atomics", lotd.GridBwdPlan(0, 0))):
                 out[f"K3 bwd vehicles N={N} {path} path"] = timed(
                     lambda: lotd.lotd_grid_bwd(*args, plan=plan))
-    for label, e, n_rows, s in (("street, pixel step", street, 4096, 48),
-                                ("street, LiDAR step", street, 2048, 48),
-                                ("vehicles", veh, 6144, 32)):
-        x = T(cs.ray_points(n_rows, s, e.cp_rmax, 30))
+    for label, e, pts in cp_launches(cs, street, veh):
+        x = T(pts)
         N, C = x.shape[0], e.out_dim
         lines = e.cp_stacked_lines().detach().to(torch.bfloat16)
         args = (lines, x, e._cp_rows, cs.cotangents((C, N), 31, dev),
                 cs.cotangents((3, C, N), 32, dev))
         out[f"K1 bwd {label} N={N} F={lines.shape[1]} R={lines.shape[2]}"] = timed(
             lambda: lotd.lotd_cp_stacked_bwd(*args))
+    with tm.cp_per_level():
+        veh_l = ConditionalLoTDNeuSField(
+            n_instances=3, encoding_cfg=mp["Vehicle"]["model_params"]["encoding_cfg"]).encoding
+        street_l = lotd.make_lotd(mp["Street"]["model_params"]["encoding_cfg"])
+        bench_l = lotd.make_lotd(BENCH_OBJECT["models"]["cr"]["params"]["encoding_cfg"])
+    for e in (veh_l, street_l, bench_l):
+        e.reset_parameters(torch.Generator().manual_seed(0))
+    veh_l, street_l, bench_l = veh_l.to(dev), street_l.to(dev), bench_l.to(dev)
+    for label, e, pts in cp_launches(cs, street_l, veh_l) + [
+            ("bench ladder", bench_l, cs.ray_points(8192, 32, 1024, 30))]:
+        x = T(pts)
+        N, C = x.shape[0], e.out_dim
+        args = (e.table.detach(), x, e._cp_meta, cs.cotangents((C, N), 31, dev),
+                cs.cotangents((3, C, N), 32, dev))
+        out[f"K2 bwd {label} N={N} levels={e._cp_meta.shape[0]}"] = timed(
+            lambda: lotd.lotd_cp_level_bwd(*args))
     torch.cuda.synchronize()
     out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"], capture_output=True, text=True,

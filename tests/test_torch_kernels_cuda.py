@@ -38,6 +38,7 @@ its inputs' gradient at chip_smoke.K9_DX_REL, the permuto field under
 autograd against the CPU at GRAD_REL, and the permuto vehicles' first
 iteration as the multi-object one.
 """
+import contextlib
 import copy
 
 import numpy as np
@@ -1016,3 +1017,116 @@ def test_permuto_iterations_launch_k9(dev, permuto_built):
                            "neus_composite.bwd", "lotd_grid", "lotd_grid.bwd")] == \
         [3, 3, 3, 3, 0, 0]
     assert log[-1]["skips_total"] == 0 and all(np.isfinite(r["loss_total"]) for r in log)
+
+
+# ---------------------------------------------------------------------------
+# K1's and K2's backwards at the multi-object shapes and the edge cases of
+# chip_smoke.cp_bwd_point_sets: a step's sorted samples (runs of equal cells
+# in a warp), 512 uniform points, every point in one cell, partial warps
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cp_models():
+    """The street's and the vehicles' encodings of WAYMO_DEMO_MULTI on the
+    card, stacked (K1: F_cp 40 at R 1,024, 24 at R 256) and per-level (K2:
+    10 and 6 levels of F 4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    cfgs = WAYMO_DEMO_MULTI["assetbank_cfg"]
+    out = {}
+    for stacked in (True, False):
+        with contextlib.ExitStack() as stack:
+            if not stacked:
+                stack.enter_context(cs.cp_per_level())
+            street = lotd.make_lotd(cfgs["Street"]["model_params"]["encoding_cfg"])
+            veh = ConditionalLoTDNeuSField(
+                n_instances=3,
+                encoding_cfg=cfgs["Vehicle"]["model_params"]["encoding_cfg"]).encoding
+        for name, enc in (("street", street), ("vehicles", veh)):
+            enc.reset_parameters(torch.Generator().manual_seed(0))
+            with torch.no_grad():  # spread the lines off their init, so the features vary
+                enc.table.add_(torch.randn(enc.total_params,
+                                           generator=torch.Generator().manual_seed(1)) * 0.3)
+            assert enc.cp_stacked == stacked
+            out[name, stacked] = enc.to("cuda")
+    return out
+
+
+# (rays, samples) of a model's final query in a pixel step
+_ROWS = {"street": (4096, 48), "vehicles": (6144, 32)}
+
+
+def _cp_points(model, enc, case):
+    """A case's points: the sorted samples of a step's final query (the
+    street's LiDAR step: 2,048 beams), or one of cp_bwd_point_sets' edge
+    cases at the pixel step's shape."""
+    if case == "LiDAR step":
+        return cs.ray_points(2048, 48, enc.cp_rmax, 5)
+    n_rows, s = _ROWS[model]
+    if case == "pixel step":
+        return cs.ray_points(n_rows, s, enc.cp_rmax, 5)
+    sets = dict(cs.cp_bwd_point_sets(n_rows, s, enc.cp_rmax,
+                                     [sp.res for sp in enc.specs if sp.typ == "cp"], 6))
+    return sets[case]
+
+
+_CP_CASES = [("street", "pixel step"), ("street", "LiDAR step"), ("vehicles", "pixel step"),
+             ("street", "512 uniform points"), ("vehicles", "512 uniform points"),
+             ("street", "every point in one cell"), ("vehicles", "every point in one cell"),
+             ("street", "N=1"), ("street", "N=33")]
+_ONE_COTANGENT = [("street", "pixel step"), ("vehicles", "512 uniform points"),
+                  ("street", "N=33")]
+
+
+def _cp_bwd_case(cp_models, model, case, stacked, which):
+    enc = cp_models[model, stacked]
+    x = _t(_cp_points(model, enc, case), "cuda")
+    n, C = x.shape[0], enc.out_dim
+    d_out = None if which == "jac" else cs.cotangents((C, n), 2, "cuda")
+    d_jac = None if which == "feats" else cs.cotangents((3, C, n), 3, "cuda")
+    if stacked:
+        lines = enc.cp_stacked_lines().detach().to(torch.bfloat16)
+        args, kernel = (lines, x, enc._cp_rows, d_out, d_jac), "lotd_cp_stacked.bwd"
+        bwd, plain = lotd.lotd_cp_stacked_bwd, lotd.lotd_cp_stacked_bwd_plain
+    else:
+        args, kernel = (enc.table.detach(), x, enc._cp_meta, d_out, d_jac), "lotd_cp_level.bwd"
+        bwd, plain = lotd.lotd_cp_level_bwd, lotd.lotd_cp_level_bwd_plain
+    n0 = kernels.KERNELS[kernel].launches
+    got = bwd(*args)
+    assert kernels.KERNELS[kernel].launches == n0 + 1
+    _rel_close([got], [plain(*args)], cs.GRAD_REL)
+
+
+@pytest.mark.parametrize("model,case", _CP_CASES)
+def test_k1_backward_at_each_case(dev, cp_models, model, case):
+    _cp_bwd_case(cp_models, model, case, True, "both")
+
+
+@pytest.mark.parametrize("which", ["feats", "jac"])
+@pytest.mark.parametrize("model,case", _ONE_COTANGENT)
+def test_k1_backward_with_one_cotangent(dev, cp_models, model, case, which):
+    _cp_bwd_case(cp_models, model, case, True, which)
+
+
+@pytest.mark.parametrize("model,case", _CP_CASES)
+def test_k2_backward_at_each_case(dev, cp_models, model, case):
+    _cp_bwd_case(cp_models, model, case, False, "both")
+
+
+@pytest.mark.parametrize("which", ["feats", "jac"])
+@pytest.mark.parametrize("model,case", _ONE_COTANGENT)
+def test_k2_backward_with_one_cotangent(dev, cp_models, model, case, which):
+    _cp_bwd_case(cp_models, model, case, False, which)
+
+
+@pytest.mark.parametrize("n", [512, 98_304])
+def test_k1_backward_with_f_not_a_multiple_of_four(dev, n):
+    """F 13 at R 1,024: a partial group of four features, so one add a value
+    and no float4 add."""
+    rng = np.random.default_rng(11)
+    lines = _t(rng.normal(1.0, 0.3, (3, 13, 1024)).astype(np.float32), dev).to(torch.bfloat16)
+    x = _t(cs.ray_points(n // 48, 48, 1024, 12) if n > 512 else cs.enc_points(n, 1024, 12), dev)
+    args = (lines, x, torch.arange(13, dtype=torch.int32, device=dev),
+            cs.cotangents((13, n), 13, dev), cs.cotangents((3, 13, n), 14, dev))
+    _rel_close([lotd.lotd_cp_stacked_bwd(*args)], [lotd.lotd_cp_stacked_bwd_plain(*args)],
+               cs.GRAD_REL)
