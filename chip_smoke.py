@@ -83,8 +83,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      vehicles' lines at their pixel step's sorted samples, 512 uniform
      points, every point in one cell, 1 and 33 points, and lines of F 13 (a
      partial group of four), each cotangent alone and both;
-     the shapes of K1 bwd, K3 bwd, K5a and K5b launches in one LiDAR and one
-     pixel step;
+     the shapes of K1 bwd, K3 bwd, K5a, K5b, K13 and K14 launches in one
+     LiDAR and one pixel step; K13 (the latent lookup) against its plain
+     version at that step's own calls, with their indices (the vehicles'
+     runs of compacted rows, the eikonal's instance 0), and on edge cases
+     (indices outside [0, n), no index, one index a ray, n 1, 8, 48 and 64,
+     z 5, one point): the forward exact, the backward within GRAD_REL at a
+     column-slice cotangent and with the same bits on two calls; K14 (the
+     stacked CP lines) at the street's, the vehicles', the bench ladder's,
+     synthetic_object's and an edge ladder (R 1, 2, 37, 1,024): the forward
+     bit-equal, the backward within GRAD_REL at a cotangent in K1 bwd's
+     layout, the same bits twice; no plain K13 or K14 on the card in any
+     path's training iterations;
   9. crowded multi-object scenes (WAYMO_DEMO_CROWD at full width: 8
      vehicles on one shared model with per-instance 32^3 occupancy grids, so
      the group takes the pair-budget path): the render from converged grids
@@ -104,7 +114,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      iteration card vs CPU at the CPU path's sample depths; 48 iterations
      (finite, no skip, falling loss_rgb and LiDAR depth, both grids refreshed
      three times, K11, K10 and K8 with its backward once a pixel step); a
-     poisoned pixel step; a frame of the trained state;
+     poisoned pixel step; a frame of the trained state; K13 at the crowd
+     step's own calls (the group's round-robin rows);
  10. configs/synthetic_multi.yaml (SYNTHETIC_MULTI at full width): build, 48
      pixel steps of 2,048 rays (finite, falling loss_rgb, no skip, K11 and K8
      with its backward once a step, K3 on the street's hash levels), a frame
@@ -159,16 +170,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      calls beside a stable torch.argsort of its keys, K10 at the group's
      rows, K7 at the batched update; K2 at each of its shapes, K12 at the
      LiDAR step's street buffer; K9 forward and backward at each of its
-     shapes;
+     shapes; K13 and its backward at the main path's and the crowd's largest
+     calls (and the eikonal's) beside index_select, index_add_ into zeros,
+     F.embedding's backward and the sort-based index_put; K14 and its
+     backward at each encoding (library none; the per-level F.interpolate
+     sum as an aside);
  14. one JSON line of results, one of per-kernel results, then the device
      line, last.
 
 --profile adds torch.profiler tables of device time by kernel for one frame
 and for one training step of each model, for one compose frame, and for one
-LiDAR and one pixel step of the multi-object (with K1 bwd's, K3 bwd's, K5a's
-and K5b's device time), the crowd, the per-level (with K2's, K2 bwd's and K3
-bwd's) and the permuto training (with K9's and the latents' index_put device
-time).
+LiDAR and one pixel step of the multi-object (with K1 bwd's, K3 bwd's, K5a's,
+K5b's, K14's and K14 bwd's device time), the crowd, the per-level (with K2's,
+K2 bwd's and K3 bwd's) and the permuto training (with K9's), each with K13's,
+K13 bwd's and what is left of the library's index_put.
 """
 from __future__ import annotations
 
@@ -291,18 +306,29 @@ COMPOSE_EQUAL_MIN = 0.5
 # step of 2,048 beams (the street alone) and a pixel step of 4,096 rays
 MULTI_RAYS, MULTI_BEAMS = 4096, 2048
 MULTI_ONLY = ("cross_source_vw.bwd",)
+# K13 runs on the multi-object paths only (any conditional field); its row
+# and K14's (every stacked encoding) report the multi-object training
+LATENT_ONLY = ("latent_take", "latent_take.bwd")
+LINES_KERNELS = ("lotd_cp_lines", "lotd_cp_lines.bwd")
 # 48 iterations (three grid refreshes); the error map's importance sampling
 # from the 16th pixel step on (the config's 200 cut so that it runs)
 MULTI_ITERS = 48
 # kernels whose launches a multi-object step records by shape, and the
 # profiler's device-time split of a step by kernel name
 MULTI_WATCHED = ("lotd_grid.bwd", "lotd_cp_stacked.bwd", "neus_upsample.weights_pdf",
-                 "neus_upsample.merge")
+                 "neus_upsample.merge", "latent_take", "latent_take.bwd", "lotd_cp_lines",
+                 "lotd_cp_lines.bwd")
+# K13's device time in a step, and what is left of the library's index_put
+# (the latents' backward before K13)
+LATENT_PROFILED = {"K13": ("latent_take_kernel",),
+                   "K13 bwd": ("latent_take_bwd", "latent_take_flush"),
+                   "index_put": ("index_put", "indexing_backward")}
 MULTI_PROFILED = {"K3 bwd": ("grid_bwd",), "K5b": ("merge_kernel",),
-                  "K1 bwd": ("cp_stacked_bwd",), "K5a": ("weights_pdf",)}
+                  "K1 bwd": ("cp_stacked_bwd",), "K5a": ("weights_pdf",),
+                  "K14": ("cp_lines_kernel",), "K14 bwd": ("cp_lines_bwd",), **LATENT_PROFILED}
 # the per-level steps' device-time split by kernel name
 PERLEVEL_PROFILED = {"K2 bwd": ("cp_level_bwd",), "K2": ("cp_level_kernel",),
-                     "K3 bwd": ("grid_bwd",)}
+                     "K3 bwd": ("grid_bwd",), **LATENT_PROFILED}
 MULTI_ERROR_MAP_AFTER = 16
 # its first iteration card vs CPU, cut to 1,024 rays and 512 beams (the plain
 # K8 is O(N L^2) in memory on the CPU), at the CPU path's sample depths
@@ -413,6 +439,13 @@ def card_keys(t) -> dict:
     """The queued and profiler times of a timing (and of its library call),
     where it has them, for the kernels line."""
     return {k: t[k] for k in ("queued_ms", "prof_ms", "library_queued_ms", "library_prof_ms")
+            if k in t}
+
+
+def extra_keys(t) -> dict:
+    """A timing's other keys for the kernels line, where it has them: each
+    library call's times, and K14's per-level F.interpolate aside."""
+    return {k: t[k] for k in ("library_calls", "interpolate_ms", "interpolate_max_abs_err")
             if k in t}
 
 
@@ -2721,8 +2754,9 @@ def check_multi_training(scene, trainer, state, samplers, dev, iters=MULTI_ITERS
     log_ = []
     it0 = state.it
     kernels.reset_counts()
-    train_loop(scene, trainer, state, samplers, it0 + iters, gen, 1, log_)
-    torch.cuda.synchronize()
+    with no_plain_on_card(label):
+        train_loop(scene, trainer, state, samplers, it0 + iters, gen, 1, log_)
+        torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS.values()}
     r = trainer.renderer
     cadence = {a.n_steps_between_update for a in r.accels.values()}
@@ -2759,8 +2793,8 @@ def check_multi_training(scene, trainer, state, samplers, dev, iters=MULTI_ITERS
             "occ_ray_proposal": 2 * iters, "occ_ema_update": refreshes * len(r.accels),
             "pair_compact": iters if pair else 0,
             "occ_ray_proposal_batched": iters if batched else 0,
-            **dict.fromkeys(("lotd_cp_stacked", "lotd_cp_stacked.bwd") if per_level
-                            else PERLEVEL_ONLY, 0),
+            **dict.fromkeys(("lotd_cp_stacked", "lotd_cp_stacked.bwd") + LINES_KERNELS
+                            if per_level else PERLEVEL_ONLY, 0),
             **dict.fromkeys(("lotd_grid", "lotd_grid.bwd") if permuto else PERMUTO_ONLY, 0)}
     if refreshes != 3 or any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"the {label} path's launches are not as counted: want {want}")
@@ -2991,7 +3025,8 @@ def launch_shapes(record):
 def multi_phase(dev, profile_it):
     """Phase 8 and the multi-object training's share of the timing."""
     import torch
-    from neuralsim_torch.configs import WAYMO_DEMO_MULTI
+    from neuralsim_torch.configs import BENCH_OBJECT, SYNTHETIC_OBJECT, WAYMO_DEMO_MULTI
+    from neuralsim_torch.fields.encodings.lotd import make_lotd
     from neuralsim_torch.tools.build import build_multi_trainer, render_multi_frame
 
     cfg = copy.deepcopy(WAYMO_DEMO_MULTI)
@@ -3014,10 +3049,12 @@ def multi_phase(dev, profile_it):
     loss_err, grad_err = check_multi_first_iteration(scene, trainer, state, samplers, dev)
     log_, launches, falls = check_multi_training(scene, trainer, state, samplers, dev)
     check_multi_poisoned_step(scene, trainer, state, samplers, dev)
-    # the shapes of the redesigned kernels' launches (and K1 bwd's, K5a's) in
-    # one LiDAR and one pixel step
-    step_shapes = {}
-    step_launches(scene, trainer, state, samplers, dev, shapes=step_shapes)
+    # the shapes of the redesigned kernels' launches (and K1 bwd's, K5a's,
+    # K13's and K14's) in one LiDAR and one pixel step, K13's calls with
+    # their indices
+    step_shapes, lat_record = {}, []
+    with latent_calls(lat_record):
+        step_launches(scene, trainer, state, samplers, dev, shapes=step_shapes)
     by_shape = {st: {k: {str(sh): calls.count(sh) for sh in sorted(set(calls))}
                      for k, calls in rec.items() if k in MULTI_WATCHED}
                 for st, rec in step_shapes.items()}
@@ -3025,6 +3062,26 @@ def multi_phase(dev, profile_it):
         log(f"multi-object {st} step: launches by integer arguments {rec}")
     if not all(by_shape["pixel"].get(k) for k in MULTI_WATCHED):
         raise AssertionError(f"a pixel step should launch each of {MULTI_WATCHED}")
+    # K13 at the step's own calls (the vehicles' runs of compacted rows, the
+    # eikonal's instance 0) and the edge cases; K14 at the street's and the
+    # vehicles' encodings, the bench ladder's, synthetic_object's and an edge
+    # ladder
+    k13_cases, k13_timed = path_latent_cases(lat_record, "main path")
+    e13 = check_latent_take(dev, k13_cases + latent_edge_cases(dev))
+    ladders = []
+    for label, enc_cfg in (
+            ("bench ladder", BENCH_OBJECT["models"]["cr"]["params"]["encoding_cfg"]),
+            ("synthetic_object",
+             SYNTHETIC_OBJECT["assetbank_cfg"]["Main"]["model_params"]["encoding_cfg"])):
+        e = make_lotd(enc_cfg)
+        e.reset_parameters(torch.Generator().manual_seed(0))
+        ladders.append((label, e.to(dev)))
+    k14_sets = cp_lines_sets(dev, [
+        ("street", state.params[trainer.renderer.scene_models["cr"][0]].encoding),
+        ("vehicles", state.params[trainer.renderer.objects[0].model_id].encoding)] + ladders)
+    e14 = check_cp_lines(dev, k14_sets)
+    errs.update({"latent_take": (e13[0], 0.0), "latent_take.bwd": (e13[1], GRAD_REL),
+                 "lotd_cp_lines": (e14[0], 0.0), "lotd_cp_lines.bwd": (e14[1], GRAD_REL)})
 
     H, W = (int(v) for v in scene.nodes[COMPOSE_CAM].frame_data["hw"][0].tolist())
     frame = render_multi_frame(trainer.renderer, state.params, scene, 0, COMPOSE_CAM, state.occ,
@@ -3048,6 +3105,9 @@ def multi_phase(dev, profile_it):
         f"iteration {sum(launches.values()) / MULTI_ITERS:.1f}")
     times = time_multi_kernels(shapes)
     kernel_times = time_iteration_kernels(shapes)
+    # K13 and K14: the main path's largest call in the row, the others beside
+    for name, ts in {**time_latent_take(k13_timed), **time_cp_lines(k14_sets)}.items():
+        times[name], kernel_times[name] = ts[0], ts[1:]
     summary = {"multi_build_s": timings, "multi_step_launch_shapes": by_shape, "multi_first_iteration_loss_rel_err": loss_err,
                "multi_first_iteration_grad_rel_err": grad_err,
                "multi_iterations": MULTI_ITERS,
@@ -3417,6 +3477,13 @@ def crowd_phase(dev, profile_it):
     log_, launches, falls = check_multi_training(scene, trainer, state, samplers, dev,
                                                  CROWD_ITERS, "crowd")
     check_multi_poisoned_step(scene, trainer, state, samplers, dev)
+    # K13 at the crowd step's own calls: the group's round-robin rows (K11)
+    lat_record = []
+    with latent_calls(lat_record):
+        step_launches(scene, trainer, state, samplers, dev)
+    latent_cases, latent_timed = path_latent_cases(lat_record, "crowd")
+    e13 = check_latent_take(dev, latent_cases)
+    errs.update({"latent_take": (e13[0], 0.0), "latent_take.bwd": (e13[1], GRAD_REL)})
     frame = render_multi_frame(r, state.params, scene, 0, COMPOSE_CAM, state.occ, RAYSCHUNK)
     torch.cuda.synchronize()
     m = frame["mask_volume"]
@@ -3453,13 +3520,14 @@ def crowd_phase(dev, profile_it):
                "crowd_rays_per_s_training": rays / it_ms["iteration"][0] * 1e3,
                "crowd_hand_launches_per_iteration": sum(launches.values()) / CROWD_ITERS}
     if profile_it:
-        prof = profile_multi_steps(scene, trainer, state, samplers, dev)
-        for k, (n, busy, _) in prof.items():
+        prof = profile_multi_steps(scene, trainer, state, samplers, dev, named=LATENT_PROFILED)
+        for k, (n, busy, named) in prof.items():
             summary[f"crowd_{k}_step_device_kernels"] = n
             summary[f"crowd_{k}_step_busy_ms"] = busy
+            summary[f"crowd_{k}_step_kernel_ms"] = named
     return dict(errs=errs, launches=launches, launches_render=launches_render,
                 iters=CROWD_ITERS, n_frames=len(COMPOSE_FRAME_IDS), summary=summary,
-                shapes=(pair_shapes, occ_shapes, ema_shapes))
+                shapes=(pair_shapes, occ_shapes, ema_shapes), latent_timed=latent_timed)
 
 
 # ---------------------------------------------------------------------------
@@ -4269,8 +4337,7 @@ def permuto_phase(dev, profile_it, stacked):
                "permuto_k9_calls_per_steps": calls}
     if profile_it:
         prof = profile_multi_steps(scene, trainer, state, samplers, dev,
-                                   named={"K9": ("permuto_",),
-                                          "index_put": ("index_put", "indexing_backward")})
+                                   named={"K9": ("permuto_",), **LATENT_PROFILED})
         for k, (n, busy, named) in prof.items():
             summary[f"permuto_{k}_step_device_kernels"] = n
             summary[f"permuto_{k}_step_busy_ms"] = busy
@@ -4278,6 +4345,286 @@ def permuto_phase(dev, profile_it, stacked):
     return dict(errs=errs, times=times, launches=launches, launches_render=launches_render,
                 step_launches={k: v[0] for k, v in per_step.items()}, iters=PERMUTO_ITERS,
                 n_frames=len(COMPOSE_FRAME_IDS), summary=summary)
+
+
+# ---------------------------------------------------------------------------
+# K13 (the latent lookup) and K14 (the stacked CP lines), on every path
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def latent_calls(record):
+    """While the block runs, append to ``record`` each K13 call on the card:
+    (kind "fwd" or "bwd", a copy of its index or None, points, n instances,
+    z, row stride: the cotangent's, or z for the forward)."""
+    from neuralsim_torch.ops import latent_take as lt
+    fwd, bwd = lt.latent_take, lt.latent_take_bwd
+
+    def take(latents, idx, n_points):
+        if latents.is_cuda:
+            record.append(("fwd", None if idx is None else idx.clone(), n_points,
+                           *latents.shape, latents.shape[1]))
+        return fwd(latents, idx, n_points)
+
+    def take_bwd(d_out, idx, n_instances):
+        if d_out.is_cuda:
+            record.append(("bwd", None if idx is None else idx.clone(), d_out.shape[0],
+                           n_instances, d_out.shape[1], d_out.stride(0)))
+        return bwd(d_out, idx, n_instances)
+
+    lt.latent_take, lt.latent_take_bwd = take, take_bwd
+    try:
+        yield record
+    finally:
+        lt.latent_take, lt.latent_take_bwd = fwd, bwd
+
+
+@contextlib.contextmanager
+def no_plain_on_card(label):
+    """The block may not call the plain K13 or K14 with tensors on the card
+    (the card path launches the kernels or raises): raises after it if it
+    did."""
+    from neuralsim_torch.fields.encodings import lotd
+    from neuralsim_torch.ops import latent_take as lt
+    hits = []
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (lt, "latent_take_plain"), (lt, "latent_take_bwd_plain"),
+        (lotd, "lotd_cp_lines_plain"), (lotd, "lotd_cp_lines_bwd_plain"))]
+
+    def counted(name, fn):
+        def call(t, *a, **kw):
+            if t.is_cuda:
+                hits.append(name)
+            return fn(t, *a, **kw)
+        return call
+
+    for m, n, fn in saved:
+        setattr(m, n, counted(n, fn))
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    if hits:
+        raise AssertionError(f"the {label} path ran plain K13/K14 on the card: "
+                             f"{sorted(set(hits))}")
+
+
+def runs_of(idx):
+    """The runs of equal values of a 1-D index tensor."""
+    return 1 + int((idx[1:] != idx[:-1]).sum()) if idx.numel() else 0
+
+
+def path_latent_cases(record, label):
+    """K13's distinct calls in ``record`` (latent_calls) as check cases with
+    the path's own index (its runs, its interleaving), points, n, z and row
+    stride -> ([(label, n, z, idx, points, ld)], the cases to time: the
+    largest forward, the largest and the smallest backward)."""
+    cases, kinds, seen = [], {"fwd": [], "bwd": []}, set()
+    for kind, idx, P, n, z, ld in record:
+        key = (kind, P, n, z, ld, None if idx is None else (idx.numel(), str(idx.dtype)))
+        if key in seen:
+            continue
+        seen.add(key)
+        what = "no index" if idx is None else \
+            f"{idx.numel()} indices x {P // idx.numel()} points, {runs_of(idx)} runs"
+        case = (f"{label} {kind}: P={P} n={n} z={z} ld={ld}, {what}", n, z, idx, P, ld)
+        cases.append(case)
+        kinds[kind].append(case)
+    if not kinds["fwd"] or not kinds["bwd"]:
+        raise AssertionError(f"the {label} step launched no K13 forward or backward")
+    by_p = lambda c: c[4]
+    timed = {"latent_take": [max(kinds["fwd"], key=by_p)],
+             "latent_take.bwd": sorted({c[0]: c for c in (max(kinds["bwd"], key=by_p),
+                                                           min(kinds["bwd"], key=by_p))}.values(),
+                                       key=by_p, reverse=True)}
+    return cases, timed
+
+
+def latent_edge_cases(dev):
+    """K13's edge cases: indices outside [0, n), no index, one index a ray,
+    n 1 and 8, interleaved, the block's shared budget at its edge (n 48)
+    and past it (n 64: device atomics), z 5 (a partial group of lanes), one
+    point."""
+    import torch
+    rng = np.random.default_rng(61)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return [
+        ("indices in [-3, 7), n 3, per point", 3, 8, T(rng.integers(-3, 7, 100_003)), 100_003, 8),
+        ("no index, 512 points", 3, 8, None, 512, 40),
+        ("n 1, one int32 index a ray of 16", 1, 4,
+         T(rng.integers(-1, 2, 4097).astype(np.int32)), 4097 * 16, 12),
+        ("n 8, round-robin rays of 32", 8, 8, T(np.arange(6144) % 8), 6144 * 32, 40),
+        ("n 48, runs of 7 points", 48, 8, T(np.repeat(np.arange(48), 7)), 48 * 7, 8),
+        ("n 64 (device atomics), shuffled", 64, 8, T(rng.integers(0, 64, 50_000)), 50_000, 8),
+        ("z 5, per point", 3, 5, T(rng.integers(0, 3, 33_333)), 33_333, 5),
+        ("one point", 3, 8, T(np.array([2])), 1, 8)]
+
+
+def check_latent_take(dev, cases):
+    """K13 against its plain version on ``cases`` [(label, n, z, idx, points,
+    ld)]: the forward exact; the backward within GRAD_REL, its cotangent a
+    column slice of a [points, ld] gradient, with the same bits on two calls
+    (where n x 256 floats fit the block's 48 KB) -> (forward err, backward
+    err)."""
+    import torch
+    from neuralsim_torch.ops.latent_take import (latent_take, latent_take_bwd,
+                                                 latent_take_bwd_plain, latent_take_plain)
+    ef = eb = 0.0
+    for i, (label, n, z, idx, P, ld) in enumerate(cases):
+        lat = cotangents((n, z), 70 + i, dev)
+        ef = max(ef, compare(f"K13 {label}", [latent_take(lat, idx, P)],
+                             [latent_take_plain(lat, idx, P)], 0.0, 0.0, exact=True))
+        g = cotangents((P, ld), 80 + i, dev)[:, ld - z:]
+        got = latent_take_bwd(g, idx, n)
+        if n * 256 * 4 <= 48 * 1024 and not torch.equal(got, latent_take_bwd(g, idx, n)):
+            raise AssertionError(f"K13 bwd {label}: two calls gave other bits")
+        eb = max(eb, compare_rel(f"K13 bwd {label}", [got],
+                                 [latent_take_bwd_plain(g, idx, n)], GRAD_REL))
+    torch.cuda.synchronize()
+    return ef, eb
+
+
+def cp_lines_sets(dev, encodings):
+    """K14's sets [(label, table, plan)]: each of ``encodings`` [(label, a
+    stacked LoTDEncoding on the card)], and a ladder of R 1 (both taps on
+    one row: the upper one clamped), R 2, R 37 at F 5 and two levels of
+    R_max 1,024, past a dense level's 250 floats."""
+    import torch
+    from neuralsim_torch.fields.encodings.lotd import cp_lines_plan
+    sets = [(label, e.table.detach(), e.cp_lines_plan()) for label, e in encodings]
+    levels, off = [], 250
+    for R, F in ((1, 3), (2, 4), (37, 5), (1024, 4), (1024, 3)):
+        levels.append((R, F, off))
+        off += 3 * R * F
+    table = torch.from_numpy(np.random.default_rng(62).normal(1.0, 0.3, off)
+                             .astype(np.float32)).to(dev)
+    return sets + [("edge ladder: R 1, 2, 37 (F 5), 1,024 x 2", table,
+                    cp_lines_plan(levels, 1024).to(dev))]
+
+
+def lines_cotangent(plan, seed, dev):
+    """A [3, F_cp, R_max] cotangent laid out as K1's backward leaves it: the
+    transposed view of a [3, R_max, F_cp] buffer."""
+    return cotangents((3, plan.lo.shape[1], plan.cols.shape[0]), seed, dev).transpose(1, 2)
+
+
+def check_cp_lines(dev, sets):
+    """K14 against its plain version: the forward bit-equal, the backward
+    within GRAD_REL (with the same bits on two calls) at a cotangent in K1
+    bwd's layout -> (forward err, backward err)."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    ef = eb = 0.0
+    for i, (label, table, plan) in enumerate(sets):
+        ef = max(ef, compare(f"K14 {label} F_cp={plan.cols.shape[0]} R_max={plan.lo.shape[1]}",
+                             [lotd.lotd_cp_lines(table, plan)],
+                             [lotd.lotd_cp_lines_plain(table, plan)], 0.0, 0.0, exact=True))
+        g = lines_cotangent(plan, 90 + i, dev)
+        got = lotd.lotd_cp_lines_bwd(g, table.numel(), plan)
+        if not torch.equal(got, lotd.lotd_cp_lines_bwd(g, table.numel(), plan)):
+            raise AssertionError(f"K14 bwd {label}: two calls gave other bits")
+        eb = max(eb, compare_rel(f"K14 bwd {label}", [got],
+                                 [lotd.lotd_cp_lines_bwd_plain(g, table.numel(), plan)],
+                                 GRAD_REL))
+    torch.cuda.synchronize()
+    return ef, eb
+
+
+def timed_with_library(fn, plain, library, **kw):
+    """card_ms of fn, the plain version's time, and each library call's back
+    to back and queued; ``library_ms`` is the fastest back to back."""
+    lib = {k: dict(ms=cuda_ms(f), queued_ms=cuda_ms(f, queued=True)) for k, f in library.items()}
+    return dict(**card_ms(fn), plain_ms=cuda_ms(plain, reps=5),
+                library_ms=min((v["ms"] for v in lib.values()), default=None),
+                library_calls=lib, **kw)
+
+
+def time_latent_take(timed):
+    """K13 and its backward at ``timed`` (path_latent_cases), beside their
+    plain versions and the PyTorch calls for the same function at the same
+    index expanded to the points: index_select; index_add_ into zeros,
+    F.embedding's backward (embedding_dense_backward) and the sort-based
+    index_put of autograd's latents[idx] -> {kernel: [timing, ...]}."""
+    import torch
+    from neuralsim_torch.ops.latent_take import (latent_take, latent_take_bwd,
+                                                 latent_take_bwd_plain, latent_take_plain,
+                                                 point_rows)
+    out = {}
+    for name, cases in timed.items():
+        for label, n, z, idx, P, ld in cases:
+            dev = torch.device("cuda")
+            rows = point_rows(idx, P, n, dev)
+            idx_bytes = 0 if idx is None else idx.numel() * idx.element_size()
+            if name == "latent_take":
+                lat = cotangents((n, z), 71, dev)
+                out.setdefault(name, []).append(timed_with_library(
+                    lambda: latent_take(lat, idx, P), lambda: latent_take_plain(lat, idx, P),
+                    {"index_select": lambda: torch.index_select(lat, 0, rows)}, shape=label,
+                    # the index and the latents read, the rows written
+                    bound=bound(idx_bytes + n * z * 4 + P * z * 4, P * z)))
+                continue
+            g = cotangents((P, ld), 81, dev)[:, ld - z:]
+            zeros = lambda: torch.zeros((n, z), device=dev)
+            out.setdefault(name, []).append(timed_with_library(
+                lambda: latent_take_bwd(g, idx, n), lambda: latent_take_bwd_plain(g, idx, n),
+                {"index_add_": lambda: zeros().index_add_(0, rows, g),
+                 "embedding_dense_backward": lambda: torch.ops.aten.embedding_dense_backward(
+                     g, rows, n, -1, False),
+                 "index_put_ (sort-based)": lambda: zeros().index_put_((rows,), g,
+                                                                      accumulate=True)},
+                shape=label,
+                # the index and the cotangent's z columns read, d latents written
+                bound=bound(idx_bytes + P * z * 4 + n * z * 4, P * z)))
+    return out
+
+
+def interpolated_lines(table, plan):
+    """The stacked lines by one F.interpolate(mode="linear",
+    align_corners=True) a level: the same positions as K14's plan, rounded
+    otherwise (an aside to the kernels line, no port path)."""
+    import torch
+    import torch.nn.functional as Fn
+    cols = []
+    for _, offset, R, F, _, _ in plan.levels.tolist():
+        seg = table[offset:offset + 3 * R * F].view(3, R, F).transpose(1, 2)
+        cols.append(Fn.interpolate(seg, size=plan.lo.shape[1], mode="linear",
+                                   align_corners=True))
+    return torch.cat(cols, dim=1)
+
+
+def time_cp_lines(sets):
+    """K14 and its backward at ``sets`` (cp_lines_sets), beside their plain
+    versions; no one PyTorch call computes the stack (library none), the
+    per-level F.interpolate sum as an aside with its max abs difference ->
+    {kernel: [timing, ...]}."""
+    from neuralsim_torch.fields.encodings import lotd
+    out = {}
+    for i, (label, table, plan) in enumerate(sets):
+        L, Rmax = plan.lo.shape
+        Fcp, E = plan.cols.shape[0], plan.tap_j.numel()
+        shape = f"{label}: L={L} F_cp={Fcp} R_max={Rmax}, {plan.n_entries} CP entries"
+        lines = lotd.lotd_cp_lines(table, plan)
+        out.setdefault("lotd_cp_lines", []).append(dict(
+            **card_ms(lambda: lotd.lotd_cp_lines(table, plan)),
+            plain_ms=cuda_ms(lambda: lotd.lotd_cp_lines_plain(table, plan), reps=5),
+            library_ms=None, shape=shape,
+            interpolate_ms=cuda_ms(lambda: interpolated_lines(table, plan)),
+            interpolate_max_abs_err=float((interpolated_lines(table, plan) - lines)
+                                          .abs().max()),
+            # the CP segments, taps and metadata read, the lines written
+            bound=bound(plan.n_entries * 4 + L * Rmax * 12 + Fcp * 16 + 3 * Fcp * Rmax * 4,
+                        3 * Fcp * Rmax * 4)))
+        g = lines_cotangent(plan, 95 + i, dev=table.device)
+        out.setdefault("lotd_cp_lines.bwd", []).append(dict(
+            **card_ms(lambda: lotd.lotd_cp_lines_bwd(g, table.numel(), plan)),
+            plain_ms=cuda_ms(lambda: lotd.lotd_cp_lines_bwd_plain(g, table.numel(), plan),
+                             reps=5),
+            library_ms=None, shape=shape + " (cotangent in K1 bwd's layout)",
+            # the cotangent and the CSR read, the CP entries written; a
+            # multiply-add for each tap of every stacked value
+            bound=bound(3 * Fcp * Rmax * 4 + E * 8 + (plan.rowptr.numel() + L * 6) * 4
+                        + plan.n_entries * 4, 12 * Fcp * Rmax)))
+    return out
 
 
 def main(argv) -> int:
@@ -4332,7 +4679,7 @@ def main(argv) -> int:
     for name, n in launches_render.items():
         if n <= 0 and not name.endswith(".bwd") and \
                 name not in BENCH_ONLY + COMPOSE_ONLY + CROWD_ONLY + PERLEVEL_ONLY \
-                + PERMUTO_ONLY:
+                + PERMUTO_ONLY + LATENT_ONLY:
             raise AssertionError(f"kernel {name} never launched on the render path")
     check_frames(frames, rig.H, rig.W)
     crop_err = check_crop(frames, renderer, params, rig, rig.H, rig.W)
@@ -4353,7 +4700,7 @@ def main(argv) -> int:
     log(f"training slice: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays, launches {launches}")
     for name, n in launches.items():
         if n <= 0 and name not in BENCH_ONLY + COMPOSE_ONLY + MULTI_ONLY + CROWD_ONLY \
-                + PERLEVEL_ONLY + PERMUTO_ONLY:
+                + PERLEVEL_ONLY + PERMUTO_ONLY + LATENT_ONLY:
             raise AssertionError(f"kernel {name} never launched on the training path")
     trainer, state = out["trainer"], out["state"]
     check_poisoned_step(trainer, state, rig, dev)
@@ -4375,7 +4722,8 @@ def main(argv) -> int:
     # 9. the crowded scene (K11, K10), and 10. synthetic_multi, with their timing
     crowd = crowd_phase(dev, "--profile" in argv)
     synth = synthetic_multi_phase(dev)
-    crowd["times"] = time_crowd_kernels(*crowd["shapes"], synth["hit"])
+    crowd["times"] = {**time_crowd_kernels(*crowd["shapes"], synth["hit"]),
+                      **time_latent_take(crowd["latent_timed"])}
     phase_s["crowd and synthetic_multi"], t1 = time.perf_counter() - t1, time.perf_counter()
 
     # 11. WAYMO_DEMO_MULTI on the per-level CP path (K2, K12), with its timing
@@ -4407,9 +4755,10 @@ def main(argv) -> int:
         # a kernel of the earlier slices reports its synthetic_object training
         # path at the top level and the bench path beside it; K4 and K7 run on
         # the bench path only, K8 on the compose render only (per frame), K8's
-        # backward on the multi-object training only (per iteration)
+        # backward on the multi-object training only (per iteration); K13 and
+        # K14 report the multi-object training (its largest call)
         on_compose = name in COMPOSE_ONLY
-        on_multi = name in MULTI_ONLY
+        on_multi = name in MULTI_ONLY + LATENT_ONLY + LINES_KERNELS
         on_crowd = name in CROWD_ONLY
         on_perlevel = name in PERLEVEL_ROWS
         on_permuto = name in PERMUTO_ONLY
@@ -4456,7 +4805,8 @@ def main(argv) -> int:
                "max_abs_err": err, "max_err": err,
                "tol": tol, "ms": t["ms"], **card_keys(t), "plain_ms": t["plain_ms"],
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": t["library_ms"], "shape": t["shape"], "path": path}
+               "library_ms": t["library_ms"], **extra_keys(t), "shape": t["shape"],
+               "path": path}
         unit = "frame" if on_compose else "iteration" if on_multi or on_crowd or on_perlevel \
             or on_permuto else "step"
         log(f"kernel {name} ({path} path, {n_launch / steps:g} launches per {unit}): "
@@ -4508,7 +4858,7 @@ def main(argv) -> int:
             row["multi"].setdefault("times", []).append(
                 {"ms": c["ms"], **card_keys(c), "plain_ms": c["plain_ms"],
                  "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
-                 "library_ms": c["library_ms"], "shape": c["shape"]})
+                 "library_ms": c["library_ms"], **extra_keys(c), "shape": c["shape"]})
             log(f"kernel {name} (multi-object training path, "
                 f"{row['multi']['launches_per_iteration']:g} launches per iteration): "
                 f"{c['ms']:.4f} ms ({card_extra(c)[2:]}, plain {c['plain_ms']:.4f}, "
@@ -4533,8 +4883,8 @@ def main(argv) -> int:
         for c in crowd["times"].get(name, []):
             row["crowd"].setdefault("times", []).append(
                 {"ms": c["ms"], **card_keys(c), "plain_ms": c["plain_ms"],
-                 "bound_ms": c["bound"][0],
-                 "bound_by": c["bound"][1], "library_ms": c["library_ms"], "shape": c["shape"]})
+                 "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
+                 "library_ms": c["library_ms"], **extra_keys(c), "shape": c["shape"]})
             log(f"kernel {name} (crowd path, {row['crowd']['launches_per_iteration']:g} launches "
                 f"per iteration, {row['crowd']['render_launches_per_frame']:g} per frame): "
                 f"{c['ms']:.4f} ms ({card_extra(c)[2:]}{', ' if card_keys(c) else ''}plain "

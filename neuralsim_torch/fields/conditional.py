@@ -4,8 +4,11 @@ neuralsim_tpu/fields/conditional.py:33-210, 213-365, 367-378).
 One field serves every instance of a class (the vehicles of a scene), with
 each instance's auto-decoder latent (the ``latents`` parameter,
 [n_instances, z_dim]). The instance of each point comes in as ``bidx``,
-taken from the latents with clamped indices (JAX's ``mode="clip"``); None
-means instance 0. Two ways to condition:
+taken from the latents with clamped indices (JAX's ``mode="clip"``): one
+index a point, or one a ray over its samples (``ray_query`` hands the
+ray's index as a view broadcast over the samples, and it is read per ray);
+None means instance 0. The lookup is ``ops.latent_take`` (kernel K13 and its
+backward on the card). Two ways to condition:
 
 * :class:`ConditionalLoTDNeuSField`: the LoTD encoding stays 3-D and shared,
   and the latent is concatenated to the SDF decoder's input. The latent does
@@ -15,7 +18,10 @@ means instance 0. Two ways to condition:
   permutohedral encoding over concat(xyz01, sigmoid(z)) (d = 3 + z_dim), and
   the decoder reads the encoding alone. Its jacobian covers the first three
   lattice dimensions (xyz); the latents' gradient comes back through the
-  encoding's input gradient (kernel K9's backward on the card).
+  encoding's input gradient (kernel K9's backward on the card). The sigmoid
+  is taken of the [n_instances, z_dim] latents before the lookup: the same
+  values as JAX's sigmoid of the looked-up rows, bit for bit, and the
+  latents' gradient within rounding (sigmoid' is applied to the summed rows).
 
 Training: gradients reach the latents through the decoder (LoTD) or the
 lattice (permuto), also through the analytic nablas' query (the uniform
@@ -30,6 +36,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..ops.latent_take import LatentTake
 from .blocks import MLP
 from .encodings.permuto import PermutoEncoding
 from .neus import NeuSField
@@ -57,12 +64,20 @@ class _Latents:
             self.latents = nn.Parameter(torch.zeros(n_instances, self.z_dim))
 
     def _instance_latents(self, lead: torch.Size, bidx: Optional[torch.Tensor],
-                          device: torch.device) -> torch.Tensor:
-        """The latent of each point [*lead, z_dim]; ``bidx`` None means
-        instance 0, indices are clamped into range."""
-        idx = torch.zeros(lead, dtype=torch.long, device=device) if bidx is None \
-            else torch.clamp(bidx.expand(lead).long(), 0, self.n_instances - 1)
-        return self.latents[idx]
+                          table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The row of ``table`` (default: the latents) of each point's
+        instance [*lead, z_dim]; ``bidx`` None means instance 0, indices are
+        clamped into range. A [rays, S] ``bidx`` broadcast over its samples
+        (stride 0) is read one index a ray."""
+        n_points = lead.numel()
+        if bidx is not None:
+            if bidx.dim() == 2 and bidx.stride(1) == 0 and bidx.numel() == n_points:
+                bidx = bidx[:, 0]
+            elif bidx.numel() != n_points:
+                bidx = bidx.expand(lead)
+            bidx = bidx.reshape(-1).contiguous()
+        z = LatentTake.apply(self.latents if table is None else table, bidx, n_points)
+        return z.view(lead + (self.z_dim,))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -103,7 +118,7 @@ class ConditionalLoTDNeuSField(_Latents, NeuSField):
         """[h, the point's instance latent]."""
         if self.n_instances == 0:
             return h
-        return torch.cat([h, self._instance_latents(h.shape[:-1], bidx, h.device)], dim=-1)
+        return torch.cat([h, self._instance_latents(h.shape[:-1], bidx)], dim=-1)
 
 
 class ConditionalPermutoNeuSField(_Latents, NeuSField):
@@ -133,8 +148,8 @@ class ConditionalPermutoNeuSField(_Latents, NeuSField):
         u = self.space.normalize_coords(x)
         if self.n_instances == 0:
             return u
-        z = self._instance_latents(x.shape[:-1], bidx, x.device)
-        return torch.cat([u, torch.sigmoid(z)], dim=-1)
+        z = self._instance_latents(x.shape[:-1], bidx, torch.sigmoid(self.latents))
+        return torch.cat([u, z], dim=-1)
 
     def _decoder_input(self, h: torch.Tensor, bidx: Optional[torch.Tensor]) -> torch.Tensor:
         """The encoding alone (the latent entered the lattice)."""

@@ -7,7 +7,8 @@ table copies over as is. Level types:
 * ``cp``: d lines of [res, F]; features are the channelwise product of the
   per-axis linear interpolations. With two or more CP levels (the JAX default,
   "stacked CP") every level's lines are first resampled onto one grid of the
-  largest CP resolution; the lookup is the ``lotd_cp_stacked`` kernel (K1).
+  largest CP resolution (the ``lotd_cp_lines`` kernel, K14, once for all
+  levels); the lookup is the ``lotd_cp_stacked`` kernel (K1).
   A single CP level, or any number under ``NEURALSIM_CP_STACKED=0`` (read
   when the encoding is built, as JAX does), takes the per-level path: each
   level's own lines straight from the table, all levels in one launch of the
@@ -24,9 +25,10 @@ Training: the outputs carry gradients into ``table`` (the on-render eikonal
 loss trains through the jacobian). On the CPU autograd differentiates the
 plain versions; on the card one ``torch.autograd.Function`` runs the forward
 kernels and, in its backward, the ``lotd_cp_stacked.bwd``,
-``lotd_cp_level.bwd`` and ``lotd_grid.bwd`` kernels. No gradient goes to the
-positions: rays are data and sample depths are detached in this slice (pose
-refinement will add it).
+``lotd_cp_level.bwd`` and ``lotd_grid.bwd`` kernels; another runs K14 and
+its backward (``lotd_cp_lines.bwd``, into the table's CP entries). No
+gradient goes to the positions: rays are data and sample depths are
+detached in this slice (pose refinement will add it).
 
 Not ported yet: the batched ``bidx`` tables, 4-D inputs, the level anneal
 window and ``NEURALSIM_CP_JAC_F32=1`` (float32 lines for the stacked
@@ -34,7 +36,6 @@ jacobian), which raises.
 """
 from __future__ import annotations
 
-import functools
 import math
 import os
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -62,6 +63,10 @@ K2 = kernels.register("lotd_cp_level", "neuralsim_torch/csrc/lotd_cp_level.cu",
                       "neuralsim_tpu/fields/encodings/lotd.py:250")
 K2_BWD = kernels.register("lotd_cp_level.bwd", "neuralsim_torch/csrc/lotd_cp_level.cu",
                           "neuralsim_tpu/fields/encodings/lotd.py:250")
+K14 = kernels.register("lotd_cp_lines", "neuralsim_torch/csrc/lotd_cp_lines.cu",
+                       "neuralsim_tpu/fields/encodings/lotd.py:322")
+K14_BWD = kernels.register("lotd_cp_lines.bwd", "neuralsim_torch/csrc/lotd_cp_lines.cu",
+                           "neuralsim_tpu/fields/encodings/lotd.py:322")
 
 class LevelSpec:
     """Static per-level layout: resolution, feature width, type, rows, offset."""
@@ -479,13 +484,6 @@ def grid_bwd_plan(meta_rows: Sequence[Sequence[int]]) -> GridBwdPlan:
     return GridBwdPlan(mask, used)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    """The scratch's rows, read once a device: the wrapper's host time counts
-    in every training step, and every training path is host-bound."""
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def lotd_grid_bwd(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
                   d_out: Optional[torch.Tensor], d_jac: Optional[torch.Tensor],
                   plan: Optional[GridBwdPlan] = None) -> torch.Tensor:
@@ -509,14 +507,141 @@ def lotd_grid_bwd(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
     if plan.private_mask >> meta.shape[0]:
         raise ValueError("lotd_grid_bwd: the plan names a level past the meta")
     # a row of the scratch for each block of the persistent grid, one a SM
-    scratch = torch.empty((_sm_count(pos01.device.index), plan.n_private), dtype=torch.float32,
-                          device=pos01.device) if plan.n_private else None
+    scratch = torch.empty((kernels.sm_count(pos01.device.index), plan.n_private),
+                          dtype=torch.float32, device=pos01.device) if plan.n_private else None
     d_table = torch.zeros(n_table, dtype=torch.float32, device=pos01.device)
     K3_BWD.launch("lotd_grid_bwd", kernels.ptr(pos01), kernels.ptr(meta), kernels.ptr(d_out),
                   kernels.ptr(d_jac), kernels.ptr(d_table), kernels.ptr(scratch), N,
                   given[0].shape[-2], meta.shape[0], plan.private_mask, plan.n_private,
                   kernels.stream())
     return d_table
+
+
+# ---------------------------------------------------------------------------
+# K14: the stacked CP lines (every CP level resampled onto R_max)
+# ---------------------------------------------------------------------------
+
+class CpLinesPlan(NamedTuple):
+    """K14's static plan for the CP levels stacked in order: each level's
+    two taps onto R_max and, for the backward, the taps by source row."""
+    lo: torch.Tensor       # int64 [L, R_max]: the lower tap's row
+    w: torch.Tensor        # float32 [L, R_max]: the upper tap's weight
+    cols: torch.Tensor     # int32 [F_cp, 4]: (offset + f, R, F, level) of each stacked feature
+    levels: torch.Tensor   # int32 [L, 6]: (first CP entry, offset, R, F, first column, first row)
+    rowptr: torch.Tensor   # int32 [sum R + 1]: a CSR over the levels' rows ...
+    tap_j: torch.Tensor    # int32 [2 L R_max]: ... of the R_max positions that read each row
+    tap_w: torch.Tensor    # float32 [2 L R_max]: ... and their weights, 1 - w or w
+    n_entries: int         # the CP entries of the table, sum of 3 R F
+
+    def to(self, device) -> "CpLinesPlan":
+        return CpLinesPlan(*(t.to(device) for t in self[:-1]), self.n_entries)
+
+
+def cp_lines_plan(levels: Sequence[Tuple[int, int, int]], rmax: int) -> CpLinesPlan:
+    """The plan of CP levels (R, F, table offset) onto ``rmax``: JAX's
+    float64 taps (lotd.py:178-185), lo = min(floor(pos), max(R - 2, 0)) and
+    the upper tap min(lo + 1, R - 1), clamped where R is 1. A row's taps are
+    listed by position, the lower tap first (CPU tensors)."""
+    los, ws, cols, meta, tap_j, tap_w = [], [], [], [], [], []
+    rowptr = [0]
+    entry = col = row = 0
+    for k, (R, F, offset) in enumerate(levels):
+        posc = np.linspace(0.0, 1.0, rmax) * (R - 1)
+        lo = np.minimum(np.floor(posc).astype(np.int64), max(R - 2, 0))
+        w = (posc - lo).astype(np.float32)
+        src = np.concatenate([lo, np.minimum(lo + 1, R - 1)])
+        j = np.tile(np.arange(rmax), 2)
+        order = np.lexsort((np.repeat([0, 1], rmax), j, src))   # by row, position, tap
+        los.append(lo)
+        ws.append(w)
+        cols += [(offset + f, R, F, k) for f in range(F)]
+        meta.append((entry, offset, R, F, col, row))
+        tap_j.append(j[order])
+        tap_w.append(np.concatenate([np.float32(1.0) - w, w])[order])
+        rowptr += (rowptr[-1] + np.cumsum(np.bincount(src, minlength=R))).tolist()
+        entry, col, row = entry + 3 * R * F, col + F, row + R
+    T = lambda a, dt: torch.from_numpy(np.ascontiguousarray(np.asarray(a, dt)))
+    return CpLinesPlan(T(np.stack(los), np.int64), T(np.stack(ws), np.float32),
+                       T(cols, np.int32).reshape(-1, 4), T(meta, np.int32).reshape(-1, 6),
+                       T(rowptr, np.int32), T(np.concatenate(tap_j), np.int32),
+                       T(np.concatenate(tap_w), np.float32), entry)
+
+
+def lotd_cp_lines_plain(table: torch.Tensor, plan: CpLinesPlan) -> torch.Tensor:
+    """Plain version of K14, JAX's ``_cp_stacked_lines`` op for op: per
+    level two row takes and a lerp, stacked -> [3, F_cp, R_max] float32."""
+    cols = []
+    for k, (_, offset, R, F, _, _) in enumerate(plan.levels.tolist()):
+        seg = table[offset:offset + 3 * R * F].view(3, R, F)
+        lo = plan.lo[k]
+        w = plan.w[k][:, None]
+        l0 = seg[:, lo]
+        l1 = seg[:, torch.clamp(lo + 1, max=R - 1)]
+        cols.append(l0 * (1.0 - w) + l1 * w)
+    return torch.cat(cols, dim=-1).transpose(1, 2).contiguous()
+
+
+def lotd_cp_lines_bwd_plain(d_lines: torch.Tensor, n_table: int,
+                            plan: CpLinesPlan) -> torch.Tensor:
+    """Plain version of K14's backward: autograd of the plain forward (a
+    zero-filled table gradient a level's slice, two index_put accumulations a
+    level) -> d table [n_table] float32."""
+    with torch.enable_grad():
+        table = d_lines.new_zeros(n_table).requires_grad_(True)
+        return torch.autograd.grad(lotd_cp_lines_plain(table, plan), table, d_lines)[0]
+
+
+def _lines_shape(plan: CpLinesPlan) -> Tuple[int, int, int]:
+    return 3, plan.cols.shape[0], plan.lo.shape[1]
+
+
+def lotd_cp_lines(table: torch.Tensor, plan: CpLinesPlan) -> torch.Tensor:
+    """K14 wrapper: the plain version on the CPU, the CUDA kernel on the card
+    (bit-equal to it). ``plan`` must describe CP levels inside ``table``."""
+    if table.device.type == "cpu":
+        return lotd_cp_lines_plain(table, plan)
+    kernels.check_cuda("lotd_cp_lines", table, plan.cols, plan.lo, plan.w)
+    if table.dtype != torch.float32 or table.dim() != 1:
+        raise ValueError("lotd_cp_lines: table must be a flat float32 tensor")
+    out = torch.empty(_lines_shape(plan), dtype=torch.float32, device=table.device)
+    K14.launch("lotd_cp_lines_fwd", kernels.ptr(table), kernels.ptr(plan.cols),
+               kernels.ptr(plan.lo), kernels.ptr(plan.w), kernels.ptr(out), out.shape[1],
+               out.shape[2], kernels.stream())
+    return out
+
+
+def lotd_cp_lines_bwd(d_lines: torch.Tensor, n_table: int, plan: CpLinesPlan) -> torch.Tensor:
+    """K14 backward wrapper: the gradient of the stacked lines into a zeroed
+    table gradient [n_table], its CP entries summed in gather form (no
+    atomics: the same bits on every call). The card reads ``d_lines`` [3,
+    F_cp, R_max] with its own strides; the plain version on the CPU."""
+    if d_lines.device.type == "cpu":
+        return lotd_cp_lines_bwd_plain(d_lines, n_table, plan)
+    kernels.check_cuda("lotd_cp_lines_bwd", plan.levels, plan.rowptr, plan.tap_j, plan.tap_w)
+    if d_lines.device != plan.levels.device or d_lines.dtype != torch.float32 \
+            or tuple(d_lines.shape) != _lines_shape(plan) or min(d_lines.stride()) < 0:
+        raise ValueError(f"lotd_cp_lines_bwd: d_lines must be float32 {_lines_shape(plan)} on "
+                         f"{plan.levels.device}")
+    d_table = torch.zeros(n_table, dtype=torch.float32, device=d_lines.device)
+    K14_BWD.launch("lotd_cp_lines_bwd", kernels.ptr(d_lines), kernels.ptr(plan.levels),
+                   kernels.ptr(plan.rowptr), kernels.ptr(plan.tap_j), kernels.ptr(plan.tap_w),
+                   kernels.ptr(d_table), *d_lines.stride(), plan.levels.shape[0],
+                   plan.n_entries, kernels.stream())
+    return d_table
+
+
+class _CpLinesOnCard(torch.autograd.Function):
+    """K14 and its backward under autograd: the stacked lines from the table,
+    their gradient into the table's CP entries."""
+
+    @staticmethod
+    def forward(ctx, table, plan):
+        ctx.plan, ctx.n_table = plan, table.numel()
+        return lotd_cp_lines(table, plan)
+
+    @staticmethod
+    def backward(ctx, d_lines):
+        return lotd_cp_lines_bwd(d_lines, ctx.n_table, ctx.plan), None
 
 
 # ---------------------------------------------------------------------------
@@ -616,15 +741,17 @@ class LoTDEncoding(nn.Module):
         self.cp_out_dim = sum(self.specs[li].n_feats for li in self.cp_spec_ids)
         if any(self.specs[li].res < 2 for li in self.cp_spec_ids) and not self.cp_stacked:
             raise ValueError("a per-level CP level needs R >= 2")
-        # stacked-CP plan: each CP level's lines resampled onto the largest
-        # CP resolution by a static two-tap lerp (same float64 plan as JAX)
-        for k, li in enumerate(self.cp_spec_ids if self.cp_stacked else ()):
-            R = self.specs[li].res
-            posc = np.linspace(0.0, 1.0, self.cp_rmax) * (R - 1)
-            lo = np.minimum(np.floor(posc).astype(np.int64), max(R - 2, 0))
-            w = (posc - lo).astype(np.float32)
-            self.register_buffer(f"_cp_lo{k}", torch.from_numpy(lo), persistent=False)
-            self.register_buffer(f"_cp_w{k}", torch.from_numpy(w), persistent=False)
+        # stacked-CP plan (K14): each CP level's lines resampled onto the
+        # largest CP resolution by a static two-tap lerp (same float64 plan
+        # as JAX), and the taps by source row for the backward
+        self._cp_lines_entries = 0
+        if self.cp_stacked:
+            plan = cp_lines_plan([(self.specs[li].res, self.specs[li].n_feats,
+                                   self.specs[li].offset) for li in self.cp_spec_ids],
+                                 self.cp_rmax)
+            for name, t in zip(CpLinesPlan._fields, plan[:-1]):
+                self.register_buffer(f"_cp_lines_{name}", t, persistent=False)
+            self._cp_lines_entries = plan.n_entries
 
         # the kernels write straight into the feature-major output [out_dim, N]
         # in level order: the first row of each level, the rows of every
@@ -661,20 +788,20 @@ class LoTDEncoding(nn.Module):
                 t[seg] = t[seg] / self.param_init_scale * 0.1 + 1.0
         self.table.copy_(t)
 
+    def cp_lines_plan(self) -> CpLinesPlan:
+        """K14's plan, on the encoding's device (stacked CP only)."""
+        return CpLinesPlan(*(getattr(self, f"_cp_lines_{name}")
+                             for name in CpLinesPlan._fields[:-1]), self._cp_lines_entries)
+
     def cp_stacked_lines(self) -> torch.Tensor:
         """Resample every CP level's lines onto the R_max grid and stack them
-        along features -> [3, F_cp, R_max] float32 (plain torch; it depends on
-        the parameters only)."""
-        cols = []
-        for k, li in enumerate(self.cp_spec_ids):
-            s = self.specs[li]
-            seg = self.table[s.offset:s.offset + s.size * s.n_feats].view(3, s.res, s.n_feats)
-            lo = getattr(self, f"_cp_lo{k}")
-            w = getattr(self, f"_cp_w{k}")[:, None]
-            l0 = seg[:, lo]
-            l1 = seg[:, torch.clamp(lo + 1, max=s.res - 1)]
-            cols.append(l0 * (1.0 - w) + l1 * w)
-        return torch.cat(cols, dim=-1).transpose(1, 2).contiguous()
+        along features -> [3, F_cp, R_max] float32 (it depends on the
+        parameters only): the plain version on the CPU, K14 and its backward
+        on the card."""
+        plan = self.cp_lines_plan()
+        if self.table.device.type == "cpu":
+            return lotd_cp_lines_plain(self.table, plan)
+        return _CpLinesOnCard.apply(self.table, plan)
 
     def kernel_lines(self) -> Optional[torch.Tensor]:
         """The float32 stacked lines behind K1 (which rounds them to bf16),

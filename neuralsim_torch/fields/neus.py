@@ -331,8 +331,9 @@ class NeuSField(nn.Module):
         lines = self.encoding.kernel_lines()     # shared by the four encodings
 
         def per_sample(shape):
-            """bidx repeated over ``shape``'s samples, flat."""
-            return None if bidx is None else bidx[:, None].expand(shape).reshape(-1)
+            """bidx broadcast over ``shape``'s samples: a view, read one
+            index a ray by the conditional fields' latent lookup."""
+            return None if bidx is None else bidx[:, None].expand(shape)
 
         with torch.no_grad():                    # the ladder only places samples
             if occ_t_fn is not None:

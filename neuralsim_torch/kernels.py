@@ -13,6 +13,7 @@ counts the launch. Nothing here runs when the module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -52,6 +53,10 @@ SIGNATURES: Dict[str, str] = {
     "pair_compact": "ppppppiiiip",
     "permuto_fwd": "pppppppiiiiip",
     "permuto_bwd": "pppppppppiiiiip",
+    "latent_take_fwd": "pppiiiiip",
+    "latent_take_bwd": "ppppiiiiiiip",
+    "lotd_cp_lines_fwd": "pppppiip",
+    "lotd_cp_lines_bwd": "ppppppiiiiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
@@ -161,6 +166,14 @@ def register(name: str, source: str, replaces: str) -> Kernel:
 def reset_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The card's SM count, read once a device: a wrapper that sizes a
+    scratch by it runs in every training step, and every training path is
+    host-bound."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -20,7 +20,13 @@ vehicles' final query and each model's uniform eikonal (512 points); K2's
 backward (NEURALSIM_CP_STACKED=0) at the same five launches and the bench
 ladder's (8,192 rays x 32 samples); where K3's backward takes a plan, its
 private and atomics paths each forced at 512, 32,768 and 196,608 of the
-vehicles' points.
+vehicles' points; the latent lookup forward and backward through the
+conditional LoTD field's decoder input (K13 where the checkout has it,
+``latents[idx]`` and its sort-based index_put before) at the main path's
+196,608 points (3 runs) and the crowd's (8 instances round-robin), and the
+stacked lines forward and backward through ``cp_stacked_lines`` (K14 where
+the checkout has it, the plain glue before) for the street and the
+vehicles, each with the device kernels that one call launches.
 Every root is timed by this checkout's chip_smoke.py: "ms", CUDA events over
 20 calls back to back (``cuda_ms``: the host's pace where it is the slower);
 "queued_ms", the same while the card was held busy as the host queued them;
@@ -58,6 +64,19 @@ def cp_launches(cs, street, veh):
             ("vehicles", veh, cs.ray_points(6144, 32, veh.cp_rmax, 30)),
             ("street, uniform eikonal", street, cs.enc_points(512, street.cp_rmax, 34)),
             ("vehicles, uniform eikonal", veh, cs.enc_points(512, veh.cp_rmax, 34))]
+
+
+def kernels_a_call(fn) -> int:
+    """The device kernels (memsets included) of one call of fn, by the
+    profiler, after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def time_root(root: str) -> dict:
@@ -149,6 +168,22 @@ def time_root(root: str) -> dict:
                 cs.cotangents((3, C, N), 32, dev))
         out[f"K2 bwd {label} N={N} levels={e._cp_meta.shape[0]}"] = timed(
             lambda: lotd.lotd_cp_level_bwd(*args))
+    # the latent lookup and the stacked lines, forward and backward through
+    # the modules the paths call
+    enc_cfg = mp["Vehicle"]["model_params"]["encoding_cfg"]
+    for label, n, idx in (("main path: 3 runs", 3, np.repeat(np.arange(3), 65_536)),
+                          ("crowd: 8 round-robin", 8, np.tile(np.arange(8), 24_576))):
+        f = ConditionalLoTDNeuSField(n_instances=n, encoding_cfg=enc_cfg).to(dev)
+        h = cs.cotangents((idx.size, f.encoding.out_dim), 33, dev)
+        b, g = T(idx), cs.cotangents((idx.size, f.encoding.out_dim + f.z_dim), 34, dev)
+        fn = lambda: torch.autograd.grad(f._decoder_input(h, b), f.latents, g)
+        out[f"latent lookup fwd+bwd {label} P={idx.size} n={n}"] = {
+            **timed(fn), "kernels": kernels_a_call(fn)}
+    for label, e in (("street", street), ("vehicles", veh)):
+        g = cs.cotangents((3, e.cp_rmax, e.cp_out_dim), 35, dev).transpose(1, 2)
+        fn = lambda: torch.autograd.grad(e.cp_stacked_lines(), e.table, g)
+        out[f"stacked lines fwd+bwd {label} F_cp={e.cp_out_dim} R_max={e.cp_rmax}"] = {
+            **timed(fn), "kernels": kernels_a_call(fn)}
     torch.cuda.synchronize()
     out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,0 +1,160 @@
+"""Port parity for the stacked CP lines (kernel K14) and its backward: the
+plain version against the JAX package's ``LoTDEncoding._cp_stacked_lines``
+on the CPU, and the static plan the CUDA kernels read (the taps, the column
+and level metadata, the backward's CSR of taps by source row) against a
+dense scatter in numpy and a replay of the kernels' arithmetic.
+
+The ladder has a level of R 1 (both taps on its one row: the upper tap
+clamped), one of R 2, one of R 37 (F 5) and two of R_max = 64, beside a
+dense level, so the CP segments sit at offsets past a grid level.
+
+Tolerances: the plain forward is JAX's op for op, so run op by op JAX gives
+the same bits (exact); under jit XLA may contract the lerp into an FMA
+(1e-6). Gradients are sums of at most 2 R_max / R terms a table entry in
+another order than JAX's scatter-add: within 1e-6 of the largest entry.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from neuralsim_tpu.fields.encodings.lotd import make_lotd as jax_make_lotd
+from neuralsim_torch.fields.encodings.lotd import (CpLinesPlan, cp_lines_plan, lotd_cp_lines,
+                                                   lotd_cp_lines_bwd, lotd_cp_lines_bwd_plain,
+                                                   lotd_cp_lines_plain, make_lotd)
+
+torch.set_num_threads(1)
+
+LADDER = {"levels": [(4, 2, "dense"), (1, 3, "cp"), (2, 4, "cp"), (37, 5, "cp"), (64, 2, "cp"),
+                     (64, 3, "cp")]}
+GRAD_REL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jenc = jax_make_lotd(LADDER)
+    rng = np.random.default_rng(0)
+    table = (np.asarray(jenc.init(jax.random.PRNGKey(0))["table"])
+             + rng.normal(0.0, 0.3, jenc.total_params)).astype(np.float32)
+    penc = make_lotd(LADDER)
+    with torch.no_grad():
+        penc.table.copy_(torch.from_numpy(table))
+    g = rng.normal(0.0, 1.0, (3, penc.cp_out_dim, penc.cp_rmax)).astype(np.float32)
+    return jenc, penc, table, g
+
+
+def _dense_taps(plan: CpLinesPlan):
+    """Each level's [R, R_max] matrix of tap weights, scattered in numpy."""
+    out = []
+    for k, (_, _, R, _, _, _) in enumerate(plan.levels.tolist()):
+        lo, w = plan.lo[k].numpy(), plan.w[k].numpy()
+        m = np.zeros((R, lo.size), np.float32)
+        np.add.at(m, (lo, np.arange(lo.size)), np.float32(1.0) - w)
+        np.add.at(m, (np.minimum(lo + 1, R - 1), np.arange(lo.size)), w)
+        out.append(m)
+    return out
+
+
+def test_the_ladder_matches_jax(pair):
+    jenc, penc, _, _ = pair
+    assert [(s.res, s.n_feats, s.typ, s.offset) for s in penc.specs] == \
+        [(s.res, s.n_feats, s.typ, s.offset) for s in jenc.specs]
+    assert penc.cp_stacked and penc.cp_rmax == 64 and penc.cp_out_dim == 17
+
+
+def test_plain_cp_lines_match_jax(pair):
+    jenc, penc, table, _ = pair
+    got = penc.cp_stacked_lines().detach().numpy()
+    with jax.disable_jit():
+        eager = np.asarray(jenc._cp_stacked_lines(jnp.asarray(table)))
+    jitted = np.asarray(jax.jit(jenc._cp_stacked_lines)(jnp.asarray(table)))
+    assert got.shape == (3, 17, 64) and np.array_equal(got, eager)
+    np.testing.assert_allclose(got, jitted, rtol=1e-6, atol=1e-6)
+    # the wrapper takes the plain version on the CPU
+    plan = penc.cp_lines_plan()
+    assert torch.equal(lotd_cp_lines(penc.table.detach(), plan), torch.from_numpy(got))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "transposed"])
+def test_plain_cp_lines_vjp_matches_jax(pair, layout):
+    """The table's gradient from the lines' cotangent, contiguous [3, F, R]
+    and as the view of a [3, R, F] buffer that K1's backward hands back."""
+    jenc, penc, table, g = pair
+    _, vjp = jax.vjp(jenc._cp_stacked_lines, jnp.asarray(table))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    gt = torch.from_numpy(g)
+    if layout == "transposed":
+        gt = gt.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not gt.is_contiguous()
+    plan = penc.cp_lines_plan()
+    got = lotd_cp_lines_bwd_plain(gt, penc.table.numel(), plan).numpy()
+    assert np.array_equal(got, lotd_cp_lines_bwd(gt, penc.table.numel(), plan).numpy())
+    np.testing.assert_allclose(got, want, rtol=0, atol=GRAD_REL * np.abs(want).max())
+    # through the encoding under autograd
+    penc.table.grad = None
+    (penc.cp_stacked_lines() * gt).sum().backward()
+    np.testing.assert_allclose(penc.table.grad.numpy(), want, rtol=0,
+                               atol=GRAD_REL * np.abs(want).max())
+    grid = slice(0, penc.specs[1].offset)        # the dense level gets nothing
+    assert not np.any(got[grid]) and np.all(np.abs(got[penc.specs[1].offset:]) > 0)
+
+
+def test_plan_csr_matches_a_dense_scatter(pair):
+    _, penc, _, _ = pair
+    plan = penc.cp_lines_plan()
+    cp = [s for s in penc.specs if s.typ == "cp"]
+    assert plan.levels.tolist() == [
+        [sum(3 * c.res * c.n_feats for c in cp[:k]), s.offset, s.res, s.n_feats,
+         sum(c.n_feats for c in cp[:k]), sum(c.res for c in cp[:k])] for k, s in enumerate(cp)]
+    assert plan.cols.tolist() == [[s.offset + f, s.res, s.n_feats, k]
+                                  for k, s in enumerate(cp) for f in range(s.n_feats)]
+    assert plan.n_entries == sum(3 * s.res * s.n_feats for s in cp)
+    rowptr, tj, tw = plan.rowptr.numpy(), plan.tap_j.numpy(), plan.tap_w.numpy()
+    assert rowptr[0] == 0 and rowptr[-1] == tj.size == 2 * len(cp) * 64
+    assert np.all(np.diff(rowptr) >= 0)
+    for k, m in enumerate(_dense_taps(plan)):
+        first = plan.levels[k, 5].item()
+        csr = np.zeros_like(m)
+        for r in range(m.shape[0]):
+            span = slice(rowptr[first + r], rowptr[first + r + 1])
+            assert np.all(np.diff(tj[span]) >= 0)           # by position, lower tap first
+            np.add.at(csr[r], tj[span], tw[span])
+        assert np.array_equal(csr, m)
+    # R 1: every position reads its one row twice, weights 1 and 0
+    r1 = plan.levels[0].tolist()
+    assert r1[2] == 1 and rowptr[r1[5] + 1] - rowptr[r1[5]] == 128
+
+
+def test_kernels_arithmetic_replayed_in_numpy(pair):
+    """The forward kernel's lerp from the column metadata (float32 operations
+    without FMA, as __fmul_rn etc.) is the plain version bit for bit; the
+    backward's walk of the CSR, a table entry at a time, is the plain
+    backward within GRAD_REL."""
+    _, penc, table, g = pair
+    plan = penc.cp_lines_plan()
+    Fcp, Rmax = plan.cols.shape[0], plan.lo.shape[1]
+    out = np.empty((3, Fcp, Rmax), np.float32)
+    for c, (base, R, F, k) in enumerate(plan.cols.tolist()):
+        lo = plan.lo[k].numpy()
+        w = plan.w[k].numpy()
+        for a in range(3):
+            l0 = table[base + (a * R + lo) * F]
+            l1 = table[base + (a * R + np.minimum(lo + 1, R - 1)) * F]
+            out[a, c] = l0 * (np.float32(1.0) - w) + l1 * w
+    assert np.array_equal(out, lotd_cp_lines_plain(torch.from_numpy(table), plan).numpy())
+    d = np.zeros(table.size, np.float32)
+    rowptr, tj, tw = plan.rowptr.numpy(), plan.tap_j.numpy(), plan.tap_w.numpy()
+    for first, offset, R, F, col, row in plan.levels.tolist():
+        for local in range(3 * R * F):
+            f, r, a = local % F, (local // F) % R, local // (F * R)
+            span = slice(rowptr[row + r], rowptr[row + r + 1])
+            d[offset + local] = np.sum(g[a, col + f, tj[span]] * tw[span], dtype=np.float32)
+    want = lotd_cp_lines_bwd_plain(torch.from_numpy(g), table.size, plan).numpy()
+    np.testing.assert_allclose(d, want, rtol=0, atol=GRAD_REL * np.abs(want).max())
+
+
+def test_plan_of_a_single_level_at_r_max():
+    plan = cp_lines_plan([(16, 2, 10)], 16)
+    assert plan.lo.tolist()[0][-1] == 14 and plan.w[0, -1].item() == 1.0
+    assert plan.levels.tolist() == [[0, 10, 16, 2, 0, 0]] and plan.n_entries == 96

@@ -193,7 +193,7 @@ def test_render_on_card_matches_cpu(dev):
     assert all(k.launches > 0 for k in kernels.KERNELS.values()
                if not k.name.endswith(".bwd")
                and k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY + cs.CROWD_ONLY
-               + cs.PERLEVEL_ONLY + cs.PERMUTO_ONLY)
+               + cs.PERLEVEL_ONLY + cs.PERMUTO_ONLY + cs.LATENT_ONLY)
     assert kernels.KERNELS["volume_composite"].launches == 0    # K12 composites it
     want = renderer.render_chunked(copy.deepcopy(params).to("cpu"), o, d, rayschunk=100)
     for k, v in want.items():
@@ -348,7 +348,7 @@ def test_train_step_on_card_matches_cpu(dev):
     loss_err, grad_err = cs.check_first_step(trainer, state, rig, dev, n_rays=512)
     assert all(k.launches > 0 for k in kernels.KERNELS.values()
                if k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY + cs.MULTI_ONLY + cs.CROWD_ONLY
-               + cs.PERLEVEL_ONLY + cs.PERMUTO_ONLY)
+               + cs.PERLEVEL_ONLY + cs.PERMUTO_ONLY + cs.LATENT_ONLY)
     assert loss_err <= cs.STEP_LOSS_RTOL and grad_err <= cs.STEP_GRAD_REL
 
 
@@ -1130,3 +1130,88 @@ def test_k1_backward_with_f_not_a_multiple_of_four(dev, n):
             cs.cotangents((13, n), 13, dev), cs.cotangents((3, 13, n), 14, dev))
     _rel_close([lotd.lotd_cp_stacked_bwd(*args)], [lotd.lotd_cp_stacked_bwd_plain(*args)],
                cs.GRAD_REL)
+
+
+# ---------------------------------------------------------------------------
+# K13 (the latent lookup) and K14 (the stacked CP lines)
+# ---------------------------------------------------------------------------
+
+def _main_path_latent_cases(dev):
+    """K13 at the main path's pixel step (3 vehicles' runs of 2,048 rays x 32
+    samples, the cotangent a slice of the decoder input's 40 columns), the
+    crowd's (8 instances, rows round-robin) and the uniform eikonal (512
+    points of instance 0)."""
+    return [("main path", 3, 8, _t(np.repeat(np.arange(3), 2048), dev), 6144 * 32, 40),
+            ("crowd", 8, 8, _t(np.arange(6144) % 8, dev), 6144 * 32, 40),
+            ("eikonal", 3, 8, torch.zeros(512, dtype=torch.long, device=dev), 512, 40)]
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_k13_latent_take_edge_cases(dev, case):
+    """Forward exact, backward at GRAD_REL and the same bits twice: indices
+    outside [0, n), no index, per ray, n 1, 8, 48 and 64 (atomics), z 5, one
+    point (chip_smoke.latent_edge_cases)."""
+    cs.check_latent_take(dev, cs.latent_edge_cases(dev)[case:case + 1])
+
+
+@pytest.mark.parametrize("case", range(3), ids=["main path", "crowd", "eikonal"])
+def test_k13_latent_take_at_the_path_shapes(dev, case):
+    cs.check_latent_take(dev, _main_path_latent_cases(dev)[case:case + 1])
+
+
+@pytest.mark.parametrize("case", range(3), ids=["main path", "crowd", "eikonal"])
+def test_k13_backward_gives_the_same_bits_twice(dev, case):
+    from neuralsim_torch.ops.latent_take import latent_take_bwd
+    _, n, z, idx, P, ld = _main_path_latent_cases(dev)[case]
+    g = cs.cotangents((P, ld), 3, dev)[:, ld - z:]
+    assert torch.equal(latent_take_bwd(g, idx, n), latent_take_bwd(g, idx, n))
+
+
+def test_k13_under_autograd_on_card_matches_cpu(dev):
+    """The conditional LoTD field's latents' gradient through sdf and nablas,
+    one index a ray over 32 samples (ray_query's view), card against CPU."""
+    mp = WAYMO_DEMO_MULTI["assetbank_cfg"]["Vehicle"]["model_params"]
+    f = ConditionalLoTDNeuSField(AABBSpace([-1.0, -0.5, -0.8], [1.0, 0.5, 0.8]), n_instances=3,
+                                 encoding_cfg=mp["encoding_cfg"])
+    f.reset_parameters(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-1.0, 1.0, (256 * 32, 3)).astype(np.float32)
+    rays = rng.integers(-1, 4, 256)
+    w1, w3 = cs.cotangents((256 * 32,), 5, dev), cs.cotangents((256 * 32, 3), 6, dev)
+    grads = []
+    for field, d in ((f.to(dev), dev), (copy.deepcopy(f).cpu(), torch.device("cpu"))):
+        bidx = _t(rays, d)[:, None].expand(256, 32)
+        sdf, nablas, _ = field.sdf_nablas_feat(_t(x, d), bidx=bidx)
+        ((sdf * w1.to(d)).sum() + (nablas * w3.to(d)).sum()).backward()
+        grads.append(field.latents.grad.cpu())
+    _rel_close(grads[:1], grads[1:], cs.GRAD_REL)
+
+
+def _cp_lines_sets(dev):
+    _, _, _, params = build_compose_renderer(WAYMO_DEMO_MULTI, device=dev)
+    return cs.cp_lines_sets(dev, [(m, params[f"{m}#demo_drive"].encoding)
+                                  for m in ("Street", "Vehicle")])
+
+
+@pytest.mark.parametrize("case", range(3), ids=["street", "vehicles", "edge ladder"])
+def test_k14_cp_lines(dev, case):
+    """Forward bit-equal, backward at GRAD_REL (a cotangent in K1 bwd's
+    layout) with the same bits twice."""
+    cs.check_cp_lines(dev, _cp_lines_sets(dev)[case:case + 1])
+
+
+def test_k14_under_autograd_on_card_matches_cpu(dev):
+    """The bench ladder's stacked lines (12 levels of F 8 to 1,024) through
+    cp_stacked_lines: equal on both devices, and the table's gradient from a
+    transposed cotangent at GRAD_REL."""
+    enc = lotd.make_lotd(BENCH_OBJECT["models"]["cr"]["params"]["encoding_cfg"])
+    enc.reset_parameters(torch.Generator().manual_seed(0))
+    g = cs.cotangents((3, enc.cp_rmax, enc.cp_out_dim), 8, dev).transpose(1, 2)
+    lines, grads = [], []
+    for e, d in ((enc.to(dev), dev), (copy.deepcopy(enc).cpu(), torch.device("cpu"))):
+        out = e.cp_stacked_lines()
+        (out * g.to(d)).sum().backward()
+        lines.append(out.detach().cpu())
+        grads.append(e.table.grad.cpu())
+    assert torch.equal(lines[0], lines[1])
+    _rel_close(grads[:1], grads[1:], cs.GRAD_REL)

@@ -45,7 +45,7 @@ def test_importing_every_module_loads_no_jax():
               "models.asset_base", "renderers.buffer_compose", "training.multi_trainer",
               "training.error_map", "dataio.dataloader", "scene.observers.lidars",
               "tools.train_multi", "models.assets", "ops.pair_compact",
-              "dataio.synthetic_multi", "fields.encodings.permuto"):
+              "dataio.synthetic_multi", "fields.encodings.permuto", "ops.latent_take"):
         assert f"neuralsim_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -63,7 +63,7 @@ def test_sources_do_not_import_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|neuralsim_tpu)\b", re.M)
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for new in ("ops/pair_compact.py", "dataio/synthetic_multi.py", "accel/occ_grid.py",
-                "fields/encodings/permuto.py", "fields/conditional.py"):
+                "fields/encodings/permuto.py", "fields/conditional.py", "ops/latent_take.py"):
         assert PKG / new in files
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -120,7 +120,8 @@ def test_ctypes_signatures_match_the_cuda_sources():
                   "occ_ray_proposal", "occ_ema_update", "cross_source_vw",
                   "cross_source_vw_bwd", "pair_compact", "lotd_cp_level_fwd",
                   "lotd_cp_level_bwd", "neus_composite_fwd", "neus_composite_bwd",
-                  "permuto_fwd", "permuto_bwd"):
+                  "permuto_fwd", "permuto_bwd", "latent_take_fwd", "latent_take_bwd",
+                  "lotd_cp_lines_fwd", "lotd_cp_lines_bwd"):
         assert entry in found
 
 
@@ -131,13 +132,15 @@ def test_every_kernel_is_registered_once_with_its_source():
     import neuralsim_torch.accel.occ_grid  # noqa: F401
     import neuralsim_torch.ops.pair_compact  # noqa: F401
     import neuralsim_torch.fields.encodings.permuto  # noqa: F401
+    import neuralsim_torch.ops.latent_take  # noqa: F401
     names = set(kernels.KERNELS)
     assert names == {"lotd_cp_stacked", "lotd_cp_stacked.bwd", "lotd_grid", "lotd_grid.bwd",
                      "neus_upsample.weights_pdf", "neus_upsample.merge", "volume_composite",
                      "volume_composite.bwd", "occ_ray_proposal", "occ_ema_update",
                      "cross_source_vw", "cross_source_vw.bwd", "occ_ray_proposal_batched",
                      "pair_compact", "lotd_cp_level", "lotd_cp_level.bwd", "neus_composite",
-                     "neus_composite.bwd", "permuto", "permuto.bwd"}
+                     "neus_composite.bwd", "permuto", "permuto.bwd", "latent_take",
+                     "latent_take.bwd", "lotd_cp_lines", "lotd_cp_lines.bwd"}
     for k in kernels.KERNELS.values():
         assert (ROOT / k.source).exists() and re.match(r"neuralsim_tpu/.+\.py:\d+$", k.replaces)
         assert (ROOT / k.replaces.split(":")[0]).exists()
