@@ -141,10 +141,12 @@ Phases, in order; any failure raises and the script exits non-zero:
  12. permuto vehicles (WAYMO_DEMO_PERMUTO: the 3 vehicles on one
      ADGenerativePermutoConcatNeuSObj, a permutohedral NeuS over
      concat(xyz01, sigmoid(z)), d 11, 12 levels of F 2 to 256, 2^17 rows a
-     level): K9 forward (with and without the jacobian) and backward (each
-     cotangent; the table's and the inputs' gradients) against their plain
-     versions at the pixel step's final query [196,608, 11], at
-     PermutoNeuSObj's ladder (d 3, to 512) and at d 4; 4 frames of 80x120
+     level): K9 forward (with and without the jacobian; its entries that
+     are not bit-equal counted) and backward (each cotangent; the table's
+     and the inputs' gradients, the latter the same bits on two calls)
+     against their plain versions at the pixel step's final query
+     [196,608, 11] on uniform points and on depth-sorted ray samples, at
+     PermutoNeuSObj's ladder (d 3, to 512), at d 4 and at d 7; 4 frames of 80x120
      (K9 forward, never K3) with a crop held to the CPU path at its street
      depths; the first iteration card vs CPU at the CPU path's sample depths
      (the permuto table and the latents among the leaves); one LiDAR and one
@@ -4064,6 +4066,22 @@ def permuto_points(n, d, seed, n_instances=3):
     return x
 
 
+def permuto_ray_points(n_rays, s, d, seed, n_instances=3):
+    """[n_rays s, d] lattice inputs ordered as the pixel step's final query
+    gives them: ``s`` depth-sorted samples on each chord of the box, ray
+    after ray, the rays split evenly over ``n_instances`` vehicles, each ray
+    with its vehicle's sigmoid(z) (drawn N(0, 0.5)) past xyz."""
+    rng = np.random.default_rng(seed)
+    a, b = rng.random((2, n_rays, 1, 3))
+    u = np.sort(rng.random((n_rays, s, 1)), 1)
+    x = np.empty((n_rays, s, d), np.float32)
+    x[..., :3] = a + (b - a) * u
+    if d > 3:
+        z = 1.0 / (1.0 + np.exp(-rng.normal(0.0, 0.5, (n_instances, d - 3))))
+        x[..., 3:] = z[np.arange(n_rays) * n_instances // n_rays][:, None, :]
+    return x.reshape(-1, d)
+
+
 def permuto_set(label, enc, n, seed, dev):
     """(label, encoding, a seeded table of trained magnitude (N(0, 0.1)) on
     the card, inputs [n, d] on the card) for check_permuto."""
@@ -4077,20 +4095,24 @@ def permuto_set(label, enc, n, seed, dev):
 def check_permuto(dev, sets):
     """K9 forward (with and without the jacobian) and backward (cotangents of
     the features, of the jacobian, of both) against their plain versions on
-    each of ``sets`` ((label, encoding, table, x01)) -> ({kernel: (max_abs_err,
-    tol)}, each set's inputs kept for timing)."""
+    each of ``sets`` ((label, encoding, table, x01)); the inputs' gradient
+    must be the same bits on two calls. -> ({kernel: (max_abs_err, tol)},
+    each set's inputs kept for timing)."""
     import torch
     from neuralsim_torch.fields.encodings import permuto as pm
     ef, eb, shapes = [], [], {}
     for k, (label, enc, table, x) in enumerate(sets):
         (N, d), C = x.shape, enc.out_dim
-        a = (table, x, enc._res, enc._meta, enc._lat, enc.table_size)
-        what = (f"{label}: N={N} d={d}, {enc.n_levels} levels of F {enc.levels[0][1]}, res "
-                f"{enc.levels[0][0]:g}..{enc.levels[-1][0]:g}, T {enc.table_size}")
+        a = (table, x, enc._res, enc._meta, enc.table_size)
+        fs = sorted({nf for _, nf in enc.levels})
+        what = (f"{label}: N={N} d={d}, {enc.n_levels} levels of F {'/'.join(map(str, fs))}, "
+                f"res {enc.levels[0][0]:g}..{enc.levels[-1][0]:g}, T {enc.table_size}")
         for jac in (False, True):
-            ef.append(compare(f"K9 permuto {what} jac={jac}", pm.permuto(*a, C, jac),
-                              pm.permuto_plain(*a, jac), **K9_TOL))
-        d_out, d_jac = cotangents((C, N), 90 + k, dev), cotangents((3, C, N), 95 + k, dev)
+            got, want = pm.permuto(*a, C, jac), pm.permuto_plain(*a, jac)
+            ef.append(compare(f"K9 permuto {what} jac={jac}", got, want, **K9_TOL))
+            differ = sum(int((g != w).sum()) for g, w in zip(got, want) if w is not None)
+            log(f"check K9 permuto {what} jac={jac}: {differ} entries not bit-equal")
+        d_out, d_jac = cotangents((N, C), 90 + k, dev), cotangents((N, C, 3), 95 + k, dev)
         for name, do, dj in (("both", d_out, d_jac), ("feats", d_out, None),
                              ("jac", None, d_jac)):
             gt, gx = pm.permuto_bwd(*a, do, dj)
@@ -4100,6 +4122,8 @@ def check_permuto(dev, sets):
             if dj is None or do is not None:
                 eb.append(compare_rel(f"K9 bwd {what} cotangents={name}, d x01", [gx], [wx],
                                       K9_DX_REL))
+                if not torch.equal(gx, pm.permuto_bwd(*a, do, dj)[1]):
+                    raise AssertionError(f"K9 bwd {what}: d x01 differs between two calls")
             elif gx.abs().max() != 0:
                 raise AssertionError("K9 bwd: the jacobian's cotangent reached x01")
         shapes[label] = dict(args=a, C=C, grads=(d_out, d_jac), what=what)
@@ -4152,7 +4176,7 @@ def time_permuto(shapes, ladder_n):
     from neuralsim_torch.fields.encodings import permuto as pm
     out = {"permuto": [], "permuto.bwd": []}
     for i, (label, sh) in enumerate(shapes.items()):
-        table, x, res, meta, lat, size = sh["args"]
+        table, x, res, meta, size = sh["args"]
         C, (d_out, d_jac) = sh["C"], sh["grads"]
         (N, d), L, F = x.shape, res.shape[0], int(meta[0, 1])
         tb = table.numel() * 4
@@ -4167,9 +4191,9 @@ def time_permuto(shapes, ladder_n):
             runs.append((f"{label}: N={ladder_n} d={d} (the upsample ladder), no jacobian",
                          ladder_n, False))
         for what, n, jac in runs:
-            a = (table, x[:n], res, meta, lat, size)
+            a = (table, x[:n], res, meta, size)
             out["permuto"].append(dict(
-                shape=what, ms=cuda_ms(lambda: pm.permuto(*a, C, jac)),
+                shape=what, **card_ms(lambda: pm.permuto(*a, C, jac)),
                 plain_ms=cuda_ms(lambda: pm.permuto_plain(*a, jac), reps=3), library_ms=None,
                 # x01 and the table read, features (and jacobian) written
                 bound=bound(n * d * 4 + tb + n * C * 4 * (4 if jac else 1),
@@ -4177,7 +4201,7 @@ def time_permuto(shapes, ladder_n):
         a = sh["args"]
         out["permuto.bwd"].append(dict(
             shape=sh["what"] + ", cotangents of features and jacobian, d x01",
-            ms=cuda_ms(lambda: pm.permuto_bwd(*a, d_out, d_jac)),
+            **card_ms(lambda: pm.permuto_bwd(*a, d_out, d_jac)),
             plain_ms=cuda_ms(lambda: pm.permuto_bwd_plain(*a, d_out, d_jac), reps=3),
             library_ms=None,
             # x01, the table and both cotangents read; the table's and the
@@ -4233,16 +4257,23 @@ def permuto_phase(dev, profile_it, stacked):
                                  "of F 2 and 2^17 rows")
 
     # K9 at the pixel step's final query (3 vehicles x 2,048 rows x 32
-    # samples, d 11), at PermutoNeuSObj's ladder (d 3, 12 levels to 512) and
-    # at d 4
+    # samples, d 11) on uniform points and in the step's own order (each
+    # ray's depth-sorted samples, a warp a ray), at PermutoNeuSObj's ladder
+    # (d 3, 12 levels to 512), at d 4 and at d 7
     n_final, n_ladder = 3 * MULTI_RAYS // 2 * 32, 3 * MULTI_RAYS // 2 * 24
+    ray_set = permuto_set("vehicles, pixel step, ray samples", enc, n_final, 104, dev)
+    ray_set = ray_set[:3] + (torch.from_numpy(permuto_ray_points(
+        3 * MULTI_RAYS // 2, 32, 11, 104)).to(dev),)
     errs, shapes = check_permuto(dev, (
-        permuto_set("vehicles, pixel step", enc, n_final, 100, dev),
+        permuto_set("vehicles, pixel step", enc, n_final, 100, dev), ray_set,
         permuto_set("PermutoNeuSObj ladder", PermutoEncoding(
             3, n_levels=12, base_res=4.0, max_res=512.0, log2_hashmap_size=17), n_final, 101,
             dev),
         permuto_set("d 4", PermutoEncoding(4, n_levels=12, base_res=4.0, max_res=256.0,
-                                           log2_hashmap_size=17), n_final, 102, dev)))
+                                           log2_hashmap_size=17), n_final, 102, dev),
+        permuto_set("d 7 (a latent of 4)", PermutoEncoding(
+            7, n_levels=12, base_res=4.0, max_res=256.0, log2_hashmap_size=17), n_final, 103,
+            dev)))
 
     # the render: 4 frames, a crop against the CPU path at its street depths
     H, W = (int(v) for v in scene_r.nodes[COMPOSE_CAM].frame_data["hw"][0].tolist())
@@ -4312,8 +4343,9 @@ def permuto_phase(dev, profile_it, stacked):
     times = time_permuto(shapes, n_ladder)
     for name, ts in times.items():
         for t in ts:
-            log(f"kernel {name} (permuto path): {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
-                f"bound {t['bound'][0]:.4f} by {t['bound'][1]}) at {t['shape']}")
+            log(f"kernel {name} (permuto path): {t['ms']:.4f} ms ({card_extra(t)[2:]}, plain "
+                f"{t['plain_ms']:.4f}, bound {t['bound'][0]:.4f} by {t['bound'][1]}) at "
+                f"{t['shape']}")
     summary = {"permuto_build_s": timings, "permuto_crop_by_ray": by_ray,
                "permuto_first_iteration_loss_rel_err": loss_err,
                "permuto_first_iteration_grad_rel_err": grad_err,
@@ -4923,7 +4955,8 @@ def main(argv) -> int:
                 permuto["launches_render"][name] / permuto["n_frames"]}
         for c in permuto["times"].get(name, []):
             row["permuto"].setdefault("times", []).append(
-                {"ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0],
+                {"ms": c["ms"], **card_keys(c), "plain_ms": c["plain_ms"],
+                 "bound_ms": c["bound"][0],
                  "bound_by": c["bound"][1], "library_ms": c["library_ms"], "shape": c["shape"]})
         q = row["permuto"]
         log(f"kernel {name} (permuto path: {q['launches_per_lidar_step']} launches per LiDAR "

@@ -1,6 +1,7 @@
 // Runs of equal keys among the 32 lanes of a warp, for the backward kernels
-// that scatter-add into small tables: K3's (lotd_grid.cu) and the CP lines'
-// of K1 (lotd_cp_stacked.cu) and K2 (lotd_cp_level.cu).
+// that scatter-add into small tables: K3's (lotd_grid.cu), the CP lines' of
+// K1 (lotd_cp_stacked.cu) and K2 (lotd_cp_level.cu), and the permutohedral
+// lattice's (K9, permuto.cu).
 //
 // The renderer flattens [rays, samples], so the lanes of a warp hold
 // neighbouring samples of one ray, and at coarse resolutions many of them add

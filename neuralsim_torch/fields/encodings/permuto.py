@@ -18,7 +18,13 @@ The lookup is kernel K9 (``csrc/permuto.cu``): its wrapper takes the plain
 version below for tensors on the CPU and launches the kernel for CUDA
 tensors. The plain version is the JAX math op for op (elevate, round, rank
 with the index tie-break, wrap, one-hot barycentrics, vertex keys, uint32
-hash), so its vertices and rows are the JAX package's bit for bit.
+hash), so its vertices and rows are the JAX package's bit for bit. Both
+return point-major features [N, C] and jacobian [N, C, 3], the layout the
+field reads. The kernel reads the table interleaved, each level's slab as
+[T, F] (a vertex's features side by side): its wrapper hands it a scratch
+that the launch fills from the parameter first (``interleave_plain`` is that
+copy's plain version, ``deinterleave_plain`` the way back for the
+gradient), so the parameter and every public function keep the JAX layout.
 
 Training: on the CPU autograd differentiates the plain version; on the card
 one ``torch.autograd.Function`` runs K9's forward and backward (the table's
@@ -81,13 +87,6 @@ def lattice_constants(d: int) -> Tuple[List[float], List[float]]:
     diag = [-(c + 1) * sf[c] for c in range(d)]
     f32 = lambda v: torch.tensor(v, dtype=torch.float32).tolist()
     return f32(sf), f32(diag)
-
-
-def lattice_tensor(d: int) -> torch.Tensor:
-    """K9's constants of width d: sf [d], the diagonal [d] and f32(1 / (d+1)),
-    float32 [2 d + 1]."""
-    sf, diag = lattice_constants(d)
-    return torch.tensor(sf + diag + [1.0 / (d + 1)], dtype=torch.float32)
 
 
 def elevation_matrix(d: int) -> torch.Tensor:
@@ -156,15 +155,36 @@ def simplex(pos: torch.Tensor, jac_dims: int = 0):
     return keys, bary[:d + 1], dbary[:d + 1]
 
 
+def interleave_plain(table: torch.Tensor, meta: torch.Tensor, table_size: int) -> torch.Tensor:
+    """The table as K9's kernels read it: each level's slab [F, T] (the JAX
+    layout) stored as [T, F]."""
+    out = table.clone()
+    for off, nf, _ in meta.tolist():
+        n = nf * table_size
+        out[off:off + n] = table[off:off + n].view(nf, table_size).T.reshape(-1)
+    return out
+
+
+def deinterleave_plain(table_i: torch.Tensor, meta: torch.Tensor, table_size: int
+                       ) -> torch.Tensor:
+    """The inverse of :func:`interleave_plain`: [T, F] slabs back to [F, T]."""
+    out = table_i.clone()
+    for off, nf, _ in meta.tolist():
+        n = nf * table_size
+        out[off:off + n] = table_i[off:off + n].view(table_size, nf).T.reshape(-1)
+    return out
+
+
 def permuto_plain(table: torch.Tensor, x01: torch.Tensor, res: torch.Tensor,
-                  meta: torch.Tensor, lat: torch.Tensor, table_size: int, with_jac: bool
+                  meta: torch.Tensor, table_size: int, with_jac: bool
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain version of K9. table: flat float32; x01: [N, d] float32 in
-    [0, 1] (already clipped); res: float32 [L]; meta: int32 [L, 3] (table
-    offset, F, first output row; levels in order); lat: K9's constants
-    (:func:`lattice_tensor`; the plain version forms them itself). ->
-    (features [C, N], jacobian [3, C, N] with respect to x01[:, :3], or
-    None)."""
+    """Plain version of K9. table: flat float32 in the JAX layout; x01: [N, d]
+    float32 in [0, 1] (already clipped); res: float32 [L]; meta: int32 [L, 3]
+    (table offset, F, first output row; levels in order). The lattice
+    constants come from :func:`lattice_constants` (the kernels form the same
+    float32 values from d on the host). ->
+    (features [N, C], jacobian [N, C, 3] with respect to x01[:, :3], or
+    None), as views of feature-major sums."""
     xf = x01.T                                                   # [d, N]
     outs, jacs = [], []
     for r, (off, nf, _) in zip(res.tolist(), meta.tolist()):
@@ -182,13 +202,13 @@ def permuto_plain(table: torch.Tensor, x01: torch.Tensor, res: torch.Tensor,
         outs.append(acc)
         if with_jac:
             jacs.append(jac)
-    out = torch.cat(outs, 0)
-    return out, (torch.cat(jacs, 0).transpose(0, 1) if with_jac else None)
+    out = torch.cat(outs, 0).T
+    return out, (torch.cat(jacs, 0).permute(2, 0, 1) if with_jac else None)
 
 
 def _check(name: str, table: torch.Tensor, x01: torch.Tensor, res: torch.Tensor,
-           meta: torch.Tensor, lat: torch.Tensor, table_size: int) -> int:
-    kernels.check_cuda(name, table, x01, res, meta, lat)
+           meta: torch.Tensor, table_size: int) -> int:
+    kernels.check_cuda(name, table, x01, res, meta)
     d = x01.shape[1] if x01.dim() == 2 else 0
     if x01.dtype != torch.float32 or d not in CARD_DIMS:
         raise ValueError(f"{name}: x01 must be [N, d] float32 with d in {CARD_DIMS}, got "
@@ -198,42 +218,43 @@ def _check(name: str, table: torch.Tensor, x01: torch.Tensor, res: torch.Tensor,
     L = res.shape[0]
     if res.dtype != torch.float32 or meta.dtype != torch.int32 or meta.shape != (L, 3):
         raise ValueError(f"{name}: res must be float32 [L] and meta int32 [L, 3]")
-    if lat.dtype != torch.float32 or lat.shape != (2 * d + 1,):
-        raise ValueError(f"{name}: lat must be float32 [2 d + 1]")
     if table_size <= 0 or table_size & (table_size - 1):
         raise ValueError(f"{name}: the table size must be a power of two")
     return d
 
 
 def permuto(table: torch.Tensor, x01: torch.Tensor, res: torch.Tensor, meta: torch.Tensor,
-            lat: torch.Tensor, table_size: int, n_out: int, with_jac: bool
+            table_size: int, n_out: int, with_jac: bool
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K9 wrapper: the plain version on the CPU, the CUDA kernel on the card.
-    ``meta`` must describe levels inside ``table`` and rows inside the
-    ``n_out`` features."""
+    """K9 wrapper: the plain version on the CPU, the CUDA kernel on the card
+    (the launch first fills a scratch with the interleaved table). ``meta``
+    must describe levels inside ``table`` and rows inside the ``n_out``
+    features. -> (features [N, n_out], jacobian [N, n_out, 3] or None)."""
     if x01.device.type == "cpu":
-        return permuto_plain(table, x01, res, meta, lat, table_size, with_jac)
-    d = _check("permuto", table, x01, res, meta, lat, table_size)
+        return permuto_plain(table, x01, res, meta, table_size, with_jac)
+    d = _check("permuto", table, x01, res, meta, table_size)
     N = x01.shape[0]
-    out = torch.empty((n_out, N), dtype=torch.float32, device=x01.device)
-    jac = torch.empty((JAC_DIMS, n_out, N), dtype=torch.float32, device=x01.device) \
+    out = torch.empty((N, n_out), dtype=torch.float32, device=x01.device)
+    jac = torch.empty((N, n_out, JAC_DIMS), dtype=torch.float32, device=x01.device) \
         if with_jac else None
+    table_i = torch.empty_like(table)
     K9.launch("permuto_fwd", kernels.ptr(table), kernels.ptr(x01), kernels.ptr(res),
-              kernels.ptr(meta), kernels.ptr(lat), kernels.ptr(out), kernels.ptr(jac), N, d,
-              res.shape[0], n_out, table_size, kernels.stream())
+              kernels.ptr(meta), kernels.ptr(table_i), kernels.ptr(out),
+              kernels.ptr(jac), N, d, res.shape[0], n_out, table_size, kernels.stream())
     return out, jac
 
 
 def permuto_bwd_plain(table: torch.Tensor, x01: torch.Tensor, res: torch.Tensor,
-                      meta: torch.Tensor, lat: torch.Tensor, table_size: int,
+                      meta: torch.Tensor, table_size: int,
                       d_out: Optional[torch.Tensor], d_jac: Optional[torch.Tensor],
                       need_dx: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Plain version of K9's backward: autograd of the plain forward. ->
-    (d table [numel] float32, d x01 [N, d] or None)."""
+    """Plain version of K9's backward: autograd of the plain forward, whose
+    cotangents are d_out [N, C] and d_jac [N, C, 3]. -> (d table [numel]
+    float32, d x01 [N, d] or None)."""
     with torch.enable_grad():
         t = table.detach().requires_grad_(True)
         x = x01.detach().requires_grad_(need_dx)
-        out, jac = permuto_plain(t, x, res, meta, lat, table_size, d_jac is not None)
+        out, jac = permuto_plain(t, x, res, meta, table_size, d_jac is not None)
         loss = 0.0
         if d_out is not None:
             loss = loss + torch.sum(out * d_out)
@@ -246,30 +267,38 @@ def permuto_bwd_plain(table: torch.Tensor, x01: torch.Tensor, res: torch.Tensor,
 
 
 def permuto_bwd(table: torch.Tensor, x01: torch.Tensor, res: torch.Tensor, meta: torch.Tensor,
-                lat: torch.Tensor, table_size: int, d_out: Optional[torch.Tensor],
+                table_size: int, d_out: Optional[torch.Tensor],
                 d_jac: Optional[torch.Tensor], need_dx: bool = True
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K9 backward wrapper: the table's gradient from both cotangents (float32
-    atomics on the card, so its last bits vary from run to run) and, with
-    ``need_dx``, the gradient of x01 (one thread a point sums its levels)."""
+    """K9 backward wrapper: the table's gradient from both cotangents (d_out
+    [N, C], d_jac [N, C, 3]; on the card float32 atomics into an interleaved
+    scratch, copied back into the JAX layout, so its last bits vary from run
+    to run) and, with ``need_dx``, the gradient of x01 (deterministic: the
+    levels summed in a fixed order). ``meta``'s levels must tile the table,
+    as :class:`PermutoEncoding` lays it out: the card writes the table's
+    gradient level slab by level slab."""
     if x01.device.type == "cpu":
-        return permuto_bwd_plain(table, x01, res, meta, lat, table_size, d_out, d_jac, need_dx)
-    d = _check("permuto_bwd", table, x01, res, meta, lat, table_size)
+        return permuto_bwd_plain(table, x01, res, meta, table_size, d_out, d_jac, need_dx)
+    d = _check("permuto_bwd", table, x01, res, meta, table_size)
     N = x01.shape[0]
     given = [g for g in (d_out, d_jac) if g is not None]
     kernels.check_cuda("permuto_bwd", x01, *given)
-    n_out = given[0].shape[-2] if given else 0
-    if d_out is not None and (d_out.dtype != torch.float32 or d_out.shape != (n_out, N)):
-        raise ValueError("permuto_bwd: d_out must be [C, N] float32")
+    n_out = given[0].shape[1] if given else 0
+    if d_out is not None and (d_out.dtype != torch.float32 or d_out.shape != (N, n_out)):
+        raise ValueError("permuto_bwd: d_out must be [N, C] float32")
     if d_jac is not None and (d_jac.dtype != torch.float32
-                              or d_jac.shape != (JAC_DIMS, n_out, N)):
-        raise ValueError("permuto_bwd: d_jac must be [3, C, N] float32")
-    d_table = torch.zeros_like(table)
+                              or d_jac.shape != (N, n_out, JAC_DIMS)):
+        raise ValueError("permuto_bwd: d_jac must be [N, C, 3] float32")
     d_x = torch.empty_like(x01) if need_dx else None
     if not given:
-        return d_table, (None if d_x is None else d_x.zero_())
+        return torch.zeros_like(table), (None if d_x is None else d_x.zero_())
+    d_table = torch.empty_like(table)
+    # the interleaved table is read only for d x01 from the features' cotangent
+    table_i = torch.empty_like(table) if need_dx and d_out is not None else None
+    grad_i = torch.zeros_like(table)
     K9_BWD.launch("permuto_bwd", kernels.ptr(table), kernels.ptr(x01), kernels.ptr(res),
-                  kernels.ptr(meta), kernels.ptr(lat), kernels.ptr(d_out), kernels.ptr(d_jac),
+                  kernels.ptr(meta), kernels.ptr(d_out), kernels.ptr(d_jac),
+                  kernels.ptr(table_i), kernels.ptr(grad_i),
                   kernels.ptr(d_table), kernels.ptr(d_x), N, d, res.shape[0], n_out,
                   table_size, kernels.stream())
     return d_table, d_x
@@ -280,24 +309,24 @@ class _PermutoOnCard(torch.autograd.Function):
     inputs."""
 
     @staticmethod
-    def forward(ctx, table, x01, res, meta, lat, table_size, n_out, with_jac):
-        out, jac = permuto(table, x01, res, meta, lat, table_size, n_out, with_jac)
-        ctx.save_for_backward(table, x01, res, meta, lat)
+    def forward(ctx, table, x01, res, meta, table_size, n_out, with_jac):
+        out, jac = permuto(table, x01, res, meta, table_size, n_out, with_jac)
+        ctx.save_for_backward(table, x01, res, meta)
         ctx.table_size = table_size
         ctx.set_materialize_grads(False)
         return out, jac
 
     @staticmethod
     def backward(ctx, d_out, d_jac):
-        table, x01, res, meta, lat = ctx.saved_tensors
+        table, x01, res, meta = ctx.saved_tensors
         if (d_out is None and d_jac is None) or not any(ctx.needs_input_grad[:2]):
-            return (None,) * 8
+            return (None,) * 7
         d_out = None if d_out is None else d_out.contiguous()
         d_jac = None if d_jac is None else d_jac.contiguous()
-        d_table, d_x = permuto_bwd(table, x01, res, meta, lat, ctx.table_size, d_out, d_jac,
+        d_table, d_x = permuto_bwd(table, x01, res, meta, ctx.table_size, d_out, d_jac,
                                    ctx.needs_input_grad[1])
         return (d_table if ctx.needs_input_grad[0] else None, d_x,
-                None, None, None, None, None, None)
+                None, None, None, None, None)
 
 
 class PermutoEncoding(nn.Module):
@@ -338,7 +367,6 @@ class PermutoEncoding(nn.Module):
                                                   dtype=torch.float32), persistent=False)
         self.register_buffer("_meta", torch.tensor(meta, dtype=torch.int32).reshape(-1, 3),
                              persistent=False)
-        self.register_buffer("_lat", lattice_tensor(input_dim), persistent=False)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -358,15 +386,15 @@ class PermutoEncoding(nn.Module):
         lead = x.shape[:-1]
         xf = clip01(x.reshape(-1, self.input_dim).to(torch.float32)).contiguous()
         if xf.device.type == "cpu":          # the plain version, under autograd
-            out, jac = permuto_plain(self.table, xf, self._res, self._meta, self._lat,
+            out, jac = permuto_plain(self.table, xf, self._res, self._meta,
                                      self.table_size, with_jac)
         else:
-            out, jac = _PermutoOnCard.apply(self.table, xf, self._res, self._meta, self._lat,
+            out, jac = _PermutoOnCard.apply(self.table, xf, self._res, self._meta,
                                             self.table_size, self.out_dim, with_jac)
-        h = out.T.reshape(lead + (self.out_dim,))
+        h = out.reshape(lead + (self.out_dim,))
         if not with_jac:
             return h
-        return h, jac.permute(2, 1, 0).reshape(lead + (self.out_dim, JAC_DIMS))
+        return h, jac.reshape(lead + (self.out_dim, JAC_DIMS))
 
     def forward(self, x: torch.Tensor, cp_lines: None = None,
                 bidx: Optional[torch.Tensor] = None) -> torch.Tensor:

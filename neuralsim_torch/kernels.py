@@ -52,7 +52,7 @@ SIGNATURES: Dict[str, str] = {
     "cross_source_vw_bwd": "ppppppiip",
     "pair_compact": "ppppppiiiip",
     "permuto_fwd": "pppppppiiiiip",
-    "permuto_bwd": "pppppppppiiiiip",
+    "permuto_bwd": "ppppppppppiiiiip",
     "latent_take_fwd": "pppiiiiip",
     "latent_take_bwd": "ppppiiiiiiip",
     "lotd_cp_lines_fwd": "pppppiip",

@@ -26,7 +26,18 @@ conditional LoTD field's decoder input (K13 where the checkout has it,
 196,608 points (3 runs) and the crowd's (8 instances round-robin), and the
 stacked lines forward and backward through ``cp_stacked_lines`` (K14 where
 the checkout has it, the plain glue before) for the street and the
-vehicles, each with the device kernels that one call launches.
+vehicles, each with the device kernels that one call launches; K9 (the
+permutohedral lattice) at the permuto path's shapes: its forward with the
+jacobian at the pixel step's final query (196,608 points, d 11), without it
+at the upsample ladder's 147,456, its backward from both cotangents, on
+uniform points and on depth-sorted ray samples (this checkout's
+``permuto_ray_points``, the order the pixel step queries in), and
+PermutoNeuSObj's d 3 ladder alike, then forward and backward through
+``PermutoEncoding.with_jacobian`` under autograd with the kernels a call
+launches (the layout copies around K9 show there). Each checkout's K9 takes
+its own arguments and cotangent layout: where its functions take the
+lattice constants (``lat``), feature-major cotangents ([C, N], [3, C, N]),
+else point-major ones.
 Every root is timed by this checkout's chip_smoke.py: "ms", CUDA events over
 20 calls back to back (``cuda_ms``: the host's pace where it is the slower);
 "queued_ms", the same while the card was held busy as the host queued them;
@@ -184,6 +195,40 @@ def time_root(root: str) -> dict:
         fn = lambda: torch.autograd.grad(e.cp_stacked_lines(), e.table, g)
         out[f"stacked lines fwd+bwd {label} F_cp={e.cp_out_dim} R_max={e.cp_rmax}"] = {
             **timed(fn), "kernels": kernels_a_call(fn)}
+    from neuralsim_torch.fields.encodings import permuto as pm
+    # a K9 that takes the lattice constants (``lat``, after the level
+    # metadata) writes feature-major outputs
+    takes_lat = "lat" in inspect.signature(pm.permuto).parameters
+    for label, d, max_res, seed, rays in (("vehicles", 11, 256.0, 100, False),
+                                          ("vehicles, ray-ordered", 11, 256.0, 100, True),
+                                          ("PermutoNeuSObj ladder", 3, 512.0, 101, False)):
+        enc = pm.PermutoEncoding(d, n_levels=12, base_res=4.0, max_res=max_res,
+                                 log2_hashmap_size=17)
+        _, enc, table, x = cs.permuto_set(label, enc, 196_608, seed, dev)
+        if rays:
+            x = T(tm.permuto_ray_points(6144, 32, d, 7))
+        N, C = x.shape[0], enc.out_dim
+        tag = f"K9 {label} d={d} T={enc.table_size}"
+        a = (table, x, enc._res, enc._meta) + ((enc._lat,) if takes_lat else ()) \
+            + (enc.table_size,)
+        out[f"{tag} fwd with jacobian N={N}"] = timed(lambda: pm.permuto(*a, C, True))
+        a2 = (table, x[:147_456]) + a[2:]
+        out[f"{tag} fwd no jacobian N=147456"] = timed(lambda: pm.permuto(*a2, C, False))
+        point_major = not takes_lat
+        go = cs.cotangents((N, C) if point_major else (C, N), 31, dev)
+        gj = cs.cotangents((N, C, 3) if point_major else (3, C, N), 32, dev)
+        out[f"{tag} bwd both cotangents, d x01 N={N}"] = timed(
+            lambda: pm.permuto_bwd(*a, go, gj))
+        with torch.no_grad():
+            enc.table.copy_(table)
+        xg = x.clone().requires_grad_(True)
+        ch, cj = cs.cotangents((N, C), 33, dev), cs.cotangents((N, C, 3), 34, dev)
+
+        def through_module():
+            h, j = enc.with_jacobian(xg)
+            return torch.autograd.grad([h, j], [enc.table, xg], [ch, cj])
+        out[f"{tag} with_jacobian fwd+bwd under autograd N={N}"] = {
+            **timed(through_module), "kernels": kernels_a_call(through_module)}
     torch.cuda.synchronize()
     out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"], capture_output=True, text=True,

@@ -34,9 +34,12 @@ tolerances, its backward at chip_smoke.GRAD_REL (also for a level past the
 backward's shared memory); K12 (the NeuS alpha inside the composite) at
 chip_smoke.K12_TOL, its backward at chip_smoke.GRAD_REL. K9 (the permuto
 lattice) at chip_smoke.K9_TOL, its table gradient at chip_smoke.GRAD_REL and
-its inputs' gradient at chip_smoke.K9_DX_REL, the permuto field under
-autograd against the CPU at GRAD_REL, and the permuto vehicles' first
-iteration as the multi-object one.
+its inputs' gradient at chip_smoke.K9_DX_REL (the same bits on two calls),
+at d 3, 4, 7 and 11, at 1, 32 and 196,608 points, on a table of 16 rows (hash
+collisions everywhere), with levels of F 1-4, with rows past the shared
+memory a block stages, and after an in-place update of the table; the
+permuto field under autograd against the CPU at GRAD_REL, and the permuto
+vehicles' first iteration as the multi-object one.
 """
 import contextlib
 import copy
@@ -944,17 +947,63 @@ def _permuto_encoding(d):
 @pytest.mark.parametrize("d", pm.CARD_DIMS)
 def test_k9_permuto_forward_and_backward(dev, d):
     """Features (with and without the jacobian), the table's gradient from
-    each cotangent and the inputs' gradient, against the plain versions."""
+    each cotangent and the inputs' gradient (the same bits on two calls),
+    against the plain versions."""
     n0 = kernels.KERNELS["permuto.bwd"].launches
     cs.check_permuto(dev, [cs.permuto_set(f"d {d}", _permuto_encoding(d), 50_000, 200 + d, dev)])
-    assert kernels.KERNELS["permuto.bwd"].launches == n0 + 3
+    assert kernels.KERNELS["permuto.bwd"].launches == n0 + 5
+
+
+@pytest.mark.parametrize("n", [1, 32, 196_608])
+@pytest.mark.parametrize("d", pm.CARD_DIMS)
+def test_k9_permuto_point_counts(dev, d, n):
+    """One point, one warp's 32 and the permuto pixel step's 196,608."""
+    cs.check_permuto(dev, [cs.permuto_set(f"d {d}", _permuto_encoding(d), n, 300 + d, dev)])
+
+
+@pytest.mark.parametrize("d", [3, 11])
+def test_k9_permuto_tiny_table_collides(dev, d):
+    """T = 16: most vertices of neighbouring points share rows (hash
+    collisions), so the backward's runs and atomics collide everywhere."""
+    enc = pm.PermutoEncoding(d, n_levels=4, base_res=4.0, max_res=64.0, log2_hashmap_size=4)
+    cs.check_permuto(dev, [cs.permuto_set("T 16", enc, 20_000, 400 + d, dev)])
+
+
+@pytest.mark.parametrize("d", [4, 11])
+def test_k9_permuto_levels_of_other_widths(dev, d):
+    """Levels of F 1, 3 and 4 beside F 2 (the kernels' scalar and paired
+    paths), and a ladder of more levels than a block has warps."""
+    levels = [(4.0, 2), (6.0, 1), (9.0, 4), (13.0, 3), (20.0, 2), (31.0, 1), (47.0, 2)]
+    enc = pm.PermutoEncoding(d, levels=levels, log2_hashmap_size=12)
+    cs.check_permuto(dev, [cs.permuto_set("F 1-4", enc, 10_000, 500 + d, dev)])
+
+
+def test_k9_permuto_rows_past_the_staging(dev):
+    """160 levels of F 2 (C 320): the forward's and the backward's rows take
+    more shared memory than a block stages, so each lane reads and writes
+    its rows in device memory itself."""
+    enc = pm.PermutoEncoding(3, n_levels=160, base_res=2.0, max_res=64.0, log2_hashmap_size=4)
+    cs.check_permuto(dev, [cs.permuto_set("160 levels", enc, 1000, 700, dev)])
+
+
+def test_k9_permuto_sees_an_in_place_table_update(dev):
+    """The interleaved copy is made at every call: an optimizer's in-place
+    update between two calls is read by the second."""
+    _, enc, table, x = cs.permuto_set("d 11", _permuto_encoding(11), 4096, 600, dev)
+    a = (x, enc._res, enc._meta, enc.table_size)
+    first = pm.permuto(table, *a, enc.out_dim, True)
+    table.add_(torch.randn_like(table) * 0.05)
+    got = pm.permuto(table, *a, enc.out_dim, True)
+    want = pm.permuto_plain(table, *a, True)
+    _close(got, want, **cs.K9_TOL)
+    assert not torch.equal(first[0], got[0])
 
 
 def test_k9_refuses_other_widths(dev):
     enc = pm.PermutoEncoding(5, n_levels=2, log2_hashmap_size=10).to(dev)
     x = torch.rand(64, 5, device=dev)
     with pytest.raises(ValueError, match="d in"):
-        pm.permuto(enc.table.detach(), x, enc._res, enc._meta, enc._lat, enc.table_size,
+        pm.permuto(enc.table.detach(), x, enc._res, enc._meta, enc.table_size,
                    enc.out_dim, False)
 
 

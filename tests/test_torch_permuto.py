@@ -186,13 +186,13 @@ def test_gradients_match_jax(d, log2, which):
     else:
         assert _rel(gx, wx) <= JIT_GRAD_REL
 
-    # the backward wrapper (K9's plain backward on the CPU): feature-major
+    # the backward wrapper (K9's plain backward on the CPU): point-major
     # cotangents, the clipped inputs
     from neuralsim_torch.fields.neus import clip01
     x01 = clip01(torch.from_numpy(x))
-    d_out = None if c1 is None else torch.from_numpy(c1).T.contiguous()
-    d_jac = None if c2 is None else torch.from_numpy(c2).permute(2, 1, 0).contiguous()
-    bt, bx = permuto.permuto_bwd(penc.table.detach(), x01, penc._res, penc._meta, penc._lat,
+    d_out = None if c1 is None else torch.from_numpy(c1)
+    d_jac = None if c2 is None else torch.from_numpy(c2)
+    bt, bx = permuto.permuto_bwd(penc.table.detach(), x01, penc._res, penc._meta,
                                  penc.table_size, d_out, d_jac)
     assert _rel(bt.numpy(), wt) <= JIT_FEAT_REL
     inside = ((x > 0) & (x < 1)).all(-1)
@@ -226,4 +226,49 @@ def test_layout_init_and_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="anneal"):
         permuto.PermutoEncoding(11, anneal_cfg={"stop_it": 10})
     assert penc.kernel_lines() is None
-    assert penc._lat[-1].item() == np.float32(1.0 / 12)
+
+
+def test_interleave_round_trip():
+    """The kernels' table layout ([T, F] per level) and back, with levels of
+    F 1, 3 and 4 beside F 2."""
+    enc = permuto.PermutoEncoding(4, levels=[(4.0, 2), (8.0, 1), (16.0, 4), (32.0, 3)],
+                                  log2_hashmap_size=5)
+    T = enc.table_size
+    table = torch.arange(enc.total_params, dtype=torch.float32)
+    inter = permuto.interleave_plain(table, enc._meta, T)
+    for off, nf, _ in enc._meta.tolist():
+        slab = inter[off:off + nf * T].view(T, nf)
+        assert torch.equal(slab, table[off:off + nf * T].view(nf, T).T)
+    assert torch.equal(permuto.deinterleave_plain(inter, enc._meta, T), table)
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_pair(d):
+    jenc = JaxPermuto(d, n_levels=3, base_res=4.0, max_res=32.0, log2_hashmap_size=10)
+    penc = permuto.PermutoEncoding(d, n_levels=3, base_res=4.0, max_res=32.0,
+                                   log2_hashmap_size=10)
+    rng = np.random.default_rng(40 + d)
+    table = rng.normal(0.0, 1.0, jenc.total_params).astype(np.float32)
+    x = rng.random((N, d)).astype(np.float32) * 0.98 + 0.01   # inside (0, 1): no clip
+    c1 = rng.normal(size=(N, penc.out_dim)).astype(np.float32)
+    c2 = rng.normal(size=(N, penc.out_dim, 3)).astype(np.float32)
+    return jenc, penc, table, x, c1, c2
+
+
+@pytest.mark.parametrize("d", [3, 11])
+def test_plain_k9_point_major_matches_jax(d):
+    """K9's plain version and its backward, in the point-major layout
+    (features [N, C], jacobian [N, C, 3] and cotangents alike), against the
+    JAX encoding op by op: features, jacobian, and the table's and inputs'
+    gradients from both cotangents."""
+    jenc, penc, table, x, c1, c2 = _plain_pair(d)
+    a = (torch.from_numpy(table), torch.from_numpy(x), penc._res, penc._meta, penc.table_size)
+    out, jac = permuto.permuto_plain(*a, True)
+    assert out.shape == (N, penc.out_dim) and jac.shape == (N, penc.out_dim, 3)
+    with jax.disable_jit():
+        eh, ej = jenc.with_jacobian({"table": jnp.asarray(table)}, jnp.asarray(x))
+        wt, wx = jax.grad(_jax_loss(jenc), argnums=(0, 1))(jnp.asarray(table), jnp.asarray(x),
+                                                           c1, c2)
+    assert _rel(out.numpy(), eh) <= EAGER_REL and _rel(jac.numpy(), ej) <= EAGER_REL
+    gt, gx = permuto.permuto_bwd_plain(*a, torch.from_numpy(c1), torch.from_numpy(c2))
+    assert _rel(gt.numpy(), wt) <= EAGER_REL and _rel(gx.numpy(), wx) <= EAGER_REL
