@@ -49,7 +49,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      on one conditional LoTD model, the street's LoTD NeuS with its 128^3
      grid converged on the drive's ground, the distant field on the street's
      cuboid shells, the sky): K8 cross_source_vw against its plain version on
-     a chunk's merged buffer [4,096, 168] and on ragged, tied, masked buffers;
+     a chunk's merged buffer [4,096, 168] and on ragged (1 to 6,144 lanes),
+     tied (-0.0 beside +0.0, equal depths across sources), masked buffers,
+     the same bits on two calls;
      K1 at the street's width (F_cp 40, R 1,024) and the vehicles' (F_cp 24,
      R 256), K3 on the vehicles' dense levels, K4 at 64 march segments, K5a
      and K5b at the stage widths; 4 frames of 80x120 through
@@ -62,7 +64,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      memory, the bank, the street's 800-iteration road-surface pretrain, the
      grid at its initial state), each part timed; K8's backward against
      autograd of its plain version at the pixel step's merged buffer
-     [4,096, 168] and on ragged, tied, masked buffers with edge alphas, K1's
+     [4,096, 168] and on the forward's buffers with edge alphas (the same
+     bits on two calls); K5a at the stage shapes and its edges (S 2, 80,
+     100; nf 1, 16, 33; no noise; every lane masked; the depths without the
+     weights the same bits) and K5b; K1's
      and K3's backwards at the path's point sets and widths, K6 forward and
      backward at the LiDAR step's street buffer (2,048 x 48, no rgb; now
      K12, the NeuS alpha inside the composite, in place of K6); the
@@ -192,6 +197,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -327,6 +333,8 @@ LATENT_PROFILED = {"K13": ("latent_take_kernel",),
                    "index_put": ("index_put", "indexing_backward")}
 MULTI_PROFILED = {"K3 bwd": ("grid_bwd",), "K5b": ("merge_kernel",),
                   "K1 bwd": ("cp_stacked_bwd",), "K5a": ("weights_pdf",),
+                  "K8": ("cross_source_vw_kernel", "cross_source_vw_block_kernel"),
+                  "K8 bwd": ("cross_source_vw_bwd",),
                   "K14": ("cp_lines_kernel",), "K14 bwd": ("cp_lines_bwd",), **LATENT_PROFILED}
 # the per-level steps' device-time split by kernel name
 PERLEVEL_PROFILED = {"K2 bwd": ("cp_level_bwd",), "K2": ("cp_level_kernel",),
@@ -414,19 +422,24 @@ def cuda_ms(fn, reps: int = 20, queued: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
-def prof_ms(fn, reps: int = 20) -> float:
+def prof_ms(fn, reps: int = 20):
     """The device time of fn()'s kernels (memsets included) a call, under
-    torch.profiler, after one warm-up."""
+    torch.profiler, after one warm-up; a session that records no kernel is
+    run again, and None stands where a second one records none either."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if us:
+            return sum(us) / 1e3 / reps
+    return None
 
 
 def card_ms(fn, reps: int = 20) -> dict:
@@ -453,7 +466,8 @@ def extra_keys(t) -> dict:
 
 def card_extra(t) -> str:
     """``queued_ms`` and ``prof_ms`` of a timing, where it has them, for a log line."""
-    return "".join(f", {k.split('_')[0]} {t[k]:.4f}" for k in ("queued_ms", "prof_ms") if k in t)
+    return "".join(f", {k.split('_')[0]} {t[k]:.4f}" for k in ("queued_ms", "prof_ms")
+                   if t.get(k) is not None)
 
 
 def host_ms(fn, reps: int = 20) -> float:
@@ -474,6 +488,21 @@ def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k5a_bound(n, S, nf, noisy):
+    """K5a's least time: t, sdf, mask, near, far and the draws read, the
+    weights and the new depths written; each sample's alpha once (~32
+    operations) with its transmittance and cdf steps (~6), and a binary
+    search over the S + 1 cdf edges and the bin's lerp a draw."""
+    return bound(n * S * 9 + n * 8 + (n if noisy else 1) * nf * 4 + n * S * 4 + n * nf * 4,
+                 n * S * 38 + n * nf * (2 * math.ceil(math.log2(S + 1)) + 10))
+
+
+def k8_bound(N, L, bytes_a_lane):
+    """K8's least time (forward or backward) at ``bytes_a_lane`` of traffic:
+    a sort's compares a lane (log2 L), the scan, the log and the exp."""
+    return bound(N * L * bytes_a_lane, N * L * (math.ceil(math.log2(max(L, 2))) + 4))
 
 
 def encode_into(fn, args, C, N, dev, jac):
@@ -1319,8 +1348,7 @@ def time_sample_kernels(shapes):
         ms=cuda_ms(lambda: upsample_weights_pdf(*args, inv_s, nf, noise)),
         plain_ms=cuda_ms(lambda: upsample_weights_pdf_plain(*args, inv_s, nf, noise)),
         library_ms=None,
-        bound=bound(n * S * 9 + n * 8 + (n if noise is not None else 1) * nf * 4
-                    + n * S * 4 + n * nf * 4, n * S * (32 + 6 * nf)))
+        bound=k5a_bound(n, S, nf, noise is not None))
 
     ins = shapes["neus_upsample.merge"]["ins"]
     n, A = ins[0].shape
@@ -1766,22 +1794,64 @@ def edge_alpha_inputs(n, L, seed):
     return t, mask, alpha
 
 
+def tie_inputs(n, L, seed):
+    """:func:`unsorted_inputs` with depths of four values, -0.0 and +0.0
+    among them: equal depths across every source, and -0.0 beside +0.0 in
+    every ray of two lanes or more (the plain version's float compare ties
+    them, so they go by lane)."""
+    t, mask, alpha = unsorted_inputs(n, L, seed)
+    t = np.random.default_rng(seed).choice(np.array([-0.0, 0.0, 0.25, 0.5], np.float32), (n, L))
+    t[:, 0] = -0.0
+    t[:, -1] = 0.0
+    mask[:, 0] = mask[:, -1] = True
+    return t, mask, alpha
+
+
+# K8's widths beside the path's buffer: ragged ones through the warp kernels
+# (up to 256 lanes) and the block kernels past them, up to 6,144 (a
+# LiDAR-length buffer; the backward, under autograd, runs the forward too)
+K8_WIDTHS = ((4096, 168), (333, 1), (257, 5), (1000, 33), (512, 257), (64, 1100), (64, 4096),
+             (16, 6144))
+
+
+def k8_sets(dev, inputs):
+    """K8's check buffers: ``inputs`` (unsorted_inputs or edge_alpha_inputs)
+    at K8_WIDTHS, signed-zero and cross-source ties (tie_inputs) at 168 and
+    1,100 lanes, and a buffer with every lane masked -> [(label, (t, mask,
+    alpha))]."""
+    import torch
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    sets = [("ties, masked lanes, edge alphas", [T(a) for a in inputs(n, L, L)])
+            for n, L in K8_WIDTHS]
+    sets += [("-0.0 beside +0.0, ties across sources", [T(a) for a in tie_inputs(n, L, L + 1)])
+             for n, L in ((4096, 168), (64, 1100))]
+    t, mask, alpha = inputs(512, 168, 3)
+    sets.append(("every lane masked", [T(t), T(np.zeros_like(mask)), T(alpha)]))
+    return sets
+
+
+def same_bits(name, fn):
+    """Two calls of fn give the same bits."""
+    import torch
+    a, b = fn(), fn()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two calls differ")
+
+
 def check_cross_source_vw(dev, path_buffer):
     """K8 against its plain version: on the merged buffer of one chunk of the
     compose path (t, mask, alpha [4,096, 168]) and on unsorted buffers of
-    ragged widths (1 to 1,100 lanes) with ties, masked lanes, fully masked
-    rays and alphas at and near 1."""
+    ragged widths (1 to 6,144 lanes: k8_sets) with ties (-0.0 beside +0.0,
+    equal depths across sources), masked lanes, fully masked rays and
+    alphas at and near 1; the same bits on two calls."""
     import torch
     from neuralsim_torch.ops.segment import cross_source_vw, cross_source_vw_plain
-    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    sets = [("path chunk", path_buffer)] + [
-        ("ties, masked lanes, alpha near 1", [T(a) for a in unsorted_inputs(n, L, L)])
-        for n, L in ((4096, 168), (333, 1), (257, 5), (1000, 33), (512, 257), (64, 1100))]
     errs = []
-    for label, args in sets:
+    for label, args in [("path chunk", path_buffer)] + k8_sets(dev, unsorted_inputs):
         N, L = args[0].shape
         errs.append(compare(f"K8 cross_source_vw {label} rays={N} L={L}",
                             [cross_source_vw(*args)], [cross_source_vw_plain(*args)], **K8_TOL))
+        same_bits(f"K8 cross_source_vw {label} rays={N} L={L}", lambda: cross_source_vw(*args))
     torch.cuda.synchronize()
     return max(errs)
 
@@ -2224,11 +2294,11 @@ def time_compose_kernels(shapes):
     out["cross_source_vw"] = [dict(
         shape=f"rays={N} L={L} (one chunk's merged buffer: 3 vehicles x 32, street 48, "
               f"distant 24 lanes)",
-        ms=cuda_ms(lambda: cross_source_vw(t, mask, alpha)),
+        **card_ms(lambda: cross_source_vw(t, mask, alpha)),
         plain_ms=cuda_ms(lambda: cross_source_vw_plain(t, mask, alpha), reps=5),
         library_ms=None,
-        # t, alpha and mask read, vw written; a compare and an add per pair
-        bound=bound(N * L * 13, 2.0 * N * L * L))]
+        # t, alpha and mask read, vw written
+        bound=k8_bound(N, L, 13))]
     for key in sorted(k for k in shapes if k.startswith("lotd_cp_stacked/")):
         a, C = shapes[key]["args"], shapes[key]["C"]
         lines, x = a[0], a[1]
@@ -2570,18 +2640,19 @@ def check_multi_kernels(dev, trainer, state, scene, samplers):
     path = (mb["t"].contiguous(), mb["mask"].contiguous(), mb["alpha"].contiguous())
     g = cotangents(path[0].shape, 21, dev)
     sets = [("pixel step's merged buffer", path, g)] + [
-        ("ragged, ties, masked lanes, edge alphas", [T(a) for a in edge_alpha_inputs(n, L, L)],
-         cotangents((n, L), 22 + L, dev))
-        for n, L in ((4096, 168), (333, 1), (257, 5), (1000, 33), (512, 257), (64, 1100))]
+        (label, args, cotangents(args[0].shape, 22 + args[0].shape[1], dev))
+        for label, args in k8_sets(dev, edge_alpha_inputs)]
     e8 = []
     for label, (t, mask, alpha), gg in sets:
         a = alpha.clone().requires_grad_(True)
-        got = torch.autograd.grad(cross_source_vw(t, mask, a), a, gg)[0]
-        e8.append(compare_rel(f"K8 bwd {label} rays={t.shape[0]} L={t.shape[1]}", [got],
-                              [cross_source_vw_bwd_plain(t, mask, alpha, gg)], GRAD_REL))
+        grad = lambda: torch.autograd.grad(cross_source_vw(t, mask, a), a, gg)[0]
+        what = f"K8 bwd {label} rays={t.shape[0]} L={t.shape[1]}"
+        e8.append(compare_rel(what, [grad()], [cross_source_vw_bwd_plain(t, mask, alpha, gg)],
+                              GRAD_REL))
+        same_bits(what, grad)
     errs["cross_source_vw.bwd"] = (max(e8), GRAD_REL)
-    logt = cross_source_vw_fwd(*path, with_logt=True)[1]
-    shapes["cross_source_vw.bwd"] = dict(args=(*path, logt, g))
+    _, logt, rank = cross_source_vw_fwd(*path, with_logt=True)
+    shapes["cross_source_vw.bwd"] = dict(args=(*path, logt, rank, g))
     shapes["cross_source_vw"] = dict(args=path)
     # K1 and K3 backward at the final evaluations of the step
     e1, e3 = [], []
@@ -2665,27 +2736,69 @@ STAGE_SHAPES = ((MULTI_RAYS, 32, 8, 64.0), (MULTI_RAYS, 40, 8, 256.0),
                 (3 * MULTI_RAYS // 2, 24, 8, 64.0))
 
 
+# K5a's cases beside STAGE_SHAPES: (label, rays, samples, draws, inv_s,
+# drawn noise, every lane masked). A ray takes 16 lanes (samples past 16
+# give a lane more, S 100 seven, S 3,000 past 48 KB a block; draws past 16
+# too, nf 33 three); without noise the draws are the [nf] midpoints;
+# stage_inputs masks every lane of every 11th ray, and the last case masks
+# every ray
+K5A_EDGES = (("two samples", 4096, 2, 8, 64.0, True, False),
+             ("3,000 samples", 64, 3000, 16, 256.0, True, False),
+             ("80 samples, 16 draws", 4096, 80, 16, 256.0, True, False),
+             ("100 samples", 1024, 100, 16, 256.0, True, False),
+             ("one draw", 4096, 32, 1, 64.0, True, False),
+             ("16 draws", 4096, 40, 16, 256.0, True, False),
+             ("33 draws", 2048, 40, 33, 256.0, True, False),
+             ("no noise", 4096, 32, 8, 64.0, False, False),
+             ("every lane masked", 4096, 32, 8, 64.0, True, True))
+
+
+def k5a_case(dev, n, s, nf, noisy, all_masked, seed):
+    """K5a's inputs ([t, sdf, mask, near, far], noise or None) from a seed."""
+    import torch
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in stage_inputs(n, s, seed)]
+    if all_masked:
+        args[2] = torch.zeros_like(args[2])
+    noise = torch.rand((n, nf), generator=torch.Generator().manual_seed(seed)).to(dev) \
+        if noisy else None
+    return args, noise
+
+
+def check_k5a(name, args, inv_s, nf, noise):
+    """K5a against its plain version (the weights and the new depths), and
+    its new depths without the weights the same bits -> max_abs_err."""
+    import torch
+    from neuralsim_torch.fields.neus import upsample_weights_pdf, upsample_weights_pdf_plain
+    got = upsample_weights_pdf(*args, inv_s, nf, noise)
+    err = compare(name, got, upsample_weights_pdf_plain(*args, inv_s, nf, noise), 1e-5, 1e-6)
+    w, t_new = upsample_weights_pdf(*args, inv_s, nf, noise, with_weights=False)
+    if w is not None or not torch.equal(t_new, got[1]):
+        raise AssertionError(f"{name}: the depths without the weights differ")
+    return err
+
+
 def check_stages(dev, shapes):
     """K5a (with drawn noise, as in training) and K5b at the multi-object
-    stage shapes (STAGE_SHAPES); K5b also at N = 1 and 4,097, on lists on a
+    stage shapes (STAGE_SHAPES), K5a also at K5A_EDGES and without the
+    weights (the same depths); K5b also at N = 1 and 4,097, on lists on a
     grid of 4 depths (ties inside each list and across, in every ray) and on
     lists too wide for four rays' depths in 48 KB of shared memory; K5b held
     exactly. The stage inputs are kept in ``shapes`` for timing
     -> {kernel: (max_abs_err, tol)}."""
     import torch
-    from neuralsim_torch.fields.neus import upsample_weights_pdf, upsample_weights_pdf_plain
     from neuralsim_torch.ops.segment import merge_sorted_samples, merge_sorted_samples_plain
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     err_w, err_m = 0.0, 0.0
     for seed, (n, s, nf, inv_s) in enumerate(STAGE_SHAPES, 40):
-        args = [T(a) for a in stage_inputs(n, s, seed)]
-        noise = torch.rand((n, nf), generator=torch.Generator().manual_seed(seed)).to(dev)
-        err_w = max(err_w, compare(f"K5a weights_pdf rays={n} S={s} draws={nf} inv_s={inv_s:g} "
-                                   f"noise=True", upsample_weights_pdf(*args, inv_s, nf, noise),
-                                   upsample_weights_pdf_plain(*args, inv_s, nf, noise),
-                                   1e-5, 1e-6))
+        args, noise = k5a_case(dev, n, s, nf, True, False, seed)
+        err_w = max(err_w, check_k5a(f"K5a weights_pdf rays={n} S={s} draws={nf} "
+                                     f"inv_s={inv_s:g} noise=True", args, inv_s, nf, noise))
         shapes[f"neus_upsample.weights_pdf/{n} {s}+{nf}"] = dict(args=args, noise=noise,
                                                                  inv_s=inv_s, nf=nf)
+    for seed, (label, n, s, nf, inv_s, noisy, masked) in enumerate(K5A_EDGES, 60):
+        args, noise = k5a_case(dev, n, s, nf, noisy, masked, seed)
+        err_w = max(err_w, check_k5a(f"K5a weights_pdf {label} rays={n} S={s} draws={nf}",
+                                     args, inv_s, nf, noise))
     sets = [("stage", n, a, b, 400) for n, a, b, _ in STAGE_SHAPES] + [
         ("one ray", 1, 32, 8, 400), ("ragged", 4097, 40, 8, 400), ("ties", 4096, 32, 8, 4),
         ("ties, ragged", 4097, 24, 8, 4), ("ties, wide", 4097, 80, 16, 4),
@@ -2918,22 +3031,22 @@ def time_multi_kernels(shapes):
     from neuralsim_torch.ops.segment import (cross_source_vw_bwd, cross_source_vw_bwd_plain,
                                              cross_source_vw_fwd, cross_source_vw_plain)
     out = {}
-    t, mask, alpha, logt, g = shapes["cross_source_vw.bwd"]["args"]
+    t, mask, alpha, logt, rank, g = shapes["cross_source_vw.bwd"]["args"]
     N, L = t.shape
     what = f"rays={N} L={L} (the pixel step's merged buffer: 3 vehicles x 32, street 48, " \
            f"distant 24 lanes)"
     out["cross_source_vw"] = dict(
-        shape=what + ", writing S", ms=cuda_ms(lambda: cross_source_vw_fwd(t, mask, alpha, True)),
+        shape=what + ", writing S and the ranks",
+        **card_ms(lambda: cross_source_vw_fwd(t, mask, alpha, True)),
         plain_ms=cuda_ms(lambda: cross_source_vw_plain(t, mask, alpha), reps=5), library_ms=None,
-        # t, alpha and mask read, vw and S written; a compare and an add per pair
-        bound=bound(N * L * 17, 2.0 * N * L * L))
+        # t, alpha and mask read, vw, S and the int16 rank written
+        bound=k8_bound(N, L, 19))
     out["cross_source_vw.bwd"] = dict(
-        shape=what, ms=cuda_ms(lambda: cross_source_vw_bwd(t, mask, alpha, logt, g)),
+        shape=what, **card_ms(lambda: cross_source_vw_bwd(mask, alpha, logt, rank, g)),
         plain_ms=cuda_ms(lambda: cross_source_vw_bwd_plain(t, mask, alpha, g), reps=5),
         library_ms=None,
-        # t, mask, alpha, S and the cotangent read, d alpha written; a compare
-        # and an add per pair
-        bound=bound(N * L * 21, 2.0 * N * L * L))
+        # mask, alpha, S, the rank and the cotangent read, d alpha written
+        bound=k8_bound(N, L, 19))
     out.update(time_neus_composite(shapes))
     return out
 
@@ -2987,8 +3100,7 @@ def time_iteration_kernels(shapes):
             lambda: upsample_weights_pdf(*args, inv_s, nf, noise),
             lambda: upsample_weights_pdf_plain(*args, inv_s, nf, noise),
             shape=f"rays={n} S={S} nf={nf} inv_s={inv_s:g} (drawn noise)",
-            bound=bound(n * S * 9 + n * 8 + n * nf * 4 + n * S * 4 + n * nf * 4,
-                        n * S * (32 + 6 * nf))))
+            bound=k5a_bound(n, S, nf, True)))
     for key in sorted(k for k in shapes if k.startswith("neus_upsample.merge/")):
         ins = shapes[key]["ins"]
         n, A = ins[0].shape

@@ -22,6 +22,7 @@ shared models (``fields/conditional.py``); this field itself takes none.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -117,32 +118,53 @@ def upsample_weights_pdf_plain(t: torch.Tensor, sdf: torch.Tensor, mask: torch.T
     return w, sample_pdf(bins, w, n_samples, noise=noise)
 
 
+@functools.lru_cache(maxsize=None)
+def _det_u_on(n_samples: int, device: torch.device) -> torch.Tensor:
+    """The deterministic draws on a device, made once (K5a's input without
+    noise; never written)."""
+    return det_u(n_samples, device)
+
+
+# K5a stages a ray's 8 S + 1 floats in shared memory, two rays a warp: at
+# most the H100's 227 KB a block
+UPSAMPLE_MAX_SAMPLES = (227 * 1024 // 8 - 1) // 8
+
+
 def upsample_weights_pdf(t: torch.Tensor, sdf: torch.Tensor, mask: torch.Tensor,
                          near: torch.Tensor, far: torch.Tensor, inv_s: float,
-                         n_samples: int, noise: Optional[torch.Tensor] = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5a wrapper: the plain version on the CPU, the CUDA kernel on the card."""
+                         n_samples: int, noise: Optional[torch.Tensor] = None,
+                         with_weights: bool = True
+                         ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """K5a wrapper: the plain version on the CPU, the CUDA kernel on the card,
+    for up to UPSAMPLE_MAX_SAMPLES (3,631) samples a ray. The weights come
+    back only ``with_weights`` (else None): the upsample stages need only the
+    new depths."""
     if t.device.type == "cpu":
-        return upsample_weights_pdf_plain(t, sdf, mask, near, far, inv_s, n_samples, noise)
+        w, t_new = upsample_weights_pdf_plain(t, sdf, mask, near, far, inv_s, n_samples, noise)
+        return (w if with_weights else None), t_new
     N, S = t.shape
+    # the draws: the midpoints, made once a device, or the noise, from which
+    # the kernel forms the stratified draws itself
     if noise is None:
-        u, u_stride = det_u(n_samples, t.device), 0
+        u, draws = _det_u_on(n_samples, t.device), (n_samples,)
     else:
-        u = ((torch.arange(n_samples, dtype=torch.float32, device=t.device) + noise)
-             / n_samples).contiguous()
-        u_stride = n_samples
-    kernels.check_cuda("neus_upsample_weights_pdf", t, sdf, mask, near, far, u)
+        u, noise, draws = None, noise.contiguous(), (N, n_samples)
+    given = noise if u is None else u
+    kernels.check_cuda("neus_upsample_weights_pdf", t, sdf, mask, near, far, given)
     if sdf.shape != (N, S) or mask.shape != (N, S) or mask.dtype != torch.bool \
-            or near.shape != (N,) or far.shape != (N,) or u.shape[-1] != n_samples \
-            or any(x.dtype != torch.float32 for x in (t, sdf, near, far, u)):
+            or near.shape != (N,) or far.shape != (N,) or given.shape != draws \
+            or any(x.dtype != torch.float32 for x in (t, sdf, near, far, given)):
         raise ValueError("neus_upsample_weights_pdf: bad shapes or dtypes")
     if S < 2 or n_samples < 1:
         raise ValueError("neus_upsample_weights_pdf: needs S >= 2 and n_samples >= 1")
-    w = torch.empty((N, S), dtype=torch.float32, device=t.device)
+    if S > UPSAMPLE_MAX_SAMPLES:
+        raise ValueError(f"neus_upsample_weights_pdf: {S} samples a ray, more than "
+                         f"{UPSAMPLE_MAX_SAMPLES}")
+    w = torch.empty((N, S), dtype=torch.float32, device=t.device) if with_weights else None
     t_new = torch.empty((N, n_samples), dtype=torch.float32, device=t.device)
     K5A.launch("neus_upsample_weights_pdf", kernels.ptr(t), kernels.ptr(sdf),
                kernels.ptr(mask), kernels.ptr(near), kernels.ptr(far), kernels.ptr(u),
-               kernels.ptr(w), kernels.ptr(t_new), N, S, n_samples, u_stride,
+               kernels.ptr(noise), kernels.ptr(w), kernels.ptr(t_new), N, S, n_samples,
                float(inv_s), kernels.stream())
     return w, t_new
 
@@ -354,7 +376,7 @@ class NeuSField(nn.Module):
             for stage, (nf, fac) in enumerate(zip(num_fine, upsample_inv_s_factors)):
                 _, t_new = upsample_weights_pdf(
                     t.contiguous(), sdf.contiguous(), mask, n_, f_, upsample_inv_s * fac, nf,
-                    None if noise is None else noise["fine"][stage])
+                    None if noise is None else noise["fine"][stage], with_weights=False)
                 x_new = rays_o[:, None, :] + t_new[..., None] * rays_d[:, None, :]
                 sdf_new = self.query_sdf(x_new.reshape(-1, 3), lines,
                                          per_sample(t_new.shape)).reshape(t_new.shape)

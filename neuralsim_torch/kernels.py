@@ -40,7 +40,7 @@ SIGNATURES: Dict[str, str] = {
     "lotd_cp_level_bwd": "ppppppiiip",
     "lotd_grid_fwd": "pppppiiip",
     "lotd_grid_bwd": "ppppppiiiiip",
-    "neus_upsample_weights_pdf": "ppppppppiiiifp",
+    "neus_upsample_weights_pdf": "pppppppppiiifp",
     "merge_sorted_samples": "pppppppppiiip",
     "volume_composite_fwd": "pppppppppppiip",
     "volume_composite_bwd": "pppppppppppppiip",
@@ -48,7 +48,7 @@ SIGNATURES: Dict[str, str] = {
     "neus_composite_bwd": "pppppppppppppppppiifp",
     "occ_ray_proposal": "pppppppppppiiiiiip",
     "occ_ema_update": "ppppiiifffffp",
-    "cross_source_vw": "pppppiip",
+    "cross_source_vw": "ppppppiip",
     "cross_source_vw_bwd": "ppppppiip",
     "pair_compact": "ppppppiiiip",
     "permuto_fwd": "pppppppiiiiip",

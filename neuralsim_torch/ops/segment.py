@@ -181,7 +181,13 @@ def cross_source_vw_plain(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tens
     return a * torch.exp(log_t)
 
 
+# K8's widest row: ranks fit int16, and a row's keys and values fit a block's
+# shared memory (the C entry refuses wider rows too)
+K8_MAX_WIDTH = 16384
+
+
 def _check_k8(name: str, *tensors: torch.Tensor) -> Tuple[int, int]:
+    """[N, L] tensors on one card: float32, the second (the mask) bool."""
     kernels.check_cuda(name, *tensors)
     N, L = tensors[0].shape
     for i, x in enumerate(tensors):           # the mask comes second
@@ -189,30 +195,38 @@ def _check_k8(name: str, *tensors: torch.Tensor) -> Tuple[int, int]:
         if tuple(x.shape) != (N, L) or x.dtype != want:
             raise ValueError(f"{name}: t, alpha [N, L] float32 and mask [N, L] bool, got "
                              f"{tuple(x.shape)} {x.dtype}")
+    if L > K8_MAX_WIDTH:
+        raise ValueError(f"{name}: {L} lanes a ray, more than {K8_MAX_WIDTH}")
     return N, L
 
 
 def cross_source_vw_fwd(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor,
                         with_logt: bool = False
-                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The K8 forward kernel -> (vw, the log transmittance S [N, L] when
-    ``with_logt``, which the backward kernel reads)."""
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The K8 forward kernel -> (vw, and when ``with_logt`` the log
+    transmittance S [N, L] and each lane's rank in the ray's stable depth
+    order [N, L] int16, which the backward kernel reads)."""
     N, L = _check_k8("cross_source_vw", t, mask, alpha)
     vw = torch.empty((N, L), dtype=torch.float32, device=t.device)
     logt = torch.empty_like(vw) if with_logt else None
+    rank = torch.empty((N, L), dtype=torch.int16, device=t.device) if with_logt else None
     K8.launch("cross_source_vw", kernels.ptr(t), kernels.ptr(mask), kernels.ptr(alpha),
-              kernels.ptr(vw), kernels.ptr(logt), N, L, kernels.stream())
-    return vw, logt
+              kernels.ptr(vw), kernels.ptr(logt), kernels.ptr(rank), N, L, kernels.stream())
+    return vw, logt, rank
 
 
-def cross_source_vw_bwd(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor,
-                        logt: torch.Tensor, g_vw: torch.Tensor) -> torch.Tensor:
+def cross_source_vw_bwd(mask: torch.Tensor, alpha: torch.Tensor, logt: torch.Tensor,
+                        rank: torch.Tensor, g_vw: torch.Tensor) -> torch.Tensor:
     """The K8 backward kernel: d alpha [N, L] for the cotangent ``g_vw`` of
-    the weights, from the forward's log transmittance ``logt``."""
-    N, L = _check_k8("cross_source_vw_bwd", t, mask, alpha, logt, g_vw)
+    the weights, from the forward's log transmittance ``logt`` and ranks."""
+    N, L = _check_k8("cross_source_vw_bwd", alpha, mask, logt, g_vw)
+    if tuple(rank.shape) != (N, L) or rank.dtype != torch.int16:
+        raise ValueError(f"cross_source_vw_bwd: rank [N, L] int16, got {tuple(rank.shape)} "
+                         f"{rank.dtype}")
+    kernels.check_cuda("cross_source_vw_bwd", alpha, rank)
     d_alpha = torch.empty_like(alpha)
-    K8_BWD.launch("cross_source_vw_bwd", kernels.ptr(t), kernels.ptr(mask),
-                  kernels.ptr(alpha), kernels.ptr(logt), kernels.ptr(g_vw),
+    K8_BWD.launch("cross_source_vw_bwd", kernels.ptr(mask), kernels.ptr(alpha),
+                  kernels.ptr(logt), kernels.ptr(rank), kernels.ptr(g_vw),
                   kernels.ptr(d_alpha), N, L, kernels.stream())
     return d_alpha
 
@@ -231,14 +245,14 @@ class _CrossSourceVwOnCard(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, t, mask, alpha):
-        vw, logt = cross_source_vw_fwd(t, mask, alpha, with_logt=True)
-        ctx.save_for_backward(t, mask, alpha, logt)
+        vw, logt, rank = cross_source_vw_fwd(t, mask, alpha, with_logt=True)
+        ctx.save_for_backward(mask, alpha, logt, rank)
         return vw
 
     @staticmethod
     def backward(ctx, g_vw):
-        t, mask, alpha, logt = ctx.saved_tensors
-        return None, None, cross_source_vw_bwd(t, mask, alpha, logt, g_vw.contiguous())
+        mask, alpha, logt, rank = ctx.saved_tensors
+        return None, None, cross_source_vw_bwd(mask, alpha, logt, rank, g_vw.contiguous())
 
 
 def cross_source_vw(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:

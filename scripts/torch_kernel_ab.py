@@ -8,7 +8,14 @@ Each ROOT (default: this checkout) holds ``neuralsim_torch/`` and
 ``chip_smoke.py``. Each is timed in a process of its own, which builds that
 checkout's kernels, in the order given: "PARENT . . PARENT" compares two
 checkouts on one card (parent, change, change, parent). The shapes are the
-multi-object iteration's (WAYMO_DEMO_MULTI): K5b at the street's stages (32
+multi-object iteration's (WAYMO_DEMO_MULTI): K5a at its five stage launches
+(the street's 32 + 8 and 40 + 8 at 4,096 pixel rays and 2,048 beams, the
+vehicles' 24 + 8 at 6,144 rows) and synthetic_object's 80 + 16 at 4,096
+rays, with drawn noise, with the weights and, where the checkout can skip
+them, without, each with the sha256 of its outputs' bytes (equal digests
+in two checkouts: the same bits); K8 forward (the compose render's, no
+gradient) and forward + backward under autograd (the pixel step's) at the
+merged buffer's [4,096, 168] and at [64, 1,100]; K5b at the street's stages (32
 and 40 samples + 8 draws at 4,096 pixel rays and 2,048 beams) and the
 vehicles' (24 + 8 at 6,144 compacted rows), synthetic_object's render stage
 (80 + 16 at 4,096 rays) and the bench model's (24 + 8 at 8,192), beside a
@@ -47,6 +54,7 @@ the card's name and power limit.
 """
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import inspect
 import json
@@ -56,6 +64,12 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
+# K5a's launches (rays, samples, draws, inv_s): the multi-object iteration's
+# five (the street's two stages at the pixel step's rays and the LiDAR
+# step's beams, the vehicles' one stage at their 3 x 2,048 rows) and
+# synthetic_object's second render stage
+K5A_SHAPES = ((4096, 32, 8, 64.0), (4096, 40, 8, 256.0), (2048, 32, 8, 64.0),
+              (2048, 40, 8, 256.0), (6144, 24, 8, 64.0), (4096, 80, 16, 256.0))
 
 
 def timer():
@@ -75,6 +89,11 @@ def cp_launches(cs, street, veh):
             ("vehicles", veh, cs.ray_points(6144, 32, veh.cp_rmax, 30)),
             ("street, uniform eikonal", street, cs.enc_points(512, street.cp_rmax, 34)),
             ("vehicles, uniform eikonal", veh, cs.enc_points(512, veh.cp_rmax, 34))]
+
+
+def digest(x) -> str:
+    """sha256 of a tensor's bytes."""
+    return hashlib.sha256(x.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
 
 
 def kernels_a_call(fn) -> int:
@@ -101,7 +120,8 @@ def time_root(root: str) -> dict:
     from neuralsim_torch.configs import BENCH_OBJECT, SYNTHETIC_OBJECT, WAYMO_DEMO_MULTI
     from neuralsim_torch.fields.conditional import ConditionalLoTDNeuSField
     from neuralsim_torch.fields.encodings import lotd
-    from neuralsim_torch.ops.segment import merge_sorted_samples
+    from neuralsim_torch.fields.neus import upsample_weights_pdf
+    from neuralsim_torch.ops.segment import cross_source_vw, merge_sorted_samples
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_kernel_ab: CUDA is not available")
@@ -117,6 +137,33 @@ def time_root(root: str) -> dict:
         return {prefix + "ms": tm.cuda_ms(fn), prefix + "queued_ms": tm.cuda_ms(fn, queued=True),
                 prefix + "prof_ms": tm.prof_ms(fn), prefix + "host_ms": tm.host_ms(fn)}
 
+    # K5a at the multi-object iteration's five stage launches and
+    # synthetic_object's render stage, on seeded inputs and drawn noise, with
+    # a digest of its outputs' bytes (the same digest in two checkouts: the
+    # same bits); without the weights too where the checkout can skip them
+    skips_w = "with_weights" in inspect.signature(upsample_weights_pdf).parameters
+    for seed, (n, s, nf, inv_s) in enumerate(K5A_SHAPES, 40):
+        args = [T(v) for v in cs.stage_inputs(n, s, seed)]
+        noise = torch.rand((n, nf), generator=torch.Generator().manual_seed(seed)).to(dev)
+        w, t_new = upsample_weights_pdf(*args, inv_s, nf, noise)
+        tag = f"K5a {n} S={s} nf={nf}"
+        out[tag] = {**timed(lambda: upsample_weights_pdf(*args, inv_s, nf, noise)),
+                    "w_sha256": digest(w), "t_new_sha256": digest(t_new)}
+        if skips_w:
+            out[tag + " without w"] = timed(
+                lambda: upsample_weights_pdf(*args, inv_s, nf, noise, with_weights=False))
+    # K8 forward (the compose render's, no gradient) and forward + backward
+    # under autograd (the pixel step's) at the merged buffer's width and a
+    # wide one
+    for n, L in ((4096, 168), (64, 1100)):
+        t, mask, alpha = (T(v) for v in cs.edge_alpha_inputs(n, L, L))
+        g = cs.cotangents((n, L), 11, dev)
+        a = alpha.clone().requires_grad_(True)
+        with torch.no_grad():
+            out[f"K8 fwd {n} L={L}"] = timed(lambda: cross_source_vw(t, mask, alpha))
+        fn = lambda: torch.autograd.grad(cross_source_vw(t, mask, a), a, g)
+        out[f"K8 fwd+bwd under autograd {n} L={L}"] = {**timed(fn),
+                                                        "kernels": kernels_a_call(fn)}
     for n, a, b in ((4096, 32, 8), (4096, 40, 8), (2048, 32, 8), (2048, 40, 8), (6144, 24, 8),
                     (4096, 80, 16), (8192, 24, 8)):
         ins = [T(v) for v in cs.merge_inputs(n, a, b, 3)]

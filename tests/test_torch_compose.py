@@ -175,6 +175,34 @@ def test_cross_source_vw_matches_jax(L):
     assert (got[~mask] == 0).all() and (got[2] == 0).all()
 
 
+def _tied_buffer(n, L, seed):
+    """:func:`_unsorted_buffer` with depths of four values, -0.0 and +0.0
+    among them (-0.0 beside +0.0 in every ray), so that every source's lanes
+    tie with the others'."""
+    t, mask, alpha = _unsorted_buffer(n, L, seed)
+    t = np.random.default_rng(seed).choice(np.array([-0.0, 0.0, 0.25, 0.5], np.float32), (n, L))
+    t[:, 0], t[:, -1] = -0.0, 0.0
+    mask[:, 0] = mask[:, -1] = True
+    return t, mask, alpha
+
+
+@pytest.mark.parametrize("L", [24, 168])
+def test_cross_source_vw_ties_match_jax(L):
+    """Signed zeros and equal depths across sources: the float compare ties
+    -0.0 with +0.0 in both packages, and lanes go by index."""
+    t, mask, alpha = _tied_buffer(48, L, L)
+    got = cross_source_vw(_t(t), _t(mask), _t(alpha)).numpy()
+    want = np.asarray(jax_cross_source_vw(jnp.asarray(t), jnp.asarray(mask), jnp.asarray(alpha)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    a = _t(alpha).requires_grad_(True)
+    g = np.random.default_rng(L).normal(size=t.shape).astype(np.float32)
+    (d,) = torch.autograd.grad(cross_source_vw(_t(t), _t(mask), a), a, _t(g))
+    d_j = jax.grad(lambda x: jnp.sum(jax_cross_source_vw(jnp.asarray(t), jnp.asarray(mask), x)
+                                     * g))(jnp.asarray(alpha))
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_j), rtol=0,
+                               atol=1e-5 * float(np.abs(np.asarray(d_j)).max()))
+
+
 def test_cross_source_vw_is_a_stable_sort_composite():
     """Below the occlusion cap, the order-free weights are those of a stable
     depth sort followed by the transmittance product."""

@@ -18,8 +18,12 @@ chip_smoke.STEP_LOSS_RTOL and STEP_GRAD_REL (see there). K4's depths are held
 to chip_smoke.K4_TOL, K7's values to chip_smoke.K7_ATOL with its mask exact
 away from the threshold, the wide K1 (F = 96, R = 1,024) to the tolerances of
 the narrow one, and a render of a small bench model (occupancy grid, distant
-field) on the card to the CPU at chip_smoke.BENCH_CROP_TOL. K8 is held to its
-plain version at chip_smoke.K8_TOL, and a small compose render (shared
+field) on the card to the CPU at chip_smoke.BENCH_CROP_TOL. K5a is also held
+at the multi-object stage shapes and its edges (chip_smoke.K5A_EDGES), its
+depths without the weights the same bits. K8 is held to its plain version
+at chip_smoke.K8_TOL from 1 to 4,096 lanes and with -0.0 beside +0.0, its
+backward up to 6,144 lanes, both the same bits on two calls, and a small
+compose render (shared
 vehicle model, street with its grid, distant field, sky) to the CPU ray by
 ray as chip_smoke.check_compose_crop does. K8's backward is held to autograd
 of its plain version at chip_smoke.GRAD_REL on buffers with alphas at the
@@ -138,6 +142,29 @@ def test_k5a_weights_pdf(dev, noisy):
     want = upsample_weights_pdf_plain(*args, 256.0, 16, noise)
     _close(got[:1], want[:1], 1e-5, 1e-6)
     _close(got[1:], want[1:], 1e-5, 1e-6)
+
+
+K5A_CASES = [(f"stage {n} {s}+{nf}", n, s, nf, inv_s, True, False)
+             for n, s, nf, inv_s in cs.STAGE_SHAPES] + list(cs.K5A_EDGES)
+
+
+@pytest.mark.parametrize("case", K5A_CASES, ids=[c[0] for c in K5A_CASES])
+def test_k5a_at_the_stage_shapes_and_edges(dev, case):
+    """K5a at the multi-object iteration's five stage shapes and at its edges
+    (S 2, 80, 100; nf 1, 16, 33; no noise; every lane masked): the weights
+    and the depths within atol 1e-6 / rtol 1e-5 of the plain version, one
+    launch a call, and the depths without the weights the same bits (no
+    weights written)."""
+    label, n, s, nf, inv_s, noisy, masked = case
+    args, noise = cs.k5a_case(dev, n, s, nf, noisy, masked, 7)
+    k = kernels.KERNELS["neus_upsample.weights_pdf"]
+    n0 = k.launches
+    got = upsample_weights_pdf(*args, inv_s, nf, noise)
+    assert k.launches == n0 + 1
+    _close(got, upsample_weights_pdf_plain(*args, inv_s, nf, noise), 1e-5, 1e-6)
+    w, t_new = upsample_weights_pdf(*args, inv_s, nf, noise, with_weights=False)
+    assert k.launches == n0 + 2
+    assert w is None and torch.equal(t_new, got[1])
 
 
 def test_k5b_merge(dev):
@@ -496,13 +523,42 @@ def test_bench_train_step_on_card_matches_cpu(dev):
 # The compose path: K8, K4 at 64 march segments, a small compose render
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,L", [(4096, 168), (333, 1), (257, 5), (512, 257), (64, 1100)])
+@pytest.mark.parametrize("n,L", [(4096, 168), (333, 1), (257, 5), (512, 257), (64, 1100),
+                                 (64, 4096)])
 def test_k8_cross_source_vw(dev, n, L):
     args = [_t(a, dev) for a in cs.unsorted_inputs(n, L, L)]
     n0 = kernels.KERNELS["cross_source_vw"].launches
     got = cross_source_vw(*args)
     assert kernels.KERNELS["cross_source_vw"].launches == n0 + 1
     _close([got], [cross_source_vw_plain(*args)], **cs.K8_TOL)
+    assert torch.equal(cross_source_vw(*args), got)
+
+
+K8_TIES = [("signed zeros", 4096, 168), ("signed zeros, wide", 64, 1100),
+           ("every lane masked", 512, 168), ("every lane masked, wide", 16, 300)]
+
+
+@pytest.mark.parametrize("case", K8_TIES, ids=[c[0] for c in K8_TIES])
+def test_k8_ties_and_masked_rows(dev, case):
+    """K8 forward and backward where -0.0 lies beside +0.0 and depths tie
+    across sources (cs.tie_inputs), and where every lane is masked: within
+    cs.K8_TOL and cs.GRAD_REL of the plain versions, the same bits on two
+    calls."""
+    label, n, L = case
+    t, mask, alpha = (_t(a, dev) for a in cs.tie_inputs(n, L, L))
+    if "masked" in label:
+        mask = torch.zeros_like(mask)
+    got = cross_source_vw(t, mask, alpha)
+    _close([got], [cross_source_vw_plain(t, mask, alpha)], **cs.K8_TOL)
+    assert torch.equal(cross_source_vw(t, mask, alpha), got)
+    g = cs.cotangents((n, L), 12, dev)
+    a = alpha.clone().requires_grad_(True)
+    grad = lambda: torch.autograd.grad(cross_source_vw(t, mask, a), a, g)[0]
+    d = grad()
+    _rel_close([d], [cross_source_vw_bwd_plain(t, mask, alpha, g)], cs.GRAD_REL)
+    assert torch.equal(grad(), d)
+    if "masked" in label:
+        assert not got.any() and not d.any()
 
 
 def test_k8_gradient_on_the_card_runs_both_kernels(dev):
@@ -522,18 +578,31 @@ def test_k8_gradient_on_the_card_runs_both_kernels(dev):
     assert counts() == [n0[0] + 2, n0[1] + 1]
 
 
-@pytest.mark.parametrize("n,L", [(4096, 168), (333, 1), (257, 5), (512, 257), (64, 1100)])
+@pytest.mark.parametrize("n,L", [(4096, 168), (333, 1), (257, 5), (512, 257), (64, 1100),
+                                 (16, 6144)])
 def test_k8_cross_source_vw_backward(dev, n, L):
     """K8's backward kernel against autograd of the plain version on ragged,
     tied and masked buffers with alphas at 0, 1, float32(0.999) and outside
-    [0, 1], within cs.GRAD_REL of the largest entry."""
+    [0, 1], within cs.GRAD_REL of the largest entry; the same bits on two
+    calls, and from the kernels called by hand (the forward's ranks are the
+    lanes' places in a stable depth order)."""
     t, mask, alpha = (_t(a, dev) for a in cs.edge_alpha_inputs(n, L, L))
     g = cs.cotangents((n, L), 11, dev)
     a = alpha.clone().requires_grad_(True)
+    counts = lambda: [kernels.KERNELS[k].launches for k in ("cross_source_vw",
+                                                           "cross_source_vw.bwd")]
+    n0 = counts()
     (got,) = torch.autograd.grad(cross_source_vw(t, mask, a), a, g)
+    assert counts() == [n0[0] + 1, n0[1] + 1]
     _rel_close([got], [cross_source_vw_bwd_plain(t, mask, alpha, g)], cs.GRAD_REL)
-    logt = cross_source_vw_fwd(t, mask, alpha, with_logt=True)[1]
-    _rel_close([cross_source_vw_bwd(t, mask, alpha, logt, g)], [got], 0.0)
+    assert torch.equal(torch.autograd.grad(cross_source_vw(t, mask, a), a, g)[0], got)
+    _, logt, rank = cross_source_vw_fwd(t, mask, alpha, with_logt=True)
+    assert torch.equal(cross_source_vw_bwd(mask, alpha, logt, rank, g), got)
+    key = torch.where(mask, t + 0.0, torch.full_like(t, 1e10))
+    order = torch.sort(key, dim=-1, stable=True).indices
+    want = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(L, device=dev).expand(n, L).contiguous())
+    assert torch.equal(rank.long(), want)
 
 
 def test_k4_occ_ray_proposal_at_64_segments(dev):

@@ -43,10 +43,10 @@ def _stage_inputs(n=96, s=24, seed=0):
     return t, sdf, mask, near, far
 
 
-@pytest.mark.parametrize("noisy", [False, True])
-def test_k5a_weights_and_pdf_match_jax(noisy):
-    t, sdf, mask, near, far = _stage_inputs()
-    nf, inv_s = 16, 64.0 * 4.0
+def _k5a_vs_jax(s, nf, inv_s, noisy, seed):
+    """The plain K5a against the JAX weights and inverse CDF at ``s``
+    samples and ``nf`` draws, with drawn noise where ``noisy``."""
+    t, sdf, mask, near, far = _stage_inputs(s=s, seed=seed)
     noise = np.random.default_rng(2).random((t.shape[0], nf)).astype(np.float32) \
         if noisy else None
     w_j = jax_weights(jnp.asarray(t), jnp.asarray(sdf), jnp.asarray(mask), inv_s)
@@ -65,6 +65,23 @@ def test_k5a_weights_and_pdf_match_jax(noisy):
     np.testing.assert_allclose(t_p.numpy(), np.asarray(want_t), **T_TOL)
     assert np.all(np.diff(t_p.numpy(), axis=-1) >= 0)
     assert np.all(w_p.numpy()[~mask] == 0.0)
+    _, t_only = upsample_weights_pdf(
+        torch.from_numpy(t), torch.from_numpy(sdf), torch.from_numpy(mask),
+        torch.from_numpy(near), torch.from_numpy(far), inv_s, nf,
+        None if noise is None else torch.from_numpy(noise), with_weights=False)
+    assert torch.equal(t_only, t_p)
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+def test_k5a_weights_and_pdf_match_jax(noisy):
+    _k5a_vs_jax(24, 16, 64.0 * 4.0, noisy, 0)
+
+
+@pytest.mark.parametrize("s,inv_s", [(24, 64.0), (32, 64.0), (40, 256.0)])
+def test_k5a_matches_jax_at_the_stage_widths(s, inv_s):
+    """The multi-object iteration's stages: 24, 32 and 40 samples, 8 drawn
+    draws each."""
+    _k5a_vs_jax(s, 8, inv_s, True, 40 + s)
 
 
 def _jax_sample_pdf_at(bins, weights, u, eps=1e-5):
