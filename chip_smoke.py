@@ -11,7 +11,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      versions at the render path's shapes (4,096 rays per chunk) and at the
      training path's (2,048 rays, the 512 uniform points, drawn noise), plus
      edge cases; the backward kernels to autograd of theirs at the training
-     path's shapes, with non-zero cotangents of every output;
+     path's shapes, with non-zero cotangents of every output; K4 at K4_EDGES
+     and K10 at K10_EDGES (march segments 1-64, draws 1-64, the uniform
+     fallback, rays past 32 occupied segments, midpoints on cdf values,
+     ragged ray counts, probes outside the box, grid indices 0, G - 1 and
+     clipped), each the same bits on two calls;
   4. render slice: build the full-width synthetic_object renderer with seeded
      weights, render 4 frames of the 96x96 synthetic rig with
      render_chunked(rayschunk=4096), check the images, check that every
@@ -180,15 +184,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      shapes; K13 and its backward at the main path's and the crowd's largest
      calls (and the eikonal's) beside index_select, index_add_ into zeros,
      F.embedding's backward and the sort-based index_put; K14 and its
-     backward at each encoding (library none; the per-level F.interpolate
-     sum as an aside);
+     backward at each encoding and at the edge ladders of CP_LINES_EDGES
+     (library none; the per-level F.interpolate sum as an aside);
  14. one JSON line of results, one of per-kernel results, then the device
      line, last.
 
 --profile adds torch.profiler tables of device time by kernel for one frame
 and for one training step of each model, for one compose frame, and for one
-LiDAR and one pixel step of the multi-object (with K1 bwd's, K3 bwd's, K5a's,
-K5b's, K14's and K14 bwd's device time), the crowd, the per-level (with K2's,
+LiDAR and one pixel step of the multi-object (with K1 bwd's, K3 bwd's, K4's,
+K5a's, K5b's, K14's and K14 bwd's device time), the crowd, the per-level (with K2's,
 K2 bwd's and K3 bwd's) and the permuto training (with K9's), each with K13's,
 K13 bwd's and what is left of the library's index_put.
 """
@@ -277,6 +281,35 @@ BENCH_DEPTH_TOL = 1e-6
 # values (expf against torch.exp); K7's mask may differ only where the value
 # lies within that tolerance of the threshold
 K4_TOL = dict(rtol=1e-5, atol=1e-6)
+# K4's and K10's edges (k4_edge_inputs), each held at K4_TOL and to the same
+# bits on two calls: (label, rays, march segments M, draws n, the grid's
+# occupied share, noise, probes outside the box). M 1-64 (the kernel's
+# range), n 1-64 (draws past a ray's lanes take a second pass), 8,192 rays
+# (16 lanes a ray) and fewer (32), a grid with nothing occupied (the
+# uniform fallback), one so full that rays pass 32 occupied segments (an
+# empty segment's 1e-6 is then lost in f32 and the cdf has steps of 0), the
+# midpoints without noise on a full grid (draws land exactly on cdf
+# values), rays not a multiple of a block's 16
+K4_EDGES = (("M 1", 4096, 1, 16, 0.3, True, False),
+            ("M 2", 4096, 2, 16, 0.3, True, False),
+            ("M 33", 4096, 33, 16, 0.3, True, False),
+            ("M 48", 8192, 48, 16, 0.3, True, False),
+            ("M 64", 4096, 64, 32, 0.3, True, False),
+            ("n 1", 4096, 64, 1, 0.3, True, False),
+            ("n 16", 4096, 64, 16, 0.3, True, False),
+            ("n 33", 2048, 64, 33, 0.3, True, False),
+            ("n 64", 2048, 64, 64, 0.3, True, False),
+            ("no occupied probe", 4096, 64, 32, 0.0, True, False),
+            ("33+ occupied segments", 4096, 64, 32, 0.85, True, False),
+            ("33+ occupied segments, midpoints", 4096, 64, 32, 0.85, False, False),
+            ("full grid, midpoints on cdf values", 4096, 64, 32, 1.0, False, False),
+            ("midpoints M 48 n 16", 8192, 48, 16, 0.3, False, False),
+            ("4,099 rays", 4099, 64, 32, 0.3, True, False),
+            ("probes outside the box", 4096, 64, 32, 0.3, True, True))
+# K10's edges on [G, R, R, R] = [8, 32^3] grids of other occupied shares:
+# (label, each ray's grid index: 0, G - 1, or drawn in [-3, G + 3) and
+# clipped), each with and without noise
+K10_EDGES = ("lead 0", "lead G - 1", "lead clipped")
 K7_ATOL = 1e-6
 # the multi-object compose render (WAYMO_DEMO_MULTI): 4 frames of 80x120 of
 # camera_FRONT, each 9,600 rays in three chunks of 4,096 (the last padded)
@@ -335,7 +368,8 @@ MULTI_PROFILED = {"K3 bwd": ("grid_bwd",), "K5b": ("merge_kernel",),
                   "K1 bwd": ("cp_stacked_bwd",), "K5a": ("weights_pdf",),
                   "K8": ("cross_source_vw_kernel", "cross_source_vw_block_kernel"),
                   "K8 bwd": ("cross_source_vw_bwd",),
-                  "K14": ("cp_lines_kernel",), "K14 bwd": ("cp_lines_bwd",), **LATENT_PROFILED}
+                  "K14": ("cp_lines_kernel",), "K14 bwd": ("cp_lines_bwd",),
+                  "K4": ("occ_ray_proposal_kernel",), **LATENT_PROFILED}
 # the per-level steps' device-time split by kernel name
 PERLEVEL_PROFILED = {"K2 bwd": ("cp_level_bwd",), "K2": ("cp_level_kernel",),
                      "K3 bwd": ("grid_bwd",), **LATENT_PROFILED}
@@ -1611,7 +1645,7 @@ def time_bench_kernels(shapes):
         **card_ms(lambda: occ_ray_proposal(*a)),
         plain_ms=cuda_ms(lambda: occ_ray_proposal_plain(*a)),
         library_ms=None,
-        bound=bound(N * 32 + N * M + (M + 1) * 4 + 2 * N * n * 4, N * (M * 30 + n * M * 6)))
+        bound=k4_bound(N, M, n, a[9] is not None))
     a = shapes["occ_ema_update"]["args"]
     S, V = a[0].shape
     out["occ_ema_update"] = dict(
@@ -1916,6 +1950,104 @@ def check_compose_occ(dev, accel, st, space, o, d, n):
                             [occ_ray_proposal(*a)], [occ_ray_proposal_plain(*a)], **K4_TOL))
     torch.cuda.synchronize()
     return max(errs), dict(args=(o, d, near, far, st.mask, *box, edges, n, None))
+
+
+def k4_edge_inputs(dev, n_rays, M, n, share, noisy, outside, seed, G=None, R=32):
+    """K4's arguments (K10's with ``G`` grids, the lead last) from a seed:
+    rays from a sphere of radius 3 aimed into the box [-1, 1]^3 (about one
+    in ten misses it), a random grid with ``share`` of its cells occupied
+    (one share a grid from 0.05 to 0.6 for K10), JAX's linspace edges;
+    ``outside``: march [0.1, 6] past the box."""
+    import torch
+    from neuralsim_torch.accel.occ_grid import OccGridEma
+    from neuralsim_torch.fields.spatial import AABBSpace
+    rng = np.random.default_rng(seed)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    o = rng.normal(size=(n_rays, 3))
+    o = 3.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = rng.uniform(-1.1, 1.1, (n_rays, 3)) - o
+    o, d = T(o), T(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    space = AABBSpace().to(dev)
+    near, far, _ = space.ray_test(o, d)
+    if outside:
+        near, far = torch.full_like(near, 0.1), torch.full_like(far, 6.0)
+    shape = (R, R, R) if G is None else (G, R, R, R)
+    shares = share if G is None else np.linspace(0.05, 0.6, G)[:, None, None, None]
+    mask = torch.from_numpy(rng.random(shape) < shares).to(dev)
+    accel = OccGridEma(space, R, march_steps=M)
+    noise = T(rng.random((n_rays, n))) if noisy else None
+    return (o, d, near, far, mask, *accel.box(dev), accel.edges01(M, dev), n, noise)
+
+
+def k10_lead(label, n_rays, G, seed, dev):
+    import torch
+    if label == "lead 0":
+        lead = np.zeros(n_rays)
+    elif label == "lead G - 1":
+        lead = np.full(n_rays, G - 1)
+    else:
+        lead = np.random.default_rng(seed).integers(-3, G + 3, n_rays)
+    return torch.from_numpy(lead.astype(np.int32)).to(dev)
+
+
+def occupied_probes(args):
+    """Each ray's occupied probes [N] by the plain version's probe."""
+    import torch
+    o, d, near, far, mask, lo, hi, edges = args[:8]
+    lead = args[10] if len(args) > 10 else None
+    R = mask.shape[-1]
+    t_edges = near[:, None] + (far - near)[:, None] * edges
+    x = o[:, None] + (0.5 * (t_edges[:, 1:] + t_edges[:, :-1]))[..., None] * d[:, None]
+    x01 = (x - lo) / (hi - lo)
+    cell = (x01 * R).to(torch.int32).clamp(0, R - 1).long()
+    at = (cell[..., 0] * R + cell[..., 1]) * R + cell[..., 2]
+    if lead is not None:
+        at = (lead.long()[:, None] * R ** 3 + at).clamp(0, mask.numel() - 1)
+    inside = torch.all((x01 >= 0) & (x01 <= 1), dim=-1)
+    return (mask.reshape(-1)[at] & inside).sum(-1)
+
+
+def check_k4_edges(dev):
+    """K4 at K4_EDGES and K10 at K10_EDGES against their plain version at
+    K4_TOL, each giving the same bits on two calls; the inputs hold what the
+    edges name (a ray past 32 occupied probes, none occupied anywhere)
+    -> {kernel: (max_abs_err, atol)}."""
+    import torch
+    from neuralsim_torch.accel.occ_grid import occ_ray_proposal, occ_ray_proposal_plain
+    e4, e10 = [], []
+    for seed, (label, N, M, n, share, noisy, outside) in enumerate(K4_EDGES, 300):
+        a = k4_edge_inputs(dev, N, M, n, share, noisy, outside, seed)
+        most = int(occupied_probes(a).max())
+        if (share == 0.0 and most) or (share >= 0.85 and most < 33):
+            raise AssertionError(f"K4 {label}: {most} occupied probes at most on a ray")
+        name = f"K4 occ_ray_proposal {label}: rays={N} M={M} n={n} noise={noisy}"
+        e4.append(compare(name, [occ_ray_proposal(*a)], [occ_ray_proposal_plain(*a)],
+                          **K4_TOL))
+        same_bits(name, lambda: occ_ray_proposal(*a))
+    G = 8
+    for seed, label in enumerate(K10_EDGES, 320):
+        for noisy in (False, True):
+            a = k4_edge_inputs(dev, 4096, 64, 24, None, noisy, False, seed, G=G)
+            a = (*a, k10_lead(label, 4096, G, seed, dev))
+            name = f"K10 occ_ray_proposal_batched {label}: G={G} noise={noisy}"
+            e10.append(compare(name, [occ_ray_proposal(*a)], [occ_ray_proposal_plain(*a)],
+                               **K4_TOL))
+            same_bits(name, lambda: occ_ray_proposal(*a))
+    torch.cuda.synchronize()
+    log(f"K4 edges: {len(e4)} cases, max abs err {max(e4):.3g}; K10 edges: {len(e10)} cases, "
+        f"max abs err {max(e10):.3g}; each the same bits on two calls")
+    return {"occ_ray_proposal": (max(e4), K4_TOL["atol"]),
+            "occ_ray_proposal_batched": (max(e10), K4_TOL["atol"])}
+
+
+def k4_bound(N, M, n, noisy, lead=False):
+    """K4's (K10's) least time: the rays, near and far (and the lead) read,
+    one mask byte a probe, the edges, the draws and the depths; a probe's
+    ~30 operations, the cdf and prefix steps (~6 a segment), and a binary
+    search over the M segments with the bin's lerp a draw."""
+    return bound(N * (32 + (4 if lead else 0) + M) + (M + 1) * 4
+                 + ((N if noisy else 1) + N) * n * 4,
+                 N * (M * 36 + n * (8 * math.ceil(math.log2(M + 1)) + 10)))
 
 
 def check_compose_frames(frames, H, W, vehicles):
@@ -2335,7 +2467,7 @@ def time_compose_kernels(shapes):
         **card_ms(lambda: occ_ray_proposal(*a)),
         plain_ms=cuda_ms(lambda: occ_ray_proposal_plain(*a)),
         library_ms=None,
-        bound=bound(N * 32 + N * M + (M + 1) * 4 + N * n * 4, N * (M * 30 + n * M * 6)))]
+        bound=k4_bound(N, M, n, a[9] is not None))]
     return out
 
 
@@ -3448,7 +3580,7 @@ def time_crowd_kernels(pair_shapes, occ_shapes, ema_shapes, synth_hit):
         **card_ms(lambda: occ_ray_proposal(*a)),
         plain_ms=cuda_ms(lambda: occ_ray_proposal_plain(*a)),
         library_ms=None,
-        bound=bound(N * 36 + N * M + (M + 1) * 4 + 2 * N * n * 4, N * (M * 30 + n * M * 6)))]
+        bound=k4_bound(N, M, n, a[9] is not None, lead=True))]
     a = ema_shapes["args"]
     S, V = a[0].shape
     out["occ_ema_update"] = [dict(
@@ -4628,22 +4760,35 @@ def check_latent_take(dev, cases):
     return ef, eb
 
 
+# K14's edge ladders: (label, R_max, (R, F) levels, floats before the first
+# level, between levels, after the last). The first has R 1 (both taps on
+# one row: the upper one clamped, 2,048 taps a row), R 2, R 37 at F 5 and
+# two levels of R_max 1,024 (1-2 taps a row), past a dense level's 250
+# floats; the second odd F, R 3 (~511 taps a row), R 16 at F 1 and a level
+# of R == R_max, with floats that no CP level owns before, between and after
+# its levels (written as zeros by the backward)
+CP_LINES_EDGES = (("edge ladder: R 1, 2, 37 (F 5), 1,024 x 2", 1024,
+                   ((1, 3), (2, 4), (37, 5), (1024, 4), (1024, 3)), 250, 0, 0),
+                  ("edge ladder: odd F, R 3, 16 (F 1), 100 (F 9), 512 == R_max (F 5), gaps",
+                   512, ((3, 7), (16, 1), (100, 9), (512, 5)), 1000, 777, 3000))
+
+
 def cp_lines_sets(dev, encodings):
     """K14's sets [(label, table, plan)]: each of ``encodings`` [(label, a
-    stacked LoTDEncoding on the card)], and a ladder of R 1 (both taps on
-    one row: the upper one clamped), R 2, R 37 at F 5 and two levels of
-    R_max 1,024, past a dense level's 250 floats."""
+    stacked LoTDEncoding on the card)], and the ladders of CP_LINES_EDGES."""
     import torch
     from neuralsim_torch.fields.encodings.lotd import cp_lines_plan
     sets = [(label, e.table.detach(), e.cp_lines_plan()) for label, e in encodings]
-    levels, off = [], 250
-    for R, F in ((1, 3), (2, 4), (37, 5), (1024, 4), (1024, 3)):
-        levels.append((R, F, off))
-        off += 3 * R * F
-    table = torch.from_numpy(np.random.default_rng(62).normal(1.0, 0.3, off)
-                             .astype(np.float32)).to(dev)
-    return sets + [("edge ladder: R 1, 2, 37 (F 5), 1,024 x 2", table,
-                    cp_lines_plan(levels, 1024).to(dev))]
+    for i, (label, rmax, ladder, before, between, after) in enumerate(CP_LINES_EDGES):
+        levels, off = [], before
+        for R, F in ladder:
+            levels.append((R, F, off))
+            off += 3 * R * F + between
+        n_table = off - between + after
+        table = torch.from_numpy(np.random.default_rng(62 + i).normal(1.0, 0.3, n_table)
+                                 .astype(np.float32)).to(dev)
+        sets.append((label, table, cp_lines_plan(levels, rmax, n_table).to(dev)))
+    return sets
 
 
 def lines_cotangent(plan, seed, dev):
@@ -4813,6 +4958,7 @@ def main(argv) -> int:
     errs["lotd_grid"] = (max(errs["lotd_grid"][0], check_dense_levels(dev)), 1e-5)
     errs_bwd, shapes_bwd = check_backward_kernels(dev, params)
     errs.update(errs_bwd)
+    errs.update(check_k4_edges(dev))
 
     # 4. the render slice
     rig = SyntheticObjectDataset(**SYNTHETIC_OBJECT["dataset_cfg"]["params"])

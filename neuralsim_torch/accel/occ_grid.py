@@ -31,7 +31,7 @@ import torch
 
 from .. import kernels
 from ..maths.common import normalized_logistic_density
-from ..ops.segment import det_u, sample_pdf
+from ..ops.segment import det_u_on, sample_pdf
 
 K4 = kernels.register("occ_ray_proposal", "neuralsim_torch/csrc/occ_grid.cu",
                       "neuralsim_tpu/accel/occ_grid.py:158")
@@ -96,12 +96,13 @@ def occ_ray_proposal(rays_o: torch.Tensor, rays_d: torch.Tensor, near: torch.Ten
         return occ_ray_proposal_plain(rays_o, rays_d, near, far, mask, aabb_min, aabb_max,
                                       edges01, n_samples, noise, lead)
     N = rays_o.shape[0]
+    # the draws: the midpoints, made once a device, or the noise, from which
+    # the kernel forms them itself
     if noise is None:
-        u, u_stride = det_u(n_samples, rays_o.device), 0
+        u, draws = det_u_on(n_samples, rays_o.device), (n_samples,)
     else:
-        u = ((torch.arange(n_samples, dtype=torch.float32, device=rays_o.device) + noise)
-             / n_samples).contiguous()
-        u_stride = n_samples
+        u, noise, draws = None, noise.contiguous(), (N, n_samples)
+    given = noise if u is None else u
     f32 = torch.float32
     R, M = mask.shape[-1], edges01.shape[0] - 1
     G = 1 if lead is None else mask.shape[0]
@@ -110,20 +111,19 @@ def occ_ray_proposal(rays_o: torch.Tensor, rays_d: torch.Tensor, near: torch.Ten
               (aabb_min, (3,), f32), (aabb_max, (3,), f32), (edges01, (M + 1,), f32)]
     if lead is not None:
         checks.append((lead, (N,), torch.int32))
-    kernels.check_cuda("occ_ray_proposal", *(x for x, _, _ in checks), u)
+    kernels.check_cuda("occ_ray_proposal", *(x for x, _, _ in checks), given)
     for x, shape, dt in checks:
         if tuple(x.shape) != shape or x.dtype != dt:
             raise ValueError(f"occ_ray_proposal: expected {shape} {dt}, got "
                              f"{tuple(x.shape)} {x.dtype}")
-    if not 1 <= M <= 64 or n_samples < 1 or u.dtype != f32 \
-            or u.shape not in ((n_samples,), (N, n_samples)):
+    if not 1 <= M <= 64 or n_samples < 1 or given.dtype != f32 or given.shape != draws:
         raise ValueError("occ_ray_proposal: needs 1..64 segments and [N, n_samples] noise")
     t = torch.empty((N, n_samples), dtype=f32, device=rays_o.device)
     (K4 if lead is None else K10).launch(
         "occ_ray_proposal", kernels.ptr(rays_o), kernels.ptr(rays_d), kernels.ptr(near),
         kernels.ptr(far), kernels.ptr(mask), kernels.ptr(lead), kernels.ptr(aabb_min),
-        kernels.ptr(aabb_max), kernels.ptr(edges01), kernels.ptr(u), kernels.ptr(t),
-        N, G, R, M, n_samples, u_stride, kernels.stream())
+        kernels.ptr(aabb_max), kernels.ptr(edges01), kernels.ptr(u), kernels.ptr(noise),
+        kernels.ptr(t), N, G, R, M, n_samples, kernels.stream())
     return t
 
 

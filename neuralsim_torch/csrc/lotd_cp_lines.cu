@@ -16,20 +16,31 @@
 // Backward, in gather form: lo and w are static, so the build lists for each
 // source row r of each level the taps that read it (a CSR over the levels'
 // rows: position j and weight 1 - w[j] for a lower tap, w[j] for an upper
-// one, the clamped upper tap included), and one thread per (axis, row,
-// feature) of the table's CP segments sums its list in that order:
+// one, the clamped upper tap included), and each (axis, row, feature) of the
+// table's CP segments sums its list:
 //   d_table[offset + (a R + r) F + f] = sum over (j, wt) of d_lines[a, col + f, j] wt
-// No atomics, the same bits on every call. d_lines is read with the strides
-// it comes with (K1's backward leaves it a [3, R, F] buffer seen as
-// [3, F, R]); only CP entries are written (the wrapper zeroes the rest once).
+// A coarse level's row has ~2 (R_max - 1) / (R - 1) taps (~136 at R 16 of
+// 1,024, all 2,048 at R 1), a fine level's 1-2. So the plan (cp_lines_work)
+// gives each level G lanes an entry, G a power of two with at most a few taps
+// a lane (1 to 16: as few as keep the work list within the warps the card
+// holds at once), and lists the work as warp items: (level, first entry, G) covers 32 /
+// G consecutive entries of one level, a row's features side by side, so that
+// the lanes of one tap read neighbouring features (K1's backward leaves
+// d_lines a [3, R, F] buffer seen as [3, F, R]: f is the contiguous axis).
+// Lane (g, e) sums taps g, g + G, ... of entry e; the G partial sums are
+// added by a fixed shuffle tree. No atomics and no order that depends on
+// timing: the same bits on every call (another order than the plain
+// version's, held at GRAD_REL). Items of level -1 write the zeros of the
+// table outside the CP segments, so the kernel writes the whole gradient and
+// no zero-fill precedes it.
 //
 // What bounds it on an H100: bytes, and those are few (the street's stacked
 // lines are 3 x 40 x 1,024 floats, 0.5 MB); what it replaces is launches:
 // per level two row gathers, a clamp, a lerp, then a cat and a transposed
 // copy, and in the backward two sort-based index_put accumulations a level
-// and a zero-filled gradient of the whole table for each level's slice. One
-// thread an output (forward, coalesced writes along R_max) or a table entry
-// (backward, coalesced writes along F); the metadata is a few hundred ints.
+// and a zero-filled gradient of the whole table for each level's slice. The
+// forward has a thread an output (coalesced writes along R_max); the
+// backward is bound by its longest tap walks, which the split shortens.
 #include <cuda_runtime.h>
 
 namespace {
@@ -57,30 +68,43 @@ __global__ void cp_lines_kernel(const float* __restrict__ table, const int* __re
 }
 
 // levels [L, 6]: (first CP entry, table offset, R, F, first stacked column,
-// first CSR row); the CP entries of level k are [first, first + 3 R F), in
-// the segment's own order. rowptr [sum R + 1], tap_j / tap_w: the CSR.
-__global__ void cp_lines_bwd_kernel(const float* __restrict__ d_lines,
-                                    const int* __restrict__ levels,
-                                    const int* __restrict__ rowptr,
-                                    const int* __restrict__ tap_j,
-                                    const float* __restrict__ tap_w,
-                                    float* __restrict__ d_table, long long s0, long long s1,
-                                    long long s2, int L, int n_entries) {
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n_entries;
-       e += gridDim.x * blockDim.x) {
-    int k = 0;
-    while (k + 1 < L && levels[6 * (k + 1)] <= e) ++k;
-    const int* m = levels + 6 * k;
-    const int local = e - m[0], R = m[2], F = m[3];
+// first CSR row); items [n_items, 4]: (level, first local entry of the level
+// (its order: a, r, f), G lanes an entry, 0), or (-1, first float, count, 0)
+// for zeros. rowptr [sum R + 1], tap_j / tap_w: the CSR.
+constexpr int kBwdWarps = 8;  // items a block
+
+__global__ void __launch_bounds__(32 * kBwdWarps)
+cp_lines_bwd_kernel(const float* __restrict__ d_lines, const int* __restrict__ levels,
+                    const int4* __restrict__ items, const int* __restrict__ rowptr,
+                    const int* __restrict__ tap_j, const float* __restrict__ tap_w,
+                    float* __restrict__ d_table, long long s0, long long s1, long long s2,
+                    int n_items) {
+  const int lane = threadIdx.x & 31;
+  const int item = blockIdx.x * kBwdWarps + (threadIdx.x >> 5);
+  if (item >= n_items) return;  // the whole warp
+  const int4 it = items[item];
+  if (it.x < 0) {
+    for (int i = lane; i < it.z; i += 32) d_table[it.y + i] = 0.f;
+    return;
+  }
+  const int* m = levels + 6 * it.x;
+  const int R = m[2], F = m[3];
+  const int G = it.z, E = 32 / G;
+  const int g = lane / E, local = it.y + (lane - g * E);
+  const bool valid = local < 3 * R * F;
+  float s = 0.f;
+  if (valid) {
     const int f = local % F;
     const int r = (local / F) % R;
     const int a = local / (F * R);
-    const float* g = d_lines + a * s0 + (m[4] + f) * s1;
-    const int row = m[5] + r;
-    float s = 0.f;
-    for (int t = rowptr[row]; t < rowptr[row + 1]; ++t) s += g[tap_j[t] * s2] * tap_w[t];
-    d_table[m[1] + local] = s;
+    const float* gp = d_lines + a * s0 + (m[4] + f) * s1;
+    const int end = rowptr[m[5] + r + 1];
+#pragma unroll 8
+    for (int t = rowptr[m[5] + r] + g; t < end; t += G) s += gp[tap_j[t] * s2] * tap_w[t];
   }
+  // lane g E + e adds lane (g + G / 2) E + e's sum, and so on down to g = 0
+  for (int d = 16; d >= E; d >>= 1) s += __shfl_down_sync(0xffffffffu, s, d);
+  if (g == 0 && valid) d_table[m[1] + local] = s;
 }
 
 int grid_for(long long total) {
@@ -101,14 +125,15 @@ extern "C" int lotd_cp_lines_fwd(const void* table, const void* cols, const void
 }
 
 // d_lines [3, F_cp, R_max] f32 at strides (s0, s1, s2) in floats; d_table:
-// the flat f32 gradient, of which the L levels' n_entries CP entries are
-// written.
-extern "C" int lotd_cp_lines_bwd(const void* d_lines, const void* levels, const void* rowptr,
-                                 const void* tap_j, const void* tap_w, void* d_table, int s0,
-                                 int s1, int s2, int L, int n_entries, void* stream) {
-  if (L < 1 || n_entries < 1) return (int)cudaErrorInvalidValue;
-  cp_lines_bwd_kernel<<<grid_for(n_entries), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)d_lines, (const int*)levels, (const int*)rowptr, (const int*)tap_j,
-      (const float*)tap_w, (float*)d_table, s0, s1, s2, L, n_entries);
+// the flat f32 gradient, every float of which the n_items items write.
+extern "C" int lotd_cp_lines_bwd(const void* d_lines, const void* levels, const void* items,
+                                 const void* rowptr, const void* tap_j, const void* tap_w,
+                                 void* d_table, int s0, int s1, int s2, int n_items,
+                                 void* stream) {
+  if (n_items < 1) return (int)cudaErrorInvalidValue;
+  cp_lines_bwd_kernel<<<(n_items + kBwdWarps - 1) / kBwdWarps, 32 * kBwdWarps, 0,
+                        (cudaStream_t)stream>>>(
+      (const float*)d_lines, (const int*)levels, (const int4*)items, (const int*)rowptr,
+      (const int*)tap_j, (const float*)tap_w, (float*)d_table, s0, s1, s2, n_items);
   return (int)cudaGetLastError();
 }

@@ -523,7 +523,8 @@ def lotd_grid_bwd(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
 
 class CpLinesPlan(NamedTuple):
     """K14's static plan for the CP levels stacked in order: each level's
-    two taps onto R_max and, for the backward, the taps by source row."""
+    two taps onto R_max and, for the backward, the taps by source row and
+    the work items that cover the table gradient."""
     lo: torch.Tensor       # int64 [L, R_max]: the lower tap's row
     w: torch.Tensor        # float32 [L, R_max]: the upper tap's weight
     cols: torch.Tensor     # int32 [F_cp, 4]: (offset + f, R, F, level) of each stacked feature
@@ -531,17 +532,71 @@ class CpLinesPlan(NamedTuple):
     rowptr: torch.Tensor   # int32 [sum R + 1]: a CSR over the levels' rows ...
     tap_j: torch.Tensor    # int32 [2 L R_max]: ... of the R_max positions that read each row
     tap_w: torch.Tensor    # float32 [2 L R_max]: ... and their weights, 1 - w or w
+    items: torch.Tensor    # int32 [n_items, 4]: the backward's warps, see cp_lines_items
     n_entries: int         # the CP entries of the table, sum of 3 R F
+    n_table: int           # the table's floats, all of which the backward writes
 
     def to(self, device) -> "CpLinesPlan":
-        return CpLinesPlan(*(t.to(device) for t in self[:-1]), self.n_entries)
+        return self._replace(**{k: getattr(self, k).to(device) for k in CP_LINES_TENSORS})
 
 
-def cp_lines_plan(levels: Sequence[Tuple[int, int, int]], rmax: int) -> CpLinesPlan:
+CP_LINES_TENSORS = CpLinesPlan._fields[:-2]
+# the backward's taps a lane, tried in this order: the first whose work list
+# has at most CP_LINES_MAX_ITEMS warps (those an H100 holds at once, 32 an
+# SM) is taken; a small table takes more lanes an entry and a shorter tap
+# walk, a large one fewer warps
+CP_LINES_TAPS_A_LANE = (1, 2, 4, 8, 16)
+CP_LINES_MAX_ITEMS = 132 * 32
+# the zeros a warp writes outside the CP segments
+CP_LINES_ZERO_CHUNK = 1024
+
+
+def cp_lines_items(levels: Sequence[Tuple[int, int, int, int, int, int]], rowptr: np.ndarray,
+                   n_table: int, taps_a_lane: int) -> np.ndarray:
+    """The backward's work list, one warp an item, int32 [n_items, 4]:
+    (level k, its first local entry, G, 0) for the CP entries and (-1,
+    first float, count, 0) for the zeros of the rest of the table.
+
+    A level whose rows have at most T taps gets G = the least power of two
+    >= T / taps_a_lane (at most 32) lanes an entry, so an item covers 32 / G
+    consecutive entries (a row's features side by side) of one level; the
+    levels with the longest rows come first. The zero items cover [0,
+    n_table) outside the CP segments in chunks of CP_LINES_ZERO_CHUNK."""
+    cp, zeros = [], []
+    for k, (_, _, R, F, _, row) in enumerate(levels):
+        taps = int(np.max(np.diff(rowptr[row:row + R + 1])))
+        G = 1
+        while G < 32 and G * taps_a_lane < taps:
+            G *= 2
+        n = 3 * R * F
+        cp.append((-G, k, [(k, e, G, 0) for e in range(0, n, 32 // G)]))
+    at = 0
+    for _, offset, R, F, _, _ in sorted(levels, key=lambda m: m[1]) + [(0, n_table, 0, 0, 0, 0)]:
+        for e in range(at, offset, CP_LINES_ZERO_CHUNK):
+            zeros.append((-1, e, min(CP_LINES_ZERO_CHUNK, offset - e), 0))
+        at = max(at, offset + 3 * R * F)
+    items = [it for _, _, its in sorted(cp) for it in its] + zeros
+    return np.asarray(items, np.int32).reshape(-1, 4)
+
+
+def cp_lines_work(levels: Sequence[Tuple[int, int, int, int, int, int]], rowptr: np.ndarray,
+                  n_table: int) -> Tuple[int, np.ndarray]:
+    """The backward's taps a lane (the first of CP_LINES_TAPS_A_LANE whose
+    work list fits CP_LINES_MAX_ITEMS, else the last) and its work list."""
+    for taps in CP_LINES_TAPS_A_LANE:
+        items = cp_lines_items(levels, rowptr, n_table, taps)
+        if items.shape[0] <= CP_LINES_MAX_ITEMS:
+            break
+    return taps, items
+
+
+def cp_lines_plan(levels: Sequence[Tuple[int, int, int]], rmax: int,
+                  n_table: Optional[int] = None) -> CpLinesPlan:
     """The plan of CP levels (R, F, table offset) onto ``rmax``: JAX's
     float64 taps (lotd.py:178-185), lo = min(floor(pos), max(R - 2, 0)) and
     the upper tap min(lo + 1, R - 1), clamped where R is 1. A row's taps are
-    listed by position, the lower tap first (CPU tensors)."""
+    listed by position, the lower tap first (CPU tensors). ``n_table``: the
+    table's floats (by default where the last CP segment ends)."""
     los, ws, cols, meta, tap_j, tap_w = [], [], [], [], [], []
     rowptr = [0]
     entry = col = row = 0
@@ -560,11 +615,15 @@ def cp_lines_plan(levels: Sequence[Tuple[int, int, int]], rmax: int) -> CpLinesP
         tap_w.append(np.concatenate([np.float32(1.0) - w, w])[order])
         rowptr += (rowptr[-1] + np.cumsum(np.bincount(src, minlength=R))).tolist()
         entry, col, row = entry + 3 * R * F, col + F, row + R
+    if n_table is None:
+        n_table = max(offset + 3 * R * F for R, F, offset in levels)
     T = lambda a, dt: torch.from_numpy(np.ascontiguousarray(np.asarray(a, dt)))
     return CpLinesPlan(T(np.stack(los), np.int64), T(np.stack(ws), np.float32),
                        T(cols, np.int32).reshape(-1, 4), T(meta, np.int32).reshape(-1, 6),
                        T(rowptr, np.int32), T(np.concatenate(tap_j), np.int32),
-                       T(np.concatenate(tap_w), np.float32), entry)
+                       T(np.concatenate(tap_w), np.float32),
+                       torch.from_numpy(cp_lines_work(meta, np.asarray(rowptr), n_table)[1]),
+                       entry, n_table)
 
 
 def lotd_cp_lines_plain(table: torch.Tensor, plan: CpLinesPlan) -> torch.Tensor:
@@ -611,22 +670,28 @@ def lotd_cp_lines(table: torch.Tensor, plan: CpLinesPlan) -> torch.Tensor:
 
 
 def lotd_cp_lines_bwd(d_lines: torch.Tensor, n_table: int, plan: CpLinesPlan) -> torch.Tensor:
-    """K14 backward wrapper: the gradient of the stacked lines into a zeroed
-    table gradient [n_table], its CP entries summed in gather form (no
-    atomics: the same bits on every call). The card reads ``d_lines`` [3,
-    F_cp, R_max] with its own strides; the plain version on the CPU."""
+    """K14 backward wrapper: the gradient of the stacked lines into the table
+    gradient [n_table], its CP entries summed in gather form (no atomics: the
+    same bits on every call) and every other entry 0. The card reads
+    ``d_lines`` [3, F_cp, R_max] with its own strides and writes the whole
+    gradient (``plan.n_table`` floats) in one launch; the plain version on
+    the CPU."""
     if d_lines.device.type == "cpu":
         return lotd_cp_lines_bwd_plain(d_lines, n_table, plan)
-    kernels.check_cuda("lotd_cp_lines_bwd", plan.levels, plan.rowptr, plan.tap_j, plan.tap_w)
+    kernels.check_cuda("lotd_cp_lines_bwd", plan.levels, plan.items, plan.rowptr, plan.tap_j,
+                       plan.tap_w)
     if d_lines.device != plan.levels.device or d_lines.dtype != torch.float32 \
             or tuple(d_lines.shape) != _lines_shape(plan) or min(d_lines.stride()) < 0:
         raise ValueError(f"lotd_cp_lines_bwd: d_lines must be float32 {_lines_shape(plan)} on "
                          f"{plan.levels.device}")
-    d_table = torch.zeros(n_table, dtype=torch.float32, device=d_lines.device)
+    if n_table != plan.n_table:
+        raise ValueError(f"lotd_cp_lines_bwd: the plan covers a table of {plan.n_table} "
+                         f"floats, not {n_table}")
+    d_table = torch.empty(n_table, dtype=torch.float32, device=d_lines.device)
     K14_BWD.launch("lotd_cp_lines_bwd", kernels.ptr(d_lines), kernels.ptr(plan.levels),
-                   kernels.ptr(plan.rowptr), kernels.ptr(plan.tap_j), kernels.ptr(plan.tap_w),
-                   kernels.ptr(d_table), *d_lines.stride(), plan.levels.shape[0],
-                   plan.n_entries, kernels.stream())
+                   kernels.ptr(plan.items), kernels.ptr(plan.rowptr), kernels.ptr(plan.tap_j),
+                   kernels.ptr(plan.tap_w), kernels.ptr(d_table), *d_lines.stride(),
+                   plan.items.shape[0], kernels.stream())
     return d_table
 
 
@@ -748,9 +813,9 @@ class LoTDEncoding(nn.Module):
         if self.cp_stacked:
             plan = cp_lines_plan([(self.specs[li].res, self.specs[li].n_feats,
                                    self.specs[li].offset) for li in self.cp_spec_ids],
-                                 self.cp_rmax)
-            for name, t in zip(CpLinesPlan._fields, plan[:-1]):
-                self.register_buffer(f"_cp_lines_{name}", t, persistent=False)
+                                 self.cp_rmax, self.total_params)
+            for name in CP_LINES_TENSORS:
+                self.register_buffer(f"_cp_lines_{name}", getattr(plan, name), persistent=False)
             self._cp_lines_entries = plan.n_entries
 
         # the kernels write straight into the feature-major output [out_dim, N]
@@ -790,8 +855,8 @@ class LoTDEncoding(nn.Module):
 
     def cp_lines_plan(self) -> CpLinesPlan:
         """K14's plan, on the encoding's device (stacked CP only)."""
-        return CpLinesPlan(*(getattr(self, f"_cp_lines_{name}")
-                             for name in CpLinesPlan._fields[:-1]), self._cp_lines_entries)
+        return CpLinesPlan(*(getattr(self, f"_cp_lines_{name}") for name in CP_LINES_TENSORS),
+                           self._cp_lines_entries, self.total_params)
 
     def cp_stacked_lines(self) -> torch.Tensor:
         """Resample every CP level's lines onto the R_max grid and stack them

@@ -22,7 +22,6 @@ shared models (``fields/conditional.py``); this field itself takes none.
 """
 from __future__ import annotations
 
-import functools
 import math
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
@@ -31,7 +30,7 @@ from torch import nn
 
 from .. import kernels
 from ..maths.common import safe_normalize
-from ..ops.segment import alpha_to_vw, det_u, merge_sorted_samples, sample_pdf
+from ..ops.segment import alpha_to_vw, det_u_on, merge_sorted_samples, sample_pdf
 from .blocks import MLP
 from .embedders import sh_embedder
 from .encodings.lotd import make_lotd
@@ -118,13 +117,6 @@ def upsample_weights_pdf_plain(t: torch.Tensor, sdf: torch.Tensor, mask: torch.T
     return w, sample_pdf(bins, w, n_samples, noise=noise)
 
 
-@functools.lru_cache(maxsize=None)
-def _det_u_on(n_samples: int, device: torch.device) -> torch.Tensor:
-    """The deterministic draws on a device, made once (K5a's input without
-    noise; never written)."""
-    return det_u(n_samples, device)
-
-
 # K5a stages a ray's 8 S + 1 floats in shared memory, two rays a warp: at
 # most the H100's 227 KB a block
 UPSAMPLE_MAX_SAMPLES = (227 * 1024 // 8 - 1) // 8
@@ -146,7 +138,7 @@ def upsample_weights_pdf(t: torch.Tensor, sdf: torch.Tensor, mask: torch.Tensor,
     # the draws: the midpoints, made once a device, or the noise, from which
     # the kernel forms the stratified draws itself
     if noise is None:
-        u, draws = _det_u_on(n_samples, t.device), (n_samples,)
+        u, draws = det_u_on(n_samples, t.device), (n_samples,)
     else:
         u, noise, draws = None, noise.contiguous(), (N, n_samples)
     given = noise if u is None else u

@@ -46,7 +46,7 @@ SIGNATURES: Dict[str, str] = {
     "volume_composite_bwd": "pppppppppppppiip",
     "neus_composite_fwd": "ppppppppppppppiifp",
     "neus_composite_bwd": "pppppppppppppppppiifp",
-    "occ_ray_proposal": "pppppppppppiiiiiip",
+    "occ_ray_proposal": "ppppppppppppiiiiip",
     "occ_ema_update": "ppppiiifffffp",
     "cross_source_vw": "ppppppiip",
     "cross_source_vw_bwd": "ppppppiip",
@@ -56,7 +56,7 @@ SIGNATURES: Dict[str, str] = {
     "latent_take_fwd": "pppiiiiip",
     "latent_take_bwd": "ppppiiiiiiip",
     "lotd_cp_lines_fwd": "pppppiip",
-    "lotd_cp_lines_bwd": "ppppppiiiiip",
+    "lotd_cp_lines_bwd": "pppppppiiiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

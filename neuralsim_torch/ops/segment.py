@@ -9,6 +9,7 @@ kernel (K5b), and the order-free composite of an unsorted buffer,
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -73,6 +74,13 @@ def det_u(n_samples: int, device=None) -> torch.Tensor:
     """The deterministic draws of ``sample_pdf``: the n stratum midpoints."""
     return torch.linspace(0.5 / n_samples, 1.0 - 0.5 / n_samples, n_samples,
                           dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def det_u_on(n_samples: int, device: torch.device) -> torch.Tensor:
+    """The deterministic draws on a device, made once (K4's and K5a's input
+    without noise; never written)."""
+    return det_u(n_samples, device)
 
 
 def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, n_samples: int,

@@ -33,7 +33,13 @@ conditional LoTD field's decoder input (K13 where the checkout has it,
 196,608 points (3 runs) and the crowd's (8 instances round-robin), and the
 stacked lines forward and backward through ``cp_stacked_lines`` (K14 where
 the checkout has it, the plain glue before) for the street and the
-vehicles, each with the device kernels that one call launches; K9 (the
+vehicles, each with the device kernels that one call launches, and K14's
+backward alone at the street, the vehicles, the bench ladder,
+synthetic_object and an edge ladder (R 1, 2, 37, 1,024 x 2); K4 at the
+street's pixel step (4,096 rays, 64 segments, 32 draws), its LiDAR step
+(2,048 beams) and the bench model (8,192, 48, 16), and K10 at the crowd's
+per-instance grids (4,096 rows, [8, 32^3]), with noise and with the
+midpoints, each with the sha256 of its depths and the kernels a call; K9 (the
 permutohedral lattice) at the permuto path's shapes: its forward with the
 jacobian at the pixel step's final query (196,608 points, d 11), without it
 at the upsample ladder's 147,456, its backward from both cotangents, on
@@ -64,6 +70,13 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
+# K4's and K10's launches (label, rays, march segments, draws, grids G or
+# None, resolution): the street's proposal at the pixel step's rays and the
+# LiDAR step's beams, the bench model's, the crowd's per-instance grids
+K4_SHAPES = (("K4 street pixel step", 4096, 64, 32, None, 128),
+             ("K4 street LiDAR step", 2048, 64, 32, None, 128),
+             ("K4 bench", 8192, 48, 16, None, 128),
+             ("K10 crowd", 4096, 64, 24, 8, 32))
 # K5a's launches (rays, samples, draws, inv_s): the multi-object iteration's
 # five (the street's two stages at the pixel step's rays and the LiDAR
 # step's beams, the vehicles' one stage at their 3 x 2,048 rows) and
@@ -152,6 +165,18 @@ def time_root(root: str) -> dict:
         if skips_w:
             out[tag + " without w"] = timed(
                 lambda: upsample_weights_pdf(*args, inv_s, nf, noise, with_weights=False))
+    # K4 and K10 at the main path's shapes on seeded rays and grids (a fifth
+    # of the cells occupied; K10's grids 5-60%), with drawn noise and with
+    # the midpoints, each with the digest of its depths and the kernels a call
+    from neuralsim_torch.accel.occ_grid import occ_ray_proposal
+    for seed, (label, n, m, nd, grids, res) in enumerate(K4_SHAPES, 200):
+        for noisy in (True, False):
+            a = tm.k4_edge_inputs(dev, n, m, nd, 0.2, noisy, False, seed, G=grids, R=res)
+            if grids:
+                a = (*a, tm.k10_lead("lead clipped", n, grids, seed, dev))
+            fn = lambda: occ_ray_proposal(*a)
+            out[f"{label} {n} M={m} n={nd} noise={noisy}"] = {
+                **timed(fn), "kernels": kernels_a_call(fn), "t_sha256": digest(fn())}
     # K8 forward (the compose render's, no gradient) and forward + backward
     # under autograd (the pixel step's) at the merged buffer's width and a
     # wide one
@@ -236,6 +261,24 @@ def time_root(root: str) -> dict:
         b, g = T(idx), cs.cotangents((idx.size, f.encoding.out_dim + f.z_dim), 34, dev)
         fn = lambda: torch.autograd.grad(f._decoder_input(h, b), f.latents, g)
         out[f"latent lookup fwd+bwd {label} P={idx.size} n={n}"] = {
+            **timed(fn), "kernels": kernels_a_call(fn)}
+    # K14's backward alone at each model's stacked encoding and the first
+    # edge ladder, from a cotangent in K1 bwd's layout
+    bench = lotd.make_lotd(BENCH_OBJECT["models"]["cr"]["params"]["encoding_cfg"])
+    bench.reset_parameters(torch.Generator().manual_seed(0))
+    bench = bench.to(dev)
+    _, rmax, ladder, before, _, _ = tm.CP_LINES_EDGES[0]
+    levels = [(R, F, before + sum(3 * r * f for r, f in ladder[:i]))
+              for i, (R, F) in enumerate(ladder)]
+    edge = (lotd.cp_lines_plan(levels, rmax).to(dev), levels[-1][2] + 3 * ladder[-1][0]
+            * ladder[-1][1])
+    for label, plan, n_table in [(label, e.cp_lines_plan(), e.table.numel()) for label, e in (
+            ("street", street), ("vehicles", veh), ("bench ladder", bench),
+            ("synthetic_object", obj))] + [("edge ladder", *edge)]:
+        L, Rmax = plan.lo.shape
+        g = cs.cotangents((3, Rmax, plan.cols.shape[0]), 36, dev).transpose(1, 2)
+        fn = lambda: lotd.lotd_cp_lines_bwd(g, n_table, plan)
+        out[f"K14 bwd {label} L={L} F_cp={plan.cols.shape[0]} R_max={Rmax}"] = {
             **timed(fn), "kernels": kernels_a_call(fn)}
     for label, e in (("street", street), ("vehicles", veh)):
         g = cs.cotangents((3, e.cp_rmax, e.cp_out_dim), 35, dev).transpose(1, 2)

@@ -2,7 +2,10 @@
 plain version against the JAX package's ``LoTDEncoding._cp_stacked_lines``
 on the CPU, and the static plan the CUDA kernels read (the taps, the column
 and level metadata, the backward's CSR of taps by source row) against a
-dense scatter in numpy and a replay of the kernels' arithmetic.
+dense scatter in numpy and a replay of the kernels' arithmetic; the backward's work items (which
+warp sums which entries, with how many lanes an entry) cover the table once,
+and the backward summed in their order (a fixed-order split of each long
+row's taps) agrees with JAX's VJP.
 
 The ladder has a level of R 1 (both taps on its one row: the upper tap
 clamped), one of R 2, one of R 37 (F 5) and two of R_max = 64, beside a
@@ -20,7 +23,9 @@ import pytest
 import torch
 
 from neuralsim_tpu.fields.encodings.lotd import make_lotd as jax_make_lotd
-from neuralsim_torch.fields.encodings.lotd import (CpLinesPlan, cp_lines_plan, lotd_cp_lines,
+from neuralsim_torch.fields.encodings.lotd import (CP_LINES_MAX_ITEMS, CP_LINES_ZERO_CHUNK,
+                                                   CpLinesPlan, cp_lines_items, cp_lines_plan,
+                                                   cp_lines_work, lotd_cp_lines,
                                                    lotd_cp_lines_bwd, lotd_cp_lines_bwd_plain,
                                                    lotd_cp_lines_plain, make_lotd)
 
@@ -158,3 +163,122 @@ def test_plan_of_a_single_level_at_r_max():
     plan = cp_lines_plan([(16, 2, 10)], 16)
     assert plan.lo.tolist()[0][-1] == 14 and plan.w[0, -1].item() == 1.0
     assert plan.levels.tolist() == [[0, 10, 16, 2, 0, 0]] and plan.n_entries == 96
+
+
+def _items(plan, taps_a_lane):
+    return cp_lines_items(plan.levels.tolist(), plan.rowptr.numpy(), plan.n_table, taps_a_lane)
+
+
+@pytest.mark.parametrize("taps_a_lane", [None, 1, 4, 16], ids=["plan", "1", "4", "16"])
+def test_plan_items_cover_the_table_once(pair, taps_a_lane):
+    """Every CP entry is summed by exactly one lane group, every other float
+    of the table is zeroed by exactly one item; each level's G lanes an entry
+    is the least power of two that leaves at most ``taps_a_lane`` of its
+    longest row's taps (rowptr) to a lane, 32 at most, longest rows first;
+    the plan's own list is the first that fits CP_LINES_MAX_ITEMS."""
+    _, penc, _, _ = pair
+    plan = penc.cp_lines_plan()
+    assert plan.n_table == penc.table.numel()
+    if taps_a_lane is None:
+        taps_a_lane, items = cp_lines_work(plan.levels.tolist(), plan.rowptr.numpy(),
+                                           plan.n_table)
+        assert np.array_equal(items, plan.items.numpy())
+        assert taps_a_lane == 1 and items.shape[0] <= CP_LINES_MAX_ITEMS
+    else:
+        items = _items(plan, taps_a_lane)
+    assert items.dtype == np.int32 and items.shape[1] == 4
+    rowptr, levels = plan.rowptr.numpy(), plan.levels.tolist()
+    hits = np.zeros(plan.n_table, np.int64)
+    gs = []
+    for k, first, G, pad in items.tolist():
+        assert pad == 0
+        if k < 0:
+            assert 0 < G <= CP_LINES_ZERO_CHUNK
+            hits[first:first + G] += 1
+            continue
+        _, offset, R, F, _, row = levels[k]
+        taps = np.diff(rowptr[row:row + R + 1]).max()
+        assert G & (G - 1) == 0 and (G == 32 or G * taps_a_lane >= taps)
+        assert G == 1 or (G // 2) * taps_a_lane < taps
+        local = np.arange(first, min(first + 32 // G, 3 * R * F))
+        assert first % (32 // G) == 0 and local.size
+        assert np.all((local // F) % R < R) and np.all(row + (local // F) % R < row + R)
+        hits[offset + local] += 1
+        gs.append(G)
+    assert np.all(hits == 1)
+    assert gs == sorted(gs, reverse=True) and len(set(gs)) > 1
+    # the zero items follow the CP items and cover the dense level
+    zero = items[:, 0] < 0
+    assert zero.any() and not np.any(np.diff(zero.astype(int)) < 0)
+    assert hits[:penc.specs[1].offset].sum() == penc.specs[1].offset
+
+
+def _bwd_in_plan_order(g, plan, items):
+    """K14's backward replayed in numpy float32, item by item: lane (gg, e)
+    sums taps gg, gg + G, ... of entry e from the left, then the shuffle
+    tree (lane l adds lane l + d for d = 16 .. 32 / G; a lane past the warp
+    adds its own value)."""
+    d = np.full(plan.n_table, np.nan, np.float32)
+    rowptr, tj, tw = plan.rowptr.numpy(), plan.tap_j.numpy(), plan.tap_w.numpy()
+    levels = plan.levels.tolist()
+    for k, first, G, _ in items.tolist():
+        if k < 0:
+            d[first:first + G] = 0.0
+            continue
+        _, offset, R, F, col, row = levels[k]
+        E = 32 // G
+        s = np.zeros(32, np.float32)
+        for lane in range(32):
+            gg, e = divmod(lane, E)
+            local = first + e
+            if local >= 3 * R * F:
+                continue
+            f, r, a = local % F, (local // F) % R, local // (F * R)
+            for t in range(rowptr[row + r] + gg, rowptr[row + r + 1], G):
+                s[lane] = s[lane] + g[a, col + f, tj[t]] * tw[t]
+        dd = 16
+        while dd >= E:
+            s = np.concatenate([s[:32 - dd] + s[dd:], s[32 - dd:] + s[32 - dd:]])
+            dd //= 2
+        n = min(E, 3 * R * F - first)
+        d[offset + first:offset + first + n] = s[:n]
+    return d
+
+
+@pytest.mark.parametrize("taps_a_lane", [1, 4, 16])
+def test_backward_in_the_plan_order_matches_jax(pair, taps_a_lane):
+    """The table gradient summed in the work items' order (the kernel's) is
+    within GRAD_REL of JAX's VJP, every float of the table written."""
+    jenc, penc, table, g = pair
+    _, vjp = jax.vjp(jenc._cp_stacked_lines, jnp.asarray(table))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    plan = penc.cp_lines_plan()
+    got = _bwd_in_plan_order(g, plan, _items(plan, taps_a_lane))
+    assert not np.isnan(got).any()
+    np.testing.assert_allclose(got, want, rtol=0, atol=GRAD_REL * np.abs(want).max())
+    assert not np.any(got[:penc.specs[1].offset])
+
+
+def test_plan_table_size_and_gaps():
+    """A plan's table reaches past its last CP level where asked: the floats
+    before, between and after the CP segments are zero items."""
+    plan = cp_lines_plan([(3, 2, 5), (8, 1, 40)], 8, 100)
+    assert plan.n_table == 100 and plan.n_entries == 18 + 24
+    zeros = [(f, c) for k, f, c, _ in plan.items.tolist() if k < 0]
+    assert zeros == [(0, 5), (23, 17), (64, 36)]
+    assert cp_lines_plan([(3, 2, 5), (8, 1, 40)], 8).n_table == 64
+
+
+def test_plan_takes_fewer_lanes_an_entry_on_a_large_table():
+    """A stacked encoding as wide as the bench model's (12 levels of F 8 to
+    R_max 1,024) takes the first taps a lane whose work list fits
+    CP_LINES_MAX_ITEMS warps; one lane an entry would need ~22k."""
+    levels = [(int(16 * 1.4 ** k) if k < 11 else 1024, 8, 0) for k in range(12)]
+    off = 0
+    for k, (R, F, _) in enumerate(levels):
+        levels[k] = (R, F, off)
+        off += 3 * R * F
+    plan = cp_lines_plan(levels, 1024)
+    taps, items = cp_lines_work(plan.levels.tolist(), plan.rowptr.numpy(), plan.n_table)
+    assert taps > 1 and items.shape[0] <= CP_LINES_MAX_ITEMS < _items(plan, taps // 2).shape[0]
+    assert np.array_equal(items, plan.items.numpy())

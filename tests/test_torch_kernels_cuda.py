@@ -31,8 +31,9 @@ clip's and the cap's edges, and the first multi-object training iteration
 on the card to the CPU at the CPU's sample depths at
 chip_smoke.MULTI_STEP_LOSS_RTOL and MULTI_STEP_GRAD_REL. K11's integer
 outputs are held equal to its plain version's, K10's depths to
-chip_smoke.K4_TOL, and a small crowd (6 vehicles on the pair-budget path with
-per-instance grids) to the CPU as the compose render and the multi-object
+chip_smoke.K4_TOL (K4 and K10 also at chip_smoke.K4_EDGES and K10_EDGES, the
+same bits on two calls, one kernel a call with noise), and a small crowd (6
+vehicles on the pair-budget path with per-instance grids) to the CPU as the compose render and the multi-object
 iteration are. K2 (per-level CP) is held to its plain version at K1's
 tolerances, its backward at chip_smoke.GRAD_REL (also for a level past the
 backward's shared memory); K12 (the NeuS alpha inside the composite) at
@@ -43,7 +44,9 @@ at d 3, 4, 7 and 11, at 1, 32 and 196,608 points, on a table of 16 rows (hash
 collisions everywhere), with levels of F 1-4, with rows past the shared
 memory a block stages, and after an in-place update of the table; the
 permuto field under autograd against the CPU at GRAD_REL, and the permuto
-vehicles' first iteration as the multi-object one.
+vehicles' first iteration as the multi-object one. K14's backward is held at
+GRAD_REL with the same bits on two calls, at chip_smoke.CP_LINES_EDGES from
+both cotangent layouts, and writes the table's other floats as zeros.
 """
 import contextlib
 import copy
@@ -1316,6 +1319,99 @@ def test_k14_cp_lines(dev, case):
     """Forward bit-equal, backward at GRAD_REL (a cotangent in K1 bwd's
     layout) with the same bits twice."""
     cs.check_cp_lines(dev, _cp_lines_sets(dev)[case:case + 1])
+
+
+K4_EDGE_IDS = [c[0] for c in cs.K4_EDGES]
+
+
+@pytest.mark.parametrize("case", range(len(cs.K4_EDGES)), ids=K4_EDGE_IDS)
+def test_k4_at_the_edges(dev, case):
+    """K4 at chip_smoke.K4_EDGES (M 1-64, n 1-64, the uniform fallback, 33+
+    occupied segments, midpoints on cdf values, ragged N, probes outside the
+    box): K4_TOL, and the same bits on two calls."""
+    label, N, M, n, share, noisy, outside = cs.K4_EDGES[case]
+    a = cs.k4_edge_inputs(dev, N, M, n, share, noisy, outside, 300 + case)
+    got = occ_ray_proposal(*a)
+    _close([got], [occ_ray_proposal_plain(*a)], **cs.K4_TOL)
+    assert torch.equal(got, occ_ray_proposal(*a))
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+@pytest.mark.parametrize("label", cs.K10_EDGES)
+def test_k10_at_the_edges(dev, label, noisy):
+    """K10 with every ray on grid 0, on grid G - 1, and on indices clipped
+    into [0, G): K4_TOL, and the same bits on two calls."""
+    a = cs.k4_edge_inputs(dev, 4096, 64, 24, None, noisy, False, 7, G=8)
+    a = (*a, cs.k10_lead(label, 4096, 8, 7, dev))
+    n10 = kernels.KERNELS["occ_ray_proposal_batched"].launches
+    got = occ_ray_proposal(*a)
+    assert kernels.KERNELS["occ_ray_proposal_batched"].launches == n10 + 1
+    _close([got], [occ_ray_proposal_plain(*a)], **cs.K4_TOL)
+    assert torch.equal(got, occ_ray_proposal(*a))
+
+
+def _device_kernels(fn):
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("grids", [None, 8], ids=["K4", "K10"])
+@pytest.mark.parametrize("noisy", [False, True])
+def test_k4_and_k10_are_one_kernel_a_call(dev, grids, noisy):
+    """A call forms the draws in the kernel: no glue launch beside it."""
+    a = cs.k4_edge_inputs(dev, 4096, 64, 32, 0.3, noisy, False, 9, G=grids)
+    if grids:
+        a = (*a, cs.k10_lead("lead clipped", 4096, grids, 9, dev))
+    names = _device_kernels(lambda: occ_ray_proposal(*a))
+    assert len(names) == 1 and "occ_ray_proposal_kernel" in names[0], names
+
+
+CP_EDGE_IDS = [label.split(":")[1].strip() for label, *_ in cs.CP_LINES_EDGES]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "transposed"])
+@pytest.mark.parametrize("case", range(len(cs.CP_LINES_EDGES)), ids=CP_EDGE_IDS)
+def test_k14_backward_at_the_edge_levels(dev, case, layout):
+    """K14's backward at chip_smoke.CP_LINES_EDGES (R 1 and 2, R 3's ~511
+    taps a row, R == R_max, odd F, floats no CP level owns), from a
+    contiguous cotangent and from K1 bwd's transposed layout: GRAD_REL, the
+    same bits on two calls, and 0 outside the CP segments."""
+    _, table, plan = cs.cp_lines_sets(dev, [])[case]
+    g = cs.lines_cotangent(plan, 20 + case, dev)
+    if layout == "contiguous":
+        g = g.contiguous()
+    got = lotd.lotd_cp_lines_bwd(g, table.numel(), plan)
+    assert torch.equal(got, lotd.lotd_cp_lines_bwd(g, table.numel(), plan))
+    want = lotd.lotd_cp_lines_bwd_plain(g, table.numel(), plan)
+    _rel_close([got], [want], cs.GRAD_REL)
+    owned = torch.zeros(table.numel(), dtype=torch.bool, device=dev)
+    for _, offset, R, F, _, _ in plan.levels.tolist():
+        owned[offset:offset + 3 * R * F] = True
+    assert not (~owned).all() and torch.equal(got[~owned], torch.zeros_like(got[~owned]))
+
+
+def test_k14_backward_writes_zeros_into_an_empty_table(dev):
+    """The wrapper hands the kernel torch.empty: the vehicles' dense levels
+    (no CP entry) come back 0 where the memory held NaN before."""
+    _, table, plan = _cp_lines_sets(dev)[1]
+    n = table.numel()
+    g = cs.lines_cotangent(plan, 5, dev)
+    torch.cuda.synchronize()
+    poison = torch.full((n,), float("nan"), device=dev)
+    at = poison.data_ptr()
+    del poison
+    got = lotd.lotd_cp_lines_bwd(g, n, plan)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == at                     # the caching allocator gave it back
+    first_cp = plan.levels[0, 1].item()
+    assert first_cp > 0 and torch.equal(got[:first_cp], torch.zeros_like(got[:first_cp]))
+    assert not got.isnan().any()
+    _rel_close([got], [lotd.lotd_cp_lines_bwd_plain(g, n, plan)], cs.GRAD_REL)
 
 
 def test_k14_under_autograd_on_card_matches_cpu(dev):

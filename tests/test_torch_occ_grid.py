@@ -237,3 +237,126 @@ def test_bridge_carries_the_grid_state(converged):
     assert torch.equal(st.mask, ps.mask) or float((st.val - ps.val).abs().max()) <= VAL_ATOL
     with pytest.raises(ValueError):
         occ_state_from_numpy(np.zeros((4, 4, 4)), np.zeros((4, 4), bool))
+
+
+# ---------------------------------------------------------------------------
+# K4's draws: the bin found by the clip test, then the prefix form
+# ---------------------------------------------------------------------------
+
+F32 = np.float32
+
+
+def _cdf_and_lengths(occ, edges):
+    """The kernel's per-ray cdf [N, M+1] and lengths [N, M] in float32: the
+    weights (occupied 1, or all 1 where nothing is occupied) + 1e-6 summed
+    from the left, each sum divided by the total; len_i = e_{i+1} - e_i."""
+    N, M = occ.shape
+    miss = (~occ.any(-1)).astype(F32)
+    csum = np.zeros((N, M + 1), F32)
+    for i in range(M):
+        w = (occ[:, i].astype(F32) + miss) + F32(1e-6)
+        csum[:, i + 1] = csum[:, i] + w
+    cdf = csum / csum[:, -1:]
+    cdf[:, 0] = 0.0
+    return cdf, edges[:, 1:] - edges[:, :-1]
+
+
+def _seg(u, c0, c1):
+    return np.clip((u - c0) / np.maximum(c1 - c0, F32(1e-12)), F32(0), F32(1))
+
+
+def _parent_walk(cdf, lens, first, u):
+    """The earlier kernel: every segment's clipped step, summed from the left."""
+    acc = np.zeros(u.shape, F32)
+    for i in range(lens.shape[1]):
+        acc = acc + _seg(u, cdf[:, i, None], cdf[:, i + 1, None]) * lens[:, i, None]
+    return first[:, None] + acc
+
+
+def _step_is_one(u, c0, c1):
+    """The clip test's seg == 1 as the kernel evaluates it, without the
+    divide: u - c0 >= max(c1 - c0, 1e-12)."""
+    return (u - c0) >= np.maximum(c1 - c0, F32(1e-12))
+
+
+def _clip_test_search(cdf, lens, first, u):
+    """The kernel's form: b, the first segment whose clipped step is below 1
+    (binary search with _step_is_one), then first + (P_b + seg_b len_b), P
+    the prefix of the lengths from the left (P_M where every step is 1)."""
+    N, M = lens.shape
+    P = np.zeros((N, M + 1), F32)
+    for i in range(M):
+        P[:, i + 1] = P[:, i] + lens[:, i]
+    rows = np.broadcast_to(np.arange(N)[:, None], u.shape)
+    b, cnt = np.zeros(u.shape, np.int64), np.full(u.shape, M)
+    while (cnt > 0).any():
+        h = cnt >> 1
+        i = np.minimum(b + h, M - 1)
+        one = (cnt > 0) & _step_is_one(u, cdf[rows, i], cdf[rows, i + 1])
+        b = np.where(one, b + h + 1, b)
+        cnt = np.where(cnt > 0, np.where(one, cnt - h - 1, h), 0)
+    bi = np.minimum(b, M - 1)
+    last = P[rows, b] + _seg(u, cdf[rows, bi], cdf[rows, bi + 1]) * lens[rows, bi]
+    return first[:, None] + np.where(b < M, last, P[rows, b])
+
+
+K4_BIN_CASES = [("M 48, 30% occupied", 48, 16, 0.3, "noise"),
+                ("M 64, 30% occupied", 64, 32, 0.3, "noise"),
+                ("33+ occupied", 64, 32, 0.85, "noise"),
+                ("33+ occupied, midpoints", 64, 32, 0.85, "midpoints"),
+                ("uniform fallback", 64, 32, 0.0, "noise"),
+                ("full, midpoints on cdf values", 64, 32, 1.0, "midpoints"),
+                ("draws on cdf values", 64, 32, 0.5, "on cdf")]
+
+
+@pytest.mark.parametrize("case", K4_BIN_CASES, ids=[c[0] for c in K4_BIN_CASES])
+def test_k4_bin_by_the_clip_test_is_the_sequential_walk_bit_for_bit(case):
+    """K4 finds a draw's bin by the plain clip test and returns e_0 + (P_b +
+    seg_b len_b); emulated in float32, that is the earlier kernel's
+    sequential walk bit for bit: with rays past 32 occupied segments (where
+    an empty segment's 1e-6 is lost and the cdf has steps of 0), the
+    uniform fallback, and draws exactly on cdf values."""
+    _, M, n, share, draws = case
+    rng = np.random.default_rng(M + int(share * 100))
+    N = 512
+    occ = rng.random((N, M)) < share
+    near = rng.uniform(0.0, 2.0, N).astype(F32)
+    span = rng.uniform(0.1, 5.0, N).astype(F32)
+    lin = np.append(np.arange(M, dtype=F32) * (F32(1) / F32(M)), F32(1))
+    edges = near[:, None] + span[:, None] * lin
+    cdf, lens = _cdf_and_lengths(occ, edges)
+    if draws == "noise":
+        u = (np.arange(n, dtype=F32) + rng.random((N, n)).astype(F32)) * (F32(1) / F32(n))
+    elif draws == "midpoints":
+        u = np.broadcast_to(((np.arange(n) + 0.5) / n).astype(F32), (N, n)).copy()
+    else:
+        u = cdf[np.arange(N)[:, None], rng.integers(0, M + 1, (N, n))]
+    u[:, -1] = np.where(rng.random(N) < 0.1, F32(1), u[:, -1])     # past the last bin
+    if 0.85 <= share < 1:
+        assert (np.diff(cdf, axis=-1) == 0).any(-1).mean() > 0.5     # steps of 0
+    if draws != "noise" and share >= 0.5:
+        assert np.isin(u, cdf).any()                                  # draws on cdf values
+    want = _parent_walk(cdf, lens, edges[:, 0], u)
+    got = _clip_test_search(cdf, lens, edges[:, 0], u)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    c0, c1 = cdf[:, None, :-1], cdf[:, None, 1:]
+    assert np.array_equal(_step_is_one(u[..., None], c0, c1),
+                          _seg(u[..., None], c0, c1) >= 1)
+
+
+def test_k4_clip_test_without_its_divide():
+    """clip((u - c0) / max(c1 - c0, 1e-12), 0, 1) >= 1 exactly where
+    u - c0 >= max(c1 - c0, 1e-12), in float32: on pairs a few ulps apart
+    around the quotient 1, at powers of two, at the 1e-12 clamp, and NaN."""
+    rng = np.random.default_rng(3)
+    c0 = rng.random(20000).astype(F32) * F32(0.9)
+    step = np.concatenate([rng.random(5000) * 1e-3, 2.0 ** -rng.integers(1, 40, 5000),
+                           np.zeros(5000), rng.random(5000)]).astype(F32)
+    c1 = np.minimum(c0 + step, F32(1))
+    den = np.maximum(c1 - c0, F32(1e-12))
+    ulps = rng.integers(-4, 5, c0.size).astype(np.int32)
+    x = (den.view(np.int32) + ulps).view(F32)          # u - c0 a few ulps from den
+    u = np.concatenate([c0 + x, c0 + den, c1, c0, np.array([np.nan], F32)]).astype(F32)
+    c0, c1 = (np.concatenate([a, a, a, a, a[:1]]) for a in (c0, c1))
+    want = _seg(u, c0, c1) >= 1
+    assert np.array_equal(_step_is_one(u, c0, c1), want) and want.any() and not want.all()
