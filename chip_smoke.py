@@ -15,7 +15,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      and K10 at K10_EDGES (march segments 1-64, draws 1-64, the uniform
      fallback, rays past 32 occupied segments, midpoints on cdf values,
      ragged ray counts, probes outside the box, grid indices 0, G - 1 and
-     clipped), each the same bits on two calls;
+     clipped), each the same bits on two calls; K6 and K12, forward and
+     backward, at COMPOSITE_EDGE_S x COMPOSITE_EDGE_N (1 to 1,100 samples
+     across the lane groups' and chunks' edges, 0 to 600 rays; wholly masked
+     rows, runs of alpha == 1 lanes, with and without payloads) and with a
+     NaN lane (which stays NaN), each output the same bits on two calls;
   4. render slice: build the full-width synthetic_object renderer with seeded
      weights, render 4 frames of the 96x96 synthetic rig with
      render_chunked(rayschunk=4096), check the images, check that every
@@ -27,7 +31,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      same step (same parameters, batch and noise) through the plain versions
      on the CPU; K12 forward and backward at that step's own buffer
      (2,048 x 96 with rgb, its inv_s and cos anneal) against their plain
-     versions; then train() for 60 steps of 2,048 rays: every loss finite,
+     versions (timed, with the render chunk's [4,096, 96], in phase 13);
+     then train() for 60 steps of 2,048 rays: every loss finite,
      no step skipped, loss_rgb over the last 10 steps below the first 10,
      all eight kernels launched; one poisoned step (a NaN in the batch) is
      skipped and leaves every parameter bit-identical;
@@ -404,6 +409,23 @@ PERLEVEL_ITERS = 48
 # over the ray's weight sum; its backward under GRAD_REL
 K12_TOL = dict(rtol=1e-4, atol=1e-5)
 K12_ANNEALS = (0.0, 0.5, 1.0)
+# K6 and K12 at the edges of their lane groups and chunks (a ray takes 8,
+# 16 or 32 lanes, a chunk 4 samples a lane): widths of 1, 7, a group and one
+# past it, a chunk and one past it, 300 and 1,100 (several chunks); 0, 1
+# and 3 rays (32 lanes a ray: fewer rays than the card has SMs) and 600
+# (8 or 16 lanes where the width allows); each with a wholly masked row and
+# runs of alpha == 1 lanes, K6 with and without rgb and nablas, K12 with and
+# without rgb
+COMPOSITE_EDGE_S = (1, 7, 8, 9, 16, 17, 32, 33, 64, 65, 128, 129, 300, 1100)
+# K12's inv_s there: a sigmoid about as wide as those widths' sample spacing,
+# so that each ray has lanes off its flat tails (a gradient through a tail is
+# the last bits of 1 - P, which torch's sigmoid and the kernel's expf and
+# divide round apart: the earlier kernel and this one differ alike from the
+# plain version on such a ray)
+COMPOSITE_EDGE_INV_S = 20.0
+COMPOSITE_EDGE_N = (0, 1, 3, 600)
+# a NaN lane (masked in) at these (rays, width): the ray's outputs stay NaN
+COMPOSITE_NAN_SHAPES = ((3, 7), (3, 33), (600, 65), (3, 300))
 # WAYMO_DEMO_PERMUTO: the vehicles on one permutohedral NeuS (d = 11: xyz and
 # a latent of 8 in the lattice; 12 levels of F 2, 2^17 rows a level). K9 runs
 # on this path only. Rendered and trained under the multi-object limits.
@@ -776,6 +798,10 @@ def compare_rel(name, got, want, rel):
     err = 0.0
     for g, w in zip(got, want):
         if w is None:
+            continue
+        if w.numel() == 0:  # no ray: the shapes agree
+            if g.shape != w.shape:
+                raise AssertionError(f"{name}: shape {tuple(g.shape)}, not {tuple(w.shape)}")
             continue
         if not torch.isfinite(g).all():
             raise AssertionError(f"{name}: non-finite gradient")
@@ -1865,11 +1891,12 @@ def k8_sets(dev, inputs):
 
 
 def same_bits(name, fn):
-    """Two calls of fn give the same bits."""
-    import torch
+    """Two calls of fn give the same bits, in its output or in each output
+    of a tuple (NaN too)."""
     a, b = fn(), fn()
-    if not torch.equal(a, b):
-        raise AssertionError(f"{name}: two calls differ")
+    for x, y in zip(a, b) if isinstance(a, (tuple, list)) else [(a, b)]:
+        if x is not None and x.cpu().numpy().tobytes() != y.cpu().numpy().tobytes():
+            raise AssertionError(f"{name}: two calls differ")
 
 
 def check_cross_source_vw(dev, path_buffer):
@@ -3965,6 +3992,167 @@ def check_neus_composite(dev, sets):
              "neus_composite.bwd": (max(eb), GRAD_REL)}, shapes)
 
 
+def composite_edge_inputs(n, s, seed):
+    """K6's inputs at an edge shape: row 1 wholly masked, every third row
+    from row 2 a run of three alpha == 1 lanes (masked in) from lane s // 3;
+    alphas of at least 1e-3, so that no ray's weight sum lies just above the
+    depth's 1e-8 clamp (where the depth's gradient is its last bits over
+    1e-8 in any order of operations) -> (t, mask, alpha, rgb, nablas) as
+    numpy."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.random((n, s)) * 3.0, -1).astype(np.float32)
+    alpha = np.maximum(rng.random((n, s)) ** 4, 1e-3).astype(np.float32)
+    mask = rng.random((n, s)) > 0.15
+    run = slice(s // 3, min(s // 3 + 3, s))
+    alpha[2::3, run], mask[2::3, run] = 1.0, True
+    mask[1:2] = False
+    return (t, mask, alpha, rng.random((n, s, 3)).astype(np.float32),
+            rng.normal(size=(n, s, 3)).astype(np.float32))
+
+
+def neus_edge_inputs(n, s, seed):
+    """K12's inputs at an edge shape, for inv_s COMPOSITE_EDGE_INV_S: rays
+    whose surface passes within ~0.01 of one of their samples (masked in),
+    nablas against the ray with noise, row 1 wholly masked, every third row
+    from row 2 a run of three lanes from lane s // 3 whose alpha is exactly 1
+    (sdf 0, nablas -1.2 d, 2.0 before the next lane: P rounds to 1, Q is
+    below 1e-9) -> (t, mask, sdf, nablas, rays_d, rgb) as numpy."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.random((n, s)) * 2.0 + 0.5, -1).astype(np.float32)
+    at = rng.integers(0, s, n)
+    surface = t[np.arange(n), at] + rng.normal(0, 0.005, n)
+    sdf = (surface[:, None] - t + rng.normal(0, 0.01, (n, s))).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    nablas = (-d[:, None, :] * (0.8 + 0.4 * rng.random((n, s, 1)))
+              + rng.normal(0, 0.3, (n, s, 3))).astype(np.float32)
+    mask = rng.random((n, s)) > 0.1
+    mask[np.arange(n), at] = True
+    mask[1:2] = False
+    rows = np.arange(2, n, 3)
+    for j in range(s // 3, min(s // 3 + 3, s - 1)):
+        t[rows, j + 1:] += np.float32(2.0)
+        sdf[rows, j], mask[rows, j] = 0.0, True
+        nablas[rows, j] = -d[rows] * np.float32(1.2)
+    return t, mask, sdf, nablas, d, rng.random((n, s, 3)).astype(np.float32)
+
+
+def check_composite_edges(dev, widths=COMPOSITE_EDGE_S, rays=COMPOSITE_EDGE_N,
+                          nan_shapes=COMPOSITE_NAN_SHAPES):
+    """K6 and K12, forward and backward (cotangents of every output), against
+    their plain versions at ``widths`` x ``rays`` samples, K6 with and
+    without rgb and nablas, K12 with and without rgb (at the cos anneals in
+    turn, inv_s COMPOSITE_EDGE_INV_S), each output the same bits on two calls; then a masked-in NaN
+    alpha (K6) or sdf (K12) at ``nan_shapes`` (rays, width): the plain version's
+    NaNs where it has them and its values elsewhere, the gradient NaN on
+    that ray and within GRAD_REL on the others -> {kernel: (max_abs_err,
+    tol)}."""
+    import torch
+    from neuralsim_torch.renderers.buffers import (volume_composite, volume_composite_bwd,
+                                                   volume_composite_bwd_plain,
+                                                   volume_composite_plain)
+    from neuralsim_torch.renderers.neus_composite import (neus_composite, neus_composite_bwd,
+                                                          neus_composite_bwd_plain,
+                                                          neus_composite_plain)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    inv_s = torch.tensor(COMPOSITE_EDGE_INV_S, device=dev)
+    e6, e6b, e12, e12b = [], [], [], []
+    cases = [(n, s) for s in widths for n in rays]
+    for n, s in cases:
+        seed = 1000 * s + n  # each shape its own inputs, however the cases are split
+        full = [T(a) for a in composite_edge_inputs(n, s, seed)]
+        for payload in (True, False):
+            a = full if payload else full[:3] + [None, None]
+            cots = [cotangents(sh, seed + i, dev)
+                    for i, sh in enumerate(((n, s), (n,), (n,), (n, 3), (n, 3)))]
+            if not payload:
+                cots[3:] = [None, None]
+            what = f"rays={n} S={s}{'' if payload else ' without rgb and nablas'}"
+            e6.append(compare(f"K6 edge {what}", volume_composite(*a),
+                              volume_composite_plain(*a), 1e-5, 1e-6))
+            same_bits(f"K6 edge {what}", lambda: volume_composite(*a))
+            e6b.append(compare_rel(f"K6 bwd edge {what}", volume_composite_bwd(*a, *cots),
+                                   volume_composite_bwd_plain(*a, *cots), GRAD_REL))
+            same_bits(f"K6 bwd edge {what}", lambda: volume_composite_bwd(*a, *cots))
+        t, mask, sdf, nablas, d, rgb = (T(v) for v in neus_edge_inputs(n, s, seed))
+        anneal = K12_ANNEALS[seed % len(K12_ANNEALS)]
+        for with_rgb in (True, False):
+            a = (t, mask, sdf, nablas, d, anneal, inv_s, rgb if with_rgb else None)
+            cots = [cotangents(sh, seed + 10 + i, dev) for i, sh in enumerate(
+                ((n, s), (n,), (n,), (n, 3), (n, 3), (n, s)))]
+            if not with_rgb:
+                cots[3] = None
+            what = f"rays={n} S={s} anneal={anneal:g}{'' if with_rgb else ' without rgb'}"
+            e12.append(compare(f"K12 edge {what}", neus_composite(*a), neus_composite_plain(*a),
+                               **K12_TOL))
+            same_bits(f"K12 edge {what}", lambda: neus_composite(*a))
+            e12b.append(compare_rel(f"K12 bwd edge {what}", neus_composite_bwd(*a, *cots),
+                                    neus_composite_bwd_plain(*a, *cots), GRAD_REL))
+            same_bits(f"K12 bwd edge {what}", lambda: neus_composite_bwd(*a, *cots))
+    for seed, (n, s) in enumerate(nan_shapes, 500):
+        t, mask, alpha, rgb, nablas = composite_edge_inputs(n, s, seed)
+        alpha[0, s // 2], mask[0, s // 2] = np.nan, True
+        a = [T(v) for v in (t, mask, alpha, rgb, nablas)]
+        cots = [cotangents(sh, seed + i, dev)
+                for i, sh in enumerate(((n, s), (n,), (n,), (n, 3), (n, 3)))]
+        e6.append(check_nan_lane(f"K6 NaN lane rays={n} S={s}", volume_composite(*a),
+                                 volume_composite_plain(*a), 1e-5, 1e-6))
+        e6b.append(check_nan_grads(f"K6 bwd NaN lane rays={n} S={s}",
+                                   volume_composite_bwd(*a, *cots),
+                                   volume_composite_bwd_plain(*a, *cots)))
+        same_bits(f"K6 NaN lane rays={n} S={s}", lambda: (*volume_composite(*a),
+                                                          *volume_composite_bwd(*a, *cots)))
+        t, mask, sdf, nablas, d, rgb = neus_edge_inputs(n, s, seed)
+        sdf[0, s // 2], mask[0, s // 2] = np.nan, True
+        a = (T(t), T(mask), T(sdf), T(nablas), T(d), 0.5, inv_s, T(rgb))
+        cots = [cotangents(sh, seed + 10 + i, dev) for i, sh in enumerate(
+            ((n, s), (n,), (n,), (n, 3), (n, 3), (n, s)))]
+        e12.append(check_nan_lane(f"K12 NaN lane rays={n} S={s}", neus_composite(*a),
+                                  neus_composite_plain(*a), **K12_TOL))
+        e12b.append(check_nan_grads(f"K12 bwd NaN lane rays={n} S={s}",
+                                    neus_composite_bwd(*a, *cots),
+                                    neus_composite_bwd_plain(*a, *cots)))
+        same_bits(f"K12 NaN lane rays={n} S={s}", lambda: (*neus_composite(*a),
+                                                           *neus_composite_bwd(*a, *cots)))
+    torch.cuda.synchronize()
+    e6, e6b, e12, e12b = (max(e, default=0.0) for e in (e6, e6b, e12, e12b))
+    log(f"K6 / K12 edges: {len(cases)} shapes and {len(nan_shapes)} NaN lanes, forward max abs "
+        f"err {e6:.3g} / {e12:.3g}, backward {e6b:.3g} / {e12b:.3g}; each the same bits on two "
+        f"calls")
+    return {"volume_composite": (e6, 1e-6), "volume_composite.bwd": (e6b, GRAD_REL),
+            "neus_composite": (e12, K12_TOL["atol"]), "neus_composite.bwd": (e12b, GRAD_REL)}
+
+
+def check_nan_lane(name, got, want, rtol, atol):
+    """A composite of rays whose first holds a NaN lane: every output NaN
+    where the plain version's is and within the tolerance elsewhere; that
+    ray's weight sum NaN."""
+    import torch
+    err = 0.0
+    for g, w in zip(got, want):
+        if w is None:
+            continue
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol, equal_nan=True,
+                                   msg=lambda m: f"{name}: {m}")
+        ok = ~torch.isnan(w)
+        err = max(err, float((g[ok].float() - w[ok].float()).abs().max()) if ok.any() else 0.0)
+    if not torch.isnan(got[1][0]):
+        raise AssertionError(f"{name}: the NaN lane's weight sum is not NaN")
+    log(f"check {name}: NaN where the plain version's, max_abs_err {err:.3g} elsewhere")
+    return err
+
+
+def check_nan_grads(name, got, want):
+    """The gradients of a composite whose first ray holds a NaN lane: NaN in
+    the first gradient's first row on both sides, within GRAD_REL on the
+    other rays."""
+    import torch
+    if not (torch.isnan(got[0][0]).any() and torch.isnan(want[0][0]).any()):
+        raise AssertionError(f"{name}: the NaN lane's ray has a finite gradient")
+    return compare_rel(name, [None if g is None else g[1:] for g in got],
+                       [None if w is None else w[1:] for w in want], GRAD_REL)
+
+
 def time_neus_composite(shapes):
     """K12 forward and backward, their plain versions and bounds at the kept
     inputs."""
@@ -4981,8 +5169,20 @@ def main(argv) -> int:
     if tbuf["t"].shape != (TRAIN_RAYS, 96) or "rays_d" not in tbuf or "rgb" not in tbuf:
         raise AssertionError("synthetic_object's training buffer should be [2048, 96] with "
                              "rgb, its alpha from K12")
-    errs.update(check_neus_composite(dev, [("synthetic_object's training step",
-                                            neus_args(tbuf))])[0])
+    errs12, shapes12 = check_neus_composite(dev, [("synthetic_object's training step",
+                                                   neus_args(tbuf))])
+    errs.update(errs12)
+    for name, (e, tol) in check_composite_edges(dev).items():
+        errs[name] = (max(e, errs[name][0]), tol)
+    # K12 at synthetic_object's render chunk: 4,096 rays of 96 samples with
+    # rgb, at the step's inv_s and cos anneal (timed in phase 13)
+    render12 = [torch.from_numpy(v).to(dev) for v in neus_inputs(RAYSCHUNK, 96, 5)]
+    step12 = shapes12["neus_composite"]["args"]
+    render12 = (*render12[:5], step12[5], step12[6], render12[5])
+    errs12_render, shapes12_render = check_neus_composite(
+        dev, [("synthetic_object's render chunk", render12)])
+    for name, (e, tol) in errs12_render.items():
+        errs[name] = (max(e, errs[name][0]), tol)
     del trainer, state, tbuf
     kernels.reset_counts()
     out, rgb_first, rgb_last = train_slice(SYNTHETIC_OBJECT)
@@ -5040,6 +5240,9 @@ def main(argv) -> int:
              if k not in BENCH_ONLY}
     times_render = {k: v for k, v in time_forward_kernels(shapes_render).items()
                     if k not in BENCH_ONLY}
+    # K12 at synthetic_object's training step and render chunk
+    t12_step, t12_render = time_neus_composite(shapes12), time_neus_composite(shapes12_render)
+    times12 = {name: [t12_step[name], t12_render[name]] for name in t12_step}
     rows = []
     for name, k in kernels.KERNELS.items():
         # a kernel of the earlier slices reports its synthetic_object training
@@ -5112,6 +5315,18 @@ def main(argv) -> int:
             log(f"kernel {name} (render path, {launches_render[name] / N_FRAMES:g} launches "
                 f"per frame): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
                 f"{r['bound'][0]:.4f} by {r['bound'][1]}) at {r['shape']}")
+        for c, where in zip(times12.get(name, []), ("training step", "render chunk")):
+            sub = row.setdefault("synthetic_object", {
+                "launches_per_step": launches[name] / TRAIN_STEPS,
+                "launches_per_frame": launches_render[name] / N_FRAMES})
+            sub.setdefault("times", []).append(
+                {"ms": c["ms"], **card_keys(c), "plain_ms": c["plain_ms"],
+                 "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
+                 "library_ms": c["library_ms"], "shape": c["shape"]})
+            log(f"kernel {name} (synthetic_object {where}, {sub['launches_per_step']:g} launches "
+                f"per step, {sub['launches_per_frame']:g} per frame): {c['ms']:.4f} ms "
+                f"({card_extra(c)[2:]}, plain {c['plain_ms']:.4f}, bound {c['bound'][0]:.4f} by "
+                f"{c['bound'][1]}) at {c['shape']}")
         row["bench"] = {"launches": bench["launches"][name],
                         "launches_per_step": bench["launches"][name] / BENCH_STEPS,
                         "render_launches_per_frame":

@@ -5,20 +5,13 @@
 //   exclusive_cumprod (lines 30-40), and neuralsim_tpu/renderers/buffers.py
 //   volume_integrate (lines 21-52) on a single sorted buffer.
 //
-// Per ray, one sequential pass over its S samples:
+// Per ray, over its S samples in order:
 //   a_i  = mask_i ? alpha_i : 0
 //   vw_i = a_i * prod_{j<i} (1 - a_j + 1e-10)                (written out)
 //   mask_volume = sum vw,  depth_volume = sum vw*t / max(sum vw, 1e-8),
 //   rgb_volume = sum vw*rgb,  normals_volume = sum vw*nablas (not normalised),
 //   samples_cnt = sum mask                                    (sums over masked lanes)
 // rgb and nablas may be null, and then their outputs are not written.
-//
-// What bounds it on an H100: bytes. Per sample it reads 33 bytes (t, mask,
-// alpha, rgb, nablas) and writes 4 (vw); the arithmetic is ~20 flops. The
-// transmittance is a sequential product, so one thread owns one ray and keeps
-// every running sum in registers; the per-ray rows are read by one thread
-// each, which relies on L1 to merge the strided reads (a warp-per-ray layout
-// with a shuffle scan is the faster form, left for later).
 //
 // Backward (volume_composite_bwd): cotangents of vw [N, S], mask_volume,
 // depth_volume [N], rgb_volume, normals_volume [N, 3] -> d alpha [N, S],
@@ -29,11 +22,8 @@
 // the product rule gives d a_i = T_i * (g_i - B_i), where
 //   B_i = sum_{k>i} g_k a_k prod_{i<j<k} q_j,  so  B_{i-1} = g_i a_i + q_i B_i.
 // That form divides by nothing, so a lane with alpha == 1 (q = 1e-10) stays
-// exact where "suffix sum over q_i" would divide by 1e-10. One thread per ray
-// sweeps forward once, leaving T_i in the d_alpha row (its own scratch) and
-// summing vsum and dsum as the forward does, then walks backward. Masked lanes
-// get zero. No gradient goes to t. What bounds it: bytes (37 read and 28
-// written per sample).
+// exact where "suffix sum over q_i" would divide by 1e-10. Masked lanes get
+// zero and let B pass (q = 1 + 1e-10 is 1 in f32). No gradient goes to t.
 //
 // K12 neus_composite (forward and backward): the NeuS alpha of the final
 // evaluation fused into the same per-ray pass, for a NeuS buffer that is
@@ -56,158 +46,124 @@
 // or 1, as jnp.clip; nothing outside [0, 1]), the quotient, the sigmoids and
 // the anneal (relu's gradient 0 at 0) into d sdf, d nablas (the normals sum
 // and the cos), d rgb, and each ray's share of d inv_s (the caller sums the
-// rays: deterministic, no float atomics). No gradient goes to t or d. What
-// bounds it on an H100: bytes, as K6 (the forward reads 33 bytes a lane and
-// writes 8; the backward reads 41 and writes 20), with ~40 (forward) and
-// ~90 (backward) flops a lane; one thread owns one ray.
+// rays: deterministic, no float atomics). No gradient goes to t or d.
+//
+// What bounds them on an H100: bytes. K6 reads 33 bytes a lane and writes 4
+// (its backward reads 37 and writes 28); K12 reads 33 and writes 8 (its
+// backward 41 and 20), with ~20-50 (forward) and ~90 (backward) flops a lane.
+// Only the recurrences are sequential: the transmittance and the sums in
+// index order (whose bits are the plain chain's), and the backward's suffix
+// B. So a ray takes a group of G lanes (8, 16 or 32) in blocks of 128
+// threads, in chunks of K G samples (K 3-6 a lane; G and K chosen in the C
+// entry from S, config_for): lane l owns samples l, l + G, ..., loads their t,
+// mask, alpha (or sdf), rgb and nablas into registers, all issued before
+// any arithmetic (the loads of a group's lanes are coalesced; an rgb or
+// nablas row is read by its own lane, as no other lane needs it), and K12's
+// lane computes its samples' NeuS terms once, in parallel (the backward
+// keeps them in shared memory for its last phase). The walks are then
+// short loops over shared memory, every lane of a group stepping them (a
+// warp's lanes share each instruction, so the rays of a warp share the
+// walk):
+//   1. T_{j+1} = T_j q_j with q_j = (1 - a_j) + 1e-10 from the owners (1
+//      where masked, as in the plain chain): one multiply a step;
+//   2. each owner forms v_j = a_j T_j (the walk's product, the same bits)
+//      and the terms of the 8 sums (weight, depth, rgb, normals), each 0
+//      where masked, and lane c adds sum c over j in index order: one add
+//      a step. A sum starts at +0 and is never -0, so adding a masked
+//      lane's +0 leaves it as skipping that lane leaves it: vw, alpha and
+//      every sum keep the plain chain's bits (and the earlier kernel's);
+//   3. the backward: each owner forms g_j once depth is known, and
+//      h_j = g_j a_j (0 where masked), and the group walks
+//      B_{j-1} = h_j + q_j B_j in reverse; each owner then finishes d alpha
+//      (and K12's chain back to sdf, nablas and inv_s) and writes its rows;
+//      d inv_s is summed over the group in a fixed order.
+// A ray wider than a chunk is walked chunk by chunk (T and the sums
+// carried in registers); the backward keeps each chunk's starting T in
+// dynamic shared memory and loads the chunk again for its reverse pass.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void composite_kernel(const float* __restrict__ t,        // [N, S]
-                                 const uint8_t* __restrict__ mask,   // [N, S]
-                                 const float* __restrict__ alpha,    // [N, S]
-                                 const float* __restrict__ rgb,      // [N, S, 3] or null
-                                 const float* __restrict__ nablas,   // [N, S, 3] or null
-                                 float* __restrict__ vw,             // [N, S]
-                                 float* __restrict__ mask_volume,    // [N]
-                                 float* __restrict__ depth_volume,   // [N]
-                                 float* __restrict__ rgb_volume,     // [N, 3]
-                                 float* __restrict__ normals_volume, // [N, 3]
-                                 int* __restrict__ samples_cnt,      // [N]
-                                 int N, int S) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= N) return;
-  const size_t o = (size_t)r * S;
-  float trans = 1.f, vsum = 0.f, dsum = 0.f;
-  float c0 = 0.f, c1 = 0.f, c2 = 0.f, n0 = 0.f, n1 = 0.f, n2 = 0.f;
-  int cnt = 0;
-  for (int i = 0; i < S; ++i) {
-    const bool m = mask[o + i] != 0;
-    const float a = m ? alpha[o + i] : 0.f;
-    const float v = __fmul_rn(a, trans);
-    trans = __fmul_rn(trans, __fadd_rn(__fsub_rn(1.f, a), 1e-10f));
-    vw[o + i] = v;
-    if (!m) continue;
-    ++cnt;
-    vsum = __fadd_rn(vsum, v);
-    dsum = __fadd_rn(dsum, __fmul_rn(v, t[o + i]));
-    if (rgb != nullptr) {
-      const float* c = rgb + (o + i) * 3;
-      c0 = __fadd_rn(c0, __fmul_rn(v, c[0]));
-      c1 = __fadd_rn(c1, __fmul_rn(v, c[1]));
-      c2 = __fadd_rn(c2, __fmul_rn(v, c[2]));
-    }
-    if (nablas != nullptr) {
-      const float* g = nablas + (o + i) * 3;
-      n0 = __fadd_rn(n0, __fmul_rn(v, g[0]));
-      n1 = __fadd_rn(n1, __fmul_rn(v, g[1]));
-      n2 = __fadd_rn(n2, __fmul_rn(v, g[2]));
-    }
-  }
-  mask_volume[r] = vsum;
-  depth_volume[r] = __fdiv_rn(dsum, fmaxf(vsum, 1e-8f));
-  samples_cnt[r] = cnt;
-  if (rgb != nullptr) {
-    rgb_volume[r * 3 + 0] = c0;
-    rgb_volume[r * 3 + 1] = c1;
-    rgb_volume[r * 3 + 2] = c2;
-  }
-  if (nablas != nullptr) {
-    normals_volume[r * 3 + 0] = n0;
-    normals_volume[r * 3 + 1] = n1;
-    normals_volume[r * 3 + 2] = n2;
-  }
+constexpr int kThreads = 128;  // a block: 128 / G rays
+constexpr int kSums = 8;       // the forward's sums: weight, depth, rgb x 3, normals x 3
+constexpr unsigned kAll = 0xffffffffu;
+
+// Where a group of G lanes stands. A group past N walks ray N - 1 again
+// (its warp stays whole for the warp-wide syncs and shuffles) and writes
+// nothing.
+struct Ray {
+  int gl;      // the lane's place in its group
+  int slot;    // the group's place in the block
+  int r;       // its ray
+  bool valid;  // r < N
+  int base;    // the group's first lane in its warp
+};
+
+template <int G>
+__device__ __forceinline__ bool ray_of(int N, Ray& R) {
+  constexpr int rays = kThreads / G;
+  R.gl = threadIdx.x & (G - 1);
+  R.slot = threadIdx.x / G;
+  const int first = blockIdx.x * rays;
+  if (first + (int)(threadIdx.x >> 5) * (32 / G) >= N) return false;  // the whole warp
+  R.r = first + R.slot;
+  R.valid = R.r < N;
+  if (!R.valid) R.r = N - 1;
+  R.base = threadIdx.x & 31 & ~(G - 1);
+  return true;
 }
 
-__global__ void composite_bwd_kernel(const float* __restrict__ t,        // [N, S]
-                                     const uint8_t* __restrict__ mask,   // [N, S]
-                                     const float* __restrict__ alpha,    // [N, S]
-                                     const float* __restrict__ rgb,      // [N, S, 3] or null
-                                     const float* __restrict__ nablas,   // [N, S, 3] or null
-                                     const float* __restrict__ g_vw,     // [N, S]
-                                     const float* __restrict__ g_mask,   // [N]
-                                     const float* __restrict__ g_depth,  // [N]
-                                     const float* __restrict__ g_rgb,    // [N, 3] or null
-                                     const float* __restrict__ g_nrm,    // [N, 3] or null
-                                     float* __restrict__ d_alpha,        // [N, S]
-                                     float* __restrict__ d_rgb,          // [N, S, 3] or null
-                                     float* __restrict__ d_nablas,       // [N, S, 3] or null
-                                     int N, int S) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= N) return;
-  const size_t o = (size_t)r * S;
-  float trans = 1.f, vsum = 0.f, dsum = 0.f;
-  for (int i = 0; i < S; ++i) {
-    const bool m = mask[o + i] != 0;
-    const float a = m ? alpha[o + i] : 0.f;
-    const float v = __fmul_rn(a, trans);
-    d_alpha[o + i] = trans;
-    trans = __fmul_rn(trans, __fadd_rn(__fsub_rn(1.f, a), 1e-10f));
-    if (!m) continue;
-    vsum = __fadd_rn(vsum, v);
-    dsum = __fadd_rn(dsum, __fmul_rn(v, t[o + i]));
-  }
-  const float den = fmaxf(vsum, 1e-8f);
-  const float gm = g_mask[r];
-  const float gd = g_depth[r] / den;
-  const float depth = vsum >= 1e-8f ? dsum / den : 0.f;
-  float gc[3] = {0.f, 0.f, 0.f}, gn[3] = {0.f, 0.f, 0.f};
-  if (rgb != nullptr)
-    for (int k = 0; k < 3; ++k) gc[k] = g_rgb[r * 3 + k];
-  if (nablas != nullptr)
-    for (int k = 0; k < 3; ++k) gn[k] = g_nrm[r * 3 + k];
-  float B = 0.f;
-  for (int i = S - 1; i >= 0; --i) {
-    const bool m = mask[o + i] != 0;
-    const float T = d_alpha[o + i];
-    if (!m) {  // a = 0 and q = 1 + 1e-10, which is 1 in f32: B passes through
-      d_alpha[o + i] = 0.f;
-      if (rgb != nullptr)
-        for (int k = 0; k < 3; ++k) d_rgb[(o + i) * 3 + k] = 0.f;
-      if (nablas != nullptr)
-        for (int k = 0; k < 3; ++k) d_nablas[(o + i) * 3 + k] = 0.f;
-      continue;
-    }
-    const float a = alpha[o + i];
-    const float v = a * T;
-    float g = g_vw[o + i] + gm + gd * (t[o + i] - depth);
-    if (rgb != nullptr) {
-      const float* c = rgb + (o + i) * 3;
-      g += gc[0] * c[0] + gc[1] * c[1] + gc[2] * c[2];
-      for (int k = 0; k < 3; ++k) d_rgb[(o + i) * 3 + k] = v * gc[k];
-    }
-    if (nablas != nullptr) {
-      const float* c = nablas + (o + i) * 3;
-      g += gn[0] * c[0] + gn[1] * c[1] + gn[2] * c[2];
-      for (int k = 0; k < 3; ++k) d_nablas[(o + i) * 3 + k] = v * gn[k];
-    }
-    d_alpha[o + i] = T * (g - B);
-    B = g * a + __fadd_rn(__fsub_rn(1.f, a), 1e-10f) * B;
-  }
-}
+// One chunk of a ray in shared memory: t (K12's dt), q_j, T_j, and the
+// sums' terms (the forward's 8, the backward's weight and depth), with the
+// backward's h_j and B_j.
+template <int G, int K, bool NEUS, int SUMS>
+struct Stage {
+  static constexpr int CH = K * G;
+  float t[NEUS ? CH + 1 : 1];  // depths, and the next chunk's first
+  float q[CH];
+  float w[CH];
+  float p[SUMS][CH + 1];  // sum-major, rows padded: the owners' writes and the
+                          // sums' reads fall in distinct banks
+};
 
+template <int G, int K, bool NEUS>
+struct BwdStage : Stage<G, K, NEUS, 2> {
+  float h[K * G];
+  float b[K * G];
+  // K12's NeuS terms of the chunk's samples, for their lanes' last phase:
+  // raw, P, Q, ep, en, dt, tc (in registers they would hold fewer blocks an
+  // SM)
+  float nl[7][NEUS ? K * G : 1];
+};
+
+struct Inputs {
+  const float* t;       // [N, S]
+  const uint8_t* mask;  // [N, S]
+  const float* alpha;   // [N, S] (K6)
+  const float* sdf;     // [N, S] (K12)
+  const float* rays_d;  // [N, 3] (K12)
+  const float* inv_s;   // [] (K12)
+  const float* rgb;     // [N, S, 3] or null
+  const float* nablas;  // [N, S, 3] (K6: or null)
+  int N, S;
+  float an;  // K12's cos anneal
+};
 
 // One lane of a NeuS buffer: the alpha and what its backward needs.
 struct NeuSLane {
   float tc, y1, dt, ep, en, P, Q, num, den, raw, a;
 };
 
-__device__ __forceinline__ void neus_lane(const float* __restrict__ t,
-                                          const float* __restrict__ sdf,
-                                          const float* __restrict__ nablas, const float d[3],
-                                          size_t o, int i, int S, float an, float inv_s,
-                                          NeuSLane& L) {
-  const float* g = nablas + (o + i) * 3;
-  L.tc = __fadd_rn(__fadd_rn(__fmul_rn(d[0], g[0]), __fmul_rn(d[1], g[1])),
-                   __fmul_rn(d[2], g[2]));
+__device__ __forceinline__ void neus_lane(const float nb[3], const float d[3], float dt, float s,
+                                          float an, float inv_s, NeuSLane& L) {
+  L.tc = __fadd_rn(__fadd_rn(__fmul_rn(d[0], nb[0]), __fmul_rn(d[1], nb[1])),
+                   __fmul_rn(d[2], nb[2]));
   L.y1 = __fadd_rn(__fmul_rn(-L.tc, 0.5f), 0.5f);
   const float cos = -__fadd_rn(__fmul_rn(fmaxf(L.y1, 0.f), __fsub_rn(1.f, an)),
                                __fmul_rn(fmaxf(-L.tc, 0.f), an));
-  L.dt = i + 1 < S ? __fsub_rn(t[o + i + 1], t[o + i]) : 1e-3f;
+  L.dt = dt;
   const float half = __fmul_rn(__fmul_rn(cos, L.dt), 0.5f);
-  const float s = sdf[o + i];
   L.ep = __fsub_rn(s, half);
   L.en = __fadd_rn(s, half);
   L.P = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(L.ep, inv_s))));
@@ -218,160 +174,417 @@ __device__ __forceinline__ void neus_lane(const float* __restrict__ t,
   L.a = L.raw < 0.f ? 0.f : (L.raw > 1.f ? 1.f : L.raw);  // a NaN stays NaN
 }
 
-__global__ void neus_composite_kernel(const float* __restrict__ t,        // [N, S]
-                                      const uint8_t* __restrict__ mask,   // [N, S]
-                                      const float* __restrict__ sdf,      // [N, S]
-                                      const float* __restrict__ nablas,   // [N, S, 3]
-                                      const float* __restrict__ rays_d,   // [N, 3]
-                                      const float* __restrict__ inv_s_p,  // []
-                                      const float* __restrict__ rgb,      // [N, S, 3] or null
-                                      float* __restrict__ vw,             // [N, S]
-                                      float* __restrict__ mask_volume,    // [N]
-                                      float* __restrict__ depth_volume,   // [N]
-                                      float* __restrict__ rgb_volume,     // [N, 3] or null
-                                      float* __restrict__ normals_volume, // [N, 3]
-                                      int* __restrict__ samples_cnt,      // [N]
-                                      float* __restrict__ alpha,          // [N, S]
-                                      int N, int S, float an) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= N) return;
-  const size_t o = (size_t)r * S;
-  const float inv_s = __ldg(inv_s_p);
-  const float d[3] = {rays_d[r * 3 + 0], rays_d[r * 3 + 1], rays_d[r * 3 + 2]};
-  float trans = 1.f, vsum = 0.f, dsum = 0.f;
-  float c0 = 0.f, c1 = 0.f, c2 = 0.f, n0 = 0.f, n1 = 0.f, n2 = 0.f;
+// A lane's samples of a chunk, in registers: sample k is j = gl + k G.
+template <int K>
+struct Own {
+  bool m[K];                            // masked in (false past the chunk)
+  float t[K], a[K], c[K][3], nb[K][3];  // a: alpha, 0 where masked
+  float gv[K], ga[K], dot[K];           // the backward's: cotangents of vw and alpha,
+                                        // g_rgb . rgb + g_nrm . nablas
+  NeuSLane L[K];                        // K12
+};
+
+// Load the chunk [c0, c0 + n) of ray o / S into the lane's registers, every
+// load issued first and none in a branch (a sample past the chunk reads the
+// chunk's last and counts as masked): t, mask, alpha or sdf, rgb, nablas
+// and, in the backward (BWD), the cotangents of vw and alpha (zero where
+// null) and the payloads' dot products with the ray's cotangents gc, gn. K12
+// computes its samples' NeuS terms (its dt from the next lane's t, staged).
+// Stages q_j for every j of the chunk's K G (1 past n: the walks can run the
+// whole chunk). Returns the lane's count of masked-in samples.
+template <int G, int K, bool NEUS, bool BWD, class St>
+__device__ __forceinline__ int load_chunk(const Inputs& p, const Ray& R, size_t o, int c0, int n,
+                                          St& st, Own<K>& w, const float d[3], float inv_s,
+                                          const float* g_vw, const float* g_alpha,
+                                          const float gc[3], const float gn[3]) {
   int cnt = 0;
-  NeuSLane L;
-  for (int i = 0; i < S; ++i) {
-    const bool m = mask[o + i] != 0;
-    float a = 0.f;
-    if (m) {
-      neus_lane(t, sdf, nablas, d, o, i, S, an, inv_s, L);
-      a = L.a;
+  float s[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = R.gl + k * G;
+    const size_t i = o + c0 + min(j, n - 1);
+    w.m[k] = p.mask[i] != 0 && j < n;
+    w.t[k] = p.t[i];
+    if constexpr (NEUS)
+      s[k] = p.sdf[i];
+    else
+      w.a[k] = p.alpha[i];
+#pragma unroll
+    for (int x = 0; x < 3; ++x) {
+      w.c[k][x] = p.rgb != nullptr ? p.rgb[i * 3 + x] : 0.f;
+      w.nb[k][x] = p.nablas != nullptr ? p.nablas[i * 3 + x] : 0.f;
     }
-    alpha[o + i] = a;
-    const float v = __fmul_rn(a, trans);
-    trans = __fmul_rn(trans, __fadd_rn(__fsub_rn(1.f, a), 1e-10f));
-    vw[o + i] = v;
-    if (!m) continue;
-    ++cnt;
-    vsum = __fadd_rn(vsum, v);
-    dsum = __fadd_rn(dsum, __fmul_rn(v, t[o + i]));
-    if (rgb != nullptr) {
-      const float* c = rgb + (o + i) * 3;
-      c0 = __fadd_rn(c0, __fmul_rn(v, c[0]));
-      c1 = __fadd_rn(c1, __fmul_rn(v, c[1]));
-      c2 = __fadd_rn(c2, __fmul_rn(v, c[2]));
+    if constexpr (BWD) {
+      w.gv[k] = g_vw != nullptr ? g_vw[i] : 0.f;
+      w.ga[k] = g_alpha != nullptr ? g_alpha[i] : 0.f;
     }
-    const float* g = nablas + (o + i) * 3;
-    n0 = __fadd_rn(n0, __fmul_rn(v, g[0]));
-    n1 = __fadd_rn(n1, __fmul_rn(v, g[1]));
-    n2 = __fadd_rn(n2, __fmul_rn(v, g[2]));
+    cnt += w.m[k];
   }
-  mask_volume[r] = vsum;
-  depth_volume[r] = __fdiv_rn(dsum, fmaxf(vsum, 1e-8f));
-  samples_cnt[r] = cnt;
-  if (rgb != nullptr) {
-    rgb_volume[r * 3 + 0] = c0;
-    rgb_volume[r * 3 + 1] = c1;
-    rgb_volume[r * 3 + 2] = c2;
+  if constexpr (NEUS) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) st.t[R.gl + k * G] = w.t[k];
+    if (R.gl == 0 && c0 + n < p.S) st.t[n] = p.t[o + c0 + n];
+    __syncwarp();
   }
-  normals_volume[r * 3 + 0] = n0;
-  normals_volume[r * 3 + 1] = n1;
-  normals_volume[r * 3 + 2] = n2;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int j = R.gl + k * G;
+    if constexpr (NEUS) {
+      const float dt = c0 + j + 1 < p.S ? __fsub_rn(st.t[j + 1], w.t[k]) : 1e-3f;
+      neus_lane(w.nb[k], d, dt, s[k], p.an, inv_s, w.L[k]);
+      w.a[k] = w.L[k].a;
+      if constexpr (BWD) {
+        const NeuSLane& l = w.L[k];
+        st.nl[0][j] = l.raw, st.nl[1][j] = l.P, st.nl[2][j] = l.Q, st.nl[3][j] = l.ep;
+        st.nl[4][j] = l.en, st.nl[5][j] = l.dt, st.nl[6][j] = l.tc;
+      }
+    }
+    w.a[k] = w.m[k] ? w.a[k] : 0.f;
+    st.q[j] = __fadd_rn(__fsub_rn(1.f, w.a[k]), 1e-10f);
+    if constexpr (BWD) {  // the payloads' share of g_j, added as the earlier kernel added it
+      const float* nb = w.nb[k];
+      const float* cc = w.c[k];
+      const float dn = gn[0] * nb[0] + gn[1] * nb[1] + gn[2] * nb[2];
+      const float dc = gc[0] * cc[0] + gc[1] * cc[1] + gc[2] * cc[2];
+      if constexpr (NEUS)
+        w.dot[k] = p.rgb != nullptr ? dn + dc : dn;
+      else
+        w.dot[k] = p.rgb != nullptr ? (p.nablas != nullptr ? dc + dn : dc)
+                                    : (p.nablas != nullptr ? dn : 0.f);
+    }
+  }
+  __syncwarp();
+  return cnt;
 }
 
-__global__ void neus_composite_bwd_kernel(const float* __restrict__ t,        // [N, S]
-                                          const uint8_t* __restrict__ mask,   // [N, S]
-                                          const float* __restrict__ sdf,      // [N, S]
-                                          const float* __restrict__ nablas,   // [N, S, 3]
-                                          const float* __restrict__ rays_d,   // [N, 3]
-                                          const float* __restrict__ inv_s_p,  // []
-                                          const float* __restrict__ rgb,      // [N, S, 3] or null
-                                          const float* __restrict__ g_vw,     // [N, S] or null
-                                          const float* __restrict__ g_mask,   // [N] or null
-                                          const float* __restrict__ g_depth,  // [N] or null
-                                          const float* __restrict__ g_rgb,    // [N, 3] or null
-                                          const float* __restrict__ g_nrm,    // [N, 3] or null
-                                          const float* __restrict__ g_alpha,  // [N, S] or null
-                                          float* __restrict__ d_sdf,          // [N, S]
-                                          float* __restrict__ d_nablas,       // [N, S, 3]
-                                          float* __restrict__ d_rgb,          // [N, S, 3] or null
-                                          float* __restrict__ d_inv_s,        // [N]
-                                          int N, int S, float an) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= N) return;
-  const size_t o = (size_t)r * S;
-  const float inv_s = __ldg(inv_s_p);
-  const float d[3] = {rays_d[r * 3 + 0], rays_d[r * 3 + 1], rays_d[r * 3 + 2]};
-  NeuSLane L;
-  // forward sweep: T_i into the d_sdf row (its own scratch), the sums as K6
-  float trans = 1.f, vsum = 0.f, dsum = 0.f;
-  for (int i = 0; i < S; ++i) {
-    const bool m = mask[o + i] != 0;
-    float a = 0.f;
-    if (m) {
-      neus_lane(t, sdf, nablas, d, o, i, S, an, inv_s, L);
-      a = L.a;
-    }
-    const float v = __fmul_rn(a, trans);
-    d_sdf[o + i] = trans;
-    trans = __fmul_rn(trans, __fadd_rn(__fsub_rn(1.f, a), 1e-10f));
-    if (!m) continue;
-    vsum = __fadd_rn(vsum, v);
-    dsum = __fadd_rn(dsum, __fmul_rn(v, t[o + i]));
+// The transmittance walk over a staged chunk of CH, in the plain order: T_j
+// into w (lane 0 of the group writes it), trans = T_CH after (T_n: q is 1
+// past n).
+template <int CH, class St>
+__device__ __forceinline__ void walk_trans(St& st, bool keep, float& trans) {
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    if (keep) st.w[j] = trans;
+    trans = __fmul_rn(trans, st.q[j]);
   }
-  const float den = fmaxf(vsum, 1e-8f);
-  const float gm = g_mask != nullptr ? g_mask[r] : 0.f;
-  const float gd = g_depth != nullptr ? g_depth[r] / den : 0.f;
-  const float depth = vsum >= 1e-8f ? dsum / den : 0.f;
+}
+
+// Sum `sum` of the staged terms over the chunk, in index order (the terms
+// past n are 0).
+template <int CH, class St>
+__device__ __forceinline__ void walk_sum(const St& st, int sum, float& acc) {
+#pragma unroll
+  for (int j = 0; j < CH; ++j) acc = __fadd_rn(acc, st.p[sum][j]);
+}
+
+__device__ __forceinline__ void ray_dir(const Inputs& p, const Ray& R, float d[3], float& inv_s) {
+  d[0] = p.rays_d[R.r * 3 + 0];
+  d[1] = p.rays_d[R.r * 3 + 1];
+  d[2] = p.rays_d[R.r * 3 + 2];
+  inv_s = __ldg(p.inv_s);
+}
+
+struct FwdOut {
+  float* vw;              // [N, S]
+  float* mask_volume;     // [N]
+  float* depth_volume;    // [N]
+  float* rgb_volume;      // [N, 3] or null
+  float* normals_volume;  // [N, 3] or null
+  int* samples_cnt;       // [N]
+  float* alpha;           // [N, S] (K12)
+};
+
+template <int G, int K, bool NEUS>
+__global__ void __launch_bounds__(kThreads) composite_kernel(const Inputs p, const FwdOut out) {
+  constexpr int CH = K * G;
+  __shared__ Stage<G, K, NEUS, kSums> stage[kThreads / G];
+  Ray R;
+  if (!ray_of<G>(p.N, R)) return;
+  auto& st = stage[R.slot];
+  const size_t o = (size_t)R.r * p.S;
+  float d[3] = {0.f, 0.f, 0.f}, inv_s = 0.f;
+  if constexpr (NEUS) ray_dir(p, R, d, inv_s);
+  const float none[3] = {0.f, 0.f, 0.f};
+  // lane c < 8 adds sum c: 0 the weight, 1 the depth, 2-4 rgb, 5-7 normals
+  const int sum = min(R.gl, kSums - 1);
+  Own<K> w;
+  float trans = 1.f, acc = 0.f;
+  int cnt = 0;
+  for (int c0 = 0; c0 < p.S; c0 += CH) {
+    const int n = min(CH, p.S - c0);
+    if (c0 > 0) __syncwarp();  // the last chunk's terms are summed
+    cnt += load_chunk<G, K, NEUS, false>(p, R, o, c0, n, st, w, d, inv_s, nullptr, nullptr,
+                                         none, none);
+    walk_trans<CH>(st, R.gl == 0, trans);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = R.gl + k * G;
+      const bool m = w.m[k];
+      const float v = __fmul_rn(w.a[k], st.w[j]);  // the walk's v_j
+      if (R.valid && j < n) {
+        out.vw[o + c0 + j] = v;
+        if constexpr (NEUS) out.alpha[o + c0 + j] = w.a[k];
+      }
+      st.p[0][j] = m ? v : 0.f;
+      st.p[1][j] = m ? __fmul_rn(v, w.t[k]) : 0.f;
+#pragma unroll
+      for (int x = 0; x < 3; ++x) {
+        if (p.rgb != nullptr) st.p[2 + x][j] = m ? __fmul_rn(v, w.c[k][x]) : 0.f;
+        if (p.nablas != nullptr) st.p[5 + x][j] = m ? __fmul_rn(v, w.nb[k][x]) : 0.f;
+      }
+    }
+    __syncwarp();
+    walk_sum<CH>(st, sum, acc);
+  }
+#pragma unroll
+  for (int s = G / 2; s > 0; s >>= 1) cnt += __shfl_xor_sync(kAll, cnt, s);
+  const float vsum = __shfl_sync(kAll, acc, R.base);
+  const float dsum = __shfl_sync(kAll, acc, R.base + 1);
+  if (!R.valid) return;
+  if (R.gl == 0) {
+    out.mask_volume[R.r] = vsum;
+    out.depth_volume[R.r] = __fdiv_rn(dsum, fmaxf(vsum, 1e-8f));
+    out.samples_cnt[R.r] = cnt;
+  } else if (R.gl >= 2 && R.gl < 5 && p.rgb != nullptr) {
+    out.rgb_volume[R.r * 3 + R.gl - 2] = acc;
+  } else if (R.gl >= 5 && R.gl < 8 && p.nablas != nullptr) {
+    out.normals_volume[R.r * 3 + R.gl - 5] = acc;
+  }
+}
+
+struct BwdIO {
+  const float* g_vw;     // [N, S] (K12: or null)
+  const float* g_mask;   // [N] (K12: or null)
+  const float* g_depth;  // [N] (K12: or null)
+  const float* g_rgb;    // [N, 3] or null
+  const float* g_nrm;    // [N, 3] or null
+  const float* g_alpha;  // [N, S] or null (K12)
+  float* d_alpha;        // [N, S] (K6)
+  float* d_sdf;          // [N, S] (K12)
+  float* d_rgb;          // [N, S, 3] or null
+  float* d_nablas;       // [N, S, 3] (K6: or null)
+  float* d_inv_s;        // [N] (K12)
+};
+
+template <int G, int K, bool NEUS>
+__global__ void __launch_bounds__(kThreads) composite_bwd_kernel(const Inputs p, const BwdIO q) {
+  constexpr int CH = K * G;
+  __shared__ BwdStage<G, K, NEUS> stage[kThreads / G];
+  extern __shared__ float chunk_trans[];  // [rays a block][chunks] where a ray takes several
+  Ray R;
+  if (!ray_of<G>(p.N, R)) return;
+  auto& st = stage[R.slot];
+  const size_t o = (size_t)R.r * p.S;
+  const int chunks = (p.S + CH - 1) / CH;
+  float* cs = chunk_trans + R.slot * chunks;
+  float d[3] = {0.f, 0.f, 0.f}, inv_s = 0.f;
+  if constexpr (NEUS) ray_dir(p, R, d, inv_s);
   float gc[3] = {0.f, 0.f, 0.f}, gn[3] = {0.f, 0.f, 0.f};
-  if (rgb != nullptr && g_rgb != nullptr)
-    for (int k = 0; k < 3; ++k) gc[k] = g_rgb[r * 3 + k];
-  if (g_nrm != nullptr)
-    for (int k = 0; k < 3; ++k) gn[k] = g_nrm[r * 3 + k];
-  float B = 0.f, dinv = 0.f;
-  for (int i = S - 1; i >= 0; --i) {
-    const bool m = mask[o + i] != 0;
-    const float T = d_sdf[o + i];
-    if (!m) {  // a = 0 and q = 1 + 1e-10, which is 1 in f32: B passes through
-      d_sdf[o + i] = 0.f;
-      for (int k = 0; k < 3; ++k) d_nablas[(o + i) * 3 + k] = 0.f;
-      if (rgb != nullptr)
-        for (int k = 0; k < 3; ++k) d_rgb[(o + i) * 3 + k] = 0.f;
-      continue;
+  if (p.rgb != nullptr && q.g_rgb != nullptr)
+    for (int x = 0; x < 3; ++x) gc[x] = q.g_rgb[R.r * 3 + x];
+  if (p.nablas != nullptr && q.g_nrm != nullptr)
+    for (int x = 0; x < 3; ++x) gn[x] = q.g_nrm[R.r * 3 + x];
+  Own<K> w;
+
+  // the forward walk: T_j, then the weight sum (lane 0) and the depth sum
+  // (lane 1) as the forward adds them
+  const int sum = min(R.gl, 1);
+  float trans = 1.f, acc = 0.f;
+  for (int c = 0; c < chunks; ++c) {
+    const int c0 = c * CH, n = min(CH, p.S - c0);
+    if (c > 0) __syncwarp();
+    load_chunk<G, K, NEUS, true>(p, R, o, c0, n, st, w, d, inv_s, q.g_vw, q.g_alpha, gc, gn);
+    if (chunks > 1 && R.gl == 0) cs[c] = trans;
+    walk_trans<CH>(st, R.gl == 0, trans);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = R.gl + k * G;
+      const float v = __fmul_rn(w.a[k], st.w[j]);
+      st.p[0][j] = w.m[k] ? v : 0.f;
+      st.p[1][j] = w.m[k] ? __fmul_rn(v, w.t[k]) : 0.f;
     }
-    neus_lane(t, sdf, nablas, d, o, i, S, an, inv_s, L);
-    const float a = L.a;
-    const float v = a * T;
-    const float* nb = nablas + (o + i) * 3;
-    float g = (g_vw != nullptr ? g_vw[o + i] : 0.f) + gm + gd * (t[o + i] - depth)
-              + gn[0] * nb[0] + gn[1] * nb[1] + gn[2] * nb[2];
-    if (rgb != nullptr) {
-      const float* c = rgb + (o + i) * 3;
-      g += gc[0] * c[0] + gc[1] * c[1] + gc[2] * c[2];
-      for (int k = 0; k < 3; ++k) d_rgb[(o + i) * 3 + k] = v * gc[k];
-    }
-    float da = T * (g - B) + (g_alpha != nullptr ? g_alpha[o + i] : 0.f);
-    B = g * a + __fadd_rn(__fsub_rn(1.f, a), 1e-10f) * B;
-    // the clip: the whole gradient inside (0, 1), half at a tie, none outside
-    const float raw = L.raw;
-    da *= (raw > 0.f && raw < 1.f) ? 1.f : ((raw == 0.f || raw == 1.f) ? 0.5f : 0.f);
-    // raw = num / den, num = P - Q + eps, den = P + eps
-    const float dnum = da / L.den;
-    const float dden = -da * L.num / (L.den * L.den);
-    const float du = (dnum + dden) * L.P * (1.f - L.P);   // through P = sigmoid(u)
-    const float dv = -dnum * L.Q * (1.f - L.Q);           // through Q = sigmoid(v)
-    const float dep = du * inv_s, den_ = dv * inv_s;
-    dinv += du * L.ep + dv * L.en;
-    d_sdf[o + i] = dep + den_;
-    // ep = sdf - cos dt / 2, en = sdf + cos dt / 2; cos from tc through the anneal
-    const float dcos = (den_ - dep) * 0.5f * L.dt;
-    const float dtc = dcos * ((L.y1 > 0.f ? 0.5f * (1.f - an) : 0.f)
-                              + (-L.tc > 0.f ? an : 0.f));
-    for (int k = 0; k < 3; ++k) d_nablas[(o + i) * 3 + k] = v * gn[k] + dtc * d[k];
+    __syncwarp();
+    walk_sum<CH>(st, sum, acc);
   }
-  d_inv_s[r] = dinv;
+  const float vsum = __shfl_sync(kAll, acc, R.base);
+  const float dsum = __shfl_sync(kAll, acc, R.base + 1);
+  const float den = fmaxf(vsum, 1e-8f);
+  const float gm = q.g_mask != nullptr ? q.g_mask[R.r] : 0.f;
+  const float gd = q.g_depth != nullptr ? q.g_depth[R.r] / den : 0.f;
+  const float depth = vsum >= 1e-8f ? dsum / den : 0.f;
+
+  // the reverse pass, chunk by chunk from the last
+  float B = 0.f, dinv = 0.f;
+  float g[K];
+  for (int c = chunks - 1; c >= 0; --c) {
+    const int c0 = c * CH, n = min(CH, p.S - c0);
+    if (chunks > 1) {  // load the chunk again, and its T_j from its starting T
+      __syncwarp();
+      load_chunk<G, K, NEUS, true>(p, R, o, c0, n, st, w, d, inv_s, q.g_vw, q.g_alpha, gc, gn);
+      float tr = cs[c];
+      walk_trans<CH>(st, R.gl == 0, tr);
+    }
+    // g_j and h_j = g_j a_j of the lane's samples (0 where masked)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      g[k] = w.gv[k] + gm + gd * (w.t[k] - depth) + w.dot[k];
+      st.h[R.gl + k * G] = w.m[k] ? g[k] * w.a[k] : 0.f;
+    }
+    __syncwarp();
+    // the suffix B_j, in reverse order (h_j 0 and q_j 1 where masked or past
+    // n: B passes); lane 0 keeps each B_j
+#pragma unroll
+    for (int j = CH - 1; j >= 0; --j) {
+      if (R.gl == 0) st.b[j] = B;
+      B = st.h[j] + st.q[j] * B;
+    }
+    __syncwarp();
+    // d alpha of the lane's samples (K12: on through the NeuS chain), and
+    // their d rgb and d nablas rows
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int j = R.gl + k * G;
+      const size_t i = o + c0 + j;
+      const bool m = w.m[k];
+      const float T = st.w[j];
+      const float v = w.a[k] * T, da0 = T * (g[k] - st.b[j]);
+      float dtc = 0.f;
+      if constexpr (NEUS) {
+        NeuSLane l;
+        l.raw = st.nl[0][j], l.P = st.nl[1][j], l.Q = st.nl[2][j], l.ep = st.nl[3][j];
+        l.en = st.nl[4][j], l.dt = st.nl[5][j], l.tc = st.nl[6][j];
+        float da = da0 + w.ga[k];
+        // the clip: the whole gradient inside (0, 1), half at a tie, none outside
+        const float raw = l.raw;
+        da *= (raw > 0.f && raw < 1.f) ? 1.f : ((raw == 0.f || raw == 1.f) ? 0.5f : 0.f);
+        // raw = num / den, num = P - Q + eps, den = P + eps (as neus_lane rounds them)
+        const float num = __fadd_rn(__fsub_rn(l.P, l.Q), 1e-5f), dn = __fadd_rn(l.P, 1e-5f);
+        const float dnum = da / dn;
+        const float dden = -da * num / (dn * dn);
+        const float du = (dnum + dden) * l.P * (1.f - l.P);  // through P = sigmoid(u)
+        const float dv = -dnum * l.Q * (1.f - l.Q);          // through Q = sigmoid(v)
+        const float dep = du * inv_s, den_ = dv * inv_s;
+        // ep = sdf - cos dt / 2, en = sdf + cos dt / 2; cos from tc through the anneal
+        const float dcos = (den_ - dep) * 0.5f * l.dt;
+        const float y1 = __fadd_rn(__fmul_rn(-l.tc, 0.5f), 0.5f);
+        if (m) {
+          dinv += du * l.ep + dv * l.en;
+          dtc = dcos * ((y1 > 0.f ? 0.5f * (1.f - p.an) : 0.f) + (-l.tc > 0.f ? p.an : 0.f));
+        }
+        if (R.valid && j < n) q.d_sdf[i] = m ? dep + den_ : 0.f;
+      } else {
+        if (R.valid && j < n) q.d_alpha[i] = m ? da0 : 0.f;
+      }
+      if (R.valid && j < n) {
+#pragma unroll
+        for (int x = 0; x < 3; ++x) {
+          if (p.rgb != nullptr) q.d_rgb[i * 3 + x] = m ? v * gc[x] : 0.f;
+          if (p.nablas != nullptr) {
+            float dnb;
+            if constexpr (NEUS)
+              dnb = v * gn[x] + dtc * d[x];
+            else
+              dnb = v * gn[x];
+            q.d_nablas[i * 3 + x] = m ? dnb : 0.f;
+          }
+        }
+      }
+    }
+  }
+  if constexpr (NEUS) {
+    // each ray's share of d inv_s, summed over the group in a fixed order
+#pragma unroll
+    for (int s = G / 2; s > 0; s >>= 1) dinv += __shfl_xor_sync(kAll, dinv, s);
+    if (R.valid && R.gl == 0) q.d_inv_s[R.r] = dinv;
+  }
+}
+
+// G lanes a ray and K samples a lane in a chunk of K G. The walks run a
+// whole chunk, so a chunk fits the ray where it can: 8 lanes up to 32
+// samples, 16 lanes up to 48, 64 and (K12) 96 (3, 4 and 6 samples a lane),
+// and past that 32 lanes and chunks of 128 (measured on an H100 against 8,
+// 16 and 32 lanes of 2-8 samples at the main path's 48, 64 and 96). K6
+// takes 32 lanes of 4 past 64 samples: at 16 of 6 its forward spills.
+struct Config {
+  int G, K;
+};
+
+Config config_for(int S, bool neus) {
+  if (S <= 32) return {8, 4};
+  if (S <= 48) return {16, 3};
+  if (S <= 64) return {16, 4};
+  if (S <= 96 && neus) return {16, 6};
+  return {32, 4};
+}
+
+template <int G, int K, bool NEUS>
+cudaError_t launch_fwd_gk(const Inputs& p, const FwdOut& out, cudaStream_t stream) {
+  constexpr int rays = kThreads / G;
+  const int blocks = p.N > 0 ? (p.N + rays - 1) / rays : 1;
+  composite_kernel<G, K, NEUS><<<blocks, kThreads, 0, stream>>>(p, out);
+  return cudaGetLastError();
+}
+
+template <int G, int K, bool NEUS>
+cudaError_t launch_bwd_gk(const Inputs& p, const BwdIO& q, cudaStream_t stream) {
+  constexpr int rays = kThreads / G, CH = K * G;
+  const int chunks = (p.S + CH - 1) / CH;
+  // a ray of several chunks keeps each chunk's starting T in dynamic shared
+  // memory; past the default 48 KB a block, the card's opt-in limit
+  const size_t dyn = chunks > 1 ? (size_t)rays * chunks * sizeof(float) : 0;
+  const size_t total = dyn + rays * sizeof(BwdStage<G, K, NEUS>);
+  if (total > 48 * 1024) {
+    cudaError_t e;
+    int dev = 0, optin = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) !=
+        cudaSuccess)
+      return e;
+    if (total > (size_t)optin) return cudaErrorInvalidValue;
+    if ((e = cudaFuncSetAttribute(composite_bwd_kernel<G, K, NEUS>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn)) !=
+        cudaSuccess)
+      return e;
+  }
+  const int blocks = p.N > 0 ? (p.N + rays - 1) / rays : 1;
+  composite_bwd_kernel<G, K, NEUS><<<blocks, kThreads, dyn, stream>>>(p, q);
+  return cudaGetLastError();
+}
+
+// The configurations config_for picks, each a kernel of its own.
+#define K6_CONFIGS(X) X(8, 4) X(16, 3) X(16, 4) X(32, 4)
+#define K12_CONFIGS(X) X(8, 4) X(16, 3) X(16, 4) X(16, 6) X(32, 4)
+
+template <bool NEUS>
+int launch_fwd(const Inputs& p, const FwdOut& out, cudaStream_t stream) {
+  if (p.N < 0 || p.S < 0) return (int)cudaErrorInvalidValue;
+  const Config c = config_for(p.S, NEUS);
+#define FWD(g, k) \
+  if (c.G == g && c.K == k) return (int)launch_fwd_gk<g, k, NEUS>(p, out, stream);
+  if constexpr (NEUS) {
+    K12_CONFIGS(FWD)
+  } else {
+    K6_CONFIGS(FWD)
+  }
+#undef FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool NEUS>
+int launch_bwd(const Inputs& p, const BwdIO& q, cudaStream_t stream) {
+  if (p.N < 0 || p.S < 0) return (int)cudaErrorInvalidValue;
+  const Config c = config_for(p.S, NEUS);
+#define BWD(g, k) \
+  if (c.G == g && c.K == k) return (int)launch_bwd_gk<g, k, NEUS>(p, q, stream);
+  if constexpr (NEUS) {
+    K12_CONFIGS(BWD)
+  } else {
+    K6_CONFIGS(BWD)
+  }
+#undef BWD
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -381,13 +594,11 @@ extern "C" int volume_composite_fwd(const void* t, const void* mask, const void*
                                     void* mask_volume, void* depth_volume, void* rgb_volume,
                                     void* normals_volume, void* samples_cnt, int N, int S,
                                     void* stream) {
-  const int threads = 32;  // one warp a block: 4096 rays spread over 128 SMs
-  const int blocks = N > 0 ? (N + threads - 1) / threads : 1;
-  composite_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)t, (const uint8_t*)mask, (const float*)alpha, (const float*)rgb,
-      (const float*)nablas, (float*)vw, (float*)mask_volume, (float*)depth_volume,
-      (float*)rgb_volume, (float*)normals_volume, (int*)samples_cnt, N, S);
-  return (int)cudaGetLastError();
+  const Inputs p{(const float*)t, (const uint8_t*)mask, (const float*)alpha, nullptr, nullptr,
+                 nullptr, (const float*)rgb, (const float*)nablas, N, S, 0.f};
+  const FwdOut out{(float*)vw, (float*)mask_volume, (float*)depth_volume, (float*)rgb_volume,
+                   (float*)normals_volume, (int*)samples_cnt, nullptr};
+  return launch_fwd<false>(p, out, (cudaStream_t)stream);
 }
 
 extern "C" int volume_composite_bwd(const void* t, const void* mask, const void* alpha,
@@ -395,14 +606,12 @@ extern "C" int volume_composite_bwd(const void* t, const void* mask, const void*
                                     const void* g_mask, const void* g_depth, const void* g_rgb,
                                     const void* g_nrm, void* d_alpha, void* d_rgb,
                                     void* d_nablas, int N, int S, void* stream) {
-  const int threads = 32;
-  const int blocks = N > 0 ? (N + threads - 1) / threads : 1;
-  composite_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)t, (const uint8_t*)mask, (const float*)alpha, (const float*)rgb,
-      (const float*)nablas, (const float*)g_vw, (const float*)g_mask, (const float*)g_depth,
-      (const float*)g_rgb, (const float*)g_nrm, (float*)d_alpha, (float*)d_rgb,
-      (float*)d_nablas, N, S);
-  return (int)cudaGetLastError();
+  const Inputs p{(const float*)t, (const uint8_t*)mask, (const float*)alpha, nullptr, nullptr,
+                 nullptr, (const float*)rgb, (const float*)nablas, N, S, 0.f};
+  const BwdIO q{(const float*)g_vw, (const float*)g_mask, (const float*)g_depth,
+                (const float*)g_rgb, (const float*)g_nrm, nullptr, (float*)d_alpha, nullptr,
+                (float*)d_rgb, (float*)d_nablas, nullptr};
+  return launch_bwd<false>(p, q, (cudaStream_t)stream);
 }
 
 extern "C" int neus_composite_fwd(const void* t, const void* mask, const void* sdf,
@@ -411,14 +620,12 @@ extern "C" int neus_composite_fwd(const void* t, const void* mask, const void* s
                                   void* depth_volume, void* rgb_volume, void* normals_volume,
                                   void* samples_cnt, void* alpha, int N, int S, float anneal,
                                   void* stream) {
-  const int threads = 32;
-  const int blocks = N > 0 ? (N + threads - 1) / threads : 1;
-  neus_composite_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)t, (const uint8_t*)mask, (const float*)sdf, (const float*)nablas,
-      (const float*)rays_d, (const float*)inv_s, (const float*)rgb, (float*)vw,
-      (float*)mask_volume, (float*)depth_volume, (float*)rgb_volume, (float*)normals_volume,
-      (int*)samples_cnt, (float*)alpha, N, S, anneal);
-  return (int)cudaGetLastError();
+  const Inputs p{(const float*)t, (const uint8_t*)mask, nullptr, (const float*)sdf,
+                 (const float*)rays_d, (const float*)inv_s, (const float*)rgb,
+                 (const float*)nablas, N, S, anneal};
+  const FwdOut out{(float*)vw, (float*)mask_volume, (float*)depth_volume, (float*)rgb_volume,
+                   (float*)normals_volume, (int*)samples_cnt, (float*)alpha};
+  return launch_fwd<true>(p, out, (cudaStream_t)stream);
 }
 
 extern "C" int neus_composite_bwd(const void* t, const void* mask, const void* sdf,
@@ -427,13 +634,11 @@ extern "C" int neus_composite_bwd(const void* t, const void* mask, const void* s
                                   const void* g_depth, const void* g_rgb, const void* g_nrm,
                                   const void* g_alpha, void* d_sdf, void* d_nablas, void* d_rgb,
                                   void* d_inv_s, int N, int S, float anneal, void* stream) {
-  const int threads = 32;
-  const int blocks = N > 0 ? (N + threads - 1) / threads : 1;
-  neus_composite_bwd_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)t, (const uint8_t*)mask, (const float*)sdf, (const float*)nablas,
-      (const float*)rays_d, (const float*)inv_s, (const float*)rgb, (const float*)g_vw,
-      (const float*)g_mask, (const float*)g_depth, (const float*)g_rgb, (const float*)g_nrm,
-      (const float*)g_alpha, (float*)d_sdf, (float*)d_nablas, (float*)d_rgb, (float*)d_inv_s,
-      N, S, anneal);
-  return (int)cudaGetLastError();
+  const Inputs p{(const float*)t, (const uint8_t*)mask, nullptr, (const float*)sdf,
+                 (const float*)rays_d, (const float*)inv_s, (const float*)rgb,
+                 (const float*)nablas, N, S, anneal};
+  const BwdIO q{(const float*)g_vw, (const float*)g_mask, (const float*)g_depth,
+                (const float*)g_rgb, (const float*)g_nrm, (const float*)g_alpha, nullptr,
+                (float*)d_sdf, (float*)d_rgb, (float*)d_nablas, (float*)d_inv_s};
+  return launch_bwd<true>(p, q, (cudaStream_t)stream);
 }

@@ -2,13 +2,19 @@
 """Time the redesigned kernels at the multi-object shapes in one or more
 checkouts of the port, in turns, on one card.
 
-    python3 scripts/torch_kernel_ab.py [ROOT ...]
+    python3 scripts/torch_kernel_ab.py [--composite-only] [ROOT ...]
 
 Each ROOT (default: this checkout) holds ``neuralsim_torch/`` and
 ``chip_smoke.py``. Each is timed in a process of its own, which builds that
 checkout's kernels, in the order given: "PARENT . . PARENT" compares two
-checkouts on one card (parent, change, change, parent). The shapes are the
-multi-object iteration's (WAYMO_DEMO_MULTI): K5a at its five stage launches
+checkouts on one card (parent, change, change, parent). First K6 and
+K12 (``--composite-only``: only they), forward and backward, each with the
+sha256 of every output: K6 at the bench model's step (8,192 rays of 64
+lanes, a close-range and a distant buffer, with rgb and nablas, cotangents
+of every output), K12 at the multi-object LiDAR step's street buffer (2,048
+beams of 48 samples, no rgb) and at synthetic_object's render chunk (4,096
+rays of 96 samples, with rgb), at cos anneal 0.5 and inv_s 300. The other
+shapes are the multi-object iteration's (WAYMO_DEMO_MULTI): K5a at its five stage launches
 (the street's 32 + 8 and 40 + 8 at 4,096 pixel rays and 2,048 beams, the
 vehicles' 24 + 8 at 6,144 rows) and synthetic_object's 80 + 16 at 4,096
 rays, with drawn noise, with the weights and, where the checkout can skip
@@ -77,6 +83,8 @@ K4_SHAPES = (("K4 street pixel step", 4096, 64, 32, None, 128),
              ("K4 street LiDAR step", 2048, 64, 32, None, 128),
              ("K4 bench", 8192, 48, 16, None, 128),
              ("K10 crowd", 4096, 64, 24, 8, 32))
+# K12's launches (label, rays, samples, with rgb)
+K12_SHAPES = (("LiDAR step", 2048, 48, False), ("synthetic_object render chunk", 4096, 96, True))
 # K5a's launches (rays, samples, draws, inv_s): the multi-object iteration's
 # five (the street's two stages at the pixel step's rays and the LiDAR
 # step's beams, the vehicles' one stage at their 3 x 2,048 rows) and
@@ -122,7 +130,12 @@ def kernels_a_call(fn) -> int:
     return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
-def time_root(root: str) -> dict:
+def digests(prefix, outs) -> dict:
+    """The sha256 of each output of a call that has one."""
+    return {f"{prefix}{i}_sha256": digest(x) for i, x in enumerate(outs) if x is not None}
+
+
+def time_root(root: str, composite_only: bool = False) -> dict:
     tm = timer()
     sys.path.insert(0, root)
     import numpy as np
@@ -149,6 +162,42 @@ def time_root(root: str) -> dict:
     def timed(fn, prefix=""):
         return {prefix + "ms": tm.cuda_ms(fn), prefix + "queued_ms": tm.cuda_ms(fn, queued=True),
                 prefix + "prof_ms": tm.prof_ms(fn), prefix + "host_ms": tm.host_ms(fn)}
+
+    # K6 at the bench model's step and K12 at the LiDAR step and at
+    # synthetic_object's render chunk, forward and backward, on this
+    # checkout's seeded inputs, with the digests of their outputs (outputs
+    # in the wrappers' order: K6 vw, mask, depth, rgb, normals, count; its
+    # backward d alpha, d rgb, d nablas; K12 those and alpha; its backward
+    # d sdf, d nablas, d rgb, d inv_s a ray)
+    from neuralsim_torch.renderers.buffers import volume_composite, volume_composite_bwd
+    from neuralsim_torch.renderers.neus_composite import neus_composite, neus_composite_bwd
+    n, s = 8192, 64
+    a = [T(v) for v in tm.composite_inputs(n, s, 5, two_buffers=True)]
+    cots = [tm.cotangents(sh, 13 + i, dev)
+            for i, sh in enumerate(((n, s), (n,), (n,), (n, 3), (n, 3)))]
+    out[f"K6 bench {n} S={s} two buffers"] = {
+        **timed(lambda: volume_composite(*a)), **digests("out", volume_composite(*a))}
+    out[f"K6 bwd bench {n} S={s} two buffers"] = {
+        **timed(lambda: volume_composite_bwd(*a, *cots)),
+        **digests("grad", volume_composite_bwd(*a, *cots))}
+    inv_s = torch.tensor(300.0, device=dev)
+    for label, n, s, with_rgb in K12_SHAPES:
+        t, mask, sdf, nablas, d, rgb = (T(v) for v in tm.neus_inputs(n, s, 4))
+        a = (t, mask, sdf, nablas, d, 0.5, inv_s, rgb if with_rgb else None)
+        cots = [tm.cotangents(sh, 8 + i, dev)
+                for i, sh in enumerate(((n, s), (n,), (n,), (n, 3), (n, 3), (n, s)))]
+        if not with_rgb:
+            cots[3] = None
+        tag = f"K12 {label} {n} S={s}{' rgb' if with_rgb else ''}"
+        out[tag] = {**timed(lambda: neus_composite(*a)), **digests("out", neus_composite(*a))}
+        out[tag.replace("K12", "K12 bwd")] = {
+            **timed(lambda: neus_composite_bwd(*a, *cots)),
+            **digests("grad", neus_composite_bwd(*a, *cots))}
+    if composite_only:
+        out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                      "--format=csv,noheader"], capture_output=True, text=True,
+                                     timeout=60).stdout.strip()
+        return out
 
     # K5a at the multi-object iteration's five stage launches and
     # synthetic_object's render stage, on seeded inputs and drawn noise, with
@@ -328,14 +377,15 @@ def time_root(root: str) -> dict:
 
 def main(argv) -> int:
     if argv[:1] == ["--one"]:
-        print(json.dumps(time_root(argv[1])), flush=True)
+        print(json.dumps(time_root(argv[1], argv[2:] == ["--composite-only"])), flush=True)
         return 0
-    roots = [str(Path(r).resolve()) for r in argv] or [str(HERE)]
+    only = ["--composite-only"] if "--composite-only" in argv else []
+    roots = [str(Path(r).resolve()) for r in argv if r not in only] or [str(HERE)]
     rc = 0
     for root in roots:
         # the child imports the port from ``root``, never from this checkout
         env = {**os.environ, "PYTHONPATH": root}
-        p = subprocess.run([sys.executable, __file__, "--one", root], cwd=root, env=env,
+        p = subprocess.run([sys.executable, __file__, "--one", root, *only], cwd=root, env=env,
                            capture_output=True, text=True, timeout=1200)
         sys.stderr.write(p.stderr[-4000:])
         if p.returncode != 0:

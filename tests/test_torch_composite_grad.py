@@ -16,7 +16,7 @@ import torch
 
 from neuralsim_tpu.renderers.buffers import volume_integrate as jax_integrate
 from neuralsim_torch.renderers.buffers import (volume_composite_bwd, volume_integrate)
-from test_torch_composite import _buffer
+from test_torch_composite import EDGES, _buffer, _edge_buffer
 
 torch.set_num_threads(1)
 
@@ -33,13 +33,14 @@ def _cotangents(buf, seed=3):
     return {k: rng.normal(size=sh).astype(np.float32) for k, sh in shapes.items()}
 
 
-def _jax_grads(buf, cot, outs):
+def _jax_grads(buf, cot, outs, jit=False):
     def loss(alpha, rgb, nablas):
         r = jax_integrate({"t": jnp.asarray(buf["t"]), "mask": jnp.asarray(buf["mask"]),
                            "alpha": alpha, "rgb": rgb, "nablas": nablas})
         return sum(jnp.sum(r[k] * cot[k]) for k in outs)
 
-    return jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(buf[k]) for k in INS))
+    grad = jax.grad(loss, argnums=(0, 1, 2))
+    return (jax.jit(grad) if jit else grad)(*(jnp.asarray(buf[k]) for k in INS))
 
 
 def _port_grads(buf, cot, outs):
@@ -65,6 +66,18 @@ def test_composite_gradients_match_jax(outs):
             continue
         assert torch.isfinite(g).all(), k
         np.testing.assert_allclose(g.numpy(), w, **TOL, err_msg=k)
+        assert not g.numpy()[~buf["mask"]].any(), k        # masked lanes get zero
+
+
+@pytest.mark.parametrize("n,s", EDGES, ids=[f"S {s}" for _, s in EDGES])
+def test_composite_gradients_at_edges_match_jax(n, s):
+    """One sample, odd widths, a wholly masked row and runs of alpha == 1."""
+    buf = _edge_buffer(n, s)
+    cot = _cotangents(buf, seed=s)
+    want = _jax_grads(buf, cot, OUTS, jit=True)  # one compile for the edge's shape
+    got = _port_grads(buf, cot, OUTS)
+    for k, g, w in zip(INS, got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL, err_msg=k)
         assert not g.numpy()[~buf["mask"]].any(), k        # masked lanes get zero
 
 

@@ -37,7 +37,11 @@ vehicles on the pair-budget path with per-instance grids) to the CPU as the comp
 iteration are. K2 (per-level CP) is held to its plain version at K1's
 tolerances, its backward at chip_smoke.GRAD_REL (also for a level past the
 backward's shared memory); K12 (the NeuS alpha inside the composite) at
-chip_smoke.K12_TOL, its backward at chip_smoke.GRAD_REL. K9 (the permuto
+chip_smoke.K12_TOL, its backward at chip_smoke.GRAD_REL; K6 and K12, forward
+and backward, at chip_smoke.COMPOSITE_EDGE_S x COMPOSITE_EDGE_N (1 to 1,100
+samples, 0 to 600 rays, masked rows, alpha == 1 runs, with and without
+payloads) and with a NaN lane (which stays NaN), the same bits on two
+calls. K9 (the permuto
 lattice) at chip_smoke.K9_TOL, its table gradient at chip_smoke.GRAD_REL and
 its inputs' gradient at chip_smoke.K9_DX_REL (the same bits on two calls),
 at d 3, 4, 7 and 11, at 1, 32 and 196,608 points, on a table of 16 rows (hash
@@ -959,6 +963,28 @@ def test_k12_neus_composite_backward(dev, anneal, shape):
     _rel_close([g for g in got if g is not None],
                [w for w in neus_composite_bwd_plain(*args, *only_vw) if w is not None],
                cs.GRAD_REL)
+
+
+@pytest.mark.parametrize("width", cs.COMPOSITE_EDGE_S)
+def test_k6_k12_edges(dev, width):
+    """K6 and K12, forward and backward, at one width of the edges across
+    their lane groups and chunks, at 0, 1, 3 and 600 rays."""
+    cs.check_composite_edges(dev, widths=(width,), nan_shapes=())
+
+
+def test_k6_k12_nan_lane_stays_nan(dev):
+    cs.check_composite_edges(dev, widths=(), nan_shapes=cs.COMPOSITE_NAN_SHAPES)
+
+
+def test_k6_bench_step_shape(dev):
+    """K6 and its backward at the bench model's step (8,192 rays of a
+    close-range and a distant buffer, 64 lanes), the same bits on two
+    calls."""
+    (_, tol), shape = cs.check_composite_bwd(dev, 8192, 64, two_buffers=True)
+    args = shape["args"]
+    _close(volume_composite(*args[:5]), volume_composite_plain(*args[:5]), 1e-5, 1e-6)
+    cs.same_bits("K6 bench", lambda: volume_composite(*args[:5]))
+    cs.same_bits("K6 bwd bench", lambda: volume_composite_bwd(*args))
 
 
 def test_k2_level_past_the_backward_shared_memory(dev):

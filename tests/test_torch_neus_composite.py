@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import neus_inputs
+from chip_smoke import COMPOSITE_EDGE_INV_S, neus_edge_inputs, neus_inputs
 from neuralsim_tpu.fields.neus import neus_alpha_from_sdf as jax_alpha
 from neuralsim_tpu.renderers.buffers import volume_integrate as jax_integrate
 from neuralsim_torch.fields.neus import neus_alpha_from_sdf
@@ -71,8 +71,22 @@ def _port_outputs(buf, anneal, sdf, nablas, rgb, ln_inv_s):
             "normals_volume": nrm, "samples_cnt": cnt, "alpha": alpha}
 
 
-def _inputs(buf):
-    return [buf["sdf"], buf["nablas"], buf["rgb"], LN_INV_S]
+def _inputs(buf, ln_inv_s=LN_INV_S):
+    return [buf["sdf"], buf["nablas"], buf["rgb"], ln_inv_s]
+
+
+# the kernels' lane groups and chunks at their edges (rays, samples, cos
+# anneal): one sample, odd widths across a group; a wholly masked row (row
+# 1) and runs of lanes whose alpha is exactly 1 (a clip tie; every third row
+# from row 2), at chip_smoke's inv_s for these inputs
+EDGES = [(4, 1, 0.0), (6, 7, 0.5), (5, 33, 1.0)]
+EDGE_IDS = [f"S {s}" for _, s, _ in EDGES]
+LN_EDGE_INV_S = np.float32(np.log(COMPOSITE_EDGE_INV_S))
+
+
+def _edge_buffer(n, s):
+    keys = ("t", "mask", "sdf", "nablas", "rays_d", "rgb")
+    return dict(zip(keys, neus_edge_inputs(n, s, 1000 * s + n)))
 
 
 @pytest.mark.parametrize("anneal", [0.0, 0.5, 1.0])
@@ -107,6 +121,42 @@ def test_gradients_match_jax(anneal, outs):
         w = np.asarray(w)
         g = np.zeros_like(w) if g is None else g.numpy()
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5 * max(np.abs(w).max(), 1e-12),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("n,s,anneal", EDGES, ids=EDGE_IDS)
+def test_forward_at_edges_matches_jax(n, s, anneal):
+    buf = _edge_buffer(n, s)
+    ins = _inputs(buf, LN_EDGE_INV_S)
+    want = jax.jit(lambda *a: _jax_outputs(buf, anneal, *a))(*map(jnp.asarray, ins))
+    got = _port_outputs(buf, anneal, *[torch.from_numpy(np.asarray(a)) for a in ins])
+    for k in OUTS:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), **FWD, err_msg=k)
+    assert not got["mask_volume"][1] and not got["depth_volume"][1]   # 0 / 1e-8
+    if s > 1:
+        assert int((got["alpha"][2] == 1.0).sum()) >= 3, "the run of alpha == 1 lanes"
+
+
+@pytest.mark.parametrize("n,s,anneal", EDGES, ids=EDGE_IDS)
+def test_gradients_at_edges_match_jax(n, s, anneal):
+    """Every output's cotangent; at the clip ties jnp.clip passes half the
+    gradient, and so does the port."""
+    buf = _edge_buffer(n, s)
+    cot = _cotangents(buf, seed=s)
+    ins = _inputs(buf, LN_EDGE_INV_S)
+
+    def loss(*a):
+        r = _jax_outputs(buf, anneal, *a)
+        return sum(jnp.sum(r[k] * cot[k]) for k in OUTS)
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))(*map(jnp.asarray, ins))
+    leaves = [torch.tensor(np.asarray(a)).requires_grad_(True) for a in ins]
+    r = _port_outputs(buf, anneal, *leaves)
+    got = torch.autograd.grad(sum((r[k] * torch.from_numpy(cot[k])).sum() for k in OUTS),
+                              leaves)
+    for name, g, w in zip(("sdf", "nablas", "rgb", "ln_inv_s"), got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-5 * max(np.abs(w).max(), 1e-12),
                                    err_msg=name)
 
 
