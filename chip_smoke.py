@@ -19,7 +19,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      backward, at COMPOSITE_EDGE_S x COMPOSITE_EDGE_N (1 to 1,100 samples
      across the lane groups' and chunks' edges, 0 to 600 rays; wholly masked
      rows, runs of alpha == 1 lanes, with and without payloads) and with a
-     NaN lane (which stays NaN), each output the same bits on two calls;
+     NaN lane (which stays NaN), each output the same bits on two calls; K3
+     forward at K3_EDGE_ENCODINGS (F 1, 2, 3, 4 and 8, dense and hash levels
+     in one meta, levels staged in shared memory, interleaved into the
+     scratch, and read from the table under a plan with no copies or another
+     meta's) at x01 of 0, 1, one ulp below 1, below 0 and above 1, N 1, 31,
+     33 and 65,537, with and without the jacobian;
   4. render slice: build the full-width synthetic_object renderer with seeded
      weights, render 4 frames of the 96x96 synthetic rig with
      render_chunked(rayschunk=4096), check the images, check that every
@@ -101,9 +106,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      LiDAR and one pixel step; K13 (the latent lookup) against its plain
      version at that step's own calls, with their indices (the vehicles'
      runs of compacted rows, the eikonal's instance 0), and on edge cases
-     (indices outside [0, n), no index, one index a ray, n 1, 8, 48 and 64,
-     z 5, one point): the forward exact, the backward within GRAD_REL at a
-     column-slice cotangent and with the same bits on two calls; K14 (the
+     (indices outside [0, n), no index, int32 and int64 indices a point and
+     a ray, n 1, 8, 48 and 64, z 5, 8 and 12, a cotangent slice that is not
+     16-byte aligned, n 64 at z 256, one point): the forward exact, the
+     backward within GRAD_REL at a column-slice cotangent and with the same
+     bits on two calls, one kernel a call at the step's calls (by the
+     profiler); K14 (the
      stacked CP lines) at the street's, the vehicles', the bench ladder's,
      synthetic_object's and an edge ladder (R 1, 2, 37, 1,024): the forward
      bit-equal, the backward within GRAD_REL at a cotangent in K1 bwd's
@@ -179,8 +187,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      step type apart; rays/s = 6,144 / iteration) with K8 forward and
      backward and K6 forward and backward at its shapes, and K1 bwd (its
      512-point launches too), K3 bwd, K5a and K5b (beside a stable
-     torch.sort) at the iteration's shapes; K1 bwd, K2 bwd, K3 bwd, K4, K5a,
-     K5b, K6, K10, K11 and K12 also queued (the card held busy while the
+     torch.sort) at the iteration's shapes; K1 bwd, K2 bwd, K3, K3 bwd, K4,
+     K5a, K5b, K6, K10, K11, K12 and K13 also queued (the card held busy while the
      host enqueues the calls) and by the profiler (card_ms); the
      same for the crowd (frame, iteration), and the synthetic_multi step; K11 at its three
      calls beside a stable torch.argsort of its keys, K10 at the group's
@@ -712,7 +720,7 @@ def check_kernels(dev, params, n_rays, point_sets, noisy):
     res["lotd_cp_stacked"] = (max(errs1), 1e-5)
     res["lotd_grid"] = (max(errs3), 1e-5)
     shapes["lotd_cp_stacked"] = dict(args=a1, C=C, label=label)
-    shapes["lotd_grid"] = dict(args=a3, C=C)
+    shapes["lotd_grid"] = dict(args=a3, C=C, plan=enc.grid_fwd_plan)
 
     res_s, shapes_s = check_sample_kernels(dev, n_rays, ((64, 256.0), (80, 256.0)), 16, 96, noisy)
     res.update(res_s)
@@ -776,6 +784,91 @@ def check_dense_levels(dev):
                        encode_into(lotd.lotd_grid, a, e.out_dim, n, dev, jac),
                        encode_into(lotd.lotd_grid_plain, a, e.out_dim, n, dev, jac),
                        1e-5, 1e-5) for jac in (False, True))
+
+
+# K3 forward's edge encodings (label, levels, log2 hashmap size): levels of
+# F 1, 2, 3, 4 and 8, dense and hash levels in one meta; levels staged in
+# shared memory (past 48 KB in the second), a hash level past the staging
+# budget and a dense level too large for it (R 40: 1.1 MB) interleaved into
+# the scratch, small hash tables staged
+K3_EDGE_ENCODINGS = (
+    ("dense F 1, 2, 8, 3 staged; hash F 4, dense R 40 interleaved",
+     ((8, 1, "dense"), (13, 2, "dense"), (6, 8, "dense"), (16, 4, "hash"), (5, 3, "dense"),
+      (40, 4, "dense")), 12),
+    ("hash F 8 interleaved; hash F 1, 2 staged (96 KB); dense F 4 past the budget",
+     ((20, 8, "hash"), (30, 1, "hash"), (50, 2, "hash"), (9, 4, "dense")), 13))
+K3_EDGE_N = (1, 31, 33, 65_537)
+K3_EDGE_COUNT = len(K3_EDGE_ENCODINGS) * len(K3_EDGE_N) + 2
+
+
+def k3_edge_points(n, seed):
+    """K3's edge positions first (every combination over the axes of 0, 1,
+    one ulp below 1, -0.25 and 1.5), then uniform ones in [-0.1, 1.1]."""
+    import itertools
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-0.1, 1.1, (max(n, 125), 3)).astype(np.float32)
+    edges = np.array([0.0, 1.0, np.nextafter(np.float32(1), np.float32(0)), -0.25, 1.5],
+                     dtype=np.float32)
+    x[:125] = np.array(list(itertools.product(edges, repeat=3)), dtype=np.float32)
+    return x[:n]
+
+
+def k3_edge_inputs(dev):
+    """K3 forward's edge encodings [(label, table, meta, C)], each of
+    K3_EDGE_ENCODINGS with a table of N(0, 1) values."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    out = []
+    for i, (label, levels, log2) in enumerate(K3_EDGE_ENCODINGS):
+        e = lotd.LoTDEncoding(levels, log2_hashmap_size=log2)
+        out.append((label, torch.from_numpy(np.random.default_rng(400 + i).normal(
+            size=e.total_params).astype(np.float32)).to(dev), e._grid_meta.to(dev), e.out_dim))
+    return out
+
+
+def k3_edge_cases(dev, with_plans=True):
+    """K3 forward's edge cases [(label, table, points, meta, C, plan)]: each
+    encoding of k3_edge_inputs at each of K3_EDGE_N points (plan None: the
+    one the wrapper derives); then, ``with_plans``, at 65,537 points the
+    first with the second's plan (another meta's: levels staged,
+    interleaved and one read from the table) and the second with no copies
+    (every level read from the table)."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    encs, cases = k3_edge_inputs(dev), []
+    for label, table, meta, C in encs:
+        for n in K3_EDGE_N:
+            cases.append((f"{label}, N={n}", table, torch.from_numpy(
+                k3_edge_points(n, 410 + n)).to(dev), meta, C, None))
+    if not with_plans:
+        return cases
+    x = torch.from_numpy(k3_edge_points(65_537, 420)).to(dev)
+    (la, ta, ma, ca), (lb, tb, mb, cb) = encs
+    cases.append((f"{la}, N=65537, the second encoding's plan", ta, x, ma, ca,
+                  lotd.grid_fwd_plan(mb.tolist())))
+    cases.append((f"{lb}, N=65537, no copies (each level from the table)", tb, x, mb, cb,
+                  lotd.GridFwdPlan(0, 0, 0)))
+    assert len(cases) == K3_EDGE_COUNT
+    return cases
+
+
+def check_k3_edges(dev):
+    """K3 forward at k3_edge_cases, with and without the jacobian, within
+    1e-5 of its plain version; the entries that are not bit-equal are
+    counted in the log -> max abs err."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    errs, unequal = [], 0
+    for label, table, x, meta, C, plan in k3_edge_cases(dev):
+        fn = lotd.lotd_grid if plan is None else \
+            (lambda *a, plan=plan: lotd.lotd_grid(*a, plan=plan))
+        for jac in (False, True):
+            got = encode_into(fn, (table, x, meta), C, x.shape[0], dev, jac)
+            want = encode_into(lotd.lotd_grid_plain, (table, x, meta), C, x.shape[0], dev, jac)
+            errs.append(compare(f"K3 edge {label} jac={jac}", got, want, 1e-5, 1e-5))
+            unequal += sum(int((g != w).sum()) for g, w in zip(got, want) if w is not None)
+    log(f"K3 edges: {len(errs)} calls, {unequal} entries not bit-equal to the plain version")
+    return max(errs)
 
 
 def path_point_sets(n_rays, rmax, uniform):
@@ -1374,14 +1467,14 @@ def time_forward_kernels(shapes):
         library_ms=None,
         bound=bound(N * 12 + lines.numel() * 2 + N * F * 16, N * (30 + 29 * F)))
 
-    args = shapes["lotd_grid"]["args"]
+    args, plan = shapes["lotd_grid"]["args"], shapes["lotd_grid"]["plan"]
     meta = args[2]
     L = meta.shape[0]
     cols = int(meta[:, 3].sum())
     seg = int(sum(r[1] * r[3] for r in meta.tolist())) * 4
     out["lotd_grid"] = dict(
         shape=f"N={N} levels={L} (hash 172, 256; F=2) with jacobian, the same samples",
-        ms=cuda_ms(lambda: lotd.lotd_grid(*args, *buf)),
+        **card_ms(lambda: lotd.lotd_grid(*args, *buf, plan=plan)),
         plain_ms=cuda_ms(lambda: lotd.lotd_grid_plain(*args, *buf), reps=5),
         library_ms=None,
         bound=bound(N * 12 + seg + N * cols * 16, N * L * (135 + 67 * 2)))
@@ -1951,7 +2044,7 @@ def check_compose_encodings(dev, params, models):
         what = f"final evaluation of {n_rows} rows x {widths[-1]} samples"
         shapes[f"lotd_cp_stacked/{label}"] = dict(args=a1, C=C, what=what)
         if enc.grid_spec_ids:
-            shapes[f"lotd_grid/{label}"] = dict(args=a3, C=C, what=what)
+            shapes[f"lotd_grid/{label}"] = dict(args=a3, C=C, what=what, plan=enc.grid_fwd_plan)
     torch.cuda.synchronize()
     return {"lotd_cp_stacked": (max(errs1), 1e-5), "lotd_grid": (max(errs3), 1e-5)}, shapes
 
@@ -2482,7 +2575,7 @@ def time_compose_kernels(shapes):
             shape=f"{key.split('/')[1]}: N={N} dense levels "
                   f"{', '.join(str(r[0]) for r in rows)} (F={rows[0][3]}) with jacobian "
                   f"({shapes[key]['what']})",
-            ms=cuda_ms(lambda: lotd.lotd_grid(*a, *buf)),
+            **card_ms(lambda: lotd.lotd_grid(*a, *buf, plan=shapes[key]["plan"])),
             plain_ms=cuda_ms(lambda: lotd.lotd_grid_plain(*a, *buf), reps=5),
             library_ms=None,
             bound=bound(N * 12 + seg + N * cols * 16, N * sum(135 + 67 * r[3] for r in rows))))
@@ -3341,6 +3434,7 @@ def multi_phase(dev, profile_it):
     # ladder
     k13_cases, k13_timed = path_latent_cases(lat_record, "main path")
     e13 = check_latent_take(dev, k13_cases + latent_edge_cases(dev))
+    check_latent_bwd_launches(dev, k13_cases)
     ladders = []
     for label, enc_cfg in (
             ("bench ladder", BENCH_OBJECT["models"]["cr"]["params"]["encoding_cfg"]),
@@ -3756,6 +3850,7 @@ def crowd_phase(dev, profile_it):
         step_launches(scene, trainer, state, samplers, dev)
     latent_cases, latent_timed = path_latent_cases(lat_record, "crowd")
     e13 = check_latent_take(dev, latent_cases)
+    check_latent_bwd_launches(dev, latent_cases)
     errs.update({"latent_take": (e13[0], 0.0), "latent_take.bwd": (e13[1], GRAD_REL)})
     frame = render_multi_frame(r, state.params, scene, 0, COMPOSE_CAM, state.occ, RAYSCHUNK)
     torch.cuda.synchronize()
@@ -4904,35 +4999,52 @@ def path_latent_cases(record, label):
     return cases, timed
 
 
+LATENT_EDGE_COUNT = 14
+
+
 def latent_edge_cases(dev):
-    """K13's edge cases: indices outside [0, n), no index, one index a ray,
-    n 1 and 8, interleaved, the block's shared budget at its edge (n 48)
-    and past it (n 64: device atomics), z 5 (a partial group of lanes), one
-    point."""
+    """K13's edge cases: indices outside [0, n), no index (z 8 and 5), int32
+    and int64 indices a point and a ray, n 1, 8, 48 and 64 (interleaved,
+    runs, shuffled), z 5 (a float a lane), 8 and 12 (three float4 lanes), a
+    cotangent slice at a column that is not 16-byte aligned, n 64 at z 256
+    (past the backward's shared sums: device atomics, two column chunks of
+    lanes), one point."""
     import torch
     rng = np.random.default_rng(61)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    return [
+    cases = [
         ("indices in [-3, 7), n 3, per point", 3, 8, T(rng.integers(-3, 7, 100_003)), 100_003, 8),
         ("no index, 512 points", 3, 8, None, 512, 40),
         ("n 1, one int32 index a ray of 16", 1, 4,
          T(rng.integers(-1, 2, 4097).astype(np.int32)), 4097 * 16, 12),
         ("n 8, round-robin rays of 32", 8, 8, T(np.arange(6144) % 8), 6144 * 32, 40),
         ("n 48, runs of 7 points", 48, 8, T(np.repeat(np.arange(48), 7)), 48 * 7, 8),
-        ("n 64 (device atomics), shuffled", 64, 8, T(rng.integers(0, 64, 50_000)), 50_000, 8),
+        ("n 64, shuffled", 64, 8, T(rng.integers(0, 64, 50_000)), 50_000, 8),
         ("z 5, per point", 3, 5, T(rng.integers(0, 3, 33_333)), 33_333, 5),
-        ("one point", 3, 8, T(np.array([2])), 1, 8)]
+        ("one point", 3, 8, T(np.array([2])), 1, 8),
+        ("z 12, int32 runs of 100 rays of 8", 3, 12,
+         T(np.repeat(np.arange(3), 100).astype(np.int32)), 300 * 8, 12),
+        ("z 8, the cotangent's columns from 5 (not 16-byte aligned), int32 per point", 3, 8,
+         T(rng.integers(0, 3, 20_000).astype(np.int32)), 20_000, 13),
+        ("n 48, int64 runs of 3 rays of 5", 48, 8, T(np.repeat(np.arange(48), 3)), 48 * 15, 8),
+        ("no index, z 5, 1,000 points", 3, 5, None, 1000, 5),
+        ("n 64, z 256 (device atomics)", 64, 256, T(rng.integers(0, 64, 3000)), 3000, 256),
+        ("n 8, z 8, rays of 32 in runs, 1,000 rays", 8, 8,
+         T(np.repeat(rng.integers(0, 8, 100), 10)), 1000 * 32, 40)]
+    assert len(cases) == LATENT_EDGE_COUNT
+    return cases
 
 
 def check_latent_take(dev, cases):
     """K13 against its plain version on ``cases`` [(label, n, z, idx, points,
     ld)]: the forward exact; the backward within GRAD_REL, its cotangent a
-    column slice of a [points, ld] gradient, with the same bits on two calls
-    (where n x 256 floats fit the block's 48 KB) -> (forward err, backward
-    err)."""
+    column slice of a [points, ld] gradient (its last z columns), with the
+    same bits on two calls (where n x z <= BWD_ORDERED_MAX_NZ, the sums kept
+    in shared memory) -> (forward err, backward err)."""
     import torch
-    from neuralsim_torch.ops.latent_take import (latent_take, latent_take_bwd,
-                                                 latent_take_bwd_plain, latent_take_plain)
+    from neuralsim_torch.ops.latent_take import (BWD_ORDERED_MAX_NZ, latent_take,
+                                                 latent_take_bwd, latent_take_bwd_plain,
+                                                 latent_take_plain)
     ef = eb = 0.0
     for i, (label, n, z, idx, P, ld) in enumerate(cases):
         lat = cotangents((n, z), 70 + i, dev)
@@ -4940,12 +5052,51 @@ def check_latent_take(dev, cases):
                              [latent_take_plain(lat, idx, P)], 0.0, 0.0, exact=True))
         g = cotangents((P, ld), 80 + i, dev)[:, ld - z:]
         got = latent_take_bwd(g, idx, n)
-        if n * 256 * 4 <= 48 * 1024 and not torch.equal(got, latent_take_bwd(g, idx, n)):
+        if n * z <= BWD_ORDERED_MAX_NZ and not torch.equal(got, latent_take_bwd(g, idx, n)):
             raise AssertionError(f"K13 bwd {label}: two calls gave other bits")
         eb = max(eb, compare_rel(f"K13 bwd {label}", [got],
                                  [latent_take_bwd_plain(g, idx, n)], GRAD_REL))
     torch.cuda.synchronize()
     return ef, eb
+
+
+def device_kernels(fn, reps: int = 20):
+    """The device kernels (memsets included) that ``reps`` calls of fn
+    launch, by name, by the profiler, after a warm-up; a session that records
+    no kernel is run again (as in prof_ms), twice at most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def check_latent_bwd_launches(dev, cases):
+    """K13's backward is one kernel a call (no memset, no second kernel) at
+    each of ``cases`` whose n x z <= BWD_ORDERED_MAX_NZ, by the profiler
+    over 20 calls."""
+    from neuralsim_torch.ops.latent_take import BWD_ORDERED_MAX_NZ, latent_take_bwd
+    for label, n, z, idx, P, ld in cases:
+        if n * z > BWD_ORDERED_MAX_NZ:
+            continue
+        g = cotangents((P, ld), 5, dev)[:, ld - z:]
+        # the profiler in a long process can drop some of a session's
+        # records, so: no other kernel, and no more than one a call
+        names = device_kernels(lambda: latent_take_bwd(g, idx, n), reps=20)
+        if not names or len(names) > 20 or \
+                any("latent_take_bwd_kernel" not in k for k in names):
+            raise AssertionError(f"K13 bwd {label}: 20 calls launched {sorted(set(names))} "
+                                 f"({len(names)} kernels)")
+    log(f"K13 bwd: one kernel a call at {len(cases)} cases")
 
 
 # K14's edge ladders: (label, R_max, (R, F) levels, floats before the first
@@ -5143,7 +5294,8 @@ def main(argv) -> int:
         dev, params, TRAIN_RAYS, path_point_sets(TRAIN_RAYS, rmax, uniform=True), noisy=True)
     for name, (e, tol) in errs_render.items():
         errs[name] = (max(e, errs[name][0]), tol)
-    errs["lotd_grid"] = (max(errs["lotd_grid"][0], check_dense_levels(dev)), 1e-5)
+    errs["lotd_grid"] = (max(errs["lotd_grid"][0], check_dense_levels(dev), check_k3_edges(dev)),
+                         1e-5)
     errs_bwd, shapes_bwd = check_backward_kernels(dev, params)
     errs.update(errs_bwd)
     errs.update(check_k4_edges(dev))

@@ -18,12 +18,31 @@
 // level goes to row (out row + f) of the encoding's feature-major output
 // out [C, N] (and jac [3, C, N]), which the stacked-CP kernel fills too.
 //
-// What bounds it on an H100: memory latency of the random row reads. Per
-// point and level it reads 8 corners x F floats scattered over the level
-// (hash levels are 256 KB each at F=2, 2^15 rows, so they live in L2), and
-// writes 4 (+12) bytes per feature, to neighbouring addresses across a warp.
-// One thread per point walks the levels; the per-level metadata is a tiny
-// int32 table read through the read-only cache.
+// What bounds it on an H100: the writes (4 bytes a feature, 16 with the
+// jacobian: 8.2 us for the vehicles' 196,608 points with it) and, on hash
+// levels, the gathers: 8 corners a point and level scattered over a table in
+// L2 (synthetic_object's two hash levels are 256 KB each, F 2).
+// The forward's design:
+//  * each level is read as a [size, F] copy, so a corner's F features take
+//    one load (8 bytes at F 2; the wide kernel's 16 at F 4, two at F 8; a
+//    float a feature at any other F). The launch names levels to stage
+//    (stage_mask, n_shared floats): those that fit n_shared, in level order,
+//    are copied into each block's dynamic shared memory at its start (past
+//    48 KB as opt-in; the vehicles' two dense levels, 55.6 KB), with a
+//    persistent grid; the other levels are interleaved into the `inter`
+//    scratch (n_inter floats; synthetic_object's hash levels, 256 KB each),
+//    which a first kernel of the same call fills unless the caller's copy
+//    of this table version is given, and read through L1; a level that fits
+//    neither is read from the table in its own layout, a float at a time. So
+//    a plan that does not match the meta costs speed, never correctness;
+//  * the levels are walked one after another by the whole grid (a thread a
+//    point), so a hash level's copy competes alone for L1; within a point's
+//    level the 8 corners' loads are issued together;
+//  * F 1, 2 (4 and 8 in the wide kernel) and the jacobian are template
+//    parameters; a launch of F <= 2 only takes the narrow kernel, whose 64
+//    registers hold 4 blocks a SM, for the latency of the hash gathers
+//    (FwdShape); the sums are the parent kernel's, operation by operation
+//    (corner order, _rn), so the outputs keep its bits.
 // Sums use explicit _rn operations so no FMA changes the JAX rounding.
 //
 // Backward (lotd_grid_bwd), the gradient of both outputs into the table: the
@@ -62,90 +81,323 @@ constexpr int D = 3;
 constexpr int META = 6;  // res, size, offset, F, is_hash, out row
 __constant__ uint32_t kPrimes[D] = {1u, 2654435761u, 805459861u};
 
-__global__ void grid_kernel(const float* __restrict__ table,
-                            const float* __restrict__ pos01,  // [N, 3]
-                            const int* __restrict__ meta,     // [L, 6]
-                            float* __restrict__ out,          // [C, N]
-                            float* __restrict__ jac,          // [3, C, N] or null
-                            int N, int C, int L) {
+// A launch whose levels all have F <= 2 takes the narrow kernel: a corner's
+// features 2 at a time (kGroup), blocks of 256 threads with registers for 4
+// blocks a SM (3 with the jacobian, where 64 registers spilled), 2 a SM where
+// levels are staged; any other launch the wide kernel: 4 at a time, blocks
+// of 512 with up to 128 registers, 1 a SM where levels are staged (each
+// block stages them all). Where nothing is staged, up to 2,048 threads a SM.
+template <bool WIDE, bool JAC>
+struct FwdShape {
+  static constexpr int kGroup = WIDE ? 4 : 2;
+  static constexpr int kThreads = WIDE ? 512 : 256;
+  static constexpr int kMinBlocks = WIDE ? 1 : (JAC ? 3 : 4);
+  static constexpr int kStagedBlocks = WIDE ? 1 : 2;
+};
+
+__host__ __device__ __forceinline__ int align4(int n) { return (n + 3) & ~3; }
+
+// Where the forward reads level l: its [size, F] copy in the block's shared
+// memory (1) or in the scratch (2) at *off, or the table in its own layout
+// (0). Every thread walks the meta in the same order, so all agree.
+struct Place {
+  int soff = 0, ioff = 0;  // floats taken so far in each
+  __device__ __forceinline__ int next(unsigned mask, int l, int seg, int n_shared, int n_inter,
+                                      int* off) {
+    seg = align4(seg);
+    if (l < 31 && ((mask >> l) & 1u) && soff + seg <= n_shared) {
+      *off = soff;
+      soff += seg;
+      return 1;
+    }
+    if (ioff + seg <= n_inter) {
+      *off = ioff;
+      ioff += seg;
+      return 2;
+    }
+    return 0;
+  }
+};
+
+// A level's [F, size] segment into [size, F] rows at dst: a thread a row.
+__device__ __forceinline__ void interleave(const float* __restrict__ seg, float* dst, int size,
+                                           int nf, int first, int stride) {
+  for (int r = first; r < size; r += stride)
+    for (int f = 0; f < nf; ++f) dst[(size_t)r * nf + f] = __ldg(seg + (size_t)f * size + r);
+}
+
+__global__ void grid_interleave_kernel(const float* __restrict__ table,
+                                       const int* __restrict__ meta, float* __restrict__ inter,
+                                       int L, unsigned stage_mask, int n_shared, int n_inter) {
+  Place place;
+  for (int l = 0; l < L; ++l) {
+    const int size = __ldg(meta + l * META + 1), nf = __ldg(meta + l * META + 3);
+    int off;
+    if (place.next(stage_mask, l, nf * size, n_shared, n_inter, &off) == 2)
+      interleave(table + __ldg(meta + l * META + 2), inter + off, size, nf,
+                 blockIdx.x * blockDim.x + threadIdx.x, gridDim.x * blockDim.x);
+  }
+}
+
+// A point's cell, fractions and its 8 corners' rows on one level.
+struct Cell {
+  int cell[D];
+  float frac[D], om[D];  // om = 1 - frac, rounded as the parent kernel rounds it
+};
+
+__device__ __forceinline__ Cell cell_of(const float (&x)[D], int res) {
+  Cell c;
+  const float fres = (float)res;
+#pragma unroll
+  for (int ax = 0; ax < D; ++ax) {
+    const float pos = __fmul_rn(x[ax], fres);
+    const float cf = fminf(floorf(pos), (float)(res - 1));
+    c.cell[ax] = (int)cf;
+    c.frac[ax] = __fsub_rn(pos, cf);
+    c.om[ax] = __fsub_rn(1.f, c.frac[ax]);
+  }
+  return c;
+}
+
+__device__ __forceinline__ int corner_row(const Cell& c, int corner, int res, int size,
+                                          int is_hash) {
+  int ci[D];
+#pragma unroll
+  for (int ax = 0; ax < D; ++ax) ci[ax] = c.cell[ax] + ((corner >> ax) & 1);
+  int row;
+  if (is_hash) {
+    uint32_t h = (uint32_t)ci[0] * kPrimes[0];
+    h ^= (uint32_t)ci[1] * kPrimes[1];
+    h ^= (uint32_t)ci[2] * kPrimes[2];
+    row = (int)(h % (uint32_t)size);
+  } else {
+    row = ci[0] + ci[1] * (res + 1) + ci[2] * (res + 1) * (res + 1);
+  }
+  return min(max(row, 0), size - 1);
+}
+
+// A corner's weight and its three derivative factors, as the parent forms them.
+__device__ __forceinline__ void corner_weights(const Cell& c, int corner, float& w,
+                                               float (&dw)[D]) {
+  float aw[D];
+#pragma unroll
+  for (int ax = 0; ax < D; ++ax) aw[ax] = ((corner >> ax) & 1) ? c.frac[ax] : c.om[ax];
+  w = __fmul_rn(__fmul_rn(aw[0], aw[1]), aw[2]);
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    float v = ((corner >> i) & 1) ? 1.f : -1.f;
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      if (j != i) v = __fmul_rn(v, aw[j]);
+    dw[i] = v;
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void load_corner(float (&v)[G], const float* p) {
+  if constexpr (G == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else if constexpr (G == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+// The output rows of features f0 .. f0 + G - 1 of a level at column col.
+template <int G, bool JAC>
+__device__ __forceinline__ void store(const float (&acc)[G], const float (&j)[D][G], float fres,
+                                      float* out, float* jac, size_t o, size_t N,
+                                      size_t plane) {
+#pragma unroll
+  for (int f = 0; f < G; ++f) {
+    out[o + f * N] = acc[f];
+    if constexpr (JAC) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) jac[i * plane + o + f * N] = __fmul_rn(j[i][f], fres);
+    }
+  }
+}
+
+// One level of F features (1, 2, 4 or 8; in groups of G <= GMAX) over the
+// grid's points, read from a [size, F] copy at src (shared or global).
+template <int F, int GMAX, bool JAC>
+__device__ __forceinline__ void walk_level(const float* src, const float* __restrict__ pos01,
+                                           int res, int size, int is_hash, int col,
+                                           float* __restrict__ out, float* __restrict__ jac,
+                                           int N, int C) {
+  constexpr int G = F > GMAX ? GMAX : F;
   const size_t plane = (size_t)C * N;
-  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N;
-       n += gridDim.x * blockDim.x) {
+  const float fres = (float)res;
+  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N; n += gridDim.x * blockDim.x) {
     float x[D];
 #pragma unroll
     for (int ax = 0; ax < D; ++ax)
-      x[ax] = fminf(fmaxf(pos01[(size_t)n * D + ax], 0.f), 1.f);
-    for (int l = 0; l < L; ++l) {
-      const int res = meta[l * META + 0];
-      const int size = meta[l * META + 1];
-      const int offset = meta[l * META + 2];
-      const int nf = meta[l * META + 3];
-      const int is_hash = meta[l * META + 4];
-      const int col = meta[l * META + 5];
-      const float fres = (float)res;
-      int cell[D];
-      float frac[D];
+      x[ax] = fminf(fmaxf(__ldg(pos01 + (size_t)n * D + ax), 0.f), 1.f);
+    const Cell c = cell_of(x, res);
+    int rows[8];
 #pragma unroll
-      for (int ax = 0; ax < D; ++ax) {
-        float pos = __fmul_rn(x[ax], fres);
-        float c = fminf(floorf(pos), (float)(res - 1));
-        cell[ax] = (int)c;
-        frac[ax] = __fsub_rn(pos, c);
-      }
-      int rows[8];
-      float w[8], dw[8][D];
+    for (int corner = 0; corner < 8; ++corner)
+      rows[corner] = corner_row(c, corner, res, size, is_hash);
+#pragma unroll
+    for (int g = 0; g < F; g += G) {
+      float v[8][G];
+#pragma unroll
+      for (int corner = 0; corner < 8; ++corner)  // every load first
+        load_corner<G>(v[corner], src + (size_t)rows[corner] * F + g);
+      float acc[G], j[D][G];
+#pragma unroll
+      for (int f = 0; f < G; ++f) acc[f] = j[0][f] = j[1][f] = j[2][f] = 0.f;
 #pragma unroll
       for (int corner = 0; corner < 8; ++corner) {
-        float aw[D];
-        int ci[D];
+        float w, dw[D];
+        corner_weights(c, corner, w, dw);
 #pragma unroll
-        for (int ax = 0; ax < D; ++ax) {
-          int b = (corner >> ax) & 1;
-          aw[ax] = b ? frac[ax] : __fsub_rn(1.f, frac[ax]);
-          ci[ax] = cell[ax] + b;
-        }
-        w[corner] = __fmul_rn(__fmul_rn(aw[0], aw[1]), aw[2]);
+        for (int f = 0; f < G; ++f) {
+          acc[f] = __fadd_rn(acc[f], __fmul_rn(w, v[corner][f]));
+          if constexpr (JAC) {
 #pragma unroll
-        for (int i = 0; i < D; ++i) {
-          float s = ((corner >> i) & 1) ? 1.f : -1.f;
-          float v = s;
-#pragma unroll
-          for (int j = 0; j < D; ++j)
-            if (j != i) v = __fmul_rn(v, aw[j]);
-          dw[corner][i] = v;
-        }
-        int row;
-        if (is_hash) {
-          uint32_t h = (uint32_t)ci[0] * kPrimes[0];
-          h ^= (uint32_t)ci[1] * kPrimes[1];
-          h ^= (uint32_t)ci[2] * kPrimes[2];
-          row = (int)(h % (uint32_t)size);
-        } else {
-          row = ci[0] + ci[1] * (res + 1) + ci[2] * (res + 1) * (res + 1);
-        }
-        rows[corner] = min(max(row, 0), size - 1);
-      }
-      for (int f = 0; f < nf; ++f) {
-        const float* tf = table + offset + (size_t)f * size;
-        float acc = 0.f, j0 = 0.f, j1 = 0.f, j2 = 0.f;
-#pragma unroll
-        for (int corner = 0; corner < 8; ++corner) {
-          float v = __ldg(tf + rows[corner]);
-          acc = __fadd_rn(acc, __fmul_rn(w[corner], v));
-          j0 = __fadd_rn(j0, __fmul_rn(dw[corner][0], v));
-          j1 = __fadd_rn(j1, __fmul_rn(dw[corner][1], v));
-          j2 = __fadd_rn(j2, __fmul_rn(dw[corner][2], v));
-        }
-        const size_t o = (size_t)(col + f) * N + n;
-        out[o] = acc;
-        if (jac != nullptr) {
-          jac[o] = __fmul_rn(j0, fres);
-          jac[plane + o] = __fmul_rn(j1, fres);
-          jac[2 * plane + o] = __fmul_rn(j2, fres);
+            for (int i = 0; i < D; ++i) j[i][f] = __fadd_rn(j[i][f], __fmul_rn(dw[i], v[corner][f]));
+          }
         }
       }
+      store<G, JAC>(acc, j, fres, out, jac, (size_t)(col + g) * N + n, N, plane);
     }
   }
+}
+
+// Any F, a float at a time: feature f of row r at src[r * rs + f * fs] (a
+// [size, F] copy: rs F, fs 1; the table's own [F, size]: rs 1, fs size).
+template <bool JAC>
+__device__ __forceinline__ void walk_level_any(const float* src, size_t rs, size_t fs,
+                                               const float* __restrict__ pos01, int res,
+                                               int size, int nf, int is_hash, int col,
+                                               float* __restrict__ out, float* __restrict__ jac,
+                                               int N, int C) {
+  const size_t plane = (size_t)C * N;
+  const float fres = (float)res;
+  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N; n += gridDim.x * blockDim.x) {
+    float x[D];
+#pragma unroll
+    for (int ax = 0; ax < D; ++ax)
+      x[ax] = fminf(fmaxf(__ldg(pos01 + (size_t)n * D + ax), 0.f), 1.f);
+    const Cell c = cell_of(x, res);
+    int rows[8];
+#pragma unroll
+    for (int corner = 0; corner < 8; ++corner)
+      rows[corner] = corner_row(c, corner, res, size, is_hash);
+    for (int f = 0; f < nf; ++f) {
+      float v[8];
+#pragma unroll
+      for (int corner = 0; corner < 8; ++corner) v[corner] = src[rows[corner] * rs + f * fs];
+      float acc[1] = {0.f}, j[D][1] = {{0.f}, {0.f}, {0.f}};
+#pragma unroll
+      for (int corner = 0; corner < 8; ++corner) {
+        float w, dw[D];
+        corner_weights(c, corner, w, dw);
+        acc[0] = __fadd_rn(acc[0], __fmul_rn(w, v[corner]));
+        if constexpr (JAC) {
+#pragma unroll
+          for (int i = 0; i < D; ++i) j[i][0] = __fadd_rn(j[i][0], __fmul_rn(dw[i], v[corner]));
+        }
+      }
+      store<1, JAC>(acc, j, fres, out, jac, (size_t)(col + f) * N + n, N, plane);
+    }
+  }
+}
+
+// A level's [size, F] copy: F 1 and 2 (and, in the wide kernel, 4 and 8)
+// templated, any other F a float at a time.
+template <bool JAC, bool WIDE>
+__device__ __forceinline__ void walk_copy(const float* src, const float* __restrict__ pos01,
+                                          int res, int size, int nf, int is_hash, int col,
+                                          float* __restrict__ out, float* __restrict__ jac,
+                                          int N, int C) {
+  constexpr int GM = FwdShape<WIDE, JAC>::kGroup;
+  if (nf == 1) return walk_level<1, GM, JAC>(src, pos01, res, size, is_hash, col, out, jac, N, C);
+  if (nf == 2) return walk_level<2, GM, JAC>(src, pos01, res, size, is_hash, col, out, jac, N, C);
+  if constexpr (WIDE) {
+    if (nf == 4)
+      return walk_level<4, GM, JAC>(src, pos01, res, size, is_hash, col, out, jac, N, C);
+    if (nf == 8)
+      return walk_level<8, GM, JAC>(src, pos01, res, size, is_hash, col, out, jac, N, C);
+  }
+  walk_level_any<JAC>(src, nf, 1, pos01, res, size, nf, is_hash, col, out, jac, N, C);
+}
+
+template <bool JAC, bool WIDE>
+__global__ void __launch_bounds__(FwdShape<WIDE, JAC>::kThreads,
+                                  FwdShape<WIDE, JAC>::kMinBlocks)
+grid_kernel(const float* __restrict__ table,
+            const float* __restrict__ pos01,  // [N, 3]
+            const int* __restrict__ meta,     // [L, 6]
+            const float* __restrict__ inter,  // the interleaved levels, or null
+            float* __restrict__ out,          // [C, N]
+            float* __restrict__ jac,          // [3, C, N] or null
+            int N, int C, int L, unsigned stage_mask, int n_shared, int n_inter) {
+  extern __shared__ float4 staged4[];
+  float* staged = reinterpret_cast<float*>(staged4);
+  if (n_shared > 0) {  // the same in every block
+    Place place;
+    for (int l = 0; l < L; ++l) {
+      const int size = __ldg(meta + l * META + 1), nf = __ldg(meta + l * META + 3);
+      int off;
+      if (place.next(stage_mask, l, nf * size, n_shared, n_inter, &off) == 1)
+        interleave(table + __ldg(meta + l * META + 2), staged + off, size, nf, threadIdx.x,
+                   blockDim.x);
+    }
+    __syncthreads();
+  }
+  Place place;
+  for (int l = 0; l < L; ++l) {
+    const int res = __ldg(meta + l * META + 0);
+    const int size = __ldg(meta + l * META + 1);
+    const int offset = __ldg(meta + l * META + 2);
+    const int nf = __ldg(meta + l * META + 3);
+    const int is_hash = __ldg(meta + l * META + 4);
+    const int col = __ldg(meta + l * META + 5);
+    int off;
+    const int where = place.next(stage_mask, l, nf * size, n_shared, n_inter, &off);
+    if (where == 1)
+      walk_copy<JAC, WIDE>(staged + off, pos01, res, size, nf, is_hash, col, out, jac, N, C);
+    else if (where == 2)
+      walk_copy<JAC, WIDE>(inter + off, pos01, res, size, nf, is_hash, col, out, jac, N, C);
+    else
+      walk_level_any<JAC>(table + offset, 1, size, pos01, res, size, nf, is_hash, col, out,
+                          jac, N, C);
+  }
+}
+
+struct GridArgs {
+  const float* table;
+  const float* pos01;
+  const int* meta;
+  const float* inter;
+  float* out;
+  float* jac;
+  int N, C, L;
+  unsigned stage_mask;
+  int n_shared, n_inter;
+};
+
+template <bool JAC, bool WIDE>
+cudaError_t launch_grid(const GridArgs& a, size_t smem, int sms, cudaStream_t stream) {
+  using Sh = FwdShape<WIDE, JAC>;
+  const int cap = sms * (smem > 0 ? Sh::kStagedBlocks : 2048 / Sh::kThreads);
+  int blocks = (a.N + Sh::kThreads - 1) / Sh::kThreads;
+  blocks = blocks < 1 ? 1 : (blocks > cap ? cap : blocks);
+  cudaError_t e;
+  if (smem > 48 * 1024 &&
+      (e = cudaFuncSetAttribute(grid_kernel<JAC, WIDE>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+          cudaSuccess)
+    return e;
+  grid_kernel<JAC, WIDE><<<blocks, Sh::kThreads, smem, stream>>>(
+      a.table, a.pos01, a.meta, a.inter, a.out, a.jac, a.N, a.C, a.L, a.stage_mask, a.n_shared,
+      a.n_inter);
+  return cudaGetLastError();
 }
 
 constexpr int kBwdThreads = 256;         // a block of the atomics-only grid
@@ -291,15 +543,47 @@ __global__ void grid_bwd_flush_kernel(const float* __restrict__ scratch,
 
 }  // namespace
 
+// stage_mask: bit l set where level l may be staged in shared memory (l <
+// 31); n_shared: the floats a block stages (those levels' F x size each,
+// rounded up to 4, in level order, while they fit); inter: n_inter floats
+// into which the other levels are interleaved the same way, while they fit
+// (null if n_inter is 0), by a first kernel where fill_inter (else the
+// caller's copy of the same table is used as it is); a level that fits
+// neither is read from the table. max_f: the widest level's F (the narrow
+// kernel where it is at most 2; a wider level there is read a float at a
+// time, so a wrong max_f costs speed only).
+// The grid: a thread a point, in blocks of FwdShape's threads, persistent
+// where n_shared > 0 (FwdShape's staged blocks a SM).
 extern "C" int lotd_grid_fwd(const void* table, const void* pos01, const void* meta,
-                             void* out, void* jac, int N, int C, int L, void* stream) {
-  const int threads = 256;
-  int blocks = (N + threads - 1) / threads;
-  blocks = blocks < 1 ? 1 : (blocks > 132 * 16 ? 132 * 16 : blocks);
-  grid_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)table, (const float*)pos01, (const int*)meta, (float*)out,
-      (float*)jac, N, C, L);
-  return (int)cudaGetLastError();
+                             void* out, void* jac, void* inter, int fill_inter, int N, int C,
+                             int L, int stage_mask, int n_shared, int n_inter, int max_f,
+                             void* stream) {
+  if (n_shared < 0 || n_inter < 0 || (n_inter > 0 && inter == nullptr) || N < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
+  int dev = 0, sms = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const GridArgs a{(const float*)table, (const float*)pos01, (const int*)meta,
+                   (const float*)inter, (float*)out, (float*)jac, N, C, L,
+                   (unsigned)stage_mask, n_shared, n_inter};
+  if (n_inter > 0 && fill_inter) {
+    int blocks = (n_inter + 4 * 256 - 1) / (4 * 256);
+    blocks = blocks > 16 * sms ? 16 * sms : blocks;
+    grid_interleave_kernel<<<blocks, 256, 0, s>>>((const float*)table, (const int*)meta,
+                                                   (float*)inter, L, (unsigned)stage_mask,
+                                                   n_shared, n_inter);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  const size_t smem = (size_t)n_shared * sizeof(float);
+  const bool wide = max_f > 2;
+  return (int)(jac != nullptr
+                   ? (wide ? launch_grid<true, true>(a, smem, sms, s)
+                           : launch_grid<true, false>(a, smem, sms, s))
+                   : (wide ? launch_grid<false, true>(a, smem, sms, s)
+                           : launch_grid<false, false>(a, smem, sms, s)));
 }
 
 // private_mask: bit l set where level l is summed in shared memory (l < 31);

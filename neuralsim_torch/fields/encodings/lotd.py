@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import math
 import os
+import weakref
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -381,9 +382,17 @@ def lotd_grid_plain(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor
     [3, C, N], their derivatives. The hash runs in int64 masked to 32 bits
     after each multiply (JAX's uint32 wrap-around).
     """
+    _grid_levels_plain(lambda res, size, offset, nf: table[offset:offset + nf * size]
+                       .view(nf, size), pos01, meta.tolist(), out, jac)
+
+
+def _grid_levels_plain(segment, pos01: torch.Tensor, meta_rows: Sequence[Sequence[int]],
+                       out: torch.Tensor, jac: Optional[torch.Tensor]) -> None:
+    """K3's arithmetic, each level's features gathered from ``segment(res,
+    size, offset, F)``, a [F, size] view of its rows."""
     x = pos01.clamp(0.0, 1.0).T                                  # [3, N]
-    for res, size, offset, nf, is_hash, row in meta.tolist():
-        tbl = table[offset:offset + nf * size].view(nf, size)
+    for res, size, offset, nf, is_hash, row in meta_rows:
+        tbl = segment(res, size, offset, nf)
         pos = x * res
         cellf = torch.clamp(torch.floor(pos), max=res - 1)
         frac = pos - cellf
@@ -410,10 +419,138 @@ def lotd_grid_plain(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor
             jac[:, row:row + nf] = torch.stack(jl, dim=0) * res
 
 
+# K3's forward stages the levels that fit this budget together in each
+# block's shared memory, each as a [size, F] copy (csrc/lotd_grid.cu); the
+# others are interleaved into a scratch that the launch fills first.
+GRID_FWD_SMEM_BUDGET = 96 * 1024
+
+
+class GridFwdPlan(NamedTuple):
+    """Where K3's forward reads each level: bit l of ``stage_mask`` names row
+    l of the meta for a block's shared copy of ``n_shared`` floats; the other
+    levels go to the ``n_inter`` floats of the interleaved scratch. Each
+    level takes F x size floats rounded up to 4, in level order, where it
+    fits (:func:`grid_fwd_places`, the walk the kernel makes)."""
+    stage_mask: int
+    n_shared: int
+    n_inter: int
+    max_f: int = 8  # the widest level's F: the kernel's narrow form where <= 2
+
+
+def _align4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def grid_fwd_plan(meta_rows: Sequence[Sequence[int]]) -> GridFwdPlan:
+    """Split K3's levels, rows of (res, size, offset, F, is_hash, out row),
+    into staged ones, taken in level order while their copies fit
+    GRID_FWD_SMEM_BUDGET together (dense levels, and hash levels of a small
+    table), and interleaved ones (the others)."""
+    mask, staged, inter = 0, 0, 0
+    for l, (_, size, _, nf, _, _) in enumerate(meta_rows):
+        seg = _align4(nf * size)
+        if l < 31 and (staged + seg) * 4 <= GRID_FWD_SMEM_BUDGET:
+            mask |= 1 << l
+            staged += seg
+        else:
+            inter += seg
+    return GridFwdPlan(mask, staged, inter, max((r[3] for r in meta_rows), default=1))
+
+
+def grid_fwd_places(meta_rows: Sequence[Sequence[int]], plan: GridFwdPlan
+                    ) -> List[Tuple[str, int]]:
+    """Where K3's forward reads each level under ``plan``, as the kernel walks
+    the meta: ("shared", offset) in a block's staged copy, ("scratch",
+    offset) in the interleaved scratch, or ("table", offset) straight from
+    the table (a level that fits neither)."""
+    places, staged, inter = [], 0, 0
+    for l, (_, size, offset, nf, _, _) in enumerate(meta_rows):
+        seg = _align4(nf * size)
+        if l < 31 and (plan.stage_mask >> l) & 1 and staged + seg <= plan.n_shared:
+            places.append(("shared", staged))
+            staged += seg
+        elif inter + seg <= plan.n_inter:
+            places.append(("scratch", inter))
+            inter += seg
+        else:
+            places.append(("table", offset))
+    return places
+
+
+def grid_interleave_plain(table: torch.Tensor, meta_rows: Sequence[Sequence[int]],
+                          plan: GridFwdPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's two copies as the kernel fills them: each staged level's [F, size]
+    segment as [size, F] rows at its place in a block's shared copy
+    [n_shared], each interleaved one in the scratch [n_inter] (padding
+    zeros)."""
+    copies = {"shared": table.new_zeros(plan.n_shared), "scratch": table.new_zeros(plan.n_inter)}
+    for (_, size, offset, nf, _, _), (where, off) in zip(meta_rows,
+                                                         grid_fwd_places(meta_rows, plan)):
+        if where != "table":
+            copies[where][off:off + nf * size] = \
+                table[offset:offset + nf * size].view(nf, size).T.reshape(-1)
+    return copies["shared"], copies["scratch"]
+
+
+def lotd_grid_layout_plain(table: torch.Tensor, pos01: torch.Tensor,
+                           meta_rows: Sequence[Sequence[int]], plan: GridFwdPlan,
+                           out: torch.Tensor, jac: Optional[torch.Tensor] = None) -> None:
+    """K3's forward read as the kernel reads it under ``plan``: each level's
+    rows from its [size, F] copy (:func:`grid_interleave_plain`) or from the
+    table, with the plain version's arithmetic."""
+    copies = dict(zip(("shared", "scratch"), grid_interleave_plain(table, meta_rows, plan)))
+    places = iter(grid_fwd_places(meta_rows, plan))
+
+    def segment(res, size, offset, nf):
+        where, off = next(places)
+        if where == "table":
+            return table[off:off + nf * size].view(nf, size)
+        return copies[where][off:off + nf * size].view(size, nf).T
+
+    _grid_levels_plain(segment, pos01, meta_rows, out, jac)
+
+
+class GridScratch:
+    """K3 forward's interleaved scratch, kept across calls on one table: the
+    launch fills it again only where the table's storage or version has
+    changed since the last fill (``_version`` moves with every in-place
+    write: ModelAdam's ``copy_``, a checkpoint load; a write through
+    ``.data`` is not seen)."""
+
+    def __init__(self):
+        self.buf: Optional[torch.Tensor] = None
+        self.key: Optional[Tuple[Any, ...]] = None
+
+    @staticmethod
+    def _key(table: torch.Tensor) -> Tuple[Any, ...]:
+        return (weakref.ref(table), table.device, table.data_ptr(), table._version)
+
+    def take(self, table: torch.Tensor, n: int) -> Tuple[torch.Tensor, bool]:
+        """The scratch of ``n`` floats for ``table``, and whether it must be
+        filled from it."""
+        if self.buf is None or self.buf.numel() != n or self.buf.device != table.device:
+            self.buf = torch.empty(n, dtype=torch.float32, device=table.device)
+            self.key = None
+        key = self._key(table)
+        return self.buf, self.key is None or self.key[0]() is not table or self.key[1:] != key[1:]
+
+    def filled(self, table: torch.Tensor) -> None:
+        self.key = self._key(table)
+
+
 def lotd_grid(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor,
-              out: torch.Tensor, jac: Optional[torch.Tensor] = None) -> None:
+              out: torch.Tensor, jac: Optional[torch.Tensor] = None,
+              plan: Optional[GridFwdPlan] = None,
+              scratch: Optional[GridScratch] = None) -> None:
     """K3 wrapper: the plain version on the CPU, the CUDA kernel on the card.
-    ``meta`` must describe levels inside ``table`` and rows inside ``out``."""
+    ``meta`` must describe levels inside ``table`` and rows inside ``out``.
+    ``plan``: the levels to stage in shared memory and the scratch's size,
+    used as given; without it, ``grid_fwd_plan(meta)`` (the meta read back
+    to the host). A plan made from another meta costs speed, not
+    correctness: the kernel reads a level that fits neither copy from the
+    table. ``scratch``: the interleaved copy kept from an earlier call on
+    this table and meta (filled again where the table changed); without it
+    every call fills a fresh one."""
     if table.device.type == "cpu":
         return lotd_grid_plain(table, pos01, meta, out, jac)
     kernels.check_cuda("lotd_grid", table, pos01, meta, out, *([] if jac is None else [jac]))
@@ -422,9 +559,22 @@ def lotd_grid(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor,
     if meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[1] != 6:
         raise ValueError("lotd_grid: meta must be int32 [L, 6]")
     _check_outputs("lotd_grid", pos01, out, jac)
+    if plan is None:
+        plan = grid_fwd_plan(meta.tolist())
+    if plan.stage_mask >> meta.shape[0] or plan.n_shared * 4 > GRID_FWD_SMEM_BUDGET:
+        raise ValueError("lotd_grid: the plan names a level past the meta or stages past "
+                         "GRID_FWD_SMEM_BUDGET")
+    inter, fill = None, False
+    if plan.n_inter and scratch is not None:
+        inter, fill = scratch.take(table, plan.n_inter)
+    elif plan.n_inter:
+        inter, fill = torch.empty(plan.n_inter, dtype=torch.float32, device=table.device), True
     K3.launch("lotd_grid_fwd", kernels.ptr(table), kernels.ptr(pos01), kernels.ptr(meta),
-              kernels.ptr(out), kernels.ptr(jac), pos01.shape[0], out.shape[0],
-              meta.shape[0], kernels.stream())
+              kernels.ptr(out), kernels.ptr(jac), kernels.ptr(inter), int(fill), pos01.shape[0],
+              out.shape[0], meta.shape[0], plan.stage_mask, plan.n_shared, plan.n_inter,
+              plan.max_f, kernels.stream())
+    if fill and scratch is not None:
+        scratch.filled(table)
 
 
 def lotd_grid_bwd_plain(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
@@ -721,7 +871,7 @@ class _EncodeOnCard(torch.autograd.Function):
     back unrounded."""
 
     @staticmethod
-    def forward(ctx, lines, table, xf, cp_rows, cp_meta, grid_meta, grid_plan, out_dim,
+    def forward(ctx, lines, table, xf, cp_rows, cp_meta, grid_meta, grid_plans, out_dim,
                 with_jac):
         N = xf.shape[0]
         out = torch.empty((out_dim, N), dtype=torch.float32, device=xf.device)
@@ -734,9 +884,9 @@ class _EncodeOnCard(torch.autograd.Function):
         if cp_meta.shape[0]:
             lotd_cp_level(table, xf, cp_meta, out, jac)
         if grid_meta.shape[0]:
-            lotd_grid(table, xf, grid_meta, out, jac)
+            lotd_grid(table, xf, grid_meta, out, jac, *grid_plans[0])
         ctx.save_for_backward(lines_bf16, table, xf, cp_rows, cp_meta, grid_meta)
-        ctx.grid_plan = grid_plan
+        ctx.grid_plan = grid_plans[1]
         ctx.set_materialize_grads(False)
         return out, jac
 
@@ -840,7 +990,9 @@ class LoTDEncoding(nn.Module):
                          first_row[li]))
         self.register_buffer("_grid_meta", torch.tensor(meta, dtype=torch.int32)
                              .reshape(-1, 6), persistent=False)
+        self.grid_fwd_plan = grid_fwd_plan(meta)
         self.grid_bwd_plan = grid_bwd_plan(meta)
+        self.grid_scratch = GridScratch()
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -898,7 +1050,9 @@ class LoTDEncoding(nn.Module):
         else:
             out, jac = _EncodeOnCard.apply(cp_lines if self.cp_stacked else None, self.table,
                                            xf, self._cp_rows, self._cp_meta, self._grid_meta,
-                                           self.grid_bwd_plan, self.out_dim, with_jac)
+                                           ((self.grid_fwd_plan, self.grid_scratch),
+                                            self.grid_bwd_plan),
+                                           self.out_dim, with_jac)
         h = out.T.reshape(lead + (self.out_dim,))
         if not with_jac:
             return h

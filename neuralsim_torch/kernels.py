@@ -38,7 +38,7 @@ SIGNATURES: Dict[str, str] = {
     "lotd_cp_stacked_bwd": "ppppppiiiip",
     "lotd_cp_level_fwd": "pppppiiip",
     "lotd_cp_level_bwd": "ppppppiiip",
-    "lotd_grid_fwd": "pppppiiip",
+    "lotd_grid_fwd": "ppppppiiiiiiiip",
     "lotd_grid_bwd": "ppppppiiiiip",
     "neus_upsample_weights_pdf": "pppppppppiiifp",
     "merge_sorted_samples": "pppppppppiiip",
@@ -54,7 +54,7 @@ SIGNATURES: Dict[str, str] = {
     "permuto_fwd": "pppppppiiiiip",
     "permuto_bwd": "ppppppppppiiiiip",
     "latent_take_fwd": "pppiiiiip",
-    "latent_take_bwd": "ppppiiiiiiip",
+    "latent_take_bwd": "pppppiiiiiiip",
     "lotd_cp_lines_fwd": "pppppiip",
     "lotd_cp_lines_bwd": "pppppppiiiip",
 }

@@ -10,13 +10,13 @@ index, never expanded to the samples), or is None (instance 0 everywhere).
 Each wrapper takes its plain PyTorch version for tensors on the CPU and
 launches the CUDA kernel (``csrc/latent_take.cu``) for CUDA tensors;
 :class:`LatentTake` is the autograd Function of the conditional fields. The
-backward sums the cotangent's rows by instance in an order fixed by the
-shapes (the same bits on every call) and reads the cotangent with its row
-stride.
+backward is one launch: it sums the cotangent's rows by instance in an order
+fixed by the shapes (the same bits on every call) and reads the cotangent
+with its row stride.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -28,7 +28,16 @@ K13_BWD = kernels.register("latent_take.bwd", "neuralsim_torch/csrc/latent_take.
                            "neuralsim_tpu/fields/conditional.py:281")
 
 # the backward kernel's blocks at most, per SM (the rows of its scratch)
-BWD_BLOCKS_PER_SM = 8
+BWD_BLOCKS_PER_SM = 2
+# the backward's warps keep their sums, 8 x n x z floats a block, in shared
+# memory up to this n x z (96 KB): the same bits on every call. Past it the
+# kernel adds into the zeroed d latents with device atomics (a memset and the
+# kernel; the last bits vary from call to call)
+BWD_ORDERED_MAX_NZ = 3072
+
+# the backward's ticket counters, one a (device, stream): zeroed once, left 0
+# by every call (its last block wraps it)
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _per(idx: Optional[torch.Tensor], n_points: int) -> int:
@@ -70,6 +79,14 @@ def latent_take_bwd_plain(d_out: torch.Tensor, idx: Optional[torch.Tensor],
         return torch.autograd.grad(latent_take_plain(lat, idx, d_out.shape[0]), lat, d_out)[0]
 
 
+def _ticket(dev: torch.device) -> torch.Tensor:
+    key = (dev.index, kernels.stream())
+    t = _tickets.get(key)
+    if t is None:
+        t = _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
+
+
 def _is64(idx: Optional[torch.Tensor]) -> int:
     return int(idx is not None and idx.dtype == torch.int64)
 
@@ -103,7 +120,8 @@ def latent_take_bwd(d_out: torch.Tensor, idx: Optional[torch.Tensor],
                     n_instances: int) -> torch.Tensor:
     """K13 backward wrapper: d latents [n_instances, z] = the rows of d_out
     [P, z] summed by instance. The card reads d_out with its row stride (its
-    columns must be adjacent); the plain version on the CPU."""
+    columns must be adjacent), in one launch where n_instances x z <=
+    BWD_ORDERED_MAX_NZ; the plain version on the CPU."""
     if d_out.device.type == "cpu":
         return latent_take_bwd_plain(d_out, idx, n_instances)
     _check("latent_take_bwd", idx, d_out.device)
@@ -117,8 +135,8 @@ def latent_take_bwd(d_out: torch.Tensor, idx: Optional[torch.Tensor],
     scratch = torch.empty((BWD_BLOCKS_PER_SM * kernels.sm_count(dev.index), n_instances * z),
                           dtype=torch.float32, device=dev)
     K13_BWD.launch("latent_take_bwd", kernels.ptr(d_out), kernels.ptr(idx), kernels.ptr(d_lat),
-                   kernels.ptr(scratch), scratch.shape[0], P, d_out.stride(0), z, n_instances,
-                   _per(idx, P), _is64(idx), kernels.stream())
+                   kernels.ptr(scratch), kernels.ptr(_ticket(dev)), scratch.shape[0], P,
+                   d_out.stride(0), z, n_instances, _per(idx, P), _is64(idx), kernels.stream())
     return d_lat
 
 

@@ -14,6 +14,14 @@ sigmoid's flat tails has gradients that are the last bits of 1 - P). Widths
 root, each output whose largest error passes chip_smoke.GRAD_REL times its
 largest plain entry, with that error and entry: equal lists in two checkouts
 mean that the comparison, not the kernel, fails there.
+
+The yardstick is the plain version run in float64 on the same inputs (read
+from their float32 values). For every output the line gives the kernel's and
+the float32 plain version's largest distance from it, over its largest
+float64 entry; an output whose kernel lies further from float64 than the
+float32 plain version by more than GRAD_REL times that entry (the kernels'
+stated rounding) is listed under ``faults``. tests/test_torch_composite_
+conditioning.py holds the JAX functions to the same yardstick on the CPU.
 """
 from __future__ import annotations
 
@@ -67,6 +75,28 @@ def k12_inputs(n, s, seed):
     return t, mask, sdf, nablas, d, rng.random((n, s, 3)).astype(np.float32)
 
 
+def f64(xs):
+    """Float64 copies of the tensors among ``xs`` that are float32."""
+    import torch
+    return [x.double() if isinstance(x, torch.Tensor) and x.dtype == torch.float32 else x
+            for x in xs]
+
+
+def yardstick(name, got, plain, exact, rel=GRAD_REL):
+    """Each output's distance from float64 -> [(label, kernel err / scale,
+    plain err / scale, scale, fault)]: a fault where the kernel lies further
+    from float64 than the float32 plain version by more than rel x scale."""
+    rows = []
+    for i, (g, p, w) in enumerate(zip(got, plain, exact)):
+        if w is None:
+            continue
+        scale = float(w.abs().max())
+        ek, ep = float((g.double() - w).abs().max()), float((p.double() - w).abs().max())
+        s = scale if scale > 0 else 1.0
+        rows.append((f"{name} output {i}", ek / s, ep / s, scale, not ek <= ep + rel * s))
+    return rows
+
+
 def run_root(root: str) -> dict:
     import torch
     from neuralsim_torch import kernels
@@ -81,15 +111,19 @@ def run_root(root: str) -> dict:
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     cot = lambda shape, seed: T(np.random.default_rng(seed).normal(size=shape).astype(np.float32))
     inv_s = torch.tensor(300.0, device=dev)
-    past = []
+    past, rows = [], []
 
-    def hold(name, got, want):
+    def hold(name, got, want, exact):
+        flagged = []
         for i, (g, w) in enumerate(zip(got, want)):
             if w is None:
                 continue
             e, scale = float((g - w).abs().max()), float(w.abs().max())
             if not e <= GRAD_REL * scale:
                 past.append(f"{name} output {i}: err {e:.3g}, largest {scale:.3g}")
+                flagged.append(f"{name} output {i}")
+        for r in yardstick(name, got, want, exact):
+            rows.append((*r, r[0] in flagged))
 
     for s in WIDTHS:
         for n in RAYS:
@@ -97,7 +131,8 @@ def run_root(root: str) -> dict:
             a = [T(v) for v in k6_inputs(n, s, seed)]
             c = [cot(sh, seed + i) for i, sh in enumerate(((n, s), (n,), (n,), (n, 3), (n, 3)))]
             hold(f"K6 bwd rays={n} S={s}", volume_composite_bwd(*a, *c),
-                 volume_composite_bwd_plain(*a, *c))
+                 volume_composite_bwd_plain(*a, *c),
+                 volume_composite_bwd_plain(*f64(a), *f64(c)))
             t, mask, sdf, nablas, d, rgb = (T(v) for v in k12_inputs(n, s, seed))
             anneal = ANNEALS[seed % 3]
             for with_rgb in (True, False):
@@ -107,11 +142,19 @@ def run_root(root: str) -> dict:
                 if not with_rgb:
                     c[3] = None
                 hold(f"K12 bwd rays={n} S={s} anneal={anneal:g} rgb={with_rgb}",
-                     neus_composite_bwd(*a, *c), neus_composite_bwd_plain(*a, *c))
+                     neus_composite_bwd(*a, *c), neus_composite_bwd_plain(*a, *c),
+                     neus_composite_bwd_plain(*f64(a), *f64(c)))
     torch.cuda.synchronize()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    return {"root": root, "past_grad_rel": past, "card": card}
+    worst = lambda k: max(rows, key=lambda r: r[k])
+    return {"root": root, "past_grad_rel": past, "outputs": len(rows),
+            "faults": [r[:4] for r in rows if r[4]],
+            # the outputs past GRAD_REL against the float32 plain version:
+            # (label, kernel err, plain err over the largest float64 entry, it)
+            "past_grad_rel_from_f64": [r[:4] for r in rows if r[5]],
+            "worst_kernel_from_f64": worst(1)[:4], "worst_plain_from_f64": worst(2)[:4],
+            "card": card}
 
 
 def main(argv) -> int:

@@ -2,12 +2,29 @@
 """Time the redesigned kernels at the multi-object shapes in one or more
 checkouts of the port, in turns, on one card.
 
-    python3 scripts/torch_kernel_ab.py [--composite-only] [ROOT ...]
+    python3 scripts/torch_kernel_ab.py [--composite-only | --grid-latent-only] [ROOT ...]
 
 Each ROOT (default: this checkout) holds ``neuralsim_torch/`` and
 ``chip_smoke.py``. Each is timed in a process of its own, which builds that
 checkout's kernels, in the order given: "PARENT . . PARENT" compares two
-checkouts on one card (parent, change, change, parent). First K6 and
+checkouts on one card (parent, change, change, parent). ``--grid-latent-only``
+times only K3's forward and the latent lookup (K13) with its backward:
+K3 at synthetic_object's render chunk (4,096 rays x 96 samples on its two
+hash levels) and at the vehicles' final query (6,144 rows x 32 samples on
+their two dense levels), with and without the jacobian, each with the sha256
+of its outputs, its kernels a call, the profiler's device time by kernel
+name (and, where the checkout keeps K3's interleaved copy across calls,
+timed so, one kernel a call), and the L2 sectors its corners touch (a corner's F features one row of
+a [size, F] copy) beside the card's L2 rate as this script measures it (the
+faster of a sum and a copy of a 16 MB buffer held in L2; a lower bound of
+the rate, so the gather bound it gives is an upper one); K3 at
+chip_smoke.k3_edge_cases and K13 at chip_smoke.latent_edge_cases, each
+output's sha256; K13 forward and backward at the main path's pixel step
+(196,608 points, one index a ray of 32 samples, 3 runs; the cotangent a
+column slice at 32 of a [P, 40] gradient), the crowd's (131,072 points, 8
+instances, 1,804 runs) and the uniform eikonal's (512 points, int64 zeros),
+with the sha256 of each output, the kernels a call and, for the backward,
+whether two calls give the same bits. Otherwise, first K6 and
 K12 (``--composite-only``: only they), forward and backward, each with the
 sha256 of every output: K6 at the bench model's step (8,192 rays of 64
 lanes, a close-range and a distant buffer, with rgb and nablas, cotangents
@@ -135,7 +152,152 @@ def digests(prefix, outs) -> dict:
     return {f"{prefix}{i}_sha256": digest(x) for i, x in enumerate(outs) if x is not None}
 
 
-def time_root(root: str, composite_only: bool = False) -> dict:
+def prof_by_name(fn, reps: int = 20) -> dict:
+    """The profiler's device time a call (ms) of each kernel name that one
+    call of fn launches, after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.split("(")[0].split("<")[0]
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
+def l2_rate(tm, dev) -> float:
+    """Bytes a second that torch's sum and copy reach on a 16 MB buffer held
+    in L2 (queued, after a warm-up): the faster of the two."""
+    import torch
+    x = torch.rand(4 << 20, device=dev)
+    y = torch.empty_like(x)
+    nbytes = x.numel() * 4
+    return max(nbytes / (tm.cuda_ms(lambda: x.sum(), reps=50, queued=True) * 1e-3),
+               2 * nbytes / (tm.cuda_ms(lambda: y.copy_(x), reps=50, queued=True) * 1e-3))
+
+
+def k3_sectors(pts, rows) -> int:
+    """The 32-byte sectors that the corners of each point touch on each level,
+    a corner's F features one row of a [size, F] copy, counted per point and
+    level (what a launch that keeps nothing in L1 reads from L2)."""
+    import numpy as np
+    x = np.clip(pts, 0.0, 1.0).astype(np.float32)
+    primes = np.array([1, 2654435761, 805459861], dtype=np.uint64)
+    total = 0
+    for res, size, _, nf, is_hash, _ in rows:
+        pos = x * np.float32(res)
+        cell = np.minimum(np.floor(pos), np.float32(res - 1)).astype(np.int64)
+        secs = []
+        for corner in range(8):
+            ci = cell + np.array([(corner >> i) & 1 for i in range(3)])
+            if is_hash:
+                u = ci.astype(np.uint64) * primes & np.uint64(0xFFFFFFFF)
+                row = ((u[:, 0] ^ u[:, 1] ^ u[:, 2]) % np.uint64(size)).astype(np.int64)
+            else:
+                row = ci[:, 0] + ci[:, 1] * (res + 1) + ci[:, 2] * (res + 1) ** 2
+            secs.append(np.clip(row, 0, size - 1) * nf * 4 // 32)
+        secs = np.sort(np.stack(secs, 1), 1)
+        total += int(secs.shape[0] + (secs[:, 1:] != secs[:, :-1]).sum())
+    return total
+
+
+def zeros_out(C, N, dev, jac):
+    """K3's outputs, zeroed: features [C, N] and, where ``jac``, [3, C, N]."""
+    import torch
+    return (torch.zeros((C, N), device=dev),
+            torch.zeros((3, C, N), device=dev) if jac else None)
+
+
+def grid_latent(tm, out, dev, timed) -> None:
+    """K3's forward and K13 with its backward, with the digests of their
+    outputs (see the module's docstring)."""
+    import numpy as np
+    import torch
+    from neuralsim_torch.configs import SYNTHETIC_OBJECT, WAYMO_DEMO_MULTI
+    from neuralsim_torch.fields.conditional import ConditionalLoTDNeuSField
+    from neuralsim_torch.fields.encodings import lotd
+    from neuralsim_torch.ops.latent_take import latent_take, latent_take_bwd
+
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    rate = l2_rate(tm, dev)
+    out["l2_bytes_per_s"] = rate
+    # a K3 that takes a plan is handed the encoding's, as the module does
+    planned = "plan" in inspect.signature(lotd.lotd_grid).parameters
+    mp = WAYMO_DEMO_MULTI["assetbank_cfg"]
+    veh = ConditionalLoTDNeuSField(
+        n_instances=3, encoding_cfg=mp["Vehicle"]["model_params"]["encoding_cfg"]).encoding
+    obj = lotd.make_lotd(SYNTHETIC_OBJECT["assetbank_cfg"]["Main"]["model_params"]["encoding_cfg"])
+    for e in (veh, obj):
+        e.reset_parameters(torch.Generator().manual_seed(0))
+    veh, obj = veh.to(dev), obj.to(dev)
+    for label, e, pts in (("synthetic_object render chunk, hash levels", obj,
+                           tm.ray_points(4096, 96, obj.cp_rmax, 0)),
+                          ("vehicles' final query, dense levels", veh,
+                           tm.ray_points(6144, 32, veh.cp_rmax, 30))):
+        x = T(pts)
+        N, C = x.shape[0], e.out_dim
+        rows = e._grid_meta.tolist()
+        kw = {"plan": e.grid_fwd_plan} if planned else {}
+        sectors = k3_sectors(pts, rows)
+        for jac in (False, True):
+            buf = zeros_out(C, N, dev, jac)
+            fn = lambda: lotd.lotd_grid(e.table.detach(), x, e._grid_meta, *buf, **kw)
+            tag = f"K3 fwd {label} N={N} levels={[r[0] for r in rows]} F={rows[0][3]} jac={jac}"
+            res = {**timed(fn), "kernels": kernels_a_call(fn), "by_kernel": prof_by_name(fn)}
+            res.update(digests("out", buf))
+            cols = sum(r[3] for r in rows)
+            res["bytes_bound_ms"] = (N * 12 + N * cols * 4 * (4 if jac else 1)) \
+                / tm.HBM_BYTES_PER_S * 1e3
+            res["l2_sectors"] = sectors
+            res["gather_bound_ms"] = sectors * 32 / rate * 1e3
+            out[tag] = res
+            if hasattr(lotd, "GridScratch") and e.grid_fwd_plan.n_inter:
+                # as the encoding calls it: the interleaved copy kept from the
+                # first call (the table unchanged), so a call is one kernel
+                sc, table = lotd.GridScratch(), e.table.detach()
+                fn = lambda: lotd.lotd_grid(table, x, e._grid_meta, *buf, **kw, scratch=sc)
+                out[tag + " scratch kept"] = {**timed(fn), "kernels": kernels_a_call(fn)}
+    if hasattr(tm, "k3_edge_cases"):
+        for label, table, x, meta, C, _ in tm.k3_edge_cases(dev, with_plans=False):
+            for jac in (False, True):
+                buf = zeros_out(C, x.shape[0], dev, jac)
+                lotd.lotd_grid(table, x, meta, *buf)
+                out[f"K3 fwd edge {label} jac={jac}"] = digests("out", buf)
+    for i, (label, n, z, idx, P, ld) in enumerate(tm.latent_edge_cases(dev)):
+        lat = tm.cotangents((n, z), 70 + i, dev)
+        out[f"K13 edge {label}"] = digests("out", [latent_take(lat, idx, P)])
+
+    rng = np.random.default_rng(9)
+    cuts = np.sort(rng.choice(np.arange(1, 4096), 1803, replace=False))
+    inst = np.cumsum(rng.integers(1, 8, 1804)) % 8          # neighbouring runs differ
+    crowd = np.repeat(inst, np.diff(np.concatenate([[0], cuts, [4096]])))
+    for label, n, idx, P in (("main path pixel step: 6,144 rays x 32, 3 runs", 3,
+                              np.repeat(np.arange(3), 2048), 196_608),
+                             ("crowd: 4,096 rays x 32, 1,804 runs", 8, crowd, 131_072),
+                             ("uniform eikonal: 512 points of instance 0", 3,
+                              np.zeros(512, np.int64), 512)):
+        b = T(idx)
+        lat = tm.cotangents((n, 8), 71, dev)
+        fn = lambda: latent_take(lat, b, P)
+        out[f"K13 fwd {label} P={P} n={n} z=8"] = {
+            **timed(fn), "kernels": kernels_a_call(fn), **digests("out", [fn()]),
+            "bytes_bound_ms": (idx.size * 8 + n * 32 + P * 32) / tm.HBM_BYTES_PER_S * 1e3}
+        g = tm.cotangents((P, 40), 81, dev)[:, 32:]
+        fn = lambda: latent_take_bwd(g, b, n)
+        got = fn()
+        out[f"K13 bwd {label} P={P} n={n} z=8 ld=40"] = {
+            **timed(fn), "kernels": kernels_a_call(fn), **digests("grad", [got]),
+            "same_bits_twice": bool(torch.equal(got, fn())),
+            "bytes_bound_ms": (idx.size * 8 + P * 32 + n * 32) / tm.HBM_BYTES_PER_S * 1e3}
+
+
+def time_root(root: str, mode: str = "all") -> dict:
     tm = timer()
     sys.path.insert(0, root)
     import numpy as np
@@ -162,6 +324,11 @@ def time_root(root: str, composite_only: bool = False) -> dict:
     def timed(fn, prefix=""):
         return {prefix + "ms": tm.cuda_ms(fn), prefix + "queued_ms": tm.cuda_ms(fn, queued=True),
                 prefix + "prof_ms": tm.prof_ms(fn), prefix + "host_ms": tm.host_ms(fn)}
+
+    if mode == "grid-latent":
+        grid_latent(tm, out, dev, timed)
+        out["card"] = card()
+        return out
 
     # K6 at the bench model's step and K12 at the LiDAR step and at
     # synthetic_object's render chunk, forward and backward, on this
@@ -193,10 +360,8 @@ def time_root(root: str, composite_only: bool = False) -> dict:
         out[tag.replace("K12", "K12 bwd")] = {
             **timed(lambda: neus_composite_bwd(*a, *cots)),
             **digests("grad", neus_composite_bwd(*a, *cots))}
-    if composite_only:
-        out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                      "--format=csv,noheader"], capture_output=True, text=True,
-                                     timeout=60).stdout.strip()
+    if mode == "composite":
+        out["card"] = card()
         return out
 
     # K5a at the multi-object iteration's five stage launches and
@@ -369,18 +534,25 @@ def time_root(root: str, composite_only: bool = False) -> dict:
         out[f"{tag} with_jacobian fwd+bwd under autograd N={N}"] = {
             **timed(through_module), "kernels": kernels_a_call(through_module)}
     torch.cuda.synchronize()
-    out["card"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                  "--format=csv,noheader"], capture_output=True, text=True,
-                                 timeout=60).stdout.strip()
+    out["card"] = card()
     return out
+
+
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+MODES = {"--composite-only": "composite", "--grid-latent-only": "grid-latent"}
 
 
 def main(argv) -> int:
     if argv[:1] == ["--one"]:
-        print(json.dumps(time_root(argv[1], argv[2:] == ["--composite-only"])), flush=True)
+        print(json.dumps(time_root(argv[1], MODES.get(argv[2], "all") if argv[2:] else "all")),
+              flush=True)
         return 0
-    only = ["--composite-only"] if "--composite-only" in argv else []
-    roots = [str(Path(r).resolve()) for r in argv if r not in only] or [str(HERE)]
+    only = [a for a in argv if a in MODES][:1]
+    roots = [str(Path(r).resolve()) for r in argv if r not in MODES] or [str(HERE)]
     rc = 0
     for root in roots:
         # the child imports the port from ``root``, never from this checkout

@@ -50,7 +50,13 @@ memory a block stages, and after an in-place update of the table; the
 permuto field under autograd against the CPU at GRAD_REL, and the permuto
 vehicles' first iteration as the multi-object one. K14's backward is held at
 GRAD_REL with the same bits on two calls, at chip_smoke.CP_LINES_EDGES from
-both cotangent layouts, and writes the table's other floats as zeros.
+both cotangent layouts, and writes the table's other floats as zeros. K3's
+forward is held at K1/K3's tolerance at chip_smoke.k3_edge_cases (F 1-8,
+dense and hash levels in one meta, levels staged in shared memory,
+interleaved into the scratch and read from the table, x01 at 0, 1, one ulp
+below 1, below 0 and above 1, N 1 to 65,537, with and without the jacobian);
+K13 at chip_smoke.latent_edge_cases, and its backward is one kernel a call
+at the path shapes.
 """
 import contextlib
 import copy
@@ -1293,12 +1299,47 @@ def _main_path_latent_cases(dev):
             ("eikonal", 3, 8, torch.zeros(512, dtype=torch.long, device=dev), 512, 40)]
 
 
-@pytest.mark.parametrize("case", range(8))
+@pytest.mark.parametrize("case", range(cs.LATENT_EDGE_COUNT))
 def test_k13_latent_take_edge_cases(dev, case):
-    """Forward exact, backward at GRAD_REL and the same bits twice: indices
-    outside [0, n), no index, per ray, n 1, 8, 48 and 64 (atomics), z 5, one
-    point (chip_smoke.latent_edge_cases)."""
+    """Forward exact, backward at GRAD_REL and the same bits twice (where
+    its sums stay in shared memory): indices outside [0, n), no index,
+    int32 and int64 indices a point and a ray, n 1, 8, 48 and 64, z 5, 8
+    and 12, a cotangent slice that is not 16-byte aligned, n 64 at z 256
+    (atomics), one point (chip_smoke.latent_edge_cases)."""
     cs.check_latent_take(dev, cs.latent_edge_cases(dev)[case:case + 1])
+
+
+@pytest.mark.parametrize("case", range(3), ids=["main path", "crowd", "eikonal"])
+def test_k13_backward_is_one_kernel_a_call(dev, case):
+    cs.check_latent_bwd_launches(dev, _main_path_latent_cases(dev)[case:case + 1])
+
+
+def test_k3_forward_sees_an_in_place_table_update(dev):
+    """The encoding keeps K3's interleaved scratch across calls (GridScratch);
+    after an in-place update of the table (ModelAdam's copy_) the next call
+    reads the new values."""
+    _, params = build_renderer(SYNTHETIC_OBJECT, device=dev)
+    enc = params["Main"].encoding
+    assert enc.grid_fwd_plan.n_inter
+    x = _t(cs.enc_points(4097, enc.cp_rmax, 3), dev)
+    with torch.no_grad():
+        enc(x)
+        enc.table.copy_(enc.table * 1.5 + 0.25)
+        got = enc(x)
+    want = torch.zeros((enc.out_dim, x.shape[0]), device=dev)
+    lotd.lotd_grid_plain(enc.table.detach(), x, enc._grid_meta, want)
+    rows = torch.cat([torch.arange(r[5], r[5] + r[3]) for r in enc._grid_meta.tolist()])
+    _close([got.T[rows]], [want[rows]], 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("jac", [False, True])
+@pytest.mark.parametrize("case", range(cs.K3_EDGE_COUNT))
+def test_k3_forward_at_the_edges(dev, case, jac):
+    label, table, x, meta, C, plan = cs.k3_edge_cases(dev)[case]
+    kw = {} if plan is None else {"plan": plan}
+    args, N = (table, x, meta), x.shape[0]
+    _close(cs.encode_into(lambda *a: lotd.lotd_grid(*a, **kw), args, C, N, dev, jac),
+           cs.encode_into(lotd.lotd_grid_plain, args, C, N, dev, jac), 1e-5, 1e-5)
 
 
 @pytest.mark.parametrize("case", range(3), ids=["main path", "crowd", "eikonal"])
