@@ -113,10 +113,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      bits on two calls, one kernel a call at the step's calls (by the
      profiler); K14 (the
      stacked CP lines) at the street's, the vehicles', the bench ladder's,
-     synthetic_object's and an edge ladder (R 1, 2, 37, 1,024): the forward
-     bit-equal, the backward within GRAD_REL at a cotangent in K1 bwd's
-     layout, the same bits twice; no plain K13 or K14 on the card in any
-     path's training iterations;
+     synthetic_object's and three edge ladders (CP_LINES_EDGES): the forward's
+     float32 and bf16 lines bit-equal to the plain lines and to their cast,
+     one launch a call, the backward within GRAD_REL at a cotangent in K1
+     bwd's layout, the same bits twice; in every counted render and training
+     run of every phase (no_plain_on_card): no plain K13 or K14 and no cast
+     to bf16 on the card (a TorchDispatchMode counter), and in every render
+     K14 on its first frame only (the encodings' lines cache);
   9. crowded multi-object scenes (WAYMO_DEMO_CROWD at full width: 8
      vehicles on one shared model with per-instance 32^3 occupancy grids, so
      the group takes the pair-budget path): the render from converged grids
@@ -132,7 +135,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      vehicle grids timed. Then training (build_multi_trainer): K8 at the
      pixel step's merged buffer [4,096, 200] (4 slot lanes of 32 for the
      group), K11 integer-equal to its plain version on the path's render and
-     training calls and on ragged, tied and crossing masks; the first
+     training calls and on ragged, tied, crossing, long and many-instance
+     masks (K 17 and 4,096), one launch a call; the first
      iteration card vs CPU at the CPU path's sample depths; 48 iterations
      (finite, no skip, falling loss_rgb and LiDAR depth, both grids refreshed
      three times, K11, K10 and K8 with its backward once a pixel step); a
@@ -1033,14 +1037,40 @@ def frame_rays(rig, fi, dev, crop=None):
             torch.from_numpy(np.ascontiguousarray(d.reshape(-1, 3))).to(dev))
 
 
-def render_frames(renderer, params, rig, dev, frame_ids=FRAME_IDS, **kw):
+def frames_guarded(label, frame_ids, render_one):
+    """``render_one(fi)`` for each frame under no_plain_on_card, counting
+    K14's launches a frame: no parameter changes while a render runs, so the
+    encodings' lines cache leaves K14 nothing to do after the first frame
+    (raises if it launched) -> the frames."""
     import torch
-    frames = []
-    for fi in frame_ids:
-        o, d = frame_rays(rig, fi, dev)
-        frames.append(renderer.render_chunked(params, o, d, rayschunk=RAYSCHUNK, **kw))
-    torch.cuda.synchronize()
+    from neuralsim_torch import kernels
+    k14 = kernels.KERNELS["lotd_cp_lines"]
+    frames, per = [], []
+    with no_plain_on_card(f"{label} render"):
+        for fi in frame_ids:
+            n0 = k14.launches
+            frames.append(render_one(fi))
+            per.append(k14.launches - n0)
+        torch.cuda.synchronize()
+    log(f"{label} render: K14 launches by frame {per}")
+    if any(per[1:]):
+        raise AssertionError(f"{label} render: K14 launched on a frame after the first: {per}")
     return frames
+
+
+def render_frames(renderer, params, rig, dev, frame_ids=FRAME_IDS, label="synthetic_object",
+                  **kw):
+    def one(fi):
+        o, d = frame_rays(rig, fi, dev)
+        return renderer.render_chunked(params, o, d, rayschunk=RAYSCHUNK, **kw)
+    return frames_guarded(label, frame_ids, one)
+
+
+def render_multi_frames(label, renderer, params, scene, occ):
+    """COMPOSE_FRAME_IDS through render_multi_frame, guarded as frames_guarded."""
+    from neuralsim_torch.tools.build import render_multi_frame
+    return frames_guarded(label, COMPOSE_FRAME_IDS, lambda fi: render_multi_frame(
+        renderer, params, scene, fi, COMPOSE_CAM, occ, RAYSCHUNK))
 
 
 def check_frames(frames, H, W, corner_is_empty=True):
@@ -1330,7 +1360,8 @@ def training_buffer(trainer, state, rig, dev):
 def train_slice(cfg):
     """train() for TRAIN_STEPS steps, logging every step -> its result."""
     from neuralsim_torch.tools.train import train
-    out = train({**cfg, "training": {**cfg["training"], "i_log": 1}}, TRAIN_STEPS)
+    with no_plain_on_card("synthetic_object training"):
+        out = train({**cfg, "training": {**cfg["training"], "i_log": 1}}, TRAIN_STEPS)
     log_ = out["log"]
     if len(log_) != TRAIN_STEPS:
         raise AssertionError("train() did not log every step")
@@ -1844,7 +1875,8 @@ def bench_phase(dev, profile_it):
         BENCH_SAME_SAMPLES)
 
     kernels.reset_counts()
-    log_, rgb_first, rgb_last = bench_steps(trainer, state, rig, dev)
+    with no_plain_on_card("bench model training"):
+        log_, rgb_first, rgb_last = bench_steps(trainer, state, rig, dev)
     launches = {k.name: k.launches for k in kernels.KERNELS.values()}
     refreshes = sum(1 for r in log_ if r["it"] % accel.n_steps_between_update == 0)
     log(f"bench training slice: {BENCH_STEPS} steps of {BENCH_RAYS} rays, {refreshes} grid "
@@ -1866,7 +1898,7 @@ def bench_phase(dev, profile_it):
         raise AssertionError("the skipped step on the cadence did not launch K7")
 
     kernels.reset_counts()
-    frames = render_frames(renderer, state.params, rig, dev, BENCH_FRAME_IDS,
+    frames = render_frames(renderer, state.params, rig, dev, BENCH_FRAME_IDS, "bench model",
                            occ_states=state.occ)
     launches_render = {k.name: k.launches for k in kernels.KERNELS.values()}
     chunks = len(BENCH_FRAME_IDS) * (rig.H * rig.W // RAYSCHUNK)
@@ -2599,8 +2631,7 @@ def compose_phase(dev, profile_it):
     from neuralsim_torch.dataio.waymo_demo import demo_scenario, ground_sdf_tensor
     from neuralsim_torch.scene import Scene
     from neuralsim_torch.scene.observers import camera_get_all_rays
-    from neuralsim_torch.tools.build import (build_compose_renderer, converge_occ,
-                                             render_multi_frame)
+    from neuralsim_torch.tools.build import build_compose_renderer, converge_occ
 
     t0 = time.perf_counter()
     scene, bank, renderer, params = build_compose_renderer(C)
@@ -2657,9 +2688,7 @@ def compose_phase(dev, profile_it):
     shapes["cross_source_vw"] = dict(args=path_buffer)
 
     kernels.reset_counts()
-    frames = [render_multi_frame(renderer, params, scene, fi, COMPOSE_CAM, occ, RAYSCHUNK)
-              for fi in COMPOSE_FRAME_IDS]
-    torch.cuda.synchronize()
+    frames = render_multi_frames("compose", renderer, params, scene, occ)
     launches = {k.name: k.launches for k in kernels.KERNELS.values()}
     chunks = len(COMPOSE_FRAME_IDS) * -(-H * W // RAYSCHUNK)
     log(f"compose render slice: {len(COMPOSE_FRAME_IDS)} frames of {H}x{W} ({chunks} chunks), "
@@ -3525,8 +3554,9 @@ def pair_edge_masks(dev):
     """Hit masks beyond the path's: ragged (hit rates 5-95%, instances that
     hit nothing), tied (every pair a hit, so T = K N; none a hit, so the
     budget is all misses), rays that cross more than M = 4 boxes, odd N with
-    a budget of half the rays, and one long row (the scan's runs) ->
-    [(label, hit [K, N], Bg, M)]."""
+    a budget of half the rays, one long row (782 words a CTA of the
+    cluster), and many instances (K 17 and 4,096, N not a multiple of 32)
+    -> [(label, hit [K, N], Bg, M)]."""
     import torch
     from neuralsim_torch.ops.pair_compact import pair_budget
     gen = torch.Generator().manual_seed(17)
@@ -3549,6 +3579,13 @@ def pair_edge_masks(dev):
     out.append(("rays through 8 boxes, M=1", hit, 2048, 1))
     hit = torch.rand((2, 200_003), generator=gen) < 0.3
     out.append(("long rows K=2 N=200003", hit, 200_003, 4))
+    for K, N in ((17, 1000), (4096, 45)):                  # many instances, one word a CTA
+        rate = torch.linspace(0.0, 0.9, K)[:, None]
+        hit = torch.rand((K, N), generator=gen) < rate
+        for gf in (0.5, 1.0):
+            out.append((f"many instances K={K} N={N} gf={gf}", hit, pair_budget(K, N, gf), 4))
+        out.append((f"many instances K={K} N={N} every pair a hit",
+                    torch.ones((K, N), dtype=torch.bool), pair_budget(K, N, 1.0), 4))
     return [(label, h.to(dev), Bg, M) for label, h, Bg, M in out]
 
 
@@ -3556,21 +3593,29 @@ def check_pair_compact(dev, path_calls):
     """K11 against its plain version (the JAX package's argsort lines): the
     selected pairs, their hit flags and, with M, the slot indices equal,
     integer for integer, on the path's calls (with and without the slots) and
-    on pair_edge_masks. -> the number of sets held."""
+    on pair_edge_masks; one launch a call (its counter; the card tests count
+    the device kernels by the profiler). -> the number of sets held."""
     import torch
+    from neuralsim_torch import kernels
     from neuralsim_torch.ops.pair_compact import pair_compact, pair_compact_plain
     sets = [(f"path call K={h.shape[0]} N={h.shape[1]} Bg={Bg} M={M}", h, Bg, M)
             for h, Bg, M in path_calls] + pair_edge_masks(dev)
+    k11 = kernels.KERNELS["pair_compact"]
     for label, hit, Bg, M in sets:
         for m in ((M,) if M is None else (M, None)):
-            got, want = pair_compact(hit, Bg, m), pair_compact_plain(hit, Bg, m)
+            n0 = k11.launches
+            got = pair_compact(hit, Bg, m)
+            if k11.launches != n0 + 1:
+                raise AssertionError(f"K11 {label}: {k11.launches - n0} launches in a call")
+            want = pair_compact_plain(hit, Bg, m)
             torch.cuda.synchronize()
             same = all((g is None and w is None) or (g.dtype == w.dtype and torch.equal(g, w))
                        for g, w in zip(got, want))
             if not same:
                 raise AssertionError(f"K11 differs from its plain version: {label} M={m}")
     log(f"K11 pair_compact: {len(sets)} hit masks (path calls {len(path_calls)}), every "
-        f"output equal to the plain version's, with and without the slots")
+        f"output equal to the plain version's, with and without the slots; one launch a "
+        f"call")
     return len(sets)
 
 
@@ -3690,9 +3735,10 @@ def time_crowd_kernels(pair_shapes, occ_shapes, ema_shapes, synth_hit):
             library_queued_ms=cuda_ms(lambda: torch.argsort(keyv, stable=True)[:Bg],
                                       queued=True),
             library_prof_ms=prof_ms(lambda: torch.argsort(keyv, stable=True)[:Bg]),
-            # the hit mask read, order, hit flags (and slots) written; the
-            # rank formula's K compare-adds per pair, the slots' K per hit
-            bound=bound(K * N + Bg * (9 + (8 if M else 0)), 2.0 * K * K * N * (2 if M else 1))))
+            # the hit mask read, order, hit flags (and slots) written; a
+            # hit's place is K min-adds, a selected hit's slot K compares
+            bound=bound(K * N + Bg * (9 + (8 if M else 0)),
+                        2.0 * K * (int(hit.sum()) + (min(Bg, int(hit.sum())) if M else 0)))))
     a = occ_shapes["args"]
     N, n, M, G, R = a[0].shape[0], a[8], a[7].shape[0] - 1, a[4].shape[0], a[4].shape[-1]
     out["occ_ray_proposal_batched"] = [dict(
@@ -3782,9 +3828,7 @@ def crowd_phase(dev, profile_it):
     errs["occ_ema_update"] = (e7, K7_ATOL)
 
     kernels.reset_counts()
-    frames = [render_multi_frame(renderer, params, scene, fi, COMPOSE_CAM, occ, RAYSCHUNK)
-              for fi in COMPOSE_FRAME_IDS]
-    torch.cuda.synchronize()
+    frames = render_multi_frames("crowd", renderer, params, scene, occ)
     launches_render = {k.name: k.launches for k in kernels.KERNELS.values()}
     chunks = len(COMPOSE_FRAME_IDS) * -(-H * W // RAYSCHUNK)
     log(f"crowd render: {len(COMPOSE_FRAME_IDS)} frames of {H}x{W} ({chunks} chunks), "
@@ -3931,8 +3975,9 @@ def synthetic_multi_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(37)
     log_ = []
     kernels.reset_counts()
-    train_loop(scene, trainer, state, samplers, SYNTH_STEPS, gen, 1, log_)
-    torch.cuda.synchronize()
+    with no_plain_on_card("synthetic_multi training"):
+        train_loop(scene, trainer, state, samplers, SYNTH_STEPS, gen, 1, log_)
+        torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS.values()}
     log(f"synthetic_multi: {SYNTH_STEPS} pixel steps of {n_rays} rays, launches {launches}")
     for rec in log_:
@@ -4425,7 +4470,7 @@ def perlevel_phase(dev, profile_it, stacked):
     from neuralsim_torch.scene import Scene
     from neuralsim_torch.scene.observers import camera_get_all_rays
     from neuralsim_torch.tools.build import (build_compose_renderer, build_multi_trainer,
-                                             converge_occ, render_multi_frame)
+                                             converge_occ)
 
     cfg = copy.deepcopy(C)
     cfg["training"]["error_map"] = {**cfg["training"]["error_map"],
@@ -4485,9 +4530,7 @@ def perlevel_phase(dev, profile_it, stacked):
     H, W = (int(v) for v in scene_r.nodes[COMPOSE_CAM].frame_data["hw"][0].tolist())
     vehicles = [ob.obj_id for ob in renderer.objects]
     kernels.reset_counts()
-    frames = [render_multi_frame(renderer, params_r, scene_r, fi, COMPOSE_CAM, occ, RAYSCHUNK)
-              for fi in COMPOSE_FRAME_IDS]
-    torch.cuda.synchronize()
+    frames = render_multi_frames("per-level", renderer, params_r, scene_r, occ)
     launches_render = {k.name: k.launches for k in kernels.KERNELS.values()}
     chunks = len(COMPOSE_FRAME_IDS) * -(-H * W // RAYSCHUNK)
     log(f"per-level render: {len(COMPOSE_FRAME_IDS)} frames of {H}x{W}, launches "
@@ -4755,7 +4798,7 @@ def permuto_phase(dev, profile_it, stacked):
     from neuralsim_torch.scene import Scene
     from neuralsim_torch.scene.observers import camera_get_all_rays
     from neuralsim_torch.tools.build import (build_compose_renderer, build_multi_trainer,
-                                             converge_occ, render_multi_frame)
+                                             converge_occ)
 
     cfg = copy.deepcopy(C)
     cfg["training"]["error_map"] = {**cfg["training"]["error_map"],
@@ -4808,9 +4851,7 @@ def permuto_phase(dev, profile_it, stacked):
     watch = {}
     kernels.reset_counts()
     with permuto_watch(watch):
-        frames = [render_multi_frame(renderer, params_r, scene_r, fi, COMPOSE_CAM, occ,
-                                     RAYSCHUNK) for fi in COMPOSE_FRAME_IDS]
-        torch.cuda.synchronize()
+        frames = render_multi_frames("permuto", renderer, params_r, scene_r, occ)
     launches_render = {k.name: k.launches for k in kernels.KERNELS.values()}
     chunks = len(COMPOSE_FRAME_IDS) * -(-H * W // RAYSCHUNK)
     log(f"permuto render: {len(COMPOSE_FRAME_IDS)} frames of {H}x{W}, launches "
@@ -4937,11 +4978,40 @@ def latent_calls(record):
         lt.latent_take, lt.latent_take_bwd = fwd, bwd
 
 
+def bf16_cast_counter():
+    """A TorchDispatchMode that records the shape of every tensor on the card
+    cast to bf16 while it is active (``aten._to_copy`` to bf16, or a copy_
+    into a bf16 tensor, from another dtype): the card path makes its bf16
+    lines in K14 and casts nothing (``.casts``)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Counter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.casts = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is torch.ops.aten._to_copy.default:
+                src, dst = args[0], kwargs.get("dtype")
+            elif func is torch.ops.aten.copy_.default:
+                src, dst = args[1], args[0].dtype
+            else:
+                src = dst = None
+            if dst == torch.bfloat16 and src.is_cuda and src.dtype != torch.bfloat16:
+                self.casts.append(tuple(src.shape))
+            return func(*args, **kwargs)
+
+    return Counter()
+
+
 @contextlib.contextmanager
 def no_plain_on_card(label):
     """The block may not call the plain K13 or K14 with tensors on the card
-    (the card path launches the kernels or raises): raises after it if it
-    did."""
+    (the card path launches the kernels or raises), nor cast a tensor on the
+    card to bf16 (K14 writes the bf16 lines that K1 reads; counted by
+    bf16_cast_counter): raises after it if it did."""
     from neuralsim_torch.fields.encodings import lotd
     from neuralsim_torch.ops import latent_take as lt
     hits = []
@@ -4958,14 +5028,20 @@ def no_plain_on_card(label):
 
     for m, n, fn in saved:
         setattr(m, n, counted(n, fn))
+    casts = bf16_cast_counter()
     try:
-        yield
+        with casts:
+            yield
     finally:
         for m, n, fn in saved:
             setattr(m, n, fn)
     if hits:
         raise AssertionError(f"the {label} path ran plain K13/K14 on the card: "
                              f"{sorted(set(hits))}")
+    if casts.casts:
+        raise AssertionError(f"the {label} path cast {len(casts.casts)} tensors to bf16 on the "
+                             f"card: {sorted(set(casts.casts))}")
+    log(f"{label}: no plain K13/K14 and no bf16 cast on the card")
 
 
 def runs_of(idx):
@@ -5105,11 +5181,15 @@ def check_latent_bwd_launches(dev, cases):
 # two levels of R_max 1,024 (1-2 taps a row), past a dense level's 250
 # floats; the second odd F, R 3 (~511 taps a row), R 16 at F 1 and a level
 # of R == R_max, with floats that no CP level owns before, between and after
-# its levels (written as zeros by the backward)
+# its levels (written as zeros by the backward); the third an R_max that is
+# not a multiple of 4 (the forward's thread a position) at F 2, 8 and 3, odd
+# offsets
 CP_LINES_EDGES = (("edge ladder: R 1, 2, 37 (F 5), 1,024 x 2", 1024,
                    ((1, 3), (2, 4), (37, 5), (1024, 4), (1024, 3)), 250, 0, 0),
                   ("edge ladder: odd F, R 3, 16 (F 1), 100 (F 9), 512 == R_max (F 5), gaps",
-                   512, ((3, 7), (16, 1), (100, 9), (512, 5)), 1000, 777, 3000))
+                   512, ((3, 7), (16, 1), (100, 9), (512, 5)), 1000, 777, 3000),
+                  ("edge ladder: R_max 37, F 2, 8, 3, odd offsets", 37,
+                   ((2, 2), (9, 8), (37, 3)), 5, 3, 1))
 
 
 def cp_lines_sets(dev, encodings):
@@ -5133,20 +5213,29 @@ def cp_lines_sets(dev, encodings):
 def lines_cotangent(plan, seed, dev):
     """A [3, F_cp, R_max] cotangent laid out as K1's backward leaves it: the
     transposed view of a [3, R_max, F_cp] buffer."""
-    return cotangents((3, plan.lo.shape[1], plan.cols.shape[0]), seed, dev).transpose(1, 2)
+    return cotangents((3, plan.lo.shape[1], plan.n_cols), seed, dev).transpose(1, 2)
 
 
 def check_cp_lines(dev, sets):
-    """K14 against its plain version: the forward bit-equal, the backward
-    within GRAD_REL (with the same bits on two calls) at a cotangent in K1
-    bwd's layout -> (forward err, backward err)."""
+    """K14 against its plain version: the forward's float32 lines bit-equal
+    to the plain lines and its bf16 lines to the plain lines cast to bf16, in
+    one launch (its counter; the card tests count the device kernels by the
+    profiler); the backward within GRAD_REL (with the same bits on two calls)
+    at a cotangent in K1 bwd's layout -> (forward err, backward err)."""
     import torch
     from neuralsim_torch.fields.encodings import lotd
+    K14 = lotd.K14
     ef = eb = 0.0
     for i, (label, table, plan) in enumerate(sets):
-        ef = max(ef, compare(f"K14 {label} F_cp={plan.cols.shape[0]} R_max={plan.lo.shape[1]}",
-                             [lotd.lotd_cp_lines(table, plan)],
-                             [lotd.lotd_cp_lines_plain(table, plan)], 0.0, 0.0, exact=True))
+        got, want = lotd.lotd_cp_lines(table, plan), lotd.lotd_cp_lines_plain(table, plan)
+        tag = f"K14 {label} F_cp={plan.n_cols} R_max={plan.lo.shape[1]}"
+        if got[1].dtype != torch.bfloat16:
+            raise AssertionError(f"{tag}: the second lines should be bf16")
+        ef = max(ef, compare(tag, got, want, 0.0, 0.0, exact=True))   # want[1]: want[0] cast
+        n0 = K14.launches
+        lotd.lotd_cp_lines(table, plan)
+        if K14.launches != n0 + 1:
+            raise AssertionError(f"{tag}: K14 should be one launch a call")
         g = lines_cotangent(plan, 90 + i, dev)
         got = lotd.lotd_cp_lines_bwd(g, table.numel(), plan)
         if not torch.equal(got, lotd.lotd_cp_lines_bwd(g, table.numel(), plan)):
@@ -5229,9 +5318,9 @@ def time_cp_lines(sets):
     out = {}
     for i, (label, table, plan) in enumerate(sets):
         L, Rmax = plan.lo.shape
-        Fcp, E = plan.cols.shape[0], plan.tap_j.numel()
+        Fcp, E = plan.n_cols, plan.tap_j.numel()
         shape = f"{label}: L={L} F_cp={Fcp} R_max={Rmax}, {plan.n_entries} CP entries"
-        lines = lotd.lotd_cp_lines(table, plan)
+        lines = lotd.lotd_cp_lines(table, plan)[0]
         out.setdefault("lotd_cp_lines", []).append(dict(
             **card_ms(lambda: lotd.lotd_cp_lines(table, plan)),
             plain_ms=cuda_ms(lambda: lotd.lotd_cp_lines_plain(table, plan), reps=5),
@@ -5239,8 +5328,9 @@ def time_cp_lines(sets):
             interpolate_ms=cuda_ms(lambda: interpolated_lines(table, plan)),
             interpolate_max_abs_err=float((interpolated_lines(table, plan) - lines)
                                           .abs().max()),
-            # the CP segments, taps and metadata read, the lines written
-            bound=bound(plan.n_entries * 4 + L * Rmax * 12 + Fcp * 16 + 3 * Fcp * Rmax * 4,
+            # the CP segments, taps (int32 lo, f32 w) and metadata read, the
+            # lines written in f32 and bf16; a lerp (4 operations) a value
+            bound=bound(plan.n_entries * 4 + L * Rmax * 8 + L * 24 + 3 * Fcp * Rmax * (4 + 2),
                         3 * Fcp * Rmax * 4)))
         g = lines_cotangent(plan, 95 + i, dev=table.device)
         out.setdefault("lotd_cp_lines.bwd", []).append(dict(
@@ -5306,6 +5396,8 @@ def main(argv) -> int:
     frames = render_frames(renderer, params, rig, dev)
     launches_render = {k.name: k.launches for k in kernels.KERNELS.values()}
     log(f"render slice: {N_FRAMES} frames of {rig.H}x{rig.W}, launches {launches_render}")
+    if launches_render["lotd_cp_lines"] != 1:
+        raise AssertionError("a render of one table version should launch K14 once")
     for name, n in launches_render.items():
         if n <= 0 and not name.endswith(".bwd") and \
                 name not in BENCH_ONLY + COMPOSE_ONLY + CROWD_ONLY + PERLEVEL_ONLY \

@@ -20,121 +20,251 @@
 // selected hits of a ray are in (rank, k) order, so a selected hit's slot is
 // the number of hits of the same ray with a smaller (rank, k).
 //
-// Two launches: one block per instance scans its hit row (rank and H_k); one
-// thread per ray walks its K pairs, writes order[pos] = k*N + r and
-// hit_c[pos] for pos < Bg, and the slot index r*M + slot (or the sink).
-// Indices only: the gradients flow through the values that the caller
-// gathers and scatters with them.
-// What bounds it on an H100: bytes (K*N hit bytes read; 8 + 1 (+ 8) bytes
-// written a selected row) against K*N*K compare-and-adds: neither comes near
-// a microsecond at the group's sizes, so it is bound by launch latency; the
-// design keeps it to two launches and no sort.
+// One launch of a thread-block cluster of C CTAs (C <= 16, past the portable
+// 8 with cudaFuncAttributeNonPortableClusterSizeAllowed: the pairs' work is
+// spread over the cluster's SMs only, and twice the SMs halve it; C = 1 where
+// N is 32 rays or fewer). The rays are cut into words of 32, and CTA c takes
+// WC consecutive words of every instance:
+//   1. a warp turns an (instance, word) into one word of hit bits with
+//      __ballot_sync, kept in shared memory with its popcount (a warp issues
+//      the loads of 8 items before their ballots: the hit mask's one round
+//      trip to device memory);
+//   2. a warp an instance scans its words' counts: each word's hits before it
+//      in the tile, and the instance's hits in the tile;
+//   3. after cluster.sync(), each CTA reads the other CTAs' counts from their
+//      shared memory (distributed shared memory): each instance's hits in the
+//      earlier CTAs, and H_k; a second cluster barrier, its arrival after the
+//      reads and its wait before the CTA exits, keeps every CTA's shared
+//      memory alive while another may still read it;
+//   4. a warp an (instance, word) again, skipping a word with no hit whose
+//      misses all fall past the budget: a lane's rank is the word's prefix +
+//      __popc(word & lanemask_lt); its place and slot follow the closed form
+//      from H and, for the slot, the other instances' words at the same 32
+//      rays, all in shared memory.
+// No global scratch, no second launch, no serial prefix.
+// What bounds it on an H100: neither bytes (K N hit bytes read, 8 + 1 (+ 8)
+// bytes written a selected row) nor the K compare-adds a pair: it is bound by
+// its dependent rounds (the hit mask's load, a block scan, two cluster
+// barriers, the stores), which the design keeps to one launch.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kScanThreads = 1024;
+constexpr int kThreads = 512;
+constexpr int kMaxCluster = 16;
+// the opt-in shared memory of a block on an H100; a larger layout is refused
+constexpr int kMaxSmem = 232448;
 
-// One block per instance: rank[k, r] = (inclusive count of hits up to r) - 1,
-// count[k] = H_k. Each thread counts a contiguous run of the row, the block
-// scans the runs' counts, then each thread writes its run's ranks.
-__global__ void pair_rank_kernel(const uint8_t* __restrict__ hit,   // [K, N] bool
-                                 int32_t* __restrict__ rank,        // [K, N]
-                                 int32_t* __restrict__ count,       // [K]
-                                 int N) {
-  __shared__ int sums[kScanThreads];
-  const int k = blockIdx.x, t = threadIdx.x;
-  const uint8_t* h = hit + (size_t)k * N;
-  const int per = (N + blockDim.x - 1) / blockDim.x;
-  const int lo = min(t * per, N), hi = min(lo + per, N);
-  int c = 0;
-  for (int i = lo; i < hi; ++i) c += h[i] != 0;
-  sums[t] = c;
-  __syncthreads();
-  for (int off = 1; off < blockDim.x; off <<= 1) {   // inclusive scan of the runs
-    const int v = t >= off ? sums[t - off] : 0;
-    __syncthreads();
-    sums[t] += v;
-    __syncthreads();
-  }
-  int run = sums[t] - c;                              // hits before this run
-  for (int i = lo; i < hi; ++i) {
-    run += h[i] != 0;
-    rank[(size_t)k * N + i] = run - 1;
-  }
-  if (t == blockDim.x - 1) count[k] = sums[t];
+// Words of 32 rays and their split over the cluster: WC words a CTA, C CTAs
+// (mirrored by ops/pair_compact.py pair_cluster_layout).
+struct Layout {
+  int C, WC;
+  size_t smem;
+};
+
+Layout layout_for(int K, int N) {
+  const int NW = (N + 31) / 32;
+  const int per = NW < kMaxCluster ? NW : kMaxCluster;
+  Layout l;
+  l.WC = (NW + per - 1) / per;
+  l.C = (NW + l.WC - 1) / l.WC;
+  l.smem = (2 * (size_t)K * l.WC + 4 * (size_t)K + 1) * sizeof(int);
+  return l;
 }
 
-// One thread per ray. smem: H_k, then the hits of the instances before k.
-__global__ void pair_select_kernel(const uint8_t* __restrict__ hit,     // [K, N] bool
-                                   const int32_t* __restrict__ rank,    // [K, N]
-                                   const int32_t* __restrict__ count,   // [K]
-                                   int64_t* __restrict__ order,         // [Bg]
-                                   uint8_t* __restrict__ hit_c,         // [Bg] bool
-                                   int64_t* __restrict__ slot_idx,      // [Bg] or null
-                                   int K, int N, int Bg, int M) {
+// inclusive sum over the warp's lanes
+__device__ __forceinline__ int warp_inclusive(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v += u;
+  }
+  return v;
+}
+
+// the (instance, word) items a warp loads before their ballots
+constexpr int kBatch = 8;
+
+// smem: words [K, WC] (the ballot words of the tile), pre [K, WC] (each
+// word's hits, then the hits of its instance before it in the tile), cnt
+// [K] (the tile's hits an instance, read by the cluster), base [K] (hits in
+// the earlier CTAs), H [K], before [K + 1] (the hits of the instances before
+// k; before[K] = T).
+__global__ void __launch_bounds__(kThreads)
+pair_compact_kernel(const uint8_t* __restrict__ hit,   // [K, N] bool
+                    int64_t* __restrict__ order,       // [Bg]
+                    uint8_t* __restrict__ hit_c,       // [Bg] bool
+                    int64_t* __restrict__ slot_idx,    // [Bg] or null
+                    int K, int N, int Bg, int M, int WC) {
   extern __shared__ int smem[];
-  int* H = smem;
-  int* before = smem + K;
-  for (int i = threadIdx.x; i < K; i += blockDim.x) H[i] = count[i];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int acc = 0;
-    for (int i = 0; i < K; ++i) { before[i] = acc; acc += H[i]; }
-    before[K] = acc;                                    // T
+  unsigned* words = reinterpret_cast<unsigned*>(smem);
+  int* pre = smem + (size_t)K * WC;
+  int* cnt = pre + (size_t)K * WC;
+  int* base = cnt + K;
+  int* H = base + K;
+  int* before = H + K;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int NW = (N + 31) >> 5, w0 = c * WC;
+  const int nw = max(0, min(WC, NW - w0));   // this CTA's words
+  const int items = K * nw;
+
+  // 1. each (instance, word) of the tile: one ballot, its word and hits
+  for (int i0 = warp; i0 < items; i0 += warps * kBatch) {
+    bool h[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b * warps;
+      const int k = i / nw, lw = i - k * nw;
+      const int r = ((w0 + lw) << 5) + lane;
+      h[b] = i < items && r < N && hit[(size_t)k * N + r] != 0;
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b * warps;
+      const int k = i / nw, lw = i - k * nw;
+      const unsigned word = __ballot_sync(0xffffffffu, h[b]);
+      if (lane == 0 && i < items) {
+        words[k * WC + lw] = word;
+        pre[k * WC + lw] = __popc(word);
+      }
+    }
   }
   __syncthreads();
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= N) return;
+  // 2. a warp an instance: each word's hits before it in the tile
+  for (int k = warp; k < K; k += warps) {
+    int run = 0;
+    for (int lw0 = 0; lw0 < nw; lw0 += 32) {
+      const int lw = lw0 + lane;
+      const int v = lw < nw ? pre[k * WC + lw] : 0;
+      const int s = warp_inclusive(v, lane);
+      if (lw < nw) pre[k * WC + lw] = run + s - v;
+      run += __shfl_sync(0xffffffffu, s, 31);
+    }
+    if (lane == 0) cnt[k] = run;
+  }
+  cluster.sync();
+  // 3. each instance's hits in the earlier CTAs and in all, from their
+  // shared memory
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    int b = 0, t = 0;
+#pragma unroll 8
+    for (int q = 0; q < C; ++q) {
+      const int v = cluster.map_shared_rank(cnt, q)[k];
+      b += q < c ? v : 0;
+      t += v;
+    }
+    base[k] = b;
+    H[k] = t;
+  }
+  // this CTA's remote reads are done; the wait, before it exits, holds its
+  // own shared memory until every CTA's are
+  asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+  __syncthreads();
+  // the hits of the instances before each, one warp
+  if (warp == 0) {
+    int run = 0;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int k = k0 + lane;
+      const int v = k < K ? H[k] : 0;
+      const int s = warp_inclusive(v, lane);
+      if (k < K) before[k] = run + s - v;
+      run += __shfl_sync(0xffffffffu, s, 31);
+    }
+    if (lane == 0) before[K] = run;
+  }
+  __syncthreads();
   const long long T = before[K];
   const long long sink = (long long)N * M;
-  for (int k = 0; k < K; ++k) {
-    const size_t at = (size_t)k * N + r;
-    const bool h = hit[at] != 0;
-    const int j = rank[at];
+
+  // 4. every pair of the tile: its place and, where selected, its row, flag
+  // and slot
+  for (int i = warp; i < items; i += warps) {
+    const int k = i / nw, lw = i - k * nw;
+    const int r = ((w0 + lw) << 5) + lane;
+    const bool in = r < N;
+    const unsigned word = words[k * WC + lw];
+    const int j0 = base[k] + pre[k * WC + lw];                // hits before the word
+    if (word == 0 && T + (long long)k * N + r - lane - before[k] - j0 >= Bg) continue;
+    const bool h = (word >> lane) & 1u;
+    // the hits of instance k before ray r: a hit's rank
+    const int j = j0 + __popc(word & below);
     long long pos;
     if (h) {
       pos = 0;
-      for (int q = 0; q < K; ++q) pos += min(H[q], j) + (q < k && H[q] > j ? 1 : 0);
+#pragma unroll 8
+      for (int q = 0; q < K; ++q) {
+        const int Hq = H[q];
+        pos += min(Hq, j) + (q < k && Hq > j ? 1 : 0);
+      }
     } else {
-      // the misses of earlier rows, and this row's misses before r
-      pos = T + (long long)k * N + r - ((long long)before[k] + j + 1);
+      pos = T + (long long)k * N + r - before[k] - j;
     }
-    if (pos >= Bg) continue;
-    order[pos] = (long long)k * N + r;
-    hit_c[pos] = h ? 1 : 0;
+    const bool sel = in && pos < Bg;
+    if (sel) {
+      order[pos] = (long long)k * N + r;
+      hit_c[pos] = h ? 1 : 0;
+    }
     if (slot_idx == nullptr) continue;
-    if (!h) {
-      slot_idx[pos] = sink;
-      continue;
-    }
-    int slot = 0;      // the hits of ray r selected before this one
+    if (sel && !h) slot_idx[pos] = sink;
+    const bool want = sel && h;
+    if (!want) continue;
+    // the hits of ray r with a smaller (rank, instance): each instance's word
+    int slot = 0;
+#pragma unroll 8
     for (int q = 0; q < K; ++q) {
-      const size_t aq = (size_t)q * N + r;
-      if (q != k && hit[aq] && (rank[aq] < j || (rank[aq] == j && q < k))) ++slot;
+      const unsigned wq = words[q * WC + lw];
+      const int jq = base[q] + pre[q * WC + lw] + __popc(wq & below);
+      slot += (wq >> lane) & 1u && (jq < j || (jq == j && q < k)) ? 1 : 0;
     }
     slot_idx[pos] = slot < M ? (long long)r * M + slot : sink;
   }
+  asm volatile("barrier.cluster.wait;" ::: "memory");
 }
 
 }  // namespace
 
 // hit [K, N] bool -> order [Bg] int64, hit_c [Bg] bool and, where slot_idx is
-// not null, the slot index [Bg] int64 of each row among M lanes a ray.
-// rank [K, N] and count [K] int32 are scratch.
-extern "C" int pair_compact(const void* hit, void* rank, void* count, void* order, void* hit_c,
-                            void* slot_idx, int K, int N, int Bg, int M, void* stream) {
-  if (K < 1 || N < 1 || Bg < 1 || Bg > K * N || K > 4096 || (slot_idx && M < 1))
+// not null, the slot index [Bg] int64 of each row among M lanes a ray. One
+// launch, one cluster; refused (cudaErrorInvalidValue) where the layout's
+// shared memory passes the card's 227 KB.
+extern "C" int pair_compact(const void* hit, void* order, void* hit_c, void* slot_idx, int K,
+                            int N, int Bg, int M, void* stream) {
+  if (K < 1 || N < 1 || Bg < 1 || (long long)Bg > (long long)K * N || K > 4096 ||
+      (slot_idx && M < 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  pair_rank_kernel<<<K, kScanThreads, 0, s>>>((const uint8_t*)hit, (int32_t*)rank,
-                                              (int32_t*)count, N);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int threads = 128;
-  pair_select_kernel<<<(N + threads - 1) / threads, threads, (2 * K + 1) * sizeof(int), s>>>(
-      (const uint8_t*)hit, (const int32_t*)rank, (const int32_t*)count, (int64_t*)order,
-      (uint8_t*)hit_c, (int64_t*)slot_idx, K, N, Bg, M);
+  const Layout l = layout_for(K, N);
+  if (l.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (l.C > 8 && (e = cudaFuncSetAttribute(pair_compact_kernel,
+                                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+                     cudaSuccess)
+    return (int)e;
+  if (l.smem > 48 * 1024 &&
+      (e = cudaFuncSetAttribute(pair_compact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)l.smem)) != cudaSuccess)
+    return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(l.C, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = l.smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = l.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if ((e = cudaLaunchKernelEx(&cfg, pair_compact_kernel, (const uint8_t*)hit, (int64_t*)order,
+                              (uint8_t*)hit_c, (int64_t*)slot_idx, K, N, Bg, M, l.WC)) !=
+      cudaSuccess)
+    return (int)e;
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,9 @@ table copies over as is. Level types:
   per-axis linear interpolations. With two or more CP levels (the JAX default,
   "stacked CP") every level's lines are first resampled onto one grid of the
   largest CP resolution (the ``lotd_cp_lines`` kernel, K14, once for all
-  levels); the lookup is the ``lotd_cp_stacked`` kernel (K1).
+  levels, which writes them in float32 for autograd and in the bf16 that K1
+  reads; without grad the encoding keeps them until its table changes); the
+  lookup is the ``lotd_cp_stacked`` kernel (K1).
   A single CP level, or any number under ``NEURALSIM_CP_STACKED=0`` (read
   when the encoding is built, as JAX does), takes the per-level path: each
   level's own lines straight from the table, all levels in one launch of the
@@ -510,6 +512,15 @@ def lotd_grid_layout_plain(table: torch.Tensor, pos01: torch.Tensor,
     _grid_levels_plain(segment, pos01, meta_rows, out, jac)
 
 
+def _table_key(table: torch.Tensor) -> Tuple[Any, ...]:
+    """What identifies a table's contents for the copies kept from it."""
+    return (weakref.ref(table), table.device, table.data_ptr(), table._version)
+
+
+def _same_table(key: Optional[Tuple[Any, ...]], table: torch.Tensor) -> bool:
+    return key is not None and key[0]() is table and key[1:] == _table_key(table)[1:]
+
+
 class GridScratch:
     """K3 forward's interleaved scratch, kept across calls on one table: the
     launch fills it again only where the table's storage or version has
@@ -521,21 +532,16 @@ class GridScratch:
         self.buf: Optional[torch.Tensor] = None
         self.key: Optional[Tuple[Any, ...]] = None
 
-    @staticmethod
-    def _key(table: torch.Tensor) -> Tuple[Any, ...]:
-        return (weakref.ref(table), table.device, table.data_ptr(), table._version)
-
     def take(self, table: torch.Tensor, n: int) -> Tuple[torch.Tensor, bool]:
         """The scratch of ``n`` floats for ``table``, and whether it must be
         filled from it."""
         if self.buf is None or self.buf.numel() != n or self.buf.device != table.device:
             self.buf = torch.empty(n, dtype=torch.float32, device=table.device)
             self.key = None
-        key = self._key(table)
-        return self.buf, self.key is None or self.key[0]() is not table or self.key[1:] != key[1:]
+        return self.buf, not _same_table(self.key, table)
 
     def filled(self, table: torch.Tensor) -> None:
-        self.key = self._key(table)
+        self.key = _table_key(table)
 
 
 def lotd_grid(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor,
@@ -675,9 +681,8 @@ class CpLinesPlan(NamedTuple):
     """K14's static plan for the CP levels stacked in order: each level's
     two taps onto R_max and, for the backward, the taps by source row and
     the work items that cover the table gradient."""
-    lo: torch.Tensor       # int64 [L, R_max]: the lower tap's row
+    lo: torch.Tensor       # int32 [L, R_max]: the lower tap's row
     w: torch.Tensor        # float32 [L, R_max]: the upper tap's weight
-    cols: torch.Tensor     # int32 [F_cp, 4]: (offset + f, R, F, level) of each stacked feature
     levels: torch.Tensor   # int32 [L, 6]: (first CP entry, offset, R, F, first column, first row)
     rowptr: torch.Tensor   # int32 [sum R + 1]: a CSR over the levels' rows ...
     tap_j: torch.Tensor    # int32 [2 L R_max]: ... of the R_max positions that read each row
@@ -685,12 +690,13 @@ class CpLinesPlan(NamedTuple):
     items: torch.Tensor    # int32 [n_items, 4]: the backward's warps, see cp_lines_items
     n_entries: int         # the CP entries of the table, sum of 3 R F
     n_table: int           # the table's floats, all of which the backward writes
+    n_cols: int            # F_cp, the stacked features: the levels' F summed
 
     def to(self, device) -> "CpLinesPlan":
         return self._replace(**{k: getattr(self, k).to(device) for k in CP_LINES_TENSORS})
 
 
-CP_LINES_TENSORS = CpLinesPlan._fields[:-2]
+CP_LINES_TENSORS = CpLinesPlan._fields[:-3]
 # the backward's taps a lane, tried in this order: the first whose work list
 # has at most CP_LINES_MAX_ITEMS warps (those an H100 holds at once, 32 an
 # SM) is taken; a small table takes more lanes an entry and a shorter tap
@@ -747,7 +753,7 @@ def cp_lines_plan(levels: Sequence[Tuple[int, int, int]], rmax: int,
     the upper tap min(lo + 1, R - 1), clamped where R is 1. A row's taps are
     listed by position, the lower tap first (CPU tensors). ``n_table``: the
     table's floats (by default where the last CP segment ends)."""
-    los, ws, cols, meta, tap_j, tap_w = [], [], [], [], [], []
+    los, ws, meta, tap_j, tap_w = [], [], [], [], []
     rowptr = [0]
     entry = col = row = 0
     for k, (R, F, offset) in enumerate(levels):
@@ -759,7 +765,6 @@ def cp_lines_plan(levels: Sequence[Tuple[int, int, int]], rmax: int,
         order = np.lexsort((np.repeat([0, 1], rmax), j, src))   # by row, position, tap
         los.append(lo)
         ws.append(w)
-        cols += [(offset + f, R, F, k) for f in range(F)]
         meta.append((entry, offset, R, F, col, row))
         tap_j.append(j[order])
         tap_w.append(np.concatenate([np.float32(1.0) - w, w])[order])
@@ -768,26 +773,38 @@ def cp_lines_plan(levels: Sequence[Tuple[int, int, int]], rmax: int,
     if n_table is None:
         n_table = max(offset + 3 * R * F for R, F, offset in levels)
     T = lambda a, dt: torch.from_numpy(np.ascontiguousarray(np.asarray(a, dt)))
-    return CpLinesPlan(T(np.stack(los), np.int64), T(np.stack(ws), np.float32),
-                       T(cols, np.int32).reshape(-1, 4), T(meta, np.int32).reshape(-1, 6),
+    return CpLinesPlan(T(np.stack(los), np.int32), T(np.stack(ws), np.float32),
+                       T(meta, np.int32).reshape(-1, 6),
                        T(rowptr, np.int32), T(np.concatenate(tap_j), np.int32),
                        T(np.concatenate(tap_w), np.float32),
                        torch.from_numpy(cp_lines_work(meta, np.asarray(rowptr), n_table)[1]),
-                       entry, n_table)
+                       entry, n_table, col)
 
 
-def lotd_cp_lines_plain(table: torch.Tensor, plan: CpLinesPlan) -> torch.Tensor:
+class CpLines(NamedTuple):
+    """The stacked lines [3, F_cp, R_max] in both forms K14 writes: ``f32``,
+    the tensor that autograd differentiates (the edge into K14's backward),
+    and ``bf16``, the same values rounded to bf16, which K1 reads (no
+    gradient)."""
+    f32: torch.Tensor
+    bf16: torch.Tensor
+
+
+def lotd_cp_lines_plain(table: torch.Tensor, plan: CpLinesPlan
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K14, JAX's ``_cp_stacked_lines`` op for op: per
-    level two row takes and a lerp, stacked -> [3, F_cp, R_max] float32."""
+    level two row takes and a lerp, stacked -> [3, F_cp, R_max] float32, and
+    that rounded to bf16 (detached)."""
     cols = []
     for k, (_, offset, R, F, _, _) in enumerate(plan.levels.tolist()):
         seg = table[offset:offset + 3 * R * F].view(3, R, F)
-        lo = plan.lo[k]
+        lo = plan.lo[k].long()
         w = plan.w[k][:, None]
         l0 = seg[:, lo]
         l1 = seg[:, torch.clamp(lo + 1, max=R - 1)]
         cols.append(l0 * (1.0 - w) + l1 * w)
-    return torch.cat(cols, dim=-1).transpose(1, 2).contiguous()
+    lines = torch.cat(cols, dim=-1).transpose(1, 2).contiguous()
+    return lines, lines.detach().to(torch.bfloat16)
 
 
 def lotd_cp_lines_bwd_plain(d_lines: torch.Tensor, n_table: int,
@@ -797,26 +814,30 @@ def lotd_cp_lines_bwd_plain(d_lines: torch.Tensor, n_table: int,
     level) -> d table [n_table] float32."""
     with torch.enable_grad():
         table = d_lines.new_zeros(n_table).requires_grad_(True)
-        return torch.autograd.grad(lotd_cp_lines_plain(table, plan), table, d_lines)[0]
+        return torch.autograd.grad(lotd_cp_lines_plain(table, plan)[0], table, d_lines)[0]
 
 
 def _lines_shape(plan: CpLinesPlan) -> Tuple[int, int, int]:
-    return 3, plan.cols.shape[0], plan.lo.shape[1]
+    return 3, plan.n_cols, plan.lo.shape[1]
 
 
-def lotd_cp_lines(table: torch.Tensor, plan: CpLinesPlan) -> torch.Tensor:
-    """K14 wrapper: the plain version on the CPU, the CUDA kernel on the card
-    (bit-equal to it). ``plan`` must describe CP levels inside ``table``."""
+def lotd_cp_lines(table: torch.Tensor, plan: CpLinesPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K14 wrapper: the stacked lines [3, F_cp, R_max] in float32 and in bf16
+    (the plain version on the CPU; on the card one launch writes both,
+    bit-equal to it). ``plan`` must describe CP levels inside ``table``."""
     if table.device.type == "cpu":
         return lotd_cp_lines_plain(table, plan)
-    kernels.check_cuda("lotd_cp_lines", table, plan.cols, plan.lo, plan.w)
+    kernels.check_cuda("lotd_cp_lines", table, plan.levels, plan.lo, plan.w)
     if table.dtype != torch.float32 or table.dim() != 1:
         raise ValueError("lotd_cp_lines: table must be a flat float32 tensor")
+    if plan.lo.dtype != torch.int32:
+        raise ValueError("lotd_cp_lines: the plan's lo must be int32")
     out = torch.empty(_lines_shape(plan), dtype=torch.float32, device=table.device)
-    K14.launch("lotd_cp_lines_fwd", kernels.ptr(table), kernels.ptr(plan.cols),
-               kernels.ptr(plan.lo), kernels.ptr(plan.w), kernels.ptr(out), out.shape[1],
-               out.shape[2], kernels.stream())
-    return out
+    out16 = torch.empty(_lines_shape(plan), dtype=torch.bfloat16, device=table.device)
+    K14.launch("lotd_cp_lines_fwd", kernels.ptr(table), kernels.ptr(plan.levels),
+               kernels.ptr(plan.lo), kernels.ptr(plan.w), kernels.ptr(out), kernels.ptr(out16),
+               plan.levels.shape[0], out.shape[1], out.shape[2], kernels.stream())
+    return out, out16
 
 
 def lotd_cp_lines_bwd(d_lines: torch.Tensor, n_table: int, plan: CpLinesPlan) -> torch.Tensor:
@@ -846,17 +867,44 @@ def lotd_cp_lines_bwd(d_lines: torch.Tensor, n_table: int, plan: CpLinesPlan) ->
 
 
 class _CpLinesOnCard(torch.autograd.Function):
-    """K14 and its backward under autograd: the stacked lines from the table,
-    their gradient into the table's CP entries."""
+    """K14 and its backward under autograd: the stacked lines from the table
+    in float32 and bf16, the float32 lines' gradient into the table's CP
+    entries. The bf16 lines are marked non-differentiable: autograd casts an
+    output's gradient to its dtype, and the lines' gradient stays float32."""
 
     @staticmethod
     def forward(ctx, table, plan):
         ctx.plan, ctx.n_table = plan, table.numel()
-        return lotd_cp_lines(table, plan)
+        lines, lines_bf16 = lotd_cp_lines(table, plan)
+        ctx.mark_non_differentiable(lines_bf16)
+        return lines, lines_bf16
 
     @staticmethod
-    def backward(ctx, d_lines):
+    def backward(ctx, d_lines, _):
         return lotd_cp_lines_bwd(d_lines, ctx.n_table, ctx.plan), None
+
+
+class LinesCache:
+    """The stacked lines an encoding made without grad, kept until its table
+    changes: served again only where the table is the same tensor on the same
+    device with the same storage and ``_version`` (which moves with every
+    in-place write: ModelAdam's ``copy_``, the bridge's ``copy_``, a
+    checkpoint load; a write through ``.data`` is not seen, as for
+    :class:`GridScratch`). Lines made with grad belong to their step's graph
+    and are never stored; lines are never served with grad enabled
+    (:meth:`LoTDEncoding.kernel_lines` asks only without)."""
+
+    def __init__(self):
+        self.lines: Optional[CpLines] = None
+        self.key: Optional[Tuple[Any, ...]] = None
+
+    def get(self, table: torch.Tensor) -> Optional[CpLines]:
+        return self.lines if _same_table(self.key, table) else None
+
+    def put(self, table: torch.Tensor, lines: CpLines) -> None:
+        if lines.f32.requires_grad:
+            raise ValueError("LinesCache: lines made with grad are not kept")
+        self.lines, self.key = lines, _table_key(table)
 
 
 # ---------------------------------------------------------------------------
@@ -866,20 +914,18 @@ class _CpLinesOnCard(torch.autograd.Function):
 class _EncodeOnCard(torch.autograd.Function):
     """K1 (stacked CP), K2 (per-level CP) and K3 forward into one
     feature-major buffer; their backwards into the float32 stacked lines and
-    the table. The stacked lines are rounded to bf16 here, inside, and K2
-    rounds the table's CP segments as it reads them, so their gradients come
-    back unrounded."""
+    the table. K1 reads the bf16 lines that K14 wrote beside the float32
+    ones (``lines_bf16``, data), and K2 rounds the table's CP segments as it
+    reads them, so their gradients come back unrounded, in float32."""
 
     @staticmethod
-    def forward(ctx, lines, table, xf, cp_rows, cp_meta, grid_meta, grid_plans, out_dim,
-                with_jac):
+    def forward(ctx, lines, lines_bf16, table, xf, cp_rows, cp_meta, grid_meta, grid_plans,
+                out_dim, with_jac):
         N = xf.shape[0]
         out = torch.empty((out_dim, N), dtype=torch.float32, device=xf.device)
         jac = torch.empty((3, out_dim, N), dtype=torch.float32, device=xf.device) \
             if with_jac else None
-        lines_bf16 = None
         if lines is not None:
-            lines_bf16 = lines.to(torch.bfloat16)
             lotd_cp_stacked(lines_bf16, xf, cp_rows, out, jac)
         if cp_meta.shape[0]:
             lotd_cp_level(table, xf, cp_meta, out, jac)
@@ -897,16 +943,16 @@ class _EncodeOnCard(torch.autograd.Function):
         d_jac = None if d_jac is None else d_jac.contiguous()
         d_lines = d_table = None
         if d_out is None and d_jac is None:
-            return (None,) * 9
+            return (None,) * 10
         if lines_bf16 is not None and ctx.needs_input_grad[0]:
             d_lines = lotd_cp_stacked_bwd(lines_bf16, xf, cp_rows, d_out, d_jac)
-        if ctx.needs_input_grad[1]:
+        if ctx.needs_input_grad[2]:
             if grid_meta.shape[0]:
                 d_table = lotd_grid_bwd(table.numel(), xf, grid_meta, d_out, d_jac,
                                         ctx.grid_plan.at(xf.shape[0]))
             if cp_meta.shape[0]:
                 d_table = lotd_cp_level_bwd(table, xf, cp_meta, d_out, d_jac, d_table)
-        return d_lines, d_table, None, None, None, None, None, None, None
+        return d_lines, None, d_table, None, None, None, None, None, None, None
 
 
 class LoTDEncoding(nn.Module):
@@ -993,6 +1039,7 @@ class LoTDEncoding(nn.Module):
         self.grid_fwd_plan = grid_fwd_plan(meta)
         self.grid_bwd_plan = grid_bwd_plan(meta)
         self.grid_scratch = GridScratch()
+        self.lines_cache = LinesCache()
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -1008,28 +1055,44 @@ class LoTDEncoding(nn.Module):
     def cp_lines_plan(self) -> CpLinesPlan:
         """K14's plan, on the encoding's device (stacked CP only)."""
         return CpLinesPlan(*(getattr(self, f"_cp_lines_{name}") for name in CP_LINES_TENSORS),
-                           self._cp_lines_entries, self.total_params)
+                           self._cp_lines_entries, self.total_params, self.cp_out_dim)
 
-    def cp_stacked_lines(self) -> torch.Tensor:
+    def _make_lines(self) -> CpLines:
         """Resample every CP level's lines onto the R_max grid and stack them
-        along features -> [3, F_cp, R_max] float32 (it depends on the
-        parameters only): the plain version on the CPU, K14 and its backward
-        on the card."""
+        along features, in float32 and bf16: the plain version on the CPU, K14
+        (one launch) and its backward on the card."""
         plan = self.cp_lines_plan()
         if self.table.device.type == "cpu":
-            return lotd_cp_lines_plain(self.table, plan)
-        return _CpLinesOnCard.apply(self.table, plan)
+            return CpLines(*lotd_cp_lines_plain(self.table, plan))
+        return CpLines(*_CpLinesOnCard.apply(self.table, plan))
 
-    def kernel_lines(self) -> Optional[torch.Tensor]:
-        """The float32 stacked lines behind K1 (which rounds them to bf16),
-        or None without stacked CP levels (K2 reads the table itself). They
-        depend on the parameters only, so a caller that encodes several
-        batches with the same parameters computes them once and passes them
-        in (XLA hoists the same work out of the JAX package's chunked eval);
-        gradients reach ``table`` through them."""
-        return self.cp_stacked_lines() if self.cp_stacked else None
+    def cp_stacked_lines(self) -> torch.Tensor:
+        """The stacked lines [3, F_cp, R_max] float32 (they depend on the
+        parameters only), made anew, under autograd where it is enabled."""
+        return self._make_lines().f32
 
-    def _encode(self, x: torch.Tensor, with_jac: bool, cp_lines: Optional[torch.Tensor]):
+    def kernel_lines(self) -> Optional[CpLines]:
+        """The stacked lines behind K1 (:class:`CpLines`: the float32 lines
+        that gradients flow through, and the bf16 lines K1 reads), or None
+        without stacked CP levels (K2 reads the table itself). They depend on
+        the parameters only, so a caller that encodes several batches with the
+        same parameters computes them once and passes them in (XLA hoists the
+        same work out of the JAX package's chunked eval). With grad enabled
+        each call makes them anew, for that step's graph; without grad, a
+        call on an unchanged table returns the lines kept from the last such
+        call (:class:`LinesCache`), so a render makes them once a table
+        version."""
+        if not self.cp_stacked:
+            return None
+        if torch.is_grad_enabled():
+            return self._make_lines()
+        lines = self.lines_cache.get(self.table)
+        if lines is None:
+            lines = self._make_lines()
+            self.lines_cache.put(self.table, lines)
+        return lines
+
+    def _encode(self, x: torch.Tensor, with_jac: bool, cp_lines: Optional[CpLines]):
         lead = x.shape[:-1]
         xf = x.reshape(-1, 3).to(torch.float32).contiguous()
         N = xf.shape[0]
@@ -1042,13 +1105,14 @@ class LoTDEncoding(nn.Module):
             out = torch.empty((self.out_dim, N), dtype=torch.float32)
             jac = torch.empty((3, self.out_dim, N), dtype=torch.float32) if with_jac else None
             if self.cp_stacked:
-                lotd_cp_stacked(_RoundBf16.apply(cp_lines), xf, self._cp_rows, out, jac)
+                lotd_cp_stacked(_RoundBf16.apply(cp_lines.f32), xf, self._cp_rows, out, jac)
             elif self.cp_spec_ids:
                 lotd_cp_level(self.table, xf, self._cp_meta, out, jac)
             if self.grid_spec_ids:
                 lotd_grid(self.table, xf, self._grid_meta, out, jac)
         else:
-            out, jac = _EncodeOnCard.apply(cp_lines if self.cp_stacked else None, self.table,
+            f32, bf16 = cp_lines if self.cp_stacked else (None, None)
+            out, jac = _EncodeOnCard.apply(f32, bf16, self.table,
                                            xf, self._cp_rows, self._cp_meta, self._grid_meta,
                                            ((self.grid_fwd_plan, self.grid_scratch),
                                             self.grid_bwd_plan),
@@ -1058,13 +1122,13 @@ class LoTDEncoding(nn.Module):
             return h
         return h, jac.permute(2, 1, 0).reshape(lead + (self.out_dim, 3))
 
-    def forward(self, x: torch.Tensor, cp_lines: Optional[torch.Tensor] = None
+    def forward(self, x: torch.Tensor, cp_lines: Optional[CpLines] = None
                 ) -> torch.Tensor:
         """x: [..., 3] in [0, 1] -> features [..., out_dim]. ``cp_lines``:
         :meth:`kernel_lines`, when the caller already has them."""
         return self._encode(x, False, cp_lines)
 
-    def with_jacobian(self, x: torch.Tensor, cp_lines: Optional[torch.Tensor] = None
+    def with_jacobian(self, x: torch.Tensor, cp_lines: Optional[CpLines] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Features [..., out_dim] and jac [..., out_dim, 3] = d feats / d x01."""
         return self._encode(x, True, cp_lines)

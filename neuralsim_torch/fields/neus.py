@@ -33,7 +33,7 @@ from ..maths.common import safe_normalize
 from ..ops.segment import alpha_to_vw, det_u_on, merge_sorted_samples, sample_pdf
 from .blocks import MLP
 from .embedders import sh_embedder
-from .encodings.lotd import make_lotd
+from .encodings.lotd import CpLines, make_lotd
 from .spatial import AABBSpace
 
 K5A = kernels.register("neus_upsample.weights_pdf", "neuralsim_torch/csrc/neus_upsample.cu",
@@ -237,7 +237,7 @@ class NeuSField(nn.Module):
                                       "(the batched LoTD tables are not ported)")
         return h
 
-    def query_sdf_feat(self, x: torch.Tensor, cp_lines: Optional[torch.Tensor] = None,
+    def query_sdf_feat(self, x: torch.Tensor, cp_lines: Optional[CpLines] = None,
                        bidx: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [..., 3] object coords -> (sdf [...], geometry feature [..., F]).
@@ -251,11 +251,11 @@ class NeuSField(nn.Module):
                          - self._sphere_bias())
         return sdf, out[..., 1:]
 
-    def query_sdf(self, x: torch.Tensor, cp_lines: Optional[torch.Tensor] = None,
+    def query_sdf(self, x: torch.Tensor, cp_lines: Optional[CpLines] = None,
                   bidx: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.query_sdf_feat(x, cp_lines, bidx)[0]
 
-    def sdf_nablas_feat(self, x: torch.Tensor, cp_lines: Optional[torch.Tensor] = None,
+    def sdf_nablas_feat(self, x: torch.Tensor, cp_lines: Optional[CpLines] = None,
                         bidx: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(sdf, nablas, feat) with analytic nablas: the encoding's jacobian

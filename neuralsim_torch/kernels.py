@@ -50,12 +50,12 @@ SIGNATURES: Dict[str, str] = {
     "occ_ema_update": "ppppiiifffffp",
     "cross_source_vw": "ppppppiip",
     "cross_source_vw_bwd": "ppppppiip",
-    "pair_compact": "ppppppiiiip",
+    "pair_compact": "ppppiiiip",
     "permuto_fwd": "pppppppiiiiip",
     "permuto_bwd": "ppppppppppiiiiip",
     "latent_take_fwd": "pppiiiiip",
     "latent_take_bwd": "pppppiiiiiiip",
-    "lotd_cp_lines_fwd": "pppppiip",
+    "lotd_cp_lines_fwd": "ppppppiiip",
     "lotd_cp_lines_bwd": "pppppppiiiip",
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

@@ -12,11 +12,12 @@ scatter drops (a ray crossing more than M boxes loses its later hits, as in
 the JAX package).
 
 ``pair_compact`` is the kernel on the card (``csrc/pair_compact.cu``, a
-closed-form rank per pair in place of the sort) and the plain version on the
-CPU, which runs the JAX package's own lines: an ``argsort`` of the keys, and
-for the slots an ``argsort`` of the rows' rays and a ``searchsorted``. Both
-return indices only; gradients flow through the values gathered and scattered
-with them.
+closed-form place per pair in place of the sort, one launch of a thread-block
+cluster: :func:`pair_cluster_layout` says how the rays are split over it) and
+the plain version on the CPU, which runs the JAX package's own lines: an
+``argsort`` of the keys, and for the slots an ``argsort`` of the rows' rays
+and a ``searchsorted``. Both return indices only; gradients flow through the
+values gathered and scattered with them.
 """
 from __future__ import annotations
 
@@ -28,6 +29,24 @@ from .. import kernels
 
 K11 = kernels.register("pair_compact", "neuralsim_torch/csrc/pair_compact.cu",
                        "neuralsim_tpu/renderers/buffer_compose.py:181")
+
+
+# the kernel's cluster: at most PAIR_CLUSTER_MAX CTAs (past the portable 8:
+# an H100 schedules 16), a CTA's shared memory at most PAIR_COMPACT_SMEM bytes
+# (an H100 block's opt-in)
+PAIR_CLUSTER_MAX = 16
+PAIR_COMPACT_SMEM = 232_448
+
+
+def pair_cluster_layout(K: int, N: int) -> Tuple[int, int, int]:
+    """K11's split of the rays over its cluster, as ``csrc/pair_compact.cu``
+    computes it: words of 32 rays, WC consecutive words of every instance a
+    CTA, C CTAs (C = 1 where N <= 32), and the bytes of a CTA's shared
+    memory (a ballot word and a count an (instance, word) of its tile, and
+    4 K + 1 ints) -> (C, WC, bytes)."""
+    n_words = (N + 31) // 32
+    wc = -(-n_words // min(n_words, PAIR_CLUSTER_MAX))
+    return -(-n_words // wc), wc, (2 * K * wc + 4 * K + 1) * 4
 
 
 def pair_budget(K: int, N: int, frac: float) -> int:
@@ -71,15 +90,16 @@ def pair_compact(hit: torch.Tensor, Bg: int, M: Optional[int] = None
     K, N = hit.shape
     if not 1 <= Bg <= K * N or (M is not None and M < 1) or K > 4096:
         raise ValueError(f"pair_compact: Bg {Bg} must lie in [1, K N] and M >= 1, K <= 4096")
+    smem = pair_cluster_layout(K, N)[2]
+    if smem > PAIR_COMPACT_SMEM:
+        raise ValueError(f"pair_compact: hit [{K}, {N}] needs {smem} bytes of shared memory a "
+                         f"CTA, past PAIR_COMPACT_SMEM ({PAIR_COMPACT_SMEM})")
     hit = hit.contiguous()
     kernels.check_cuda("pair_compact", hit)
     dev = hit.device
-    rank = torch.empty((K, N), dtype=torch.int32, device=dev)
-    count = torch.empty((K,), dtype=torch.int32, device=dev)
     order = torch.empty((Bg,), dtype=torch.int64, device=dev)
     hit_c = torch.empty((Bg,), dtype=torch.bool, device=dev)
     slot_idx = None if M is None else torch.empty((Bg,), dtype=torch.int64, device=dev)
-    K11.launch("pair_compact", kernels.ptr(hit), kernels.ptr(rank), kernels.ptr(count),
-               kernels.ptr(order), kernels.ptr(hit_c), kernels.ptr(slot_idx), K, N, Bg,
-               0 if M is None else M, kernels.stream())
+    K11.launch("pair_compact", kernels.ptr(hit), kernels.ptr(order), kernels.ptr(hit_c),
+               kernels.ptr(slot_idx), K, N, Bg, 0 if M is None else M, kernels.stream())
     return order, hit_c, slot_idx

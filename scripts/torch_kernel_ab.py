@@ -2,12 +2,24 @@
 """Time the redesigned kernels at the multi-object shapes in one or more
 checkouts of the port, in turns, on one card.
 
-    python3 scripts/torch_kernel_ab.py [--composite-only | --grid-latent-only] [ROOT ...]
+    python3 scripts/torch_kernel_ab.py [--composite-only | --grid-latent-only |
+                                        --lines-pairs-only] [ROOT ...]
 
 Each ROOT (default: this checkout) holds ``neuralsim_torch/`` and
 ``chip_smoke.py``. Each is timed in a process of its own, which builds that
 checkout's kernels, in the order given: "PARENT . . PARENT" compares two
-checkouts on one card (parent, change, change, parent). ``--grid-latent-only``
+checkouts on one card (parent, change, change, parent). ``--lines-pairs-only``
+times only K14's forward and K11: K14 at the street's, the vehicles', the
+bench ladder's and synthetic_object's stacked lines and at
+chip_smoke.CP_LINES_EDGES, alone and as the path makes K1's input (where the
+checkout's K14 writes float32 lines only, the lines and their bf16 cast),
+with the sha256 of the float32 and the bf16 lines and the kernels a call;
+K11 at the crowd's training call ([8, 4,096], a budget of 4,096 rows, slots
+M 4, ~1,708 hits) and render call (no slots, ~1,815 hits) and at
+synthetic_multi's ([2, 2,048], 2,048 rows, M 4, ~606 hits) on seeded masks,
+and at chip_smoke.pair_edge_masks (digests only), with the sha256 of every
+output and the kernels a call; and the ``-Xptxas -v`` lines of both
+sources. ``--grid-latent-only``
 times only K3's forward and the latent lookup (K13) with its backward:
 K3 at synthetic_object's render chunk (4,096 rays x 96 samples on its two
 hash levels) and at the vehicles' final query (6,144 rows x 32 samples on
@@ -130,8 +142,17 @@ def cp_launches(cs, street, veh):
 
 
 def digest(x) -> str:
-    """sha256 of a tensor's bytes."""
-    return hashlib.sha256(x.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+    """sha256 of a tensor's bytes (a bf16 tensor's as int16)."""
+    import torch
+    x = x.detach().cpu().contiguous()
+    return hashlib.sha256((x.view(torch.int16) if x.dtype == torch.bfloat16 else x)
+                          .numpy().tobytes()).hexdigest()
+
+
+def f_cp(plan) -> int:
+    """The stacked features of a K14 plan, in this checkout's form or an
+    earlier one's (a [F_cp, 4] column table)."""
+    return plan.n_cols if hasattr(plan, "n_cols") else plan.cols.shape[0]
 
 
 def kernels_a_call(fn) -> int:
@@ -297,6 +318,80 @@ def grid_latent(tm, out, dev, timed) -> None:
             "bytes_bound_ms": (idx.size * 8 + P * 32 + n * 32) / tm.HBM_BYTES_PER_S * 1e3}
 
 
+# K11's calls on the main path (label, K, N, Bg, M, hits): the crowd's
+# training and render calls and synthetic_multi's, their hit counts those of
+# the path's own calls on the card (chip_smoke.py's log)
+K11_CALLS = (("crowd training call", 8, 4096, 4096, 4, 1708),
+             ("crowd render call", 8, 4096, 4096, None, 1815),
+             ("synthetic_multi training call", 2, 2048, 2048, 4, 606))
+
+
+def k11_mask(K, N, hits, seed):
+    """A [K, N] mask of about ``hits`` hits: each instance a box, a run of
+    neighbouring rays (one instance with none), as a camera sees a vehicle."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    hit = np.zeros((K, N), bool)
+    per = hits // max(K - 1, 1)
+    for k in range(1 if K > 1 else 0, K):
+        start = int(rng.integers(0, N - per))
+        hit[k, start:start + per] = rng.random(per) < 0.95
+    return hit
+
+
+def lines_pairs(tm, out, dev, timed) -> None:
+    """K14's forward and K11 (see the module's docstring)."""
+    import numpy as np
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.configs import BENCH_OBJECT, SYNTHETIC_OBJECT, WAYMO_DEMO_MULTI
+    from neuralsim_torch.fields.conditional import ConditionalLoTDNeuSField
+    from neuralsim_torch.fields.encodings import lotd
+    from neuralsim_torch.ops.pair_compact import pair_compact
+
+    build = kernels.build_log.splitlines()
+    out["ptxas"] = [line.strip() for i, line in enumerate(build)
+                    if ("registers" in line or "spill" in line or "entry function" in line)
+                    and any(k in " ".join(build[max(0, i - 3):i + 1])
+                            for k in ("pair_compact", "cp_lines_kernel"))]
+    mp = WAYMO_DEMO_MULTI["assetbank_cfg"]
+    encs = (("street", lotd.make_lotd(mp["Street"]["model_params"]["encoding_cfg"])),
+            ("vehicles", ConditionalLoTDNeuSField(
+                n_instances=3, encoding_cfg=mp["Vehicle"]["model_params"]["encoding_cfg"]
+            ).encoding),
+            ("bench ladder", lotd.make_lotd(BENCH_OBJECT["models"]["cr"]["params"]
+                                            ["encoding_cfg"])),
+            ("synthetic_object", lotd.make_lotd(SYNTHETIC_OBJECT["assetbank_cfg"]["Main"]
+                                                ["model_params"]["encoding_cfg"])))
+    sets = []
+    for label, e in encs:
+        e.reset_parameters(torch.Generator().manual_seed(0))
+        e = e.to(dev)
+        sets.append((label, e.table.detach(), e.cp_lines_plan(), True))
+    sets += [(label, table, plan, False) for label, table, plan in tm.cp_lines_sets(dev, [])]
+    for label, table, plan, path in sets:
+        L, Rmax = plan.lo.shape
+        got = lotd.lotd_cp_lines(table, plan)
+        both = isinstance(got, tuple)          # this checkout's K14 writes the bf16 lines too
+        f32, bf16 = got if both else (got, got.to(torch.bfloat16))
+        tag = f"K14 {label} L={L} F_cp={f_cp(plan)} R_max={Rmax}"
+        res = {"f32_sha256": digest(f32), "bf16_sha256": digest(bf16)}
+        if path:
+            fn = lambda: lotd.lotd_cp_lines(table, plan)
+            k1_input = fn if both else (lambda: lotd.lotd_cp_lines(table, plan)
+                                        .to(torch.bfloat16))
+            res.update(**timed(fn), kernels=kernels_a_call(fn),
+                       **timed(k1_input, "k1_input_"), k1_input_kernels=kernels_a_call(k1_input))
+        out[tag] = res
+    for i, (label, K, N, Bg, M, hits) in enumerate(K11_CALLS):
+        hit = torch.from_numpy(k11_mask(K, N, hits, 50 + i)).to(dev)
+        fn = lambda: pair_compact(hit, Bg, M)
+        out[f"K11 {label} [{K}, {N}] Bg={Bg} M={M} hits={int(hit.sum())}"] = {
+            **timed(fn), "kernels": kernels_a_call(fn), **digests("out", fn())}
+    for label, hit, Bg, M in tm.pair_edge_masks(dev):
+        out[f"K11 edge {label} Bg={Bg} M={M}"] = digests("out", pair_compact(hit, Bg, M))
+
+
 def time_root(root: str, mode: str = "all") -> dict:
     tm = timer()
     sys.path.insert(0, root)
@@ -327,6 +422,10 @@ def time_root(root: str, mode: str = "all") -> dict:
 
     if mode == "grid-latent":
         grid_latent(tm, out, dev, timed)
+        out["card"] = card()
+        return out
+    if mode == "lines-pairs":
+        lines_pairs(tm, out, dev, timed)
         out["card"] = card()
         return out
 
@@ -490,9 +589,9 @@ def time_root(root: str, mode: str = "all") -> dict:
             ("street", street), ("vehicles", veh), ("bench ladder", bench),
             ("synthetic_object", obj))] + [("edge ladder", *edge)]:
         L, Rmax = plan.lo.shape
-        g = cs.cotangents((3, Rmax, plan.cols.shape[0]), 36, dev).transpose(1, 2)
+        g = cs.cotangents((3, Rmax, f_cp(plan)), 36, dev).transpose(1, 2)
         fn = lambda: lotd.lotd_cp_lines_bwd(g, n_table, plan)
-        out[f"K14 bwd {label} L={L} F_cp={plan.cols.shape[0]} R_max={Rmax}"] = {
+        out[f"K14 bwd {label} L={L} F_cp={f_cp(plan)} R_max={Rmax}"] = {
             **timed(fn), "kernels": kernels_a_call(fn)}
     for label, e in (("street", street), ("vehicles", veh)):
         g = cs.cotangents((3, e.cp_rmax, e.cp_out_dim), 35, dev).transpose(1, 2)
@@ -543,7 +642,8 @@ def card() -> str:
                           capture_output=True, text=True, timeout=60).stdout.strip()
 
 
-MODES = {"--composite-only": "composite", "--grid-latent-only": "grid-latent"}
+MODES = {"--composite-only": "composite", "--grid-latent-only": "grid-latent",
+         "--lines-pairs-only": "lines-pairs"}
 
 
 def main(argv) -> int:

@@ -1,7 +1,7 @@
 """Port parity for the stacked CP lines (kernel K14) and its backward: the
 plain version against the JAX package's ``LoTDEncoding._cp_stacked_lines``
-on the CPU, and the static plan the CUDA kernels read (the taps, the column
-and level metadata, the backward's CSR of taps by source row) against a
+on the CPU, and the static plan the CUDA kernels read (the taps, the level
+metadata, the backward's CSR of taps by source row) against a
 dense scatter in numpy and a replay of the kernels' arithmetic; the backward's work items (which
 warp sums which entries, with how many lanes an entry) cover the table once,
 and the backward summed in their order (a fixed-order split of each long
@@ -78,7 +78,9 @@ def test_plain_cp_lines_match_jax(pair):
     np.testing.assert_allclose(got, jitted, rtol=1e-6, atol=1e-6)
     # the wrapper takes the plain version on the CPU
     plan = penc.cp_lines_plan()
-    assert torch.equal(lotd_cp_lines(penc.table.detach(), plan), torch.from_numpy(got))
+    f32, bf16 = lotd_cp_lines(penc.table.detach(), plan)
+    assert torch.equal(f32, torch.from_numpy(got))
+    assert torch.equal(bf16, torch.from_numpy(got).to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "transposed"])
@@ -112,8 +114,7 @@ def test_plan_csr_matches_a_dense_scatter(pair):
     assert plan.levels.tolist() == [
         [sum(3 * c.res * c.n_feats for c in cp[:k]), s.offset, s.res, s.n_feats,
          sum(c.n_feats for c in cp[:k]), sum(c.res for c in cp[:k])] for k, s in enumerate(cp)]
-    assert plan.cols.tolist() == [[s.offset + f, s.res, s.n_feats, k]
-                                  for k, s in enumerate(cp) for f in range(s.n_feats)]
+    assert plan.n_cols == sum(s.n_feats for s in cp) == penc.cp_out_dim
     assert plan.n_entries == sum(3 * s.res * s.n_feats for s in cp)
     rowptr, tj, tw = plan.rowptr.numpy(), plan.tap_j.numpy(), plan.tap_w.numpy()
     assert rowptr[0] == 0 and rowptr[-1] == tj.size == 2 * len(cp) * 64
@@ -132,22 +133,23 @@ def test_plan_csr_matches_a_dense_scatter(pair):
 
 
 def test_kernels_arithmetic_replayed_in_numpy(pair):
-    """The forward kernel's lerp from the column metadata (float32 operations
-    without FMA, as __fmul_rn etc.) is the plain version bit for bit; the
-    backward's walk of the CSR, a table entry at a time, is the plain
-    backward within GRAD_REL."""
+    """The forward kernel's lerp as its blocks take it, a level and an axis
+    from the level metadata, a position's F features from its two table rows
+    (float32 operations without FMA, as __fmul_rn etc.), is the plain version
+    bit for bit, and so are its bf16 lines; the backward's walk of the CSR, a
+    table entry at a time, is the plain backward within GRAD_REL."""
     _, penc, table, g = pair
     plan = penc.cp_lines_plan()
-    Fcp, Rmax = plan.cols.shape[0], plan.lo.shape[1]
-    out = np.empty((3, Fcp, Rmax), np.float32)
-    for c, (base, R, F, k) in enumerate(plan.cols.tolist()):
-        lo = plan.lo[k].numpy()
-        w = plan.w[k].numpy()
+    out = np.empty((3, plan.n_cols, plan.lo.shape[1]), np.float32)
+    for k, (_, offset, R, F, col, _) in enumerate(plan.levels.tolist()):
+        lo, w = plan.lo[k].numpy(), plan.w[k].numpy()[:, None]
         for a in range(3):
-            l0 = table[base + (a * R + lo) * F]
-            l1 = table[base + (a * R + np.minimum(lo + 1, R - 1)) * F]
-            out[a, c] = l0 * (np.float32(1.0) - w) + l1 * w
-    assert np.array_equal(out, lotd_cp_lines_plain(torch.from_numpy(table), plan).numpy())
+            seg = table[offset + a * R * F:offset + (a + 1) * R * F].reshape(R, F)
+            l0, l1 = seg[lo], seg[np.minimum(lo + 1, R - 1)]            # [R_max, F] rows
+            out[a, col:col + F] = (l0 * (np.float32(1.0) - w) + l1 * w).T
+    f32, bf16 = lotd_cp_lines_plain(torch.from_numpy(table), plan)
+    assert np.array_equal(out, f32.numpy())
+    assert torch.equal(bf16, torch.from_numpy(out).to(torch.bfloat16))
     d = np.zeros(table.size, np.float32)
     rowptr, tj, tw = plan.rowptr.numpy(), plan.tap_j.numpy(), plan.tap_w.numpy()
     for first, offset, R, F, col, row in plan.levels.tolist():

@@ -229,7 +229,7 @@ def test_bench_encoding_plan_matches_jax(wide_pair):
 def test_wide_kernel_lines_match_jax(wide_pair):
     je, pe, table = wide_pair
     want = np.asarray(je._cp_stacked_lines(jnp.asarray(table)))
-    got = pe.kernel_lines().detach().numpy()
+    got = pe.kernel_lines().f32.detach().numpy()
     assert got.shape == want.shape == (3, 96, 1024)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
 
@@ -254,7 +254,7 @@ def test_wide_backward_reaches_every_level(wide_pair):
     _, pe, _ = wide_pair
     rng = np.random.default_rng(10)
     x = _t(rng.random((300, 3)).astype(np.float32))
-    lines = pe.kernel_lines().detach().to(torch.bfloat16)
+    lines = pe.kernel_lines().bf16
     d_out = _t(rng.normal(size=(96, 300)).astype(np.float32))
     d_jac = _t(rng.normal(size=(3, 96, 300)).astype(np.float32))
     g = lotd_cp_stacked_bwd(lines, x, pe._cp_rows, d_out, d_jac)

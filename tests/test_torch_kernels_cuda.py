@@ -50,7 +50,12 @@ memory a block stages, and after an in-place update of the table; the
 permuto field under autograd against the CPU at GRAD_REL, and the permuto
 vehicles' first iteration as the multi-object one. K14's backward is held at
 GRAD_REL with the same bits on two calls, at chip_smoke.CP_LINES_EDGES from
-both cotangent layouts, and writes the table's other floats as zeros. K3's
+both cotangent layouts, and writes the table's other floats as zeros; its
+forward's float32 lines bit-equal to the plain ones and its bf16 lines to
+the plain ones cast, one kernel a call, once a table version in a render,
+and no bf16 cast on a training step (chip_smoke.no_plain_on_card). K11 is
+one launch a call with no scratch, and refuses by name a layout past its
+shared memory. K3's
 forward is held at K1/K3's tolerance at chip_smoke.k3_edge_cases (F 1-8,
 dense and hash levels in one meta, levels staged in shared memory,
 interleaved into the scratch and read from the table, x01 at 0, 1, one ulp
@@ -730,12 +735,14 @@ def test_multi_object_iterations_launch_their_kernels(dev, multi_built):
 # Crowded scenes: K11 (pair-budget compaction), K10 (per-instance grids)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("group", ["ragged", "every pair", "no hit", "rays through", "long"])
+@pytest.mark.parametrize("group", ["ragged", "every pair", "no hit", "rays through", "long",
+                                   "many instances"])
 def test_k11_pair_compact(dev, group):
     """Selected pairs, hit flags and slot indices equal to the plain version
     (the JAX package's argsort lines), integer for integer, with and without
     the slots: T below and above the budget, odd N at half a budget, rays
-    through more boxes than slots."""
+    through more boxes than slots, a long row, K 17 and 4,096; one launch a
+    call."""
     sets = [c for c in cs.pair_edge_masks(dev) if c[0].startswith(group)]
     assert sets
     for label, hit, Bg, M in sets:
@@ -748,6 +755,34 @@ def test_k11_pair_compact(dev, group):
             for g, w in zip(got, want):
                 assert (g is None and w is None) or (g.dtype == w.dtype and torch.equal(g, w)), \
                     (label, m)
+
+
+@pytest.mark.parametrize("M", [4, None], ids=["slots", "no slots"])
+def test_k11_is_one_launch_with_no_scratch(dev, M):
+    """The crowd's shape, [8, 4,096]: one cluster launch a call, and the call
+    allocates its outputs only (the earlier kernel's rank [K, N] and count
+    scratch are gone). By the launch counter and the allocator, not the
+    profiler: a profiled cluster launch was seen to leave later
+    torch.profiler sessions of the same process recording no kernel
+    (scripts/torch_kernel_ab.py counts its kernels a call in a process of
+    its own)."""
+    hit = torch.rand((8, 4096), generator=torch.Generator().manual_seed(3)) < 0.05
+    hit = hit.to(dev)
+    pair_compact(hit, 4096, M)
+    torch.cuda.synchronize()
+    n0, held = kernels.KERNELS["pair_compact"].launches, torch.cuda.memory_allocated()
+    out = pair_compact(hit, 4096, M)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["pair_compact"].launches == n0 + 1
+    blocks = sum(-(-t.numel() * t.element_size() // 512) * 512 for t in out if t is not None)
+    assert torch.cuda.memory_allocated() - held == blocks
+
+
+def test_k11_refuses_a_layout_past_shared_memory(dev):
+    """K 4,096 at N 4,096 needs 320 KB a CTA: refused by name, not run."""
+    hit = torch.ones((4096, 4096), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="PAIR_COMPACT_SMEM"):
+        pair_compact(hit, 4096, 4)
 
 
 def _batched_grid(dev, G=8, R=32):
@@ -1381,11 +1416,52 @@ def _cp_lines_sets(dev):
                                   for m in ("Street", "Vehicle")])
 
 
-@pytest.mark.parametrize("case", range(3), ids=["street", "vehicles", "edge ladder"])
+@pytest.mark.parametrize("case", range(2 + len(cs.CP_LINES_EDGES)),
+                         ids=["street", "vehicles"] + [f"edge ladder {i}" for i in
+                                                       range(len(cs.CP_LINES_EDGES))])
 def test_k14_cp_lines(dev, case):
-    """Forward bit-equal, backward at GRAD_REL (a cotangent in K1 bwd's
-    layout) with the same bits twice."""
-    cs.check_cp_lines(dev, _cp_lines_sets(dev)[case:case + 1])
+    """Forward: the float32 lines bit-equal to the plain ones and the bf16
+    lines to the plain ones cast, one kernel a call (R_max a multiple of 4
+    or not); backward at GRAD_REL (a cotangent in K1 bwd's layout) with the
+    same bits twice."""
+    sets = _cp_lines_sets(dev)[case:case + 1]
+    cs.check_cp_lines(dev, sets)
+    _, table, plan = sets[0]
+    names = cs.device_kernels(lambda: lotd.lotd_cp_lines(table, plan), reps=1)
+    assert len(names) == 1 and "cp_lines_kernel" in names[0], names
+
+
+def test_k14_once_a_table_version_in_a_render(dev):
+    """synthetic_object's render: K14 on the first frame only (the lines
+    cache), none on the next, once more after an in-place write into the
+    table; no bf16 cast and no plain K14 on the card (frames_guarded)."""
+    renderer, params = build_renderer(SYNTHETIC_OBJECT, device=dev)
+    rig = SyntheticObjectDataset(n_frames=4, H=16, W=16)
+    k14 = kernels.KERNELS["lotd_cp_lines"]
+    n0 = k14.launches
+    cs.render_frames(renderer, params, rig, dev, (0, 1), "synthetic_object (card test)")
+    assert k14.launches == n0 + 1
+    with torch.no_grad():
+        params["Main"].encoding.table.mul_(1.0)
+    cs.render_frames(renderer, params, rig, dev, (2, 3), "synthetic_object (card test)")
+    assert k14.launches == n0 + 2
+
+
+def test_k14_bf16_lines_reach_k1_without_a_cast_in_training(dev):
+    """Two synthetic_object training steps under the card-path guard: K14
+    launches a step (grad enabled: never the cache), no bf16 cast runs, and
+    the lines' gradient reaches the table (K14 bwd)."""
+    trainer, state = build_trainer(SYNTHETIC_OBJECT, device=dev)
+    rig = SyntheticObjectDataset(**SYNTHETIC_OBJECT["dataset_cfg"]["params"])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch = cs.device_batch(rig, np.random.default_rng(3), 512, dev)
+    kernels.reset_counts()
+    with cs.no_plain_on_card("synthetic_object step (card test)"):
+        for _ in range(2):
+            trainer.train_step(state, batch, trainer.draw_noise(512, gen, state.it))
+        torch.cuda.synchronize()
+    n = {k: kernels.KERNELS[k].launches for k in ("lotd_cp_lines", "lotd_cp_lines.bwd")}
+    assert n["lotd_cp_lines"] == n["lotd_cp_lines.bwd"] >= 2, n      # each with its graph
 
 
 K4_EDGE_IDS = [c[0] for c in cs.K4_EDGES]

@@ -104,7 +104,8 @@ def test_line_gradient_is_not_rounded_in_the_port():
     _, penc, _ = _pair()
     x, c1, c2 = _inputs(penc)
     lines = penc.cp_stacked_lines().detach().requires_grad_(True)
-    h, j = penc.with_jacobian(torch.from_numpy(x), lines)
+    h, j = penc.with_jacobian(torch.from_numpy(x),
+                              lotd.CpLines(lines, lines.detach().to(torch.bfloat16)))
     ((torch.from_numpy(c1) * h).sum() + (torch.from_numpy(c2) * j).sum()).backward()
     g = lines.grad
     assert g.dtype == torch.float32 and not torch.equal(g, g.to(torch.bfloat16).float())
