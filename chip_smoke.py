@@ -46,15 +46,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      their plain versions (K4 occ_ray_proposal at 8,192 and 4,096 rays on
      the converged grid, with and without noise, an empty and a full grid,
      probes that leave the box; K7 occ_ema_update at 128^3 with 1 and 4
-     samples a voxel, warm-up on and off, sdf and density; K1 forward and
+     samples a voxel, warm-up on and off, sdf and density, and at K7_EDGES,
+     its count the mask's and its fraction the plain mean bit for bit; K7's
+     points (occ_voxel_points) bit-equal at K7_POINT_SHAPES; a refresh
+     without the field is K7's points and K7 alone (profiler); K1 forward and
      backward at F = 96, R = 1,024 at the path's point sets; K5a, K5b, K6 and
      K6's backward at 8,192 and 4,096 rays of 16 -> 24 -> 32 samples and 64
      composited lanes of two buffers); build_trainer with the grid converged;
      the first step's losses and gradients at 8,192 rays on the card against
      the CPU path; 48 steps of 8,192 rays (three grid
      refreshes): finite losses, no skip, falling loss_rgb, a live grid, K4
-     once a step, K7 once a refresh; a poisoned step on the grid's cadence is
-     skipped, changes no parameter and still refreshes the grid; 4 frames of
+     once a step, K7's points and K7 once a refresh, no plain K7 or mean of
+     the mask on the card (no_plain_on_card); a poisoned step on the grid's
+     cadence is skipped, changes no parameter and still refreshes the grid; 4 frames of
      128x128 through render_chunked(occ_states=...) with a crop held to the
      CPU path ray by ray: tightly at the CPU path's own sample depths and on
      the rays that both sample at equal depths, the others in the mean (see
@@ -90,8 +94,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      depths (sample_placements), the card's own step logged beside it; 48
      iterations (error-map sampling from the 16th): finite losses, no skip,
      falling loss_rgb and LiDAR depth loss, three grid refreshes, K8 and its
-     backward and K12 and its backward once an iteration, K4 twice, K7 once a
-     refresh; a poisoned pixel step skipped with every parameter unchanged;
+     backward and K12 and its backward once an iteration, K4 twice, K7's
+     points and K7 once a refresh; a poisoned pixel step skipped with every
+     parameter unchanged; the street's refresh (128^3 x 4 samples): K7's
+     points bit-equal in its box, K7's points and K7 alone without the field,
+     and timed (time_refresh: host and busy ms, the field query alone, peak
+     MiB);
      one 80x120 frame of the trained state rendered. K5b held exactly at the
      iteration's stage widths (street 32 + 8 and 40 + 8 at 4,096 and 2,048
      rays, vehicles 24 + 8 at 6,144 rows), at 1 and 4,097 rays and on lists
@@ -128,7 +136,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      occ_ray_proposal_batched against its plain version at the group's rows
      (converged and random per-instance grids, noise, probes outside the
      box, grid indices outside [0, G), keyframes of times), K7 at the
-     batched update's 262,144 voxels; 4 frames of 80x120 with K11, K10, K8
+     batched update's 262,144 voxels with its count, its points in the
+     model's box; 4 frames of 80x120 with K11, K10, K8
      and K4 launched once a chunk, the frames checked as in phase 7 and a
      crop held to the CPU path ray by ray at the CPU path's sample depths
      (the street's and the vehicle grids' proposals); the refresh of the
@@ -196,7 +205,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      host enqueues the calls) and by the profiler (card_ms); the
      same for the crowd (frame, iteration), and the synthetic_multi step; K11 at its three
      calls beside a stable torch.argsort of its keys, K10 at the group's
-     rows, K7 at the batched update; K2 at each of its shapes, K12 at the
+     rows, K7 and its points at the batched update (K7 and its points also
+     at the bench model's, the street's and the crowd's shapes, queued and
+     by the profiler); K2 at each of its shapes, K12 at the
      LiDAR step's street buffer; K9 forward and backward at each of its
      shapes; K13 and its backward at the main path's and the crowd's largest
      calls (and the eikonal's) beside index_select, index_add_ into zeros,
@@ -219,6 +230,7 @@ import contextlib
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -253,7 +265,7 @@ BENCH_FRAME_IDS = (0, 1, 2, 3)
 # kernels that only the bench model's path runs (synthetic_object has no grid;
 # its close range, composited alone, takes K12, and only the bench model's
 # close range and distant buffers go through K6 together)
-BENCH_ONLY = ("occ_ray_proposal", "occ_ema_update", "volume_composite",
+BENCH_ONLY = ("occ_ray_proposal", "occ_ema_update", "occ_voxel_points", "volume_composite",
               "volume_composite.bwd")
 # its first step on the card vs the CPU, at the step's own 8,192 rays: the
 # occupancy proposal's cdf bins are nearly all near-empty, so its inverse CDF
@@ -328,6 +340,30 @@ K4_EDGES = (("M 1", 4096, 1, 16, 0.3, True, False),
 # clipped), each with and without noise
 K10_EDGES = ("lead 0", "lead G - 1", "lead clipped")
 K7_ATOL = 1e-6
+# K7's points (occ_voxel_points) at each path's jitter [L, R, R, R, 3], with
+# the lead the grid asks for (None, each point's instance "index", or its
+# keyframe's "time"): the street's 128^3 x 4 samples (waymo_demo_multi), the
+# bench model's 128^3 x 1, the crowd's 8 instance grids of 32^3, a dynamic
+# grid's 2 keyframes of 32^3, and R 1, 3 and 48 (3 and 48 no power of two:
+# there the card's plain version multiplies by fl(1 / R), the CPU's
+# divides); held bit-equal, each also from a jitter 4 bytes off 16-byte
+# alignment (the kernel's scalar path)
+K7_POINT_SHAPES = (("street", 4, 128, None), ("bench", 1, 128, None),
+                   ("crowd", 8, 32, "index"), ("dynamic", 2, 32, "time"), ("R 1", 3, 1, None),
+                   ("R 3", 3, 3, "time"), ("R 48", 1, 48, "index"))
+# K7 at (V, S) edges: V past a multiple of 4, one voxel, S 2 and 3 (not
+# unrolled), each also on values 4 bytes off 16-byte alignment
+K7_EDGES = ((4099, 3), (1, 1), (1027, 2), (4096, 4))
+# the grids whose refresh a fresh process profiles (label, kind, leading
+# entries, resolution): the street's 128^3 x 4 samples, the bench model's
+# 128^3 x 1, the crowd's 8 instance grids of 32^3, a dynamic grid's 2
+# keyframes of 16^3; REFRESH_PROFILED_REPS refreshes a profiler session
+REFRESH_PROFILED = (("street", "single", 4, 128), ("bench", "single", 1, 128),
+                    ("crowd", "batched", 8, 32), ("dynamic", "dynamic", 2, 16))
+REFRESH_PROFILED_REPS = 5
+# the aten ops a refresh without the field may run: allocations and views
+REFRESH_ALLOC_OPS = ("aten.empty", "aten.empty_like", "aten.view", "aten._unsafe_view",
+                     "aten._reshape_alias", "aten.reshape", "aten.alias")
 # the multi-object compose render (WAYMO_DEMO_MULTI): 4 frames of 80x120 of
 # camera_FRONT, each 9,600 rays in three chunks of 4,096 (the last padded)
 COMPOSE_ONLY = ("cross_source_vw",)
@@ -527,9 +563,10 @@ def card_keys(t) -> dict:
 
 def extra_keys(t) -> dict:
     """A timing's other keys for the kernels line, where it has them: each
-    library call's times, and K14's per-level F.interpolate aside."""
-    return {k: t[k] for k in ("library_calls", "interpolate_ms", "interpolate_max_abs_err")
-            if k in t}
+    library call's times, K14's per-level F.interpolate aside, and K7's and
+    its points' other paths' shapes."""
+    return {k: t[k] for k in ("library_calls", "interpolate_ms", "interpolate_max_abs_err",
+                              "at_shapes") if k in t}
 
 
 def card_extra(t) -> str:
@@ -1264,7 +1301,8 @@ def occ_on(state, d):
     """The state's occupancy grids on device ``d`` (None without grids)."""
     if state.occ is None:
         return None
-    return {role: type(st)(st.val.to(d), st.mask.to(d)) for role, st in state.occ.items()}
+    return {role: type(st)(*(None if t is None else t.to(d) for t in st))
+            for role, st in state.occ.items()}
 
 
 def rays_sampled_alike(trainer, state, cpu_params, batch, noise, dev, rtol):
@@ -1643,11 +1681,12 @@ def profile_frame(renderer, params, rig, dev, frame_id=FRAME_IDS[0], **kw):
 # ---------------------------------------------------------------------------
 
 def check_occ_kernels(dev, trainer, state, rig):
-    """K4 and K7 against their plain versions on the card, at the bench
-    path's shapes. -> ({kernel: (max_abs_err, atol)}, inputs kept for timing)."""
+    """K4, K7 and K7's points against their plain versions on the card, at
+    the bench path's shapes (K7 at S 1 and the street's S 4, its edges, and
+    its points at K7_POINT_SHAPES). -> ({kernel: (max_abs_err, atol)},
+    inputs kept for timing)."""
     import torch
-    from neuralsim_torch.accel.occ_grid import (occ_ema_update, occ_ema_update_plain,
-                                                occ_ray_proposal, occ_ray_proposal_plain)
+    from neuralsim_torch.accel.occ_grid import occ_ray_proposal, occ_ray_proposal_plain
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
     accel, st = trainer.renderer.accels["cr"], state.occ["cr"]
     space = state.params["cr"].space
@@ -1694,17 +1733,173 @@ def check_occ_kernels(dev, trainer, state, rig):
                                ("density", accel.voxel_size, sdf.abs() * 40.0)):
             for floor in (None, accel.occ_thre + 1e-3):
                 a = (raw_v, val, mode, p, accel.occ_inv_s, accel.ema_decay, accel.occ_thre, floor)
-                got, want = occ_ema_update(*a), occ_ema_update_plain(*a)
-                errs.append(compare(f"K7 occ_ema_update {accel.res}^3 S={S} {mode} "
-                                    f"warm-up={floor is not None}", got[:1], want[:1], 0, K7_ATOL))
-                off = (got[1] != want[1]) & ((want[0] - accel.occ_thre).abs() > K7_ATOL)
-                if bool(off.any()) or got[1].dtype != torch.bool:
-                    raise AssertionError("K7: the mask differs away from the threshold")
-                if S == 1 and mode == "sdf" and floor is None:
-                    shapes["occ_ema_update"] = dict(args=a)
+                errs.append(check_k7(f"K7 occ_ema_update {accel.res}^3 S={S} {mode} "
+                                     f"warm-up={floor is not None}", a))
+                if mode == "sdf" and floor is None:
+                    shapes["occ_ema_update" if S == 1 else "occ_ema_update S=4"] = dict(args=a)
+    for V_e, S_e in K7_EDGES:
+        for offset in (0, 1):
+            val = T(rng.random(V_e + offset).astype(np.float32))[offset:]
+            a = (T(rng.normal(0.0, 0.2, (S_e, V_e)).astype(np.float32)), val, "sdf",
+                 accel.voxel_half_diag, accel.occ_inv_s, accel.ema_decay, accel.occ_thre, None)
+            errs.append(check_k7(f"K7 occ_ema_update edge V={V_e} S={S_e} values off 16-byte "
+                                 f"alignment={bool(offset)}", a))
     res["occ_ema_update"] = (max(errs), K7_ATOL)
+    res["occ_voxel_points"] = (check_k7_points(dev, box), 0.0)
+    gen = torch.Generator(device=dev).manual_seed(47)
+    for label, L, R, lead in K7_POINT_SHAPES[:3]:
+        shapes[f"occ_voxel_points {label}"] = dict(
+            args=(torch.rand((L, R, R, R, 3), generator=gen, device=dev), *box, lead))
+    check_refresh_kernels("bench model", accel, st, dev)
+    check_refresh_device_kernels()
     torch.cuda.synchronize()
     return res, shapes
+
+
+def check_k7(label, a):
+    """K7 (with its count) against its plain version on the card: the values
+    within K7_ATOL, the mask equal away from the threshold, the count the
+    kernel's mask's and the fraction that mask's plain mean, bit for bit.
+    -> max_abs_err of the values."""
+    import torch
+    from neuralsim_torch.accel.occ_grid import (occ_ema_update, occ_ema_update_plain,
+                                                occupied_fraction_plain)
+    got, want = occ_ema_update(*a), occ_ema_update_plain(*a)
+    err = compare(label, got[:1], want[:1], 0, K7_ATOL)
+    off = (got[1] != want[1]) & ((want[0] - a[6]).abs() > K7_ATOL)
+    if bool(off.any()) or got[1].dtype != torch.bool:
+        raise AssertionError(f"{label}: the mask differs away from the threshold")
+    plain = occupied_fraction_plain(got[1])
+    if int(got[2]) != int(got[1].sum()) or not torch.equal(got[3], plain):
+        raise AssertionError(f"{label}: count {int(got[2])} and fraction {float(got[3])!r} "
+                             f"against the mask's {int(got[1].sum())} and {float(plain)!r}")
+    return err
+
+
+def check_k7_points(dev, box, shapes=K7_POINT_SHAPES):
+    """K7's points kernel (with each shape's lead) against its plain version
+    on the card at ``shapes`` in the box ``box`` (aabb_min, aabb_max): bit
+    for bit, one launch a call, also from a jitter 4 bytes off 16-byte
+    alignment. -> 0.0, the largest difference (anything else raises)."""
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.accel.occ_grid import occ_voxel_points, occ_voxel_points_plain
+    gen = torch.Generator(device=dev).manual_seed(41)
+    k = kernels.KERNELS["occ_voxel_points"]
+    for label, L, R, lead in shapes:
+        for offset in (0, 1):
+            u = torch.rand(L * R ** 3 * 3 + offset, generator=gen, device=dev)[offset:]
+            u = u.view(L, R, R, R, 3)
+            n0 = k.launches
+            got = occ_voxel_points(u, *box, lead)
+            want = occ_voxel_points_plain(u, *box, lead)
+            got, want = ((got,), (want,)) if lead is None else (got, want)
+            torch.cuda.synchronize()
+            for g, w, what in zip(got, want, ("points", lead)):
+                if k.launches != n0 + 1 or g.shape != w.shape or g.dtype != w.dtype \
+                        or not torch.equal(g, w):
+                    bad = int((g != w).reshape(w.shape[0], -1).any(-1).sum()) \
+                        if g.shape == w.shape else -1
+                    raise AssertionError(f"K7 points {label} [{L}, {R}^3] offset {offset}: "
+                                         f"{bad} {what} differ from the plain version's")
+    log(f"K7 points: bit-equal to the plain version at {[s[0] for s in shapes]}, aligned and "
+        f"4 bytes off, one launch a call")
+    return 0.0
+
+
+def check_refresh_kernels(label, accel, st, dev):
+    """A refresh without the field (its query hands back fixed values) is one
+    launch of K7's points and one of K7 (their counters) and runs no aten op
+    but allocations and views (a TorchDispatchMode: no plain point pass, no
+    cast or mean of the mask). Which device kernels a refresh runs, the
+    profiler shows in a fresh process (check_refresh_device_kernels)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from neuralsim_torch import kernels
+    gen = torch.Generator(device=dev).manual_seed(43)
+    u = torch.rand(accel.jitter_shape, generator=gen, device=dev)
+    raw = torch.rand(int(np.prod(accel.jitter_shape[:-1])), generator=gen, device=dev)
+    refresh = lambda: accel.update(st, lambda x, *lead: raw, u, 1000)
+    refresh()           # the box on the card and the ticket are made once a device
+    ops = []
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    n0 = {k: kernels.KERNELS[k].launches for k in ("occ_voxel_points", "occ_ema_update")}
+    with Ops():
+        refresh()
+    torch.cuda.synchronize()
+    once = all(kernels.KERNELS[k].launches == n + 1 for k, n in n0.items())
+    compute = sorted(set(ops) - set(REFRESH_ALLOC_OPS))
+    if not once or compute:
+        raise AssertionError(f"a {label} refresh should be K7's points and K7 alone: launches "
+                             f"{ {k: kernels.KERNELS[k].launches - n for k, n in n0.items()} }, "
+                             f"aten ops {compute} besides allocations and views")
+    log(f"{label} refresh ({list(accel.jitter_shape)} jitter): one launch of each wrapper, "
+        f"aten ops {sorted(set(ops))}")
+
+
+def refresh_kinds(names):
+    """(K7's points, K7, any other) kernels among the profiler's names."""
+    pts = sum("occ_voxel_points_kernel" in n for n in names)
+    k7 = sum("occ_ema_update_kernel" in n for n in names)
+    return pts, k7, len(names) - pts - k7
+
+
+def refresh_device_kernels() -> dict:
+    """In this process, on the card: the device kernels, by the profiler, of
+    REFRESH_PROFILED_REPS refreshes without the field of a grid at each of
+    REFRESH_PROFILED -> {label: names}. A session is run again (three at
+    most) while it lacks one of the two kernels and shows no other: a
+    session can drop records."""
+    import torch
+    from neuralsim_torch.accel import OccGridEma, OccGridEmaBatched, OccGridEmaDynamic
+    from neuralsim_torch.fields.spatial import AABBSpace
+    dev = torch.device("cuda")
+    space = AABBSpace().to(dev)
+    gen = torch.Generator(device=dev).manual_seed(44)
+    out = {}
+    for label, kind, L, R in REFRESH_PROFILED:
+        accel = {"single": lambda: OccGridEma(space, R, samples_per_voxel=L),
+                 "batched": lambda: OccGridEmaBatched(space, L, R),
+                 "dynamic": lambda: OccGridEmaDynamic(space, R, n_keyframes=L)}[kind]()
+        st = accel.init_state()
+        u = torch.rand(accel.jitter_shape, generator=gen, device=dev)
+        raw = torch.rand(int(np.prod(accel.jitter_shape[:-1])), generator=gen, device=dev)
+        seen = lambda names: all(refresh_kinds(names)[:2]) or refresh_kinds(names)[2] > 0
+        out[label] = device_kernels(lambda: accel.update(st, lambda x, *lead: raw, u, 1000),
+                                    REFRESH_PROFILED_REPS, done=seen)
+    return out
+
+
+def check_refresh_device_kernels() -> dict:
+    """The device kernels of a refresh without the field at each of
+    REFRESH_PROFILED, by the profiler in a fresh process
+    (refresh_device_kernels; late in a long process its sessions were seen
+    to drop records or record none): K7's points and K7 and no other kernel
+    (no memset, no copy), each at least once and at most once a refresh.
+    Raises otherwise, and where every session recorded nothing. -> {label:
+    names}."""
+    r = subprocess.run([sys.executable, "-c", "import json, chip_smoke; "
+                        "print(json.dumps(chip_smoke.refresh_device_kernels()))"],
+                       cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                       text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"the refresh profiler process failed ({r.returncode}): "
+                             f"{r.stderr[-3000:]}")
+    found = json.loads(r.stdout.strip().splitlines()[-1])
+    for label, names in found.items():
+        pts, k7, other = refresh_kinds(names)
+        if not pts or not k7 or other or max(pts, k7) > REFRESH_PROFILED_REPS:
+            raise AssertionError(f"a {label} refresh should launch K7's points and K7 alone: "
+                                 f"{REFRESH_PROFILED_REPS} refreshes gave the kernels "
+                                 f"{sorted(set(names)) or 'none recorded by the profiler'}")
+        log(f"{label} refresh, {REFRESH_PROFILED_REPS} under the profiler in a fresh process: "
+            f"{pts} of K7's points, {k7} of K7, no other kernel")
+    return found
 
 
 def check_wide_encoding(dev, params):
@@ -1780,12 +1975,49 @@ def bench_steps(trainer, state, rig, dev):
     return log_, first, last
 
 
-def time_bench_kernels(shapes):
-    """K4, K7 and the wide K1 (forward and backward) beside their plain
-    versions and bounds, at the bench step's shapes."""
-    import torch
+def time_k7(a, what):
+    """K7 with its count, three ways, beside its plain version (with the
+    plain mean the count replaces) and its bound, at args ``a``."""
     from neuralsim_torch.accel.occ_grid import (occ_ema_update, occ_ema_update_plain,
-                                                occ_ray_proposal, occ_ray_proposal_plain)
+                                                occupied_fraction_plain)
+    S, V = a[0].shape
+    return dict(shape=f"{what}: voxels={V} samples per voxel={S} (sdf, after the warm-up)",
+                **card_ms(lambda: occ_ema_update(*a)),
+                plain_ms=cuda_ms(lambda: occupied_fraction_plain(occ_ema_update_plain(*a)[1])),
+                library_ms=None,
+                # raw and the old values read, the new values, the mask, the
+                # count and the fraction written; ~12 operations a sample
+                bound=bound(V * (4 * S + 4 + 4 + 1) + 8, V * (S * 12 + 4)))
+
+
+def time_k7_points(a, what):
+    """K7's points three ways beside their plain version and bound, at
+    args ``a`` (u, aabb_min, aabb_max, lead)."""
+    from neuralsim_torch.accel.occ_grid import occ_voxel_points, occ_voxel_points_plain
+    u, lead = a[0], a[3]
+    L, R, P = u.shape[0], u.shape[1], u.numel() // 3
+    return dict(shape=f"{what}: jitter [{L}, {R}, {R}, {R}, 3], {P} points"
+                      + (f" and their {lead}" if lead else ""),
+                **card_ms(lambda: occ_voxel_points(*a)),
+                plain_ms=cuda_ms(lambda: occ_voxel_points_plain(*a)),
+                library_ms=None,
+                # the jitter read and the points written, 12 bytes each a
+                # point, and the lead (8 or 4 bytes); 4 operations a coordinate
+                bound=bound(P * (24 + {None: 0, "index": 8, "time": 4}[lead]) + 24, P * 12))
+
+
+def timing_entry(t) -> dict:
+    """A timing as the kernels line writes one shape."""
+    return {"ms": t["ms"], **card_keys(t), "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"], "shape": t["shape"]}
+
+
+def time_bench_kernels(shapes):
+    """K4, K7 and its points, and the wide K1 (forward and backward) beside
+    their plain versions and bounds, at the bench step's shapes (K7 and its
+    points also at the street's and the crowd's, under ``at_shapes``)."""
+    import torch
+    from neuralsim_torch.accel.occ_grid import occ_ray_proposal, occ_ray_proposal_plain
     from neuralsim_torch.fields.encodings import lotd
     out = {}
     a = shapes["occ_ray_proposal"]["args"]
@@ -1796,14 +2028,18 @@ def time_bench_kernels(shapes):
         plain_ms=cuda_ms(lambda: occ_ray_proposal_plain(*a)),
         library_ms=None,
         bound=k4_bound(N, M, n, a[9] is not None))
-    a = shapes["occ_ema_update"]["args"]
-    S, V = a[0].shape
-    out["occ_ema_update"] = dict(
-        shape=f"voxels={V} samples per voxel={S} (sdf, after the warm-up)",
-        ms=cuda_ms(lambda: occ_ema_update(*a)),
-        plain_ms=cuda_ms(lambda: occ_ema_update_plain(*a)),
-        library_ms=None,
-        bound=bound(V * (4 * S + 4 + 4 + 1), V * (S * 12 + 4)))
+    out["occ_ema_update"] = time_k7(shapes["occ_ema_update"]["args"], "bench")
+    out["occ_ema_update"]["at_shapes"] = [
+        timing_entry(time_k7(shapes["occ_ema_update S=4"]["args"], "street"))]
+    out["occ_voxel_points"] = time_k7_points(shapes["occ_voxel_points bench"]["args"], "bench")
+    out["occ_voxel_points"]["at_shapes"] = [
+        timing_entry(time_k7_points(shapes[f"occ_voxel_points {w}"]["args"], w))
+        for w in ("street", "crowd")]
+    for name in ("occ_ema_update", "occ_voxel_points"):
+        for t in [timing_entry(out[name])] + out[name]["at_shapes"]:
+            log(f"kernel {name}: {t['ms']:.4f} ms ({card_extra(t)[2:]}, plain "
+                f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']}) at "
+                f"{t['shape']}")
     a, C = shapes["lotd_cp_stacked"]["args"], shapes["lotd_cp_stacked"]["C"]
     lines, x = a[0], a[1]
     N, F, R = x.shape[0], lines.shape[1], lines.shape[2]
@@ -1882,8 +2118,8 @@ def bench_phase(dev, profile_it):
     log(f"bench training slice: {BENCH_STEPS} steps of {BENCH_RAYS} rays, {refreshes} grid "
         f"refreshes, launches {launches}")
     if launches["occ_ray_proposal"] != BENCH_STEPS or launches["occ_ema_update"] != refreshes \
-            or refreshes != 3:
-        raise AssertionError("K4 must launch once a step and K7 once a refresh")
+            or launches["occ_voxel_points"] != refreshes or refreshes != 3:
+        raise AssertionError("K4 must launch once a step, K7's points and K7 once a refresh")
     for name in ("lotd_cp_stacked", "lotd_cp_stacked.bwd", "neus_upsample.weights_pdf",
                  "neus_upsample.merge", "volume_composite", "volume_composite.bwd"):
         if launches[name] <= 0:
@@ -1892,10 +2128,11 @@ def bench_phase(dev, profile_it):
         raise AssertionError("the bench encoding has no gather level, yet K3 launched")
     if state.it % accel.n_steps_between_update != 0:
         raise AssertionError("the poisoned step should fall on the grid's cadence")
-    k7 = kernels.KERNELS["occ_ema_update"].launches
+    k7 = [kernels.KERNELS[k].launches for k in ("occ_ema_update", "occ_voxel_points")]
     check_poisoned_step(trainer, state, rig, dev, BENCH_RAYS)
-    if kernels.KERNELS["occ_ema_update"].launches != k7 + 1:
-        raise AssertionError("the skipped step on the cadence did not launch K7")
+    if [kernels.KERNELS[k].launches for k in ("occ_ema_update", "occ_voxel_points")] != \
+            [k7[0] + 1, k7[1] + 1]:
+        raise AssertionError("the skipped step on the cadence did not launch K7 and its points")
 
     kernels.reset_counts()
     frames = render_frames(renderer, state.params, rig, dev, BENCH_FRAME_IDS, "bench model",
@@ -1904,7 +2141,8 @@ def bench_phase(dev, profile_it):
     chunks = len(BENCH_FRAME_IDS) * (rig.H * rig.W // RAYSCHUNK)
     log(f"bench render slice: {len(BENCH_FRAME_IDS)} frames of {rig.H}x{rig.W}, launches "
         f"{launches_render}")
-    if launches_render["occ_ray_proposal"] != chunks or launches_render["occ_ema_update"]:
+    if launches_render["occ_ray_proposal"] != chunks or launches_render["occ_ema_update"] \
+            or launches_render["occ_voxel_points"]:
         raise AssertionError("a rendered chunk launches K4 once and K7 never")
     check_frames(frames, rig.H, rig.W, corner_is_empty=False)
     by_ray = check_crop_by_ray(
@@ -2700,7 +2938,8 @@ def compose_phase(dev, profile_it):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the compose path")
     if launches["volume_composite"] or launches["occ_ema_update"] or \
-            any(n for k, n in launches.items() if k.endswith(".bwd")):
+            launches["occ_voxel_points"] or any(n for k, n in launches.items()
+                                                if k.endswith(".bwd")):
         raise AssertionError("the compose render composites order-free and trains nothing")
     check_compose_frames(frames, H, W, vehicles)
 
@@ -3176,8 +3415,10 @@ def check_multi_training(scene, trainer, state, samplers, dev, iters=MULTI_ITERS
             f"{falls[k][1]:.5f}")
         if not falls[k][1] < falls[k][0]:
             raise AssertionError(f"{k} did not fall")
-    log(f"{label} training: occ_frac {log_[0]['occ_frac']:.4f} -> {log_[-1]['occ_frac']:.4f}"
-        f", error-map updates {samplers['imp'].it} (importance sampling from "
+    shares = {role: round(float(a.occupied_fraction(state.occ[role])), 4)
+              for role, a in r.accels.items()}
+    log(f"{label} training: the grids' occupied fractions after it {shares}, error-map "
+        f"updates {samplers['imp'].it} (importance sampling from "
         f"{samplers['imp'].enable_after})")
     pair = any(r._pair_rows(obs, MULTI_RAYS) for obs in r._grouped().values())
     batched = any(a.n_grids for a in r.accels.values())
@@ -3187,6 +3428,7 @@ def check_multi_training(scene, trainer, state, samplers, dev, iters=MULTI_ITERS
             "neus_composite": iters, "neus_composite.bwd": iters,
             "volume_composite": 0, "volume_composite.bwd": 0,
             "occ_ray_proposal": 2 * iters, "occ_ema_update": refreshes * len(r.accels),
+            "occ_voxel_points": refreshes * len(r.accels),
             "pair_compact": iters if pair else 0,
             "occ_ray_proposal_batched": iters if batched else 0,
             **dict.fromkeys(("lotd_cp_stacked", "lotd_cp_stacked.bwd") + LINES_KERNELS
@@ -3443,7 +3685,17 @@ def multi_phase(dev, profile_it):
     errs, shapes = check_multi_kernels(dev, trainer, state, scene, samplers)
     loss_err, grad_err = check_multi_first_iteration(scene, trainer, state, samplers, dev)
     log_, launches, falls = check_multi_training(scene, trainer, state, samplers, dev)
+    occ_frac_last = float(accel.occupied_fraction(state.occ["cr"]))
     check_multi_poisoned_step(scene, trainer, state, samplers, dev)
+    # the street's refresh: K7's points in its own box, the refresh K7's
+    # points and K7 alone, and its time split into the field query and the rest
+    street = state.params[trainer.renderer.scene_models["cr"][0]]
+    check_k7_points(dev, accel.box(dev), [("street, its own box", accel.samples_per_voxel,
+                                           accel.res, None)])
+    check_refresh_kernels("street", accel, state.occ["cr"], dev)
+    refresh = time_refresh(accel, state.occ["cr"], street, dev)
+    log(refresh_line(f"street grid, {accel.res}^3 x {accel.samples_per_voxel} samples, "
+                     f"eval_chunk {street.eval_chunk}", refresh))
     # the shapes of the redesigned kernels' launches (and K1 bwd's, K5a's,
     # K13's and K14's) in one LiDAR and one pixel step, K13's calls with
     # their indices
@@ -3511,7 +3763,7 @@ def multi_phase(dev, profile_it):
                "multi_loss_rgb_last10": falls["loss_rgb"][1],
                "multi_lidar_depth_first10": falls["lidar/lidar_loss_depth"][0],
                "multi_lidar_depth_last10": falls["lidar/lidar_loss_depth"][1],
-               "multi_occ_frac_last": log_[-1]["occ_frac"],
+               "multi_occ_frac_last": occ_frac_last, "multi_street_refresh": refresh,
                "multi_lidar_step_ms": it_ms["lidar"][0], "multi_pixel_step_ms": it_ms["pixel"][0],
                "multi_iteration_ms": it_ms["iteration"][0],
                "multi_iteration_ms_min": it_ms["iteration"][1],
@@ -3663,12 +3915,15 @@ def check_batched_occ(dev, accel, st, rows):
 def check_batched_ema(dev, accel, st, field):
     """K7 at the batched update's shape: the per-instance grids' V = G R^3
     voxels, one jittered sample each, raw values from the shared model's own
-    SDF of each instance, warm-up on and off. -> (max_abs_err, inputs)."""
+    SDF of each instance, warm-up on and off, with its count; its points in
+    the model's own box, bit-equal to the plain version's; the refresh K7's
+    points and K7 alone. -> (max_abs_err, inputs)."""
     import torch
-    from neuralsim_torch.accel.occ_grid import occ_ema_update, occ_ema_update_plain
     gen = torch.Generator(device=dev).manual_seed(23)
-    x = accel._voxel_points(torch.rand(accel.jitter_shape, generator=gen, device=dev))
-    bidx = torch.arange(accel.n_grids, device=dev).repeat_interleave(accel.res ** 3)
+    u = torch.rand(accel.jitter_shape, generator=gen, device=dev)
+    x, bidx = accel._voxel_points(u, "index")
+    check_k7_points(dev, accel.box(dev),
+                    [("crowd, the model's box", accel.n_grids, accel.res, "index")])
     with torch.no_grad():
         raw = field.query_sdf(x, bidx=bidx).reshape(1, -1).contiguous()
     val = st.val.reshape(-1).contiguous()
@@ -3676,49 +3931,97 @@ def check_batched_ema(dev, accel, st, field):
     for floor in (None, accel.occ_thre + 1e-3):
         a = (raw, val, accel.occ_val_fn, accel.raw_scale, accel.occ_inv_s, accel.ema_decay,
              accel.occ_thre, floor)
-        got, want = occ_ema_update(*a), occ_ema_update_plain(*a)
-        errs.append(compare(f"K7 occ_ema_update batched V={raw.shape[1]} S=1 "
-                            f"warm-up={floor is not None}", got[:1], want[:1], 0, K7_ATOL))
-        off = (got[1] != want[1]) & ((want[0] - accel.occ_thre).abs() > K7_ATOL)
-        if bool(off.any()):
-            raise AssertionError("K7 batched: the mask differs away from the threshold")
+        errs.append(check_k7(f"K7 occ_ema_update batched V={raw.shape[1]} S=1 "
+                             f"warm-up={floor is not None}", a))
+    check_refresh_kernels("vehicle grids'", accel, st, dev)
     return max(errs), dict(args=(raw, val, accel.occ_val_fn, accel.raw_scale, accel.occ_inv_s,
-                                 accel.ema_decay, accel.occ_thre, None))
+                                 accel.ema_decay, accel.occ_thre, None),
+                           points=(u, *accel.box(dev), "index"))
 
 
-def time_refresh(accel, st, field, dev, reps=5):
-    """Host-clock ms of one refresh of the per-instance grids (the jitter
-    drawn, G R^3 points through the shared model in chunks of its
-    eval_chunk, K7), median of ``reps``, and the peak memory it allocates
-    above what was held before (MiB)."""
+def time_refresh(accel, st, field, dev, reps=5) -> dict:
+    """One refresh of a grid as the trainer runs it (the jitter drawn, K7's
+    points, the points through the field in chunks of its eval_chunk, with
+    each point's instance index for per-instance grids, then K7), host clock
+    to a sync, median of ``reps``, beside the field query alone on one
+    refresh's points; each also by the profiler (device busy a call). The
+    rest (``rest_*``) is the refresh less the query: the draw, the points,
+    K7. ``peak_mib``: the most a refresh allocates above what was held."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
     from neuralsim_torch.fields.neus import map_chunked
     gen = torch.Generator(device=dev).manual_seed(29)
     lines = field.encoding.kernel_lines()
-    query = lambda x, b: map_chunked(lambda c, cb: field.query_sdf(c, lines, cb), x,
-                                     field.eval_chunk, b)
-    ts = []
+    sdf = lambda x, b=None: field.query_sdf(x, lines, b)
+    query = lambda x, *b: map_chunked(sdf, x, field.eval_chunk, *b)
+    refresh = lambda: accel.update(
+        st, query, torch.rand(accel.jitter_shape, generator=gen, device=dev), 1000)
+    u = torch.rand(accel.jitter_shape, generator=gen, device=dev)
+    if accel.n_grids is None:
+        x, lead = accel._voxel_points(u), ()
+    else:           # each point's instance index, as the batched update makes it
+        x = accel._voxel_points(u)
+        lead = (torch.arange(accel.n_grids, device=dev).repeat_interleave(accel.res ** 3),)
+
+    @torch.no_grad()
+    def alone():
+        return query(x, *lead)
+
+    def host(fn):
+        ts = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts[1:])[reps // 2]
+
+    def busy(fn):
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            us = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+            if us:
+                return sum(us) / 1e3, len(us)
+        return None, 0
+
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(reps + 1):
-        t0 = time.perf_counter()
-        accel.update(st, query, torch.rand(accel.jitter_shape, generator=gen, device=dev), 1000)
-        torch.cuda.synchronize()
-        ts.append((time.perf_counter() - t0) * 1e3)
-    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-    ts = sorted(ts[1:])
-    return ts[reps // 2], peak
+    out = {"host_ms": host(refresh)}
+    out["peak_mib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    out["busy_ms"], out["kernels"] = busy(refresh)
+    out["query_host_ms"] = host(alone)
+    out["query_busy_ms"], out["query_kernels"] = busy(alone)
+    out["rest_host_ms"] = out["host_ms"] - out["query_host_ms"]
+    if out["busy_ms"] is not None and out["query_busy_ms"] is not None:
+        out["rest_busy_ms"] = out["busy_ms"] - out["query_busy_ms"]
+    out["points"] = x.shape[0]
+    return out
+
+
+def refresh_line(label, r) -> str:
+    """A log line of a time_refresh result."""
+    f = lambda v: "not measured" if v is None else f"{v:.3f}"
+    return (f"timing: refresh of the {label} ({r['points']} points): host {r['host_ms']:.3f} ms "
+            f"(field query alone {r['query_host_ms']:.3f}, the rest {r['rest_host_ms']:.3f}); "
+            f"busy {f(r['busy_ms'])} ms in {r['kernels']} kernels (query {f(r['query_busy_ms'])} "
+            f"in {r['query_kernels']}, the rest {f(r.get('rest_busy_ms'))}); peak "
+            f"{r['peak_mib']:.1f} MiB above what was held")
 
 
 def time_crowd_kernels(pair_shapes, occ_shapes, ema_shapes, synth_hit):
     """K11 at the crowd's render and training calls and at synthetic_multi's,
     beside its plain version and a stable torch.argsort of the same keys
     (the library call that selects the same pairs); K10 at the path's rows;
-    K7 at the batched update's shape -> {kernel: [timing, ...]}."""
+    K7 and its points at the batched update's shape -> {kernel: [timing, ...]}."""
     import torch
-    from neuralsim_torch.accel.occ_grid import (occ_ema_update, occ_ema_update_plain,
-                                                occ_ray_proposal, occ_ray_proposal_plain)
+    from neuralsim_torch.accel.occ_grid import occ_ray_proposal, occ_ray_proposal_plain
     from neuralsim_torch.ops.pair_compact import pair_compact, pair_compact_plain
     out = {"pair_compact": []}
     for label, (hit, Bg, M) in pair_shapes + [("synthetic_multi training call", synth_hit)]:
@@ -3748,14 +4051,9 @@ def time_crowd_kernels(pair_shapes, occ_shapes, ema_shapes, synth_hit):
         plain_ms=cuda_ms(lambda: occ_ray_proposal_plain(*a)),
         library_ms=None,
         bound=k4_bound(N, M, n, a[9] is not None, lead=True))]
-    a = ema_shapes["args"]
-    S, V = a[0].shape
-    out["occ_ema_update"] = [dict(
-        shape=f"batched: voxels={V} ({G} grids of {R}^3) samples per voxel={S} (sdf)",
-        ms=cuda_ms(lambda: occ_ema_update(*a)),
-        plain_ms=cuda_ms(lambda: occ_ema_update_plain(*a)),
-        library_ms=None,
-        bound=bound(V * (4 * S + 4 + 4 + 1), V * (S * 12 + 4)))]
+    out["occ_ema_update"] = [time_k7(ema_shapes["args"], f"batched, {G} grids of {R}^3")]
+    out["occ_voxel_points"] = [time_k7_points(ema_shapes["points"],
+                                              f"batched, {G} grids, the model's box")]
     return out
 
 
@@ -3847,10 +4145,9 @@ def crowd_phase(dev, profile_it):
     frame_ms, frame_min, frame_max = time_compose_frames(renderer, params, scene, occ)
     log(f"timing: crowd frame median {frame_ms:.3f} ms (min {frame_min:.3f}, max "
         f"{frame_max:.3f}) for {H * W} rays, {H * W / frame_ms * 1e3:.1f} rays/s")
-    refresh_ms, refresh_mib = time_refresh(va, occ[veh_id], params[veh_id], dev)
-    log(f"timing: refresh of the {va.n_grids} vehicle grids ({va.n_grids * va.res ** 3} points "
-        f"through the shared model, eval_chunk {params[veh_id].eval_chunk}) median "
-        f"{refresh_ms:.3f} ms, peak {refresh_mib:.1f} MiB above what was held")
+    refresh = time_refresh(va, occ[veh_id], params[veh_id], dev)
+    log(refresh_line(f"{va.n_grids} vehicle grids through the shared model, eval_chunk "
+                     f"{params[veh_id].eval_chunk}", refresh))
     del scene, bank, renderer, params, occ, frames
 
     # -- training ----------------------------------------------------------
@@ -3916,7 +4213,7 @@ def crowd_phase(dev, profile_it):
     summary = {"crowd_frame_ms": frame_ms, "crowd_frame_ms_min": frame_min,
                "crowd_frame_ms_max": frame_max, "crowd_rays_per_s": H * W / frame_ms * 1e3,
                "crowd_vehicle_occ_frac": veh_frac, "crowd_crop_by_ray": by_ray,
-               "crowd_refresh_ms": refresh_ms, "crowd_refresh_peak_mib": refresh_mib,
+               "crowd_refresh_ms": refresh["host_ms"], "crowd_refresh": refresh,
                "crowd_k11_sets_equal": n_sets, "crowd_build_s": timings,
                "crowd_first_iteration_loss_rel_err": loss_err,
                "crowd_first_iteration_grad_rel_err": grad_err,
@@ -3992,7 +4289,8 @@ def synthetic_multi_phase(dev):
         raise AssertionError("synthetic_multi: a step was skipped or loss_rgb did not fall")
     want = {"pair_compact": SYNTH_STEPS, "cross_source_vw": SYNTH_STEPS,
             "cross_source_vw.bwd": SYNTH_STEPS, "volume_composite": 0,
-            "occ_ray_proposal": 0, "occ_ray_proposal_batched": 0, "occ_ema_update": 0}
+            "occ_ray_proposal": 0, "occ_ray_proposal_batched": 0, "occ_ema_update": 0,
+            "occ_voxel_points": 0}
     if any(launches[k] != n for k, n in want.items()) or not launches["lotd_grid"] \
             or not launches["lotd_grid.bwd"]:
         raise AssertionError(f"synthetic_multi's launches are not as counted: want {want} and "
@@ -5008,26 +5306,41 @@ def bf16_cast_counter():
 
 @contextlib.contextmanager
 def no_plain_on_card(label):
-    """The block may not call the plain K13 or K14 with tensors on the card
-    (the card path launches the kernels or raises), nor cast a tensor on the
-    card to bf16 (K14 writes the bf16 lines that K1 reads; counted by
-    bf16_cast_counter): raises after it if it did."""
+    """The block may not call the plain K7 (its points, its update, the mean
+    of the mask that K7's fraction replaces), K13 or K14 with tensors on the
+    card (the card path launches the kernels or raises), nor cast a tensor on
+    the card to bf16 (K14 writes the bf16 lines that K1 reads; counted by
+    bf16_cast_counter): raises after it if it did. The one plain mean of a
+    grid's ``init_state`` (a build, which ``train()`` runs inside the block)
+    is not a step's, and is not counted."""
+    from neuralsim_torch.accel import occ_grid as og
     from neuralsim_torch.fields.encodings import lotd
     from neuralsim_torch.ops import latent_take as lt
-    hits = []
+    hits, building = [], []
     saved = [(m, n, getattr(m, n)) for m, n in (
         (lt, "latent_take_plain"), (lt, "latent_take_bwd_plain"),
-        (lotd, "lotd_cp_lines_plain"), (lotd, "lotd_cp_lines_bwd_plain"))]
+        (lotd, "lotd_cp_lines_plain"), (lotd, "lotd_cp_lines_bwd_plain"),
+        (og, "occ_voxel_points_plain"), (og, "occ_ema_update_plain"),
+        (og, "occupied_fraction_plain"), (og.OccGridEma, "init_state"))]
 
     def counted(name, fn):
         def call(t, *a, **kw):
-            if t.is_cuda:
+            if t.is_cuda and not building:
                 hits.append(name)
             return fn(t, *a, **kw)
         return call
 
+    def built(fn):
+        def call(*a, **kw):
+            building.append(1)
+            try:
+                return fn(*a, **kw)
+            finally:
+                building.pop()
+        return call
+
     for m, n, fn in saved:
-        setattr(m, n, counted(n, fn))
+        setattr(m, n, built(fn) if n == "init_state" else counted(n, fn))
     casts = bf16_cast_counter()
     try:
         with casts:
@@ -5036,12 +5349,12 @@ def no_plain_on_card(label):
         for m, n, fn in saved:
             setattr(m, n, fn)
     if hits:
-        raise AssertionError(f"the {label} path ran plain K13/K14 on the card: "
+        raise AssertionError(f"the {label} path ran plain K7/K13/K14 on the card: "
                              f"{sorted(set(hits))}")
     if casts.casts:
         raise AssertionError(f"the {label} path cast {len(casts.casts)} tensors to bf16 on the "
                              f"card: {sorted(set(casts.casts))}")
-    log(f"{label}: no plain K13/K14 and no bf16 cast on the card")
+    log(f"{label}: no plain K7/K13/K14 and no bf16 cast on the card")
 
 
 def runs_of(idx):
@@ -5136,10 +5449,11 @@ def check_latent_take(dev, cases):
     return ef, eb
 
 
-def device_kernels(fn, reps: int = 20):
+def device_kernels(fn, reps: int = 20, done=bool):
     """The device kernels (memsets included) that ``reps`` calls of fn
-    launch, by name, by the profiler, after a warm-up; a session that records
-    no kernel is run again (as in prof_ms), twice at most."""
+    launch, by name, by the profiler, after a warm-up; a session whose names
+    fail ``done`` (by default: one that records no kernel) is run again (as
+    in prof_ms), twice at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -5151,7 +5465,7 @@ def device_kernels(fn, reps: int = 20):
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
+        if done(names):
             break
     return names
 

@@ -3,9 +3,9 @@ neuralsim_tpu/accel/occ_grid.py:27-337): one grid (:class:`OccGridEma`), one
 per instance of a shared model (:class:`OccGridEmaBatched`) and one per time
 keyframe (:class:`OccGridEmaDynamic`).
 
-The grid state is explicit: an :class:`OccGridState` (float32 values and the
-boolean mask ``val > occ_thre``, device tensors) that the trainer carries and
-hands to the renderer. Three kernels live here, each beside its plain version:
+The grid state is explicit: an :class:`OccGridState` (float32 values, the
+boolean mask ``val > occ_thre`` and its occupied fraction, device tensors) that the trainer carries and hands to the renderer. Four
+kernels live here, each beside its plain version:
 
 * ``occ_ray_proposal`` (K4): probe ``march_steps`` equal segments of
   [near, far] against the mask and draw all ``n_samples`` depths from the
@@ -14,10 +14,16 @@ hands to the renderer. Three kernels live here, each beside its plain version:
   ``occ_ray_proposal_batched``): the same march over one of G grids
   [G, R, R, R] per ray, picked by an int32 index ``lead`` (the row's
   instance, or its time's keyframe); the same device code as K4.
+* ``occ_voxel_points`` (K7's points): the jittered voxel samples in world
+  coordinates, the points a refresh hands the field.
 * ``occ_ema_update`` (K7): raw field values of the jittered voxel samples ->
   occupancy, max over a voxel's samples, ``max(decay * old, new)``, the
-  warm-up floor and the threshold. The batched and dynamic grids update all
-  their G R^3 voxels in one call, one sample a voxel.
+  warm-up floor and the threshold, and the occupied count and fraction, so that
+  :meth:`OccGridEma.occupied_fraction` launches nothing on the card. The
+  batched and dynamic grids update all their G R^3 voxels in one call, one
+  sample a voxel.
+
+A refresh is thus one points kernel, the field query, and one K7.
 
 Random draws come in as tensors (``noise`` for the proposal, ``u`` for the
 update), so a caller can replay another package's draws.
@@ -39,15 +45,28 @@ K10 = kernels.register("occ_ray_proposal_batched", "neuralsim_torch/csrc/occ_gri
                        "neuralsim_tpu/accel/occ_grid.py:247")
 K7 = kernels.register("occ_ema_update", "neuralsim_torch/csrc/occ_grid.cu",
                       "neuralsim_tpu/accel/occ_grid.py:99")
+K7_POINTS = kernels.register("occ_voxel_points", "neuralsim_torch/csrc/occ_grid.cu",
+                             "neuralsim_tpu/accel/occ_grid.py:106")
 
 _MODES = {"sdf": 0, "density": 1}
 
 
 class OccGridState(NamedTuple):
     """val: [R, R, R] (or [G, R, R, R]: batched, dynamic) float32 EMA
-    occupancy in [0, 1]; mask: bool, val > occ_thre."""
+    occupancy in [0, 1]; mask: bool, val > occ_thre; frac: float32 [], the
+    share of True voxels of ``mask`` as :func:`occupied_fraction_plain`
+    gives it on the mask's device. K7 writes it, and ``init_state`` and the
+    bridge make it once; a state built from ``val`` and ``mask`` alone has
+    None there (:meth:`OccGridEma.occupied_fraction` then refuses it on the
+    card)."""
     val: torch.Tensor
     mask: torch.Tensor
+    frac: Optional[torch.Tensor] = None
+
+
+def occupied_fraction_plain(mask: torch.Tensor) -> torch.Tensor:
+    """The share of True voxels of a mask (the JAX ``occupied_fraction``)."""
+    return mask.to(torch.float32).mean()
 
 
 # ---------------------------------------------------------------------------
@@ -128,8 +147,64 @@ def occ_ray_proposal(rays_o: torch.Tensor, rays_d: torch.Tensor, near: torch.Ten
 
 
 # ---------------------------------------------------------------------------
-# K7: the EMA update
+# K7: the voxel points and the EMA update
 # ---------------------------------------------------------------------------
+
+_LEADS = (None, "index", "time")
+
+
+def occ_voxel_points_plain(u: torch.Tensor, aabb_min: torch.Tensor, aabb_max: torch.Tensor,
+                           lead: Optional[str] = None):
+    """Plain version of K7's points: jitter u [L, R, R, R, 3] -> the points
+    [L * R^3, 3] of every voxel of each of the L leading entries (samples,
+    instances or keyframes), ``((i + u) / R) * (max - min) + min``. With
+    ``lead`` also each point's entry [L * R^3]: "index", the instance index
+    (int64), or "time", the keyframe's time ``(l + 0.5) / L``."""
+    L, R = u.shape[0], u.shape[-2]
+    ar = torch.arange(R, device=u.device)
+    idx = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"), dim=-1)
+    x = ((idx[None] + u) / R).reshape(-1, 3) * (aabb_max - aabb_min) + aabb_min
+    if lead is None:
+        return x
+    if lead == "index":
+        return x, torch.arange(L, device=u.device).repeat_interleave(R ** 3)
+    return x, ((torch.arange(L, dtype=torch.float32, device=u.device) + 0.5) / L
+               ).repeat_interleave(R ** 3)
+
+
+def occ_voxel_points(u: torch.Tensor, aabb_min: torch.Tensor, aabb_max: torch.Tensor,
+                     lead: Optional[str] = None):
+    """K7's points (and ``lead``, see the plain version): the plain version
+    on the CPU, the CUDA kernel on the card, one launch (the card's plain
+    version bit for bit: PyTorch divides by R and L there as a product with
+    the float reciprocal, which the kernel takes too)."""
+    if lead not in _LEADS:
+        raise ValueError(f"occ_voxel_points: lead must be one of {_LEADS}, got {lead!r}")
+    if u.device.type == "cpu":
+        return occ_voxel_points_plain(u, aabb_min, aabb_max, lead)
+    kernels.check_cuda("occ_voxel_points", u, aabb_min, aabb_max)
+    R = u.shape[-2] if u.dim() == 5 else 0
+    if u.dim() != 5 or tuple(u.shape[1:]) != (R, R, R, 3) or u.dtype != torch.float32 \
+            or u.numel() == 0:
+        raise ValueError(f"occ_voxel_points: u must be [L, R, R, R, 3] float32, got "
+                         f"{tuple(u.shape)} {u.dtype}")
+    for b in (aabb_min, aabb_max):
+        if tuple(b.shape) != (3,) or b.dtype != torch.float32:
+            raise ValueError("occ_voxel_points: the box must be two [3] float32 tensors")
+    if u.numel() >= 2 ** 31:
+        raise ValueError(f"occ_voxel_points: {tuple(u.shape)} is past the kernel's 2^31 floats")
+    L, P = u.shape[0], u.numel() // 3
+    x = torch.empty((P, 3), dtype=torch.float32, device=u.device)
+    idx = torch.empty(P, dtype=torch.int64, device=u.device) if lead == "index" else None
+    t = torch.empty(P, dtype=torch.float32, device=u.device) if lead == "time" else None
+    K7_POINTS.launch("occ_voxel_points", kernels.ptr(u), kernels.ptr(aabb_min),
+                     kernels.ptr(aabb_max), kernels.ptr(x), kernels.ptr(idx), kernels.ptr(t), L,
+                     R, float(np.float32(1) / np.float32(R)), float(np.float32(1) / np.float32(L)),
+                     kernels.stream())
+    if lead is None:
+        return x
+    return x, (idx if lead == "index" else t)
+
 
 def occ_from_raw(raw: torch.Tensor, mode: str, p: float, inv_s: float) -> torch.Tensor:
     """Raw field values -> occupancy in [0, 1]. ``sdf``: the logistic density
@@ -145,35 +220,46 @@ def occ_from_raw(raw: torch.Tensor, mode: str, p: float, inv_s: float) -> torch.
 
 def occ_ema_update_plain(raw: torch.Tensor, val: torch.Tensor, mode: str, p: float,
                          inv_s: float, decay: float, thre: float,
-                         warm_floor: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
+                         warm_floor: Optional[float]) -> Tuple[torch.Tensor, ...]:
     """Plain version of K7. raw: [S, V] field values of S samples per voxel;
-    val: [V] old values. -> (new val [V] float32, mask [V] bool)."""
+    val: [V] old values. -> (new val [V] float32, mask [V] bool, the occupied
+    count int32 [], its fraction float32 [])."""
     new = torch.maximum(val * decay, occ_from_raw(raw, mode, p, inv_s).amax(dim=0))
     if warm_floor is not None:
         new = torch.clamp(new, min=warm_floor)
-    return new, new > thre
+    mask = new > thre
+    return new, mask, mask.sum(dtype=torch.int32), occupied_fraction_plain(mask)
 
 
 def occ_ema_update(raw: torch.Tensor, val: torch.Tensor, mode: str, p: float, inv_s: float,
-                   decay: float, thre: float, warm_floor: Optional[float]
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K7 wrapper: the plain version on the CPU, the CUDA kernel on the card.
-    ``warm_floor``: the least value during the warm-up, None after it."""
+                   decay: float, thre: float,
+                   warm_floor: Optional[float]) -> Tuple[torch.Tensor, ...]:
+    """K7 wrapper: the plain version on the CPU, the CUDA kernel on the card
+    (one launch writes the values, the mask, the count and the fraction).
+    ``warm_floor``: the least value during the warm-up, None after it.
+    -> (new val, mask, count, frac)."""
     if raw.device.type == "cpu":
         return occ_ema_update_plain(raw, val, mode, p, inv_s, decay, thre, warm_floor)
     kernels.check_cuda("occ_ema_update", raw, val)
     if mode not in _MODES:
         raise ValueError(mode)
-    if raw.dim() != 2 or raw.shape[0] < 1 or val.shape != raw.shape[1:] \
+    if raw.dim() != 2 or raw.shape[0] < 1 or val.dim() != 1 or val.shape != raw.shape[1:] \
             or raw.dtype != torch.float32 or val.dtype != torch.float32:
         raise ValueError("occ_ema_update: raw must be [S >= 1, V] and val [V], float32")
+    V = val.shape[0]
+    if not 1 <= V < 2 ** 31:
+        raise ValueError(f"occ_ema_update: needs 1 <= V < 2^31 voxels, got {V}")
+    dev = val.device
     new = torch.empty_like(val)
-    mask = torch.empty(val.shape, dtype=torch.bool, device=val.device)
+    mask = torch.empty(val.shape, dtype=torch.bool, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    frac = torch.empty((), dtype=torch.float32, device=dev)
     K7.launch("occ_ema_update", kernels.ptr(raw), kernels.ptr(val), kernels.ptr(new),
-              kernels.ptr(mask), val.shape[0], raw.shape[0], _MODES[mode], float(p),
-              float(inv_s), float(decay), float(thre),
-              float("-inf") if warm_floor is None else float(warm_floor), kernels.stream())
-    return new, mask
+              kernels.ptr(mask), kernels.ptr(kernels.ticket(dev, 2)), kernels.ptr(count),
+              kernels.ptr(frac), V, raw.shape[0], _MODES[mode], float(p), float(inv_s),
+              float(decay), float(thre), float("-inf") if warm_floor is None else float(warm_floor),
+              float(np.float32(1) / np.float32(V)), kernels.sm_count(dev.index), kernels.stream())
+    return new, mask, count, frac
 
 
 # ---------------------------------------------------------------------------
@@ -225,11 +311,14 @@ class OccGridEma:
 
     # -- state ---------------------------------------------------------------
     def init_state(self) -> OccGridState:
-        """All occupied (or all empty), on the space's device."""
-        fill = torch.ones if self.init_occupied else torch.zeros
+        """All occupied (or all empty), on the space's device, with its
+        occupied fraction (the plain mean, once a build)."""
+        fill = 1.0 if self.init_occupied else 0.0
         lead = () if self.n_grids is None else (self.n_grids,)
-        v = fill(lead + (self.res,) * 3, dtype=torch.float32, device=self.space.aabb_min.device)
-        return OccGridState(v, v > self.occ_thre)
+        v = torch.full(lead + (self.res,) * 3, fill, dtype=torch.float32,
+                       device=self.space.aabb_min.device)
+        mask = v > self.occ_thre
+        return OccGridState(v, mask, occupied_fraction_plain(mask))
 
     @property
     def voxel_half_diag(self) -> float:
@@ -259,27 +348,26 @@ class OccGridEma:
         lead = self.samples_per_voxel if self.n_grids is None else self.n_grids
         return (lead,) + (self.res,) * 3 + (3,)
 
-    def _voxel_points(self, u: torch.Tensor) -> torch.Tensor:
+    def _voxel_points(self, u: torch.Tensor, lead: Optional[str] = None):
         """Jitter u [L, R, R, R, 3] -> the points [L * R^3, 3] of every voxel
-        of each of the L leading entries (samples, instances or keyframes)."""
-        R = self.res
+        of each of the L leading entries (samples, instances or keyframes),
+        and with ``lead`` each point's instance index or keyframe time: K7's
+        points kernel on the card."""
         if u is None or tuple(u.shape) != self.jitter_shape:
             raise ValueError(f"update: the voxel jitter u must be {self.jitter_shape}, got "
                              f"{None if u is None else tuple(u.shape)}")
-        ar = torch.arange(R, device=u.device)
-        idx = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"), dim=-1)
-        mn, mx = self.box(u.device)
-        return ((idx[None] + u) / R).reshape(-1, 3) * (mx - mn) + mn
+        return occ_voxel_points(u.contiguous(), *self.box(u.device), lead)
 
     def _ema(self, state: OccGridState, raw: torch.Tensor, it: int) -> OccGridState:
         """K7 over the whole state: ``raw`` [S, V] field values of the V voxels
         of ``state`` (flattened in order), S samples each."""
         warm_floor = self.occ_thre + 1e-3 if it < self.n_warmup_steps else None
-        val, mask = occ_ema_update(raw.to(torch.float32).contiguous(),
-                                   state.val.reshape(-1).contiguous(), self.occ_val_fn,
-                                   self.raw_scale, self.occ_inv_s, self.ema_decay,
-                                   self.occ_thre, warm_floor)
-        return OccGridState(val.reshape(state.val.shape), mask.reshape(state.val.shape))
+        val, mask, _, frac = occ_ema_update(
+            raw.to(torch.float32).contiguous(), state.val.reshape(-1).contiguous(),
+            self.occ_val_fn, self.raw_scale, self.occ_inv_s, self.ema_decay, self.occ_thre,
+            warm_floor)
+        shape = state.val.shape
+        return OccGridState(val.reshape(shape), mask.reshape(shape), frac)
 
     @torch.no_grad()
     def update(self, state: OccGridState, query_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -322,7 +410,15 @@ class OccGridEma:
         return state.mask[at] & inside
 
     def occupied_fraction(self, state: OccGridState) -> torch.Tensor:
-        return state.mask.to(torch.float32).mean()
+        """The share of occupied voxels (of all G grids of a [G, R, R, R]
+        state): on the card the fraction the state carries, so nothing is
+        launched; on the CPU the plain mean of the mask."""
+        if state.mask.device.type == "cpu":
+            return occupied_fraction_plain(state.mask)
+        if state.frac is None:
+            raise ValueError("occupied_fraction: a state on the card carries its fraction "
+                             "(from init_state, an update or the bridge)")
+        return state.frac
 
     def edges01(self, march_steps: int, device) -> torch.Tensor:
         """The march's segment edges in [0, 1]: ``i * (1 / M)`` in float32 and
@@ -372,8 +468,7 @@ class OccGridEmaBatched(OccGridEma):
                u: torch.Tensor, it: int) -> OccGridState:
         """``query_fn(x [P, 3], bidx [P])`` -> each instance's raw field
         values; ``u``: [B, R, R, R, 3]. All B R^3 voxels go through K7 at once."""
-        x = self._voxel_points(u)
-        bidx = torch.arange(self.n_instances, device=u.device).repeat_interleave(self.res ** 3)
+        x, bidx = self._voxel_points(u, "index")
         return self._ema(state, query_fn(x, bidx).reshape(1, -1), it)
 
     def occupancy_at(self, state: OccGridState, x: torch.Tensor,
@@ -412,10 +507,7 @@ class OccGridEmaDynamic(OccGridEma):
                u: torch.Tensor, it: int) -> OccGridState:
         """``query_fn(x [P, 3], t01 [P])`` -> raw field values at keyframe k's
         time ``(k + 0.5) / K``; ``u``: [K, R, R, R, 3]."""
-        x = self._voxel_points(u)
-        K = self.n_keyframes
-        t01 = ((torch.arange(K, dtype=torch.float32, device=u.device) + 0.5) / K
-               ).repeat_interleave(self.res ** 3)
+        x, t01 = self._voxel_points(u, "time")
         return self._ema(state, query_fn(x, t01).reshape(1, -1), it)
 
     def occupancy_at(self, state: OccGridState, x: torch.Tensor,

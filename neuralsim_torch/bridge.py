@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from .accel import OccGridState
+from .accel.occ_grid import occupied_fraction_plain
 
 
 def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -69,8 +70,7 @@ def occ_state_from_numpy(val: np.ndarray, mask: np.ndarray, device="cpu") -> Occ
     fields as numpy arrays (``val`` float [R, R, R], ``mask`` bool)."""
     if val.shape != mask.shape or val.ndim != 3:
         raise ValueError(f"val {val.shape} and mask {mask.shape} must be equal [R, R, R]")
-    return OccGridState(torch.from_numpy(np.array(val, dtype=np.float32)).to(device),
-                        torch.from_numpy(np.array(mask, dtype=bool)).to(device))
+    return _grid_state(val, mask, device)
 
 
 def grid_state_from_numpy(val: np.ndarray, mask: np.ndarray, device="cpu") -> OccGridState:
@@ -79,5 +79,11 @@ def grid_state_from_numpy(val: np.ndarray, mask: np.ndarray, device="cpu") -> Oc
     numpy arrays (``val`` float [G, R, R, R], ``mask`` bool)."""
     if val.shape != mask.shape or val.ndim != 4:
         raise ValueError(f"val {val.shape} and mask {mask.shape} must be equal [G, R, R, R]")
-    return OccGridState(torch.from_numpy(np.array(val, dtype=np.float32)).to(device),
-                        torch.from_numpy(np.array(mask, dtype=bool)).to(device))
+    return _grid_state(val, mask, device)
+
+
+def _grid_state(val: np.ndarray, mask: np.ndarray, device) -> OccGridState:
+    """The state on ``device`` with its occupied fraction (the plain mean)."""
+    mask = torch.from_numpy(np.array(mask, dtype=bool)).to(device)
+    return OccGridState(torch.from_numpy(np.array(val, dtype=np.float32)).to(device), mask,
+                        occupied_fraction_plain(mask))

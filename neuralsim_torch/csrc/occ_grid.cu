@@ -12,7 +12,12 @@
 //       _occ_probe_f's take(mode="clip") does. K4 is the same device code with
 //       no index (G = 1);
 //   K7  neuralsim_tpu/accel/occ_grid.py OccGridEma.update (lines 99-118)
-//       after the field evaluation, with _occ_from_raw (lines 75-93).
+//       around the field evaluation: the voxel points (lines 106-111; the
+//       batched and dynamic updates' lines 224-227 and 295-298) in
+//       occ_voxel_points, then _occ_from_raw (lines 75-93), the EMA, the
+//       warm-up floor, the threshold and the occupied count in
+//       occ_ema_update. The count replaces occupied_fraction's
+//       mean(mask.astype(float32)) (lines 154-155).
 //
 // K4, per ray: probe the boolean grid at the midpoints of M equal segments of
 // [near, far]; weight an occupied segment 1 (every segment 1 where the ray
@@ -38,13 +43,41 @@
 // operations; it is bound by instruction issue and latency: the probes'
 // divides and gathers, the M-step walk, then the searches.
 //
+// K7's points, per voxel and sample: ((f32(i) + u) * fl(1 / R)) * (max - min)
+// + min along each axis, each step rounded alone as the card's plain version
+// rounds it (PyTorch divides a float tensor by a Python scalar as a product
+// with its float reciprocal; no FMA contraction). The output keeps the
+// jitter's flat [L R^3 x 3] order, so a thread takes four consecutive floats
+// of it (a float4 in, a float4 out, neighbouring threads on neighbouring
+// bytes) and walks the voxel index and the axis from its first float. What
+// bounds it: bytes (12 read and 12 written a point: 201 MB for the street's
+// 128^3 x 4 samples, 0.060 ms at 3.35 TB/s); the plain version takes about
+// seven launches over the points. For the per-instance and per-keyframe
+// grids the same launch writes each point's lead, in place of the plain
+// version's repeat_interleave: the instance index l (int64, as torch.arange
+// gives it and the latent lookup reads it) or the keyframe's time
+// (l + 0.5) * fl(1 / L), as the card rounds (arange + 0.5) / L.
+//
 // K7, per voxel: raw field values of its S jittered samples -> occupancy
 //   sdf:     4 s (1 - s), s = sigmoid(max(|raw| - voxel_half_diag, 0) * inv_s)
 //   density: 1 - exp(-raw * dt)
 // then max over the S samples, max(decay * old, new), the warm-up floor, and
-// the threshold into the boolean mask. One thread per voxel, neighbouring
-// threads on neighbouring voxels. What bounds it: bytes (4*S + 4 read, 4 + 1
-// written per voxel: 27 MB at 128^3, S = 1).
+// the threshold into the boolean mask, with the earlier kernel's arithmetic
+// (so its bits). Four voxels a thread: a float4 of each sample's row of raw,
+// a float4 of the old values and of the new, the four mask bytes in one
+// 32-bit store; S unrolled for 1 and 4. The blocks stride over the grid, at
+// most four an SM, so a thread keeps its count in a register across its
+// quads. The same launch counts the occupied voxels: a warp's by
+// __reduce_add_sync, a block's in shared memory, the blocks' by one 64-bit
+// atomic add a block that adds the block's count to the high word and 1 to
+// the low word, its ticket (exact in any order, and no fence: the block that
+// draws the last ticket reads the total from what its own atomic returns).
+// That block resets the word and writes the count and the fraction
+// count * fl(1 / V): how the card's mean(mask.float()) rounds it (a sum of
+// 0s and 1s is exact up to 2^24, then one product with the float
+// reciprocal). What bounds it: bytes (4 S + 4
+// read, 4 + 1 written a voxel: 27 MB at 128^3 and S 1, 0.0081 ms; 52 MB at
+// S 4, 0.0157 ms).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -241,33 +274,182 @@ occ_ray_proposal_kernel(const float* __restrict__ rays_o,   // [N, 3]
   }
 }
 
-// One thread per voxel. mode 0: sdf (p = voxel half diagonal), 1: density
-// (p = dt). warm_floor: the warm-up floor, or -inf outside the warm-up.
-__global__ void occ_ema_update_kernel(const float* __restrict__ raw,   // [S, V]
-                                      const float* __restrict__ val,   // [V]
-                                      float* __restrict__ new_val,     // [V]
-                                      uint8_t* __restrict__ mask,      // [V] bool
-                                      int V, int S, int mode, float p, float inv_s,
-                                      float decay, float thre, float warm_floor) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= V) return;
-  float m = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const float r = raw[(size_t)s * V + i];
-    float o;
-    if (mode == 0) {
-      const float sd = nan_max(__fsub_rn(fabsf(r), p), 0.f);
-      const float sx = sigmoid(__fmul_rn(sd, inv_s));
-      o = __fmul_rn(__fmul_rn(4.f, sx), __fsub_rn(1.f, sx));
-    } else {
-      o = __fsub_rn(1.f, expf(-__fmul_rn(r, p)));
-    }
-    m = s == 0 ? o : nan_max(m, o);
+// One sample's occupancy. mode 0: sdf (p = voxel half diagonal), 1: density
+// (p = dt).
+__device__ __forceinline__ float occ_of(float r, int mode, float p, float inv_s) {
+  if (mode == 0) {
+    const float sd = nan_max(__fsub_rn(fabsf(r), p), 0.f);
+    const float sx = sigmoid(__fmul_rn(sd, inv_s));
+    return __fmul_rn(__fmul_rn(4.f, sx), __fsub_rn(1.f, sx));
   }
-  float v = nan_max(__fmul_rn(val[i], decay), m);
-  v = nan_max(v, warm_floor);
-  new_val[i] = v;
-  mask[i] = v > thre ? 1 : 0;
+  return __fsub_rn(1.f, expf(-__fmul_rn(r, p)));
+}
+
+// A voxel's new value from its samples' max m and its old value.
+// warm_floor: the warm-up floor, or -inf outside the warm-up.
+__device__ __forceinline__ float ema_of(float m, float old, float decay, float warm_floor) {
+  return nan_max(nan_max(__fmul_rn(old, decay), m), warm_floor);
+}
+
+constexpr int kPointThreads = 256;
+constexpr int kEmaThreads = 256;
+constexpr int kEmaBlocksPerSm = 4;
+
+// A thread four consecutive floats of x; vec: u and x 16-byte aligned and
+// n % 4 == 0 (one float4 each way), else four scalar floats (the tail too).
+// The thread that writes a point's first coordinate writes its lead.
+__global__ void __launch_bounds__(kPointThreads)
+occ_voxel_points_kernel(const float* __restrict__ u,         // [L, R, R, R, 3]
+                        const float* __restrict__ aabb_min,  // [3]
+                        const float* __restrict__ aabb_max,  // [3]
+                        float* __restrict__ x,               // [L R^3, 3]
+                        long long* __restrict__ lead_idx,    // [L R^3] or null
+                        float* __restrict__ lead_t,          // [L R^3] or null
+                        unsigned n, unsigned R, unsigned R3, float inv_R, float inv_L,
+                        int vec) {
+  const unsigned e0 = 4u * (blockIdx.x * kPointThreads + threadIdx.x);
+  if (e0 >= n) return;
+  const float mn0 = __ldg(aabb_min), mn1 = __ldg(aabb_min + 1), mn2 = __ldg(aabb_min + 2);
+  const float ex0 = __fsub_rn(__ldg(aabb_max), mn0);
+  const float ex1 = __fsub_rn(__ldg(aabb_max + 1), mn1);
+  const float ex2 = __fsub_rn(__ldg(aabb_max + 2), mn2);
+  // the first float's point p, axis a, lead l and voxel (i, j, k); the other
+  // three follow
+  unsigned p = e0 / 3u, l = p / R3;
+  const unsigned v = p - l * R3;
+  unsigned a = e0 - 3u * p, i = v / (R * R);
+  const unsigned rem = v - i * (R * R);
+  unsigned j = rem / R, k = rem - j * R;
+  float in[4], out[4];
+  if (vec) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(u) + (e0 >> 2));
+    in[0] = q.x;
+    in[1] = q.y;
+    in[2] = q.z;
+    in[3] = q.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) in[c] = e0 + c < n ? __ldg(u + e0 + c) : 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const unsigned cell = a == 0u ? i : (a == 1u ? j : k);
+    const float ex = a == 0u ? ex0 : (a == 1u ? ex1 : ex2);
+    const float mn = a == 0u ? mn0 : (a == 1u ? mn1 : mn2);
+    out[c] = __fadd_rn(__fmul_rn(__fmul_rn(__fadd_rn((float)cell, in[c]), inv_R), ex), mn);
+    if (a == 0u && e0 + c < n) {
+      if (lead_idx != nullptr) lead_idx[p] = (long long)l;
+      if (lead_t != nullptr) lead_t[p] = __fmul_rn(__fadd_rn((float)l, 0.5f), inv_L);
+    }
+    if (++a == 3u) {
+      a = 0u;
+      ++p;
+      if (++k == R) {
+        k = 0u;
+        if (++j == R) {
+          j = 0u;
+          if (++i == R) {
+            i = 0u;
+            ++l;
+          }
+        }
+      }
+    }
+  }
+  if (vec) {
+    reinterpret_cast<float4*>(x)[e0 >> 2] = make_float4(out[0], out[1], out[2], out[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (e0 + c < n) x[e0 + c] = out[c];
+  }
+}
+
+// Four voxels a thread, over a grid-stride loop of at most kEmaBlocksPerSm
+// blocks an SM. vec: V % 4 == 0, raw, val and new_val 16-byte aligned and
+// mask 4-byte aligned (float4 rows, one 32-bit mask store), else four scalar
+// voxels (the tail too). kS: the samples a voxel, unrolled; 0 reads S at run
+// time. acc: the blocks' sum in its high 32 bits and their ticket in its low
+// 32, 0 between launches on a stream (the last block leaves it so): one
+// atomic a block, and the block that draws the last ticket writes the count.
+template <int kS>
+__global__ void __launch_bounds__(kEmaThreads)
+occ_ema_update_kernel(const float* __restrict__ raw,      // [S, V]
+                      const float* __restrict__ val,      // [V]
+                      float* __restrict__ new_val,        // [V]
+                      uint8_t* __restrict__ mask,         // [V] bool
+                      unsigned long long* __restrict__ acc,  // []
+                      int* __restrict__ count_out,        // []
+                      float* __restrict__ frac_out,       // []
+                      long long V, int S, int mode, float p, float inv_s, float decay,
+                      float thre, float warm_floor, float inv_V, int vec) {
+  constexpr int kR = kS > 0 ? kS : 1;  // the samples held in registers
+  const int nS = kS > 0 ? kS : S;
+  const long long quads = (V + 3) / 4, stride = (long long)gridDim.x * kEmaThreads;
+  unsigned occupied = 0u;
+  for (long long q = (long long)blockIdx.x * kEmaThreads + threadIdx.x; q < quads;
+       q += stride) {
+    const long long i0 = 4ll * q;
+    if (vec) {
+      float4 r[kR];
+#pragma unroll
+      for (int s = 0; s < kR; ++s)
+        r[s] = __ldg(reinterpret_cast<const float4*>(raw + (long long)s * V + i0));
+      const float4 old = __ldg(reinterpret_cast<const float4*>(val + i0));
+      float m0 = occ_of(r[0].x, mode, p, inv_s), m1 = occ_of(r[0].y, mode, p, inv_s);
+      float m2 = occ_of(r[0].z, mode, p, inv_s), m3 = occ_of(r[0].w, mode, p, inv_s);
+#pragma unroll
+      for (int s = 1; s < kR; ++s) {
+        m0 = nan_max(m0, occ_of(r[s].x, mode, p, inv_s));
+        m1 = nan_max(m1, occ_of(r[s].y, mode, p, inv_s));
+        m2 = nan_max(m2, occ_of(r[s].z, mode, p, inv_s));
+        m3 = nan_max(m3, occ_of(r[s].w, mode, p, inv_s));
+      }
+      for (int s = kR; s < nS; ++s) {
+        const float4 w = __ldg(reinterpret_cast<const float4*>(raw + (long long)s * V + i0));
+        m0 = nan_max(m0, occ_of(w.x, mode, p, inv_s));
+        m1 = nan_max(m1, occ_of(w.y, mode, p, inv_s));
+        m2 = nan_max(m2, occ_of(w.z, mode, p, inv_s));
+        m3 = nan_max(m3, occ_of(w.w, mode, p, inv_s));
+      }
+      const float4 v = make_float4(ema_of(m0, old.x, decay, warm_floor),
+                                   ema_of(m1, old.y, decay, warm_floor),
+                                   ema_of(m2, old.z, decay, warm_floor),
+                                   ema_of(m3, old.w, decay, warm_floor));
+      *reinterpret_cast<float4*>(new_val + i0) = v;
+      const unsigned b0 = v.x > thre, b1 = v.y > thre, b2 = v.z > thre, b3 = v.w > thre;
+      *reinterpret_cast<unsigned*>(mask + i0) = b0 | (b1 << 8) | (b2 << 16) | (b3 << 24);
+      occupied += b0 + b1 + b2 + b3;
+    } else {
+      for (int c = 0; c < 4 && i0 + c < V; ++c) {
+        const long long i = i0 + c;
+        float m = occ_of(__ldg(raw + i), mode, p, inv_s);
+        for (int s = 1; s < nS; ++s)
+          m = nan_max(m, occ_of(__ldg(raw + (long long)s * V + i), mode, p, inv_s));
+        const float v = ema_of(m, __ldg(val + i), decay, warm_floor);
+        new_val[i] = v;
+        mask[i] = v > thre ? 1 : 0;
+        occupied += v > thre ? 1u : 0u;
+      }
+    }
+  }
+  // the occupied count: a warp's, the block's, then the grid's
+  __shared__ unsigned s_warps[kEmaThreads / 32];
+  occupied = __reduce_add_sync(0xffffffffu, occupied);
+  if ((threadIdx.x & 31) == 0) s_warps[threadIdx.x >> 5] = occupied;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long block = 0ull;
+#pragma unroll
+    for (int w = 0; w < kEmaThreads / 32; ++w) block += s_warps[w];
+    const unsigned long long old = atomicAdd(acc, (block << 32) | 1ull);
+    if ((unsigned)old == gridDim.x - 1) {
+      const unsigned total = (unsigned)(old >> 32) + (unsigned)block;
+      *acc = 0ull;
+      *count_out = (int)total;
+      *frac_out = __fmul_rn(__uint2float_rn(total), inv_V);
+    }
+  }
 }
 
 }  // namespace
@@ -306,14 +488,51 @@ extern "C" int occ_ray_proposal(const void* rays_o, const void* rays_d, const vo
   return (int)cudaGetLastError();
 }
 
+// x: [L R^3, 3] from the jitter u [L, R, R, R, 3] and the box aabb_min,
+// aabb_max [3]; lead_idx (int64) and lead_t (float) [L R^3] each a point's
+// lead or null; inv_R, inv_L: fl(1 / R), fl(1 / L) in float32. 3 L R^3 < 2^31.
+extern "C" int occ_voxel_points(const void* u, const void* aabb_min, const void* aabb_max,
+                                void* x, void* lead_idx, void* lead_t, int L, int R,
+                                float inv_R, float inv_L, void* stream) {
+  if (L < 1 || R < 1) return (int)cudaErrorInvalidValue;
+  const long long R3 = (long long)R * R * R, n = 3ll * L * R3;
+  if (n >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const int vec = (uintptr_t)u % 16 == 0 && (uintptr_t)x % 16 == 0 && n % 4 == 0;
+  const long long quads = (n + 3) / 4;
+  const unsigned blocks = (unsigned)((quads + kPointThreads - 1) / kPointThreads);
+  occ_voxel_points_kernel<<<blocks, kPointThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)u, (const float*)aabb_min, (const float*)aabb_max, (float*)x,
+      (long long*)lead_idx, (float*)lead_t, (unsigned)n, (unsigned)R, (unsigned)R3, inv_R, inv_L,
+      vec);
+  return (int)cudaGetLastError();
+}
+
+// acc: one 64-bit word (8-byte aligned), 0 before the launch and left 0
+// after it; count: one int and frac one float, written by the last block;
+// inv_V: fl(1 / V); sms: the card's SM count.
 extern "C" int occ_ema_update(const void* raw, const void* val, void* new_val, void* mask,
-                              int V, int S, int mode, float p, float inv_s, float decay,
-                              float thre, float warm_floor, void* stream) {
-  if (S < 1 || mode < 0 || mode > 1) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const int blocks = V > 0 ? (V + threads - 1) / threads : 1;
-  occ_ema_update_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)raw, (const float*)val, (float*)new_val, (uint8_t*)mask, V, S, mode, p,
-      inv_s, decay, thre, warm_floor);
+                              void* acc, void* count, void* frac, int V, int S, int mode,
+                              float p, float inv_s, float decay, float thre, float warm_floor,
+                              float inv_V, int sms, void* stream) {
+  if (V < 1 || S < 1 || mode < 0 || mode > 1 || sms < 1 || (uintptr_t)acc % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int vec = V % 4 == 0 && (uintptr_t)raw % 16 == 0 && (uintptr_t)val % 16 == 0 &&
+                  (uintptr_t)new_val % 16 == 0 && (uintptr_t)mask % 4 == 0;
+  const long long quads = ((long long)V + 3) / 4;
+  const long long want = (quads + kEmaThreads - 1) / kEmaThreads,
+                  most = (long long)kEmaBlocksPerSm * sms;
+  const unsigned blocks = (unsigned)(want < most ? want : most);
+  auto launch = [&](auto kernel) {
+    kernel<<<blocks, kEmaThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)raw, (const float*)val, (float*)new_val, (uint8_t*)mask,
+        (unsigned long long*)acc, (int*)count, (float*)frac, (long long)V, S, mode, p, inv_s,
+        decay, thre, warm_floor, inv_V, vec);
+  };
+  if (S == 1)
+    launch(occ_ema_update_kernel<1>);
+  else if (S == 4)
+    launch(occ_ema_update_kernel<4>);
+  else
+    launch(occ_ema_update_kernel<0>);
   return (int)cudaGetLastError();
 }

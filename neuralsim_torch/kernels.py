@@ -47,7 +47,8 @@ SIGNATURES: Dict[str, str] = {
     "neus_composite_fwd": "ppppppppppppppiifp",
     "neus_composite_bwd": "pppppppppppppppppiifp",
     "occ_ray_proposal": "ppppppppppppiiiiip",
-    "occ_ema_update": "ppppiiifffffp",
+    "occ_ema_update": "pppppppiiiffffffip",
+    "occ_voxel_points": "ppppppiiffp",
     "cross_source_vw": "ppppppiip",
     "cross_source_vw_bwd": "ppppppiip",
     "pair_compact": "ppppiiiip",
@@ -182,6 +183,22 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+# the tickets of the kernels whose last block finishes the work, one a
+# (device, stream, words): zeroed once, left 0 by every launch
+_tickets: Dict[tuple, torch.Tensor] = {}
+
+
+def ticket(dev: torch.device, words: int) -> torch.Tensor:
+    """A zeroed int32 [words] scratch on ``dev`` for the launches on the
+    current stream (:func:`stream`), made once: each launch that takes it
+    leaves it 0, so launches in stream order share it."""
+    key = (dev.index, stream(), words)
+    t = _tickets.get(key)
+    if t is None:
+        t = _tickets[key] = torch.zeros(words, dtype=torch.int32, device=dev)
+    return t
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -16,7 +16,7 @@ with its row stride.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -34,11 +34,6 @@ BWD_BLOCKS_PER_SM = 2
 # kernel adds into the zeroed d latents with device atomics (a memset and the
 # kernel; the last bits vary from call to call)
 BWD_ORDERED_MAX_NZ = 3072
-
-# the backward's ticket counters, one a (device, stream): zeroed once, left 0
-# by every call (its last block wraps it)
-_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
-
 
 def _per(idx: Optional[torch.Tensor], n_points: int) -> int:
     """Points per index: 1 per point, S per ray of S samples."""
@@ -77,14 +72,6 @@ def latent_take_bwd_plain(d_out: torch.Tensor, idx: Optional[torch.Tensor],
     with torch.enable_grad():
         lat = d_out.new_zeros((n_instances, d_out.shape[1])).requires_grad_(True)
         return torch.autograd.grad(latent_take_plain(lat, idx, d_out.shape[0]), lat, d_out)[0]
-
-
-def _ticket(dev: torch.device) -> torch.Tensor:
-    key = (dev.index, kernels.stream())
-    t = _tickets.get(key)
-    if t is None:
-        t = _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return t
 
 
 def _is64(idx: Optional[torch.Tensor]) -> int:
@@ -135,7 +122,7 @@ def latent_take_bwd(d_out: torch.Tensor, idx: Optional[torch.Tensor],
     scratch = torch.empty((BWD_BLOCKS_PER_SM * kernels.sm_count(dev.index), n_instances * z),
                           dtype=torch.float32, device=dev)
     K13_BWD.launch("latent_take_bwd", kernels.ptr(d_out), kernels.ptr(idx), kernels.ptr(d_lat),
-                   kernels.ptr(scratch), kernels.ptr(_ticket(dev)), scratch.shape[0], P,
+                   kernels.ptr(scratch), kernels.ptr(kernels.ticket(dev, 1)), scratch.shape[0], P,
                    d_out.stride(0), z, n_instances, _per(idx, P), _is64(idx), kernels.stream())
     return d_lat
 

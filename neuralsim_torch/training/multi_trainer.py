@@ -223,14 +223,14 @@ class MultiObjectTrainer:
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimizer step of ``step_type`` behind the finite guard. With
         ``advance_it`` (the pixel step of a loop iteration) the grids refresh
-        on their cadence and ``it`` advances. Metrics are device tensors."""
+        on their cadence and ``it`` advances. Metrics are device tensors, under
+        the JAX multi-object step's keys (no ``occ_frac``: a caller reads the
+        street grid's share with ``renderer.accels["cr"].occupied_fraction``)."""
         total, extras = self.compute_losses(state.params, batch, state.it, noise, step_type,
                                             state.occ, cam_id)
         metrics = guarded_step(state, total, extras)
         if state.occ is not None and advance_it:
             self.refresh_occ(state, noise.get("occ_update", {}))
-        if state.occ is not None and "cr" in state.occ:
-            metrics["occ_frac"] = self.renderer.accels["cr"].occupied_fraction(state.occ["cr"])
         if advance_it:
             state.it += 1
         return state, metrics

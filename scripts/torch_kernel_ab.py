@@ -3,12 +3,27 @@
 checkouts of the port, in turns, on one card.
 
     python3 scripts/torch_kernel_ab.py [--composite-only | --grid-latent-only |
-                                        --lines-pairs-only] [ROOT ...]
+                                        --lines-pairs-only | --grid-refresh-only]
+                                       [ROOT ...]
 
 Each ROOT (default: this checkout) holds ``neuralsim_torch/`` and
 ``chip_smoke.py``. Each is timed in a process of its own, which builds that
 checkout's kernels, in the order given: "PARENT . . PARENT" compares two
-checkouts on one card (parent, change, change, parent). ``--lines-pairs-only``
+checkouts on one card (parent, change, change, parent).
+``--grid-refresh-only`` times only the occupancy refresh around the field
+query (K7 and the points it is handed): at the street's grid (128^3 x 4
+samples, waymo_demo_multi's, in the box GRID_BOX), the bench model's (128^3
+x 1) and the crowd's (8 instance grids of 32^3), on seeded jitter, field
+values (normal, 0.2) and old values: the voxel points (``_voxel_points``:
+the kernel where the checkout has one, else the plain pass on the card),
+K7 over the grid (``_ema``), ``occupied_fraction`` of its result, and the
+refresh with a query that hands back those values (no field), each timed
+with its kernels a call and the sha256 of the points, the values, the mask
+and the fraction (beside the sha256 of the plain mean of the same mask);
+then the street's refresh through the street field of
+``build_compose_renderer(WAYMO_DEMO_MULTI)`` (seeded weights, the grid
+converged on the drive's ground) by chip_smoke.time_refresh (host and busy
+ms, the field query alone, peak MiB). ``--lines-pairs-only``
 times only K14's forward and K11: K14 at the street's, the vehicles', the
 bench ladder's and synthetic_object's stacked lines and at
 chip_smoke.CP_LINES_EDGES, alone and as the path makes K1's input (where the
@@ -108,6 +123,11 @@ HERE = Path(__file__).resolve().parent.parent
 # K4's and K10's launches (label, rays, march segments, draws, grids G or
 # None, resolution): the street's proposal at the pixel step's rays and the
 # LiDAR step's beams, the bench model's, the crowd's per-instance grids
+# the refresh's grids (label, kind, leading entries, resolution): the
+# street's (samples a voxel), the bench model's, the crowd's (instances)
+GRID_SHAPES = (("street", "single", 4, 128), ("bench", "single", 1, 128),
+               ("crowd", "batched", 8, 32))
+GRID_BOX = ((-40.0, -25.0, -3.0), (60.0, 25.0, 9.5))
 K4_SHAPES = (("K4 street pixel step", 4096, 64, 32, None, 128),
              ("K4 street LiDAR step", 2048, 64, 32, None, 128),
              ("K4 bench", 8192, 48, 16, None, 128),
@@ -392,6 +412,52 @@ def lines_pairs(tm, out, dev, timed) -> None:
         out[f"K11 edge {label} Bg={Bg} M={M}"] = digests("out", pair_compact(hit, Bg, M))
 
 
+def grid_refresh(tm, out, dev, timed) -> None:
+    """The occupancy refresh around the field query (see the module's
+    docstring)."""
+    import torch
+    from neuralsim_torch.accel import OccGridEma, OccGridEmaBatched
+    from neuralsim_torch.configs import WAYMO_DEMO_MULTI
+    from neuralsim_torch.dataio.waymo_demo import ground_sdf_tensor
+    from neuralsim_torch.fields.spatial import AABBSpace
+    from neuralsim_torch.tools.build import build_compose_renderer, converge_occ
+
+    space = AABBSpace(*GRID_BOX).to(dev)
+    for label, kind, L, R in GRID_SHAPES:
+        accel = OccGridEma(space, R, samples_per_voxel=L) if kind == "single" \
+            else OccGridEmaBatched(space, L, R)
+        gen = torch.Generator(device=dev).manual_seed(60)
+        u = torch.rand(accel.jitter_shape, generator=gen, device=dev)
+        S, V = (L, R ** 3) if kind == "single" else (1, L * R ** 3)
+        raw = torch.randn((S, V), generator=gen, device=dev) * 0.2
+        val = torch.rand(accel.init_state().val.shape, generator=gen, device=dev)
+        st = type(accel.init_state())(val, val > accel.occ_thre)
+        tag = f"{label} [{L}, {R}^3]"
+        points = lambda: accel._voxel_points(u)
+        out[f"points {tag}"] = {**timed(points), "kernels": kernels_a_call(points),
+                                "sha256": digest(points())}
+        ema = lambda: accel._ema(st, raw, 1000)
+        new = ema()
+        frac = lambda: accel.occupied_fraction(new)
+        out[f"K7 {tag} S={S}"] = {
+            **timed(ema), "kernels": kernels_a_call(ema), "val_sha256": digest(new.val),
+            "mask_sha256": digest(new.mask), "frac": float(frac()),
+            "frac_sha256": digest(frac()), "plain_mean_sha256": digest(new.mask.float().mean())}
+        out[f"occupied_fraction {tag}"] = {**timed(frac), "kernels": kernels_a_call(frac)}
+        flat = raw.reshape(-1)
+        refresh = lambda: accel.update(st, lambda x, *lead: flat, u, 1000)
+        out[f"refresh without the field {tag}"] = {**timed(refresh),
+                                                   "kernels": kernels_a_call(refresh)}
+    C = WAYMO_DEMO_MULTI
+    _, _, renderer, params = build_compose_renderer(C, device=dev)
+    accel = renderer.accels["cr"]
+    st = converge_occ(accel, accel.init_state(), ground_sdf_tensor, seed=int(C["seed"]),
+                      **C["occ_converge"])
+    field = params[renderer.scene_models["cr"][0]]
+    out[f"street refresh through the field [{accel.samples_per_voxel}, {accel.res}^3]"] = \
+        tm.time_refresh(accel, st, field, dev)
+
+
 def time_root(root: str, mode: str = "all") -> dict:
     tm = timer()
     sys.path.insert(0, root)
@@ -426,6 +492,10 @@ def time_root(root: str, mode: str = "all") -> dict:
         return out
     if mode == "lines-pairs":
         lines_pairs(tm, out, dev, timed)
+        out["card"] = card()
+        return out
+    if mode == "grid-refresh":
+        grid_refresh(tm, out, dev, timed)
         out["card"] = card()
         return out
 
@@ -643,7 +713,7 @@ def card() -> str:
 
 
 MODES = {"--composite-only": "composite", "--grid-latent-only": "grid-latent",
-         "--lines-pairs-only": "lines-pairs"}
+         "--lines-pairs-only": "lines-pairs", "--grid-refresh-only": "grid-refresh"}
 
 
 def main(argv) -> int:

@@ -16,7 +16,11 @@ thousands of float32 terms per entry in another order, the kernels with
 atomics), and one training step on the card to the same step on the CPU at
 chip_smoke.STEP_LOSS_RTOL and STEP_GRAD_REL (see there). K4's depths are held
 to chip_smoke.K4_TOL, K7's values to chip_smoke.K7_ATOL with its mask exact
-away from the threshold, the wide K1 (F = 96, R = 1,024) to the tolerances of
+away from the threshold, its count the mask's and its fraction the mask's
+plain mean bit for bit (also at chip_smoke.K7_EDGES), K7's points bit-equal
+at chip_smoke.K7_POINT_SHAPES, a refresh without the field K7's points and
+K7 alone (launch counters and aten ops), a step off the grid's cadence with
+no cast or mean of the mask, the wide K1 (F = 96, R = 1,024) to the tolerances of
 the narrow one, and a render of a small bench model (occupancy grid, distant
 field) on the card to the CPU at chip_smoke.BENCH_CROP_TOL. K5a is also held
 at the multi-object stage shapes and its edges (chip_smoke.K5A_EDGES), its
@@ -72,7 +76,7 @@ import torch
 
 import chip_smoke as cs
 from neuralsim_torch import kernels
-from neuralsim_torch.accel import OccGridEma, OccGridEmaBatched
+from neuralsim_torch.accel import OccGridEma, OccGridEmaBatched, OccGridEmaDynamic
 from neuralsim_torch.accel.occ_grid import (occ_ema_update, occ_ema_update_plain,
                                             occ_ray_proposal, occ_ray_proposal_plain)
 from neuralsim_torch.configs import (BENCH_OBJECT, SYNTHETIC_OBJECT, WAYMO_DEMO_CROWD,
@@ -443,6 +447,75 @@ def test_k7_occ_ema_update(dev, s, mode, floor):
     _close(got[:1], want[:1], 0, cs.K7_ATOL)
     assert got[1].dtype == torch.bool
     assert not ((got[1] != want[1]) & ((want[0] - 0.3).abs() > cs.K7_ATOL)).any()
+    # with its count: the mask's, and the fraction its plain mean bit for bit
+    assert cs.check_k7(f"K7 64^3 S={s} {mode}", args) <= cs.K7_ATOL
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("v,s", cs.K7_EDGES)
+def test_k7_edges_with_the_count(dev, v, s, offset):
+    """V past a multiple of 4 and the values 4 bytes off 16-byte alignment
+    (the kernel's scalar voxels), twice: the sum and the ticket are left 0."""
+    rng = np.random.default_rng(v)
+    raw = _t(rng.normal(0, 0.2, (s, v)).astype(np.float32), dev)
+    val = _t(rng.random(v + offset).astype(np.float32), dev)[offset:]
+    args = (raw, val, "sdf", 0.027, 64.0, 0.95, 0.3, None)
+    for _ in range(2):
+        assert cs.check_k7(f"K7 V={v} S={s} offset {offset}", args) <= cs.K7_ATOL
+
+
+@pytest.mark.parametrize("label,L,R,lead", cs.K7_POINT_SHAPES,
+                         ids=[s[0].replace(" ", "") for s in cs.K7_POINT_SHAPES])
+def test_k7_points_bit_equal(dev, label, L, R, lead):
+    box = (torch.tensor([-40.0, -25.0, -3.0], device=dev),
+           torch.tensor([60.0, 25.0, 9.5], device=dev))
+    assert cs.check_k7_points(dev, box, [(label, L, R, lead)]) == 0.0
+
+
+@pytest.mark.parametrize("kind", ["single", "batched", "dynamic"])
+def test_k7_refresh_is_its_points_and_k7(dev, kind):
+    space = AABBSpace().to(dev)
+    accel = {"single": lambda: OccGridEma(space, 32, samples_per_voxel=4),
+             "batched": lambda: OccGridEmaBatched(space, 3, 16),
+             "dynamic": lambda: OccGridEmaDynamic(space, 16, n_keyframes=2)}[kind]()
+    # by the launch counters and the aten ops it runs
+    cs.check_refresh_kernels(f"{kind} card test", accel, accel.init_state(), dev)
+
+
+def test_k7_refresh_device_kernels_in_a_fresh_process(dev):
+    """By the profiler, in a process of its own, at chip_smoke.REFRESH_PROFILED:
+    K7's points and K7 and no other device kernel a refresh."""
+    found = cs.check_refresh_device_kernels()
+    assert sorted(found) == sorted(label for label, *_ in cs.REFRESH_PROFILED)
+
+
+def test_k7_off_cadence_step_casts_and_reduces_no_mask(dev):
+    """A step off the grid's cadence reports occ_frac from the fraction the
+    state keeps: no plain K7 or mean on the card (chip_smoke.no_plain_on_card),
+    no cast or reduction of a tensor of the grid's shape, no K7 launch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    trainer, state = build_trainer(_small_bench(), device=dev)
+    rig = SyntheticObjectDataset(n_frames=4, H=32, W=32)
+    batch, gen = cs.off_cadence(trainer, state, rig, dev, 512)
+    shape = state.occ["cr"].mask.shape
+    seen = []
+
+    class Reads(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func)
+            if any(k in name for k in ("_to_copy", "mean", "sum", "copy_")) and any(
+                    isinstance(a, torch.Tensor) and a.shape == shape for a in args):
+                seen.append(name)
+            return func(*args, **(kwargs or {}))
+
+    kernels.reset_counts()
+    with cs.no_plain_on_card("off-cadence step (card test)"), Reads():
+        state, m = trainer.train_step(state, batch, trainer.draw_noise(512, gen, state.it))
+    torch.cuda.synchronize()
+    assert not seen and m["occ_frac"] is state.occ["cr"].frac
+    assert kernels.KERNELS["occ_ema_update"].launches == 0
+    assert kernels.KERNELS["occ_voxel_points"].launches == 0
+    assert 0.0 < float(m["occ_frac"]) < 1.0
 
 
 def _wide_encoding(dev):
@@ -534,6 +607,8 @@ def test_bench_train_step_on_card_matches_cpu(dev):
     state, m = trainer.train_step(state, batch, trainer.draw_noise(512, gen, state.it))
     torch.cuda.synchronize()
     assert kernels.KERNELS["occ_ema_update"].launches == 1 and 0 < float(m["occ_frac"]) < 1
+    assert kernels.KERNELS["occ_voxel_points"].launches == 1
+    assert m["occ_frac"] is state.occ["cr"].frac
     assert kernels.KERNELS["lotd_cp_stacked.bwd"].launches >= 2 and int(m["step_skipped"]) == 0
 
 
@@ -723,7 +798,8 @@ def test_multi_object_iterations_launch_their_kernels(dev, multi_built):
     n = {k.name: k.launches for k in kernels.KERNELS.values()}
     assert [n[k] for k in ("cross_source_vw", "cross_source_vw.bwd", "neus_composite",
                            "neus_composite.bwd", "volume_composite", "volume_composite.bwd",
-                           "occ_ray_proposal", "occ_ema_update")] == [3, 3, 3, 3, 0, 0, 6, 1]
+                           "occ_ray_proposal", "occ_ema_update", "occ_voxel_points")] == \
+        [3, 3, 3, 3, 0, 0, 6, 1, 1]
     assert all(v > 0 for k, v in n.items() if k not in cs.CROWD_ONLY + cs.PERLEVEL_ONLY
                + cs.PERMUTO_ONLY + ("volume_composite", "volume_composite.bwd"))
     assert not any(n[k] for k in cs.CROWD_ONLY)      # 3 vehicles: no pair budget, no K10
@@ -894,8 +970,8 @@ def test_crowd_iterations_launch_their_kernels(dev, crowd_built):
     torch.cuda.synchronize()
     n = {k.name: k.launches for k in kernels.KERNELS.values()}
     assert [n[k] for k in ("pair_compact", "occ_ray_proposal_batched", "cross_source_vw",
-                           "cross_source_vw.bwd", "occ_ray_proposal", "occ_ema_update")] == \
-        [3, 3, 3, 3, 6, 2]
+                           "cross_source_vw.bwd", "occ_ray_proposal", "occ_ema_update",
+                           "occ_voxel_points")] == [3, 3, 3, 3, 6, 2, 2]
     assert log[-1]["skips_total"] == 0 and all(np.isfinite(r["loss_total"]) for r in log)
 
 
@@ -1494,13 +1570,10 @@ def test_k10_at_the_edges(dev, label, noisy):
 
 
 def _device_kernels(fn):
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # one call's kernels; a profiler session that records none is run again
+    # (chip_smoke.device_kernels): such empty sessions were seen late in a
+    # whole run of this file
+    return cs.device_kernels(fn, reps=1)
 
 
 @pytest.mark.parametrize("grids", [None, 8], ids=["K4", "K10"])

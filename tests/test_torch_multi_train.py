@@ -325,7 +325,8 @@ def test_first_step_gradients_match_jax_leaf_by_leaf(first_steps, step_type):
 @pytest.fixture(scope="module")
 def runs(pair):
     """Three loop iterations (LiDAR step, then pixel step) in both packages,
-    each JAX step traced anew with the port step's sample depths."""
+    each JAX step traced anew with the port step's sample depths; with each
+    step type's metric keys in both ({step type: (port's, JAX's)})."""
     trainer = pair["trainer"]
     state = copy.deepcopy(pair["state"])
     state.opt = trainer.init_state(state.params).opt
@@ -336,6 +337,7 @@ def runs(pair):
                              occ={"cr": JaxOcc(jnp.asarray(state.occ["cr"].val.numpy()),
                                                jnp.asarray(state.occ["cr"].mask.numpy()))})
     key = jax.random.PRNGKey(1)
+    keys = {}
     for lb, raw in pair["batches"]:
         key, k_lidar, k_pixel = jax.random.split(key, 3)
         for step_type, b, k in (("lidar", lb, k_lidar), ("pixel", raw, k_pixel)):
@@ -348,13 +350,14 @@ def runs(pair):
             assert int(m["step_skipped"]) == 0
             jb = _jax_batch(pair, step_type, b)
             with _jax_takes(pair, placements):
-                jstate, _ = jax.jit(lambda st: jstep(jt, st, jb, k, step_type, cam,
-                                                     step_type == "pixel"))(jstate)
-    return state, jstate
+                jstate, jm = jax.jit(lambda st: jstep(jt, st, jb, k, step_type, cam,
+                                                      step_type == "pixel"))(jstate)
+            keys[step_type] = (set(m), set(jm))
+    return state, jstate, keys
 
 
 def test_three_iterations_follow_jax(pair, runs):
-    state, jstate = runs
+    state, jstate, _ = runs
     assert state.it == int(jstate.it) == IT0 + 3
     for mid, opt in state.opt.items():
         chain = jstate.opt_state.inner_states[mid].inner_state
@@ -369,6 +372,15 @@ def test_three_iterations_follow_jax(pair, runs):
         diff = np.abs(p.detach().numpy() - np.asarray(want[k]))
         lr = lrs[k.split(".")[0]]
         assert np.mean(diff > lr) <= 5e-3 and diff.max() <= 6 * lr, (k, float(diff.max()))
+
+
+@pytest.mark.parametrize("step_type", ["lidar", "pixel"])
+def test_step_metric_keys_are_the_jax_steps(runs, step_type):
+    """A multi-object step returns the JAX step's metric keys: no grid share
+    (``occ_frac``), which the JAX multi-object step does not report."""
+    got, want = runs[2][step_type]
+    assert "occ_frac" not in got
+    assert got == want, {"port only": sorted(got - want), "JAX only": sorted(want - got)}
 
 
 def test_a_poisoned_pixel_step_is_skipped_and_changes_nothing(pair):

@@ -225,7 +225,7 @@ def test_wrappers_take_the_plain_versions_on_the_cpu(converged):
     t = occ_ray_proposal(_t(o), _t(d), torch.zeros(len(o)), torch.ones(len(o)), ps.mask,
                          *pg.box("cpu"), pg.edges01(M, "cpu"), 4)
     val, mask = occ_ema_update(torch.zeros(2, 10), torch.full((10,), 0.5), "sdf", 0.1, 64.0,
-                               0.95, 0.3, None)
+                               0.95, 0.3, None)[:2]
     assert t.shape == (len(o), 4) and bool(mask.all()) and val.shape == (10,)
     assert (K4.launches, K7.launches) == (n4, n7)        # no kernel launch on the CPU
 

@@ -117,7 +117,7 @@ def test_ctypes_signatures_match_the_cuda_sources():
             found[name] = "".join(codes[t] for t in types)
     assert found == kernels.SIGNATURES
     for entry in ("lotd_cp_stacked_bwd", "lotd_grid_bwd", "volume_composite_bwd",
-                  "occ_ray_proposal", "occ_ema_update", "cross_source_vw",
+                  "occ_ray_proposal", "occ_ema_update", "occ_voxel_points", "cross_source_vw",
                   "cross_source_vw_bwd", "pair_compact", "lotd_cp_level_fwd",
                   "lotd_cp_level_bwd", "neus_composite_fwd", "neus_composite_bwd",
                   "permuto_fwd", "permuto_bwd", "latent_take_fwd", "latent_take_bwd",
@@ -137,6 +137,7 @@ def test_every_kernel_is_registered_once_with_its_source():
     assert names == {"lotd_cp_stacked", "lotd_cp_stacked.bwd", "lotd_grid", "lotd_grid.bwd",
                      "neus_upsample.weights_pdf", "neus_upsample.merge", "volume_composite",
                      "volume_composite.bwd", "occ_ray_proposal", "occ_ema_update",
+                     "occ_voxel_points",
                      "cross_source_vw", "cross_source_vw.bwd", "occ_ray_proposal_batched",
                      "pair_compact", "lotd_cp_level", "lotd_cp_level.bwd", "neus_composite",
                      "neus_composite.bwd", "permuto", "permuto.bwd", "latent_take",
