@@ -189,7 +189,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      skip, falling loss_rgb and LiDAR depth) and a poisoned step; no call of
      the plain permuto functions on the card path; the permuto iteration and
      frame medians beside those of the LoTD vehicles (phases 7 and 8);
- 13. timing: frame latency and rays/s; training step time and rays/s; each
+ 13. checkpoints and the evaluation tools (WAYMO_DEMO_MULTI, stacked CP):
+     tools.train_multi.main_function for 48 iterations on the schedule
+     rescaled to them into a temporary exp dir (finite, no skip, the
+     multi-object kernels launched); its final checkpoint loaded into a
+     fresh build whose frame 0 was rendered before the load (so K14's lines
+     cache and K3's scratch hold the fresh tables): every tensor of the
+     loaded state (parameters, buffers, Adam moments and counts, it, skips,
+     the grid's values, mask and fraction) and frame 0 after the load the
+     trained state's bits; K8 and K5b at one 8,192-ray chunk of that frame
+     against their plain versions; eval_multi (frames 0, 3, 6 at 8,192 rays
+     a chunk) and eval_lidar (frames 0, 3, 6) from the exp dir, their means
+     and seconds, each path's kernels launched (K14 once an encoding, no K8
+     in the LiDAR query), no plain K7/K13/K14 and no bf16 cast on the card;
+     frame 0's scores (every 4th pixel) and its LiDAR scores on the card
+     against the CPU path loaded from the same checkpoint, at the CPU
+     path's sample depths (EVAL_* limits);
+ 14. timing: frame latency and rays/s; training step time and rays/s; each
      kernel's time at the training path's shapes (beside that path's launch
      count) and, for the forward kernels, at the render path's too, each
      beside its plain version, a library call where one exists, and its bound
@@ -214,7 +230,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      F.embedding's backward and the sort-based index_put; K14 and its
      backward at each encoding and at the edge ladders of CP_LINES_EDGES
      (library none; the per-level F.interpolate sum as an aside);
- 14. one JSON line of results, one of per-kernel results, then the device
+ 15. one JSON line of results, one of per-kernel results, then the device
      line, last.
 
 --profile adds torch.profiler tables of device time by kernel for one frame
@@ -479,6 +495,42 @@ COMPOSITE_NAN_SHAPES = ((3, 7), (3, 33), (600, 65), (3, 300))
 # on this path only. Rendered and trained under the multi-object limits.
 PERMUTO_ONLY = ("permuto", "permuto.bwd")
 PERMUTO_ITERS = 48
+# checkpoints and the evaluation tools (WAYMO_DEMO_MULTI, stacked CP):
+# tools.train_multi.main_function for CKPT_ITERS iterations on the schedule
+# rescaled to them (configs.at_num_iters) into a temporary exp dir; its final
+# checkpoint loaded into a fresh build, every tensor and the first frame the
+# same bits; eval_multi (EVAL_FRAMES, EVAL_CHUNK rays a chunk) and eval_lidar
+# (EVAL_FRAMES) from the exp dir, each launching EVAL_FRAME_KERNELS or
+# EVAL_LIDAR_KERNELS; K8 and K5b at one EVAL_CHUNK chunk against their plain
+# versions; and one frame's scores (every EVAL_CPU_DOWNSCALE-th pixel,
+# EVAL_CPU_CHUNK rays a chunk) and its LiDAR scores on the card against the
+# CPU path from the same checkpoint, at the CPU path's sample depths
+# (sample_placements: every grid proposal and upsample stage replayed). The
+# rays are lifted on each device, so positions differ in their last bits and
+# the bf16 tents step the field on some rays (as in the first-iteration
+# check): PSNRs within EVAL_PSNR_TOL dB, SSIM within EVAL_SSIM_TOL, each
+# source's visibility mass and ground shares within EVAL_MASS_TOL, mask BCE,
+# mean depths, LiDAR errors and chamfer distances within EVAL_REL_TOL
+# relative, mask accuracy, dominant pixels and LiDAR hits within
+# EVAL_PIXELS_TOL pixels or beams (measured on the H100: PSNRs 1.2e-6 dB,
+# SSIM 1.5e-8, masses 1.3e-7, relative 3.3e-7, no pixel or beam; the limits
+# leave room for a ray whose position rounds apart and steps the field)
+CKPT_ITERS = 48
+EVAL_FRAMES = [0, 3, 6]
+EVAL_CHUNK = 8192
+EVAL_CPU_DOWNSCALE, EVAL_CPU_CHUNK = 4, 1024
+EVAL_PSNR_TOL, EVAL_SSIM_TOL, EVAL_MASS_TOL, EVAL_REL_TOL, EVAL_PIXELS_TOL = \
+    1e-3, 1e-5, 1e-5, 1e-3, 2
+EVAL_FRAME_KERNELS = ("lotd_cp_stacked", "lotd_grid", "occ_ray_proposal",
+                      "neus_upsample.weights_pdf", "neus_upsample.merge", "cross_source_vw",
+                      "latent_take", "lotd_cp_lines")
+EVAL_LIDAR_KERNELS = ("neus_composite", "lotd_cp_stacked", "occ_ray_proposal",
+                      "neus_upsample.weights_pdf", "neus_upsample.merge", "lotd_cp_lines")
+CKPT_TRAIN_KERNELS = ("cross_source_vw", "cross_source_vw.bwd", "neus_composite",
+                      "neus_composite.bwd", "occ_voxel_points", "occ_ema_update")
+# K14 in a whole evaluation: once for each stacked encoding (the street's and
+# the vehicles'), its lines kept while the tables do not change
+EVAL_K14_LAUNCHES = 2
 # K9 against its plain version: the lattice rounds like the plain version
 # operation by operation (explicit _rn), so both pick the same simplex, rows
 # and weights, and sum the interpolation in the same order
@@ -5659,6 +5711,292 @@ def time_cp_lines(sets):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: checkpoints and the evaluation tools (WAYMO_DEMO_MULTI, stacked)
+# ---------------------------------------------------------------------------
+
+def state_tensors(state) -> dict:
+    """Every tensor and number of a train state, by name: the models'
+    parameters and buffers, each Adam's moments and count, it, skips and
+    every grid's values, mask and occupied fraction."""
+    import torch
+    out = {f"param {k}": v for k, v in state.params.state_dict().items()}
+    for mid, opt in state.opt.items():
+        out.update({f"{mid} mu {i}": t for i, t in enumerate(opt.mu)})
+        out.update({f"{mid} nu {i}": t for i, t in enumerate(opt.nu)})
+        out[f"{mid} count"] = opt.count
+    out["skips"], out["it"] = state.skips, torch.tensor(state.it)
+    for role, st in (state.occ or {}).items():
+        out.update({f"occ {role} val": st.val, f"occ {role} mask": st.mask,
+                    f"occ {role} frac": st.frac})
+    return out
+
+
+def frame_bits(frame) -> dict:
+    """A rendered frame's outputs and every source's share, as bytes."""
+    out = {k: frame[k].cpu().numpy().tobytes() for k in CROP_KEYS}
+    for name, sub in frame["per_obj"].items():
+        out.update({f"{name} {k}": v.cpu().numpy().tobytes() for k, v in sub.items()})
+    return out
+
+
+def check_eval_chunk(dev, renderer, params, scene, occ):
+    """K8 and K5b at one EVAL_CHUNK-ray chunk of frame 0 (the evaluation's
+    chunk; the earlier phases render 4,096): K8 on the chunk's merged buffer
+    ([8,192, 168] at full width) within K8_TOL and the same bits twice, K5b
+    on each of the chunk's merges exactly. -> (K8's error, K5b's, the
+    merges' shapes)."""
+    import torch
+    import neuralsim_torch.fields.neus as neus
+    from neuralsim_torch.ops.segment import (cross_source_vw, cross_source_vw_plain,
+                                             merge_sorted_samples_plain)
+    from neuralsim_torch.scene.observers import camera_get_all_rays
+    frozen = scene.slice_at(0)
+    H, W = (int(v) for v in scene.nodes[COMPOSE_CAM].frame_data["hw"][0].tolist())
+    o, d = camera_get_all_rays(frozen, COMPOSE_CAM, H, W)
+    o, d = o[:EVAL_CHUNK].contiguous(), d[:EVAL_CHUNK].contiguous()
+    merges, merge = [], neus.merge_sorted_samples
+
+    def recorded(*a):
+        merges.append(a)
+        return merge(*a)
+
+    neus.merge_sorted_samples = recorded
+    try:
+        with torch.no_grad():
+            mb = renderer.ray_query(params, frozen, o, d, occ_states=occ,
+                                    return_buffer=True)["merged_buffer"]
+    finally:
+        neus.merge_sorted_samples = merge
+    args = (mb["t"], mb["mask"], mb["alpha"])
+    N, L = mb["t"].shape
+    if N != EVAL_CHUNK:
+        raise AssertionError(f"the merged buffer has {N} rays, not {EVAL_CHUNK}")
+    e8 = compare(f"K8 cross_source_vw evaluation chunk rays={N} L={L}",
+                 [cross_source_vw(*args)], [cross_source_vw_plain(*args)], **K8_TOL)
+    same_bits("K8 cross_source_vw evaluation chunk", lambda: cross_source_vw(*args))
+    e5 = max(compare(f"K5b merge_sorted_samples evaluation chunk {tuple(a[0].shape)} + "
+                     f"{tuple(a[1].shape)}", list(merge(*a)),
+                     list(merge_sorted_samples_plain(*a)), 0.0, 0.0, exact=True)
+             for a in merges)
+    shapes = sorted({(a[0].shape[0], a[0].shape[1], a[1].shape[1]) for a in merges})
+    log(f"evaluation chunk: K8 at [{N}, {L}], K5b at {shapes} (rays, A, B)")
+    return e8, e5, shapes
+
+
+def score_errors(got, want) -> dict:
+    """{score: |card - CPU|} (relative where EVAL_REL_TOL holds it) of two
+    results of evaluate_multi or eval_lidar_frames, per frame, per source
+    and per class."""
+    rel = ("mask_bce", "mean_depth", "rmse", "mae")
+    errs = {}
+    pairs = list(zip(got["per_frame"], want["per_frame"]))
+    pairs += list(zip(got.get("per_object", []), want.get("per_object", [])))
+    pairs += [(got["per_class"][c], w) for c, w in want.get("per_class", {}).items()]
+    for g, w in pairs:
+        if set(g) != set(w):
+            raise AssertionError(f"card and CPU scores have other keys: {sorted(set(g) ^ set(w))}")
+        for k, v in w.items():
+            if isinstance(v, str) or v is None or k in ("frame", "n_objects"):
+                if g[k] != v:
+                    raise AssertionError(f"score {k}: {g[k]} on the card, {v} on the CPU")
+                continue
+            e = abs(g[k] - v)
+            if k in rel or k.startswith("chamfer"):
+                e /= max(abs(v), 1e-12)
+            errs[k] = max(errs.get(k, 0.0), e)
+    return errs
+
+
+def check_score_errors(label, errs, n_pixels):
+    log(f"{label} card vs CPU at the CPU path's sample depths: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(errs.items())))
+    for k, e in errs.items():
+        if k.startswith("psnr"):
+            tol = EVAL_PSNR_TOL
+        elif k == "ssim":
+            tol = EVAL_SSIM_TOL
+        elif k in ("mask_acc", "hit_recall", "hit_frac", "miss_in_cuboid_frac",
+                   "miss_out_cuboid_frac"):
+            tol = EVAL_PIXELS_TOL / n_pixels
+        elif k == "pixels_dominant":
+            tol = EVAL_PIXELS_TOL
+        elif k in ("vis_mass", "road_vis_mass", "road_dominant_frac"):
+            tol = EVAL_MASS_TOL
+        else:
+            tol = EVAL_REL_TOL
+        if e > tol:
+            raise AssertionError(f"{label}: {k} {e:.3g} apart on the card and the CPU "
+                                 f"(limit {tol:g})")
+
+
+def check_eval_scores(cfg, exp, trainer, state, scene, loader):
+    """One frame's scores and its LiDAR scores on the card (the loaded build
+    ``trainer``, ``state``) against the CPU path loaded from the same
+    checkpoint (``eval_multi.load_for_eval`` on the CPU), at the CPU path's
+    sample depths. -> the largest errors."""
+    from types import SimpleNamespace
+    from neuralsim_torch.tools.eval_lidar import ComposeLidarAdapter, eval_lidar_frames
+    from neuralsim_torch.tools.eval_multi import evaluate_multi, load_for_eval
+    from neuralsim_torch.utils.misc import set_eval_iteration
+    t0 = time.perf_counter()
+    scene_c, rend_c, params_c, occ_c, loader_c, _ = load_for_eval(
+        {**cfg, "resume_dir": exp, "ckpt": "final"}, "cpu")
+    set_eval_iteration(state.params.values(), state.it)
+    space = params_c[rend_c.scene_models["cr"][0]].space
+    aabb = (space.aabb_min.numpy(), space.aabb_max.numpy())
+    kw = dict(cam_id=COMPOSE_CAM, frames=[0], downscale=EVAL_CPU_DOWNSCALE,
+              rayschunk=EVAL_CPU_CHUNK)
+    rec, lrec = [], []
+    with sample_placements(SimpleNamespace(renderer=rend_c), record=rec):
+        cpu = evaluate_multi(scene_c, rend_c, params_c, loader_c, occ=occ_c, **kw)
+    with sample_placements(SimpleNamespace(renderer=rend_c), record=lrec):
+        lcpu = eval_lidar_frames(scene_c, ComposeLidarAdapter(scene_c, rend_c), params_c,
+                                 loader_c, frames=[0], occ=occ_c, cr_aabb=aabb)
+    with no_plain_on_card("evaluation at the CPU path's depths"):
+        with sample_placements(SimpleNamespace(renderer=trainer.renderer), replay=rec):
+            card = evaluate_multi(scene, trainer.renderer, state.params, loader, occ=state.occ,
+                                  **kw)
+        with sample_placements(SimpleNamespace(renderer=trainer.renderer), replay=lrec):
+            lcard = eval_lidar_frames(scene, ComposeLidarAdapter(scene, trainer.renderer),
+                                      state.params, loader, frames=[0], occ=state.occ,
+                                      cr_aabb=aabb)
+    H, W = (-(-int(v) // EVAL_CPU_DOWNSCALE)
+            for v in scene.nodes[COMPOSE_CAM].frame_data["hw"][0].tolist())
+    n_beams = len(loader.lidars[(loader.lidar_ids[0], 0)]["ranges"])
+    log(f"evaluation card vs CPU ({time.perf_counter() - t0:.1f} s): frame 0 at {H}x{W}, "
+        f"CPU {json.dumps(cpu['per_frame'][0])}, card {json.dumps(card['per_frame'][0])}; "
+        f"LiDAR ({n_beams} beams) CPU {json.dumps(lcpu['per_frame'])}, card "
+        f"{json.dumps(lcard['per_frame'])}")
+    if not lcpu["per_frame"]:
+        raise AssertionError("the trained street has fewer than 10 LiDAR hits on the CPU path")
+    errs = score_errors(card, cpu)
+    check_score_errors("eval_multi frame 0", errs, H * W)
+    lerrs = score_errors(lcard, lcpu)
+    check_score_errors("eval_lidar frame 0", lerrs, n_beams)
+    return {"frame": errs, "lidar": lerrs}
+
+
+def checkpoint_eval_phase(dev):
+    """Phase 13: train into an exp dir, the checkpoint round trip, the
+    evaluation tools from the exp dir and against the CPU path."""
+    import tempfile
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.configs import WAYMO_DEMO_MULTI, at_num_iters
+    from neuralsim_torch.tools import eval_lidar, eval_multi
+    from neuralsim_torch.tools.build import build_multi_trainer, render_multi_frame
+    from neuralsim_torch.tools.train_multi import main_function
+    from neuralsim_torch.utils.checkpoint import CheckpointIO
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k.name: k.launches for k in kernels.KERNELS.values()}
+
+    summary, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        exp = os.path.join(tmp, "exp")
+        cfg = at_num_iters(WAYMO_DEMO_MULTI, CKPT_ITERS)
+        cfg["exp_dir"] = exp
+        cfg["training"]["i_log"] = 16
+        # 1. training into the exp dir through the driver
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        with no_plain_on_card("train_multi.main_function"):
+            out = main_function(cfg)
+        launches["train"] = counts()
+        summary["ckpt_train_s"] = time.perf_counter() - t0
+        it_ms = np.asarray(out["iter_s"]) * 1e3
+        losses = [r["loss_total"] for r in out["log"]]
+        log(f"train_multi.main_function: {CKPT_ITERS} iterations (schedule of "
+            f"{CKPT_ITERS}: street anneal {cfg['assetbank_cfg']['Street']['model_params']['inv_s_anneal_start_it']}"
+            f"..{CKPT_ITERS}) in {summary['ckpt_train_s']:.1f} s, iteration median "
+            f"{np.median(it_ms):.1f} ms, losses {losses}, skips {out['skips_total']}, exp dir "
+            f"{sorted(os.listdir(exp))}, checkpoints {sorted(os.listdir(os.path.join(exp, 'ckpts')))}")
+        if out["skips_total"] or not all(math.isfinite(v) for v in losses):
+            raise AssertionError("the driver's run skipped a step or logged a non-finite loss")
+        for name in MULTI_WATCHED + CKPT_TRAIN_KERNELS:
+            if launches["train"][name] <= 0:
+                raise AssertionError(f"kernel {name} never launched in the driver's run")
+        # 2. the checkpoint round trip: a fresh build, its frame rendered
+        # before the load (filling K14's lines cache and K3's scratch from
+        # the fresh tables), then after it: every tensor and the frame the
+        # trained state's bits
+        trained, trainer = out["state"], out["trainer"]
+        ref = render_multi_frame(trainer.renderer, trained.params, out["scene"], 0, COMPOSE_CAM,
+                                 trained.occ, RAYSCHUNK)
+        t0 = time.perf_counter()
+        scene2, _, trainer2, state2, samplers2 = build_multi_trainer(cfg, pretrain=False)
+        before = render_multi_frame(trainer2.renderer, state2.params, scene2, 0, COMPOSE_CAM,
+                                    state2.occ, RAYSCHUNK)
+        CheckpointIO(os.path.join(exp, "ckpts")).load(state2, "final")
+        summary["ckpt_load_s"] = time.perf_counter() - t0
+        want, got = state_tensors(trained), state_tensors(state2)
+        if set(want) != set(got):
+            raise AssertionError(f"the loaded state has other tensors: {sorted(set(want) ^ set(got))}")
+        differ = [k for k, v in want.items()
+                  if got[k].device != v.device or got[k].dtype != v.dtype
+                  or got[k].cpu().numpy().tobytes() != v.cpu().numpy().tobytes()]
+        if differ:
+            raise AssertionError(f"the loaded state differs from the saved one in {differ[:8]}")
+        with no_plain_on_card("render after the load"):
+            after = render_multi_frame(trainer2.renderer, state2.params, scene2, 0, COMPOSE_CAM,
+                                       state2.occ, RAYSCHUNK)
+        rb, ab, bb = frame_bits(ref), frame_bits(after), frame_bits(before)
+        if rb != ab:
+            raise AssertionError("frame 0 of the loaded state differs from the trained state's: "
+                                 f"{[k for k in rb if rb[k] != ab.get(k)]}")
+        if rb["rgb_volume"] == bb["rgb_volume"]:
+            raise AssertionError("the fresh build renders the trained frame before the load")
+        log(f"checkpoint round trip: {len(want)} tensors bit-equal after the load into a fresh "
+            f"build ({summary['ckpt_load_s']:.1f} s with the build and a frame), frame 0 the "
+            f"trained state's bits in all {len(rb)} outputs (the fresh tables' frame differs)")
+        e8, e5, merge_shapes = check_eval_chunk(dev, trainer2.renderer, state2.params, scene2,
+                                                state2.occ)
+        # 3. the tools from the exp dir
+        ecfg = {**cfg, "resume_dir": exp}
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        with no_plain_on_card("eval_multi"):
+            ev = eval_multi.main_function({**ecfg, "eval": {"frames": EVAL_FRAMES,
+                                                            "rayschunk": EVAL_CHUNK}})
+        launches["eval_multi"] = counts()
+        summary["eval_multi_s"] = time.perf_counter() - t0
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        with no_plain_on_card("eval_lidar"):
+            lv = eval_lidar.main_function({**ecfg, "renderer": {**cfg["renderer"], "type": "multi"},
+                                           "eval": {"frames": EVAL_FRAMES}})
+        launches["eval_lidar"] = counts()
+        summary["eval_lidar_s"] = time.perf_counter() - t0
+        log(f"eval_multi from the exp dir: {summary['eval_multi_s']:.2f} s, frames {EVAL_FRAMES} "
+            f"at {EVAL_CHUNK} rays a chunk, mean {json.dumps(ev['mean'])}, per class "
+            f"{json.dumps(ev['per_class'])}, files {sorted(os.listdir(os.path.join(exp, 'eval_multi')))}")
+        log(f"eval_lidar from the exp dir: {summary['eval_lidar_s']:.2f} s, mean "
+            f"{json.dumps(lv['mean'])}")
+        for label, names in (("eval_multi", EVAL_FRAME_KERNELS), ("eval_lidar", EVAL_LIDAR_KERNELS)):
+            log(f"{label} launches {launches[label]}")
+            missing = [n for n in names if launches[label][n] <= 0]
+            if missing:
+                raise AssertionError(f"{label} never launched {missing}")
+        if launches["eval_multi"]["lotd_cp_lines"] != EVAL_K14_LAUNCHES \
+                or launches["eval_lidar"]["cross_source_vw"]:
+            raise AssertionError("eval_multi should make the stacked lines once an encoding, and "
+                                 "eval_lidar composite the street alone (K12, no K8)")
+        scores = [v for v in ev["mean"].values() if v is not None] + list(lv["mean"].values())
+        if not lv["per_frame"] or not all(math.isfinite(v) for v in scores):
+            raise AssertionError("the evaluation's scores are not finite, or no LiDAR frame hit")
+        # 4. one frame card vs CPU from the same checkpoint
+        score_errs = check_eval_scores(cfg, exp, trainer2, state2, scene2,
+                                       samplers2["pixel"].loader)
+    summary.update({"ckpt_iterations": CKPT_ITERS,
+                    "ckpt_iteration_ms_median": float(np.median(it_ms)),
+                    "eval_multi_mean": ev["mean"], "eval_lidar_mean": lv["mean"],
+                    "eval_card_vs_cpu": score_errs, "eval_chunk_merges": merge_shapes})
+    return dict(summary=summary, launches=launches,
+                errs={"cross_source_vw": (e8, K8_TOL["atol"]), "neus_upsample.merge": (e5, 0.0)})
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5782,9 +6120,13 @@ def main(argv) -> int:
     # 12. WAYMO_DEMO_PERMUTO, the vehicles on one permuto field (K9), with its timing
     permuto = permuto_phase(dev, "--profile" in argv, {**multi["summary"], **compose["summary"]})
     phase_s["permuto"], t1 = time.perf_counter() - t1, time.perf_counter()
+
+    # 13. checkpoints and the evaluation tools on the stacked waymo_demo_multi path
+    ckpt = checkpoint_eval_phase(dev)
+    phase_s["checkpoints and evaluation"], t1 = time.perf_counter() - t1, time.perf_counter()
     log("phases (s, host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
-    # 13. timing
+    # 14. timing
     (frame_ms, frame_min, frame_max), n_rays = time_frames(renderer, params, rig, dev)
     log(f"timing: frame median {frame_ms:.3f} ms (min {frame_min:.3f}, max "
         f"{frame_max:.3f}) for {n_rays} rays, {n_rays / frame_ms * 1e3:.1f} rays/s")
@@ -5845,7 +6187,8 @@ def main(argv) -> int:
             t, n_launch, steps, path = (times[name], launches[name], TRAIN_STEPS,
                                         "synthetic_object training")
         found = [e[name] for e in (errs, bench["errs"], compose["errs"], multi["errs"],
-                                   crowd["errs"], perlevel["errs"], permuto["errs"]) if name in e]
+                                   crowd["errs"], perlevel["errs"], permuto["errs"],
+                                   ckpt["errs"]) if name in e]
         err, tol = max(e for e, _ in found), found[0][1]
         bound_ms, bound_by = t["bound"]
         # K8 runs on no training step: its per-frame count is under "compose"
@@ -5993,6 +6336,13 @@ def main(argv) -> int:
         log(f"kernel {name} (permuto path: {q['launches_per_lidar_step']} launches per LiDAR "
             f"step, {q['launches_per_pixel_step']} per pixel step, "
             f"{q['render_launches_per_frame']:g} per frame)")
+        row["eval"] = {"train_multi_launches": ckpt["launches"]["train"][name],
+                       "eval_multi_launches": ckpt["launches"]["eval_multi"][name],
+                       "eval_lidar_launches": ckpt["launches"]["eval_lidar"][name]}
+        log(f"kernel {name} (checkpoint and evaluation path: "
+            f"{ckpt['launches']['train'][name] / CKPT_ITERS:g} launches per iteration of the "
+            f"driver, {ckpt['launches']['eval_multi'][name] / len(EVAL_FRAMES):g} per evaluated "
+            f"frame, {ckpt['launches']['eval_lidar'][name] / len(EVAL_FRAMES):g} per LiDAR frame)")
         rows.append(row)
     if "--profile" in argv:
         profile_frame(renderer, params, rig, dev)
@@ -6010,7 +6360,7 @@ def main(argv) -> int:
                     "first_step_grad_rel_err": step_grad_err, **bench["summary"],
                     **compose["summary"], **multi["summary"], **crowd["summary"],
                     **synth["summary"], **perlevel["summary"], **permuto["summary"],
-                    "card": smi}))
+                    **ckpt["summary"], "card": smi}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

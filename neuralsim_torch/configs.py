@@ -20,7 +20,8 @@ SDF), ``renderer`` and ``training``.
 multi-object driving scene (3 vehicles on one shared conditional LoTD model,
 the street's LoTD NeuS with its occupancy grid, the NeRF++ distant field, the
 sky) under the compose renderer. Its ``${eval:...}`` schedule entries stand
-resolved, at ``num_iters`` 6,000. Its dataset is the in-memory demo scenario
+resolved, at ``num_iters`` 6,000; :func:`at_num_iters` sets them for another
+length of the schedule, as the YAML's expressions do. Its dataset is the in-memory demo scenario
 (``dataio/waymo_demo.demo_scenario``, the generator's defaults) in place of
 the files that ``neuralsim_tpu.dataio.waymo_demo`` writes; ``occ_converge``
 is the street grid's warm-up against the drive's static ground.
@@ -342,6 +343,31 @@ def resolve_refs(cfg: Dict[str, Any]) -> Dict[str, Any]:
         return walk(lookup(m.group(1))) if m else node
 
     return walk(root)
+
+
+def at_num_iters(cfg: Dict[str, Any], num_iters: int) -> Dict[str, Any]:
+    """A copy of a multi-object config (``WAYMO_DEMO_MULTI`` and its
+    variants) whose schedule spans ``num_iters`` iterations: the entries that
+    configs/waymo_demo_multi.yaml writes as ``${eval:...}`` of
+    ``training.num_iters`` take the values those expressions give: a NeuS
+    asset's inv_s anneal from n // 5 to n, the sparsity loss from n // 10
+    (ramped up to n // 2) and the line-of-sight epsilon's milestones n // 3
+    and 2 n // 3."""
+    n = int(num_iters)
+    out = copy.deepcopy(cfg)
+    out["training"]["num_iters"] = n
+    for acfg in out["assetbank_cfg"].values():
+        mp = acfg.get("model_params") or {}
+        if "inv_s_anneal_stop_it" in mp:
+            mp.update(inv_s_anneal_start_it=n // 5, inv_s_anneal_stop_it=n)
+    losses = out["training"].get("losses", {})
+    if "enable_after" in losses.get("sparsity", {}):
+        losses["sparsity"]["enable_after"] = n // 10
+        losses["sparsity"]["anneal"].update(start_it=n // 10, stop_it=n // 2)
+    eps = losses.get("lidar", {}).get("line_of_sight", {}).get("epsilon")
+    if isinstance(eps, dict) and eps.get("type") == "milestones":
+        eps["milestones"] = [n // 3, 2 * n // 3]
+    return out
 
 
 def load_config(path: str) -> Dict[str, Any]:

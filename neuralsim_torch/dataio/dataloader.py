@@ -1,6 +1,6 @@
-"""Scene data loading: the image, mask and LiDAR caches of one scene and the
-pixel and LiDAR samplers of training (port of
-neuralsim_tpu/dataio/dataloader.py:24-115, 151-218; numpy, on the host).
+"""Scene data loading: the image, mask and LiDAR caches of one scene, the
+pixel and LiDAR samplers of training and the whole frames of evaluation (port
+of neuralsim_tpu/dataio/dataloader.py:24-115, 151-243; numpy, on the host).
 
 The pixel sampler emits (camera, frame, pixel) tuples with their ground
 truth; the trainer lifts them to world rays through the frozen scene graph.
@@ -156,3 +156,30 @@ class LidarSampler:
         return {"lidar_id": lid, "rays_fidx": np.full(n, fi, np.int32),
                 "rays_o_local": ld["rays_o"][sel], "rays_d_local": ld["rays_d"][sel],
                 "ranges": ld["ranges"][sel]}
+
+
+class ImageSampler:
+    """Whole frames for evaluation, every ``downscale``-th pixel of each row
+    and column, each ray through the centre of its downscaled pixel."""
+
+    def __init__(self, loader: SceneDataLoader, downscale: int = 1):
+        self.loader = loader
+        self.downscale = downscale
+
+    def get(self, cam_id: str, fi: int) -> Dict[str, Any]:
+        """{cam_id, fi, hw, rays_xy [H W, 2], image_rgb [H W, 3] and, where
+        the loader has it, image_occupancy_mask [H W]}, rows in row order."""
+        img = self.loader.image(cam_id, fi)
+        s = self.downscale
+        if s > 1:
+            img = img[::s, ::s]
+        H, W = img.shape[:2]
+        ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+        out = {"cam_id": cam_id, "fi": fi, "hw": (H, W),
+               "rays_xy": np.stack([xs * s + 0.5 * s, ys * s + 0.5 * s],
+                                   -1).reshape(-1, 2).astype(np.float32),
+               "image_rgb": img.reshape(-1, 3)}
+        m = self.loader.masks.get((cam_id, fi))
+        if m is not None:
+            out["image_occupancy_mask"] = m[::s, ::s].reshape(-1)
+        return out

@@ -1,6 +1,7 @@
 """The fabricated Waymo-layout driving sequence, in memory (port of
-neuralsim_tpu/dataio/waymo_demo.py:26-240 and of the reader's occupancy mask,
-neuralsim_tpu/dataio/waymo.py:137-141; numpy).
+neuralsim_tpu/dataio/waymo_demo.py:26-240 and of the reader's occupancy and
+semantic masks and its semantic ids, neuralsim_tpu/dataio/waymo.py:30-33,
+137-150; numpy).
 
 An ego car drives +x over a ground plane; K vehicles (spheres in a unit-cube
 canonical frame, like preprocessed box tracks) are parked, lead or come the
@@ -12,7 +13,9 @@ and ``lidar_TOP``, and one ``Vehicle`` object per track); a render needs only
 that. ``demo_sequence`` adds the data of training, in memory: the camera
 frames (the writer's uint8 values over 255, as its reader returns them, but
 without the JPEG compression), the occupancy masks (semantic id != sky) and
-the LiDAR beams with their ranges (0 where a beam hits nothing).
+the LiDAR beams with their ranges (0 where a beam hits nothing); its
+semantic ids answer ``get_semantic_mask``, from which the multi-object
+evaluation tells the ground pixels.
 :func:`ground_sdf_tensor` is the drive's static ground, on which the street's
 occupancy grid converges.
 """
@@ -33,7 +36,12 @@ R_CAM2EGO = np.array([[0.0, 0.0, 1.0],
 VEH_COLORS = np.array([[0.85, 0.25, 0.2], [0.2, 0.4, 0.85],
                        [0.9, 0.75, 0.2], [0.3, 0.75, 0.4],
                        [0.7, 0.3, 0.8]], np.float32)
-SKY_ID = 10               # the Waymo semantic id of the sky
+# Waymo semantic ids of the reference's mask taxonomy (cityscapes trainIds:
+# sky 10, human 11/12, vehicle 13..18, dynamic their union)
+SKY_ID = 10
+HUMAN_IDS = (11, 12)
+VEHICLE_IDS = (13, 14, 15, 16, 17, 18)
+DYNAMIC_IDS = HUMAN_IDS + VEHICLE_IDS
 
 
 class DemoDrive:
@@ -239,8 +247,9 @@ def lidar_ranges(drive: DemoDrive, fi: int, beams: np.ndarray) -> np.ndarray:
 
 class DemoSequence:
     """The demo drive's sequence in memory, with the reader's interface that
-    the data loader uses: the scenario, and per camera and frame the image
-    and occupancy mask, per LiDAR and frame its beams."""
+    the data loader and the evaluation use: the scenario, and per camera and
+    frame the image, the occupancy mask and the semantic mask, per LiDAR and
+    frame its beams."""
 
     def __init__(self, scenario: Dict[str, Any], images: Dict[Tuple[str, int], np.ndarray],
                  semantics: Dict[Tuple[str, int], np.ndarray],
@@ -260,6 +269,17 @@ class DemoSequence:
                            ) -> Optional[np.ndarray]:
         sem = self.semantics.get((cam_id, frame_index))
         return None if sem is None else (sem != SKY_ID).astype(np.float32)
+
+    def get_semantic_mask(self, scene_id: str, cam_id: str, frame_index: int,
+                          kind: str = "all") -> Optional[np.ndarray]:
+        """The semantic ids [H, W] (``kind`` "all"), or where they are of
+        one kind: "sky", "human", "vehicle" or "dynamic" (bool [H, W])."""
+        sem = self.semantics.get((cam_id, frame_index))
+        if sem is None or kind == "all":
+            return sem
+        ids = {"sky": (SKY_ID,), "human": HUMAN_IDS, "vehicle": VEHICLE_IDS,
+               "dynamic": DYNAMIC_IDS}[kind]
+        return np.isin(sem, ids)
 
     def get_lidar(self, scene_id: str, lidar_id: str, frame_index: int
                   ) -> Optional[Dict[str, np.ndarray]]:

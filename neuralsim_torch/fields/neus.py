@@ -286,10 +286,17 @@ class NeuSField(nn.Module):
     # -- inv_s control ---------------------------------------------------------
     def forward_inv_s(self, it: Optional[float] = None,
                       override: Optional[float] = None) -> torch.Tensor:
-        """Learned inv_s, optionally mixed linearly toward ``inv_s_final``."""
+        """Learned inv_s, optionally mixed linearly toward ``inv_s_final``.
+        Without ``it`` (a render, an evaluation) the mix reads ``eval_it``, the
+        iteration of the checkpoint the field was loaded from
+        (``utils.misc.set_eval_iteration``), so that a checkpoint renders at
+        the sharpness it reached; without either the anneal counts as
+        complete."""
         if override is not None:
             return torch.tensor(override, dtype=torch.float32, device=self.ln_inv_s.device)
         inv_s = torch.exp(self.ln_inv_s)
+        if it is None:
+            it = getattr(self, "eval_it", None)
         if self.inv_s_final is not None and self.inv_s_anneal_stop_it > 0:
             if it is None:  # eval with unknown training stage: anneal complete
                 return torch.tensor(self.inv_s_final, dtype=torch.float32,

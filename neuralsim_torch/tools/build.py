@@ -261,7 +261,7 @@ def render_multi_frame(renderer: BufferComposeRenderer, params: nn.ModuleDict, s
 
 
 def build_multi_trainer(cfg: Dict[str, Any], device="cuda",
-                        timings: Optional[Dict[str, float]] = None):
+                        timings: Optional[Dict[str, float]] = None, pretrain: bool = True):
     """-> (scene, bank, trainer, state, samplers) of a multi-object config:
     its dataset in memory (:func:`multi_dataset`: the demo drive's scenario,
     images, masks and LiDAR, or the synthetic multi-object scene), the
@@ -273,7 +273,9 @@ def build_multi_trainer(cfg: Dict[str, Any], device="cuda",
     grids at ``init_state`` (not converged, as in the JAX package's training),
     and ``samplers`` {"pixel": PixelSampler (with the ``training.error_map``
     importance sampler), "lidar": LidarSampler or None, "imp": ImpSampler or
-    None}. ``timings``, where given, receives the seconds of each part."""
+    None}. ``timings``, where given, receives the seconds of each part.
+    ``pretrain=False`` leaves the geometry pretraining out: for a state that
+    a checkpoint then overwrites (the evaluation tools)."""
     import time
     timings = {} if timings is None else timings
     cfg = resolve_refs(cfg)
@@ -290,9 +292,10 @@ def build_multi_trainer(cfg: Dict[str, Any], device="cuda",
     timings["bank_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(seed + 1)
-    bank.training_initialize({mid: torch.rand(shape, generator=gen, device=dev)
-                              for mid, shape in bank.pretrain_shapes().items()})
+    if pretrain:
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        bank.training_initialize({mid: torch.rand(shape, generator=gen, device=dev)
+                                  for mid, shape in bank.pretrain_shapes().items()})
     if dev.type == "cuda":
         torch.cuda.synchronize()
     timings["pretrain_s"] = time.perf_counter() - t0

@@ -36,7 +36,8 @@ class FiniteWatch:
     device; at each log, where the loop reads the metrics anyway, this reports
     the non-finite metrics and the steps skipped since the last log (the
     ``skips_total`` counter), and raises ``FloatingPointError`` when every
-    step of the window was skipped. There is no checkpoint to save first."""
+    step of the window was skipped (the multi-object loop first saves the
+    state as the checkpoint ``nan_debug``)."""
 
     def __init__(self, i_log: int, skips: int = 0):
         self.i_log = i_log

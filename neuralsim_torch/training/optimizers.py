@@ -113,6 +113,24 @@ class ModelAdam:
             nu.copy_(torch.where(ok, nu_new, nu))
         self.count = torch.where(ok, count, self.count)
 
+    def state_dict(self) -> Dict[str, Any]:
+        """Both moments (one tensor a parameter, in order) and the count of
+        applied steps: what a checkpoint keeps. The hyperparameters and the
+        schedule come from the config."""
+        return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Copy a :meth:`state_dict` in, onto this optimizer's device; raises
+        where the moments do not match the parameters one for one."""
+        for name in ("mu", "nu"):
+            if len(sd[name]) != len(self.params) or any(
+                    tuple(a.shape) != tuple(b.shape) for a, b in zip(sd[name], self.params)):
+                raise ValueError(f"the checkpoint's {name} does not match the parameters")
+            for dst, src in zip(getattr(self, name), sd[name]):
+                dst.copy_(src)
+        self.count = sd["count"].to(device=self.count.device, dtype=torch.int32).clone()
+
 
 def make_optimizer(training_cfgs: Dict[str, Dict[str, Any]], params: nn.ModuleDict,
                    default_cfg: Optional[Dict[str, Any]] = None) -> Dict[str, ModelAdam]:

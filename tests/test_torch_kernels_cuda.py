@@ -65,7 +65,11 @@ dense and hash levels in one meta, levels staged in shared memory,
 interleaved into the scratch and read from the table, x01 at 0, 1, one ulp
 below 1, below 0 and above 1, N 1 to 65,537, with and without the jacobian);
 K13 at chip_smoke.latent_edge_cases, and its backward is one kernel a call
-at the path shapes.
+at the path shapes. A checkpoint of a trained waymo_demo_multi state loaded
+into a fresh build (whose frame was rendered first, filling K14's lines
+cache and K3's scratch from the fresh tables) holds every tensor and renders
+frame 0 to the trained state's bits; K8 and K5b at an 8,192-ray evaluation
+chunk of that scene equal their plain versions (chip_smoke.check_eval_chunk).
 """
 import contextlib
 import copy
@@ -80,7 +84,7 @@ from neuralsim_torch.accel import OccGridEma, OccGridEmaBatched, OccGridEmaDynam
 from neuralsim_torch.accel.occ_grid import (occ_ema_update, occ_ema_update_plain,
                                             occ_ray_proposal, occ_ray_proposal_plain)
 from neuralsim_torch.configs import (BENCH_OBJECT, SYNTHETIC_OBJECT, WAYMO_DEMO_CROWD,
-                                    WAYMO_DEMO_MULTI, WAYMO_DEMO_PERMUTO)
+                                    WAYMO_DEMO_MULTI, WAYMO_DEMO_PERMUTO, at_num_iters)
 from neuralsim_torch.fields.conditional import (ConditionalLoTDNeuSField,
                                                 ConditionalPermutoNeuSField)
 from neuralsim_torch.fields.encodings import permuto as pm
@@ -106,6 +110,7 @@ from neuralsim_torch.tools.build import (build_compose_renderer, build_multi_tra
                                          build_renderer, build_trainer, converge_occ,
                                          render_multi_frame)
 from neuralsim_torch.tools.train_multi import train_loop
+from neuralsim_torch.utils.checkpoint import CheckpointIO
 
 pytestmark = pytest.mark.cuda
 
@@ -1645,3 +1650,33 @@ def test_k14_under_autograd_on_card_matches_cpu(dev):
         grads.append(e.table.grad.cpu())
     assert torch.equal(lines[0], lines[1])
     _rel_close(grads[:1], grads[1:], cs.GRAD_REL)
+
+
+def test_checkpoint_round_trip_renders_the_same_bits(dev, tmp_path):
+    cfg = at_num_iters(WAYMO_DEMO_MULTI, 8)
+    scene, _, trainer, state, samplers = build_multi_trainer(cfg, device=dev)
+    state = train_loop(scene, trainer, state, samplers, 4, torch.Generator(device=dev)
+                       .manual_seed(0), i_log=100)
+    CheckpointIO(str(tmp_path)).save(state, state.it, tag="final")
+    want = cs.frame_bits(render_multi_frame(trainer.renderer, state.params, scene, 0,
+                                            cs.COMPOSE_CAM, state.occ))
+    scene2, _, trainer2, state2, _ = build_multi_trainer(cfg, device=dev, pretrain=False)
+    before = cs.frame_bits(render_multi_frame(trainer2.renderer, state2.params, scene2, 0,
+                                              cs.COMPOSE_CAM, state2.occ))
+    CheckpointIO(str(tmp_path)).load(state2, "final")
+    a, b = cs.state_tensors(state), cs.state_tensors(state2)
+    assert set(a) == set(b)
+    for k, v in a.items():
+        assert b[k].device == v.device and b[k].dtype == v.dtype and torch.equal(b[k], v), k
+    got = cs.frame_bits(render_multi_frame(trainer2.renderer, state2.params, scene2, 0,
+                                           cs.COMPOSE_CAM, state2.occ))
+    assert got == want and before["rgb_volume"] != want["rgb_volume"]
+
+
+def test_k8_and_k5b_at_an_evaluation_chunk(dev):
+    scene, _, renderer, params = build_compose_renderer(WAYMO_DEMO_MULTI, device=dev)
+    accel = renderer.accels["cr"]
+    occ = {"cr": converge_occ(accel, accel.init_state(), ground_sdf_tensor,
+                              **WAYMO_DEMO_MULTI["occ_converge"])}
+    _, e5, shapes = cs.check_eval_chunk(dev, renderer, params, scene, occ)   # K8 raises past K8_TOL
+    assert e5 == 0.0 and any(n == cs.EVAL_CHUNK for n, _, _ in shapes)

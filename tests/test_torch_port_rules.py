@@ -18,6 +18,9 @@ from neuralsim_torch.fields.blocks import MLP
 from neuralsim_torch.tools.build import (build_compose_renderer, build_multi_trainer,
                                          build_renderer, build_trainer)
 from neuralsim_torch.tools.train import train
+from neuralsim_torch.tools.eval_lidar import main_function as eval_lidar_main
+from neuralsim_torch.tools.eval_multi import main_function as eval_multi_main
+from neuralsim_torch.tools.train_multi import main_function as train_main
 from neuralsim_torch.tools.train_multi import train_multi
 
 torch.set_num_threads(1)
@@ -45,7 +48,9 @@ def test_importing_every_module_loads_no_jax():
               "models.asset_base", "renderers.buffer_compose", "training.multi_trainer",
               "training.error_map", "dataio.dataloader", "scene.observers.lidars",
               "tools.train_multi", "models.assets", "ops.pair_compact",
-              "dataio.synthetic_multi", "fields.encodings.permuto", "ops.latent_take"):
+              "dataio.synthetic_multi", "fields.encodings.permuto", "ops.latent_take",
+              "utils", "utils.checkpoint", "utils.logger", "utils.misc", "maths.metrics",
+              "tools.eval_multi", "tools.eval_lidar"):
         assert f"neuralsim_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -61,9 +66,13 @@ def test_importing_every_module_loads_no_jax():
 
 def test_sources_do_not_import_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|neuralsim_tpu)\b", re.M)
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert ROOT / "scripts" / "torch_run_waymo_demo.py" in files
+    assert ROOT / "scripts" / "torch_finish_waymo_demo.py" in files
     for new in ("ops/pair_compact.py", "dataio/synthetic_multi.py", "accel/occ_grid.py",
-                "fields/encodings/permuto.py", "fields/conditional.py", "ops/latent_take.py"):
+                "fields/encodings/permuto.py", "fields/conditional.py", "ops/latent_take.py",
+                "utils/checkpoint.py", "tools/eval_multi.py", "tools/eval_lidar.py"):
         assert PKG / new in files
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -104,6 +113,17 @@ def test_multi_object_training_entry_points_default_to_the_card(monkeypatch, ent
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry(cfg)
+
+
+@pytest.mark.parametrize("entry", [train_main, eval_multi_main, eval_lidar_main],
+                         ids=["train_multi", "eval_multi", "eval_lidar"])
+def test_driver_main_functions_default_to_the_card(monkeypatch, tmp_path, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = {**WAYMO_DEMO_MULTI, "exp_dir": str(tmp_path / "exp"),
+           "renderer": {**WAYMO_DEMO_MULTI["renderer"], "type": "multi"}}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry(cfg)
+    assert not (tmp_path / "exp").exists()
 
 
 def test_ctypes_signatures_match_the_cuda_sources():
