@@ -205,7 +205,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      frame 0's scores (every 4th pixel) and its LiDAR scores on the card
      against the CPU path loaded from the same checkpoint, at the CPU
      path's sample depths (EVAL_* limits);
- 14. timing: frame latency and rays/s; training step time and rays/s; each
+ 14. StreetSurf's single street (WAYMO_STREETSURF: configs/waymo_streetsurf.yaml
+     at full width on the demo drive, through tools.build.build_everything
+     with the 500-step road pretrain, each part of the build timed, and the
+     single-scene Trainer): K3 in four dimensions (lotd_grid4: the distant
+     field's dense level of 17^4 rows and 9 hash levels of 2^17, F 2, no
+     level staged) and its backward against their plain versions at the
+     pixel step's 524,288 distant samples (the field's table and a N(0, 1)
+     one), at 1 to 4,097 edge points (0, 1, one ulp below 1, below 0 and
+     above 1 in all four coordinates) and on a 4-D ladder of F 4 (staged,
+     private, and with no copies): the forward within 1e-5, the table
+     gradient within GRAD_REL; the first iteration (a LiDAR step, then a
+     pixel step; cut to 512 beams and 1,024 rays) on the card against the
+     CPU path at the CPU path's sample depths under the multi-object limits;
+     one LiDAR step (K12, no K3-4D, no K6) and one pixel step (K6, K3-4D and
+     its backward once each) counted apart; 48 iterations of 8,192 beams and
+     8,192 rays (finite, no skip, falling loss_rgb and LiDAR depth, three
+     grid refreshes, error-map sampling from the 16th); a poisoned pixel
+     step; the iteration median; a validation frame (tools.train.validate),
+     a whole 80x120 frame timed and a crop held to the CPU path at its
+     sample depths (STREET_CROP_*); K3-4D timed at the path's shape;
+ 15. timing: frame latency and rays/s; training step time and rays/s; each
      kernel's time at the training path's shapes (beside that path's launch
      count) and, for the forward kernels, at the render path's too, each
      beside its plain version, a library call where one exists, and its bound
@@ -230,7 +250,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      F.embedding's backward and the sort-based index_put; K14 and its
      backward at each encoding and at the edge ladders of CP_LINES_EDGES
      (library none; the per-level F.interpolate sum as an aside);
- 15. one JSON line of results, one of per-kernel results, then the device
+ 16. one JSON line of results, one of per-kernel results, then the device
      line, last.
 
 --profile adds torch.profiler tables of device time by kernel for one frame
@@ -540,6 +560,42 @@ K9_TOL = dict(rtol=1e-5, atol=1e-6)
 # gradient, one thread a point summing its levels, within K9_DX_REL of its
 # largest entry (autograd sums the same terms through the elevation chain)
 K9_DX_REL = 1e-5
+
+# StreetSurf's single-street path (WAYMO_STREETSURF: configs/waymo_streetsurf.yaml
+# at full width on the demo drive, through tools.build.build_everything and
+# the single-scene Trainer): each loop iteration a LiDAR step of 8,192
+# beams (the street alone, K12) and a pixel step of 8,192 rays (the street
+# and the 4-D LoTD distant field composited together, K6). K3 in four
+# dimensions (``lotd_grid4``) runs on this path only: the distant field's
+# dense level of 17^4 rows and 9 hash levels of 2^17, F 2, on the pixel
+# step's 8,192 x 64 distant samples (the JAX tool reads the distant ladder
+# from the renderer block, 64 by default, not from the distant asset's
+# query_cfg). Its first iteration is held to the CPU path at
+# MULTI_CHECK_RAYS rays and MULTI_CHECK_BEAMS beams under the multi-object
+# limits; 48 iterations with the error map's importance sampling from the
+# 16th pixel step on (the config's 500 cut so that it runs).
+STREETSURF_ONLY = ("lotd_grid4", "lotd_grid4.bwd")
+STREETSURF_RAYS = STREETSURF_BEAMS = 8192
+STREETSURF_ITERS = 48
+# K3-4D's edge point sets: (label, points); the distant field's own table
+# and a table of N(0, 1) values of its size
+K3_4D_EDGE_N = (1, 31, 625, 4097)
+# a crop of frame 0 (rows, columns of camera_FRONT's 80x120), rendered on the
+# CPU and on the card at the CPU path's sample depths (sample_placements):
+# each ray's rgb and mask within STREET_CROP_TOL, and its weighted depth (the
+# mean depth times the mask, the sum of weight x depth) within STREET_CROP_TOL
+# of 1 + its largest sample depth, on all but STREET_CROP_OFF_MAX of the
+# rays (a ray whose position rounds apart can step the bf16 tents, see
+# EQUAL_DEPTH_TOL). The mean depth alone is not held: on a ray into the sky
+# the distant field's weights are ~1e-6 each, 1 - exp(-tau) of taus of
+# ~1e-5, whose last bits (exp rounds an ulp apart on the card) are a tenth of
+# a percent of them, and the ladder reaches 1e4 times the close range's far
+# plane (measured on the H100: rgb 7.7e-7, mask 1.8e-6, the mean depth
+# 8.9e-5 of 1 + the largest depth, 0.09% of the distant share's depth on a
+# ray of mask 0.002)
+STREET_CROP = (slice(32, 48), slice(40, 72))
+STREET_CROP_TOL = EQUAL_DEPTH_TOL
+STREET_CROP_OFF_MAX = 0.02
 
 
 def log(*a):
@@ -3084,14 +3140,14 @@ def multi_batches(scene, samplers, dev, n_rays, n_beams, poison=False):
             raw["cam_id"])
 
 
-def check_multi_first_iteration(scene, trainer, state, samplers, dev):
+def check_multi_first_iteration(scene, trainer, state, samplers, dev, path="multi"):
     """The first loop iteration (a LiDAR step of MULTI_CHECK_BEAMS beams, a
     pixel step of MULTI_CHECK_RAYS rays) on the card against the CPU path,
     from the same parameters, grid, batches and noise; steps nothing. The
     CPU path's sample depths are replayed on the card (sample_placements),
     and the losses and every gradient leaf are held to MULTI_STEP_LOSS_RTOL
     and MULTI_STEP_GRAD_REL there; the card's own step (its own K4 and K5a
-    placements) is logged beside it.
+    placements) is logged beside it. ``path`` names the path in the log.
     -> (worst loss rel err, worst gradient rel err) at equal placements."""
     import torch
     to = lambda tree, d: {k: to(v, d) for k, v in tree.items()} if isinstance(tree, dict) \
@@ -3130,23 +3186,23 @@ def check_multi_first_iteration(scene, trainer, state, samplers, dev):
             le = max(abs(l_gpu[k] - v) / max(abs(v), 1e-12) for k, v in l_cpu.items())
             ge = max(float((g_gpu[k] - g).abs().max()) / float(g.abs().max())
                      for k, g in g_cpu.items() if float(g.abs().max()) > 0)
-            log(f"multi first iteration, {step_type} step, {label} vs cpu: worst loss rel err "
+            log(f"{path} first iteration, {step_type} step, {label} vs cpu: worst loss rel err "
                 f"{le:.3g}, worst gradient rel err {ge:.3g}; losses "
                 f"{ {k: round(v, 6) for k, v in l_gpu.items()} }")
             if label != "card":
-                for k, g in g_cpu.items():
-                    if float(g.abs().max()) > 0:
-                        e = float((g_gpu[k] - g).abs().max()) / float(g.abs().max())
-                        if e > MULTI_STEP_GRAD_REL:
-                            log(f"  gradient {k}: rel err {e:.3g}")
+                rel = {k: float((g_gpu[k] - g).abs().max()) / float(g.abs().max())
+                       for k, g in g_cpu.items() if float(g.abs().max()) > 0}
+                for k, e in rel.items():
+                    if e > MULTI_STEP_GRAD_REL or e == max(rel.values()):
+                        log(f"  gradient {k}: rel err {e:.3g}")
                 worst_loss, worst_grad = max(worst_loss, le), max(worst_grad, ge)
         if not all(np.isfinite(v) for v in results["card"][0].values()):
             raise AssertionError("the card's own first step gives a non-finite loss")
-    log(f"multi first iteration at equal sample depths: worst loss rel err {worst_loss:.3g} "
+    log(f"{path} first iteration at equal sample depths: worst loss rel err {worst_loss:.3g} "
         f"(tol {MULTI_STEP_LOSS_RTOL:g}), worst gradient rel err {worst_grad:.3g} "
         f"(tol {MULTI_STEP_GRAD_REL:g})")
     if not (worst_loss <= MULTI_STEP_LOSS_RTOL and worst_grad <= MULTI_STEP_GRAD_REL):
-        raise AssertionError("the card's first multi-object iteration differs from the CPU's")
+        raise AssertionError(f"the card's first {path} iteration differs from the CPU's")
     return worst_loss, worst_grad
 
 
@@ -3485,7 +3541,8 @@ def check_multi_training(scene, trainer, state, samplers, dev, iters=MULTI_ITERS
             "occ_ray_proposal_batched": iters if batched else 0,
             **dict.fromkeys(("lotd_cp_stacked", "lotd_cp_stacked.bwd") + LINES_KERNELS
                             if per_level else PERLEVEL_ONLY, 0),
-            **dict.fromkeys(("lotd_grid", "lotd_grid.bwd") if permuto else PERMUTO_ONLY, 0)}
+            **dict.fromkeys(("lotd_grid", "lotd_grid.bwd") if permuto else PERMUTO_ONLY, 0),
+            **dict.fromkeys(STREETSURF_ONLY, 0)}
     if refreshes != 3 or any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"the {label} path's launches are not as counted: want {want}")
     for name, n in launches.items():
@@ -3496,9 +3553,9 @@ def check_multi_training(scene, trainer, state, samplers, dev, iters=MULTI_ITERS
     return log_, launches, falls
 
 
-def check_multi_poisoned_step(scene, trainer, state, samplers, dev):
+def check_multi_poisoned_step(scene, trainer, state, samplers, dev, path="multi"):
     """A NaN in a pixel batch: the step is skipped and leaves every parameter
-    and moment bit-identical."""
+    and moment bit-identical (``path`` names the path in the log)."""
     import torch
     _, pbatch, cam = multi_batches(scene, samplers, dev, MULTI_RAYS, MULTI_BEAMS, poison=True)
     before = [p.detach().clone() for p in state.params.parameters()]
@@ -3511,18 +3568,19 @@ def check_multi_poisoned_step(scene, trainer, state, samplers, dev):
     same = all(torch.equal(a, b) for a, b in zip(before, state.params.parameters())) and \
         all(torch.equal(a, b) for a, b in
             zip(moments, [t for o in state.opt.values() for t in (*o.mu, *o.nu, o.count)]))
-    log(f"multi poisoned step: skipped {int(m['step_skipped'])}, skips_total "
+    log(f"{path} poisoned step: skipped {int(m['step_skipped'])}, skips_total "
         f"{int(m['skips_total'])}, parameters and moments unchanged {same}, it {it} -> {state.it}")
     if not (int(m["step_skipped"]) == 1 and int(m["skips_total"]) == 1 and same
             and state.it == it + 1):
-        raise AssertionError("the poisoned multi-object step was not skipped cleanly")
+        raise AssertionError(f"the poisoned {path} step was not skipped cleanly")
 
 
-def time_multi_iterations(scene, trainer, state, samplers, dev, reps=20):
-    """Host-clock time of each step type of a loop iteration, batch sampling,
-    lifting and noise included (the pixel step's error-map update too), in
-    ms over ``reps`` iterations after 3 warm-ups -> {lidar, pixel, iteration:
-    (median, min, max)}."""
+def time_multi_iterations(scene, trainer, state, samplers, dev, reps=20, n_rays=MULTI_RAYS,
+                          n_beams=MULTI_BEAMS):
+    """Host-clock time of each step type of a loop iteration of ``n_beams``
+    beams and ``n_rays`` rays, batch sampling, lifting and noise included
+    (the pixel step's error-map update too), in ms over ``reps`` iterations
+    after 3 warm-ups -> {lidar, pixel, iteration: (median, min, max)}."""
     import torch
     from neuralsim_torch.tools.train_multi import _LIDAR_KEYS, _PIXEL_KEYS, to_device
     from neuralsim_torch.training.multi_trainer import lift_lidar_batch
@@ -3532,17 +3590,17 @@ def time_multi_iterations(scene, trainer, state, samplers, dev, reps=20):
     for i in range(reps + 3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lb = lid.sample()
+        lb = lid.sample(n_beams)
         lbatch = lift_lidar_batch(scene, {**to_device(lb, _LIDAR_KEYS, dev),
                                           "lidar_id": lb["lidar_id"]})
-        trainer.train_step(state, lbatch, trainer.draw_noise("lidar", MULTI_BEAMS, gen, state.it),
+        trainer.train_step(state, lbatch, trainer.draw_noise("lidar", n_beams, gen, state.it),
                            "lidar", None, False)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        raw = pix.sample()
+        raw = pix.sample(n_rays)
         batch = to_device(raw, _PIXEL_KEYS, dev)
         _, m = trainer.train_step(state, batch,
-                                  trainer.draw_noise("pixel", MULTI_RAYS, gen, state.it), "pixel",
+                                  trainer.draw_noise("pixel", n_rays, gen, state.it), "pixel",
                                   raw["cam_id"])
         W, H = pix.loader.image_wh(raw["cam_id"])
         imp.update(raw["rays_fidx"], raw["rays_sel"][:, 1], raw["rays_sel"][:, 0],
@@ -5997,6 +6055,353 @@ def checkpoint_eval_phase(dev):
                 errs={"cross_source_vw": (e8, K8_TOL["atol"]), "neus_upsample.merge": (e5, 0.0)})
 
 
+class SingleStepTrainer:
+    """The single-scene Trainer behind the multi-object trainer's argument
+    order (``draw_noise(step_type, n, generator, it)``, ``compute_losses(params,
+    batch, it, noise, step_type, occ, cam_id)``), so that the shared loop and
+    the multi-object checks drive it; any other attribute, read or written,
+    is the Trainer's own."""
+
+    def __init__(self, trainer):
+        object.__setattr__(self, "inner", trainer)
+
+    def __getattr__(self, k):
+        return getattr(self.inner, k)
+
+    def __setattr__(self, k, v):
+        setattr(self.inner, k, v)
+
+    def draw_noise(self, step_type, n, generator, it=None):
+        return self.inner.draw_noise(n, generator, it, step_type)
+
+    def compute_losses(self, params, batch, it, noise, step_type="pixel", occ=None,
+                       cam_id=None):
+        return self.inner.compute_losses(params, batch, it, noise, occ, step_type, cam_id)
+
+
+def k3_4d_points(n, seed):
+    """4-D points as the distant field hands them to K3: a point on the unit
+    shell moved into [0, 1]^3 (one coordinate on a face, 0 or 1) beside the
+    inverse radius in [1e-4, 1] (log-uniform in the radius); the first 625
+    (fewer where n is smaller) every combination over the axes of 0, 1, one
+    ulp below 1, -0.25 and 1.5."""
+    import itertools
+    rng = np.random.default_rng(seed)
+    m = max(n, 625)
+    x = rng.random((m, 4)).astype(np.float32)
+    x[np.arange(m), rng.integers(0, 3, m)] = rng.integers(0, 2, m)
+    x[:, 3] = np.exp(-rng.uniform(0.0, np.log(1e4), m))
+    edges = np.array([0.0, 1.0, np.nextafter(np.float32(1), np.float32(0)), -0.25, 1.5],
+                     np.float32)
+    x[:625] = np.array(list(itertools.product(edges, repeat=4)), np.float32)
+    return x[:n]
+
+
+def check_k3_4d(dev, enc, n_path):
+    """K3 in four dimensions (``lotd_grid4``) and its backward against their
+    plain versions: on the distant field's levels at ``n_path`` points (the
+    pixel step's distant samples) with the field's own table and with a
+    table of N(0, 1) values, and at K3_4D_EDGE_N edge sets; on a 4-D ladder
+    of F 4 whose two levels are staged (the wide kernel, the private
+    backward at 65,537 points) and with no copies (each level read from the
+    table). The forward within 1e-5, the table gradient within GRAD_REL of
+    its largest entry. Raises where the distant field's plans stage a level
+    -> ({kernel: (max_abs_err, tol)}, the path's inputs for timing)."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    if enc.input_dim != 4 or enc.grid_fwd_plan.n_shared or enc.grid_bwd_plan.n_private:
+        raise AssertionError(f"the distant encoding should be 4-D with no level staged: "
+                             f"{enc.grid_fwd_plan}, {enc.grid_bwd_plan}")
+    wide = lotd.LoTDEncoding([(4, 4, "dense"), (16, 4, "hash")], input_dim=4,
+                             log2_hashmap_size=12).to(dev)
+    if wide.grid_fwd_plan.stage_mask != 0b11 or wide.grid_bwd_plan.private_mask != 0b1:
+        raise AssertionError(f"the F 4 ladder should stage both levels and keep its dense "
+                             f"one private: {wide.grid_fwd_plan}, {wide.grid_bwd_plan}")
+    normal = lambda e, seed: torch.from_numpy(np.random.default_rng(seed).normal(
+        size=e.total_params).astype(np.float32)).to(dev)
+    table = normal(enc, 500)
+    sets = [("distant samples, the field's table", enc, enc.table.detach(), n_path, 501, None),
+            ("distant samples, N(0, 1) table", enc, table, n_path, 502, None)] + \
+        [(f"distant levels, edges N={n}", enc, table, n, 510 + n, None) for n in K3_4D_EDGE_N] + \
+        [("F 4 ladder, staged and private", wide, normal(wide, 503), 65_537, 504, None),
+         ("F 4 ladder, no copies", wide, normal(wide, 505), 4097, 506,
+          lotd.GridFwdPlan(0, 0, 0, 4))]
+    fwd, bwd = [], []
+    for label, e, tbl, n, seed, plan in sets:
+        x = torch.from_numpy(k3_4d_points(n, seed)).to(dev)
+        meta, C, T = e._grid_meta, e.out_dim, e.total_params
+        fn = lambda *a, plan=plan: lotd.lotd_grid(*a, plan=plan)
+        got = encode_into(fn, (tbl, x, meta), C, n, dev, False)
+        want = encode_into(lotd.lotd_grid_plain, (tbl, x, meta), C, n, dev, False)
+        fwd.append(compare(f"K3-4D {label}", got, want, 1e-5, 1e-5))
+        d_out = cotangents((C, n), seed + 100, dev)
+        want_g = lotd.lotd_grid_bwd_plain(T, x, meta, d_out, None)
+        for bp in dict.fromkeys((e.grid_bwd_plan.at(n), e.grid_bwd_plan)):
+            bwd.append(compare_rel(f"K3-4D bwd {label} plan {bp.private_mask:#x}/{bp.n_private}",
+                                   [lotd.lotd_grid_bwd(T, x, meta, d_out, None, plan=bp)],
+                                   [want_g], GRAD_REL))
+    x = torch.from_numpy(k3_4d_points(n_path, 501)).to(dev)
+    return ({"lotd_grid4": (max(fwd), 1e-5), "lotd_grid4.bwd": (max(bwd), GRAD_REL)},
+            dict(table=table, x=x, enc=enc, d_out=cotangents((enc.out_dim, n_path), 601, dev)))
+
+
+def time_k3_4d(t):
+    """K3-4D's forward and backward at the pixel step's distant samples:
+    card_ms (the forward fills the interleaved scratch at every call, as a
+    training step does after each update of the table), the plain versions,
+    the least time (the points, the table and the cotangent read once, the
+    features or the table gradient written once; ~2 operations a corner
+    and feature and 3 a corner's weight) -> {kernel: timing}."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    enc, table, x, d_out = t["enc"], t["table"], t["x"], t["d_out"]
+    meta, C, T, N = enc._grid_meta, enc.out_dim, enc.total_params, x.shape[0]
+    L, F = meta.shape[0], int(meta[0, 3])
+    out = torch.empty((C, N), device=x.device)
+    plan, bplan = enc.grid_fwd_plan, enc.grid_bwd_plan.at(N)
+    ops = N * L * 16 * (2 * F + 3)
+    shape = (f"[{N:,}, 4] points, {L} levels of F {F} (dense {int(meta[0, 1]):,} rows, hash "
+             f"{int(meta[-1, 1]):,}), {T:,} table floats")
+    fwd = {**card_ms(lambda: lotd.lotd_grid(table, x, meta, out, None, plan=plan)),
+           "plain_ms": cuda_ms(lambda: lotd.lotd_grid_plain(table, x, meta, out), reps=3),
+           "bound": bound(16 * N + 4 * T + 4 * C * N, ops), "library_ms": None, "shape": shape}
+    bwd = {**card_ms(lambda: lotd.lotd_grid_bwd(T, x, meta, d_out, None, plan=bplan)),
+           "plain_ms": cuda_ms(lambda: lotd.lotd_grid_bwd_plain(T, x, meta, d_out, None),
+                               reps=3),
+           "bound": bound(16 * N + 4 * C * N + 4 * T, ops), "library_ms": None,
+           "shape": shape + ", d_out [C, N]"}
+    for name, r in (("lotd_grid4", fwd), ("lotd_grid4.bwd", bwd)):
+        log(f"timing {name}: {r['ms']:.4f} ms ({card_extra(r)[2:]}, plain {r['plain_ms']:.4f}, "
+            f"bound {r['bound'][0]:.4f} by {r['bound'][1]}, library none) at {r['shape']}")
+    return {"lotd_grid4": fwd, "lotd_grid4.bwd": bwd}
+
+
+def check_streetsurf_training(scene, trainer, state, samplers, dev, iters=STREETSURF_ITERS):
+    """``iters`` loop iterations of the single-scene path (tools.train's
+    train_loop, the trainer behind SingleStepTrainer) with every metric
+    logged: finite losses, no skip, falling loss_rgb and LiDAR depth loss,
+    the grid refreshed on its cadence (three times), the error map's
+    importance sampling in use, and the path's kernels launched as counted:
+    K12 once a LiDAR step, K6 and K3-4D (forward and backward) once a pixel
+    step, K4 once a step; no K8, K9, K10, K11, K13 or K2. -> (log,
+    launches, falls)."""
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.tools.train import train_loop
+    gen = torch.Generator(device=dev).manual_seed(11)
+    log_ = []
+    kernels.reset_counts()
+    with no_plain_on_card("streetsurf training"):
+        train_loop(scene, trainer, state, samplers, state.it + iters, gen, 1, log_)
+        torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+    accel = trainer.renderer.accels["cr"]
+    refreshes = sum(1 for rec in log_ if rec["it"] % accel.n_steps_between_update == 0)
+    log(f"streetsurf training: {iters} iterations of {STREETSURF_BEAMS} beams + "
+        f"{STREETSURF_RAYS} rays, {refreshes} grid refreshes, launches {launches}")
+    for rec in log_:
+        for k, v in rec.items():
+            if k.startswith(("loss", "lidar/loss")) and not np.isfinite(v):
+                raise AssertionError(f"non-finite {k} at iteration {rec['it']}")
+    if log_[-1]["skips_total"] != 0:
+        raise AssertionError(f"{log_[-1]['skips_total']} steps were skipped")
+    mean = lambda k, rs: float(np.mean([rec[k] for rec in rs]))
+    falls = {}
+    for k in ("loss_rgb", "lidar/lidar_loss_depth"):
+        falls[k] = (mean(k, log_[:10]), mean(k, log_[-10:]))
+        log(f"streetsurf training: {k} first 10 iterations {falls[k][0]:.5f}, last 10 "
+            f"{falls[k][1]:.5f}")
+        if not falls[k][1] < falls[k][0]:
+            raise AssertionError(f"{k} did not fall")
+    log(f"streetsurf training: the grid's occupied fraction after it "
+        f"{float(accel.occupied_fraction(state.occ['cr'])):.4f}, error-map updates "
+        f"{samplers['imp'].it} (importance sampling from {samplers['imp'].enable_after})")
+    want = {"volume_composite": iters, "volume_composite.bwd": iters,
+            "neus_composite": iters, "neus_composite.bwd": iters,
+            "lotd_grid4": iters, "lotd_grid4.bwd": iters,
+            "occ_ray_proposal": 2 * iters, "occ_ema_update": refreshes,
+            "occ_voxel_points": refreshes,
+            **dict.fromkeys(COMPOSE_ONLY + MULTI_ONLY + CROWD_ONLY + PERLEVEL_ONLY
+                            + PERMUTO_ONLY + LATENT_ONLY, 0)}
+    if refreshes != 3 or any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"the streetsurf path's launches are not as counted: want {want}")
+    for name, n in launches.items():
+        if n <= 0 and want.get(name, 1):
+            raise AssertionError(f"kernel {name} never launched on the streetsurf training path")
+    if samplers["imp"].it != iters or samplers["imp"].enable_after >= iters:
+        raise AssertionError("the error map's importance sampling did not run")
+    return log_, launches, falls
+
+
+def check_street_crop(trainer, renderer, state, scene, dev):
+    """STREET_CROP of frame 0 rendered on the CPU path and on the card at the
+    CPU path's sample depths (sample_placements: the grid's proposal and
+    both upsample stages replayed; the distant ladder is deterministic), one
+    query of the crop's rays as a render's chunk: rgb, mask and the weighted
+    depth (the mean depth times the mask, relative to 1 + the ray's largest
+    sample depth) held per ray to STREET_CROP_TOL on all but
+    STREET_CROP_OFF_MAX of the rays; the mean depth's own error is logged
+    -> {the worst and mean errors, the share off}."""
+    import torch
+    from neuralsim_torch.scene.observers import camera_get_all_rays
+    cam = COMPOSE_CAM
+    H, W = (int(v) for v in scene.nodes[cam].frame_data["hw"][0].tolist())
+    ro, rd = camera_get_all_rays(scene_on(scene, "cpu").slice_at(0), cam, H, W)
+    ro = ro.reshape(H, W, 3)[STREET_CROP].reshape(-1, 3).contiguous()
+    rd = rd.reshape(H, W, 3)[STREET_CROP].reshape(-1, 3).contiguous()
+    record = []
+    cpu_params, occ_cpu = copy.deepcopy(state.params).to("cpu"), occ_on(state, "cpu")
+    keys = ("rgb_volume", "mask_volume", "depth_volume")
+    with torch.no_grad():
+        with sample_placements(trainer, record=record):
+            w = renderer.ray_query(cpu_params, ro, rd, occ_states=occ_cpu, return_buffer=True)
+        with sample_placements(trainer, replay=record), no_plain_on_card("streetsurf crop"):
+            g = renderer.ray_query(state.params, ro.to(dev), rd.to(dev), occ_states=state.occ,
+                                   return_buffer=True)
+    want, got = {k: w[k] for k in keys}, {k: g[k].cpu() for k in keys}
+    far = w["merged_buffer"]["t"].amax(-1)
+    weighted = lambda r: r["depth_volume"] * r["mask_volume"]
+    per_ray = {"rgb": (got["rgb_volume"] - want["rgb_volume"]).abs().amax(-1),
+               "mask": (got["mask_volume"] - want["mask_volume"]).abs(),
+               "weighted_depth": (weighted(got) - weighted(want)).abs() / (1.0 + far)}
+    off = torch.zeros(ro.shape[0], dtype=torch.bool)
+    for v in per_ray.values():
+        off |= v > STREET_CROP_TOL
+    per_ray["depth"] = (got["depth_volume"] - want["depth_volume"]).abs() / (1.0 + far)
+    out = {**{f"{k}_max": float(v.max()) for k, v in per_ray.items()},
+           **{f"{k}_mean": float(v.mean()) for k, v in per_ray.items()},
+           "off_share": float(off.float().mean()), "rays": ro.shape[0]}
+    # the worst ray's depth by source (the street's share, the distant
+    # field's), to tell which moves
+    i = int(per_ray["depth"].argmax())
+    log("streetsurf crop, the worst depth's ray: " + json.dumps({
+        "far": float(far[i]), **{f"{src} {k} {side}": float(r[src][k][i])
+                                for src in ("rendered_cr", "rendered_dv")
+                                for k in ("depth_volume", "mask_volume")
+                                for side, r in (("cpu", w), ("card", g))}}))
+    log(f"streetsurf crop {STREET_CROP} card vs CPU at the CPU path's depths: {json.dumps(out)} "
+        f"(tol {STREET_CROP_TOL:g}, at most {STREET_CROP_OFF_MAX:g} of the rays off)")
+    if out["off_share"] > STREET_CROP_OFF_MAX or not all(
+            torch.isfinite(v).all() for v in got.values()):
+        raise AssertionError("the card's StreetSurf crop differs from the CPU's")
+    return out
+
+
+def streetsurf_phase(dev, profile_it):
+    """Phase 14: WAYMO_STREETSURF (configs/waymo_streetsurf.yaml at full width
+    on the demo drive: the street's 9 stacked-CP and 3 hash levels of F 4,
+    the 4-D LoTD distant field, the sky with appearance inputs) built
+    through tools.build.build_everything with the 500-step road pretrain
+    and trained through the single-scene Trainer: K3-4D against its plain
+    version at the path's shapes and edges, the first iteration card vs
+    CPU, each step type's launches, 48 iterations, a poisoned step, the
+    iteration median, a validation frame (tools.train.validate) and a crop
+    card vs CPU, K3-4D timed -> its results."""
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.configs import WAYMO_STREETSURF as C
+    from neuralsim_torch.scene.observers import camera_get_all_rays
+    from neuralsim_torch.tools.build import build_everything
+    from neuralsim_torch.tools.train import build_samplers, validate
+
+    cfg = copy.deepcopy(C)
+    cfg["training"]["error_map"] = {**cfg["training"]["error_map"],
+                                    "enable_after": MULTI_ERROR_MAP_AFTER}
+    timings = {}
+    t0 = time.perf_counter()
+    scene, bank, renderer, trainer, state, loader = build_everything(cfg, timings=timings)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    samplers = build_samplers(cfg["training"], loader, int(cfg["seed"]))
+    street = state.params[renderer.pkey("cr")]
+    distant = state.params[renderer.pkey("distant")]
+    enc_s, enc_d = street.encoding, distant.encoding
+    n_distant = renderer.distant_query_cfg.get("num_samples", 64)
+    log(f"streetsurf: built in {build_s:.2f} s ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in timings.items()) + f"); street box "
+        f"{street.space.aabb_min.tolist()}..{street.space.aabb_max.tolist()}, levels "
+        f"{[(s.res, s.typ) for s in enc_s.specs]}, {enc_s.total_params:,} table floats; distant "
+        f"{[(s.res, s.typ, s.size) for s in enc_d.specs]}, {enc_d.total_params:,} floats, "
+        f"{n_distant} samples a ray; appearance inputs {street.appear_embed_dim}, "
+        f"{distant.appear_embed_dim}, {state.params[renderer.pkey('sky')].appear_embed_dim}")
+    if [s.typ for s in enc_s.specs] != ["cp"] * 9 + ["hash"] * 3 or not enc_s.cp_stacked \
+            or enc_s.cp_rmax != 903 or [s.typ for s in enc_d.specs] != ["dense"] + ["hash"] * 9 \
+            or enc_d.specs[0].size != 17 ** 4 or enc_d.specs[1].size != 2 ** 17 \
+            or street.appear_embed_dim != 4 or distant.appear_embed_dim != 4:
+        raise AssertionError("the StreetSurf model is not the YAML's at full width")
+
+    errs, k3_inputs = check_k3_4d(dev, enc_d, STREETSURF_RAYS * n_distant)
+    adapter = SingleStepTrainer(trainer)
+    loss_err, grad_err = check_multi_first_iteration(scene, adapter, state, samplers, dev,
+                                                     path="streetsurf")
+    per_step = step_launches(scene, adapter, state, samplers, dev)
+    for step_type, (l, alpha_calls) in per_step.items():
+        log(f"streetsurf {step_type} step launches {l}; plain alpha chain calls {alpha_calls}")
+    # the pixel step composites the street's buffer with the distant one (K6),
+    # the street's NeuS alpha made before it by the plain chain, as on the
+    # bench model's path (the alpha inside a two-buffer composite is in the
+    # kernel queue); the LiDAR step's street alone takes K12, the alpha inside
+    (lid, lid_alpha), (pix, pix_alpha) = per_step["lidar"], per_step["pixel"]
+    if lid_alpha or pix_alpha != 1 or lid["lotd_grid4"] or lid["lotd_grid4.bwd"] \
+            or lid["volume_composite"] or lid["neus_composite"] != 1 \
+            or pix["lotd_grid4"] != 1 or pix["lotd_grid4.bwd"] != 1 \
+            or pix["volume_composite"] != 1 or pix["neus_composite"]:
+        raise AssertionError("a StreetSurf LiDAR step takes K12 and no K3-4D or plain alpha "
+                             "chain, a pixel step K6 and K3-4D forward and backward once, "
+                             "the street's alpha by the plain chain once")
+    log_, launches, falls = check_streetsurf_training(scene, adapter, state, samplers, dev)
+    check_multi_poisoned_step(scene, adapter, state, samplers, dev, path="streetsurf")
+    it_ms = time_multi_iterations(scene, adapter, state, samplers, dev,
+                                  n_rays=STREETSURF_RAYS, n_beams=STREETSURF_BEAMS)
+    log("streetsurf timing (host clock, ms): " + ", ".join(
+        f"{k} median {v[0]:.2f} (min {v[1]:.2f}, max {v[2]:.2f})" for k, v in it_ms.items()))
+
+    # a validation frame as the tool renders it, the whole frame timed, a crop vs the CPU
+    with no_plain_on_card("streetsurf validation"):
+        psnr = validate(scene, renderer, state.params, loader, COMPOSE_CAM, 0, None, state.it,
+                        downscale=cfg["training"]["val_downscale"], occ=state.occ)
+    if not math.isfinite(psnr):
+        raise AssertionError("the StreetSurf validation frame is not finite")
+    H, W = (int(v) for v in scene.nodes[COMPOSE_CAM].frame_data["hw"][0].tolist())
+    ro, rd = camera_get_all_rays(scene.slice_at(0), COMPOSE_CAM, H, W)
+    frame = lambda: renderer.render_chunked(state.params, ro.contiguous(), rd.contiguous(),
+                                            occ_states=state.occ)
+    kernels.reset_counts()
+    out = frame()
+    torch.cuda.synchronize()
+    frame_launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+    if frame_launches["lotd_grid4"] <= 0 or not torch.isfinite(out["rgb_volume"]).all():
+        raise AssertionError("a StreetSurf frame should launch K3-4D and be finite")
+    frame_ts = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        frame_ts.append((time.perf_counter() - t1) * 1e3)
+    frame_ms = sorted(frame_ts)[2]
+    log(f"streetsurf frames: validation PSNR {psnr:.3f} dB (every "
+        f"{cfg['training']['val_downscale']}th pixel of frame 0), a whole {H}x{W} frame median "
+        f"{frame_ms:.2f} ms (min {min(frame_ts):.2f}, max {max(frame_ts):.2f}), launches "
+        f"{frame_launches}")
+    crop = check_street_crop(adapter, renderer, state, scene, dev)
+    times = time_k3_4d(k3_inputs)
+    if profile_it:
+        profile_multi_steps(scene, adapter, state, samplers, dev)
+    summary = {"streetsurf_build_s": build_s, "streetsurf_build_parts_s": timings,
+               "streetsurf_first_iter_loss_rel_err": loss_err,
+               "streetsurf_first_iter_grad_rel_err": grad_err,
+               "streetsurf_iterations": STREETSURF_ITERS,
+               "streetsurf_iteration_ms": it_ms["iteration"], "streetsurf_lidar_step_ms":
+                   it_ms["lidar"], "streetsurf_pixel_step_ms": it_ms["pixel"],
+               "streetsurf_loss_falls": falls, "streetsurf_val_psnr": psnr,
+               "streetsurf_frame_ms": frame_ms, "streetsurf_frame_hw": [H, W],
+               "streetsurf_crop": crop, "streetsurf_distant_samples": n_distant}
+    return dict(summary=summary, errs=errs, times=times, launches=launches,
+                iters=STREETSURF_ITERS, step_launches={k: v[0] for k, v in per_step.items()},
+                frame_launches=frame_launches)
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6053,7 +6458,7 @@ def main(argv) -> int:
     for name, n in launches_render.items():
         if n <= 0 and not name.endswith(".bwd") and \
                 name not in BENCH_ONLY + COMPOSE_ONLY + CROWD_ONLY + PERLEVEL_ONLY \
-                + PERMUTO_ONLY + LATENT_ONLY:
+                + PERMUTO_ONLY + LATENT_ONLY + STREETSURF_ONLY:
             raise AssertionError(f"kernel {name} never launched on the render path")
     check_frames(frames, rig.H, rig.W)
     crop_err = check_crop(frames, renderer, params, rig, rig.H, rig.W)
@@ -6086,7 +6491,7 @@ def main(argv) -> int:
     log(f"training slice: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays, launches {launches}")
     for name, n in launches.items():
         if n <= 0 and name not in BENCH_ONLY + COMPOSE_ONLY + MULTI_ONLY + CROWD_ONLY \
-                + PERLEVEL_ONLY + PERMUTO_ONLY + LATENT_ONLY:
+                + PERLEVEL_ONLY + PERMUTO_ONLY + LATENT_ONLY + STREETSURF_ONLY:
             raise AssertionError(f"kernel {name} never launched on the training path")
     trainer, state = out["trainer"], out["state"]
     check_poisoned_step(trainer, state, rig, dev)
@@ -6124,9 +6529,13 @@ def main(argv) -> int:
     # 13. checkpoints and the evaluation tools on the stacked waymo_demo_multi path
     ckpt = checkpoint_eval_phase(dev)
     phase_s["checkpoints and evaluation"], t1 = time.perf_counter() - t1, time.perf_counter()
+
+    # 14. StreetSurf's single-street path (K3 in four dimensions), with its timing
+    street = streetsurf_phase(dev, "--profile" in argv)
+    phase_s["streetsurf"], t1 = time.perf_counter() - t1, time.perf_counter()
     log("phases (s, host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
-    # 14. timing
+    # 15. timing
     (frame_ms, frame_min, frame_max), n_rays = time_frames(renderer, params, rig, dev)
     log(f"timing: frame median {frame_ms:.3f} ms (min {frame_min:.3f}, max "
         f"{frame_max:.3f}) for {n_rays} rays, {n_rays / frame_ms * 1e3:.1f} rays/s")
@@ -6155,9 +6564,14 @@ def main(argv) -> int:
         on_crowd = name in CROWD_ONLY
         on_perlevel = name in PERLEVEL_ROWS
         on_permuto = name in PERMUTO_ONLY
+        on_street = name in STREETSURF_ONLY
         on_bench = name not in times and not (on_compose or on_multi or on_crowd or on_perlevel
-                                              or on_permuto)
-        if on_permuto:
+                                              or on_permuto or on_street)
+        if on_street:
+            # K3-4D at the pixel step's distant samples
+            t, n_launch, steps, path = (street["times"][name], street["launches"][name],
+                                        street["iters"], "waymo_streetsurf training")
+        elif on_permuto:
             # K9 at the pixel step's final query (its other shapes under "permuto")
             t, n_launch, steps, path = (permuto["times"][name][0], permuto["launches"][name],
                                         permuto["iters"], "waymo_demo_permuto training")
@@ -6188,21 +6602,21 @@ def main(argv) -> int:
                                         "synthetic_object training")
         found = [e[name] for e in (errs, bench["errs"], compose["errs"], multi["errs"],
                                    crowd["errs"], perlevel["errs"], permuto["errs"],
-                                   ckpt["errs"]) if name in e]
+                                   ckpt["errs"], street["errs"]) if name in e]
         err, tol = max(e for e, _ in found), found[0][1]
         bound_ms, bound_by = t["bound"]
         # K8 runs on no training step: its per-frame count is under "compose"
         row = {"name": name, "route": "cuda", "source": k.source,
                "replaces": k.replaces, "launches": n_launch,
                "launches_per_step": None if on_compose or on_multi or on_crowd or on_perlevel
-               or on_permuto else n_launch / steps,
+               or on_permuto or on_street else n_launch / steps,
                "max_abs_err": err, "max_err": err,
                "tol": tol, "ms": t["ms"], **card_keys(t), "plain_ms": t["plain_ms"],
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": t["library_ms"], **extra_keys(t), "shape": t["shape"],
                "path": path}
         unit = "frame" if on_compose else "iteration" if on_multi or on_crowd or on_perlevel \
-            or on_permuto else "step"
+            or on_permuto or on_street else "step"
         log(f"kernel {name} ({path} path, {n_launch / steps:g} launches per {unit}): "
             f"{t['ms']:.4f} ms ({card_extra(t)[2:]}{', ' if card_keys(t) else ''}plain "
             f"{t['plain_ms']:.4f}, bound {bound_ms:.4f} by {bound_by}) at {t['shape']}")
@@ -6343,12 +6757,22 @@ def main(argv) -> int:
             f"{ckpt['launches']['train'][name] / CKPT_ITERS:g} launches per iteration of the "
             f"driver, {ckpt['launches']['eval_multi'][name] / len(EVAL_FRAMES):g} per evaluated "
             f"frame, {ckpt['launches']['eval_lidar'][name] / len(EVAL_FRAMES):g} per LiDAR frame)")
+        row["streetsurf"] = {
+            "launches": street["launches"][name],
+            "launches_per_iteration": street["launches"][name] / street["iters"],
+            "launches_per_lidar_step": street["step_launches"]["lidar"][name],
+            "launches_per_pixel_step": street["step_launches"]["pixel"][name],
+            "frame_launches": street["frame_launches"][name]}
+        q = row["streetsurf"]
+        log(f"kernel {name} (streetsurf path: {q['launches_per_lidar_step']} launches per LiDAR "
+            f"step, {q['launches_per_pixel_step']} per pixel step, {q['frame_launches']} per "
+            f"frame)")
         rows.append(row)
     if "--profile" in argv:
         profile_frame(renderer, params, rig, dev)
         profile_step(trainer, state, rig, dev)
 
-    # 14. results
+    # 16. results
     log(json.dumps({"frame_ms": frame_ms, "frame_ms_min": frame_min,
                     "frame_ms_max": frame_max, "rays_per_s": n_rays / frame_ms * 1e3,
                     "crop_max_abs_err": crop_err,
@@ -6360,7 +6784,7 @@ def main(argv) -> int:
                     "first_step_grad_rel_err": step_grad_err, **bench["summary"],
                     **compose["summary"], **multi["summary"], **crowd["summary"],
                     **synth["summary"], **perlevel["summary"], **permuto["summary"],
-                    **ckpt["summary"], "card": smi}))
+                    **ckpt["summary"], **street["summary"], "card": smi}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ The JAX package keeps parameters as nested dicts and lists; the port keeps
 them in modules whose parameter names follow the same paths (``layers.0.W``
 for ``{"layers": [{"W": ...}]}``), with the JAX layouts, so every leaf copies
 over untransposed. That holds for every field of the port: the NeuS field
-(table, decoder, radiance, ``ln_inv_s``), the distant field (decoder,
-radiance) and the sky. An occupancy grid's state is two arrays, ``val`` and
+(table, decoder, radiance with its appearance input, ``ln_inv_s``), the
+distant field (decoder, radiance, and the 4-D LoTD's ``encoding.table``), the
+sky and the appearance tables of ``ImageEmbeddings`` (``<camera>.weight``). An
+occupancy grid's state is two arrays, ``val`` and
 ``mask`` ([R, R, R], or [G, R, R, R] for per-instance and per-keyframe grids).
 """
 from __future__ import annotations

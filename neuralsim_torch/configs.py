@@ -1,4 +1,5 @@
-"""Config dicts for the port, so it runs where PyYAML is missing.
+"""Config dicts for the port, so it runs where PyYAML is missing (the YAML
+files themselves go through ``neuralsim_torch.config``).
 
 ``SYNTHETIC_OBJECT`` mirrors configs/synthetic_object.yaml (dataset, asset
 bank, renderer and training keys): NeuS object reconstruction on the
@@ -45,6 +46,18 @@ level, over concat(xyz01, sigmoid(z)) with z_dim 8, so d = 11 (kernel K9).
 No YAML of the repo sets this class, so the tests build the JAX package from
 this dict too.
 
+``WAYMO_STREETSURF`` mirrors configs/waymo_streetsurf.yaml value by value
+outside ``dataset_cfg``: StreetSurf's single street (the street's LoTD NeuS
+of 9 stacked-CP and 3 hash levels of F 4 in the box of the camera tracks
+widened by 60 m, its 128^3 grid and road pretrain; the 4-D LoTD distant
+field; the sky; appearance inputs of 4 on all three) trained on camera rays
+and LiDAR beams by the single-scene tool (``tools.train.main_function``).
+Its one ``${eval:...}`` entry, the street's inv_s anneal start, stands
+resolved at ``num_iters`` 15,000 (:func:`at_num_iters` sets it for another
+length); ``${training.num_iters}`` references stay as written. Its dataset
+is the in-memory demo drive (``dataio/waymo_demo.demo_sequence``) in place of
+the YAML's preprocessed Waymo sequence, which the repository does not hold.
+
 ``SYNTHETIC_MULTI`` mirrors configs/synthetic_multi.yaml value by value: two
 spheres on one shared conditional LoTD model over a ground plane (the street's
 LoTD NeuS with 2 hash levels, no grid, no distant field) and a sky, on the
@@ -56,8 +69,10 @@ from __future__ import annotations
 
 import copy
 import math
-import re
 from typing import Any, Dict
+
+from .config import load_config as _load_config
+from .config import resolve_interpolations
 
 SYNTHETIC_OBJECT: Dict[str, Any] = {
     "seed": 42,
@@ -317,42 +332,109 @@ SYNTHETIC_MULTI: Dict[str, Any] = {
     },
 }
 
+WAYMO_STREETSURF: Dict[str, Any] = {
+    "exp_dir": "logs/waymo_streetsurf",
+    "seed": 42,
+    "dataset_cfg": {
+        "target": "neuralsim_torch.dataio.waymo_demo.demo_sequence",
+        "params": {"n_frames": 8, "H": 80, "W": 120, "n_vehicles": 3, "seed": 0},
+    },
+    "assetbank_cfg": {
+        "Street": {
+            "model_class": "neuralsim_tpu.models.assets.LoTDNeuSStreet",
+            "model_params": {
+                "extend_size": 60.0,
+                "encoding_cfg": {"type": "tpu_mixed", "n_levels": 12, "base_res": 16,
+                                 "max_res": 4096, "n_feats": 4, "n_hash_levels": 3,
+                                 "log2_hashmap_size": 19, "cp_max_res": 1024},
+                "geo_feat_dim": 15,
+                "radiance_hidden": 64,
+                "appear_embed_dim": 4,
+                "inv_s_init": 10.0,
+                "inv_s_final": 100.0,
+                "inv_s_anneal_start_it": 3000,        # num_iters // 5
+                "inv_s_anneal_stop_it": 15000,        # num_iters
+                "cos_anneal_stop_it": 1000,
+                "pretrain": {"type": "road_surface", "up_axis": 2, "n_iters": 500},
+                "accel_cfg": {"resolution": 128, "occ_thre": 0.3, "ema_decay": 0.95,
+                              "inv_s": 10.0, "n_steps_between_update": 16,
+                              "samples_per_voxel": 4},
+                "query_cfg": {"num_coarse": 32, "num_fine": [8, 8], "upsample_inv_s": 64.0,
+                              "upsample_inv_s_factors": [1.0, 4.0]},
+            },
+            "asset_params": {
+                "training_cfg": {"lr": 0.01, "eps": 1.0e-15, "betas": [0.9, 0.99],
+                                 "type": "exponential",
+                                 "total_steps": "${training.num_iters}",
+                                 "decay_target_factor": 0.1},
+            },
+        },
+        "Distant": {
+            "model_class": "neuralsim_tpu.models.assets.LoTDNeRFDistant",
+            "model_params": {
+                "geometry": "lotd",
+                "encoding_cfg": {"n_levels": 10, "base_res": 16, "max_res": 1024,
+                                 "log2_hashmap_size": 17},
+                "appear_embed_dim": 4,
+                "query_cfg": {"num_samples": 32},
+            },
+            "asset_params": {"training_cfg": {"lr": 0.005}},
+        },
+        "Sky": {
+            "model_class": "neuralsim_tpu.models.assets.SimpleSkyAsset",
+            "model_params": {"hidden": 64, "appear_embed_dim": 4},
+            "asset_params": {"training_cfg": {"lr": 0.003}},
+        },
+    },
+    "renderer": {"cr_class": "Street", "distant_class": "Distant", "sky_class": "Sky"},
+    "training": {
+        "num_iters": 15000,
+        "n_rays": 8192,
+        "n_rays_lidar": 8192,
+        "with_mask": True,
+        "with_lidar": True,
+        "uniform_sample_n": 2048,
+        "i_log": 100,
+        "i_val": 1500,
+        "i_backup": 5000,
+        "val_downscale": 4,
+        "error_map": {"hw": [32, 64], "frac_uniform": 0.5, "enable_after": 500},
+        "losses": {
+            "rgb": {"fn_type": "huber", "fn_param": {"delta": 0.1}, "w": 10.0},
+            "occupancy_mask": {"w": 0.3},
+            "mask_entropy": {"w": 0.005, "mode": "crisp_cr", "enable_after": 1000},
+            "eikonal": {"w": 0.01, "on_render_ratio": 0.3},
+            "sparsity": {"w": 0.002, "enable_after": 500},
+            "clearance": {"w": 0.1, "thresh": 0.001, "beta": 10.0},
+            "lidar": {"w": 1.0, "discard_toofar": 120.0, "discard_outliers_median": 100.0,
+                      "depth": {"fn_type": "l1_log", "w": 0.1},
+                      "line_of_sight": {"fn_type": "neus_unisim", "w": 0.01,
+                                        "epsilon": {"type": "milestones",
+                                                    "milestones": [3000, 8000],
+                                                    "vals": [2.0, 1.0, 0.5]}}},
+        },
+    },
+}
+
 # the top-level keys of the YAML file that SYNTHETIC_OBJECT mirrors
 MIRRORED_KEYS = ("seed", "dataset_cfg", "assetbank_cfg", "renderer", "training")
 
-_REF = re.compile(r"^\$\{([\w.]+)\}$")
-
-
 def resolve_refs(cfg: Dict[str, Any]) -> Dict[str, Any]:
-    """A deep copy of ``cfg`` in which every string value ``${a.b.c}`` is
-    replaced by the value at that dotted path of ``cfg``."""
-    root = copy.deepcopy(cfg)
-
-    def lookup(path: str) -> Any:
-        node: Any = root
-        for key in path.split("."):
-            node = node[key]
-        return node
-
-    def walk(node: Any) -> Any:
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [walk(v) for v in node]
-        m = _REF.match(node) if isinstance(node, str) else None
-        return walk(lookup(m.group(1))) if m else node
-
-    return walk(root)
+    """A deep copy of ``cfg`` with every ``${a.b.c}`` and ``${eval:...}``
+    resolved (``config.resolve_interpolations``), as plain dicts."""
+    return resolve_interpolations(copy.deepcopy(cfg)).to_plain()
 
 
 def at_num_iters(cfg: Dict[str, Any], num_iters: int) -> Dict[str, Any]:
-    """A copy of a multi-object config (``WAYMO_DEMO_MULTI`` and its
-    variants) whose schedule spans ``num_iters`` iterations: the entries that
-    configs/waymo_demo_multi.yaml writes as ``${eval:...}`` of
-    ``training.num_iters`` take the values those expressions give: a NeuS
-    asset's inv_s anneal from n // 5 to n, the sparsity loss from n // 10
-    (ramped up to n // 2) and the line-of-sight epsilon's milestones n // 3
-    and 2 n // 3."""
+    """A copy of a config of the demo drive (``WAYMO_DEMO_MULTI`` and its
+    variants, ``WAYMO_STREETSURF``) whose schedule spans ``num_iters``
+    iterations: the entries that its YAML writes as ``${eval:...}`` of
+    ``training.num_iters`` take the values those expressions give. Both YAML
+    files anneal a NeuS asset's inv_s from n // 5 to n;
+    configs/waymo_demo_multi.yaml also starts its sparsity ramp (the loss
+    with an ``anneal``) at n // 10, ramped up to n // 2, and puts the
+    line-of-sight epsilon's milestones at n // 3 and 2 n // 3, where
+    configs/waymo_streetsurf.yaml writes those as numbers."""
     n = int(num_iters)
     out = copy.deepcopy(cfg)
     out["training"]["num_iters"] = n
@@ -361,17 +443,16 @@ def at_num_iters(cfg: Dict[str, Any], num_iters: int) -> Dict[str, Any]:
         if "inv_s_anneal_stop_it" in mp:
             mp.update(inv_s_anneal_start_it=n // 5, inv_s_anneal_stop_it=n)
     losses = out["training"].get("losses", {})
-    if "enable_after" in losses.get("sparsity", {}):
+    if "anneal" in losses.get("sparsity", {}):
         losses["sparsity"]["enable_after"] = n // 10
         losses["sparsity"]["anneal"].update(start_it=n // 10, stop_it=n // 2)
-    eps = losses.get("lidar", {}).get("line_of_sight", {}).get("epsilon")
-    if isinstance(eps, dict) and eps.get("type") == "milestones":
-        eps["milestones"] = [n // 3, 2 * n // 3]
+        eps = losses.get("lidar", {}).get("line_of_sight", {}).get("epsilon")
+        if isinstance(eps, dict) and eps.get("type") == "milestones":
+            eps["milestones"] = [n // 3, 2 * n // 3]
     return out
 
 
 def load_config(path: str) -> Dict[str, Any]:
-    """Read a YAML config (PyYAML is imported only here)."""
-    import yaml
-    with open(path) as f:
-        return yaml.safe_load(f)
+    """Read a config file as written, its interpolations unresolved
+    (``config.load_config``; PyYAML is imported only for a ``.yaml`` file)."""
+    return _load_config(path, resolve=False).to_plain()

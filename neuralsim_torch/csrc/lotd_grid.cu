@@ -1,6 +1,8 @@
 // K3 lotd_grid: the dense and hash (Instant-NGP) levels of the LoTD encoding,
-// 8-corner trilinear gather with the optional analytic jacobian, all gather
-// levels in one launch.
+// the 2^D-corner multilinear gather in D = 3 (8 corners, with the optional
+// analytic jacobian: the NeuS fields) or D = 4 (16 corners, no jacobian: the
+// 4-D distant field's (unit shell, 1 / rho) input), all gather levels in one
+// launch. D is a template parameter of every kernel here.
 //
 // Replaces: neuralsim_tpu/fields/encodings/lotd.py
 //   LoTDEncoding._level_features + _corner_rows_weight (lines 219-248,
@@ -8,15 +10,17 @@
 //
 // Per level (res, size rows, table offset, F features, dense|hash, out row):
 //   pos = x01 * res, cell = min(floor(pos), res-1), frac = pos - cell
-//   corner c (bit i = axis i): w = prod_i (bit ? frac_i : 1-frac_i)
+//   corner c (bit i = axis i): w = prod_i (bit ? frac_i : 1-frac_i)  (in axis order)
 //   row = dense: sum_i (cell_i+bit_i) (res+1)^i
 //         hash:  xor_i ((cell_i+bit_i) * prime_i) in uint32, mod size
-//   feats[f] = sum_c w * table[offset + f*size + row]   (corners 0..7 in order)
-//   jac[i][f] = res * sum_c (+-1) * prod_{j != i} w_j * table[...]
+//                (primes 1, 2654435761, 805459861, 3674653429)
+//   feats[f] = sum_c w * table[offset + f*size + row]   (corners 0..2^D-1 in order)
+//   jac[i][f] = res * sum_c (+-1) * prod_{j != i} w_j * table[...]   (D = 3)
 // The table keeps the JAX layout: each level's segment viewed as [F, size].
 // Rows are clamped into the level (gather_cols' mode="clip"). Feature f of a
 // level goes to row (out row + f) of the encoding's feature-major output
-// out [C, N] (and jac [3, C, N]), which the stacked-CP kernel fills too.
+// out [C, N] (and jac [3, C, N]), which the stacked-CP kernel fills too;
+// the points are pos01 [N, D].
 //
 // What bounds it on an H100: the writes (4 bytes a feature, 16 with the
 // jacobian: 8.2 us for the vehicles' 196,608 points with it) and, on hash
@@ -41,8 +45,12 @@
 //  * F 1, 2 (4 and 8 in the wide kernel) and the jacobian are template
 //    parameters; a launch of F <= 2 only takes the narrow kernel, whose 64
 //    registers hold 4 blocks a SM, for the latency of the hash gathers
-//    (FwdShape); the sums are the parent kernel's, operation by operation
+//    (FwdShape; at D = 4, 16 corners' loads in flight, 128 registers and 2
+//    blocks a SM); the sums are the parent kernel's, operation by operation
 //    (corner order, _rn), so the outputs keep its bits.
+//  * D = 4 (the distant field: a dense level of 17^4 rows, 668 KB at F 2, and
+//    hash levels of 2^17 rows, 1 MB each) stages nothing in 96 KB: every level
+//    goes through the interleaved scratch.
 // Sums use explicit _rn operations so no FMA changes the JAX rounding.
 //
 // Backward (lotd_grid_bwd), the gradient of both outputs into the table: the
@@ -70,6 +78,10 @@
 //    table: no device atomic on a private level, and a sum over blocks that is
 //    the same from run to run (within a block the shared float atomics still
 //    vary the last bits). The other levels take device atomics.
+//  * at D = 4 a point's 16 corners are summed the same way, corner by corner
+//    (runs of equal rows by shuffles, then one atomic a run); no level of the
+//    distant field fits the private budget, so the plan sends every level to
+//    the device atomics, and no d_jac is read.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -77,9 +89,8 @@
 
 namespace {
 
-constexpr int D = 3;
 constexpr int META = 6;  // res, size, offset, F, is_hash, out row
-__constant__ uint32_t kPrimes[D] = {1u, 2654435761u, 805459861u};
+__constant__ uint32_t kPrimes[4] = {1u, 2654435761u, 805459861u, 3674653429u};
 
 // A launch whose levels all have F <= 2 takes the narrow kernel: a corner's
 // features 2 at a time (kGroup), blocks of 256 threads with registers for 4
@@ -87,11 +98,13 @@ __constant__ uint32_t kPrimes[D] = {1u, 2654435761u, 805459861u};
 // levels are staged; any other launch the wide kernel: 4 at a time, blocks
 // of 512 with up to 128 registers, 1 a SM where levels are staged (each
 // block stages them all). Where nothing is staged, up to 2,048 threads a SM.
-template <bool WIDE, bool JAC>
+// At D = 4 the narrow kernel keeps 16 corners' loads in flight: registers for
+// 2 blocks a SM.
+template <int D, bool WIDE, bool JAC>
 struct FwdShape {
   static constexpr int kGroup = WIDE ? 4 : 2;
   static constexpr int kThreads = WIDE ? 512 : 256;
-  static constexpr int kMinBlocks = WIDE ? 1 : (JAC ? 3 : 4);
+  static constexpr int kMinBlocks = WIDE ? 1 : (D == 4 ? 2 : (JAC ? 3 : 4));
   static constexpr int kStagedBlocks = WIDE ? 1 : 2;
 };
 
@@ -139,14 +152,16 @@ __global__ void grid_interleave_kernel(const float* __restrict__ table,
   }
 }
 
-// A point's cell, fractions and its 8 corners' rows on one level.
+// A point's cell, fractions and its 2^D corners' rows on one level.
+template <int D>
 struct Cell {
   int cell[D];
   float frac[D], om[D];  // om = 1 - frac, rounded as the parent kernel rounds it
 };
 
-__device__ __forceinline__ Cell cell_of(const float (&x)[D], int res) {
-  Cell c;
+template <int D>
+__device__ __forceinline__ Cell<D> cell_of(const float (&x)[D], int res) {
+  Cell<D> c;
   const float fres = (float)res;
 #pragma unroll
   for (int ax = 0; ax < D; ++ax) {
@@ -159,30 +174,46 @@ __device__ __forceinline__ Cell cell_of(const float (&x)[D], int res) {
   return c;
 }
 
-__device__ __forceinline__ int corner_row(const Cell& c, int corner, int res, int size,
-                                          int is_hash) {
-  int ci[D];
-#pragma unroll
-  for (int ax = 0; ax < D; ++ax) ci[ax] = c.cell[ax] + ((corner >> ax) & 1);
+// Corner c's row from the cell ci[i] + bit i (the dense stride (res+1)^i,
+// or the hash), clamped into the level.
+template <int D>
+__device__ __forceinline__ int row_of(const int (&ci)[D], int res, int size, int is_hash) {
   int row;
   if (is_hash) {
     uint32_t h = (uint32_t)ci[0] * kPrimes[0];
-    h ^= (uint32_t)ci[1] * kPrimes[1];
-    h ^= (uint32_t)ci[2] * kPrimes[2];
+#pragma unroll
+    for (int ax = 1; ax < D; ++ax) h ^= (uint32_t)ci[ax] * kPrimes[ax];
     row = (int)(h % (uint32_t)size);
   } else {
-    row = ci[0] + ci[1] * (res + 1) + ci[2] * (res + 1) * (res + 1);
+    row = ci[0];
+    int stride = res + 1;
+#pragma unroll
+    for (int ax = 1; ax < D; ++ax, stride *= res + 1) row += ci[ax] * stride;
   }
   return min(max(row, 0), size - 1);
 }
 
-// A corner's weight and its three derivative factors, as the parent forms them.
-__device__ __forceinline__ void corner_weights(const Cell& c, int corner, float& w,
+template <int D>
+__device__ __forceinline__ int corner_row(const Cell<D>& c, int corner, int res, int size,
+                                          int is_hash) {
+  int ci[D];
+#pragma unroll
+  for (int ax = 0; ax < D; ++ax) ci[ax] = c.cell[ax] + ((corner >> ax) & 1);
+  return row_of<D>(ci, res, size, is_hash);
+}
+
+// A corner's weight (the axis factors multiplied in axis order) and, with
+// the jacobian, its D derivative factors, as the parent forms them.
+template <int D, bool JAC>
+__device__ __forceinline__ void corner_weights(const Cell<D>& c, int corner, float& w,
                                                float (&dw)[D]) {
   float aw[D];
 #pragma unroll
   for (int ax = 0; ax < D; ++ax) aw[ax] = ((corner >> ax) & 1) ? c.frac[ax] : c.om[ax];
-  w = __fmul_rn(__fmul_rn(aw[0], aw[1]), aw[2]);
+  w = aw[0];
+#pragma unroll
+  for (int ax = 1; ax < D; ++ax) w = __fmul_rn(w, aw[ax]);
+  if constexpr (!JAC) return;
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     float v = ((corner >> i) & 1) ? 1.f : -1.f;
@@ -207,7 +238,7 @@ __device__ __forceinline__ void load_corner(float (&v)[G], const float* p) {
 }
 
 // The output rows of features f0 .. f0 + G - 1 of a level at column col.
-template <int G, bool JAC>
+template <int D, int G, bool JAC>
 __device__ __forceinline__ void store(const float (&acc)[G], const float (&j)[D][G], float fres,
                                       float* out, float* jac, size_t o, size_t N,
                                       size_t plane) {
@@ -223,12 +254,13 @@ __device__ __forceinline__ void store(const float (&acc)[G], const float (&j)[D]
 
 // One level of F features (1, 2, 4 or 8; in groups of G <= GMAX) over the
 // grid's points, read from a [size, F] copy at src (shared or global).
-template <int F, int GMAX, bool JAC>
+template <int D, int F, int GMAX, bool JAC>
 __device__ __forceinline__ void walk_level(const float* src, const float* __restrict__ pos01,
                                            int res, int size, int is_hash, int col,
                                            float* __restrict__ out, float* __restrict__ jac,
                                            int N, int C) {
   constexpr int G = F > GMAX ? GMAX : F;
+  constexpr int K = 1 << D;  // corners
   const size_t plane = (size_t)C * N;
   const float fres = (float)res;
   for (int n = blockIdx.x * blockDim.x + threadIdx.x; n < N; n += gridDim.x * blockDim.x) {
@@ -236,24 +268,28 @@ __device__ __forceinline__ void walk_level(const float* src, const float* __rest
 #pragma unroll
     for (int ax = 0; ax < D; ++ax)
       x[ax] = fminf(fmaxf(__ldg(pos01 + (size_t)n * D + ax), 0.f), 1.f);
-    const Cell c = cell_of(x, res);
-    int rows[8];
+    const Cell<D> c = cell_of<D>(x, res);
+    int rows[K];
 #pragma unroll
-    for (int corner = 0; corner < 8; ++corner)
-      rows[corner] = corner_row(c, corner, res, size, is_hash);
+    for (int corner = 0; corner < K; ++corner)
+      rows[corner] = corner_row<D>(c, corner, res, size, is_hash);
 #pragma unroll
     for (int g = 0; g < F; g += G) {
-      float v[8][G];
+      float v[K][G];
 #pragma unroll
-      for (int corner = 0; corner < 8; ++corner)  // every load first
+      for (int corner = 0; corner < K; ++corner)  // every load first
         load_corner<G>(v[corner], src + (size_t)rows[corner] * F + g);
       float acc[G], j[D][G];
 #pragma unroll
-      for (int f = 0; f < G; ++f) acc[f] = j[0][f] = j[1][f] = j[2][f] = 0.f;
+      for (int f = 0; f < G; ++f) {
+        acc[f] = 0.f;
 #pragma unroll
-      for (int corner = 0; corner < 8; ++corner) {
+        for (int i = 0; i < D; ++i) j[i][f] = 0.f;
+      }
+#pragma unroll
+      for (int corner = 0; corner < K; ++corner) {
         float w, dw[D];
-        corner_weights(c, corner, w, dw);
+        corner_weights<D, JAC>(c, corner, w, dw);
 #pragma unroll
         for (int f = 0; f < G; ++f) {
           acc[f] = __fadd_rn(acc[f], __fmul_rn(w, v[corner][f]));
@@ -263,14 +299,14 @@ __device__ __forceinline__ void walk_level(const float* src, const float* __rest
           }
         }
       }
-      store<G, JAC>(acc, j, fres, out, jac, (size_t)(col + g) * N + n, N, plane);
+      store<D, G, JAC>(acc, j, fres, out, jac, (size_t)(col + g) * N + n, N, plane);
     }
   }
 }
 
 // Any F, a float at a time: feature f of row r at src[r * rs + f * fs] (a
 // [size, F] copy: rs F, fs 1; the table's own [F, size]: rs 1, fs size).
-template <bool JAC>
+template <int D, bool JAC>
 __device__ __forceinline__ void walk_level_any(const float* src, size_t rs, size_t fs,
                                                const float* __restrict__ pos01, int res,
                                                int size, int nf, int is_hash, int col,
@@ -283,59 +319,64 @@ __device__ __forceinline__ void walk_level_any(const float* src, size_t rs, size
 #pragma unroll
     for (int ax = 0; ax < D; ++ax)
       x[ax] = fminf(fmaxf(__ldg(pos01 + (size_t)n * D + ax), 0.f), 1.f);
-    const Cell c = cell_of(x, res);
-    int rows[8];
+    constexpr int K = 1 << D;
+    const Cell<D> c = cell_of<D>(x, res);
+    int rows[K];
 #pragma unroll
-    for (int corner = 0; corner < 8; ++corner)
-      rows[corner] = corner_row(c, corner, res, size, is_hash);
+    for (int corner = 0; corner < K; ++corner)
+      rows[corner] = corner_row<D>(c, corner, res, size, is_hash);
     for (int f = 0; f < nf; ++f) {
-      float v[8];
+      float v[K];
 #pragma unroll
-      for (int corner = 0; corner < 8; ++corner) v[corner] = src[rows[corner] * rs + f * fs];
-      float acc[1] = {0.f}, j[D][1] = {{0.f}, {0.f}, {0.f}};
+      for (int corner = 0; corner < K; ++corner) v[corner] = src[rows[corner] * rs + f * fs];
+      float acc[1] = {0.f}, j[D][1];
 #pragma unroll
-      for (int corner = 0; corner < 8; ++corner) {
+      for (int i = 0; i < D; ++i) j[i][0] = 0.f;
+#pragma unroll
+      for (int corner = 0; corner < K; ++corner) {
         float w, dw[D];
-        corner_weights(c, corner, w, dw);
+        corner_weights<D, JAC>(c, corner, w, dw);
         acc[0] = __fadd_rn(acc[0], __fmul_rn(w, v[corner]));
         if constexpr (JAC) {
 #pragma unroll
           for (int i = 0; i < D; ++i) j[i][0] = __fadd_rn(j[i][0], __fmul_rn(dw[i], v[corner]));
         }
       }
-      store<1, JAC>(acc, j, fres, out, jac, (size_t)(col + f) * N + n, N, plane);
+      store<D, 1, JAC>(acc, j, fres, out, jac, (size_t)(col + f) * N + n, N, plane);
     }
   }
 }
 
 // A level's [size, F] copy: F 1 and 2 (and, in the wide kernel, 4 and 8)
 // templated, any other F a float at a time.
-template <bool JAC, bool WIDE>
+template <int D, bool JAC, bool WIDE>
 __device__ __forceinline__ void walk_copy(const float* src, const float* __restrict__ pos01,
                                           int res, int size, int nf, int is_hash, int col,
                                           float* __restrict__ out, float* __restrict__ jac,
                                           int N, int C) {
-  constexpr int GM = FwdShape<WIDE, JAC>::kGroup;
-  if (nf == 1) return walk_level<1, GM, JAC>(src, pos01, res, size, is_hash, col, out, jac, N, C);
-  if (nf == 2) return walk_level<2, GM, JAC>(src, pos01, res, size, is_hash, col, out, jac, N, C);
+  constexpr int GM = FwdShape<D, WIDE, JAC>::kGroup;
+  if (nf == 1)
+    return walk_level<D, 1, GM, JAC>(src, pos01, res, size, is_hash, col, out, jac, N, C);
+  if (nf == 2)
+    return walk_level<D, 2, GM, JAC>(src, pos01, res, size, is_hash, col, out, jac, N, C);
   if constexpr (WIDE) {
     if (nf == 4)
-      return walk_level<4, GM, JAC>(src, pos01, res, size, is_hash, col, out, jac, N, C);
+      return walk_level<D, 4, GM, JAC>(src, pos01, res, size, is_hash, col, out, jac, N, C);
     if (nf == 8)
-      return walk_level<8, GM, JAC>(src, pos01, res, size, is_hash, col, out, jac, N, C);
+      return walk_level<D, 8, GM, JAC>(src, pos01, res, size, is_hash, col, out, jac, N, C);
   }
-  walk_level_any<JAC>(src, nf, 1, pos01, res, size, nf, is_hash, col, out, jac, N, C);
+  walk_level_any<D, JAC>(src, nf, 1, pos01, res, size, nf, is_hash, col, out, jac, N, C);
 }
 
-template <bool JAC, bool WIDE>
-__global__ void __launch_bounds__(FwdShape<WIDE, JAC>::kThreads,
-                                  FwdShape<WIDE, JAC>::kMinBlocks)
+template <int D, bool JAC, bool WIDE>
+__global__ void __launch_bounds__(FwdShape<D, WIDE, JAC>::kThreads,
+                                  FwdShape<D, WIDE, JAC>::kMinBlocks)
 grid_kernel(const float* __restrict__ table,
-            const float* __restrict__ pos01,  // [N, 3]
+            const float* __restrict__ pos01,  // [N, D]
             const int* __restrict__ meta,     // [L, 6]
             const float* __restrict__ inter,  // the interleaved levels, or null
             float* __restrict__ out,          // [C, N]
-            float* __restrict__ jac,          // [3, C, N] or null
+            float* __restrict__ jac,          // [3, C, N] or null (D = 3 only)
             int N, int C, int L, unsigned stage_mask, int n_shared, int n_inter) {
   extern __shared__ float4 staged4[];
   float* staged = reinterpret_cast<float*>(staged4);
@@ -361,12 +402,12 @@ grid_kernel(const float* __restrict__ table,
     int off;
     const int where = place.next(stage_mask, l, nf * size, n_shared, n_inter, &off);
     if (where == 1)
-      walk_copy<JAC, WIDE>(staged + off, pos01, res, size, nf, is_hash, col, out, jac, N, C);
+      walk_copy<D, JAC, WIDE>(staged + off, pos01, res, size, nf, is_hash, col, out, jac, N, C);
     else if (where == 2)
-      walk_copy<JAC, WIDE>(inter + off, pos01, res, size, nf, is_hash, col, out, jac, N, C);
+      walk_copy<D, JAC, WIDE>(inter + off, pos01, res, size, nf, is_hash, col, out, jac, N, C);
     else
-      walk_level_any<JAC>(table + offset, 1, size, pos01, res, size, nf, is_hash, col, out,
-                          jac, N, C);
+      walk_level_any<D, JAC>(table + offset, 1, size, pos01, res, size, nf, is_hash, col, out,
+                             jac, N, C);
   }
 }
 
@@ -382,19 +423,19 @@ struct GridArgs {
   int n_shared, n_inter;
 };
 
-template <bool JAC, bool WIDE>
+template <int D, bool JAC, bool WIDE>
 cudaError_t launch_grid(const GridArgs& a, size_t smem, int sms, cudaStream_t stream) {
-  using Sh = FwdShape<WIDE, JAC>;
+  using Sh = FwdShape<D, WIDE, JAC>;
   const int cap = sms * (smem > 0 ? Sh::kStagedBlocks : 2048 / Sh::kThreads);
   int blocks = (a.N + Sh::kThreads - 1) / Sh::kThreads;
   blocks = blocks < 1 ? 1 : (blocks > cap ? cap : blocks);
   cudaError_t e;
   if (smem > 48 * 1024 &&
-      (e = cudaFuncSetAttribute(grid_kernel<JAC, WIDE>,
+      (e = cudaFuncSetAttribute(grid_kernel<D, JAC, WIDE>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
           cudaSuccess)
     return e;
-  grid_kernel<JAC, WIDE><<<blocks, Sh::kThreads, smem, stream>>>(
+  grid_kernel<D, JAC, WIDE><<<blocks, Sh::kThreads, smem, stream>>>(
       a.table, a.pos01, a.meta, a.inter, a.out, a.jac, a.N, a.C, a.L, a.stage_mask, a.n_shared,
       a.n_inter);
   return cudaGetLastError();
@@ -410,14 +451,18 @@ __device__ __forceinline__ bool is_private(unsigned mask, int l, int soff, int s
   return l < 31 && ((mask >> l) & 1u) && soff + seg <= n_private;
 }
 
+// JAC: the jacobian's cotangent may be given (D = 3); without it (D = 4) a
+// corner's value is its weight times d_out alone.
+template <int D, bool JAC>
 __global__ void __launch_bounds__(kBwdPrivateThreads)
-grid_bwd_kernel(const float* __restrict__ pos01,  // [N, 3]
+grid_bwd_kernel(const float* __restrict__ pos01,  // [N, D]
                 const int* __restrict__ meta,     // [L, 6]
                 const float* __restrict__ d_out,  // [C, N] or null
-                const float* __restrict__ d_jac,  // [3, C, N] or null
+                const float* __restrict__ d_jac,  // [D, C, N] or null (JAC only)
                 float* __restrict__ d_table,      // flat, zeroed
                 float* __restrict__ scratch,      // [gridDim.x, n_private] or null
                 int N, int C, int L, unsigned private_mask, int n_private) {
+  constexpr int K = 1 << D;  // corners
   extern __shared__ float priv[];  // this block's copy of the private levels
   for (int i = threadIdx.x; i < n_private; i += blockDim.x) priv[i] = 0.f;
   __syncthreads();
@@ -455,18 +500,20 @@ grid_bwd_kernel(const float* __restrict__ pos01,  // [N, 3]
       }
       float* seg = in_shared ? priv + soff : d_table + offset;
       for (int f0 = 0; f0 < nf; f0 += 4) {  // features in groups of four
-        float go[4], g0[4], g1[4], g2[4];
+        float go[4], gj[JAC ? D : 1][4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const bool has = valid && f0 + k < nf;
           const size_t o = (size_t)(col + f0 + k) * N + n;
           go[k] = has && d_out != nullptr ? d_out[o] : 0.f;
-          g0[k] = has && d_jac != nullptr ? d_jac[o] : 0.f;
-          g1[k] = has && d_jac != nullptr ? d_jac[plane + o] : 0.f;
-          g2[k] = has && d_jac != nullptr ? d_jac[2 * plane + o] : 0.f;
+          if constexpr (JAC) {
+#pragma unroll
+            for (int i = 0; i < D; ++i)
+              gj[i][k] = has && d_jac != nullptr ? d_jac[i * plane + o] : 0.f;
+          }
         }
 #pragma unroll
-        for (int corner = 0; corner < 8; ++corner) {
+        for (int corner = 0; corner < K; ++corner) {
           float aw[D];
           int ci[D];
 #pragma unroll
@@ -475,30 +522,24 @@ grid_bwd_kernel(const float* __restrict__ pos01,  // [N, 3]
             aw[ax] = b ? frac[ax] : 1.f - frac[ax];
             ci[ax] = cell[ax] + b;
           }
-          const float w = aw[0] * aw[1] * aw[2];
-          float dw[D];
+          float w = aw[0];
 #pragma unroll
-          for (int i = 0; i < D; ++i) {
-            float t = ((corner >> i) & 1) ? fres : -fres;
-#pragma unroll
-            for (int j = 0; j < D; ++j)
-              if (j != i) t *= aw[j];
-            dw[i] = t;
-          }
-          int row;
-          if (is_hash) {
-            uint32_t h = (uint32_t)ci[0] * kPrimes[0];
-            h ^= (uint32_t)ci[1] * kPrimes[1];
-            h ^= (uint32_t)ci[2] * kPrimes[2];
-            row = (int)(h % (uint32_t)size);
-          } else {
-            row = ci[0] + ci[1] * (res + 1) + ci[2] * (res + 1) * (res + 1);
-          }
-          row = min(max(row, 0), size - 1);
+          for (int ax = 1; ax < D; ++ax) w *= aw[ax];
+          const int row = row_of<D>(ci, res, size, is_hash);
           float v[4];
 #pragma unroll
-          for (int k = 0; k < 4; ++k)
-            v[k] = w * go[k] + dw[0] * g0[k] + dw[1] * g1[k] + dw[2] * g2[k];
+          for (int k = 0; k < 4; ++k) v[k] = w * go[k];
+          if constexpr (JAC) {
+#pragma unroll
+            for (int i = 0; i < D; ++i) {
+              float dw = ((corner >> i) & 1) ? fres : -fres;
+#pragma unroll
+              for (int j = 0; j < D; ++j)
+                if (j != i) dw *= aw[j];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) v[k] += dw * gj[i][k];
+            }
+          }
           // a lane past N keys -1, so it never joins a real row's run
           if (sum_over_run(valid ? row : -1, lane, v) && valid) {
 #pragma unroll
@@ -551,14 +592,16 @@ __global__ void grid_bwd_flush_kernel(const float* __restrict__ scratch,
 // caller's copy of the same table is used as it is); a level that fits
 // neither is read from the table. max_f: the widest level's F (the narrow
 // kernel where it is at most 2; a wider level there is read a float at a
-// time, so a wrong max_f costs speed only).
+// time, so a wrong max_f costs speed only). D: the points' dimension, 3 or 4
+// (pos01 [N, D]; a jacobian at D = 3 only).
 // The grid: a thread a point, in blocks of FwdShape's threads, persistent
 // where n_shared > 0 (FwdShape's staged blocks a SM).
 extern "C" int lotd_grid_fwd(const void* table, const void* pos01, const void* meta,
                              void* out, void* jac, void* inter, int fill_inter, int N, int C,
-                             int L, int stage_mask, int n_shared, int n_inter, int max_f,
+                             int L, int stage_mask, int n_shared, int n_inter, int max_f, int D,
                              void* stream) {
-  if (n_shared < 0 || n_inter < 0 || (n_inter > 0 && inter == nullptr) || N < 0)
+  if (n_shared < 0 || n_inter < 0 || (n_inter > 0 && inter == nullptr) || N < 0 ||
+      (D != 3 && D != 4) || (D == 4 && jac != nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
@@ -579,22 +622,27 @@ extern "C" int lotd_grid_fwd(const void* table, const void* pos01, const void* m
   }
   const size_t smem = (size_t)n_shared * sizeof(float);
   const bool wide = max_f > 2;
+  if (D == 4)
+    return (int)(wide ? launch_grid<4, false, true>(a, smem, sms, s)
+                      : launch_grid<4, false, false>(a, smem, sms, s));
   return (int)(jac != nullptr
-                   ? (wide ? launch_grid<true, true>(a, smem, sms, s)
-                           : launch_grid<true, false>(a, smem, sms, s))
-                   : (wide ? launch_grid<false, true>(a, smem, sms, s)
-                           : launch_grid<false, false>(a, smem, sms, s)));
+                   ? (wide ? launch_grid<3, true, true>(a, smem, sms, s)
+                           : launch_grid<3, true, false>(a, smem, sms, s))
+                   : (wide ? launch_grid<3, false, true>(a, smem, sms, s)
+                           : launch_grid<3, false, false>(a, smem, sms, s)));
 }
 
 // private_mask: bit l set where level l is summed in shared memory (l < 31);
 // n_private: those levels' floats (F x size each, in level order), and the
-// columns of scratch [SMs, n_private] (null if n_private is 0). The grid: a
-// thread a point in blocks of kBwdThreads, up to 16 blocks a SM, where
-// n_private is 0; else persistent, one block of kBwdPrivateThreads a SM.
+// columns of scratch [SMs, n_private] (null if n_private is 0). D: the
+// points' dimension, 3 or 4 (no d_jac at D = 4). The grid: a thread a point
+// in blocks of kBwdThreads, up to 16 blocks a SM, where n_private is 0; else
+// persistent, one block of kBwdPrivateThreads a SM.
 extern "C" int lotd_grid_bwd(const void* pos01, const void* meta, const void* d_out,
                              const void* d_jac, void* d_table, void* scratch, int N, int C,
-                             int L, int private_mask, int n_private, void* stream) {
-  if (n_private < 0 || (n_private > 0 && scratch == nullptr))
+                             int L, int private_mask, int n_private, int D, void* stream) {
+  if (n_private < 0 || (n_private > 0 && scratch == nullptr) || (D != 3 && D != 4) ||
+      (D == 4 && d_jac != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t e;
   int dev = 0, sms = 0;
@@ -606,11 +654,12 @@ extern "C" int lotd_grid_bwd(const void* pos01, const void* meta, const void* d_
   int blocks = (N + threads - 1) / threads;
   blocks = blocks < 1 ? 1 : (blocks > cap ? cap : blocks);
   const size_t smem = (size_t)n_private * sizeof(float);
+  auto kernel = D == 4 ? grid_bwd_kernel<4, false> : grid_bwd_kernel<3, true>;
   if (smem > 48 * 1024 &&
-      (e = cudaFuncSetAttribute(grid_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem)) != cudaSuccess)
     return (int)e;
-  grid_bwd_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       (const float*)pos01, (const int*)meta, (const float*)d_out, (const float*)d_jac,
       (float*)d_table, (float*)scratch, N, C, L, (unsigned)private_mask, n_private);
   e = cudaGetLastError();

@@ -259,7 +259,10 @@ class DemoSequence:
         self.semantics = semantics
         self.lidars = lidars
 
-    def get_scenario(self) -> Dict[str, Any]:
+    def scene_ids(self):
+        return [self.scenario["scene_id"]]
+
+    def get_scenario(self, scene_id: Optional[str] = None) -> Dict[str, Any]:
         return self.scenario
 
     def get_image(self, scene_id: str, cam_id: str, frame_index: int) -> np.ndarray:

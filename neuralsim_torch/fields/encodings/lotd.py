@@ -15,9 +15,12 @@ table copies over as is. Level types:
   when the encoding is built, as JAX does), takes the per-level path: each
   level's own lines straight from the table, all levels in one launch of the
   ``lotd_cp_level`` kernel (K2).
-* ``dense`` / ``hash``: 8-corner trilinear gather from a [F, size] table
-  segment, hashed with the Instant-NGP primes beyond the dense budget; the
-  lookup is the ``lotd_grid`` kernel (K3).
+* ``dense`` / ``hash``: 2^d-corner multilinear gather from a [F, size]
+  table segment, hashed with the Instant-NGP primes beyond the dense budget;
+  the lookup is the ``lotd_grid`` kernel (K3), for 3-D inputs (8 corners, the
+  NeuS fields) and 4-D ones (16 corners, the distant field's contracted
+  points; counted apart as ``lotd_grid4``). A 4-D encoding has no CP level
+  and no jacobian on the card.
 
 The kernels also give the analytic jacobian d(features)/d(x01) that the NeuS
 field turns into normals. Each kernel's wrapper below takes its plain PyTorch
@@ -32,9 +35,9 @@ its backward (``lotd_cp_lines.bwd``, into the table's CP entries). No
 gradient goes to the positions: rays are data and sample depths are
 detached in this slice (pose refinement will add it).
 
-Not ported yet: the batched ``bidx`` tables, 4-D inputs, the level anneal
-window and ``NEURALSIM_CP_JAC_F32=1`` (float32 lines for the stacked
-jacobian), which raises.
+Not ported yet: the batched ``bidx`` tables, 4-D CP levels, the level
+anneal window and ``NEURALSIM_CP_JAC_F32=1`` (float32 lines for the
+stacked jacobian), which raises.
 """
 from __future__ import annotations
 
@@ -62,6 +65,13 @@ K1_BWD = kernels.register("lotd_cp_stacked.bwd", "neuralsim_torch/csrc/lotd_cp_s
                           "neuralsim_tpu/fields/encodings/lotd.py:346")
 K3_BWD = kernels.register("lotd_grid.bwd", "neuralsim_torch/csrc/lotd_grid.cu",
                           "neuralsim_tpu/fields/encodings/lotd.py:410")
+# K3 on 4-D points (the same source, D = 4), counted apart
+K3_4D = kernels.register("lotd_grid4", "neuralsim_torch/csrc/lotd_grid.cu",
+                         "neuralsim_tpu/fields/encodings/lotd.py:410")
+K3_4D_BWD = kernels.register("lotd_grid4.bwd", "neuralsim_torch/csrc/lotd_grid.cu",
+                             "neuralsim_tpu/fields/encodings/lotd.py:410")
+# the points' dimensions that K3 takes, and the kernels that count each
+GRID_DIMS = {3: (K3, K3_BWD), 4: (K3_4D, K3_4D_BWD)}
 K2 = kernels.register("lotd_cp_level", "neuralsim_torch/csrc/lotd_cp_level.cu",
                       "neuralsim_tpu/fields/encodings/lotd.py:250")
 K2_BWD = kernels.register("lotd_cp_level.bwd", "neuralsim_torch/csrc/lotd_cp_level.cu",
@@ -176,14 +186,16 @@ def lotd_cp_stacked_plain(lines: torch.Tensor, pos01: torch.Tensor, rows: torch.
 
 
 def _check_outputs(name: str, pos01: torch.Tensor, out: torch.Tensor,
-                   jac: Optional[torch.Tensor]) -> None:
-    if pos01.dtype != torch.float32 or pos01.dim() != 2 or pos01.shape[1] != 3:
-        raise ValueError(f"{name}: pos01 must be [N, 3] float32")
-    N = pos01.shape[0]
+                   jac: Optional[torch.Tensor], dims: Sequence[int] = (3,)) -> None:
+    """pos01 [N, D] float32 with D in ``dims``; out [C, N] and jac [D, C, N]
+    float32."""
+    if pos01.dtype != torch.float32 or pos01.dim() != 2 or pos01.shape[1] not in dims:
+        raise ValueError(f"{name}: pos01 must be [N, D] float32, D in {tuple(dims)}")
+    N, D = pos01.shape
     if out.dtype != torch.float32 or out.dim() != 2 or out.shape[1] != N:
         raise ValueError(f"{name}: out must be [C, N] float32")
-    if jac is not None and (jac.dtype != torch.float32 or jac.shape != (3,) + out.shape):
-        raise ValueError(f"{name}: jac must be [3, C, N] float32")
+    if jac is not None and (jac.dtype != torch.float32 or jac.shape != (D,) + out.shape):
+        raise ValueError(f"{name}: jac must be [{D}, C, N] float32")
 
 
 def lotd_cp_stacked(lines: torch.Tensor, pos01: torch.Tensor, rows: torch.Tensor,
@@ -216,14 +228,14 @@ def _cotangent_loss(out, jac, d_out, d_jac):
 
 
 def _check_cotangents(name: str, pos01: torch.Tensor, d_out: Optional[torch.Tensor],
-                      d_jac: Optional[torch.Tensor]) -> None:
-    """d_out [C, N] and/or d_jac [3, C, N], float32, at least one of them."""
+                      d_jac: Optional[torch.Tensor], dims: Sequence[int] = (3,)) -> None:
+    """d_out [C, N] and/or d_jac [D, C, N], float32, at least one of them."""
     if d_out is not None:
-        _check_outputs(name, pos01, d_out, d_jac)
-    elif d_jac is None or d_jac.dim() != 3 or d_jac.shape[0] != 3:
-        raise ValueError(f"{name}: needs d_out [C, N] or d_jac [3, C, N]")
+        _check_outputs(name, pos01, d_out, d_jac, dims)
+    elif d_jac is None or d_jac.dim() != 3 or d_jac.shape[0] != pos01.shape[-1]:
+        raise ValueError(f"{name}: needs d_out [C, N] or d_jac [D, C, N]")
     else:
-        _check_outputs(name, pos01, d_jac[0], None)
+        _check_outputs(name, pos01, d_jac[0], None, dims)
 
 
 def lotd_cp_stacked_bwd_plain(lines: torch.Tensor, pos01: torch.Tensor, rows: torch.Tensor,
@@ -374,15 +386,27 @@ def _corner_rows(cell: torch.Tensor, bits: Sequence[int], res: int, size: int,
     return rows
 
 
+def grid_corner_rows(cell: torch.Tensor, res: int, size: int, is_hash: bool
+                     ) -> torch.Tensor:
+    """The rows of a point's 2^D corners on one level (JAX's
+    ``_corner_rows_weight``, lotd.py:219-248): ``cell`` int64 [D, N] ->
+    int64 [2^D, N], corner c taking cell_i + bit i of c. Dense: sum_i
+    (cell_i + bit_i) (res + 1)^i; hash: xor_i of (cell_i + bit_i) * prime_i
+    wrapped to 32 bits, mod ``size``."""
+    D = cell.shape[0]
+    return torch.stack([_corner_rows(cell, [(c >> i) & 1 for i in range(D)], res, size,
+                                     is_hash) for c in range(1 << D)])
+
+
 def lotd_grid_plain(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor,
                     out: torch.Tensor, jac: Optional[torch.Tensor] = None) -> None:
     """Plain version of K3.
 
-    table: flat float32 LoTD table; pos01: [N, 3]; meta: int32 [L, 6] rows of
-    (res, size, offset, F, is_hash, out row). Writes each level's F features
-    to rows [out row, out row + F) of ``out`` [C, N] and, given ``jac``
-    [3, C, N], their derivatives. The hash runs in int64 masked to 32 bits
-    after each multiply (JAX's uint32 wrap-around).
+    table: flat float32 LoTD table; pos01: [N, D] (D 3 or 4); meta: int32
+    [L, 6] rows of (res, size, offset, F, is_hash, out row). Writes each
+    level's F features to rows [out row, out row + F) of ``out`` [C, N] and,
+    given ``jac`` [D, C, N], their derivatives. The hash runs in int64 masked
+    to 32 bits after each multiply (JAX's uint32 wrap-around).
     """
     _grid_levels_plain(lambda res, size, offset, nf: table[offset:offset + nf * size]
                        .view(nf, size), pos01, meta.tolist(), out, jac)
@@ -391,8 +415,10 @@ def lotd_grid_plain(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor
 def _grid_levels_plain(segment, pos01: torch.Tensor, meta_rows: Sequence[Sequence[int]],
                        out: torch.Tensor, jac: Optional[torch.Tensor]) -> None:
     """K3's arithmetic, each level's features gathered from ``segment(res,
-    size, offset, F)``, a [F, size] view of its rows."""
-    x = pos01.clamp(0.0, 1.0).T                                  # [3, N]
+    size, offset, F)``, a [F, size] view of its rows; the points' dimension D
+    is pos01's second axis (2^D corners, in order)."""
+    D = pos01.shape[1]
+    x = pos01.clamp(0.0, 1.0).T                                  # [D, N]
     for res, size, offset, nf, is_hash, row in meta_rows:
         tbl = segment(res, size, offset, nf)
         pos = x * res
@@ -400,18 +426,20 @@ def _grid_levels_plain(segment, pos01: torch.Tensor, meta_rows: Sequence[Sequenc
         frac = pos - cellf
         cell = cellf.long()
         acc = None
-        jl = [None, None, None]
-        for corner in range(8):
-            bits = [(corner >> i) & 1 for i in range(3)]
+        jl = [None] * D
+        for corner in range(1 << D):
+            bits = [(corner >> i) & 1 for i in range(D)]
             aw = [frac[i] if b else 1.0 - frac[i] for i, b in enumerate(bits)]
-            w = aw[0] * aw[1] * aw[2]
+            w = aw[0]
+            for a in aw[1:]:
+                w = w * a
             f = gather_cols(tbl, _corner_rows(cell, bits, res, size, bool(is_hash)))
             term = w * f
             acc = term if acc is None else acc + term
             if jac is not None:
-                for i in range(3):
+                for i in range(D):
                     dw = (1.0 if bits[i] else -1.0)
-                    for j in range(3):
+                    for j in range(D):
                         if j != i:
                             dw = dw * aw[j]
                     contrib = dw * f
@@ -432,7 +460,8 @@ class GridFwdPlan(NamedTuple):
     l of the meta for a block's shared copy of ``n_shared`` floats; the other
     levels go to the ``n_inter`` floats of the interleaved scratch. Each
     level takes F x size floats rounded up to 4, in level order, where it
-    fits (:func:`grid_fwd_places`, the walk the kernel makes)."""
+    fits (:func:`grid_fwd_places`, the walk the kernel makes). The plan is
+    the same for 3-D and 4-D points (a level's copy is its [size, F] rows)."""
     stage_mask: int
     n_shared: int
     n_inter: int
@@ -447,7 +476,8 @@ def grid_fwd_plan(meta_rows: Sequence[Sequence[int]]) -> GridFwdPlan:
     """Split K3's levels, rows of (res, size, offset, F, is_hash, out row),
     into staged ones, taken in level order while their copies fit
     GRID_FWD_SMEM_BUDGET together (dense levels, and hash levels of a small
-    table), and interleaved ones (the others)."""
+    table), and interleaved ones (the others: the 4-D distant field's levels,
+    668 KB dense and 1 MB hashed)."""
     mask, staged, inter = 0, 0, 0
     for l, (_, size, _, nf, _, _) in enumerate(meta_rows):
         seg = _align4(nf * size)
@@ -556,7 +586,9 @@ def lotd_grid(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor,
     correctness: the kernel reads a level that fits neither copy from the
     table. ``scratch``: the interleaved copy kept from an earlier call on
     this table and meta (filled again where the table changed); without it
-    every call fills a fresh one."""
+    every call fills a fresh one. The points pos01 are [N, 3] (K3, with the
+    jacobian where ``jac`` [3, C, N] is given) or [N, 4] (K3 in four
+    dimensions, ``lotd_grid4``; no jacobian on the card)."""
     if table.device.type == "cpu":
         return lotd_grid_plain(table, pos01, meta, out, jac)
     kernels.check_cuda("lotd_grid", table, pos01, meta, out, *([] if jac is None else [jac]))
@@ -564,7 +596,10 @@ def lotd_grid(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor,
         raise ValueError("lotd_grid: table must be a flat float32 tensor")
     if meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[1] != 6:
         raise ValueError("lotd_grid: meta must be int32 [L, 6]")
-    _check_outputs("lotd_grid", pos01, out, jac)
+    _check_outputs("lotd_grid", pos01, out, jac, tuple(GRID_DIMS))
+    D = pos01.shape[1]
+    if D == 4 and jac is not None:
+        raise NotImplementedError("lotd_grid: the kernel's jacobian is for 3-D points only")
     if plan is None:
         plan = grid_fwd_plan(meta.tolist())
     if plan.stage_mask >> meta.shape[0] or plan.n_shared * 4 > GRID_FWD_SMEM_BUDGET:
@@ -575,10 +610,11 @@ def lotd_grid(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor,
         inter, fill = scratch.take(table, plan.n_inter)
     elif plan.n_inter:
         inter, fill = torch.empty(plan.n_inter, dtype=torch.float32, device=table.device), True
-    K3.launch("lotd_grid_fwd", kernels.ptr(table), kernels.ptr(pos01), kernels.ptr(meta),
-              kernels.ptr(out), kernels.ptr(jac), kernels.ptr(inter), int(fill), pos01.shape[0],
-              out.shape[0], meta.shape[0], plan.stage_mask, plan.n_shared, plan.n_inter,
-              plan.max_f, kernels.stream())
+    GRID_DIMS[D][0].launch("lotd_grid_fwd", kernels.ptr(table), kernels.ptr(pos01),
+                           kernels.ptr(meta), kernels.ptr(out), kernels.ptr(jac),
+                           kernels.ptr(inter), int(fill), pos01.shape[0], out.shape[0],
+                           meta.shape[0], plan.stage_mask, plan.n_shared, plan.n_inter,
+                           plan.max_f, D, kernels.stream())
     if fill and scratch is not None:
         scratch.filled(table)
 
@@ -614,7 +650,7 @@ GRID_BWD_PRIVATE_MIN_POINTS = 8
 class GridBwdPlan(NamedTuple):
     """The levels that K3's backward sums in shared memory: bit l of
     ``private_mask`` for row l of the meta; ``n_private``, their floats (one
-    block's copy, a row of the scratch)."""
+    block's copy, a row of the scratch). The same for 3-D and 4-D points."""
     private_mask: int
     n_private: int
 
@@ -631,7 +667,8 @@ def grid_bwd_plan(meta_rows: Sequence[Sequence[int]]) -> GridBwdPlan:
     into private ones, the dense levels taken in level order while their F x
     size floats fit GRID_BWD_SMEM_BUDGET together, and global ones: the hash
     levels (fine cells whose rows the hash scatters, so that neighbouring
-    samples rarely share one) and the dense levels past the budget."""
+    samples rarely share one) and the dense levels past the budget (the 4-D
+    distant field's 17^4-row level: no level of it is private)."""
     mask, used = 0, 0
     for l, (_, size, _, nf, is_hash, _) in enumerate(meta_rows):
         if not is_hash and l < 31 and (used + nf * size) * 4 <= GRID_BWD_SMEM_BUDGET:
@@ -649,15 +686,18 @@ def lotd_grid_bwd(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
     ``plan``: the levels to sum in shared memory, used as given; without it,
     ``grid_bwd_plan(meta).at(N)`` (the meta read back to the host). A plan
     made from another meta costs speed, not correctness: the kernel sums a
-    named level in shared memory only where it fits ``n_private``."""
+    named level in shared memory only where it fits ``n_private``. Points of
+    4 dimensions (``lotd_grid4.bwd``) take ``d_out`` only."""
     if pos01.device.type == "cpu":
         return lotd_grid_bwd_plain(n_table, pos01, meta, d_out, d_jac)
     given = [x for x in (d_out, d_jac) if x is not None]
     kernels.check_cuda("lotd_grid_bwd", pos01, meta, *given)
     if meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[1] != 6:
         raise ValueError("lotd_grid_bwd: meta must be int32 [L, 6]")
-    _check_cotangents("lotd_grid_bwd", pos01, d_out, d_jac)
-    N = pos01.shape[0]
+    _check_cotangents("lotd_grid_bwd", pos01, d_out, d_jac, tuple(GRID_DIMS))
+    N, D = pos01.shape
+    if D == 4 and d_jac is not None:
+        raise NotImplementedError("lotd_grid_bwd: the kernel's jacobian is for 3-D points only")
     if plan is None:
         plan = grid_bwd_plan(meta.tolist()).at(N)
     if plan.private_mask >> meta.shape[0]:
@@ -666,10 +706,10 @@ def lotd_grid_bwd(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
     scratch = torch.empty((kernels.sm_count(pos01.device.index), plan.n_private),
                           dtype=torch.float32, device=pos01.device) if plan.n_private else None
     d_table = torch.zeros(n_table, dtype=torch.float32, device=pos01.device)
-    K3_BWD.launch("lotd_grid_bwd", kernels.ptr(pos01), kernels.ptr(meta), kernels.ptr(d_out),
-                  kernels.ptr(d_jac), kernels.ptr(d_table), kernels.ptr(scratch), N,
-                  given[0].shape[-2], meta.shape[0], plan.private_mask, plan.n_private,
-                  kernels.stream())
+    GRID_DIMS[D][1].launch("lotd_grid_bwd", kernels.ptr(pos01), kernels.ptr(meta),
+                           kernels.ptr(d_out), kernels.ptr(d_jac), kernels.ptr(d_table),
+                           kernels.ptr(scratch), N, given[0].shape[-2], meta.shape[0],
+                           plan.private_mask, plan.n_private, D, kernels.stream())
     return d_table
 
 
@@ -921,9 +961,9 @@ class _EncodeOnCard(torch.autograd.Function):
     @staticmethod
     def forward(ctx, lines, lines_bf16, table, xf, cp_rows, cp_meta, grid_meta, grid_plans,
                 out_dim, with_jac):
-        N = xf.shape[0]
+        N, D = xf.shape
         out = torch.empty((out_dim, N), dtype=torch.float32, device=xf.device)
-        jac = torch.empty((3, out_dim, N), dtype=torch.float32, device=xf.device) \
+        jac = torch.empty((D, out_dim, N), dtype=torch.float32, device=xf.device) \
             if with_jac else None
         if lines is not None:
             lotd_cp_stacked(lines_bf16, xf, cp_rows, out, jac)
@@ -956,7 +996,8 @@ class _EncodeOnCard(torch.autograd.Function):
 
 
 class LoTDEncoding(nn.Module):
-    """Multi-level grid encoding over inputs in [0, 1]^3.
+    """Multi-level grid encoding over inputs in [0, 1]^d, d = ``input_dim``
+    (3, or 4 for the distant field, whose levels are dense and hash only).
 
     levels: sequence of (resolution, n_feats, 'dense'|'hash'|'cp').
     Parameter: ``table``, the flat float32 table of every level.
@@ -969,8 +1010,11 @@ class LoTDEncoding(nn.Module):
                  log2_hashmap_size: int = 19, param_init_scale: float = 1e-4,
                  cp_stacked: bool = True):
         super().__init__()
-        if input_dim != 3:
-            raise NotImplementedError("the port's LoTD takes 3-D inputs only")
+        if input_dim not in GRID_DIMS:
+            raise NotImplementedError(f"the port's LoTD takes 3-D and 4-D inputs, not "
+                                      f"{input_dim}-D")
+        if input_dim != 3 and any(typ == "cp" for _, _, typ in levels):
+            raise NotImplementedError(f"a CP level of a {input_dim}-D LoTD is not ported")
         self.input_dim = input_dim
         self.param_init_scale = param_init_scale
         hashmap_size = 2 ** log2_hashmap_size
@@ -1094,7 +1138,8 @@ class LoTDEncoding(nn.Module):
 
     def _encode(self, x: torch.Tensor, with_jac: bool, cp_lines: Optional[CpLines]):
         lead = x.shape[:-1]
-        xf = x.reshape(-1, 3).to(torch.float32).contiguous()
+        D = self.input_dim
+        xf = x.reshape(-1, D).to(torch.float32).contiguous()
         N = xf.shape[0]
         if self.cp_stacked and cp_lines is None:
             cp_lines = self.kernel_lines()
@@ -1103,7 +1148,7 @@ class LoTDEncoding(nn.Module):
                                       "jacobian) is not ported")
         if xf.device.type == "cpu":      # the plain versions, under autograd
             out = torch.empty((self.out_dim, N), dtype=torch.float32)
-            jac = torch.empty((3, self.out_dim, N), dtype=torch.float32) if with_jac else None
+            jac = torch.empty((D, self.out_dim, N), dtype=torch.float32) if with_jac else None
             if self.cp_stacked:
                 lotd_cp_stacked(_RoundBf16.apply(cp_lines.f32), xf, self._cp_rows, out, jac)
             elif self.cp_spec_ids:
@@ -1120,17 +1165,18 @@ class LoTDEncoding(nn.Module):
         h = out.T.reshape(lead + (self.out_dim,))
         if not with_jac:
             return h
-        return h, jac.permute(2, 1, 0).reshape(lead + (self.out_dim, 3))
+        return h, jac.permute(2, 1, 0).reshape(lead + (self.out_dim, D))
 
     def forward(self, x: torch.Tensor, cp_lines: Optional[CpLines] = None
                 ) -> torch.Tensor:
-        """x: [..., 3] in [0, 1] -> features [..., out_dim]. ``cp_lines``:
+        """x: [..., d] in [0, 1] -> features [..., out_dim]. ``cp_lines``:
         :meth:`kernel_lines`, when the caller already has them."""
         return self._encode(x, False, cp_lines)
 
     def with_jacobian(self, x: torch.Tensor, cp_lines: Optional[CpLines] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Features [..., out_dim] and jac [..., out_dim, 3] = d feats / d x01."""
+        """Features [..., out_dim] and jac [..., out_dim, d] = d feats / d x01
+        (on the card for 3-D inputs only)."""
         return self._encode(x, True, cp_lines)
 
 

@@ -171,7 +171,8 @@ class NeuSField(nn.Module):
 
     Parameters (JAX names): ``encoding.table``, ``decoder`` and ``radiance``
     MLP layers, and the scalar ``ln_inv_s``. The radiance net conditions on
-    (x, SH(view dir), normalised nablas, geometry feature).
+    (x, SH(view dir), normalised nablas, geometry feature[, appearance code
+    h_appear of ``appear_embed_dim``]).
     """
 
     def __init__(self, space: Optional[AABBSpace] = None, *,
@@ -188,6 +189,7 @@ class NeuSField(nn.Module):
                  radius_init: float = 0.5,
                  sdf_scale: float = 1.0,
                  eval_chunk: int = 2_000_000,
+                 appear_embed_dim: int = 0,
                  encoding: Optional[nn.Module] = None):
         super().__init__()
         self.space = space or AABBSpace()
@@ -199,6 +201,7 @@ class NeuSField(nn.Module):
         self.cos_anneal_stop_it = cos_anneal_stop_it
         self.sdf_scale = sdf_scale
         self.eval_chunk = eval_chunk
+        self.appear_embed_dim = appear_embed_dim
         self._geo_init_bias = radius_init
 
         self.encoding = make_lotd(encoding_cfg or {}, input_dim=3) if encoding is None \
@@ -206,7 +209,8 @@ class NeuSField(nn.Module):
         self.decoder = MLP(self.encoding.out_dim, 1 + geo_feat_dim, hidden=decoder_hidden,
                            depth=decoder_depth, activation="relu")
         self.dir_embed, dir_dim = sh_embedder(sh_degree)
-        self.radiance = MLP(3 + dir_dim + 3 + geo_feat_dim, 3, hidden=radiance_hidden,
+        self.radiance = MLP(3 + dir_dim + 3 + geo_feat_dim + appear_embed_dim, 3,
+                            hidden=radiance_hidden,
                             depth=radiance_depth, activation="relu",
                             output_activation="sigmoid")
         self.ln_inv_s = nn.Parameter(torch.tensor(ln_inv_s_init, dtype=torch.float32))
@@ -279,8 +283,14 @@ class NeuSField(nn.Module):
 
     # -- appearance ------------------------------------------------------------
     def query_radiance(self, x: torch.Tensor, v: torch.Tensor, nablas: torch.Tensor,
-                       feat: torch.Tensor) -> torch.Tensor:
+                       feat: torch.Tensor, h_appear: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """rgb at points x [..., 3]; ``h_appear`` broadcasts to x's leading
+        shape (zeros where not given) when the field takes an appearance code."""
         inputs = [x, self.dir_embed(v), safe_normalize(nablas), feat]
+        if self.appear_embed_dim:
+            shape = x.shape[:-1] + (self.appear_embed_dim,)
+            inputs.append(x.new_zeros(shape) if h_appear is None else h_appear.expand(shape))
         return self.radiance(torch.cat(inputs, dim=-1))
 
     # -- inv_s control ---------------------------------------------------------
@@ -326,7 +336,8 @@ class NeuSField(nn.Module):
                   noise: Optional[Dict[str, Any]] = None,
                   occ_t_fn: Optional[Callable] = None,
                   bidx: Optional[torch.Tensor] = None,
-                  fuse_alpha: bool = False) -> Dict[str, Any]:
+                  fuse_alpha: bool = False,
+                  h_appear: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """Hierarchical NeuS ray query with fixed shapes: uniform coarse
         samples (or the occupancy march's), one upsample stage per ``num_fine`` entry at inv_s
         ``upsample_inv_s * factor``, each merged into the sorted buffer, then
@@ -339,7 +350,8 @@ class NeuSField(nn.Module):
         replaces the uniform coarse ladder; it gets ``noise["occ_proposal"]``
         ([N, num_coarse], or None) and ``"coarse"`` is then not read.
         ``bidx`` [N] int: a per-ray instance index, handed to the field at
-        every sample of the ray.
+        every sample of the ray. ``h_appear`` [N, appear_embed_dim]: a
+        per-ray appearance code for the radiance net.
         Returns the dense volume buffer
         {t, mask, alpha, sdf, nablas, rgb [N, S(, 3)], details}. With
         ``fuse_alpha`` (a buffer that is composited alone) the buffer has no
@@ -399,7 +411,8 @@ class NeuSField(nn.Module):
         else:
             buf["alpha"] = neus_final_alpha(t, mask, sdf, nablas, rays_d, anneal, inv_s)
         if with_rgb:
-            buf["rgb"] = self.query_radiance(x, dirs, nablas, feat)
+            buf["rgb"] = self.query_radiance(x, dirs, nablas, feat,
+                                             None if h_appear is None else h_appear[:, None, :])
         first_valid = torch.argmax(mask.to(torch.uint8), dim=-1)
         near_sdf = torch.gather(sdf, -1, first_valid[:, None])[:, 0]
         buf["details"] = {"near_sdf": torch.where(hit, near_sdf, torch.full_like(near_sdf, 1e10)),

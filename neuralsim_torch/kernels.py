@@ -38,8 +38,8 @@ SIGNATURES: Dict[str, str] = {
     "lotd_cp_stacked_bwd": "ppppppiiiip",
     "lotd_cp_level_fwd": "pppppiiip",
     "lotd_cp_level_bwd": "ppppppiiip",
-    "lotd_grid_fwd": "ppppppiiiiiiiip",
-    "lotd_grid_bwd": "ppppppiiiiip",
+    "lotd_grid_fwd": "ppppppiiiiiiiiip",
+    "lotd_grid_bwd": "ppppppiiiiiip",
     "neus_upsample_weights_pdf": "pppppppppiiifp",
     "merge_sorted_samples": "pppppppppiiip",
     "volume_composite_fwd": "pppppppppppiip",

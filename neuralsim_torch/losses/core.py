@@ -117,17 +117,30 @@ def clearance_loss(near_sdf: torch.Tensor, it, cfg: Dict) -> torch.Tensor:
     return reduce(pen, viol.float(), "mean") * _w(cfg, it)
 
 
+def median(x: torch.Tensor) -> torch.Tensor:
+    """The median of all entries, as ``jnp.median``: the mean of the two
+    middle values of an even count (``torch.median`` returns the lower)."""
+    v = torch.sort(x.reshape(-1)).values
+    n = v.numel()
+    return v[n // 2] if n % 2 else 0.5 * (v[n // 2 - 1] + v[n // 2])
+
+
 def lidar_loss(rendered: Dict, gt_ranges: torch.Tensor, it, cfg: Dict,
                buf: Optional[Dict] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Depth and line-of-sight supervision along LiDAR beams. A beam counts
     where the rendered mask exceeds 1e-7 and 0 < range <= ``discard_toofar``
-    (80). ``buf``: the merged buffer, for the line of sight (its ``vw`` where
-    the composite gave it). The median outlier filter is not ported."""
-    if cfg.get("discard_outliers_median", 0.0):
-        raise NotImplementedError("the lidar loss's discard_outliers_median is not ported")
+    (80), and, with ``discard_outliers_median`` m, where its depth error is at
+    most max(m x the median error, 1e-3) (the median over all beams, the
+    others' errors taken as 0). ``buf``: the merged buffer, for the line of
+    sight (its ``vw`` where the composite gave it)."""
     depth_pred = rendered["depth_volume"]
     valid = (rendered["mask_volume"] > 1e-7) & (gt_ranges > 0.0) \
         & (gt_ranges <= cfg.get("discard_toofar", 80.0))
+    dom = cfg.get("discard_outliers_median", 0.0)
+    if dom:
+        err = (depth_pred - gt_ranges).abs().detach()
+        med = median(torch.where(valid, err, torch.zeros_like(err)))
+        valid = valid & (err <= torch.clamp(med * dom, min=1e-3))
     validf = valid.float()
     dcfg = cfg.get("depth", {})
     fn = get_recon_fn(dcfg.get("fn_type", "l1"), **dcfg.get("fn_param", {}))

@@ -1,5 +1,5 @@
 """Field construction of the assets on the port's paths (port of
-neuralsim_tpu/models/assets.py:31-66, 70-171, 194-215, 263-302, 449-556,
+neuralsim_tpu/models/assets.py:31-66, 70-193, 194-215, 263-338, 449-556,
 576-613).
 
 An asset turns its ``model_params`` from the config into a field module (and
@@ -8,7 +8,9 @@ defaults, as in the JAX package. Object assets are built per object, scene
 assets per scene, and a shared categorical asset once for every object of
 its class in a scene, with each object's ``instance_index``. The street's
 ``training_initialize`` fits its SDF to the road plane before training
-(:func:`pretrain_sdf`, the uniform points handed in as draws).
+(:func:`pretrain_sdf`, the uniform points handed in as draws). The street,
+the distant field and the sky take ``appear_embed_dim``, the width of the
+per-frame appearance codes of :class:`ImageEmbeddings` (one table a camera).
 """
 from __future__ import annotations
 
@@ -16,10 +18,12 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..accel import OccGridEma, OccGridEmaBatched
 from ..fields.conditional import (ConditionalLoTDNeuSField, GenerativePermutoConcatNeuSField,
                                   PermutoNeuSField)
+from ..fields.embeddings import SeqEmbedding
 from ..fields.nerf import NeRFDistantField
 from ..fields.neus import NeuSField
 from ..fields.sky import SimpleSky
@@ -90,20 +94,21 @@ class LoTDNeuSObj(AssetModel):
 
 
 class LoTDNeuSStreet(AssetModel):
-    """The StreetSurf close-range SDF in the config's ``aabb``, with its
-    occupancy grid and no sphere-init bias; ``training_initialize`` pretrains
-    it to the road surface. Not ported yet: the box from the camera tracks (a
-    config without ``aabb``) and the capsule pretrain."""
+    """The StreetSurf close-range SDF in the config's ``aabb`` (without one,
+    the box of the scene's camera tracks widened by ``extend_size``; without
+    a scene, JAX's default box), with its occupancy grid and no sphere-init
+    bias; ``training_initialize`` pretrains it to the road surface. Not
+    ported yet: the capsule pretrain."""
 
     assignment = AssetAssignment.SCENE
 
     def populate(self, scene=None, obj_ids=None) -> None:
         mp = self.model_params
-        _no_appearance(mp)
         aabb = mp.get("aabb")
+        if aabb is None and scene is not None:
+            aabb = self.aabb_from_cameras(scene, mp)
         if aabb is None:
-            raise NotImplementedError("the street box from the camera tracks is not ported; "
-                                      "give model_params.aabb")
+            aabb = ([-60, -60, -10], [60, 60, 30])
         space = AABBSpace(aabb[0], aabb[1])
         self.field = NeuSField(
             space,
@@ -118,11 +123,34 @@ class LoTDNeuSStreet(AssetModel):
             inv_s_anneal_stop_it=mp.get("inv_s_anneal_stop_it", 0),
             cos_anneal_stop_it=mp.get("cos_anneal_stop_it", 0),
             sdf_scale=mp.get("sdf_scale", 1.0),
-            radius_init=mp.get("radius_init", 0.0))
+            radius_init=mp.get("radius_init", 0.0),
+            appear_embed_dim=mp.get("appear_embed_dim", 0))
         self.query_cfg = dict(mp.get("query_cfg", {}))
         accel_cfg = mp.get("accel_cfg", {"resolution": 128})
         if accel_cfg:
             self.accel = _occ_grid(space, accel_cfg, 128)
+
+    @staticmethod
+    def aabb_from_cameras(scene, mp: Dict[str, Any]):
+        """The box of the cameras' positions over their valid frames, widened
+        by ``extend_size`` (60) on every side, as (min, max) lists, or None
+        without a camera. As in the JAX package (``_aabb_from_cameras``), a
+        position is the translation of the camera node's own per-frame
+        transform, which is relative to its parent (the ego car, in a Waymo
+        scenario)."""
+        pts = []
+        for oid in scene.observer_ids():
+            node = scene.observers[oid]
+            if node.class_name != "Camera":
+                continue
+            T = node.frame_data["transform"].cpu().numpy()
+            valid = node.frame_data["valid"].cpu().numpy()
+            pts.append(T[valid, :3, 3])
+        if not pts:
+            return None
+        pts = np.concatenate(pts, 0)
+        ext = float(mp.get("extend_size", 60.0))
+        return (pts.min(0) - ext).tolist(), (pts.max(0) + ext).tolist()
 
     def _pretrain_cfg(self) -> Dict[str, Any]:
         pre = self.model_params.get("pretrain", {"type": "road_surface"})
@@ -245,21 +273,29 @@ class PermutoNeuSObj(AssetModel):
         self.query_cfg = dict(mp.get("query_cfg", {}))
 
 
-class NeRFDistant(AssetModel):
-    """NeRF++ background with the MLP geometry (the 4-D LoTD one is not
-    ported); ``cr_aabb`` sets the ``fixed_cuboid_shells`` contraction, which
-    the compose renderer otherwise wires to the street's box."""
+class LoTDNeRFDistant(AssetModel):
+    """NeRF++ background, by default on the 4-D LoTD (``geometry``,
+    ``encoding_cfg``); ``cr_aabb`` sets the ``fixed_cuboid_shells``
+    contraction, which the build functions otherwise wire to the close-range box."""
 
     assignment = AssetAssignment.SCENE
+    default_geometry = "lotd"
 
     def populate(self, scene=None, obj_ids=None) -> None:
         mp = self.model_params
-        _no_appearance(mp)
         self.field = NeRFDistantField(inner_radius=mp.get("inner_radius", 1.0),
-                                      geometry=mp.get("geometry", "mlp"),
+                                      geometry=mp.get("geometry", self.default_geometry),
+                                      encoding_cfg=mp.get("encoding_cfg"),
                                       geo_feat_dim=mp.get("geo_feat_dim", 15),
+                                      appear_embed_dim=mp.get("appear_embed_dim", 0),
                                       cr_aabb=mp.get("cr_aabb"))
         self.query_cfg = dict(mp.get("query_cfg", {}))
+
+
+class NeRFDistant(LoTDNeRFDistant):
+    """The same background with the MLP geometry by default."""
+
+    default_geometry = "mlp"
 
 
 class SimpleSkyAsset(AssetModel):
@@ -267,15 +303,53 @@ class SimpleSkyAsset(AssetModel):
 
     def populate(self, scene=None, obj_ids=None) -> None:
         mp = self.model_params
-        _no_appearance(mp)
         self.field = SimpleSky(hidden=mp.get("hidden", 64), depth=mp.get("depth", 2),
-                               sh_degree=mp.get("sh_degree", 4))
+                               sh_degree=mp.get("sh_degree", 4),
+                               appear_embed_dim=mp.get("appear_embed_dim", 0))
+
+
+class AppearanceTables(nn.ModuleDict):
+    """One :class:`SeqEmbedding` a camera, keyed by camera id (parameters
+    ``<camera>.weight``, the JAX tree's paths)."""
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for table in self.values():
+            table.reset_parameters(generator)
+
+
+class ImageEmbeddings(AssetModel):
+    """Per-frame appearance codes: one [n_frames, ``dim``] table a camera of
+    the scene (``cam_ids`` and ``n_frames`` of the config without a scene),
+    looked up by frame index into the fields' ``h_appear``."""
+
+    assignment = AssetAssignment.SCENE
+
+    def populate(self, scene=None, obj_ids=None) -> None:
+        mp = self.model_params
+        self.dim = mp.get("dim", 4)
+        self.cam_ids = [oid for oid in (scene.observer_ids() if scene else [])
+                        if scene.observers[oid].class_name == "Camera"] \
+            or mp.get("cam_ids", ["camera_0"])
+        self.n_frames = scene.n_frames if scene else mp.get("n_frames", 1)
+        self.field = AppearanceTables({cid: SeqEmbedding(self.n_frames, self.dim)
+                                       for cid in self.cam_ids})
+
+    @property
+    def tables(self) -> Dict[str, SeqEmbedding]:
+        return dict(self.field.items())
+
+    def h_appear(self, params: AppearanceTables, cam_id: str, fidx: torch.Tensor
+                 ) -> torch.Tensor:
+        """The codes of camera ``cam_id`` at frame indices ``fidx`` [N] ->
+        [N, dim], from the tables ``params`` (the bank's module)."""
+        return params[cam_id](fidx)
 
 
 ASSET_CLASSES = {c.__name__: c for c in (LoTDNeuSObj, LoTDNeuSStreet,
                                          ADGenerativeLoTDConcatNeuSObj,
                                          ADGenerativePermutoConcatNeuSObj, PermutoNeuSObj,
-                                         NeRFDistant, SimpleSkyAsset)}
+                                         LoTDNeRFDistant, NeRFDistant, SimpleSkyAsset,
+                                         ImageEmbeddings)}
 
 
 def asset_class(model_class: str):

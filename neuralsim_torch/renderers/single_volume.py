@@ -4,7 +4,8 @@ close-range field is queried first (its coarse samples from the occupancy
 grid where the caller hands in the grid's state), the distant field from the
 close range's far plane outwards, the two buffers are composited together and
 the sky fills what is left. A close range without a distant field is
-composited alone, its NeuS alpha inside the composite (kernel K12).
+composited alone, its NeuS alpha inside the composite (kernel K12). A
+per-ray appearance code ``h_appear`` goes to all three fields' radiance.
 ``ray_query`` runs under autograd (the training step differentiates it);
 ``render_chunked`` switches autograd off.
 
@@ -47,6 +48,7 @@ class SingleVolumeRenderer:
                   query_overrides: Optional[Dict[str, Any]] = None,
                   occ_states: Optional[Dict[str, Any]] = None,
                   noise: Optional[Dict[str, Any]] = None,
+                  h_appear: Optional[torch.Tensor] = None,
                   return_buffer: bool = False) -> Dict[str, Any]:
         """Render a flat batch of rays [N, 3] -> the ``rendered`` dict, under
         autograd. ``occ_states``: {role: OccGridState}; with a state and an
@@ -54,6 +56,8 @@ class SingleVolumeRenderer:
         ``noise``: the fields' draws (``NeuSField.ray_query``'s keys, plus
         ``"distant"`` [N, num_samples] for the distant ladder), None for the
         deterministic query. ``only_cr`` leaves the distant field out.
+        ``h_appear`` [N, dim]: each ray's appearance code (the fields that take
+        one read zeros without it).
         ``return_buffer`` keeps the per-sample buffer as ``merged_buffer``."""
         cfg = dict(self.query_cfg)
         cfg.update(query_overrides or {})
@@ -66,6 +70,8 @@ class SingleVolumeRenderer:
         use_distant = dv_key in params and not only_cr
         # a close range composited alone takes its alpha inside the composite (K12)
         fused = not use_distant
+        if h_appear is not None:
+            cfg["h_appear"] = h_appear
         buf_cr = cr.ray_query(rays_o, rays_d, it=it, near=near, far=far,
                               with_rgb=with_rgb, noise=noise, fuse_alpha=fused, **cfg)
         buffers = [buf_cr]
@@ -78,7 +84,7 @@ class SingleVolumeRenderer:
                                   torch.clamp(cr.space.radius3d * 0.1, min=1e-3))
             buffers.append(params[dv_key].ray_query(
                 rays_o, rays_d, it=it, near=dv_near, with_rgb=with_rgb,
-                noise=None if noise is None else noise.get("distant"),
+                noise=None if noise is None else noise.get("distant"), h_appear=h_appear,
                 **self.distant_query_cfg))
 
         # close-range samples end where the distant ones begin, so the
@@ -89,7 +95,7 @@ class SingleVolumeRenderer:
             rendered["rendered_cr"], rendered["rendered_dv"] = rendered["per_src"]
         sky_key = self.pkey("sky")
         if with_rgb and sky_key in params:
-            sky_rgb = params[sky_key](rays_d)
+            sky_rgb = params[sky_key](rays_d, h_appear)
             mask = rendered["mask_volume"][..., None]
             rendered["rgb_sky"] = sky_rgb
             rendered["rgb_volume_occupied"] = rendered["rgb_volume"]

@@ -1,9 +1,8 @@
 """Build the renderers, the trainer and seeded parameters from a config dict
-(port of the role binding and trainer set-up in
-neuralsim_tpu/tools/train.py:49-115, of the model that the JAX package's
-bench.py:56-129 builds by hand, and of the multi-object set-up in
-neuralsim_tpu/tools/train_multi.py:18-72, 105-163 and the frame loop of
-neuralsim_tpu/tools/eval_multi.py:51-60).
+(port of neuralsim_tpu/tools/train.py:21-125 ``build_everything``, of the
+model that the JAX package's bench.py:56-129 builds by hand, and of the
+multi-object set-up in neuralsim_tpu/tools/train_multi.py:18-72, 105-163
+and the frame loop of neuralsim_tpu/tools/eval_multi.py:51-60).
 
 Usage::
 
@@ -17,6 +16,14 @@ Usage::
 ``BENCH_OBJECT`` (occupancy grid, distant field, 12 stacked-CP levels) builds
 the same way; its trainer's state carries the converged grid, and a render
 takes it as ``occ_states=state.occ``.
+
+A single-scene config of a dataset (``WAYMO_STREETSURF``: the street's
+NeuS, the 4-D LoTD distant field and the sky on the demo drive) goes through
+the scene bank, the asset bank and the single-volume renderer, with its
+trainer, state and data loader::
+
+    from neuralsim_torch.configs import WAYMO_STREETSURF as C
+    scene, bank, renderer, trainer, state, loader = build_everything(C)   # on the card
 
 The multi-object scene (``WAYMO_DEMO_MULTI``) goes through the scene graph,
 the asset bank and the compose renderer::
@@ -62,8 +69,10 @@ from ..fields.spatial import AABBSpace
 from ..models.assets import asset_class
 from ..renderers.buffer_compose import BufferComposeRenderer
 from ..renderers.single_volume import SingleVolumeRenderer
+from ..models.assets import ImageEmbeddings
 from ..scene import AssetBank, Scene
 from ..scene.observers import camera_get_all_rays
+from ..scene.scene_bank import create_scene_bank
 from ..training.error_map import ErrorMap, ImpSampler
 from ..training.multi_trainer import MultiObjectTrainer
 from ..training.trainer import Trainer, TrainState
@@ -188,6 +197,110 @@ def build_trainer(cfg: Dict[str, Any], device="cuda") -> Tuple[Trainer, TrainSta
             state.occ[role] = converge_occ(accel, state.occ[role], sdf_scene_tensor,
                                            seed=int(cfg.get("seed", 0)), **cfg["occ_converge"])
     return trainer, state
+
+
+# the Waymo reader's params, which a config of a Waymo sequence keeps beside a
+# command line's dot override of the target (overrides merge into the YAML's
+# params); the demo drive has one camera and one LiDAR and reads none of them
+_WAYMO_READER_PARAMS = ("root", "camera_list", "lidar_list")
+
+
+def single_dataset(cfg: Dict[str, Any]):
+    """The dataset of a single-scene config by its target: the demo drive's
+    sequence in memory (``demo_sequence``, its params less the Waymo
+    reader's); any other target raises, naming itself (``WaymoDataset``
+    waits for a preprocessed sequence in the repository)."""
+    ds = cfg["dataset_cfg"]
+    if ds["target"].rsplit(".", 1)[-1] != "demo_sequence":
+        raise NotImplementedError(f"dataset {ds['target']} is not ported; the single-scene "
+                                  "tool runs the in-memory demo drive (demo_sequence)")
+    return demo_sequence(**{k: v for k, v in dict(ds.get("params", {})).items()
+                            if k not in _WAYMO_READER_PARAMS})
+
+
+def build_everything(cfg: Dict[str, Any], device="cuda",
+                     timings: Optional[Dict[str, float]] = None, pretrain: bool = True,
+                     exp_dir: Optional[str] = None):
+    """-> (scene, bank, renderer, trainer, state, loader) of a single-scene
+    config, as the JAX tool's ``build_everything``: its dataset
+    (:func:`single_dataset`) and scene (``scene.scene_bank.create_scene_bank``
+    with ``scenebank_cfg``, its scenario pickled under ``exp_dir`` where
+    given), the asset bank, the renderer's roles bound by class
+    (``renderer.cr_class``, ``distant_class``, ``sky_class``; the distant
+    field's shells around the close-range box where it has none of its own),
+    the close range's occupancy grid (unless ``renderer.use_occ_accel`` is
+    false), the bank's parameters seeded from ``seed``, each asset's geometry
+    pretraining (the street's road surface; its uniform draws from a
+    generator seeded with ``seed + 1`` on the device; left out with
+    ``pretrain=False``), the :class:`Trainer` with the scene and an
+    ``ImageEmbeddings`` asset as its ``embed_model``, its state (the grid at
+    ``init_state``) and the ``SceneDataLoader``. As in the JAX tool the
+    distant ladder takes ``renderer.distant_query_cfg`` (by default 64
+    samples), not the distant asset's ``query_cfg``. ``timings``, where
+    given, receives the seconds of each part."""
+    import time
+    timings = {} if timings is None else timings
+    cfg = resolve_refs(cfg)
+    dev = resolve_device(device)
+    tcfg = cfg.get("training", {})
+    seed = int(cfg.get("seed", 0))
+
+    t0 = time.perf_counter()
+    dataset = single_dataset(cfg)
+    scene = create_scene_bank(dataset, dict(cfg.get("scenebank_cfg", {})), exp_dir=exp_dir,
+                              device=dev)[0]
+    timings["sequence_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bank = AssetBank.create(cfg["assetbank_cfg"], [scene])
+    rcfg = cfg.get("renderer", {})
+    param_keys: Dict[str, str] = {}
+    assets = {}
+    for role, default in (("cr", "Main"), ("distant", "Distant"), ("sky", "Sky")):
+        cls_name = rcfg.get(f"{role}_class", default)
+        for mid, asset in bank.assets.items():
+            if bank.class_of[mid] == cls_name and asset.field is not None:
+                param_keys[role], assets[role] = mid, asset
+                break
+    if "cr" not in assets:
+        raise ValueError(f"no close-range asset of class {rcfg.get('cr_class', 'Main')}")
+    cr_asset = assets["cr"]
+    dv = assets.get("distant")
+    if dv is not None and getattr(dv.field, "cub_center", 0) is None:
+        dv.field.set_cr_aabb(cr_asset.field.space)
+    accels = {"cr": cr_asset.accel} \
+        if cr_asset.accel is not None and rcfg.get("use_occ_accel", True) else {}
+    renderer = SingleVolumeRenderer(
+        query_cfg={**cr_asset.query_cfg, **dict(rcfg.get("query_cfg", {}))},
+        distant_query_cfg=dict(rcfg.get("distant_query_cfg", {})),
+        param_keys=param_keys, accels=accels)
+    params = bank.init_params(torch.Generator().manual_seed(seed), dev)
+    timings["bank_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    if pretrain:
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        bank.training_initialize({mid: torch.rand(shape, generator=gen, device=dev)
+                                  for mid, shape in bank.pretrain_shapes().items()})
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    timings["pretrain_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    embed = [(a, mid) for mid, a in bank.assets.items() if isinstance(a, ImageEmbeddings)]
+    trainer = Trainer(renderer, loss_cfgs=dict(tcfg.get("losses", {})),
+                      training_cfgs=bank.training_cfgs(),
+                      uniform_sample_n=tcfg.get("uniform_sample_n", 1024),
+                      default_optim_cfg=dict(tcfg.get("optim", {"lr": 1e-2})),
+                      scene=scene, embed_model=embed[0] if embed else None,
+                      debug_grads=bool(tcfg.get("debug_grads", False)),
+                      use_ts_interp=bool(tcfg.get("use_ts_interp", False)))
+    state = trainer.init_state(params)
+    loader = SceneDataLoader(scene, dataset, with_mask=tcfg.get("with_mask", True),
+                             with_lidar=tcfg.get("with_lidar", False),
+                             filter_lidar_in_cams=tcfg.get("filter_lidar_in_cams", False),
+                             filter_lidar_max_range=tcfg.get("filter_lidar_max_range", 0.0))
+    timings["trainer_s"] = time.perf_counter() - t0
+    return scene, bank, renderer, trainer, state, loader
 
 
 def _dataset_target(cfg: Dict[str, Any]) -> Tuple[str, Dict[str, Any]]:

@@ -1,5 +1,6 @@
-"""Train a multi-object scene with the port (the loop and the driver of
-neuralsim_tpu/tools/train_multi.py:81-329).
+"""Train a multi-object scene with the port (the tool of
+neuralsim_tpu/tools/train_multi.py:81-329; the loop, ``train_loop``, is the
+single-scene tool's, in tools/train.py).
 
     from neuralsim_torch.configs import WAYMO_DEMO_MULTI, at_num_iters
     from neuralsim_torch.tools.train_multi import main_function, train_multi
@@ -31,115 +32,17 @@ from __future__ import annotations
 
 import json
 import os
-import time
 from typing import Any, Dict, Optional
 
-import numpy as np
 import torch
 
 from ..configs import resolve_refs
-from ..training.multi_trainer import lift_lidar_batch
 from ..utils.checkpoint import CheckpointIO
 from ..utils.logger import Logger
 from .build import build_multi_trainer
-from .train import FiniteWatch
-
-_PIXEL_KEYS = ("rays_fidx", "rays_xy", "image_rgb", "image_occupancy_mask")
-_LIDAR_KEYS = ("rays_fidx", "rays_o_local", "rays_d_local", "ranges")
-
-
-def to_device(raw: Dict[str, Any], keys, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(raw[k])).to(device)
-            for k in keys if k in raw}
-
-
-def train_loop(scene, trainer, state, samplers: Dict[str, Any], num_iters: int,
-               generator: torch.Generator, i_log: int = 100,
-               log: Optional[list] = None, logger: Optional[Logger] = None,
-               ckpt: Optional[CheckpointIO] = None, iter_s: Optional[list] = None):
-    """Run loop iterations from ``state.it`` up to ``num_iters``; every
-    ``i_log`` iterations (the only other place the loop waits for the card)
-    the scalar metrics of both steps go to ``log`` and ``logger``, are
-    printed and go through the finite guard's watchdog (``FloatingPointError``
-    when every step of the window was skipped, after saving the checkpoint
-    ``nan_debug``). After each iteration ``ckpt.maybe_save``; ``iter_s``
-    receives each iteration's seconds on the host clock. Returns the state."""
-    dev = state.skips.device
-    pix, lid, imp = samplers["pixel"], samplers.get("lidar"), samplers.get("imp")
-    log = [] if log is None else log
-    t0 = time.time()
-    watch = FiniteWatch(i_log, int(state.skips))
-    sticky: Dict[str, torch.Tensor] = {}
-    for it in range(state.it, num_iters):
-        t_it = time.perf_counter()
-        if lid is not None:
-            lb = lid.sample()
-            if lb is not None:
-                lbatch = lift_lidar_batch(scene, {**to_device(lb, _LIDAR_KEYS, dev),
-                                                  "lidar_id": lb["lidar_id"]})
-                noise = trainer.draw_noise("lidar", lbatch["ranges"].shape[0], generator,
-                                           state.it)
-                state, ml = trainer.train_step(state, lbatch, noise, "lidar", None, False)
-                sticky.update({f"lidar/{k}": v for k, v in ml.items()})
-        raw = pix.sample()
-        batch = to_device(raw, _PIXEL_KEYS, dev)
-        noise = trainer.draw_noise("pixel", batch["rays_fidx"].shape[0], generator, state.it)
-        state, m = trainer.train_step(state, batch, noise, "pixel", raw["cam_id"])
-        if imp is not None and "err_map" in m:
-            W, H = pix.loader.image_wh(raw["cam_id"])
-            imp.update(raw["rays_fidx"], raw["rays_sel"][:, 1], raw["rays_sel"][:, 0],
-                       m["err_map"].cpu().numpy(), H, W, cam_id=raw["cam_id"])
-        if it % i_log == 0:
-            mm = {k: float(v) for k, v in {**sticky, **m}.items() if v.dim() == 0}
-            rate = (it + 1) * pix.n_rays / max(time.time() - t0, 1e-9)
-            print(f"it={it} loss={mm['loss_total']:.4f} rays/s={rate:.0f}", flush=True)
-            log.append({"it": it, **mm})
-            if logger is not None:
-                logger.add_scalars(mm, it)
-            try:
-                watch.check(mm, it)
-            except FloatingPointError:
-                if ckpt is not None:
-                    ckpt.save(state, it, tag="nan_debug")
-                raise
-        if ckpt is not None:
-            ckpt.maybe_save(state, it)
-        if iter_s is not None:
-            iter_s.append(time.perf_counter() - t_it)
-    return state
-
-
-def loop_state(generator: torch.Generator, samplers: Dict[str, Any]) -> Dict[str, Any]:
-    """What the loop carries besides the train state: the noise generator's
-    state, the samplers' numpy generators and the importance sampler's error
-    maps and count."""
-    imp = samplers.get("imp")
-    return {"generator": generator.get_state(), "generator_device": generator.device.type,
-            "rngs": {name: samplers[name].rng.bit_generator.state
-                     for name in ("pixel", "lidar") if samplers.get(name) is not None},
-            "imp": None if imp is None else {
-                "it": imp.it, "default": torch.from_numpy(imp.error_map.map),
-                "maps": {cam: torch.from_numpy(m.map) for cam, m in imp.maps.items()}}}
-
-
-def restore_loop(loop: Dict[str, Any], generator: torch.Generator,
-                 samplers: Dict[str, Any]) -> None:
-    """Set the loop's state saved by :func:`loop_state`; the noise generator
-    only on the device type it was saved from (its state is another on the
-    CPU and on the card)."""
-    if loop["generator_device"] != generator.device.type:
-        raise ValueError(f"a run saved on {loop['generator_device']} resumes there, not on "
-                         f"{generator.device.type}")
-    generator.set_state(loop["generator"])
-    for name, st in loop["rngs"].items():
-        samplers[name].rng.bit_generator.state = st
-    imp = samplers.get("imp")
-    if loop["imp"] is not None:
-        imp.it = int(loop["imp"]["it"])
-        imp.error_map.map[...] = loop["imp"]["default"].numpy()
-        for cam, m in loop["imp"]["maps"].items():
-            imp._map_for(cam).map[...] = m.numpy()
-
+# the loop is the single-scene tool's, shared by both tools
+from .train import (_LIDAR_KEYS, _PIXEL_KEYS, FiniteWatch, loop_state,  # noqa: F401
+                    restore_loop, to_device, train_loop)
 
 def train_multi(cfg: Dict[str, Any], num_iters: Optional[int] = None, device="cuda"
                 ) -> Dict[str, Any]:

@@ -1,6 +1,6 @@
 """Trainer: loss assembly and the training step over a renderer (port of
-neuralsim_tpu/training/trainer.py:31-71, 134-157, 213-231, 286-311, 353-418
-for the ``pixel`` step of the single-scene models).
+neuralsim_tpu/training/trainer.py:31-71, 118-133, 134-314, 353-418 for the
+``pixel`` and ``lidar`` steps of the single-scene models).
 
 PyTorch runs eagerly, so the step is plain Python around autograd: render with
 ``return_buffer=True``, assemble the losses, differentiate, and step each
@@ -21,8 +21,18 @@ grid is refreshed on its cadence from the parameters as the guard left them
 (``it`` is a host integer, so the cadence is a host branch; the refresh runs
 under ``torch.no_grad()``).
 
-Not ported yet: the lidar, image-patch and view steps, pose refinement,
-appearance embeddings, ``debug_grads``.
+A pixel batch comes either as world rays {rays_o, rays_d, ...} or, with a
+``scene``, as (frame, pixel) of camera ``cam_id`` {rays_fidx, rays_xy, ...},
+lifted to world rays through the scene frozen at each ray's frame. A
+``lidar`` step (StreetSurf's) renders the close range alone (``only_cr``),
+with no rgb, for the depth and line-of-sight losses on the beams' ranges; it
+does not advance ``it`` or refresh a grid (``advance_it=False``). With an
+``embed_model`` (an ``ImageEmbeddings`` asset and its model id) each pixel
+ray takes its frame's appearance code as ``h_appear``.
+
+Not ported yet (each raises, naming itself): the image-patch and view steps,
+pose refinement, the image post-processor, the cross_cr_dv mask entropy,
+``debug_grads`` and ``use_ts_interp``.
 """
 from __future__ import annotations
 
@@ -32,10 +42,15 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from ..losses.core import (eikonal_loss, mask_entropy_loss, mask_occupancy_loss,
-                           photometric_loss, sparsity_loss)
+import warnings
+
+from ..losses.core import (clearance_loss, eikonal_loss, lidar_loss, mask_entropy_loss,
+                           mask_occupancy_loss, photometric_loss, sparsity_loss)
 from ..fields.neus import map_chunked
+from ..scene.observers import camera_get_selected_rays
 from .optimizers import ModelAdam, make_optimizer
+
+STEP_TYPES = ("pixel", "lidar")
 
 
 @dataclass
@@ -52,20 +67,41 @@ class Trainer:
 
     loss_cfgs keys: ``rgb`` {fn_type, fn_param, w}, ``occupancy_mask`` {w,
     mode}, ``mask_entropy`` {w, mode}, ``eikonal`` {w, noise_std,
-    on_render_ratio}, ``sparsity`` {w, inv_scale}. training_cfgs:
-    {model id: optimizer config}.
+    on_render_ratio}, ``sparsity`` {w, inv_scale}, ``clearance`` {w, thresh,
+    beta}, ``lidar`` {w, discard_toofar, discard_outliers_median, depth,
+    line_of_sight}. training_cfgs: {model id: optimizer config}. ``scene``:
+    the scene that pixel batches of (frame, pixel) are lifted through;
+    ``embed_model``: (ImageEmbeddings asset, its model id) or None.
     """
 
     def __init__(self, renderer, loss_cfgs: Dict[str, Dict],
                  training_cfgs: Optional[Dict[str, Dict]] = None,
                  uniform_sample_n: int = 1024,
-                 default_optim_cfg: Optional[Dict] = None):
+                 default_optim_cfg: Optional[Dict] = None,
+                 scene=None, pose_model_id: Optional[str] = None,
+                 embed_model: Optional[Tuple[Any, str]] = None,
+                 debug_grads: bool = False, use_ts_interp: bool = False):
+        for name, on in (("pose refinement", pose_model_id), ("debug_grads", debug_grads),
+                         ("use_ts_interp", use_ts_interp)):
+            if on:
+                raise NotImplementedError(f"{name} is not ported")
         self.renderer = renderer
         self.loss_cfgs = dict(loss_cfgs)
         self.training_cfgs = dict(training_cfgs or {})
         self.uniform_sample_n = uniform_sample_n
+        self.scene = scene
+        self.embed_model = embed_model
         self.default_optim_cfg = default_optim_cfg or {"lr": 1e-2, "betas": (0.9, 0.99),
                                                        "eps": 1e-15}
+        me_mode = self.loss_cfgs.get("mask_entropy", {}).get("mode", "")
+        if me_mode.startswith("cross"):
+            if "distant" in renderer.param_keys:
+                raise NotImplementedError(f"the {me_mode} mask entropy is not ported")
+            # as the JAX trainer: without a distant model a cross* mode is the
+            # generic mask entropy
+            warnings.warn(f"mask_entropy mode '{me_mode}' needs a distant model in the "
+                          f"renderer; falling back to the generic mask-entropy loss",
+                          stacklevel=2)
 
     def init_state(self, params: nn.ModuleDict) -> TrainState:
         opt = make_optimizer(self.training_cfgs, params, self.default_optim_cfg)
@@ -75,15 +111,19 @@ class Trainer:
                           occ or None)
 
     def draw_noise(self, n_rays: int, generator: torch.Generator,
-                   it: Optional[int] = None) -> Dict[str, Any]:
+                   it: Optional[int] = None, step_type: str = "pixel") -> Dict[str, Any]:
         """One step's random draws, all on the generator's device: the coarse
         jitter (``"occ_proposal"`` instead of ``"coarse"`` where the occupancy
         grid places the coarse samples), each upsample stage's stratified
         noise, the distant ladder's jitter where the renderer has a distant
-        model, the uniform points of the geometry regularisers, where the
-        eikonal config asks for it normal noise on the norms and, where step
-        ``it`` refreshes an occupancy grid, ``"occ_update"``: {role: the
-        voxel jitter}."""
+        model (not for a ``lidar`` step, which renders the close range
+        alone), the uniform points of the geometry regularisers, where the
+        eikonal config asks for it normal noise on the norms and, where a
+        pixel step at ``it`` refreshes an occupancy grid, ``"occ_update"``:
+        {role: the voxel jitter}."""
+        if step_type not in STEP_TYPES:
+            raise NotImplementedError(f"the {step_type} step is not ported")
+        pixel = step_type == "pixel"
         cfg = self.renderer.query_cfg
         dev = generator.device
         rand = lambda *shape: torch.rand(shape, generator=generator, device=dev)
@@ -93,12 +133,12 @@ class Trainer:
                 rand(n_rays, cfg.get("num_coarse", 128)),
             "fine": [rand(n_rays, nf) for nf in cfg.get("num_fine", (32, 32))],
             "uniform": rand(self.uniform_sample_n, 3)}
-        if "distant" in self.renderer.param_keys:
+        if "distant" in self.renderer.param_keys and pixel:
             noise["distant"] = rand(
                 n_rays, self.renderer.distant_query_cfg.get("num_samples", 64))
         refresh = {role: rand(a.samples_per_voxel, a.res, a.res, a.res, 3)
                    for role, a in accels.items()
-                   if it is not None and it % a.n_steps_between_update == 0}
+                   if pixel and it is not None and it % a.n_steps_between_update == 0}
         if refresh:
             noise["occ_update"] = refresh
         if self.loss_cfgs.get("eikonal", {}).get("noise_std", 0.0) > 0:
@@ -106,30 +146,59 @@ class Trainer:
                                            device=dev)
         return noise
 
+    def h_appear(self, params: nn.ModuleDict, batch: Dict[str, torch.Tensor],
+                 cam_id: Optional[str]) -> Optional[torch.Tensor]:
+        """Each ray's appearance code [N, dim] from its frame index, where the
+        trainer has an embedding model with a table for ``cam_id``."""
+        if self.embed_model is None or cam_id is None or "rays_fidx" not in batch:
+            return None
+        easset, emid = self.embed_model
+        if emid not in params or cam_id not in easset.tables:
+            return None
+        return easset.h_appear(params[emid], cam_id, batch["rays_fidx"].long())
+
     def compute_losses(self, params: nn.ModuleDict, batch: Dict[str, torch.Tensor], it: int,
-                       noise: Dict[str, Any], occ: Optional[Dict[str, Any]] = None
+                       noise: Dict[str, Any], occ: Optional[Dict[str, Any]] = None,
+                       step_type: str = "pixel", cam_id: Optional[str] = None
                        ) -> Tuple[torch.Tensor, Dict]:
-        """The loss dict of one pixel batch {rays_o, rays_d, image_rgb,
-        image_occupancy_mask?} -> (total, {"losses", "aux"}). ``occ``: the
-        occupancy grids' states, handed to the renderer."""
+        """The loss dict of one batch -> (total, {"losses", "aux"}): a pixel
+        batch {rays_o, rays_d | rays_fidx, rays_xy (of camera ``cam_id``);
+        image_rgb, image_occupancy_mask?}, or a LiDAR batch {rays_o, rays_d,
+        ranges}. ``occ``: the occupancy grids' states, handed to the
+        renderer."""
+        if step_type not in STEP_TYPES:
+            raise NotImplementedError(f"the {step_type} step is not ported")
         cr = params[self.renderer.pkey("cr")]
         losses: Dict[str, torch.Tensor] = {}
         aux: Dict[str, Any] = {}
+        if "rays_xy" in batch and self.scene is not None:
+            frozen = self.scene.slice_at(batch["rays_fidx"].long())
+            ro, rd = camera_get_selected_rays(frozen, cam_id, batch["rays_xy"])
+            batch = {**batch, "rays_o": ro.contiguous(), "rays_d": rd.contiguous()}
+        lidar = step_type == "lidar"
         rendered = self.renderer.ray_query(params, batch["rays_o"], batch["rays_d"], it=it,
-                                           noise=noise, with_rgb=True, return_buffer=True,
-                                           occ_states=occ)
+                                           noise=noise, with_rgb=not lidar, only_cr=lidar,
+                                           return_buffer=True, occ_states=occ,
+                                           h_appear=self.h_appear(params, batch, cam_id))
         buf = rendered["merged_buffer"]
 
-        if "rgb" in self.loss_cfgs:
-            losses["loss_rgb"], ph_aux = photometric_loss(rendered, batch, it,
-                                                          self.loss_cfgs["rgb"])
-            aux.update(ph_aux)
-        if "occupancy_mask" in self.loss_cfgs and "image_occupancy_mask" in batch:
-            losses["loss_mask"] = mask_occupancy_loss(rendered, batch, it,
-                                                      self.loss_cfgs["occupancy_mask"])
-        if "mask_entropy" in self.loss_cfgs:
-            losses["loss_mask_entropy"] = mask_entropy_loss(rendered, it,
-                                                            self.loss_cfgs["mask_entropy"])
+        if step_type == "pixel":
+            if "rgb" in self.loss_cfgs:
+                losses["loss_rgb"], ph_aux = photometric_loss(rendered, batch, it,
+                                                              self.loss_cfgs["rgb"])
+                aux.update(ph_aux)
+            if "occupancy_mask" in self.loss_cfgs and "image_occupancy_mask" in batch:
+                losses["loss_mask"] = mask_occupancy_loss(rendered, batch, it,
+                                                          self.loss_cfgs["occupancy_mask"])
+            if "mask_entropy" in self.loss_cfgs:
+                losses["loss_mask_entropy"] = mask_entropy_loss(rendered, it,
+                                                                self.loss_cfgs["mask_entropy"])
+        if lidar and "lidar" in self.loss_cfgs:
+            # the close range's weights: the composite's, as alpha_to_vw's
+            losses["loss_lidar"], lid_aux = lidar_loss(
+                rendered, batch["ranges"], it, self.loss_cfgs["lidar"],
+                buf={**buf, "vw": rendered["vw"]})
+            aux.update({f"lidar_{k}": v for k, v in lid_aux.items()})
 
         # geometry regularisers on uniform points and on the rendered samples
         if "eikonal" in self.loss_cfgs or "sparsity" in self.loss_cfgs:
@@ -144,6 +213,9 @@ class Trainer:
                 losses["loss_eikonal"] = loss_eik
             if "sparsity" in self.loss_cfgs:
                 losses["loss_sparsity"] = sparsity_loss(sdf_u, it, self.loss_cfgs["sparsity"])
+        if "clearance" in self.loss_cfgs:
+            losses["loss_clearance"] = clearance_loss(rendered["details_cr"]["near_sdf"], it,
+                                                      self.loss_cfgs["clearance"])
 
         total = sum(losses.values(), torch.zeros((), device=batch["rays_o"].device))
         aux["rendered_mask_mean"] = rendered["mask_volume"].detach().mean()
@@ -151,18 +223,25 @@ class Trainer:
         return total, {"losses": losses, "aux": aux}
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
-                   noise: Dict[str, Any]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One optimizer step behind the finite guard. Returns the state
-        (parameters and optimizers updated in place, ``it`` advanced) and the
-        step's metrics, all device tensors: nothing here waits for the card."""
-        total, extras = self.compute_losses(state.params, batch, state.it, noise, state.occ)
+                   noise: Dict[str, Any], step_type: str = "pixel",
+                   cam_id: Optional[str] = None, advance_it: bool = True
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One optimizer step of ``step_type`` behind the finite guard. Returns
+        the state (parameters and optimizers updated in place; with
+        ``advance_it``, the grids refreshed on their cadence and ``it``
+        advanced) and the step's metrics, all device tensors: nothing here
+        waits for the card."""
+        total, extras = self.compute_losses(state.params, batch, state.it, noise, state.occ,
+                                            step_type, cam_id)
         metrics = guarded_step(state, total, extras)
         if state.occ is not None:
-            self.refresh_occ(state, noise.get("occ_update", {}))
+            if advance_it:
+                self.refresh_occ(state, noise.get("occ_update", {}))
             if "cr" in state.occ:
                 metrics["occ_frac"] = self.renderer.accels["cr"].occupied_fraction(
                     state.occ["cr"])
-        state.it += 1
+        if advance_it:
+            state.it += 1
         return state, metrics
 
     @torch.no_grad()

@@ -483,10 +483,18 @@ def test_asset_route_builds_a_grid_and_a_distant_field():
         assert np.isfinite(float(m["loss_total"])) and float(m["occ_frac"]) == 1.0
     assert accel.n_warmup_steps > 3
     assert torch.equal(vals[0], vals[1]) and not torch.equal(vals[1], vals[2])   # it 0, 1, 2
-    with pytest.raises(NotImplementedError):
-        bad = copy.deepcopy(cfg)
-        bad["assetbank_cfg"]["Distant"]["model_params"]["geometry"] = "lotd"
-        build_trainer(bad, device="cpu")
+    # geometry "lotd" gives the 4-D LoTD distant field (held to JAX in
+    # test_torch_streetsurf.py); a CP level of it is not ported and raises
+    lotd4 = copy.deepcopy(cfg)
+    lotd4["assetbank_cfg"]["Distant"]["model_params"].update(
+        geometry="lotd", encoding_cfg={"n_levels": 2, "base_res": 4, "max_res": 8,
+                                       "log2_hashmap_size": 10})
+    _, st4 = build_trainer(lotd4, device="cpu")
+    assert st4.params["Distant"].encoding.input_dim == 4
+    with pytest.raises(NotImplementedError, match="CP level of a 4-D LoTD"):
+        lotd4["assetbank_cfg"]["Distant"]["model_params"]["encoding_cfg"] = {
+            "levels": [(8, 2, "cp")]}
+        build_trainer(lotd4, device="cpu")
 
 
 def test_full_width_bench_model_builds_on_cpu():

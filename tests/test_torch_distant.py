@@ -148,8 +148,13 @@ def test_distant_ray_query_matches_jax(distant_pair, noisy):
 
 
 def test_distant_lotd_geometry_is_named_as_not_ported():
-    with pytest.raises(NotImplementedError, match="4-D LoTD"):
-        NeRFDistantField(geometry="lotd")
+    """The 4-D LoTD geometry is ported (tests/test_torch_streetsurf.py holds
+    it to JAX); what of it is not, a CP level in four dimensions, raises
+    naming itself. The NeRFDistant asset keeps the MLP geometry."""
+    f = NeRFDistantField(geometry="lotd", encoding_cfg={"n_levels": 2, "max_res": 32})
+    assert f.encoding.input_dim == 4 and [s.typ for s in f.encoding.specs] == ["dense", "hash"]
+    with pytest.raises(NotImplementedError, match="CP level of a 4-D LoTD"):
+        NeRFDistantField(geometry="lotd", encoding_cfg={"levels": [(8, 2, "cp")]})
     asset = asset_class("neuralsim_tpu.models.assets.NeRFDistant")({"geo_feat_dim": 8})
     asset.populate()
     assert isinstance(asset.field, NeRFDistantField) and asset.field.decoder.out_dim == 9

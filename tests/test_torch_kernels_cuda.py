@@ -64,7 +64,11 @@ forward is held at K1/K3's tolerance at chip_smoke.k3_edge_cases (F 1-8,
 dense and hash levels in one meta, levels staged in shared memory,
 interleaved into the scratch and read from the table, x01 at 0, 1, one ulp
 below 1, below 0 and above 1, N 1 to 65,537, with and without the jacobian);
-K13 at chip_smoke.latent_edge_cases, and its backward is one kernel a call
+K3 in four dimensions (lotd_grid4, the 4-D LoTD distant field's levels:
+a dense level of 17^4 rows and hash levels of 2^17) at K1/K3's tolerance
+at 1 to 262,144 points with chip_smoke.k3_4d_points' edges, its backward at
+chip_smoke.GRAD_REL, the field under autograd against the CPU at
+chip_smoke.STEP_GRAD_REL; K13 at chip_smoke.latent_edge_cases, and its backward is one kernel a call
 at the path shapes. A checkpoint of a trained waymo_demo_multi state loaded
 into a fresh build (whose frame was rendered first, filling K14's lines
 cache and K3's scratch from the fresh tables) holds every tensor and renders
@@ -250,7 +254,7 @@ def test_render_on_card_matches_cpu(dev):
     assert all(k.launches > 0 for k in kernels.KERNELS.values()
                if not k.name.endswith(".bwd")
                and k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY + cs.CROWD_ONLY
-               + cs.PERLEVEL_ONLY + cs.PERMUTO_ONLY + cs.LATENT_ONLY)
+               + cs.PERLEVEL_ONLY + cs.PERMUTO_ONLY + cs.LATENT_ONLY + cs.STREETSURF_ONLY)
     assert kernels.KERNELS["volume_composite"].launches == 0    # K12 composites it
     want = renderer.render_chunked(copy.deepcopy(params).to("cpu"), o, d, rayschunk=100)
     for k, v in want.items():
@@ -405,7 +409,7 @@ def test_train_step_on_card_matches_cpu(dev):
     loss_err, grad_err = cs.check_first_step(trainer, state, rig, dev, n_rays=512)
     assert all(k.launches > 0 for k in kernels.KERNELS.values()
                if k.name not in cs.BENCH_ONLY + cs.COMPOSE_ONLY + cs.MULTI_ONLY + cs.CROWD_ONLY
-               + cs.PERLEVEL_ONLY + cs.PERMUTO_ONLY + cs.LATENT_ONLY)
+               + cs.PERLEVEL_ONLY + cs.PERMUTO_ONLY + cs.LATENT_ONLY + cs.STREETSURF_ONLY)
     assert loss_err <= cs.STEP_LOSS_RTOL and grad_err <= cs.STEP_GRAD_REL
 
 
@@ -806,7 +810,8 @@ def test_multi_object_iterations_launch_their_kernels(dev, multi_built):
                            "occ_ray_proposal", "occ_ema_update", "occ_voxel_points")] == \
         [3, 3, 3, 3, 0, 0, 6, 1, 1]
     assert all(v > 0 for k, v in n.items() if k not in cs.CROWD_ONLY + cs.PERLEVEL_ONLY
-               + cs.PERMUTO_ONLY + ("volume_composite", "volume_composite.bwd"))
+               + cs.PERMUTO_ONLY + cs.STREETSURF_ONLY
+               + ("volume_composite", "volume_composite.bwd"))
     assert not any(n[k] for k in cs.CROWD_ONLY)      # 3 vehicles: no pair budget, no K10
     assert not any(n[k] for k in cs.PERMUTO_ONLY)    # LoTD vehicles
     assert log[-1]["skips_total"] == 0 and all(np.isfinite(r["loss_total"]) for r in log)
@@ -1680,3 +1685,97 @@ def test_k8_and_k5b_at_an_evaluation_chunk(dev):
                               **WAYMO_DEMO_MULTI["occ_converge"])}
     _, e5, shapes = cs.check_eval_chunk(dev, renderer, params, scene, occ)   # K8 raises past K8_TOL
     assert e5 == 0.0 and any(n == cs.EVAL_CHUNK for n, _, _ in shapes)
+
+
+# ---------------------------------------------------------------------------
+# K3 in four dimensions (lotd_grid4): the StreetSurf distant field's levels
+# ---------------------------------------------------------------------------
+
+def _distant_encoding(dev):
+    """The 4-D LoTD of configs/waymo_streetsurf.yaml's distant field (1 dense
+    level of 17^4 rows, 9 hash levels of 2^17, F 2) with a table of N(0, 1)
+    values."""
+    enc = lotd.make_lotd({"n_levels": 10, "base_res": 16, "max_res": 1024,
+                          "log2_hashmap_size": 17}, input_dim=4).to(dev)
+    with torch.no_grad():
+        enc.table.copy_(_t(np.random.default_rng(70).normal(size=enc.total_params)
+                           .astype(np.float32), dev))
+    return enc
+
+
+@pytest.mark.parametrize("n", [1, 31, 625, 4097, 262_144])
+def test_k3_4d_forward_at_the_distant_levels_and_edges(dev, n):
+    """Within K1/K3's 1e-5 of the plain version, edge points first (0, 1,
+    one ulp below 1, below 0 and above 1 in all four coordinates); the
+    distant field's plans stage no level; counted as lotd_grid4, not K3."""
+    enc = _distant_encoding(dev)
+    assert enc.grid_fwd_plan.n_shared == 0 and enc.grid_bwd_plan.n_private == 0
+    x = _t(cs.k3_4d_points(n, 71), dev)
+    kernels.reset_counts()
+    got = cs.encode_into(lotd.lotd_grid, (enc.table.detach(), x, enc._grid_meta), enc.out_dim,
+                         n, dev, False)
+    assert kernels.KERNELS["lotd_grid4"].launches == 1
+    assert kernels.KERNELS["lotd_grid"].launches == 0
+    want = cs.encode_into(lotd.lotd_grid_plain, (enc.table.detach(), x, enc._grid_meta),
+                          enc.out_dim, n, dev, False)
+    _close(got[0], want[0], 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 625, 262_144])
+def test_k3_4d_backward_at_the_distant_levels(dev, n):
+    """The table gradient within chip_smoke.GRAD_REL of its largest entry
+    (every level with device atomics); a 4-D jacobian raises on the card."""
+    enc = _distant_encoding(dev)
+    x = _t(cs.k3_4d_points(n, 72), dev)
+    d_out = cs.cotangents((enc.out_dim, n), 73, dev)
+    T, meta = enc.total_params, enc._grid_meta
+    got = lotd.lotd_grid_bwd(T, x, meta, d_out, None)
+    want = lotd.lotd_grid_bwd_plain(T, x, meta, d_out, None)
+    cs.compare_rel(f"K3-4D bwd N={n}", [got], [want], cs.GRAD_REL)
+    with pytest.raises(NotImplementedError, match="3-D points only"):
+        lotd.lotd_grid_bwd(T, x, meta, None, cs.cotangents((4, enc.out_dim, n), 74, dev))
+    with pytest.raises(NotImplementedError, match="3-D points only"):
+        lotd.lotd_grid(enc.table.detach(), x, meta, torch.empty(enc.out_dim, n, device=dev),
+                       torch.empty(4, enc.out_dim, n, device=dev))
+
+
+def test_k3_4d_staged_private_and_table_paths(dev):
+    """chip_smoke.check_k3_4d at a small size: a 4-D ladder of F 4 staged in
+    shared memory (the wide kernel), its dense level private in the
+    backward, and read from the table under a plan with no copies."""
+    enc = _distant_encoding(dev)
+    errs, _ = cs.check_k3_4d(dev, enc, 4096)
+    assert errs["lotd_grid4"][0] <= 1e-5 and errs["lotd_grid4.bwd"][1] == cs.GRAD_REL
+
+
+def test_k3_4d_distant_field_under_autograd_matches_the_cpu(dev):
+    """The 4-D LoTD distant field's ray query and its parameters' gradients
+    on the card against the CPU path (K3-4D and its backward inside)."""
+    from neuralsim_torch.fields.nerf import NeRFDistantField
+    f = NeRFDistantField(geometry="lotd", geo_feat_dim=4, radiance_hidden=16,
+                         appear_embed_dim=4, encoding_cfg={"n_levels": 4, "base_res": 4,
+                                                           "max_res": 32,
+                                                           "log2_hashmap_size": 12})
+    f.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        f.encoding.table.normal_(0.0, 0.3, generator=torch.Generator().manual_seed(1))
+    f.set_cr_aabb(AABBSpace([-6.0, -5.0, -1.0], [9.0, 5.0, 4.0]))
+    g = copy.deepcopy(f).to(dev)
+    rng = np.random.default_rng(75)
+    o = rng.uniform(-2, 2, (512, 3)).astype(np.float32)
+    d = rng.normal(size=(512, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    near = rng.uniform(5.0, 12.0, 512).astype(np.float32)
+    h = rng.normal(0, 0.3, (512, 4)).astype(np.float32)
+    outs = []
+    for m, dv in ((f, "cpu"), (g, dev)):
+        b = m.ray_query(_t(o, dv), _t(d, dv), near=_t(near, dv), num_samples=32,
+                        h_appear=_t(h, dv))
+        loss = b["alpha"].sum() + b["rgb"].square().sum()
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        outs.append(([b["alpha"].detach().cpu(), b["rgb"].detach().cpu()],
+                     [x.cpu() for x in grads]))
+    (fa, fg), (ga, gg) = outs
+    for a, b in zip(ga, fa):
+        _close(a, b, 1e-4, 1e-5)
+    cs.compare_rel("distant field grads card vs cpu", gg, fg, cs.STEP_GRAD_REL)

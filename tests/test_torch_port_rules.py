@@ -13,10 +13,13 @@ import torch
 from neuralsim_torch import kernels
 from neuralsim_torch.bridge import load_jax_params
 from neuralsim_torch.configs import (BENCH_OBJECT, SYNTHETIC_MULTI, SYNTHETIC_OBJECT,
-                                    WAYMO_DEMO_CROWD, WAYMO_DEMO_MULTI, WAYMO_DEMO_PERMUTO)
+                                    WAYMO_DEMO_CROWD, WAYMO_DEMO_MULTI, WAYMO_DEMO_PERMUTO,
+                                    WAYMO_STREETSURF)
 from neuralsim_torch.fields.blocks import MLP
-from neuralsim_torch.tools.build import (build_compose_renderer, build_multi_trainer,
-                                         build_renderer, build_trainer)
+from neuralsim_torch.tools.build import (build_compose_renderer, build_everything,
+                                         build_multi_trainer, build_renderer, build_trainer)
+from neuralsim_torch.tools.train import main as train_single_cli
+from neuralsim_torch.tools.train import main_function as train_single_main
 from neuralsim_torch.tools.train import train
 from neuralsim_torch.tools.eval_lidar import main_function as eval_lidar_main
 from neuralsim_torch.tools.eval_multi import main_function as eval_multi_main
@@ -50,7 +53,8 @@ def test_importing_every_module_loads_no_jax():
               "tools.train_multi", "models.assets", "ops.pair_compact",
               "dataio.synthetic_multi", "fields.encodings.permuto", "ops.latent_take",
               "utils", "utils.checkpoint", "utils.logger", "utils.misc", "maths.metrics",
-              "tools.eval_multi", "tools.eval_lidar"):
+              "tools.eval_multi", "tools.eval_lidar", "config", "config.config",
+              "fields.embeddings", "scene.scene_bank", "tools.build"):
         assert f"neuralsim_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -72,7 +76,9 @@ def test_sources_do_not_import_jax():
     assert ROOT / "scripts" / "torch_finish_waymo_demo.py" in files
     for new in ("ops/pair_compact.py", "dataio/synthetic_multi.py", "accel/occ_grid.py",
                 "fields/encodings/permuto.py", "fields/conditional.py", "ops/latent_take.py",
-                "utils/checkpoint.py", "tools/eval_multi.py", "tools/eval_lidar.py"):
+                "utils/checkpoint.py", "tools/eval_multi.py", "tools/eval_lidar.py",
+                "config/config.py", "config/__init__.py", "fields/embeddings.py",
+                "scene/scene_bank.py"):
         assert PKG / new in files
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -126,6 +132,36 @@ def test_driver_main_functions_default_to_the_card(monkeypatch, tmp_path, entry)
     assert not (tmp_path / "exp").exists()
 
 
+def test_single_scene_tool_defaults_to_the_card(monkeypatch, tmp_path):
+    """build_everything, main_function and the command line of
+    tools/train.py on WAYMO_STREETSURF: refused before any file is written."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = {**WAYMO_STREETSURF, "exp_dir": str(tmp_path / "exp")}
+    for entry in (build_everything, train_single_main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_single_cli(["--config", str(ROOT / "configs" / "waymo_streetsurf.yaml"),
+                          f"--exp_dir={tmp_path / 'exp'}", "--dataset_cfg.target="
+                          "neuralsim_torch.dataio.waymo_demo.demo_sequence"])
+    assert not (tmp_path / "exp").exists()
+
+
+def test_the_config_reader_imports_pyyaml_only_for_a_yaml_file(tmp_path):
+    """In a fresh interpreter: reading a JSON config, command-line values
+    and the whole single-scene tool load no PyYAML."""
+    (tmp_path / "c.json").write_text('{"a": {"b": "${eval:\'1 + 2\'}"}}')
+    code = ("import sys\n"
+            "from neuralsim_torch.config import BaseConfig\n"
+            "import neuralsim_torch.tools.train\n"
+            f"c = BaseConfig().parse(['--config', {str(tmp_path / 'c.json')!r}, '--x=[1, 2]'])\n"
+            "assert c['a']['b'] == 3 and c['x'] == [1, 2], c\n"
+            "assert 'yaml' not in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_ctypes_signatures_match_the_cuda_sources():
     """The argtypes declared in kernels.py against each extern "C" entry in
     csrc/ (nvcc is not available here to catch a mismatch)."""
@@ -161,7 +197,8 @@ def test_every_kernel_is_registered_once_with_its_source():
                      "cross_source_vw", "cross_source_vw.bwd", "occ_ray_proposal_batched",
                      "pair_compact", "lotd_cp_level", "lotd_cp_level.bwd", "neus_composite",
                      "neus_composite.bwd", "permuto", "permuto.bwd", "latent_take",
-                     "latent_take.bwd", "lotd_cp_lines", "lotd_cp_lines.bwd"}
+                     "latent_take.bwd", "lotd_cp_lines", "lotd_cp_lines.bwd", "lotd_grid4",
+                     "lotd_grid4.bwd"}
     for k in kernels.KERNELS.values():
         assert (ROOT / k.source).exists() and re.match(r"neuralsim_tpu/.+\.py:\d+$", k.replaces)
         assert (ROOT / k.replaces.split(":")[0]).exists()
