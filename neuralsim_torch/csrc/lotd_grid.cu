@@ -50,7 +50,14 @@
 //    (corner order, _rn), so the outputs keep its bits.
 //  * D = 4 (the distant field: a dense level of 17^4 rows, 668 KB at F 2, and
 //    hash levels of 2^17 rows, 1 MB each) stages nothing in 96 KB: every level
-//    goes through the interleaved scratch.
+//    goes through the interleaved scratch, each level's copy from a 32-byte
+//    boundary (the 668 KB dense copy left every hash level after it 16 bytes
+//    into a sector, and a point's corners touched 11% more sectors: 0.386 ->
+//    0.340 ms at a pixel step's 524,288 points on an H100). Loading a
+//    corner's axis-0 neighbour with it (one 16-byte load a pair of rows r,
+//    r ^ 1) asked for 16-28% fewer sectors but was 1-6% slower, also with 8
+//    or 4 corners in flight and more blocks a SM: the sums' loads stay one a
+//    corner.
 // Sums use explicit _rn operations so no FMA changes the JAX rounding.
 //
 // Backward (lotd_grid_bwd), the gradient of both outputs into the table: the
@@ -78,10 +85,9 @@
 //    table: no device atomic on a private level, and a sum over blocks that is
 //    the same from run to run (within a block the shared float atomics still
 //    vary the last bits). The other levels take device atomics.
-//  * at D = 4 a point's 16 corners are summed the same way, corner by corner
-//    (runs of equal rows by shuffles, then one atomic a run); no level of the
-//    distant field fits the private budget, so the plan sends every level to
-//    the device atomics, and no d_jac is read.
+//  * at D = 4 (grid4_bwd_kernel, below) no level is private: the distant
+//    field's gradient goes to an interleaved scratch by vector atomics, with
+//    the runs of a warp found once a level (see there), and no d_jac is read.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -109,23 +115,26 @@ struct FwdShape {
 };
 
 __host__ __device__ __forceinline__ int align4(int n) { return (n + 3) & ~3; }
+__host__ __device__ __forceinline__ int align8(int n) { return (n + 7) & ~7; }
 
 // Where the forward reads level l: its [size, F] copy in the block's shared
 // memory (1) or in the scratch (2) at *off, or the table in its own layout
-// (0). Every thread walks the meta in the same order, so all agree.
+// (0). Every thread walks the meta in the same order, so all agree. A shared
+// copy starts on 16 bytes, a scratch copy on 32 (a sector: at F 2 an aligned
+// group of 4 rows is one sector). The D = 4 backward walks its gradient
+// scratch the same way (no shared copy).
 struct Place {
   int soff = 0, ioff = 0;  // floats taken so far in each
   __device__ __forceinline__ int next(unsigned mask, int l, int seg, int n_shared, int n_inter,
                                       int* off) {
-    seg = align4(seg);
-    if (l < 31 && ((mask >> l) & 1u) && soff + seg <= n_shared) {
+    if (l < 31 && ((mask >> l) & 1u) && soff + align4(seg) <= n_shared) {
       *off = soff;
-      soff += seg;
+      soff += align4(seg);
       return 1;
     }
-    if (ioff + seg <= n_inter) {
+    if (ioff + align8(seg) <= n_inter) {
       *off = ioff;
-      ioff += seg;
+      ioff += align8(seg);
       return 2;
     }
     return 0;
@@ -451,14 +460,13 @@ __device__ __forceinline__ bool is_private(unsigned mask, int l, int soff, int s
   return l < 31 && ((mask >> l) & 1u) && soff + seg <= n_private;
 }
 
-// JAC: the jacobian's cotangent may be given (D = 3); without it (D = 4) a
-// corner's value is its weight times d_out alone.
-template <int D, bool JAC>
+// Either cotangent may be null. D = 3 (the 4-D points take grid4_bwd_kernel).
+template <int D>
 __global__ void __launch_bounds__(kBwdPrivateThreads)
 grid_bwd_kernel(const float* __restrict__ pos01,  // [N, D]
                 const int* __restrict__ meta,     // [L, 6]
                 const float* __restrict__ d_out,  // [C, N] or null
-                const float* __restrict__ d_jac,  // [D, C, N] or null (JAC only)
+                const float* __restrict__ d_jac,  // [D, C, N] or null
                 float* __restrict__ d_table,      // flat, zeroed
                 float* __restrict__ scratch,      // [gridDim.x, n_private] or null
                 int N, int C, int L, unsigned private_mask, int n_private) {
@@ -500,17 +508,15 @@ grid_bwd_kernel(const float* __restrict__ pos01,  // [N, D]
       }
       float* seg = in_shared ? priv + soff : d_table + offset;
       for (int f0 = 0; f0 < nf; f0 += 4) {  // features in groups of four
-        float go[4], gj[JAC ? D : 1][4];
+        float go[4], gj[D][4];
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const bool has = valid && f0 + k < nf;
           const size_t o = (size_t)(col + f0 + k) * N + n;
           go[k] = has && d_out != nullptr ? d_out[o] : 0.f;
-          if constexpr (JAC) {
 #pragma unroll
-            for (int i = 0; i < D; ++i)
-              gj[i][k] = has && d_jac != nullptr ? d_jac[i * plane + o] : 0.f;
-          }
+          for (int i = 0; i < D; ++i)
+            gj[i][k] = has && d_jac != nullptr ? d_jac[i * plane + o] : 0.f;
         }
 #pragma unroll
         for (int corner = 0; corner < K; ++corner) {
@@ -529,16 +535,14 @@ grid_bwd_kernel(const float* __restrict__ pos01,  // [N, D]
           float v[4];
 #pragma unroll
           for (int k = 0; k < 4; ++k) v[k] = w * go[k];
-          if constexpr (JAC) {
 #pragma unroll
-            for (int i = 0; i < D; ++i) {
-              float dw = ((corner >> i) & 1) ? fres : -fres;
+          for (int i = 0; i < D; ++i) {
+            float dw = ((corner >> i) & 1) ? fres : -fres;
 #pragma unroll
-              for (int j = 0; j < D; ++j)
-                if (j != i) dw *= aw[j];
+            for (int j = 0; j < D; ++j)
+              if (j != i) dw *= aw[j];
 #pragma unroll
-              for (int k = 0; k < 4; ++k) v[k] += dw * gj[i][k];
-            }
+            for (int k = 0; k < 4; ++k) v[k] += dw * gj[i][k];
           }
           // a lane past N keys -1, so it never joins a real row's run
           if (sum_over_run(valid ? row : -1, lane, v) && valid) {
@@ -579,6 +583,252 @@ __global__ void grid_bwd_flush_kernel(const float* __restrict__ scratch,
       return;
     }
     soff += seg;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The D = 4 backward (lotd_grid4.bwd): d_out only, F a template parameter of
+// the level's body, no level in shared memory. The levels that fit the
+// n_inter floats of the gradient scratch (the forward's [size, F] layout and
+// places, Place with nothing staged) take vector atomics there: a corner's F
+// features one float2 (F 2; a float4 at F 4), an axis-0 pair of corners whose
+// rows are r and r ^ 1 one float4 (F 2; a float2 at F 1): on axis 0 the
+// hash's prime is 1 and a power-of-two size keeps the low bits, so where
+// cell_0 is even the pair's rows are r, r ^ 1 (dense: r, r + 1, r even half
+// the time), one aligned 16 bytes of the [size, 2] rows. A second kernel
+// writes the scratch into d_table's [F, size] segments. A level past the
+// scratch takes a float atomic a feature in d_table.
+// Runs: the renderer flattens [rays, samples], so the lanes of a warp hold
+// neighbouring samples of a distant ray, which share a 4-D cell at the coarse
+// levels and step along axis 3 (the inverse radius). The runs of equal cells
+// are found once a level (the 16 corners' rows are functions of the cell),
+// each run's corners summed by shuffles into its first lane, and where the
+// next run's cell is this one's plus one on axis 3 alone, this run's eight
+// corners with bit 3 set are the next run's eight with bit 3 clear (the same
+// rows; along a ray axis 3 falls, and then this run's corners with bit 3
+// clear are the next run's with it set): the next run's first lane adds
+// them with its own.
+// What bounds it on an H100: the device atomics' rate. At a pixel step's
+// 524,288 distant samples it issues 48 M float2 / float4 atomics (0.61 ms),
+// where a float atomic a feature for each run of equal rows of a corner
+// would issue 135 M (2.18 ms); its bytes' bound is 0.018 ms.
+constexpr int kBwd4Threads = 256;
+constexpr int kBwd4MinBlocks = 2;  // up to 128 registers a thread
+
+// The runs of equal cells of the warp's points, and their neighbours on axis 3.
+struct CellRuns {
+  Runs r;
+  bool give_up;    // head: the next run's cell is ours + e3; it adds our bit-3 corners
+  bool give_down;  // head: the next run's cell is ours - e3; it adds our bit-3-clear corners
+  bool take_lo;    // head: add the previous run's bit-3 corners to our bit-3-clear ones
+  bool take_hi;    // head: add the previous run's bit-3-clear corners to our bit-3 ones
+  int prev_head;   // head: the previous run's first lane
+  bool any_take;   // some lane of the warp takes
+};
+
+// cell: the lane's cell, -2 on every axis for a lane with no point (past N),
+// which is never a real cell (>= 0) nor next to one. A run never gives the
+// half of its corners that it may take into (a ray's cell steps one way), so
+// what it gives is its own sum. Every lane takes part.
+__device__ __forceinline__ CellRuns cell_runs(const int (&cell)[4], int lane) {
+  bool same_prev = true, prev_lo = true, prev_hi = true;
+#pragma unroll
+  for (int ax = 0; ax < 4; ++ax) {
+    const int p = __shfl_up_sync(kFullWarp, cell[ax], 1);
+    same_prev = same_prev && p == cell[ax];
+    prev_lo = prev_lo && p == cell[ax] - (ax == 3 ? 1 : 0);
+    prev_hi = prev_hi && p == cell[ax] + (ax == 3 ? 1 : 0);
+  }
+  CellRuns c;
+  c.r.head = lane == 0 || !same_prev;
+  c.r.heads = __ballot_sync(kFullWarp, c.r.head);
+  c.r.steps = 0;
+  c.r.same = 0u;
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    const int off = 1 << s;
+    // lane + off is in this lane's run iff no run starts in (lane, lane + off]
+    const bool same = lane + off < 32 && ((c.r.heads >> (lane + 1)) & ((1u << off) - 1u)) == 0u;
+    if (!__any_sync(kFullWarp, same)) break;
+    c.r.same |= (unsigned)same << s;
+    c.r.steps = s + 1;
+  }
+  const unsigned after = lane < 31 ? c.r.heads >> (lane + 1) : 0u;
+  const int next_first = after ? lane + __ffs((int)after) : 32;
+  bool next_up = next_first < 32, next_down = next_first < 32;
+#pragma unroll
+  for (int ax = 0; ax < 4; ++ax) {
+    const int nc = __shfl_sync(kFullWarp, cell[ax], next_first & 31);
+    next_up = next_up && nc == cell[ax] + (ax == 3 ? 1 : 0);
+    next_down = next_down && nc == cell[ax] - (ax == 3 ? 1 : 0);
+  }
+  const bool may_lo = c.r.head && lane > 0 && cell[3] >= 0 && prev_lo;
+  const bool may_hi = c.r.head && lane > 0 && cell[3] >= 0 && prev_hi;
+  c.give_up = c.r.head && cell[3] >= 0 && next_up && !may_hi;
+  c.give_down = c.r.head && cell[3] >= 0 && next_down && !may_lo;
+  const unsigned before = c.r.heads & ((1u << lane) - 1u);
+  c.prev_head = before ? 31 - __clz((int)before) : 0;
+  const int gives = __shfl_sync(kFullWarp, (int)c.give_up | ((int)c.give_down << 1), c.prev_head);
+  c.take_lo = may_lo && (gives & 1);
+  c.take_hi = may_hi && (gives & 2);
+  c.any_take = __any_sync(kFullWarp, c.take_lo || c.take_hi);
+  return c;
+}
+
+template <int G>
+__device__ __forceinline__ void add_vec(float* p, const float* v) {
+  if constexpr (G == 4)
+    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  else if constexpr (G == 2)
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  else
+    atomicAdd(p, v[0]);
+}
+
+// Adds a (row r0) and b (row r1), features f0 .. f0 + G - 1 of a level of nf:
+// into its [size, nf] rows at seg (rows), else its [nf, size] segment of
+// d_table, a float at a time.
+template <int G>
+__device__ __forceinline__ void add_pair(float* seg, bool rows, int size, int nf, int f0, int r0,
+                                         int r1, const float* a, const float* b) {
+  if (!rows) {
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      atomicAdd(seg + (size_t)(f0 + k) * size + r0, a[k]);
+      atomicAdd(seg + (size_t)(f0 + k) * size + r1, b[k]);
+    }
+    return;
+  }
+  if constexpr (G <= 2) {
+    if (nf == G && (r0 ^ r1) == 1) {  // one aligned pair of rows
+      float v[2 * G];
+      const bool odd = r0 & 1;
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        v[k] = odd ? b[k] : a[k];
+        v[G + k] = odd ? a[k] : b[k];
+      }
+      add_vec<2 * G>(seg + (size_t)(r0 & ~1) * G, v);
+      return;
+    }
+  }
+  add_vec<G>(seg + (size_t)r0 * nf + f0, a);
+  add_vec<G>(seg + (size_t)r1 * nf + f0, b);
+}
+
+// One level, features in groups of G (nf a multiple of G), corners in four
+// groups of two axis-0 pairs: q, q | 1 (bit 3 clear) and q | 8, q | 9.
+template <int G>
+__device__ __forceinline__ void level_bwd4(const CellRuns& cr, const int (&cell)[4],
+                                           const float (&frac)[4], bool valid, int n, int N,
+                                           int res, int size, int nf, int is_hash, int col,
+                                           const float* __restrict__ d_out, float* seg,
+                                           bool rows) {
+  for (int f0 = 0; f0 < nf; f0 += G) {
+    float go[G];
+#pragma unroll
+    for (int k = 0; k < G; ++k) go[k] = valid ? __ldg(d_out + (size_t)(col + f0 + k) * N + n) : 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; q += 2) {  // bits 1 and 2
+      const int corners[4] = {q, q | 1, q | 8, q | 9};
+      float v[4 * G];
+      int r[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int ci[4];
+        float w = 1.f;
+#pragma unroll
+        for (int ax = 0; ax < 4; ++ax) {
+          const int b = (corners[i] >> ax) & 1;
+          ci[ax] = cell[ax] + b;
+          const float a = b ? frac[ax] : 1.f - frac[ax];
+          w = ax == 0 ? a : w * a;
+        }
+        r[i] = row_of<4>(ci, res, size, is_hash);
+#pragma unroll
+        for (int k = 0; k < G; ++k) v[i * G + k] = w * go[k];
+      }
+      run_sum<1, 4 * G>(cr.r, v);
+      if (cr.any_take) {
+#pragma unroll
+        for (int k = 0; k < 2 * G; ++k) {
+          const float got = __shfl_sync(kFullWarp, cr.give_up ? v[2 * G + k] : v[k], cr.prev_head);
+          if (cr.take_lo) v[k] += got;
+          if (cr.take_hi) v[2 * G + k] += got;
+        }
+      }
+      if (valid && cr.r.head) {
+        if (!cr.give_down) add_pair<G>(seg, rows, size, nf, f0, r[0], r[1], v, v + G);
+        if (!cr.give_up) add_pair<G>(seg, rows, size, nf, f0, r[2], r[3], v + 2 * G, v + 3 * G);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kBwd4Threads, kBwd4MinBlocks)
+grid4_bwd_kernel(const float* __restrict__ pos01,  // [N, 4]
+                 const int* __restrict__ meta,     // [L, 6]
+                 const float* __restrict__ d_out,  // [C, N]
+                 float* __restrict__ d_table,      // flat, zeroed
+                 float* __restrict__ inter,        // [n_inter], zeroed, or null
+                 int N, int L, int n_inter) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (blockDim.x >> 5);
+  // whole warps walk the points, so every lane reaches the warp intrinsics
+  for (int base = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 32; base < N;
+       base += warps * 32) {
+    const int n = base + lane;
+    const bool valid = n < N;
+    float x[4];
+#pragma unroll
+    for (int ax = 0; ax < 4; ++ax)
+      x[ax] = valid ? fminf(fmaxf(__ldg(pos01 + (size_t)n * 4 + ax), 0.f), 1.f) : 0.f;
+    Place place;
+    for (int l = 0; l < L; ++l) {
+      const int res = __ldg(meta + l * META + 0);
+      const int size = __ldg(meta + l * META + 1);
+      const int offset = __ldg(meta + l * META + 2);
+      const int nf = __ldg(meta + l * META + 3);
+      const int is_hash = __ldg(meta + l * META + 4);
+      const int col = __ldg(meta + l * META + 5);
+      int off;
+      const bool rows = place.next(0u, l, nf * size, 0, n_inter, &off) == 2;
+      float* seg = rows ? inter + off : d_table + offset;
+      const float fres = (float)res;
+      int cell[4];
+      float frac[4];
+#pragma unroll
+      for (int ax = 0; ax < 4; ++ax) {
+        const float pos = __fmul_rn(x[ax], fres);
+        const float c = fminf(floorf(pos), (float)(res - 1));
+        cell[ax] = valid ? (int)c : -2;
+        frac[ax] = __fsub_rn(pos, c);
+      }
+      const CellRuns cr = cell_runs(cell, lane);
+      if (nf % 4 == 0)
+        level_bwd4<4>(cr, cell, frac, valid, n, N, res, size, nf, is_hash, col, d_out, seg, rows);
+      else if (nf % 2 == 0)
+        level_bwd4<2>(cr, cell, frac, valid, n, N, res, size, nf, is_hash, col, d_out, seg, rows);
+      else
+        level_bwd4<1>(cr, cell, frac, valid, n, N, res, size, nf, is_hash, col, d_out, seg, rows);
+    }
+  }
+}
+
+// d_table's [F, size] segment of each level in the gradient scratch, from its
+// [size, F] rows: a thread a row, a grid row of blocks a level.
+__global__ void grid4_bwd_flush_kernel(const float* __restrict__ inter,
+                                       const int* __restrict__ meta,
+                                       float* __restrict__ d_table, int L, int n_inter) {
+  Place place;
+  for (int l = 0; l < L; ++l) {
+    const int size = __ldg(meta + l * META + 1), offset = __ldg(meta + l * META + 2),
+              nf = __ldg(meta + l * META + 3);
+    int off;
+    if (place.next(0u, l, nf * size, 0, n_inter, &off) != 2 || (int)blockIdx.y != l) continue;
+    for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < size; r += gridDim.x * blockDim.x)
+      for (int f = 0; f < nf; ++f)
+        d_table[offset + (size_t)f * size + r] = inter[off + (size_t)r * nf + f];
   }
 }
 
@@ -632,29 +882,49 @@ extern "C" int lotd_grid_fwd(const void* table, const void* pos01, const void* m
                            : launch_grid<3, false, false>(a, smem, sms, s)));
 }
 
-// private_mask: bit l set where level l is summed in shared memory (l < 31);
-// n_private: those levels' floats (F x size each, in level order), and the
-// columns of scratch [SMs, n_private] (null if n_private is 0). D: the
-// points' dimension, 3 or 4 (no d_jac at D = 4). The grid: a thread a point
-// in blocks of kBwdThreads, up to 16 blocks a SM, where n_private is 0; else
-// persistent, one block of kBwdPrivateThreads a SM.
+// D 3: private_mask: bit l set where level l is summed in shared memory (l <
+// 31); n_private: those levels' floats (F x size each, in level order), and
+// the columns of scratch [SMs, n_private] (null if n_private is 0); inter
+// null, n_inter 0. The grid: a thread a point in blocks of kBwdThreads, up to
+// 16 blocks a SM, where n_private is 0; else persistent, one block of
+// kBwdPrivateThreads a SM.
+// D 4 (no d_jac): inter, the zeroed gradient scratch of n_inter floats (each
+// level's [size, F] rows at the forward's places, while they fit; null if
+// n_inter is 0), which a second kernel writes into d_table; no level private
+// (private_mask, n_private and scratch are not read). The grid: whole warps
+// of points in blocks of kBwd4Threads, up to 8 blocks a SM.
 extern "C" int lotd_grid_bwd(const void* pos01, const void* meta, const void* d_out,
-                             const void* d_jac, void* d_table, void* scratch, int N, int C,
-                             int L, int private_mask, int n_private, int D, void* stream) {
+                             const void* d_jac, void* d_table, void* scratch, void* inter, int N,
+                             int C, int L, int private_mask, int n_private, int n_inter, int D,
+                             void* stream) {
   if (n_private < 0 || (n_private > 0 && scratch == nullptr) || (D != 3 && D != 4) ||
-      (D == 4 && d_jac != nullptr))
+      (D == 4 && (d_jac != nullptr || d_out == nullptr)) || n_inter < 0 ||
+      (n_inter > 0 && (inter == nullptr || D != 4)))
     return (int)cudaErrorInvalidValue;
   cudaError_t e;
   int dev = 0, sms = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)e;
+  if (D == 4) {
+    const cudaStream_t s = (cudaStream_t)stream;
+    int blocks = (N + kBwd4Threads - 1) / kBwd4Threads;
+    blocks = blocks < 1 ? 1 : (blocks > 8 * sms ? 8 * sms : blocks);
+    grid4_bwd_kernel<<<blocks, kBwd4Threads, 0, s>>>(
+        (const float*)pos01, (const int*)meta, (const float*)d_out, (float*)d_table,
+        (float*)inter, N, L, n_inter);
+    if ((e = cudaGetLastError()) != cudaSuccess || n_inter == 0) return (int)e;
+    grid4_bwd_flush_kernel<<<dim3(4 * sms, L), 256, 0, s>>>((const float*)inter,
+                                                            (const int*)meta, (float*)d_table,
+                                                            L, n_inter);
+    return (int)cudaGetLastError();
+  }
   const int threads = n_private > 0 ? kBwdPrivateThreads : kBwdThreads;
   const int cap = n_private > 0 ? sms : 16 * sms;
   int blocks = (N + threads - 1) / threads;
   blocks = blocks < 1 ? 1 : (blocks > cap ? cap : blocks);
   const size_t smem = (size_t)n_private * sizeof(float);
-  auto kernel = D == 4 ? grid_bwd_kernel<4, false> : grid_bwd_kernel<3, true>;
+  auto kernel = grid_bwd_kernel<3>;
   if (smem > 48 * 1024 &&
       (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem)) != cudaSuccess)

@@ -44,7 +44,7 @@ from __future__ import annotations
 import math
 import os
 import weakref
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -459,9 +459,10 @@ class GridFwdPlan(NamedTuple):
     """Where K3's forward reads each level: bit l of ``stage_mask`` names row
     l of the meta for a block's shared copy of ``n_shared`` floats; the other
     levels go to the ``n_inter`` floats of the interleaved scratch. Each
-    level takes F x size floats rounded up to 4, in level order, where it
-    fits (:func:`grid_fwd_places`, the walk the kernel makes). The plan is
-    the same for 3-D and 4-D points (a level's copy is its [size, F] rows)."""
+    level takes F x size floats, rounded up to 4 in the shared copy and to 8
+    (a 32-byte sector) in the scratch, in level order, where it fits
+    (:func:`grid_fwd_places`, the walk the kernel makes). The plan is the
+    same for 3-D and 4-D points (a level's copy is its [size, F] rows)."""
     stage_mask: int
     n_shared: int
     n_inter: int
@@ -470,6 +471,10 @@ class GridFwdPlan(NamedTuple):
 
 def _align4(n: int) -> int:
     return (n + 3) // 4 * 4
+
+
+def _align8(n: int) -> int:
+    return (n + 7) // 8 * 8
 
 
 def grid_fwd_plan(meta_rows: Sequence[Sequence[int]]) -> GridFwdPlan:
@@ -485,7 +490,7 @@ def grid_fwd_plan(meta_rows: Sequence[Sequence[int]]) -> GridFwdPlan:
             mask |= 1 << l
             staged += seg
         else:
-            inter += seg
+            inter += _align8(nf * size)
     return GridFwdPlan(mask, staged, inter, max((r[3] for r in meta_rows), default=1))
 
 
@@ -501,9 +506,9 @@ def grid_fwd_places(meta_rows: Sequence[Sequence[int]], plan: GridFwdPlan
         if l < 31 and (plan.stage_mask >> l) & 1 and staged + seg <= plan.n_shared:
             places.append(("shared", staged))
             staged += seg
-        elif inter + seg <= plan.n_inter:
+        elif inter + _align8(nf * size) <= plan.n_inter:
             places.append(("scratch", inter))
-            inter += seg
+            inter += _align8(nf * size)
         else:
             places.append(("table", offset))
     return places
@@ -650,7 +655,7 @@ GRID_BWD_PRIVATE_MIN_POINTS = 8
 class GridBwdPlan(NamedTuple):
     """The levels that K3's backward sums in shared memory: bit l of
     ``private_mask`` for row l of the meta; ``n_private``, their floats (one
-    block's copy, a row of the scratch). The same for 3-D and 4-D points."""
+    block's copy, a row of the scratch). For 3-D points."""
     private_mask: int
     n_private: int
 
@@ -662,13 +667,30 @@ class GridBwdPlan(NamedTuple):
         return GridBwdPlan(0, 0)
 
 
-def grid_bwd_plan(meta_rows: Sequence[Sequence[int]]) -> GridBwdPlan:
-    """Split K3's levels, rows of (res, size, offset, F, is_hash, out row),
-    into private ones, the dense levels taken in level order while their F x
-    size floats fit GRID_BWD_SMEM_BUDGET together, and global ones: the hash
-    levels (fine cells whose rows the hash scatters, so that neighbouring
-    samples rarely share one) and the dense levels past the budget (the 4-D
-    distant field's 17^4-row level: no level of it is private)."""
+class Grid4BwdPlan(NamedTuple):
+    """K3's backward on 4-D points (``lotd_grid4.bwd``), which sums no level
+    in shared memory: ``n_inter``, the floats of its gradient scratch, each
+    level's [size, F] rows at the places of the forward's interleaved scratch
+    (:func:`grid_bwd_places`), while they fit."""
+    n_inter: int
+    private_mask = 0
+    n_private = 0
+
+    def at(self, n_points: int) -> "Grid4BwdPlan":
+        return self
+
+
+def grid_bwd_plan(meta_rows: Sequence[Sequence[int]], dim: int = 3
+                  ) -> Union[GridBwdPlan, Grid4BwdPlan]:
+    """For 3-D points, split K3's levels, rows of (res, size, offset, F,
+    is_hash, out row), into private ones, the dense levels taken in level
+    order while their F x size floats fit GRID_BWD_SMEM_BUDGET together, and
+    global ones: the hash levels (fine cells whose rows the hash scatters, so
+    that neighbouring samples rarely share one) and the dense levels past the
+    budget. For 4-D points (``dim`` 4: the distant field, whose 17^4-row dense
+    level fits no budget) every level goes to the gradient scratch."""
+    if dim == 4:
+        return Grid4BwdPlan(sum(_align8(r[3] * r[1]) for r in meta_rows))
     mask, used = 0, 0
     for l, (_, size, _, nf, is_hash, _) in enumerate(meta_rows):
         if not is_hash and l < 31 and (used + nf * size) * 4 <= GRID_BWD_SMEM_BUDGET:
@@ -677,17 +699,64 @@ def grid_bwd_plan(meta_rows: Sequence[Sequence[int]]) -> GridBwdPlan:
     return GridBwdPlan(mask, used)
 
 
+def grid_bwd_places(meta_rows: Sequence[Sequence[int]], plan: Grid4BwdPlan
+                    ) -> List[Tuple[str, int]]:
+    """Where K3's 4-D backward adds each level under ``plan``: ("scratch",
+    offset) in the gradient scratch, each level's F x size floats rounded up
+    to 8 in level order while they fit ``plan.n_inter``, or ("table",
+    offset) into the table's own [F, size] segment."""
+    return grid_fwd_places(meta_rows, GridFwdPlan(0, 0, plan.n_inter))
+
+
+def lotd_grid_bwd_layout_plain(n_table: int, pos01: torch.Tensor,
+                               meta_rows: Sequence[Sequence[int]], plan: Grid4BwdPlan,
+                               d_out: torch.Tensor) -> torch.Tensor:
+    """K3's 4-D backward in the kernel's layout: each point's 16 corners (the
+    plain version's rows and weights, in corner order) added into the [size,
+    F] rows of the level's place in the gradient scratch (or into the table's
+    [F, size] segment, a level past it), then the scratch written into the
+    table's layout. d_out [C, N] -> d table [n_table]."""
+    D = pos01.shape[1]
+    x = pos01.clamp(0.0, 1.0).T
+    scratch = d_out.new_zeros(plan.n_inter)
+    d_table = d_out.new_zeros(n_table)
+    places = grid_bwd_places(meta_rows, plan)
+    for (res, size, offset, nf, is_hash, col), (where, off) in zip(meta_rows, places):
+        pos = x * res
+        cellf = torch.clamp(torch.floor(pos), max=res - 1)
+        frac = pos - cellf
+        cell = cellf.long()
+        g = d_out[col:col + nf].T                                   # [N, F]
+        rows_f = scratch[off:off + nf * size].view(size, nf) if where == "scratch" \
+            else d_table[offset:offset + nf * size].view(nf, size).T
+        for corner in range(1 << D):
+            bits = [(corner >> i) & 1 for i in range(D)]
+            w = None
+            for i, b in enumerate(bits):
+                a = frac[i] if b else 1.0 - frac[i]
+                w = a if w is None else w * a
+            r = _corner_rows(cell, bits, res, size, bool(is_hash)).clamp(0, size - 1)
+            rows_f.index_add_(0, r, w[:, None] * g)
+    for (res, size, offset, nf, _, _), (where, off) in zip(meta_rows, places):
+        if where == "scratch":
+            d_table[offset:offset + nf * size] = \
+                scratch[off:off + nf * size].view(size, nf).T.reshape(-1)
+    return d_table
+
+
 def lotd_grid_bwd(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
                   d_out: Optional[torch.Tensor], d_jac: Optional[torch.Tensor],
-                  plan: Optional[GridBwdPlan] = None) -> torch.Tensor:
+                  plan: Union[None, GridBwdPlan, Grid4BwdPlan] = None) -> torch.Tensor:
     """K3 backward wrapper: scatter-add of both cotangents into a zeroed table
     of ``n_table`` floats (float32 atomics on the card, so the last bits vary
     from run to run). ``meta`` must describe levels inside the table.
-    ``plan``: the levels to sum in shared memory, used as given; without it,
-    ``grid_bwd_plan(meta).at(N)`` (the meta read back to the host). A plan
-    made from another meta costs speed, not correctness: the kernel sums a
-    named level in shared memory only where it fits ``n_private``. Points of
-    4 dimensions (``lotd_grid4.bwd``) take ``d_out`` only."""
+    ``plan``: the levels to sum in shared memory (3-D, a GridBwdPlan) or the
+    gradient scratch's size (4-D, a Grid4BwdPlan), used as given; without it, ``grid_bwd_plan(meta,
+    D).at(N)`` (the meta read back to the host). A plan made from another meta
+    costs speed, not correctness: the kernel sums a named level in shared
+    memory only where it fits ``n_private``, and adds a 4-D level past the
+    scratch into the table a float at a time. Points of 4 dimensions
+    (``lotd_grid4.bwd``) take ``d_out`` only."""
     if pos01.device.type == "cpu":
         return lotd_grid_bwd_plain(n_table, pos01, meta, d_out, d_jac)
     given = [x for x in (d_out, d_jac) if x is not None]
@@ -699,17 +768,26 @@ def lotd_grid_bwd(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
     if D == 4 and d_jac is not None:
         raise NotImplementedError("lotd_grid_bwd: the kernel's jacobian is for 3-D points only")
     if plan is None:
-        plan = grid_bwd_plan(meta.tolist()).at(N)
+        plan = grid_bwd_plan(meta.tolist(), D).at(N)
     if plan.private_mask >> meta.shape[0]:
         raise ValueError("lotd_grid_bwd: the plan names a level past the meta")
-    # a row of the scratch for each block of the persistent grid, one a SM
-    scratch = torch.empty((kernels.sm_count(pos01.device.index), plan.n_private),
-                          dtype=torch.float32, device=pos01.device) if plan.n_private else None
-    d_table = torch.zeros(n_table, dtype=torch.float32, device=pos01.device)
+    dev = pos01.device
+    scratch = inter = None
+    n_inter = getattr(plan, "n_inter", 0) if D == 4 else 0
+    if D == 4:
+        # no level private; the gradient scratch, zeroed
+        if n_inter:
+            inter = torch.zeros(n_inter, dtype=torch.float32, device=dev)
+    elif plan.n_private:
+        # a row of the scratch for each block of the persistent grid, one a SM
+        scratch = torch.empty((kernels.sm_count(dev.index), plan.n_private),
+                              dtype=torch.float32, device=dev)
+    d_table = torch.zeros(n_table, dtype=torch.float32, device=dev)
     GRID_DIMS[D][1].launch("lotd_grid_bwd", kernels.ptr(pos01), kernels.ptr(meta),
                            kernels.ptr(d_out), kernels.ptr(d_jac), kernels.ptr(d_table),
-                           kernels.ptr(scratch), N, given[0].shape[-2], meta.shape[0],
-                           plan.private_mask, plan.n_private, D, kernels.stream())
+                           kernels.ptr(scratch), kernels.ptr(inter), N, given[0].shape[-2],
+                           meta.shape[0], 0 if D == 4 else plan.private_mask,
+                           0 if D == 4 else plan.n_private, n_inter, D, kernels.stream())
     return d_table
 
 
@@ -1081,7 +1159,7 @@ class LoTDEncoding(nn.Module):
         self.register_buffer("_grid_meta", torch.tensor(meta, dtype=torch.int32)
                              .reshape(-1, 6), persistent=False)
         self.grid_fwd_plan = grid_fwd_plan(meta)
-        self.grid_bwd_plan = grid_bwd_plan(meta)
+        self.grid_bwd_plan = grid_bwd_plan(meta, input_dim)
         self.grid_scratch = GridScratch()
         self.lines_cache = LinesCache()
 

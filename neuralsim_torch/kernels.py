@@ -39,7 +39,7 @@ SIGNATURES: Dict[str, str] = {
     "lotd_cp_level_fwd": "pppppiiip",
     "lotd_cp_level_bwd": "ppppppiiip",
     "lotd_grid_fwd": "ppppppiiiiiiiiip",
-    "lotd_grid_bwd": "ppppppiiiiiip",
+    "lotd_grid_bwd": "pppppppiiiiiiip",
     "neus_upsample_weights_pdf": "pppppppppiiifp",
     "merge_sorted_samples": "pppppppppiiip",
     "volume_composite_fwd": "pppppppppppiip",

@@ -3,13 +3,32 @@
 checkouts of the port, in turns, on one card.
 
     python3 scripts/torch_kernel_ab.py [--composite-only | --grid-latent-only |
-                                        --lines-pairs-only | --grid-refresh-only]
+                                        --lines-pairs-only | --grid-refresh-only |
+                                        --grid4-only]
                                        [ROOT ...]
 
 Each ROOT (default: this checkout) holds ``neuralsim_torch/`` and
 ``chip_smoke.py``. Each is timed in a process of its own, which builds that
 checkout's kernels, in the order given: "PARENT . . PARENT" compares two
 checkouts on one card (parent, change, change, parent).
+``--grid4-only`` times only K3 in four dimensions (lotd_grid4) and its
+backward at the StreetSurf distant field's levels (configs/waymo_streetsurf.yaml:
+a dense level of 17^4 rows and 9 hash levels of 2^17, F 2) with a N(0, 1)
+table, on three point sets of 524,288: the distant samples and the cotangent
+of one pixel step of WAYMO_STREETSURF (8,192 rays x 64 samples), captured
+once by this checkout (chip_smoke.capture_k3_4d, after the road pretrain)
+into build/k3_4d_path_points.npz and handed to every root; as many
+ray-ordered points (chip_smoke.k3_4d_ray_points) and as many k3_4d_points.
+Each call timed with its kernels and the profiler's time by kernel name,
+the forward's output sha256, the backward's error against its plain version
+relative to its largest entry; first, one line of counts computed on the
+host from the points: the 32-byte sectors a point's corners touch a level
+(k3_sectors, the levels on 16 and on 32 bytes), the forward's load
+instructions and the sectors they ask for a warp (k3_4d_loads: a load a
+corner, the levels on 16 and on 32 bytes, and a 16-byte load an axis-0
+pair, a route tried and slower), and the backward's device atomics
+(k3_4d_atomics: a float atomic a feature a run of a corner's equal rows,
+and this kernel's vector atomics).
 ``--grid-refresh-only`` times only the occupancy refresh around the field
 query (K7 and the points it is handed): at the street's grid (128^3 x 4
 samples, waymo_demo_multi's, in the box GRID_BOX), the bench model's (128^3
@@ -223,29 +242,152 @@ def l2_rate(tm, dev) -> float:
                2 * nbytes / (tm.cuda_ms(lambda: y.copy_(x), reps=50, queued=True) * 1e-3))
 
 
-def k3_sectors(pts, rows) -> int:
+def corner_rows(pts, level):
+    """The rows of every corner of every point on one level (res, size, _, F,
+    is_hash, _), as the kernels form them: int64 [N, 2^D], D the points'
+    dimension (3 or 4), corner c taking cell_i + bit i of c."""
+    import numpy as np
+    res, size, _, _, is_hash, _ = level
+    D = pts.shape[1]
+    x = np.clip(pts, 0.0, 1.0).astype(np.float32)
+    primes = np.array([1, 2654435761, 805459861, 3674653429][:D], dtype=np.uint64)
+    pos = x * np.float32(res)
+    cell = np.minimum(np.floor(pos), np.float32(res - 1)).astype(np.int64)
+    out = []
+    for corner in range(1 << D):
+        ci = cell + np.array([(corner >> i) & 1 for i in range(D)])
+        if is_hash:
+            u = ci.astype(np.uint64) * primes & np.uint64(0xFFFFFFFF)
+            h = u[:, 0]
+            for i in range(1, D):
+                h = h ^ u[:, i]
+            row = (h % np.uint64(size)).astype(np.int64)
+        else:
+            row = sum(ci[:, i] * (res + 1) ** i for i in range(D))
+        out.append(np.clip(row, 0, size - 1))
+    return np.stack(out, 1)
+
+
+def k3_sectors(pts, rows, starts=None) -> int:
     """The 32-byte sectors that the corners of each point touch on each level,
     a corner's F features one row of a [size, F] copy, counted per point and
-    level (what a launch that keeps nothing in L1 reads from L2)."""
+    level (what a launch that keeps nothing in L1 reads from L2); points of 3
+    or 4 dimensions. ``starts``: each level's first float in its copy (its
+    sector alignment; default 0, every level on a sector)."""
     import numpy as np
-    x = np.clip(pts, 0.0, 1.0).astype(np.float32)
-    primes = np.array([1, 2654435761, 805459861], dtype=np.uint64)
     total = 0
-    for res, size, _, nf, is_hash, _ in rows:
-        pos = x * np.float32(res)
-        cell = np.minimum(np.floor(pos), np.float32(res - 1)).astype(np.int64)
-        secs = []
-        for corner in range(8):
-            ci = cell + np.array([(corner >> i) & 1 for i in range(3)])
-            if is_hash:
-                u = ci.astype(np.uint64) * primes & np.uint64(0xFFFFFFFF)
-                row = ((u[:, 0] ^ u[:, 1] ^ u[:, 2]) % np.uint64(size)).astype(np.int64)
-            else:
-                row = ci[:, 0] + ci[:, 1] * (res + 1) + ci[:, 2] * (res + 1) ** 2
-            secs.append(np.clip(row, 0, size - 1) * nf * 4 // 32)
-        secs = np.sort(np.stack(secs, 1), 1)
+    for l, level in enumerate(rows):
+        nf = level[3]
+        start = 0 if starts is None else starts[l]
+        secs = np.sort((start + corner_rows(pts, level) * nf) * 4 // 32, 1)
         total += int(secs.shape[0] + (secs[:, 1:] != secs[:, :-1]).sum())
     return total
+
+
+def k3_4d_loads(pts, rows, starts, paired):
+    """K3-4D's loads of a launch at F 2, by warps of 32 consecutive points: the
+    load instructions a warp issues (a corner each; or, ``paired``, the route
+    measured and not taken: a 16-byte load of the aligned pair of rows
+    holding corner c's row for each axis-0 pair c, c | 1, and corner c | 1's
+    row apart where some lane's pair is not r, r ^ 1), and the distinct
+    32-byte sectors each instruction asks for over its lanes (what L1 asks of
+    L2 where it keeps nothing between instructions). ``starts``: each level's
+    first float in the scratch."""
+    import numpy as np
+    n = pts.shape[0]
+    W = -(-n // 32)
+    inst = secs = 0
+
+    def distinct(s, m):  # [W, 32] sectors, m the lanes that ask
+        s = np.where(m, s, -1)
+        s = np.sort(s, 1)
+        return int(((s[:, 1:] != s[:, :-1]) & (s[:, 1:] >= 0)).sum() + (s[:, 0] >= 0).sum())
+
+    for l, level in enumerate(rows):
+        nf = level[3]
+        r = np.full((W * 32, 16), -1, np.int64)
+        r[:n] = corner_rows(pts, level)
+        r = r.reshape(W, 32, 16)
+        valid = (np.arange(W * 32) < n).reshape(W, 32)
+        sec = lambda row: (starts[l] + row * nf) * 4 // 32
+        if not paired:
+            for c in range(16):
+                inst += W
+                secs += distinct(sec(r[..., c]), valid)
+            continue
+        for c in range(0, 16, 2):
+            r0, r1 = r[..., c], r[..., c + 1]
+            inst += W
+            secs += distinct(sec(r0 & ~1), valid)
+            apart = valid & ((r0 ^ r1) != 1)
+            inst += int(apart.any(1).sum())
+            secs += distinct(sec(r1), apart)
+    return {"load_instructions": inst, "sectors_asked": secs}
+
+
+def k3_4d_atomics(pts, rows):
+    """The device atomics of K3-4D's backward at a launch of ``pts`` (F 2, in
+    warps of 32 consecutive points), by the design that issues them:
+    ``before``, the runs of equal rows of one corner in neighbouring lanes
+    summed, a float atomic a feature a run; ``after``, the runs of equal
+    cells summed (every corner), a corner pair of rows r, r ^ 1 one float4
+    and any other pair two float2, a run's bit-3 corners (bit-3-clear
+    corners) left to the next run where its cell is this one's plus (minus)
+    one on axis 3."""
+    import numpy as np
+    n = pts.shape[0]
+    W = -(-n // 32)
+    before = f4 = f2 = taken = 0
+    valid = (np.arange(W * 32) < n).reshape(W, 32)
+    for level in rows:
+        res, nf = level[0], level[3]
+        r = np.full((W * 32, 16), -1, np.int64)
+        r[:n] = corner_rows(pts, level)
+        r = r.reshape(W, 32, 16)
+        for c in range(16):
+            head = np.ones((W, 32), bool)
+            head[:, 1:] = r[:, 1:, c] != r[:, :-1, c]
+            before += int((head & valid).sum()) * nf
+        x = np.clip(pts, 0.0, 1.0).astype(np.float32) * np.float32(res)
+        cell = np.full((W * 32, 4), -2, np.int64)
+        cell[:n] = np.minimum(np.floor(x), np.float32(res - 1)).astype(np.int64)
+        cell = cell.reshape(W, 32, 4)
+        head = np.ones((W, 32), bool)
+        head[:, 1:] = (cell[:, 1:] != cell[:, :-1]).any(-1)
+        # each lane's next run start (32: none)
+        nxt = np.full((W, 32), 32)
+        for lane in range(30, -1, -1):
+            nxt[:, lane] = np.where(head[:, lane + 1], lane + 1, nxt[:, lane + 1])
+        e3 = np.array([0, 0, 0, 1])
+        nc = np.take_along_axis(cell, np.minimum(nxt, 31)[..., None], 1)
+        pc = np.concatenate([cell[:, :1], cell[:, :-1]], 1)
+        live = head & valid & (nxt < 32) & (cell[..., 3] >= 0)
+        first = np.zeros((W, 32), bool)
+        first[:, 0] = True
+        # a run gives no half that it may take into
+        up = live & (nc == cell + e3).all(-1) & (first | ~(pc == cell + e3).all(-1))
+        down = live & (nc == cell - e3).all(-1) & (first | ~(pc == cell - e3).all(-1))
+        taken += int((up | down).sum())
+        hv = head & valid
+        for q in range(0, 8, 2):
+            for c, skip in ((q, down), (q | 8, up)):
+                pair = (r[..., c] ^ r[..., c | 1]) == 1
+                m = hv & ~skip
+                f4 += int((m & pair).sum())
+                f2 += 2 * int((m & ~pair).sum())
+    return {"before": {"float": before},
+            "after": {"float4": f4, "float2": f2, "total": f4 + f2,
+                      "runs_giving_half_their_corners": taken}}
+
+
+def scratch_starts(rows, align):
+    """Each level's first float in the interleaved scratch when every level
+    goes there, each F x size rounded up to ``align`` floats."""
+    starts, at = [], 0
+    for level in rows:
+        starts.append(at)
+        at += -(-level[1] * level[3] // align) * align
+    return starts
 
 
 def zeros_out(C, N, dev, jac):
@@ -336,6 +478,101 @@ def grid_latent(tm, out, dev, timed) -> None:
             **timed(fn), "kernels": kernels_a_call(fn), **digests("grad", [got]),
             "same_bits_twice": bool(torch.equal(got, fn())),
             "bytes_bound_ms": (idx.size * 8 + P * 32 + n * 32) / tm.HBM_BYTES_PER_S * 1e3}
+
+
+# the 4-D LoTD of configs/waymo_streetsurf.yaml's distant field
+DISTANT4 = {"n_levels": 10, "base_res": 16, "max_res": 1024, "log2_hashmap_size": 17}
+K3_4D_N = 524_288
+
+
+def capture_path_points(path) -> None:
+    """One StreetSurf pixel step's distant samples and their cotangent
+    (chip_smoke.capture_k3_4d on WAYMO_STREETSURF built at full width through
+    build_everything, its road pretrain included), saved to ``path`` (.npz)."""
+    import copy as copy_
+    import numpy as np
+    import torch
+    tm = timer()
+    from neuralsim_torch.configs import WAYMO_STREETSURF
+    from neuralsim_torch.tools.build import build_everything
+    from neuralsim_torch.tools.train import build_samplers
+    cfg = copy_.deepcopy(WAYMO_STREETSURF)
+    scene, _, _, trainer, state, loader = build_everything(cfg)
+    samplers = build_samplers(cfg["training"], loader, int(cfg["seed"]))
+    dev = torch.device("cuda")
+    x, d_out = tm.capture_k3_4d(scene, tm.SingleStepTrainer(trainer), state, samplers, dev)
+    np.savez(path, x=x.cpu().numpy(), d_out=d_out.cpu().numpy())
+
+
+def point_sets(tm, path_file):
+    """K3-4D's point sets (label -> (points, cotangent seed or the captured
+    cotangent)): a pixel step's own (captured), as many ray-ordered points
+    (chip_smoke.k3_4d_ray_points) and as many k3_4d_points."""
+    import numpy as np
+    sets = {}
+    if path_file:
+        z = np.load(path_file)
+        sets["captured pixel step"] = (z["x"], z["d_out"])
+    sets["ray-ordered"] = (tm.k3_4d_ray_points(K3_4D_N, 507), None)
+    sets["k3_4d_points"] = (tm.k3_4d_points(K3_4D_N, 501), None)
+    return sets
+
+
+def grid4(tm, out, dev, timed, path_file) -> None:
+    """K3-4D forward and backward at the distant field's levels on each point
+    set (see point_sets), a N(0, 1) table: each timed, with its kernels a
+    call and the profiler's time by kernel name, the forward's output
+    sha256, the backward's largest error against its plain version relative
+    to its largest entry."""
+    import numpy as np
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    enc = lotd.make_lotd(DISTANT4, input_dim=4).to(dev)
+    table = T(np.random.default_rng(500).normal(size=enc.total_params).astype(np.float32))
+    meta, C, n_table = enc._grid_meta, enc.out_dim, enc.total_params
+    bplan = enc.grid_bwd_plan if "plan" in inspect.signature(lotd.lotd_grid_bwd).parameters \
+        else None
+    for label, (pts, cot) in point_sets(tm, path_file).items():
+        x = T(pts)
+        N = x.shape[0]
+        d_out = T(cot) if cot is not None else tm.cotangents((C, N), 601, dev)
+        buf = torch.empty((C, N), device=dev)
+        fn = lambda: lotd.lotd_grid(table, x, meta, buf, None, plan=enc.grid_fwd_plan)
+        fn()
+        res = {**timed(fn), "kernels": kernels_a_call(fn), "by_kernel": prof_by_name(fn)}
+        res.update(digests("out", [buf]))
+        out[f"K3-4D fwd {label} N={N}"] = res
+        kw = {} if bplan is None else {"plan": bplan}
+        fn = lambda: lotd.lotd_grid_bwd(n_table, x, meta, d_out, None, **kw)
+        got = fn()
+        want = lotd.lotd_grid_bwd_plain(n_table, x, meta, d_out, None)
+        out[f"K3-4D bwd {label} N={N}"] = {
+            **timed(fn), "kernels": kernels_a_call(fn), "by_kernel": prof_by_name(fn),
+            "rel_err": float((got - want).abs().max() / want.abs().max())}
+
+
+def grid4_counts(path_file) -> dict:
+    """The loads, sectors and atomics of a K3-4D launch on each point set,
+    by the design before this kernel and by this one (k3_4d_loads,
+    k3_4d_atomics, with the scratch's levels on 16 and on 32 bytes)."""
+    import numpy as np
+    tm = timer()
+    sys.path.insert(0, str(HERE))
+    from neuralsim_torch.fields.encodings import lotd
+    rows = lotd.make_lotd(DISTANT4, input_dim=4)._grid_meta.tolist()
+    out = {}
+    for label, (pts, _) in point_sets(tm, path_file).items():
+        pts = np.asarray(pts, np.float32)
+        s16, s32 = scratch_starts(rows, 4), scratch_starts(rows, 8)
+        out[label] = {
+            "sectors_per_point_level": {"before": k3_sectors(pts, rows, s16),
+                                        "after": k3_sectors(pts, rows, s32)},
+            "fwd_loads": {"before": k3_4d_loads(pts, rows, s16, False),
+                          "after": k3_4d_loads(pts, rows, s32, False),
+                          "pairs_tried": k3_4d_loads(pts, rows, s32, True)},
+            "bwd_atomics": k3_4d_atomics(pts, rows)}
+    return out
 
 
 # K11's calls on the main path (label, K, N, Bg, M, hits): the crowd's
@@ -486,6 +723,10 @@ def time_root(root: str, mode: str = "all") -> dict:
         return {prefix + "ms": tm.cuda_ms(fn), prefix + "queued_ms": tm.cuda_ms(fn, queued=True),
                 prefix + "prof_ms": tm.prof_ms(fn), prefix + "host_ms": tm.host_ms(fn)}
 
+    if mode == "grid4":
+        grid4(tm, out, dev, timed, os.environ.get("K3_4D_PATH_POINTS"))
+        out["card"] = card()
+        return out
     if mode == "grid-latent":
         grid_latent(tm, out, dev, timed)
         out["card"] = card()
@@ -713,7 +954,8 @@ def card() -> str:
 
 
 MODES = {"--composite-only": "composite", "--grid-latent-only": "grid-latent",
-         "--lines-pairs-only": "lines-pairs", "--grid-refresh-only": "grid-refresh"}
+         "--lines-pairs-only": "lines-pairs", "--grid-refresh-only": "grid-refresh",
+         "--grid4-only": "grid4"}
 
 
 def main(argv) -> int:
@@ -721,12 +963,30 @@ def main(argv) -> int:
         print(json.dumps(time_root(argv[1], MODES.get(argv[2], "all") if argv[2:] else "all")),
               flush=True)
         return 0
+    if argv[:1] == ["--capture"]:
+        capture_path_points(argv[1])
+        return 0
     only = [a for a in argv if a in MODES][:1]
     roots = [str(Path(r).resolve()) for r in argv if r not in MODES] or [str(HERE)]
     rc = 0
+    extra = {}
+    if only == ["--grid4-only"]:
+        # one pixel step's points, captured once in this checkout, for every root
+        path_file = HERE / "build" / "k3_4d_path_points.npz"
+        path_file.parent.mkdir(parents=True, exist_ok=True)
+        p = subprocess.run([sys.executable, __file__, "--capture", str(path_file)], cwd=HERE,
+                           env={**os.environ, "PYTHONPATH": str(HERE)}, capture_output=True,
+                           text=True, timeout=1200)
+        sys.stderr.write(p.stderr[-4000:])
+        if p.returncode != 0:
+            print(f"torch_kernel_ab: capturing a pixel step's points exited {p.returncode}",
+                  file=sys.stderr)
+            return 1
+        extra = {"K3_4D_PATH_POINTS": str(path_file)}
+        print(json.dumps({"counts": grid4_counts(str(path_file))}), flush=True)
     for root in roots:
         # the child imports the port from ``root``, never from this checkout
-        env = {**os.environ, "PYTHONPATH": root}
+        env = {**os.environ, "PYTHONPATH": root, **extra}
         p = subprocess.run([sys.executable, __file__, "--one", root, *only], cwd=root, env=env,
                            capture_output=True, text=True, timeout=1200)
         sys.stderr.write(p.stderr[-4000:])

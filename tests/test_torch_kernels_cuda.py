@@ -66,8 +66,12 @@ interleaved into the scratch and read from the table, x01 at 0, 1, one ulp
 below 1, below 0 and above 1, N 1 to 65,537, with and without the jacobian);
 K3 in four dimensions (lotd_grid4, the 4-D LoTD distant field's levels:
 a dense level of 17^4 rows and hash levels of 2^17) at K1/K3's tolerance
-at 1 to 262,144 points with chip_smoke.k3_4d_points' edges, its backward at
-chip_smoke.GRAD_REL, the field under autograd against the CPU at
+at 1 to 262,144 points with chip_smoke.k3_4d_points' edges, and bit-equal on
+ray-ordered points (chip_smoke.k3_4d_ray_points, a pixel step's order) and
+on k3_4d_points at 1 to 524,288 points; its backward at chip_smoke.GRAD_REL
+on both (also against its layout's plain version, and with a gradient
+scratch that holds only some levels); 3-D K3's bits the same under every
+plan; the field under autograd against the CPU at
 chip_smoke.STEP_GRAD_REL; K13 at chip_smoke.latent_edge_cases, and its backward is one kernel a call
 at the path shapes. A checkpoint of a trained waymo_demo_multi state loaded
 into a fresh build (whose frame was rendered first, filling K14's lines
@@ -1741,11 +1745,95 @@ def test_k3_4d_backward_at_the_distant_levels(dev, n):
 
 def test_k3_4d_staged_private_and_table_paths(dev):
     """chip_smoke.check_k3_4d at a small size: a 4-D ladder of F 4 staged in
-    shared memory (the wide kernel), its dense level private in the
-    backward, and read from the table under a plan with no copies."""
+    shared memory (the wide kernel) whose backward sums no level privately
+    (every 4-D level goes to the gradient scratch), the same ladder read from
+    the table and added to it under plans with no copies, and a ladder of F
+    1."""
     enc = _distant_encoding(dev)
     errs, _ = cs.check_k3_4d(dev, enc, 4096)
     assert errs["lotd_grid4"][0] <= 1e-5 and errs["lotd_grid4.bwd"][1] == cs.GRAD_REL
+
+
+def _k3_4d_set(kind, n, seed):
+    return (cs.k3_4d_ray_points(n, seed) if kind == "ray-ordered" else cs.k3_4d_points(n, seed))
+
+
+@pytest.mark.parametrize("kind", ["ray-ordered", "k3_4d_points"])
+@pytest.mark.parametrize("n", sorted({*cs.K3_4D_EDGE_N, 65_536, 524_288}))
+def test_k3_4d_forward_is_bit_equal_on_both_point_sets(dev, kind, n):
+    """The paired axis-0 loads change where a row is read, not the sums: the
+    plain version's bits on ray-ordered points (a pixel step's order) and on
+    points drawn apart, edges included, up to the pixel step's 524,288."""
+    enc = _distant_encoding(dev)
+    x = _t(_k3_4d_set(kind, n, 76), dev)
+    args = (enc.table.detach(), x, enc._grid_meta)
+    got = cs.encode_into(lotd.lotd_grid, args, enc.out_dim, n, dev, False)[0]
+    want = cs.encode_into(lotd.lotd_grid_plain, args, enc.out_dim, n, dev, False)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["ray-ordered", "k3_4d_points"])
+@pytest.mark.parametrize("n", sorted({*cs.K3_4D_EDGE_N, 65_536, 524_288}))
+def test_k3_4d_backward_on_both_point_sets(dev, kind, n):
+    """The table gradient (runs of equal cells summed by shuffles, a run's
+    bit-3 corners handed to the next run along axis 3, vector atomics into
+    the gradient scratch) within chip_smoke.GRAD_REL of its largest entry,
+    against the plain version and against its layout (the scratch filled
+    corner by corner, then written into the table's layout)."""
+    enc = _distant_encoding(dev)
+    x = _t(_k3_4d_set(kind, n, 77), dev)
+    d_out = cs.cotangents((enc.out_dim, n), 78, dev)
+    T, meta = enc.total_params, enc._grid_meta
+    kernels.reset_counts()
+    got = lotd.lotd_grid_bwd(T, x, meta, d_out, None)
+    assert kernels.KERNELS["lotd_grid4.bwd"].launches == 1
+    want = lotd.lotd_grid_bwd_plain(T, x, meta, d_out, None)
+    layout = lotd.lotd_grid_bwd_layout_plain(T, x, meta.tolist(), enc.grid_bwd_plan, d_out)
+    cs.compare_rel(f"K3-4D bwd {kind} N={n}", [got, layout], [want, want], cs.GRAD_REL)
+
+
+def test_k3_4d_backward_past_its_scratch(dev):
+    """A plan whose gradient scratch holds only the first levels (another
+    meta's): the levels past it are added into the table a float at a time,
+    within chip_smoke.GRAD_REL of the plain version."""
+    enc = _distant_encoding(dev)
+    x = _t(cs.k3_4d_ray_points(8192, 79), dev)
+    d_out = cs.cotangents((enc.out_dim, 8192), 80, dev)
+    T, meta = enc.total_params, enc._grid_meta
+    rows = meta.tolist()
+    plan = lotd.Grid4BwdPlan(sum((r[1] * r[3] + 7) // 8 * 8 for r in rows[:3]))
+    assert [w for w, _ in lotd.grid_bwd_places(rows, plan)] == ["scratch"] * 3 + ["table"] * 7
+    cs.compare_rel("K3-4D bwd, 3 levels in the scratch",
+                   [lotd.lotd_grid_bwd(T, x, meta, d_out, None, plan=plan)],
+                   [lotd.lotd_grid_bwd_plain(T, x, meta, d_out, None)], cs.GRAD_REL)
+
+
+@pytest.mark.parametrize("cfg", ["full", "dense"])
+@pytest.mark.parametrize("with_jac", [False, True])
+def test_k3_keeps_its_bits_whatever_the_plan(dev, cfg, with_jac):
+    """3-D K3 reads a level from its place (a shared copy, the scratch at its
+    32-byte place, or the table) and sums as before: the same bits under the
+    encoding's plan, a plan that sends every level to the scratch and one
+    with no copies (the outputs' digests do not move with the layout)."""
+    if cfg == "full":
+        _, params = build_renderer(SYNTHETIC_OBJECT, device=dev)
+        enc = params["Main"].encoding
+    else:
+        enc = cs.small_encoding(dev)
+    x = _t(cs.enc_points(100_003, 64, 2), dev)
+    rows = enc._grid_meta.tolist()
+    every = lotd.GridFwdPlan(0, 0, sum((r[1] * r[3] + 7) // 8 * 8 for r in rows),
+                             max(r[3] for r in rows))
+    outs = []
+    for plan in (enc.grid_fwd_plan, every, lotd.GridFwdPlan(0, 0, 0)):
+        outs.append(cs.encode_into(lambda *a: lotd.lotd_grid(*a, plan=plan),
+                                   (enc.table.detach(), x, enc._grid_meta), enc.out_dim,
+                                   x.shape[0], dev, with_jac))
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert torch.equal(o[0], outs[0][0])
+        assert not with_jac or torch.equal(o[1], outs[0][1])
 
 
 def test_k3_4d_distant_field_under_autograd_matches_the_cpu(dev):
