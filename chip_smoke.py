@@ -230,7 +230,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      a whole 80x120 frame timed and a crop held to the CPU path at its
      sample depths (STREET_CROP_*); K3-4D timed on both point sets (the
      step's own as the headline);
- 15. timing: frame latency and rays/s; training step time and rays/s; each
+ 15. the Waymo layout on disk (``disk_phase``): the demo drive written by
+     the port's writer to a temporary directory and read back by the
+     Waymo-layout reader (scenario, masks and LiDAR the in-memory drive's
+     exactly, each frame within DISK_JPEG_MEAN / DISK_JPEG_MAX of it; Pillow's
+     version printed), then both driving YAMLs as written from the command
+     line on it, DISK_ITERS iterations at full width:
+     configs/waymo_demo_multi.yaml through tools.train_multi.main, then
+     eval_multi, eval_lidar, render replay (one frame) and topdown (two
+     frames and their video) through their main(argv) from its exp dir;
+     configs/waymo_streetsurf.yaml through tools.train.main, then eval and
+     eval_lidar's single-scene branch; each tool's launches counted (its
+     path's kernels launched), no plain K7/K13/K14 and no bf16 cast on the
+     card, no skip, finite losses and scores, the seconds and the iteration
+     medians;
+ 16. timing: frame latency and rays/s; training step time and rays/s; each
      kernel's time at the training path's shapes (beside that path's launch
      count) and, for the forward kernels, at the render path's too, each
      beside its plain version, a library call where one exists, and its bound
@@ -255,7 +269,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      F.embedding's backward and the sort-based index_put; K14 and its
      backward at each encoding and at the edge ladders of CP_LINES_EDGES
      (library none; the per-level F.interpolate sum as an aside);
- 16. one JSON line of results, one of per-kernel results, then the device
+ 17. one JSON line of results, one of per-kernel results, then the device
      line, last.
 
 --profile adds torch.profiler tables of device time by kernel for one frame
@@ -6574,6 +6588,196 @@ def streetsurf_phase(dev, profile_it):
                 frame_launches=frame_launches)
 
 
+DISK_ITERS = 8
+# the JPEG's error (quality 95) of a written frame against the in-memory
+# frame, a mean over the frame's values and the largest value (measured with
+# Pillow 12.1.0 on the CPU: means 0.0048-0.0070, largest 0.38, ringing at the
+# vehicles' edges)
+DISK_JPEG_MEAN, DISK_JPEG_MAX = 0.01, 0.5
+DISK_MULTI_TRAIN = ("lotd_cp_stacked", "lotd_cp_stacked.bwd", "lotd_grid", "lotd_grid.bwd",
+                    "occ_ray_proposal", "neus_upsample.weights_pdf", "neus_upsample.merge",
+                    "cross_source_vw", "cross_source_vw.bwd", "neus_composite",
+                    "neus_composite.bwd", "occ_voxel_points", "occ_ema_update", "latent_take",
+                    "latent_take.bwd", "lotd_cp_lines", "lotd_cp_lines.bwd")
+DISK_STREET_TRAIN = ("lotd_cp_stacked", "lotd_cp_stacked.bwd", "lotd_grid", "lotd_grid.bwd",
+                     "lotd_grid4", "lotd_grid4.bwd", "occ_ray_proposal",
+                     "neus_upsample.weights_pdf", "neus_upsample.merge", "volume_composite",
+                     "volume_composite.bwd", "neus_composite", "neus_composite.bwd",
+                     "occ_voxel_points", "occ_ema_update", "lotd_cp_lines", "lotd_cp_lines.bwd")
+DISK_STREET_FRAME = ("lotd_cp_stacked", "lotd_grid", "lotd_grid4", "occ_ray_proposal",
+                     "neus_upsample.weights_pdf", "neus_upsample.merge", "volume_composite",
+                     "lotd_cp_lines")
+DISK_STREET_LIDAR = EVAL_LIDAR_KERNELS
+
+
+def check_written_drive(root):
+    """The demo drive written by the port's writer, read back by the
+    Waymo-layout reader: the scenario, the semantic and occupancy masks and
+    the LiDAR exactly the in-memory drive's, each frame within the JPEG's
+    error -> [(mean, largest) a frame]."""
+    from neuralsim_torch.dataio.waymo import WaymoDataset
+    from neuralsim_torch.dataio.waymo_demo import demo_sequence
+    disk, mem = WaymoDataset(root), demo_sequence()
+    sid, cam, lid = "demo_drive", COMPOSE_CAM, "lidar_TOP"
+
+    def same(a, b, path):
+        if isinstance(b, dict):
+            if set(a) != set(b):
+                raise AssertionError(f"the written scenario's {path} has other keys")
+            for k in b:
+                same(a[k], b[k], f"{path}.{k}")
+        elif isinstance(b, np.ndarray):
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"the written scenario's {path} differs")
+        elif isinstance(b, list):
+            if not isinstance(a, list) or len(a) != len(b):
+                raise AssertionError(f"the written scenario's {path} has another length")
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{path}[{i}]")
+        elif a != b:
+            raise AssertionError(f"the written scenario's {path} differs")
+
+    same(disk.get_scenario(sid), mem.get_scenario(sid), "scenario")
+    errs = []
+    for fi in range(mem.scenario["metas"]["num_frames"]):
+        for kind in ("all", "sky", "human", "vehicle", "dynamic"):
+            if not np.array_equal(disk.get_semantic_mask(sid, cam, fi, kind),
+                                  mem.get_semantic_mask(sid, cam, fi, kind)):
+                raise AssertionError(f"frame {fi}'s {kind} mask differs from the in-memory drive")
+        if not np.array_equal(disk.get_occupancy_mask(sid, cam, fi),
+                              mem.get_occupancy_mask(sid, cam, fi)):
+            raise AssertionError(f"frame {fi}'s occupancy mask differs")
+        got, want = disk.get_lidar(sid, lid, fi), mem.get_lidar(sid, lid, fi)
+        if any(not np.array_equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"frame {fi}'s LiDAR differs from the in-memory drive")
+        err = np.abs(disk.get_image(sid, cam, fi) - mem.get_image(sid, cam, fi))
+        errs.append((float(err.mean()), float(err.max())))
+    if not all(m <= DISK_JPEG_MEAN and x <= DISK_JPEG_MAX for m, x in errs):
+        raise AssertionError(f"a written frame is further from the in-memory frame than the "
+                             f"JPEG's error: {errs}")
+    return errs
+
+
+def disk_phase(dev):
+    """Phase 15: the demo drive written to disk in the Waymo layout and both
+    driving YAMLs from the command line on it, as written (the dataset's
+    ``root`` and the schedule's length the only overrides), at full width:
+    configs/waymo_demo_multi.yaml through tools.train_multi.main, then
+    eval_multi, eval_lidar and render (replay of one frame, topdown) from
+    its exp dir; configs/waymo_streetsurf.yaml through tools.train.main,
+    then eval and eval_lidar. Each tool's launches counted, no plain
+    K7/K13/K14 or bf16 cast on the card, finite losses and scores."""
+    import tempfile
+    import PIL
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.dataio.waymo_demo import build_demo_sequence
+    from neuralsim_torch.tools import eval as single_eval
+    from neuralsim_torch.tools import eval_lidar, eval_multi, render, train, train_multi
+
+    log(f"waymo layout: Pillow {PIL.__version__} (the reader's and the writer's JPEG codec)")
+
+    def run(label, fn, argv, want):
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        with no_plain_on_card(label):
+            out = fn(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in kernels.KERNELS.values()}
+        missing = [n for n in want if counts[n] <= 0]
+        log(f"{label}: {secs:.2f} s, launches {counts}")
+        if missing:
+            raise AssertionError(f"{label} never launched {missing}")
+        return out, secs, counts
+
+    def trained(label, out):
+        it_ms = np.asarray(out["iter_s"]) * 1e3
+        losses = [v for rec in out["log"] for k, v in rec.items()
+                  if k.startswith(("loss", "lidar/loss"))]
+        if out["skips_total"] or len(it_ms) != DISK_ITERS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{label} skipped a step, logged a non-finite loss or ran "
+                                 f"another number of iterations")
+        log(f"{label}: iteration median {np.median(it_ms):.2f} ms (min {it_ms.min():.2f}, max "
+            f"{it_ms.max():.2f}), loss_total {[rec['loss_total'] for rec in out['log']]}")
+        return float(np.median(it_ms))
+
+    def finite(label, res):
+        vals = [v for v in res["mean"].values() if v is not None]
+        if not res["per_frame"] or not all(map(math.isfinite, vals)):
+            raise AssertionError(f"{label}'s scores are not finite, or no frame was scored")
+        log(f"{label} mean {json.dumps(res['mean'])}")
+
+    summary, launches = {"pillow": PIL.__version__}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_disk_") as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        build_demo_sequence(data)
+        summary["disk_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        summary["disk_jpeg_err"] = check_written_drive(data)
+        summary["disk_read_check_s"] = time.perf_counter() - t0
+        log(f"waymo layout: the demo drive written in {summary['disk_write_s']:.2f} s and read "
+            f"back in {summary['disk_read_check_s']:.2f} s: scenario, masks and LiDAR the "
+            f"in-memory drive's, frames within the JPEG's error (mean, largest) "
+            f"{summary['disk_jpeg_err']}")
+        common = [f"--dataset_cfg.params.root={data}", f"--training.num_iters={DISK_ITERS}",
+                  "--training.i_log=1"]
+        exp = os.path.join(tmp, "multi")
+        out, summary["disk_multi_train_s"], launches["multi_train"] = run(
+            "train_multi.main (configs/waymo_demo_multi.yaml)", train_multi.main,
+            ["--config", "configs/waymo_demo_multi.yaml", f"--exp_dir={exp}"] + common,
+            DISK_MULTI_TRAIN)
+        summary["disk_multi_iteration_ms"] = trained("waymo_demo_multi from disk", out)
+        del out
+        at = ["--resume_dir", exp]
+        ev, summary["disk_eval_multi_s"], launches["eval_multi"] = run(
+            "eval_multi.main", eval_multi.main,
+            at + ["--eval.frames=0,3,6", f"--eval.rayschunk={EVAL_CHUNK}"], EVAL_FRAME_KERNELS)
+        finite("eval_multi", ev)
+        lv, summary["disk_eval_lidar_multi_s"], launches["eval_lidar_multi"] = run(
+            "eval_lidar.main (multi)", eval_lidar.main,
+            at + ["--renderer.type=multi", "--eval.frames=0,3,6"], EVAL_LIDAR_KERNELS)
+        finite("eval_lidar (multi)", lv)
+        for mode, extra in (("replay", ["--render.frames=0", "--render.video=false"]),
+                            ("topdown", ["--render.frames=0,4", "--render.topdown_w=256",
+                                         "--render.fps=6"])):
+            r, summary[f"disk_render_{mode}_s"], launches[f"render_{mode}"] = run(
+                f"render.main ({mode})", render.main,
+                at + ["--renderer.type=multi", f"--render.mode={mode}"] + extra,
+                EVAL_FRAME_KERNELS)
+            files = sorted(os.listdir(r["out_dir"]))
+            log(f"render {mode}: {files}")
+            if not {f"rgb_{fi:04d}.png" for fi in r["frames"]} <= set(files) \
+                    or (mode == "topdown") != bool(r["video"]):
+                raise AssertionError(f"render {mode} did not write its frames (or its video)")
+        summary.update(disk_eval_multi_mean=ev["mean"], disk_eval_lidar_multi_mean=lv["mean"])
+
+        exp = os.path.join(tmp, "street")
+        out, summary["disk_street_train_s"], launches["street_train"] = run(
+            "train.main (configs/waymo_streetsurf.yaml)", train.main,
+            ["--config", "configs/waymo_streetsurf.yaml", f"--exp_dir={exp}"] + common,
+            DISK_STREET_TRAIN)
+        summary["disk_street_iteration_ms"] = trained("waymo_streetsurf from disk", out)
+        cams = out["samplers"]["pixel"].loader.cam_ids
+        if cams != [COMPOSE_CAM] or not math.isfinite(out["psnr"]):
+            raise AssertionError(f"StreetSurf's camera_list should keep the one camera the "
+                                 f"drive has, {cams}, and its validation frame be finite")
+        del out
+        at = ["--resume_dir", exp]
+        ev, summary["disk_eval_s"], launches["eval"] = run(
+            "eval.main", single_eval.main, at + ["--eval.frames=0,3,6"], DISK_STREET_FRAME)
+        finite("eval (streetsurf)", ev)
+        lv, summary["disk_eval_lidar_s"], launches["eval_lidar"] = run(
+            "eval_lidar.main (single-scene)", eval_lidar.main, at + ["--eval.frames=0,3,6"],
+            DISK_STREET_LIDAR)
+        finite("eval_lidar (streetsurf)", lv)
+        summary.update(disk_eval_mean=ev["mean"], disk_eval_lidar_mean=lv["mean"])
+    summary["disk_iterations"] = DISK_ITERS
+    summary["disk_launches"] = launches
+    return dict(summary=summary)
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6705,9 +6909,13 @@ def main(argv) -> int:
     # 14. StreetSurf's single-street path (K3 in four dimensions), with its timing
     street = streetsurf_phase(dev, "--profile" in argv)
     phase_s["streetsurf"], t1 = time.perf_counter() - t1, time.perf_counter()
+
+    # 15. the demo drive on disk and both YAMLs from the command line
+    disk = disk_phase(dev)
+    phase_s["waymo layout and command line"], t1 = time.perf_counter() - t1, time.perf_counter()
     log("phases (s, host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
-    # 15. timing
+    # 16. timing
     (frame_ms, frame_min, frame_max), n_rays = time_frames(renderer, params, rig, dev)
     log(f"timing: frame median {frame_ms:.3f} ms (min {frame_min:.3f}, max "
         f"{frame_max:.3f}) for {n_rays} rays, {n_rays / frame_ms * 1e3:.1f} rays/s")
@@ -6944,7 +7152,7 @@ def main(argv) -> int:
         profile_frame(renderer, params, rig, dev)
         profile_step(trainer, state, rig, dev)
 
-    # 16. results
+    # 17. results
     log(json.dumps({"frame_ms": frame_ms, "frame_ms_min": frame_min,
                     "frame_ms_max": frame_max, "rays_per_s": n_rays / frame_ms * 1e3,
                     "crop_max_abs_err": crop_err,
@@ -6956,7 +7164,8 @@ def main(argv) -> int:
                     "first_step_grad_rel_err": step_grad_err, **bench["summary"],
                     **compose["summary"], **multi["summary"], **crowd["summary"],
                     **synth["summary"], **perlevel["summary"], **permuto["summary"],
-                    **ckpt["summary"], **street["summary"], "card": smi}))
+                    **ckpt["summary"], **street["summary"], **disk["summary"],
+                    "card": smi}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -24,8 +24,10 @@ sky) under the compose renderer. Its ``${eval:...}`` schedule entries stand
 resolved, at ``num_iters`` 6,000; :func:`at_num_iters` sets them for another
 length of the schedule, as the YAML's expressions do. Its dataset is the in-memory demo scenario
 (``dataio/waymo_demo.demo_scenario``, the generator's defaults) in place of
-the files that ``neuralsim_tpu.dataio.waymo_demo`` writes; ``occ_converge``
-is the street grid's warm-up against the drive's static ground.
+the files that ``dataio/waymo_demo.build_demo_sequence`` writes (the YAML
+itself reads those through ``dataio/waymo.WaymoDataset``: its frames are
+JPEGs); ``occ_converge`` is the street grid's warm-up against the drive's
+static ground.
 
 ``WAYMO_DEMO_CROWD`` is a port-side variant of ``WAYMO_DEMO_MULTI`` with
 exactly two changes: the demo drive has 8 vehicles, so the shared vehicle
@@ -56,7 +58,8 @@ Its one ``${eval:...}`` entry, the street's inv_s anneal start, stands
 resolved at ``num_iters`` 15,000 (:func:`at_num_iters` sets it for another
 length); ``${training.num_iters}`` references stay as written. Its dataset
 is the in-memory demo drive (``dataio/waymo_demo.demo_sequence``) in place of
-the YAML's preprocessed Waymo sequence, which the repository does not hold.
+the YAML's preprocessed Waymo sequence (the YAML runs as written on the demo
+drive written to disk, ``root`` pointed at it).
 
 ``SYNTHETIC_MULTI`` mirrors configs/synthetic_multi.yaml value by value: two
 spheres on one shared conditional LoTD model over a ground plane (the street's

@@ -18,14 +18,25 @@ semantic ids answer ``get_semantic_mask``, from which the multi-object
 evaluation tells the ground pixels.
 :func:`ground_sdf_tensor` is the drive's static ground, on which the street's
 occupancy grid converges.
+
+:func:`build_demo_sequence` writes the same sequence to disk in the Waymo
+layout that ``dataio.waymo.WaymoDataset`` reads (port of
+neuralsim_tpu/dataio/waymo_demo.py:138-259): the frames as JPEG at quality
+95 (Pillow), the semantic ids and the LiDAR as ``.npz``, the scenario as a
+torch-pickled ``scenario.pt``. From the command line::
+
+    python -m neuralsim_torch.dataio.waymo_demo --root data/waymo_demo
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+import os
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .scene_dataset import SceneDataset
 
 # camera-to-ego rotation, OpenCV convention (x right, y down, z forward),
 # ego +x forward / +y left / +z up
@@ -245,7 +256,7 @@ def lidar_ranges(drive: DemoDrive, fi: int, beams: np.ndarray) -> np.ndarray:
     return np.where(hit_l, t_l, 0.0).astype(np.float32)
 
 
-class DemoSequence:
+class DemoSequence(SceneDataset):
     """The demo drive's sequence in memory, with the reader's interface that
     the data loader and the evaluation use: the scenario, and per camera and
     frame the image, the occupancy mask and the semantic mask, per LiDAR and
@@ -310,3 +321,52 @@ def demo_sequence(n_frames: int = 8, H: int = 80, W: int = 120, n_vehicles: int 
                                      "ranges": lidar_ranges(drive, fi, beams)}
     scenario = demo_scenario(n_frames, H, W, n_vehicles, speed, seed, seq_name, fov_deg)
     return DemoSequence(scenario, images, semantics, lidars)
+
+
+def build_demo_sequence(root: str, seq_name: str = "demo_drive", *, n_frames: int = 8,
+                        H: int = 80, W: int = 120, n_vehicles: int = 3,
+                        fov_deg: float = 62.0, lidar_hw: Tuple[int, int] = (12, 64),
+                        speed: float = 1.5, seed: int = 0) -> str:
+    """Write the sequence of ``demo_sequence`` (the same arguments) under
+    ``root/seq_name`` in the Waymo layout; returns its path. Each frame's
+    image is the writer's ``uint8(clip(rgb, 0, 1) * 255)`` as a JPEG of
+    quality 95, so it reads back within the JPEG's error of the in-memory
+    image; masks, LiDAR and scenario read back exactly."""
+    from PIL import Image
+    drive = DemoDrive(n_frames, speed, n_vehicles, seed)
+    seq_dir = os.path.join(root, seq_name)
+    for sub in ("images/camera_FRONT", "lidars/lidar_TOP", "masks/camera_FRONT"):
+        os.makedirs(os.path.join(seq_dir, sub), exist_ok=True)
+    beams = beams_local(tuple(lidar_hw))
+    for fi in range(n_frames):
+        rgb, sem = camera_frame(drive, fi, H, W, fov_deg)
+        Image.fromarray((np.clip(rgb, 0, 1) * 255).astype(np.uint8)).save(
+            os.path.join(seq_dir, "images", "camera_FRONT", f"{fi:08d}.jpg"), quality=95)
+        np.savez_compressed(os.path.join(seq_dir, "masks", "camera_FRONT", f"{fi:08d}.npz"),
+                            mask=sem)
+        np.savez_compressed(os.path.join(seq_dir, "lidars", "lidar_TOP", f"{fi:08d}.npz"),
+                            rays_o=np.zeros_like(beams), rays_d=beams,
+                            ranges=lidar_ranges(drive, fi, beams))
+    torch.save(demo_scenario(n_frames, H, W, n_vehicles, speed, seed, seq_name, fov_deg),
+               os.path.join(seq_dir, "scenario.pt"))
+    return seq_dir
+
+
+def main(argv: Optional[List[str]] = None) -> str:
+    import argparse
+    ap = argparse.ArgumentParser("waymo_demo", allow_abbrev=False)
+    ap.add_argument("--root", default="data/waymo_demo")
+    ap.add_argument("--seq", default="demo_drive")
+    ap.add_argument("--n_frames", type=int, default=8)
+    ap.add_argument("--H", type=int, default=80)
+    ap.add_argument("--W", type=int, default=120)
+    ap.add_argument("--n_vehicles", type=int, default=3)
+    a = ap.parse_args(argv)
+    out = build_demo_sequence(a.root, a.seq, n_frames=a.n_frames, H=a.H, W=a.W,
+                              n_vehicles=a.n_vehicles)
+    print(out)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -61,6 +61,7 @@ from ..configs import resolve_refs
 from ..dataio.synthetic import sdf_scene_tensor
 from ..dataio.dataloader import LidarSampler, PixelSampler, SceneDataLoader
 from ..dataio.synthetic_multi import SyntheticMultiObjectDataset
+from ..dataio.waymo import WaymoDataset
 from ..dataio.waymo_demo import demo_scenario, demo_sequence
 from ..fields.nerf import NeRFDistantField
 from ..fields.neus import NeuSField
@@ -200,22 +201,50 @@ def build_trainer(cfg: Dict[str, Any], device="cuda") -> Tuple[Trainer, TrainSta
 
 
 # the Waymo reader's params, which a config of a Waymo sequence keeps beside a
-# command line's dot override of the target (overrides merge into the YAML's
-# params); the demo drive has one camera and one LiDAR and reads none of them
+# command line's dot override of the target by the in-memory demo drive
+# (overrides merge into the YAML's params); the demo drive reads none of them
 _WAYMO_READER_PARAMS = ("root", "camera_list", "lidar_list")
 
 
-def single_dataset(cfg: Dict[str, Any]):
-    """The dataset of a single-scene config by its target: the demo drive's
-    sequence in memory (``demo_sequence``, its params less the Waymo
-    reader's); any other target raises, naming itself (``WaymoDataset``
-    waits for a preprocessed sequence in the repository)."""
+def _dataset_target(cfg: Dict[str, Any], allowed: Tuple[str, ...], path: str
+                    ) -> Tuple[str, Dict[str, Any]]:
+    """(the last part of the dataset target's name, its params): the target
+    is told by that name and never imported, so the YAMLs' targets in the JAX
+    package name the port's datasets; another name raises, naming ``path``."""
     ds = cfg["dataset_cfg"]
-    if ds["target"].rsplit(".", 1)[-1] != "demo_sequence":
-        raise NotImplementedError(f"dataset {ds['target']} is not ported; the single-scene "
-                                  "tool runs the in-memory demo drive (demo_sequence)")
-    return demo_sequence(**{k: v for k, v in dict(ds.get("params", {})).items()
-                            if k not in _WAYMO_READER_PARAMS})
+    name = ds["target"].rsplit(".", 1)[-1]
+    if name not in allowed:
+        raise NotImplementedError(f"dataset {ds['target']} is not ported for the {path} "
+                                  "build, which reads " + ", ".join(allowed))
+    params = dict(ds.get("params", {}))
+    if name in ("demo_scenario", "demo_sequence"):
+        params = {k: v for k, v in params.items() if k not in _WAYMO_READER_PARAMS}
+    return name, params
+
+
+def _make_dataset(name: str, params: Dict[str, Any]):
+    if name == "WaymoDataset":
+        return WaymoDataset(**params)
+    if name == "SyntheticMultiObjectDataset":
+        return SyntheticMultiObjectDataset(**params)
+    return demo_sequence(**params)
+
+
+def first_scenario(dataset, cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """The scenario of a multi-object config: ``scenebank_cfg.scenarios``'s
+    first scene, else the dataset's first."""
+    sid = (cfg.get("scenebank_cfg", {}).get("scenarios") or [None])[0]
+    return dataset.get_scenario(sid or dataset.scene_ids()[0])
+
+
+def single_dataset(cfg: Dict[str, Any]):
+    """The dataset of a single-scene config by its target: a sequence in the
+    Waymo layout on disk (``WaymoDataset``, all its params: ``root``,
+    ``sequences``, ``camera_list``, ``lidar_list``, the dir names) or the
+    demo drive's sequence in memory (``demo_sequence``, its params less the
+    Waymo reader's)."""
+    return _make_dataset(*_dataset_target(cfg, ("WaymoDataset", "demo_sequence"),
+                                          "single-scene"))
 
 
 def build_everything(cfg: Dict[str, Any], device="cuda",
@@ -303,33 +332,26 @@ def build_everything(cfg: Dict[str, Any], device="cuda",
     return scene, bank, renderer, trainer, state, loader
 
 
-def _dataset_target(cfg: Dict[str, Any]) -> Tuple[str, Dict[str, Any]]:
-    ds = cfg["dataset_cfg"]
-    name = ds["target"].rsplit(".", 1)[-1]
-    if name not in ("demo_scenario", "demo_sequence", "SyntheticMultiObjectDataset"):
-        raise NotImplementedError(f"dataset {ds['target']} is not ported; the compose path "
-                                  "runs the in-memory demo drive and the synthetic "
-                                  "multi-object scene")
-    return name, dict(ds.get("params", {}))
+_MULTI_DATASETS = ("WaymoDataset", "demo_scenario", "demo_sequence",
+                   "SyntheticMultiObjectDataset")
 
 
 def multi_scenario(cfg: Dict[str, Any]) -> Dict[str, Any]:
-    """The scenario of a multi-object config's dataset (all a render needs)."""
-    name, params = _dataset_target(cfg)
-    if name == "SyntheticMultiObjectDataset":
-        return SyntheticMultiObjectDataset(**params).get_scenario()
-    return demo_scenario(**params)
+    """The scenario of a multi-object config's dataset (all a render needs):
+    ``WaymoDataset``'s sequence on disk (:func:`first_scenario`), the demo
+    drive's (``demo_scenario``, in memory) or ``SyntheticMultiObjectDataset``'s."""
+    name, params = _dataset_target(cfg, _MULTI_DATASETS, "multi-object")
+    if name in ("demo_scenario", "demo_sequence"):
+        return demo_scenario(**params)
+    return first_scenario(_make_dataset(name, params), cfg)
 
 
 def multi_dataset(cfg: Dict[str, Any]):
     """The dataset of a multi-object config with its data, for the data
-    loader: the demo drive's sequence in memory (``demo_sequence``: images,
-    masks, LiDAR) or ``SyntheticMultiObjectDataset``; both answer
-    ``get_scenario()``."""
-    name, params = _dataset_target(cfg)
-    if name == "SyntheticMultiObjectDataset":
-        return SyntheticMultiObjectDataset(**params)
-    return demo_sequence(**params)
+    loader: a sequence in the Waymo layout on disk (``WaymoDataset``), the
+    demo drive's sequence in memory (``demo_scenario``, ``demo_sequence``:
+    images, masks, LiDAR) or ``SyntheticMultiObjectDataset``."""
+    return _make_dataset(*_dataset_target(cfg, _MULTI_DATASETS, "multi-object"))
 
 
 def build_compose_renderer(cfg: Dict[str, Any], device="cuda", scenario=None
@@ -376,8 +398,9 @@ def render_multi_frame(renderer: BufferComposeRenderer, params: nn.ModuleDict, s
 def build_multi_trainer(cfg: Dict[str, Any], device="cuda",
                         timings: Optional[Dict[str, float]] = None, pretrain: bool = True):
     """-> (scene, bank, trainer, state, samplers) of a multi-object config:
-    its dataset in memory (:func:`multi_dataset`: the demo drive's scenario,
-    images, masks and LiDAR, or the synthetic multi-object scene), the
+    its dataset (:func:`multi_dataset`: a Waymo-layout sequence on disk, the
+    demo drive's scenario, images, masks and LiDAR in memory, or the
+    synthetic multi-object scene) and its scenario (:func:`first_scenario`), the
     compose renderer and the bank's seeded parameters
     (:func:`build_compose_renderer`), each asset's geometry pretraining (the
     street's road surface; its uniform draws from a generator seeded with
@@ -398,7 +421,7 @@ def build_multi_trainer(cfg: Dict[str, Any], device="cuda",
 
     t0 = time.perf_counter()
     seq = multi_dataset(cfg)
-    scenario = seq.get_scenario()
+    scenario = first_scenario(seq, cfg)
     timings["sequence_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     scene, bank, renderer, params = build_compose_renderer(cfg, dev, scenario=scenario)

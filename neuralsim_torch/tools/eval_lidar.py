@@ -16,9 +16,12 @@ ground-truth return lies inside the street's box and those outside it; the
 chamfer distance (full, 99, 97 and 95% trims) holds the hit points against
 the whole ground-truth cloud, both ways. :func:`main_function` restores the
 newest checkpoint of ``resume_dir`` (or ``exp_dir``) and writes
-``<exp>/eval/lidar_metrics.json``. The single-scene branch (``renderer.type``
-other than "multi") is not ported: the port's single-scene ``Trainer`` has no
-LiDAR step.
+``<exp>/eval/lidar_metrics.json``. A single-scene config (``renderer.type``
+other than "multi") is built by ``tools.build.build_everything`` and its
+street is rendered alone along the beams by the single-volume renderer.
+From the command line: ``python -m neuralsim_torch.tools.eval_lidar
+--resume_dir <exp> [--renderer.type=multi] [--eval.frames=0,3,6]
+[--device=cpu]``.
 """
 from __future__ import annotations
 
@@ -30,9 +33,11 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..config import BaseConfig
 from ..configs import resolve_refs
 from ..maths.common import chamfer_distance
 from ..scene.observers import lidar_rays_to_world
+from .eval import load_single_for_eval
 from .eval_multi import eval_frames, load_for_eval
 
 _TRIMS = ((None, ""), (0.99, "_99"), (0.97, "_97"), (0.95, "_95"))
@@ -124,17 +129,20 @@ def main_function(cfg: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     result."""
     cfg = copy.deepcopy(resolve_refs(cfg))
     cfg.setdefault("training", {})["with_lidar"] = True
-    if cfg.get("renderer", {}).get("type") != "multi":
-        raise NotImplementedError("eval_lidar of a single-scene config is not ported (the "
-                                  "port's Trainer has no LiDAR step); set renderer.type: multi")
-    scene, renderer, params, occ, loader, exp_dir = load_for_eval(cfg, device)
     cr_aabb = None
-    if "cr" in renderer.scene_models:
-        space = params[renderer.scene_models["cr"][0]].space
+    if cfg.get("renderer", {}).get("type") == "multi":
+        scene, renderer, params, occ, loader, exp_dir = load_for_eval(cfg, device)
+        cr_id = renderer.scene_models["cr"][0] if "cr" in renderer.scene_models else None
+        renderer = ComposeLidarAdapter(scene, renderer)
+    else:
+        scene, renderer, params, occ, loader, exp_dir = load_single_for_eval(cfg, device)
+        cr_id = renderer.pkey("cr")
+    if cr_id is not None:
+        space = params[cr_id].space
         cr_aabb = (space.aabb_min.cpu().numpy(), space.aabb_max.cpu().numpy())
     ecfg = cfg.get("eval", {})
     fis = ecfg.get("forward_inv_s")
-    out = eval_lidar_frames(scene, ComposeLidarAdapter(scene, renderer), params, loader,
+    out = eval_lidar_frames(scene, renderer, params, loader,
                             frames=eval_frames(ecfg, scene.n_frames), occ=occ,
                             forward_inv_s=float(fis) if fis else None,
                             pred_mask=float(ecfg.get("pred_mask", 0.5)), cr_aabb=cr_aabb)
@@ -143,3 +151,15 @@ def main_function(cfg: Dict[str, Any], device="cuda") -> Dict[str, Any]:
         json.dump(out, f, indent=2)
     print(json.dumps(out["mean"]), flush=True)
     return out
+
+
+def main(argv=None, device: str = "cuda") -> Dict[str, Any]:
+    """The command line (``config.BaseConfig``): ``--resume_dir`` (whose
+    ``config.json`` is read without ``--config``), dot overrides,
+    ``--device=cpu``."""
+    cfg = BaseConfig("neuralsim_torch eval_lidar").parse(argv)
+    return main_function(cfg, device=cfg.pop("device", device))
+
+
+if __name__ == "__main__":
+    main()

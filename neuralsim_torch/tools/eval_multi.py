@@ -5,6 +5,7 @@ neuralsim_tpu/tools/eval_multi.py).
     from neuralsim_torch.tools.eval_multi import main_function
     out = main_function({**cfg, "resume_dir": "logs/demo",
                          "eval": {"frames": [0, 3, 6], "rayschunk": 8192}})   # on the card
+    main(["--resume_dir", "logs/demo", "--eval.frames=0,3,6"])     # the command line
 
 Each frame is rendered whole by the compose renderer (deterministic, every
 source's share kept) and scored against its image: PSNR, SSIM (LPIPS None:
@@ -32,6 +33,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..config import BaseConfig
 from ..configs import resolve_refs
 from ..dataio.dataloader import ImageSampler
 from ..dataio.waymo_demo import DYNAMIC_IDS, HUMAN_IDS, SKY_ID, VEHICLE_IDS
@@ -212,3 +214,15 @@ def main_function(cfg: Dict[str, Any], device="cuda") -> Dict[str, Any]:
             w.writerows(out["per_object"])
     print(json.dumps({"mean": out["mean"], "per_class": out["per_class"]}), flush=True)
     return out
+
+
+def main(argv=None, device: str = "cuda") -> Dict[str, Any]:
+    """The command line (``config.BaseConfig``): ``--config`` (a YAML or JSON
+    file) or ``--resume_dir`` (whose ``config.json`` is read without
+    ``--config``), dot overrides, ``--device=cpu``."""
+    cfg = BaseConfig("neuralsim_torch multi eval").parse(argv)
+    return main_function(cfg, device=cfg.pop("device", device))
+
+
+if __name__ == "__main__":
+    main()

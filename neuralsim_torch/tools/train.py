@@ -7,17 +7,19 @@ neuralsim_tpu/tools/train.py:21-446) and the loop both tools share.
                          "exp_dir": "logs/streetsurf"})             # on the card
     out = main_function({**cfg, "resume_dir": "logs/streetsurf"})   # resume a run
     main(["--config", "configs/waymo_streetsurf.yaml", "--training.num_iters=3000",
-          "--dataset_cfg.target=neuralsim_torch.dataio.waymo_demo.demo_sequence"])
+          "--dataset_cfg.params.root=data/waymo_demo"])
     out = train(SYNTHETIC_OBJECT, 20, device="cpu")      # plain versions on the CPU
 
 or ``python -m neuralsim_torch.tools.train --config configs/waymo_streetsurf.yaml
---dataset_cfg.target=neuralsim_torch.dataio.waymo_demo.demo_sequence
-[--training.num_iters=3000] [--exp_dir=logs/run0] [--device=cpu]`` (the
-YAML's own dataset, a preprocessed Waymo sequence, is not ported).
+--dataset_cfg.params.root=data/waymo_demo [--training.num_iters=3000]
+[--exp_dir=logs/run0] [--device=cpu]`` on a sequence in the Waymo layout (the
+demo drive written by ``python -m neuralsim_torch.dataio.waymo_demo --root
+data/waymo_demo``), or with
+``--dataset_cfg.target=neuralsim_torch.dataio.waymo_demo.demo_sequence`` on
+the demo drive in memory.
 
 :func:`main_function` trains a config of a dataset (StreetSurf's
-street, 4-D LoTD distant field and sky on the demo drive, in place of the
-YAML's preprocessed Waymo sequence): it builds everything
+street, 4-D LoTD distant field and sky on the demo drive): it builds everything
 (``tools.build.build_everything``), writes the exp dir (``config.json``, the
 resolved config as JSON; ``metrics.jsonl`` and ``stats.p``; ``ckpts/``:
 ``latest`` every ``training.i_save`` seconds, ``step_N`` every

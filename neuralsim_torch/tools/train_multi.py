@@ -8,6 +8,12 @@ single-scene tool's, in tools/train.py).
                          "exp_dir": "logs/demo"})              # on the card
     out = main_function({**cfg, "resume_dir": "logs/demo"})    # resume a run
     out = train_multi(SMALL_CFG, 3, device="cpu")              # no exp dir, the CPU
+    main(["--config", "configs/waymo_demo_multi.yaml",
+          "--dataset_cfg.params.root=data/waymo_demo"])          # the YAML as written
+
+or ``python -m neuralsim_torch.tools.train_multi --config configs/waymo_demo_multi.yaml
+--dataset_cfg.params.root=data/waymo_demo [--training.num_iters=6000]
+[--exp_dir=logs/run0] [--device=cpu]``.
 
 Each loop iteration takes a LiDAR step (``training.n_rays_lidar`` beams, the
 street alone; ``it`` stays; none without LiDAR data) and then a pixel step
@@ -36,6 +42,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..config import BaseConfig
 from ..configs import resolve_refs
 from ..utils.checkpoint import CheckpointIO
 from ..utils.logger import Logger
@@ -101,3 +108,15 @@ def main_function(cfg: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     return {"exp_dir": exp_dir, "state": state, "skips_total": skips_total, "scene": scene,
             "bank": bank, "trainer": trainer, "samplers": samplers, "log": log,
             "iter_s": iter_s}
+
+
+def main(argv=None, device: str = "cuda") -> Dict[str, Any]:
+    """The command line (``config.BaseConfig``): ``--config`` (a YAML or JSON
+    file) or ``--resume_dir`` (whose ``config.json`` is read without
+    ``--config``), dot overrides, ``--device=cpu``."""
+    cfg = BaseConfig("neuralsim_torch multi trainer").parse(argv)
+    return main_function(cfg, device=cfg.pop("device", device))
+
+
+if __name__ == "__main__":
+    main()

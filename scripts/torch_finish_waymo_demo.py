@@ -4,11 +4,16 @@ record: eval_multi (frames 0, 3 and 6, 8,192 rays a chunk), eval_lidar
 the summary with both metrics files under the results directory.
 
     python scripts/torch_finish_waymo_demo.py <exp_dir> [--results DIR] [--device cuda]
+        [--skip-render]
 
 The run's ``final`` checkpoint is evaluated, and ``skips_total`` (the steps
 the finite guard skipped) is read from that checkpoint. A run whose training
 was cut is first resumed to its end (``tools.train_multi.main_function`` with
-``resume_dir``). Nothing is rendered besides the evaluation's images.
+``resume_dir``). A run of the drive on disk (``dataset_cfg.target``
+``WaymoDataset``) is then rendered as the JAX package's runner renders it
+(``tools.render``: ``replay`` of frames 0 and 4, ``topdown`` 256 pixels wide
+with its video; the record names the Pillow that wrote it) unless ``--skip-render``; an in-memory run renders nothing besides the
+evaluation's images.
 """
 from __future__ import annotations
 
@@ -48,9 +53,35 @@ def gates(summary: dict) -> dict:
             "lidar_recall_ok": summary["eval_lidar"].get("miss_in_cuboid_frac", 1.0) < 0.25}
 
 
-def finish(exp: str, results: str = RESULTS, device: str = "cuda", train: dict = None) -> dict:
-    """Evaluate the run in ``exp`` and write ``<results>/<run>.json`` (the
-    summary, with ``train`` merged in), ``<run>_metrics.json`` and
+def render_run(base: dict, device: str) -> dict:
+    """The JAX runner's renders of a run (scripts/run_waymo_demo.py:97-107):
+    replay of frames 0 and 4, then the top-down map 256 pixels wide and its
+    video -> what was written."""
+    import PIL
+    from neuralsim_torch.tools.render import main_function as render_main
+    renderer = {**base["renderer"], "type": "multi"}
+    out = {"pillow": PIL.__version__}
+    t0 = time.perf_counter()
+    r = render_main({**base, "renderer": renderer,
+                     "render": {"mode": "replay", "frames": [0, 4], "video": False,
+                                "per_obj": True}}, device)
+    out["replay"] = {"s": time.perf_counter() - t0, "frames": r["frames"],
+                     "files": sorted(os.listdir(r["out_dir"]))}
+    t0 = time.perf_counter()
+    r = render_main({**base, "renderer": renderer,
+                     "render": {"mode": "topdown", "topdown_w": 256,
+                                "video": True, "fps": 6}}, device)
+    out["topdown"] = {"s": time.perf_counter() - t0, "frames": r["frames"],
+                      "video": r["video"] and os.path.basename(r["video"]),
+                      "files": sorted(os.listdir(r["out_dir"]))}
+    return out
+
+
+def finish(exp: str, results: str = RESULTS, device: str = "cuda", train: dict = None,
+           render: bool = True) -> dict:
+    """Evaluate the run in ``exp`` (and render a run of the drive on disk,
+    where ``render``) and write ``<results>/<run>.json`` (the summary, with
+    ``train`` merged in), ``<run>_metrics.json`` and
     ``<run>_lidar_metrics.json``. Returns the summary."""
     import torch
     from neuralsim_torch.tools.eval_lidar import main_function as eval_lidar_main
@@ -82,6 +113,15 @@ def finish(exp: str, results: str = RESULTS, device: str = "cuda", train: dict =
                             "eval": {"frames": [0, 3, 6]}}, device)
     summary["eval_lidar_s"] = time.perf_counter() - t0
     summary["eval_lidar"] = lout["mean"]
+    on_disk = cfg["dataset_cfg"]["target"].rsplit(".", 1)[-1] == "WaymoDataset"
+    summary["data"] = {"target": cfg["dataset_cfg"]["target"],
+                       "frames": "in memory, uncompressed"}
+    if on_disk:
+        import PIL
+        summary["data"].update(root=cfg["dataset_cfg"]["params"]["root"],
+                               frames="JPEG, quality 95, decoded by Pillow " + PIL.__version__)
+    if on_disk and render:
+        summary["render"] = render_run(base, device)
     summary["gates"] = gates(summary)
     summary["gates_all_ok"] = all(summary["gates"].values())
     os.makedirs(results, exist_ok=True)
@@ -100,5 +140,6 @@ if __name__ == "__main__":
     ap.add_argument("exp_dir")
     ap.add_argument("--results", default=RESULTS)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--skip-render", action="store_true")
     args = ap.parse_args()
-    finish(args.exp_dir, args.results, args.device)
+    finish(args.exp_dir, args.results, args.device, render=not args.skip_render)

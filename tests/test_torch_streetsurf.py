@@ -611,7 +611,10 @@ def test_driver_refuses_what_is_not_ported(tmp_path, key):
 
 
 def test_only_the_demo_drive_is_a_dataset(tmp_path):
-    for target in ("neuralsim_tpu.dataio.waymo.WaymoDataset", "x.demo_scenario"):
+    """The single-scene build reads the demo drive, in memory or written in
+    the Waymo layout (``WaymoDataset``, tests/test_torch_waymo_cli.py); any
+    other dataset, and the multi-object path's scenario alone, raise."""
+    for target in ("neuralsim_tpu.dataio.ad_datasets.NuScenesDataset", "x.demo_scenario"):
         cfg = _cfg(tmp_path / "y", 1)
         cfg["dataset_cfg"] = {"target": target, "params": {}}
         with pytest.raises(NotImplementedError, match=target):

@@ -151,5 +151,5 @@ def test_build_multi_trainer_feeds_the_pixel_sampler():
     noise = trainer.draw_noise("pixel", 128, torch.Generator().manual_seed(0), 0)
     assert noise["render"]["Vehicle#synthetic_multi"]["coarse"].shape == (128, 8)
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_multi_trainer({**NARROW, "dataset_cfg": {"target": "x.WaymoDataset"}},
+        build_multi_trainer({**NARROW, "dataset_cfg": {"target": "x.NuScenesDataset"}},
                             device="cpu")
