@@ -244,7 +244,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      path's kernels launched), no plain K7/K13/K14 and no bf16 cast on the
      card, no skip, finite losses and scores, the seconds and the iteration
      medians;
- 16. timing: frame latency and rays/s; training step time and rays/s; each
+ 16. EmerNeRF (``emernerf_phase``): configs/waymo_emernerf.yaml as written at
+     full width on the drive phase 15 wrote (the static LoTD of 4 dense and
+     8 hash levels of 2^18, the dynamic permuto lattice of 12 levels of 2^17
+     over (xyz, t), the flow head, the sky; 8,192 rays of 96 stratified
+     samples a step): the first step card vs CPU at MULTI_CHECK_RAYS rays
+     under the multi-object limits; one pixel step's own inputs and
+     cotangents captured, and against them K3 (the static samples,
+     [786,432, 3], no jacobian) and its backward, K9 at d 4 (the rendered
+     samples, the flow loss's points and the points the flow moved) and its
+     backward into the table and, at the moved points, into x01 (the same
+     bits twice), K6 and its backward at [8,192, 96], each timed queued
+     beside its plain version and bound; 48 iterations (finite losses, the
+     flow and dynamic sparsity among them, no skip, EMER_STEP_LAUNCHES a
+     step and nothing else, no plain K3/K6/K9/K7/K13/K14 on the card) with
+     the rgb loss over every pixel of three fixed frames (the same draws)
+     lower after the 48th iteration than after the 10th, the iteration
+     median; then the YAML from the command line: tools.train.main for
+     DISK_ITERS iterations, eval.main (frames 0, 3, 6) and render.main
+     (replay of frame 0: rgb, depth and the seven decomposition channels),
+     each tool's K3, K9 and K6 launched, the final checkpoint restored into
+     a fresh build bit for bit;
+ 17. timing: frame latency and rays/s; training step time and rays/s; each
      kernel's time at the training path's shapes (beside that path's launch
      count) and, for the forward kernels, at the render path's too, each
      beside its plain version, a library call where one exists, and its bound
@@ -269,7 +290,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      F.embedding's backward and the sort-based index_put; K14 and its
      backward at each encoding and at the edge ladders of CP_LINES_EDGES
      (library none; the per-level F.interpolate sum as an aside);
- 17. one JSON line of results, one of per-kernel results, then the device
+ 18. one JSON line of results, one of per-kernel results, then the device
      line, last.
 
 --profile adds torch.profiler tables of device time by kernel for one frame
@@ -277,7 +298,8 @@ and for one training step of each model, for one compose frame, and for one
 LiDAR and one pixel step of the multi-object (with K1 bwd's, K3 bwd's, K4's,
 K5a's, K5b's, K14's and K14 bwd's device time), the crowd, the per-level (with K2's,
 K2 bwd's and K3 bwd's) and the permuto training (with K9's), each with K13's,
-K13 bwd's and what is left of the library's index_put.
+K13 bwd's and what is left of the library's index_put, and one EmerNeRF pixel
+step.
 """
 from __future__ import annotations
 
@@ -288,6 +310,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1084,6 +1107,36 @@ def compare_rel(name, got, want, rel):
         err = max(err, e)
     log(f"check {name}: max_abs_err {err:.3g} (tol {rel:g} x max |plain gradient|)")
     return err
+
+
+def compare_f64(name, got, plain, exact, rel=GRAD_REL):
+    """The yardstick of scripts/torch_composite_conditioning.py, for
+    gradients whose float32 plain version is itself ill-conditioned (sums
+    that cancel to a few ulps of their terms): each output of the kernel no
+    further from the plain version run in float64 (``exact``) than the
+    float32 plain version is, plus ``rel`` times the float64 output's largest
+    entry; raises otherwise. -> the largest kernel-vs-float32-plain error."""
+    err = 0.0
+    for i, (g, p, w) in enumerate(zip(got, plain, exact)):
+        if w is None:
+            continue
+        if not torch_isfinite(g):
+            raise AssertionError(f"{name}: non-finite gradient")
+        scale = float(w.abs().max()) or 1.0
+        ek, ep = float((g.double() - w).abs().max()), float((p.double() - w).abs().max())
+        log(f"check {name} output {i}: from float64 kernel {ek / scale:.3g}, float32 plain "
+            f"{ep / scale:.3g} of its largest entry {scale:.3g} (tol plain + {rel:g})")
+        if not ek <= ep + rel * scale:
+            raise AssertionError(f"{name} output {i}: the kernel lies further from float64 "
+                                 f"({ek:.3g}) than the float32 plain version ({ep:.3g}) plus "
+                                 f"{rel:g} x {scale:.3g}")
+        err = max(err, float((g - p).abs().max()))
+    return err
+
+
+def torch_isfinite(t) -> bool:
+    import torch
+    return bool(torch.isfinite(t).all())
 
 
 def cotangents(shape, seed, dev):
@@ -6658,16 +6711,16 @@ def check_written_drive(root):
     return errs
 
 
-def disk_phase(dev):
-    """Phase 15: the demo drive written to disk in the Waymo layout and both
-    driving YAMLs from the command line on it, as written (the dataset's
-    ``root`` and the schedule's length the only overrides), at full width:
+def disk_phase(dev, tmp):
+    """Phase 15: the demo drive written to disk in the Waymo layout (under
+    ``tmp``/data, where phase 16 reads it too) and both driving YAMLs from the
+    command line on it, as written (the dataset's ``root`` and the
+    schedule's length the only overrides), at full width:
     configs/waymo_demo_multi.yaml through tools.train_multi.main, then
     eval_multi, eval_lidar and render (replay of one frame, topdown) from
     its exp dir; configs/waymo_streetsurf.yaml through tools.train.main,
     then eval and eval_lidar. Each tool's launches counted, no plain
     K7/K13/K14 or bf16 cast on the card, finite losses and scores."""
-    import tempfile
     import PIL
     import torch
     from neuralsim_torch import kernels
@@ -6709,73 +6762,647 @@ def disk_phase(dev):
         log(f"{label} mean {json.dumps(res['mean'])}")
 
     summary, launches = {"pillow": PIL.__version__}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_disk_") as tmp:
-        data = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
-        build_demo_sequence(data)
-        summary["disk_write_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        summary["disk_jpeg_err"] = check_written_drive(data)
-        summary["disk_read_check_s"] = time.perf_counter() - t0
-        log(f"waymo layout: the demo drive written in {summary['disk_write_s']:.2f} s and read "
-            f"back in {summary['disk_read_check_s']:.2f} s: scenario, masks and LiDAR the "
-            f"in-memory drive's, frames within the JPEG's error (mean, largest) "
-            f"{summary['disk_jpeg_err']}")
-        common = [f"--dataset_cfg.params.root={data}", f"--training.num_iters={DISK_ITERS}",
-                  "--training.i_log=1"]
-        exp = os.path.join(tmp, "multi")
-        out, summary["disk_multi_train_s"], launches["multi_train"] = run(
-            "train_multi.main (configs/waymo_demo_multi.yaml)", train_multi.main,
-            ["--config", "configs/waymo_demo_multi.yaml", f"--exp_dir={exp}"] + common,
-            DISK_MULTI_TRAIN)
-        summary["disk_multi_iteration_ms"] = trained("waymo_demo_multi from disk", out)
-        del out
-        at = ["--resume_dir", exp]
-        ev, summary["disk_eval_multi_s"], launches["eval_multi"] = run(
-            "eval_multi.main", eval_multi.main,
-            at + ["--eval.frames=0,3,6", f"--eval.rayschunk={EVAL_CHUNK}"], EVAL_FRAME_KERNELS)
-        finite("eval_multi", ev)
-        lv, summary["disk_eval_lidar_multi_s"], launches["eval_lidar_multi"] = run(
-            "eval_lidar.main (multi)", eval_lidar.main,
-            at + ["--renderer.type=multi", "--eval.frames=0,3,6"], EVAL_LIDAR_KERNELS)
-        finite("eval_lidar (multi)", lv)
-        for mode, extra in (("replay", ["--render.frames=0", "--render.video=false"]),
-                            ("topdown", ["--render.frames=0,4", "--render.topdown_w=256",
-                                         "--render.fps=6"])):
-            r, summary[f"disk_render_{mode}_s"], launches[f"render_{mode}"] = run(
-                f"render.main ({mode})", render.main,
-                at + ["--renderer.type=multi", f"--render.mode={mode}"] + extra,
-                EVAL_FRAME_KERNELS)
-            files = sorted(os.listdir(r["out_dir"]))
-            log(f"render {mode}: {files}")
-            if not {f"rgb_{fi:04d}.png" for fi in r["frames"]} <= set(files) \
-                    or (mode == "topdown") != bool(r["video"]):
-                raise AssertionError(f"render {mode} did not write its frames (or its video)")
-        summary.update(disk_eval_multi_mean=ev["mean"], disk_eval_lidar_multi_mean=lv["mean"])
+    data = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    build_demo_sequence(data)
+    summary["disk_write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary["disk_jpeg_err"] = check_written_drive(data)
+    summary["disk_read_check_s"] = time.perf_counter() - t0
+    log(f"waymo layout: the demo drive written in {summary['disk_write_s']:.2f} s and read "
+        f"back in {summary['disk_read_check_s']:.2f} s: scenario, masks and LiDAR the "
+        f"in-memory drive's, frames within the JPEG's error (mean, largest) "
+        f"{summary['disk_jpeg_err']}")
+    common = [f"--dataset_cfg.params.root={data}", f"--training.num_iters={DISK_ITERS}",
+              "--training.i_log=1"]
+    exp = os.path.join(tmp, "multi")
+    out, summary["disk_multi_train_s"], launches["multi_train"] = run(
+        "train_multi.main (configs/waymo_demo_multi.yaml)", train_multi.main,
+        ["--config", "configs/waymo_demo_multi.yaml", f"--exp_dir={exp}"] + common,
+        DISK_MULTI_TRAIN)
+    summary["disk_multi_iteration_ms"] = trained("waymo_demo_multi from disk", out)
+    del out
+    at = ["--resume_dir", exp]
+    ev, summary["disk_eval_multi_s"], launches["eval_multi"] = run(
+        "eval_multi.main", eval_multi.main,
+        at + ["--eval.frames=0,3,6", f"--eval.rayschunk={EVAL_CHUNK}"], EVAL_FRAME_KERNELS)
+    finite("eval_multi", ev)
+    lv, summary["disk_eval_lidar_multi_s"], launches["eval_lidar_multi"] = run(
+        "eval_lidar.main (multi)", eval_lidar.main,
+        at + ["--renderer.type=multi", "--eval.frames=0,3,6"], EVAL_LIDAR_KERNELS)
+    finite("eval_lidar (multi)", lv)
+    for mode, extra in (("replay", ["--render.frames=0", "--render.video=false"]),
+                        ("topdown", ["--render.frames=0,4", "--render.topdown_w=256",
+                                     "--render.fps=6"])):
+        r, summary[f"disk_render_{mode}_s"], launches[f"render_{mode}"] = run(
+            f"render.main ({mode})", render.main,
+            at + ["--renderer.type=multi", f"--render.mode={mode}"] + extra,
+            EVAL_FRAME_KERNELS)
+        files = sorted(os.listdir(r["out_dir"]))
+        log(f"render {mode}: {files}")
+        if not {f"rgb_{fi:04d}.png" for fi in r["frames"]} <= set(files) \
+                or (mode == "topdown") != bool(r["video"]):
+            raise AssertionError(f"render {mode} did not write its frames (or its video)")
+    summary.update(disk_eval_multi_mean=ev["mean"], disk_eval_lidar_multi_mean=lv["mean"])
 
-        exp = os.path.join(tmp, "street")
-        out, summary["disk_street_train_s"], launches["street_train"] = run(
-            "train.main (configs/waymo_streetsurf.yaml)", train.main,
-            ["--config", "configs/waymo_streetsurf.yaml", f"--exp_dir={exp}"] + common,
-            DISK_STREET_TRAIN)
-        summary["disk_street_iteration_ms"] = trained("waymo_streetsurf from disk", out)
-        cams = out["samplers"]["pixel"].loader.cam_ids
-        if cams != [COMPOSE_CAM] or not math.isfinite(out["psnr"]):
-            raise AssertionError(f"StreetSurf's camera_list should keep the one camera the "
-                                 f"drive has, {cams}, and its validation frame be finite")
-        del out
-        at = ["--resume_dir", exp]
-        ev, summary["disk_eval_s"], launches["eval"] = run(
-            "eval.main", single_eval.main, at + ["--eval.frames=0,3,6"], DISK_STREET_FRAME)
-        finite("eval (streetsurf)", ev)
-        lv, summary["disk_eval_lidar_s"], launches["eval_lidar"] = run(
-            "eval_lidar.main (single-scene)", eval_lidar.main, at + ["--eval.frames=0,3,6"],
-            DISK_STREET_LIDAR)
-        finite("eval_lidar (streetsurf)", lv)
-        summary.update(disk_eval_mean=ev["mean"], disk_eval_lidar_mean=lv["mean"])
+    exp = os.path.join(tmp, "street")
+    out, summary["disk_street_train_s"], launches["street_train"] = run(
+        "train.main (configs/waymo_streetsurf.yaml)", train.main,
+        ["--config", "configs/waymo_streetsurf.yaml", f"--exp_dir={exp}"] + common,
+        DISK_STREET_TRAIN)
+    summary["disk_street_iteration_ms"] = trained("waymo_streetsurf from disk", out)
+    cams = out["samplers"]["pixel"].loader.cam_ids
+    if cams != [COMPOSE_CAM] or not math.isfinite(out["psnr"]):
+        raise AssertionError(f"StreetSurf's camera_list should keep the one camera the "
+                             f"drive has, {cams}, and its validation frame be finite")
+    del out
+    at = ["--resume_dir", exp]
+    ev, summary["disk_eval_s"], launches["eval"] = run(
+        "eval.main", single_eval.main, at + ["--eval.frames=0,3,6"], DISK_STREET_FRAME)
+    finite("eval (streetsurf)", ev)
+    lv, summary["disk_eval_lidar_s"], launches["eval_lidar"] = run(
+        "eval_lidar.main (single-scene)", eval_lidar.main, at + ["--eval.frames=0,3,6"],
+        DISK_STREET_LIDAR)
+    finite("eval_lidar (streetsurf)", lv)
+    summary.update(disk_eval_mean=ev["mean"], disk_eval_lidar_mean=lv["mean"])
     summary["disk_iterations"] = DISK_ITERS
     summary["disk_launches"] = launches
     return dict(summary=summary)
+
+
+# EmerNeRF (configs/waymo_emernerf.yaml as written, at full width, on the demo
+# drive written to disk; the data's root and the schedule's length the only
+# overrides): each iteration a pixel step of 8,192 rays of 96 stratified
+# samples through the static LoTD (4 dense levels of 16-60 and 8 hash levels
+# of 2^18 to 2,048, F 2: K3 without the jacobian) and the dynamic permuto
+# lattice over (xyz, t) (12 levels of 2^17, d 4: K9), composited with the
+# sky by K6 at [8,192, 96]; the flow loss's two queries of the dynamic branch
+# at its 1,024 points (K9 and its backward into the table and, for the
+# points moved by the flow, into x01). Its first step is held to the CPU path
+# at MULTI_CHECK_RAYS rays under the multi-object limits (the samples are
+# stratified, so both sides sample at the same depths).
+EMER_YAML = "configs/waymo_emernerf.yaml"
+EMER_RAYS, EMER_SAMPLES = 8192, 96          # the YAML's n_rays and num_coarse
+EMER_ITERS = 48
+EMER_EARLY = 10
+# the fixed pixels the rgb loss is held to fall on: every pixel of these
+# frames of the first camera, each frame's query with the same draws
+EMER_HELD_FRAMES = (0, 3, 6)
+EMER_HELD_SEED = 29
+# the first step's rays are all opaque where 1 - their mean mask is below this
+EMER_OPAQUE = 1e-5
+EMER_KERNELS = ("lotd_grid", "lotd_grid.bwd", "permuto", "permuto.bwd", "volume_composite",
+                "volume_composite.bwd")
+# launches a pixel step: K3 and K6 once each way, K9 three times each way (the
+# rendered samples, the flow loss's query at its points and at the points
+# the flow moved)
+EMER_STEP_LAUNCHES = {"lotd_grid": 1, "lotd_grid.bwd": 1, "permuto": 3, "permuto.bwd": 3,
+                      "volume_composite": 1, "volume_composite.bwd": 1}
+EMER_CHANNELS = ("rgb", "depth", "flow_fwd", "flow_bwd", "rgb_static", "rgb_dynamic",
+                 "mask_static", "mask_dynamic")
+
+
+def emernerf_cfg(root, num_iters):
+    """configs/waymo_emernerf.yaml with the drive's root and the schedule's
+    length the only overrides."""
+    from neuralsim_torch.config import load_config
+    return load_config(EMER_YAML, [f"--dataset_cfg.params.root={root}",
+                                   f"--training.num_iters={num_iters}"])
+
+
+@contextlib.contextmanager
+def plain_on_card(record):
+    """While the block runs, count in ``record["plain_on_card"]`` the calls of
+    K3's, K9's and K6's plain versions (forward and backward) with a tensor
+    on the card: a card path takes none."""
+    from neuralsim_torch.fields.encodings import lotd
+    from neuralsim_torch.fields.encodings import permuto as pm
+    from neuralsim_torch.renderers import buffers
+    names = [(lotd, "lotd_grid_plain"), (lotd, "lotd_grid_bwd_plain"), (pm, "permuto_plain"),
+             (pm, "permuto_bwd_plain"), (buffers, "volume_composite_plain"),
+             (buffers, "volume_composite_bwd_plain")]
+    saved = [(m, n, getattr(m, n)) for m, n in names]
+    record.setdefault("plain_on_card", 0)
+
+    def counted(fn):
+        def call(*a, **kw):
+            record["plain_on_card"] += int(any(getattr(x, "is_cuda", False) for x in a))
+            return fn(*a, **kw)
+        return call
+
+    for m, n, fn in saved:
+        setattr(m, n, counted(fn))
+    try:
+        yield record
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def emernerf_recorded(record):
+    """Record, copied, the inputs and cotangents that one pixel step hands
+    K3 (3-D), K9 and K6 and their backwards: ``record[kernel]`` a list of
+    argument tuples, call by call; the calls themselves run as they are."""
+    from neuralsim_torch.fields.encodings import lotd
+    from neuralsim_torch.fields.encodings import permuto as pm
+    from neuralsim_torch.renderers import buffers
+    keep = lambda a: tuple(x.detach().clone() if hasattr(x, "detach") else x for x in a)
+    names = [(lotd, "lotd_grid", "lotd_grid"), (lotd, "lotd_grid_bwd", "lotd_grid.bwd"),
+             (pm, "permuto", "permuto"), (pm, "permuto_bwd", "permuto.bwd"),
+             (buffers, "volume_composite", "volume_composite"),
+             (buffers, "volume_composite_bwd", "volume_composite.bwd")]
+    saved = [(m, n, k, getattr(m, n)) for m, n, k in names]
+
+    def recorded(k, fn):
+        def call(*a, **kw):
+            record.setdefault(k, []).append(keep(a))
+            return fn(*a, **kw)
+        return call
+
+    for m, n, k, fn in saved:
+        setattr(m, n, recorded(k, fn))
+    try:
+        yield record
+    finally:
+        for m, n, _, fn in saved:
+            setattr(m, n, fn)
+
+
+def emernerf_batch(samplers, n, dev):
+    from neuralsim_torch.tools.train import _PIXEL_KEYS, to_device
+    raw = samplers["pixel"].sample(n)
+    return to_device(raw, _PIXEL_KEYS, dev), raw["cam_id"]
+
+
+def check_emernerf_first_step(scene, trainer, state, samplers, dev):
+    """The first pixel step (MULTI_CHECK_RAYS rays, the flow loss at its
+    1,024 points) on the card against the CPU path, from the same
+    parameters, batch and draws; steps nothing. -> (worst loss rel err,
+    worst gradient rel err)."""
+    import torch
+    to = lambda tree, d: {k: to(v, d) for k, v in tree.items()} if isinstance(tree, dict) \
+        else [to(v, d) for v in tree] if isinstance(tree, list) else tree.to(d)
+    batch, cam = emernerf_batch(samplers, MULTI_CHECK_RAYS, "cpu")
+    noise = trainer.draw_noise(MULTI_CHECK_RAYS, torch.Generator().manual_seed(7), state.it)
+    cpu_params = copy.deepcopy(state.params).to("cpu")
+    results = {}
+    for label, params, d in (("cpu", cpu_params, "cpu"), ("card", state.params, dev)):
+        saved = trainer.scene
+        trainer.scene = scene_on(scene, d)
+        try:
+            total, extras = trainer.compute_losses(params, to(batch, d), state.it, to(noise, d),
+                                                   None, "pixel", cam)
+        finally:
+            trainer.scene = saved
+        named = dict(params.named_parameters())
+        grads = torch.autograd.grad(total, list(named.values()), allow_unused=True)
+        results[label] = ({"loss_total": float(total.detach()),
+                           **{k: float(v.detach()) for k, v in extras["losses"].items()}},
+                          {k: torch.zeros(p.shape) if g is None else g.cpu()
+                           for (k, p), g in zip(named.items(), grads)},
+                          1.0 - float(extras["aux"]["rendered_mask_mean"]))
+    (l_cpu, g_cpu, opaque), (l_gpu, g_gpu, _) = results["cpu"], results["card"]
+    if set(l_cpu) != {"loss_total", "loss_rgb", "loss_mask", "loss_flow",
+                      "loss_dynamic_sparsity"}:
+        raise AssertionError(f"an EmerNeRF step should have the YAML's four losses: {l_cpu}")
+    le = max(abs(l_gpu[k] - v) / max(abs(v), 1e-12) for k, v in l_cpu.items())
+    # the sky's leaves take their gradient through 1 - mask_volume alone; where
+    # the close range is opaque on every ray (the YAML's fields at init: a
+    # density of ~2 a metre over 60 m and more of box), 1 - mask is the
+    # float32 rounding of a sum of weights next to 1, another noise on each
+    # side, and the sky's gradient that noise (~1e-8 of the step's largest):
+    # it is then held to the step's largest gradient, not to its own
+    scale = max(float(g.abs().max()) for g in g_cpu.values())
+    sky = trainer.renderer.pkey("sky") + "."
+    noise_only = {k for k in g_cpu if k.startswith(sky)} if opaque < EMER_OPAQUE else set()
+    rel = {k: float((g_gpu[k] - g).abs().max())
+           / (scale if k in noise_only else float(g.abs().max()))
+           for k, g in g_cpu.items() if float(g.abs().max()) > 0}
+    ge = max(rel.values())
+    if noise_only:
+        log(f"emernerf first step: every ray opaque (1 - mean mask {opaque:.3g} on the CPU): "
+            f"the sky's leaves held to the step's largest gradient, {scale:.3g}")
+    log(f"emernerf first step card vs cpu ({MULTI_CHECK_RAYS} rays): worst loss rel err "
+        f"{le:.3g} (tol {MULTI_STEP_LOSS_RTOL:g}), worst gradient rel err {ge:.3g} (tol "
+        f"{MULTI_STEP_GRAD_REL:g}); losses {json.dumps(l_gpu)}; gradients by leaf "
+        f"{json.dumps({k: float(f'{e:.3g}') for k, e in rel.items()})}")
+    # a leaf the step does not reach on the CPU (the sky behind an opaque
+    # close range at init) must get none on the card either
+    scale = max(float(g.abs().max()) for g in g_cpu.values())
+    zero = sorted(set(g_cpu) - set(rel))
+    if zero:
+        log(f"emernerf first step: no gradient on the CPU for {zero}")
+    if any(float(g_gpu[k].abs().max()) > 1e-12 * scale for k in zero):
+        raise AssertionError(f"the card's step reaches leaves that the CPU's does not: {zero}")
+    if not (le <= MULTI_STEP_LOSS_RTOL and ge <= MULTI_STEP_GRAD_REL):
+        raise AssertionError("the card's first EmerNeRF step differs from the CPU's")
+    return le, ge
+
+
+def capture_emernerf_step(trainer, state, samplers, dev):
+    """One pixel step of the YAML's 8,192 rays, no parameter moved, with the
+    kernels' inputs and cotangents recorded (emernerf_recorded) and their
+    launches counted -> (record, launches)."""
+    import torch
+    from neuralsim_torch import kernels
+    batch, cam = emernerf_batch(samplers, None, dev)
+    noise = trainer.draw_noise(batch["rays_fidx"].shape[0],
+                               torch.Generator(device=dev).manual_seed(17), state.it)
+    record = {}
+    kernels.reset_counts()
+    with emernerf_recorded(record):
+        total, _ = trainer.compute_losses(state.params, batch, state.it, noise, None, "pixel",
+                                          cam)
+        total.backward()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+    state.params.zero_grad(set_to_none=True)
+    got = {k: len(v) for k, v in record.items()}
+    if got != EMER_STEP_LAUNCHES or {k: launches[k] for k in EMER_KERNELS} != got \
+            or sum(launches.values()) != sum(got.values()):
+        raise AssertionError(f"an EmerNeRF pixel step should call {EMER_STEP_LAUNCHES} and "
+                             f"launch nothing else: calls {got}, launches {launches}")
+    return record, launches
+
+
+def check_emernerf_kernels(dev, enc_s, enc_d, record):
+    """K3 (the static branch's 786,432 samples) and its backward, K9 at d 4
+    (the dynamic branch's samples, the flow loss's 1,024 points and the
+    points the flow moved) and its backward into the table and, at the
+    moved points, into x01, K6 and its backward at [8,192, 96], each against
+    its plain version at the step's own inputs and cotangents -> ({kernel:
+    (max_abs_err, tol)}, the timings' inputs)."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    from neuralsim_torch.fields.encodings import permuto as pm
+    from neuralsim_torch.renderers import buffers
+    errs, shapes = {}, {}
+    # K3: the field's table (its kept scratch), meta and plans as the path
+    (table, x, meta, *_), = record["lotd_grid"]
+    (n_table, xb, metab, d_out, d_jac, *_), = record["lotd_grid.bwd"]
+    N, C = x.shape[0], enc_s.out_dim
+    if x.shape != (EMER_RAYS * EMER_SAMPLES, 3) or d_jac is not None \
+            or not torch.equal(xb, x):
+        raise AssertionError(f"K3 should see the step's [786,432, 3] samples without the "
+                             f"jacobian, its backward the same points: {tuple(x.shape)}")
+    got = encode_into(lambda *a: lotd.lotd_grid(*a, plan=enc_s.grid_fwd_plan), (table, x, meta),
+                      C, N, dev, False)
+    want = encode_into(lotd.lotd_grid_plain, (table, x, meta), C, N, dev, False)
+    e3 = compare(f"K3 emernerf static samples N={N:,} L={meta.shape[0]}", got, want, 1e-5, 1e-5)
+    bplan = enc_s.grid_bwd_plan.at(N)
+    e3b = compare_rel(f"K3 bwd emernerf static samples N={N:,}",
+                      [lotd.lotd_grid_bwd(n_table, x, meta, d_out, None, plan=bplan)],
+                      [lotd.lotd_grid_bwd_plain(n_table, x, meta, d_out, None)], GRAD_REL)
+    errs["lotd_grid"], errs["lotd_grid.bwd"] = (e3, 1e-5), (e3b, GRAD_REL)
+    shapes["lotd_grid"] = dict(args=(table, x, meta), plan=enc_s.grid_fwd_plan, C=C)
+    shapes["lotd_grid.bwd"] = dict(args=(n_table, x, meta, d_out), plan=bplan)
+    # K9 at d 4: its three calls and their backwards, in the order the step makes them
+    fwd, bwd = record["permuto"], record["permuto.bwd"]
+    labels = ("the rendered samples", "the flow loss's points", "the points the flow moved")
+    if len(fwd) != 3 or fwd[0][1].shape[0] != EMER_RAYS * EMER_SAMPLES:
+        raise AssertionError("K9 should see the rendered samples, then the flow loss's two "
+                             "queries")
+    e9, e9b, e9x = [], [], []
+    for label, (table9, x01, res, meta9, size, n_out, jac) in zip(labels, fwd):
+        if x01.shape[1] != 4 or jac:
+            raise AssertionError("K9 on this path is d 4 without the jacobian")
+        a = (table9, x01, res, meta9, size)
+        e9.append(compare(f"K9 emernerf d 4 {label} N={x01.shape[0]:,}",
+                          pm.permuto(*a, n_out, False), pm.permuto_plain(*a, False), **K9_TOL))
+    for table9, x01, res, meta9, size, d_o, d_j, need_dx in bwd:
+        a = (table9, x01, res, meta9, size)
+        gt, gx = pm.permuto_bwd(*a, d_o, None, need_dx)
+        wt, wx = pm.permuto_bwd_plain(*a, d_o, None, need_dx)
+        what = f"K9 bwd emernerf d 4 N={x01.shape[0]:,}{' with d x01' if need_dx else ''}"
+        e9b.append(compare_rel(what + ", d table", [gt], [wt], GRAD_REL))
+        if need_dx:
+            e9x.append(compare_rel(what + ", d x01", [gx], [wx], K9_DX_REL))
+            if not torch.equal(gx, pm.permuto_bwd(*a, d_o, None, True)[1]):
+                raise AssertionError("K9 bwd: d x01 differs between two calls")
+    if [b[-1] for b in bwd].count(True) != 1:
+        raise AssertionError("one of K9's three backwards (at the points the flow moved) "
+                             "should return d x01")
+    errs["permuto"] = (max(e9), K9_TOL["atol"])
+    errs["permuto.bwd"] = (max(e9b + e9x), GRAD_REL)
+    shapes["permuto"] = [dict(args=f[:5], C=f[5], label=label) for label, f in zip(labels, fwd)]
+    shapes["permuto.bwd"] = [dict(args=b[:5], d_out=b[5], need_dx=b[7]) for b in bwd]
+    # K6 at [8,192, 96] and its backward at the step's cotangents
+    (cargs,) = record["volume_composite"]
+    (bargs,) = record["volume_composite.bwd"]
+    if cargs[0].shape != (EMER_RAYS, EMER_SAMPLES):
+        raise AssertionError(f"K6 should composite [8,192, 96], not {tuple(cargs[0].shape)}")
+    e6 = compare("K6 emernerf close range [8,192, 96]", buffers.volume_composite(*cargs),
+                 buffers.volume_composite_plain(*cargs), 1e-5, 1e-6)
+    # at the step's own cotangents on rays that are opaque from their first
+    # samples, with a colour that hardly varies along them (the fields at
+    # init), d alpha is a sum that cancels to ~1e-11: held to float64
+    f64 = [x.double() if x is not None and x.dtype == torch.float32 else x for x in bargs]
+    e6b = compare_f64("K6 bwd emernerf [8,192, 96], the step's cotangents",
+                      buffers.volume_composite_bwd(*bargs),
+                      buffers.volume_composite_bwd_plain(*bargs),
+                      buffers.volume_composite_bwd_plain(*f64))
+    # and at GRAD_REL with N(0, 1) cotangents of all five outputs (a weight's
+    # own cotangent makes each d alpha a sum that does not cancel)
+    n6, s6 = cargs[0].shape
+    rand = [cotangents(sh, 40 + i, dev) for i, sh in enumerate(
+        ((n6, s6), (n6,), (n6,), (n6, 3), (n6, 3)))]
+    e6b = max(e6b, compare_rel("K6 bwd emernerf [8,192, 96], N(0, 1) cotangents",
+                               buffers.volume_composite_bwd(*cargs, *rand),
+                               buffers.volume_composite_bwd_plain(*cargs, *rand), GRAD_REL))
+    errs["volume_composite"], errs["volume_composite.bwd"] = (e6, 1e-6), (e6b, GRAD_REL)
+    shapes["volume_composite"], shapes["volume_composite.bwd"] = cargs, bargs
+    torch.cuda.synchronize()
+    return errs, shapes
+
+
+def time_emernerf_kernels(shapes):
+    """Each kernel queued (card_ms) at the step's own inputs, beside its plain
+    version and its least time (each input read once, each output written
+    once at 3.35 TB/s, or its float work at 67 TFLOP/s) -> {kernel:
+    [timing, ...]}."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    from neuralsim_torch.fields.encodings import permuto as pm
+    from neuralsim_torch.renderers import buffers
+    out = {}
+    table, x, meta = shapes["lotd_grid"]["args"]
+    N, C, T = x.shape[0], shapes["lotd_grid"]["C"], table.numel()
+    L, F = meta.shape[0], int(meta[0, 3])
+    buf = torch.empty((C, N), device=x.device)
+    ops = N * L * 8 * (2 * F + 3)            # 8 corners: a weight, then F multiply-adds
+    what = (f"[{N:,}, 3] the static branch's samples, {L} levels of F {F} "
+            f"(dense {[int(r[0]) for r in meta.tolist() if not r[4]]}, hash 2^18), "
+            f"{T:,} table floats, no jacobian")
+    out["lotd_grid"] = [dict(shape=what, **card_ms(lambda: lotd.lotd_grid(
+        table, x, meta, buf, None, plan=shapes["lotd_grid"]["plan"])),
+        plain_ms=cuda_ms(lambda: lotd.lotd_grid_plain(table, x, meta, buf), reps=3),
+        library_ms=None, bound=bound(N * 12 + T * 4 + C * N * 4, ops))]
+    n_table, xb, metab, d_out = shapes["lotd_grid.bwd"]["args"]
+    bplan = shapes["lotd_grid.bwd"]["plan"]
+    out["lotd_grid.bwd"] = [dict(shape=what + ", d_out [C, N]", **card_ms(
+        lambda: lotd.lotd_grid_bwd(n_table, xb, metab, d_out, None, plan=bplan)),
+        plain_ms=cuda_ms(lambda: lotd.lotd_grid_bwd_plain(n_table, xb, metab, d_out, None),
+                         reps=3),
+        library_ms=None, bound=bound(N * 12 + C * N * 4 + n_table * 4, ops))]
+    for sh in shapes["permuto"]:
+        t9, x01, res, meta9, size = sh["args"]
+        (n, d), L9, F9 = x01.shape, res.shape[0], int(meta9[0, 1])
+        walk, interp = 4 * d + 11 * (d + 1), 2 * (d + 1) * F9
+        out.setdefault("permuto", []).append(dict(
+            shape=f"[{n:,}, 4] {sh['label']}, {L9} levels of F {F9}, T {size:,}, no jacobian",
+            **card_ms(lambda: pm.permuto(*sh["args"], sh["C"], False)),
+            plain_ms=cuda_ms(lambda: pm.permuto_plain(*sh["args"], False), reps=3),
+            library_ms=None,
+            bound=bound(n * d * 4 + t9.numel() * 4 + n * sh["C"] * 4, n * L9 * (walk + interp))))
+    for sh in shapes["permuto.bwd"]:
+        t9, x01, res, meta9, size = sh["args"]
+        (n, d), L9, F9 = x01.shape, res.shape[0], int(meta9[0, 1])
+        dx = sh["need_dx"]
+        walk = 4 * d + 11 * (d + 1)
+        out.setdefault("permuto.bwd", []).append(dict(
+            shape=f"[{n:,}, 4]{', d x01' if dx else ''}, the features' cotangent",
+            **card_ms(lambda: pm.permuto_bwd(*sh["args"], sh["d_out"], None, dx)),
+            plain_ms=cuda_ms(lambda: pm.permuto_bwd_plain(*sh["args"], sh["d_out"], None, dx),
+                             reps=3),
+            library_ms=None,
+            # x01 and the cotangent read (the table too for d x01), the table's
+            # gradient (and d x01) written
+            bound=bound(n * d * 4 * (2 if dx else 1) + t9.numel() * 4 * (2 if dx else 1)
+                        + n * sh["d_out"].shape[1] * 4,
+                        n * L9 * (walk + 10 * (d + 1) * F9 + (4 * d * (d + 1) if dx else 0)))))
+    cargs, bargs = shapes["volume_composite"], shapes["volume_composite.bwd"]
+    n, S = cargs[0].shape
+    out["volume_composite"] = [dict(
+        shape=f"rays={n:,} S={S} (EmerNeRF's close range, with rgb and zero nablas)",
+        **card_ms(lambda: buffers.volume_composite(*cargs)),
+        plain_ms=cuda_ms(lambda: buffers.volume_composite_plain(*cargs), reps=3),
+        library_ms=None, bound=bound(n * S * 37 + n * 36, n * S * 18))]
+    out["volume_composite.bwd"] = [dict(
+        shape=f"rays={n:,} S={S}, the step's cotangents",
+        **card_ms(lambda: buffers.volume_composite_bwd(*bargs)),
+        plain_ms=cuda_ms(lambda: buffers.volume_composite_bwd_plain(*bargs), reps=3),
+        library_ms=None, bound=bound(n * S * 37 + n * 32 + n * S * 28, n * S * 40))]
+    for name, rows in out.items():
+        for r in rows:
+            log(f"timing {name} (emernerf): {r['ms']:.4f} ms ({card_extra(r)[2:]}, plain "
+                f"{r['plain_ms']:.4f}, bound {r['bound'][0]:.4f} by {r['bound'][1]}, library "
+                f"none) at {r['shape']}")
+    return out
+
+
+def emernerf_held_loss(scene, trainer, state, loader, dev):
+    """The rgb loss over every pixel of EMER_HELD_FRAMES of the first camera,
+    each frame's query with the same draws (EMER_HELD_SEED), no parameter
+    moved: the mean over the frames."""
+    import torch
+    from neuralsim_torch.dataio.dataloader import ImageSampler
+    cam = loader.cam_ids[0]
+    sampler = ImageSampler(loader, 1)
+    vals = []
+    with torch.no_grad():
+        for fi in EMER_HELD_FRAMES:
+            fr = sampler.get(cam, fi)
+            n = fr["rays_xy"].shape[0]
+            batch = {"rays_fidx": torch.full((n,), fi, dtype=torch.int32, device=dev),
+                     "rays_xy": torch.from_numpy(fr["rays_xy"]).to(dev),
+                     "image_rgb": torch.from_numpy(np.ascontiguousarray(fr["image_rgb"])).to(dev)}
+            gen = torch.Generator(device=dev).manual_seed(EMER_HELD_SEED)
+            noise = trainer.draw_noise(n, gen, state.it)
+            _, extras = trainer.compute_losses(state.params, batch, state.it, noise, None,
+                                               "pixel", cam)
+            vals.append(float(extras["losses"]["loss_rgb"]))
+    return float(np.mean(vals))
+
+
+def check_emernerf_training(scene, trainer, state, samplers, loader, dev):
+    """EMER_ITERS loop iterations (tools.train's train_loop) with every
+    metric logged: finite losses (the flow and dynamic sparsity among
+    them), no skip, the held set's rgb loss (emernerf_held_loss) lower after
+    the last iteration than after EMER_EARLY, each kernel launched as
+    counted (EMER_STEP_LAUNCHES an iteration, nothing else), no plain
+    version on the card -> (log, launches, (held before, after), iteration
+    ms median of the later iterations)."""
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.tools.train import train_loop
+    gen = torch.Generator(device=dev).manual_seed(11)
+    draw = lambda step, n, g, it: trainer.draw_noise(n, g, it, step)
+    log_, iter_s, held, launches, plain = [], [], [], {}, {}
+    for end in (EMER_EARLY, EMER_ITERS):
+        kernels.reset_counts()
+        with no_plain_on_card("emernerf training"), plain_on_card(plain):
+            train_loop(scene, trainer, state, samplers, end, gen, 1, log_, iter_s=iter_s,
+                       draw=draw)
+            torch.cuda.synchronize()
+        for k in kernels.KERNELS.values():
+            launches[k.name] = launches.get(k.name, 0) + k.launches
+        held.append(emernerf_held_loss(scene, trainer, state, loader, dev))
+    for rec in log_:
+        for k in ("loss_total", "loss_rgb", "loss_mask", "loss_flow", "loss_dynamic_sparsity"):
+            if not np.isfinite(rec[k]):
+                raise AssertionError(f"non-finite {k} at iteration {rec['it']}")
+    if log_[-1]["skips_total"] != 0 or len(log_) != EMER_ITERS:
+        raise AssertionError(f"{log_[-1]['skips_total']} steps were skipped")
+    want = {name: EMER_ITERS * EMER_STEP_LAUNCHES.get(name, 0) for name in launches}
+    if launches != want or plain["plain_on_card"]:
+        raise AssertionError(f"the EmerNeRF path's launches are not as counted: {launches}, "
+                             f"want {want}; plain calls on the card {plain['plain_on_card']}")
+    ms = float(np.median(iter_s[EMER_EARLY:]) * 1e3)
+    mean = lambda k, rs: float(np.mean([rec[k] for rec in rs]))
+    log(f"emernerf training: {EMER_ITERS} iterations of {samplers['pixel'].n_rays} rays, "
+        f"launches {launches}; held rgb loss (every pixel of frames {EMER_HELD_FRAMES}) after "
+        f"{EMER_EARLY} iterations {held[0]:.5f}, after {EMER_ITERS} {held[1]:.5f}; loss_flow "
+        f"first 10 {mean('loss_flow', log_[:10]):.3g}, last 10 {mean('loss_flow', log_[-10:]):.3g}"
+        f"; loss_dynamic_sparsity first 10 {mean('loss_dynamic_sparsity', log_[:10]):.3g}, last "
+        f"10 {mean('loss_dynamic_sparsity', log_[-10:]):.3g}; iteration median {ms:.2f} ms "
+        f"(host clock, iterations {EMER_EARLY}-{EMER_ITERS - 1}, min "
+        f"{min(iter_s[EMER_EARLY:]) * 1e3:.2f}, max {max(iter_s[EMER_EARLY:]) * 1e3:.2f})")
+    if not held[1] < held[0]:
+        raise AssertionError("the held set's rgb loss did not fall")
+    return log_, launches, tuple(held), ms
+
+
+def emernerf_cli(dev, data, tmp):
+    """The YAML from the command line on the drive at ``data``:
+    tools.train.main for DISK_ITERS iterations into ``tmp``, then eval.main
+    and render.main (replay of frame 0) from its exp dir; each tool's K3, K9
+    and K6 launched, no plain version on the card, the seven channels
+    written, finite scores; the final checkpoint loaded into a fresh build
+    holds every tensor of the trained state bit for bit."""
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.config import load_config
+    from neuralsim_torch.tools import eval as single_eval
+    from neuralsim_torch.tools import render, train
+    from neuralsim_torch.tools.build import build_everything
+    from neuralsim_torch.utils.checkpoint import CheckpointIO
+    summary = {}
+
+    def run(label, fn, argv, want):
+        kernels.reset_counts()
+        plain = {}
+        t0 = time.perf_counter()
+        with no_plain_on_card(label), plain_on_card(plain):
+            out = fn(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in kernels.KERNELS.values()}
+        log(f"{label}: {secs:.2f} s, launches {counts}")
+        missing = [n for n in want if counts[n] <= 0]
+        if missing or plain["plain_on_card"]:
+            raise AssertionError(f"{label} never launched {missing}, or ran "
+                                 f"{plain['plain_on_card']} plain calls on the card")
+        return out, secs, counts
+
+    exp = os.path.join(tmp, "emernerf")
+    out, summary["emernerf_cli_train_s"], tl = run(
+        f"train.main ({EMER_YAML})", train.main,
+        ["--config", EMER_YAML, f"--exp_dir={exp}", f"--dataset_cfg.params.root={data}",
+         f"--training.num_iters={DISK_ITERS}", "--training.i_log=1"], EMER_KERNELS)
+    losses = [v for rec in out["log"] for k, v in rec.items() if k.startswith("loss")]
+    if out["skips_total"] or len(out["iter_s"]) != DISK_ITERS \
+            or not all(map(math.isfinite, losses + [out["psnr"]])):
+        raise AssertionError("the EmerNeRF YAML skipped a step or logged a non-finite value")
+    summary["emernerf_cli_iteration_ms"] = float(np.median(out["iter_s"]) * 1e3)
+    state = out["state"]
+    want_bits = {k: v.detach().cpu().clone() for k, v in state_tensors(state).items()}
+    del out
+    at = ["--resume_dir", exp]
+    ev, summary["emernerf_cli_eval_s"], el = run(
+        "eval.main (emernerf)", single_eval.main, at + ["--eval.frames=0,3,6"],
+        ("lotd_grid", "permuto", "volume_composite"))
+    vals = [v for v in ev["mean"].values() if v is not None]
+    if len(ev["per_frame"]) != 3 or not all(map(math.isfinite, vals)):
+        raise AssertionError("the EmerNeRF evaluation's scores are not finite")
+    r, summary["emernerf_cli_render_s"], rl = run(
+        "render.main (emernerf replay)", render.main,
+        at + ["--render.mode=replay", "--render.frames=0", "--render.video=false"],
+        ("lotd_grid", "permuto", "volume_composite"))
+    files = sorted(os.listdir(r["out_dir"]))
+    log(f"render replay (emernerf): {files}")
+    if not {f"{ch}_0000.png" for ch in EMER_CHANNELS} <= set(files):
+        raise AssertionError("the EmerNeRF replay did not write its eight channels")
+    # the final checkpoint into a fresh build
+    cfg = load_config(os.path.join(exp, "config.json"))
+    *_, fresh, _ = build_everything(cfg, dev, pretrain=False)
+    before = {k: v.detach().cpu().clone() for k, v in state_tensors(fresh).items()}
+    fresh, _ = CheckpointIO(os.path.join(exp, "ckpts")).load(fresh, "final")
+    got = {k: v.detach().cpu() for k, v in state_tensors(fresh).items()}
+    if set(got) != set(want_bits) or any(
+            not torch.equal(got[k], want_bits[k]) for k in want_bits) \
+            or all(torch.equal(before[k], want_bits[k]) for k in want_bits
+                   if k.startswith("param")):
+        raise AssertionError("the EmerNeRF checkpoint did not restore the trained state's bits")
+    log(f"emernerf checkpoint: {len(got)} tensors of the trained state restored bit-equal")
+    summary.update(emernerf_cli_eval_mean=ev["mean"],
+                   emernerf_cli_launches={"train": tl, "eval": el, "render": rl})
+    return summary
+
+
+def emernerf_phase(dev, data, tmp, profile_it):
+    """Phase 16: EmerNeRF (configs/waymo_emernerf.yaml at full width on the
+    drive written to ``data``): the build, the first step card vs CPU, K3,
+    K9 at d 4 (with its x01 backward) and K6 at a pixel step's own inputs
+    and cotangents against their plain versions and timed, 48 iterations
+    with the held set's rgb loss falling, then the YAML from the command
+    line (train, eval, render replay) -> its results."""
+    import torch
+    from neuralsim_torch.fields.emernerf import EmerNeRFField
+    from neuralsim_torch.tools.build import build_everything
+    from neuralsim_torch.tools.train import build_samplers
+    t0 = time.perf_counter()
+    cfg = emernerf_cfg(data, EMER_ITERS)
+    timings = {}
+    scene, bank, renderer, trainer, state, loader = build_everything(cfg, timings=timings)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    samplers = build_samplers(cfg["training"], loader, int(cfg["seed"]))
+    field = state.params[renderer.pkey("cr")]
+    enc_s, enc_d = field.static_enc, field.dyn_enc
+    specs = [(s.res, s.typ) for s in enc_s.specs]
+    parts = ", ".join(f"{k} {v:.2f}" for k, v in timings.items())
+    log(f"emernerf: built in {build_s:.2f} s ({parts}); box {field.space.aabb_min.tolist()}..{field.space.aabb_max.tolist()}; static "
+        f"{specs}, {enc_s.total_params:,} table floats; dynamic d {enc_d.input_dim}, "
+        f"{enc_d.n_levels} levels {enc_d.levels[0][0]:g}..{enc_d.levels[-1][0]:g} of "
+        f"{enc_d.table_size:,} rows, {enc_d.total_params:,} floats; {renderer.query_cfg} a ray, "
+        f"{samplers['pixel'].n_rays} rays a step, roles {renderer.param_keys}")
+    if not isinstance(field, EmerNeRFField) \
+            or [t for _, t in specs] != ["dense"] * 4 + ["hash"] * 8 \
+            or enc_s.specs[-1].res != 2048 or enc_s.specs[-1].size != 2 ** 18 \
+            or enc_d.input_dim != 4 or enc_d.n_levels != 12 or enc_d.table_size != 2 ** 17 \
+            or renderer.query_cfg.get("num_coarse") != EMER_SAMPLES \
+            or samplers["pixel"].n_rays != EMER_RAYS \
+            or state.occ is not None or "distant" in renderer.param_keys:
+        raise AssertionError("the EmerNeRF model is not the YAML's at full width")
+    loss_err, grad_err = check_emernerf_first_step(scene, trainer, state, samplers, dev)
+    record, step_launches = capture_emernerf_step(trainer, state, samplers, dev)
+    errs, shapes = check_emernerf_kernels(dev, enc_s, enc_d, record)
+    del record
+    log_, launches, held, it_ms = check_emernerf_training(scene, trainer, state, samplers,
+                                                          loader, dev)
+    times = time_emernerf_kernels(shapes)
+    del shapes
+    if profile_it:
+        from torch.profiler import ProfilerActivity, profile
+        gen = torch.Generator(device=dev).manual_seed(31)
+        batch, cam = emernerf_batch(samplers, None, dev)
+        noise = trainer.draw_noise(batch["rays_fidx"].shape[0], gen, state.it)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(state, batch, noise, "pixel", cam)
+            torch.cuda.synchronize()
+        log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
+    cli = emernerf_cli(dev, data, tmp)
+    summary = {"emernerf_build_s": build_s, "emernerf_build_parts_s": timings,
+               "emernerf_first_step_loss_rel_err": loss_err,
+               "emernerf_first_step_grad_rel_err": grad_err,
+               "emernerf_iterations": EMER_ITERS, "emernerf_iteration_ms": it_ms,
+               "emernerf_held_rgb_loss": held,
+               "emernerf_loss_flow_last": log_[-1]["loss_flow"],
+               "emernerf_loss_dynamic_sparsity_last": log_[-1]["loss_dynamic_sparsity"],
+               "emernerf_step_launches": step_launches,
+               "emernerf_phase_s": time.perf_counter() - t0, **cli}
+    return dict(summary=summary, errs=errs, times=times, launches=launches, iters=EMER_ITERS)
 
 
 def main(argv) -> int:
@@ -6910,12 +7537,17 @@ def main(argv) -> int:
     street = streetsurf_phase(dev, "--profile" in argv)
     phase_s["streetsurf"], t1 = time.perf_counter() - t1, time.perf_counter()
 
-    # 15. the demo drive on disk and both YAMLs from the command line
-    disk = disk_phase(dev)
-    phase_s["waymo layout and command line"], t1 = time.perf_counter() - t1, time.perf_counter()
+    # 15. the demo drive on disk and both YAMLs from the command line, then
+    # 16. EmerNeRF's YAML on the same drive, with its timing
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_disk_") as tmp:
+        disk = disk_phase(dev, tmp)
+        phase_s["waymo layout and command line"], t1 = (time.perf_counter() - t1,
+                                                        time.perf_counter())
+        emer = emernerf_phase(dev, os.path.join(tmp, "data"), tmp, "--profile" in argv)
+        phase_s["emernerf"], t1 = time.perf_counter() - t1, time.perf_counter()
     log("phases (s, host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
-    # 16. timing
+    # 17. timing
     (frame_ms, frame_min, frame_max), n_rays = time_frames(renderer, params, rig, dev)
     log(f"timing: frame median {frame_ms:.3f} ms (min {frame_min:.3f}, max "
         f"{frame_max:.3f}) for {n_rays} rays, {n_rays / frame_ms * 1e3:.1f} rays/s")
@@ -6982,7 +7614,7 @@ def main(argv) -> int:
                                         "synthetic_object training")
         found = [e[name] for e in (errs, bench["errs"], compose["errs"], multi["errs"],
                                    crowd["errs"], perlevel["errs"], permuto["errs"],
-                                   ckpt["errs"], street["errs"]) if name in e]
+                                   ckpt["errs"], street["errs"], emer["errs"]) if name in e]
         err, tol = max(e for e, _ in found), found[0][1]
         bound_ms, bound_by = t["bound"]
         # K8 runs on no training step: its per-frame count is under "compose"
@@ -7147,12 +7779,22 @@ def main(argv) -> int:
         log(f"kernel {name} (streetsurf path: {q['launches_per_lidar_step']} launches per LiDAR "
             f"step, {q['launches_per_pixel_step']} per pixel step, {q['frame_launches']} per "
             f"frame)")
+        # EmerNeRF's pixel step: K3, K9 at d 4 and K6 at its own inputs
+        row["emernerf"] = {"launches": emer["launches"][name],
+                           "launches_per_iteration": emer["launches"][name] / emer["iters"]}
+        for c in emer["times"].get(name, []):
+            row["emernerf"].setdefault("times", []).append(
+                {"ms": c["ms"], **card_keys(c), "plain_ms": c["plain_ms"],
+                 "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
+                 "library_ms": c["library_ms"], "shape": c["shape"]})
+        log(f"kernel {name} (emernerf path: {row['emernerf']['launches_per_iteration']:g} "
+            f"launches per iteration)")
         rows.append(row)
     if "--profile" in argv:
         profile_frame(renderer, params, rig, dev)
         profile_step(trainer, state, rig, dev)
 
-    # 17. results
+    # 18. results
     log(json.dumps({"frame_ms": frame_ms, "frame_ms_min": frame_min,
                     "frame_ms_max": frame_max, "rays_per_s": n_rays / frame_ms * 1e3,
                     "crop_max_abs_err": crop_err,
@@ -7165,7 +7807,7 @@ def main(argv) -> int:
                     **compose["summary"], **multi["summary"], **crowd["summary"],
                     **synth["summary"], **perlevel["summary"], **permuto["summary"],
                     **ckpt["summary"], **street["summary"], **disk["summary"],
-                    "card": smi}))
+                    **emer["summary"], "card": smi}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

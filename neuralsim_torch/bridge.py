@@ -6,7 +6,9 @@ for ``{"layers": [{"W": ...}]}``), with the JAX layouts, so every leaf copies
 over untransposed. That holds for every field of the port: the NeuS field
 (table, decoder, radiance with its appearance input, ``ln_inv_s``), the
 distant field (decoder, radiance, and the 4-D LoTD's ``encoding.table``), the
-sky and the appearance tables of ``ImageEmbeddings`` (``<camera>.weight``). An
+sky, the appearance tables of ``ImageEmbeddings`` (``<camera>.weight``) and
+EmerNeRF's field (``static_enc.table``, ``static_dec``, ``dyn_enc.table``, the
+permuto table in its own layout, ``dyn_dec``, ``flow_dec``, ``radiance``). An
 occupancy grid's state is two arrays, ``val`` and
 ``mask`` ([R, R, R], or [G, R, R, R] for per-instance and per-keyframe grids).
 """

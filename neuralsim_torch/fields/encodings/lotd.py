@@ -31,9 +31,11 @@ loss trains through the jacobian). On the CPU autograd differentiates the
 plain versions; on the card one ``torch.autograd.Function`` runs the forward
 kernels and, in its backward, the ``lotd_cp_stacked.bwd``,
 ``lotd_cp_level.bwd`` and ``lotd_grid.bwd`` kernels; another runs K14 and
-its backward (``lotd_cp_lines.bwd``, into the table's CP entries). No
-gradient goes to the positions: rays are data and sample depths are
-detached in this slice (pose refinement will add it).
+its backward (``lotd_cp_lines.bwd``, into the table's CP entries). On the
+card no gradient goes to the positions: a backward asked for one raises
+(``NotImplementedError``; rays are data and sample depths are detached on
+every path so far; pose refinement will add it), where the CPU's plain
+versions give it under autograd.
 
 Not ported yet: the batched ``bidx`` tables, 4-D CP levels, the level
 anneal window and ``NEURALSIM_CP_JAC_F32=1`` (float32 lines for the
@@ -1062,6 +1064,11 @@ class _EncodeOnCard(torch.autograd.Function):
         d_lines = d_table = None
         if d_out is None and d_jac is None:
             return (None,) * 10
+        if ctx.needs_input_grad[3]:
+            # the CPU's plain versions differentiate the positions; the card
+            # has no kernel for it, and a None would drop it without a word
+            raise NotImplementedError("the gradient to the positions of K1/K2/K3 is not "
+                                      "ported on the card (pose refinement)")
         if lines_bf16 is not None and ctx.needs_input_grad[0]:
             d_lines = lotd_cp_stacked_bwd(lines_bf16, xf, cp_rows, d_out, d_jac)
         if ctx.needs_input_grad[2]:

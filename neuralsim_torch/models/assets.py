@@ -1,6 +1,6 @@
 """Field construction of the assets on the port's paths (port of
-neuralsim_tpu/models/assets.py:31-66, 70-193, 194-215, 263-338, 449-556,
-576-613).
+neuralsim_tpu/models/assets.py:31-66, 70-193, 194-215, 263-338, 416-446,
+449-556, 576-613).
 
 An asset turns its ``model_params`` from the config into a field module (and
 an occupancy grid where it has one); the same keys are read, with the same
@@ -11,6 +11,8 @@ its class in a scene, with each object's ``instance_index``. The street's
 (:func:`pretrain_sdf`, the uniform points handed in as draws). The street,
 the distant field and the sky take ``appear_embed_dim``, the width of the
 per-frame appearance codes of :class:`ImageEmbeddings` (one table a camera).
+EmerNeRF's street (:class:`EmerNerfStreet`) is the time-conditioned
+static/dynamic field with its flow head, in the box of the camera tracks.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from ..accel import OccGridEma, OccGridEmaBatched
 from ..fields.conditional import (ConditionalLoTDNeuSField, GenerativePermutoConcatNeuSField,
                                   PermutoNeuSField)
 from ..fields.embeddings import SeqEmbedding
+from ..fields.emernerf import EmerNeRFField
 from ..fields.nerf import NeRFDistantField
 from ..fields.neus import NeuSField
 from ..fields.sky import SimpleSky
@@ -104,12 +107,7 @@ class LoTDNeuSStreet(AssetModel):
 
     def populate(self, scene=None, obj_ids=None) -> None:
         mp = self.model_params
-        aabb = mp.get("aabb")
-        if aabb is None and scene is not None:
-            aabb = self.aabb_from_cameras(scene, mp)
-        if aabb is None:
-            aabb = ([-60, -60, -10], [60, 60, 30])
-        space = AABBSpace(aabb[0], aabb[1])
+        space = self.street_space(scene, mp)
         self.field = NeuSField(
             space,
             encoding_cfg=mp.get("encoding_cfg", {"n_levels": 14, "base_res": 16,
@@ -129,6 +127,17 @@ class LoTDNeuSStreet(AssetModel):
         accel_cfg = mp.get("accel_cfg", {"resolution": 128})
         if accel_cfg:
             self.accel = _occ_grid(space, accel_cfg, 128)
+
+    @classmethod
+    def street_space(cls, scene, mp: Dict[str, Any]) -> AABBSpace:
+        """A street's box: the config's ``aabb``, else the camera tracks'
+        (:meth:`aabb_from_cameras`), else (no scene) JAX's default box."""
+        aabb = mp.get("aabb")
+        if aabb is None and scene is not None:
+            aabb = cls.aabb_from_cameras(scene, mp)
+        if aabb is None:
+            aabb = ([-60, -60, -10], [60, 60, 30])
+        return AABBSpace(aabb[0], aabb[1])
 
     @staticmethod
     def aabb_from_cameras(scene, mp: Dict[str, Any]):
@@ -174,6 +183,35 @@ class LoTDNeuSStreet(AssetModel):
             z_road = float(self.field.space.center[up])
         pretrain_sdf(self.field, lambda x: road_surface_sdf(x, z_road, up, pre.get("sign", 1.0)),
                      noise, lr=pre.get("lr", 5e-3))
+
+
+class EmerNerfStreet(AssetModel):
+    """EmerNeRF's self-supervised static and dynamic street (an
+    :class:`~neuralsim_torch.fields.emernerf.EmerNeRFField`: the static LoTD,
+    the dynamic permuto lattice over (xyz, t) and the flow head) in the
+    config's ``aabb`` or the box of the camera tracks widened by
+    ``extend_size`` (without a scene, JAX's default box); no occupancy grid
+    and no pretrain."""
+
+    assignment = AssetAssignment.SCENE
+    only_dynamic = False
+
+    def populate(self, scene=None, obj_ids=None) -> None:
+        mp = self.model_params
+        self.field = EmerNeRFField(LoTDNeuSStreet.street_space(scene, mp),
+                                   static_encoding_cfg=mp.get("static_encoding_cfg"),
+                                   dynamic_permuto_cfg=mp.get("dynamic_permuto_cfg"),
+                                   geo_feat_dim=mp.get("geo_feat_dim", 15),
+                                   radiance_hidden=mp.get("radiance_hidden", 64),
+                                   with_flow=mp.get("with_flow", True),
+                                   only_dynamic=self.only_dynamic)
+        self.query_cfg = dict(mp.get("query_cfg", {}))
+
+
+class EmerNerfStreetOnlyDynamic(EmerNerfStreet):
+    """The same with the dynamic branch alone."""
+
+    only_dynamic = True
 
 
 class _SharedCategorical(AssetModel):
@@ -349,7 +387,8 @@ ASSET_CLASSES = {c.__name__: c for c in (LoTDNeuSObj, LoTDNeuSStreet,
                                          ADGenerativeLoTDConcatNeuSObj,
                                          ADGenerativePermutoConcatNeuSObj, PermutoNeuSObj,
                                          LoTDNeRFDistant, NeRFDistant, SimpleSkyAsset,
-                                         ImageEmbeddings)}
+                                         ImageEmbeddings, EmerNerfStreet,
+                                         EmerNerfStreetOnlyDynamic)}
 
 
 def asset_class(model_class: str):

@@ -18,7 +18,9 @@ the same way; its trainer's state carries the converged grid, and a render
 takes it as ``occ_states=state.occ``.
 
 A single-scene config of a dataset (``WAYMO_STREETSURF``: the street's
-NeuS, the 4-D LoTD distant field and the sky on the demo drive) goes through
+NeuS, the 4-D LoTD distant field and the sky on the demo drive; or
+configs/waymo_emernerf.yaml, read by ``config.load_config``: EmerNeRF's
+street and the sky) goes through
 the scene bank, the asset bank and the single-volume renderer, with its
 trainer, state and data loader::
 

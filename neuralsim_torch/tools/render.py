@@ -17,7 +17,11 @@ the single-volume renderer. Frames go to ``<exp>/render_<mode>/``:
 
 - ``replay``: camera ``render.cam_id`` (default the first) at every
   ``render.downscale``-th pixel (default 2), ``rgb_<frame>.png`` and
-  ``depth_<frame>.png`` (``utils.logger.color_depth``);
+  ``depth_<frame>.png`` (``utils.logger.color_depth``); a time-conditioned
+  close range (EmerNeRF's) is rendered at the frame's time and also writes
+  its decomposition, ``flow_fwd``/``flow_bwd`` (``utils.logger.scene_flow_to_rgb``
+  up to ``render.flow_max_radius``, default 0.5), ``rgb_static``/``rgb_dynamic``
+  and ``mask_static``/``mask_dynamic``, each ``<channel>_<frame>.png``;
 - ``topdown``: parallel rays straight down over the close-range box's x-y
   footprint (or ``render.extent`` [[x0, y0], [x1, y1]] from
   ``render.altitude``), ``render.topdown_w`` pixels wide (default 320),
@@ -40,7 +44,7 @@ from ..config import BaseConfig
 from ..configs import resolve_refs
 from ..scene.observers import camera_get_selected_rays
 from ..scene.observers.extra_cameras import ortho_get_rays
-from ..utils.logger import _write_png, color_depth
+from ..utils.logger import _write_png, color_depth, scene_flow_to_rgb
 from .eval import load_single_for_eval
 from .eval_multi import load_for_eval
 
@@ -98,11 +102,28 @@ def main_function(cfg: Dict[str, Any], device="cuda") -> Dict[str, Any]:
         frames = [frames]           # "--render.frames=0" parses as an int
     frames = frames or list(range(scene.n_frames))
 
+    # a time-conditioned close range is rendered at the frame's time
+    timed = not multi and getattr(params[cr_id], "use_time", False) and scene.n_frames > 1
+
     def render(ro, rd, fi):
         # the compose renderer takes the scene frozen at the frame
         at = (scene.slice_at(fi),) if multi else ()
+        kw = {"cond": torch.full((1, 1), fi / (scene.n_frames - 1), device=dev)} if timed else {}
         return renderer.render_chunked(params, *at, ro.contiguous(), rd.contiguous(),
-                                       rayschunk=rayschunk, occ_states=occ)
+                                       rayschunk=rayschunk, occ_states=occ, **kw)
+
+    def write_extra_channels(r, fi, h, w):
+        """EmerNeRF's decomposition and flow channels, where the render has them."""
+        for k in ("flow_fwd", "flow_bwd"):
+            if k in r:
+                im = scene_flow_to_rgb(r[k].cpu().numpy().reshape(h, w, 3),
+                                       flow_max_radius=float(rcfg.get("flow_max_radius", 0.5)))
+                _write_png(os.path.join(out_dir, f"{k}_{fi:04d}.png"), (im * 255).astype(np.uint8))
+        for k, shape in (("rgb_static", (h, w, 3)), ("rgb_dynamic", (h, w, 3)),
+                         ("mask_static", (h, w)), ("mask_dynamic", (h, w))):
+            if k in r:
+                _write_png(os.path.join(out_dir, f"{k}_{fi:04d}.png"),
+                           _u8(r[k].cpu().numpy().reshape(shape)))
 
     if mode == "replay":
         cam_id = rcfg.get("cam_id", loader.cam_ids[0])
@@ -115,6 +136,7 @@ def main_function(cfg: Dict[str, Any], device="cuda") -> Dict[str, Any]:
         for fi in frames:
             ro, rd = camera_get_selected_rays(scene.slice_at(fi), cam_id, xy)
             r = render(ro, rd, fi)
+            write_extra_channels(r, fi, Hs, Ws)
             _write_png(os.path.join(out_dir, f"rgb_{fi:04d}.png"),
                        _u8(r["rgb_volume"].cpu().numpy().reshape(Hs, Ws, 3)))
             _write_png(os.path.join(out_dir, f"depth_{fi:04d}.png"),

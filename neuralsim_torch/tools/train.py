@@ -19,7 +19,9 @@ data/waymo_demo``), or with
 the demo drive in memory.
 
 :func:`main_function` trains a config of a dataset (StreetSurf's
-street, 4-D LoTD distant field and sky on the demo drive): it builds everything
+street, 4-D LoTD distant field and sky on the demo drive; EmerNeRF's
+time-conditioned street and sky, configs/waymo_emernerf.yaml, whose
+validation and evaluation render at t = 0 as the JAX tools do): it builds everything
 (``tools.build.build_everything``), writes the exp dir (``config.json``, the
 resolved config as JSON; ``metrics.jsonl`` and ``stats.p``; ``ckpts/``:
 ``latest`` every ``training.i_save`` seconds, ``step_N`` every

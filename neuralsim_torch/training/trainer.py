@@ -1,5 +1,5 @@
 """Trainer: loss assembly and the training step over a renderer (port of
-neuralsim_tpu/training/trainer.py:31-71, 118-133, 134-314, 353-418 for the
+neuralsim_tpu/training/trainer.py:31-71, 118-133, 134-350, 353-418 for the
 ``pixel`` and ``lidar`` steps of the single-scene models).
 
 PyTorch runs eagerly, so the step is plain Python around autograd: render with
@@ -28,11 +28,16 @@ lifted to world rays through the scene frozen at each ray's frame. A
 with no rgb, for the depth and line-of-sight losses on the beams' ranges; it
 does not advance ``it`` or refresh a grid (``advance_it=False``). With an
 ``embed_model`` (an ``ImageEmbeddings`` asset and its model id) each pixel
-ray takes its frame's appearance code as ``h_appear``.
+ray takes its frame's appearance code as ``h_appear``. A time-conditioned
+close range (EmerNeRF's, ``use_time``) takes each ray's frame time
+``rays_fidx / (n_frames - 1)`` of the scene as ``cond``, and EmerNeRF's
+self-supervision: the flow cycle on uniform points and times of the box
+(``flow``) and the mean dynamic density of the rendered lanes
+(``dynamic_sparsity``).
 
 Not ported yet (each raises, naming itself): the image-patch and view steps,
 pose refinement, the image post-processor, the cross_cr_dv mask entropy,
-``debug_grads`` and ``use_ts_interp``.
+``debug_grads``, ``use_ts_interp`` and the losses of ``NOT_PORTED_LOSSES``.
 """
 from __future__ import annotations
 
@@ -51,6 +56,10 @@ from ..scene.observers import camera_get_selected_rays
 from .optimizers import ModelAdam, make_optimizer
 
 STEP_TYPES = ("pixel", "lidar")
+# loss keys that the JAX trainer reads and this one does not compute (s3im,
+# perceptual and the monocular cues belong to the image-patch and view steps)
+NOT_PORTED_LOSSES = ("weight_reg", "ray_vw_entropy", "color_lipschitz", "mono_depth",
+                     "mono_normals", "perceptual", "road_normal", "sdf_curvature", "s3im")
 
 
 @dataclass
@@ -69,8 +78,10 @@ class Trainer:
     mode}, ``mask_entropy`` {w, mode}, ``eikonal`` {w, noise_std,
     on_render_ratio}, ``sparsity`` {w, inv_scale}, ``clearance`` {w, thresh,
     beta}, ``lidar`` {w, discard_toofar, discard_outliers_median, depth,
-    line_of_sight}. training_cfgs: {model id: optimizer config}. ``scene``:
-    the scene that pixel batches of (frame, pixel) are lifted through;
+    line_of_sight}, ``flow`` {w, n_samples}, ``dynamic_sparsity`` {w}; the
+    keys of ``NOT_PORTED_LOSSES`` raise. training_cfgs: {model id: optimizer
+    config}. ``scene``: the scene that pixel batches of (frame, pixel) are
+    lifted through (and whose ``n_frames`` normalises the frame time);
     ``embed_model``: (ImageEmbeddings asset, its model id) or None.
     """
 
@@ -85,6 +96,9 @@ class Trainer:
                          ("use_ts_interp", use_ts_interp)):
             if on:
                 raise NotImplementedError(f"{name} is not ported")
+        for name in NOT_PORTED_LOSSES:
+            if name in loss_cfgs:
+                raise NotImplementedError(f"the {name} loss is not ported")
         self.renderer = renderer
         self.loss_cfgs = dict(loss_cfgs)
         self.training_cfgs = dict(training_cfgs or {})
@@ -118,9 +132,11 @@ class Trainer:
         noise, the distant ladder's jitter where the renderer has a distant
         model (not for a ``lidar`` step, which renders the close range
         alone), the uniform points of the geometry regularisers, where the
-        eikonal config asks for it normal noise on the norms and, where a
+        eikonal config asks for it normal noise on the norms, where a
         pixel step at ``it`` refreshes an occupancy grid, ``"occ_update"``:
-        {role: the voxel jitter}."""
+        {role: the voxel jitter}, and with the ``flow`` loss its points
+        ``"flow_points"`` [n, 3] and times ``"flow_times"`` [n] (n: the loss's
+        ``n_samples``, by default ``uniform_sample_n`` or 1,024)."""
         if step_type not in STEP_TYPES:
             raise NotImplementedError(f"the {step_type} step is not ported")
         pixel = step_type == "pixel"
@@ -144,7 +160,21 @@ class Trainer:
         if self.loss_cfgs.get("eikonal", {}).get("noise_std", 0.0) > 0:
             noise["eikonal"] = torch.randn((self.uniform_sample_n,), generator=generator,
                                            device=dev)
+        if "flow" in self.loss_cfgs:
+            # a mean over no sample is NaN: 1,024 where uniform_sample_n is 0
+            n_flow = int(self.loss_cfgs["flow"].get("n_samples", self.uniform_sample_n or 1024))
+            noise["flow_points"], noise["flow_times"] = rand(n_flow, 3), rand(n_flow)
         return noise
+
+    def time_cond(self, cr, batch: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+        """Each ray's normalised frame time [N, 1], ``rays_fidx / (n_frames -
+        1)``, for a time-conditioned close range with a scene of frames."""
+        if not getattr(cr, "use_time", False) or "rays_fidx" not in batch:
+            return None
+        n_fr = self.scene.n_frames if self.scene is not None else None
+        if not n_fr:
+            return None
+        return (batch["rays_fidx"].to(torch.float32) / max(n_fr - 1, 1))[:, None]
 
     def h_appear(self, params: nn.ModuleDict, batch: Dict[str, torch.Tensor],
                  cam_id: Optional[str]) -> Optional[torch.Tensor]:
@@ -165,7 +195,7 @@ class Trainer:
         batch {rays_o, rays_d | rays_fidx, rays_xy (of camera ``cam_id``);
         image_rgb, image_occupancy_mask?}, or a LiDAR batch {rays_o, rays_d,
         ranges}. ``occ``: the occupancy grids' states, handed to the
-        renderer."""
+        renderer. ``noise``: :meth:`draw_noise`'s draws."""
         if step_type not in STEP_TYPES:
             raise NotImplementedError(f"the {step_type} step is not ported")
         cr = params[self.renderer.pkey("cr")]
@@ -179,7 +209,8 @@ class Trainer:
         rendered = self.renderer.ray_query(params, batch["rays_o"], batch["rays_d"], it=it,
                                            noise=noise, with_rgb=not lidar, only_cr=lidar,
                                            return_buffer=True, occ_states=occ,
-                                           h_appear=self.h_appear(params, batch, cam_id))
+                                           h_appear=self.h_appear(params, batch, cam_id),
+                                           cond=self.time_cond(cr, batch))
         buf = rendered["merged_buffer"]
 
         if step_type == "pixel":
@@ -216,10 +247,21 @@ class Trainer:
         if "clearance" in self.loss_cfgs:
             losses["loss_clearance"] = clearance_loss(rendered["details_cr"]["near_sdf"], it,
                                                       self.loss_cfgs["clearance"])
+        # EmerNeRF's self-supervision: the flow cycle on uniform space-time
+        # points, and the dynamic density of the rendered lanes
+        if "flow" in self.loss_cfgs and getattr(cr, "with_flow", False):
+            res = cr.flow_cycle_residual(cr.space.uniform_points(noise["flow_points"]),
+                                         noise["flow_times"])
+            losses["loss_flow"] = torch.mean(res) * self.loss_cfgs["flow"].get("w", 0.01)
+        if "dynamic_sparsity" in self.loss_cfgs and "sigma_dynamic_cr" in rendered:
+            losses["loss_dynamic_sparsity"] = torch.mean(
+                torch.abs(rendered["sigma_dynamic_cr"])) \
+                * self.loss_cfgs["dynamic_sparsity"].get("w", 0.01)
 
         total = sum(losses.values(), torch.zeros((), device=batch["rays_o"].device))
         aux["rendered_mask_mean"] = rendered["mask_volume"].detach().mean()
-        aux["inv_s"] = rendered["details_cr"]["inv_s"].detach()
+        inv_s = rendered["details_cr"].get("inv_s")
+        aux["inv_s"] = total.new_zeros(()) if inv_s is None else inv_s.detach()
         return total, {"losses": losses, "aux": aux}
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],

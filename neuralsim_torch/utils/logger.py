@@ -1,6 +1,7 @@
 """The training log and image writing of the tools (port of
 neuralsim_tpu/utils/logger.py: ``Logger``'s scalars and ``save_stats``,
-``_write_png`` and ``color_depth``; numpy, on the host).
+``_write_png``, ``color_depth`` and ``scene_flow_to_rgb``; numpy, on the
+host).
 
 ``Logger`` appends each logged scalar to ``metrics.jsonl`` under its root and
 keeps them for ``save_stats`` (a pickle of {tag: [(step, value)]},
@@ -76,3 +77,25 @@ def color_depth(depth: np.ndarray) -> np.ndarray:
     g = np.clip(1.5 - np.abs(2.0 * t - 0.5) * 2.0, 0, 1)
     b = np.clip(1.5 - np.abs(2.0 * t) * 2.0, 0, 1)
     return np.stack([r, g, b], -1)
+
+
+def scene_flow_to_rgb(flow: np.ndarray, flow_max_radius: float = 0.5,
+                      plane: tuple = (0, 1)) -> np.ndarray:
+    """3-D scene flow [..., 3] -> RGB in [0, 1] on the optical-flow colour
+    wheel of two of its components (``plane``): the direction the hue, the
+    magnitude clipped at ``flow_max_radius`` the saturation, the value 1 (no
+    flow is white)."""
+    f = np.asarray(flow, np.float32)
+    fx, fy = f[..., plane[0]], f[..., plane[1]]
+    mag = np.sqrt(fx * fx + fy * fy)
+    hue = (np.arctan2(fy, fx) / (2.0 * np.pi)) % 1.0
+    sat = np.clip(mag / max(flow_max_radius, 1e-9), 0.0, 1.0)
+    h6 = hue * 6.0
+    i = np.floor(h6).astype(np.int32) % 6
+    frac = h6 - np.floor(h6)
+    p, q, t = 1.0 - sat, 1.0 - sat * frac, 1.0 - sat * (1.0 - frac)
+    one = np.ones_like(sat)
+    lut = np.stack([np.stack([one, t, p], -1), np.stack([q, one, p], -1),
+                    np.stack([p, one, t], -1), np.stack([p, q, one], -1),
+                    np.stack([t, p, one], -1), np.stack([one, p, q], -1)], 0)
+    return np.take_along_axis(lut, i[None, ..., None], axis=0)[0]

@@ -78,6 +78,10 @@ into a fresh build (whose frame was rendered first, filling K14's lines
 cache and K3's scratch from the fresh tables) holds every tensor and renders
 frame 0 to the trained state's bits; K8 and K5b at an 8,192-ray evaluation
 chunk of that scene equal their plain versions (chip_smoke.check_eval_chunk).
+A backward through K1, K2 or K3 asked for the positions' gradient raises
+(the card has no kernel for it) while the table's alone flows; EmerNeRF's
+field (K3 static, K9 at d 4 dynamic) and its flow cycle under autograd
+match the CPU at chip_smoke.STEP_GRAD_REL.
 """
 import contextlib
 import copy
@@ -1867,3 +1871,74 @@ def test_k3_4d_distant_field_under_autograd_matches_the_cpu(dev):
     for a, b in zip(ga, fa):
         _close(a, b, 1e-4, 1e-5)
     cs.compare_rel("distant field grads card vs cpu", gg, fg, cs.STEP_GRAD_REL)
+
+
+# ---------------------------------------------------------------------------
+# The positions' gradient (K1, K2, K3) and EmerNeRF's fields on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("levels,stacked", [
+    ([(8, 2, "dense"), (32, 2, "hash")], True),                 # K3
+    ([(16, 2, "cp"), (32, 2, "cp"), (8, 2, "dense")], True),     # K14 + K1 and K3
+    ([(16, 2, "cp"), (32, 2, "cp")], False)],                    # K2
+    ids=["k3", "k1", "k2"])
+def test_encoding_raises_for_a_gradient_to_the_positions(dev, levels, stacked):
+    """The card has no kernel for the positions' gradient (the CPU's plain
+    versions give it): a backward asked for one raises, naming it, and
+    drops nothing silently; the table's gradient alone still flows, and an
+    output that does not reach the loss asks for nothing."""
+    enc = lotd.LoTDEncoding(levels, log2_hashmap_size=10, cp_stacked=stacked)
+    enc.reset_parameters(torch.Generator().manual_seed(0))
+    enc = enc.to(dev)
+    x = torch.rand((300, 3), device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="gradient to the positions"):
+        enc(x).sum().backward()
+    enc.table.grad = None
+    enc(x.detach()).sum().backward()
+    assert enc.table.grad is not None and enc.table.grad.abs().max() > 0
+    y = torch.rand((300, 3), device=dev)
+    unused = enc(x)                        # reaches no loss: no backward runs for it
+    (enc(y).sum() + 0.0 * unused.detach().sum()).backward()
+
+
+def test_emernerf_field_and_flow_loss_under_autograd_match_the_cpu(dev):
+    """EmerNeRF's ray query (K3 on the static branch, K9 at d 4 on the
+    dynamic one) and its flow cycle (K9's backward into the table and into
+    the points moved by the flow, no static query) on the card against the
+    CPU path: outputs at rtol and atol 1e-5 (the MLPs' products summed in
+    cuBLAS's order), the parameters' gradients at STEP_GRAD_REL."""
+    from neuralsim_torch.fields.emernerf import EmerNeRFField
+    f = EmerNeRFField(AABBSpace([-4.0, -3.0, -1.0], [4.0, 3.0, 2.0]),
+                      static_encoding_cfg={"n_levels": 6, "base_res": 8, "max_res": 128,
+                                           "log2_hashmap_size": 14},
+                      dynamic_permuto_cfg={"n_levels": 4, "base_res": 4.0, "max_res": 32.0,
+                                           "log2_hashmap_size": 12},
+                      geo_feat_dim=8, decoder_hidden=16, radiance_hidden=16)
+    f.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for t in (f.static_enc.table, f.dyn_enc.table):
+            t.normal_(0.0, 0.3, generator=torch.Generator().manual_seed(1))
+    g = copy.deepcopy(f).to(dev)
+    rng = np.random.default_rng(76)
+    d = rng.normal(size=(256, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = (-6.0 * d).astype(np.float32)
+    u = rng.random((256, 24)).astype(np.float32)
+    cond = rng.random((256, 1)).astype(np.float32)
+    xf = rng.uniform(-4, 4, (128, 3)).astype(np.float32)
+    tf = rng.random(128).astype(np.float32)
+    outs = []
+    for m, dv in ((f, "cpu"), (g, dev)):
+        b = m.ray_query(_t(o, dv), _t(d, dv), num_coarse=24, noise={"coarse": _t(u, dv)},
+                        cond=_t(cond, dv))
+        flow = m.flow_cycle_residual(_t(xf, dv), _t(tf, dv))
+        loss = b["alpha"].sum() + b["rgb"].square().sum() + 100.0 * flow.mean()
+        grads = torch.autograd.grad(loss, list(m.parameters()), allow_unused=True)
+        outs.append(([b[k].detach().cpu() for k in ("alpha", "rgb", "flow_fwd")]
+                     + [flow.detach().cpu()],
+                     [torch.zeros_like(p).cpu() if gr is None else gr.cpu()
+                      for p, gr in zip(m.parameters(), grads)]))
+    (fa, fg), (ga, gg) = outs
+    for a, b in zip(ga, fa):
+        _close(a, b, 1e-5, 1e-5)
+    cs.compare_rel("emernerf grads card vs cpu", gg, fg, cs.STEP_GRAD_REL)

@@ -54,7 +54,7 @@ def test_importing_every_module_loads_no_jax():
               "dataio.synthetic_multi", "fields.encodings.permuto", "ops.latent_take",
               "utils", "utils.checkpoint", "utils.logger", "utils.misc", "maths.metrics",
               "tools.eval_multi", "tools.eval_lidar", "config", "config.config",
-              "fields.embeddings", "scene.scene_bank", "tools.build"):
+              "fields.embeddings", "scene.scene_bank", "tools.build", "fields.emernerf"):
         assert f"neuralsim_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -78,7 +78,7 @@ def test_sources_do_not_import_jax():
                 "fields/encodings/permuto.py", "fields/conditional.py", "ops/latent_take.py",
                 "utils/checkpoint.py", "tools/eval_multi.py", "tools/eval_lidar.py",
                 "config/config.py", "config/__init__.py", "fields/embeddings.py",
-                "scene/scene_bank.py"):
+                "scene/scene_bank.py", "fields/emernerf.py"):
         assert PKG / new in files
     for f in files:
         assert not pat.search(f.read_text()), f
