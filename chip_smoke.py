@@ -265,7 +265,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      (replay of frame 0: rgb, depth and the seven decomposition channels),
      each tool's K3, K9 and K6 launched, the final checkpoint restored into
      a fresh build bit for bit;
- 17. timing: frame latency and rays/s; training step time and rays/s; each
+ 17. pose refinement (``pose_phase``): the same YAML at full width plus a
+     Pose asset (POSE_ARGV: LearnableParams refining the ego car and the
+     camera, the camera's intrinsics and timestamp; the gate at
+     POSE_ENABLE_AFTER), on the same drive: the first step card vs CPU at
+     MULTI_CHECK_RAYS rays with seeded non-zero deltas, frame slicing and
+     timestamp mode, every gradient leaf the deltas' included under the
+     multi-object limits; one pixel step's own inputs captured, and against
+     them K3's backward to the positions (lotd_grid.bwd_x, [786,432, 3],
+     also at K3's edges and the step's table at its cell faces, the same
+     bits twice), K9's backward with d x01 at [786,432, 4] and K6's with d t,
+     each timed; 48 iterations from zero deltas: exactly zero through
+     iteration 9, moved and finite after, falling held rgb loss, no skip,
+     POSE_STEP_LAUNCHES a step; then tools.train.main with POSE_ARGV for
+     DISK_ITERS iterations, its checkpoint into a fresh build bit for bit,
+     and one iteration in timestamp mode;
+ 18. timing: frame latency and rays/s; training step time and rays/s; each
      kernel's time at the training path's shapes (beside that path's launch
      count) and, for the forward kernels, at the render path's too, each
      beside its plain version, a library call where one exists, and its bound
@@ -290,7 +305,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      F.embedding's backward and the sort-based index_put; K14 and its
      backward at each encoding and at the edge ladders of CP_LINES_EDGES
      (library none; the per-level F.interpolate sum as an aside);
- 18. one JSON line of results, one of per-kernel results, then the device
+ 19. one JSON line of results, one of per-kernel results, then the device
      line, last.
 
 --profile adds torch.profiler tables of device time by kernel for one frame
@@ -299,7 +314,8 @@ LiDAR and one pixel step of the multi-object (with K1 bwd's, K3 bwd's, K4's,
 K5a's, K5b's, K14's and K14 bwd's device time), the crowd, the per-level (with K2's,
 K2 bwd's and K3 bwd's) and the permuto training (with K9's), each with K13's,
 K13 bwd's and what is left of the library's index_put, and one EmerNeRF pixel
-step.
+step without and one with pose refinement (the lift's forward and backward
+split from the rest of what the pose model adds).
 """
 from __future__ import annotations
 
@@ -617,6 +633,8 @@ K9_DX_REL = 1e-5
 # limits; 48 iterations with the error map's importance sampling from the
 # 16th pixel step on (the config's 500 cut so that it runs).
 STREETSURF_ONLY = ("lotd_grid4", "lotd_grid4.bwd")
+# K3's backward to the positions runs on the pose-refinement path alone
+POSE_ONLY = ("lotd_grid.bwd_x",)
 STREETSURF_RAYS = STREETSURF_BEAMS = 8192
 STREETSURF_ITERS = 48
 # the fixed draw of beams on which the LiDAR depth loss is held to fall
@@ -3626,7 +3644,7 @@ def check_multi_training(scene, trainer, state, samplers, dev, iters=MULTI_ITERS
             **dict.fromkeys(("lotd_cp_stacked", "lotd_cp_stacked.bwd") + LINES_KERNELS
                             if per_level else PERLEVEL_ONLY, 0),
             **dict.fromkeys(("lotd_grid", "lotd_grid.bwd") if permuto else PERMUTO_ONLY, 0),
-            **dict.fromkeys(STREETSURF_ONLY, 0)}
+            **dict.fromkeys(STREETSURF_ONLY + POSE_ONLY, 0)}
     if refreshes != 3 or any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"the {label} path's launches are not as counted: want {want}")
     for name, n in launches.items():
@@ -6457,7 +6475,7 @@ def check_streetsurf_training(scene, trainer, state, samplers, dev, iters=STREET
             "occ_ray_proposal": 2 * iters, "occ_ema_update": refreshes,
             "occ_voxel_points": refreshes,
             **dict.fromkeys(COMPOSE_ONLY + MULTI_ONLY + CROWD_ONLY + PERLEVEL_ONLY
-                            + PERMUTO_ONLY + LATENT_ONLY, 0)}
+                            + PERMUTO_ONLY + LATENT_ONLY + POSE_ONLY, 0)}
     if refreshes != 3 or any(launches[k] != n for k, n in want.items()):
         raise AssertionError(f"the streetsurf path's launches are not as counted: want {want}")
     for name, n in launches.items():
@@ -6873,12 +6891,13 @@ def emernerf_cfg(root, num_iters):
 @contextlib.contextmanager
 def plain_on_card(record):
     """While the block runs, count in ``record["plain_on_card"]`` the calls of
-    K3's, K9's and K6's plain versions (forward and backward) with a tensor
-    on the card: a card path takes none."""
+    K3's, K9's and K6's plain versions (forward and backward, K3's to the
+    positions too) with a tensor on the card: a card path takes none."""
     from neuralsim_torch.fields.encodings import lotd
     from neuralsim_torch.fields.encodings import permuto as pm
     from neuralsim_torch.renderers import buffers
-    names = [(lotd, "lotd_grid_plain"), (lotd, "lotd_grid_bwd_plain"), (pm, "permuto_plain"),
+    names = [(lotd, "lotd_grid_plain"), (lotd, "lotd_grid_bwd_plain"),
+             (lotd, "lotd_grid_bwd_x_plain"), (pm, "permuto_plain"),
              (pm, "permuto_bwd_plain"), (buffers, "volume_composite_plain"),
              (buffers, "volume_composite_bwd_plain")]
     saved = [(m, n, getattr(m, n)) for m, n in names]
@@ -6902,8 +6921,10 @@ def plain_on_card(record):
 @contextlib.contextmanager
 def emernerf_recorded(record):
     """Record, copied, the inputs and cotangents that one pixel step hands
-    K3 (3-D), K9 and K6 and their backwards: ``record[kernel]`` a list of
-    argument tuples, call by call; the calls themselves run as they are."""
+    K3 (3-D), K9 and K6 and their backwards, K3's to the positions among
+    them: ``record[kernel]`` a list of argument tuples, call by call, and
+    ``record["kw"][kernel]`` their keyword arguments; the calls themselves
+    run as they are."""
     from neuralsim_torch.fields.encodings import lotd
     from neuralsim_torch.fields.encodings import permuto as pm
     from neuralsim_torch.renderers import buffers
@@ -6911,12 +6932,14 @@ def emernerf_recorded(record):
     names = [(lotd, "lotd_grid", "lotd_grid"), (lotd, "lotd_grid_bwd", "lotd_grid.bwd"),
              (pm, "permuto", "permuto"), (pm, "permuto_bwd", "permuto.bwd"),
              (buffers, "volume_composite", "volume_composite"),
-             (buffers, "volume_composite_bwd", "volume_composite.bwd")]
+             (buffers, "volume_composite_bwd", "volume_composite.bwd"),
+             (lotd, "lotd_grid_bwd_x", "lotd_grid.bwd_x")]
     saved = [(m, n, k, getattr(m, n)) for m, n, k in names]
 
     def recorded(k, fn):
         def call(*a, **kw):
             record.setdefault(k, []).append(keep(a))
+            record.setdefault("kw", {}).setdefault(k, []).append(dict(kw))
             return fn(*a, **kw)
         return call
 
@@ -6935,34 +6958,44 @@ def emernerf_batch(samplers, n, dev):
     return to_device(raw, _PIXEL_KEYS, dev), raw["cam_id"]
 
 
-def check_emernerf_first_step(scene, trainer, state, samplers, dev):
-    """The first pixel step (MULTI_CHECK_RAYS rays, the flow loss at its
-    1,024 points) on the card against the CPU path, from the same
-    parameters, batch and draws; steps nothing. -> (worst loss rel err,
-    worst gradient rel err)."""
+def first_step_side(scene, trainer, params, batch, cam, noise, it, d):
+    """One pixel step's losses and gradients on device ``d`` (the scene, the
+    batch and the draws moved there), no parameter moved -> ({loss: value},
+    {leaf: gradient on the CPU}, 1 - the mean rendered mask)."""
     import torch
-    to = lambda tree, d: {k: to(v, d) for k, v in tree.items()} if isinstance(tree, dict) \
-        else [to(v, d) for v in tree] if isinstance(tree, list) else tree.to(d)
-    batch, cam = emernerf_batch(samplers, MULTI_CHECK_RAYS, "cpu")
-    noise = trainer.draw_noise(MULTI_CHECK_RAYS, torch.Generator().manual_seed(7), state.it)
-    cpu_params = copy.deepcopy(state.params).to("cpu")
-    results = {}
-    for label, params, d in (("cpu", cpu_params, "cpu"), ("card", state.params, dev)):
-        saved = trainer.scene
-        trainer.scene = scene_on(scene, d)
-        try:
-            total, extras = trainer.compute_losses(params, to(batch, d), state.it, to(noise, d),
-                                                   None, "pixel", cam)
-        finally:
-            trainer.scene = saved
-        named = dict(params.named_parameters())
-        grads = torch.autograd.grad(total, list(named.values()), allow_unused=True)
-        results[label] = ({"loss_total": float(total.detach()),
-                           **{k: float(v.detach()) for k, v in extras["losses"].items()}},
-                          {k: torch.zeros(p.shape) if g is None else g.cpu()
-                           for (k, p), g in zip(named.items(), grads)},
-                          1.0 - float(extras["aux"]["rendered_mask_mean"]))
-    (l_cpu, g_cpu, opaque), (l_gpu, g_gpu, _) = results["cpu"], results["card"]
+    to = lambda tree, dv: {k: to(v, dv) for k, v in tree.items()} if isinstance(tree, dict) \
+        else [to(v, dv) for v in tree] if isinstance(tree, list) else tree.to(dv)
+    saved = trainer.scene
+    trainer.scene = scene_on(scene, d)
+    try:
+        total, extras = trainer.compute_losses(params, to(batch, d), it, to(noise, d), None,
+                                               "pixel", cam)
+    finally:
+        trainer.scene = saved
+    named = dict(params.named_parameters())
+    grads = torch.autograd.grad(total, list(named.values()), allow_unused=True)
+    return ({"loss_total": float(total.detach()),
+             **{k: float(v.detach()) for k, v in extras["losses"].items()}},
+            {k: torch.zeros(p.shape) if g is None else g.cpu()
+             for (k, p), g in zip(named.items(), grads)},
+            1.0 - float(extras["aux"]["rendered_mask_mean"]))
+
+
+def compare_first_step(label, trainer, cpu, card, exact=None):
+    """A first step's losses and gradients (first_step_side) on the card
+    against the CPU's: the worst loss rel err and each leaf's largest
+    difference over its largest entry, held to MULTI_STEP_LOSS_RTOL and
+    MULTI_STEP_GRAD_REL. With ``exact``, the same step's gradients from a
+    float64 CPU run: a pose leaf (``Pose.*``) that misses MULTI_STEP_GRAD_REL
+    against the float32 CPU is held to that yardstick instead, as compare_f64
+    holds K6's and K12's backwards: the card no further from float64 than
+    the float32 CPU is, plus MULTI_STEP_GRAD_REL of the float64 leaf's
+    largest entry. Every other leaf stays at MULTI_STEP_GRAD_REL. ->
+    (worst loss rel err, worst gradient rel err against the float32 CPU,
+    {leaf: its rel err} of the leaves the CPU's step reaches, {pose leaf:
+    (card vs float32 CPU, card vs float64, float32 CPU vs float64) over its
+    largest entry}, empty without ``exact``)."""
+    (l_cpu, g_cpu, opaque), (l_gpu, g_gpu, _) = cpu, card
     if set(l_cpu) != {"loss_total", "loss_rgb", "loss_mask", "loss_flow",
                       "loss_dynamic_sparsity"}:
         raise AssertionError(f"an EmerNeRF step should have the YAML's four losses: {l_cpu}")
@@ -6981,23 +7014,57 @@ def check_emernerf_first_step(scene, trainer, state, samplers, dev):
            for k, g in g_cpu.items() if float(g.abs().max()) > 0}
     ge = max(rel.values())
     if noise_only:
-        log(f"emernerf first step: every ray opaque (1 - mean mask {opaque:.3g} on the CPU): "
+        log(f"{label} first step: every ray opaque (1 - mean mask {opaque:.3g} on the CPU): "
             f"the sky's leaves held to the step's largest gradient, {scale:.3g}")
-    log(f"emernerf first step card vs cpu ({MULTI_CHECK_RAYS} rays): worst loss rel err "
+    log(f"{label} first step card vs cpu ({MULTI_CHECK_RAYS} rays): worst loss rel err "
         f"{le:.3g} (tol {MULTI_STEP_LOSS_RTOL:g}), worst gradient rel err {ge:.3g} (tol "
-        f"{MULTI_STEP_GRAD_REL:g}); losses {json.dumps(l_gpu)}; gradients by leaf "
-        f"{json.dumps({k: float(f'{e:.3g}') for k, e in rel.items()})}")
+        f"{MULTI_STEP_GRAD_REL:g}); losses {json.dumps(l_gpu)}; "
+        f"gradients by leaf {json.dumps({k: float(f'{e:.3g}') for k, e in rel.items()})}")
     # a leaf the step does not reach on the CPU (the sky behind an opaque
     # close range at init) must get none on the card either
-    scale = max(float(g.abs().max()) for g in g_cpu.values())
     zero = sorted(set(g_cpu) - set(rel))
     if zero:
-        log(f"emernerf first step: no gradient on the CPU for {zero}")
+        log(f"{label} first step: no gradient on the CPU for {zero}")
     if any(float(g_gpu[k].abs().max()) > 1e-12 * scale for k in zero):
         raise AssertionError(f"the card's step reaches leaves that the CPU's does not: {zero}")
-    if not (le <= MULTI_STEP_LOSS_RTOL and ge <= MULTI_STEP_GRAD_REL):
-        raise AssertionError("the card's first EmerNeRF step differs from the CPU's")
-    return le, ge
+    held, yard = dict(rel), {}
+    for k in (k for k in rel if exact is not None and k.startswith("Pose.")):
+        g, p, w = card[1][k].double(), cpu[1][k].double(), exact[k]
+        top = float(w.abs().max()) or 1.0
+        ek, ep = float((g - w).abs().max()), float((p - w).abs().max())
+        yard[k] = (rel[k], ek / top, ep / top)
+        if rel[k] > MULTI_STEP_GRAD_REL:
+            log(f"{label} first step, {k}: {rel[k]:.3g} of its largest against the float32 "
+                f"CPU; from float64 the card {ek / top:.3g}, the float32 CPU {ep / top:.3g} "
+                f"(tol the CPU's + {MULTI_STEP_GRAD_REL:g})")
+            if not ek <= ep + MULTI_STEP_GRAD_REL * top:
+                raise AssertionError(f"the card's first {label} step: {k} lies further from "
+                                     f"float64 than the float32 CPU")
+            held[k] = 0.0
+    if not (le <= MULTI_STEP_LOSS_RTOL and max(held.values()) <= MULTI_STEP_GRAD_REL):
+        raise AssertionError(f"the card's first {label} step differs from the CPU's")
+    return le, ge, rel, yard
+
+
+def first_step_inputs(trainer, state, samplers):
+    """The first step's batch (MULTI_CHECK_RAYS pixels), camera and draws, on
+    the CPU."""
+    import torch
+    batch, cam = emernerf_batch(samplers, MULTI_CHECK_RAYS, "cpu")
+    noise = trainer.draw_noise(MULTI_CHECK_RAYS, torch.Generator().manual_seed(7), state.it)
+    return batch, cam, noise
+
+
+def check_emernerf_first_step(scene, trainer, state, samplers, dev):
+    """The first pixel step (MULTI_CHECK_RAYS rays, the flow loss at its
+    1,024 points) on the card against the CPU path, from the same
+    parameters, batch and draws (compare_first_step); steps nothing. ->
+    (worst loss rel err, worst gradient rel err)."""
+    inputs = first_step_inputs(trainer, state, samplers)
+    cpu = first_step_side(scene, trainer, copy.deepcopy(state.params).to("cpu"), *inputs,
+                          state.it, "cpu")
+    card = first_step_side(scene, trainer, state.params, *inputs, state.it, dev)
+    return compare_first_step("emernerf", trainer, cpu, card)[:2]
 
 
 def capture_emernerf_step(trainer, state, samplers, dev):
@@ -7018,7 +7085,7 @@ def capture_emernerf_step(trainer, state, samplers, dev):
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels.KERNELS.values()}
     state.params.zero_grad(set_to_none=True)
-    got = {k: len(v) for k, v in record.items()}
+    got = {k: len(v) for k, v in record.items() if k != "kw"}
     if got != EMER_STEP_LAUNCHES or {k: launches[k] for k in EMER_KERNELS} != got \
             or sum(launches.values()) != sum(got.values()):
         raise AssertionError(f"an EmerNeRF pixel step should call {EMER_STEP_LAUNCHES} and "
@@ -7405,6 +7472,567 @@ def emernerf_phase(dev, data, tmp, profile_it):
     return dict(summary=summary, errs=errs, times=times, launches=launches, iters=EMER_ITERS)
 
 
+# Phase 17: pose refinement on EmerNeRF's path (the YAML plus a Pose asset)
+POSE_ARGV = ("--assetbank_cfg.Pose.model_class=neuralsim_tpu.models.assets.LearnableParams",
+             "--assetbank_cfg.Pose.model_params.refine_nodes=[ego_car,camera_FRONT]",
+             "--assetbank_cfg.Pose.model_params.refine_intr=[camera_FRONT]",
+             "--assetbank_cfg.Pose.asset_params.training_cfg.lr=0.001")
+POSE_TS_ARGV = ("--assetbank_cfg.Pose.model_params.refine_ts=[camera_FRONT]",
+                "--training.use_ts_interp=true")
+POSE_ENABLE_AFTER = 10
+POSE_ITERS = 48
+# the first step's seeded deltas: 1e-3 rad, 1 cm, 0.5 px, 10 ms (a tenth of
+# the drive's frame interval), each leaf's N(0, 1) draws times its scale
+POSE_DELTA_SCALE = {"dquat": 1e-3, "dtrans": 1e-2, "dintr": 0.5, "dts": 1e-2}
+POSE_KERNELS = EMER_KERNELS + POSE_ONLY
+# a pixel step with pose deltas: EmerNeRF's launches and K3's backward to the
+# positions once (K9's backward at the rendered samples now with d x01, K6's
+# with d t: the same launches)
+POSE_STEP_LAUNCHES = {**EMER_STEP_LAUNCHES, "lotd_grid.bwd_x": 1}
+
+
+def pose_cfg(root, num_iters):
+    """configs/waymo_emernerf.yaml with the drive's root, the schedule's
+    length, POSE_ARGV, the camera's timestamp delta (``refine_ts``: read in
+    timestamp mode only) and ``enable_after`` POSE_ENABLE_AFTER."""
+    from neuralsim_torch.config import load_config
+    return load_config(EMER_YAML, [f"--dataset_cfg.params.root={root}",
+                                   f"--training.num_iters={num_iters}", *POSE_ARGV,
+                                   POSE_TS_ARGV[0],
+                                   f"--assetbank_cfg.Pose.model_params.enable_after="
+                                   f"{POSE_ENABLE_AFTER}"])
+
+
+def pose_deltas(params):
+    """The Pose asset's leaves {name: tensor}."""
+    return dict(params["Pose"].named_parameters())
+
+
+def set_pose_deltas(params, seed):
+    """Each delta leaf to seeded N(0, 1) draws times POSE_DELTA_SCALE (None:
+    zeros, a fresh asset)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in pose_deltas(params).items():
+            v = np.zeros(p.shape, np.float32) if seed is None else \
+                (rng.normal(size=p.shape) * POSE_DELTA_SCALE[name.split(".")[-1]])
+            p.copy_(torch.from_numpy(np.asarray(v, np.float32)))
+
+
+def as_float64(tree):
+    """Floating tensors of a dict / list tree in float64."""
+    if isinstance(tree, dict):
+        return {k: as_float64(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [as_float64(v) for v in tree]
+    return tree.double() if tree.is_floating_point() else tree
+
+
+def check_pose_first_steps(scene, trainer, state, samplers, dev):
+    """The first pixel step card vs CPU with seeded non-zero deltas past the
+    gate, in both lifts (frame slicing, and timestamp mode with the camera's
+    ``dts``), at check_emernerf_first_step's limits: losses 2e-4, every
+    gradient leaf, the deltas' included, 2e-3 of its largest entry. The
+    same step also runs on the CPU in float64 (parameters, scene, batch and
+    draws; the plain versions follow the table's type there): a pose leaf
+    that misses 2e-3 against the float32 CPU is held to that yardstick
+    instead (compare_first_step). Every delta leaf reached (``dts`` in
+    timestamp mode only); the deltas zero again after it -> {mode: (loss
+    rel err, gradient rel err against the float32 CPU, {pose leaf: (card vs
+    float32 CPU, card vs float64, float32 CPU vs float64) over its largest
+    entry})}."""
+    out = {}
+    gate = trainer.pose_enable_after
+    set_pose_deltas(state.params, 41)
+    trainer.pose_enable_after = 0
+    try:
+        for mode in ("slice_at", "timestamps"):
+            trainer.use_ts_interp = mode == "timestamps"
+            batch, cam, noise = first_step_inputs(trainer, state, samplers)
+            cpu = first_step_side(scene, trainer, copy.deepcopy(state.params).to("cpu"), batch,
+                                  cam, noise, 0, "cpu")
+            card = first_step_side(scene, trainer, state.params, batch, cam, noise, 0, dev)
+            scene64 = scene_on(scene, "cpu")
+            for n in scene64.nodes_topo:
+                n.frame_data = as_float64(n.frame_data)
+            exact = first_step_side(scene64, trainer,
+                                    copy.deepcopy(state.params).to("cpu").double(),
+                                    as_float64(batch), cam, as_float64(noise), 0, "cpu")[1]
+            le, ge, _, leaves = compare_first_step(f"pose ({mode})", trainer, cpu, card, exact)
+            want = {f"Pose.{k}" for k in pose_deltas(state.params)
+                    if mode == "timestamps" or not k.endswith(".dts")}
+            if set(leaves) != want:
+                raise AssertionError(f"the {mode} step reaches the deltas {sorted(leaves)}, "
+                                     f"not {sorted(want)}")
+            log(f"pose first step ({mode}): the deltas' gradients (card vs float32 CPU, card vs "
+                f"float64, float32 CPU vs float64, of the leaf's largest) "
+                f"{json.dumps({k: [float(f'{x:.3g}') for x in v] for k, v in leaves.items()})}")
+            out[mode] = (le, ge, leaves)
+    finally:
+        trainer.pose_enable_after = gate
+        trainer.use_ts_interp = False
+        set_pose_deltas(state.params, None)
+    return out
+
+
+def capture_pose_step(trainer, state, samplers, dev):
+    """One pixel step of the YAML's 8,192 rays with seeded deltas past the
+    gate, no parameter moved, with the kernels' inputs, cotangents and
+    keyword arguments recorded and their launches counted (POSE_STEP_LAUNCHES,
+    nothing else) -> record."""
+    import torch
+    from neuralsim_torch import kernels
+    batch, cam = emernerf_batch(samplers, None, dev)
+    noise = trainer.draw_noise(batch["rays_fidx"].shape[0],
+                               torch.Generator(device=dev).manual_seed(43), state.it)
+    record = {}
+    set_pose_deltas(state.params, 42)
+    kernels.reset_counts()
+    with emernerf_recorded(record):
+        total, _ = trainer.compute_losses(state.params, batch, POSE_ENABLE_AFTER, noise, None,
+                                          "pixel", cam)
+        total.backward()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+    state.params.zero_grad(set_to_none=True)
+    set_pose_deltas(state.params, None)
+    got = {k: len(v) for k, v in record.items() if k != "kw"}
+    if got != POSE_STEP_LAUNCHES or {k: launches[k] for k in POSE_KERNELS} != got \
+            or sum(launches.values()) != sum(got.values()):
+        raise AssertionError(f"a pose step should call {POSE_STEP_LAUNCHES} and launch nothing "
+                             f"else: calls {got}, launches {launches}")
+    if record["kw"]["volume_composite.bwd"] != [{"with_dt": True}]:
+        raise AssertionError("K6's backward on the pose path should give d t")
+    return record
+
+
+def k3_bwd_x_cases(table, meta, dev):
+    """K3's backward to the positions at its edges on the step's own table
+    and meta: k3_edge_points (0, 1, one ulp below 1, -0.25, 1.5 on every
+    axis, then uniform in [-0.1, 1.1]) and every level's cell faces k / res
+    (with a point a ulp to either side), [(label, points)]."""
+    import torch
+    rows = meta.tolist()
+    faces = []
+    for res, *_ in rows:
+        k = np.arange(res + 1, dtype=np.float32) / np.float32(res)
+        k = np.concatenate([k, np.nextafter(k, np.float32(-1)), np.nextafter(k, np.float32(2))])
+        g = np.random.default_rng(res).random((k.size, 3)).astype(np.float32)
+        g[:, res % 3] = k
+        faces.append(g)
+    return [("k3_edge_points", torch.from_numpy(k3_edge_points(65_537, 430)).to(dev)),
+            ("cell faces of every level", torch.from_numpy(np.concatenate(faces)).to(dev))]
+
+
+def check_pose_kernels(dev, enc_s, record):
+    """K3's backward to the positions at the step's own points, table and
+    cotangent, at k3_bwd_x_cases on the same table and at K3's edge
+    encodings (F 1-8, levels staged, interleaved and read from the table),
+    within GRAD_REL of its plain version and the same bits on two calls; K9's
+    backward with d x01 at the step's [786,432, 4] samples; K6's backward with
+    d t at the step's cotangents (float64 yardstick) and N(0, 1) ones with a
+    depth cotangent (GRAD_REL) -> ({kernel: (max err, tol)}, the timings'
+    inputs)."""
+    import torch
+    from neuralsim_torch.fields.encodings import lotd
+    from neuralsim_torch.fields.encodings import permuto as pm
+    from neuralsim_torch.renderers import buffers
+    errs, shapes = {}, {}
+    (table, x, meta, d_out, plan, scratch), = record["lotd_grid.bwd_x"]
+    N = x.shape[0]
+    if x.shape != (EMER_RAYS * EMER_SAMPLES, 3) or d_out.shape != (enc_s.out_dim, N) \
+            or plan != enc_s.grid_fwd_plan:
+        raise AssertionError(f"K3's backward to the positions should see the step's "
+                             f"[786,432, 3] samples: {tuple(x.shape)}")
+    fn = lambda: lotd.lotd_grid_bwd_x(table, x, meta, d_out, plan, scratch)
+    e = [compare_rel(f"K3 bwd x emernerf static samples N={N:,}", [fn()],
+                     [lotd.lotd_grid_bwd_x_plain(table, x, meta, d_out)], GRAD_REL)]
+    same_bits("K3 bwd x emernerf static samples", fn)
+    for label, pts in k3_bwd_x_cases(table, meta, dev):
+        cot = cotangents((enc_s.out_dim, pts.shape[0]), 44, dev)
+        e.append(compare_rel(f"K3 bwd x on the static table, {label} N={pts.shape[0]:,}",
+                             [lotd.lotd_grid_bwd_x(table, pts, meta, cot)],
+                             [lotd.lotd_grid_bwd_x_plain(table, pts, meta, cot)], GRAD_REL))
+        same_bits(f"K3 bwd x {label}", lambda: lotd.lotd_grid_bwd_x(table, pts, meta, cot))
+    for label, tb, pts, mt, C, pl in k3_edge_cases(dev):
+        cot = cotangents((C, pts.shape[0]), 45, dev)
+        got = lotd.lotd_grid_bwd_x(tb, pts, mt, cot, pl)
+        e.append(compare_rel(f"K3 bwd x edge {label}", [got],
+                             [lotd.lotd_grid_bwd_x_plain(tb, pts, mt, cot)], GRAD_REL))
+        if not torch.equal(got, lotd.lotd_grid_bwd_x(tb, pts, mt, cot, pl)):
+            raise AssertionError(f"K3 bwd x edge {label}: two calls differ")
+    errs["lotd_grid.bwd_x"] = (max(e), GRAD_REL)
+    shapes["lotd_grid.bwd_x"] = dict(args=(table, x, meta, d_out, plan, scratch))
+    # K9's backward with d x01 at the rendered samples
+    bwd = [b for b in record["permuto.bwd"] if b[1].shape[0] == N]
+    if len(bwd) != 1 or not bwd[0][-1]:
+        raise AssertionError("K9's backward at the rendered samples should give d x01")
+    table9, x01, res, meta9, size, d_o, _, _ = bwd[0]
+    a = (table9, x01, res, meta9, size)
+    gt, gx = pm.permuto_bwd(*a, d_o, None, True)
+    wt, wx = pm.permuto_bwd_plain(*a, d_o, None, True)
+    what = f"K9 bwd emernerf d 4 N={N:,} with d x01 (pose)"
+    e9 = max(compare_rel(what + ", d table", [gt], [wt], GRAD_REL),
+             compare_rel(what + ", d x01", [gx], [wx], K9_DX_REL))
+    if not torch.equal(gx, pm.permuto_bwd(*a, d_o, None, True)[1]):
+        raise AssertionError("K9 bwd: d x01 differs between two calls")
+    errs["permuto.bwd"] = (e9, GRAD_REL)
+    shapes["permuto.bwd"] = dict(args=a, d_out=d_o)
+    # K6's backward with d t
+    (bargs,) = record["volume_composite.bwd"]
+    f64 = [x_.double() if x_ is not None and x_.dtype == torch.float32 else x_ for x_ in bargs]
+    e6 = compare_f64("K6 bwd emernerf [8,192, 96] with d t, the step's cotangents",
+                     buffers.volume_composite_bwd(*bargs, with_dt=True),
+                     buffers.volume_composite_bwd_plain(*bargs, with_dt=True),
+                     buffers.volume_composite_bwd_plain(*f64, with_dt=True))
+    cargs = bargs[:5]
+    n6, s6 = cargs[0].shape
+    rand = [cotangents(sh, 46 + i, dev) for i, sh in enumerate(
+        ((n6, s6), (n6,), (n6,), (n6, 3), (n6, 3)))]
+    got = buffers.volume_composite_bwd(*cargs, *rand, with_dt=True)
+    want = buffers.volume_composite_bwd_plain(*cargs, *rand, with_dt=True)
+    if float(want[3].abs().max()) <= 0:
+        raise AssertionError("K6's d t should not vanish under a depth cotangent")
+    e6 = max(e6, compare_rel("K6 bwd emernerf [8,192, 96] with d t, N(0, 1) cotangents",
+                             got, want, GRAD_REL))
+    same_bits("K6 bwd with d t", lambda: buffers.volume_composite_bwd(*cargs, *rand,
+                                                                     with_dt=True))
+    errs["volume_composite.bwd"] = (e6, GRAD_REL)
+    shapes["volume_composite.bwd"] = (*cargs, *rand)
+    torch.cuda.synchronize()
+    return errs, shapes
+
+
+def time_pose_kernels(shapes):
+    """K3's backward to the positions, K9's backward with d x01 and K6's with
+    d t, queued and back to back at the step's own inputs, beside their plain
+    versions and least times -> {kernel: [timing]}."""
+    from neuralsim_torch.fields.encodings import lotd
+    from neuralsim_torch.fields.encodings import permuto as pm
+    from neuralsim_torch.renderers import buffers
+    out = {}
+    table, x, meta, d_out, plan, scratch = shapes["lotd_grid.bwd_x"]["args"]
+    N, C, T = x.shape[0], d_out.shape[0], table.numel()
+    L, F = meta.shape[0], int(meta[0, 3])
+    # points, cotangent and the table read once, d x written; 8 corners a
+    # level: the weights' derivatives, F multiply-adds and 3 more
+    out["lotd_grid.bwd_x"] = [dict(
+        shape=f"[{N:,}, 3] the static branch's samples, d_out [{C}, N], {L} levels of F {F}, "
+              f"{T:,} table floats",
+        **card_ms(lambda: lotd.lotd_grid_bwd_x(table, x, meta, d_out, plan, scratch)),
+        plain_ms=cuda_ms(lambda: lotd.lotd_grid_bwd_x_plain(table, x, meta, d_out), reps=3),
+        library_ms=None, bound=bound(N * 12 + C * N * 4 + T * 4 + N * 12,
+                                     N * L * 8 * (2 * F + 12)))]
+    a, d_o = shapes["permuto.bwd"]["args"], shapes["permuto.bwd"]["d_out"]
+    t9, x01 = a[0], a[1]
+    (n, d), L9, F9 = x01.shape, a[2].shape[0], int(a[3][0, 1])
+    walk = 4 * d + 11 * (d + 1)
+    out["permuto.bwd"] = [dict(
+        shape=f"[{n:,}, 4] the rendered samples with d x01 (pose), the features' cotangent",
+        **card_ms(lambda: pm.permuto_bwd(*a, d_o, None, True)),
+        plain_ms=cuda_ms(lambda: pm.permuto_bwd_plain(*a, d_o, None, True), reps=3),
+        library_ms=None,
+        bound=bound(n * d * 4 * 2 + t9.numel() * 4 * 2 + n * d_o.shape[1] * 4,
+                    n * L9 * (walk + 10 * (d + 1) * F9 + 4 * d * (d + 1))))]
+    bargs = shapes["volume_composite.bwd"]
+    n6, S = bargs[0].shape
+    out["volume_composite.bwd"] = [dict(
+        shape=f"rays={n6:,} S={S} with d t, N(0, 1) cotangents",
+        **card_ms(lambda: buffers.volume_composite_bwd(*bargs, with_dt=True)),
+        plain_ms=cuda_ms(lambda: buffers.volume_composite_bwd_plain(*bargs, with_dt=True),
+                         reps=3),
+        library_ms=None, bound=bound(n6 * S * 37 + n6 * 32 + n6 * S * 32, n6 * S * 42))]
+    for name, rows in out.items():
+        for r in rows:
+            log(f"timing {name} (pose): {r['ms']:.4f} ms ({card_extra(r)[2:]}, plain "
+                f"{r['plain_ms']:.4f}, bound {r['bound'][0]:.4f} by {r['bound'][1]}, library "
+                f"none) at {r['shape']}")
+    return out
+
+
+def pose_norms(params):
+    return {k: float(v.detach().norm()) for k, v in pose_deltas(params).items()}
+
+
+def check_pose_training(scene, trainer, state, samplers, loader, dev):
+    """POSE_ITERS loop iterations from zero deltas: exactly zero through
+    iteration POSE_ENABLE_AFTER - 1, non-zero and finite after it (the
+    camera's dts, which frame slicing does not read, stays zero); no skip;
+    the held set's rgb loss lower after the last iteration than after
+    POSE_ENABLE_AFTER; POSE_STEP_LAUNCHES an iteration and nothing else; no
+    plain version on the card -> (log, launches, held, iteration ms median,
+    {iteration: the deltas' norms})."""
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.tools.train import train_loop
+    gen = torch.Generator(device=dev).manual_seed(47)
+    draw = lambda step, n, g, it: trainer.draw_noise(n, g, it, step)
+    log_, iter_s, held, launches, plain, norms = [], [], [], {}, {}, {}
+    for end in (POSE_ENABLE_AFTER, POSE_ITERS):
+        kernels.reset_counts()
+        with no_plain_on_card("pose training"), plain_on_card(plain):
+            train_loop(scene, trainer, state, samplers, end, gen, 1, log_, iter_s=iter_s,
+                       draw=draw)
+            torch.cuda.synchronize()
+        for k in kernels.KERNELS.values():
+            launches[k.name] = launches.get(k.name, 0) + k.launches
+        held.append(emernerf_held_loss(scene, trainer, state, loader, dev))
+        norms[end] = pose_norms(state.params)
+        d = pose_deltas(state.params)
+        if end == POSE_ENABLE_AFTER and any(v.any() for v in d.values()):
+            raise AssertionError(f"the deltas moved before the gate: {norms[end]}")
+        if end == POSE_ITERS and any(
+                not torch.isfinite(v).all() or bool(v.any()) == k.endswith(".dts")
+                for k, v in d.items()):
+            raise AssertionError(f"the deltas after the gate should be non-zero and finite, "
+                                 f"dts zero: {norms[end]}")
+    for rec in log_:
+        for k in ("loss_total", "loss_rgb", "loss_mask", "loss_flow", "loss_dynamic_sparsity"):
+            if not np.isfinite(rec[k]):
+                raise AssertionError(f"non-finite {k} at iteration {rec['it']}")
+    if log_[-1]["skips_total"] != 0 or len(log_) != POSE_ITERS:
+        raise AssertionError(f"{log_[-1]['skips_total']} steps were skipped")
+    want = {name: POSE_ITERS * POSE_STEP_LAUNCHES.get(name, 0) for name in launches}
+    if launches != want or plain["plain_on_card"]:
+        raise AssertionError(f"the pose path's launches are not as counted: {launches}, "
+                             f"want {want}; plain calls on the card {plain['plain_on_card']}")
+    ms = float(np.median(iter_s[POSE_ENABLE_AFTER:]) * 1e3)
+    log(f"pose training: {POSE_ITERS} iterations of {samplers['pixel'].n_rays} rays, the gate "
+        f"at {POSE_ENABLE_AFTER}, launches {launches}; held rgb loss after "
+        f"{POSE_ENABLE_AFTER} iterations {held[0]:.5f}, after {POSE_ITERS} {held[1]:.5f}; the "
+        f"deltas' norms {json.dumps(norms)}; iteration median {ms:.2f} ms (host clock, "
+        f"iterations {POSE_ENABLE_AFTER}-{POSE_ITERS - 1}, min "
+        f"{min(iter_s[POSE_ENABLE_AFTER:]) * 1e3:.2f}, max {max(iter_s[POSE_ENABLE_AFTER:]) * 1e3:.2f})")
+    if not held[1] < held[0]:
+        raise AssertionError("the held set's rgb loss did not fall")
+    return log_, launches, tuple(held), ms, norms
+
+
+def time_pose_overhead(trainer, state, samplers, dev, n=12):
+    """What pose refinement costs an iteration: pixel steps of the YAML's
+    8,192 rays with the pose model and without it (the same trainer, its
+    ``pose_model_id`` set aside: no delta, no gradient to the positions), in
+    turns, each ended by a device sync -> {"pose"|"no_pose": (host ms median,
+    device ms median by CUDA events)}."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(53)
+    times = {"pose": ([], []), "no_pose": ([], [])}
+    mid = trainer.pose_model_id
+    try:
+        for i in range(2 * n):
+            label = ("pose", "no_pose")[i % 2]
+            trainer.pose_model_id = mid if label == "pose" else None
+            batch, cam = emernerf_batch(samplers, None, dev)
+            noise = trainer.draw_noise(batch["rays_fidx"].shape[0], gen, state.it, "pixel")
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            trainer.train_step(state, batch, noise, "pixel", cam)
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 2:                      # a warm-up step each
+                times[label][0].append((time.perf_counter() - t0) * 1e3)
+                times[label][1].append(start.elapsed_time(end))
+    finally:
+        trainer.pose_model_id = mid
+    out = {k: (float(np.median(h)), float(np.median(d))) for k, (h, d) in times.items()}
+    log(f"pose overhead: a pixel step of {EMER_RAYS} rays with the pose model {out['pose'][0]:.2f} "
+        f"ms host, {out['pose'][1]:.2f} ms by CUDA events; without it {out['no_pose'][0]:.2f}, "
+        f"{out['no_pose'][1]:.2f} (medians of {n - 1}, in turns)")
+    return out
+
+
+def pose_cli(dev, data, tmp):
+    """The YAML plus POSE_ARGV from the command line on the drive at
+    ``data``: tools.train.main for DISK_ITERS iterations (the deltas from
+    iteration 0), its launches, the deltas moved and finite; the final
+    checkpoint in a fresh build holds every tensor, the deltas among them,
+    bit for bit; then one iteration in timestamp mode (POSE_TS_ARGV) that
+    moves the camera's dts."""
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.config import load_config
+    from neuralsim_torch.tools import train
+    from neuralsim_torch.tools.build import build_everything
+    from neuralsim_torch.utils.checkpoint import CheckpointIO
+    summary = {}
+
+    def run(label, argv):
+        kernels.reset_counts()
+        plain = {}
+        t0 = time.perf_counter()
+        with no_plain_on_card(label), plain_on_card(plain):
+            out = train.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in kernels.KERNELS.values()}
+        log(f"{label}: {secs:.2f} s, launches {counts}")
+        missing = [n for n in POSE_KERNELS if counts[n] <= 0]
+        if missing or plain["plain_on_card"] or out["skips_total"]:
+            raise AssertionError(f"{label} never launched {missing}, ran "
+                                 f"{plain['plain_on_card']} plain calls on the card or skipped")
+        return out, secs
+
+    exp = os.path.join(tmp, "pose")
+    base = ["--config", EMER_YAML, f"--dataset_cfg.params.root={data}", *POSE_ARGV,
+            "--training.i_log=1"]
+    out, summary["pose_cli_train_s"] = run(
+        "train.main (emernerf + Pose)", base + [f"--exp_dir={exp}",
+                                                f"--training.num_iters={DISK_ITERS}"])
+    if out["trainer"].pose_model_id != "Pose" or len(out["iter_s"]) != DISK_ITERS:
+        raise AssertionError("the command line did not bind the Pose asset")
+    d = pose_deltas(out["state"].params)
+    if any(not torch.isfinite(v).all() or not v.any() for v in d.values()):
+        raise AssertionError("the command line's deltas did not move, or are not finite")
+    summary["pose_cli_norms"] = pose_norms(out["state"].params)
+    want_bits = {k: v.detach().cpu().clone() for k, v in state_tensors(out["state"]).items()}
+    del out
+    cfg = load_config(os.path.join(exp, "config.json"))
+    *_, fresh, _ = build_everything(cfg, dev, pretrain=False)
+    fresh, _ = CheckpointIO(os.path.join(exp, "ckpts")).load(fresh, "final")
+    got = {k: v.detach().cpu() for k, v in state_tensors(fresh).items()}
+    if set(got) != set(want_bits) or any(not torch.equal(got[k], want_bits[k])
+                                         for k in want_bits) \
+            or not any(k.startswith("param Pose.") for k in got):
+        raise AssertionError("the pose run's checkpoint did not restore its bits")
+    log(f"pose checkpoint: {len(got)} tensors restored bit-equal, the deltas among them")
+    del fresh
+    out, summary["pose_cli_ts_train_s"] = run(
+        "train.main (emernerf + Pose, timestamp mode)",
+        base + [*POSE_TS_ARGV, f"--exp_dir={exp}_ts", "--training.num_iters=1"])
+    dts = pose_deltas(out["state"].params)["camera_FRONT.dts"]
+    if not out["trainer"].use_ts_interp or not dts.any() or not torch.isfinite(dts).all():
+        raise AssertionError("timestamp mode did not move the camera's dts")
+    return summary
+
+
+def lift_split(prof):
+    """A profiled step's aten ops and device ms (kernels under each op),
+    split into the lift's forward (the ``pose lift`` range) and its backward
+    (the autograd nodes whose sequence numbers the lift's ops took) ->
+    {"lift_fwd": (ops, ms), "lift_bwd": (ops, ms)}."""
+    def ops(e):
+        return (e.name.startswith("aten::")) + sum(ops(c) for c in e.cpu_children)
+
+    def below(e):
+        yield e
+        for c in e.cpu_children:
+            yield from below(c)
+    events = prof.events()
+    fwd = [e for e in events if e.name == "pose lift"]
+    seq = {d.sequence_nr for e in fwd for d in below(e) if d.sequence_nr >= 0}
+    bwd = [e for e in events if e.name.startswith("autograd::engine::evaluate_function")
+           and e.sequence_nr in seq]
+    return {"lift_fwd": (sum(ops(e) for e in fwd), sum(e.device_time_total for e in fwd) / 1e3),
+            "lift_bwd": (sum(ops(e) for e in bwd), sum(e.device_time_total for e in bwd) / 1e3)}
+
+
+def profile_pose_steps(trainer, state, samplers, dev):
+    """One pixel step with the pose model and one without, under the
+    profiler: device time by kernel, the busy total against the host's, and
+    the aten ops and device ms of the lift's forward and backward
+    (lift_split); what the pose model adds beyond the lift is the renderer's
+    backward to the positions and the deltas' Adam."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    gen = torch.Generator(device=dev).manual_seed(59)
+    mid, lift = trainer.pose_model_id, trainer.lift
+
+    def ranged_lift(*a, **kw):
+        with record_function("pose lift"):
+            return lift(*a, **kw)
+    trainer.lift = ranged_lift
+    seen = {}
+    try:
+        for label, pm_id in (("with the pose model", mid), ("without it", None)):
+            trainer.pose_model_id = pm_id
+            batch, cam = emernerf_batch(samplers, None, dev)
+            noise = trainer.draw_noise(batch["rays_fidx"].shape[0], gen, state.it)
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                trainer.train_step(state, batch, noise, "pixel", cam)
+                torch.cuda.synchronize()
+            host = (time.perf_counter() - t0) * 1e3
+            busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+            n_ops = sum(1 for e in prof.events() if e.name.startswith("aten::"))
+            split = lift_split(prof)
+            seen[label] = (n_ops, busy, split)
+            log(f"pose step profile, {label}: device busy {busy:.2f} ms of {host:.2f} ms on "
+                f"the host clock (under the profiler), {n_ops} aten ops; the lift's forward "
+                f"{split['lift_fwd'][0]} ops, {split['lift_fwd'][1]:.3f} ms on the device, its "
+                f"backward {split['lift_bwd'][0]} ops, {split['lift_bwd'][1]:.3f} ms")
+            log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
+    finally:
+        trainer.pose_model_id = mid
+        del trainer.lift
+    (n1, b1, s1), (n0, b0, s0) = seen.values()
+    fwd = (s1["lift_fwd"][0] - s0["lift_fwd"][0], s1["lift_fwd"][1] - s0["lift_fwd"][1])
+    bwd = (s1["lift_bwd"][0] - s0["lift_bwd"][0], s1["lift_bwd"][1] - s0["lift_bwd"][1])
+    log(f"pose step profile, added by the pose model: {n1 - n0} aten ops, {b1 - b0:.2f} ms "
+        f"on the device; the lift's forward {fwd[0]} ops, {fwd[1]:.3f} ms; its backward "
+        f"{bwd[0]} ops, {bwd[1]:.3f} ms; the rest (the renderer's backward to the positions, "
+        f"the deltas' Adam) {n1 - n0 - fwd[0] - bwd[0]} ops, "
+        f"{b1 - b0 - fwd[1] - bwd[1]:.3f} ms")
+
+
+def pose_phase(dev, data, tmp, profile_it=False):
+    """Phase 17: pose refinement (configs/waymo_emernerf.yaml at full width
+    plus a Pose asset, on the drive written to ``data``): the build, the
+    first step card vs CPU in both lifts, K3's backward to the positions, K9's
+    with d x01 and K6's with d t at a pixel step's own inputs against their
+    plain versions and timed, POSE_ITERS iterations through the gate, the
+    command line and its checkpoint -> its results."""
+    import torch
+    from neuralsim_torch.models.assets import LearnableParams
+    from neuralsim_torch.tools.build import build_everything
+    from neuralsim_torch.tools.train import build_samplers
+    t0 = time.perf_counter()
+    cfg = pose_cfg(data, POSE_ITERS)
+    scene, bank, renderer, trainer, state, loader = build_everything(cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    samplers = build_samplers(cfg["training"], loader, int(cfg["seed"]))
+    field = state.params[renderer.pkey("cr")]
+    enc_s = field.static_enc
+    shapes_ = {k: tuple(v.shape) for k, v in pose_deltas(state.params).items()}
+    log(f"pose: built in {build_s:.2f} s; the Pose asset's leaves {shapes_}, the gate at "
+        f"{trainer.pose_enable_after}, lr {float(state.opt['Pose'].lr()):g}")
+    if not isinstance(bank.assets.get("Pose"), LearnableParams) \
+            or trainer.pose_model_id != "Pose" or trainer.pose_enable_after != POSE_ENABLE_AFTER \
+            or trainer.use_ts_interp or set(shapes_) != {
+                "ego_car.dquat", "ego_car.dtrans", "camera_FRONT.dquat", "camera_FRONT.dtrans",
+                "camera_FRONT.dintr", "camera_FRONT.dts"} \
+            or [s.typ for s in enc_s.specs] != ["dense"] * 4 + ["hash"] * 8 \
+            or enc_s.specs[-1].size != 2 ** 18 or field.dyn_enc.table_size != 2 ** 17 \
+            or renderer.query_cfg.get("num_coarse") != EMER_SAMPLES \
+            or samplers["pixel"].n_rays != EMER_RAYS or "distant" in renderer.param_keys:
+        raise AssertionError("the pose model is not the YAML's at full width with its Pose asset")
+    first = check_pose_first_steps(scene, trainer, state, samplers, dev)
+    record = capture_pose_step(trainer, state, samplers, dev)
+    errs, shapes = check_pose_kernels(dev, enc_s, record)
+    del record
+    log_, launches, held, it_ms, norms = check_pose_training(scene, trainer, state, samplers,
+                                                             loader, dev)
+    times = time_pose_kernels(shapes)
+    del shapes
+    overhead = time_pose_overhead(trainer, state, samplers, dev)
+    if profile_it:
+        profile_pose_steps(trainer, state, samplers, dev)
+    cli = pose_cli(dev, data, tmp)
+    summary = {"pose_build_s": build_s,
+               **{f"pose_first_step_{m}": {"loss_rel_err": le, "grad_rel_err": ge,
+                                          "pose_leaves_rel_err": leaves}
+                  for m, (le, ge, leaves) in first.items()},
+               "pose_iterations": POSE_ITERS, "pose_enable_after": POSE_ENABLE_AFTER,
+               "pose_iteration_ms": it_ms, "pose_held_rgb_loss": held, "pose_delta_norms": norms,
+               "pose_step_ms": overhead["pose"], "pose_no_pose_step_ms": overhead["no_pose"],
+               "pose_phase_s": time.perf_counter() - t0, **cli}
+    return dict(summary=summary, errs=errs, times=times, launches=launches, iters=POSE_ITERS)
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7461,7 +8089,7 @@ def main(argv) -> int:
     for name, n in launches_render.items():
         if n <= 0 and not name.endswith(".bwd") and \
                 name not in BENCH_ONLY + COMPOSE_ONLY + CROWD_ONLY + PERLEVEL_ONLY \
-                + PERMUTO_ONLY + LATENT_ONLY + STREETSURF_ONLY:
+                + PERMUTO_ONLY + LATENT_ONLY + STREETSURF_ONLY + POSE_ONLY:
             raise AssertionError(f"kernel {name} never launched on the render path")
     check_frames(frames, rig.H, rig.W)
     crop_err = check_crop(frames, renderer, params, rig, rig.H, rig.W)
@@ -7494,7 +8122,7 @@ def main(argv) -> int:
     log(f"training slice: {TRAIN_STEPS} steps of {TRAIN_RAYS} rays, launches {launches}")
     for name, n in launches.items():
         if n <= 0 and name not in BENCH_ONLY + COMPOSE_ONLY + MULTI_ONLY + CROWD_ONLY \
-                + PERLEVEL_ONLY + PERMUTO_ONLY + LATENT_ONLY + STREETSURF_ONLY:
+                + PERLEVEL_ONLY + PERMUTO_ONLY + LATENT_ONLY + STREETSURF_ONLY + POSE_ONLY:
             raise AssertionError(f"kernel {name} never launched on the training path")
     trainer, state = out["trainer"], out["state"]
     check_poisoned_step(trainer, state, rig, dev)
@@ -7545,9 +8173,12 @@ def main(argv) -> int:
                                                         time.perf_counter())
         emer = emernerf_phase(dev, os.path.join(tmp, "data"), tmp, "--profile" in argv)
         phase_s["emernerf"], t1 = time.perf_counter() - t1, time.perf_counter()
+        # 17. pose refinement on EmerNeRF's path, on the same drive
+        pose = pose_phase(dev, os.path.join(tmp, "data"), tmp, "--profile" in argv)
+        phase_s["pose refinement"], t1 = time.perf_counter() - t1, time.perf_counter()
     log("phases (s, host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
-    # 17. timing
+    # 18. timing
     (frame_ms, frame_min, frame_max), n_rays = time_frames(renderer, params, rig, dev)
     log(f"timing: frame median {frame_ms:.3f} ms (min {frame_min:.3f}, max "
         f"{frame_max:.3f}) for {n_rays} rays, {n_rays / frame_ms * 1e3:.1f} rays/s")
@@ -7577,9 +8208,14 @@ def main(argv) -> int:
         on_perlevel = name in PERLEVEL_ROWS
         on_permuto = name in PERMUTO_ONLY
         on_street = name in STREETSURF_ONLY
+        on_pose = name in POSE_ONLY
         on_bench = name not in times and not (on_compose or on_multi or on_crowd or on_perlevel
-                                              or on_permuto or on_street)
-        if on_street:
+                                              or on_permuto or on_street or on_pose)
+        if on_pose:
+            # K3's backward to the positions at the pose step's own samples
+            t, n_launch, steps, path = (pose["times"][name][0], pose["launches"][name],
+                                        pose["iters"], "emernerf pose refinement training")
+        elif on_street:
             # K3-4D at the pixel step's distant samples
             t, n_launch, steps, path = (street["times"][name], street["launches"][name],
                                         street["iters"], "waymo_streetsurf training")
@@ -7614,21 +8250,22 @@ def main(argv) -> int:
                                         "synthetic_object training")
         found = [e[name] for e in (errs, bench["errs"], compose["errs"], multi["errs"],
                                    crowd["errs"], perlevel["errs"], permuto["errs"],
-                                   ckpt["errs"], street["errs"], emer["errs"]) if name in e]
+                                   ckpt["errs"], street["errs"], emer["errs"],
+                                   pose["errs"]) if name in e]
         err, tol = max(e for e, _ in found), found[0][1]
         bound_ms, bound_by = t["bound"]
         # K8 runs on no training step: its per-frame count is under "compose"
         row = {"name": name, "route": "cuda", "source": k.source,
                "replaces": k.replaces, "launches": n_launch,
                "launches_per_step": None if on_compose or on_multi or on_crowd or on_perlevel
-               or on_permuto or on_street else n_launch / steps,
+               or on_permuto or on_street or on_pose else n_launch / steps,
                "max_abs_err": err, "max_err": err,
                "tol": tol, "ms": t["ms"], **card_keys(t), "plain_ms": t["plain_ms"],
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": t["library_ms"], **extra_keys(t), "shape": t["shape"],
                "path": path}
         unit = "frame" if on_compose else "iteration" if on_multi or on_crowd or on_perlevel \
-            or on_permuto or on_street else "step"
+            or on_permuto or on_street or on_pose else "step"
         log(f"kernel {name} ({path} path, {n_launch / steps:g} launches per {unit}): "
             f"{t['ms']:.4f} ms ({card_extra(t)[2:]}{', ' if card_keys(t) else ''}plain "
             f"{t['plain_ms']:.4f}, bound {bound_ms:.4f} by {bound_by}) at {t['shape']}")
@@ -7789,12 +8426,25 @@ def main(argv) -> int:
                  "library_ms": c["library_ms"], "shape": c["shape"]})
         log(f"kernel {name} (emernerf path: {row['emernerf']['launches_per_iteration']:g} "
             f"launches per iteration)")
+        # the pose-refinement path: K3's backward to the positions, K9's with
+        # d x01 and K6's with d t at its own inputs
+        row["pose"] = {"launches": pose["launches"][name],
+                       "launches_per_iteration": pose["launches"][name] / pose["iters"]}
+        for c in pose["times"].get(name, []):
+            row["pose"].setdefault("times", []).append(
+                {"ms": c["ms"], **card_keys(c), "plain_ms": c["plain_ms"],
+                 "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
+                 "library_ms": c["library_ms"], "shape": c["shape"]})
+            log(f"kernel {name} (pose path, {row['pose']['launches_per_iteration']:g} launches "
+                f"per iteration): {c['ms']:.4f} ms ({card_extra(c)[2:]}, plain "
+                f"{c['plain_ms']:.4f}, bound {c['bound'][0]:.4f} by {c['bound'][1]}) at "
+                f"{c['shape']}")
         rows.append(row)
     if "--profile" in argv:
         profile_frame(renderer, params, rig, dev)
         profile_step(trainer, state, rig, dev)
 
-    # 18. results
+    # 19. results
     log(json.dumps({"frame_ms": frame_ms, "frame_ms_min": frame_min,
                     "frame_ms_max": frame_max, "rays_per_s": n_rays / frame_ms * 1e3,
                     "crop_max_abs_err": crop_err,
@@ -7807,7 +8457,7 @@ def main(argv) -> int:
                     **compose["summary"], **multi["summary"], **crowd["summary"],
                     **synth["summary"], **perlevel["summary"], **permuto["summary"],
                     **ckpt["summary"], **street["summary"], **disk["summary"],
-                    **emer["summary"], "card": smi}))
+                    **emer["summary"], **pose["summary"], "card": smi}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

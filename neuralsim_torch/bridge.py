@@ -8,7 +8,9 @@ over untransposed. That holds for every field of the port: the NeuS field
 distant field (decoder, radiance, and the 4-D LoTD's ``encoding.table``), the
 sky, the appearance tables of ``ImageEmbeddings`` (``<camera>.weight``) and
 EmerNeRF's field (``static_enc.table``, ``static_dec``, ``dyn_enc.table``, the
-permuto table in its own layout, ``dyn_dec``, ``flow_dec``, ``radiance``). An
+permuto table in its own layout, ``dyn_dec``, ``flow_dec``, ``radiance``) and
+``LearnableParams``' pose tree ``{node: {dquat, dtrans, dintr?, dts?}}``
+(``<node>.<name>``, the same [T, ...] arrays). An
 occupancy grid's state is two arrays, ``val`` and
 ``mask`` ([R, R, R], or [G, R, R, R] for per-instance and per-keyframe grids).
 """

@@ -88,6 +88,24 @@
 //  * at D = 4 (grid4_bwd_kernel, below) no level is private: the distant
 //    field's gradient goes to an interleaved scratch by vector atomics, with
 //    the runs of a warp found once a level (see there), and no d_jac is read.
+//
+// Backward to the positions (lotd_grid_bwd_x, D = 3, the features' cotangent
+// alone): JAX's autodiff of _level_features with respect to pos01 (pose
+// refinement moves the rays, and so every sample). Per point and axis i
+//   d pos01_i = g_i * sum_l res_l * sum_c (dw_c / dfrac_i) * sum_f d_out[f] table[row_c, f]
+// where dw_c/dfrac_i is the product of the other axes' factors, signed by
+// corner c's bit i (corner_weights' JAC factors), frac = x res - cell with
+// the cell held constant (floor and the clamp of the top cell pass nothing),
+// and g_i the gradient of jnp.clip(pos01_i, 0, 1): 1 inside, 0 outside, 1/2
+// at x == 0 or 1 (a tie of its maximum or minimum). What bounds it: bytes,
+// the cotangent (4 C bytes a point) above all, then the points, the output
+// and the table once. The design: a thread a point walks the levels in
+// order, reading each level where the forward does (its [size, F] copy in
+// the interleaved scratch, one load a corner at F 2, the scratch filled by
+// the same first kernel where the caller's copy is stale; a level the
+// forward stages in shared memory, or that fits neither, from the table),
+// the cotangent's F entries once a level (coalesced, feature-major), and
+// owns its three outputs: no atomics, the same bits every call.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -832,6 +850,118 @@ __global__ void grid4_bwd_flush_kernel(const float* __restrict__ inter,
   }
 }
 
+// K3's backward to the positions: one level's sum_c dw_c * (sum_f d_out[f]
+// v_c[f]) into lj, for F features read together (F 2, EmerNeRF's static
+// field; level_dx_any takes any other F): from a [size, F] copy (COPY, one
+// load a corner) or the table's [F, size] segment. gp: the point's cotangent
+// of the level's first feature (feature f at gp[f N]).
+template <int F, bool COPY>
+__device__ __forceinline__ void level_dx(const float* src, int size, const Cell<3>& c,
+                                         const int (&rows)[8], const float* __restrict__ gp,
+                                         size_t N, float (&lj)[3]) {
+  float v[8][F], g[F];
+#pragma unroll
+  for (int corner = 0; corner < 8; ++corner) {
+    if constexpr (COPY) {
+      load_corner<F>(v[corner], src + (size_t)rows[corner] * F);
+    } else {
+#pragma unroll
+      for (int f = 0; f < F; ++f) v[corner][f] = __ldg(src + (size_t)f * size + rows[corner]);
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < F; ++f) g[f] = __ldg(gp + f * N);
+#pragma unroll
+  for (int corner = 0; corner < 8; ++corner) {
+    float w, dw[3];
+    corner_weights<3, true>(c, corner, w, dw);
+    float s = 0.f;
+#pragma unroll
+    for (int f = 0; f < F; ++f) s = __fadd_rn(s, __fmul_rn(v[corner][f], g[f]));
+#pragma unroll
+    for (int i = 0; i < 3; ++i) lj[i] = __fadd_rn(lj[i], __fmul_rn(dw[i], s));
+  }
+}
+
+// The same for any F, a float at a time: feature f of row r at
+// src[r * rs + f * fs] (a [size, F] copy: rs F, fs 1; the table: rs 1, fs size).
+__device__ __forceinline__ void level_dx_any(const float* src, size_t rs, size_t fs, int nf,
+                                             const Cell<3>& c, const int (&rows)[8],
+                                             const float* __restrict__ gp, size_t N,
+                                             float (&lj)[3]) {
+  float s[8];
+#pragma unroll
+  for (int corner = 0; corner < 8; ++corner) s[corner] = 0.f;
+  for (int f = 0; f < nf; ++f) {
+    const float g = __ldg(gp + f * N);
+#pragma unroll
+    for (int corner = 0; corner < 8; ++corner)
+      s[corner] = __fadd_rn(s[corner], __fmul_rn(src[rows[corner] * rs + f * fs], g));
+  }
+#pragma unroll
+  for (int corner = 0; corner < 8; ++corner) {
+    float w, dw[3];
+    corner_weights<3, true>(c, corner, w, dw);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) lj[i] = __fadd_rn(lj[i], __fmul_rn(dw[i], s[corner]));
+  }
+}
+
+constexpr int kBwdXThreads = 256;
+
+__global__ void __launch_bounds__(kBwdXThreads)
+grid_bwd_x_kernel(const float* __restrict__ table,
+                  const float* __restrict__ pos01,  // [N, 3]
+                  const int* __restrict__ meta,     // [L, 6]
+                  const float* __restrict__ inter,  // the forward's interleaved levels, or null
+                  const float* __restrict__ d_out,  // [C, N]
+                  float* __restrict__ d_x,          // [N, 3]
+                  int N, int L, unsigned stage_mask, int n_shared, int n_inter) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  float x[3], gate[3];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const float raw = __ldg(pos01 + (size_t)n * 3 + ax);
+    x[ax] = fminf(fmaxf(raw, 0.f), 1.f);
+    gate[ax] = (raw > 0.f && raw < 1.f) ? 1.f : ((raw == 0.f || raw == 1.f) ? 0.5f : 0.f);
+  }
+  float acc[3] = {0.f, 0.f, 0.f};
+  Place place;  // the forward's walk: where each level's copy is
+  for (int l = 0; l < L; ++l) {
+    const int res = __ldg(meta + l * META + 0);
+    const int size = __ldg(meta + l * META + 1);
+    const int offset = __ldg(meta + l * META + 2);
+    const int nf = __ldg(meta + l * META + 3);
+    const int is_hash = __ldg(meta + l * META + 4);
+    const int col = __ldg(meta + l * META + 5);
+    int off;
+    const int where = place.next(stage_mask, l, nf * size, n_shared, n_inter, &off);
+    const Cell<3> c = cell_of<3>(x, res);
+    int rows[8];
+#pragma unroll
+    for (int corner = 0; corner < 8; ++corner)
+      rows[corner] = corner_row<3>(c, corner, res, size, is_hash);
+    const float* gp = d_out + (size_t)col * N + n;
+    const float* cp = where == 2 ? inter + off : nullptr;
+    const float* tp = table + offset;
+    float lj[3] = {0.f, 0.f, 0.f};
+    if (where == 2 && nf == 2)
+      level_dx<2, true>(cp, size, c, rows, gp, N, lj);
+    else if (where != 2 && nf == 2)
+      level_dx<2, false>(tp, size, c, rows, gp, N, lj);
+    else if (where == 2)
+      level_dx_any(cp, nf, 1, nf, c, rows, gp, N, lj);
+    else
+      level_dx_any(tp, 1, size, nf, c, rows, gp, N, lj);
+    const float fres = (float)res;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(lj[i], fres));
+  }
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) d_x[(size_t)n * 3 + ax] = __fmul_rn(acc[ax], gate[ax]);
+}
+
 }  // namespace
 
 // stage_mask: bit l set where level l may be staged in shared memory (l <
@@ -937,5 +1067,36 @@ extern "C" int lotd_grid_bwd(const void* pos01, const void* meta, const void* d_
   grid_bwd_flush_kernel<<<(n_private + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       (const float*)scratch, (const int*)meta, (float*)d_table, n_private, blocks, L,
       (unsigned)private_mask);
+  return (int)cudaGetLastError();
+}
+
+// K3's backward to the positions, 3-D points: table, pos01 [N, 3], meta [L,
+// 6], d_out [C, N], d_x [N, 3] written; stage_mask,
+// n_shared, n_inter: the forward's plan (a level the forward stages in shared
+// memory is read from the table here), inter its interleaved scratch (null if
+// n_inter is 0), filled first where fill_inter. A thread a point.
+extern "C" int lotd_grid_bwd_x(const void* table, const void* pos01, const void* meta,
+                               const void* d_out, void* d_x, void* inter, int fill_inter, int N,
+                               int L, int stage_mask, int n_shared, int n_inter, void* stream) {
+  if (n_shared < 0 || n_inter < 0 || (n_inter > 0 && inter == nullptr) || N < 0 || L < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
+  if (n_inter > 0 && fill_inter) {
+    int dev = 0, sms = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)e;
+    int blocks = (n_inter + 4 * 256 - 1) / (4 * 256);
+    blocks = blocks > 16 * sms ? 16 * sms : blocks;
+    grid_interleave_kernel<<<blocks, 256, 0, s>>>((const float*)table, (const int*)meta,
+                                                   (float*)inter, L, (unsigned)stage_mask,
+                                                   n_shared, n_inter);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  if (N == 0) return (int)cudaSuccess;
+  grid_bwd_x_kernel<<<(N + kBwdXThreads - 1) / kBwdXThreads, kBwdXThreads, 0, s>>>(
+      (const float*)table, (const float*)pos01, (const int*)meta, (const float*)inter,
+      (const float*)d_out, (float*)d_x, N, L, (unsigned)stage_mask, n_shared, n_inter);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,10 @@
 //   B_i = sum_{k>i} g_k a_k prod_{i<j<k} q_j,  so  B_{i-1} = g_i a_i + q_i B_i.
 // That form divides by nothing, so a lane with alpha == 1 (q = 1e-10) stays
 // exact where "suffix sum over q_i" would divide by 1e-10. Masked lanes get
-// zero and let B pass (q = 1 + 1e-10 is 1 in f32). No gradient goes to t.
+// zero and let B pass (q = 1 + 1e-10 is 1 in f32). Where the caller asks for
+// it (d_t not null: pose refinement moves the sample depths), the depths'
+// gradient comes from the depth alone, d t_i = mask_i * (g_depth / den) * v_i
+// (the weights do not depend on t).
 //
 // K12 neus_composite (forward and backward): the NeuS alpha of the final
 // evaluation fused into the same per-ray pass, for a NeuS buffer that is
@@ -365,6 +368,7 @@ struct BwdIO {
   float* d_rgb;          // [N, S, 3] or null
   float* d_nablas;       // [N, S, 3] (K6: or null)
   float* d_inv_s;        // [N] (K12)
+  float* d_t;            // [N, S] or null (K6)
 };
 
 template <int G, int K, bool NEUS>
@@ -476,6 +480,7 @@ __global__ void __launch_bounds__(kThreads) composite_bwd_kernel(const Inputs p,
         if (R.valid && j < n) q.d_sdf[i] = m ? dep + den_ : 0.f;
       } else {
         if (R.valid && j < n) q.d_alpha[i] = m ? da0 : 0.f;
+        if (q.d_t != nullptr && R.valid && j < n) q.d_t[i] = m ? gd * v : 0.f;
       }
       if (R.valid && j < n) {
 #pragma unroll
@@ -605,12 +610,12 @@ extern "C" int volume_composite_bwd(const void* t, const void* mask, const void*
                                     const void* rgb, const void* nablas, const void* g_vw,
                                     const void* g_mask, const void* g_depth, const void* g_rgb,
                                     const void* g_nrm, void* d_alpha, void* d_rgb,
-                                    void* d_nablas, int N, int S, void* stream) {
+                                    void* d_nablas, void* d_t, int N, int S, void* stream) {
   const Inputs p{(const float*)t, (const uint8_t*)mask, (const float*)alpha, nullptr, nullptr,
                  nullptr, (const float*)rgb, (const float*)nablas, N, S, 0.f};
   const BwdIO q{(const float*)g_vw, (const float*)g_mask, (const float*)g_depth,
                 (const float*)g_rgb, (const float*)g_nrm, nullptr, (float*)d_alpha, nullptr,
-                (float*)d_rgb, (float*)d_nablas, nullptr};
+                (float*)d_rgb, (float*)d_nablas, nullptr, (float*)d_t};
   return launch_bwd<false>(p, q, (cudaStream_t)stream);
 }
 
@@ -639,6 +644,6 @@ extern "C" int neus_composite_bwd(const void* t, const void* mask, const void* s
                  (const float*)nablas, N, S, anneal};
   const BwdIO q{(const float*)g_vw, (const float*)g_mask, (const float*)g_depth,
                 (const float*)g_rgb, (const float*)g_nrm, (const float*)g_alpha, nullptr,
-                (float*)d_sdf, (float*)d_rgb, (float*)d_nablas, (float*)d_inv_s};
+                (float*)d_sdf, (float*)d_rgb, (float*)d_nablas, (float*)d_inv_s, nullptr};
   return launch_bwd<true>(p, q, (cudaStream_t)stream);
 }

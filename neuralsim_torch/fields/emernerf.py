@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from ..maths.transforms import clip
 from ..ops.segment import tau_to_alpha
 from .blocks import MLP
 from .embedders import sh_embedder
@@ -37,8 +38,7 @@ _DYNAMIC_CFG = {"n_levels": 12, "base_res": 4.0, "max_res": 512.0, "log2_hashmap
 
 def _act(raw: torch.Tensor) -> torch.Tensor:
     """exp(clip(raw, -15, 15)), the clip with ``jnp.clip``'s half gradient at a tie."""
-    return torch.exp(torch.minimum(torch.maximum(raw, raw.new_full((), -15.0)),
-                                   raw.new_full((), 15.0)))
+    return torch.exp(clip(raw, -15.0, 15.0))
 
 
 class EmerNeRFField(nn.Module):
@@ -112,7 +112,7 @@ class EmerNeRFField(nn.Module):
         flow_fwd?, flow_bwd?, rgb?, details}."""
         N = rays_o.shape[0]
         n_, f_, hit = self.space.ray_test(rays_o, rays_d, near=near, far=far)
-        u = torch.linspace(0.0, 1.0, num_coarse, dtype=torch.float32,
+        u = torch.linspace(0.0, 1.0, num_coarse, dtype=rays_o.dtype,
                            device=rays_o.device).expand(N, num_coarse)
         if perturb and noise is not None:
             u = u + (noise["coarse"] - 0.5) / num_coarse

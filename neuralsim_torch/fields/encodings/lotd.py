@@ -32,10 +32,13 @@ plain versions; on the card one ``torch.autograd.Function`` runs the forward
 kernels and, in its backward, the ``lotd_cp_stacked.bwd``,
 ``lotd_cp_level.bwd`` and ``lotd_grid.bwd`` kernels; another runs K14 and
 its backward (``lotd_cp_lines.bwd``, into the table's CP entries). On the
-card no gradient goes to the positions: a backward asked for one raises
-(``NotImplementedError``; rays are data and sample depths are detached on
-every path so far; pose refinement will add it), where the CPU's plain
-versions give it under autograd.
+card the gradient to the positions (pose refinement: the rays, and so the
+samples, depend on the pose deltas) is the ``lotd_grid.bwd_x`` kernel's, for
+an encoding whose levels are all dense or hash (K3) at D 3 and the features'
+cotangent alone; a backward that asks for it with CP levels (K1, K2), with a
+jacobian cotangent (the second-order term of a NeuS field) or at D 4 (K3-4D)
+raises (``NotImplementedError``, naming pose refinement), where the CPU's
+plain versions give it under autograd.
 
 Not ported yet: the batched ``bidx`` tables, 4-D CP levels, the level
 anneal window and ``NEURALSIM_CP_JAC_F32=1`` (float32 lines for the
@@ -53,6 +56,7 @@ import torch
 from torch import nn
 
 from ... import kernels
+from ...maths.transforms import clip
 from ...ops.gather import gather_cols
 
 # Instant-NGP spatial-hash primes (Mueller et al. 2022).
@@ -72,6 +76,9 @@ K3_4D = kernels.register("lotd_grid4", "neuralsim_torch/csrc/lotd_grid.cu",
                          "neuralsim_tpu/fields/encodings/lotd.py:410")
 K3_4D_BWD = kernels.register("lotd_grid4.bwd", "neuralsim_torch/csrc/lotd_grid.cu",
                              "neuralsim_tpu/fields/encodings/lotd.py:410")
+# K3's backward to the positions (3-D points, no jacobian cotangent)
+K3_BWD_X = kernels.register("lotd_grid.bwd_x", "neuralsim_torch/csrc/lotd_grid.cu",
+                            "neuralsim_tpu/fields/encodings/lotd.py:410")
 # the points' dimensions that K3 takes, and the kernels that count each
 GRID_DIMS = {3: (K3, K3_BWD), 4: (K3_4D, K3_4D_BWD)}
 K2 = kernels.register("lotd_cp_level", "neuralsim_torch/csrc/lotd_cp_level.cu",
@@ -420,7 +427,8 @@ def _grid_levels_plain(segment, pos01: torch.Tensor, meta_rows: Sequence[Sequenc
     size, offset, F)``, a [F, size] view of its rows; the points' dimension D
     is pos01's second axis (2^D corners, in order)."""
     D = pos01.shape[1]
-    x = pos01.clamp(0.0, 1.0).T                                  # [D, N]
+    # jnp.clip's gradient: half of it at a face of the box (x == 0 or 1)
+    x = clip(pos01, 0.0, 1.0).T                                  # [D, N]
     for res, size, offset, nf, is_hash, row in meta_rows:
         tbl = segment(res, size, offset, nf)
         pos = x * res
@@ -638,6 +646,63 @@ def lotd_grid_bwd_plain(n_table: int, pos01: torch.Tensor, meta: torch.Tensor,
         jac = None if d_jac is None else torch.zeros_like(d_jac)
         lotd_grid_plain(table, pos01, meta, out, jac)
         return torch.autograd.grad(_cotangent_loss(out, jac, d_out, d_jac), table)[0]
+
+
+def lotd_grid_bwd_x_plain(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor,
+                          d_out: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3's backward to the positions: autograd of the plain
+    forward with respect to ``pos01`` [N, D] for the cotangent ``d_out`` [C,
+    N] of its features -> d pos01 [N, D] float32 (JAX's autodiff of
+    ``_level_features``: through frac = x res - cell, cell constant, and the
+    clip of x into [0, 1], half the gradient at a face)."""
+    with torch.enable_grad():
+        x = pos01.detach().requires_grad_(True)
+        out = d_out.new_zeros(d_out.shape)
+        lotd_grid_plain(table.detach(), x, meta, out)
+        return torch.autograd.grad(out, x, d_out)[0]
+
+
+def lotd_grid_bwd_x(table: torch.Tensor, pos01: torch.Tensor, meta: torch.Tensor,
+                    d_out: torch.Tensor, plan: Optional[GridFwdPlan] = None,
+                    scratch: Optional[GridScratch] = None) -> torch.Tensor:
+    """K3 backward-to-the-positions wrapper: the plain version on the CPU, the
+    CUDA kernel (``lotd_grid.bwd_x``) on the card, for 3-D points [N, 3] and
+    the features' cotangent ``d_out`` [C, N] -> d pos01 [N, 3]. It reads the
+    levels where the forward does, the interleaved ones from the forward's
+    scratch: ``plan`` and ``scratch`` as :func:`lotd_grid` takes them (the
+    scratch filled first where the table changed; without one, a fresh one
+    each call). Each point owns its three outputs: no atomics, the same bits
+    every call."""
+    if pos01.device.type == "cpu":
+        return lotd_grid_bwd_x_plain(table, pos01, meta, d_out)
+    kernels.check_cuda("lotd_grid_bwd_x", table, pos01, meta, d_out)
+    if table.dtype != torch.float32 or table.dim() != 1:
+        raise ValueError("lotd_grid_bwd_x: table must be a flat float32 tensor")
+    if meta.dtype != torch.int32 or meta.dim() != 2 or meta.shape[1] != 6:
+        raise ValueError("lotd_grid_bwd_x: meta must be int32 [L, 6]")
+    if pos01.dim() != 2 or pos01.dtype != torch.float32:
+        raise ValueError("lotd_grid_bwd_x: pos01 must be float32 [N, D]")
+    N, D = pos01.shape
+    if D != 3:
+        raise NotImplementedError("the gradient to the positions of K3 in four dimensions "
+                                  "(K3-4D) is not ported on the card (pose refinement)")
+    if d_out.dtype != torch.float32 or d_out.dim() != 2 or d_out.shape[1] != N:
+        raise ValueError(f"lotd_grid_bwd_x: d_out must be float32 [C, {N}]")
+    if plan is None:
+        plan = grid_fwd_plan(meta.tolist())
+    inter, fill = None, False
+    if plan.n_inter and scratch is not None:
+        inter, fill = scratch.take(table, plan.n_inter)
+    elif plan.n_inter:
+        inter, fill = torch.empty(plan.n_inter, dtype=torch.float32, device=table.device), True
+    d_x = torch.empty((N, 3), dtype=torch.float32, device=pos01.device)
+    K3_BWD_X.launch("lotd_grid_bwd_x", kernels.ptr(table), kernels.ptr(pos01),
+                    kernels.ptr(meta), kernels.ptr(d_out), kernels.ptr(d_x), kernels.ptr(inter),
+                    int(fill), N, meta.shape[0], plan.stage_mask, plan.n_shared, plan.n_inter,
+                    kernels.stream())
+    if fill and scratch is not None:
+        scratch.filled(table)
+    return d_x
 
 
 # K3's backward sums the dense levels that fit this budget together in each
@@ -1052,7 +1117,7 @@ class _EncodeOnCard(torch.autograd.Function):
         if grid_meta.shape[0]:
             lotd_grid(table, xf, grid_meta, out, jac, *grid_plans[0])
         ctx.save_for_backward(lines_bf16, table, xf, cp_rows, cp_meta, grid_meta)
-        ctx.grid_plan = grid_plans[1]
+        ctx.grid_fwd, ctx.grid_plan = grid_plans
         ctx.set_materialize_grads(False)
         return out, jac
 
@@ -1061,14 +1126,24 @@ class _EncodeOnCard(torch.autograd.Function):
         lines_bf16, table, xf, cp_rows, cp_meta, grid_meta = ctx.saved_tensors
         d_out = None if d_out is None else d_out.contiguous()
         d_jac = None if d_jac is None else d_jac.contiguous()
-        d_lines = d_table = None
+        d_lines = d_table = d_x = None
         if d_out is None and d_jac is None:
             return (None,) * 10
         if ctx.needs_input_grad[3]:
-            # the CPU's plain versions differentiate the positions; the card
-            # has no kernel for it, and a None would drop it without a word
-            raise NotImplementedError("the gradient to the positions of K1/K2/K3 is not "
-                                      "ported on the card (pose refinement)")
+            # K3's kernel gives it at D 3 from the features' cotangent; for the
+            # rest the card has no kernel, and a None would drop it without a word
+            if lines_bf16 is not None or cp_meta.shape[0]:
+                raise NotImplementedError("the gradient to the positions of K1/K2 (CP levels) "
+                                          "is not ported on the card (pose refinement)")
+            if d_jac is not None:
+                raise NotImplementedError("the gradient to the positions of K3 from a jacobian "
+                                          "cotangent (the second-order term) is not ported on "
+                                          "the card (pose refinement)")
+            if xf.shape[1] != 3:
+                raise NotImplementedError("the gradient to the positions of K3 in four "
+                                          "dimensions (K3-4D) is not ported on the card (pose "
+                                          "refinement)")
+            d_x = lotd_grid_bwd_x(table, xf, grid_meta, d_out, *ctx.grid_fwd)
         if lines_bf16 is not None and ctx.needs_input_grad[0]:
             d_lines = lotd_cp_stacked_bwd(lines_bf16, xf, cp_rows, d_out, d_jac)
         if ctx.needs_input_grad[2]:
@@ -1077,7 +1152,7 @@ class _EncodeOnCard(torch.autograd.Function):
                                         ctx.grid_plan.at(xf.shape[0]))
             if cp_meta.shape[0]:
                 d_table = lotd_cp_level_bwd(table, xf, cp_meta, d_out, d_jac, d_table)
-        return d_lines, None, d_table, None, None, None, None, None, None, None
+        return d_lines, None, d_table, d_x, None, None, None, None, None, None
 
 
 class LoTDEncoding(nn.Module):
@@ -1224,7 +1299,9 @@ class LoTDEncoding(nn.Module):
     def _encode(self, x: torch.Tensor, with_jac: bool, cp_lines: Optional[CpLines]):
         lead = x.shape[:-1]
         D = self.input_dim
-        xf = x.reshape(-1, D).to(torch.float32).contiguous()
+        # float32 on the card; the plain versions on the CPU in the table's
+        # type (a float64 module gives a float64 yardstick)
+        xf = x.reshape(-1, D).to(torch.float32 if x.is_cuda else self.table.dtype).contiguous()
         N = xf.shape[0]
         if self.cp_stacked and cp_lines is None:
             cp_lines = self.kernel_lines()
@@ -1232,8 +1309,8 @@ class LoTDEncoding(nn.Module):
             raise NotImplementedError("NEURALSIM_CP_JAC_F32=1 (float32 lines for the stacked "
                                       "jacobian) is not ported")
         if xf.device.type == "cpu":      # the plain versions, under autograd
-            out = torch.empty((self.out_dim, N), dtype=torch.float32)
-            jac = torch.empty((D, self.out_dim, N), dtype=torch.float32) if with_jac else None
+            out = torch.empty((self.out_dim, N), dtype=xf.dtype)
+            jac = torch.empty((D, self.out_dim, N), dtype=xf.dtype) if with_jac else None
             if self.cp_stacked:
                 lotd_cp_stacked(_RoundBf16.apply(cp_lines.f32), xf, self._cp_rows, out, jac)
             elif self.cp_spec_ids:

@@ -384,7 +384,9 @@ class PermutoEncoding(nn.Module):
             raise NotImplementedError("the batched permuto tables (bidx) are not ported")
         from ..neus import clip01
         lead = x.shape[:-1]
-        xf = clip01(x.reshape(-1, self.input_dim).to(torch.float32)).contiguous()
+        # float32 on the card; the plain version on the CPU in the table's type
+        xf = clip01(x.reshape(-1, self.input_dim).to(
+            torch.float32 if x.is_cuda else self.table.dtype)).contiguous()
         if xf.device.type == "cpu":          # the plain version, under autograd
             out, jac = permuto_plain(self.table, xf, self._res, self._meta,
                                      self.table_size, with_jac)

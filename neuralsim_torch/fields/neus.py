@@ -30,6 +30,7 @@ from torch import nn
 
 from .. import kernels
 from ..maths.common import safe_normalize
+from ..maths.transforms import clip
 from ..ops.segment import alpha_to_vw, det_u_on, merge_sorted_samples, sample_pdf
 from .blocks import MLP
 from .embedders import sh_embedder
@@ -57,9 +58,8 @@ def map_chunked(fn: Callable[..., torch.Tensor], x: torch.Tensor, chunk: Optiona
 # ---------------------------------------------------------------------------
 
 def clip01(x: torch.Tensor) -> torch.Tensor:
-    """clip(x, 0, 1) with ``jnp.clip``'s gradient: half of it at a tie
-    (x == 0 or x == 1), where ``torch.clamp`` passes all of it."""
-    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+    """clip(x, 0, 1) with ``jnp.clip``'s gradient (:func:`clip`)."""
+    return clip(x, 0.0, 1.0)
 
 
 def neus_alpha_from_sdf(sdf: torch.Tensor, cos: torch.Tensor, dist: torch.Tensor,

@@ -40,10 +40,11 @@ SIGNATURES: Dict[str, str] = {
     "lotd_cp_level_bwd": "ppppppiiip",
     "lotd_grid_fwd": "ppppppiiiiiiiiip",
     "lotd_grid_bwd": "pppppppiiiiiiip",
+    "lotd_grid_bwd_x": "ppppppiiiiiip",
     "neus_upsample_weights_pdf": "pppppppppiiifp",
     "merge_sorted_samples": "pppppppppiiip",
     "volume_composite_fwd": "pppppppppppiip",
-    "volume_composite_bwd": "pppppppppppppiip",
+    "volume_composite_bwd": "ppppppppppppppiip",
     "neus_composite_fwd": "ppppppppppppppiifp",
     "neus_composite_bwd": "pppppppppppppppppiifp",
     "occ_ray_proposal": "ppppppppppppiiiiip",

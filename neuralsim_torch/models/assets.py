@@ -1,6 +1,6 @@
 """Field construction of the assets on the port's paths (port of
-neuralsim_tpu/models/assets.py:31-66, 70-193, 194-215, 263-338, 416-446,
-449-556, 576-613).
+neuralsim_tpu/models/assets.py:31-66, 70-193, 194-215, 263-338, 341-413,
+416-446, 449-556, 576-613).
 
 An asset turns its ``model_params`` from the config into a field module (and
 an occupancy grid where it has one); the same keys are read, with the same
@@ -13,6 +13,9 @@ the distant field and the sky take ``appear_embed_dim``, the width of the
 per-frame appearance codes of :class:`ImageEmbeddings` (one table a camera).
 EmerNeRF's street (:class:`EmerNerfStreet`) is the time-conditioned
 static/dynamic field with its flow head, in the box of the camera tracks.
+:class:`LearnableParams` holds pose refinement's deltas (rotation and
+translation a node and frame, intrinsics and timestamp deltas), which the
+single-scene trainer applies to the scene graph inside its step.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from ..fields.nerf import NeRFDistantField
 from ..fields.neus import NeuSField
 from ..fields.sky import SimpleSky
 from ..fields.spatial import AABBSpace
+from ..maths.transforms import make_transform, quat_to_rot
 from ..training.optimizers import ModelAdam
 from .asset_base import AssetAssignment, AssetModel
 
@@ -383,12 +387,85 @@ class ImageEmbeddings(AssetModel):
         return params[cam_id](fidx)
 
 
+class PoseDeltas(nn.ModuleDict):
+    """Pose refinement's parameters: one ``nn.ParameterDict`` a node of
+    {dquat [T, 3] (a rotation's so(3) tangent), dtrans [T, 3], dintr [T, 4]
+    (dfx, dfy, dcx, dcy), dts [T] or [1]}, each where the node refines it;
+    parameters ``<node>.<name>``, the JAX tree's paths. Zeros at init."""
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for p in self.parameters():
+            p.zero_()
+
+
+class LearnableParams(AssetModel):
+    """Pose refinement and self-calibration: per-node, per-frame rotation and
+    translation deltas on the scenario's poses (``refine_nodes``, by default
+    the scene's observers), per-frame intrinsics deltas (``refine_intr``:
+    True for every camera, or a list) and timestamp deltas (``refine_ts``:
+    True for every observer, or a list; one offset a sensor with
+    ``ts_holistic_offset``), switched on at iteration ``enable_after``."""
+
+    assignment = AssetAssignment.MISC
+
+    def populate(self, scene=None, obj_ids=None) -> None:
+        mp = self.model_params
+        observers = scene.observer_ids() if scene else []
+        self.refine_nodes = list(mp.get("refine_nodes") or observers)
+        self.n_frames = scene.n_frames if scene else mp.get("n_frames", 1)
+        self.enable_after = mp.get("enable_after", 0)
+        ri = mp.get("refine_intr", False)
+        cams = [nid for nid in observers if scene.observers[nid].class_name == "Camera"]
+        self.intr_nodes = cams if ri is True else list(ri or [])
+        rt = mp.get("refine_ts", False)
+        self.ts_nodes = observers if rt is True else list(rt or [])
+        self.ts_holistic = bool(mp.get("ts_holistic_offset", False))
+        T = self.n_frames
+        zeros = lambda *shape: nn.Parameter(torch.zeros(shape))
+        nodes: Dict[str, nn.ParameterDict] = {}
+        for nid in self.refine_nodes:
+            nodes[nid] = nn.ParameterDict({"dquat": zeros(T, 3), "dtrans": zeros(T, 3)})
+        for nid in self.intr_nodes:
+            nodes.setdefault(nid, nn.ParameterDict())["dintr"] = zeros(T, 4)
+        for nid in self.ts_nodes:
+            nodes.setdefault(nid, nn.ParameterDict())["dts"] = \
+                zeros(1) if self.ts_holistic else zeros(T)
+        self.field = PoseDeltas(nodes)
+
+    @staticmethod
+    def apply_intr_delta(intr: torch.Tensor, dintr: torch.Tensor) -> torch.Tensor:
+        """[..., 3, 3] intrinsics plus (dfx, dfy, dcx, dcy) [..., 4] at (0, 0),
+        (1, 1), (0, 2), (1, 2)."""
+        z = torch.zeros_like(dintr[..., 0])
+        dmat = torch.stack([torch.stack([dintr[..., 0], z, dintr[..., 2]], -1),
+                            torch.stack([z, dintr[..., 1], dintr[..., 3]], -1),
+                            torch.stack([z, z, z], -1)], -2)
+        return intr + dmat
+
+    @staticmethod
+    def apply_delta(transform: torch.Tensor, dquat: torch.Tensor,
+                    dtrans: torch.Tensor) -> torch.Tensor:
+        """[..., 4, 4] with its rotation times exp(dquat) (the half-angle
+        quaternion; the angle is the smoothed norm sqrt(|v|^2 + 1e-16), whose
+        gradient is finite at a zero delta) and dtrans added to its
+        translation."""
+        angle = torch.sqrt(torch.sum(dquat * dquat, dim=-1, keepdim=True) + 1e-16)
+        half = 0.5 * angle
+        q = torch.cat([torch.cos(half), dquat * (torch.sin(half) / angle)], dim=-1)
+        dR = quat_to_rot(q)
+        R0 = transform[..., :3, :3]
+        R = R0[..., :, 0:1] * dR[..., 0:1, :] + R0[..., :, 1:2] * dR[..., 1:2, :] \
+            + R0[..., :, 2:3] * dR[..., 2:3, :]
+        return make_transform(R, transform[..., :3, 3] + dtrans)
+
+
 ASSET_CLASSES = {c.__name__: c for c in (LoTDNeuSObj, LoTDNeuSStreet,
                                          ADGenerativeLoTDConcatNeuSObj,
                                          ADGenerativePermutoConcatNeuSObj, PermutoNeuSObj,
                                          LoTDNeRFDistant, NeRFDistant, SimpleSkyAsset,
                                          ImageEmbeddings, EmerNerfStreet,
-                                         EmerNerfStreetOnlyDynamic)}
+                                         EmerNerfStreetOnlyDynamic, LearnableParams)}
 
 
 def asset_class(model_class: str):

@@ -6,8 +6,10 @@ buffer is the ``volume_composite`` kernel (K6), and its gradient into alpha,
 rgb and nablas the ``volume_composite.bwd`` kernel; wrappers and plain
 versions live here. On the CPU autograd differentiates the plain version; on
 the card ``volume_integrate`` goes through one ``torch.autograd.Function``
-over the two kernels. No gradient goes to the depths ``t`` (sample depths are
-detached).
+over the two kernels. The depths ``t`` take a gradient through the depth
+sum where the caller asks for it (pose refinement moves the samples of
+EmerNeRF's ladder): ``d t = mask * g_depth * vw / max(vw_sum, 1e-8)``, one
+more output of the same backward kernel.
 
 ``merge_and_integrate`` takes one buffer; or several that are disjoint in
 depth and in order (close range, then distant; ``assume_sorted``), which are
@@ -81,21 +83,23 @@ def volume_composite(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor,
     return vw, vw_sum, depth, rgb_v, nrm_v, cnt
 
 
-Grads = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
+Grads = Tuple[Optional[torch.Tensor], ...]
 
 
 def volume_composite_bwd_plain(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor,
                                rgb: Optional[torch.Tensor], nablas: Optional[torch.Tensor],
                                g_vw: torch.Tensor, g_mask: torch.Tensor,
                                g_depth: torch.Tensor, g_rgb: Optional[torch.Tensor],
-                               g_nrm: Optional[torch.Tensor]) -> Grads:
+                               g_nrm: Optional[torch.Tensor], with_dt: bool = False) -> Grads:
     """Plain version of K6's backward: autograd of the plain forward. Returns
     (d alpha [N, S], d rgb, d nablas [N, S, 3]) for the cotangents of (vw,
-    mask_volume, depth_volume, rgb_volume, normals_volume)."""
+    mask_volume, depth_volume, rgb_volume, normals_volume), and d t [N, S]
+    after them where ``with_dt``."""
     with torch.enable_grad():
         ins = [None if x is None else x.detach().requires_grad_(True)
-               for x in (alpha, rgb, nablas)]
-        vw, vw_sum, depth, rgb_v, nrm_v, _ = volume_composite_plain(t, mask, *ins)
+               for x in (alpha, rgb, nablas) + ((t,) if with_dt else ())]
+        vw, vw_sum, depth, rgb_v, nrm_v, _ = volume_composite_plain(
+            ins[3] if with_dt else t, mask, *ins[:3])
         loss = (vw * g_vw).sum() + (vw_sum * g_mask).sum() + (depth * g_depth).sum()
         if rgb is not None:
             loss = loss + (rgb_v * g_rgb).sum()
@@ -108,13 +112,14 @@ def volume_composite_bwd_plain(t: torch.Tensor, mask: torch.Tensor, alpha: torch
 def volume_composite_bwd(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tensor,
                          rgb: Optional[torch.Tensor], nablas: Optional[torch.Tensor],
                          g_vw: torch.Tensor, g_mask: torch.Tensor, g_depth: torch.Tensor,
-                         g_rgb: Optional[torch.Tensor], g_nrm: Optional[torch.Tensor]
-                         ) -> Grads:
+                         g_rgb: Optional[torch.Tensor], g_nrm: Optional[torch.Tensor],
+                         with_dt: bool = False) -> Grads:
     """K6 backward wrapper: autograd of the plain version on the CPU, the CUDA
-    kernel on the card."""
+    kernel on the card. ``with_dt``: d t as a fourth output (the kernel
+    writes it in the same launch)."""
     if t.device.type == "cpu":
         return volume_composite_bwd_plain(t, mask, alpha, rgb, nablas, g_vw, g_mask,
-                                          g_depth, g_rgb, g_nrm)
+                                          g_depth, g_rgb, g_nrm, with_dt)
     N, S = t.shape
     f32 = torch.float32
     want = [(t, (N, S), f32), (mask, (N, S), torch.bool), (alpha, (N, S), f32),
@@ -132,12 +137,13 @@ def volume_composite_bwd(t: torch.Tensor, mask: torch.Tensor, alpha: torch.Tenso
     d_alpha = torch.empty_like(alpha)
     d_rgb = None if rgb is None else torch.empty_like(rgb)
     d_nablas = None if nablas is None else torch.empty_like(nablas)
+    d_t = torch.empty_like(t) if with_dt else None
     K6_BWD.launch("volume_composite_bwd", kernels.ptr(t), kernels.ptr(mask),
                   kernels.ptr(alpha), kernels.ptr(rgb), kernels.ptr(nablas), kernels.ptr(g_vw),
                   kernels.ptr(g_mask), kernels.ptr(g_depth), kernels.ptr(g_rgb),
                   kernels.ptr(g_nrm), kernels.ptr(d_alpha), kernels.ptr(d_rgb),
-                  kernels.ptr(d_nablas), N, S, kernels.stream())
-    return d_alpha, d_rgb, d_nablas
+                  kernels.ptr(d_nablas), kernels.ptr(d_t), N, S, kernels.stream())
+    return (d_alpha, d_rgb, d_nablas) + ((d_t,) if with_dt else ())
 
 
 class _CompositeOnCard(torch.autograd.Function):
@@ -154,10 +160,11 @@ class _CompositeOnCard(torch.autograd.Function):
     def backward(ctx, g_vw, g_mask, g_depth, g_rgb, g_nrm, _g_cnt):
         t, mask, alpha, rgb, nablas = ctx.saved_tensors
         cont = lambda g: None if g is None else g.contiguous()
-        d_alpha, d_rgb, d_nablas = volume_composite_bwd(
+        with_dt = ctx.needs_input_grad[0]
+        d_alpha, d_rgb, d_nablas, *d_t = volume_composite_bwd(
             t, mask, alpha, rgb, nablas, cont(g_vw), cont(g_mask), cont(g_depth),
-            cont(g_rgb), cont(g_nrm))
-        return None, None, d_alpha, d_rgb, d_nablas
+            cont(g_rgb), cont(g_nrm), with_dt=with_dt)
+        return d_t[0] if with_dt else None, None, d_alpha, d_rgb, d_nablas
 
 
 def _integrate_vw(buf: Dict[str, Any]) -> Dict[str, Any]:

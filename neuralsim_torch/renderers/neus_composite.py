@@ -10,9 +10,10 @@ for it composites it with :func:`neus_integrate`: the ``neus_composite``
 kernel computes each lane's alpha from the sdf, the nablas and the ray
 directions inside the composite, and its backward returns the gradients of
 the sdf, the nablas, the rgb and a per-ray share of inv_s's (summed by torch,
-so no float atomics). inv_s stays on the card: no host sync. Wrappers and
-plain versions live here; on the CPU autograd differentiates the plain
-version.
+so no float atomics). inv_s stays on the card: no host sync. It gives no
+gradient to the depths or the ray directions: a backward that asks for one
+(pose refinement of a NeuS path) raises on the card. Wrappers and plain
+versions live here; on the CPU autograd differentiates the plain version.
 """
 from __future__ import annotations
 
@@ -143,6 +144,12 @@ class _NeuSCompositeOnCard(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_vw, g_mask, g_depth, g_rgb, g_nrm, _g_cnt, g_alpha):
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[4]:
+            # the CPU's plain version differentiates them; the kernel does not,
+            # and a None would drop them without a word
+            raise NotImplementedError("the gradient of K12 (neus_composite) to the depths t and "
+                                      "the ray directions is not ported on the card (pose "
+                                      "refinement)")
         t, mask, sdf, nablas, rays_d, inv_s, rgb = ctx.saved_tensors
         cont = lambda g: None if g is None else g.contiguous()
         d_sdf, d_nablas, d_rgb, d_inv = neus_composite_bwd(

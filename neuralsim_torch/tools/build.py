@@ -72,7 +72,7 @@ from ..fields.spatial import AABBSpace
 from ..models.assets import asset_class
 from ..renderers.buffer_compose import BufferComposeRenderer
 from ..renderers.single_volume import SingleVolumeRenderer
-from ..models.assets import ImageEmbeddings
+from ..models.assets import ImageEmbeddings, LearnableParams
 from ..scene import AssetBank, Scene
 from ..scene.observers import camera_get_all_rays
 from ..scene.scene_bank import create_scene_bank
@@ -264,7 +264,8 @@ def build_everything(cfg: Dict[str, Any], device="cuda",
     pretraining (the street's road surface; its uniform draws from a
     generator seeded with ``seed + 1`` on the device; left out with
     ``pretrain=False``), the :class:`Trainer` with the scene and an
-    ``ImageEmbeddings`` asset as its ``embed_model``, its state (the grid at
+    ``ImageEmbeddings`` asset as its ``embed_model`` and a ``LearnableParams``
+    asset as its pose model (from its ``enable_after``), its state (the grid at
     ``init_state``) and the ``SceneDataLoader``. As in the JAX tool the
     distant ladder takes ``renderer.distant_query_cfg`` (by default 64
     samples), not the distant asset's ``query_cfg``. ``timings``, where
@@ -318,11 +319,16 @@ def build_everything(cfg: Dict[str, Any], device="cuda",
 
     t0 = time.perf_counter()
     embed = [(a, mid) for mid, a in bank.assets.items() if isinstance(a, ImageEmbeddings)]
+    pose = [(mid, a.enable_after) for mid, a in bank.assets.items()
+            if isinstance(a, LearnableParams)]
+    pose_model_id, pose_enable_after = pose[-1] if pose else (None, 0)
     trainer = Trainer(renderer, loss_cfgs=dict(tcfg.get("losses", {})),
                       training_cfgs=bank.training_cfgs(),
                       uniform_sample_n=tcfg.get("uniform_sample_n", 1024),
                       default_optim_cfg=dict(tcfg.get("optim", {"lr": 1e-2})),
-                      scene=scene, embed_model=embed[0] if embed else None,
+                      scene=scene, pose_model_id=pose_model_id,
+                      pose_enable_after=pose_enable_after,
+                      embed_model=embed[0] if embed else None,
                       debug_grads=bool(tcfg.get("debug_grads", False)),
                       use_ts_interp=bool(tcfg.get("use_ts_interp", False)))
     state = trainer.init_state(params)
@@ -417,6 +423,10 @@ def build_multi_trainer(cfg: Dict[str, Any], device="cuda",
     import time
     timings = {} if timings is None else timings
     cfg = resolve_refs(cfg)
+    if any(asset_class(c["model_class"]) is LearnableParams
+           for c in cfg["assetbank_cfg"].values()):
+        raise NotImplementedError("pose refinement (LearnableParams) is not ported in the "
+                                  "multi-object trainer")
     dev = resolve_device(device)
     tcfg = cfg.get("training", {})
     seed = int(cfg.get("seed", 0))

@@ -33,9 +33,12 @@ watchdog (:class:`FiniteWatch`) at each log, a validation frame (camera 0,
 frame 0, ``training.val_downscale``) every ``training.i_val`` iterations and
 at the end. ``backup_codebase``, ``training.data_parallel``,
 ``frame_sample_mode``, ``image_patch``, ``view`` and ``profile_iters`` are not
-ported (each raises, naming itself, where a config sets it; pose refinement
-raises with its asset class). :func:`main` is the command line
-(``config.BaseConfig``), on the card unless ``--device=cpu``.
+ported (each raises, naming itself, where a config sets it). Pose refinement
+is a ``LearnableParams`` asset in the bank (``--assetbank_cfg.Pose.model_class=
+neuralsim_tpu.models.assets.LearnableParams`` and its ``model_params``), whose
+deltas the checkpoints keep with the other parameters; ``training.use_ts_interp``
+lifts the pixel batches at the cameras' timestamps. :func:`main` is the
+command line (``config.BaseConfig``), on the card unless ``--device=cpu``.
 
 :func:`train` trains the procedural synthetic object (``SYNTHETIC_OBJECT``)
 from its dataset's world-ray batches, with no exp dir.

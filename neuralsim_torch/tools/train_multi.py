@@ -31,8 +31,9 @@ the resolved config as JSON; ``metrics.jsonl`` and ``stats.p`` of
 iterations, ``final`` at the end), resumes from ``resume_dir``'s newest
 checkpoint (with the loop's own random state and error maps, so that the
 resumed run takes the steps an unbroken one would) and returns the run's
-``skips_total``. ``nan_debug``, ``profile_iters``, ``image_patch`` and
-data-parallel training are not ported (each raises, naming itself).
+``skips_total``. ``nan_debug``, ``profile_iters``, ``image_patch``,
+data-parallel training and pose refinement (a ``LearnableParams`` asset) are
+not ported (each raises, naming itself).
 """
 from __future__ import annotations
 

@@ -20,9 +20,10 @@ model that no loss of the step reaches steps with a zero gradient). ``it`` is
 a host integer; nothing in a step waits for the card.
 
 Not ported (each raises, naming itself): time-conditioned fields (``cond``),
-pose refinement, appearance embeddings, the image post-processor, the
-``image_patch`` and ``view`` steps, the flow, deformation and dynamic
-sparsity losses, ``debug_grads`` and ``use_ts_interp``.
+pose refinement (``build_multi_trainer`` refuses a ``LearnableParams``
+asset), appearance embeddings, the image post-processor, the ``image_patch``
+and ``view`` steps, the flow, deformation and dynamic sparsity losses,
+``debug_grads`` and ``use_ts_interp``.
 """
 from __future__ import annotations
 

@@ -23,7 +23,15 @@ under ``torch.no_grad()``).
 
 A pixel batch comes either as world rays {rays_o, rays_d, ...} or, with a
 ``scene``, as (frame, pixel) of camera ``cam_id`` {rays_fidx, rays_xy, ...},
-lifted to world rays through the scene frozen at each ray's frame. A
+lifted to world rays inside the step through the scene frozen at each ray's
+frame (``slice_at``) or, with ``use_ts_interp``, at the camera's timestamp of
+that frame (``sensor_ts`` + ``interp_at``). With a pose model
+(``pose_model_id``: a ``LearnableParams`` asset's id in the parameters), its
+deltas enter that lift, each multiplied by the gate ``it >=
+pose_enable_after`` (0 or 1, as JAX multiplies: before the gate the deltas'
+gradients are exact zeros and their Adam still counts the step), the camera's
+``dts`` refining its timestamps in timestamp mode; the gradient then reaches
+the deltas through the rays. A
 ``lidar`` step (StreetSurf's) renders the close range alone (``only_cr``),
 with no rgb, for the depth and line-of-sight losses on the beams' ranges; it
 does not advance ``it`` or refresh a grid (``advance_it=False``). With an
@@ -36,8 +44,8 @@ self-supervision: the flow cycle on uniform points and times of the box
 (``dynamic_sparsity``).
 
 Not ported yet (each raises, naming itself): the image-patch and view steps,
-pose refinement, the image post-processor, the cross_cr_dv mask entropy,
-``debug_grads``, ``use_ts_interp`` and the losses of ``NOT_PORTED_LOSSES``.
+the image post-processor, the cross_cr_dv mask entropy, ``debug_grads`` and
+the losses of ``NOT_PORTED_LOSSES``.
 """
 from __future__ import annotations
 
@@ -83,6 +91,9 @@ class Trainer:
     config}. ``scene``: the scene that pixel batches of (frame, pixel) are
     lifted through (and whose ``n_frames`` normalises the frame time);
     ``embed_model``: (ImageEmbeddings asset, its model id) or None.
+    ``pose_model_id``: the model id of a ``LearnableParams`` asset, whose
+    deltas apply from iteration ``pose_enable_after`` on; ``use_ts_interp``:
+    lift pixel batches at the camera's timestamps.
     """
 
     def __init__(self, renderer, loss_cfgs: Dict[str, Dict],
@@ -90,12 +101,11 @@ class Trainer:
                  uniform_sample_n: int = 1024,
                  default_optim_cfg: Optional[Dict] = None,
                  scene=None, pose_model_id: Optional[str] = None,
+                 pose_enable_after: int = 0,
                  embed_model: Optional[Tuple[Any, str]] = None,
                  debug_grads: bool = False, use_ts_interp: bool = False):
-        for name, on in (("pose refinement", pose_model_id), ("debug_grads", debug_grads),
-                         ("use_ts_interp", use_ts_interp)):
-            if on:
-                raise NotImplementedError(f"{name} is not ported")
+        if debug_grads:
+            raise NotImplementedError("debug_grads is not ported")
         for name in NOT_PORTED_LOSSES:
             if name in loss_cfgs:
                 raise NotImplementedError(f"the {name} loss is not ported")
@@ -104,6 +114,9 @@ class Trainer:
         self.training_cfgs = dict(training_cfgs or {})
         self.uniform_sample_n = uniform_sample_n
         self.scene = scene
+        self.pose_model_id = pose_model_id
+        self.pose_enable_after = pose_enable_after
+        self.use_ts_interp = use_ts_interp
         self.embed_model = embed_model
         self.default_optim_cfg = default_optim_cfg or {"lr": 1e-2, "betas": (0.9, 0.99),
                                                        "eps": 1e-15}
@@ -187,6 +200,32 @@ class Trainer:
             return None
         return easset.h_appear(params[emid], cam_id, batch["rays_fidx"].long())
 
+    def pose_deltas(self, params: nn.ModuleDict, it: int
+                    ) -> Optional[Dict[str, Dict[str, torch.Tensor]]]:
+        """The pose model's deltas {node: {name: tensor}} times the gate
+        ``it >= pose_enable_after`` (0 or 1), or None without a pose model."""
+        if not self.pose_model_id or self.pose_model_id not in params:
+            return None
+        gate = float(it >= self.pose_enable_after)
+        return {nid: {k: v * gate for k, v in pd.items()}
+                for nid, pd in params[self.pose_model_id].items()}
+
+    def lift(self, params: nn.ModuleDict, batch: Dict[str, torch.Tensor], it: int,
+             cam_id: Optional[str]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The world rays of a pixel batch {rays_fidx, rays_xy} of camera
+        ``cam_id``: through the scene frozen at each ray's frame, or at the
+        camera's (refined) timestamp of it with ``use_ts_interp``, with the
+        gated pose deltas applied."""
+        fidx = batch["rays_fidx"].long()
+        deltas = self.pose_deltas(params, it)
+        if self.use_ts_interp:
+            dts = (deltas or {}).get(cam_id, {}).get("dts")
+            frozen = self.scene.interp_at(self.scene.sensor_ts(cam_id, fidx, dts),
+                                          pose_deltas=deltas)
+        else:
+            frozen = self.scene.slice_at(fidx, pose_deltas=deltas)
+        return camera_get_selected_rays(frozen, cam_id, batch["rays_xy"])
+
     def compute_losses(self, params: nn.ModuleDict, batch: Dict[str, torch.Tensor], it: int,
                        noise: Dict[str, Any], occ: Optional[Dict[str, Any]] = None,
                        step_type: str = "pixel", cam_id: Optional[str] = None
@@ -202,8 +241,7 @@ class Trainer:
         losses: Dict[str, torch.Tensor] = {}
         aux: Dict[str, Any] = {}
         if "rays_xy" in batch and self.scene is not None:
-            frozen = self.scene.slice_at(batch["rays_fidx"].long())
-            ro, rd = camera_get_selected_rays(frozen, cam_id, batch["rays_xy"])
+            ro, rd = self.lift(params, batch, it, cam_id)
             batch = {**batch, "rays_o": ro.contiguous(), "rays_d": rd.contiguous()}
         lidar = step_type == "lidar"
         rendered = self.renderer.ray_query(params, batch["rays_o"], batch["rays_d"], it=it,

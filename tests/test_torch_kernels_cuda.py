@@ -60,6 +60,11 @@ the plain ones cast, one kernel a call, once a table version in a render,
 and no bf16 cast on a training step (chip_smoke.no_plain_on_card). K11 is
 one launch a call with no scratch, and refuses by name a layout past its
 shared memory. K3's
+backward to the positions (lotd_grid.bwd_x) is held at chip_smoke.GRAD_REL at
+k3_edge_cases, the same bits on two calls, and through the encoding's
+autograd against the CPU; a backward that asks the positions' gradient of
+K1, K2, K3 with a jacobian cotangent, K3-4D or K12 raises, naming pose
+refinement; K6's backward gives d t at GRAD_REL. K3's
 forward is held at K1/K3's tolerance at chip_smoke.k3_edge_cases (F 1-8,
 dense and hash levels in one meta, levels staged in shared memory,
 interleaved into the scratch and read from the table, x01 at 0, 1, one ulp
@@ -1877,28 +1882,109 @@ def test_k3_4d_distant_field_under_autograd_matches_the_cpu(dev):
 # The positions' gradient (K1, K2, K3) and EmerNeRF's fields on the card
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("levels,stacked", [
-    ([(8, 2, "dense"), (32, 2, "hash")], True),                 # K3
-    ([(16, 2, "cp"), (32, 2, "cp"), (8, 2, "dense")], True),     # K14 + K1 and K3
-    ([(16, 2, "cp"), (32, 2, "cp")], False)],                    # K2
-    ids=["k3", "k1", "k2"])
-def test_encoding_raises_for_a_gradient_to_the_positions(dev, levels, stacked):
-    """The card has no kernel for the positions' gradient (the CPU's plain
-    versions give it): a backward asked for one raises, naming it, and
-    drops nothing silently; the table's gradient alone still flows, and an
-    output that does not reach the loss asks for nothing."""
-    enc = lotd.LoTDEncoding(levels, log2_hashmap_size=10, cp_stacked=stacked)
+@pytest.mark.parametrize("levels,stacked,dim,jac", [
+    ([(8, 2, "dense"), (32, 2, "hash")], True, 3, False),              # K3
+    ([(16, 2, "cp"), (32, 2, "cp"), (8, 2, "dense")], True, 3, False),  # K14 + K1 and K3
+    ([(16, 2, "cp"), (32, 2, "cp")], False, 3, False),                 # K2
+    ([(8, 2, "dense"), (32, 2, "hash")], True, 3, True),               # K3, jacobian cotangent
+    ([(4, 2, "dense"), (16, 2, "hash")], True, 4, False)],              # K3-4D
+    ids=["k3", "k1", "k2", "k3_jacobian", "k3_4d"])
+def test_encoding_raises_for_a_gradient_to_the_positions(dev, levels, stacked, dim, jac):
+    """The positions' gradient on the card: K3's levels at D 3 from the
+    features' cotangent take its kernel (lotd_grid.bwd_x), equal to the CPU's
+    autograd at GRAD_REL; with CP levels (K1, K2), a jacobian cotangent or
+    4-D points there is no kernel, and a backward asked for one raises,
+    naming it, and drops nothing silently; the table's gradient alone still
+    flows, and an output that does not reach the loss asks for nothing."""
+    enc = lotd.LoTDEncoding(levels, dim, log2_hashmap_size=10, cp_stacked=stacked)
     enc.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        enc.table.normal_(0.0, 0.3, generator=torch.Generator().manual_seed(1))
+    cpu = copy.deepcopy(enc)
     enc = enc.to(dev)
-    x = torch.rand((300, 3), device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="gradient to the positions"):
-        enc(x).sum().backward()
+    x0 = np.random.default_rng(2).random((300, dim)).astype(np.float32)
+    x0[:8] = [0.0] * dim
+    x0[8:16] = [1.0] * dim
+    x = _t(x0, dev).requires_grad_(True)
+
+    def loss(e, xx):
+        if jac:
+            h, j = e.with_jacobian(xx)
+            return h.sum() + j.square().sum()
+        return e(xx).square().sum()
+
+    if levels == [(8, 2, "dense"), (32, 2, "hash")] and not jac:
+        g, = torch.autograd.grad(loss(enc, x), x)
+        xc = _t(x0, "cpu").requires_grad_(True)
+        want, = torch.autograd.grad(loss(cpu, xc), xc)
+        _rel_close([g.cpu()], [want], cs.GRAD_REL)
+        assert kernels.KERNELS["lotd_grid.bwd_x"].launches > 0
+    else:
+        with pytest.raises(NotImplementedError, match="gradient to the positions.*pose"):
+            loss(enc, x).backward()
     enc.table.grad = None
-    enc(x.detach()).sum().backward()
+    loss(enc, x.detach()).backward()
     assert enc.table.grad is not None and enc.table.grad.abs().max() > 0
-    y = torch.rand((300, 3), device=dev)
+    y = torch.rand((300, dim), device=dev)
     unused = enc(x)                        # reaches no loss: no backward runs for it
     (enc(y).sum() + 0.0 * unused.detach().sum()).backward()
+
+
+def test_k3_backward_to_the_positions_at_its_edges(dev):
+    """lotd_grid.bwd_x at K3's edge encodings (F 1-8, levels staged,
+    interleaved and read from the table, another meta's plan and none) and
+    edge points (0, 1, one ulp below 1, outside the box), within GRAD_REL of
+    its plain version, the same bits on two calls."""
+    for label, table, x, meta, C, plan in cs.k3_edge_cases(dev):
+        cot = cs.cotangents((C, x.shape[0]), 50, dev)
+        got = lotd.lotd_grid_bwd_x(table, x, meta, cot, plan)
+        _rel_close([got], [lotd.lotd_grid_bwd_x_plain(table, x, meta, cot)], cs.GRAD_REL)
+        assert torch.equal(got, lotd.lotd_grid_bwd_x(table, x, meta, cot, plan)), label
+    with pytest.raises(NotImplementedError, match="K3-4D"):
+        lotd.lotd_grid_bwd_x(table, torch.rand((8, 4), device=dev), meta,
+                             cot[:, :8].contiguous())
+
+
+def test_k6_backward_gives_d_t(dev):
+    """K6's backward with ``with_dt`` at a non-zero depth cotangent: d t
+    within GRAD_REL of autograd of the plain version (mask g_depth vw /
+    max(vw_sum, 1e-8)), the other outputs those of the call without it, the
+    same bits on two calls; through the autograd Function, t's gradient."""
+    n, s = 2048, 96
+    args = [_t(a, dev) for a in cs.composite_inputs(n, s, 4)]     # alpha == 1, masked rays
+    grads = [cs.cotangents(sh, 60 + i, dev)
+             for i, sh in enumerate(((n, s), (n,), (n,), (n, 3), (n, 3)))]
+    got = volume_composite_bwd(*args, *grads, with_dt=True)
+    want = volume_composite_bwd_plain(*args, *grads, with_dt=True)
+    assert len(got) == 4 and float(want[3].abs().max()) > 0
+    _rel_close(got, want, cs.GRAD_REL)
+    for a, b in zip(got[:3], volume_composite_bwd(*args, *grads)):
+        assert torch.equal(a, b)
+    cs.same_bits("K6 bwd with d t", lambda: volume_composite_bwd(*args, *grads, with_dt=True))
+    t = args[0].clone().requires_grad_(True)
+    from neuralsim_torch.renderers.buffers import volume_integrate
+    out = volume_integrate({"t": t, "mask": args[1], "alpha": args[2], "rgb": args[3]})
+    gt, = torch.autograd.grad((out["depth_volume"] * grads[2]).sum(), t)
+    tc = args[0].cpu().clone().requires_grad_(True)
+    ref = volume_composite_plain(tc, args[1].cpu(), args[2].cpu(), args[3].cpu())
+    wt, = torch.autograd.grad((ref[2] * grads[2].cpu()).sum(), tc)
+    _rel_close([gt.cpu()], [wt], cs.GRAD_REL)
+
+
+def test_k12_raises_for_a_gradient_to_the_depths_or_directions(dev):
+    """K12's backward has no gradient for t or rays_d: asked for one, it
+    raises, naming pose refinement; the other gradients still flow."""
+    from neuralsim_torch.renderers.neus_composite import _NeuSCompositeOnCard
+    t, mask, sdf, nablas, rays_d, anneal, inv_s, rgb = _neus_args(dev, 256, 48, 0.5, True)
+    for which in (0, 4):
+        a = [t, mask, sdf.requires_grad_(True), nablas, rays_d, anneal, inv_s, rgb]
+        a[which] = a[which].clone().requires_grad_(True)
+        out = _NeuSCompositeOnCard.apply(*a)
+        with pytest.raises(NotImplementedError, match="pose refinement"):
+            out[2].sum().backward()
+    out = _NeuSCompositeOnCard.apply(t, mask, sdf, nablas, rays_d, anneal, inv_s, rgb)
+    g, = torch.autograd.grad(out[0].sum(), sdf)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
 
 
 def test_emernerf_field_and_flow_loss_under_autograd_match_the_cpu(dev):

@@ -172,7 +172,7 @@ def test_ctypes_signatures_match_the_cuda_sources():
             types = [" ".join(p.split()[:-1]) for p in params.split(",")]
             found[name] = "".join(codes[t] for t in types)
     assert found == kernels.SIGNATURES
-    for entry in ("lotd_cp_stacked_bwd", "lotd_grid_bwd", "volume_composite_bwd",
+    for entry in ("lotd_cp_stacked_bwd", "lotd_grid_bwd", "lotd_grid_bwd_x", "volume_composite_bwd",
                   "occ_ray_proposal", "occ_ema_update", "occ_voxel_points", "cross_source_vw",
                   "cross_source_vw_bwd", "pair_compact", "lotd_cp_level_fwd",
                   "lotd_cp_level_bwd", "neus_composite_fwd", "neus_composite_bwd",
@@ -198,7 +198,7 @@ def test_every_kernel_is_registered_once_with_its_source():
                      "pair_compact", "lotd_cp_level", "lotd_cp_level.bwd", "neus_composite",
                      "neus_composite.bwd", "permuto", "permuto.bwd", "latent_take",
                      "latent_take.bwd", "lotd_cp_lines", "lotd_cp_lines.bwd", "lotd_grid4",
-                     "lotd_grid4.bwd"}
+                     "lotd_grid4.bwd", "lotd_grid.bwd_x"}
     for k in kernels.KERNELS.values():
         assert (ROOT / k.source).exists() and re.match(r"neuralsim_tpu/.+\.py:\d+$", k.replaces)
         assert (ROOT / k.replaces.split(":")[0]).exists()
