@@ -280,7 +280,25 @@ Phases, in order; any failure raises and the script exits non-zero:
      POSE_STEP_LAUNCHES a step; then tools.train.main with POSE_ARGV for
      DISK_ITERS iterations, its checkpoint into a fresh build bit for bit,
      and one iteration in timestamp mode;
- 18. timing: frame latency and rays/s; training step time and rays/s; each
+ 18. simulation (``simulation_phase``): the sensor-simulation and editing
+     tools through their main(argv) on phase 15's exp dirs (both YAMLs at
+     full width): render lidar (a pandar64, 64 x 1,800 beams, on two frames,
+     a solid-state raster on one, the recorded beams on every frame; each
+     frame's npz finite, points.ply non-empty) on both, one pandar64 frame
+     timed (beams/s) and its launches counted, and MULTI_CHECK_RAYS of its
+     beams held to the CPU path at its sample depths; nvs (street_view,
+     small_circle; 8 frames at downscale 1, each timed, finite); replay with
+     reverse_ego and with a file moving the ego and a vehicle, each more than
+     SIM_GREY grey levels from the plain replay somewhere; replay with the
+     StreetSurf street's mesh overlaid; manipulate rotate, translate, delete,
+     thanos, each finite and not the unedited frame; extract_mesh at 128
+     (non-empty; the host's marching timed), the street's SDF at 256^3 in
+     chunks of 65,536 timed with 65,536 of its points held to the CPU path;
+     extract_occgrid, extract_visible_grid (camera, lidar_gt),
+     visualize_slice and a run chain of two tasks, each writing its files;
+     every tool's launches counted, no plain K7/K13/K14 or bf16 cast on the
+     card;
+ 19. timing: frame latency and rays/s; training step time and rays/s; each
      kernel's time at the training path's shapes (beside that path's launch
      count) and, for the forward kernels, at the render path's too, each
      beside its plain version, a library call where one exists, and its bound
@@ -305,8 +323,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      F.embedding's backward and the sort-based index_put; K14 and its
      backward at each encoding and at the edge ladders of CP_LINES_EDGES
      (library none; the per-level F.interpolate sum as an aside);
- 19. one JSON line of results, one of per-kernel results, then the device
-     line, last.
+ 20. one JSON line of results, one of per-kernel results (with each
+     kernel's launches on a simulated LiDAR frame and an SDF grid), then the
+     device line, last.
 
 --profile adds torch.profiler tables of device time by kernel for one frame
 and for one training step of each model, for one compose frame, and for one
@@ -6729,6 +6748,27 @@ def check_written_drive(root):
     return errs
 
 
+def run_tool(label, fn, argv, want):
+    """A tool's ``main(argv)`` on the card with every count at 0 before it,
+    no plain K7/K13/K14 or bf16 cast on the card (no_plain_on_card) -> (its
+    result, its seconds on the host clock to a sync, each kernel's launches);
+    raises where a kernel of ``want`` was not launched."""
+    import torch
+    from neuralsim_torch import kernels
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with no_plain_on_card(label):
+        out = fn(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels.KERNELS.values()}
+    missing = [n for n in want if counts[n] <= 0]
+    log(f"{label}: {secs:.2f} s, launches {counts}")
+    if missing:
+        raise AssertionError(f"{label} never launched {missing}")
+    return out, secs, counts
+
+
 def disk_phase(dev, tmp):
     """Phase 15: the demo drive written to disk in the Waymo layout (under
     ``tmp``/data, where phase 16 reads it too) and both driving YAMLs from the
@@ -6740,27 +6780,12 @@ def disk_phase(dev, tmp):
     then eval and eval_lidar. Each tool's launches counted, no plain
     K7/K13/K14 or bf16 cast on the card, finite losses and scores."""
     import PIL
-    import torch
-    from neuralsim_torch import kernels
     from neuralsim_torch.dataio.waymo_demo import build_demo_sequence
     from neuralsim_torch.tools import eval as single_eval
     from neuralsim_torch.tools import eval_lidar, eval_multi, render, train, train_multi
 
     log(f"waymo layout: Pillow {PIL.__version__} (the reader's and the writer's JPEG codec)")
-
-    def run(label, fn, argv, want):
-        kernels.reset_counts()
-        t0 = time.perf_counter()
-        with no_plain_on_card(label):
-            out = fn(argv)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        counts = {k.name: k.launches for k in kernels.KERNELS.values()}
-        missing = [n for n in want if counts[n] <= 0]
-        log(f"{label}: {secs:.2f} s, launches {counts}")
-        if missing:
-            raise AssertionError(f"{label} never launched {missing}")
-        return out, secs, counts
+    run = run_tool
 
     def trained(label, out):
         it_ms = np.asarray(out["iter_s"]) * 1e3
@@ -8033,6 +8058,331 @@ def pose_phase(dev, data, tmp, profile_it=False):
     return dict(summary=summary, errs=errs, times=times, launches=launches, iters=POSE_ITERS)
 
 
+# Phase 18, the simulation tools on phase 15's exp dirs (both YAMLs at full
+# width on the drive on disk, DISK_ITERS iterations): a pandar64 (64 x 1,800
+# beams) on two frames, a solid-state raster (640 x 128) on one, the
+# recorded beams on every frame, each a frame of the street alone through
+# K4, K1 (and K3 at StreetSurf's hash levels), K14, K5a, K5b and K12 in
+# chunks of the tool's 4,096 beams; NVS at downscale 1; re-simulation; the
+# edits; the geometry tools.
+SIM_LIDAR_FRAMES = "0,4"
+SIM_GRID_FRAMES = "0,4"
+SIM_P64_BEAMS = 64 * 1800
+SIM_SOLID_BEAMS = 640 * 128
+SIM_NVS_FRAMES = 8
+SIM_MESH_RES = 128
+SIM_SDF_RES = 256
+SIM_SDF_CHUNK = 65536
+# the street's SDF at the same points on the card and on the CPU, relative to
+# 1 + |sdf| (its values reach tens of metres over StreetSurf's box; the
+# decoder's products sum in another order, as FIELD_SDF_TOL says)
+SIM_SDF_TOL = FIELD_SDF_TOL
+SIM_SDF_CHECK = 65536
+SIM_TIME_REPS = 3
+SIM_EDITS = ("rotate", "translate", "delete", "thanos")
+# the compose path of an edit renders without a grid state (the JAX tool
+# hands none to its renderer): the street's samples from the uniform ladder
+SIM_EDIT_KERNELS = tuple(k for k in EVAL_FRAME_KERNELS if k != "occ_ray_proposal")
+SIM_SDF_KERNELS = ("lotd_cp_stacked", "lotd_grid", "lotd_cp_lines")
+# a frame differs from the plain replay by more than this many grey levels
+# somewhere (JAX's tests/test_cli_train_e2e.py:382-411 holds its own so)
+SIM_GREY = 2.0
+
+
+def png(path):
+    from PIL import Image
+    return np.asarray(Image.open(path), np.float32)
+
+
+def lidar_crop(label, cfg, card, o, d):
+    """MULTI_CHECK_RAYS beams ``o``, ``d`` (CPU tensors) through
+    ``render.lidar_query`` on the card against the CPU path loaded from the
+    same checkpoint, at the CPU path's sample depths (sample_placements): each
+    beam's mask within STREET_CROP_TOL and its depth within STREET_CROP_TOL
+    of 1 + the depth, the hits (mask > LIDAR_HIT) the same, on all but
+    STREET_CROP_OFF_MAX of the beams (a position that rounds apart can step
+    the bf16 tents, EQUAL_DEPTH_TOL) -> the errors."""
+    from types import SimpleNamespace
+    from neuralsim_torch.tools.render import LIDAR_HIT, lidar_query, load_render
+    cpu = load_render({**cfg, "ckpt": "final"}, "cpu")
+    kw = dict(forward_inv_s=256.0, rayschunk=o.shape[0])
+    rec = []
+    with sample_placements(SimpleNamespace(renderer=cpu.renderer), record=rec):
+        dc, mc = lidar_query(cpu.renderer, cpu.params, o, d, occ=cpu.occ, **kw,
+                             frozen=cpu.scene.slice_at(0) if cpu.multi else None)
+    with no_plain_on_card(f"{label} LiDAR crop at the CPU path's depths"):
+        with sample_placements(SimpleNamespace(renderer=card.renderer), replay=rec):
+            dev = next(card.params.parameters()).device
+            dg, mg = lidar_query(card.renderer, card.params, o.to(dev), d.to(dev), occ=card.occ,
+                                 frozen=card.scene.slice_at(0) if card.multi else None, **kw)
+    dg, mg = dg.cpu(), mg.cpu()
+    e_depth = (dg - dc).abs() / (1.0 + dc.abs())
+    e_mask = (mg - mc).abs()
+    off = (e_depth > STREET_CROP_TOL) | (e_mask > STREET_CROP_TOL) \
+        | ((mg > LIDAR_HIT) != (mc > LIDAR_HIT))
+    ok = ~off
+    out = dict(beams=o.shape[0], hits_cpu=int((mc > LIDAR_HIT).sum()), off=int(off.sum()),
+               depth_err=float(e_depth[ok].max()), mask_err=float(e_mask[ok].max()),
+               depth_err_all=float(e_depth.max()), mask_err_all=float(e_mask.max()))
+    log(f"{label} LiDAR crop card vs CPU at the CPU path's depths: {json.dumps(out)} "
+        f"(tol {STREET_CROP_TOL:g}, at most {STREET_CROP_OFF_MAX:g} of the beams off)")
+    if int(off.sum()) > STREET_CROP_OFF_MAX * o.shape[0] or not bool((mc > LIDAR_HIT).any()):
+        raise AssertionError(f"{label}: the simulated beams differ from the CPU path's")
+    return out
+
+
+def simulation_phase(dev, tmp):
+    """Phase 18: the simulation tools through their ``main(argv)`` on the
+    card, on phase 15's exp dirs under ``tmp`` (configs/waymo_demo_multi.yaml's
+    ``multi``, configs/waymo_streetsurf.yaml's ``street``), each tool's
+    launches counted, no plain K7/K13/K14 or bf16 cast on the card:
+    ``render`` lidar (pandar64 on two frames, solid_state on one, the recorded
+    beams on every frame) on both, with a crop of the beams held to the CPU
+    path, beams/s and one frame's launches; nvs (street_view on multi,
+    small_circle on street), its ms a frame; replay with ``reverse_ego`` and
+    with a file moving the ego and a vehicle (each frame more than SIM_GREY
+    grey levels from the plain replay somewhere); replay with the mesh
+    overlaid; ``manipulate`` (SIM_EDITS, each frame finite and not the
+    unedited one); ``extract_mesh`` at SIM_MESH_RES with the host's marching
+    timed; the street's SDF at SIM_SDF_RES³ timed, a subset held to the CPU;
+    ``extract_occgrid``, ``extract_visible_grid`` (camera, lidar_gt),
+    ``visualize_slice`` and a ``run`` chain of two tasks -> its results."""
+    import torch
+    from neuralsim_torch import kernels
+    from neuralsim_torch.config import BaseConfig
+    from neuralsim_torch.graphics import load_mesh_ply, marching_tets
+    from neuralsim_torch.scene.observers import camera_get_selected_rays
+    from neuralsim_torch.scene.observers.cameras_math import get_rays
+    from neuralsim_torch.tools import (extract_mesh, extract_occgrid, extract_visible_grid,
+                                       manipulate, render, run, visualize_slice)
+    from neuralsim_torch.tools.extract_mesh import close_range_box, close_range_sdf
+    from neuralsim_torch.tools.render import (lidar_frame_rays, lidar_query, load_render, nvs_poses,
+                                              pixel_centres)
+    summary, launches = {}, {}
+    exps = {"multi": (os.path.join(tmp, "multi"), ["--renderer.type=multi"], EVAL_LIDAR_KERNELS,
+                      EVAL_FRAME_KERNELS),
+            "street": (os.path.join(tmp, "street"), [], DISK_STREET_LIDAR, DISK_STREET_FRAME)}
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for name, (exp, extra, lidar_k, frame_k) in exps.items():
+        at = ["--resume_dir", exp] + extra
+        # the LiDAR through the tool: every model, each frame's npz and the cloud
+        for model, frames, n_beams in (("pandar64", SIM_LIDAR_FRAMES, SIM_P64_BEAMS),
+                                       ("solid_state", "0", SIM_SOLID_BEAMS),
+                                       ("original", None, None)):
+            argv = at + ["--render.mode=lidar", f"--render.lidar_model={model}"] \
+                + ([f"--render.frames={frames}"] if frames else [])
+            r, secs, launches[f"{name}_lidar_{model}"] = run_tool(
+                f"render.main lidar {model} ({name})", render.main, argv, lidar_k)
+            want = [int(f) for f in frames.split(",")] if frames else None
+            if (want is not None and (r["frames"] != want or r["beams"] != n_beams * len(want))) \
+                    or not r["frames"] or r["points"] <= 0:
+                raise AssertionError(f"lidar {model} ({name}) rendered {r['frames']}, "
+                                     f"{r['beams']} beams, {r['points']} hit points")
+            cloud = load_mesh_ply(os.path.join(r["out_dir"], "points.ply"))[0]
+            for fi in r["frames"]:
+                with np.load(os.path.join(r["out_dir"], f"lidar_{fi:04d}.npz")) as z:
+                    if not np.isfinite(z["depth"]).all():
+                        raise AssertionError(f"lidar {model} ({name}) frame {fi}: a depth is "
+                                             f"not finite")
+            if cloud.shape[0] != r["points"] or not np.isfinite(cloud).all():
+                raise AssertionError(f"lidar {model} ({name}): points.ply holds "
+                                     f"{cloud.shape[0]} points, not {r['points']} finite ones")
+            summary[f"sim_{name}_lidar_{model}"] = dict(frames=r["frames"], beams=r["beams"],
+                                                        points=r["points"], seconds=secs)
+        # a pandar64 frame timed and counted on the loaded run, its crop vs the CPU
+        cfg = BaseConfig("chip_smoke").parse(at)
+        card = load_render(cfg, dev)
+        multi, scene, rend, params, occ, loader = card[:6]
+        cam = loader.cam_ids[0]
+        frozen0 = scene.slice_at(0) if multi else None
+        ro, rd = lidar_frame_rays(scene.slice_at(0), loader, 0, "pandar64", {}, cam, dev)
+        query = lambda: lidar_query(rend, params, ro, rd, frozen=frozen0, occ=occ)
+        kernels.reset_counts()
+        with no_plain_on_card(f"one simulated LiDAR frame ({name})"):
+            (depth, mask), _ = sync_s(query)
+        frame_launches = {k.name: k.launches for k in kernels.KERNELS.values()}
+        secs = sorted(sync_s(query)[1] for _ in range(SIM_TIME_REPS))
+        med = secs[len(secs) // 2]
+        log(f"simulated LiDAR ({name}): pandar64 frame of {ro.shape[0]} beams {med * 1e3:.1f} ms "
+            f"(host clock to a sync, median of {SIM_TIME_REPS}; {secs}), "
+            f"{ro.shape[0] / med:.0f} beams/s; hits {int((mask > 0.95).sum())}; launches "
+            f"{ {k: v for k, v in frame_launches.items() if v} }")
+        idx = torch.arange(0, ro.shape[0], ro.shape[0] // MULTI_CHECK_RAYS)[:MULTI_CHECK_RAYS]
+        crop = lidar_crop(name, cfg, card, ro[idx].cpu().contiguous(), rd[idx].cpu().contiguous())
+        summary[f"sim_{name}_lidar_frame"] = dict(
+            beams=ro.shape[0], ms=med * 1e3, ms_all=[s * 1e3 for s in secs],
+            beams_per_s=ro.shape[0] / med, hits=int((mask > 0.95).sum()), crop=crop,
+            rayschunk=4096)
+        launches[f"{name}_lidar_frame"] = frame_launches
+
+        # NVS: the tool, then its frames timed on the loaded run
+        path = "street_view" if multi else "small_circle"
+        nvs = at + ["--render.mode=nvs", f"--render.path={path}",
+                    f"--render.n_frames={SIM_NVS_FRAMES}", "--render.downscale=1"]
+        r, secs, launches[f"{name}_nvs"] = run_tool(f"render.main nvs {path} ({name})",
+                                                    render.main, nvs, frame_k)
+        if r["frames"] != list(range(SIM_NVS_FRAMES)) or not r["video"]:
+            raise AssertionError(f"nvs ({name}) wrote {r['frames']}, video {r['video']}")
+        W, H = loader.image_wh(cam)
+        xy = pixel_centres(W, H, 1, dev)
+        intr = scene.observers[cam].frame_data["intr"][0]
+        times = []
+        for c2w in nvs_poses(scene, cam, {"path": path, "n_frames": SIM_NVS_FRAMES}):
+            o, d = get_rays(xy, intr, torch.from_numpy(c2w).to(dev))
+            at_ = (scene.slice_at(0),) if multi else ()
+            fr, s_ = sync_s(lambda: rend.render_chunked(params, *at_, o.contiguous(),
+                                                        d.contiguous(), rayschunk=4096,
+                                                        occ_states=occ))
+            times.append(s_ * 1e3)
+            if not all(bool(torch.isfinite(fr[k]).all()) for k in ("rgb_volume", "depth_volume")):
+                raise AssertionError(f"an nvs frame ({name}) is not finite")
+        summary[f"sim_{name}_nvs"] = dict(path=path, frames=SIM_NVS_FRAMES, hw=[H, W],
+                                          ms_median=float(np.median(times)), ms=times,
+                                          tool_s=secs)
+        log(f"nvs {path} ({name}): {H}x{W} at downscale 1, median {np.median(times):.1f} ms a "
+            f"frame (host clock to a sync) {times}")
+        del card, rend, params, occ, scene
+        torch.cuda.empty_cache()
+
+    # re-simulation on the multi-object run: against phase 15's plain replay
+    exp, extra = exps["multi"][:2]
+    at = ["--resume_dir", exp] + extra
+    base = png(os.path.join(exp, "render_replay", "rgb_0000.png"))
+    replay = ["--render.frames=0", "--render.video=false"]
+    ego = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    ego[:, :3, 3] = [[0.0, 3.0, 1.8], [1.5, 3.0, 1.8]]
+    veh = np.eye(4, dtype=np.float32)[None].copy()
+    veh[:, :3, 3] = [5.0, -2.2, 0.9]
+    traj = os.path.join(tmp, "traj.npz")
+    np.savez(traj, ego_car=ego, veh_0=veh)
+    for form, anim in (("reverse_ego", "reverse_ego"), ("file", traj)):
+        r, _, launches[f"anim_{form}"] = run_tool(f"render.main replay anim {form}", render.main,
+                                                  at + replay + [f"--render.anim={anim}"],
+                                                  EVAL_FRAME_KERNELS)
+        diff = float(np.abs(png(os.path.join(r["out_dir"], "rgb_0000.png")) - base).max())
+        log(f"anim {form}: frame 0 at most {diff:g} grey levels from the plain replay")
+        if diff <= SIM_GREY:
+            raise AssertionError(f"anim {form} did not change the replayed frame")
+        summary[f"sim_anim_{form}_grey"] = diff
+
+    # the edits on the multi-object run, against the unedited frame
+    card = load_render(BaseConfig("chip_smoke").parse(at), dev)
+    scene, rend, params, loader = card.scene, card.renderer, card.params, card.loader
+    o, d = camera_get_selected_rays(scene.slice_at(0), loader.cam_ids[0],
+                                    pixel_centres(*loader.image_wh(loader.cam_ids[0]), 2, dev))
+    with torch.no_grad():
+        unedited = rend.ray_query(params, scene.slice_at(0), o.contiguous(),
+                                  d.contiguous())["rgb_volume"].cpu().numpy()
+    del card, rend, params, scene
+    for mode in SIM_EDITS:
+        r, _, launches[f"edit_{mode}"] = run_tool(
+            f"manipulate.main {mode}", manipulate.main,
+            ["--resume_dir", exp, f"--manipulate.mode={mode}"], SIM_EDIT_KERNELS)
+        diff = float(np.abs(r["rgb"].reshape(-1, 3) - unedited).max())
+        log(f"manipulate {mode}: {r['path']}, at most {diff:.4g} from the unedited frame")
+        if not np.isfinite(r["rgb"]).all() or diff <= 0:
+            raise AssertionError(f"manipulate {mode}: the frame is not finite, or unedited")
+        summary[f"sim_edit_{mode}_diff"] = diff
+
+    # geometry on the StreetSurf run
+    exp = exps["street"][0]
+    at = ["--resume_dir", exp]
+    m, secs, launches["extract_mesh"] = run_tool("extract_mesh.main", extract_mesh.main,
+                                                 at + [f"--res={SIM_MESH_RES}"], SIM_SDF_KERNELS)
+    if m["faces"].shape[0] == 0 or not np.isfinite(m["verts"]).all():
+        raise AssertionError("extract_mesh wrote an empty mesh")
+    summary["sim_mesh"] = dict(res=SIM_MESH_RES, verts=int(m["verts"].shape[0]),
+                               faces=int(m["faces"].shape[0]), tool_s=secs)
+    r, _, _ = run_tool("render.main replay (streetsurf)", render.main,
+                       at + replay, DISK_STREET_FRAME)
+    base = png(os.path.join(r["out_dir"], "rgb_0000.png"))
+    r, _, launches["mesh_overlay"] = run_tool(
+        "render.main replay mesh_overlay", render.main,
+        at + replay + [f"--render.mesh_overlay={m['path']}"], DISK_STREET_FRAME)
+    diff = float(np.abs(png(os.path.join(r["out_dir"], "rgb_0000.png")) - base).max())
+    log(f"mesh overlay: frame 0 at most {diff:g} grey levels from the plain replay")
+    if diff <= SIM_GREY:
+        raise AssertionError("the mesh overlay did not paint the replayed frame")
+    summary["sim_mesh_overlay_grey"] = diff
+
+    card = load_render(BaseConfig("chip_smoke").parse(at), dev)
+    sdf = close_range_sdf(card.params, card.cr_id)
+    mn, mx = close_range_box(card.params, card.cr_id)
+
+    def grid_points(res):
+        xs = [np.linspace(mn[i], mx[i], res) for i in range(3)]
+        return np.stack(np.meshgrid(*xs, indexing="ij"), -1).reshape(-1, 3).astype(np.float32)
+
+    def sdf_grid(pts):
+        vals = np.empty(pts.shape[0], np.float32)
+        for i in range(0, pts.shape[0], SIM_SDF_CHUNK):
+            vals[i:i + SIM_SDF_CHUNK] = sdf(pts[i:i + SIM_SDF_CHUNK])
+        return vals
+
+    pts = grid_points(SIM_MESH_RES)
+    vals, _ = sync_s(lambda: sdf_grid(pts))
+    t0 = time.perf_counter()
+    verts, faces = marching_tets(vals.reshape((SIM_MESH_RES,) * 3), origin=mn,
+                                 spacing=(mx - mn) / (SIM_MESH_RES - 1))
+    summary["sim_mesh"]["marching_s"] = time.perf_counter() - t0
+    pts = grid_points(SIM_SDF_RES)
+    kernels.reset_counts()
+    vals, secs = sync_s(lambda: sdf_grid(pts))
+    sdf_launches = {k.name: k.launches for k in kernels.KERNELS.values() if k.launches}
+    sel = np.random.default_rng(0).choice(pts.shape[0], SIM_SDF_CHECK, replace=False)
+    cpu = load_render({**BaseConfig("chip_smoke").parse(at), "ckpt": "final"}, "cpu")
+    ref = close_range_sdf(cpu.params, cpu.cr_id)(pts[sel])
+    e_sdf = float((np.abs(vals[sel] - ref) / (1.0 + np.abs(ref))).max())
+    summary["sim_sdf_grid"] = dict(res=SIM_SDF_RES, points=int(pts.shape[0]), s=secs,
+                                   points_per_s=pts.shape[0] / secs, chunk=SIM_SDF_CHUNK,
+                                   cpu_check_points=SIM_SDF_CHECK, max_rel_err=e_sdf,
+                                   launches=sdf_launches)
+    log(f"street SDF grid {SIM_SDF_RES}^3: {secs:.2f} s, {pts.shape[0] / secs:.4g} points/s "
+        f"(chunks of {SIM_SDF_CHUNK}, host clock to a sync, copies included), launches "
+        f"{sdf_launches}; {SIM_SDF_CHECK} points vs the CPU {e_sdf:.3g} of 1 + |sdf| (tol "
+        f"{SIM_SDF_TOL:g}); marching at {SIM_MESH_RES}^3 on the host "
+        f"{summary['sim_mesh']['marching_s']:.2f} s ({verts.shape[0]} verts)")
+    if e_sdf > SIM_SDF_TOL or not np.isfinite(vals).all():
+        raise AssertionError("the street's SDF grid differs from the CPU path's")
+    del card, cpu, pts, vals
+
+    res = 64
+    g, _, launches["extract_occgrid"] = run_tool("extract_occgrid.main", extract_occgrid.main,
+                                                 at + [f"--res={res}"], SIM_SDF_KERNELS)
+    with np.load(g["path"]) as z:
+        if set(z.files) != {"occ_corners", "sidelength", "aabb_min", "aabb_max", "voxel_size",
+                            "occ_thresh"} or len(z["occ_corners"]) == 0:
+            raise AssertionError("extract_occgrid wrote another npz, or no voxel")
+    summary["sim_occgrid_voxels"] = int(len(g["occ_corners"]))
+    for source, want in (("camera", DISK_STREET_FRAME), ("lidar_gt", ())):
+        v, _, launches[f"visible_grid_{source}"] = run_tool(
+            f"extract_visible_grid.main {source}", extract_visible_grid.main,
+            at + [f"--grid.source={source}", f"--grid.res={res}", f"--grid.frames={SIM_GRID_FRAMES}",
+                  f"--grid.out={os.path.join(tmp, f'vg_{source}.npz')}"], want)
+        if v["voxels"] <= 0 or not os.path.isfile(v["path"]):
+            raise AssertionError(f"extract_visible_grid {source} found no voxel")
+        summary[f"sim_visible_grid_{source}_voxels"] = v["voxels"]
+    sl, _, launches["visualize_slice"] = run_tool("visualize_slice.main", visualize_slice.main,
+                                                  at, SIM_SDF_KERNELS)
+    if len(sl["files"]) != 9 or not all(os.path.isfile(f) for f in sl["files"]):
+        raise AssertionError("visualize_slice did not write its nine slices")
+    rc, _, launches["run"] = run_tool(
+        "run.main extract_occgrid,visualize_slice", run.main,
+        ["extract_occgrid,visualize_slice"] + at
+        + [f"--res={res // 2}", "--slice.res=64", f"--out={os.path.join(tmp, 'run_occ.npz')}"],
+        SIM_SDF_KERNELS)
+    if rc != 0 or not os.path.isfile(os.path.join(tmp, "run_occ.npz")):
+        raise AssertionError("the run chain did not write its files")
+    return dict(summary=summary, launches=launches)
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8176,9 +8526,12 @@ def main(argv) -> int:
         # 17. pose refinement on EmerNeRF's path, on the same drive
         pose = pose_phase(dev, os.path.join(tmp, "data"), tmp, "--profile" in argv)
         phase_s["pose refinement"], t1 = time.perf_counter() - t1, time.perf_counter()
+        # 18. the simulation tools on phase 15's exp dirs
+        sim = simulation_phase(dev, tmp)
+        phase_s["simulation"], t1 = time.perf_counter() - t1, time.perf_counter()
     log("phases (s, host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
-    # 18. timing
+    # 19. timing
     (frame_ms, frame_min, frame_max), n_rays = time_frames(renderer, params, rig, dev)
     log(f"timing: frame median {frame_ms:.3f} ms (min {frame_min:.3f}, max "
         f"{frame_max:.3f}) for {n_rays} rays, {n_rays / frame_ms * 1e3:.1f} rays/s")
@@ -8439,12 +8792,22 @@ def main(argv) -> int:
                 f"per iteration): {c['ms']:.4f} ms ({card_extra(c)[2:]}, plain "
                 f"{c['plain_ms']:.4f}, bound {c['bound'][0]:.4f} by {c['bound'][1]}) at "
                 f"{c['shape']}")
+        # the simulation path: one pandar64 frame of each YAML's street, the
+        # street's SDF grid
+        row["simulation"] = {
+            "lidar_frame_launches_multi": sim["launches"]["multi_lidar_frame"][name],
+            "lidar_frame_launches_street": sim["launches"]["street_lidar_frame"][name],
+            "sdf_grid_launches": sim["summary"]["sim_sdf_grid"]["launches"].get(name, 0)}
+        log(f"kernel {name} (simulation path: {row['simulation']['lidar_frame_launches_multi']} "
+            f"launches per pandar64 frame of waymo_demo_multi's street, "
+            f"{row['simulation']['lidar_frame_launches_street']} of StreetSurf's, "
+            f"{row['simulation']['sdf_grid_launches']} per {SIM_SDF_RES}^3 SDF grid)")
         rows.append(row)
     if "--profile" in argv:
         profile_frame(renderer, params, rig, dev)
         profile_step(trainer, state, rig, dev)
 
-    # 19. results
+    # 20. results
     log(json.dumps({"frame_ms": frame_ms, "frame_ms_min": frame_min,
                     "frame_ms_max": frame_max, "rays_per_s": n_rays / frame_ms * 1e3,
                     "crop_max_abs_err": crop_err,
@@ -8457,7 +8820,7 @@ def main(argv) -> int:
                     **compose["summary"], **multi["summary"], **crowd["summary"],
                     **synth["summary"], **perlevel["summary"], **permuto["summary"],
                     **ckpt["summary"], **street["summary"], **disk["summary"],
-                    **emer["summary"], **pose["summary"], "card": smi}))
+                    **emer["summary"], **pose["summary"], **sim["summary"], "card": smi}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -100,14 +100,16 @@ class EmerNeRFField(nn.Module):
                   far: Optional[torch.Tensor] = None, num_coarse: int = 96,
                   perturb: bool = True, with_rgb: bool = True,
                   noise: Optional[Dict[str, Any]] = None, fuse_alpha: bool = False,
-                  h_appear: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                  h_appear: Optional[torch.Tensor] = None,
+                  forward_inv_s: Optional[float] = None) -> Dict[str, Any]:
         """The dense buffer of ``num_coarse`` samples a ray over the box's
         chord, with the summed density's alpha and each branch's share.
         ``cond`` [N, 1] (or [1, 1]): each ray's time in [0, 1], t = 0 without
         it. ``noise``: ``{"coarse": [N, num_coarse]}`` uniform draws that
         jitter the ladder (with ``perturb``), None for the deterministic one.
-        The alpha is always in the buffer (``fuse_alpha`` is the NeuS
-        fields'; no appearance code is read). Returns {t, mask, alpha,
+        The alpha is always in the buffer (``fuse_alpha`` and the LiDAR
+        simulation's ``forward_inv_s`` are the NeuS fields', not read here, as
+        the JAX field ignores them; no appearance code is read). Returns {t, mask, alpha,
         nablas (zeros), sigma_dynamic, sigma_static?, dynamic_ratio?,
         flow_fwd?, flow_bwd?, rgb?, details}."""
         N = rays_o.shape[0]

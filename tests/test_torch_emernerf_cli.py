@@ -72,6 +72,10 @@ def run(tmp_path_factory):
         calls.append(("replay", []))
         out["replay"] = render.main(at + ["--render.mode=replay", "--render.frames=0,2",
                                           "--render.video=false"])
+        calls.append(("lidar", []))
+        out["lidar"] = render.main(at + ["--render.mode=lidar", "--render.lidar_model=vlp16",
+                                         "--render.lidar_params={horizontal_res: 32}",
+                                         "--render.frames=1"])
     finally:
         mp.undo()
     return exp, out, dict(calls)
@@ -111,6 +115,17 @@ def test_replay_writes_the_seven_channels_at_each_frame_s_time(run):
     times = [float(c.reshape(-1)[0]) for c in calls["replay"]]
     assert [tuple(c.shape) for c in calls["replay"]] == [(1, 1), (1, 1)]
     assert times == [0.0, 1.0]
+
+
+def test_lidar_simulation_runs_on_the_density_field(run):
+    """The simulated LiDAR through EmerNeRF's field, which reads no inv_s (as
+    JAX's ignores it), at no frame's time (JAX's lidar mode passes none)."""
+    _, out, calls = run
+    r = out["lidar"]
+    assert r["frames"] == [1] and r["beams"] == 16 * 32 and r["points"] > 0
+    with np.load(os.path.join(r["out_dir"], "lidar_0001.npz")) as z:
+        assert np.isfinite(z["depth"]).all() and z["mask"].sum() == r["points"]
+    assert not calls["lidar"]                # one ray_query a chunk, no render_chunked
 
 
 @pytest.mark.parametrize("radius", [0.5, 2.0])

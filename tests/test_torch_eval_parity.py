@@ -25,7 +25,11 @@ within PSNR_TOL (<= 1.9e-5), its mean depth there within REL_TOL (<= 2e-5)
 and its dominant pixels within PIXELS_TOL (equal). The LiDAR: every beam a
 hit in both, RMSE, MAE and the chamfer distances within LIDAR_REL relative
 (measured <= 1.1e-3, the 95% trim of the predicted points: a moved sample
-moves a hit point across the quantile cut).
+moves a hit point across the quantile cut). The LiDAR simulation of
+``tools/render.py`` (a pandar64 cut to 8 x 64 beams on the camera at frames
+0 and 2, the street alone at forward_inv_s 256) and the street's SDF on a
+16^3 grid against JAX's from the same parameters, each with its limits in
+its test.
 """
 import copy
 
@@ -54,6 +58,7 @@ torch.set_num_threads(1)
 
 FRAMES = [0, 2]
 PSNR_TOL, SSIM_TOL, REL_TOL, MASS_TOL, PIXELS_TOL, LIDAR_REL = 1e-3, 1e-5, 1e-3, 1e-5, 2, 3e-3
+SDF_TOL = 1e-5
 CFG = copy.deepcopy(SMALL)
 CFG["assetbank_cfg"]["Street"]["model_params"]["pretrain"]["n_iters"] = 200
 
@@ -176,3 +181,69 @@ def test_lidar_scores_match_jax(pair):
             else:
                 np.testing.assert_allclose(g[k], v, rtol=LIDAR_REL, err_msg=k)
     assert want["mean"]["hit_recall"] > 0.5
+
+
+SIM_FRAMES = (0, 2)
+SIM_LIDAR = {"n_channels": 8, "horizontal_res": 64}
+
+
+@pytest.fixture(scope="module")
+def simulated(pair):
+    """A small surround LiDAR (8 x 64 beams) mounted on the camera at frames
+    0 and 2, the street alone at forward_inv_s 256 through each package's
+    render tool's pieces -> [(port's, JAX's) (rays_o, rays_d, depth, mask)]."""
+    from neuralsim_tpu.scene.observers.lidars import make_lidar_generator as jax_generator
+    from neuralsim_tpu.scene.observers.lidars import lidar_rays_to_world as jax_to_world
+    from neuralsim_torch.tools.render import lidar_frame_rays, lidar_query
+    out = []
+    for fi in SIM_FRAMES:
+        ro, rd = lidar_frame_rays(pair["scene"].slice_at(fi), pair["loader"], fi, "pandar64",
+                                  SIM_LIDAR, "camera_FRONT", "cpu")
+        depth, mask = lidar_query(pair["renderer"], pair["params"], ro, rd,
+                                  frozen=pair["scene"].slice_at(0), occ={"cr": pair["st"]},
+                                  forward_inv_s=256.0, rayschunk=CHUNK)
+        o, d = jax_generator("pandar64", **SIM_LIDAR).get_all_rays()
+        jo, jd = jax_to_world(pair["jscene"].slice_at(fi), "camera_FRONT", o, d)
+        r = _JaxLidarAdapter(pair["jscene"], pair["jr"]).ray_query(
+            pair["jp"], jo, jd, occ_states={"cr": pair["jst"]}, with_rgb=False, only_cr=True,
+            query_overrides={"perturb": False, "forward_inv_s": 256.0})
+        out.append(((ro.numpy(), rd.numpy(), depth.numpy(), mask.numpy()),
+                    (np.asarray(jo), np.asarray(jd), np.asarray(r["depth_volume"]),
+                     np.asarray(r["mask_volume"]))))
+    return out
+
+
+def test_simulated_lidar_matches_jax(simulated):
+    """Beams within 1e-6 (the camera's world pose, each package's products:
+    measured 6e-8); the hits (mask > 0.95, the render tool's rule) equal;
+    each beam's depth within the file's LiDAR limit relative to 1 + depth,
+    and its hit point's distance from JAX's too (measured <= 1.09e-3: 2 of
+    512 beams a frame past 1e-4, a sample moved as on the camera rays; the
+    mean 3.6e-6)."""
+    from neuralsim_torch.tools.render import LIDAR_HIT
+    for (ro, rd, depth, mask), (jo, jd, jdepth, jmask) in simulated:
+        np.testing.assert_allclose(ro, jo, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(rd, jd, rtol=0, atol=1e-6)
+        hit = mask > LIDAR_HIT
+        np.testing.assert_array_equal(hit, jmask > LIDAR_HIT)
+        assert 0.2 < hit.mean() < 1.0
+        e = np.abs(depth - jdepth) / (1.0 + np.abs(jdepth))
+        assert e.max() <= LIDAR_REL, e.max()
+        pts, jpts = ro[hit] + depth[hit, None] * rd[hit], jo[hit] + jdepth[hit, None] * jd[hit]
+        assert (np.linalg.norm(pts - jpts, axis=-1) / (1.0 + jdepth[hit])).max() <= LIDAR_REL
+
+
+def test_street_sdf_grid_matches_jax(pair):
+    """The street's SDF on a 16^3 grid over its box, the port's
+    ``tools.extract_mesh.close_range_sdf`` against JAX's ``query_sdf`` from
+    the same parameters: within SDF_TOL (float32 sums in each
+    package's order over values up to 7.1; measured 2.4e-6)."""
+    from neuralsim_torch.tools.extract_mesh import close_range_sdf
+    field, mid, _ = pair["jr"].scene_models["cr"]
+    mn, mx = pair["cr_aabb"]
+    xs = [np.linspace(mn[i], mx[i], 16) for i in range(3)]
+    pts = np.stack(np.meshgrid(*xs, indexing="ij"), -1).reshape(-1, 3).astype(np.float32)
+    got = close_range_sdf(pair["params"], pair["renderer"].scene_models["cr"][0])(pts)
+    want = np.asarray(field.query_sdf(pair["jp"][mid], jnp.asarray(pts)))
+    assert got.shape == want.shape == (16 ** 3,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=SDF_TOL)

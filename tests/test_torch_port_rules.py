@@ -54,7 +54,10 @@ def test_importing_every_module_loads_no_jax():
               "dataio.synthetic_multi", "fields.encodings.permuto", "ops.latent_take",
               "utils", "utils.checkpoint", "utils.logger", "utils.misc", "maths.metrics",
               "tools.eval_multi", "tools.eval_lidar", "config", "config.config",
-              "fields.embeddings", "scene.scene_bank", "tools.build", "fields.emernerf"):
+              "fields.embeddings", "scene.scene_bank", "tools.build", "fields.emernerf",
+              "anim", "anim.anim", "graphics", "graphics.marching", "models.misc_assets",
+              "tools.render", "tools.manipulate", "tools.extract_mesh", "tools.extract_occgrid",
+              "tools.extract_visible_grid", "tools.visualize_slice", "tools.run"):
         assert f"neuralsim_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -78,7 +81,10 @@ def test_sources_do_not_import_jax():
                 "fields/encodings/permuto.py", "fields/conditional.py", "ops/latent_take.py",
                 "utils/checkpoint.py", "tools/eval_multi.py", "tools/eval_lidar.py",
                 "config/config.py", "config/__init__.py", "fields/embeddings.py",
-                "scene/scene_bank.py", "fields/emernerf.py"):
+                "scene/scene_bank.py", "fields/emernerf.py", "anim/anim.py",
+                "graphics/marching.py", "models/misc_assets.py", "scene/observers/lidars.py",
+                "tools/manipulate.py", "tools/extract_mesh.py", "tools/extract_occgrid.py",
+                "tools/extract_visible_grid.py", "tools/visualize_slice.py", "tools/run.py"):
         assert PKG / new in files
     for f in files:
         assert not pat.search(f.read_text()), f
@@ -129,6 +135,37 @@ def test_driver_main_functions_default_to_the_card(monkeypatch, tmp_path, entry)
            "renderer": {**WAYMO_DEMO_MULTI["renderer"], "type": "multi"}}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry(cfg)
+    assert not (tmp_path / "exp").exists()
+
+
+SIM_TOOLS = {"render_lidar": ("render", "lidar"), "render_nvs": ("render", "nvs"),
+             "manipulate": ("manipulate", None), "extract_mesh": ("extract_mesh", None),
+             "extract_occgrid": ("extract_occgrid", None),
+             "extract_visible_grid": ("extract_visible_grid", None),
+             "visualize_slice": ("visualize_slice", None)}
+
+
+@pytest.mark.parametrize("tool", list(SIM_TOOLS) + ["lidar_generator"])
+def test_simulation_tools_default_to_the_card(monkeypatch, tmp_path, tool):
+    """The main_function of each sensor-simulation and editing tool on
+    WAYMO_DEMO_MULTI (the compose branch) and WAYMO_STREETSURF (the
+    single-scene one), refused without the card before any file is written;
+    a synthetic LiDAR's beams are handed to the card by default."""
+    import importlib
+    from neuralsim_torch.scene.observers.lidars import make_lidar_generator
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if tool == "lidar_generator":
+        # this CPU build of torch has no CUDA: moving a tensor to the card fails
+        with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+            make_lidar_generator("pandar64").get_all_rays()
+        return
+    module, mode = SIM_TOOLS[tool]
+    main_function = importlib.import_module(f"neuralsim_torch.tools.{module}").main_function
+    multi = {**WAYMO_DEMO_MULTI, "renderer": {**WAYMO_DEMO_MULTI["renderer"], "type": "multi"}}
+    for cfg in (multi, WAYMO_STREETSURF):
+        cfg = {**cfg, "exp_dir": str(tmp_path / "exp"), "render": {"mode": mode}}
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main_function(cfg)
     assert not (tmp_path / "exp").exists()
 
 

@@ -43,7 +43,9 @@ from neuralsim_torch.scene import Scene
 from neuralsim_torch.scene.observers.extra_cameras import (ortho_get_rays, panorama_get_rays,
                                                            panorama_project)
 from neuralsim_torch.tools import eval as single_eval
-from neuralsim_torch.tools import eval_lidar, eval_multi, render, train, train_multi
+from neuralsim_torch.tools import (eval_lidar, eval_multi, extract_mesh, extract_occgrid,
+                                   extract_visible_grid, manipulate, render, run, train,
+                                   train_multi, visualize_slice)
 from neuralsim_torch.tools.build import multi_dataset, multi_scenario, single_dataset
 
 torch.set_num_threads(1)
@@ -230,12 +232,14 @@ def test_the_single_scene_chain_runs_with_finite_metrics(street_run, tool):
 
 def test_render_refuses_what_is_not_ported(street_run):
     at = ["--resume_dir", street_run[0], "--device=cpu"]
-    for arg, match in (("--render.mode=nvs", "nvs"), ("--render.mode=lidar", "lidar"),
-                       ("--render.anim={type: reverse}", "anim"),
-                       ("--render.mesh_overlay=m.ply", "mesh_overlay"),
-                       ("--render.data_parallel=true", "data_parallel")):
-        with pytest.raises(NotImplementedError, match=match):
-            render.main(at + [arg])
+    with pytest.raises(NotImplementedError, match="data_parallel"):
+        render.main(at + ["--render.data_parallel=true"])
+    with pytest.raises(ValueError, match="spin"):
+        render.main(at + ["--render.mode=spin"])
+    with pytest.raises(ValueError, match="unknown anim type"):
+        render.main(at + ["--render.anim={type: reverse}"])
+    with pytest.raises(ValueError, match="unknown lidar_model"):
+        render.main(at + ["--render.mode=lidar", "--render.lidar_model=velodyne"])
 
 
 @pytest.mark.parametrize("filters", [{}, {"filter_lidar_max_range": 12.0},
@@ -332,13 +336,21 @@ def test_evaluate_scores_as_jax(drive, downscale):
 
 
 @pytest.mark.parametrize("tool", ["train_multi", "train", "eval_multi", "eval_lidar", "eval",
-                                  "render"])
+                                  "render", "render_lidar", "manipulate", "extract_mesh",
+                                  "extract_occgrid", "extract_visible_grid", "visualize_slice",
+                                  "run"])
 def test_every_command_line_runs_on_the_card_unless_asked(multi_run, drive, monkeypatch, tool):
     """Without ``--device=cpu`` each tool asks for the card, and says so
     where there is none."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fns = {"train_multi": train_multi.main, "train": train.main, "eval_multi": eval_multi.main,
-           "eval_lidar": eval_lidar.main, "eval": single_eval.main, "render": render.main}
+           "eval_lidar": eval_lidar.main, "eval": single_eval.main, "render": render.main,
+           "render_lidar": lambda a: render.main(a + ["--render.mode=lidar"]),
+           "manipulate": manipulate.main, "extract_mesh": extract_mesh.main,
+           "extract_occgrid": extract_occgrid.main,
+           "extract_visible_grid": extract_visible_grid.main,
+           "visualize_slice": visualize_slice.main,
+           "run": lambda a: run.main(["extract_mesh,render"] + a)}
     if tool.startswith("train"):
         argv = ["--config", MULTI_YAML if tool == "train_multi" else STREET_YAML,
                 f"--dataset_cfg.params.root={drive}", "--exp_dir=/nonexistent/x"]
@@ -347,3 +359,175 @@ def test_every_command_line_runs_on_the_card_unless_asked(multi_run, drive, monk
                                                  if tool != "eval" else [])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fns[tool](argv)
+
+
+# the sensor-simulation and editing tools from the same exp dirs: a pandar64
+# cut to 4 x 32 beams, NVS at 2 frames, the mesh at res 16, grids of 16
+SIM_LIDAR = ["--render.mode=lidar", "--render.lidar_model=pandar64",
+             "--render.lidar_params={n_channels: 4, horizontal_res: 32}"]
+NVS_PATHS = ("spherical_spiral", "small_circle", "street_view", "interpolation")
+EDIT_MODES = ("rotate", "translate", "scale", "delete", "thanos")
+
+
+def _png(path):
+    from PIL import Image
+    return np.asarray(Image.open(path), np.float32)
+
+
+def _lidar_files(r):
+    """-> (the render's result, {frame: the npz's arrays}, points.ply's vertices)."""
+    from neuralsim_torch.graphics import load_mesh_ply
+    npz = {}
+    for fi in r["frames"]:
+        with np.load(os.path.join(r["out_dir"], f"lidar_{fi:04d}.npz")) as z:
+            npz[fi] = {k: z[k] for k in z.files}
+    return r, npz, load_mesh_ply(os.path.join(r["out_dir"], "points.ply"))[0]
+
+
+@pytest.fixture(scope="module")
+def multi_sim(multi_run, tmp_path_factory):
+    """The simulation tools on the multi-object exp dir -> {case: result}."""
+    exp = multi_run[0]
+    at = ["--resume_dir", exp, "--device=cpu", "--renderer.type=multi"]
+    out = {"lidar_original": _lidar_files(render.main(at + ["--render.mode=lidar"])),
+           "lidar_pandar64": _lidar_files(render.main(at + SIM_LIDAR)),
+           "nvs_street_view": render.main(at + ["--render.mode=nvs", "--render.path=street_view",
+                                                "--render.n_frames=2", "--render.video=false"])}
+    base = _png(os.path.join(exp, "render_replay", "rgb_0000.png"))
+    replay = ["--render.frames=0", "--render.video=false"]
+    rev = render.main(at + replay + ["--render.anim=reverse_ego"])
+    out["anim_reverse_ego"] = (rev, np.abs(_png(os.path.join(rev["out_dir"], "rgb_0000.png"))
+                                           - base).max())
+    ego = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    ego[:, :3, 3] = [[0.0, 3.0, 1.8], [1.5, 3.0, 1.8]]           # off the lane
+    veh = np.tile(np.eye(4, dtype=np.float32), (1, 1, 1))
+    veh[:, :3, 3] = [5.0, -2.2, 0.9]                             # one pose, held
+    traj = str(tmp_path_factory.mktemp("anim") / "traj.npz")
+    np.savez(traj, ego_car=ego, veh_0=veh)
+    moved = render.main(at + replay + [f"--render.anim={traj}"])
+    out["anim_file"] = (moved, np.abs(_png(os.path.join(moved["out_dir"], "rgb_0000.png"))
+                                      - base).max())
+    edit = ["--resume_dir", exp, "--device=cpu"]
+    out["edit_none"] = manipulate.main(edit + ["--manipulate.mode=none"])
+    for mode in EDIT_MODES:
+        out[f"edit_{mode}"] = manipulate.main(edit + [f"--manipulate.mode={mode}"])
+    out["extract_mesh"] = extract_mesh.main(at + ["--res=16"])
+    out["visible_grid_camera"] = extract_visible_grid.main(
+        at + ["--grid.res=16", "--grid.frames=0", "--grid.rayschunk=64"])
+    return exp, out
+
+
+@pytest.fixture(scope="module")
+def street_sim(street_run):
+    """The simulation tools on the single-scene exp dir -> {case: result}."""
+    exp = street_run[0]
+    at = ["--resume_dir", exp, "--device=cpu"]
+    out = {"lidar_original": _lidar_files(render.main(at + ["--render.mode=lidar"])),
+           "lidar_pandar64": _lidar_files(render.main(at + SIM_LIDAR + ["--render.frames=1"]))}
+    for path in NVS_PATHS:
+        out[f"nvs_{path}"] = render.main(at + ["--render.mode=nvs", f"--render.path={path}",
+                                               "--render.n_frames=2", "--render.fps=4"])
+        out[f"nvs_{path}_frame"] = _png(os.path.join(exp, "render_nvs", "rgb_0001.png"))
+    out["extract_mesh"] = extract_mesh.main(at + ["--res=16"])
+    plain = _png(os.path.join(exp, "render_replay", "rgb_0001.png"))     # overwritten below
+    over = render.main(at + ["--render.frames=1", "--render.downscale=1", "--render.video=false",
+                             f"--render.mesh_overlay={out['extract_mesh']['path']}",
+                             "--render.mesh_alpha=0.9"])
+    out["mesh_overlay"] = (over, np.abs(_png(os.path.join(over["out_dir"], "rgb_0001.png"))
+                                        - plain).max())
+    out["extract_occgrid"] = extract_occgrid.main(at + ["--res=16"])
+    out["visible_grid_lidar_gt"] = extract_visible_grid.main(
+        at + ["--grid.source=lidar_gt", "--grid.res=16", "--grid.morphology=close2"])
+    out["visualize_slice"] = visualize_slice.main(at + ["--slice.res=12"])
+    out["slice_shapes"] = [_png(f).shape for f in out["visualize_slice"]["files"]]  # run redoes them
+    out["run"] = run.main(["extract_occgrid,visualize_slice"] + at
+                          + ["--res=8", "--slice.res=8", f"--out={exp}/run_occ.npz"])
+    return exp, out
+
+
+@pytest.mark.parametrize("which", ["multi", "street"])
+@pytest.mark.parametrize("model", ["original", "pandar64"])
+def test_lidar_simulation_writes_each_frame_and_the_cloud(multi_sim, street_sim, which, model):
+    exp, out = multi_sim if which == "multi" else street_sim
+    r, npz, cloud = out[f"lidar_{model}"]
+    assert r["out_dir"] == os.path.join(exp, "render_lidar")
+    assert r["frames"] == ([0, 1] if which == "multi" or model == "original" else [1])
+    n = 4 * 32 if model == "pandar64" else None
+    for fi, z in npz.items():
+        assert set(z) == {"depth", "mask", "rays_o", "rays_d"} and z["mask"].dtype == bool
+        assert n is None or z["depth"].shape == (n,)
+        assert np.isfinite(z["depth"]).all() and np.isfinite(z["rays_o"]).all()
+        np.testing.assert_allclose(np.linalg.norm(z["rays_d"], axis=-1), 1.0, atol=1e-5)
+    assert r["beams"] == sum(z["depth"].shape[0] for z in npz.values())
+    assert r["points"] == cloud.shape[0] == sum(int(z["mask"].sum()) for z in npz.values())
+    assert np.isfinite(cloud).all()
+
+
+@pytest.mark.parametrize("path", NVS_PATHS + ("multi_street_view",))
+def test_nvs_renders_each_path(multi_sim, street_sim, path):
+    exp, out = (multi_sim if path.startswith("multi") else street_sim)
+    r = out[path.replace("multi_", "nvs_") if path.startswith("multi") else f"nvs_{path}"]
+    assert r["out_dir"] == os.path.join(exp, "render_nvs") and r["frames"] == [0, 1]
+    assert os.path.isfile(os.path.join(r["out_dir"], "rgb_0001.png"))
+    assert path.startswith("multi") or (r["video"] and os.path.isfile(r["video"]))
+    if not path.startswith("multi"):
+        assert out[f"nvs_{path}_frame"].shape == (8, 12, 3)
+
+
+@pytest.mark.parametrize("form", ["reverse_ego", "file"])
+def test_anim_changes_the_replayed_frame(multi_sim, form):
+    """As JAX's tests/test_cli_train_e2e.py holds its own: more than 2 grey
+    levels apart somewhere."""
+    exp, out = multi_sim
+    r, diff = out[f"anim_{form}"]
+    assert r["out_dir"] == os.path.join(exp, "render_replay_anim")
+    assert diff > 2.0, diff
+
+
+def test_mesh_overlay_paints_the_replayed_frame(street_sim):
+    exp, out = street_sim
+    r, diff = out["mesh_overlay"]
+    assert r["out_dir"] == os.path.join(exp, "render_replay") and r["frames"] == [1]
+    assert out["extract_mesh"]["faces"].shape[0] > 0 and diff > 2.0, diff
+
+
+@pytest.mark.parametrize("mode", EDIT_MODES)
+def test_each_edit_renders_and_changes_the_frame(multi_sim, mode):
+    exp, out = multi_sim
+    r, base = out[f"edit_{mode}"], out["edit_none"]
+    assert r["path"] == os.path.join(exp, "manipulate", f"{mode}_veh_0_0000.png")
+    assert os.path.isfile(r["path"]) and np.isfinite(r["rgb"]).all()
+    assert r["rgb"].shape == base["rgb"].shape == (8, 12, 3)
+    assert np.abs(r["rgb"] - base["rgb"]).max() > 0
+
+
+@pytest.mark.parametrize("tool", ["extract_mesh_multi", "extract_mesh", "extract_occgrid",
+                                  "visible_grid_camera", "visible_grid_lidar_gt",
+                                  "visualize_slice", "run"])
+def test_the_geometry_tools_write_their_files(multi_sim, street_sim, tool):
+    from neuralsim_torch.graphics import load_mesh_ply
+    from neuralsim_torch.models.misc_assets import VisibleGrid
+    exp, out = multi_sim if tool in ("extract_mesh_multi", "visible_grid_camera") else street_sim
+    r = out[tool.replace("_multi", "")]
+    if tool.startswith("extract_mesh"):
+        assert r["path"] == os.path.join(exp, "mesh_res16.ply")
+        v, f = load_mesh_ply(r["path"])
+        np.testing.assert_array_equal(v, r["verts"])
+        np.testing.assert_array_equal(f, r["faces"])
+        assert len(f) > 0 and np.isfinite(v).all()
+    elif tool == "extract_occgrid":
+        with np.load(os.path.join(exp, "occgrid_res16.npz")) as z:
+            assert set(z.files) == {"occ_corners", "sidelength", "aabb_min", "aabb_max",
+                                    "voxel_size", "occ_thresh"}
+            np.testing.assert_array_equal(z["occ_corners"], r["occ_corners"])
+            assert 0 < len(z["occ_corners"]) < 16 ** 3
+    elif tool.startswith("visible_grid"):
+        assert r["path"] == os.path.join(exp, "visible_grid_res16.npz")
+        vg = VisibleGrid.load(r["path"])
+        assert r["voxels"] > 0 and vg.grid.sum() >= r["voxels"]
+    elif tool == "visualize_slice":
+        assert r["out_dir"] == os.path.join(exp, "slices") and len(r["files"]) == 9
+        assert out["slice_shapes"] == [(12, 12, 3)] * 9
+    else:
+        assert r == 0 and os.path.isfile(os.path.join(exp, "run_occ.npz"))
+        assert _png(os.path.join(exp, "slices", "axis2_0.50.png")).shape == (8, 8, 3)
